@@ -7,17 +7,29 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, each printing a line; any failure raises and exits non-zero:
 
-1. device   nvidia-smi's name and power limit, torch's device name
-2. build    compile the four kernels from neurovit_tpu_torch/csrc
-3. kernels  each kernel against its plain PyTorch version on the card, at
-            the flagship serving shapes, with CUDA-event timings of both
-4. slice    the flagship model (configs/config.yaml, seed 42) saved with
-            torch.save, served by Predictor.from_checkpoint on cuda:
-            warmup, then requests of 1, 3 and 32 volumes; checked against
-            single-volume calls and against the same model on the CPU
-5. http     the HTTP server on an ephemeral port: /healthz, then /predict
-            with three NIfTI files, two of them posted concurrently
-6. counts   every kernel launched depth times per forward of phases 4-5
+1. device      nvidia-smi's name and power limit, torch's device name
+2. build       compile the kernels from neurovit_tpu_torch/csrc
+3. kernels     each kernel against its plain PyTorch version on the card, at
+               the flagship shapes (batch 8 x 1001 tokens), with CUDA-event
+               timings of both: the forwards K1-K4 at dropout 0, K1, K3 and
+               K4 again at dropout 0.1 (the same mask bits on both sides),
+               and the backwards K5, K7, K8, K9 at dropout 0 and 0.1
+4. slice       the flagship model (configs/config.yaml, seed 42) saved with
+               torch.save, served by Predictor.from_checkpoint on cuda:
+               warmup, then requests of 1, 3 and 32 volumes; checked against
+               single-volume calls and against the same model on the CPU
+5. http        the HTTP server on an ephemeral port: /healthz, then /predict
+               with three NIfTI files, two of them posted concurrently;
+               every forward kernel launched depth times per forward of 4-5
+6. grad        the flagship at batch 2, dropout 0.1: loss and every
+               parameter's gradient on cuda against the CPU plain path
+7. train       Trainer.run() for one epoch of seeded 90^3 volumes (batch 32,
+               8 train and 2 val batches); its checkpoint served by
+               Predictor; then 10 steps on one fixed batch at dropout 0
+8. train_rate  train steps at batch 128: median step time, vol/s, TFLOP/s,
+               peak memory, and a profiler split of one step
+9. counts      in phase 7, every forward kernel launched depth times per
+               forward and every backward kernel depth times per backward
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Without CUDA, the script exits
@@ -26,6 +38,8 @@ non-zero before printing either.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -47,9 +61,22 @@ N_VALID_MASKED = 900
 # sum taken in another order lands on the other side of a bf16 rounding
 # boundary, which moves a value by one bf16 ulp (2^-8 to 2^-7 relative).
 ATOL, RTOL = 1e-2, 2.0 ** -6
+# Backward data gradients, elementwise: |kernel - plain| <= BWD_ATOL +
+# BWD_FRAC * max|plain| + RTOL * |plain|. Both sides round ds, dz and dh to
+# bf16 at the same points; an ulp of such an intermediate moves a sum of
+# ~1000 terms. dgamma / dbeta: relative Frobenius error <= PARAM_RTOL.
+BWD_ATOL, BWD_FRAC, PARAM_RTOL = 1e-4, 2e-2, 1e-2
 # Probabilities from different batch buckets, from HTTP and from the CPU
 # plain path: the same rounding points, six layers deep.
 PROB_ATOL = 2e-2
+# Full-model gradients, cuda against the CPU plain path: relative Frobenius
+# error per parameter (bf16 through six blocks and back).
+GRAD_RTOL = 2e-2
+DROPOUT = 0.1
+# Train FLOP per volume and step, from the shapes (PERF.md): 89.4 GFLOP
+# forward; the backward doubles every GEMM and attention's backward is 2.5x
+# its forward (flash_attention.py:434).
+TRAIN_GFLOP_PER_VOL = 3 * 89.4 + 6 * 0.5 * 2.05
 
 KERNELS = [
     # (name, source, replaces)
@@ -61,6 +88,14 @@ KERNELS = [
      "neurovit_tpu/ops/fused_outproj.py:44"),
     ("fused_mlp_block", "neurovit_tpu_torch/csrc/fused_mlp.cu",
      "neurovit_tpu/ops/fused_mlp.py:108"),
+    ("flash_attention_bwd", "neurovit_tpu_torch/csrc/flash_attention_bwd.cu",
+     "neurovit_tpu/ops/flash_attention.py:269"),
+    ("fused_ln_qkv_bwd", "neurovit_tpu_torch/csrc/fused_qkv_bwd.cu",
+     "neurovit_tpu/ops/fused_qkv.py:71"),
+    ("fused_outproj_bwd", "neurovit_tpu_torch/csrc/fused_outproj_bwd.cu",
+     "neurovit_tpu/ops/fused_outproj.py:56"),
+    ("fused_mlp_bwd", "neurovit_tpu_torch/csrc/fused_mlp_bwd.cu",
+     "neurovit_tpu/ops/fused_mlp.py:141"),
 ]
 
 
@@ -92,22 +127,35 @@ def cuda_ms(fn, warmup: int = 3, runs: int = 25) -> float:
     return float(np.median(times))
 
 
-def compare(name: str, got, want) -> tuple:
+def compare(name: str, got, want, grads: bool = False,
+            params=()) -> tuple:
+    """Elementwise check of every output (``grads``: the backward's
+    tolerance); outputs at the indices ``params`` are parameter gradients,
+    checked by relative Frobenius error."""
     got = [got] if isinstance(got, torch.Tensor) else list(got)
     want = [want] if isinstance(want, torch.Tensor) else list(want)
     max_abs, max_rel = 0.0, 0.0
-    for g, w in zip(got, want):
-        g, w = g.float(), w.float()
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.float().reshape(w.shape), w.float()
         if not torch.isfinite(g).all():
-            raise AssertionError(f"{name}: kernel output is not finite")
+            raise AssertionError(f"{name}: kernel output {i} is not finite")
         diff = (g - w).abs()
-        bad = diff > ATOL + RTOL * w.abs()
         max_abs = max(max_abs, float(diff.max()))
-        max_rel = max(max_rel, float(diff.max() / w.abs().max()))
+        max_rel = max(max_rel, float(diff.max() / w.abs().max().clamp_min(
+            1e-30)))
+        if i in params:
+            err = float((g - w).norm() / w.norm().clamp_min(1e-30))
+            if err > PARAM_RTOL:
+                raise AssertionError(f"{name}: output {i} relative Frobenius "
+                                     f"error {err:.3e} > {PARAM_RTOL}")
+            continue
+        tol = ((BWD_ATOL + BWD_FRAC * w.abs().max()) if grads else ATOL) + \
+            RTOL * w.abs()
+        bad = diff > tol
         if bad.any():
             raise AssertionError(
-                f"{name}: {int(bad.sum())} elements outside "
-                f"{ATOL} + {RTOL} * |plain| (max abs err {max_abs:.3e})")
+                f"{name}: output {i}: {int(bad.sum())} elements outside the "
+                f"tolerance (max abs err {float(diff.max()):.3e})")
     return max_abs, max_rel
 
 
@@ -122,9 +170,9 @@ def kernel_phase(card: str) -> dict:
         a = offset + scale * rng.standard_normal(shape)
         return torch.tensor(a, dtype=dtype, device=dev)
 
-    def w(out_f, in_f):   # nn.Linear's default range
+    def w(out_f, in_f, dtype=torch.float32):   # nn.Linear's default range
         a = rng.uniform(-1, 1, (out_f, in_f)) / in_f ** 0.5
-        return torch.tensor(a, dtype=torch.float32, device=dev)
+        return torch.tensor(a, dtype=dtype, device=dev)
 
     inner = HEADS * DIM_HEAD
     x = t(B, N, DIM)
@@ -132,42 +180,119 @@ def kernel_phase(card: str) -> dict:
     scale = DIM_HEAD ** -0.5
     ln = (t(DIM, scale=0.1, dtype=torch.float32, offset=1.0),
           t(DIM, scale=0.1, dtype=torch.float32))
+    wqkv = w(3 * inner, DIM, torch.bfloat16)
+    wout, bout = w(DIM, inner, torch.bfloat16), t(DIM, scale=0.03,
+                                                  dtype=torch.float32)
+    w1, b1 = w(MLP, DIM, torch.bfloat16), t(MLP, scale=0.03,
+                                            dtype=torch.float32)
+    w2, b2 = w(DIM, MLP, torch.bfloat16), t(DIM, scale=0.02,
+                                            dtype=torch.float32)
+    attn = t(B, N, inner)
+    mlp_args = (x, *ln, w1, b1, w2, b2)
+    drop = {"dropout_rate": DROPOUT, "seed": 1234}
+    mdrop = {"dropout_rate": DROPOUT, "seeds": (1235, 1236)}
+
+    # The backward's residuals and cotangents, from the plain forwards.
+    o, lsum = {}, {}
+    h = {}
+    for rate in (0.0, DROPOUT):
+        o[rate], lsum[rate] = flash_attention.flash_attention_plain(
+            *qkv, scale=scale, n_valid=N, dropout_rate=rate, seed=1234,
+            return_stats=True)
+        _, h[rate] = fused_mlp.fused_mlp_block_plain(
+            *mlp_args, dropout_rate=rate, seeds=(1235, 1236), return_h=True)
+    do = t(B, N, HEADS, DIM_HEAD)
+    dqkv = [t(B, N, HEADS, DIM_HEAD, scale=0.1) for _ in range(3)]
+    dy = t(B, N, DIM, scale=0.1)
+
+    def attn_bwd(fn, rate):
+        return lambda: fn(*qkv, o[rate], do, lsum[rate], scale=scale,
+                          n_valid=N, dropout_rate=rate, seed=1234)
+
+    def mlp_bwd(fn, rate):
+        return lambda: fn(dy, x, h[rate], *ln, w1, w2, dropout_rate=rate,
+                          seeds=(1235, 1236))
+
+    def outproj_bwd(fn, rate):
+        return lambda: fn(dy, wout, dropout_rate=rate, seed=1234)
+
+    fa, oq = flash_attention, fused_qkv
+    # name -> [(label, kernel call, plain call, grads, params)]; the first
+    # entry of each is the one timed into the JSON line.
     cases = {
-        "flash_attention": (
-            flash_attention.flash_attention_cuda,
-            flash_attention.flash_attention_plain,
-            [(tuple(qkv), {"scale": scale, "n_valid": N}),
-             (tuple(qkv), {"scale": scale, "n_valid": N_VALID_MASKED})]),
-        "fused_ln_qkv": (
-            fused_qkv.fused_ln_qkv_cuda, fused_qkv.fused_ln_qkv_plain,
-            [((x, *ln, w(3 * inner, DIM), HEADS, DIM_HEAD), {})]),
-        "fused_outproj_residual": (
-            fused_outproj.fused_outproj_residual_cuda,
-            fused_outproj.fused_outproj_residual_plain,
-            [((x, t(B, N, inner), w(DIM, inner),
-               t(DIM, scale=0.03, dtype=torch.float32)), {})]),
-        "fused_mlp_block": (
-            fused_mlp.fused_mlp_block_cuda, fused_mlp.fused_mlp_block_plain,
-            [((x, *ln, w(MLP, DIM), t(MLP, scale=0.03, dtype=torch.float32),
-               w(DIM, MLP), t(DIM, scale=0.02, dtype=torch.float32)), {})]),
+        "flash_attention": [
+            ("n_valid 1001", lambda: fa.flash_attention_cuda(
+                *qkv, scale=scale, n_valid=N),
+             lambda: fa.flash_attention_plain(*qkv, scale=scale, n_valid=N)),
+            (f"n_valid {N_VALID_MASKED}", lambda: fa.flash_attention_cuda(
+                *qkv, scale=scale, n_valid=N_VALID_MASKED),
+             lambda: fa.flash_attention_plain(*qkv, scale=scale,
+                                              n_valid=N_VALID_MASKED)),
+            (f"dropout {DROPOUT}", lambda: fa.flash_attention_cuda(
+                *qkv, scale=scale, n_valid=N, return_stats=True, **drop),
+             lambda: fa.flash_attention_plain(
+                 *qkv, scale=scale, n_valid=N, return_stats=True, **drop))],
+        "fused_ln_qkv": [
+            ("", lambda: oq.fused_ln_qkv_cuda(x, *ln, wqkv, HEADS, DIM_HEAD),
+             lambda: oq.fused_ln_qkv_plain(x, *ln, wqkv, HEADS, DIM_HEAD)),
+            ("with u", lambda: oq.fused_ln_qkv_cuda(
+                x, *ln, wqkv, HEADS, DIM_HEAD, return_u=True),
+             lambda: oq.fused_ln_qkv_plain(x, *ln, wqkv, HEADS, DIM_HEAD,
+                                           return_u=True))],
+        "fused_outproj_residual": [
+            ("", lambda: fused_outproj.fused_outproj_residual_cuda(
+                x, attn, wout, bout),
+             lambda: fused_outproj.fused_outproj_residual_plain(
+                 x, attn, wout, bout)),
+            (f"dropout {DROPOUT}",
+             lambda: fused_outproj.fused_outproj_residual_cuda(
+                 x, attn, wout, bout, **drop),
+             lambda: fused_outproj.fused_outproj_residual_plain(
+                 x, attn, wout, bout, **drop))],
+        "fused_mlp_block": [
+            ("", lambda: fused_mlp.fused_mlp_block_cuda(*mlp_args),
+             lambda: fused_mlp.fused_mlp_block_plain(*mlp_args)),
+            (f"dropout {DROPOUT} with h",
+             lambda: fused_mlp.fused_mlp_block_cuda(*mlp_args, return_h=True,
+                                                    **mdrop),
+             lambda: fused_mlp.fused_mlp_block_plain(*mlp_args, return_h=True,
+                                                     **mdrop))],
+        "flash_attention_bwd": [
+            (f"dropout {rate}", attn_bwd(fa.flash_attention_bwd_cuda, rate),
+             attn_bwd(fa.flash_attention_bwd_plain, rate), True, ())
+            for rate in (DROPOUT, 0.0)],
+        "fused_ln_qkv_bwd": [
+            ("", lambda: oq.fused_ln_qkv_bwd_cuda(*dqkv, x, ln[0], wqkv),
+             lambda: oq.fused_ln_qkv_bwd_plain(*dqkv, x, ln[0], wqkv), True,
+             (1, 2))],
+        "fused_outproj_bwd": [
+            (f"dropout {rate}",
+             outproj_bwd(fused_outproj.fused_outproj_bwd_cuda, rate),
+             outproj_bwd(fused_outproj.fused_outproj_bwd_plain, rate), True,
+             ()) for rate in (DROPOUT, 0.0)],
+        "fused_mlp_bwd": [
+            (f"dropout {rate}", mlp_bwd(fused_mlp.fused_mlp_bwd_cuda, rate),
+             mlp_bwd(fused_mlp.fused_mlp_bwd_plain, rate), True, (5, 6))
+            for rate in (DROPOUT, 0.0)],
     }
     results = {}
-    for name, (kernel, plain, calls) in cases.items():
+    for name, calls in cases.items():
         max_abs, max_rel = 0.0, 0.0
-        for args, kwargs in calls:
-            got = kernel(*args, **kwargs)
-            want = plain(*args, **kwargs)
+        for i, (label, kernel, plain, *check) in enumerate(calls):
+            got, want = kernel(), plain()
             torch.cuda.synchronize()
-            a, r = compare(f"{name} {kwargs or ''}", got, want)
+            a, r = compare(f"{name} {label}", got, want, *check)
             max_abs, max_rel = max(max_abs, a), max(max_rel, r)
-        args, kwargs = calls[0]
-        ms = cuda_ms(lambda: kernel(*args, **kwargs))
-        plain_ms = cuda_ms(lambda: plain(*args, **kwargs))
-        results[name] = {"max_abs_err": max_abs, "max_rel_err": max_rel,
-                         "ms": ms, "plain_ms": plain_ms}
+            if i == 0 or "dropout" in label:
+                ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+                if i == 0:
+                    results[name] = {"ms": ms, "plain_ms": plain_ms}
+                log("kernels", f"{name} {label}: kernel {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms at B={B} N={N}; max abs err {a:.3e}")
+            del got, want
+        results[name].update(max_abs_err=max_abs, max_rel_err=max_rel)
         log("kernels", f"{name}: max abs err {max_abs:.3e}, max rel err "
-            f"{max_rel:.3e} (tol {ATOL} + {RTOL:.4g}*|plain|); kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms at B={B} N={N}; {card}")
+            f"{max_rel:.3e} over {len(calls)} cases; {card}")
     return results
 
 
@@ -280,6 +405,217 @@ def http_phase(predictor, rng, workdir: str) -> None:
             raise AssertionError(f"{path}: status {status}, diff {diff}")
 
 
+def grad_phase(config) -> None:
+    """Loss and every parameter gradient of the full-width flagship, batch
+    2, dropout on, on cuda against the same weights on the CPU plain path.
+    The Philox masks are the same bits on both devices."""
+    from neurovit_tpu_torch import nn
+    from neurovit_tpu_torch.models import NeuroEncoder
+
+    config = dict(config, TRAINING_DROPOUT=DROPOUT)
+    cpu = NeuroEncoder(config, device="cpu", seed=SEED)
+    gpu = NeuroEncoder(config, device="cuda", seed=SEED)
+    rng = np.random.default_rng(SEED + 1)
+    vols = torch.from_numpy(_volumes(rng, 2, config["TRAINING_VIT_INPUT_SIZE"]))
+    labels = torch.tensor([0, 1])
+    losses = {}
+    for name, model in (("cuda", gpu), ("cpu", cpu)):
+        dev = next(model.parameters()).device
+        t0 = time.perf_counter()
+        loss = nn.softmax_cross_entropy(
+            model(vols.to(dev), train=True, seed=SEED), labels.to(dev))
+        loss.backward()
+        losses[name] = float(loss)
+        log("grad", f"{name}: loss {losses[name]:.6f}, forward + backward "
+            f"{time.perf_counter() - t0:.1f} s host clock")
+    if abs(losses["cuda"] - losses["cpu"]) > 2e-2 * abs(losses["cpu"]):
+        raise AssertionError(f"losses differ: {losses}")
+    worst = ("", 0.0)
+    for (name, pg), pc in zip(gpu.named_parameters(), cpu.parameters()):
+        g, c = pg.grad.float().cpu(), pc.grad.float()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{name}: gradient is not finite")
+        err = float((g - c).norm() / c.norm().clamp_min(1e-30))
+        worst = max(worst, (name, err), key=lambda e: e[1])
+        if err > GRAD_RTOL:
+            raise AssertionError(f"{name}: gradient relative Frobenius "
+                                 f"error {err:.3e} > {GRAD_RTOL}")
+    n = sum(1 for _ in gpu.parameters())
+    log("grad", f"{n} parameter gradients within {GRAD_RTOL}: worst "
+        f"{worst[0]} at {worst[1]:.3e}")
+
+
+class _SeededVolumes:
+    """In-memory 90^3 volumes made from a seed, two classes: a volume of
+    class 1 is brighter. The Trainer's DataLoader reads it like a
+    dataset."""
+
+    def __init__(self, n: int, size: int, seed: int, mode: str):
+        self.n, self.size, self.seed, self.mode = n, size, seed, mode
+
+    def __len__(self):
+        return self.n
+
+    def sample(self, idx):
+        rng = np.random.default_rng((self.seed, idx))
+        label = idx % 2
+        vol = rng.standard_normal((self.size,) * 3, dtype=np.float32)
+        return {"volume": vol + 0.5 * label, "label": label,
+                "subject": f"{self.mode}_{idx}", "timepoint": 0}
+
+
+def _train_config(config, workdir: str, **extra):
+    return {**config, "TRAINING_DROPOUT": DROPOUT,
+            "TRAINING_LEARNING_RATE": 1e-4, "TRAINING_BATCH_SIZE": 32,
+            "TRAINING_EPOCHS": 1, "TRAINING_NUM_WORKERS": 8,
+            "WANDB_ENABLED": False,
+            "GLOBAL_OUTPUT_DIR": os.path.join(workdir, "runs"), **extra}
+
+
+def train_phase(config, workdir: str, counters: dict) -> dict:
+    """Trainer.run() for one epoch on cuda, its checkpoint served, then 10
+    steps on one fixed batch. Returns the launch counts of the run."""
+    import glob
+
+    from neurovit_tpu_torch import nn
+    from neurovit_tpu_torch.models import NeuroEncoder
+    from neurovit_tpu_torch.serving import Predictor
+    from neurovit_tpu_torch.training import Trainer
+
+    cfg = _train_config(config, workdir)
+    size = cfg["TRAINING_VIT_INPUT_SIZE"]
+    model = NeuroEncoder(cfg, device="cuda", seed=SEED)
+    trainer = Trainer(cfg, model, _SeededVolumes(256, size, SEED, "train"),
+                      _SeededVolumes(64, size, SEED + 1, "val"))
+    depth = model.vit_cfg.depth
+    forwards, steps = [0], [0]
+    model.register_forward_hook(
+        lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    step = trainer.train_step
+
+    def counted_step(*args, **kwargs):
+        steps[0] += 1
+        return step(*args, **kwargs)
+
+    trainer.train_step = counted_step
+    out = io.StringIO()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        trainer.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    text = out.getvalue()
+    for line in text.splitlines():
+        log("train", line.expandtabs(1))
+    for want in ("epoch 0\t| batch 7/8\t| train_loss: ",
+                 "[VALIDATION] epoch 0\t| total_batch 1\t| val_loss ",
+                 "MODEL SAVED to ."):
+        if want not in text:
+            raise AssertionError(f"Trainer.run() did not print {want!r}")
+    pkl = glob.glob(os.path.join(cfg["GLOBAL_OUTPUT_DIR"], "*",
+                                 "model-e0.state_dict.pkl"))
+    if len(pkl) != 1 or not os.path.exists(pkl[0][:-len(".state_dict.pkl")]):
+        raise AssertionError(f"checkpoints not written: {pkl}")
+    log("train", f"one epoch ({steps[0]} steps, {forwards[0]} forwards) in "
+        f"{secs:.1f} s host clock, data loading included; {pkl[0]}")
+
+    log("counts", f"train run: {forwards[0]} forwards, {steps[0]} backwards "
+        f"x depth {depth}; launches {launches}")
+    for name, _, _ in KERNELS:
+        want = depth * (steps[0] if name.endswith("_bwd") else forwards[0])
+        if launches[name] == 0 or launches[name] != want:
+            raise AssertionError(f"{name} launched {launches[name]} times in "
+                                 f"the train run, expected {want}")
+
+    predictor = Predictor.from_checkpoint(cfg, pkl[0], batch_size=1,
+                                          bucket_sizes=(), device="cuda")
+    vol = _SeededVolumes(1, size, SEED + 2, "serve").sample(0)["volume"]
+    labels, probs = predictor(vol[None])
+    with torch.no_grad():
+        want = torch.softmax(model(torch.from_numpy(vol[None]).cuda()).float(),
+                             -1).cpu().numpy()
+    if not np.isfinite(probs).all() or np.abs(probs - want).max() > PROB_ATOL:
+        raise AssertionError(f"served {probs} against the trainer's {want}")
+    log("train", f"model-e0 served by Predictor: label {labels[0]}, probs "
+        f"{probs[0].tolist()} (trainer's model {want[0].tolist()})")
+
+    # Ten steps on one fixed batch, dropout off: the loss must fall. At
+    # lr 1e-4 Adam's first sign-like steps move the untrained full-width
+    # model's loss up and down on 8 samples; lr 1e-5 descends.
+    cfg0 = dict(cfg, TRAINING_DROPOUT=0.0, TRAINING_BATCH_SIZE=8,
+                TRAINING_LEARNING_RATE=1e-5)
+    fixed = Trainer(cfg0, NeuroEncoder(cfg0, device="cuda", seed=SEED),
+                    _SeededVolumes(8, size, SEED + 3, "fixed"),
+                    _SeededVolumes(8, size, SEED + 3, "fixed"))
+    batch, zyx, _ = next(fixed._device_prefetch(fixed.val_dataloader))
+    losses = [float(fixed.train_step(batch, zyx)["loss"]) for _ in range(10)]
+    log("train", f"fixed batch of 8, 10 steps at dropout 0, lr 1e-5: losses "
+        f"{[round(v, 5) for v in losses]}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    del trainer, fixed, predictor
+    return launches
+
+
+def train_rate_phase(config, workdir: str, card: str, batch: int = 128
+                     ) -> None:
+    """Median train-step time at batch 128 (3 warm-up steps, 5 timed),
+    vol/s, TFLOP/s from the shapes, peak memory, and a profiler split of
+    one step by kernel."""
+    from neurovit_tpu_torch.models import NeuroEncoder
+    from neurovit_tpu_torch.training import Trainer
+
+    cfg = _train_config(config, workdir, TRAINING_BATCH_SIZE=batch)
+    size = cfg["TRAINING_VIT_INPUT_SIZE"]
+    ds = _SeededVolumes(batch, size, SEED + 4, "rate")
+    trainer = Trainer(cfg, NeuroEncoder(cfg, device="cuda", seed=SEED), ds, ds)
+    dbatch, zyx, _ = next(trainer._device_prefetch(trainer.val_dataloader))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(dbatch, zyx)
+        torch.cuda.synchronize()
+        if i >= 3:
+            times.append(time.perf_counter() - t0)
+    ms = float(np.median(times)) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tflops = TRAIN_GFLOP_PER_VOL * batch / ms
+    log("train_rate", f"batch {batch}: step {ms:.2f} ms median of 5 "
+        f"(all {[round(t * 1e3, 2) for t in times]}), "
+        f"{batch / ms * 1e3:.1f} vol/s, {tflops:.1f} TFLOP/s "
+        f"({TRAIN_GFLOP_PER_VOL:.1f} GFLOP/vol), peak memory {peak:.2f} GiB; "
+        f"{card}")
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(dbatch, zyx)
+        torch.cuda.synchronize()
+    def device_ms(e):
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(e, attr):
+                return getattr(e, attr) / 1e3
+        return 0.0
+
+    rows = [(e.key, device_ms(e), e.count) for e in prof.key_averages()
+            if "CUDA" in str(getattr(e, "device_type", ""))
+            and device_ms(e) > 0]
+    rows.sort(key=lambda r: -r[1])
+    total = sum(r[1] for r in rows)
+    log("train_rate", f"profiled step: {total:.2f} ms of kernel time in "
+        f"{sum(r[2] for r in rows)} launches, {100 * total / ms:.1f} % of "
+        f"the median step")
+    for key, t, count in rows[:14]:
+        log("train_rate", f"  {t:9.3f} ms {100 * t / max(total, 1e-9):5.1f} % "
+            f"x{count:<4d} {key[:90]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs the "
@@ -308,12 +644,17 @@ def main() -> int:
     log("build", f"{lib.name} in {time.perf_counter() - t0:.1f} s")
 
     kernel_stats = kernel_phase(card)
+    torch.cuda.empty_cache()
 
     counters = {
         "flash_attention": flash_attention.flash_attention_cuda,
         "fused_ln_qkv": fused_qkv.fused_ln_qkv_cuda,
         "fused_outproj_residual": fused_outproj.fused_outproj_residual_cuda,
         "fused_mlp_block": fused_mlp.fused_mlp_block_cuda,
+        "flash_attention_bwd": flash_attention.flash_attention_bwd_cuda,
+        "fused_ln_qkv_bwd": fused_qkv.fused_ln_qkv_bwd_cuda,
+        "fused_outproj_bwd": fused_outproj.fused_outproj_bwd_cuda,
+        "fused_mlp_bwd": fused_mlp.fused_mlp_bwd_cuda,
     }
     config = load_config()
     rng = np.random.default_rng(SEED)
@@ -335,14 +676,22 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s")
         slice_phase(config, ckpt, predictor, rng)
         http_phase(predictor, rng, workdir)
-        launches = {name: fn.launches for name, fn in counters.items()}
+        serving = {name: fn.launches for name, fn in counters.items()}
+        log("http", f"serving: {forwards[0]} forward calls x depth {depth}; "
+            f"launches {serving}")
+        for name, count in serving.items():
+            want = 0 if name.endswith("_bwd") else depth * forwards[0]
+            if count != want or (want and count == 0):
+                raise AssertionError(f"{name} launched {count} times in "
+                                     f"serving, expected {want}")
+        del predictor
+        torch.cuda.empty_cache()
 
-    log("counts", f"{forwards[0]} forward calls x depth {depth}; launches "
-        f"{launches}")
-    for name, count in launches.items():
-        if count == 0 or count != depth * forwards[0]:
-            raise AssertionError(f"{name} launched {count} times, expected "
-                                 f"{depth} x {forwards[0]}")
+        grad_phase(config)
+        torch.cuda.empty_cache()
+        launches = train_phase(config, workdir, counters)
+        torch.cuda.empty_cache()
+        train_rate_phase(config, workdir, card)
 
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": source,

@@ -14,6 +14,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace nvt {
 
 using bf16 = __nv_bfloat16;
@@ -49,6 +51,58 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
+
+// Philox4x32-10 (Salmon et al., SC'11) of the counter (ctr, 0) -- the
+// 64-bit counter as words (lo, hi, 0, 0) -- under a 64-bit key.
+__device__ __forceinline__ uint4 philox4x32_10(uint64_t ctr, uint64_t key) {
+  uint32_t c0 = static_cast<uint32_t>(ctr);
+  uint32_t c1 = static_cast<uint32_t>(ctr >> 32);
+  uint32_t c2 = 0u, c3 = 0u;
+  uint32_t k0 = static_cast<uint32_t>(key);
+  uint32_t k1 = static_cast<uint32_t>(key >> 32);
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+  }
+  return make_uint4(c0, c1, c2, c3);
+}
+
+// The dropout mask of one site, as a pure function of the element's
+// row-major index i in the site's logical tensor: keep where byte i % 16 of
+// Philox(i / 16, seed) is below q (neurovit_tpu_torch/nn.py, random_bytes).
+// The last Philox block is cached, so a thread walking contiguous indices
+// pays one Philox call per 16 elements; any tiling gives the same bits.
+struct DropoutBits {
+  uint64_t seed;
+  uint64_t block;
+  uint4 w;
+
+  __device__ explicit DropoutBits(uint64_t s) : seed(s), block(~0ull) {}
+
+  __device__ __forceinline__ uint32_t byte(uint64_t i) {
+    const uint64_t b = i >> 4;
+    if (b != block) {
+      block = b;
+      w = philox4x32_10(b, seed);
+    }
+    const uint32_t j = static_cast<uint32_t>(i) & 15u;
+    const uint32_t word = j < 4 ? w.x : (j < 8 ? w.y : (j < 12 ? w.z : w.w));
+    return (word >> ((j & 3u) * 8u)) & 0xFFu;
+  }
+
+  __device__ __forceinline__ bool keep(uint64_t i, uint32_t q) {
+    return byte(i) < q;
+  }
+};
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -128,23 +182,27 @@ __device__ void layer_norm_rows(const bf16* __restrict__ x,
 // A is a bf16 row block resident in shared memory (leading dimension lda);
 // W is a torch Linear weight [N, K], row-major in global memory, so each
 // W row is one column of the product: a col_major wmma B operand with no
-// transpose anywhere. W streams through a two-stage cp.async ring of
-// BN x BK tiles (from L2: every row block of the grid reads the same W).
-// The f32 result lands in shared memory as C[BM][BN + 4], aliasing the
-// ring, for the caller's fused epilogue.
+// transpose anywhere. With KN = true, W is instead [K, N] row-major (the
+// backward's products dY . W by the same torch weight) and is read as a
+// row_major B operand, again with no transpose. W streams through a
+// two-stage cp.async ring of BN x BK tiles (from L2: every row block of
+// the grid reads the same W). The f32 result lands in shared memory as
+// C[BM][BN + 4], aliasing the ring, for the caller's fused epilogue.
 //
-// Contract: K % BK == 0, the W rows n0 .. n0 + BN exist, A, W and scratch
-// are 16-byte aligned. All threads of the block call run() together.
-template <int BM, int BN, int BK, int WARPS_M, int WARPS_N>
+// Contract: K % BK == 0, the W columns n0 .. n0 + BN exist, A, W and
+// scratch are 16-byte aligned. All threads of the block call run()
+// together.
+template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, bool KN = false>
 struct TileGemm {
   static constexpr int kThreads = WARPS_M * WARPS_N * 32;
   static constexpr int WM = BM / WARPS_M;
   static constexpr int WN = BN / WARPS_N;
   static constexpr int FM = WM / 16;
   static constexpr int FN = WN / 16;
-  static constexpr int LDB = BK + kPad;
+  static constexpr int LDB = KN ? BN + kPad : BK + kPad;
+  static constexpr int kStage = KN ? BK * LDB : BN * LDB;
   static constexpr int LDC = BN + 4;
-  static constexpr size_t kRingBytes = 2ull * BN * LDB * sizeof(bf16);
+  static constexpr size_t kRingBytes = 2ull * kStage * sizeof(bf16);
   static constexpr size_t kCBytes = 1ull * BM * LDC * sizeof(float);
   static constexpr size_t kScratchBytes =
       kRingBytes > kCBytes ? kRingBytes : kCBytes;
@@ -152,11 +210,20 @@ struct TileGemm {
 
   __device__ static void load_w(bf16* stage, const bf16* __restrict__ W,
                                 int ldw, int n0, int k0) {
-    constexpr int kChunks = BN * BK / 8;
-    for (int c = threadIdx.x; c < kChunks; c += kThreads) {
-      const int r = c / (BK / 8), col = (c % (BK / 8)) * 8;
-      cp_async16(stage + r * LDB + col,
-                 W + static_cast<size_t>(n0 + r) * ldw + k0 + col, 16);
+    if constexpr (KN) {
+      constexpr int kChunks = BK * BN / 8;
+      for (int c = threadIdx.x; c < kChunks; c += kThreads) {
+        const int r = c / (BN / 8), col = (c % (BN / 8)) * 8;
+        cp_async16(stage + r * LDB + col,
+                   W + static_cast<size_t>(k0 + r) * ldw + n0 + col, 16);
+      }
+    } else {
+      constexpr int kChunks = BN * BK / 8;
+      for (int c = threadIdx.x; c < kChunks; c += kThreads) {
+        const int r = c / (BK / 8), col = (c % (BK / 8)) * 8;
+        cp_async16(stage + r * LDB + col,
+                   W + static_cast<size_t>(n0 + r) * ldw + k0 + col, 16);
+      }
     }
   }
 
@@ -182,20 +249,21 @@ struct TileGemm {
     cp_async_commit();
     for (int kt = 0; kt < KT; ++kt) {
       if (kt + 1 < KT) {
-        load_w(ring + ((kt + 1) & 1) * BN * LDB, W, ldw, n0, (kt + 1) * BK);
+        load_w(ring + ((kt + 1) & 1) * kStage, W, ldw, n0, (kt + 1) * BK);
         cp_async_commit();
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
       }
       __syncthreads();
-      const bf16* Ws = ring + (kt & 1) * BN * LDB;
+      const bf16* Ws = ring + (kt & 1) * kStage;
 #pragma unroll
       for (int kk = 0; kk < BK; kk += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
             a[FM];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
-            b[FN];
+        using BLayout = typename std::conditional<KN, wmma::row_major,
+                                                  wmma::col_major>::type;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> b[FN];
 #pragma unroll
         for (int i = 0; i < FM; ++i)
           wmma::load_matrix_sync(
@@ -203,9 +271,14 @@ struct TileGemm {
                         kt * BK + kk,
               lda);
 #pragma unroll
-        for (int j = 0; j < FN; ++j)
-          wmma::load_matrix_sync(b[j], Ws + (wn * WN + j * 16) * LDB + kk,
-                                 LDB);
+        for (int j = 0; j < FN; ++j) {
+          if constexpr (KN)
+            wmma::load_matrix_sync(b[j], Ws + kk * LDB + wn * WN + j * 16,
+                                   LDB);
+          else
+            wmma::load_matrix_sync(b[j], Ws + (wn * WN + j * 16) * LDB + kk,
+                                   LDB);
+        }
 #pragma unroll
         for (int i = 0; i < FM; ++i)
 #pragma unroll

@@ -5,10 +5,15 @@
 // Same arithmetic, per (b, h) and query row:
 //   s = q . k^T * (scale * log2 e)               f32 accumulation
 //   p = exp2(clamp(s, -96, 96)) * (key < n_valid) f32
-//   denom = sum(p)                                f32
-//   o = bf16((bf16(p) . v) / denom)
+//   denom = sum(p)                                f32, before dropout
+//   p = p * mask                                  training only (:258-262)
+//   o = bf16((bf16(p) . v) / (denom * keep))
 // The +-96 clamp replaces the row-max subtraction (flash_attention.py:39-45),
-// so the key loop only sums: no online-softmax rescaling.
+// so the key loop only sums: no online-softmax rescaling. The dropout mask
+// of element (b, h, q, k) is nvt::DropoutBits at index ((b*H + h)*N + q)*N
+// + k: a function of position, so the backward (flash_attention_bwd.cu)
+// regenerates it under its own tiling. In training the kernel also writes
+// the f32 row sum denom per (b, h, q), the backward's row statistic.
 //
 // What bounds it on the H100: 4*N^2*D flops per (b, h) against 4*N*D*2 bytes,
 // about 500 flops a byte at N = 1001, so the tensor cores and the exp2 units,
@@ -57,7 +62,8 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o, int N,
-                     int H, int n_valid, float scale_log2e) {
+                     int H, int n_valid, float scale_log2e, float keep,
+                     uint32_t keep_q, uint64_t seed, float* __restrict__ lsum) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = reinterpret_cast<bf16*>(smem + kQBytes);
@@ -90,6 +96,11 @@ __global__ void __launch_bounds__(kThreads)
   // Lane -> (row, half row) of the warp's 16 x 64 score tile.
   const int pr = lane >> 1, pc = (lane & 1) * (kBKV / 2);
   float row_sum = 0.f;
+  const int qi = q0 + warp * 16 + pr;
+  // Dropout index of (b, h, qi, key 0); keep_q == 0 means no dropout.
+  const uint64_t row_idx =
+      (static_cast<uint64_t>(blockIdx.x) * N + qi) * static_cast<uint64_t>(N);
+  DropoutBits bits(seed);
 
   const int n_tiles = (n_valid + kBKV - 1) / kBKV;
   for (int t = 0; t < n_tiles; ++t) {
@@ -132,9 +143,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll 8
     for (int c = 0; c < kBKV / 2; ++c) {
       const float s = Sw[pr * kLDS + pc + c] * scale_log2e;
-      const float keep = (key0 + c) < n_valid ? 1.f : 0.f;
-      const float p = exp2f(fminf(fmaxf(s, -kScoreCap), kScoreCap)) * keep;
+      const float valid = (key0 + c) < n_valid ? 1.f : 0.f;
+      float p = exp2f(fminf(fmaxf(s, -kScoreCap), kScoreCap)) * valid;
       row_sum += p;
+      if (keep_q && !bits.keep(row_idx + key0 + c, keep_q)) p = 0.f;
       Pw[pr * kLDP + pc + c] = __float2bfloat16(p);
     }
     __syncwarp();
@@ -156,18 +168,20 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   row_sum += __shfl_xor_sync(0xffffffffu, row_sum, 1);
+  if (lsum != nullptr && qi < N && (lane & 1) == 0)
+    lsum[static_cast<size_t>(blockIdx.x) * N + qi] = row_sum;
+  const float denom = row_sum * keep;
 #pragma unroll
   for (int j = 0; j < kD / 16; ++j)
     wmma::store_matrix_sync(Sw + j * 16, of[j], kLDS, wmma::mem_row_major);
   __syncwarp();
-  const int qi = q0 + warp * 16 + pr;
   if (qi < N) {
     bf16* orow = o + head_base + qi * tok_stride;
 #pragma unroll
     for (int c = 0; c < kD / 2; c += 8) {
       float f[8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) f[i] = Sw[pr * kLDS + pc + c + i] / row_sum;
+      for (int i = 0; i < 8; ++i) f[i] = Sw[pr * kLDS + pc + c + i] / denom;
       *reinterpret_cast<uint4*>(orow + pc + c) = pack8(f);
     }
   }
@@ -177,12 +191,17 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace nvt
 
 // q, k, v, o: [B, N, H, 64] bf16, contiguous. 1 <= n_valid <= N.
+// keep_q: dropout threshold q of keep = q / 256, 0 for no dropout (then
+// keep = 1). lsum: [B, H, N] f32 row sums, or null (serving).
 extern "C" int nvt_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, void* o, int B, int N,
                                        int H, int D, int n_valid,
-                                       float scale_log2e, void* stream) {
+                                       float scale_log2e, float keep,
+                                       int keep_q, uint64_t seed, void* lsum,
+                                       void* stream) {
   using namespace nvt;
-  if (D != kD || B < 1 || N < 1 || H < 1 || n_valid < 1 || n_valid > N)
+  if (D != kD || B < 1 || N < 1 || H < 1 || n_valid < 1 || n_valid > N ||
+      keep_q < 0 || keep_q > 255)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = allow_smem(flash_fwd_kernel, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -191,7 +210,8 @@ extern "C" int nvt_flash_attention_fwd(const void* q, const void* k,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), N, H, n_valid,
-      scale_log2e);
+      scale_log2e, keep, static_cast<uint32_t>(keep_q), seed,
+      static_cast<float*>(lsum));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,9 +1,11 @@
 // Fused attention out-projection + bias + residual, bf16, deterministic.
 //
 // Replaces the TPU kernel neurovit_tpu/ops/fused_outproj.py:44 (_fwd_kernel,
-// launched at :79 by fused_outproj_residual) with dropout off:
-//   y = bf16(x + (a . Wout^T + b))       the bias and x added in f32,
-//                                        one rounding at the end
+// launched at :79 by fused_outproj_residual):
+//   z = a . Wout^T + b                   f32
+//   z = z * (mask * (1 / keep))          training only (fused_outproj.py:50-52)
+//   y = bf16(x + z)                      x added in f32, one rounding
+// The mask of element (row, col) is nvt::DropoutBits at row * dim + col.
 // a [M, inner] is the attention output viewed as rows (no head transpose),
 // Wout the torch weight [dim, inner].
 //
@@ -26,7 +28,8 @@ using Gemm = TileGemm<kBM, kBN, kBK, 2, 4>;
 __global__ void __launch_bounds__(Gemm::kThreads)
     outproj_kernel(const bf16* __restrict__ a, const bf16* __restrict__ x,
                    const bf16* __restrict__ w, const float* __restrict__ bias,
-                   bf16* __restrict__ y, int M, int inner, int dim) {
+                   bf16* __restrict__ y, int M, int inner, int dim,
+                   float inv_keep, uint32_t keep_q, uint64_t seed) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int lda = inner + kPad;
   bf16* A = reinterpret_cast<bf16*>(smem);
@@ -45,6 +48,7 @@ __global__ void __launch_bounds__(Gemm::kThreads)
 
   const float* C = reinterpret_cast<const float*>(scratch);
   const int n_begin = blockIdx.y * kChunk;
+  DropoutBits bits(seed);
   for (int n0 = n_begin; n0 < n_begin + kChunk; n0 += kBN) {
     Gemm::run(A, lda, w, inner, n0, inner, scratch);
     for (int e = threadIdx.x; e < kBM * kBN / 8; e += Gemm::kThreads) {
@@ -55,8 +59,11 @@ __global__ void __launch_bounds__(Gemm::kThreads)
       float xf[8], out[8];
       unpack8(*reinterpret_cast<const uint4*>(x + off), xf);
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        out[i] = (C[r * Gemm::LDC + c + i] + bias[n0 + c + i]) + xf[i];
+      for (int i = 0; i < 8; ++i) {
+        float z = C[r * Gemm::LDC + c + i] + bias[n0 + c + i];
+        if (keep_q) z *= bits.keep(off + i, keep_q) ? inv_keep : 0.f;
+        out[i] = z + xf[i];
+      }
       *reinterpret_cast<uint4*>(y + off) = pack8(out);
     }
   }
@@ -71,12 +78,15 @@ size_t smem_bytes(int inner) {
 }  // namespace nvt
 
 // a [M, inner], x [M, dim], w [dim, inner] bf16; bias [dim] f32;
-// y [M, dim] bf16. inner % 32 == 0, dim % 512 == 0.
+// y [M, dim] bf16. inner % 32 == 0, dim % 512 == 0. keep_q: dropout
+// threshold (0 = none), inv_keep = 1 / keep.
 extern "C" int nvt_fused_outproj_fwd(const void* a, const void* x,
                                      const void* w, const void* bias, void* y,
-                                     int M, int inner, int dim, void* stream) {
+                                     int M, int inner, int dim, float inv_keep,
+                                     int keep_q, uint64_t seed, void* stream) {
   using namespace nvt;
-  if (M < 1 || inner % kBK != 0 || dim % kChunk != 0)
+  if (M < 1 || inner % kBK != 0 || dim % kChunk != 0 || keep_q < 0 ||
+      keep_q > 255)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(inner);
   cudaError_t err = allow_smem(outproj_kernel, smem);
@@ -86,6 +96,7 @@ extern "C" int nvt_fused_outproj_fwd(const void* a, const void* x,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(a), static_cast<const bf16*>(x),
       static_cast<const bf16*>(w), static_cast<const float*>(bias),
-      static_cast<bf16*>(y), M, inner, dim);
+      static_cast<bf16*>(y), M, inner, dim, inv_keep,
+      static_cast<uint32_t>(keep_q), seed);
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,7 +17,9 @@
 // block computes the LN statistics of its 64 rows in f32 once and stages u
 // as bf16 in shared memory: the rounding point fused_qkv.py:62-63 fixes.
 // Grid: (ceil(M/64), 3), blockIdx.y picks q, k or v; each block loops over
-// that output's 128-column tiles.
+// that output's 128-column tiles. In training the blocks of blockIdx.y == 0
+// also copy u to u_out [M, dim] (fused_qkv.py:57-68): the operand of the
+// dWqkv product. Serving passes null and pays nothing for it.
 #include "common.cuh"
 
 namespace nvt {
@@ -30,8 +32,8 @@ __global__ void __launch_bounds__(Gemm::kThreads)
     ln_qkv_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
                   const float* __restrict__ beta, const bf16* __restrict__ w,
                   bf16* __restrict__ q, bf16* __restrict__ k,
-                  bf16* __restrict__ v, int M, int dim, int inner,
-                  float eps) {
+                  bf16* __restrict__ v, bf16* __restrict__ u_out, int M,
+                  int dim, int inner, float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int ldu = dim + kPad;
   bf16* U = reinterpret_cast<bf16*>(smem);
@@ -41,6 +43,16 @@ __global__ void __launch_bounds__(Gemm::kThreads)
   layer_norm_rows<kBM, Gemm::kThreads>(x, gamma, beta, U, ldu, row0, M, dim,
                                        eps);
   const int which = blockIdx.y;
+  if (u_out != nullptr && which == 0) {
+    __syncthreads();
+    for (int c = threadIdx.x; c < kBM * (dim / 8); c += Gemm::kThreads) {
+      const int r = c / (dim / 8), col = (c % (dim / 8)) * 8;
+      if (row0 + r < M)
+        *reinterpret_cast<uint4*>(u_out + static_cast<size_t>(row0 + r) * dim +
+                                  col) =
+            *reinterpret_cast<const uint4*>(U + r * ldu + col);
+    }
+  }
   bf16* out = which == 0 ? q : (which == 1 ? k : v);
   const float* C = reinterpret_cast<const float*>(scratch);
   for (int c0 = 0; c0 < inner; c0 += kBN) {
@@ -64,10 +76,11 @@ size_t smem_bytes(int dim) {
 }  // namespace nvt
 
 // x [M, dim] bf16; gamma, beta [dim] f32; w [3*inner, dim] bf16;
-// q, k, v [M, inner] bf16. dim % 32 == 0, inner % 128 == 0.
+// q, k, v [M, inner] bf16; u [M, dim] bf16 or null.
+// dim % 32 == 0, inner % 128 == 0.
 extern "C" int nvt_fused_ln_qkv_fwd(const void* x, const void* gamma,
                                     const void* beta, const void* w, void* q,
-                                    void* k, void* v, int M, int dim,
+                                    void* k, void* v, void* u, int M, int dim,
                                     int inner, float eps, void* stream) {
   using namespace nvt;
   if (M < 1 || dim % kBK != 0 || inner % kBN != 0)
@@ -80,7 +93,7 @@ extern "C" int nvt_fused_ln_qkv_fwd(const void* x, const void* gamma,
                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(gamma),
       static_cast<const float*>(beta), static_cast<const bf16*>(w),
-      static_cast<bf16*>(q), static_cast<bf16*>(k), static_cast<bf16*>(v), M,
-      dim, inner, eps);
+      static_cast<bf16*>(q), static_cast<bf16*>(k), static_cast<bf16*>(v),
+      static_cast<bf16*>(u), M, dim, inner, eps);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,4 @@
-"""3D Vision Transformer, forward only, on the fused kernels.
+"""3D Vision Transformer on the fused kernels, for serving and training.
 
 Counterpart of ``neurovit_tpu/models/vit3d.py`` (reference semantics of
 ``src/models/vit_3d.py``):
@@ -10,7 +10,13 @@ Counterpart of ``neurovit_tpu/models/vit3d.py`` (reference semantics of
 - ``depth`` pre-norm blocks, each through the four fused ops
   (vit3d.py:325-391): LN+QKV, flash attention in the [B, N, H, D] layout,
   out-projection + residual, MLP block;
-- cls/mean pooling, then LN + Linear (vit3d.py:498-506).
+- cls/mean pooling, then LN + Linear (vit3d.py:498-506);
+- ``train=True`` turns dropout on (``dropout``, ``emb_dropout``): on the
+  embedding (vit3d.py:441, plain, outside any kernel) and, per block,
+  inside the kernels on the attention probabilities, the out-projection,
+  the MLP hidden and the MLP output. Every site gets its own Philox key,
+  ``nn.site_seed(seed, site)`` of the step's ``seed``: site 0 is the
+  embedding, block i uses sites 1 + 4i .. 4 + 4i in that order.
 
 The token stream is the real length (1001 at the flagship shape), not the
 TPU's lane-padded 1024 (vit3d.py:444-457): the attention kernel masks its
@@ -20,6 +26,11 @@ the checkpoint keys. Param-less slots of the reference's ``nn.Sequential``s
 (the patch rearrange, GELU, dropouts) are ``nn.Identity`` placeholders that
 keep the indices; the forward never calls the ``Sequential``s.
 
+The weights are cast to the activation dtype outside the fused ops, so in
+bf16 the ops' weight gradients are bf16 and autograd upcasts them to the
+f32 master weights, as JAX's ``kernel.astype(x.dtype)`` does
+(fused_mlp.py:330-333). LayerNorm affines and biases enter as f32.
+
 Not ported here: the pipeline path, the Grad-CAM probe, the int8 branch,
 the conv patch embed and remat (see ``NeuroEncoder``).
 """
@@ -27,7 +38,7 @@ the conv patch embed and remat (see ``NeuroEncoder``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn as tnn
@@ -53,6 +64,8 @@ class ViTConfig:
     mlp_dim: int = 2048
     channels: int = 1
     pool: str = "cls"          # 'cls' or 'mean'
+    dropout: float = 0.0       # in the blocks, when training
+    emb_dropout: float = 0.0   # on the embedding, when training
 
     def __post_init__(self):
         if self.image_size % self.image_patch_size:
@@ -132,14 +145,20 @@ class Attention(tnn.Module):
         self.to_out = tnn.Sequential(tnn.Linear(cfg.inner_dim, cfg.dim, **fk),
                                      tnn.Identity())
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rate: float = 0.0,
+                seeds: Tuple[int, int] = (0, 0)) -> torch.Tensor:
+        """``seeds``: the keys of the probability and projection sites."""
         b, n, _ = x.shape
+        dt = x.dtype
         q, k, v = fused_ln_qkv(x, self.norm.weight, self.norm.bias,
-                               self.to_qkv.weight, self.heads, self.dim_head)
-        o = flash_attention(q, k, v, scale=self.dim_head ** -0.5, n_valid=n)
+                               self.to_qkv.weight.to(dt), self.heads,
+                               self.dim_head)
+        o = flash_attention(q, k, v, scale=self.dim_head ** -0.5, n_valid=n,
+                            dropout_rate=rate, seed=seeds[0])
         out = self.to_out[0]
-        return fused_outproj_residual(x, o.reshape(b, n, -1), out.weight,
-                                      out.bias)
+        return fused_outproj_residual(x, o.reshape(b, n, -1),
+                                      out.weight.to(dt), out.bias,
+                                      dropout_rate=rate, seed=seeds[1])
 
 
 class FeedForward(tnn.Module):
@@ -155,10 +174,14 @@ class FeedForward(tnn.Module):
             tnn.Identity(), tnn.Linear(cfg.mlp_dim, cfg.dim, **fk),
             tnn.Identity())
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rate: float = 0.0,
+                seeds: Tuple[int, int] = (0, 0)) -> torch.Tensor:
+        """``seeds``: the keys of the hidden and output sites."""
         norm, fc1, fc2 = self.net[0], self.net[1], self.net[4]
-        return fused_mlp_block(x, norm.weight, norm.bias, fc1.weight,
-                               fc1.bias, fc2.weight, fc2.bias)
+        dt = x.dtype
+        return fused_mlp_block(x, norm.weight, norm.bias, fc1.weight.to(dt),
+                               fc1.bias, fc2.weight.to(dt), fc2.bias,
+                               dropout_rate=rate, seeds=seeds)
 
 
 class Transformer(tnn.Module):
@@ -169,9 +192,13 @@ class Transformer(tnn.Module):
                             FeedForward(cfg, device=device, dtype=dtype)])
             for _ in range(cfg.depth))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for attn, ff in self.layers:
-            x = ff(attn(x))
+    def forward(self, x: torch.Tensor, rate: float = 0.0,
+                seed: int = 0) -> torch.Tensor:
+        """``rate`` > 0: dropout with the site keys of step ``seed``."""
+        for i, (attn, ff) in enumerate(self.layers):
+            s = [nn.site_seed(seed, 1 + 4 * i + j) if rate else 0
+                 for j in range(4)]
+            x = ff(attn(x, rate, (s[0], s[1])), rate, (s[2], s[3]))
         return x
 
 
@@ -206,8 +233,12 @@ class ViT3D(tnn.Module):
             for p in (self.pos_embedding, self.cls_token):
                 p.copy_(torch.randn(p.shape, dtype=p.dtype, generator=gen))
 
-    def forward(self, volume: torch.Tensor) -> torch.Tensor:
+    def forward(self, volume: torch.Tensor, *, train: bool = False,
+                seed: Optional[int] = None) -> torch.Tensor:
+        """``train=True`` applies dropout, keyed by the step's ``seed``."""
         cfg = self.cfg
+        if train and (cfg.dropout or cfg.emb_dropout) and seed is None:
+            raise ValueError("dropout in training needs a seed")
         dt = volume.dtype
         pe = self.to_patch_embedding
         x = patchify(volume, cfg)
@@ -219,7 +250,10 @@ class ViT3D(tnn.Module):
         cls = self.cls_token.to(dt).expand(b, 1, cfg.dim)
         x = torch.cat([cls, x], dim=1)
         x = x + self.pos_embedding[:, :n + 1].to(dt)
-        x = self.transformer(x)
+        if train and cfg.emb_dropout:
+            x = nn.dropout(x, cfg.emb_dropout, nn.site_seed(seed, 0))
+        x = self.transformer(x, cfg.dropout if train else 0.0,
+                             seed if train and cfg.dropout else 0)
 
         pooled = x.mean(dim=1) if cfg.pool == "mean" else x[:, 0]
         head_norm, head_fc = self.mlp_head

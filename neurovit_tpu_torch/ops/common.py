@@ -7,11 +7,13 @@ import ctypes
 
 import torch
 
+from neurovit_tpu_torch import nn
 from neurovit_tpu_torch.ops import _build
 
 VOID = ctypes.c_void_p
 INT = ctypes.c_int
 FLOAT = ctypes.c_float
+U64 = ctypes.c_uint64
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:
@@ -45,8 +47,33 @@ def check_operand(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t) -> ctypes.c_void_p:
+    """A tensor's device pointer for a launch; None gives a null pointer."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def is_training(*tensors: torch.Tensor) -> bool:
+    """Whether a call records a graph: then the op runs through its
+    ``autograd.Function``, whose forward also keeps what the backward
+    kernel reads. Serving (no grad) launches the forward alone."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def weight_grad(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """dW = a^T b over the rows of two [M, *] activations, in their dtype:
+    the products that JAX leaves to XLA outside its kernels
+    (fused_mlp.py:290-297). bf16 operands with f32 accumulation; on the CPU
+    the f32 matmul of the exact products, rounded once."""
+    if a.device.type == "cpu":
+        return torch.matmul(a.float().t(), b.float()).to(a.dtype)
+    return torch.matmul(a.t(), b)
+
+
+def dropout_args(rate: float):
+    """(inv_keep, keep_q) of a launch: keep_q 0 turns a kernel's dropout
+    off (then inv_keep is 1)."""
+    q, keep = nn.keep_threshold(rate)
+    return (1.0 / keep, q) if rate else (1.0, 0)
 
 
 def launch(name: str, argtypes, like: torch.Tensor, *args) -> None:

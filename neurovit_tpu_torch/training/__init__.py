@@ -1,1 +1,5 @@
-"""Checkpoint interchange with the JAX package (no training yet)."""
+"""Training: the trainer, its optimizer and logger, and checkpoints that
+interchange with the JAX package."""
+
+from neurovit_tpu_torch.training.metrics import MetricLogger  # noqa: F401
+from neurovit_tpu_torch.training.trainer import Trainer  # noqa: F401

@@ -5,9 +5,12 @@ The port's module attributes follow the keys of
 ``neurovit_tpu/training/state_dict.py:35-77`` (e.g.
 ``volume_encoder.vit3d.transformer.layers.{i}.0.to_qkv.weight``), so a
 checkpoint the JAX package wrote with ``state_dict.save`` (torch's zip
-format) loads with ``model.load_state_dict(load(path))``.
-:func:`from_jax_params` converts a JAX params pytree in memory, which is how
-the tests give both packages the same weights.
+format) loads with ``model.load_state_dict(load(path))``, and
+:func:`save` writes torch's zip format, which the JAX package's
+``state_dict.load`` reads (``neurovit_tpu/training/state_dict.py:338-349``):
+weights trained by the port load in JAX. :func:`from_jax_params` converts a
+JAX params pytree in memory, which is how the tests give both packages the
+same weights.
 """
 
 from __future__ import annotations
@@ -74,6 +77,14 @@ def from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             out[f"{PREFIX}transformer.layers.{i}.{key}"] = _tensor(
                 _get(blocks, path)[i], t)
     return out
+
+
+def save(path: str, state_dict: Dict[str, torch.Tensor]) -> None:
+    """Write a flat state dict with ``torch.save``: each tensor detached,
+    on the CPU and in its own contiguous storage (no views shared between
+    entries), under the reference's key names."""
+    torch.save({k: v.detach().cpu().contiguous().clone()
+                for k, v in state_dict.items()}, path)
 
 
 def load(path: str) -> Dict[str, torch.Tensor]:

@@ -1,14 +1,21 @@
-"""The four Hopper kernels against their plain PyTorch versions on the card,
-at small and ragged shapes (the serving shapes are in chip_smoke.py).
+"""The Hopper kernels against their plain PyTorch versions on the card, at
+small and ragged shapes (the model's shapes are in chip_smoke.py): the
+forward kernels K1-K4 with and without dropout, and the backward kernels
+K5, K7, K8 and K9.
 
 These need an NVIDIA GPU with sm_90a and nvcc; elsewhere they skip. Run on
 the card with:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
-Tolerance, elementwise: |kernel - plain| <= 1e-2 + 2^-6 |plain|. The two
-sides round to bf16 at the same points; an f32 sum taken in another order
-can land on the other side of a rounding boundary, one bf16 ulp.
+Tolerance, elementwise: |kernel - plain| <= 1e-2 + 2^-6 |plain| for the
+forwards. The two sides round to bf16 at the same points; an f32 sum taken
+in another order can land on the other side of a rounding boundary, one
+bf16 ulp. The dropout masks are the same bits on both sides. Backward data
+gradients: |kernel - plain| <= 1e-4 + 2e-2 max|plain| + 2^-6 |plain| (an
+ulp of a bf16 intermediate -- ds, dz, dh -- moves a sum of many terms; the
+1e-4 floor covers gradients that cancel to 0, such as dq over one key);
+dgamma and dbeta: relative Frobenius error <= 1e-2.
 """
 
 import numpy as np
@@ -96,6 +103,123 @@ def test_fused_mlp_kernel(cuda, m):
     args = (x, gamma, beta, w1, b1, w2, b2)
     _check(fused_mlp.fused_mlp_block(*args),
            fused_mlp.fused_mlp_block_plain(*args))
+
+
+def _check_grads(got, want, params=()):
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape, i
+        g, w = g.float(), w.float()
+        assert torch.isfinite(g).all(), i
+        if i in params:
+            err = float((g - w).norm() / w.norm().clamp_min(1e-12))
+            assert err <= 1e-2, (i, err)
+        else:
+            tol = 1e-4 + 2e-2 * float(w.abs().max()) + RTOL * w.abs()
+            assert ((g - w).abs() <= tol).all(), (i, float((g - w).abs().max()))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,n,n_valid", [(1, 1, 1), (2, 70, 70),
+                                         (2, 130, 97)])
+def test_flash_attention_fwd_bwd_kernels(cuda, b, n, n_valid, rate):
+    rng = np.random.default_rng(n + 1)
+    q, k, v, do = (_rand(rng, (b, n, 3, 64), cuda) for _ in range(4))
+    kw = {"scale": 0.125, "n_valid": n_valid, "dropout_rate": rate,
+          "seed": 77}
+    o, lsum = fa.flash_attention_cuda(q, k, v, return_stats=True, **kw)
+    o_p, lsum_p = fa.flash_attention_plain(q, k, v, return_stats=True, **kw)
+    _check((o,), (o_p,))
+    assert torch.allclose(lsum, lsum_p, rtol=1e-5)
+    before = fa.flash_attention_bwd_cuda.launches
+    got = fa.flash_attention_bwd_cuda(q, k, v, o_p, do, lsum_p, **kw)
+    assert fa.flash_attention_bwd_cuda.launches == before + 1
+    want = fa.flash_attention_bwd_plain(q, k, v, o_p, do, lsum_p, **kw)
+    _check_grads(got, want)
+    assert not got[1][:, n_valid:].any() and not got[2][:, n_valid:].any()
+
+
+@pytest.mark.parametrize("m", [1, 33, 65, 300])
+def test_fused_ln_qkv_bwd_kernel(cuda, m):
+    rng = np.random.default_rng(m + 1)
+    x = _rand(rng, (1, m, 256), cuda)
+    gamma = _rand(rng, (256,), cuda, torch.float32, 0.1, 1.0)
+    beta = _rand(rng, (256,), cuda, torch.float32, 0.1)
+    w = _rand(rng, (3 * 128, 256), cuda, torch.bfloat16, 256 ** -0.5)
+    *qkv, u = fused_qkv.fused_ln_qkv_cuda(x, gamma, beta, w, 2, 64,
+                                          return_u=True)
+    *qkv_p, u_p = fused_qkv.fused_ln_qkv_plain(x, gamma, beta, w, 2, 64,
+                                               return_u=True)
+    _check(tuple(qkv) + (u,), tuple(qkv_p) + (u_p,))
+    dq, dk, dv = (_rand(rng, (1, m, 2, 64), cuda) for _ in range(3))
+    _check_grads(fused_qkv.fused_ln_qkv_bwd_cuda(dq, dk, dv, x, gamma, w),
+                 fused_qkv.fused_ln_qkv_bwd_plain(dq, dk, dv, x, gamma, w),
+                 params=(1, 2))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("m", [1, 33, 65, 300])
+def test_fused_outproj_fwd_bwd_kernels(cuda, m, rate):
+    rng = np.random.default_rng(m + 2)
+    x = _rand(rng, (1, m, 512), cuda)
+    a = _rand(rng, (1, m, 128), cuda)
+    w = _rand(rng, (512, 128), cuda, torch.bfloat16, 128 ** -0.5)
+    b = _rand(rng, (512,), cuda, torch.float32, 0.05)
+    kw = {"dropout_rate": rate, "seed": 5}
+    _check(fused_outproj.fused_outproj_residual_cuda(x, a, w, b, **kw),
+           fused_outproj.fused_outproj_residual_plain(x, a, w, b, **kw))
+    dy = _rand(rng, (1, m, 512), cuda)
+    got = fused_outproj.fused_outproj_bwd_cuda(dy, w, **kw)
+    want = fused_outproj.fused_outproj_bwd_plain(dy, w, **kw)
+    assert torch.equal(got[1], want[1])          # dz: the same mask bits
+    _check_grads(got, want)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("m", [1, 33, 65, 300])
+def test_fused_mlp_fwd_bwd_kernels(cuda, m, rate):
+    rng = np.random.default_rng(m + 3)
+    x = _rand(rng, (1, m, 256), cuda)
+    gamma = _rand(rng, (256,), cuda, torch.float32, 0.1, 1.0)
+    beta = _rand(rng, (256,), cuda, torch.float32, 0.1)
+    w1 = _rand(rng, (384, 256), cuda, torch.bfloat16, 256 ** -0.5)
+    b1 = _rand(rng, (384,), cuda, torch.float32, 0.05)
+    w2 = _rand(rng, (256, 384), cuda, torch.bfloat16, 384 ** -0.5)
+    b2 = _rand(rng, (256,), cuda, torch.float32, 0.05)
+    kw = {"dropout_rate": rate, "seeds": (8, 9)}
+    args = (x, gamma, beta, w1, b1, w2, b2)
+    _check(fused_mlp.fused_mlp_block_cuda(*args, return_h=True, **kw),
+           fused_mlp.fused_mlp_block_plain(*args, return_h=True, **kw))
+    _, h = fused_mlp.fused_mlp_block_plain(*args, return_h=True, **kw)
+    dy = _rand(rng, (1, m, 256), cuda)
+    got = fused_mlp.fused_mlp_bwd_cuda(dy, x, h, gamma, beta, w1, w2, **kw)
+    want = fused_mlp.fused_mlp_bwd_plain(dy, x, h, gamma, beta, w1, w2, **kw)
+    got = [t.reshape(w.shape) for t, w in zip(got, want)]
+    _check_grads(got, want, params=(5, 6))
+
+
+def test_training_autograd_runs_the_kernels(cuda):
+    """A block's forward and backward through the autograd functions
+    launches every forward and backward kernel once."""
+    from neurovit_tpu_torch.models.vit3d import Attention, FeedForward, ViTConfig
+
+    cfg = ViTConfig(image_size=10, image_patch_size=5, frames=10,
+                    frame_patch_size=5, num_classes=2, dim=512, heads=2,
+                    dim_head=64, mlp_dim=384)
+    attn, ff = Attention(cfg, device=cuda), FeedForward(cfg, device=cuda)
+    counted = (fa.flash_attention_cuda, fa.flash_attention_bwd_cuda,
+               fused_qkv.fused_ln_qkv_cuda, fused_qkv.fused_ln_qkv_bwd_cuda,
+               fused_outproj.fused_outproj_residual_cuda,
+               fused_outproj.fused_outproj_bwd_cuda,
+               fused_mlp.fused_mlp_block_cuda, fused_mlp.fused_mlp_bwd_cuda)
+    before = [fn.launches for fn in counted]
+    x = torch.randn(2, 9, 512, device=cuda, dtype=torch.bfloat16)
+    y = ff(attn(x, 0.1, (1, 2)), 0.1, (3, 4))
+    y.float().sum().backward()
+    torch.cuda.synchronize()
+    assert [fn.launches - b for fn, b in zip(counted, before)] == [1] * 8
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in list(attn.parameters()) + list(ff.parameters()))
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):

@@ -18,7 +18,9 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COUNTED = (fa.flash_attention_cuda, fused_qkv.fused_ln_qkv_cuda,
            fused_outproj.fused_outproj_residual_cuda,
-           fused_mlp.fused_mlp_block_cuda)
+           fused_mlp.fused_mlp_block_cuda, fa.flash_attention_bwd_cuda,
+           fused_qkv.fused_ln_qkv_bwd_cuda, fused_outproj.fused_outproj_bwd_cuda,
+           fused_mlp.fused_mlp_bwd_cuda)
 
 
 def test_every_module_imports_with_jax_blocked():
@@ -62,7 +64,18 @@ def test_cpu_path_launches_no_kernel():
     fused_outproj.fused_outproj_residual(x, t(1, 5, 16), t(16, 16), t(16))
     fused_mlp.fused_mlp_block(x, t(16), t(16), t(32, 16), t(32), t(16, 32),
                               t(16))
-    assert [fn.launches for fn in COUNTED] == before == [0, 0, 0, 0]
+    # Forward and backward with dropout, through the autograd functions.
+    params = [p.requires_grad_() for p in (t(16), t(16), t(48, 16))]
+    q, k, v = fused_qkv.fused_ln_qkv(x, *params, 2, 8)
+    o = fa.flash_attention(q, k, v, scale=0.3, dropout_rate=0.1, seed=1)
+    y = fused_outproj.fused_outproj_residual(
+        x, o.reshape(1, 5, 16), t(16, 16), t(16), dropout_rate=0.1, seed=2)
+    y = fused_mlp.fused_mlp_block(y, t(16), t(16), t(32, 16), t(32),
+                                  t(16, 32), t(16), dropout_rate=0.1,
+                                  seeds=(3, 4))
+    y.sum().backward()
+    assert all(p.grad is not None for p in params)
+    assert [fn.launches for fn in COUNTED] == before == [0] * 8
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
