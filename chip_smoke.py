@@ -13,7 +13,9 @@ Phases, each printing a line; any failure raises and exits non-zero:
                the flagship shapes (batch 8 x 1001 tokens), with CUDA-event
                timings of both: the forwards K1-K4 at dropout 0, K1, K3 and
                K4 again at dropout 0.1 (the same mask bits on both sides),
-               and the backwards K5, K7, K8, K9 at dropout 0 and 0.1
+               the backwards K5, K7, K8, K9 at dropout 0 and 0.1, and the
+               int8 kernels K10-K13 (K13 also at n_valid 900), each timed
+               beside its bf16 counterpart (K2, K3, K4, K1) on the same inputs
 4. slice       the flagship model (configs/config.yaml, seed 42) saved with
                torch.save, served by Predictor.from_checkpoint on cuda:
                warmup, then requests of 1, 3 and 32 volumes; checked against
@@ -21,15 +23,25 @@ Phases, each printing a line; any failure raises and exits non-zero:
 5. http        the HTTP server on an ephemeral port: /healthz, then /predict
                with three NIfTI files, two of them posted concurrently;
                every forward kernel launched depth times per forward of 4-5
-6. grad        the flagship at batch 2, dropout 0.1: loss and every
+6. int8        the same checkpoint served with quant="int8": warmup,
+               requests of 1, 3 and 32 volumes against single calls and
+               against the quantized model on the CPU plain path; against
+               the bf16 Predictor within 0.05; /healthz says "int8" and one
+               /predict equals Predictor; K10-K13 launched depth times per
+               forward and K1-K4 never; one forward with SERVING_INT8_ATTN
+               off runs K1 in place of K13
+7. rate        the int8 and the bf16 forward at batch 32, device-only by
+               CUDA events, and a profiler split of the int8 forward
+8. grad        the flagship at batch 2, dropout 0.1: loss and every
                parameter's gradient on cuda against the CPU plain path
-7. train       Trainer.run() for one epoch of seeded 90^3 volumes (batch 32,
+9. train       Trainer.run() for one epoch of seeded 90^3 volumes (batch 32,
                8 train and 2 val batches); its checkpoint served by
                Predictor; then 10 steps on one fixed batch at dropout 0
-8. train_rate  train steps at batch 128: median step time, vol/s, TFLOP/s,
+10. train_rate train steps at batch 128: median step time, vol/s, TFLOP/s,
                peak memory, and a profiler split of one step
-9. counts      in phase 7, every forward kernel launched depth times per
-               forward and every backward kernel depth times per backward
+11. counts     in phase 9, every bf16 forward kernel launched depth times
+               per forward and every backward kernel depth times per
+               backward
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Without CUDA, the script exits
@@ -66,9 +78,16 @@ ATOL, RTOL = 1e-2, 2.0 ** -6
 # bf16 at the same points; an ulp of such an intermediate moves a sum of
 # ~1000 terms. dgamma / dbeta: relative Frobenius error <= PARAM_RTOL.
 BWD_ATOL, BWD_FRAC, PARAM_RTOL = 1e-4, 2e-2, 1e-2
+# The int8 kernels K10-K13 take the same elementwise ATOL + RTOL * |plain|:
+# their int32 products are exact on both sides, and an f32 LayerNorm, GELU,
+# score or denominator sum taken in another order may move one int8 code by
+# one step (a change far below ATOL) or an output by one bf16 ulp.
 # Probabilities from different batch buckets, from HTTP and from the CPU
 # plain path: the same rounding points, six layers deep.
 PROB_ATOL = 2e-2
+# int8 against bf16 serving on the same weights: the JAX test's bound
+# (tests/test_int8_serving.py:205).
+INT8_ATOL = 5e-2
 # Full-model gradients, cuda against the CPU plain path: relative Frobenius
 # error per parameter (bf16 through six blocks and back).
 GRAD_RTOL = 2e-2
@@ -96,7 +115,16 @@ KERNELS = [
      "neurovit_tpu/ops/fused_outproj.py:56"),
     ("fused_mlp_bwd", "neurovit_tpu_torch/csrc/fused_mlp_bwd.cu",
      "neurovit_tpu/ops/fused_mlp.py:141"),
+    ("int8_ln_qkv", "neurovit_tpu_torch/csrc/int8_qkv.cu",
+     "neurovit_tpu/ops/int8_serving.py:154"),
+    ("int8_outproj_residual", "neurovit_tpu_torch/csrc/int8_outproj.cu",
+     "neurovit_tpu/ops/int8_serving.py:167"),
+    ("int8_mlp_block", "neurovit_tpu_torch/csrc/int8_mlp.cu",
+     "neurovit_tpu/ops/int8_serving.py:173"),
+    ("int8_flash_attention", "neurovit_tpu_torch/csrc/int8_attention.cu",
+     "neurovit_tpu/ops/int8_serving.py:286"),
 ]
+INT8_KERNELS = [name for name, _, _ in KERNELS if name.startswith("int8_")]
 
 
 def log(phase: str, msg: str) -> None:
@@ -161,7 +189,8 @@ def compare(name: str, got, want, grads: bool = False,
 
 def kernel_phase(card: str) -> dict:
     from neurovit_tpu_torch.ops import (flash_attention, fused_mlp,
-                                        fused_outproj, fused_qkv)
+                                        fused_outproj, fused_qkv,
+                                        int8_serving)
 
     rng = np.random.default_rng(SEED)
     dev = "cuda"
@@ -216,7 +245,12 @@ def kernel_phase(card: str) -> dict:
     def outproj_bwd(fn, rate):
         return lambda: fn(dy, wout, dropout_rate=rate, seed=1234)
 
-    fa, oq = flash_attention, fused_qkv
+    fa, oq, q8 = flash_attention, fused_qkv, int8_serving
+    # int8 weights per output channel, from the same weights in f32.
+    qkv8 = q8.quantize_weight(wqkv.float())
+    out8 = q8.quantize_weight(wout.float())
+    mlp8 = (*q8.quantize_weight(w1.float()), b1,
+            *q8.quantize_weight(w2.float()), b2)
     # name -> [(label, kernel call, plain call, grads, params)]; the first
     # entry of each is the one timed into the JSON line.
     cases = {
@@ -274,6 +308,31 @@ def kernel_phase(card: str) -> dict:
             (f"dropout {rate}", mlp_bwd(fused_mlp.fused_mlp_bwd_cuda, rate),
              mlp_bwd(fused_mlp.fused_mlp_bwd_plain, rate), True, (5, 6))
             for rate in (DROPOUT, 0.0)],
+        "int8_ln_qkv": [
+            ("", lambda: q8.int8_ln_qkv_cuda(x, *ln, *qkv8, HEADS, DIM_HEAD),
+             lambda: q8.int8_ln_qkv_plain(x, *ln, *qkv8, HEADS, DIM_HEAD))],
+        "int8_outproj_residual": [
+            ("", lambda: q8.int8_outproj_residual_cuda(x, attn, *out8, bout),
+             lambda: q8.int8_outproj_residual_plain(x, attn, *out8, bout))],
+        "int8_mlp_block": [
+            ("", lambda: q8.int8_mlp_block_cuda(x, *ln, *mlp8),
+             lambda: q8.int8_mlp_block_plain(x, *ln, *mlp8))],
+        "int8_flash_attention": [
+            (f"n_valid {n_valid}", lambda n_valid=n_valid:
+             q8.int8_flash_attention_cuda(*qkv, scale=scale, n_valid=n_valid),
+             lambda n_valid=n_valid: q8.int8_flash_attention_plain(
+                 *qkv, scale=scale, n_valid=n_valid))
+            for n_valid in (N, N_VALID_MASKED)],
+    }
+    # The bf16 kernel each int8 kernel stands in for, on the same inputs.
+    counterparts = {
+        "int8_ln_qkv": lambda: oq.fused_ln_qkv_cuda(x, *ln, wqkv, HEADS,
+                                                    DIM_HEAD),
+        "int8_outproj_residual": lambda: (
+            fused_outproj.fused_outproj_residual_cuda(x, attn, wout, bout)),
+        "int8_mlp_block": lambda: fused_mlp.fused_mlp_block_cuda(*mlp_args),
+        "int8_flash_attention": lambda: fa.flash_attention_cuda(
+            *qkv, scale=scale, n_valid=N),
     }
     results = {}
     for name, calls in cases.items():
@@ -289,6 +348,11 @@ def kernel_phase(card: str) -> dict:
                     results[name] = {"ms": ms, "plain_ms": plain_ms}
                 log("kernels", f"{name} {label}: kernel {ms:.4f} ms, plain "
                     f"{plain_ms:.4f} ms at B={B} N={N}; max abs err {a:.3e}")
+                if i == 0 and name in counterparts:
+                    bf16_ms = cuda_ms(counterparts[name])
+                    results[name]["bf16_ms"] = bf16_ms
+                    log("kernels", f"{name}: its bf16 counterpart "
+                        f"{bf16_ms:.4f} ms on the same inputs")
             del got, want
         results[name].update(max_abs_err=max_abs, max_rel_err=max_rel)
         log("kernels", f"{name}: max abs err {max_abs:.3e}, max rel err "
@@ -300,8 +364,13 @@ def _volumes(rng, n: int, size: int) -> np.ndarray:
     return rng.standard_normal((n, size, size, size)).astype(np.float32)
 
 
-def slice_phase(config, ckpt: str, predictor, rng) -> None:
+def slice_phase(config, ckpt: str, predictor, rng, phase: str = "slice"
+                ) -> tuple:
+    """Requests of 1, 3 and 32 volumes against single calls, then the first
+    volume against the same checkpoint (quantized like the predictor) on
+    the CPU plain path. Returns the 32-volume request and its answer."""
     from neurovit_tpu_torch.models import NeuroEncoder
+    from neurovit_tpu_torch.models.vit3d import quantize_blocks
     from neurovit_tpu_torch.training.checkpoint import load_checkpoint
 
     size = config["TRAINING_VIT_INPUT_SIZE"]
@@ -324,32 +393,42 @@ def slice_phase(config, ckpt: str, predictor, rng) -> None:
         if worst > PROB_ATOL:
             raise AssertionError(f"n={n}: bucket {predictor._bucket_for(n)} "
                                  f"differs from single calls by {worst}")
-        singles[n] = (vols[0], probs[0])
-        log("slice", f"n={n}: bucket {predictor._bucket_for(n)}, "
+        singles[n] = (vols, probs)
+        log(phase, f"n={n}: bucket {predictor._bucket_for(n)}, "
             f"{secs * 1e3:.1f} ms host clock, probs[0] {probs[0].tolist()}, "
             f"max diff vs single calls {worst:.3e} (tol {PROB_ATOL})")
 
     # The same checkpoint on the CPU plain path.
     cpu_model = NeuroEncoder(config, device="cpu", seed=SEED)
     load_checkpoint(cpu_model, ckpt, strict=True)
-    vol, gpu_probs = singles[1]
+    if predictor.quant == "int8":
+        quantize_blocks(cpu_model.volume_encoder.vit3d)
+    vols, probs = singles[1]
+    gpu_probs = probs[0]
+    t0 = time.perf_counter()
     with torch.inference_mode():
-        logits = cpu_model(torch.from_numpy(vol[None]))
+        logits = cpu_model(torch.from_numpy(vols[:1]))
         cpu_probs = torch.softmax(logits.float(), dim=-1)[0].numpy()
     diff = float(np.abs(cpu_probs - gpu_probs).max())
-    log("slice", f"cuda vs cpu plain path: probs {gpu_probs.tolist()} vs "
-        f"{cpu_probs.tolist()}, max diff {diff:.3e} (tol {PROB_ATOL})")
+    log(phase, f"cuda vs cpu plain path: probs {gpu_probs.tolist()} vs "
+        f"{cpu_probs.tolist()}, max diff {diff:.3e} (tol {PROB_ATOL}); cpu "
+        f"{time.perf_counter() - t0:.1f} s host clock")
     if diff > PROB_ATOL:
         raise AssertionError(f"cuda and cpu probabilities differ by {diff}")
+    return singles[32]
 
 
-def http_phase(predictor, rng, workdir: str) -> None:
+def http_phase(predictor, rng, workdir: str, n_files: int = 3,
+               concurrent: bool = True) -> None:
+    """/healthz, then one POST of each of ``n_files`` NIfTI files and, with
+    ``concurrent``, two of them again at once; every answer against
+    Predictor."""
     from neurovit_tpu.data import nifti
     from neurovit_tpu_torch.serving import _collect_volume_jobs
     from neurovit_tpu_torch.serving_http import make_server
 
     paths = []
-    for i in range(3):
+    for i in range(n_files):
         path = os.path.join(workdir, f"scan{i}.nii")
         # Raw 91 x 109 x 91: the ADNI crop [1:, 10:-9, 1:] gives 90^3.
         nifti.save(path, rng.standard_normal((91, 109, 91)).astype(np.float32))
@@ -375,16 +454,17 @@ def http_phase(predictor, rng, workdir: str) -> None:
     try:
         with urllib.request.urlopen(url + "/healthz", timeout=60) as resp:
             health = json.loads(resp.read())
-            if resp.status != 200 or health["status"] != "ok":
+            if (resp.status != 200 or health["status"] != "ok"
+                    or health["quant"] != predictor.quant):
                 raise AssertionError(f"/healthz: {resp.status} {health}")
         log("http", f"/healthz {health}")
         for path in paths:
             post(path)
-        concurrent = [threading.Thread(target=post, args=(p,))
-                      for p in paths[:2]]
-        for c in concurrent:
+        threads = [threading.Thread(target=post, args=(p,))
+                   for p in (paths[:2] if concurrent else [])]
+        for c in threads:
             c.start()
-        for c in concurrent:
+        for c in threads:
             c.join(timeout=300)
             if c.is_alive():
                 raise AssertionError("a concurrent POST did not finish")
@@ -393,9 +473,9 @@ def http_phase(predictor, rng, workdir: str) -> None:
         batcher.stop()
         thread.join(timeout=60)
         server.server_close()
-    if len(results) != len(paths) + 2:
-        raise AssertionError(f"{len(results)} of {len(paths) + 2} POSTs "
-                             "answered")
+    if len(results) != len(paths) + len(threads):
+        raise AssertionError(f"{len(results)} of {len(paths) + len(threads)} "
+                             "POSTs answered")
     for path, status, payload in results:
         got = np.array(payload["rows"][0]["probs"])
         diff = float(np.abs(got - want[path]).max())
@@ -525,8 +605,9 @@ def train_phase(config, workdir: str, counters: dict) -> dict:
     log("counts", f"train run: {forwards[0]} forwards, {steps[0]} backwards "
         f"x depth {depth}; launches {launches}")
     for name, _, _ in KERNELS:
-        want = depth * (steps[0] if name.endswith("_bwd") else forwards[0])
-        if launches[name] == 0 or launches[name] != want:
+        want = (0 if name in INT8_KERNELS else
+                depth * (steps[0] if name.endswith("_bwd") else forwards[0]))
+        if launches[name] != want or (want and launches[name] == 0):
             raise AssertionError(f"{name} launched {launches[name]} times in "
                                  f"the train run, expected {want}")
 
@@ -592,11 +673,19 @@ def train_rate_phase(config, workdir: str, card: str, batch: int = 128
         f"({TRAIN_GFLOP_PER_VOL:.1f} GFLOP/vol), peak memory {peak:.2f} GiB; "
         f"{card}")
 
+    profile_split("train_rate", "step",
+                  lambda: trainer.train_step(dbatch, zyx), ms)
+
+
+def profile_split(phase: str, what: str, fn, ms: float) -> None:
+    """Kernel time of one ``fn()`` by kernel, from torch.profiler, against
+    its timed ``ms``."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        trainer.train_step(dbatch, zyx)
+        fn()
         torch.cuda.synchronize()
+
     def device_ms(e):
         for attr in ("self_device_time_total", "self_cuda_time_total"):
             if hasattr(e, attr):
@@ -608,12 +697,113 @@ def train_rate_phase(config, workdir: str, card: str, batch: int = 128
             and device_ms(e) > 0]
     rows.sort(key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
-    log("train_rate", f"profiled step: {total:.2f} ms of kernel time in "
+    log(phase, f"profiled {what}: {total:.2f} ms of kernel time in "
         f"{sum(r[2] for r in rows)} launches, {100 * total / ms:.1f} % of "
-        f"the median step")
+        f"the timed {what}")
     for key, t, count in rows[:14]:
-        log("train_rate", f"  {t:9.3f} ms {100 * t / max(total, 1e-9):5.1f} % "
+        log(phase, f"  {t:9.3f} ms {100 * t / max(total, 1e-9):5.1f} % "
             f"x{count:<4d} {key[:90]}")
+
+
+def _count_forwards(model) -> list:
+    """A one-element list that counts ``model``'s forward calls."""
+    forwards = [0]
+    model.register_forward_hook(
+        lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    return forwards
+
+
+def _check_counts(phase: str, launches: dict, want: dict) -> None:
+    for name, count in launches.items():
+        if count != want[name] or (want[name] and count == 0):
+            raise AssertionError(f"{name} launched {count} times in {phase}, "
+                                 f"expected {want[name]}")
+
+
+def int8_phase(config, ckpt: str, rng, workdir: str, counters: dict) -> dict:
+    """The checkpoint served with quant="int8" through Predictor and HTTP,
+    with the launch counts of that run; then against the bf16 Predictor,
+    and one forward with SERVING_INT8_ATTN off. Returns the counts."""
+    from neurovit_tpu_torch.serving import Predictor
+
+    predictor = Predictor.from_checkpoint(config, ckpt, batch_size=32,
+                                          device="cuda", quant="int8")
+    depth = predictor.model.vit_cfg.depth
+    forwards = _count_forwards(predictor.model)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    predictor.warmup()
+    log("int8", f"warmup of buckets {predictor.bucket_sizes}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    vols, probs = slice_phase(config, ckpt, predictor, rng, phase="int8")
+    http_phase(predictor, rng, workdir, n_files=1, concurrent=False)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log("int8", f"int8 serving: {forwards[0]} forward calls x depth {depth}; "
+        f"launches {launches}")
+    _check_counts("int8 serving", launches, {
+        name: depth * forwards[0] if name in INT8_KERNELS else 0
+        for name in counters})
+
+    bf16 = Predictor.from_checkpoint(config, ckpt, batch_size=32,
+                                     device="cuda")
+    _, want = bf16(vols)
+    diff = float(np.abs(probs - want).max())
+    flips = int((probs.argmax(1) != want.argmax(1)).sum())
+    log("int8", f"int8 vs bf16 Predictor, 32 volumes: max diff {diff:.3e} "
+        f"(tol {INT8_ATOL}); argmax flips {flips}")
+    if diff > INT8_ATOL:
+        raise AssertionError(f"int8 and bf16 probabilities differ by {diff}")
+    del bf16
+
+    off = Predictor.from_checkpoint(dict(config, SERVING_INT8_ATTN=False),
+                                    ckpt, batch_size=1, bucket_sizes=(),
+                                    device="cuda", quant="int8")
+    for fn in counters.values():
+        fn.launches = 0
+    _, got = off(vols[:1])
+    counts = {name: fn.launches for name, fn in counters.items()}
+    _check_counts("the SERVING_INT8_ATTN: off forward", counts, {
+        name: depth if name in ("int8_ln_qkv", "int8_outproj_residual",
+                                "int8_mlp_block", "flash_attention") else 0
+        for name in counters})
+    diff = float(np.abs(got[0] - probs[0]).max())
+    log("int8", f"SERVING_INT8_ATTN off: probs {got[0].tolist()}, max diff "
+        f"vs pv {diff:.3e} (tol {INT8_ATOL}); launches {counts}")
+    if diff > INT8_ATOL:
+        raise AssertionError(f"int8_attn off and pv differ by {diff}")
+    return launches
+
+
+def rate_phase(config, ckpt: str, card: str, batch: int = 32) -> None:
+    """The int8 and the bf16 forward at batch 32, device-only: two medians
+    of 10 CUDA-event timings each, taken in turns bf16, int8, int8, bf16,
+    and their mean; then a profiler split of the int8 forward."""
+    from neurovit_tpu_torch.models import NeuroEncoder
+    from neurovit_tpu_torch.models.vit3d import quantize_blocks
+    from neurovit_tpu_torch.training.checkpoint import load_checkpoint
+
+    size = config["TRAINING_VIT_INPUT_SIZE"]
+    vols = torch.from_numpy(_volumes(np.random.default_rng(SEED + 5), batch,
+                                     size)).cuda()
+    models = {}
+    for quant in ("bf16", "int8"):
+        models[quant] = NeuroEncoder(config, device="cuda", seed=SEED).eval()
+        load_checkpoint(models[quant], ckpt, strict=True)
+        if quant == "int8":
+            quantize_blocks(models[quant].volume_encoder.vit3d)
+    times = {"bf16": [], "int8": []}
+    with torch.inference_mode():
+        for quant in ("bf16", "int8", "int8", "bf16"):
+            times[quant].append(cuda_ms(lambda: models[quant](vols),
+                                        warmup=2, runs=10))
+        for quant, ms in times.items():
+            mean = float(np.mean(ms))
+            log("rate", f"{quant} forward at batch {batch}: {mean:.3f} ms "
+                f"(runs {[round(t, 3) for t in ms]}), "
+                f"{batch / mean * 1e3:.1f} vol/s; {card}")
+        profile_split("rate", "int8 forward", lambda: models["int8"](vols),
+                      float(np.mean(times["int8"])))
 
 
 def main() -> int:
@@ -623,7 +813,8 @@ def main() -> int:
         return 1
     from neurovit_tpu.config import load_config
     from neurovit_tpu_torch.ops import (_build, flash_attention, fused_mlp,
-                                        fused_outproj, fused_qkv)
+                                        fused_outproj, fused_qkv,
+                                        int8_serving)
     from neurovit_tpu_torch.serving import Predictor
     from neurovit_tpu_torch.models import NeuroEncoder
 
@@ -655,6 +846,10 @@ def main() -> int:
         "fused_ln_qkv_bwd": fused_qkv.fused_ln_qkv_bwd_cuda,
         "fused_outproj_bwd": fused_outproj.fused_outproj_bwd_cuda,
         "fused_mlp_bwd": fused_mlp.fused_mlp_bwd_cuda,
+        "int8_ln_qkv": int8_serving.int8_ln_qkv_cuda,
+        "int8_outproj_residual": int8_serving.int8_outproj_residual_cuda,
+        "int8_mlp_block": int8_serving.int8_mlp_block_cuda,
+        "int8_flash_attention": int8_serving.int8_flash_attention_cuda,
     }
     config = load_config()
     rng = np.random.default_rng(SEED)
@@ -665,9 +860,7 @@ def main() -> int:
         predictor = Predictor.from_checkpoint(config, ckpt, batch_size=32,
                                               device="cuda")
         depth = predictor.model.vit_cfg.depth
-        forwards = [0]
-        predictor.model.register_forward_hook(
-            lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+        forwards = _count_forwards(predictor.model)
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
@@ -679,12 +872,15 @@ def main() -> int:
         serving = {name: fn.launches for name, fn in counters.items()}
         log("http", f"serving: {forwards[0]} forward calls x depth {depth}; "
             f"launches {serving}")
-        for name, count in serving.items():
-            want = 0 if name.endswith("_bwd") else depth * forwards[0]
-            if count != want or (want and count == 0):
-                raise AssertionError(f"{name} launched {count} times in "
-                                     f"serving, expected {want}")
+        _check_counts("serving", serving, {
+            name: 0 if name.endswith("_bwd") or name in INT8_KERNELS
+            else depth * forwards[0] for name in counters})
         del predictor
+        torch.cuda.empty_cache()
+
+        int8_launches = int8_phase(config, ckpt, rng, workdir, counters)
+        torch.cuda.empty_cache()
+        rate_phase(config, ckpt, card)
         torch.cuda.empty_cache()
 
         grad_phase(config)
@@ -693,6 +889,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         train_rate_phase(config, workdir, card)
 
+    launches.update({name: int8_launches[name] for name in INT8_KERNELS})
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[name],

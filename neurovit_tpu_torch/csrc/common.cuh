@@ -110,6 +110,13 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Exact-erf GELU in f32 with CUDA's erff (torch nn.GELU's default). The
+// TPU kernels use an Abramowitz-Stegun polynomial (fused_mlp.py:65-79);
+// both are within 1.5e-7 of erf.
+__device__ __forceinline__ float gelu_erf(float h) {
+  return 0.5f * h * (1.f + erff(h * 0.7071067811865476f));
+}
+
 // Eight bf16 values (one 16-byte vector) <-> floats.
 __device__ __forceinline__ void unpack8(uint4 raw, float* f) {
   const bf16* h = reinterpret_cast<const bf16*>(&raw);

@@ -31,12 +31,6 @@ namespace {
 
 constexpr int kBM = 32, kBN = 128, kBK = 32;
 using Gemm = TileGemm<kBM, kBN, kBK, 2, 4>;
-constexpr float kInvSqrt2 = 0.7071067811865476f;
-
-__device__ __forceinline__ float gelu_erf(float h) {
-  return 0.5f * h * (1.f + erff(h * kInvSqrt2));
-}
-
 __global__ void __launch_bounds__(Gemm::kThreads)
     mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
                const float* __restrict__ beta, const bf16* __restrict__ w1,

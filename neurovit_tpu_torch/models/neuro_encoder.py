@@ -11,7 +11,11 @@ Counterpart of ``neurovit_tpu/models/neuro_encoder.py`` for ``TRAINING_DIM:
 - ``dropout`` and ``emb_dropout`` from ``TRAINING_DROPOUT``
   (neuro_encoder.py:63,99-100), applied when ``forward(train=True)``;
 - everything is trainable in 3D (``trainable_mask``, ``param_count``,
-  neuro_encoder.py:240-258).
+  neuro_encoder.py:240-258);
+- ``SERVING_INT8_ATTN`` picks the attention of int8 serving
+  (neuro_encoder.py:74-84): "pv" (the default, and YAML ``on``) or "off".
+  The JAX package's environment default ``NEUROVIT_INT8_ATTN`` is not read:
+  the port has no environment switches.
 
 The module path ``volume_encoder.vit3d`` is the reference's, so the
 state-dict keys are the checkpoint keys. ``KERNEL_IMPL`` is not read: on a
@@ -32,6 +36,21 @@ def not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to neurovit_tpu_torch yet "
         f"(ROADMAP.md, Queue 1: {item})")
+
+
+def int8_attn_mode(raw) -> str:
+    """``SERVING_INT8_ATTN`` as the model's ``int8_attn``: unset gives
+    "pv"; YAML parses bare on/off as booleans (True "pv", False "off");
+    other values are "pv" or "off" in any case, else ValueError."""
+    if raw is None:
+        return "pv"
+    if isinstance(raw, bool):
+        return "pv" if raw else "off"
+    mode = str(raw).lower()
+    if mode not in ("pv", "off"):
+        raise ValueError(f"unknown SERVING_INT8_ATTN {mode!r} "
+                         "(supported: 'pv', 'off')")
+    return mode
 
 
 class ViT3DEncoder(tnn.Module):
@@ -79,7 +98,8 @@ class NeuroEncoder(tnn.Module):
             mlp_dim=config.get("MODEL_VIT_MLP_DIM", 2048),
             channels=1, pool=config.get("MODEL_VIT_POOL", "cls"),
             dropout=float(config.get("TRAINING_DROPOUT", 0.0)),
-            emb_dropout=float(config.get("TRAINING_DROPOUT", 0.0)))
+            emb_dropout=float(config.get("TRAINING_DROPOUT", 0.0)),
+            int8_attn=int8_attn_mode(config.get("SERVING_INT8_ATTN")))
         precision = config.get("TRAINING_PRECISION", "bf16")
         self.compute_dtype = (torch.bfloat16 if precision == "bf16"
                               else torch.float32)

@@ -11,6 +11,12 @@ Counterpart of ``neurovit_tpu/models/vit3d.py`` (reference semantics of
   (vit3d.py:325-391): LN+QKV, flash attention in the [B, N, H, D] layout,
   out-projection + residual, MLP block;
 - cls/mean pooling, then LN + Linear (vit3d.py:498-506);
+- ``quantize_blocks`` swaps every block for its int8 serving form
+  (``Int8Attention``, ``Int8FeedForward``; vit3d.py:301-324, 379-384 and
+  ``quantize_blocks``, int8_serving.py:84-106): the four GEMM weights
+  become int8 per output channel, the f32 weights are dropped, and the
+  blocks run the int8 ops (K10-K13; with ``int8_attn="off"``, K1 in place
+  of K13). A quantized model is serving-only;
 - ``train=True`` turns dropout on (``dropout``, ``emb_dropout``): on the
   embedding (vit3d.py:441, plain, outside any kernel) and, per block,
   inside the kernels on the attention probabilities, the out-projection,
@@ -31,8 +37,8 @@ bf16 the ops' weight gradients are bf16 and autograd upcasts them to the
 f32 master weights, as JAX's ``kernel.astype(x.dtype)`` does
 (fused_mlp.py:330-333). LayerNorm affines and biases enter as f32.
 
-Not ported here: the pipeline path, the Grad-CAM probe, the int8 branch,
-the conv patch embed and remat (see ``NeuroEncoder``).
+Not ported here: the pipeline path, the Grad-CAM probe, the conv patch
+embed and remat (see ``NeuroEncoder``).
 """
 
 from __future__ import annotations
@@ -48,6 +54,12 @@ from neurovit_tpu_torch.ops.flash_attention import flash_attention
 from neurovit_tpu_torch.ops.fused_mlp import fused_mlp_block
 from neurovit_tpu_torch.ops.fused_outproj import fused_outproj_residual
 from neurovit_tpu_torch.ops.fused_qkv import fused_ln_qkv
+from neurovit_tpu_torch.ops.int8_serving import (int8_flash_attention,
+                                                 int8_ln_qkv, int8_mlp_block,
+                                                 int8_outproj_residual,
+                                                 quantize_weight)
+
+SERVING_ONLY = "int8-quantized blocks are serving-only (train=False)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +78,9 @@ class ViTConfig:
     pool: str = "cls"          # 'cls' or 'mean'
     dropout: float = 0.0       # in the blocks, when training
     emb_dropout: float = 0.0   # on the embedding, when training
+    # int8 serving's attention: "pv" runs PV in int8 (K13), "off" the bf16
+    # attention (K1) between the int8 QKV and out-projection.
+    int8_attn: str = "pv"
 
     def __post_init__(self):
         if self.image_size % self.image_patch_size:
@@ -75,6 +90,9 @@ class ViTConfig:
             raise ValueError("Frames must be divisible by frame patch size")
         if self.pool not in ("cls", "mean"):
             raise ValueError(f"pool must be 'cls' or 'mean', got {self.pool!r}")
+        if self.int8_attn not in ("pv", "off"):
+            raise ValueError(f"int8_attn must be 'pv' or 'off', got "
+                             f"{self.int8_attn!r}")
         if self.heads == 1 and self.dim_head == self.dim:
             # vit_3d.py:32: the reference drops the out-projection here; the
             # fused out-projection kernel has no identity form.
@@ -184,6 +202,67 @@ class FeedForward(tnn.Module):
                                dropout_rate=rate, seeds=seeds)
 
 
+def _buffers(module: tnn.Module, **tensors: torch.Tensor) -> None:
+    for name, t in tensors.items():
+        module.register_buffer(name, t.detach().clone())
+
+
+class Int8Attention(tnn.Module):
+    """int8 serving form of :class:`Attention`: x + int8 out-projection of
+    the attention of the int8 QKV (vit3d.py:305-324). Holds the LN affine
+    (f32), the int8 weights with their f32 scales and the f32 bias as
+    buffers."""
+
+    def __init__(self, attn: Attention, int8_attn: str):
+        super().__init__()
+        self.heads, self.dim_head = attn.heads, attn.dim_head
+        self.int8_attn = int8_attn
+        out = attn.to_out[0]
+        qkv_w8, qkv_scale = quantize_weight(attn.to_qkv.weight)
+        out_w8, out_scale = quantize_weight(out.weight)
+        _buffers(self, norm_weight=attn.norm.weight.float(),
+                 norm_bias=attn.norm.bias.float(), qkv_w8=qkv_w8,
+                 qkv_scale=qkv_scale, out_w8=out_w8, out_scale=out_scale,
+                 out_bias=out.bias.float())
+
+    def forward(self, x: torch.Tensor, rate: float = 0.0,
+                seeds: Tuple[int, int] = (0, 0)) -> torch.Tensor:
+        if rate:
+            raise ValueError(SERVING_ONLY)
+        b, n, _ = x.shape
+        q, k, v = int8_ln_qkv(x, self.norm_weight, self.norm_bias,
+                              self.qkv_w8, self.qkv_scale, self.heads,
+                              self.dim_head)
+        attend = flash_attention if self.int8_attn == "off" else \
+            int8_flash_attention
+        o = attend(q, k, v, scale=self.dim_head ** -0.5, n_valid=n)
+        return int8_outproj_residual(x, o.reshape(b, n, -1), self.out_w8,
+                                     self.out_scale, self.out_bias)
+
+
+class Int8FeedForward(tnn.Module):
+    """int8 serving form of :class:`FeedForward` (vit3d.py:379-384)."""
+
+    def __init__(self, ff: FeedForward):
+        super().__init__()
+        norm, fc1, fc2 = ff.net[0], ff.net[1], ff.net[4]
+        fc1_w8, fc1_scale = quantize_weight(fc1.weight)
+        fc2_w8, fc2_scale = quantize_weight(fc2.weight)
+        _buffers(self, norm_weight=norm.weight.float(),
+                 norm_bias=norm.bias.float(), fc1_w8=fc1_w8,
+                 fc1_scale=fc1_scale, fc1_bias=fc1.bias.float(),
+                 fc2_w8=fc2_w8, fc2_scale=fc2_scale,
+                 fc2_bias=fc2.bias.float())
+
+    def forward(self, x: torch.Tensor, rate: float = 0.0,
+                seeds: Tuple[int, int] = (0, 0)) -> torch.Tensor:
+        if rate:
+            raise ValueError(SERVING_ONLY)
+        return int8_mlp_block(x, self.norm_weight, self.norm_bias,
+                              self.fc1_w8, self.fc1_scale, self.fc1_bias,
+                              self.fc2_w8, self.fc2_scale, self.fc2_bias)
+
+
 class Transformer(tnn.Module):
     def __init__(self, cfg: ViTConfig, *, device=None, dtype=None):
         super().__init__()
@@ -233,10 +312,17 @@ class ViT3D(tnn.Module):
             for p in (self.pos_embedding, self.cls_token):
                 p.copy_(torch.randn(p.shape, dtype=p.dtype, generator=gen))
 
+    @property
+    def quantized(self) -> bool:
+        """Whether the blocks are in their int8 serving form."""
+        return isinstance(self.transformer.layers[0][0], Int8Attention)
+
     def forward(self, volume: torch.Tensor, *, train: bool = False,
                 seed: Optional[int] = None) -> torch.Tensor:
         """``train=True`` applies dropout, keyed by the step's ``seed``."""
         cfg = self.cfg
+        if train and self.quantized:
+            raise ValueError(SERVING_ONLY)
         if train and (cfg.dropout or cfg.emb_dropout) and seed is None:
             raise ValueError("dropout in training needs a seed")
         dt = volume.dtype
@@ -259,3 +345,18 @@ class ViT3D(tnn.Module):
         head_norm, head_fc = self.mlp_head
         pooled = nn.layer_norm(pooled, head_norm.weight, head_norm.bias)
         return nn.linear(pooled, head_fc.weight, head_fc.bias).float()
+
+
+@torch.no_grad()
+def quantize_blocks(vit: ViT3D) -> ViT3D:
+    """Swap every block of ``vit`` for its int8 serving form, in place, and
+    return it (``quantize_blocks``, int8_serving.py:84-106): the qkv,
+    out-projection, fc1 and fc2 weights are quantized from their f32
+    masters and dropped; LN affines and biases stay f32. Patch embedding
+    and head are unchanged."""
+    if vit.quantized:
+        raise ValueError("the blocks are already quantized")
+    for pair in vit.transformer.layers:
+        pair[0] = Int8Attention(pair[0], vit.cfg.int8_attn)
+        pair[1] = Int8FeedForward(pair[1])
+    return vit

@@ -2,7 +2,9 @@
 
 One module per fused op: ``flash_attention``, ``fused_qkv``,
 ``fused_outproj``, ``fused_mlp``, each with its forward kernel, its
-backward kernel and the ``torch.autograd.Function`` that joins them. Every
+backward kernel and the ``torch.autograd.Function`` that joins them; and
+``int8_serving``, the four serving-only int8 ops and the weight
+quantization of ``Predictor(quant="int8")``. Every
 public op dispatches on its operands: CPU tensors run the plain versions,
 CUDA tensors the hand-written Hopper kernels (or raise). There is no switch
 that routes CUDA tensors elsewhere. The public ops are imported from

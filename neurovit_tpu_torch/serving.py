@@ -11,6 +11,8 @@ repeating its last volume (the padding is thrown away).
 
 Runs on ``device`` (default ``cuda``), which must exist: there is no drop
 to the CPU. ``device="cpu"`` asks for the plain PyTorch path explicitly.
+``quant="int8"`` serves the int8 blocks (``models.vit3d.quantize_blocks``,
+kernels K10-K13), quantized once when the predictor is built.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from neurovit_tpu_torch.models.neuro_encoder import NeuroEncoder
+from neurovit_tpu_torch.models.vit3d import quantize_blocks
 from neurovit_tpu_torch.training.checkpoint import load_checkpoint
 
 # Latency buckets below batch_size (neurovit_tpu/serving.py:24-36): powers
@@ -47,11 +50,16 @@ class Predictor:
     ``bucket_sizes``: batch shapes below ``batch_size`` (default
     ``DEFAULT_BUCKETS``); each request chunk routes to the smallest bucket
     that fits and pads only within it. Every bucket gives the same
-    probabilities for the same volumes. Pass ``()`` for one shape."""
+    probabilities for the same volumes. Pass ``()`` for one shape.
+
+    ``quant="int8"``: post-training int8 serving (neurovit_tpu/serving.py:
+    102-124). The model's blocks are quantized in place, once, here; the
+    patch embedding, the softmax path and the head stay as they are."""
 
     def __init__(self, model: NeuroEncoder, batch_size: int = 32,
                  host_transfer_dtype: Optional[str] = None,
-                 bucket_sizes: Optional[Sequence[int]] = None):
+                 bucket_sizes: Optional[Sequence[int]] = None,
+                 quant: Optional[str] = None):
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self.batch_size = batch_size
@@ -75,19 +83,29 @@ class Predictor:
                 "host_transfer_dtype='bf16' requires TRAINING_PRECISION: "
                 "bf16 (with f32 compute the host cast would lose precision "
                 "the device path keeps)")
+        if quant in ("none", ""):
+            quant = None
+        if quant not in (None, "int8"):
+            raise ValueError(f"unknown quant mode {quant!r} "
+                             "(supported: 'int8')")
+        self.quant = quant
+        if quant == "int8":
+            quantize_blocks(model.volume_encoder.vit3d)
 
     @classmethod
     def from_checkpoint(cls, config: Dict[str, Any], checkpoint_path: str,
                         batch_size: int = 32, seed: Optional[int] = None,
                         host_transfer_dtype: Optional[str] = None,
                         bucket_sizes: Optional[Sequence[int]] = None,
-                        device="cuda") -> "Predictor":
+                        device="cuda", quant: Optional[str] = None
+                        ) -> "Predictor":
         """Build the model on ``device`` and load a torch-format state dict
-        (the JAX trainer's ``.state_dict.pkl`` saves, or ``torch.save``)."""
+        (the JAX trainer's ``.state_dict.pkl`` saves, or ``torch.save``);
+        ``quant="int8"`` then quantizes the loaded weights."""
         model = NeuroEncoder(config, device=resolve_device(device), seed=seed)
         load_checkpoint(model, checkpoint_path, strict=False)
         return cls(model, batch_size, host_transfer_dtype=host_transfer_dtype,
-                   bucket_sizes=bucket_sizes)
+                   bucket_sizes=bucket_sizes, quant=quant)
 
     def _bucket_for(self, remaining: int) -> int:
         """Smallest bucket that fits ``remaining`` (full chunks stream
@@ -231,16 +249,12 @@ def _default_batch_size() -> int:
 def predictor_from_cli_args(parser, args, config) -> "Predictor":
     """Shared flag -> Predictor plumbing for the two serving entry points:
     checkpoint resolution (``--checkpoint`` else ``BEST_MODEL_PATH``),
-    ``--buckets`` ('' disables, None keeps the default), ``--device`` and
-    the default batch size. ``--mesh`` and ``--quant int8`` are refused
-    with the roadmap item that will port them."""
+    ``--buckets`` ('' disables, None keeps the default), ``--device``,
+    ``--quant`` and the default batch size. ``--mesh`` is refused with the
+    roadmap item that will port it."""
     if args.mesh:
         parser.error("--mesh is not ported to neurovit_tpu_torch yet "
                      "(ROADMAP.md, Queue 1: multi-GPU)")
-    if args.quant:
-        parser.error(f"--quant {args.quant} is not ported to "
-                     "neurovit_tpu_torch yet (ROADMAP.md, Queue 1: int8 "
-                     "serving)")
     ckpt_path = args.checkpoint or os.path.join(
         config.get("GLOBAL_BASE_PATH", "."), config["BEST_MODEL_PATH"])
     buckets = (() if args.buckets == "" else
@@ -251,7 +265,7 @@ def predictor_from_cli_args(parser, args, config) -> "Predictor":
     return Predictor.from_checkpoint(
         config, ckpt_path, batch_size=batch_size,
         host_transfer_dtype="bf16" if args.host_bf16 else None,
-        bucket_sizes=buckets, device=args.device)
+        bucket_sizes=buckets, device=args.device, quant=args.quant)
 
 
 def add_serving_args(parser) -> None:
@@ -265,7 +279,9 @@ def add_serving_args(parser) -> None:
                              "--batch-size (default '1,2,4,...,64' powers "
                              "of two); '' disables (single batch shape)")
     parser.add_argument("--quant", default=None, choices=["int8"],
-                        help="int8 serving (not ported yet)")
+                        help="int8 serving: the ViT blocks' GEMMs and "
+                             "attention PV run in int8 (weights quantized "
+                             "per channel at load)")
     parser.add_argument("--host-bf16", action="store_true",
                         help="ship volumes to the device as bfloat16 "
                              "(bit-exact under bf16 compute; halves "

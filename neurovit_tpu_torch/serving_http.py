@@ -166,7 +166,7 @@ def make_server(predictor: Predictor, host: str = "127.0.0.1",
                 "is_4d": False,
                 "batch_size": predictor.batch_size,
                 "buckets": list(predictor.bucket_sizes),
-                "quant": None,
+                "quant": predictor.quant,
             })
 
         def do_POST(self):  # noqa: N802

@@ -1,7 +1,7 @@
 """The Hopper kernels against their plain PyTorch versions on the card, at
 small and ragged shapes (the model's shapes are in chip_smoke.py): the
-forward kernels K1-K4 with and without dropout, and the backward kernels
-K5, K7, K8 and K9.
+forward kernels K1-K4 with and without dropout, the backward kernels K5,
+K7, K8 and K9, and the int8 serving kernels K10-K13.
 
 These need an NVIDIA GPU with sm_90a and nvcc; elsewhere they skip. Run on
 the card with:
@@ -15,7 +15,10 @@ bf16 ulp. The dropout masks are the same bits on both sides. Backward data
 gradients: |kernel - plain| <= 1e-4 + 2e-2 max|plain| + 2^-6 |plain| (an
 ulp of a bf16 intermediate -- ds, dz, dh -- moves a sum of many terms; the
 1e-4 floor covers gradients that cancel to 0, such as dq over one key);
-dgamma and dbeta: relative Frobenius error <= 1e-2.
+dgamma and dbeta: relative Frobenius error <= 1e-2. The int8 kernels take
+the forwards' tolerance: their int32 products are exact on both sides, and
+an f32 LayerNorm, GELU or sum taken in another order may move one int8
+code by one step, which moves an output by far less than 1e-2.
 """
 
 import numpy as np
@@ -23,7 +26,8 @@ import pytest
 import torch
 
 from neurovit_tpu_torch.ops import flash_attention as fa
-from neurovit_tpu_torch.ops import fused_mlp, fused_outproj, fused_qkv
+from neurovit_tpu_torch.ops import (fused_mlp, fused_outproj, fused_qkv,
+                                    int8_serving)
 
 pytestmark = pytest.mark.cuda
 
@@ -231,3 +235,92 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     q = torch.zeros(1, 4, 2, 32, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="head dim 64"):
         fa.flash_attention(q, q, q, scale=1.0)
+
+
+def _int8_weight(rng, out_f, in_f, device):
+    w = _rand(rng, (out_f, in_f), device, torch.float32, in_f ** -0.5)
+    return int8_serving.quantize_weight(w)
+
+
+@pytest.mark.parametrize("m", [1, 65, 300])
+def test_int8_ln_qkv_kernel(cuda, m):
+    rng = np.random.default_rng(m + 4)
+    x = _rand(rng, (1, m, 512), cuda)
+    gamma = _rand(rng, (512,), cuda, torch.float32, 0.1, 1.0)
+    beta = _rand(rng, (512,), cuda, torch.float32, 0.1)
+    w8, s = _int8_weight(rng, 3 * 256, 512, cuda)
+    args = (x, gamma, beta, w8, s, 4, 64)
+    before = int8_serving.int8_ln_qkv_cuda.launches
+    _check(int8_serving.int8_ln_qkv(*args),
+           int8_serving.int8_ln_qkv_plain(*args))
+    assert int8_serving.int8_ln_qkv_cuda.launches == before + 1
+
+
+@pytest.mark.parametrize("m", [1, 65, 300])
+def test_int8_outproj_kernel(cuda, m):
+    rng = np.random.default_rng(m + 5)
+    x = _rand(rng, (1, m, 512), cuda)
+    a = _rand(rng, (1, m, 256), cuda)
+    w8, s = _int8_weight(rng, 512, 256, cuda)
+    b = _rand(rng, (512,), cuda, torch.float32, 0.05)
+    args = (x, a, w8, s, b)
+    _check(int8_serving.int8_outproj_residual(*args),
+           int8_serving.int8_outproj_residual_plain(*args))
+
+
+@pytest.mark.parametrize("m", [1, 33, 300])
+def test_int8_mlp_kernel(cuda, m):
+    rng = np.random.default_rng(m + 6)
+    x = _rand(rng, (1, m, 256), cuda)
+    gamma = _rand(rng, (256,), cuda, torch.float32, 0.1, 1.0)
+    beta = _rand(rng, (256,), cuda, torch.float32, 0.1)
+    w1, s1 = _int8_weight(rng, 384, 256, cuda)
+    b1 = _rand(rng, (384,), cuda, torch.float32, 0.05)
+    w2, s2 = _int8_weight(rng, 256, 384, cuda)
+    b2 = _rand(rng, (256,), cuda, torch.float32, 0.05)
+    args = (x, gamma, beta, w1, s1, b1, w2, s2, b2)
+    _check(int8_serving.int8_mlp_block(*args),
+           int8_serving.int8_mlp_block_plain(*args))
+
+
+@pytest.mark.parametrize("b,n,n_valid", [(1, 1, 1), (2, 70, 70),
+                                         (2, 130, 97), (1, 1001, 900)])
+def test_int8_attention_kernel(cuda, b, n, n_valid):
+    """Ragged n_valid: keys past it get p8 = 0 and stay out of V's scale."""
+    rng = np.random.default_rng(n + 7)
+    q, k, v = (_rand(rng, (b, n, 3, 64), cuda) for _ in range(3))
+    kw = {"scale": 0.125, "n_valid": n_valid}
+    before = int8_serving.int8_flash_attention_cuda.launches
+    got = int8_serving.int8_flash_attention(q, k, v, **kw)
+    _check(got, int8_serving.int8_flash_attention_plain(q, k, v, **kw))
+    assert int8_serving.int8_flash_attention_cuda.launches == before + 1
+    v[:, n_valid:] = 100.0
+    assert torch.equal(got, int8_serving.int8_flash_attention(q, k, v, **kw))
+
+
+def test_int8_kernels_refuse_what_they_do_not_take(cuda):
+    """A shape each int8 kernel refuses, and an f32 weight."""
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=cuda)
+
+    bf, i8 = torch.bfloat16, torch.int8
+    with pytest.raises(ValueError, match="width % 256"):      # dim 128
+        int8_serving.int8_ln_qkv(zeros(1, 4, 128, dtype=bf), zeros(128),
+                                 zeros(128), zeros(384, 128, dtype=i8),
+                                 zeros(384), 2, 64)
+    with pytest.raises(ValueError, match="dim % 512"):        # dim 256
+        int8_serving.int8_outproj_residual(
+            zeros(1, 4, 256, dtype=bf), zeros(1, 4, 256, dtype=bf),
+            zeros(256, 256, dtype=i8), zeros(256), zeros(256))
+    with pytest.raises(ValueError, match="width % 256"):      # dim 1280
+        int8_serving.int8_mlp_block(
+            zeros(1, 4, 1280, dtype=bf), zeros(1280), zeros(1280),
+            zeros(256, 1280, dtype=i8), zeros(256), zeros(256),
+            zeros(1280, 256, dtype=i8), zeros(1280), zeros(1280))
+    q = zeros(1, 4, 2, 32, dtype=bf)
+    with pytest.raises(ValueError, match="head dim 64"):
+        int8_serving.int8_flash_attention(q, q, q, scale=1.0)
+    with pytest.raises(TypeError):                            # f32 weight
+        int8_serving.int8_outproj_residual(
+            zeros(1, 4, 512, dtype=bf), zeros(1, 4, 256, dtype=bf),
+            zeros(512, 256), zeros(512), zeros(512))

@@ -11,7 +11,8 @@ import torch
 
 from neurovit_tpu_torch.ops import _build
 from neurovit_tpu_torch.ops import flash_attention as fa
-from neurovit_tpu_torch.ops import fused_mlp, fused_outproj, fused_qkv
+from neurovit_tpu_torch.ops import (fused_mlp, fused_outproj, fused_qkv,
+                                    int8_serving)
 
 torch.set_num_threads(1)
 
@@ -20,7 +21,10 @@ COUNTED = (fa.flash_attention_cuda, fused_qkv.fused_ln_qkv_cuda,
            fused_outproj.fused_outproj_residual_cuda,
            fused_mlp.fused_mlp_block_cuda, fa.flash_attention_bwd_cuda,
            fused_qkv.fused_ln_qkv_bwd_cuda, fused_outproj.fused_outproj_bwd_cuda,
-           fused_mlp.fused_mlp_bwd_cuda)
+           fused_mlp.fused_mlp_bwd_cuda, int8_serving.int8_ln_qkv_cuda,
+           int8_serving.int8_outproj_residual_cuda,
+           int8_serving.int8_mlp_block_cuda,
+           int8_serving.int8_flash_attention_cuda)
 
 
 def test_every_module_imports_with_jax_blocked():
@@ -33,6 +37,7 @@ def test_every_module_imports_with_jax_blocked():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "assert not [m for m in sys.modules if m.startswith('jax.')]\n"
+        "assert 'neurovit_tpu_torch.ops.int8_serving' in names\n"
         "print(len(names))\n")
     env = {**os.environ, "PYTHONPATH": REPO}
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
@@ -75,7 +80,16 @@ def test_cpu_path_launches_no_kernel():
                                   seeds=(3, 4))
     y.sum().backward()
     assert all(p.grad is not None for p in params)
-    assert [fn.launches for fn in COUNTED] == before == [0] * 8
+    # The int8 serving ops.
+    w8, s = int8_serving.quantize_weight(t(48, 16))
+    q, k, v = int8_serving.int8_ln_qkv(x, t(16), t(16), w8, s, 2, 8)
+    o = int8_serving.int8_flash_attention(q, k, v, scale=0.3, n_valid=4)
+    w8, s = int8_serving.quantize_weight(t(16, 16))
+    int8_serving.int8_outproj_residual(x, o.reshape(1, 5, 16), w8, s, t(16))
+    (w1, s1), (w2, s2) = (int8_serving.quantize_weight(t(32, 16)),
+                          int8_serving.quantize_weight(t(16, 32)))
+    int8_serving.int8_mlp_block(x, t(16), t(16), w1, s1, t(32), w2, s2, t(16))
+    assert [fn.launches for fn in COUNTED] == before == [0] * 12
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -88,3 +102,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         fa.flash_attention_cuda(*(torch.zeros(1, 5, 2, 64) for _ in range(3)),
                                 scale=0.125)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        int8_serving.int8_flash_attention_cuda(
+            *(torch.zeros(1, 5, 2, 64) for _ in range(3)), scale=0.125)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        int8_serving.int8_outproj_residual_cuda(
+            x, x, torch.zeros(16, 16, dtype=torch.int8), torch.ones(16),
+            torch.zeros(16))

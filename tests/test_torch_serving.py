@@ -19,7 +19,7 @@ from neurovit_tpu.data import nifti
 from neurovit_tpu.models import NeuroEncoder as JaxNeuroEncoder
 from neurovit_tpu.serving import Predictor as JaxPredictor
 from neurovit_tpu.training import state_dict as jax_state_dict
-from neurovit_tpu_torch import serving
+from neurovit_tpu_torch import serving, serving_http
 from neurovit_tpu_torch.serving import Predictor, _collect_volume_jobs
 from neurovit_tpu_torch.serving_http import make_server
 
@@ -118,14 +118,77 @@ def test_cli_writes_csv(setup, tmp_path):
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 
-@pytest.mark.parametrize("flag,item", [("--mesh", "multi-GPU"),
-                                       ("--quant=int8", "int8 serving")])
+@pytest.mark.parametrize("flag,item", [("--mesh", "multi-GPU")])
 def test_cli_refuses_unported_flags(setup, tmp_path, capsys, flag, item):
     config, ckpt, tmp = setup
     with pytest.raises(SystemExit):
         serving.main([str(tmp_path), "--config", _write_config(config, tmp),
                       "--checkpoint", ckpt, "--device", "cpu", flag])
     assert item in capsys.readouterr().err
+
+
+def test_cli_serves_int8(setup, tmp_path):
+    """``--quant int8`` on the batch CLI gives the int8 Predictor's rows."""
+    config, ckpt, tmp = setup
+    scan = str(tmp_path / "scan.nii")
+    nifti.save(scan, np.random.default_rng(4).standard_normal(
+        (21, 39, 21)).astype(np.float32))
+    out = tmp_path / "pred.csv"
+    serving.main([scan, "--config", _write_config(config, tmp),
+                  "--checkpoint", ckpt, "--output", str(out),
+                  "--batch-size", "4", "--device", "cpu", "--quant", "int8"])
+    rows = out.read_text().strip().splitlines()
+    vols = np.stack([v for _, _, v in _collect_volume_jobs([scan], True)])
+    _, want = Predictor.from_checkpoint(config, ckpt, batch_size=4,
+                                        device="cpu", quant="int8")(vols)
+    got = np.array([[float(p) for p in r.split(",")[3:]] for r in rows[1:]])
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+def test_http_cli_serves_int8(setup, monkeypatch):
+    """``python -m neurovit_tpu_torch.serving_http --quant int8`` starts
+    and its /healthz reports the mode (neurovit_tpu/serving_http.py:191)."""
+    config, ckpt, tmp = setup
+    made = []
+
+    def capture(*args, **kwargs):
+        made.append(real(*args, **kwargs))
+        return made[-1]
+
+    real = serving_http.make_server
+    monkeypatch.setattr(serving_http, "make_server", capture)
+    thread = threading.Thread(target=serving_http.main, daemon=True, args=(
+        ["--config", _write_config(config, tmp), "--checkpoint", ckpt,
+         "--port", "0", "--batch-size", "2", "--no-warmup", "--device",
+         "cpu", "--quant", "int8"],))
+    thread.start()
+    for _ in range(600):
+        if made or not thread.is_alive():
+            break
+        thread.join(timeout=0.1)
+    assert made, "the server did not start"
+    server, _ = made[0]
+    try:
+        url = f"http://127.0.0.1:{server.server_address[1]}/healthz"
+        with urllib.request.urlopen(url, timeout=60) as resp:
+            assert json.loads(resp.read())["quant"] == "int8"
+    finally:
+        server.shutdown()
+        thread.join(timeout=10)
+        server.server_close()
+    assert not thread.is_alive()
+
+
+def test_unknown_quant_mode_raises(setup, tmp_path):
+    config, ckpt, tmp = setup
+    with pytest.raises(ValueError, match="unknown quant mode"):
+        Predictor.from_checkpoint(config, ckpt, device="cpu", quant="int4")
+    assert Predictor.from_checkpoint(config, ckpt, device="cpu",
+                                     quant="none").quant is None
+    with pytest.raises(SystemExit):
+        serving.main([str(tmp_path), "--config", _write_config(config, tmp),
+                      "--checkpoint", ckpt, "--device", "cpu",
+                      "--quant", "int4"])
 
 
 def _post(url, body):
