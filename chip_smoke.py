@@ -13,9 +13,12 @@ Phases, each printing a line; any failure raises and exits non-zero:
                the flagship shapes (batch 8 x 1001 tokens), with CUDA-event
                timings of both: the forwards K1-K4 at dropout 0, K1, K3 and
                K4 again at dropout 0.1 (the same mask bits on both sides),
-               the backwards K5, K7, K8, K9 at dropout 0 and 0.1, and the
-               int8 kernels K10-K13 (K13 also at n_valid 900), each timed
-               beside its bf16 counterpart (K2, K3, K4, K1) on the same inputs
+               the backwards K5, K7, K8, K9 at dropout 0 and 0.1, K6 (the
+               [B, H, N, D] attention) forward at n_valid 1001 and 900 and
+               at dropout 0.1 and backward at dropout 0 and 0.1, each also
+               timed beside K1 or K5 on the transposed inputs, and the int8
+               kernels K10-K13 (K13 also at n_valid 900), each timed beside
+               its bf16 counterpart (K2, K3, K4, K1) on the same inputs
 4. slice       the flagship model (configs/config.yaml, seed 42) saved with
                torch.save, served by Predictor.from_checkpoint on cuda:
                warmup, then requests of 1, 3 and 32 volumes; checked against
@@ -32,14 +35,24 @@ Phases, each printing a line; any failure raises and exits non-zero:
                off runs K1 in place of K13
 7. rate        the int8 and the bf16 forward at batch 32, device-only by
                CUDA events, and a profiler split of the int8 forward
-8. grad        the flagship at batch 2, dropout 0.1: loss and every
+8. gradcam     Grad-CAM of the same checkpoint with its LayerNorm affines
+               moved off their init: the launch counts of one
+               get_attention_map of 4 volumes (K1-K3 depth - 1 times, K4
+               depth times, K6 forward and backward and K9 once, no other
+               backward kernel); probe gradients and raw CAMs of the batch
+               against single volumes and one volume against the CPU plain
+               path; every menu method, integrated gradients, Kernel SHAP
+               and grad x input once; the driver's get_sample_gradcam with
+               the map written as NIfTI and read back; Grad-CAM latency at
+               batch 1 and 8 by CUDA events, each with a profiler split
+9. grad        the flagship at batch 2, dropout 0.1: loss and every
                parameter's gradient on cuda against the CPU plain path
-9. train       Trainer.run() for one epoch of seeded 90^3 volumes (batch 32,
+10. train      Trainer.run() for one epoch of seeded 90^3 volumes (batch 32,
                8 train and 2 val batches); its checkpoint served by
                Predictor; then 10 steps on one fixed batch at dropout 0
-10. train_rate train steps at batch 128: median step time, vol/s, TFLOP/s,
+11. train_rate train steps at batch 128: median step time, vol/s, TFLOP/s,
                peak memory, and a profiler split of one step
-11. counts     in phase 9, every bf16 forward kernel launched depth times
+12. counts     in phase 10, every bf16 forward kernel launched depth times
                per forward and every backward kernel depth times per
                backward
 
@@ -89,7 +102,9 @@ PROB_ATOL = 2e-2
 # (tests/test_int8_serving.py:205).
 INT8_ATOL = 5e-2
 # Full-model gradients, cuda against the CPU plain path: relative Frobenius
-# error per parameter (bf16 through six blocks and back).
+# error per parameter (bf16 through six blocks and back). Grad-CAM probe
+# gradients and raw CAMs take the same bound, against the CPU plain path and
+# batched against single volumes.
 GRAD_RTOL = 2e-2
 DROPOUT = 0.1
 # Train FLOP per volume and step, from the shapes (PERF.md): 89.4 GFLOP
@@ -115,6 +130,11 @@ KERNELS = [
      "neurovit_tpu/ops/fused_outproj.py:56"),
     ("fused_mlp_bwd", "neurovit_tpu_torch/csrc/fused_mlp_bwd.cu",
      "neurovit_tpu/ops/fused_mlp.py:141"),
+    ("flash_attention_bhnd", "neurovit_tpu_torch/csrc/flash_attention.cu",
+     "neurovit_tpu/ops/flash_attention.py:91"),
+    ("flash_attention_bhnd_bwd",
+     "neurovit_tpu_torch/csrc/flash_attention_bwd.cu",
+     "neurovit_tpu/ops/flash_attention.py:152"),
     ("int8_ln_qkv", "neurovit_tpu_torch/csrc/int8_qkv.cu",
      "neurovit_tpu/ops/int8_serving.py:154"),
     ("int8_outproj_residual", "neurovit_tpu_torch/csrc/int8_outproj.cu",
@@ -125,6 +145,8 @@ KERNELS = [
      "neurovit_tpu/ops/int8_serving.py:286"),
 ]
 INT8_KERNELS = [name for name, _, _ in KERNELS if name.startswith("int8_")]
+# K6: only the Grad-CAM probe's last block runs it.
+GRADCAM_KERNELS = ["flash_attention_bhnd", "flash_attention_bhnd_bwd"]
 
 
 def log(phase: str, msg: str) -> None:
@@ -238,6 +260,19 @@ def kernel_phase(card: str) -> dict:
         return lambda: fn(*qkv, o[rate], do, lsum[rate], scale=scale,
                           n_valid=N, dropout_rate=rate, seed=1234)
 
+    def bhnd(t):            # [B, N, H, D] <-> [B, H, N, D]
+        return t.transpose(1, 2).contiguous()
+
+    # K6's operands: the same tensors in [B, H, N, D]; its residuals are
+    # the bnhd plain forward's, transposed (the two layouts give the same
+    # bits, tests/test_torch_gradcam.py).
+    qkv_h, do_h = [bhnd(a) for a in qkv], bhnd(do)
+    o_h = {rate: bhnd(o[rate]) for rate in o}
+
+    def attn_bhnd_bwd(fn, rate):
+        return lambda: fn(*qkv_h, o_h[rate], do_h, lsum[rate], scale=scale,
+                          n_valid=N, dropout_rate=rate, seed=1234)
+
     def mlp_bwd(fn, rate):
         return lambda: fn(dy, x, h[rate], *ln, w1, w2, dropout_rate=rate,
                           seeds=(1235, 1236))
@@ -295,6 +330,24 @@ def kernel_phase(card: str) -> dict:
             (f"dropout {rate}", attn_bwd(fa.flash_attention_bwd_cuda, rate),
              attn_bwd(fa.flash_attention_bwd_plain, rate), True, ())
             for rate in (DROPOUT, 0.0)],
+        "flash_attention_bhnd": [
+            ("n_valid 1001", lambda: fa.flash_attention_bhnd_cuda(
+                *qkv_h, scale=scale, n_valid=N),
+             lambda: fa.flash_attention_bhnd_plain(*qkv_h, scale=scale,
+                                                   n_valid=N)),
+            (f"n_valid {N_VALID_MASKED}", lambda: fa.flash_attention_bhnd_cuda(
+                *qkv_h, scale=scale, n_valid=N_VALID_MASKED),
+             lambda: fa.flash_attention_bhnd_plain(
+                 *qkv_h, scale=scale, n_valid=N_VALID_MASKED)),
+            (f"dropout {DROPOUT}", lambda: fa.flash_attention_bhnd_cuda(
+                *qkv_h, scale=scale, n_valid=N, return_stats=True, **drop),
+             lambda: fa.flash_attention_bhnd_plain(
+                 *qkv_h, scale=scale, n_valid=N, return_stats=True, **drop))],
+        "flash_attention_bhnd_bwd": [
+            (f"dropout {rate}",
+             attn_bhnd_bwd(fa.flash_attention_bhnd_bwd_cuda, rate),
+             attn_bhnd_bwd(fa.flash_attention_bhnd_bwd_plain, rate), True, ())
+            for rate in (0.0, DROPOUT)],
         "fused_ln_qkv_bwd": [
             ("", lambda: oq.fused_ln_qkv_bwd_cuda(*dqkv, x, ln[0], wqkv),
              lambda: oq.fused_ln_qkv_bwd_plain(*dqkv, x, ln[0], wqkv), True,
@@ -324,16 +377,39 @@ def kernel_phase(card: str) -> dict:
                  *qkv, scale=scale, n_valid=n_valid))
             for n_valid in (N, N_VALID_MASKED)],
     }
-    # The bf16 kernel each int8 kernel stands in for, on the same inputs.
+    # (name, label) -> (what, call, layout): the bf16 kernel each int8
+    # kernel stands in for, on the same inputs; K1 or K5 beside K6 on the
+    # transposed inputs, with the largest difference of the outputs once
+    # ``layout`` brings them to K6's layout.
     counterparts = {
-        "int8_ln_qkv": lambda: oq.fused_ln_qkv_cuda(x, *ln, wqkv, HEADS,
-                                                    DIM_HEAD),
-        "int8_outproj_residual": lambda: (
+        ("int8_ln_qkv", ""): ("bf16 counterpart", lambda: oq.fused_ln_qkv_cuda(
+            x, *ln, wqkv, HEADS, DIM_HEAD), None),
+        ("int8_outproj_residual", ""): ("bf16 counterpart", lambda: (
             fused_outproj.fused_outproj_residual_cuda(x, attn, wout, bout)),
-        "int8_mlp_block": lambda: fused_mlp.fused_mlp_block_cuda(*mlp_args),
-        "int8_flash_attention": lambda: fa.flash_attention_cuda(
-            *qkv, scale=scale, n_valid=N),
+            None),
+        ("int8_mlp_block", ""): ("bf16 counterpart",
+                                 lambda: fused_mlp.fused_mlp_block_cuda(
+                                     *mlp_args), None),
+        ("int8_flash_attention", f"n_valid {N}"): (
+            "bf16 counterpart",
+            lambda: fa.flash_attention_cuda(*qkv, scale=scale, n_valid=N),
+            None),
     }
+    for label, kw in ((f"n_valid {N}", {"n_valid": N}),
+                      (f"n_valid {N_VALID_MASKED}",
+                       {"n_valid": N_VALID_MASKED}),
+                      (f"dropout {DROPOUT}", {"n_valid": N, **drop,
+                                              "return_stats": True})):
+        counterparts[("flash_attention_bhnd", label)] = (
+            "K1 on the transposed inputs",
+            lambda kw=kw: fa.flash_attention_cuda(*qkv, scale=scale, **kw),
+            lambda out: [bhnd(out[0]), out[1]] if isinstance(out, tuple)
+            else bhnd(out))
+    for rate in (0.0, DROPOUT):
+        counterparts[("flash_attention_bhnd_bwd", f"dropout {rate}")] = (
+            "K5 on the transposed inputs",
+            attn_bwd(fa.flash_attention_bwd_cuda, rate),
+            lambda out: [bhnd(g) for g in out])
     results = {}
     for name, calls in cases.items():
         max_abs, max_rel = 0.0, 0.0
@@ -342,17 +418,27 @@ def kernel_phase(card: str) -> dict:
             torch.cuda.synchronize()
             a, r = compare(f"{name} {label}", got, want, *check)
             max_abs, max_rel = max(max_abs, a), max(max_rel, r)
-            if i == 0 or "dropout" in label:
+            other = counterparts.get((name, label))
+            if i == 0 or "dropout" in label or other:
                 ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
                 if i == 0:
                     results[name] = {"ms": ms, "plain_ms": plain_ms}
                 log("kernels", f"{name} {label}: kernel {ms:.4f} ms, plain "
                     f"{plain_ms:.4f} ms at B={B} N={N}; max abs err {a:.3e}")
-                if i == 0 and name in counterparts:
-                    bf16_ms = cuda_ms(counterparts[name])
-                    results[name]["bf16_ms"] = bf16_ms
-                    log("kernels", f"{name}: its bf16 counterpart "
-                        f"{bf16_ms:.4f} ms on the same inputs")
+            if other:
+                what, call, layout = other
+                other_ms = cuda_ms(call)
+                msg = f"{name} {label}: {what} {other_ms:.4f} ms"
+                if layout is not None:
+                    theirs = layout(call())
+                    torch.cuda.synchronize()
+                    theirs = ([theirs] if isinstance(theirs, torch.Tensor)
+                              else theirs)
+                    mine = [got] if isinstance(got, torch.Tensor) else got
+                    diff = max(float((m.float() - t.float()).abs().max())
+                               for m, t in zip(mine, theirs))
+                    msg += f", largest difference from it {diff:.3e}"
+                log("kernels", msg)
             del got, want
         results[name].update(max_abs_err=max_abs, max_rel_err=max_rel)
         log("kernels", f"{name}: max abs err {max_abs:.3e}, max rel err "
@@ -605,7 +691,7 @@ def train_phase(config, workdir: str, counters: dict) -> dict:
     log("counts", f"train run: {forwards[0]} forwards, {steps[0]} backwards "
         f"x depth {depth}; launches {launches}")
     for name, _, _ in KERNELS:
-        want = (0 if name in INT8_KERNELS else
+        want = (0 if name in INT8_KERNELS or name in GRADCAM_KERNELS else
                 depth * (steps[0] if name.endswith("_bwd") else forwards[0]))
         if launches[name] != want or (want and launches[name] == 0):
             raise AssertionError(f"{name} launched {launches[name]} times in "
@@ -806,6 +892,178 @@ def rate_phase(config, ckpt: str, card: str, batch: int = 32) -> None:
                       float(np.mean(times["int8"])))
 
 
+def _lift_layer_norms(model, seed: int) -> None:
+    """Move every LayerNorm affine off its init (ones, zeros) with seeded
+    noise, as training moves them. At the init the probe activation sums
+    to zero over the features, so the reference's raw CAM (the mean
+    gradient times that sum) is rounding noise, and two devices' maps of it
+    cannot agree."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, torch.nn.LayerNorm):
+                for p, base in ((module.weight, 1.0), (module.bias, 0.0)):
+                    p.copy_(torch.from_numpy(
+                        base + 0.3 * rng.standard_normal(tuple(p.shape))))
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.float().cpu(), want.float().cpu()
+    if not torch.isfinite(got).all():
+        raise AssertionError("a Grad-CAM output is not finite")
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def gradcam_phase(config, ckpt: str, workdir: str, card: str,
+                  counters: dict) -> dict:
+    """Grad-CAM of the flagship on cuda (see the module docstring, phase
+    8). Returns the launch counts of one get_attention_map call."""
+    from neurovit_tpu.data import nifti
+    from neurovit_tpu_torch.explainability import bcos, cam_methods, driver
+    from neurovit_tpu_torch.explainability import gradcam_vit3d as gc
+    from neurovit_tpu_torch.explainability import integrated_gradients as ig
+    from neurovit_tpu_torch.explainability import shap_values
+    from neurovit_tpu_torch.models import NeuroEncoder
+    from neurovit_tpu_torch.training.checkpoint import load_checkpoint
+
+    size = config["TRAINING_VIT_INPUT_SIZE"]
+    threshold = float(config["GRADCAM_THRESHOLD"])
+    cpu = NeuroEncoder(config, device="cpu", seed=SEED)
+    load_checkpoint(cpu, ckpt, strict=True)
+    _lift_layer_norms(cpu, SEED)
+    model = NeuroEncoder(config, device="cuda", seed=SEED)
+    model.load_state_dict(cpu.state_dict(), strict=True)
+    depth = model.vit_cfg.depth
+    rng = np.random.default_rng(SEED + 6)
+    vols = _volumes(rng, 4, size)
+
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    cams, idx = model.get_attention_map(vols)
+    secs = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log("gradcam", f"get_attention_map of 4 volumes: classes {idx.tolist()}, "
+        f"{secs * 1e3:.1f} ms host clock (first call); launches {launches}")
+    want = {name: 0 for name in counters}
+    want.update({name: depth - 1 for name in (
+        "flash_attention", "fused_ln_qkv", "fused_outproj_residual")})
+    want.update(fused_mlp_block=depth, flash_attention_bhnd=1,
+                flash_attention_bhnd_bwd=1, fused_mlp_bwd=1)
+    _check_counts("one get_attention_map", launches, want)
+    if (cams.shape != (4, size, size, size) or not np.isfinite(cams).all()
+            or cams.min() < 0 or cams.max() > 1 + 1e-6):
+        raise AssertionError(f"maps: shape {cams.shape}, range "
+                             f"[{cams.min()}, {cams.max()}]")
+
+    # Probe gradients and raw CAMs: the batch against single volumes, and
+    # the first volume against the CPU plain path.
+    x = torch.from_numpy(vols).cuda()
+    _, idx4, acts4, grads4 = gc.probe_acts_grads(model, x)
+    raw4 = gc.raw_attention_map(model, acts4, grads4)
+    worst = 0.0
+    for i in range(4):
+        _, idx1, acts1, grads1 = gc.probe_acts_grads(model, x[i:i + 1])
+        raw1 = gc.raw_attention_map(model, acts1, grads1)
+        if i == 0:
+            single = (idx1, acts1, grads1, raw1)
+        errs = (_rel_err(grads4[i:i + 1], grads1), _rel_err(raw4[i:i + 1],
+                                                            raw1))
+        worst = max(worst, *errs)
+        if int(idx1) != int(idx4[i]) or max(errs) > GRAD_RTOL:
+            raise AssertionError(f"volume {i}: batched against single: "
+                                 f"classes {int(idx4[i])}, {int(idx1)}; "
+                                 f"gradient, raw CAM errors {errs}")
+    log("gradcam", f"batch of 4 against single volumes: classes equal, "
+        f"gradients and raw CAMs within {worst:.3e} (tol {GRAD_RTOL})")
+    t0 = time.perf_counter()
+    logits_c, idx_c, acts_c, grads_c = gc.probe_acts_grads(
+        cpu, torch.from_numpy(vols[:1]))
+    raw_c = gc.raw_attention_map(cpu, acts_c, grads_c)
+    errs = {"activations": _rel_err(single[1], acts_c),
+            "gradients": _rel_err(single[2], grads_c),
+            "raw CAM": _rel_err(single[3], raw_c)}
+    final = gc.finalize_cam(raw_c, size, threshold).numpy()[0]
+    log("gradcam", f"cuda against the cpu plain path: class "
+        f"{int(single[0])} / {int(idx_c)}, relative errors "
+        f"{ {k: round(v, 6) for k, v in errs.items()} } (tol {GRAD_RTOL}); "
+        f"final maps differ by at most {np.abs(final - cams[0]).max():.3e}; "
+        f"cpu {time.perf_counter() - t0:.1f} s host clock")
+    if int(single[0]) != int(idx_c) or max(errs.values()) > GRAD_RTOL:
+        raise AssertionError(f"cuda and cpu Grad-CAM differ: {errs}")
+
+    # The menu, once each on one volume, with what each launched.
+    for method in cam_methods.METHODS:
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        cam, cls = cam_methods.compute_cam(model, vols[0], method=method)
+        secs = time.perf_counter() - t0
+        ran = {n: c.launches for n, c in counters.items() if c.launches}
+        if (cam.shape != (size,) * 3 or not np.isfinite(cam).all()
+                or cam.min() < 0 or cam.max() > 1 + 1e-6):
+            raise AssertionError(f"{method}: map shape {cam.shape}, range "
+                                 f"[{cam.min()}, {cam.max()}]")
+        backward = {n: c for n, c in ran.items() if n.endswith("_bwd")}
+        forward_only = method in cam_methods.FORWARD_METHODS
+        if (ran.get("flash_attention_bhnd", 0) < 1
+                or bool(backward) == forward_only):
+            raise AssertionError(f"{method} launched {ran}")
+        log("gradcam", f"{method}: class {cls.tolist()}, "
+            f"{(cam > 0).mean() * 100:.2f} % of voxels kept, "
+            f"{secs * 1e3:.0f} ms host clock; launches {ran}")
+
+    noise = rng.standard_normal(vols[0].shape).astype(np.float32)
+    t0 = time.perf_counter()
+    attr, cls = ig.integrated_gradients(model, vols[0], baseline=noise,
+                                        steps=8)
+    gap = ig.completeness_gap(model, vols[0], baseline=noise, steps=8)
+    log("gradcam", f"integrated gradients, 8 steps: class {cls.tolist()}, "
+        f"|attr| max {np.abs(attr).max():.3e}, completeness gap {gap:.3e}; "
+        f"{time.perf_counter() - t0:.1f} s host clock with the gap")
+    shap, shap_cls = shap_values.kernel_shap(model, vols[0], region_size=18,
+                                             nsamples=32, batch_size=16)
+    contrib, bcos_cls = bcos.explain(model, vols[0])
+    for what, a in (("integrated gradients", attr), ("kernel SHAP", shap),
+                    ("grad x input", contrib)):
+        if a.shape != vols[0].shape or not np.isfinite(a).all():
+            raise AssertionError(f"{what}: shape {a.shape} or not finite")
+    log("gradcam", f"kernel SHAP ({(size // 18) ** 3} regions, 32 "
+        f"coalitions): class "
+        f"{shap_cls}, |phi| max {np.abs(shap).max():.3e}; grad x input: "
+        f"class {bcos_cls.tolist()}, sum {float(contrib.sum()):.4e}")
+
+    # The driver on seeded volumes, each map written as NIfTI.
+    dataset = _SeededVolumes(3, size, SEED + 7, "cam")
+    dcfg = dict(config, GRADCAM_OUTPUT_DIR=os.path.join(workdir, "cams"))
+    for sid in range(3):
+        _, img, attn, cls, sample = driver.get_sample_gradcam(
+            model, dataset, sid, dcfg)
+        cam, _ = model.get_attention_map(sample["volume"])
+        path = driver.save_gradcam_nifti(cam, sid, dcfg)
+        back = nifti.load(path).get_fdata(np.float32)
+        axial = dcfg["GRADCAM_SLICE_IDX"]
+        if (not np.array_equal(back, cam)
+                or not np.array_equal(attn, cam[:, :, axial])):
+            raise AssertionError(f"sample {sid}: the saved map or the slice "
+                                 "differs from the map")
+    log("gradcam", f"driver: 3 samples, slices and NIfTI maps in "
+        f"{dcfg['GRADCAM_OUTPUT_DIR']}")
+
+    # Latency, device-only by CUDA events: probe forward, backward and tail.
+    times = {}
+    for b in (1, 8):
+        xb = torch.from_numpy(_volumes(rng, b, size)).cuda()
+        times[b] = cuda_ms(lambda: gc.attention_map(model, xb, threshold),
+                           warmup=2, runs=10)
+        log("gradcam", f"Grad-CAM at batch {b}: {times[b]:.3f} ms, "
+            f"{b / times[b] * 1e3:.1f} vol/s; {card}")
+        profile_split("gradcam", f"Grad-CAM at batch {b}",
+                      lambda: gc.attention_map(model, xb, threshold),
+                      times[b])
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs the "
@@ -850,6 +1108,9 @@ def main() -> int:
         "int8_outproj_residual": int8_serving.int8_outproj_residual_cuda,
         "int8_mlp_block": int8_serving.int8_mlp_block_cuda,
         "int8_flash_attention": int8_serving.int8_flash_attention_cuda,
+        "flash_attention_bhnd": flash_attention.flash_attention_bhnd_cuda,
+        "flash_attention_bhnd_bwd":
+            flash_attention.flash_attention_bhnd_bwd_cuda,
     }
     config = load_config()
     rng = np.random.default_rng(SEED)
@@ -874,13 +1135,17 @@ def main() -> int:
             f"launches {serving}")
         _check_counts("serving", serving, {
             name: 0 if name.endswith("_bwd") or name in INT8_KERNELS
-            else depth * forwards[0] for name in counters})
+            or name in GRADCAM_KERNELS else depth * forwards[0]
+            for name in counters})
         del predictor
         torch.cuda.empty_cache()
 
         int8_launches = int8_phase(config, ckpt, rng, workdir, counters)
         torch.cuda.empty_cache()
         rate_phase(config, ckpt, card)
+        torch.cuda.empty_cache()
+        gradcam_launches = gradcam_phase(config, ckpt, workdir, card,
+                                         counters)
         torch.cuda.empty_cache()
 
         grad_phase(config)
@@ -890,6 +1155,8 @@ def main() -> int:
         train_rate_phase(config, workdir, card)
 
     launches.update({name: int8_launches[name] for name in INT8_KERNELS})
+    launches.update({name: gradcam_launches[name]
+                     for name in GRADCAM_KERNELS})
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[name],

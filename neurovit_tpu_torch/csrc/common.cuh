@@ -305,6 +305,19 @@ struct TileGemm {
   }
 };
 
+// The rows of one (b, h) attention head, D wide: token t starts at element
+// base + t * stride. bnhd [B, N, H, D] (K1, K5): stride H * D, base
+// (b * N * H + h) * D. bhnd [B, H, N, D] (K6): stride D, base
+// (b * H + h) * N * D.
+template <bool kBhnd>
+struct HeadRows {
+  size_t base, stride;
+  __device__ HeadRows(int b, int h, int N, int H, int D)
+      : base(kBhnd ? (static_cast<size_t>(b) * H + h) * N * D
+                   : (static_cast<size_t>(b) * N * H + h) * D),
+        stride(kBhnd ? static_cast<size_t>(D) : static_cast<size_t>(H) * D) {}
+};
+
 // Opt a kernel into more than 48 KB of dynamic shared memory.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {

@@ -1,7 +1,11 @@
-// Flash attention forward, [B, N, H, D] (bnhd) layout, D = 64, bf16.
-//
-// Replaces the TPU kernel neurovit_tpu/ops/flash_attention.py:233
-// (_fwd_kernel_allheads, launched at :381 by flash_attention(layout="bnhd")).
+// Flash attention forward, D = 64, bf16, in two layouts:
+//   bnhd [B, N, H, D] (K1): replaces the TPU kernel
+//     neurovit_tpu/ops/flash_attention.py:233 (_fwd_kernel_allheads,
+//     launched at :381 by flash_attention(layout="bnhd"));
+//   bhnd [B, H, N, D] (K6): replaces :91 (_fwd_kernel, launched at :381 by
+//     flash_attention(layout="bhnd"), the Grad-CAM probe's attention).
+// The layout is a template parameter: it only changes where a head's rows
+// are (HeadRows, common.cuh). K6 reads and writes [B, H, N, D] in place.
 // Same arithmetic, per (b, h) and query row:
 //   s = q . k^T * (scale * log2 e)               f32 accumulation
 //   p = exp2(clamp(s, -96, 96)) * (key < n_valid) f32
@@ -12,8 +16,10 @@
 // so the key loop only sums: no online-softmax rescaling. The dropout mask
 // of element (b, h, q, k) is nvt::DropoutBits at index ((b*H + h)*N + q)*N
 // + k: a function of position, so the backward (flash_attention_bwd.cu)
-// regenerates it under its own tiling. In training the kernel also writes
-// the f32 row sum denom per (b, h, q), the backward's row statistic.
+// regenerates it under its own tiling, and K1 and K6 draw the same bits for
+// the same (b, h, q, k). When a graph is recorded (training, Grad-CAM) the
+// kernel also writes the f32 row sum denom per (b, h, q), the backward's row
+// statistic.
 //
 // What bounds it on the H100: 4*N^2*D flops per (b, h) against 4*N*D*2 bytes,
 // about 500 flops a byte at N = 1001, so the tensor cores and the exp2 units,
@@ -59,6 +65,7 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
   }
 }
 
+template <bool kBhnd>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o, int N,
@@ -76,8 +83,8 @@ __global__ void __launch_bounds__(kThreads)
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int q0 = blockIdx.y * kBQ;
-  const size_t tok_stride = static_cast<size_t>(H) * kD;
-  const size_t head_base = (static_cast<size_t>(b) * N * H + h) * kD;
+  const HeadRows<kBhnd> rows(b, h, N, H, kD);
+  const size_t tok_stride = rows.stride, head_base = rows.base;
   const bf16* qh = q + head_base;
   const bf16* kh = k + head_base;
   const bf16* vh = v + head_base;
@@ -187,10 +194,30 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <bool kBhnd>
+int launch_fwd(const void* q, const void* k, const void* v, void* o, int B,
+               int N, int H, int D, int n_valid, float scale_log2e,
+               float keep, int keep_q, uint64_t seed, void* lsum,
+               void* stream) {
+  if (D != kD || B < 1 || N < 1 || H < 1 || n_valid < 1 || n_valid > N ||
+      keep_q < 0 || keep_q > 255)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem(flash_fwd_kernel<kBhnd>, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, (N + kBQ - 1) / kBQ);
+  flash_fwd_kernel<kBhnd><<<grid, kThreads, kSmemBytes,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), N, H, n_valid,
+      scale_log2e, keep, static_cast<uint32_t>(keep_q), seed,
+      static_cast<float*>(lsum));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 }  // namespace nvt
 
-// q, k, v, o: [B, N, H, 64] bf16, contiguous. 1 <= n_valid <= N.
+// K1. q, k, v, o: [B, N, H, 64] bf16, contiguous. 1 <= n_valid <= N.
 // keep_q: dropout threshold q of keep = q / 256, 0 for no dropout (then
 // keep = 1). lsum: [B, H, N] f32 row sums, or null (serving).
 extern "C" int nvt_flash_attention_fwd(const void* q, const void* k,
@@ -199,20 +226,19 @@ extern "C" int nvt_flash_attention_fwd(const void* q, const void* k,
                                        float scale_log2e, float keep,
                                        int keep_q, uint64_t seed, void* lsum,
                                        void* stream) {
-  using namespace nvt;
-  if (D != kD || B < 1 || N < 1 || H < 1 || n_valid < 1 || n_valid > N ||
-      keep_q < 0 || keep_q > 255)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(flash_fwd_kernel, kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * H, (N + kBQ - 1) / kBQ);
-  flash_fwd_kernel<<<grid, kThreads, kSmemBytes,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), N, H, n_valid,
-      scale_log2e, keep, static_cast<uint32_t>(keep_q), seed,
-      static_cast<float*>(lsum));
-  return static_cast<int>(cudaGetLastError());
+  return nvt::launch_fwd<false>(q, k, v, o, B, N, H, D, n_valid, scale_log2e,
+                                keep, keep_q, seed, lsum, stream);
+}
+
+// K6: the same with q, k, v, o in [B, H, N, 64].
+extern "C" int nvt_flash_attention_bhnd_fwd(const void* q, const void* k,
+                                            const void* v, void* o, int B,
+                                            int N, int H, int D, int n_valid,
+                                            float scale_log2e, float keep,
+                                            int keep_q, uint64_t seed,
+                                            void* lsum, void* stream) {
+  return nvt::launch_fwd<true>(q, k, v, o, B, N, H, D, n_valid, scale_log2e,
+                               keep, keep_q, seed, lsum, stream);
 }
 
 extern "C" const char* nvt_error_string(int err) {

@@ -1,16 +1,21 @@
-// Flash attention backward, [B, N, H, D] (bnhd) layout, D = 64, bf16.
-//
-// Replaces the TPU kernel neurovit_tpu/ops/flash_attention.py:269
-// (_bwd_kernel_allheads, launched at :420). Per (b, h), with P and the
+// Flash attention backward, D = 64, bf16, in two layouts:
+//   bnhd [B, N, H, D] (K5): replaces the TPU kernel
+//     neurovit_tpu/ops/flash_attention.py:269 (_bwd_kernel_allheads,
+//     launched at :420);
+//   bhnd [B, H, N, D] (K6's backward): replaces :152 (_bwd_kernel, launched
+//     at :420 under the custom VJP at :467-493), the Grad-CAM probe's.
+// The layout is a template parameter of both kernels below: it only changes
+// where a head's rows are (HeadRows, common.cuh). Per (b, h), with P and the
 // dropout mask regenerated from q, k and the seed:
 //   p     = exp2(clamp(q.k^T * scale log2 e, +-96)) * (key < n_valid) / l
 //   delta = keep * sum_d(dO * O)                 per query row, f32
 //   dp_m  = (dO . v^T) * mask
 //   ds    = bf16(p * (dp_m - delta) * (scale / keep))
 //   dq    = ds . k           dk = ds^T . q        dv = bf16(p * mask)^T . dO / keep
-// l is K1's f32 row sum (the forward writes it in training). The TPU kernel
-// holds the whole key row in VMEM and takes delta = sum(p * dp_m) over it
-// (:297-313); a GPU block holds 64 keys, so delta comes from the row's
+// l is the forward's f32 row sum (K1 or K6 write it when a graph is
+// recorded). The TPU kernels hold the whole key row in VMEM and take delta =
+// sum(p * dp_m) over it (:297-313, and :207 for bhnd); a GPU block holds 64
+// keys, so delta comes from the row's
 // output instead: sum_k p_k m_k (dO . v_k) = keep * (dO . O). Both are the
 // same sum; this one rounds through the bf16 O, and the plain backward
 // (ops/flash_attention.py) uses the same formula.
@@ -76,6 +81,7 @@ __device__ __forceinline__ float prob(float s, float scale_log2e, bool valid,
 // ---------------------------------------------------------------------------
 constexpr size_t kDqSmem = 2 * kTile + 4 * kTile + 2 * kWarpF32 + kWarpBf16;
 
+template <bool kBhnd>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ o,
@@ -98,8 +104,8 @@ __global__ void __launch_bounds__(kThreads)
 
   const int bh = blockIdx.x, h = bh % H, b = bh / H;
   const int q0 = blockIdx.y * kBQ;
-  const size_t tok_stride = static_cast<size_t>(H) * kD;
-  const size_t head_base = (static_cast<size_t>(b) * N * H + h) * kD;
+  const HeadRows<kBhnd> rows(b, h, N, H, kD);
+  const size_t tok_stride = rows.stride, head_base = rows.base;
 
   load_tile(Qs, q + head_base, tok_stride, q0, N);
   load_tile(dOs, dout + head_base, tok_stride, q0, N);
@@ -236,6 +242,7 @@ __device__ __forceinline__ void load_stats(float* st, const float* lsum,
   }
 }
 
+template <bool kBhnd>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkdv_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ k,
@@ -263,8 +270,8 @@ __global__ void __launch_bounds__(kThreads)
 
   const int bh = blockIdx.x, h = bh % H, b = bh / H;
   const int k0 = blockIdx.y * kBKV;
-  const size_t tok_stride = static_cast<size_t>(H) * kD;
-  const size_t head_base = (static_cast<size_t>(b) * N * H + h) * kD;
+  const HeadRows<kBhnd> rows(b, h, N, H, kD);
+  const size_t tok_stride = rows.stride, head_base = rows.base;
   const size_t stat_base = static_cast<size_t>(bh) * N;
 
   if (k0 >= n_valid) {
@@ -411,29 +418,22 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-}  // namespace
-}  // namespace nvt
-
-// q, k, v, o, dout, dq, dk, dv: [B, N, H, 64] bf16, contiguous; lsum: [B, H,
-// N] f32 from the forward; delta: [B, H, N] f32 scratch. keep_q 0 = no
-// dropout (keep = inv_keep = 1).
-extern "C" int nvt_flash_attention_bwd(
-    const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lsum, void* delta, void* dq, void* dk,
-    void* dv, int B, int N, int H, int D, int n_valid, float scale_log2e,
-    float ds_scale, float keep, float inv_keep, int keep_q, uint64_t seed,
-    void* stream) {
-  using namespace nvt;
+template <bool kBhnd>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const void* lsum, void* delta, void* dq,
+               void* dk, void* dv, int B, int N, int H, int D, int n_valid,
+               float scale_log2e, float ds_scale, float keep, float inv_keep,
+               int keep_q, uint64_t seed, void* stream) {
   if (D != kD || B < 1 || N < 1 || H < 1 || n_valid < 1 || n_valid > N ||
       keep_q < 0 || keep_q > 255)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel, kDqSmem);
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<kBhnd>, kDqSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = allow_smem(flash_bwd_dkdv_kernel, kDkvSmem);
+  err = allow_smem(flash_bwd_dkdv_kernel<kBhnd>, kDkvSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto s = static_cast<cudaStream_t>(stream);
   const dim3 grid(B * H, (N + 63) / 64);
-  flash_bwd_dq_kernel<<<grid, kThreads, kDqSmem, s>>>(
+  flash_bwd_dq_kernel<kBhnd><<<grid, kThreads, kDqSmem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(o),
       static_cast<const bf16*>(dout), static_cast<const float*>(lsum),
@@ -441,11 +441,40 @@ extern "C" int nvt_flash_attention_bwd(
       scale_log2e, ds_scale, keep, static_cast<uint32_t>(keep_q), seed);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkdv_kernel<<<grid, kThreads, kDkvSmem, s>>>(
+  flash_bwd_dkdv_kernel<kBhnd><<<grid, kThreads, kDkvSmem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lsum), static_cast<const float*>(delta),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), N, H, n_valid,
       scale_log2e, ds_scale, inv_keep, static_cast<uint32_t>(keep_q), seed);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+}  // namespace nvt
+
+// K5. q, k, v, o, dout, dq, dk, dv: [B, N, H, 64] bf16, contiguous; lsum:
+// [B, H, N] f32 from the forward; delta: [B, H, N] f32 scratch. keep_q 0 =
+// no dropout (keep = inv_keep = 1).
+extern "C" int nvt_flash_attention_bwd(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lsum, void* delta, void* dq, void* dk,
+    void* dv, int B, int N, int H, int D, int n_valid, float scale_log2e,
+    float ds_scale, float keep, float inv_keep, int keep_q, uint64_t seed,
+    void* stream) {
+  return nvt::launch_bwd<false>(q, k, v, o, dout, lsum, delta, dq, dk, dv, B,
+                                N, H, D, n_valid, scale_log2e, ds_scale, keep,
+                                inv_keep, keep_q, seed, stream);
+}
+
+// K6's backward: the same with every [.., 64] operand in [B, H, N, 64].
+extern "C" int nvt_flash_attention_bhnd_bwd(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lsum, void* delta, void* dq, void* dk,
+    void* dv, int B, int N, int H, int D, int n_valid, float scale_log2e,
+    float ds_scale, float keep, float inv_keep, int keep_q, uint64_t seed,
+    void* stream) {
+  return nvt::launch_bwd<true>(q, k, v, o, dout, lsum, delta, dq, dk, dv, B,
+                               N, H, D, n_valid, scale_log2e, ds_scale, keep,
+                               inv_keep, keep_q, seed, stream);
 }

@@ -15,7 +15,12 @@ Counterpart of ``neurovit_tpu/models/neuro_encoder.py`` for ``TRAINING_DIM:
 - ``SERVING_INT8_ATTN`` picks the attention of int8 serving
   (neuro_encoder.py:74-84): "pv" (the default, and YAML ``on``) or "off".
   The JAX package's environment default ``NEUROVIT_INT8_ATTN`` is not read:
-  the port has no environment switches.
+  the port has no environment switches;
+- Grad-CAM (neuro_encoder.py:143-179, 262-268): ``probe`` is ``apply``
+  with a ``probe_shift``, returning the logits and the last block's
+  attention-LN activation; ``get_attention_map`` and ``visualize_slice``
+  are ``explainability.gradcam_vit3d``'s. The model holds its weights, so
+  they take no ``variables``.
 
 The module path ``volume_encoder.vit3d`` is the reference's, so the
 state-dict keys are the checkpoint keys. ``KERNEL_IMPL`` is not read: on a
@@ -127,5 +132,22 @@ class NeuroEncoder(tnn.Module):
         return (sum(sizes.values()),
                 sum(s for name, s in sizes.items() if mask[name]))
 
-    def get_attention_map(self, *args, **kwargs):
-        raise not_ported("Grad-CAM (the attention-LN probe)", "Grad-CAM")
+    def probe(self, volumes: torch.Tensor, probe_shift: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """[B, H, W, D] volumes and a shift [B, N + 1, dim] -> (f32 logits,
+        the probe activation in the compute dtype); see ``ViT3D.probe``."""
+        x = volumes.permute(0, 3, 1, 2)[:, None]      # [B, 1, D, H, W]
+        return self.volume_encoder.vit3d.probe(x.to(self.compute_dtype),
+                                               probe_shift)
+
+    def get_attention_map(self, x, threshold: Optional[float] = None):
+        """(cam_3d, class_idx) of [B, H, W, D] or [H, W, D] volumes, as the
+        reference's ``NeuroEncoder.get_attention_map``."""
+        from neurovit_tpu_torch.explainability.gradcam_vit3d import \
+            get_attention_map
+        return get_attention_map(self, x, threshold=threshold)
+
+    def visualize_slice(self, cam_3d, original_volume):
+        from neurovit_tpu_torch.explainability.gradcam_vit3d import \
+            visualize_slice
+        return visualize_slice(self.config, cam_3d, original_volume)

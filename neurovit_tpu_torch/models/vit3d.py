@@ -37,8 +37,32 @@ bf16 the ops' weight gradients are bf16 and autograd upcasts them to the
 f32 master weights, as JAX's ``kernel.astype(x.dtype)`` does
 (fused_mlp.py:330-333). LayerNorm affines and biases enter as f32.
 
-Not ported here: the pipeline path, the Grad-CAM probe, the conv patch
-embed and remat (see ``NeuroEncoder``).
+**The Grad-CAM probe** (``ViT3D.probe``; vit3d.py:251-288, 394-416,
+509-554) stands in for the reference's hooks on the last block's attention
+LayerNorm (``NeuroEncoder.py:70-82``): a ``probe_shift`` [B, N + 1, dim] is
+added at that LayerNorm's output, and the gradient with respect to it is
+the hook's gradient. Blocks 0..depth-2 take the fused path as in
+``forward`` (without a graph unless the volume requires grad); the last
+block takes JAX's unfused composition with JAX's rounding points:
+
+- ``layer_norm`` (plain), then ``+ probe_shift`` in the compute dtype; the
+  sum is the probe activation;
+- q, k, v: the LN output times the dtype-cast QKV weight, each rounded once
+  and laid out [B, H, N, D] contiguous;
+- ``ops.attention.sdpa``, the bhnd flash attention (K6, forward and
+  backward);
+- the out-projection times the dtype-cast weight plus its f32 bias, rounded
+  once; ``+ x``; then the fused MLP block (K4, and K9 in the backward).
+
+The QKV and out-projection products are the einsums JAX leaves to XLA
+outside any kernel: on the CPU an f32 sum of the exact products, as
+``nn.linear``; on the card a cuBLAS product in the compute dtype (f32
+accumulation), which rounds once before the out-projection's f32 bias is
+added and once after (``_dense``). An int8-quantized model refuses the
+probe, as JAX does (vit3d.py:401-404).
+
+Not ported here: the pipeline path, the conv patch embed and remat (see
+``NeuroEncoder``).
 """
 
 from __future__ import annotations
@@ -50,6 +74,7 @@ import torch
 from torch import nn as tnn
 
 from neurovit_tpu_torch import nn
+from neurovit_tpu_torch.ops.attention import sdpa
 from neurovit_tpu_torch.ops.flash_attention import flash_attention
 from neurovit_tpu_torch.ops.fused_mlp import fused_mlp_block
 from neurovit_tpu_torch.ops.fused_outproj import fused_outproj_residual
@@ -60,6 +85,8 @@ from neurovit_tpu_torch.ops.int8_serving import (int8_flash_attention,
                                                  quantize_weight)
 
 SERVING_ONLY = "int8-quantized blocks are serving-only (train=False)"
+PROBE_INT8 = ("the Grad-CAM probe needs the bf16 weights — int8-quantized "
+              "params are serving-only")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,6 +177,19 @@ def _linear_init(layer: tnn.Linear, gen: torch.Generator) -> None:
         _uniform_(layer.bias, bound, gen)
 
 
+def _dense(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x @ W^T (+ b) in x's dtype for a torch-layout weight [out, in], a
+    product JAX leaves to XLA. CPU: ``nn.linear`` (f32 sum of the exact
+    products, f32 bias, one rounding). CUDA: one cuBLAS product in x's
+    dtype with f32 accumulation, rounded, then the f32 bias added and
+    rounded again."""
+    if x.device.type == "cpu":
+        return nn.linear(x, weight, bias)
+    y = torch.matmul(x, weight.to(x.dtype).t())
+    return y if bias is None else (y.float() + bias.float()).to(x.dtype)
+
+
 class Attention(tnn.Module):
     """Pre-norm MHSA with its residual: x + to_out(attn(LN(x)))."""
 
@@ -177,6 +217,22 @@ class Attention(tnn.Module):
         return fused_outproj_residual(x, o.reshape(b, n, -1),
                                       out.weight.to(dt), out.bias,
                                       dropout_rate=rate, seed=seeds[1])
+
+    def forward_probe(self, x: torch.Tensor, probe_shift: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The probe's unfused block attention (vit3d.py:251-288, 410),
+        deterministic: returns (x + to_out(attn(LN(x) + shift)), the probe
+        activation LN(x) + shift), both in x's dtype."""
+        b, n, _ = x.shape
+        h, d = self.heads, self.dim_head
+        normed = nn.layer_norm(x, self.norm.weight, self.norm.bias)
+        normed = normed + probe_shift.to(x.dtype)
+        q, k, v = (_dense(normed, w).reshape(b, n, h, d).permute(0, 2, 1, 3)
+                   .contiguous() for w in self.to_qkv.weight.chunk(3))
+        o = sdpa(q, k, v, scale=d ** -0.5, n_valid=n)
+        out = self.to_out[0]
+        o = o.permute(0, 2, 1, 3).reshape(b, n, h * d)
+        return _dense(o, out.weight, out.bias) + x, normed
 
 
 class FeedForward(tnn.Module):
@@ -272,9 +328,10 @@ class Transformer(tnn.Module):
             for _ in range(cfg.depth))
 
     def forward(self, x: torch.Tensor, rate: float = 0.0,
-                seed: int = 0) -> torch.Tensor:
-        """``rate`` > 0: dropout with the site keys of step ``seed``."""
-        for i, (attn, ff) in enumerate(self.layers):
+                seed: int = 0, depth: Optional[int] = None) -> torch.Tensor:
+        """``rate`` > 0: dropout with the site keys of step ``seed``.
+        ``depth`` runs only the first ``depth`` blocks."""
+        for i, (attn, ff) in enumerate(self.layers[:depth]):
             s = [nn.site_seed(seed, 1 + 4 * i + j) if rate else 0
                  for j in range(4)]
             x = ff(attn(x, rate, (s[0], s[1])), rate, (s[2], s[3]))
@@ -317,6 +374,27 @@ class ViT3D(tnn.Module):
         """Whether the blocks are in their int8 serving form."""
         return isinstance(self.transformer.layers[0][0], Int8Attention)
 
+    def _embed(self, volume: torch.Tensor) -> torch.Tensor:
+        """Patch embedding, CLS token and positions: [B, N + 1, dim] in the
+        volume's dtype."""
+        cfg = self.cfg
+        dt = volume.dtype
+        pe = self.to_patch_embedding
+        x = patchify(volume, cfg)
+        x = nn.layer_norm(x, pe[1].weight, pe[1].bias)
+        x = nn.linear(x, pe[2].weight, pe[2].bias)
+        x = nn.layer_norm(x, pe[3].weight, pe[3].bias)
+        b, n, _ = x.shape
+        cls = self.cls_token.to(dt).expand(b, 1, cfg.dim)
+        x = torch.cat([cls, x], dim=1)
+        return x + self.pos_embedding[:, :n + 1].to(dt)
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        pooled = x.mean(dim=1) if self.cfg.pool == "mean" else x[:, 0]
+        head_norm, head_fc = self.mlp_head
+        pooled = nn.layer_norm(pooled, head_norm.weight, head_norm.bias)
+        return nn.linear(pooled, head_fc.weight, head_fc.bias).float()
+
     def forward(self, volume: torch.Tensor, *, train: bool = False,
                 seed: Optional[int] = None) -> torch.Tensor:
         """``train=True`` applies dropout, keyed by the step's ``seed``."""
@@ -325,26 +403,30 @@ class ViT3D(tnn.Module):
             raise ValueError(SERVING_ONLY)
         if train and (cfg.dropout or cfg.emb_dropout) and seed is None:
             raise ValueError("dropout in training needs a seed")
-        dt = volume.dtype
-        pe = self.to_patch_embedding
-        x = patchify(volume, cfg)
-        x = nn.layer_norm(x, pe[1].weight, pe[1].bias)
-        x = nn.linear(x, pe[2].weight, pe[2].bias)
-        x = nn.layer_norm(x, pe[3].weight, pe[3].bias)
-
-        b, n, _ = x.shape
-        cls = self.cls_token.to(dt).expand(b, 1, cfg.dim)
-        x = torch.cat([cls, x], dim=1)
-        x = x + self.pos_embedding[:, :n + 1].to(dt)
+        x = self._embed(volume)
         if train and cfg.emb_dropout:
             x = nn.dropout(x, cfg.emb_dropout, nn.site_seed(seed, 0))
         x = self.transformer(x, cfg.dropout if train else 0.0,
                              seed if train and cfg.dropout else 0)
+        return self._head(x)
 
-        pooled = x.mean(dim=1) if cfg.pool == "mean" else x[:, 0]
-        head_norm, head_fc = self.mlp_head
-        pooled = nn.layer_norm(pooled, head_norm.weight, head_norm.bias)
-        return nn.linear(pooled, head_fc.weight, head_fc.bias).float()
+    def probe(self, volume: torch.Tensor, probe_shift: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The Grad-CAM probe forward (vit3d.py:419-554 with a
+        ``probe_shift``), deterministic: (f32 logits [B, num_classes], the
+        probe activation [B, N + 1, dim] in the volume's dtype).
+        Differentiate the logits with respect to ``probe_shift`` for the
+        hook gradients. Blocks 0..depth-2 record no graph unless the volume
+        requires grad."""
+        if self.quantized:
+            raise ValueError(PROBE_INT8)
+        depth = self.cfg.depth
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and volume.requires_grad):
+            x = self.transformer(self._embed(volume), depth=depth - 1)
+        attn, ff = self.transformer.layers[depth - 1]
+        x, probe_act = attn.forward_probe(x, probe_shift)
+        return self._head(ff(x)), probe_act
 
 
 @torch.no_grad()

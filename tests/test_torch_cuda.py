@@ -1,7 +1,8 @@
 """The Hopper kernels against their plain PyTorch versions on the card, at
 small and ragged shapes (the model's shapes are in chip_smoke.py): the
 forward kernels K1-K4 with and without dropout, the backward kernels K5,
-K7, K8 and K9, and the int8 serving kernels K10-K13.
+K7, K8 and K9, K6 (the [B, H, N, D] attention, forward and backward) and
+the Grad-CAM probe that runs it, and the int8 serving kernels K10-K13.
 
 These need an NVIDIA GPU with sm_90a and nvcc; elsewhere they skip. Run on
 the card with:
@@ -142,6 +143,88 @@ def test_flash_attention_fwd_bwd_kernels(cuda, b, n, n_valid, rate):
     _check_grads(got, want)
     assert not got[1][:, n_valid:].any() and not got[2][:, n_valid:].any()
 
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,n,n_valid", [(1, 1, 1), (2, 70, 61),
+                                         (2, 130, 97), (1, 1001, 900)])
+def test_flash_attention_bhnd_kernels(cuda, b, n, n_valid, rate):
+    """K6 forward and backward against their plain versions, and bit for
+    bit K1 and K5 on the transposed inputs: one arithmetic in two layouts,
+    the same dropout bits."""
+    rng = np.random.default_rng(n + 8)
+    q, k, v, do = (_rand(rng, (b, 3, n, 64), cuda) for _ in range(4))
+    kw = {"scale": 0.125, "n_valid": n_valid, "dropout_rate": rate,
+          "seed": 78}
+    before = (fa.flash_attention_bhnd_cuda.launches,
+              fa.flash_attention_bhnd_bwd_cuda.launches)
+    o, lsum = fa.flash_attention_bhnd_cuda(q, k, v, return_stats=True, **kw)
+    o_p, lsum_p = fa.flash_attention_bhnd_plain(q, k, v, return_stats=True,
+                                                **kw)
+    _check((o,), (o_p,))
+    assert torch.allclose(lsum, lsum_p, rtol=1e-5)
+    got = fa.flash_attention_bhnd_bwd_cuda(q, k, v, o_p, do, lsum_p, **kw)
+    _check_grads(got, fa.flash_attention_bhnd_bwd_plain(q, k, v, o_p, do,
+                                                        lsum_p, **kw))
+    assert not got[1][:, :, n_valid:].any() and not got[2][:, :, n_valid:].any()
+    assert (fa.flash_attention_bhnd_cuda.launches,
+            fa.flash_attention_bhnd_bwd_cuda.launches) == (before[0] + 1,
+                                                           before[1] + 1)
+
+    def tr(t):
+        return t.transpose(1, 2).contiguous()
+
+    o1, lsum1 = fa.flash_attention_cuda(tr(q), tr(k), tr(v),
+                                        return_stats=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, tr(o1)) and torch.equal(lsum, lsum1)
+    got1 = fa.flash_attention_bwd_cuda(tr(q), tr(k), tr(v), tr(o_p), tr(do),
+                                       lsum_p, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, tr(g1)) for g, g1 in zip(got, got1))
+
+
+def test_gradcam_probe_runs_k6(cuda):
+    """One Grad-CAM probe of a small bf16 model on the card launches the
+    fused forward kernels on the first block, K4 on both, K6 forward and
+    backward and K9 once, and no other backward kernel; its activations and
+    gradients agree with the same weights on the CPU plain path within a
+    relative Frobenius error of 2e-2."""
+    from neurovit_tpu.config import load_config
+    from neurovit_tpu_torch.explainability import gradcam_vit3d as gc
+    from neurovit_tpu_torch.models import NeuroEncoder
+
+    config = load_config(overrides={
+        "TRAINING_VIT_INPUT_SIZE": 10, "TRAINING_VIT_PATCH_SIZE": 5,
+        "DATASET_NAME": "adni", "TRAINING_PRECISION": "bf16",
+        "TRAINING_DROPOUT": 0.1, "MODEL_VIT_DIM": 512, "MODEL_VIT_DEPTH": 2,
+        "MODEL_VIT_HEADS": 2, "MODEL_VIT_DIM_HEAD": 64,
+        "MODEL_VIT_MLP_DIM": 384})
+    gpu = NeuroEncoder(config, device=cuda, seed=5)
+    cpu = NeuroEncoder(config, device="cpu", seed=5)
+    counted = {"k1": fa.flash_attention_cuda, "k2": fused_qkv.fused_ln_qkv_cuda,
+               "k3": fused_outproj.fused_outproj_residual_cuda,
+               "k4": fused_mlp.fused_mlp_block_cuda,
+               "k5": fa.flash_attention_bwd_cuda,
+               "k6": fa.flash_attention_bhnd_cuda,
+               "k6_bwd": fa.flash_attention_bhnd_bwd_cuda,
+               "k7": fused_qkv.fused_ln_qkv_bwd_cuda,
+               "k8": fused_outproj.fused_outproj_bwd_cuda,
+               "k9": fused_mlp.fused_mlp_bwd_cuda}
+    before = {name: fn.launches for name, fn in counted.items()}
+    x = torch.randn(3, 10, 10, 10, generator=torch.Generator().manual_seed(6))
+    _, _, acts, grads = gc.probe_acts_grads(gpu, x.to(cuda))
+    torch.cuda.synchronize()
+    launched = {name: fn.launches - before[name]
+                for name, fn in counted.items()}
+    assert launched == {"k1": 1, "k2": 1, "k3": 1, "k4": 2, "k5": 0, "k6": 1,
+                        "k6_bwd": 1, "k7": 0, "k8": 0, "k9": 1}
+    _, _, acts_p, grads_p = gc.probe_acts_grads(cpu, x)
+    for got, want in ((acts, acts_p), (grads, grads_p)):
+        got = got.float().cpu()
+        assert torch.isfinite(got).all()
+        err = float((got - want).norm() / want.norm())
+        assert err <= 2e-2, err
 
 @pytest.mark.parametrize("m", [1, 33, 65, 300])
 def test_fused_ln_qkv_bwd_kernel(cuda, m):

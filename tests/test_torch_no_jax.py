@@ -24,7 +24,8 @@ COUNTED = (fa.flash_attention_cuda, fused_qkv.fused_ln_qkv_cuda,
            fused_mlp.fused_mlp_bwd_cuda, int8_serving.int8_ln_qkv_cuda,
            int8_serving.int8_outproj_residual_cuda,
            int8_serving.int8_mlp_block_cuda,
-           int8_serving.int8_flash_attention_cuda)
+           int8_serving.int8_flash_attention_cuda,
+           fa.flash_attention_bhnd_cuda, fa.flash_attention_bhnd_bwd_cuda)
 
 
 def test_every_module_imports_with_jax_blocked():
@@ -38,12 +39,13 @@ def test_every_module_imports_with_jax_blocked():
         "    importlib.import_module(name)\n"
         "assert not [m for m in sys.modules if m.startswith('jax.')]\n"
         "assert 'neurovit_tpu_torch.ops.int8_serving' in names\n"
+        "assert 'neurovit_tpu_torch.explainability.driver' in names\n"
         "print(len(names))\n")
     env = {**os.environ, "PYTHONPATH": REPO}
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 14
+    assert int(out.stdout.strip()) >= 22
 
 
 def test_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):
@@ -89,7 +91,20 @@ def test_cpu_path_launches_no_kernel():
     (w1, s1), (w2, s2) = (int8_serving.quantize_weight(t(32, 16)),
                           int8_serving.quantize_weight(t(16, 32)))
     int8_serving.int8_mlp_block(x, t(16), t(16), w1, s1, t(32), w2, s2, t(16))
-    assert [fn.launches for fn in COUNTED] == before == [0] * 12
+    # K6 forward and backward, and a Grad-CAM of a small model.
+    q, k, v = (t(1, 2, 5, 8).requires_grad_() for _ in range(3))
+    fa.flash_attention(q, k, v, scale=0.3, layout="bhnd").sum().backward()
+    assert q.grad is not None
+    from neurovit_tpu.config import load_config
+    from neurovit_tpu_torch.models import NeuroEncoder
+    config = load_config(overrides={
+        "TRAINING_VIT_INPUT_SIZE": 10, "TRAINING_VIT_PATCH_SIZE": 5,
+        "DATASET_NAME": "adni", "MODEL_VIT_DIM": 16, "MODEL_VIT_DEPTH": 2,
+        "MODEL_VIT_HEADS": 2, "MODEL_VIT_DIM_HEAD": 8, "MODEL_VIT_MLP_DIM": 32})
+    cam, _ = NeuroEncoder(config, device="cpu").get_attention_map(
+        rng.standard_normal((10, 10, 10)))
+    assert cam.shape == (10, 10, 10)
+    assert [fn.launches for fn in COUNTED] == before == [0] * 14
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -102,6 +117,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         fa.flash_attention_cuda(*(torch.zeros(1, 5, 2, 64) for _ in range(3)),
                                 scale=0.125)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fa.flash_attention_bhnd_cuda(
+            *(torch.zeros(1, 2, 5, 64) for _ in range(3)), scale=0.125)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fa.flash_attention_bhnd_bwd_cuda(
+            *(torch.zeros(1, 2, 5, 64) for _ in range(5)),
+            torch.zeros(1, 2, 5), scale=0.125, n_valid=5)
     with pytest.raises(ValueError, match="CUDA tensor"):
         int8_serving.int8_flash_attention_cuda(
             *(torch.zeros(1, 5, 2, 64) for _ in range(3)), scale=0.125)

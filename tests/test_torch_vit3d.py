@@ -133,6 +133,14 @@ def test_unported_paths_name_their_roadmap_item(extra, item):
 
 
 def test_grad_cam_is_not_ported():
+    """Grad-CAM is ported now (ROADMAP.md, Queue 1, item 4): the call that
+    raised NotImplementedError gives a map of the volume's shape and the
+    class of the volume's logits (tests/test_torch_gradcam.py holds the
+    maps to JAX's)."""
     model = NeuroEncoder(tiny_config(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Grad-CAM"):
-        model.get_attention_map(None, None)
+    vol = _volumes(9, 1)
+    cam, class_idx = model.get_attention_map(vol[0])
+    assert cam.shape == (20, 20, 20) and np.isfinite(cam).all()
+    with torch.no_grad():
+        want = model(torch.from_numpy(vol)).argmax(dim=1)
+    assert class_idx.tolist() == want.tolist()
