@@ -55,6 +55,30 @@ Phases, each printing a line; any failure raises and exits non-zero:
 12. counts     in phase 10, every bf16 forward kernel launched depth times
                per forward and every backward kernel depth times per
                backward
+13. resnet     the full-width ResNet-18 (the config with
+               MODEL_VOLUME_ENCODER: resnet, bf16, seed 42) saved with
+               torch.save and served by Predictor (requests of 1, 3 and 32
+               against single calls and the CPU plain path) and one HTTP
+               /predict; its gradients at batch 2 in train mode, with
+               cuDNN's global TF32 flag at its default: f32 on cuda against
+               the CPU plain path, and bf16 on both devices against the
+               CPU's f32 (the card no farther than the plain path);
+               Trainer.run() for one epoch, its checkpoint (running stats
+               included) served back; 10 bf16 steps on one fixed batch,
+               the loss falling; the train step at
+               batch 64 (median ms, vol/s, peak memory, a profiler split);
+               the three CAMs at batch 1 against the CPU plain path and
+               their latency at batch 1 and 8 by CUDA events; K14 launched
+               once per forward and K15 once per backward, and K15 never in
+               a CAM
+
+The kernel phase also checks K14 (the stem's max-pool with its argmax
+codes) and K15 (its backward) at [8, 90, 45, 45, 64] bf16 on a continuous
+and a tie-heavy input: values and codes bit-equal to the plain version, dx
+within one bf16 ulp; each kernel is timed beside one PyTorch call computing
+the same function where there is one (scaled_dot_product_attention,
+F.max_pool3d and its backward), and its bound computed from its bytes and
+operations.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Without CUDA, the script exits
@@ -106,6 +130,12 @@ INT8_ATOL = 5e-2
 # gradients and raw CAMs take the same bound, against the CPU plain path and
 # batched against single volumes.
 GRAD_RTOL = 2e-2
+# The ResNet's bf16 gradients in train mode are far from its f32 ones on
+# either device (PERF.md: one bf16 rounding moves them by tens of percent).
+# The card's are held to be no farther from the CPU's f32 gradients than
+# the CPU plain path's bf16 gradients are: at most this factor times the
+# plain path's error, plus GRAD_RTOL, in the worst and the median parameter.
+BF16_GRAD_RATIO = 1.5
 DROPOUT = 0.1
 # Train FLOP per volume and step, from the shapes (PERF.md): 89.4 GFLOP
 # forward; the backward doubles every GEMM and attention's backward is 2.5x
@@ -143,10 +173,22 @@ KERNELS = [
      "neurovit_tpu/ops/int8_serving.py:173"),
     ("int8_flash_attention", "neurovit_tpu_torch/csrc/int8_attention.cu",
      "neurovit_tpu/ops/int8_serving.py:286"),
+    ("max_pool3d_argmax", "neurovit_tpu_torch/csrc/maxpool3d.cu",
+     "neurovit_tpu/ops/maxpool3d.py:62"),
+    ("max_pool3d_argmax_bwd", "neurovit_tpu_torch/csrc/maxpool3d.cu",
+     "neurovit_tpu/ops/maxpool3d.py:188"),
 ]
 INT8_KERNELS = [name for name, _, _ in KERNELS if name.startswith("int8_")]
 # K6: only the Grad-CAM probe's last block runs it.
 GRADCAM_KERNELS = ["flash_attention_bhnd", "flash_attention_bhnd_bwd"]
+# K14, K15: only the ResNet's stem runs them.
+RESNET_KERNELS = ["max_pool3d_argmax", "max_pool3d_argmax_bwd"]
+# The ResNet stem's pool input at batch 8: [B, 90, 45, 45, 64] NDHWC.
+POOL_SHAPE = (B, 90, 45, 45, 64)
+# The card's peaks for the bound (H100 SXM data sheet, dense): device
+# memory bytes/s and operations/s by operand type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
 
 
 def log(phase: str, msg: str) -> None:
@@ -177,15 +219,19 @@ def cuda_ms(fn, warmup: int = 3, runs: int = 25) -> float:
     return float(np.median(times))
 
 
-def compare(name: str, got, want, grads: bool = False,
-            params=()) -> tuple:
+def compare(name: str, got, want, grads: bool = False, params=(),
+            mode: str = "") -> tuple:
     """Elementwise check of every output (``grads``: the backward's
     tolerance); outputs at the indices ``params`` are parameter gradients,
-    checked by relative Frobenius error."""
+    checked by relative Frobenius error. ``mode`` "exact": every output
+    equal bit for bit; "ulp": within one bf16 ulp of the plain value."""
     got = [got] if isinstance(got, torch.Tensor) else list(got)
     want = [want] if isinstance(want, torch.Tensor) else list(want)
     max_abs, max_rel = 0.0, 0.0
     for i, (g, w) in enumerate(zip(got, want)):
+        if mode == "exact" and (g.dtype != w.dtype or not torch.equal(g, w)):
+            raise AssertionError(f"{name}: output {i} differs from the "
+                                 "plain version")
         g, w = g.float().reshape(w.shape), w.float()
         if not torch.isfinite(g).all():
             raise AssertionError(f"{name}: kernel output {i} is not finite")
@@ -199,8 +245,14 @@ def compare(name: str, got, want, grads: bool = False,
                 raise AssertionError(f"{name}: output {i} relative Frobenius "
                                      f"error {err:.3e} > {PARAM_RTOL}")
             continue
-        tol = ((BWD_ATOL + BWD_FRAC * w.abs().max()) if grads else ATOL) + \
-            RTOL * w.abs()
+        if mode == "ulp":       # bf16 keeps 8 bits: ulp 2^(e - 7)
+            tol = torch.where(w == 0, torch.zeros_like(w), torch.exp2(
+                torch.floor(torch.log2(w.abs())) - 7))
+        elif mode == "exact":
+            tol = torch.zeros_like(w)
+        else:
+            tol = ((BWD_ATOL + BWD_FRAC * w.abs().max()) if grads
+                   else ATOL) + RTOL * w.abs()
         bad = diff > tol
         if bad.any():
             raise AssertionError(
@@ -209,10 +261,27 @@ def compare(name: str, got, want, grads: bool = False,
     return max_abs, max_rel
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(in_bytes: int, out_bytes: int, ops: dict) -> tuple:
+    """(bound_ms, bound_by): the larger of the bytes the function must move
+    (each input read once, each output written once) over the card's memory
+    rate and its operations over the peak rate of their type."""
+    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S
+    t_ops = sum(n / PEAK_OPS_PER_S[kind] for kind, n in ops.items())
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def kernel_phase(card: str) -> dict:
+    import torch.nn.functional as F
+
     from neurovit_tpu_torch.ops import (flash_attention, fused_mlp,
                                         fused_outproj, fused_qkv,
                                         int8_serving)
+    from neurovit_tpu_torch.ops import maxpool3d as mp
 
     rng = np.random.default_rng(SEED)
     dev = "cuda"
@@ -286,6 +355,14 @@ def kernel_phase(card: str) -> dict:
     out8 = q8.quantize_weight(wout.float())
     mlp8 = (*q8.quantize_weight(w1.float()), b1,
             *q8.quantize_weight(w2.float()), b2)
+    # K14/K15 at the ResNet stem's shape: continuous values, and post-ReLU
+    # zeros and small integers in bf16, where most windows tie.
+    pools = {"continuous": t(*POOL_SHAPE),
+             "tie-heavy": torch.tensor(np.maximum(rng.integers(
+                 -3, 4, POOL_SHAPE), 0), dtype=torch.bfloat16, device=dev)}
+    pool_codes = {k: mp.max_pool3d_argmax_plain(v)[1]
+                  for k, v in pools.items()}
+    pool_g = t(B, *(mp.out_dim(n) for n in POOL_SHAPE[1:4]), POOL_SHAPE[4])
     # name -> [(label, kernel call, plain call, grads, params)]; the first
     # entry of each is the one timed into the JSON line.
     cases = {
@@ -376,6 +453,66 @@ def kernel_phase(card: str) -> dict:
              lambda n_valid=n_valid: q8.int8_flash_attention_plain(
                  *qkv, scale=scale, n_valid=n_valid))
             for n_valid in (N, N_VALID_MASKED)],
+        "max_pool3d_argmax": [
+            (kind, lambda x=x: mp.max_pool3d_argmax_cuda(x),
+             lambda x=x: mp.max_pool3d_argmax_plain(x), False, (), "exact")
+            for kind, x in pools.items()],
+        "max_pool3d_argmax_bwd": [
+            (kind, lambda c=c: mp.max_pool3d_argmax_bwd_cuda(
+                c, pool_g, POOL_SHAPE, torch.bfloat16),
+             lambda c=c: mp.max_pool3d_argmax_bwd_plain(
+                 c, pool_g, POOL_SHAPE, torch.bfloat16), True, (), "ulp")
+            for kind, c in pool_codes.items()],
+    }
+    # The inputs and operations of each kernel's first (timed) case, for
+    # its bound: attention 4 B H N^2 D forward, 2.5 times that backward
+    # (flash_attention.py:434); a GEMM 2 M K N.
+    att = 4 * B * HEADS * N * N * DIM_HEAD
+    work = {
+        "flash_attention": (nbytes(*qkv), {"bf16": att}),
+        "flash_attention_bhnd": (nbytes(*qkv_h), {"bf16": att}),
+        "fused_ln_qkv": (nbytes(x, *ln, wqkv),
+                         {"bf16": 2 * B * N * DIM * 3 * inner}),
+        "fused_outproj_residual": (nbytes(x, attn, wout, bout),
+                                   {"bf16": 2 * B * N * inner * DIM}),
+        "fused_mlp_block": (nbytes(*mlp_args), {"bf16": 4 * B * N * DIM * MLP}),
+        "flash_attention_bwd": (nbytes(*qkv, o[DROPOUT], do, lsum[DROPOUT]),
+                                {"bf16": 2.5 * att}),
+        "flash_attention_bhnd_bwd": (nbytes(*qkv_h, o_h[0.0], do_h,
+                                            lsum[0.0]), {"bf16": 2.5 * att}),
+        "fused_ln_qkv_bwd": (nbytes(*dqkv, x, ln[0], wqkv),
+                             {"bf16": 2 * B * N * 3 * inner * DIM}),
+        "fused_outproj_bwd": (nbytes(dy, wout),
+                              {"bf16": 2 * B * N * DIM * inner}),
+        "fused_mlp_bwd": (nbytes(dy, x, h[DROPOUT], *ln, w1, w2),
+                          {"bf16": 4 * B * N * DIM * MLP}),
+        "int8_ln_qkv": (nbytes(x, *ln, *qkv8),
+                        {"int8": 2 * B * N * DIM * 3 * inner}),
+        "int8_outproj_residual": (nbytes(x, attn, *out8, bout),
+                                  {"int8": 2 * B * N * inner * DIM}),
+        "int8_mlp_block": (nbytes(x, *ln, *mlp8),
+                           {"int8": 4 * B * N * DIM * MLP}),
+        "int8_flash_attention": (nbytes(*qkv), {"bf16": att / 2,
+                                                "int8": att / 2}),
+        "max_pool3d_argmax": (nbytes(pools["continuous"]), {}),
+        "max_pool3d_argmax_bwd": (nbytes(pool_codes["continuous"], pool_g),
+                                  {}),
+    }
+    # One PyTorch call computing the same function, where there is one: a
+    # yardstick only, never called by the port.
+    pool_x = pools["continuous"].permute(0, 4, 1, 2, 3)   # NCDHW view
+    _, pool_idx = F.max_pool3d(pool_x, 3, 2, 1, return_indices=True)
+    library = {
+        "flash_attention": lambda: F.scaled_dot_product_attention(
+            *(a.transpose(1, 2) for a in qkv), scale=scale),
+        "flash_attention_bhnd": lambda: F.scaled_dot_product_attention(
+            *qkv_h, scale=scale),
+        "max_pool3d_argmax": lambda: F.max_pool3d(pool_x, 3, 2, 1,
+                                                  return_indices=True),
+        "max_pool3d_argmax_bwd":
+            lambda: torch.ops.aten.max_pool3d_with_indices_backward(
+                pool_g.permute(0, 4, 1, 2, 3), pool_x, [3] * 3, [2] * 3,
+                [1] * 3, [1] * 3, False, pool_idx),
     }
     # (name, label) -> (what, call, layout): the bf16 kernel each int8
     # kernel stands in for, on the same inputs; K1 or K5 beside K6 on the
@@ -422,7 +559,18 @@ def kernel_phase(card: str) -> dict:
             if i == 0 or "dropout" in label or other:
                 ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
                 if i == 0:
-                    results[name] = {"ms": ms, "plain_ms": plain_ms}
+                    in_bytes, ops = work[name]
+                    bound_ms, bound_by = bound(in_bytes, nbytes(*(
+                        [got] if isinstance(got, torch.Tensor) else got)),
+                        ops)
+                    results[name] = {
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by,
+                        "library_ms": (cuda_ms(library[name])
+                                       if name in library else None)}
+                    log("kernels", f"{name}: bound {bound_ms:.4f} ms by "
+                        f"{bound_by}, library call "
+                        f"{results[name]['library_ms']} ms")
                 log("kernels", f"{name} {label}: kernel {ms:.4f} ms, plain "
                     f"{plain_ms:.4f} ms at B={B} N={N}; max abs err {a:.3e}")
             if other:
@@ -509,7 +657,7 @@ def http_phase(predictor, rng, workdir: str, n_files: int = 3,
     """/healthz, then one POST of each of ``n_files`` NIfTI files and, with
     ``concurrent``, two of them again at once; every answer against
     Predictor."""
-    from neurovit_tpu.data import nifti
+    from neurovit_tpu_torch.data import nifti
     from neurovit_tpu_torch.serving import _collect_volume_jobs
     from neurovit_tpu_torch.serving_http import make_server
 
@@ -571,44 +719,67 @@ def http_phase(predictor, rng, workdir: str, n_files: int = 3,
             raise AssertionError(f"{path}: status {status}, diff {diff}")
 
 
-def grad_phase(config) -> None:
-    """Loss and every parameter gradient of the full-width flagship, batch
-    2, dropout on, on cuda against the same weights on the CPU plain path.
-    The Philox masks are the same bits on both devices."""
+def param_grads(config, device: str, phase: str) -> tuple:
+    """Loss and every parameter gradient (f32, on the CPU) of the
+    full-width model made from SEED on ``device``, at batch 2 in train mode
+    with dropout on (the ViT's Philox masks are the same bits on both
+    devices)."""
     from neurovit_tpu_torch import nn
     from neurovit_tpu_torch.models import NeuroEncoder
 
     config = dict(config, TRAINING_DROPOUT=DROPOUT)
-    cpu = NeuroEncoder(config, device="cpu", seed=SEED)
-    gpu = NeuroEncoder(config, device="cuda", seed=SEED)
+    model = NeuroEncoder(config, device=device, seed=SEED)
     rng = np.random.default_rng(SEED + 1)
     vols = torch.from_numpy(_volumes(rng, 2, config["TRAINING_VIT_INPUT_SIZE"]))
     labels = torch.tensor([0, 1])
-    losses = {}
-    for name, model in (("cuda", gpu), ("cpu", cpu)):
-        dev = next(model.parameters()).device
-        t0 = time.perf_counter()
-        loss = nn.softmax_cross_entropy(
-            model(vols.to(dev), train=True, seed=SEED), labels.to(dev))
-        loss.backward()
-        losses[name] = float(loss)
-        log("grad", f"{name}: loss {losses[name]:.6f}, forward + backward "
-            f"{time.perf_counter() - t0:.1f} s host clock")
+    t0 = time.perf_counter()
+    loss = nn.softmax_cross_entropy(
+        model(vols.to(device), train=True, seed=SEED), labels.to(device))
+    loss.backward()
+    value = float(loss.detach())
+    grads = {name: p.grad.float().cpu() for name, p in model.named_parameters()}
+    for name, g in grads.items():
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{name}: gradient on {device} is not finite")
+    log(phase, f"{config.get('TRAINING_PRECISION', 'bf16')} {device}: loss "
+        f"{value:.6f}, forward + backward "
+        f"{time.perf_counter() - t0:.1f} s host clock")
+    return value, grads
+
+
+def grad_errs(got: dict, want: dict) -> dict:
+    """Each gradient's relative Frobenius error, ``got`` against ``want``."""
+    return {name: float((got[name] - c).norm() / c.norm().clamp_min(1e-30))
+            for name, c in want.items()}
+
+
+def err_text(errs: dict) -> str:
+    worst = max(errs, key=errs.get)
+    return (f"{len(errs)} parameter gradients, relative Frobenius error "
+            f"worst {worst} at {errs[worst]:.3e}, median "
+            f"{float(np.median(list(errs.values()))):.3e}")
+
+
+def hold_losses(losses: dict) -> None:
     if abs(losses["cuda"] - losses["cpu"]) > 2e-2 * abs(losses["cpu"]):
         raise AssertionError(f"losses differ: {losses}")
-    worst = ("", 0.0)
-    for (name, pg), pc in zip(gpu.named_parameters(), cpu.parameters()):
-        g, c = pg.grad.float().cpu(), pc.grad.float()
-        if not torch.isfinite(g).all():
-            raise AssertionError(f"{name}: gradient is not finite")
-        err = float((g - c).norm() / c.norm().clamp_min(1e-30))
-        worst = max(worst, (name, err), key=lambda e: e[1])
-        if err > GRAD_RTOL:
-            raise AssertionError(f"{name}: gradient relative Frobenius "
-                                 f"error {err:.3e} > {GRAD_RTOL}")
-    n = sum(1 for _ in gpu.parameters())
-    log("grad", f"{n} parameter gradients within {GRAD_RTOL}: worst "
-        f"{worst[0]} at {worst[1]:.3e}")
+
+
+def grad_phase(config, phase: str = "grad") -> dict:
+    """Loss and every parameter gradient of the full-width model on cuda
+    against the same weights on the CPU plain path, held to GRAD_RTOL.
+    Returns the gradients by device."""
+    losses, grads = {}, {}
+    for dev in ("cuda", "cpu"):
+        losses[dev], grads[dev] = param_grads(config, dev, phase)
+    errs = grad_errs(grads["cuda"], grads["cpu"])
+    log(phase, f"{config.get('TRAINING_PRECISION', 'bf16')}: "
+        f"{err_text(errs)} (held to {GRAD_RTOL})")
+    hold_losses(losses)
+    if max(errs.values()) > GRAD_RTOL:
+        raise AssertionError(f"gradient relative Frobenius error above "
+                             f"{GRAD_RTOL}: {err_text(errs)}")
+    return grads
 
 
 class _SeededVolumes:
@@ -691,8 +862,9 @@ def train_phase(config, workdir: str, counters: dict) -> dict:
     log("counts", f"train run: {forwards[0]} forwards, {steps[0]} backwards "
         f"x depth {depth}; launches {launches}")
     for name, _, _ in KERNELS:
-        want = (0 if name in INT8_KERNELS or name in GRADCAM_KERNELS else
-                depth * (steps[0] if name.endswith("_bwd") else forwards[0]))
+        want = (0 if name in INT8_KERNELS + GRADCAM_KERNELS + RESNET_KERNELS
+                else depth * (steps[0] if name.endswith("_bwd")
+                              else forwards[0]))
         if launches[name] != want or (want and launches[name] == 0):
             raise AssertionError(f"{name} launched {launches[name]} times in "
                                  f"the train run, expected {want}")
@@ -918,7 +1090,7 @@ def gradcam_phase(config, ckpt: str, workdir: str, card: str,
                   counters: dict) -> dict:
     """Grad-CAM of the flagship on cuda (see the module docstring, phase
     8). Returns the launch counts of one get_attention_map call."""
-    from neurovit_tpu.data import nifti
+    from neurovit_tpu_torch.data import nifti
     from neurovit_tpu_torch.explainability import bcos, cam_methods, driver
     from neurovit_tpu_torch.explainability import gradcam_vit3d as gc
     from neurovit_tpu_torch.explainability import integrated_gradients as ig
@@ -1064,21 +1236,255 @@ def gradcam_phase(config, ckpt: str, workdir: str, card: str,
     return launches
 
 
+def _conv_gflop(model, size: int) -> float:
+    """Forward GFLOP of one volume through the ResNet's convolutions (2 per
+    multiply-add), counted from the shapes of one forward."""
+    from neurovit_tpu_torch.models import resnet3d
+    total = [0]
+    conv = resnet3d.conv3d
+
+    def counting(x, weight, stride=1, padding=0):
+        out = conv(x, weight, stride, padding)
+        total[0] += 2 * out.numel() * weight[0].numel()
+        return out
+
+    resnet3d.conv3d = counting
+    try:
+        with torch.no_grad():
+            model(torch.zeros((1, size, size, size), device="cuda"))
+    finally:
+        resnet3d.conv3d = conv
+    return total[0] / 1e9
+
+
+def resnet_phase(config, workdir: str, card: str, counters: dict) -> dict:
+    """The full-width ResNet-18 (the config with MODEL_VOLUME_ENCODER:
+    resnet, seed 42): served, its gradients, a Trainer epoch served back,
+    the train-step rate and the three CAMs (see the module docstring, phase
+    13). Returns the launch counts of the train run."""
+    import glob
+
+    from neurovit_tpu_torch.explainability import gradcam_resnet as gr
+    from neurovit_tpu_torch.models import NeuroEncoder
+    from neurovit_tpu_torch.serving import Predictor
+    from neurovit_tpu_torch.training import Trainer
+    from neurovit_tpu_torch.training import state_dict as sd
+
+    pool, pool_bwd = RESNET_KERNELS
+    cfg = dict(config, MODEL_VOLUME_ENCODER="resnet")
+    size = cfg["TRAINING_VIT_INPUT_SIZE"]
+    rng = np.random.default_rng(SEED + 8)
+    ckpt = os.path.join(workdir, "resnet.pt")
+    cpu = NeuroEncoder(cfg, device="cpu", seed=SEED)
+    torch.save(cpu.state_dict(), ckpt)
+    log("resnet", f"ResNet-{cpu.resnet_cfg.depth} at {size}^3, "
+        f"{sum(p.numel() for p in cpu.parameters()) / 1e6:.2f} M "
+        f"parameters, {cpu.compute_dtype}, seed {SEED}")
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    # Serving: Predictor (requests of 1, 3 and 32) and one HTTP /predict.
+    predictor = Predictor.from_checkpoint(cfg, ckpt, batch_size=32,
+                                          device="cuda")
+    forwards = _count_forwards(predictor.model)
+    reset()
+    t0 = time.perf_counter()
+    predictor.warmup()
+    log("resnet", f"warmup of buckets {predictor.bucket_sizes}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    slice_phase(cfg, ckpt, predictor, rng, phase="resnet")
+    http_phase(predictor, rng, workdir, n_files=1, concurrent=False)
+    serving = read()
+    log("resnet", f"serving: {forwards[0]} forward calls; launches "
+        f"{serving}")
+    _check_counts("ResNet serving", serving, {
+        name: forwards[0] if name == pool else 0 for name in counters})
+    del predictor
+    torch.cuda.empty_cache()
+
+    # Gradients at batch 2 in train mode. f32: cuda against the CPU plain
+    # path, held to GRAD_RTOL, with cuDNN's global TF32 flag at its default
+    # (the port's convs turn it off themselves). bf16: each device against
+    # the CPU's f32 gradients, the card held to BF16_GRAD_RATIO times the
+    # plain path's error plus GRAD_RTOL.
+    if not torch.backends.cudnn.allow_tf32:
+        raise AssertionError("cuDNN's TF32 flag is not at its default")
+    f32 = grad_phase(dict(cfg, TRAINING_PRECISION="f32"), phase="resnet")
+    losses, bf16 = {}, {}
+    for dev in ("cuda", "cpu"):
+        losses[dev], bf16[dev] = param_grads(cfg, dev, "resnet")
+    hold_losses(losses)
+    errs = {dev: grad_errs(bf16[dev], f32["cpu"]) for dev in bf16}
+    for dev in errs:
+        log("resnet", f"bf16 {dev} against f32 cpu: {err_text(errs[dev])}")
+    log("resnet", f"bf16 cuda against bf16 cpu: "
+        f"{err_text(grad_errs(bf16['cuda'], bf16['cpu']))} (reported); "
+        f"f32 cuda against f32 cpu above")
+    for stat in (max, np.median):
+        on_card, plain = (float(stat(list(errs[dev].values())))
+                          for dev in ("cuda", "cpu"))
+        if on_card > BF16_GRAD_RATIO * plain + GRAD_RTOL:
+            raise AssertionError(
+                f"bf16 gradients on cuda {on_card:.3e} from the f32 ones, "
+                f"the CPU plain path's {plain:.3e} ({stat.__name__})")
+    del f32, bf16
+    torch.cuda.empty_cache()
+
+    # Trainer.run(): one epoch of 4 train batches of 16 and 1 val batch.
+    tcfg = _train_config(cfg, workdir, TRAINING_BATCH_SIZE=16,
+                         GLOBAL_OUTPUT_DIR=os.path.join(workdir, "resnet"))
+    model = NeuroEncoder(tcfg, device="cuda", seed=SEED)
+    trainer = Trainer(tcfg, model, _SeededVolumes(64, size, SEED, "train"),
+                      _SeededVolumes(16, size, SEED + 1, "val"))
+    forwards, steps = _count_forwards(model), [0]
+    step = trainer.train_step
+
+    def counted_step(*args, **kwargs):
+        steps[0] += 1
+        return step(*args, **kwargs)
+
+    trainer.train_step = counted_step
+    out = io.StringIO()
+    reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        trainer.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read()
+    text = out.getvalue()
+    for line in text.splitlines():
+        log("resnet", line.expandtabs(1))
+    for want in ("epoch 0\t| batch 3/4\t| train_loss: ",
+                 "[VALIDATION] epoch 0\t| total_batch 0\t| val_loss ",
+                 "MODEL SAVED to ."):
+        if want not in text:
+            raise AssertionError(f"Trainer.run() did not print {want!r}")
+    log("counts", f"ResNet train run: {forwards[0]} forwards, {steps[0]} "
+        f"backwards in {secs:.1f} s host clock; launches {launches}")
+    _check_counts("the ResNet train run", launches, {
+        name: forwards[0] if name == pool else steps[0] if name == pool_bwd
+        else 0 for name in counters})
+    pkl = glob.glob(os.path.join(tcfg["GLOBAL_OUTPUT_DIR"], "*",
+                                 "model-e0.state_dict.pkl"))
+    weights = sd.load(pkl[0])
+    key = "resnet_3d.resnet.bn1."
+    if (int(weights[key + "num_batches_tracked"]) != steps[0]
+            or torch.equal(weights[key + "running_var"],
+                           torch.ones_like(weights[key + "running_var"]))):
+        raise AssertionError("the checkpoint lacks the moved running stats")
+    served = Predictor.from_checkpoint(tcfg, pkl[0], batch_size=1,
+                                       bucket_sizes=(), device="cuda")
+    vol = _SeededVolumes(1, size, SEED + 2, "serve").sample(0)["volume"]
+    _, probs = served(vol[None])
+    with torch.no_grad():
+        want = torch.softmax(model(torch.from_numpy(vol[None]).cuda()
+                                   ).float(), -1).cpu().numpy()
+    if not np.isfinite(probs).all() or np.abs(probs - want).max() > PROB_ATOL:
+        raise AssertionError(f"served {probs} against the trainer's {want}")
+    log("resnet", f"model-e0 (running stats after {steps[0]} steps) served "
+        f"by Predictor: probs {probs[0].tolist()} (trainer's model in eval "
+        f"{want[0].tolist()})")
+    del served, trainer
+
+    # Ten bf16 steps on one fixed batch of 8: the loss must fall.
+    fcfg = dict(tcfg, TRAINING_DROPOUT=0.0, TRAINING_BATCH_SIZE=8)
+    fixed = Trainer(fcfg, NeuroEncoder(fcfg, device="cuda", seed=SEED),
+                    _SeededVolumes(8, size, SEED + 3, "fixed"),
+                    _SeededVolumes(8, size, SEED + 3, "fixed"))
+    fbatch, zyx, _ = next(fixed._device_prefetch(fixed.val_dataloader))
+    losses = [float(fixed.train_step(fbatch, zyx)["loss"]) for _ in range(10)]
+    log("resnet", f"fixed batch of 8, 10 bf16 steps at lr "
+        f"{fcfg['TRAINING_LEARNING_RATE']}: losses "
+        f"{[round(v, 5) for v in losses]}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"the ResNet's loss did not fall: {losses}")
+    del fixed, fbatch
+
+    # The train-step rate at batch 64.
+    batch = 64
+    gflop = _conv_gflop(model, size)
+    rcfg = _train_config(cfg, workdir, TRAINING_BATCH_SIZE=batch)
+    ds = _SeededVolumes(batch, size, SEED + 4, "rate")
+    rate = Trainer(rcfg, NeuroEncoder(rcfg, device="cuda", seed=SEED), ds, ds)
+    dbatch, zyx, _ = next(rate._device_prefetch(rate.val_dataloader))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rate.train_step(dbatch, zyx)
+        torch.cuda.synchronize()
+        if i >= 3:
+            times.append(time.perf_counter() - t0)
+    ms = float(np.median(times)) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log("resnet", f"train step at batch {batch}: {ms:.2f} ms median of 5 "
+        f"(all {[round(t * 1e3, 2) for t in times]}), "
+        f"{batch / ms * 1e3:.1f} vol/s, {3 * gflop * batch / ms:.1f} "
+        f"TFLOP/s of convolutions ({gflop:.2f} GFLOP/vol forward, 3x for "
+        f"the step), peak memory {peak:.2f} GiB; {card}")
+    profile_split("resnet", "ResNet train step",
+                  lambda: rate.train_step(dbatch, zyx), ms)
+    del rate, dbatch
+    torch.cuda.empty_cache()
+
+    # The three CAMs of the trained model: launches, against the CPU plain
+    # path at batch 1, and latency at batch 1 and 8.
+    model.eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    x1 = torch.from_numpy(_volumes(rng, 1, size)).cuda()
+    for method in gr.METHODS:
+        reset()
+        cam, cls = gr.cam(model, x1, method)
+        torch.cuda.synchronize()
+        ran = read()
+        _check_counts(f"one {method} CAM", ran, {
+            name: 1 if name == pool else 0 for name in counters})
+        _, cls_g, acts_g, grads_g = gr.layer4_acts_grads(model, x1)
+        _, cls_c, acts_c, grads_c = gr.layer4_acts_grads(cpu, x1.cpu())
+        raw_c = gr.raw_cam(method, acts_c, grads_c)
+        err = _rel_err(gr.raw_cam(method, acts_g, grads_g), raw_c)
+        final = gr.cam_to_volume(raw_c, x1.shape[1:])
+        diff = float((final - cam.cpu()).abs().max())
+        log("resnet", f"{method}: class {int(cls_g)} / cpu {int(cls_c)}, raw "
+            f"CAM relative error {err:.3e} (tol {GRAD_RTOL}), maps differ by "
+            f"at most {diff:.3e}; launches {ran}")
+        if (int(cls_g) != int(cls_c) or err > GRAD_RTOL
+                or cam.shape != (1, size, size, size)):
+            raise AssertionError(f"{method}: cuda and cpu CAMs differ")
+    for b in (1, 8):
+        xb = torch.from_numpy(_volumes(rng, b, size)).cuda()
+        for method in gr.METHODS:
+            cam_ms = cuda_ms(lambda: gr.cam(model, xb, method), warmup=2,
+                             runs=10)
+            log("resnet", f"{method} at batch {b}: {cam_ms:.3f} ms, "
+                f"{b / cam_ms * 1e3:.1f} maps/s; {card}")
+        profile_split("resnet", f"layercam at batch {b}",
+                      lambda: gr.cam(model, xb, "layercam"), cam_ms)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs the "
               "port on the card only", file=sys.stderr)
         return 1
-    from neurovit_tpu.config import load_config
+    from neurovit_tpu_torch.config import load_config
     from neurovit_tpu_torch.ops import (_build, flash_attention, fused_mlp,
                                         fused_outproj, fused_qkv,
-                                        int8_serving)
+                                        int8_serving, maxpool3d)
     from neurovit_tpu_torch.serving import Predictor
     from neurovit_tpu_torch.models import NeuroEncoder
 
     # The plain versions' f32 matmuls are the reference: no TF32.
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
     card = card_line()
@@ -1111,6 +1517,8 @@ def main() -> int:
         "flash_attention_bhnd": flash_attention.flash_attention_bhnd_cuda,
         "flash_attention_bhnd_bwd":
             flash_attention.flash_attention_bhnd_bwd_cuda,
+        "max_pool3d_argmax": maxpool3d.max_pool3d_argmax_cuda,
+        "max_pool3d_argmax_bwd": maxpool3d.max_pool3d_argmax_bwd_cuda,
     }
     config = load_config()
     rng = np.random.default_rng(SEED)
@@ -1134,9 +1542,9 @@ def main() -> int:
         log("http", f"serving: {forwards[0]} forward calls x depth {depth}; "
             f"launches {serving}")
         _check_counts("serving", serving, {
-            name: 0 if name.endswith("_bwd") or name in INT8_KERNELS
-            or name in GRADCAM_KERNELS else depth * forwards[0]
-            for name in counters})
+            name: 0 if name.endswith("_bwd")
+            or name in INT8_KERNELS + GRADCAM_KERNELS + RESNET_KERNELS
+            else depth * forwards[0] for name in counters})
         del predictor
         torch.cuda.empty_cache()
 
@@ -1153,16 +1561,19 @@ def main() -> int:
         launches = train_phase(config, workdir, counters)
         torch.cuda.empty_cache()
         train_rate_phase(config, workdir, card)
+        torch.cuda.empty_cache()
+        resnet_launches = resnet_phase(config, workdir, card, counters)
 
     launches.update({name: int8_launches[name] for name in INT8_KERNELS})
     launches.update({name: gradcam_launches[name]
                      for name in GRADCAM_KERNELS})
+    launches.update({name: resnet_launches[name] for name in RESNET_KERNELS})
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[name],
-         "max_abs_err": kernel_stats[name]["max_abs_err"],
-         "ms": kernel_stats[name]["ms"],
-         "plain_ms": kernel_stats[name]["plain_ms"]}
+         **{key: kernel_stats[name][key] for key in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")}}
         for name, source, replaces in KERNELS]}
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)

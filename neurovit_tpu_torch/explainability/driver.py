@@ -22,7 +22,7 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 
-from neurovit_tpu.data import nifti
+from neurovit_tpu_torch.data import nifti
 
 
 def get_sample_gradcam(model, dataset, sample_id: int, config: Dict,
@@ -137,8 +137,8 @@ def save_gradcam_3d(attention_map, sample_id: int, sample: Dict,
 
 
 def main(argv: List[str] = None) -> None:
-    from neurovit_tpu.config import get_config
-    from neurovit_tpu.data import get_datasets
+    from neurovit_tpu_torch.config import get_config
+    from neurovit_tpu_torch.data import get_datasets
     from neurovit_tpu_torch.main import parse_args, resolve_device
     from neurovit_tpu_torch.models import NeuroEncoder
     from neurovit_tpu_torch.training.checkpoint import load_checkpoint

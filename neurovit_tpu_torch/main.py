@@ -20,8 +20,8 @@ import warnings
 import numpy as np
 import torch
 
-from neurovit_tpu.config import get_config
-from neurovit_tpu.data import get_datasets
+from neurovit_tpu_torch.config import get_config
+from neurovit_tpu_torch.data import get_datasets
 from neurovit_tpu_torch.models.neuro_encoder import NeuroEncoder, not_ported
 from neurovit_tpu_torch.training import MetricLogger, Trainer
 from neurovit_tpu_torch.training.checkpoint import load_checkpoint

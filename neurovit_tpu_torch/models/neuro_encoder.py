@@ -1,29 +1,38 @@
-"""NeuroEncoder, 3D ViT mode, for serving and training.
+"""NeuroEncoder, 3D mode (the ViT or the ResNet volume encoder), for
+serving and training.
 
 Counterpart of ``neurovit_tpu/models/neuro_encoder.py`` for ``TRAINING_DIM:
-3`` with the ViT volume encoder:
+3``:
 
 - ``num_classes``: (grid / cube)^3 for the synthetic ``gradcam`` dataset,
   else 2 (neuro_encoder.py:50-51);
 - the compute dtype comes from ``TRAINING_PRECISION`` (bf16 or f32,
   neuro_encoder.py:120-121); parameters stay f32;
 - the input transpose [B, H, W, D] -> [B, 1, D, H, W] (neuro_encoder.py:150);
-- ``dropout`` and ``emb_dropout`` from ``TRAINING_DROPOUT``
+- ``MODEL_VOLUME_ENCODER`` picks the encoder (neuro_encoder.py:53,128-155):
+  ``vit`` (the default) or ``resnet``, the 3D ResNet of
+  ``MODEL_RESNET_DEPTH`` (default 18) with one input channel;
+- ViT: ``dropout`` and ``emb_dropout`` from ``TRAINING_DROPOUT``
   (neuro_encoder.py:63,99-100), applied when ``forward(train=True)``;
-- everything is trainable in 3D (``trainable_mask``, ``param_count``,
-  neuro_encoder.py:240-258);
-- ``SERVING_INT8_ATTN`` picks the attention of int8 serving
+  ``SERVING_INT8_ATTN`` picks the attention of int8 serving
   (neuro_encoder.py:74-84): "pv" (the default, and YAML ``on``) or "off".
   The JAX package's environment default ``NEUROVIT_INT8_ATTN`` is not read:
   the port has no environment switches;
-- Grad-CAM (neuro_encoder.py:143-179, 262-268): ``probe`` is ``apply``
-  with a ``probe_shift``, returning the logits and the last block's
-  attention-LN activation; ``get_attention_map`` and ``visualize_slice``
-  are ``explainability.gradcam_vit3d``'s. The model holds its weights, so
-  they take no ``variables``.
+- ResNet: ``forward(train=True)`` normalizes by the batch statistics and
+  moves the BatchNorm running stats (the JAX model's ``state``), which
+  ``train=False`` uses; the ResNet has no dropout;
+- everything is trainable in 3D (``trainable_mask``, ``param_count``,
+  neuro_encoder.py:240-258);
+- Grad-CAM of the ViT (neuro_encoder.py:143-179, 262-268): ``probe`` is
+  ``apply`` with a ``probe_shift``, returning the logits and the last
+  block's attention-LN activation; ``get_attention_map`` and
+  ``visualize_slice`` are ``explainability.gradcam_vit3d``'s. The model
+  holds its weights, so they take no ``variables``. The ResNet's CAMs are
+  ``explainability.gradcam_resnet``'s.
 
-The module path ``volume_encoder.vit3d`` is the reference's, so the
-state-dict keys are the checkpoint keys. ``KERNEL_IMPL`` is not read: on a
+The module paths ``volume_encoder.vit3d`` and ``resnet_3d.resnet`` are the
+reference's, so the state-dict keys are the checkpoint keys (the ResNet's
+BatchNorm running stats among them). ``KERNEL_IMPL`` is not read: on a
 CUDA device the blocks always run the kernels.
 """
 
@@ -34,6 +43,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn as tnn
 
+from neurovit_tpu_torch.models.resnet3d import ResNet3D, ResNetConfig
 from neurovit_tpu_torch.models.vit3d import ViT3D, ViTConfig
 
 
@@ -66,6 +76,14 @@ class ViT3DEncoder(tnn.Module):
         self.vit3d = ViT3D(cfg, device=device)
 
 
+class ResNet3DEncoder(tnn.Module):
+    """Holds the ResNet under the reference's attribute name (``resnet``)."""
+
+    def __init__(self, cfg: ResNetConfig, *, device=None):
+        super().__init__()
+        self.resnet = ResNet3D(cfg, device=device)
+
+
 class NeuroEncoder(tnn.Module):
     """[B, H, W, D] volumes -> f32 logits [B, num_classes].
 
@@ -79,15 +97,20 @@ class NeuroEncoder(tnn.Module):
         self.config = config
         if int(config.get("TRAINING_DIM", 3)) == 4:
             raise not_ported("4D mode (TRAINING_DIM: 4)", "4D")
-        if config.get("MODEL_VOLUME_ENCODER", "vit") != "vit":
-            raise not_ported("the 3D ResNet encoder", "ResNet")
+        self.encoder_kind = config.get("MODEL_VOLUME_ENCODER", "vit")
+        if self.encoder_kind not in ("vit", "resnet"):
+            raise ValueError(f"unknown MODEL_VOLUME_ENCODER "
+                             f"{self.encoder_kind!r} (supported: 'vit', "
+                             "'resnet')")
         if int(config.get("MESH_PIPE_AXIS", 1)) > 1:
             raise not_ported("pipeline parallelism (MESH_PIPE_AXIS > 1)",
                               "multi-GPU")
-        if config.get("MODEL_VIT_PATCH_EMBED", "auto") == "conv":
-            raise not_ported("the conv patch embed", "odds and ends")
-        if bool(config.get("TRAINING_REMAT", False)):
-            raise not_ported("remat (TRAINING_REMAT)", "train step, remat")
+        if self.encoder_kind == "vit":
+            if config.get("MODEL_VIT_PATCH_EMBED", "auto") == "conv":
+                raise not_ported("the conv patch embed", "odds and ends")
+            if bool(config.get("TRAINING_REMAT", False)):
+                raise not_ported("remat (TRAINING_REMAT)",
+                                  "train step, remat")
         grid = config["TRAINING_VIT_INPUT_SIZE"]
         patch = config["TRAINING_VIT_PATCH_SIZE"]
         cube = config.get("GRADCAM_CUBE_SIZE", 8)
@@ -105,18 +128,29 @@ class NeuroEncoder(tnn.Module):
             dropout=float(config.get("TRAINING_DROPOUT", 0.0)),
             emb_dropout=float(config.get("TRAINING_DROPOUT", 0.0)),
             int8_attn=int8_attn_mode(config.get("SERVING_INT8_ATTN")))
+        self.resnet_cfg = ResNetConfig(
+            depth=int(config.get("MODEL_RESNET_DEPTH", 18)),
+            n_input_channels=1, n_classes=self.num_classes)
         precision = config.get("TRAINING_PRECISION", "bf16")
         self.compute_dtype = (torch.bfloat16 if precision == "bf16"
                               else torch.float32)
-        self.volume_encoder = ViT3DEncoder(self.vit_cfg, device=device)
         gen = torch.Generator().manual_seed(
             int(seed if seed is not None else config.get("TRAINING_SEED", 42)))
-        self.volume_encoder.vit3d.reset_parameters(gen)
+        if self.encoder_kind == "resnet":
+            self.resnet_3d = ResNet3DEncoder(self.resnet_cfg, device=device)
+            self.resnet_3d.resnet.reset_parameters(gen)
+        else:
+            self.volume_encoder = ViT3DEncoder(self.vit_cfg, device=device)
+            self.volume_encoder.vit3d.reset_parameters(gen)
 
     def forward(self, volumes: torch.Tensor, *, train: bool = False,
                 seed: Optional[int] = None) -> torch.Tensor:
-        """``train=True`` applies dropout keyed by the step's ``seed``."""
+        """``train=True`` applies the ViT's dropout keyed by the step's
+        ``seed``, or the ResNet's batch statistics."""
         x = volumes.permute(0, 3, 1, 2)[:, None]      # [B, 1, D, H, W]
+        if self.encoder_kind == "resnet":
+            return self.resnet_3d.resnet(x.to(self.compute_dtype),
+                                         train=train)
         return self.volume_encoder.vit3d(x.to(self.compute_dtype),
                                          train=train, seed=seed)
 
@@ -135,7 +169,11 @@ class NeuroEncoder(tnn.Module):
     def probe(self, volumes: torch.Tensor, probe_shift: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """[B, H, W, D] volumes and a shift [B, N + 1, dim] -> (f32 logits,
-        the probe activation in the compute dtype); see ``ViT3D.probe``."""
+        the probe activation in the compute dtype); see ``ViT3D.probe``.
+        The ViT's only: the ResNet's probe is ``gradcam_resnet``'s."""
+        if self.encoder_kind != "vit":
+            raise ValueError("the attention probe is the ViT's; the ResNet's "
+                             "CAMs are explainability.gradcam_resnet's")
         x = volumes.permute(0, 3, 1, 2)[:, None]      # [B, 1, D, H, W]
         return self.volume_encoder.vit3d.probe(x.to(self.compute_dtype),
                                                probe_shift)

@@ -90,6 +90,9 @@ class Predictor:
                              "(supported: 'int8')")
         self.quant = quant
         if quant == "int8":
+            if model.encoder_kind != "vit":
+                raise ValueError("quant='int8' supports the ViT volume "
+                                 "encoder only")
             quantize_blocks(model.volume_encoder.vit3d)
 
     @classmethod
@@ -188,7 +191,7 @@ def _collect_volume_jobs(inputs, crop: bool):
     volume z-scored (neurovit_tpu/serving.py:261-305, 3D mode)."""
     import glob
 
-    from neurovit_tpu.data import nifti
+    from neurovit_tpu_torch.data import nifti
 
     paths = []
     for inp in inputs:
@@ -300,7 +303,7 @@ def main(argv=None) -> None:
     import argparse
     import csv
 
-    from neurovit_tpu.config import load_config
+    from neurovit_tpu_torch.config import load_config
 
     parser = argparse.ArgumentParser(
         description="NeuroViT batch prediction (PyTorch / CUDA)")

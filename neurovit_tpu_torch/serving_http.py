@@ -217,7 +217,7 @@ def main(argv=None) -> None:
     server."""
     import argparse
 
-    from neurovit_tpu.config import load_config
+    from neurovit_tpu_torch.config import load_config
 
     parser = argparse.ArgumentParser(
         description="NeuroViT HTTP prediction server (PyTorch / CUDA)")

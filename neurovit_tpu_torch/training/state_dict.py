@@ -10,7 +10,12 @@ format) loads with ``model.load_state_dict(load(path))``, and
 ``state_dict.load`` reads (``neurovit_tpu/training/state_dict.py:338-349``):
 weights trained by the port load in JAX. :func:`from_jax_params` converts a
 JAX params pytree in memory, which is how the tests give both packages the
-same weights.
+same weights. It takes the ViT's params pytree or the ResNet's
+``{"params", "state"}``: the ResNet's OIDHW convs go across as they are,
+its Linear head is transposed, and its BatchNorm running stats fill the
+``nn.BatchNorm3d`` buffers (the keys of
+``neurovit_tpu/training/state_dict.py:107-157``), with a
+``num_batches_tracked`` of 0 as JAX's ``to_state_dict`` writes it.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import numpy as np
 import torch
 
 PREFIX = "volume_encoder.vit3d."
+RESNET_PREFIX = "resnet_3d.resnet."
 
 # (torch key suffix, path in the JAX ViT params, transpose). JAX kernels are
 # [in, out]; torch Linear weights are [out, in].
@@ -65,9 +71,14 @@ def _tensor(arr: np.ndarray, transpose: bool) -> torch.Tensor:
 
 
 def from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX NeuroEncoder params (``{"volume_encoder": ViT params}``, numpy
-    leaves) -> the port's state dict: the stacked depth axis unstacked, the
-    [in, out] kernels transposed to torch's [out, in]."""
+    """JAX NeuroEncoder weights (numpy leaves) -> the port's state dict.
+    The ViT's params (``{"volume_encoder": ViT params}``): the stacked depth
+    axis unstacked, the [in, out] kernels transposed to torch's [out, in].
+    The ResNet's variables (``{"params": {"volume_encoder": ...}, "state":
+    {"volume_encoder": ...}}``): see :func:`_resnet_state_dict`."""
+    if "params" in params:
+        return _resnet_state_dict(params["params"]["volume_encoder"],
+                                  params["state"]["volume_encoder"])
     vit = params["volume_encoder"]
     blocks = vit["blocks"]
     depth = np.asarray(blocks["qkv"]["kernel"]).shape[0]
@@ -76,6 +87,45 @@ def from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         for key, path, t in _BLOCK:
             out[f"{PREFIX}transformer.layers.{i}.{key}"] = _tensor(
                 _get(blocks, path)[i], t)
+    return out
+
+
+def _bn(key: str, params: Dict[str, Any], state: Dict[str, Any]
+        ) -> Dict[str, torch.Tensor]:
+    """A BatchNorm3d's entries: affine from params, running stats from the
+    state, and torch's step counter (state_dict.py:107-116, 228-232)."""
+    return {f"{key}.weight": _tensor(np.asarray(params["scale"]), False),
+            f"{key}.bias": _tensor(np.asarray(params["bias"]), False),
+            f"{key}.running_mean": _tensor(np.asarray(state["mean"]), False),
+            f"{key}.running_var": _tensor(np.asarray(state["var"]), False),
+            f"{key}.num_batches_tracked": torch.tensor(0, dtype=torch.int64)}
+
+
+def _resnet_state_dict(params: Dict[str, Any], state: Dict[str, Any]
+                       ) -> Dict[str, torch.Tensor]:
+    """The JAX ResNet's params and BN state -> ``resnet_3d.resnet.*`` keys
+    (state_dict.py:119-157): conv1/bn1, layer{1..4}.{b} blocks with
+    conv{c}/bn{c} and shortcut B's downsample.{0,1}, and fc."""
+    p = RESNET_PREFIX
+    out = {f"{p}conv1.weight": _tensor(np.asarray(params["conv1"]["kernel"]),
+                                       False)}
+    out.update(_bn(f"{p}bn1", params["bn1"], state["bn1"]))
+    for s in range(1, 5):
+        for b, (bp, bs) in enumerate(zip(params[f"layer{s}"],
+                                         state[f"layer{s}"])):
+            tp = f"{p}layer{s}.{b}."
+            for c in (1, 2, 3):
+                if f"conv{c}" in bp:
+                    out[f"{tp}conv{c}.weight"] = _tensor(
+                        np.asarray(bp[f"conv{c}"]["kernel"]), False)
+                    out.update(_bn(f"{tp}bn{c}", bp[f"bn{c}"], bs[f"bn{c}"]))
+            if "ds_conv" in bp:
+                out[f"{tp}downsample.0.weight"] = _tensor(
+                    np.asarray(bp["ds_conv"]["kernel"]), False)
+                out.update(_bn(f"{tp}downsample.1", bp["ds_bn"],
+                               bs["ds_bn"]))
+    out[f"{p}fc.weight"] = _tensor(np.asarray(params["fc"]["kernel"]), True)
+    out[f"{p}fc.bias"] = _tensor(np.asarray(params["fc"]["bias"]), False)
     return out
 
 

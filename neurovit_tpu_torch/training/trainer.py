@@ -1,4 +1,5 @@
-"""Trainer: the 3D ViT train and eval loops on one device.
+"""Trainer: the 3D ViT's and the 3D ResNet's train and eval loops on one
+device.
 
 Counterpart of ``neurovit_tpu/training/trainer.py`` (the reference's
 ``src/Trainer.py``), on the fused kernels:
@@ -21,9 +22,15 @@ Counterpart of ``neurovit_tpu/training/trainer.py`` (the reference's
   ``TRAINING_HOST_TRANSFER_DTYPE: bf16`` volumes are cast on the host
   (trainer.py:135-147).
 
-The model's device is the trainer's; the kernels take bf16 only, so
-``TRAINING_PRECISION: f32`` runs on the CPU (the plain path) and is refused
-on CUDA. 4D, the feature cache, a mesh of more than one device, the
+The ResNet's BatchNorm running stats move in every micro-step's forward,
+as the JAX trainer's ``model_state`` does under ``optax.MultiSteps``; they
+are buffers of the model, so the train state, the weight files and
+``--resume`` carry them, and eval and ``--inference`` normalize by them.
+
+The model's device is the trainer's. The ViT's kernels take bf16 only, so
+its ``TRAINING_PRECISION: f32`` runs on the CPU (the plain path) and is
+refused on CUDA; the ResNet's pool kernels take f32 and its convs are
+cuDNN's, so it trains in f32 on either. 4D, the feature cache, a mesh of more than one device, the
 asynchronous checkpoint and ``TRAINING_PROFILE_STEPS`` are not ported yet
 and raise, naming their ROADMAP item.
 """
@@ -40,8 +47,8 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from neurovit_tpu.data.loader import DataLoader
 from neurovit_tpu_torch import nn
+from neurovit_tpu_torch.data.loader import DataLoader
 from neurovit_tpu_torch.models.neuro_encoder import NeuroEncoder, not_ported
 from neurovit_tpu_torch.training import checkpoint as ckpt
 from neurovit_tpu_torch.training.metrics import MetricLogger
@@ -64,9 +71,10 @@ def check_supported(config: Dict[str, Any], device: torch.device) -> None:
         raise not_ported("TRAINING_ASYNC_CHECKPOINT",
                           "train step, async checkpoint")
     if (device.type == "cuda"
+            and config.get("MODEL_VOLUME_ENCODER", "vit") == "vit"
             and config.get("TRAINING_PRECISION", "bf16") != "bf16"):
-        raise not_ported("f32 compute on CUDA (the kernels take bf16)",
-                          "train step, f32 on CUDA")
+        raise not_ported("f32 compute of the ViT on CUDA (its kernels take "
+                         "bf16)", "train step, f32 on CUDA")
 
 
 class Trainer:

@@ -2,7 +2,8 @@
 small and ragged shapes (the model's shapes are in chip_smoke.py): the
 forward kernels K1-K4 with and without dropout, the backward kernels K5,
 K7, K8 and K9, K6 (the [B, H, N, D] attention, forward and backward) and
-the Grad-CAM probe that runs it, and the int8 serving kernels K10-K13.
+the Grad-CAM probe that runs it, the int8 serving kernels K10-K13, and
+the ResNet stem's max-pool K14 and its backward K15.
 
 These need an NVIDIA GPU with sm_90a and nvcc; elsewhere they skip. Run on
 the card with:
@@ -19,7 +20,10 @@ ulp of a bf16 intermediate -- ds, dz, dh -- moves a sum of many terms; the
 dgamma and dbeta: relative Frobenius error <= 1e-2. The int8 kernels take
 the forwards' tolerance: their int32 products are exact on both sides, and
 an f32 LayerNorm, GELU or sum taken in another order may move one int8
-code by one step, which moves an output by far less than 1e-2.
+code by one step, which moves an output by far less than 1e-2. K14's
+values and codes equal the plain version's bit for bit (both compare in
+f32 and pick the same winner), and so does K15's dx (both add the same
+f32 terms in increasing code order and round once).
 """
 
 import numpy as np
@@ -28,7 +32,7 @@ import torch
 
 from neurovit_tpu_torch.ops import flash_attention as fa
 from neurovit_tpu_torch.ops import (fused_mlp, fused_outproj, fused_qkv,
-                                    int8_serving)
+                                    int8_serving, maxpool3d)
 
 pytestmark = pytest.mark.cuda
 
@@ -407,3 +411,81 @@ def test_int8_kernels_refuse_what_they_do_not_take(cuda):
         int8_serving.int8_outproj_residual(
             zeros(1, 4, 512, dtype=bf), zeros(1, 4, 256, dtype=bf),
             zeros(512, 256), zeros(512), zeros(512))
+
+
+def _pool_input(rng, shape, ties: bool, device, dtype):
+    if ties:     # post-ReLU zeros and small integers: most windows tie
+        a = np.maximum(rng.integers(-3, 4, shape), 0)
+    else:
+        a = rng.standard_normal(shape)
+    return torch.tensor(a, dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("shape", [(2, 9, 7, 10, 8), (1, 8, 8, 8, 4),
+                                   (2, 5, 6, 9, 16), (2, 18, 9, 9, 64)])
+def test_maxpool_kernels(cuda, shape, ties, dtype):
+    rng = np.random.default_rng(sum(shape))
+    x = _pool_input(rng, shape, ties, cuda, dtype)
+    before = (maxpool3d.max_pool3d_argmax_cuda.launches,
+              maxpool3d.max_pool3d_argmax_bwd_cuda.launches)
+    out, codes = maxpool3d.max_pool3d_argmax(x)
+    want, want_codes = maxpool3d.max_pool3d_argmax_plain(x)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want) and torch.equal(codes, want_codes)
+    g = _pool_input(rng, tuple(out.shape), False, cuda, dtype)
+    dx = maxpool3d.max_pool3d_argmax_bwd(codes, g, shape, dtype)
+    want_dx = maxpool3d.max_pool3d_argmax_bwd_plain(codes, g, shape, dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, want_dx)
+    assert (maxpool3d.max_pool3d_argmax_cuda.launches,
+            maxpool3d.max_pool3d_argmax_bwd_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+def test_maxpool_autograd_and_resnet_forward_backward(cuda):
+    """The autograd Function launches K14 once and K15 once; a small
+    ResNet's train-mode gradients on the card (K14, K15 and cuDNN, with the
+    global TF32 flag at its default: the convs turn it off themselves)
+    against the same weights on the CPU plain path. f32 within 5e-3
+    relative Frobenius error (f32 sums in another order, amplified by the
+    train-mode BatchNorms' backward; chip_smoke.py's full ResNet-18 reads
+    4e-3 to 7e-3). bf16 gradients of this model are 20-30 % from its f32
+    ones on the CPU alone, so the card's bf16 gradients are held to be no
+    farther from the CPU's f32 ones than the CPU's bf16 gradients are (1.5x
+    plus 2e-2, worst and median parameter, as chip_smoke.py holds them)."""
+    from neurovit_tpu_torch.models import resnet3d
+    x = _pool_input(np.random.default_rng(1), (2, 8, 8, 8, 64), True, cuda,
+                    torch.bfloat16).requires_grad_()
+    before = maxpool3d.max_pool3d_argmax_bwd_cuda.launches
+    maxpool3d.max_pool3d(x).float().sum().backward()
+    assert maxpool3d.max_pool3d_argmax_bwd_cuda.launches == before + 1
+    assert float(x.grad.float().sum()) == 2 * 4 * 4 * 4 * 64
+
+    cfg = resnet3d.ResNetConfig(depth=10, n_classes=2, widen_factor=0.25)
+    init = resnet3d.ResNet3D(cfg)
+    init.reset_parameters(torch.Generator().manual_seed(0))
+    vol = torch.randn(4, 1, 16, 40, 40, generator=torch.Generator(
+        ).manual_seed(1))
+    assert torch.backends.cudnn.allow_tf32
+    grads = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for dev in (cuda, torch.device("cpu")):
+            model = resnet3d.ResNet3D(cfg, device=dev)
+            model.load_state_dict(init.state_dict())
+            model(vol.to(dev, dtype), train=True).square().sum().backward()
+            grads[dtype, dev.type] = {n: p.grad.float().cpu()
+                                      for n, p in model.named_parameters()}
+    assert torch.backends.cudnn.allow_tf32
+
+    def errs(got, want):
+        return np.array([float((got[n] - w).norm() / w.norm())
+                         for n, w in want.items()])
+
+    f32 = grads[torch.float32, "cpu"]
+    assert errs(grads[torch.float32, "cuda"], f32).max() <= 5e-3
+    card = errs(grads[torch.bfloat16, "cuda"], f32)
+    plain = errs(grads[torch.bfloat16, "cpu"], f32)
+    for stat in (np.max, np.median):
+        assert stat(card) <= 1.5 * stat(plain) + 2e-2, (stat, card, plain)

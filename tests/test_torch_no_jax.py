@@ -1,5 +1,6 @@
-"""The port stands without JAX, builds its kernels only on demand, and its
-CPU path never counts a kernel launch."""
+"""The port stands without JAX and without the JAX package (its config and
+data layer are its own), builds its kernels only on demand, and its CPU
+path never counts a kernel launch."""
 
 import os
 import subprocess
@@ -12,7 +13,7 @@ import torch
 from neurovit_tpu_torch.ops import _build
 from neurovit_tpu_torch.ops import flash_attention as fa
 from neurovit_tpu_torch.ops import (fused_mlp, fused_outproj, fused_qkv,
-                                    int8_serving)
+                                    int8_serving, maxpool3d)
 
 torch.set_num_threads(1)
 
@@ -25,27 +26,53 @@ COUNTED = (fa.flash_attention_cuda, fused_qkv.fused_ln_qkv_cuda,
            int8_serving.int8_outproj_residual_cuda,
            int8_serving.int8_mlp_block_cuda,
            int8_serving.int8_flash_attention_cuda,
-           fa.flash_attention_bhnd_cuda, fa.flash_attention_bhnd_bwd_cuda)
+           fa.flash_attention_bhnd_cuda, fa.flash_attention_bhnd_bwd_cuda,
+           maxpool3d.max_pool3d_argmax_cuda,
+           maxpool3d.max_pool3d_argmax_bwd_cuda)
 
 
 def test_every_module_imports_with_jax_blocked():
+    """With ``jax`` and ``neurovit_tpu`` both blocked: every module of the
+    port imports, the config loads, the data layer batches the synthetic
+    cube dataset, and a small ResNet runs forward and backward; no module
+    of either was loaded."""
     script = (
         "import importlib, pkgutil, sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['neurovit_tpu'] = None\n"
         "import neurovit_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
         "pkg.__name__ + '.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "assert not [m for m in sys.modules if m.startswith('jax.')]\n"
+        "from neurovit_tpu_torch.config import load_config\n"
+        "from neurovit_tpu_torch.data import DataLoader, get_datasets\n"
+        "from neurovit_tpu_torch.models import NeuroEncoder\n"
+        "config = load_config(overrides={'TRAINING_VIT_INPUT_SIZE': 16,\n"
+        "    'TRAINING_VIT_PATCH_SIZE': 4, 'GRADCAM_NUM_SAMPLES': 10,\n"
+        "    'GRADCAM_TRAIN_PATH': None, 'GRADCAM_VAL_PATH': None,\n"
+        "    'MODEL_VOLUME_ENCODER': 'resnet', 'MODEL_RESNET_DEPTH': 10,\n"
+        "    'TRAINING_PRECISION': 'f32', 'DATASET_NAME': 'gradcam'})\n"
+        "train, _ = get_datasets(config)\n"
+        "batch = next(iter(DataLoader(train, 2, num_workers=1)))\n"
+        "import torch\n"
+        "model = NeuroEncoder(config, device='cpu')\n"
+        "logits = model(torch.from_numpy(batch['volume']), train=True)\n"
+        "logits.sum().backward()\n"
+        "assert logits.shape == (2, 8)\n"
+        "loaded = [m for m in sys.modules if m == 'jax' or m == "
+        "'neurovit_tpu' or m.startswith(('jax.', 'neurovit_tpu.'))]\n"
+        "assert not [m for m in loaded if sys.modules[m] is not None], "
+        "loaded\n"
         "assert 'neurovit_tpu_torch.ops.int8_serving' in names\n"
-        "assert 'neurovit_tpu_torch.explainability.driver' in names\n"
+        "assert 'neurovit_tpu_torch.data.loader' in names\n"
+        "assert 'neurovit_tpu_torch.explainability.driver_smri' in names\n"
         "print(len(names))\n")
     env = {**os.environ, "PYTHONPATH": REPO}
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=120)
+                         capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 22
+    assert int(out.stdout.split()[-1]) >= 40
 
 
 def test_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):
@@ -95,7 +122,7 @@ def test_cpu_path_launches_no_kernel():
     q, k, v = (t(1, 2, 5, 8).requires_grad_() for _ in range(3))
     fa.flash_attention(q, k, v, scale=0.3, layout="bhnd").sum().backward()
     assert q.grad is not None
-    from neurovit_tpu.config import load_config
+    from neurovit_tpu_torch.config import load_config
     from neurovit_tpu_torch.models import NeuroEncoder
     config = load_config(overrides={
         "TRAINING_VIT_INPUT_SIZE": 10, "TRAINING_VIT_PATCH_SIZE": 5,
@@ -104,7 +131,14 @@ def test_cpu_path_launches_no_kernel():
     cam, _ = NeuroEncoder(config, device="cpu").get_attention_map(
         rng.standard_normal((10, 10, 10)))
     assert cam.shape == (10, 10, 10)
-    assert [fn.launches for fn in COUNTED] == before == [0] * 14
+    # A small ResNet's forward and backward, and its CAM.
+    resnet = NeuroEncoder(dict(config, MODEL_VOLUME_ENCODER="resnet",
+                               MODEL_RESNET_DEPTH=10), device="cpu")
+    resnet(t(2, 16, 16, 16), train=True).sum().backward()
+    from neurovit_tpu_torch.explainability.gradcam_resnet import resnet_cam
+    cam, _ = resnet_cam(resnet, rng.standard_normal((16, 16, 16)))
+    assert cam.shape == (16, 16, 16)
+    assert [fn.launches for fn in COUNTED] == before == [0] * 16
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -124,6 +158,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         fa.flash_attention_bhnd_bwd_cuda(
             *(torch.zeros(1, 2, 5, 64) for _ in range(5)),
             torch.zeros(1, 2, 5), scale=0.125, n_valid=5)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        maxpool3d.max_pool3d_argmax_cuda(torch.zeros(1, 4, 4, 4, 8))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        maxpool3d.max_pool3d_argmax_bwd_cuda(
+            torch.zeros(1, 2, 2, 2, 8, dtype=torch.uint8),
+            torch.zeros(1, 2, 2, 2, 8), (1, 4, 4, 4, 8), torch.float32)
     with pytest.raises(ValueError, match="CUDA tensor"):
         int8_serving.int8_flash_attention_cuda(
             *(torch.zeros(1, 5, 2, 64) for _ in range(3)), scale=0.125)

@@ -122,7 +122,6 @@ def test_seeded_init_is_deterministic_and_pytorch_distributed():
 
 @pytest.mark.parametrize("extra,item", [
     ({"TRAINING_DIM": 4}, "4D"),
-    ({"MODEL_VOLUME_ENCODER": "resnet"}, "ResNet"),
     ({"MESH_PIPE_AXIS": 2}, "multi-GPU"),
     ({"MODEL_VIT_PATCH_EMBED": "conv"}, "odds and ends"),
     ({"TRAINING_REMAT": True}, "train step"),
