@@ -19,23 +19,35 @@ Phases, each printing a line; any failure raises and exits non-zero:
                timed beside K1 or K5 on the transposed inputs, and the int8
                kernels K10-K13 (K13 also at n_valid 900), each timed beside
                its bf16 counterpart (K2, K3, K4, K1) on the same inputs
-4. slice       the flagship model (configs/config.yaml, seed 42) saved with
+4. widths      every ViT width of the matrix (models/vit3d.py WIDTHS: the
+               smoke model, head dims 32, 80 and 128, ViT-S/B/L and the
+               flagship) at batch 2 x 1001 tokens through K1-K13 against the
+               plain versions, dropout 0.1 where an op has it; K4's
+               shared-memory plan against the kernel's; K4 and K9 timed at
+               batch 8 at the ViT-B, ViT-L and flagship widths
+5. probes      the probe scripts' main paths with their launch counts
+               (scripts/torch_dropout_bench.py, scripts/torch_int8_gemm_bench.py
+               at fc1 and square4k); K16 forward and backward at
+               [32 * 1001, 2048] bf16 bit-equal to plain, keep fraction within
+               4 sigma; K17 int8 and K18 bit-equal, K17 bf16 within
+               K 2^-23 sum|a||b|, each timed beside plain and library calls
+6. slice       the flagship model (configs/config.yaml, seed 42) saved with
                torch.save, served by Predictor.from_checkpoint on cuda:
                warmup, then requests of 1, 3 and 32 volumes; checked against
                single-volume calls and against the same model on the CPU
-5. http        the HTTP server on an ephemeral port: /healthz, then /predict
+7. http        the HTTP server on an ephemeral port: /healthz, then /predict
                with three NIfTI files, two of them posted concurrently;
                every forward kernel launched depth times per forward of 4-5
-6. int8        the same checkpoint served with quant="int8": warmup,
+8. int8        the same checkpoint served with quant="int8": warmup,
                requests of 1, 3 and 32 volumes against single calls and
                against the quantized model on the CPU plain path; against
                the bf16 Predictor within 0.05; /healthz says "int8" and one
                /predict equals Predictor; K10-K13 launched depth times per
                forward and K1-K4 never; one forward with SERVING_INT8_ATTN
                off runs K1 in place of K13
-7. rate        the int8 and the bf16 forward at batch 32, device-only by
+9. rate        the int8 and the bf16 forward at batch 32, device-only by
                CUDA events, and a profiler split of the int8 forward
-8. gradcam     Grad-CAM of the same checkpoint with its LayerNorm affines
+10. gradcam    Grad-CAM of the same checkpoint with its LayerNorm affines
                moved off their init: the launch counts of one
                get_attention_map of 4 volumes (K1-K3 depth - 1 times, K4
                depth times, K6 forward and backward and K9 once, no other
@@ -45,17 +57,17 @@ Phases, each printing a line; any failure raises and exits non-zero:
                and grad x input once; the driver's get_sample_gradcam with
                the map written as NIfTI and read back; Grad-CAM latency at
                batch 1 and 8 by CUDA events, each with a profiler split
-9. grad        the flagship at batch 2, dropout 0.1: loss and every
+11. grad       the flagship at batch 2, dropout 0.1: loss and every
                parameter's gradient on cuda against the CPU plain path
-10. train      Trainer.run() for one epoch of seeded 90^3 volumes (batch 32,
+12. train      Trainer.run() for one epoch of seeded 90^3 volumes (batch 32,
                8 train and 2 val batches); its checkpoint served by
                Predictor; then 10 steps on one fixed batch at dropout 0
-11. train_rate train steps at batch 128: median step time, vol/s, TFLOP/s,
+13. train_rate train steps at batch 128: median step time, vol/s, TFLOP/s,
                peak memory, and a profiler split of one step
-12. counts     in phase 10, every bf16 forward kernel launched depth times
+14. counts     in phase 12, every bf16 forward kernel launched depth times
                per forward and every backward kernel depth times per
                backward
-13. resnet     the full-width ResNet-18 (the config with
+15. resnet     the full-width ResNet-18 (the config with
                MODEL_VOLUME_ENCODER: resnet, bf16, seed 42) saved with
                torch.save and served by Predictor (requests of 1, 3 and 32
                against single calls and the CPU plain path) and one HTTP
@@ -71,6 +83,11 @@ Phases, each printing a line; any failure raises and exits non-zero:
                their latency at batch 1 and 8 by CUDA events; K14 launched
                once per forward and K15 once per backward, and K15 never in
                a CAM
+16. widths     the verify recipe's smoke model (dim 64, 4 heads of 16)
+               trained for an epoch in bf16 on cuda through the CLI's main(),
+               every block kernel launched; a ViT-B-width model (768, 12 x
+               64, 3072, depth 4) served by Predictor against the CPU plain
+               path
 
 The kernel phase also checks K14 (the stem's max-pool with its argmax
 codes) and K15 (its backward) at [8, 90, 45, 45, 64] bf16 on a continuous
@@ -177,12 +194,29 @@ KERNELS = [
      "neurovit_tpu/ops/maxpool3d.py:62"),
     ("max_pool3d_argmax_bwd", "neurovit_tpu_torch/csrc/maxpool3d.cu",
      "neurovit_tpu/ops/maxpool3d.py:188"),
+    ("dropout", "neurovit_tpu_torch/csrc/dropout.cu",
+     "neurovit_tpu/ops/dropout.py:30"),
+    ("gemm_bf16", "neurovit_tpu_torch/csrc/int8_gemm.cu",
+     "scripts/int8_pallas_bench.py:30"),
+    ("gemm_int8", "neurovit_tpu_torch/csrc/int8_gemm.cu",
+     "scripts/int8_pallas_bench.py:30"),
+    ("dynquant_matmul", "neurovit_tpu_torch/csrc/int8_gemm.cu",
+     "scripts/int8_pallas_bench.py:55"),
 ]
 INT8_KERNELS = [name for name, _, _ in KERNELS if name.startswith("int8_")]
 # K6: only the Grad-CAM probe's last block runs it.
 GRADCAM_KERNELS = ["flash_attention_bhnd", "flash_attention_bhnd_bwd"]
 # K14, K15: only the ResNet's stem runs them.
 RESNET_KERNELS = ["max_pool3d_argmax", "max_pool3d_argmax_bwd"]
+# K16-K18: only the probe scripts run them.
+PROBE_KERNELS = ["dropout", "gemm_bf16", "gemm_int8", "dynquant_matmul"]
+# Kernels no ViT block forward or backward launches.
+OFF_BLOCK_KERNELS = (INT8_KERNELS + GRADCAM_KERNELS + RESNET_KERNELS
+                     + PROBE_KERNELS)
+# The probes' shapes: K16's x (scripts/torch_dropout_bench.py) and the GEMM
+# shapes fc1 and square4k (scripts/torch_int8_gemm_bench.py).
+DROPOUT_SHAPE = (32 * 1001, 2048)
+GEMM_SHAPES = [("fc1", 8192, 1024, 2048), ("square4k", 4096, 4096, 4096)]
 # The ResNet stem's pool input at batch 8: [B, 90, 45, 45, 64] NDHWC.
 POOL_SHAPE = (B, 90, 45, 45, 64)
 # The card's peaks for the bound (H100 SXM data sheet, dense): device
@@ -594,6 +628,338 @@ def kernel_phase(card: str) -> dict:
     return results
 
 
+def _width_operands(rng, b: int, dim: int, heads: int, dh: int, hid: int
+                    ) -> dict:
+    """Seeded operands of one block at (dim, heads x dh, hid), batch b x N
+    tokens, as the kernel phase makes them for the flagship."""
+    def t(*shape, scale=1.0, dtype=torch.bfloat16, offset=0.0):
+        a = offset + scale * rng.standard_normal(shape)
+        return torch.tensor(a, dtype=dtype, device="cuda")
+
+    def w(out_f, in_f):                      # nn.Linear's default range
+        a = rng.uniform(-1, 1, (out_f, in_f)) / in_f ** 0.5
+        return torch.tensor(a, dtype=torch.float32, device="cuda")
+
+    inner = heads * dh
+    return dict(
+        x=t(b, N, dim), ln=(t(dim, scale=0.1, dtype=torch.float32, offset=1.0),
+                            t(dim, scale=0.1, dtype=torch.float32)),
+        wqkv=w(3 * inner, dim), wout=w(dim, inner),
+        bout=t(dim, scale=0.03, dtype=torch.float32), attn=t(b, N, inner),
+        w1=w(hid, dim), b1=t(hid, scale=0.03, dtype=torch.float32),
+        w2=w(dim, hid), b2=t(dim, scale=0.02, dtype=torch.float32),
+        qkv=[t(b, N, heads, dh) for _ in range(3)], do=t(b, N, heads, dh),
+        dqkv=[t(b, N, heads, dh, scale=0.1) for _ in range(3)],
+        dy=t(b, N, dim, scale=0.1))
+
+
+def widths_phase(card: str) -> None:
+    """Every ViT width of the matrix (models/vit3d.py WIDTHS) at batch 2 x
+    1001 tokens through K1-K13 against the plain versions, with the kernel
+    phase's tolerances, dropout 0.1 where an op has it; K4's shared-memory
+    plan against the kernel's own count; then K4 and K9 timed at batch 8 at
+    the ViT-B, ViT-L and flagship widths."""
+    import ctypes
+
+    from neurovit_tpu_torch.models.vit3d import WIDTHS
+    from neurovit_tpu_torch.ops import _build
+    from neurovit_tpu_torch.ops import flash_attention as fa
+    from neurovit_tpu_torch.ops import fused_mlp, fused_outproj, fused_qkv
+    from neurovit_tpu_torch.ops import int8_serving as q8
+
+    smem = _build.library().nvt_fused_mlp_smem_bytes
+    smem.restype, smem.argtypes = ctypes.c_longlong, [ctypes.c_int] * 3
+    rng = np.random.default_rng(SEED + 6)
+    bf = torch.bfloat16
+    for name, (dim, heads, dh, hid) in WIDTHS.items():
+        rows, plan_bytes = fused_mlp.smem_plan(dim, hid)
+        if smem(rows, dim, hid) != plan_bytes:
+            raise AssertionError(f"{name}: K4's plan counts {plan_bytes} "
+                                 f"bytes, the kernel {smem(rows, dim, hid)}")
+        p = _width_operands(rng, 2, dim, heads, dh, hid)
+        x, ln, (q, k, v), do = p["x"], p["ln"], p["qkv"], p["do"]
+        wqkv, wout = p["wqkv"].to(bf), p["wout"].to(bf)
+        w1, w2 = p["w1"].to(bf), p["w2"].to(bf)
+        mlp = (x, *ln, w1, p["b1"], w2, p["b2"])
+        att = {"scale": dh ** -0.5, "n_valid": N_VALID_MASKED,
+               "dropout_rate": DROPOUT, "seed": 11}
+        drop = {"dropout_rate": DROPOUT, "seed": 12}
+        mdrop = {"dropout_rate": DROPOUT, "seeds": (13, 14)}
+        o, lsum = fa.flash_attention_plain(q, k, v, return_stats=True, **att)
+        _, h = fused_mlp.fused_mlp_block_plain(*mlp, return_h=True, **mdrop)
+        qh, kh, vh, oh, doh = (a.transpose(1, 2).contiguous()
+                               for a in (q, k, v, o, do))
+        qkv8 = q8.quantize_weight(p["wqkv"])
+        out8 = q8.quantize_weight(p["wout"])
+        mlp8 = (*q8.quantize_weight(p["w1"]), p["b1"],
+                *q8.quantize_weight(p["w2"]), p["b2"])
+        i8att = {"scale": dh ** -0.5, "n_valid": N_VALID_MASKED}
+
+        def both(fn_name, *args, module=None, **kw):
+            return (lambda: getattr(module, fn_name + "_cuda")(*args, **kw),
+                    lambda: getattr(module, fn_name + "_plain")(*args, **kw))
+
+        cases = [
+            ("K1", *both("flash_attention", q, k, v, module=fa,
+                         return_stats=True, **att)),
+            ("K2", *both("fused_ln_qkv", x, *ln, wqkv, heads, dh,
+                         module=fused_qkv, return_u=True)),
+            ("K3", *both("fused_outproj_residual", x, p["attn"], wout,
+                         p["bout"], module=fused_outproj, **drop)),
+            ("K4", *both("fused_mlp_block", *mlp, module=fused_mlp,
+                         return_h=True, **mdrop)),
+            ("K5", *both("flash_attention_bwd", q, k, v, o, do, lsum,
+                         module=fa, **att), True, ()),
+            ("K6", *both("flash_attention_bhnd", qh, kh, vh, module=fa,
+                         return_stats=True, **att)),
+            ("K6 bwd", *both("flash_attention_bhnd_bwd", qh, kh, vh, oh, doh,
+                             lsum, module=fa, **att), True, ()),
+            ("K7", *both("fused_ln_qkv_bwd", *p["dqkv"], x, ln[0], wqkv,
+                         module=fused_qkv), True, (1, 2)),
+            ("K8", *both("fused_outproj_bwd", p["dy"], wout,
+                         module=fused_outproj, **drop), True, ()),
+            ("K9", *both("fused_mlp_bwd", p["dy"], x, h, *ln, w1, w2,
+                         module=fused_mlp, **mdrop), True, (5, 6)),
+            ("K10", *both("int8_ln_qkv", x, *ln, *qkv8, heads, dh,
+                          module=q8)),
+            ("K11", *both("int8_outproj_residual", x, p["attn"], *out8,
+                          p["bout"], module=q8)),
+            ("K12", *both("int8_mlp_block", x, *ln, *mlp8, module=q8)),
+            ("K13", *both("int8_flash_attention", q, k, v, module=q8,
+                          **i8att)),
+        ]
+        worst = {}
+        for label, kernel, plain, *check in cases:
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            worst[label], _ = compare(f"widths {name} {label}", got, want,
+                                      *check)
+            del got, want
+        log("widths", f"{name}: dim {dim}, {heads} heads x {dh}, mlp {hid} "
+            f"(K4 {rows} rows a block, {plan_bytes} B of shared memory); "
+            f"K1-K13 "
+            f"against plain at B=2 N={N}, max abs err "
+            f"{max(worst.values()):.3e} ({max(worst, key=worst.get)})")
+        del p, o, lsum, h, qh, kh, vh, oh, doh, cases
+
+    # K4 and K9 where their plans differ (ViT-B and ViT-L take 16-row K4
+    # blocks, K9's du GEMM two chunks of dh at ViT-L) beside the flagship.
+    for name in ("flagship", "vit_b", "vit_l"):
+        dim, heads, dh, hid = WIDTHS[name]
+        p = _width_operands(rng, B, dim, heads, dh, hid)
+        mlp = (p["x"], *p["ln"], p["w1"].to(bf), p["b1"], p["w2"].to(bf),
+               p["b2"])
+        _, h = fused_mlp.fused_mlp_block_cuda(*mlp, return_h=True)
+        k4 = cuda_ms(lambda: fused_mlp.fused_mlp_block_cuda(*mlp))
+        k9 = cuda_ms(lambda: fused_mlp.fused_mlp_bwd_cuda(
+            p["dy"], p["x"], h, *p["ln"], mlp[3], mlp[5],
+            dropout_rate=DROPOUT, seeds=(13, 14)))
+        ops = {"bf16": 4 * B * N * dim * hid}
+        b4, _ = bound(nbytes(*mlp), nbytes(p["x"]), ops)
+        b9, _ = bound(nbytes(p["dy"], p["x"], h, *p["ln"], mlp[3], mlp[5]),
+                      3 * nbytes(p["x"]) + 2 * nbytes(h), ops)
+        log("widths", f"{name} at B={B} N={N}: K4 {k4:.4f} ms (bound "
+            f"{b4:.4f}), K9 dropout {DROPOUT} {k9:.4f} ms (bound {b9:.4f}); "
+            f"{card}")
+        del p, mlp, h
+
+
+def probes_phase(card: str, counters: dict) -> tuple:
+    """The probe scripts' main paths on the card with the launch counts of
+    each (scripts/torch_dropout_bench.py at [32 * 1001, 2048] bf16, and
+    scripts/torch_int8_gemm_bench.py at fc1 and square4k); then K16 forward
+    and backward bit-equal to the plain version with its keep fraction
+    within 4 sigma of the quantized keep, K17 int8 and K18 bit-equal and K17
+    bf16 within K 2^-23 sum|a||b| at both shapes, each timed beside its
+    plain version and its library call. Returns (stats, launches)."""
+    import importlib.util
+
+    import torch.nn.functional as F
+
+    from neurovit_tpu_torch.ops import dropout as k16
+    from neurovit_tpu_torch.ops import int8_gemm as k17
+
+    def script(name):
+        here = os.path.dirname(os.path.abspath(__file__))
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(here, "scripts", name + ".py"))
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        return module
+
+    drop_bench = script("torch_dropout_bench")
+    gemm_bench = script("torch_int8_gemm_bench")
+    for fn in counters.values():
+        fn.launches = 0
+    times = drop_bench.run("cuda", iters=10)
+    rows = gemm_bench.run("cuda", shapes=GEMM_SHAPES, iters=10)
+    torch.cuda.synchronize()
+    launches = {name: counters[name].launches for name in PROBE_KERNELS}
+    log("probes", f"torch_dropout_bench at {DROPOUT_SHAPE}: "
+        + ", ".join(f"{key} {val:.4f}" for key, val in times.items()))
+    for row in rows:
+        log("probes", "torch_int8_gemm_bench " + gemm_bench.line(row))
+    log("probes", f"launches of the two probes' runs: {launches}")
+    _check_counts("the probes", {name: counters[name].launches
+                                 for name in counters},
+                  {name: launches[name] if name in PROBE_KERNELS else 0
+                   for name in counters})
+
+    stats = {}
+    threshold, keep = k16.keep_threshold32(DROPOUT)
+    q_keep = threshold / 2.0 ** 32
+    x = torch.tensor(np.random.RandomState(0).randn(*DROPOUT_SHAPE),
+                     dtype=torch.bfloat16, device="cuda")
+    g = torch.tensor(np.random.RandomState(1).randn(*DROPOUT_SHAPE),
+                     dtype=torch.bfloat16, device="cuda")
+    xr = x.clone().requires_grad_()
+    y = k16.dropout(xr, DROPOUT, 1234)
+    y.backward(g)
+    err = 0.0
+    for what, got, want in (("forward", y.detach(),
+                             k16.dropout_plain(x, DROPOUT, 1234)),
+                            ("backward", xr.grad,
+                             k16.dropout_plain(g, DROPOUT, 1234))):
+        err = max(err, compare(f"dropout {what}", got, want, mode="exact")[0])
+    kept = float((y != 0).float().mean())
+    sigma = (q_keep * (1 - q_keep) / x.numel()) ** 0.5
+    if abs(kept - q_keep) > 4 * sigma:
+        raise AssertionError(f"K16 keeps {kept}, expected {q_keep} +- "
+                             f"{4 * sigma}")
+    ms = cuda_ms(lambda: k16.dropout_cuda(x, DROPOUT, 1234))
+    plain_ms = cuda_ms(lambda: k16.dropout_plain(x, DROPOUT, 1234))
+    bound_ms, bound_by = bound(nbytes(x), nbytes(x), {})
+    stats["dropout"] = {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": cuda_ms(lambda: F.dropout(x, DROPOUT, training=True))}
+    log("probes", f"dropout at {DROPOUT_SHAPE} bf16: forward and backward "
+        f"equal to plain bit for bit, keep fraction {kept:.6f} (quantized "
+        f"keep {q_keep:.6f}, 4 sigma {4 * sigma:.1e}); kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, F.dropout "
+        f"{stats['dropout']['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+        f"by {bound_by}; {card}")
+    del x, g, xr, y
+
+    for i, (name, m, k, n) in enumerate(GEMM_SHAPES):
+        ops = gemm_bench.operands(m, k, n, "cuda")
+        a8, b8, sa, sb = ops["a8"], ops["b8"], ops["sa"], ops["sb"]
+        abf, bbf = ops["abf"], ops["bbf"]
+        c8 = k17.gemm_int8_cuda(a8, b8)
+        dq = k17.dynquant_matmul_cuda(a8, b8, sa, sb)
+        cbf = k17.gemm_bf16_cuda(abf, bbf)
+        compare(f"gemm_int8 {name}", c8, k17.blocked_matmul_plain(a8, b8),
+                mode="exact")
+        compare(f"dynquant_matmul {name}", dq,
+                k17.dynquant_matmul_plain(a8, b8, sa, sb), mode="exact")
+        want = k17.blocked_matmul_plain(abf, bbf)
+        tol = k * 2.0 ** -23 * (abf.float().abs() @ bbf.float().abs())
+        bf_err = float((cbf - want).abs().max())
+        if not ((cbf - want).abs() <= tol).all():
+            raise AssertionError(f"gemm_bf16 {name}: outside K 2^-23 "
+                                 f"sum|a||b| (max abs err {bf_err:.3e})")
+        flop = 2 * m * k * n
+        timed = {
+            "gemm_bf16": (lambda: k17.gemm_bf16_cuda(abf, bbf),
+                          lambda: k17.blocked_matmul_plain(abf, bbf),
+                          lambda: torch.matmul(abf, bbf), (abf, bbf), cbf,
+                          {"bf16": flop}, bf_err),
+            "gemm_int8": (lambda: k17.gemm_int8_cuda(a8, b8),
+                          lambda: k17.blocked_matmul_plain(a8, b8),
+                          gemm_bench.library_int_mm(a8, b8), (a8, b8), c8,
+                          {"int8": flop}, 0.0),
+            "dynquant_matmul": (lambda: k17.dynquant_matmul_cuda(a8, b8, sa,
+                                                                 sb),
+                                lambda: k17.dynquant_matmul_plain(a8, b8, sa,
+                                                                  sb),
+                                None, (a8, b8, sa, sb), dq, {"int8": flop},
+                                0.0),
+        }
+        for kname, (kernel, plain, lib, ins, out, work, err) in timed.items():
+            ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+            lib_ms = cuda_ms(lib) if lib is not None else None
+            bound_ms, bound_by = bound(nbytes(*ins), nbytes(out), work)
+            if i == 0:
+                stats[kname] = {"max_abs_err": err, "ms": ms,
+                                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                "bound_by": bound_by, "library_ms": lib_ms}
+            else:
+                stats[kname]["max_abs_err"] = max(
+                    stats[kname]["max_abs_err"], err)
+            log("probes", f"{kname} {name} [{m}, {k}] x [{k}, {n}]: kernel "
+                f"{ms:.4f} ms ({flop / ms / 1e9:.1f} T/s), plain "
+                f"{plain_ms:.4f} ms, library {lib_ms} ms, bound "
+                f"{bound_ms:.4f} ms by {bound_by}; max abs err {err:.3e}; "
+                f"{card}")
+        del ops, a8, b8, sa, sb, abf, bbf, c8, dq, cbf, want, tol, timed
+    return stats, launches
+
+
+def widths_model_phase(config, workdir: str, counters: dict) -> None:
+    """The verify recipe's smoke model (dim 64, 4 heads of 16, MLP 128,
+    depth 2, 20^3 synthetic cubes) trained for an epoch in bf16 on cuda
+    through ``python -m neurovit_tpu_torch.main``'s main(), every bf16
+    forward and backward kernel launched; then a ViT-B-width model (dim
+    768, 12 heads of 64, MLP 3072, depth cut to 4, 90^3 volumes) served by
+    Predictor against the CPU plain path."""
+    import yaml
+
+    from neurovit_tpu_torch import main as cli
+    from neurovit_tpu_torch.models import NeuroEncoder
+    from neurovit_tpu_torch.serving import Predictor
+
+    runs = os.path.join(workdir, "smoke_runs")
+    smoke = dict(config, DATASET_NAME="gradcam", DATASET_GENERATE=True,
+                 GRADCAM_NUM_SAMPLES=80,
+                 GRADCAM_TRAIN_PATH=os.path.join(runs, "train.pkl"),
+                 GRADCAM_VAL_PATH=os.path.join(runs, "val.pkl"),
+                 TRAINING_VIT_INPUT_SIZE=20, TRAINING_VIT_PATCH_SIZE=5,
+                 MODEL_VIT_DIM=64, MODEL_VIT_DEPTH=2, MODEL_VIT_HEADS=4,
+                 MODEL_VIT_DIM_HEAD=16, MODEL_VIT_MLP_DIM=128,
+                 TRAINING_EPOCHS=1, TRAINING_BATCH_SIZE=8,
+                 TRAINING_PRECISION="bf16", TRAINING_LEARNING_RATE=1e-3,
+                 TRAINING_NUM_WORKERS=2, GRADCAM_SLICE_IDX=10,
+                 GLOBAL_OUTPUT_DIR=runs,
+                 BEST_MODEL_PATH=os.path.join(runs, "best_model.pkl"))
+    path = os.path.join(workdir, "smoke.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(smoke, f)
+    for fn in counters.values():
+        fn.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(["smoke", "--wandb", "false", "--config", path])
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    text = out.getvalue()
+    lines = [ln.expandtabs(1) for ln in text.splitlines()]
+    for line in lines[-6:]:
+        log("widths", f"smoke CLI: {line}")
+    if "train_loss" not in text or "MODEL SAVED to" not in text:
+        raise AssertionError("the smoke model's CLI run printed no training "
+                             "or no checkpoint")
+    block = [name for name, _, _ in KERNELS if name not in OFF_BLOCK_KERNELS]
+    if any(launches[name] == 0 for name in block) or any(
+            launches[name] for name in OFF_BLOCK_KERNELS):
+        raise AssertionError(f"the smoke CLI run launched {launches}")
+    log("widths", f"smoke model (64, 4 x 16, 128) trained for an epoch in "
+        f"bf16 on cuda through the CLI in {time.perf_counter() - t0:.1f} s; "
+        f"launches {launches}")
+
+    vit_b = dict(config, MODEL_VIT_DIM=768, MODEL_VIT_HEADS=12,
+                 MODEL_VIT_DIM_HEAD=64, MODEL_VIT_MLP_DIM=3072,
+                 MODEL_VIT_DEPTH=4)
+    ckpt = os.path.join(workdir, "vit_b.pt")
+    torch.save(NeuroEncoder(vit_b, device="cpu", seed=SEED).state_dict(),
+               ckpt)
+    predictor = Predictor.from_checkpoint(vit_b, ckpt, batch_size=32,
+                                          device="cuda")
+    slice_phase(vit_b, ckpt, predictor, np.random.default_rng(SEED + 7),
+                phase="widths")
+    del predictor
+
+
 def _volumes(rng, n: int, size: int) -> np.ndarray:
     return rng.standard_normal((n, size, size, size)).astype(np.float32)
 
@@ -862,7 +1228,7 @@ def train_phase(config, workdir: str, counters: dict) -> dict:
     log("counts", f"train run: {forwards[0]} forwards, {steps[0]} backwards "
         f"x depth {depth}; launches {launches}")
     for name, _, _ in KERNELS:
-        want = (0 if name in INT8_KERNELS + GRADCAM_KERNELS + RESNET_KERNELS
+        want = (0 if name in OFF_BLOCK_KERNELS
                 else depth * (steps[0] if name.endswith("_bwd")
                               else forwards[0]))
         if launches[name] != want or (want and launches[name] == 0):
@@ -1477,9 +1843,9 @@ def main() -> int:
               "port on the card only", file=sys.stderr)
         return 1
     from neurovit_tpu_torch.config import load_config
-    from neurovit_tpu_torch.ops import (_build, flash_attention, fused_mlp,
-                                        fused_outproj, fused_qkv,
-                                        int8_serving, maxpool3d)
+    from neurovit_tpu_torch.ops import (_build, dropout, flash_attention,
+                                        fused_mlp, fused_outproj, fused_qkv,
+                                        int8_gemm, int8_serving, maxpool3d)
     from neurovit_tpu_torch.serving import Predictor
     from neurovit_tpu_torch.models import NeuroEncoder
 
@@ -1519,7 +1885,16 @@ def main() -> int:
             flash_attention.flash_attention_bhnd_bwd_cuda,
         "max_pool3d_argmax": maxpool3d.max_pool3d_argmax_cuda,
         "max_pool3d_argmax_bwd": maxpool3d.max_pool3d_argmax_bwd_cuda,
+        "dropout": dropout.dropout_cuda,
+        "gemm_bf16": int8_gemm.gemm_bf16_cuda,
+        "gemm_int8": int8_gemm.gemm_int8_cuda,
+        "dynquant_matmul": int8_gemm.dynquant_matmul_cuda,
     }
+    widths_phase(card)
+    torch.cuda.empty_cache()
+    probe_stats, probe_launches = probes_phase(card, counters)
+    kernel_stats.update(probe_stats)
+    torch.cuda.empty_cache()
     config = load_config()
     rng = np.random.default_rng(SEED)
     with tempfile.TemporaryDirectory() as workdir:
@@ -1543,7 +1918,7 @@ def main() -> int:
             f"launches {serving}")
         _check_counts("serving", serving, {
             name: 0 if name.endswith("_bwd")
-            or name in INT8_KERNELS + GRADCAM_KERNELS + RESNET_KERNELS
+            or name in OFF_BLOCK_KERNELS
             else depth * forwards[0] for name in counters})
         del predictor
         torch.cuda.empty_cache()
@@ -1563,8 +1938,11 @@ def main() -> int:
         train_rate_phase(config, workdir, card)
         torch.cuda.empty_cache()
         resnet_launches = resnet_phase(config, workdir, card, counters)
+        torch.cuda.empty_cache()
+        widths_model_phase(config, workdir, counters)
 
     launches.update({name: int8_launches[name] for name in INT8_KERNELS})
+    launches.update(probe_launches)
     launches.update({name: gradcam_launches[name]
                      for name in GRADCAM_KERNELS})
     launches.update({name: resnet_launches[name] for name in RESNET_KERNELS})

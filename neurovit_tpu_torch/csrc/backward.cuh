@@ -5,7 +5,10 @@
 //   block, staged in shared memory as a GEMM A operand (and stored);
 // - du_gemm_kernel: du = A . W in f32 for 32-row blocks, A the concatenation
 //   along k of up to three [M, part] bf16 tensors, W [K, N] row-major (the
-//   torch weight, read with no transpose);
+//   torch weight, read with no transpose). A block holds its rows of A in
+//   shared memory 2048 columns at a time: at K <= 2048 (the flagship's K7
+//   and K9) all of them, and past it (ViT-B's K7 at 3 * 768, ViT-L's K9 at
+//   4096) chunk by chunk, adding each chunk's f32 product into du;
 // - ln_bwd_kernel + colsum_kernel: the LayerNorm backward of a row from x
 //   and du, plus the residual dy, and dgamma / dbeta as per-row-block f32
 //   partials summed over the blocks in a fixed order (deterministic; the
@@ -51,50 +54,75 @@ __device__ void dropout_rows(const bf16* __restrict__ dy, bf16* A, int lda,
 }
 
 constexpr int kDuBM = 32, kDuBN = 128, kDuBK = 32, kDuChunk = 512;
+constexpr int kDuMaxK = 2048;   // A columns resident at a time
 using DuGemm = TileGemm<kDuBM, kDuBN, kDuBK, 2, 4, true>;
 
+__host__ __device__ inline int du_k_chunk(int K) {
+  const int k = static_cast<int>(round_up(K, kDuBK));
+  return k < kDuMaxK ? k : kDuMaxK;
+}
+
 size_t du_gemm_smem(int K) {
-  return round_up(static_cast<size_t>(kDuBM) * (K + kPad) * sizeof(bf16),
+  return round_up(static_cast<size_t>(kDuBM) * (du_k_chunk(K) + kPad) *
+                      sizeof(bf16),
                   128) +
          DuGemm::kScratchBytes;
 }
 
 // du [M, N] f32 = [a0 | a1 | a2][M, K] . W[K, N]; K = parts * part.
+// K, N and part are multiples of 8.
 __global__ void __launch_bounds__(DuGemm::kThreads)
     du_gemm_kernel(const bf16* __restrict__ a0, const bf16* __restrict__ a1,
                    const bf16* __restrict__ a2, int part,
                    const bf16* __restrict__ w, float* __restrict__ du, int M,
                    int K, int N) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int lda = K + kPad;
+  const int kc_max = du_k_chunk(K);
+  const int lda = kc_max + kPad;
   bf16* A = reinterpret_cast<bf16*>(smem);
   void* scratch =
       smem + round_up(static_cast<size_t>(kDuBM) * lda * sizeof(bf16), 128);
   const int row0 = blockIdx.x * kDuBM;
-  for (int c = threadIdx.x; c < kDuBM * (K / 8); c += DuGemm::kThreads) {
-    const int r = c / (K / 8), col = (c % (K / 8)) * 8;
-    const int row = row0 + r;
-    const int safe = row < M ? row : M - 1;
-    const int p = col / part;
-    const bf16* src = (p == 0 ? a0 : (p == 1 ? a1 : a2)) +
-                      static_cast<size_t>(safe) * part + col - p * part;
-    cp_async16(A + r * lda + col, src, row < M ? 16 : 0);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-
   const float* C = reinterpret_cast<const float*>(scratch);
   const int n_begin = blockIdx.y * kDuChunk;
   const int n_end = min(n_begin + kDuChunk, N);
-  for (int n0 = n_begin; n0 < n_end; n0 += kDuBN) {
-    DuGemm::run(A, lda, w, N, n0, K, scratch);
-    for (int e = threadIdx.x; e < kDuBM * kDuBN / 4; e += DuGemm::kThreads) {
-      const int r = e / (kDuBN / 4), c = (e % (kDuBN / 4)) * 4;
-      const int row = row0 + r;
-      if (row >= M) continue;
-      const float* src = C + r * DuGemm::LDC + c;
-      *reinterpret_cast<float4*>(du + static_cast<size_t>(row) * N + n0 + c) =
-          make_float4(src[0], src[1], src[2], src[3]);
+  for (int k0 = 0; k0 < K; k0 += kDuMaxK) {
+    const int kc = min(K - k0, kDuMaxK);
+    const int kc_pad = static_cast<int>(round_up(kc, kDuBK));
+    // The previous chunk's products are done reading A.
+    __syncthreads();
+    for (int c = threadIdx.x; c < kDuBM * (kc_pad / 8); c += DuGemm::kThreads) {
+      const int r = c / (kc_pad / 8), col = (c % (kc_pad / 8)) * 8;
+      const int row = row0 + r, k = k0 + col;
+      const bool ok = row < M && col < kc;
+      const int p = ok ? k / part : 0;
+      const bf16* src = (p == 0 ? a0 : (p == 1 ? a1 : a2)) +
+                        (ok ? static_cast<size_t>(row) * part + k - p * part
+                            : 0);
+      cp_async16(A + r * lda + col, src, ok ? 16 : 0);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+
+    for (int n0 = n_begin; n0 < n_end; n0 += kDuBN) {
+      DuGemm::run(A, lda, w + static_cast<size_t>(k0) * N, N, n0, kc,
+                  scratch, N);
+      for (int e = threadIdx.x; e < kDuBM * kDuBN / 4;
+           e += DuGemm::kThreads) {
+        const int r = e / (kDuBN / 4), c = (e % (kDuBN / 4)) * 4;
+        const int row = row0 + r;
+        if (row >= M || n0 + c >= N) continue;
+        const float* src = C + r * DuGemm::LDC + c;
+        float4* dst =
+            reinterpret_cast<float4*>(du + static_cast<size_t>(row) * N + n0 + c);
+        float4 v = make_float4(src[0], src[1], src[2], src[3]);
+        if (k0 > 0) {   // this thread wrote the earlier chunks' sum here
+          const float4 prev = *dst;
+          v = make_float4(prev.x + v.x, prev.y + v.y, prev.z + v.z,
+                          prev.w + v.w);
+        }
+        *dst = v;
+      }
     }
   }
 }
@@ -106,7 +134,8 @@ __global__ void __launch_bounds__(DuGemm::kThreads)
 //   dx = bf16(rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)) + dy)
 //   u = bf16(xhat * gamma + beta)          when u_out is given (K9 emits it)
 // and this block's partial sums of du * xhat and du over its rows.
-// dim % 256 == 0, dim <= 1024.
+// A warp holds its row in registers, lane l the columns 256 i + 8 l .. + 7:
+// dim % 8 == 0, dim <= 1024. Columns past dim take no part.
 constexpr int kLnRows = 32, kLnThreads = 256, kLnMaxVec = 4;
 
 __global__ void __launch_bounds__(kLnThreads)
@@ -118,7 +147,6 @@ __global__ void __launch_bounds__(kLnThreads)
                   int M, int dim, float eps) {
   extern __shared__ float red[];   // [2 * dim]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nv = dim / 256;
   float ag[kLnMaxVec][8], ab[kLnMaxVec][8];
 #pragma unroll
   for (int i = 0; i < kLnMaxVec; ++i)
@@ -133,8 +161,8 @@ __global__ void __launch_bounds__(kLnThreads)
     float s = 0.f;
 #pragma unroll
     for (int i = 0; i < kLnMaxVec; ++i) {
-      if (i >= nv) break;
       const int col = i * 256 + lane * 8;
+      if (col >= dim) break;
       unpack8(*reinterpret_cast<const uint4*>(x + base + col), xv[i]);
 #pragma unroll
       for (int j = 0; j < 8; ++j) s += xv[i][j];
@@ -147,7 +175,7 @@ __global__ void __launch_bounds__(kLnThreads)
     float ss = 0.f;
 #pragma unroll
     for (int i = 0; i < kLnMaxVec; ++i) {
-      if (i >= nv) break;
+      if (i * 256 + lane * 8 >= dim) break;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const float d = xv[i][j] - mean;
@@ -158,8 +186,8 @@ __global__ void __launch_bounds__(kLnThreads)
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
     for (int i = 0; i < kLnMaxVec; ++i) {
-      if (i >= nv) break;
       const int col = i * 256 + lane * 8;
+      if (col >= dim) break;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         xv[i][j] = __fmul_rn(xv[i][j] - mean, rstd);        // xhat
@@ -173,8 +201,8 @@ __global__ void __launch_bounds__(kLnThreads)
     const float m1 = warp_sum(s1) / dim, m2 = warp_sum(s2) / dim;
 #pragma unroll
     for (int i = 0; i < kLnMaxVec; ++i) {
-      if (i >= nv) break;
       const int col = i * 256 + lane * 8;
+      if (col >= dim) break;
       float res[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, out[8];
       if (dy != nullptr)
         unpack8(*reinterpret_cast<const uint4*>(dy + base + col), res);
@@ -200,7 +228,7 @@ __global__ void __launch_bounds__(kLnThreads)
     if (warp == w) {
 #pragma unroll
       for (int i = 0; i < kLnMaxVec; ++i) {
-        if (i >= nv) break;
+        if (i * 256 + lane * 8 >= dim) break;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int col = i * 256 + lane * 8 + j;
@@ -249,7 +277,7 @@ cudaError_t launch_ln_bwd(const bf16* x, const float* du, const float* gamma,
 }
 
 bool ln_dim_ok(int dim) {
-  return dim % 256 == 0 && dim <= 256 * kLnMaxVec;
+  return dim >= 16 && dim % 16 == 0 && dim <= 256 * kLnMaxVec;
 }
 
 }  // namespace

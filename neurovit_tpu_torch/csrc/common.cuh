@@ -104,6 +104,27 @@ struct DropoutBits {
   }
 };
 
+// The 32-bit stream of K16 (csrc/dropout.cu): word i % 4 of Philox(i / 4,
+// seed) for element i, with the last Philox block cached as DropoutBits
+// does. The same generator, a word per element in place of a byte.
+struct DropoutWords {
+  uint64_t seed;
+  uint64_t block;
+  uint4 w;
+
+  __device__ explicit DropoutWords(uint64_t s) : seed(s), block(~0ull) {}
+
+  __device__ __forceinline__ uint32_t word(uint64_t i) {
+    const uint64_t b = i >> 2;
+    if (b != block) {
+      block = b;
+      w = philox4x32_10(b, seed);
+    }
+    const uint32_t j = static_cast<uint32_t>(i) & 3u;
+    return j == 0 ? w.x : (j == 1 ? w.y : (j == 2 ? w.z : w.w));
+  }
+};
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -184,6 +205,19 @@ __device__ void layer_norm_rows(const bf16* __restrict__ x,
   }
 }
 
+// Zero the bf16 columns [c0, c1) of the `rows` rows of a shared-memory tile
+// (c0, c1 multiples of 8): the K tail of a GEMM operand whose width is not a
+// multiple of the GEMM's BK. Zeros there meet zero-filled weight rows, so
+// the product of the real columns is exact.
+template <int THREADS>
+__device__ __forceinline__ void zero_cols(bf16* T, int ld, int rows, int c0,
+                                          int c1) {
+  const int chunks = (c1 - c0) / 8;
+  for (int c = threadIdx.x; c < rows * chunks; c += THREADS)
+    *reinterpret_cast<uint4*>(T + (c / chunks) * ld + c0 + (c % chunks) * 8) =
+        make_uint4(0, 0, 0, 0);
+}
+
 // C[BM, BN] = A[BM, K] . W[n0 : n0 + BN, 0 : K]^T, bf16 in, f32 out.
 //
 // A is a bf16 row block resident in shared memory (leading dimension lda);
@@ -196,9 +230,15 @@ __device__ void layer_norm_rows(const bf16* __restrict__ x,
 // the grid reads the same W). The f32 result lands in shared memory as
 // C[BM][BN + 4], aliasing the ring, for the caller's fused epilogue.
 //
-// Contract: K % BK == 0, the W columns n0 .. n0 + BN exist, A, W and
-// scratch are 16-byte aligned. All threads of the block call run()
-// together.
+// Ragged shapes: the k loop runs ceil(K / BK) steps, and W elements at
+// k >= K or at output columns n >= n_end are zero-filled in the ring, so
+// C's columns past n_end are 0 and the caller masks them. A's columns
+// K .. round_up(K, BK) must be zero (zero_cols). Only a ragged tile takes
+// the masked loads: when every tile paid the bounds tests, the flagship's
+// K2 and K4, whose tiles all fit, slowed measurably (PERF.md, section 6).
+//
+// Contract: K % 8 == 0, A, W and scratch are 16-byte aligned. All threads
+// of the block call run() together.
 template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, bool KN = false>
 struct TileGemm {
   static constexpr int kThreads = WARPS_M * WARPS_N * 32;
@@ -215,28 +255,43 @@ struct TileGemm {
       kRingBytes > kCBytes ? kRingBytes : kCBytes;
   static_assert(WM % 16 == 0 && WN % 16 == 0 && BK % 16 == 0, "tile shape");
 
+  template <bool kMask>
   __device__ static void load_w(bf16* stage, const bf16* __restrict__ W,
-                                int ldw, int n0, int k0) {
+                                int ldw, int n0, int k0, int K, int n_end) {
     if constexpr (KN) {
       constexpr int kChunks = BK * BN / 8;
       for (int c = threadIdx.x; c < kChunks; c += kThreads) {
         const int r = c / (BN / 8), col = (c % (BN / 8)) * 8;
+        const bool ok = !kMask || (k0 + r < K && n0 + col < n_end);
         cp_async16(stage + r * LDB + col,
-                   W + static_cast<size_t>(k0 + r) * ldw + n0 + col, 16);
+                   ok ? W + static_cast<size_t>(k0 + r) * ldw + n0 + col : W,
+                   ok ? 16 : 0);
       }
     } else {
       constexpr int kChunks = BN * BK / 8;
       for (int c = threadIdx.x; c < kChunks; c += kThreads) {
         const int r = c / (BK / 8), col = (c % (BK / 8)) * 8;
+        const bool ok = !kMask || (n0 + r < n_end && k0 + col < K);
         cp_async16(stage + r * LDB + col,
-                   W + static_cast<size_t>(n0 + r) * ldw + k0 + col, 16);
+                   ok ? W + static_cast<size_t>(n0 + r) * ldw + k0 + col : W,
+                   ok ? 16 : 0);
       }
     }
   }
 
   __device__ static void run(const bf16* A, int lda,
                              const bf16* __restrict__ W, int ldw, int n0,
-                             int K, void* scratch) {
+                             int K, void* scratch, int n_end = 1 << 30) {
+    if (K % BK == 0 && n0 + BN <= n_end)
+      run_tiles<false>(A, lda, W, ldw, n0, K, scratch, n_end);
+    else
+      run_tiles<true>(A, lda, W, ldw, n0, K, scratch, n_end);
+  }
+
+  template <bool kMask>
+  __device__ static void run_tiles(const bf16* A, int lda,
+                                   const bf16* __restrict__ W, int ldw,
+                                   int n0, int K, void* scratch, int n_end) {
     bf16* ring = reinterpret_cast<bf16*>(scratch);
     float* C = reinterpret_cast<float*>(scratch);
     const int warp = threadIdx.x / 32;
@@ -251,12 +306,13 @@ struct TileGemm {
     // The caller's previous epilogue may still read C (= the ring), and
     // its prologue may still write A.
     __syncthreads();
-    const int KT = K / BK;
-    load_w(ring, W, ldw, n0, 0);
+    const int KT = (K + BK - 1) / BK;
+    load_w<kMask>(ring, W, ldw, n0, 0, K, n_end);
     cp_async_commit();
     for (int kt = 0; kt < KT; ++kt) {
       if (kt + 1 < KT) {
-        load_w(ring + ((kt + 1) & 1) * kStage, W, ldw, n0, (kt + 1) * BK);
+        load_w<kMask>(ring + ((kt + 1) & 1) * kStage, W, ldw, n0,
+                      (kt + 1) * BK, K, n_end);
         cp_async_commit();
         cp_async_wait<1>();
       } else {

@@ -19,8 +19,12 @@
 // JAX writes to HBM anyway:
 //   1. hidden_kernel, grid (ceil(M/64), ceil(hid/512)): dz rows into shared
 //      memory (and out), da tile by tile, its epilogue writes a and dh;
-//   2. du_gemm_kernel (backward.cuh): du = dh . W1 for 32-row blocks;
+//   2. du_gemm_kernel (backward.cuh): du = dh . W1 for 32-row blocks (dh
+//      resident 2048 columns at a time, so ViT-L's hid 4096 takes two);
 //   3. the LayerNorm backward rows (+ dy, + u) and the dgamma / dbeta sums.
+// Widths are multiples of 16 with dim <= 1024 (the LayerNorm rows sit in
+// one warp's registers); dz's columns past dim are zero up to the k tile
+// and the last column tile is masked.
 #include "backward.cuh"
 
 namespace nvt {
@@ -39,7 +43,8 @@ __global__ void __launch_bounds__(Gemm::kThreads)
                           int M, int dim, int hid, float inv_keep,
                           uint32_t keep_q, uint64_t seed1, uint64_t seed2) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int lda = dim + kPad;
+  const int dim_k = static_cast<int>(round_up(dim, kBK));
+  const int lda = dim_k + kPad;
   bf16* A = reinterpret_cast<bf16*>(smem);
   void* scratch =
       smem + round_up(static_cast<size_t>(kBM) * lda * sizeof(bf16), 128);
@@ -47,17 +52,18 @@ __global__ void __launch_bounds__(Gemm::kThreads)
   dropout_rows<kBM, Gemm::kThreads>(dy, A, lda,
                                     blockIdx.y == 0 ? dz : nullptr, row0, M,
                                     dim, inv_keep, keep_q, seed2);
+  zero_cols<Gemm::kThreads>(A, lda, kBM, dim, dim_k);
 
   const float* C = reinterpret_cast<const float*>(scratch);
   DropoutBits bits(seed1);
   const int n_begin = blockIdx.y * kChunk;
   const int n_end = min(n_begin + kChunk, hid);
   for (int n0 = n_begin; n0 < n_end; n0 += kBN) {
-    Gemm::run(A, lda, w2, hid, n0, dim, scratch);
+    Gemm::run(A, lda, w2, hid, n0, dim, scratch, hid);
     for (int e = threadIdx.x; e < kBM * kBN / 8; e += Gemm::kThreads) {
       const int r = e / (kBN / 8), c = (e % (kBN / 8)) * 8;
       const int row = row0 + r;
-      if (row >= M) continue;
+      if (row >= M || n0 + c >= hid) continue;
       const size_t off = static_cast<size_t>(row) * hid + n0 + c;
       float hf[8], a[8], dh[8];
       unpack8(*reinterpret_cast<const uint4*>(h + off), hf);
@@ -82,7 +88,8 @@ __global__ void __launch_bounds__(Gemm::kThreads)
 }
 
 size_t hidden_smem(int dim) {
-  return round_up(static_cast<size_t>(kBM) * (dim + kPad) * sizeof(bf16),
+  return round_up(static_cast<size_t>(kBM) * (round_up(dim, kBK) + kPad) *
+                      sizeof(bf16),
                   128) +
          Gemm::kScratchBytes;
 }
@@ -93,7 +100,7 @@ size_t hidden_smem(int dim) {
 // dy, x [M, dim], h [M, hid], w1 [hid, dim], w2 [dim, hid] bf16; gamma,
 // beta [dim] f32. Outputs: dx, u, dz [M, dim] and a, dh [M, hid] bf16;
 // dgamma, dbeta [dim] f32. Scratch: du [M, dim] f32, part_g, part_b
-// [ceil(M/32), dim] f32. dim % 256 == 0, dim <= 1024, hid % 128 == 0.
+// [ceil(M/32), dim] f32. dim % 16 == 0, dim <= 1024, hid % 16 == 0.
 // keep_q 0 = no dropout; seed1 the hidden site, seed2 the output site.
 extern "C" int nvt_fused_mlp_bwd(
     const void* dy, const void* x, const void* h, const void* gamma,
@@ -103,7 +110,7 @@ extern "C" int nvt_fused_mlp_bwd(
     float inv_keep, int keep_q, uint64_t seed1, uint64_t seed2,
     void* stream) {
   using namespace nvt;
-  if (M < 1 || !ln_dim_ok(dim) || hid % kBN != 0 || keep_q < 0 ||
+  if (M < 1 || !ln_dim_ok(dim) || hid < 16 || hid % 16 != 0 || keep_q < 0 ||
       keep_q > 255)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);

@@ -15,8 +15,9 @@
 // (the point of the TPU kernel). The 64-row block of a is copied into
 // shared memory once with cp.async; Wout (1 MB, resident in VMEM on the
 // TPU) streams from L2 through nvt::TileGemm's two-stage ring. Grid:
-// (ceil(M/64), dim/512); each block loops over its 512 output columns in
-// 128-column tiles.
+// (ceil(M/64), ceil(dim/512)); each block loops over its 512 output columns
+// in 128-column tiles. Widths are multiples of 16: a's columns past inner
+// are zero up to the k tile, and the last column tile is masked.
 #include "common.cuh"
 
 namespace nvt {
@@ -31,17 +32,20 @@ __global__ void __launch_bounds__(Gemm::kThreads)
                    bf16* __restrict__ y, int M, int inner, int dim,
                    float inv_keep, uint32_t keep_q, uint64_t seed) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int lda = inner + kPad;
+  const int inner_k = static_cast<int>(round_up(inner, kBK));
+  const int lda = inner_k + kPad;
   bf16* A = reinterpret_cast<bf16*>(smem);
   void* scratch = smem + round_up(static_cast<size_t>(kBM) * lda * sizeof(bf16), 128);
 
   const int row0 = blockIdx.x * kBM;
-  for (int c = threadIdx.x; c < kBM * (inner / 8); c += Gemm::kThreads) {
-    const int r = c / (inner / 8), col = (c % (inner / 8)) * 8;
+  // Columns past inner (up to the k tile) are zero-filled by the copy.
+  for (int c = threadIdx.x; c < kBM * (inner_k / 8); c += Gemm::kThreads) {
+    const int r = c / (inner_k / 8), col = (c % (inner_k / 8)) * 8;
     const int row = row0 + r;
-    const int safe = row < M ? row : M - 1;
-    cp_async16(A + r * lda + col, a + static_cast<size_t>(safe) * inner + col,
-               row < M ? 16 : 0);
+    const bool ok = row < M && col < inner;
+    cp_async16(A + r * lda + col,
+               ok ? a + static_cast<size_t>(row) * inner + col : a,
+               ok ? 16 : 0);
   }
   cp_async_commit();
   cp_async_wait<0>();
@@ -49,12 +53,13 @@ __global__ void __launch_bounds__(Gemm::kThreads)
   const float* C = reinterpret_cast<const float*>(scratch);
   const int n_begin = blockIdx.y * kChunk;
   DropoutBits bits(seed);
-  for (int n0 = n_begin; n0 < n_begin + kChunk; n0 += kBN) {
-    Gemm::run(A, lda, w, inner, n0, inner, scratch);
+  const int n_end = min(n_begin + kChunk, dim);
+  for (int n0 = n_begin; n0 < n_end; n0 += kBN) {
+    Gemm::run(A, lda, w, inner, n0, inner, scratch, dim);
     for (int e = threadIdx.x; e < kBM * kBN / 8; e += Gemm::kThreads) {
       const int r = e / (kBN / 8), c = (e % (kBN / 8)) * 8;
       const int row = row0 + r;
-      if (row >= M) continue;
+      if (row >= M || n0 + c >= dim) continue;
       const size_t off = static_cast<size_t>(row) * dim + n0 + c;
       float xf[8], out[8];
       unpack8(*reinterpret_cast<const uint4*>(x + off), xf);
@@ -70,7 +75,9 @@ __global__ void __launch_bounds__(Gemm::kThreads)
 }
 
 size_t smem_bytes(int inner) {
-  return round_up(static_cast<size_t>(kBM) * (inner + kPad) * sizeof(bf16), 128) +
+  return round_up(static_cast<size_t>(kBM) * (round_up(inner, kBK) + kPad) *
+                      sizeof(bf16),
+                  128) +
          Gemm::kScratchBytes;
 }
 
@@ -78,20 +85,20 @@ size_t smem_bytes(int inner) {
 }  // namespace nvt
 
 // a [M, inner], x [M, dim], w [dim, inner] bf16; bias [dim] f32;
-// y [M, dim] bf16. inner % 32 == 0, dim % 512 == 0. keep_q: dropout
+// y [M, dim] bf16. inner % 16 == 0, dim % 16 == 0. keep_q: dropout
 // threshold (0 = none), inv_keep = 1 / keep.
 extern "C" int nvt_fused_outproj_fwd(const void* a, const void* x,
                                      const void* w, const void* bias, void* y,
                                      int M, int inner, int dim, float inv_keep,
                                      int keep_q, uint64_t seed, void* stream) {
   using namespace nvt;
-  if (M < 1 || inner % kBK != 0 || dim % kChunk != 0 || keep_q < 0 ||
-      keep_q > 255)
+  if (M < 1 || inner < 16 || inner % 16 != 0 || dim < 16 || dim % 16 != 0 ||
+      keep_q < 0 || keep_q > 255)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(inner);
   cudaError_t err = allow_smem(outproj_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((M + kBM - 1) / kBM, dim / kChunk);
+  const dim3 grid((M + kBM - 1) / kBM, (dim + kChunk - 1) / kChunk);
   outproj_kernel<<<grid, Gemm::kThreads, smem,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(a), static_cast<const bf16*>(x),

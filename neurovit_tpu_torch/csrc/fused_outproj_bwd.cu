@@ -13,7 +13,8 @@
 // operand, also stored for the dW product outside) and streams Wout [dim,
 // inner] -- the torch weight, in nvt::TileGemm's [K, N] mode -- from L2.
 // Grid: (ceil(M/64), ceil(inner/512)); each block loops over 128-column
-// tiles of its chunk.
+// tiles of its chunk. Widths are multiples of 16: dz's columns past dim
+// are zero up to the k tile, and the last column tile is masked.
 #include "backward.cuh"
 
 namespace nvt {
@@ -28,7 +29,8 @@ __global__ void __launch_bounds__(Gemm::kThreads)
                        bf16* __restrict__ dz, int M, int inner, int dim,
                        float inv_keep, uint32_t keep_q, uint64_t seed) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int lda = dim + kPad;
+  const int dim_k = static_cast<int>(round_up(dim, kBK));
+  const int lda = dim_k + kPad;
   bf16* A = reinterpret_cast<bf16*>(smem);
   void* scratch =
       smem + round_up(static_cast<size_t>(kBM) * lda * sizeof(bf16), 128);
@@ -36,16 +38,17 @@ __global__ void __launch_bounds__(Gemm::kThreads)
   dropout_rows<kBM, Gemm::kThreads>(dy, A, lda,
                                     blockIdx.y == 0 ? dz : nullptr, row0, M,
                                     dim, inv_keep, keep_q, seed);
+  zero_cols<Gemm::kThreads>(A, lda, kBM, dim, dim_k);
 
   const float* C = reinterpret_cast<const float*>(scratch);
   const int n_begin = blockIdx.y * kChunk;
   const int n_end = min(n_begin + kChunk, inner);
   for (int n0 = n_begin; n0 < n_end; n0 += kBN) {
-    Gemm::run(A, lda, w, inner, n0, dim, scratch);
+    Gemm::run(A, lda, w, inner, n0, dim, scratch, inner);
     for (int e = threadIdx.x; e < kBM * kBN / 8; e += Gemm::kThreads) {
       const int r = e / (kBN / 8), c = (e % (kBN / 8)) * 8;
       const int row = row0 + r;
-      if (row >= M) continue;
+      if (row >= M || n0 + c >= inner) continue;
       *reinterpret_cast<uint4*>(dattn + static_cast<size_t>(row) * inner +
                                 n0 + c) = pack8(C + r * Gemm::LDC + c);
     }
@@ -53,7 +56,8 @@ __global__ void __launch_bounds__(Gemm::kThreads)
 }
 
 size_t smem_bytes(int dim) {
-  return round_up(static_cast<size_t>(kBM) * (dim + kPad) * sizeof(bf16),
+  return round_up(static_cast<size_t>(kBM) * (round_up(dim, kBK) + kPad) *
+                      sizeof(bf16),
                   128) +
          Gemm::kScratchBytes;
 }
@@ -62,14 +66,14 @@ size_t smem_bytes(int dim) {
 }  // namespace nvt
 
 // dy [M, dim], w [dim, inner] bf16; dattn [M, inner], dz [M, dim] bf16.
-// dim % 32 == 0, inner % 128 == 0. keep_q 0 = no dropout.
+// dim % 16 == 0, inner % 16 == 0. keep_q 0 = no dropout.
 extern "C" int nvt_fused_outproj_bwd(const void* dy, const void* w,
                                      void* dattn, void* dz, int M, int inner,
                                      int dim, float inv_keep, int keep_q,
                                      uint64_t seed, void* stream) {
   using namespace nvt;
-  if (M < 1 || dim % kBK != 0 || inner % kBN != 0 || keep_q < 0 ||
-      keep_q > 255)
+  if (M < 1 || dim < 16 || dim % 16 != 0 || inner < 16 || inner % 16 != 0 ||
+      keep_q < 0 || keep_q > 255)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(dim);
   cudaError_t err = allow_smem(outproj_bwd_kernel, smem);

@@ -17,7 +17,9 @@
 // block computes the LN statistics of its 64 rows in f32 once and stages u
 // as bf16 in shared memory: the rounding point fused_qkv.py:62-63 fixes.
 // Grid: (ceil(M/64), 3), blockIdx.y picks q, k or v; each block loops over
-// that output's 128-column tiles. In training the blocks of blockIdx.y == 0
+// that output's 128-column tiles. Widths are multiples of 16: u's columns
+// past dim are zeroed up to the k tile, Wqkv rows past the output's own
+// inner rows are zero-filled, and the last column tile is masked. In training the blocks of blockIdx.y == 0
 // also copy u to u_out [M, dim] (fused_qkv.py:57-68): the operand of the
 // dWqkv product. Serving passes null and pays nothing for it.
 #include "common.cuh"
@@ -35,13 +37,15 @@ __global__ void __launch_bounds__(Gemm::kThreads)
                   bf16* __restrict__ v, bf16* __restrict__ u_out, int M,
                   int dim, int inner, float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int ldu = dim + kPad;
+  const int dim_k = static_cast<int>(round_up(dim, kBK));
+  const int ldu = dim_k + kPad;
   bf16* U = reinterpret_cast<bf16*>(smem);
   void* scratch = smem + round_up(static_cast<size_t>(kBM) * ldu * sizeof(bf16), 128);
 
   const int row0 = blockIdx.x * kBM;
   layer_norm_rows<kBM, Gemm::kThreads>(x, gamma, beta, U, ldu, row0, M, dim,
                                        eps);
+  zero_cols<Gemm::kThreads>(U, ldu, kBM, dim, dim_k);
   const int which = blockIdx.y;
   if (u_out != nullptr && which == 0) {
     __syncthreads();
@@ -56,11 +60,12 @@ __global__ void __launch_bounds__(Gemm::kThreads)
   bf16* out = which == 0 ? q : (which == 1 ? k : v);
   const float* C = reinterpret_cast<const float*>(scratch);
   for (int c0 = 0; c0 < inner; c0 += kBN) {
-    Gemm::run(U, ldu, w, dim, which * inner + c0, dim, scratch);
+    Gemm::run(U, ldu, w, dim, which * inner + c0, dim, scratch,
+              (which + 1) * inner);
     for (int e = threadIdx.x; e < kBM * kBN / 8; e += Gemm::kThreads) {
       const int r = e / (kBN / 8), c = (e % (kBN / 8)) * 8;
       const int row = row0 + r;
-      if (row >= M) continue;
+      if (row >= M || c0 + c >= inner) continue;
       *reinterpret_cast<uint4*>(out + static_cast<size_t>(row) * inner + c0 +
                                 c) = pack8(C + r * Gemm::LDC + c);
     }
@@ -68,7 +73,9 @@ __global__ void __launch_bounds__(Gemm::kThreads)
 }
 
 size_t smem_bytes(int dim) {
-  return round_up(static_cast<size_t>(kBM) * (dim + kPad) * sizeof(bf16), 128) +
+  return round_up(static_cast<size_t>(kBM) * (round_up(dim, kBK) + kPad) *
+                      sizeof(bf16),
+                  128) +
          Gemm::kScratchBytes;
 }
 
@@ -77,13 +84,13 @@ size_t smem_bytes(int dim) {
 
 // x [M, dim] bf16; gamma, beta [dim] f32; w [3*inner, dim] bf16;
 // q, k, v [M, inner] bf16; u [M, dim] bf16 or null.
-// dim % 32 == 0, inner % 128 == 0.
+// dim % 16 == 0, inner % 16 == 0.
 extern "C" int nvt_fused_ln_qkv_fwd(const void* x, const void* gamma,
                                     const void* beta, const void* w, void* q,
                                     void* k, void* v, void* u, int M, int dim,
                                     int inner, float eps, void* stream) {
   using namespace nvt;
-  if (M < 1 || dim % kBK != 0 || inner % kBN != 0)
+  if (M < 1 || dim < 16 || dim % 16 != 0 || inner < 16 || inner % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(dim);
   cudaError_t err = allow_smem(ln_qkv_kernel, smem);

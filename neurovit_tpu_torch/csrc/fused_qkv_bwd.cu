@@ -10,8 +10,9 @@
 // What bounds it on the H100: 2 * M * 3 * inner * dim flops for du, on the
 // tensor cores through nvt::TileGemm in its [K, N] mode (Wqkv [3*inner,
 // dim] is the torch weight, read with no transpose). A 32-row block keeps
-// [dq | dk | dv] resident in shared memory (98 KB at inner 512) and streams
-// Wqkv from L2; du goes to device memory as f32, then the row kernel of
+// [dq | dk | dv] resident in shared memory (98 KB at inner 512; 2048
+// columns at a time past that) and streams Wqkv from L2; du goes to device
+// memory as f32, then the row kernel of
 // backward.cuh takes the LayerNorm backward and the dgamma / dbeta
 // partials, summed over row blocks in a fixed order. Launches: du GEMM
 // (grid ceil(M/32) x ceil(dim/512)), LN rows (ceil(M/32)), two column sums.
@@ -20,7 +21,7 @@
 // dq, dk, dv [M, inner], x [M, dim], w [3*inner, dim] bf16; gamma [dim] f32;
 // du [M, dim] f32 scratch; part_g, part_b [ceil(M/32), dim] f32 scratch;
 // dx [M, dim] bf16; dgamma, dbeta [dim] f32.
-// inner % 128 == 0, dim % 256 == 0, dim <= 1024.
+// inner % 16 == 0, dim % 16 == 0, dim <= 1024.
 extern "C" int nvt_fused_ln_qkv_bwd(const void* dq, const void* dk,
                                     const void* dv, const void* x,
                                     const void* gamma, const void* w,
@@ -29,7 +30,7 @@ extern "C" int nvt_fused_ln_qkv_bwd(const void* dq, const void* dk,
                                     int M, int dim, int inner, float eps,
                                     void* stream) {
   using namespace nvt;
-  if (M < 1 || inner % 128 != 0 || !ln_dim_ok(dim))
+  if (M < 1 || inner < 16 || inner % 16 != 0 || !ln_dim_ok(dim))
     return static_cast<int>(cudaErrorInvalidValue);
   const int K = 3 * inner;
   const size_t smem = du_gemm_smem(K);

@@ -60,27 +60,30 @@ __device__ __forceinline__ uint2 pack_codes(const int* c) {
 
 // Quantize the BM rows row0 .. row0 + BM - 1 of x [M, dim] (bf16) per row
 // into A8 (chunked, BM rows) and s_row[BM]: one warp per row, the row held
-// in registers (dim % 256 == 0, dim <= 1024), so amax is known before any
-// code is written. With LN, the row is first u = LN(x) * gamma + beta in
-// f32 with the JAX kernels' order of operations (int8_serving.py:122-127,
-// 158-159): mean, mean of squared deviations, rsqrt(var + eps), xhat *
-// gamma + beta -- and, unlike the bf16 kernels, u is not rounded to bf16.
-// Rows at or past M get zero codes.
+// in registers (lane l holds columns 256 g + 8 l .. + 7; dim % 8 == 0,
+// dim <= 1024), so amax is known before any code is written. The amax and
+// the LayerNorm statistics are over the dim real columns; the codes of the
+// columns dim .. width - 1 (the GEMM's k tile, width % 8 == 0) are 0. With
+// LN, the row is first u = LN(x) * gamma + beta in f32 with the JAX
+// kernels' order of operations (int8_serving.py:122-127, 158-159): mean,
+// mean of squared deviations, rsqrt(var + eps), xhat * gamma + beta -- and,
+// unlike the bf16 kernels, u is not rounded to bf16. Rows at or past M get
+// zero codes.
 template <int BM, int THREADS, bool LN>
 __device__ void rowquant_rows(const bf16* __restrict__ x,
                               const float* __restrict__ gamma,
                               const float* __restrict__ beta, int8_t* A8,
                               float* s_row, int row0, int M, int dim,
-                              float eps) {
+                              int width, float eps) {
   constexpr int kMaxGroups = 4;  // 4 x 256 columns
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int groups = dim / 256;
+  // Group g of this lane holds real columns.
+  auto in_row = [&](int g) { return g * 256 + lane * 8 < dim; };
   for (int r = warp; r < BM; r += THREADS / 32) {
     const int row = row0 + r;
+    for (int c = (row >= M ? 0 : dim) + lane * 8; c < width; c += 256)
+      *reinterpret_cast<uint2*>(A8 + chunked(r, c, BM)) = make_uint2(0u, 0u);
     if (row >= M) {
-      for (int g = 0; g < groups; ++g)
-        *reinterpret_cast<uint2*>(A8 + chunked(r, g * 256 + lane * 8, BM)) =
-            make_uint2(0u, 0u);
       if (lane == 0) s_row[r] = 1.f;
       continue;
     }
@@ -90,7 +93,7 @@ __device__ void rowquant_rows(const bf16* __restrict__ x,
     float u[kMaxGroups][8] = {};
 #pragma unroll
     for (int g = 0; g < kMaxGroups; ++g) {
-      if (g < groups) {
+      if (in_row(g)) {
         unpack8(*reinterpret_cast<const uint4*>(xrow + g * 256 + lane * 8),
                 u[g]);
       }
@@ -106,7 +109,7 @@ __device__ void rowquant_rows(const bf16* __restrict__ x,
       float ss = 0.f;
 #pragma unroll
       for (int g = 0; g < kMaxGroups; ++g) {
-        if (g < groups) {
+        if (in_row(g)) {
 #pragma unroll
           for (int i = 0; i < 8; ++i) {
             const float d = u[g][i] - mean;
@@ -117,7 +120,7 @@ __device__ void rowquant_rows(const bf16* __restrict__ x,
       const float rstd = rsqrtf(warp_sum(ss) / dim + eps);
 #pragma unroll
       for (int g = 0; g < kMaxGroups; ++g) {
-        if (g < groups) {
+        if (in_row(g)) {
 #pragma unroll
           for (int i = 0; i < 8; ++i) {
             const int c = g * 256 + lane * 8 + i;
@@ -130,7 +133,7 @@ __device__ void rowquant_rows(const bf16* __restrict__ x,
     float amax = 0.f;
 #pragma unroll
     for (int g = 0; g < kMaxGroups; ++g) {
-      if (g < groups) {
+      if (in_row(g)) {
 #pragma unroll
         for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(u[g][i]));
       }
@@ -138,7 +141,7 @@ __device__ void rowquant_rows(const bf16* __restrict__ x,
     const float scale = quant_scale(warp_max(amax));
 #pragma unroll
     for (int g = 0; g < kMaxGroups; ++g) {
-      if (g < groups) {
+      if (in_row(g)) {
         int codes[8];
 #pragma unroll
         for (int i = 0; i < 8; ++i)
@@ -163,9 +166,13 @@ __device__ void rowquant_rows(const bf16* __restrict__ x,
 // tiles (signed char, int accumulator) run on sm_72 and later: the simple
 // first version, as TileGemm's bf16 tiles are.
 //
-// Contract: K % BK == 0, the W rows n0 .. n0 + BN exist, W and scratch are
-// 16-byte aligned and K is a multiple of 16 bytes. All threads of the block
-// call run() together.
+// Ragged shapes: the k loop runs ceil(K / BK) steps and W bytes at k >= K
+// or rows n >= n_end are zero-filled, so C's columns past n_end are 0 and
+// the caller masks them; A8's codes at k in K .. round_up(K, BK) must be 0
+// (rowquant_rows writes them).
+//
+// Contract: K % 16 == 0, W and scratch are 16-byte aligned. All threads of
+// the block call run() together.
 template <int BM, int BN, int BK, int WARPS_M, int WARPS_N>
 struct TileGemmI8 {
   static constexpr int kThreads = WARPS_M * WARPS_N * 32;
@@ -181,18 +188,33 @@ struct TileGemmI8 {
       kRingBytes > kCBytes ? kRingBytes : kCBytes;
   static_assert(WM % 16 == 0 && WN % 16 == 0 && BK % 16 == 0, "tile shape");
 
+  template <bool kMask>
   __device__ static void load_w(int8_t* stage, const int8_t* __restrict__ W,
-                                int ldw, int n0, int k0) {
+                                int ldw, int n0, int k0, int K, int n_end) {
     constexpr int kChunks = BN * BK / 16;
     for (int c = threadIdx.x; c < kChunks; c += kThreads) {
       const int r = c / (BK / 16), kc = c % (BK / 16);
+      const bool ok = !kMask || (n0 + r < n_end && k0 + kc * 16 < K);
       cp_async16(stage + (kc * BN + r) * 16,
-                 W + static_cast<size_t>(n0 + r) * ldw + k0 + kc * 16, 16);
+                 ok ? W + static_cast<size_t>(n0 + r) * ldw + k0 + kc * 16 : W,
+                 ok ? 16 : 0);
     }
   }
 
+  // Only a ragged tile takes the masked loads (as TileGemm).
   __device__ static void run(const int8_t* A8, const int8_t* __restrict__ W,
-                             int ldw, int n0, int K, void* scratch) {
+                             int ldw, int n0, int K, void* scratch,
+                             int n_end = 1 << 30) {
+    if (K % BK == 0 && n0 + BN <= n_end)
+      run_tiles<false>(A8, W, ldw, n0, K, scratch, n_end);
+    else
+      run_tiles<true>(A8, W, ldw, n0, K, scratch, n_end);
+  }
+
+  template <bool kMask>
+  __device__ static void run_tiles(const int8_t* A8,
+                                   const int8_t* __restrict__ W, int ldw,
+                                   int n0, int K, void* scratch, int n_end) {
     int8_t* ring = reinterpret_cast<int8_t*>(scratch);
     int* C = reinterpret_cast<int*>(scratch);
     const int warp = threadIdx.x / 32;
@@ -207,12 +229,13 @@ struct TileGemmI8 {
     // The caller's previous epilogue may still read C (= the ring), and
     // its prologue may still write A8.
     __syncthreads();
-    const int KT = K / BK;
-    load_w(ring, W, ldw, n0, 0);
+    const int KT = (K + BK - 1) / BK;
+    load_w<kMask>(ring, W, ldw, n0, 0, K, n_end);
     cp_async_commit();
     for (int kt = 0; kt < KT; ++kt) {
       if (kt + 1 < KT) {
-        load_w(ring + ((kt + 1) & 1) * kStage, W, ldw, n0, (kt + 1) * BK);
+        load_w<kMask>(ring + ((kt + 1) & 1) * kStage, W, ldw, n0,
+                      (kt + 1) * BK, K, n_end);
         cp_async_commit();
         cp_async_wait<1>();
       } else {

@@ -27,7 +27,11 @@
 // where u's codes were, and runs GEMM2 from there. The round trip costs 8
 // bytes per hidden element against the 2*dim int8 operations that made
 // it; a second pass over GEMM1 for the amax alone would cost 50 % more
-// operations instead. Grid: ceil(M/32) blocks of eight warps.
+// operations instead. Grid: ceil(M/32) blocks of eight warps. Widths are
+// multiples of 16 (dim <= 1024; hid has no bound but shared memory's, 32 x
+// hid bytes of codes: ViT-L's 4096 takes 146 KB in all): codes past dim and
+// hid are 0 up to the k tile, and the last column tile of each GEMM is
+// masked.
 #include "int8.cuh"
 
 namespace nvt {
@@ -48,7 +52,9 @@ __global__ void __launch_bounds__(Gemm::kThreads)
                     float* __restrict__ gbuf, int M, int dim, int hid,
                     float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int width = dim > hid ? dim : hid;
+  const int dim_k = static_cast<int>(round_up(dim, kBK));
+  const int hid_k = static_cast<int>(round_up(hid, kBK));
+  const int width = dim_k > hid_k ? dim_k : hid_k;
   const size_t q_bytes = round_up(static_cast<size_t>(kBM) * width, 128);
   // Q8 holds u's codes for GEMM1, then g's codes for GEMM2.
   int8_t* Q8 = reinterpret_cast<int8_t*>(smem);
@@ -61,15 +67,15 @@ __global__ void __launch_bounds__(Gemm::kThreads)
   const int row0 = blockIdx.x * kBM;
   if (threadIdx.x < kBM) amax_bits[threadIdx.x] = 0;
   rowquant_rows<kBM, Gemm::kThreads, true>(x, gamma, beta, Q8, s1_row, row0,
-                                           M, dim, eps);
+                                           M, dim, dim_k, eps);
 
   // g = GELU(h), tile by tile, to gbuf; its per-row amax into amax_bits.
   for (int n0 = 0; n0 < hid; n0 += kBN) {
-    Gemm::run(Q8, w1, dim, n0, dim, scratch);
+    Gemm::run(Q8, w1, dim, n0, dim, scratch, hid);
     for (int e = threadIdx.x; e < kBM * kBN / 8; e += Gemm::kThreads) {
       const int r = e / (kBN / 8), c = (e % (kBN / 8)) * 8;
       const int row = row0 + r;
-      if (row >= M) continue;
+      if (row >= M || n0 + c >= hid) continue;
       float g[8];
       float m = 0.f;
 #pragma unroll
@@ -96,9 +102,9 @@ __global__ void __launch_bounds__(Gemm::kThreads)
     const int row = row0 + r;
     const float scale = quant_scale(__int_as_float(amax_bits[r]));
     if (lane == 0) s2_row[r] = scale;
-    for (int c = lane * 8; c < hid; c += 256) {
+    for (int c = lane * 8; c < hid_k; c += 256) {
       int codes[8] = {};
-      if (row < M) {
+      if (row < M && c < hid) {
         const float4* src = reinterpret_cast<const float4*>(
             gbuf + static_cast<size_t>(row) * hid + c);
         const float4 lo = src[0], hi = src[1];
@@ -112,11 +118,11 @@ __global__ void __launch_bounds__(Gemm::kThreads)
 
   // y = bf16(x + (g8 . W2^T) * s2_row * s2_col + b2).
   for (int n0 = 0; n0 < dim; n0 += kBN) {
-    Gemm::run(Q8, w2, hid, n0, hid, scratch);
+    Gemm::run(Q8, w2, hid, n0, hid, scratch, dim);
     for (int e = threadIdx.x; e < kBM * kBN / 8; e += Gemm::kThreads) {
       const int r = e / (kBN / 8), c = (e % (kBN / 8)) * 8;
       const int row = row0 + r;
-      if (row >= M) continue;
+      if (row >= M || n0 + c >= dim) continue;
       const size_t off = static_cast<size_t>(row) * dim + n0 + c;
       float xf[8], out[8];
       unpack8(*reinterpret_cast<const uint4*>(x + off), xf);
@@ -133,7 +139,7 @@ __global__ void __launch_bounds__(Gemm::kThreads)
 }
 
 size_t smem_bytes(int dim, int hid) {
-  const int width = dim > hid ? dim : hid;
+  const int width = static_cast<int>(round_up(dim > hid ? dim : hid, kBK));
   return round_up(static_cast<size_t>(kBM) * width, 128) +
          round_up(3 * kBM * sizeof(float), 128) + Gemm::kScratchBytes;
 }
@@ -143,7 +149,7 @@ size_t smem_bytes(int dim, int hid) {
 
 // x [M, dim] bf16; gamma, beta [dim] f32; w1 [hid, dim] int8; s1, b1 [hid]
 // f32; w2 [dim, hid] int8; s2, b2 [dim] f32; y [M, dim] bf16; gbuf [M, hid]
-// f32 scratch. dim % 256 == 0, dim <= 1024, hid % 128 == 0; the codes of a
+// f32 scratch. dim % 16 == 0, dim <= 1024, hid % 16 == 0; the codes of a
 // 32-row block must fit in shared memory (the launch fails with
 // cudaErrorInvalidValue when they do not).
 extern "C" int nvt_int8_mlp(const void* x, const void* gamma, const void* beta,
@@ -152,7 +158,8 @@ extern "C" int nvt_int8_mlp(const void* x, const void* gamma, const void* beta,
                             void* y, void* gbuf, int M, int dim, int hid,
                             float eps, void* stream) {
   using namespace nvt;
-  if (M < 1 || dim % 256 != 0 || dim > 1024 || hid % kBN != 0)
+  if (M < 1 || dim < 16 || dim % 16 != 0 || dim > 1024 || hid < 16 ||
+      hid % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(dim, hid);
   cudaError_t err = allow_smem(int8_mlp_kernel, smem);

@@ -20,7 +20,9 @@
 // (32 floats), so LN, amax, scale and the int8 codes are all made there
 // and only the codes (64 x dim bytes) reach shared memory.
 // Grid: (ceil(M/64), 3), blockIdx.y picks q, k or v, as K2's does; each
-// block loops over that output's 128-column tiles.
+// block loops over that output's 128-column tiles. Widths are multiples of
+// 16 (dim <= 1024): u's codes past dim are 0 up to the k tile, and the last
+// column tile is masked.
 #include "int8.cuh"
 
 namespace nvt {
@@ -37,24 +39,25 @@ __global__ void __launch_bounds__(Gemm::kThreads)
                     bf16* __restrict__ k, bf16* __restrict__ v, int M, int dim,
                     int inner, float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const size_t a_bytes = round_up(static_cast<size_t>(kBM) * dim, 128);
+  const int dim_k = static_cast<int>(round_up(dim, kBK));
+  const size_t a_bytes = round_up(static_cast<size_t>(kBM) * dim_k, 128);
   int8_t* A8 = reinterpret_cast<int8_t*>(smem);
   float* s_row = reinterpret_cast<float*>(smem + a_bytes);
   void* scratch = smem + a_bytes + round_up(kBM * sizeof(float), 128);
 
   const int row0 = blockIdx.x * kBM;
   rowquant_rows<kBM, Gemm::kThreads, true>(x, gamma, beta, A8, s_row, row0,
-                                           M, dim, eps);
+                                           M, dim, dim_k, eps);
   const int which = blockIdx.y;
   bf16* out = which == 0 ? q : (which == 1 ? k : v);
   const int* C = reinterpret_cast<const int*>(scratch);
   for (int c0 = 0; c0 < inner; c0 += kBN) {
     const int n0 = which * inner + c0;
-    Gemm::run(A8, w8, dim, n0, dim, scratch);
+    Gemm::run(A8, w8, dim, n0, dim, scratch, (which + 1) * inner);
     for (int e = threadIdx.x; e < kBM * kBN / 8; e += Gemm::kThreads) {
       const int r = e / (kBN / 8), c = (e % (kBN / 8)) * 8;
       const int row = row0 + r;
-      if (row >= M) continue;
+      if (row >= M || c0 + c >= inner) continue;
       float f[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i)
@@ -66,7 +69,7 @@ __global__ void __launch_bounds__(Gemm::kThreads)
 }
 
 size_t smem_bytes(int dim) {
-  return round_up(static_cast<size_t>(kBM) * dim, 128) +
+  return round_up(static_cast<size_t>(kBM) * round_up(dim, kBK), 128) +
          round_up(kBM * sizeof(float), 128) + Gemm::kScratchBytes;
 }
 
@@ -74,15 +77,16 @@ size_t smem_bytes(int dim) {
 }  // namespace nvt
 
 // x [M, dim] bf16; gamma, beta [dim] f32; w8 [3*inner, dim] int8; s_col
-// [3*inner] f32; q, k, v [M, inner] bf16. dim % 256 == 0, dim <= 1024,
-// inner % 128 == 0.
+// [3*inner] f32; q, k, v [M, inner] bf16. dim % 16 == 0, dim <= 1024,
+// inner % 16 == 0.
 extern "C" int nvt_int8_ln_qkv(const void* x, const void* gamma,
                                const void* beta, const void* w8,
                                const void* s_col, void* q, void* k, void* v,
                                int M, int dim, int inner, float eps,
                                void* stream) {
   using namespace nvt;
-  if (M < 1 || dim % 256 != 0 || dim > 1024 || inner % kBN != 0)
+  if (M < 1 || dim < 16 || dim % 16 != 0 || dim > 1024 || inner < 16 ||
+      inner % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(dim);
   cudaError_t err = allow_smem(int8_qkv_kernel, smem);

@@ -84,6 +84,22 @@ from neurovit_tpu_torch.ops.int8_serving import (int8_flash_attention,
                                                  int8_outproj_residual,
                                                  quantize_weight)
 
+# The block widths the kernels are held to against their plain versions on
+# the card (chip_smoke.py, tests/test_torch_cuda.py): name -> (dim, heads,
+# dim_head, mlp_dim). The verify recipe's smoke model, head dims 32, 80
+# (zero-padded to the 128 instance) and 128, the ViT-S/B/L widths (DeiT-S,
+# ViT-B/16 and ViT-L/16) and the flagship.
+WIDTHS = {
+    "smoke": (64, 4, 16, 128),
+    "hd32": (256, 8, 32, 512),
+    "vit_s": (384, 6, 64, 1536),
+    "vit_b": (768, 12, 64, 3072),
+    "vit_l": (1024, 16, 64, 4096),
+    "hd128": (1024, 8, 128, 2048),
+    "hd80": (320, 4, 80, 640),
+    "flagship": (1024, 8, 64, 2048),
+}
+
 SERVING_ONLY = "int8-quantized blocks are serving-only (train=False)"
 PROBE_INT8 = ("the Grad-CAM probe needs the bf16 weights — int8-quantized "
               "params are serving-only")

@@ -13,7 +13,60 @@ from neurovit_tpu_torch.ops import _build
 VOID = ctypes.c_void_p
 INT = ctypes.c_int
 FLOAT = ctypes.c_float
+U32 = ctypes.c_uint
+I64 = ctypes.c_longlong
 U64 = ctypes.c_uint64
+
+# Dynamic shared memory one block may opt into on the H100 (sm_90): 227 KB.
+SMEM_LIMIT = 232448
+# Where the shape limits that remain are queued.
+SHAPE_QUEUE = "ROADMAP.md, Queue 3"
+# Every width a kernel takes is a multiple of this: rows of bf16 and int8
+# operands start on 16-byte boundaries for the vector and cp.async loads,
+# and wmma's k step is 16.
+WIDTH_MULTIPLE = 16
+
+
+def round_up(x: int, to: int) -> int:
+    return (x + to - 1) // to * to
+
+
+def check_widths(what: str, max_width=None, **widths: int) -> None:
+    """Raise unless every named width is a positive multiple of 16 (and at
+    most ``max_width``): the shapes the kernel ``what`` takes."""
+    for name, w in widths.items():
+        if w < WIDTH_MULTIPLE or w % WIDTH_MULTIPLE:
+            raise ValueError(
+                f"the {what} kernel takes {name} as a multiple of "
+                f"{WIDTH_MULTIPLE} (16-byte rows, wmma's k = 16), got {w} "
+                f"({SHAPE_QUEUE})")
+        if max_width is not None and w > max_width:
+            raise ValueError(
+                f"the {what} kernel takes {name} <= {max_width} (a row sits "
+                f"in one warp's registers), got {w} ({SHAPE_QUEUE})")
+
+
+def check_smem(what: str, nbytes: int) -> None:
+    """Raise before a launch that would ask for more shared memory than a
+    block may have."""
+    if nbytes > SMEM_LIMIT:
+        raise ValueError(
+            f"the {what} kernel would need {nbytes} bytes of shared memory "
+            f"per block at these widths; a block may have {SMEM_LIMIT} "
+            f"({SHAPE_QUEUE})")
+
+
+def gemm_scratch_bytes(rows: int) -> int:
+    """Bytes of a TileGemm's scratch at 128 output columns: its f32 product
+    tile [rows, 128 + 4], which the (smaller, at 64 rows) W ring shares."""
+    return rows * 132 * 4
+
+
+def gemm_tile_bytes(rows: int, width: int, k_tile: int = 32) -> int:
+    """Bytes of a [rows, width] bf16 GEMM operand resident in shared memory,
+    as the kernels lay it out: width rounded up to the k tile, 8 elements of
+    row padding, the block rounded up to 128 bytes."""
+    return round_up(rows * (round_up(width, k_tile) + 8) * 2, 128)
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:

@@ -30,6 +30,14 @@ CPU tensors run the ``*_plain`` functions; CUDA tensors run the kernels in
 ``csrc/flash_attention.cu`` (K1, K6) and ``csrc/flash_attention_bwd.cu``
 (K5, K6's backward), each layout a template instance with its own launch
 symbol and its own launch count.
+
+Head dims: the kernels are instances for D in :data:`HEAD_DIMS` (16, 32,
+64, 128). Any other D from 8 to 128 is zero-padded along D to the next
+instance and the result sliced back (:func:`pad_head_dim`): zero columns
+add nothing to q . k or dO . v, and the columns of o, dq, dk and dv they
+produce are dropped. D < 8 takes the plain attention on every device, by
+shape alone, where JAX leaves Pallas for its dense XLA path
+(flash_attention.py:517-520); D > 128 is refused.
 """
 
 from __future__ import annotations
@@ -37,15 +45,47 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from neurovit_tpu_torch import nn
-from neurovit_tpu_torch.ops.common import (FLOAT, INT, U64, VOID,
+from neurovit_tpu_torch.ops.common import (FLOAT, INT, SHAPE_QUEUE, U64, VOID,
                                            check_operand, dropout_args,
                                            is_training, launch, on_cpu, ptr)
 
 LOG2E = 1.4426950408889634
 SCORE_CAP = 96.0
 LAYOUTS = ("bnhd", "bhnd")
+# The kernels' head-dim instances; below MIN_KERNEL_HEAD_DIM the plain
+# attention runs on every device.
+HEAD_DIMS = (16, 32, 64, 128)
+MIN_KERNEL_HEAD_DIM = 8
+
+
+def kernel_head_dim(d: int) -> int:
+    """The kernel instance a head dim ``d`` runs in: the smallest of
+    :data:`HEAD_DIMS` that holds it. Raises for d < 8 (the plain attention's
+    shapes) and d > 128."""
+    if d < MIN_KERNEL_HEAD_DIM:
+        raise ValueError(f"head dim {d} < {MIN_KERNEL_HEAD_DIM} runs the plain "
+                         "attention, not a kernel")
+    if d > HEAD_DIMS[-1]:
+        raise ValueError(f"the attention kernels take head dim <= "
+                         f"{HEAD_DIMS[-1]}, got {d} ({SHAPE_QUEUE})")
+    return next(h for h in HEAD_DIMS if h >= d)
+
+
+def pad_head_dim(t: torch.Tensor, d: int) -> torch.Tensor:
+    """``t`` zero-padded along its last dim to ``d`` (itself if already d
+    wide), contiguous."""
+    pad = d - t.shape[-1]
+    return F.pad(t, (0, pad)) if pad else t
+
+
+def uses_kernel(q: torch.Tensor, *tensors: torch.Tensor) -> bool:
+    """The dispatch rule of the attention ops: the kernel for CUDA operands
+    of head dim >= 8, the plain version for CPU operands and, on every
+    device, for head dim < 8."""
+    return not on_cpu(q, *tensors) and q.shape[-1] >= MIN_KERNEL_HEAD_DIM
 
 
 def _to_bhnd(t: torch.Tensor, layout: str) -> torch.Tensor:
@@ -164,45 +204,50 @@ def flash_attention_bhnd_bwd_plain(q, k, v, o, do, lsum, *, scale: float,
                       dropout_rate=dropout_rate, seed=seed, layout="bhnd")
 
 
-def _check_qkv(q, k, v):
+def _check_qkv(q, k, v) -> int:
+    """Check the operands of a launch; returns the kernel's head dim."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_operand(name, t, torch.bfloat16, q.shape)
-    if q.shape[3] != 64:
-        raise ValueError(f"the attention kernel takes head dim 64, got "
-                         f"{q.shape[3]}")
+    return kernel_head_dim(q.shape[3])
 
 
 def _fwd_cuda(symbol, layout, q, k, v, *, scale, n_valid, dropout_rate, seed,
               return_stats):
-    _check_qkv(q, k, v)
+    d_kernel = _check_qkv(q, k, v)
     b, n, h, d = _dims(q, layout)
     n_valid = _n_valid(q, n_valid, layout)
     inv_keep, keep_q = dropout_args(dropout_rate)
+    q, k, v = (pad_head_dim(t, d_kernel) for t in (q, k, v))
     o = torch.empty_like(q)
     lsum = (torch.empty((b, h, n), dtype=torch.float32, device=q.device)
             if return_stats else None)
     launch(symbol, (VOID,) * 4 + (INT,) * 5 + (FLOAT, FLOAT, INT, U64, VOID),
-           q, ptr(q), ptr(k), ptr(v), ptr(o), b, n, h, d, n_valid,
+           q, ptr(q), ptr(k), ptr(v), ptr(o), b, n, h, d_kernel, n_valid,
            float(scale * LOG2E), 1.0 / inv_keep, keep_q, int(seed), ptr(lsum))
+    if d_kernel != d:
+        o = o[..., :d].contiguous()
     return (o, lsum) if return_stats else o
 
 
 def _bwd_cuda(symbol, layout, q, k, v, o, do, lsum, *, scale, n_valid,
               dropout_rate, seed):
-    _check_qkv(q, k, v)
+    d_kernel = _check_qkv(q, k, v)
     b, n, h, d = _dims(q, layout)
     check_operand("o", o, torch.bfloat16, q.shape)
     check_operand("do", do, torch.bfloat16, q.shape)
     check_operand("lsum", lsum, torch.float32, (b, h, n))
     inv_keep, keep_q = dropout_args(dropout_rate)
     keep = 1.0 / inv_keep
+    q, k, v, o, do = (pad_head_dim(t, d_kernel) for t in (q, k, v, o, do))
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     launch(symbol, (VOID,) * 10 + (INT,) * 5 + (FLOAT,) * 4 + (INT, U64), q,
            ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lsum), ptr(delta),
-           ptr(dq), ptr(dk), ptr(dv), b, n, h, d, int(n_valid),
+           ptr(dq), ptr(dk), ptr(dv), b, n, h, d_kernel, int(n_valid),
            float(scale * LOG2E), float(scale / keep), keep, inv_keep, keep_q,
            int(seed))
+    if d_kernel != d:
+        dq, dk, dv = (t[..., :d].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
 
 
@@ -210,7 +255,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, scale: float, n_valid: Optional[int] = None,
                          dropout_rate: float = 0.0, seed: int = 0,
                          return_stats: bool = False):
-    """Launch the Hopper kernel K1: bf16 [B, N, H, 64], contiguous."""
+    """Launch the Hopper kernel K1: bf16 [B, N, H, D], contiguous, 8 <= D
+    <= 128."""
     out = _fwd_cuda("nvt_flash_attention_fwd", "bnhd", q, k, v, scale=scale,
                     n_valid=n_valid, dropout_rate=dropout_rate, seed=seed,
                     return_stats=return_stats)
@@ -225,7 +271,7 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lsum, *, scale: float,
                              n_valid: int, dropout_rate: float = 0.0,
                              seed: int = 0):
     """Launch the Hopper kernel K5 (two passes: dQ with delta, then dK and
-    dV); returns dq, dk, dv [B, N, H, 64] bf16."""
+    dV); returns dq, dk, dv [B, N, H, D] bf16."""
     out = _bwd_cuda("nvt_flash_attention_bwd", "bnhd", q, k, v, o, do, lsum,
                     scale=scale, n_valid=n_valid, dropout_rate=dropout_rate,
                     seed=seed)
@@ -241,8 +287,8 @@ def flash_attention_bhnd_cuda(q: torch.Tensor, k: torch.Tensor,
                               n_valid: Optional[int] = None,
                               dropout_rate: float = 0.0, seed: int = 0,
                               return_stats: bool = False):
-    """Launch the Hopper kernel K6: bf16 [B, H, N, 64], contiguous, read and
-    written in place (no transpose to bnhd)."""
+    """Launch the Hopper kernel K6: bf16 [B, H, N, D], contiguous, 8 <= D
+    <= 128, read and written in place (no transpose to bnhd)."""
     out = _fwd_cuda("nvt_flash_attention_bhnd_fwd", "bhnd", q, k, v,
                     scale=scale, n_valid=n_valid, dropout_rate=dropout_rate,
                     seed=seed, return_stats=return_stats)
@@ -257,7 +303,7 @@ def flash_attention_bhnd_bwd_cuda(q, k, v, o, do, lsum, *, scale: float,
                                   n_valid: int, dropout_rate: float = 0.0,
                                   seed: int = 0):
     """Launch K6's backward (K5's two passes in the bhnd layout); returns
-    dq, dk, dv [B, H, N, 64] bf16."""
+    dq, dk, dv [B, H, N, D] bf16."""
     out = _bwd_cuda("nvt_flash_attention_bhnd_bwd", "bhnd", q, k, v, o, do,
                     lsum, scale=scale, n_valid=n_valid,
                     dropout_rate=dropout_rate, seed=seed)
@@ -285,7 +331,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, scale, n_valid, dropout_rate, seed, layout):
-        fwd = _IMPLS[layout][0][0 if on_cpu(q, k, v) else 1]
+        fwd = _IMPLS[layout][0][uses_kernel(q, k, v)]
         o, lsum = fwd(q, k, v, scale=scale, n_valid=n_valid,
                       dropout_rate=dropout_rate, seed=seed, return_stats=True)
         ctx.save_for_backward(q, k, v, o, lsum)
@@ -297,7 +343,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lsum = ctx.saved_tensors
-        bwd = _IMPLS[ctx.layout][1][0 if on_cpu(q, do) else 1]
+        bwd = _IMPLS[ctx.layout][1][uses_kernel(q, do)]
         dq, dk, dv = bwd(q, k, v, o, do.contiguous(), lsum, **ctx.args)
         return dq, dk, dv, None, None, None, None, None
 
@@ -311,13 +357,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     layout; keys at or past ``n_valid`` (default N) get zero weight;
     probabilities dropped at ``dropout_rate`` with the site key ``seed``.
     Differentiable when an input requires grad. CPU tensors take the plain
-    version, CUDA tensors the kernels."""
+    version, CUDA tensors the kernels (head dim < 8: the plain version on
+    either device)."""
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
     n_valid = _n_valid(q, n_valid, layout)
     if is_training(q, k, v):
         return FlashAttention.apply(q, k, v, scale, n_valid,
                                     float(dropout_rate), int(seed), layout)
-    fn = _IMPLS[layout][0][0 if on_cpu(q, k, v) else 1]
+    fn = _IMPLS[layout][0][uses_kernel(q, k, v)]
     return fn(q, k, v, scale=scale, n_valid=n_valid,
               dropout_rate=dropout_rate, seed=seed)

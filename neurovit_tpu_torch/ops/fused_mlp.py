@@ -18,7 +18,11 @@ and dgamma / dbeta. dW1 = dh^T u, dW2 = dz^T a and the bias gradients are
 plain matmuls and sums outside, as in JAX.
 
 CPU tensors run the ``*_plain`` functions; CUDA tensors run
-``csrc/fused_mlp.cu`` (K4) and ``csrc/fused_mlp_bwd.cu`` (K9).
+``csrc/fused_mlp.cu`` (K4) and ``csrc/fused_mlp_bwd.cu`` (K9). The kernels
+take dim and mlp_dim as multiples of 16, and K9 dim <= 1024. K4 keeps u and
+g of its rows in shared memory: 32 rows a block where they fit (the
+flagship), else 16 (ViT-B, ViT-L), else the shape is refused
+(:func:`smem_plan`).
 """
 
 from __future__ import annotations
@@ -28,13 +32,49 @@ from typing import Tuple
 import torch
 
 from neurovit_tpu_torch import nn
-from neurovit_tpu_torch.ops.common import (FLOAT, INT, U64, VOID,
-                                           check_operand, dropout_args,
+from neurovit_tpu_torch.ops.common import (FLOAT, INT, SHAPE_QUEUE,
+                                           SMEM_LIMIT, U64, VOID,
+                                           check_operand, check_widths,
+                                           dropout_args, gemm_tile_bytes,
                                            is_training, launch, on_cpu, ptr,
                                            weight_grad)
-from neurovit_tpu_torch.ops.fused_qkv import ln_backward_plain
+from neurovit_tpu_torch.ops.fused_qkv import LN_BWD_MAX_DIM, ln_backward_plain
 
 Seeds = Tuple[int, int]
+# K4's rows per block, the first whose shared memory fits.
+MLP_ROWS = (32, 16)
+# K4's W tile ring (2 stages of 128 x 40 bf16), which also holds the
+# [rows, 132] f32 product tile.
+MLP_SCRATCH_BYTES = 20480
+
+
+def smem_bytes(rows: int, dim: int, hid: int) -> int:
+    """K4's shared memory at ``rows`` rows a block: u [rows, dim] and g
+    [rows, hid] bf16, and the GEMM scratch (csrc/fused_mlp.cu,
+    nvt_fused_mlp_smem_bytes)."""
+    return (gemm_tile_bytes(rows, dim) + gemm_tile_bytes(rows, hid)
+            + MLP_SCRATCH_BYTES)
+
+
+def smem_plan(dim: int, hid: int) -> Tuple[int, int]:
+    """(rows a block, shared-memory bytes) of K4 at (dim, hid): 32 rows
+    where they fit in a block's shared memory, else 16. Raises, with the
+    byte count, where neither fits, or for widths K4 does not take."""
+    check_widths("MLP", dim=dim, mlp_dim=hid)
+    for rows in MLP_ROWS:
+        nbytes = smem_bytes(rows, dim, hid)
+        if nbytes <= SMEM_LIMIT:
+            return rows, nbytes
+    raise ValueError(
+        f"the MLP kernel keeps u and g of {MLP_ROWS[-1]} rows in shared "
+        f"memory: {smem_bytes(MLP_ROWS[-1], dim, hid)} bytes at dim {dim}, "
+        f"mlp_dim {hid}; a block may have {SMEM_LIMIT} ({SHAPE_QUEUE})")
+
+
+def check_bwd_shapes(dim: int, hid: int) -> None:
+    """Raise unless K9 takes these widths: multiples of 16, dim <= 1024."""
+    check_widths("MLP backward", mlp_dim=hid)
+    check_widths("MLP backward", max_width=LN_BWD_MAX_DIM, dim=dim)
 
 
 def fused_mlp_block_plain(x: torch.Tensor, gamma: torch.Tensor,
@@ -101,9 +141,6 @@ def _operands(x, w1, w2, **vectors):
     for name, t in vectors.items():
         vecs[name] = t.float().contiguous()
         check_operand(name, vecs[name], torch.float32, (sizes[name],))
-    if dim % 128 or hid % 128:
-        raise ValueError(f"the MLP kernel takes dim % 128 == 0 and "
-                         f"mlp_dim % 128 == 0, got {dim}, {hid}")
     return w1b, w2b, vecs
 
 
@@ -116,14 +153,15 @@ def fused_mlp_block_cuda(x: torch.Tensor, gamma: torch.Tensor,
     b, n, dim = x.shape
     hid = w1.shape[0]
     w1b, w2b, vecs = _operands(x, w1, w2, gamma=gamma, beta=beta, b1=b1, b2=b2)
+    rows, _ = smem_plan(dim, hid)
     inv_keep, keep_q = dropout_args(dropout_rate)
     y = torch.empty_like(x)
     h = x.new_empty(b, n, hid) if return_h else None
     launch("nvt_fused_mlp_fwd",
-           (VOID,) * 9 + (INT, INT, INT, FLOAT, FLOAT, INT, U64, U64), x,
+           (VOID,) * 9 + (INT,) * 4 + (FLOAT, FLOAT, INT, U64, U64), x,
            ptr(x), ptr(vecs["gamma"]), ptr(vecs["beta"]), ptr(w1b),
            ptr(vecs["b1"]), ptr(w2b), ptr(vecs["b2"]), ptr(y), ptr(h), b * n,
-           dim, hid, nn.LN_EPS, inv_keep, keep_q, int(seeds[0]),
+           dim, hid, rows, nn.LN_EPS, inv_keep, keep_q, int(seeds[0]),
            int(seeds[1]))
     fused_mlp_block_cuda.launches += 1
     return (y, h) if return_h else y
@@ -142,9 +180,7 @@ def fused_mlp_bwd_cuda(dy, x, h, gamma, beta, w1, w2, *,
     w1b, w2b, vecs = _operands(x, w1, w2, gamma=gamma, beta=beta)
     check_operand("dy", dy, torch.bfloat16, (b, n, dim))
     check_operand("h", h, torch.bfloat16, (b, n, hid))
-    if dim % 256 or dim > 1024:
-        raise ValueError(f"the MLP backward takes dim % 256 == 0 and "
-                         f"dim <= 1024, got {dim}")
+    check_bwd_shapes(dim, hid)
     inv_keep, keep_q = dropout_args(dropout_rate)
     dx, u, dz = (torch.empty_like(x) for _ in range(3))
     a, dh = (x.new_empty(m, hid) for _ in range(2))

@@ -13,7 +13,8 @@ The backward (:class:`FusedOutproj`) regenerates the mask: dz = dy * mask
 db = sum(dz) outside it, as in JAX.
 
 CPU tensors run the ``*_plain`` functions; CUDA tensors run
-``csrc/fused_outproj.cu`` (K3) and ``csrc/fused_outproj_bwd.cu`` (K8).
+``csrc/fused_outproj.cu`` (K3) and ``csrc/fused_outproj_bwd.cu`` (K8). The
+kernels take inner and dim as multiples of 16.
 """
 
 from __future__ import annotations
@@ -22,9 +23,21 @@ import torch
 
 from neurovit_tpu_torch import nn
 from neurovit_tpu_torch.ops.common import (FLOAT, INT, U64, VOID,
-                                           check_operand, dropout_args,
-                                           is_training, launch, on_cpu, ptr,
-                                           weight_grad)
+                                           check_operand, check_smem,
+                                           check_widths, dropout_args,
+                                           gemm_scratch_bytes,
+                                           gemm_tile_bytes, is_training,
+                                           launch, on_cpu, ptr, weight_grad)
+
+
+def check_shapes(dim: int, inner: int) -> None:
+    """Raise unless K3 and K8 take the attention width inner and the model
+    width dim: multiples of 16, with a 64-row block of a (K3) or of dz (K8)
+    beside the GEMM tiles in shared memory."""
+    check_widths("out-projection", inner=inner, dim=dim)
+    for what, k in (("out-projection", inner),
+                    ("out-projection backward", dim)):
+        check_smem(what, gemm_tile_bytes(64, k) + gemm_scratch_bytes(64))
 
 
 def fused_outproj_residual_plain(x: torch.Tensor, attn: torch.Tensor,
@@ -65,9 +78,7 @@ def fused_outproj_residual_cuda(x: torch.Tensor, attn: torch.Tensor,
     bias = b_out.float().contiguous()
     check_operand("w_out", w, torch.bfloat16, (dim, inner))
     check_operand("b_out", bias, torch.float32, (dim,))
-    if inner % 32 or dim % 512:
-        raise ValueError(f"the out-projection kernel takes inner % 32 == 0 "
-                         f"and dim % 512 == 0, got {inner}, {dim}")
+    check_shapes(dim, inner)
     inv_keep, keep_q = dropout_args(dropout_rate)
     y = torch.empty_like(x)
     launch("nvt_fused_outproj_fwd",
@@ -89,9 +100,7 @@ def fused_outproj_bwd_cuda(dy: torch.Tensor, w_out: torch.Tensor, *,
     check_operand("dy", dy, torch.bfloat16)
     w = w_out.to(torch.bfloat16).contiguous()
     check_operand("w_out", w, torch.bfloat16, (dim, inner))
-    if dim % 32 or inner % 128:
-        raise ValueError(f"the out-projection backward takes dim % 32 == 0 "
-                         f"and inner % 128 == 0, got {dim}, {inner}")
+    check_shapes(dim, inner)
     inv_keep, keep_q = dropout_args(dropout_rate)
     dattn = dy.new_empty(b, n, inner)
     dz = torch.empty_like(dy)

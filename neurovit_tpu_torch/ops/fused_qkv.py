@@ -14,7 +14,9 @@ the backward (:class:`FusedLnQkv`) computes du = [dq | dk | dv] Wqkv and
 the LayerNorm backward (dx, dgamma, dbeta).
 
 CPU tensors run the ``*_plain`` functions; CUDA tensors run
-``csrc/fused_qkv.cu`` (K2) and ``csrc/fused_qkv_bwd.cu`` (K7).
+``csrc/fused_qkv.cu`` (K2) and ``csrc/fused_qkv_bwd.cu`` (K7). The kernels
+take dim and heads * dim_head as multiples of 16, and K7 dim <= 1024 (the
+LayerNorm backward holds a row in one warp's registers).
 """
 
 from __future__ import annotations
@@ -25,8 +27,27 @@ import torch
 
 from neurovit_tpu_torch import nn
 from neurovit_tpu_torch.ops.common import (FLOAT, INT, VOID, check_operand,
-                                           is_training, launch, on_cpu, ptr,
-                                           weight_grad)
+                                           check_smem, check_widths,
+                                           gemm_scratch_bytes,
+                                           gemm_tile_bytes, is_training,
+                                           launch, on_cpu, ptr, weight_grad)
+
+# The LayerNorm backward rows (csrc/backward.cuh) sit in a warp's registers.
+LN_BWD_MAX_DIM = 1024
+
+
+def check_fwd_shapes(dim: int, inner: int) -> None:
+    """Raise unless K2 takes x [*, dim] and heads * dim_head = inner: both
+    multiples of 16, and u's [64, dim] block beside the GEMM tiles fits in
+    shared memory."""
+    check_widths("LN+QKV", dim=dim, inner=inner)
+    check_smem("LN+QKV", gemm_tile_bytes(64, dim) + gemm_scratch_bytes(64))
+
+
+def check_bwd_shapes(dim: int, inner: int) -> None:
+    """Raise unless K7 takes these widths: multiples of 16, dim <= 1024."""
+    check_widths("LN+QKV backward", inner=inner)
+    check_widths("LN+QKV backward", max_width=LN_BWD_MAX_DIM, dim=dim)
 
 QKV = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -86,9 +107,6 @@ def _operands(x, w_qkv, heads, dim_head, **vectors):
     for name, t in vectors.items():
         vecs[name] = t.float().contiguous()
         check_operand(name, vecs[name], torch.float32, (dim,))
-    if dim % 32 or inner % 128:
-        raise ValueError(f"the LN+QKV kernel takes dim % 32 == 0 and "
-                         f"heads * dim_head % 128 == 0, got {dim}, {inner}")
     return w, vecs
 
 
@@ -99,6 +117,7 @@ def fused_ln_qkv_cuda(x: torch.Tensor, gamma: torch.Tensor,
     to bf16 and the LN affine to f32, as the JAX op casts them."""
     b, n, dim = x.shape
     w, vecs = _operands(x, w_qkv, heads, dim_head, gamma=gamma, beta=beta)
+    check_fwd_shapes(dim, heads * dim_head)
     q, k, v = (x.new_empty(b, n, heads, dim_head) for _ in range(3))
     u = torch.empty_like(x) if return_u else None
     launch("nvt_fused_ln_qkv_fwd",
@@ -121,9 +140,7 @@ def fused_ln_qkv_bwd_cuda(dq, dk, dv, x, gamma, w_qkv):
     w, vecs = _operands(x, w_qkv, heads, dim_head, gamma=gamma)
     for name, t in (("dq", dq), ("dk", dk), ("dv", dv)):
         check_operand(name, t, torch.bfloat16, (b, n, heads, dim_head))
-    if dim % 256 or dim > 1024:
-        raise ValueError(f"the LN+QKV backward takes dim % 256 == 0 and "
-                         f"dim <= 1024, got {dim}")
+    check_bwd_shapes(dim, inner)
     m = b * n
     f32 = dict(dtype=torch.float32, device=x.device)
     du = torch.empty((m, dim), **f32)

@@ -28,7 +28,10 @@ path on CUDA); the int32 -> f32 conversion then rounds as the kernels'.
 SERVING-ONLY, as in JAX: there is no backward and no dropout. CPU tensors
 run the plain versions; CUDA tensors run ``csrc/int8_qkv.cu``,
 ``csrc/int8_outproj.cu``, ``csrc/int8_mlp.cu`` and
-``csrc/int8_attention.cu``.
+``csrc/int8_attention.cu``. The kernels take widths that are multiples of
+16; a row they quantize (K10's dim, K11's inner, K12's dim) is at most 1024
+wide, held in one warp's registers; K13 takes K1's head dims (8 to 128,
+zero-padded to an instance).
 """
 
 from __future__ import annotations
@@ -39,10 +42,14 @@ import torch
 
 from neurovit_tpu_torch import nn
 from neurovit_tpu_torch.ops.common import (FLOAT, INT, VOID, check_operand,
-                                           launch, on_cpu, ptr)
-from neurovit_tpu_torch.ops.flash_attention import (LOG2E, _check_qkv,
-                                                    _n_valid, _probs,
-                                                    flash_attention)
+                                           check_smem, check_widths,
+                                           gemm_scratch_bytes, launch,
+                                           on_cpu, ptr, round_up)
+from neurovit_tpu_torch.ops.flash_attention import (LOG2E,
+                                                    MIN_KERNEL_HEAD_DIM,
+                                                    _check_qkv, _n_valid,
+                                                    _probs, flash_attention,
+                                                    pad_head_dim)
 
 # Above this sequence length, or below head dim 8, int8_flash_attention
 # takes the bf16 attention (int8_serving.py:343-347: MAX_RESIDENT_N).
@@ -164,11 +171,29 @@ def _vectors(**named) -> dict:
     return out
 
 
-def _rows_fit(what: str, width: int) -> None:
-    """The row quantizers hold a row in one warp's registers."""
-    if width % 256 or width > 1024:
-        raise ValueError(f"the {what} kernel quantizes rows of width % 256 "
-                         f"== 0 and <= 1024, got {width}")
+# The row quantizers hold a row in one warp's registers.
+MAX_ROW = 1024
+
+
+def check_qkv_shapes(dim: int, inner: int) -> None:
+    """Raise unless K10 takes x [*, dim] and heads * dim_head = inner."""
+    check_widths("int8 LN+QKV", max_width=MAX_ROW, dim=dim)
+    check_widths("int8 LN+QKV", inner=inner)
+
+
+def check_outproj_shapes(dim: int, inner: int) -> None:
+    """Raise unless K11 takes a [*, inner] and x [*, dim]."""
+    check_widths("int8 out-projection", max_width=MAX_ROW, inner=inner)
+    check_widths("int8 out-projection", dim=dim)
+
+
+def check_mlp_shapes(dim: int, hid: int) -> None:
+    """Raise unless K12 takes x [*, dim] and mlp_dim hid: its codes of 32
+    rows x max(dim, hid) sit beside its GEMM tiles in shared memory."""
+    check_widths("int8 MLP", max_width=MAX_ROW, dim=dim)
+    check_widths("int8 MLP", mlp_dim=hid)
+    check_smem("int8 MLP", round_up(32 * round_up(max(dim, hid), 64), 128)
+               + 384 + gemm_scratch_bytes(32))
 
 
 def int8_ln_qkv_cuda(x: torch.Tensor, gamma: torch.Tensor,
@@ -181,10 +206,7 @@ def int8_ln_qkv_cuda(x: torch.Tensor, gamma: torch.Tensor,
     check_operand("w8", w8, torch.int8, (3 * inner, dim))
     vecs = _vectors(gamma=(gamma, dim), beta=(beta, dim),
                     scale=(scale, 3 * inner))
-    _rows_fit("int8 LN+QKV", dim)
-    if inner % 128:
-        raise ValueError(f"the int8 LN+QKV kernel takes heads * dim_head % "
-                         f"128 == 0, got {inner}")
+    check_qkv_shapes(dim, inner)
     q, k, v = (x.new_empty(b, n, heads, dim_head) for _ in range(3))
     launch("nvt_int8_ln_qkv", (VOID,) * 8 + (INT, INT, INT, FLOAT), x,
            ptr(x), ptr(vecs["gamma"]), ptr(vecs["beta"]), ptr(w8),
@@ -207,10 +229,7 @@ def int8_outproj_residual_cuda(x: torch.Tensor, a: torch.Tensor,
     check_operand("a", a, torch.bfloat16, (b, n, inner))
     check_operand("w8", w8, torch.int8, (dim, inner))
     vecs = _vectors(scale=(scale, dim), bias=(bias, dim))
-    _rows_fit("int8 out-projection", inner)
-    if dim % 512:
-        raise ValueError(f"the int8 out-projection kernel takes dim % 512 "
-                         f"== 0, got {dim}")
+    check_outproj_shapes(dim, inner)
     y = torch.empty_like(x)
     launch("nvt_int8_outproj", (VOID,) * 6 + (INT,) * 3, x, ptr(a), ptr(x),
            ptr(w8), ptr(vecs["scale"]), ptr(vecs["bias"]), ptr(y), b * n,
@@ -235,10 +254,7 @@ def int8_mlp_block_cuda(x: torch.Tensor, gamma: torch.Tensor,
     check_operand("w2", w2, torch.int8, (dim, hid))
     vecs = _vectors(gamma=(gamma, dim), beta=(beta, dim), s1=(s1, hid),
                     b1=(b1, hid), s2=(s2, dim), b2=(b2, dim))
-    _rows_fit("int8 MLP", dim)
-    if hid % 128:
-        raise ValueError(f"the int8 MLP kernel takes mlp_dim % 128 == 0, "
-                         f"got {hid}")
+    check_mlp_shapes(dim, hid)
     y = torch.empty_like(x)
     gbuf = torch.empty((b * n, hid), dtype=torch.float32, device=x.device)
     launch("nvt_int8_mlp", (VOID,) * 11 + (INT, INT, INT, FLOAT), x,
@@ -256,19 +272,23 @@ def int8_flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, scale: float,
                               n_valid: Optional[int] = None) -> torch.Tensor:
     """Launch the Hopper kernel K13 (V's quantization prologue, then the
-    two-sweep attention): bf16 [B, N, H, 64], contiguous."""
-    _check_qkv(q, k, v)
+    two-sweep attention): bf16 [B, N, H, D], contiguous, 8 <= D <= 128 (zero
+    columns to K1's next instance: their codes are 0 and they are sliced
+    off)."""
+    d_kernel = _check_qkv(q, k, v)
     b, n, h, d = q.shape
     n_valid = _n_valid(q, n_valid)
     n_pad = (n + 63) // 64 * 64
+    q, k, v = (pad_head_dim(t, d_kernel) for t in (q, k, v))
     o = torch.empty_like(q)
-    v8 = torch.empty((b * h, n_pad, d), dtype=torch.int8, device=q.device)
-    s_v = torch.empty((b * h, d), dtype=torch.float32, device=q.device)
+    v8 = torch.empty((b * h, n_pad, d_kernel), dtype=torch.int8,
+                     device=q.device)
+    s_v = torch.empty((b * h, d_kernel), dtype=torch.float32, device=q.device)
     launch("nvt_int8_attention", (VOID,) * 6 + (INT,) * 5 + (FLOAT,), q,
-           ptr(q), ptr(k), ptr(v), ptr(o), ptr(v8), ptr(s_v), b, n, h, d,
-           n_valid, float(scale * LOG2E))
+           ptr(q), ptr(k), ptr(v), ptr(o), ptr(v8), ptr(s_v), b, n, h,
+           d_kernel, n_valid, float(scale * LOG2E))
     int8_flash_attention_cuda.launches += 1
-    return o
+    return o[..., :d].contiguous() if d_kernel != d else o
 
 
 int8_flash_attention_cuda.launches = 0
@@ -316,7 +336,7 @@ def int8_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (int8_serving.py:343-347), N > 4096 or D < 8 takes the bf16
     :func:`flash_attention` (K1) instead."""
     b, n, h, d = q.shape
-    if n > MAX_RESIDENT_N or d < 8:
+    if n > MAX_RESIDENT_N or d < MIN_KERNEL_HEAD_DIM:
         return flash_attention(q, k, v, scale=scale, n_valid=n_valid)
     fn = (int8_flash_attention_plain if on_cpu(q, k, v)
           else int8_flash_attention_cuda)

@@ -58,7 +58,14 @@ SEED_HIGH = 2 ** 63 - 1
 
 
 def check_supported(config: Dict[str, Any], device: torch.device) -> None:
-    """Raise for the training options the port does not run yet."""
+    """Raise for the training options the port does not run yet, and for
+    values the JAX trainer rejects."""
+    # As neurovit_tpu/training/trainer.py:109-112, in 3D too; "int8" acts
+    # only on a 4D model, which NeuroEncoder refuses until the 4D slice.
+    quant4d = config.get("TRAINING_4D_ENCODER_QUANT")
+    if quant4d not in (None, "", "none", "int8"):
+        raise ValueError(f"unknown TRAINING_4D_ENCODER_QUANT {quant4d!r} "
+                         "(supported: 'int8')")
     if config.get("TRAINING_4D_FEATURE_CACHE", False):
         raise not_ported("the 4D feature cache", "4D")
     if (int(config.get("MESH_MODEL_AXIS", 1)) > 1

@@ -1,0 +1,164 @@
+"""Kernel times of two checkouts of the port on one card, taken in turns.
+
+Both checkouts' kernel libraries are built (each under its own ``build/``)
+and loaded into one process. For every flagship block kernel whose C entry
+point the two share, this checkout's Python wrapper is called on the same
+operands (``chip_smoke.py``'s kernel-phase shapes: batch 8 x 1001 tokens,
+dim 1024, 8 heads of 64, MLP 2048; the ResNet pool at [8, 90, 45, 45, 64]),
+with the library behind it switched between the two in the order other,
+this, this, other, ``--rounds`` times; each turn is the median of 10
+CUDA-event timings after 2 warm-up launches. Printed per kernel: the
+median over each checkout's turns, their ratio, and the spread of the
+other checkout's own turns (the distance between its quartiles, as a
+share of its median), with the card's name and power limit. K4 is left
+out: its entry point takes a rows-a-block argument since the width repair
+(ops/fused_mlp.py, smem_plan), so the two libraries are not called alike.
+
+    python scripts/torch_kernel_ab.py --other <checkout> [--rounds 10]
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, HERE)
+
+import chip_smoke as cs  # noqa: E402
+from neurovit_tpu_torch.ops import _build  # noqa: E402
+from neurovit_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from neurovit_tpu_torch.ops import (fused_mlp, fused_outproj,  # noqa: E402
+                                    fused_qkv, int8_serving, maxpool3d)
+
+
+def other_library(tree: str) -> str:
+    """Build the other checkout's kernels in its own tree; their path."""
+    out = subprocess.run(
+        [sys.executable, "-c", "from neurovit_tpu_torch.ops import _build; "
+         "print(_build.build())"], cwd=tree,
+        env={**os.environ, "PYTHONPATH": tree}, capture_output=True,
+        text=True, check=True)
+    return out.stdout.strip().splitlines()[-1]
+
+
+def cases() -> dict:
+    """name -> (C entry point, call) at the kernel phase's shapes."""
+    b, n, dim, h, d, hid = cs.B, cs.N, cs.DIM, cs.HEADS, cs.DIM_HEAD, cs.MLP
+    rng = np.random.default_rng(cs.SEED)
+
+    def t(*shape, scale=1.0, dtype=torch.bfloat16, offset=0.0):
+        a = offset + scale * rng.standard_normal(shape)
+        return torch.tensor(a, dtype=dtype, device="cuda")
+
+    def w(out_f, in_f):
+        a = rng.uniform(-1, 1, (out_f, in_f)) / in_f ** 0.5
+        return torch.tensor(a, dtype=torch.float32, device="cuda")
+
+    x, qkv, do = t(b, n, dim), [t(b, n, h, d) for _ in range(3)], t(b, n, h, d)
+    ln = (t(dim, scale=0.1, dtype=torch.float32, offset=1.0),
+          t(dim, scale=0.1, dtype=torch.float32))
+    wqkv, wout = w(3 * h * d, dim), w(dim, h * d)
+    w1, w2 = w(hid, dim), w(dim, hid)
+    bout, b1 = t(dim, scale=0.03, dtype=torch.float32), t(hid, scale=0.03,
+                                                          dtype=torch.float32)
+    b2, attn, dy = t(dim, scale=0.02, dtype=torch.float32), t(b, n, h * d), \
+        t(b, n, dim, scale=0.1)
+    bf = torch.bfloat16
+    att = {"scale": d ** -0.5, "n_valid": n, "dropout_rate": cs.DROPOUT,
+           "seed": 1234}
+    mdrop = {"dropout_rate": cs.DROPOUT, "seeds": (1235, 1236)}
+    o, lsum = fa.flash_attention_plain(*qkv, return_stats=True, **att)
+    _, hh = fused_mlp.fused_mlp_block_plain(x, *ln, w1.to(bf), b1, w2.to(bf),
+                                            b2, return_h=True, **mdrop)
+    tr = [a.transpose(1, 2).contiguous() for a in (*qkv, o, do)]
+    q8 = int8_serving
+    qkv8, out8 = q8.quantize_weight(wqkv), q8.quantize_weight(wout)
+    mlp8 = (*q8.quantize_weight(w1), b1, *q8.quantize_weight(w2), b2)
+    pool = t(*cs.POOL_SHAPE)
+    _, codes = maxpool3d.max_pool3d_argmax_plain(pool)
+    pool_g = t(b, *(maxpool3d.out_dim(s) for s in cs.POOL_SHAPE[1:4]),
+               cs.POOL_SHAPE[4])
+    return {
+        "flash_attention": ("nvt_flash_attention_fwd", lambda: (
+            fa.flash_attention_cuda(*qkv, scale=d ** -0.5, n_valid=n))),
+        "fused_ln_qkv": ("nvt_fused_ln_qkv_fwd", lambda: (
+            fused_qkv.fused_ln_qkv_cuda(x, *ln, wqkv.to(bf), h, d))),
+        "fused_outproj_residual": ("nvt_fused_outproj_fwd", lambda: (
+            fused_outproj.fused_outproj_residual_cuda(x, attn, wout.to(bf),
+                                                      bout))),
+        "flash_attention_bwd": ("nvt_flash_attention_bwd", lambda: (
+            fa.flash_attention_bwd_cuda(*qkv, o, do, lsum, **att))),
+        "flash_attention_bhnd": ("nvt_flash_attention_bhnd_fwd", lambda: (
+            fa.flash_attention_bhnd_cuda(*tr[:3], scale=d ** -0.5,
+                                         n_valid=n))),
+        "flash_attention_bhnd_bwd": ("nvt_flash_attention_bhnd_bwd", lambda: (
+            fa.flash_attention_bhnd_bwd_cuda(*tr, lsum, **att))),
+        "fused_ln_qkv_bwd": ("nvt_fused_ln_qkv_bwd", lambda: (
+            fused_qkv.fused_ln_qkv_bwd_cuda(*qkv, x, ln[0], wqkv.to(bf)))),
+        "fused_outproj_bwd": ("nvt_fused_outproj_bwd", lambda: (
+            fused_outproj.fused_outproj_bwd_cuda(dy, wout.to(bf),
+                                                 dropout_rate=cs.DROPOUT,
+                                                 seed=1234))),
+        "fused_mlp_bwd": ("nvt_fused_mlp_bwd", lambda: (
+            fused_mlp.fused_mlp_bwd_cuda(dy, x, hh, *ln, w1.to(bf),
+                                         w2.to(bf), **mdrop))),
+        "int8_ln_qkv": ("nvt_int8_ln_qkv", lambda: (
+            q8.int8_ln_qkv_cuda(x, *ln, *qkv8, h, d))),
+        "int8_outproj_residual": ("nvt_int8_outproj", lambda: (
+            q8.int8_outproj_residual_cuda(x, attn, *out8, bout))),
+        "int8_mlp_block": ("nvt_int8_mlp", lambda: (
+            q8.int8_mlp_block_cuda(x, *ln, *mlp8))),
+        "int8_flash_attention": ("nvt_int8_attention", lambda: (
+            q8.int8_flash_attention_cuda(*qkv, scale=d ** -0.5, n_valid=n))),
+        "max_pool3d_argmax": ("nvt_maxpool3d_fwd", lambda: (
+            maxpool3d.max_pool3d_argmax_cuda(pool))),
+        "max_pool3d_argmax_bwd": ("nvt_maxpool3d_bwd", lambda: (
+            maxpool3d.max_pool3d_argmax_bwd_cuda(codes, pool_g,
+                                                 cs.POOL_SHAPE, bf))),
+    }
+
+
+def use(lib: ctypes.CDLL) -> None:
+    """Route the wrappers' launches to ``lib``."""
+    _build._function.cache_clear()
+    _build.library = lambda: lib
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", required=True,
+                    help="root of the other checkout (e.g. the parent)")
+    ap.add_argument("--rounds", type=int, default=10)
+    args = ap.parse_args(argv)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    libs = {"other": ctypes.CDLL(other_library(os.path.abspath(args.other))),
+            "this": ctypes.CDLL(str(_build.build()))}
+    print(f"card: {cs.card_line()}; {args.rounds} rounds of other, this, "
+          f"this, other; each turn the median of 10 launches")
+    print(f"{'kernel':26s} {'other ms':>9s} {'this ms':>9s} {'ratio':>6s} "
+          f"{'other IQR':>9s}")
+    for name, (symbol, call) in cases().items():
+        if not hasattr(libs["other"], symbol):
+            print(f"{name:26s} no {symbol} in the other checkout")
+            continue
+        turns = {"other": [], "this": []}
+        for _ in range(args.rounds):
+            for side in ("other", "this", "this", "other"):
+                use(libs[side])
+                turns[side].append(cs.cuda_ms(call, warmup=2, runs=10))
+        a, b = (float(np.median(turns[s])) for s in ("other", "this"))
+        q1, q3 = np.percentile(turns["other"], [25, 75])
+        print(f"{name:26s} {a:9.4f} {b:9.4f} {b / a:6.3f} "
+              f"{(q3 - q1) / a:9.3f}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,8 +2,13 @@
 small and ragged shapes (the model's shapes are in chip_smoke.py): the
 forward kernels K1-K4 with and without dropout, the backward kernels K5,
 K7, K8 and K9, K6 (the [B, H, N, D] attention, forward and backward) and
-the Grad-CAM probe that runs it, the int8 serving kernels K10-K13, and
-the ResNet stem's max-pool K14 and its backward K15.
+the Grad-CAM probe that runs it, the int8 serving kernels K10-K13, the
+ResNet stem's max-pool K14 and its backward K15; K1-K13 at every ViT width
+of the matrix (``models/vit3d.py`` WIDTHS: head dims 16, 32, 64, 80 and
+128, the ViT-S/B/L widths), K4's shared-memory plan against the kernel's
+own count, head dim < 8 on the plain attention; and the probes' kernels,
+K16 (fused dropout, bit-equal forward and backward) and K17/K18 (the GEMM
+probes: int8 and K18 bit-equal, bf16 within K 2^-23 sum|a||b|).
 
 These need an NVIDIA GPU with sm_90a and nvcc; elsewhere they skip. Run on
 the card with:
@@ -314,14 +319,21 @@ def test_training_autograd_runs_the_kernels(cuda):
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
+    """An f32 activation, a head dim past the largest instance, and a width
+    that is not a multiple of 16; each refusal names ROADMAP.md, Queue 3."""
     x = torch.zeros(1, 4, 512, device=cuda)              # f32, not bf16
     with pytest.raises(TypeError):
         fused_outproj.fused_outproj_residual(
             x, torch.zeros(1, 4, 128, device=cuda),
             torch.zeros(512, 128, device=cuda), torch.zeros(512, device=cuda))
-    q = torch.zeros(1, 4, 2, 32, dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="head dim 64"):
+    q = torch.zeros(1, 4, 2, 256, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head dim <= 128.*Queue 3"):
         fa.flash_attention(q, q, q, scale=1.0)
+    x = torch.zeros(1, 4, 72, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16.*Queue 3"):
+        fused_qkv.fused_ln_qkv(x, torch.ones(72, device=cuda),
+                               torch.zeros(72, device=cuda),
+                               torch.zeros(96, 72, device=cuda), 2, 16)
 
 
 def _int8_weight(rng, out_f, in_f, device):
@@ -391,21 +403,21 @@ def test_int8_kernels_refuse_what_they_do_not_take(cuda):
         return torch.zeros(shape, dtype=dtype, device=cuda)
 
     bf, i8 = torch.bfloat16, torch.int8
-    with pytest.raises(ValueError, match="width % 256"):      # dim 128
-        int8_serving.int8_ln_qkv(zeros(1, 4, 128, dtype=bf), zeros(128),
-                                 zeros(128), zeros(384, 128, dtype=i8),
+    with pytest.raises(ValueError, match="multiple of 16"):   # dim 72
+        int8_serving.int8_ln_qkv(zeros(1, 4, 72, dtype=bf), zeros(72),
+                                 zeros(72), zeros(384, 72, dtype=i8),
                                  zeros(384), 2, 64)
-    with pytest.raises(ValueError, match="dim % 512"):        # dim 256
+    with pytest.raises(ValueError, match="inner <= 1024"):    # inner 1280
         int8_serving.int8_outproj_residual(
-            zeros(1, 4, 256, dtype=bf), zeros(1, 4, 256, dtype=bf),
-            zeros(256, 256, dtype=i8), zeros(256), zeros(256))
-    with pytest.raises(ValueError, match="width % 256"):      # dim 1280
+            zeros(1, 4, 256, dtype=bf), zeros(1, 4, 1280, dtype=bf),
+            zeros(256, 1280, dtype=i8), zeros(256), zeros(256))
+    with pytest.raises(ValueError, match="dim <= 1024"):      # dim 1280
         int8_serving.int8_mlp_block(
             zeros(1, 4, 1280, dtype=bf), zeros(1280), zeros(1280),
             zeros(256, 1280, dtype=i8), zeros(256), zeros(256),
             zeros(1280, 256, dtype=i8), zeros(1280), zeros(1280))
-    q = zeros(1, 4, 2, 32, dtype=bf)
-    with pytest.raises(ValueError, match="head dim 64"):
+    q = zeros(1, 4, 2, 256, dtype=bf)
+    with pytest.raises(ValueError, match="head dim <= 128"):
         int8_serving.int8_flash_attention(q, q, q, scale=1.0)
     with pytest.raises(TypeError):                            # f32 weight
         int8_serving.int8_outproj_residual(
@@ -489,3 +501,180 @@ def test_maxpool_autograd_and_resnet_forward_backward(cuda):
     plain = errs(grads[torch.bfloat16, "cpu"], f32)
     for stat in (np.max, np.median):
         assert stat(card) <= 1.5 * stat(plain) + 2e-2, (stat, card, plain)
+
+
+# ---------------------------------------------------------------------------
+# Every ViT width of the matrix (neurovit_tpu_torch.models.vit3d.WIDTHS)
+# through every block kernel, against the plain versions: one volume of 130
+# tokens (a ragged 64-row and 64-key edge), n_valid 97 for the attention.
+# ---------------------------------------------------------------------------
+
+def _block(rng, width, device, m=130):
+    from neurovit_tpu_torch.models.vit3d import WIDTHS
+    dim, heads, dh, hid = WIDTHS[width]
+    inner = heads * dh
+
+    def w(out_f, in_f):
+        return _rand(rng, (out_f, in_f), device, torch.float32, in_f ** -0.5)
+
+    return dict(
+        x=_rand(rng, (1, m, dim), device), heads=heads, dh=dh,
+        ln=(_rand(rng, (dim,), device, torch.float32, 0.1, 1.0),
+            _rand(rng, (dim,), device, torch.float32, 0.1)),
+        wqkv=w(3 * inner, dim), wout=w(dim, inner),
+        bout=_rand(rng, (dim,), device, torch.float32, 0.05),
+        attn=_rand(rng, (1, m, inner), device), w1=w(hid, dim),
+        b1=_rand(rng, (hid,), device, torch.float32, 0.05), w2=w(dim, hid),
+        b2=_rand(rng, (dim,), device, torch.float32, 0.05),
+        qkv=[_rand(rng, (1, m, heads, dh), device) for _ in range(3)],
+        dy=_rand(rng, (1, m, dim), device, scale=0.1))
+
+
+WIDTH_NAMES = ["smoke", "hd32", "vit_s", "vit_b", "vit_l", "hd128", "hd80",
+               "flagship"]
+
+
+@pytest.mark.parametrize("width", WIDTH_NAMES)
+def test_widths_bf16_kernels(cuda, width):
+    """K1-K9 and K6 at one width, with dropout 0.1 where the op has it."""
+    p = _block(np.random.default_rng(len(width)), width, cuda)
+    x, ln, heads, dh = p["x"], p["ln"], p["heads"], p["dh"]
+    wqkv = p["wqkv"].to(torch.bfloat16)
+    _check(fused_qkv.fused_ln_qkv_cuda(x, *ln, wqkv, heads, dh, return_u=True),
+           fused_qkv.fused_ln_qkv_plain(x, *ln, wqkv, heads, dh,
+                                        return_u=True))
+    dqkv = [t * 0.1 for t in p["qkv"]]
+    _check_grads(fused_qkv.fused_ln_qkv_bwd_cuda(*dqkv, x, ln[0], wqkv),
+                 fused_qkv.fused_ln_qkv_bwd_plain(*dqkv, x, ln[0], wqkv),
+                 params=(1, 2))
+    kw = {"scale": dh ** -0.5, "n_valid": 97, "dropout_rate": 0.1, "seed": 3}
+    q, k, v = p["qkv"]
+    o, lsum = fa.flash_attention_cuda(q, k, v, return_stats=True, **kw)
+    o_p, lsum_p = fa.flash_attention_plain(q, k, v, return_stats=True, **kw)
+    _check((o,), (o_p,))
+    do = p["qkv"][0].flip(1).contiguous()
+    _check_grads(fa.flash_attention_bwd_cuda(q, k, v, o_p, do, lsum_p, **kw),
+                 fa.flash_attention_bwd_plain(q, k, v, o_p, do, lsum_p, **kw))
+    qh, kh, vh, doh, oh = (t.transpose(1, 2).contiguous()
+                           for t in (q, k, v, do, o_p))
+    _check(fa.flash_attention_bhnd_cuda(qh, kh, vh, **kw),
+           fa.flash_attention_bhnd_plain(qh, kh, vh, **kw))
+    _check_grads(
+        fa.flash_attention_bhnd_bwd_cuda(qh, kh, vh, oh, doh, lsum_p, **kw),
+        fa.flash_attention_bhnd_bwd_plain(qh, kh, vh, oh, doh, lsum_p, **kw))
+    drop = {"dropout_rate": 0.1, "seed": 4}
+    out = (x, p["attn"], p["wout"].to(torch.bfloat16), p["bout"])
+    _check(fused_outproj.fused_outproj_residual_cuda(*out, **drop),
+           fused_outproj.fused_outproj_residual_plain(*out, **drop))
+    _check_grads(fused_outproj.fused_outproj_bwd_cuda(p["dy"], out[2], **drop),
+                 fused_outproj.fused_outproj_bwd_plain(p["dy"], out[2], **drop))
+    w1, w2 = p["w1"].to(torch.bfloat16), p["w2"].to(torch.bfloat16)
+    mlp = (x, *ln, w1, p["b1"], w2, p["b2"])
+    mkw = {"dropout_rate": 0.1, "seeds": (5, 6)}
+    _check(fused_mlp.fused_mlp_block_cuda(*mlp, return_h=True, **mkw),
+           fused_mlp.fused_mlp_block_plain(*mlp, return_h=True, **mkw))
+    _, h = fused_mlp.fused_mlp_block_plain(*mlp, return_h=True, **mkw)
+    got = fused_mlp.fused_mlp_bwd_cuda(p["dy"], x, h, *ln, w1, w2, **mkw)
+    want = fused_mlp.fused_mlp_bwd_plain(p["dy"], x, h, *ln, w1, w2, **mkw)
+    _check_grads([t.reshape(w.shape) for t, w in zip(got, want)], want,
+                 params=(5, 6))
+
+
+@pytest.mark.parametrize("width", WIDTH_NAMES)
+def test_widths_int8_kernels(cuda, width):
+    """K10-K13 at one width."""
+    p = _block(np.random.default_rng(len(width) + 50), width, cuda)
+    x, ln, heads, dh = p["x"], p["ln"], p["heads"], p["dh"]
+    q8 = int8_serving
+    qkv8 = q8.quantize_weight(p["wqkv"])
+    _check(q8.int8_ln_qkv_cuda(x, *ln, *qkv8, heads, dh),
+           q8.int8_ln_qkv_plain(x, *ln, *qkv8, heads, dh))
+    out8 = q8.quantize_weight(p["wout"])
+    _check(q8.int8_outproj_residual_cuda(x, p["attn"], *out8, p["bout"]),
+           q8.int8_outproj_residual_plain(x, p["attn"], *out8, p["bout"]))
+    mlp8 = (*q8.quantize_weight(p["w1"]), p["b1"],
+            *q8.quantize_weight(p["w2"]), p["b2"])
+    _check(q8.int8_mlp_block_cuda(x, *ln, *mlp8),
+           q8.int8_mlp_block_plain(x, *ln, *mlp8))
+    kw = {"scale": dh ** -0.5, "n_valid": 97}
+    _check(q8.int8_flash_attention_cuda(*p["qkv"], **kw),
+           q8.int8_flash_attention_plain(*p["qkv"], **kw))
+
+
+def test_mlp_smem_plan_matches_the_kernel(cuda):
+    """The wrapper's K4 plan (32 rows where they fit, else 16) counts the
+    bytes the kernel asks for, at every width of the matrix."""
+    import ctypes
+
+    from neurovit_tpu_torch.models.vit3d import WIDTHS
+    from neurovit_tpu_torch.ops import _build
+    fn = _build.library().nvt_fused_mlp_smem_bytes
+    fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 3
+    for dim, _, _, hid in WIDTHS.values():
+        rows, nbytes = fused_mlp.smem_plan(dim, hid)
+        assert fn(rows, dim, hid) == nbytes == fused_mlp.smem_bytes(rows, dim,
+                                                                   hid)
+
+
+def test_head_dim_below_8_runs_plain_on_the_card(cuda):
+    """Head dim < 8 (the 4D temporal layer's 1) takes the plain attention on
+    the card, chosen by shape, and launches no kernel."""
+    rng = np.random.default_rng(9)
+    q, k, v = (_rand(rng, (2, 7, 2, 1), cuda).requires_grad_()
+               for _ in range(3))
+    before = fa.flash_attention_cuda.launches
+    o = fa.flash_attention(q, k, v, scale=1.0, dropout_rate=0.1, seed=2)
+    o.float().sum().backward()
+    assert fa.flash_attention_cuda.launches == before
+    want = fa.flash_attention_plain(q.detach(), k.detach(), v.detach(),
+                                    scale=1.0, dropout_rate=0.1, seed=2)
+    assert torch.equal(o, want) and q.grad is not None
+
+
+# ---------------------------------------------------------------------------
+# K16-K18, the probes' kernels.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(7,), (3, 1001, 64), (1024, 2048)])
+def test_dropout_kernel_bit_equal(cuda, shape, dtype):
+    """K16 forward and backward equal the plain version bit for bit (the
+    same words, the same rounding)."""
+    from neurovit_tpu_torch.ops import dropout as dr
+    rng = np.random.default_rng(len(shape))
+    x = _rand(rng, shape, cuda, dtype).requires_grad_()
+    before = dr.dropout_cuda.launches
+    y = dr.dropout(x, 0.1, 1234)
+    g = _rand(rng, shape, cuda, dtype)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert dr.dropout_cuda.launches == before + 2
+    assert torch.equal(y, dr.dropout_plain(x.detach(), 0.1, 1234))
+    assert torch.equal(x.grad, dr.dropout_plain(g, 0.1, 1234))
+
+
+@pytest.mark.parametrize("m,k,n", [(512, 256, 256), (256, 1024, 64),
+                                   (144, 80, 48), (128, 64, 1024)])
+def test_gemm_kernels(cuda, m, k, n):
+    """K17 int8 and K18 bit-equal to their plain versions, K17 bf16 within
+    K 2^-23 sum|a||b| elementwise (f32 sums in another order)."""
+    from neurovit_tpu_torch.ops import int8_gemm as g
+    rng = np.random.default_rng(m + k + n)
+    a8 = torch.tensor(rng.integers(-127, 128, (m, k)), dtype=torch.int8,
+                      device=cuda)
+    b8 = torch.tensor(rng.integers(-127, 128, (k, n)), dtype=torch.int8,
+                      device=cuda)
+    sa = torch.tensor(rng.random(m) + 0.5, dtype=torch.float32, device=cuda)
+    sb = torch.tensor(rng.random(n) + 0.5, dtype=torch.float32, device=cuda)
+    before = (g.gemm_int8_cuda.launches, g.gemm_bf16_cuda.launches,
+              g.dynquant_matmul_cuda.launches)
+    assert torch.equal(g.blocked_matmul(a8, b8),
+                       g.blocked_matmul_plain(a8, b8))
+    assert torch.equal(g.dynquant_matmul(a8, b8, sa, sb),
+                       g.dynquant_matmul_plain(a8, b8, sa, sb))
+    a, b = _rand(rng, (m, k), cuda), _rand(rng, (k, n), cuda)
+    got, want = g.blocked_matmul(a, b), g.blocked_matmul_plain(a, b)
+    bound = k * 2.0 ** -23 * (a.float().abs() @ b.float().abs())
+    assert got.dtype == torch.float32 and ((got - want).abs() <= bound).all()
+    assert (g.gemm_int8_cuda.launches, g.gemm_bf16_cuda.launches,
+            g.dynquant_matmul_cuda.launches) == tuple(x + 1 for x in before)

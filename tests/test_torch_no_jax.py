@@ -10,10 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from neurovit_tpu_torch.ops import _build
+from neurovit_tpu_torch.ops import _build, dropout
 from neurovit_tpu_torch.ops import flash_attention as fa
 from neurovit_tpu_torch.ops import (fused_mlp, fused_outproj, fused_qkv,
-                                    int8_serving, maxpool3d)
+                                    int8_gemm, int8_serving, maxpool3d)
 
 torch.set_num_threads(1)
 
@@ -28,14 +28,18 @@ COUNTED = (fa.flash_attention_cuda, fused_qkv.fused_ln_qkv_cuda,
            int8_serving.int8_flash_attention_cuda,
            fa.flash_attention_bhnd_cuda, fa.flash_attention_bhnd_bwd_cuda,
            maxpool3d.max_pool3d_argmax_cuda,
-           maxpool3d.max_pool3d_argmax_bwd_cuda)
+           maxpool3d.max_pool3d_argmax_bwd_cuda, dropout.dropout_cuda,
+           int8_gemm.gemm_bf16_cuda, int8_gemm.gemm_int8_cuda,
+           int8_gemm.dynquant_matmul_cuda)
 
 
 def test_every_module_imports_with_jax_blocked():
     """With ``jax`` and ``neurovit_tpu`` both blocked: every module of the
     port imports, the config loads, the data layer batches the synthetic
-    cube dataset, and a small ResNet runs forward and backward; no module
-    of either was loaded."""
+    cube dataset, a small ResNet runs forward and backward, and the two
+    probe scripts (scripts/torch_dropout_bench.py and
+    scripts/torch_int8_gemm_bench.py) run their plain paths at a tiny size;
+    no module of either was loaded."""
     script = (
         "import importlib, pkgutil, sys\n"
         "sys.modules['jax'] = None\n"
@@ -67,6 +71,21 @@ def test_every_module_imports_with_jax_blocked():
         "assert 'neurovit_tpu_torch.ops.int8_serving' in names\n"
         "assert 'neurovit_tpu_torch.data.loader' in names\n"
         "assert 'neurovit_tpu_torch.explainability.driver_smri' in names\n"
+        "assert 'neurovit_tpu_torch.ops.dropout' in names\n"
+        "assert 'neurovit_tpu_torch.ops.int8_gemm' in names\n"
+        "import importlib.util\n"
+        "def script(name):\n"
+        "    spec = importlib.util.spec_from_file_location(\n"
+        "        name, f'scripts/{name}.py')\n"
+        "    mod = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(mod)\n"
+        "    return mod\n"
+        "res = script('torch_dropout_bench').run('cpu', rows=8, cols=16,\n"
+        "                                        iters=1)\n"
+        "assert 0 < res['keep fraction'] <= 1, res\n"
+        "gemm = script('torch_int8_gemm_bench')\n"
+        "row, = gemm.run('cpu', shapes=[('t', 32, 16, 48)], iters=1)\n"
+        "assert row['int_mm'] is None and 'dynquant' in gemm.line(row)\n"
         "print(len(names))\n")
     env = {**os.environ, "PYTHONPATH": REPO}
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
@@ -138,7 +157,15 @@ def test_cpu_path_launches_no_kernel():
     from neurovit_tpu_torch.explainability.gradcam_resnet import resnet_cam
     cam, _ = resnet_cam(resnet, rng.standard_normal((16, 16, 16)))
     assert cam.shape == (16, 16, 16)
-    assert [fn.launches for fn in COUNTED] == before == [0] * 16
+    # The probes' ops: K16 forward and backward, K17 and K18.
+    xd = t(3, 40).requires_grad_()
+    dropout.dropout(xd, 0.1, 7).sum().backward()
+    a8 = torch.randint(-127, 128, (32, 16), dtype=torch.int8)
+    b8 = torch.randint(-127, 128, (16, 48), dtype=torch.int8)
+    int8_gemm.blocked_matmul(a8, b8)
+    int8_gemm.blocked_matmul(t(32, 16).bfloat16(), t(16, 48).bfloat16())
+    int8_gemm.dynquant_matmul(a8, b8, t(32).abs(), t(48).abs())
+    assert [fn.launches for fn in COUNTED] == before == [0] * 20
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
