@@ -27,10 +27,13 @@ Phases, each printing a line; any failure raises and exits non-zero:
                batch 8 at the ViT-B, ViT-L and flagship widths
 5. probes      the probe scripts' main paths with their launch counts
                (scripts/torch_dropout_bench.py, scripts/torch_int8_gemm_bench.py
-               at fc1 and square4k); K16 forward and backward at
+               at its seven shapes); K16 forward and backward at
                [32 * 1001, 2048] bf16 bit-equal to plain, keep fraction within
-               4 sigma; K17 int8 and K18 bit-equal, K17 bf16 within
-               K 2^-23 sum|a||b|, each timed beside plain and library calls
+               4 sigma; at each of the seven GEMM shapes K17 int8 and K18
+               bit-equal, K17 bf16 within K 2^-23 sum|a||b|, each timed
+               beside plain and library calls, and its device time from the
+               profiler with its rate and its transpose step's share (the
+               kernel table's row is fc1)
 6. slice       the flagship model (configs/config.yaml, seed 42) saved with
                torch.save, served by Predictor.from_checkpoint on cuda:
                warmup, then requests of 1, 3 and 32 volumes; checked against
@@ -213,10 +216,9 @@ PROBE_KERNELS = ["dropout", "gemm_bf16", "gemm_int8", "dynquant_matmul"]
 # Kernels no ViT block forward or backward launches.
 OFF_BLOCK_KERNELS = (INT8_KERNELS + GRADCAM_KERNELS + RESNET_KERNELS
                      + PROBE_KERNELS)
-# The probes' shapes: K16's x (scripts/torch_dropout_bench.py) and the GEMM
-# shapes fc1 and square4k (scripts/torch_int8_gemm_bench.py).
+# K16's x in its probe (scripts/torch_dropout_bench.py); the GEMM probe's
+# shapes are its SHAPES, fc1 first.
 DROPOUT_SHAPE = (32 * 1001, 2048)
-GEMM_SHAPES = [("fc1", 8192, 1024, 2048), ("square4k", 4096, 4096, 4096)]
 # The ResNet stem's pool input at batch 8: [B, 90, 45, 45, 64] NDHWC.
 POOL_SHAPE = (B, 90, 45, 45, 64)
 # The card's peaks for the bound (H100 SXM data sheet, dense): device
@@ -767,11 +769,15 @@ def widths_phase(card: str) -> None:
 def probes_phase(card: str, counters: dict) -> tuple:
     """The probe scripts' main paths on the card with the launch counts of
     each (scripts/torch_dropout_bench.py at [32 * 1001, 2048] bf16, and
-    scripts/torch_int8_gemm_bench.py at fc1 and square4k); then K16 forward
+    scripts/torch_int8_gemm_bench.py at its seven shapes); then K16 forward
     and backward bit-equal to the plain version with its keep fraction
-    within 4 sigma of the quantized keep, K17 int8 and K18 bit-equal and K17
-    bf16 within K 2^-23 sum|a||b| at both shapes, each timed beside its
-    plain version and its library call. Returns (stats, launches)."""
+    within 4 sigma of the quantized keep, and at each GEMM shape K17 int8
+    and K18 bit-equal and K17 bf16 within K 2^-23 sum|a||b|, each timed by
+    CUDA events beside its plain version and its library call (for K17 bf16
+    ``torch.mm`` with f32 out where this PyTorch has it, else
+    ``torch.matmul``), and by the profiler's device time, with its rate and
+    its transpose step's share of that time. The summary keeps fc1's
+    numbers and the largest error. Returns (stats, launches)."""
     import importlib.util
 
     import torch.nn.functional as F
@@ -789,10 +795,11 @@ def probes_phase(card: str, counters: dict) -> tuple:
 
     drop_bench = script("torch_dropout_bench")
     gemm_bench = script("torch_int8_gemm_bench")
+    gemm_times = script("torch_gemm_device_times")
     for fn in counters.values():
         fn.launches = 0
     times = drop_bench.run("cuda", iters=10)
-    rows = gemm_bench.run("cuda", shapes=GEMM_SHAPES, iters=10)
+    rows = gemm_bench.run("cuda", iters=10)
     torch.cuda.synchronize()
     launches = {name: counters[name].launches for name in PROBE_KERNELS}
     log("probes", f"torch_dropout_bench at {DROPOUT_SHAPE}: "
@@ -841,7 +848,7 @@ def probes_phase(card: str, counters: dict) -> tuple:
         f"by {bound_by}; {card}")
     del x, g, xr, y
 
-    for i, (name, m, k, n) in enumerate(GEMM_SHAPES):
+    for i, (name, m, k, n) in enumerate(gemm_bench.SHAPES):
         ops = gemm_bench.operands(m, k, n, "cuda")
         a8, b8, sa, sb = ops["a8"], ops["b8"], ops["sa"], ops["sb"]
         abf, bbf = ops["abf"], ops["bbf"]
@@ -859,26 +866,26 @@ def probes_phase(card: str, counters: dict) -> tuple:
             raise AssertionError(f"gemm_bf16 {name}: outside K 2^-23 "
                                  f"sum|a||b| (max abs err {bf_err:.3e})")
         flop = 2 * m * k * n
+        lib_bf16 = (gemm_bench.library_mm_f32(abf, bbf)
+                    or (lambda: torch.matmul(abf, bbf)))
         timed = {
             "gemm_bf16": (lambda: k17.gemm_bf16_cuda(abf, bbf),
                           lambda: k17.blocked_matmul_plain(abf, bbf),
-                          lambda: torch.matmul(abf, bbf), (abf, bbf), cbf,
-                          {"bf16": flop}, bf_err),
+                          lib_bf16, (abf, bbf), cbf, "bf16", bf_err),
             "gemm_int8": (lambda: k17.gemm_int8_cuda(a8, b8),
                           lambda: k17.blocked_matmul_plain(a8, b8),
                           gemm_bench.library_int_mm(a8, b8), (a8, b8), c8,
-                          {"int8": flop}, 0.0),
+                          "int8", 0.0),
             "dynquant_matmul": (lambda: k17.dynquant_matmul_cuda(a8, b8, sa,
                                                                  sb),
                                 lambda: k17.dynquant_matmul_plain(a8, b8, sa,
                                                                   sb),
-                                None, (a8, b8, sa, sb), dq, {"int8": flop},
-                                0.0),
+                                None, (a8, b8, sa, sb), dq, "int8", 0.0),
         }
-        for kname, (kernel, plain, lib, ins, out, work, err) in timed.items():
+        for kname, (kernel, plain, lib, ins, out, kind, err) in timed.items():
             ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
             lib_ms = cuda_ms(lib) if lib is not None else None
-            bound_ms, bound_by = bound(nbytes(*ins), nbytes(out), work)
+            bound_ms, bound_by = bound(nbytes(*ins), nbytes(out), {kind: flop})
             if i == 0:
                 stats[kname] = {"max_abs_err": err, "ms": ms,
                                 "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -886,11 +893,26 @@ def probes_phase(card: str, counters: dict) -> tuple:
             else:
                 stats[kname]["max_abs_err"] = max(
                     stats[kname]["max_abs_err"], err)
+            dev = gemm_times.device_us(kernel, 10)
+            dev_ms = sum(dev.values()) / 1e3
+            step_ms = sum(t for key, t in dev.items()
+                          if "transpose" in key) / 1e3
+            unit = "TFLOP/s" if kind == "bf16" else "TOP/s"
+            dev_text = "device time not measured (no kernels traced)"
+            if dev:
+                rate = flop / dev_ms / 1e9
+                dev_text = (f"device {dev_ms:.4f} ms ({rate:.1f} {unit}, "
+                            f"bound {bound_ms / dev_ms:.1%} of it), transpose "
+                            f"step {step_ms / dev_ms:.1%} of it")
+            lib_text = "none"
+            if lib is not None:
+                lib_dev = sum(gemm_times.device_us(lib, 10).values()) / 1e3
+                lib_text = f"{lib_ms:.4f} ms, device " + (
+                    f"{lib_dev:.4f} ms" if lib_dev else "not measured")
             log("probes", f"{kname} {name} [{m}, {k}] x [{k}, {n}]: kernel "
-                f"{ms:.4f} ms ({flop / ms / 1e9:.1f} T/s), plain "
-                f"{plain_ms:.4f} ms, library {lib_ms} ms, bound "
-                f"{bound_ms:.4f} ms by {bound_by}; max abs err {err:.3e}; "
-                f"{card}")
+                f"{ms:.4f} ms, {dev_text}; plain {plain_ms:.4f} ms; library "
+                f"{lib_text}; bound {bound_ms:.4f} ms by {bound_by}; max abs "
+                f"err {err:.3e}; {card}")
         del ops, a8, b8, sa, sb, abf, bbf, c8, dq, cbf, want, tol, timed
     return stats, launches
 

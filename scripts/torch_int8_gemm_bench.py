@@ -6,10 +6,14 @@ with bf16 (f32 sums), and the int8 GEMM with the serving epilogue (K18,
 per-row and per-column scales to bf16), at the flagship serving GEMM
 shapes and a square diagnostic. Each line gives ms and TFLOP/s or TOP/s of
 the three, int8/bf16 and dq/bf16, and, as library references, a bf16
-``torch.matmul`` and ``torch._int_mm`` (int8 -> int32) on the same
-operands. On the card each time is the median of CUDA-event timings after
-a warm-up (the TPU script's two-point chain fit only cancelled its host
-round trip); ``--device cpu`` runs the plain versions on the host clock.
+``torch.matmul`` (bf16 out), ``torch.mm(..., out_dtype=torch.float32)``
+where this PyTorch has it (f32 out, as K17 bf16 writes) and
+``torch._int_mm`` (int8 -> int32) on the same operands. On the card each
+time is the median of CUDA-event timings of one call after a warm-up (the
+TPU script's two-point chain fit only cancelled its host round trip), so a
+call whose enqueue takes longer than its kernels reads the host's time;
+``scripts/torch_gemm_device_times.py`` reads the device's own.
+``--device cpu`` runs the plain versions on the host clock.
 
     python scripts/torch_int8_gemm_bench.py [--quick] [--device cuda|cpu]
 """
@@ -95,6 +99,21 @@ def library_int_mm(a8: torch.Tensor, b8: torch.Tensor):
     return lambda: torch._int_mm(a8, b8)
 
 
+def library_mm_f32(a: torch.Tensor, b: torch.Tensor):
+    """``torch.mm(a, b, out_dtype=torch.float32)`` on these bf16 operands
+    where this build has it (on CUDA), else None: a yardstick only."""
+    if a.device.type != "cuda":
+        return None
+    try:
+        torch.mm(a, b, out_dtype=torch.float32)
+    except (RuntimeError, TypeError) as err:
+        print(f"torch.mm(out_dtype=torch.float32) refuses [{a.shape[0]}, "
+              f"{a.shape[1]}] x [{b.shape[0]}, {b.shape[1]}]: {err}",
+              file=sys.stderr)
+        return None
+    return lambda: torch.mm(a, b, out_dtype=torch.float32)
+
+
 def run(device: str = "cuda", shapes=SHAPES, iters: int = 20) -> list:
     """One dict per shape: the ms of K17 bf16, K17 int8, K18 and the
     library calls (None where there is none)."""
@@ -111,9 +130,9 @@ def run(device: str = "cuda", shapes=SHAPES, iters: int = 20) -> list:
                    a8, b8, ops["sa"], ops["sb"]), device, iters),
                "matmul": median_ms(lambda: torch.matmul(
                    ops["abf"], ops["bbf"]), device, iters)}
-        int_mm = library_int_mm(a8, b8)
-        row["int_mm"] = (median_ms(int_mm, device, iters)
-                         if int_mm is not None else None)
+        for key, fn in (("int_mm", library_int_mm(a8, b8)),
+                        ("mm_f32", library_mm_f32(ops["abf"], ops["bbf"]))):
+            row[key] = median_ms(fn, device, iters) if fn is not None else None
         rows.append(row)
     return rows
 
@@ -125,16 +144,19 @@ def line(row: dict) -> str:
     def rate(ms):
         return flops / (ms * 1e-3) / 1e12
 
-    int_mm = ("n/a" if row["int_mm"] is None else
-              f"{row['int_mm']:7.3f} ms ({rate(row['int_mm']):6.1f} TOP/s)")
+    def lib(key, unit):
+        ms = row[key]
+        return ("n/a" if ms is None
+                else f"{ms:7.3f} ms ({rate(ms):6.1f} {unit})")
+
     return (f"{row['name']:11s} bf16 {row['bf16']:7.3f} ms "
             f"({rate(row['bf16']):6.1f} TF/s) | int8 {row['int8']:7.3f} ms "
             f"({rate(row['int8']):6.1f} TOP/s) | dynquant {row['dq']:7.3f} ms "
             f"({rate(row['dq']):6.1f} TOP/s) | int8/bf16 "
             f"{row['bf16'] / row['int8']:4.2f}x dq/bf16 "
-            f"{row['bf16'] / row['dq']:4.2f}x | library: matmul bf16 "
-            f"{row['matmul']:7.3f} ms ({rate(row['matmul']):6.1f} TF/s), "
-            f"_int_mm {int_mm}")
+            f"{row['bf16'] / row['dq']:4.2f}x | "
+            f"library: matmul bf16 {lib('matmul', 'TF/s')}, mm f32 out "
+            f"{lib('mm_f32', 'TF/s')}, _int_mm {lib('int_mm', 'TOP/s')}")
 
 
 def main(argv=None) -> int:

@@ -653,11 +653,21 @@ def test_dropout_kernel_bit_equal(cuda, shape, dtype):
     assert torch.equal(x.grad, dr.dropout_plain(g, 0.1, 1234))
 
 
-@pytest.mark.parametrize("m,k,n", [(512, 256, 256), (256, 1024, 64),
-                                   (144, 80, 48), (128, 64, 1024)])
+# K = 128 and 256 (one and two int8 boxes), the probe's shapes in small:
+# K = 64 (one k tile, attn_qk), N = 64 (the 64 x 64 instance, attn_pv),
+# N = 48 and 320 (ragged N on both instances), M = 144 (ragged M), K = 80
+# (a K tail inside one 128-byte box), K = 4096 (bf16 sums over a long K), and
+# the 16 x 16 x 16 corner (boxes larger than the whole operand).
+GEMM_CASES = [(128, 128, 128), (128, 256, 128), (512, 256, 256),
+              (256, 1024, 64), (144, 80, 48), (128, 64, 1024),
+              (144, 80, 320), (256, 4096, 192), (16, 16, 16)]
+
+
+@pytest.mark.parametrize("m,k,n", GEMM_CASES)
 def test_gemm_kernels(cuda, m, k, n):
     """K17 int8 and K18 bit-equal to their plain versions, K17 bf16 within
-    K 2^-23 sum|a||b| elementwise (f32 sums in another order)."""
+    K 2^-23 sum|a||b| elementwise (f32 sums in another order), each kernel
+    launched once."""
     from neurovit_tpu_torch.ops import int8_gemm as g
     rng = np.random.default_rng(m + k + n)
     a8 = torch.tensor(rng.integers(-127, 128, (m, k)), dtype=torch.int8,
@@ -678,3 +688,31 @@ def test_gemm_kernels(cuda, m, k, n):
     assert got.dtype == torch.float32 and ((got - want).abs() <= bound).all()
     assert (g.gemm_int8_cuda.launches, g.gemm_bf16_cuda.launches,
             g.dynquant_matmul_cuda.launches) == tuple(x + 1 for x in before)
+
+
+def test_gemm_smem_plan_matches_the_kernel(cuda):
+    """The wrapper's K17/K18 plan counts the shared-memory bytes the kernel
+    asks for, at the probe's shapes and the test's."""
+    import ctypes
+
+    from neurovit_tpu_torch.ops import _build
+    from neurovit_tpu_torch.ops import int8_gemm as g
+    fn = _build.library().nvt_gemm_smem_bytes
+    fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 2
+    shapes = [(m, k, n) for _, m, k, n in _gemm_bench().SHAPES] + GEMM_CASES
+    for m, k, n in shapes:
+        for dtype in g.DTYPES:
+            plan = g.gemm_plan(m, n, k, dtype)
+            assert fn(plan.bm, plan.bn) == plan.smem, (m, k, n, dtype)
+
+
+def _gemm_bench():
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", "torch_int8_gemm_bench.py")
+    spec = importlib.util.spec_from_file_location("torch_int8_gemm_bench",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module

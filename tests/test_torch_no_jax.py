@@ -36,9 +36,10 @@ COUNTED = (fa.flash_attention_cuda, fused_qkv.fused_ln_qkv_cuda,
 def test_every_module_imports_with_jax_blocked():
     """With ``jax`` and ``neurovit_tpu`` both blocked: every module of the
     port imports, the config loads, the data layer batches the synthetic
-    cube dataset, a small ResNet runs forward and backward, and the two
-    probe scripts (scripts/torch_dropout_bench.py and
-    scripts/torch_int8_gemm_bench.py) run their plain paths at a tiny size;
+    cube dataset, a small ResNet runs forward and backward, the two probe
+    scripts (scripts/torch_dropout_bench.py and
+    scripts/torch_int8_gemm_bench.py) run their plain paths at a tiny size,
+    and scripts/torch_gemm_device_times.py refuses to run without the card;
     no module of either was loaded."""
     script = (
         "import importlib, pkgutil, sys\n"
@@ -86,6 +87,7 @@ def test_every_module_imports_with_jax_blocked():
         "gemm = script('torch_int8_gemm_bench')\n"
         "row, = gemm.run('cpu', shapes=[('t', 32, 16, 48)], iters=1)\n"
         "assert row['int_mm'] is None and 'dynquant' in gemm.line(row)\n"
+        "assert script('torch_gemm_device_times').main([]) == 1\n"
         "print(len(names))\n")
     env = {**os.environ, "PYTHONPATH": REPO}
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
