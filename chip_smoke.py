@@ -18,7 +18,11 @@ Phases, each printing a line; any failure raises and exits non-zero:
                at dropout 0.1 and backward at dropout 0 and 0.1, each also
                timed beside K1 or K5 on the transposed inputs, and the int8
                kernels K10-K13 (K13 also at n_valid 900), each timed beside
-               its bf16 counterpart (K2, K3, K4, K1) on the same inputs
+               its bf16 counterpart (K2, K3, K4, K1) on the same inputs;
+               then the profiler's device times of K1 and K6 (and K1 at
+               dropout 0.1) beside SDPA's in both layouts, the enqueue time
+               per call and the exp2 floor
+               (scripts/torch_attention_device_times.py)
 4. widths      every ViT width of the matrix (models/vit3d.py WIDTHS: the
                smoke model, head dims 32, 80 and 128, ViT-S/B/L and the
                flagship) at batch 2 x 1001 tokens through K1-K13 against the
@@ -309,6 +313,43 @@ def bound(in_bytes: int, out_bytes: int, ops: dict) -> tuple:
     t_ops = sum(n / PEAK_OPS_PER_S[kind] for kind, n in ops.items())
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def script(name: str):
+    """The module of ``scripts/<name>.py``, loaded by path."""
+    import importlib.util
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(here, "scripts", name + ".py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def attention_device_times(results: dict, qkv: list, qkv_h: list,
+                           card: str) -> None:
+    """The device times of K1 and K6 at dropout 0 and of SDPA in both
+    layouts (``scripts/torch_attention_device_times.py``), into the
+    kernels' results; K1's at dropout 0.1 and the enqueue time per call
+    logged beside them, with the bound and the exp2 floor."""
+    times = script("torch_attention_device_times")
+    floor = times.exp2_floor_ms(B)
+    for name, layout, ops in (("flash_attention", "bnhd", qkv),
+                              ("flash_attention_bhnd", "bhnd", qkv_h)):
+        m = times.measure(ops, layout, 0.0, 10)
+        results[name].update(device_ms=m["device_ms"],
+                             library_device_ms=m["library_device_ms"])
+        msg = (f"{name}: device {m['device_ms']} ms, SDPA device "
+               f"{m['library_device_ms']} ms, bound "
+               f"{results[name]['bound_ms']:.4f} ms, exp2 floor {floor:.4f} "
+               f"ms; enqueue {m['enqueue_us']:.1f} us a call (SDPA "
+               f"{m['library_enqueue_us']:.1f})")
+        if layout == "bnhd":
+            drop = times.measure(ops, layout, DROPOUT, 10)["device_ms"]
+            msg += f"; at dropout {DROPOUT} device {drop} ms"
+            if drop and m["device_ms"]:
+                msg += f" ({drop / m['device_ms']:.2f}x)"
+        log("kernels", f"{msg}; {card}")
 
 
 def kernel_phase(card: str) -> dict:
@@ -627,6 +668,7 @@ def kernel_phase(card: str) -> dict:
         results[name].update(max_abs_err=max_abs, max_rel_err=max_rel)
         log("kernels", f"{name}: max abs err {max_abs:.3e}, max rel err "
             f"{max_rel:.3e} over {len(calls)} cases; {card}")
+    attention_device_times(results, qkv, qkv_h, card)
     return results
 
 
@@ -778,20 +820,10 @@ def probes_phase(card: str, counters: dict) -> tuple:
     ``torch.matmul``), and by the profiler's device time, with its rate and
     its transpose step's share of that time. The summary keeps fc1's
     numbers and the largest error. Returns (stats, launches)."""
-    import importlib.util
-
     import torch.nn.functional as F
 
     from neurovit_tpu_torch.ops import dropout as k16
     from neurovit_tpu_torch.ops import int8_gemm as k17
-
-    def script(name):
-        here = os.path.dirname(os.path.abspath(__file__))
-        spec = importlib.util.spec_from_file_location(
-            name, os.path.join(here, "scripts", name + ".py"))
-        module = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(module)
-        return module
 
     drop_bench = script("torch_dropout_bench")
     gemm_bench = script("torch_int8_gemm_bench")
@@ -1973,7 +2005,8 @@ def main() -> int:
          "replaces": replaces, "launches": launches[name],
          **{key: kernel_stats[name][key] for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms")}}
+             "library_ms", "device_ms", "library_device_ms")
+            if key in kernel_stats[name]}}
         for name, source, replaces in KERNELS]}
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)

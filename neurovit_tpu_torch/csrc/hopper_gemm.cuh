@@ -28,6 +28,12 @@
 //
 // Dynamic shared memory: kSmemBytes (the ring, the barriers and 1 KiB of
 // slack to align the ring to the swizzle's 1024 bytes).
+//
+// The attention forward (flash_attention.cu) builds its own loop from the
+// same pieces and a few more: rank-4 tensor maps (encode_bf16_4d) loaded
+// and stored by TMA (tma_load_4d, tma_store_4d), the descriptor of an
+// MN-major B tile (smem_desc_mn64) and wgmma with A in registers
+// (WgmmaRegA64).
 #pragma once
 
 #include <cuda.h>
@@ -102,6 +108,48 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The same for a rank-4 map, coordinates innermost first.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Store the box at src to the coordinates of a rank-4 map; TMA writes no
+// element outside the tensor. Make the generic proxy's writes to src
+// visible first (fence_proxy_async), and keep src alive until
+// tma_store_wait.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until every committed store has read its shared memory.
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads) over `threads` threads.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map))
@@ -125,6 +173,21 @@ __device__ __forceinline__ uint64_t smem_desc(const void* tile) {
 // The descriptor of the next k step: 32 bytes further along K.
 constexpr uint64_t kDescStepK = 32 >> 4;
 
+// Descriptor of an MN-major B operand tile as TMA's 128-byte swizzle lays
+// out a row-major [K, N] tile of 64 bf16 columns: K rows of 128 bytes, the
+// 8-row groups along K 1024 bytes apart. For this layout the stride of the
+// 8-row groups along K is SBO and the stride of the 64-column groups along
+// N is LBO (CUTLASS's make_gmma_desc<Major::MN>). A 64-column tile has one
+// group along N, so its LBO is never read; it is set to 1024 as well,
+// which leaves the descriptor right under either reading of the two fields.
+// A k16 step is 16 rows further: 2048 bytes, a whole number of swizzle
+// atoms, so the base offset stays 0.
+__device__ __forceinline__ uint64_t smem_desc_mn64(const void* tile) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t(1024 >> 4) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -144,6 +207,9 @@ __device__ __forceinline__ void fence_operand(float& r) {
   asm volatile("" : "+f"(r)::"memory");
 }
 __device__ __forceinline__ void fence_operand(int& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+__device__ __forceinline__ void fence_operand(uint32_t& r) {
   asm volatile("" : "+r"(r)::"memory");
 }
 
@@ -209,6 +275,35 @@ struct Wgmma<false, 128> {
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "l"(da), "l"(db));
+  }
+};
+
+// D[64, 64] += A[64, 16] . B[16, 64] with A in registers and B an MN-major
+// bf16 tile in shared memory (the transpose-B immediate set): f32 sums.
+// Thread t of the warpgroup holds A as four bf16 pairs, row r = 16 (t / 32)
+// + (t % 32) / 4, c = 2 (t % 4): a[0] (r, c), a[1] (r + 8, c), a[2] (r,
+// c + 8), a[3] (r + 8, c + 8), each pair at columns (c, c + 1), the lower
+// column in the low half. That is the accumulator layout above, so a k16
+// chunk of an f32 accumulator, rounded to bf16 pairs, is an A operand.
+struct WgmmaRegA64 {
+  __device__ __forceinline__ static void mma(
+      float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31},"
+        " {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
   }
 };
 
@@ -428,6 +523,39 @@ inline cudaError_t encode_kmajor(CUtensorMap* map, const void* ptr, int rows,
             "nvt: cuTensorMapEncodeTiled failed with CUresult %d ([%d, %d] "
             "%s, box %d rows)\n",
             static_cast<int>(res), rows, K, int8 ? "int8" : "bf16", box_rows);
+    return cudaErrorInvalidValue;
+  }
+  return cudaSuccess;
+}
+
+// The tensor map of a rank-4 bf16 tensor: dims innermost first, byte
+// strides of dims 1-3, a box of `box` elements per dim (box[0] * 2 <= 128),
+// 128-byte swizzle, zeros past the edges on loads; a store writes nothing
+// past them. Failures as encode_kmajor's.
+inline cudaError_t encode_bf16_4d(CUtensorMap* map, const void* ptr,
+                                  const cuuint64_t (&dims)[4],
+                                  const cuuint64_t (&strides)[3],
+                                  const cuuint32_t (&box)[4]) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) {
+    fprintf(stderr, "nvt: the driver has no cuTensorMapEncodeTiled\n");
+    return cudaErrorNotSupported;
+  }
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (res != CUDA_SUCCESS) {
+    fprintf(stderr,
+            "nvt: cuTensorMapEncodeTiled failed with CUresult %d (bf16 "
+            "[%llu, %llu, %llu, %llu], box [%u, %u, %u, %u])\n",
+            static_cast<int>(res), static_cast<unsigned long long>(dims[3]),
+            static_cast<unsigned long long>(dims[2]),
+            static_cast<unsigned long long>(dims[1]),
+            static_cast<unsigned long long>(dims[0]), box[3], box[2], box[1],
+            box[0]);
     return cudaErrorInvalidValue;
   }
   return cudaSuccess;

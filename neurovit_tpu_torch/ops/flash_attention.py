@@ -31,26 +31,30 @@ CPU tensors run the ``*_plain`` functions; CUDA tensors run the kernels in
 (K5, K6's backward), each layout a template instance with its own launch
 symbol and its own launch count.
 
-Head dims: the kernels are instances for D in :data:`HEAD_DIMS` (16, 32,
-64, 128). Any other D from 8 to 128 is zero-padded along D to the next
-instance and the result sliced back (:func:`pad_head_dim`): zero columns
-add nothing to q . k or dO . v, and the columns of o, dq, dk and dv they
-produce are dropped. D < 8 takes the plain attention on every device, by
-shape alone, where JAX leaves Pallas for its dense XLA path
-(flash_attention.py:517-520); D > 128 is refused.
+Head dims: the backward kernels are instances for D in :data:`HEAD_DIMS`
+(16, 32, 64, 128). Any other D from 8 to 128 is zero-padded along D to the
+next instance and the result sliced back (:func:`pad_head_dim`): zero
+columns add nothing to q . k or dO . v, and the columns of o, dq, dk and dv
+they produce are dropped. The forward (TMA + ``wgmma``, 128-byte swizzled
+rows of 64 bf16) has only the instances 64 and 128 (:data:`FWD_HEAD_DIMS`),
+so it pads 16 and 32 to 64 the same way; :func:`flash_fwd_plan` gives its
+launch. D < 8 takes the plain attention on every device, by shape alone,
+where JAX leaves Pallas for its dense XLA path (flash_attention.py:517-520);
+D > 128 is refused.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from neurovit_tpu_torch import nn
 from neurovit_tpu_torch.ops.common import (FLOAT, INT, SHAPE_QUEUE, U64, VOID,
-                                           check_operand, dropout_args,
-                                           is_training, launch, on_cpu, ptr)
+                                           check_operand, check_smem,
+                                           dropout_args, is_training, launch,
+                                           on_cpu, ptr)
 
 LOG2E = 1.4426950408889634
 SCORE_CAP = 96.0
@@ -72,6 +76,69 @@ def kernel_head_dim(d: int) -> int:
         raise ValueError(f"the attention kernels take head dim <= "
                          f"{HEAD_DIMS[-1]}, got {d} ({SHAPE_QUEUE})")
     return next(h for h in HEAD_DIMS if h >= d)
+
+
+# The forward kernel's launch (csrc/flash_attention.cu): head-dim
+# instances, keys per tile, K/V ring stages, bytes of a row's Philox window
+# (five 16-byte blocks), the SMs that a grid of 128-row blocks must fill
+# (else 64-row blocks), and the slack that aligns the tiles to 1024 bytes.
+FWD_HEAD_DIMS = (64, 128)
+FWD_BKV, FWD_STAGES, FWD_WINDOW_BYTES = 64, 3, 80
+FWD_SMS = 132
+FWD_ALIGN_SLACK = 1024
+MAX_GRID_Y = 65535
+
+
+class FwdPlan(NamedTuple):
+    """How one launch of the forward (K1 or K6) covers [B, N, H, D]: the
+    kernel's head-dim instance ``d_kernel`` (q, k and v zero-padded to
+    it), ``bq`` query rows a block (64 per consumer warpgroup) on a grid of
+    (q tiles, B * H), q tiles fastest, so that a head's tiles run together
+    and its K/V stay in L2; ``bkv`` keys a tile through a ring of
+    ``stages``; ``smem`` bytes of dynamic shared memory a block, each tile
+    on a 1024-byte boundary at ``offsets`` (Q, K ring, V ring, dropout
+    windows, barriers) from the aligned base; ``tmap_dims`` the tensor
+    maps' dims, innermost first, ordered by the layout so that a box never
+    crosses a head."""
+    d_kernel: int
+    bq: int
+    bkv: int
+    stages: int
+    grid: tuple
+    smem: int
+    offsets: tuple
+    tmap_dims: tuple
+
+
+def fwd_head_dim(d: int) -> int:
+    """The forward kernel's instance for head dim ``d``: 64 or 128."""
+    return next(h for h in FWD_HEAD_DIMS if h >= kernel_head_dim(d))
+
+
+def flash_fwd_plan(b: int, n: int, h: int, d: int, layout: str) -> FwdPlan:
+    """The forward kernel's plan for q, k, v of batch ``b``, ``n`` tokens,
+    ``h`` heads of ``d`` in ``layout``: 128-row blocks (two consumer
+    warpgroups) where b * h * ceil(n / 128) fills the card's 132 SMs, else
+    64-row blocks. Raises where the kernel does not take the shape."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+    d_kernel = fwd_head_dim(d)
+    if b * h > MAX_GRID_Y:
+        raise ValueError(f"the attention forward takes B * H <= {MAX_GRID_Y} "
+                         f"(the grid's y), got {b * h} ({SHAPE_QUEUE})")
+    bq = 128 if b * h * -(-n // 128) >= FWD_SMS else 64
+    kv_bytes = FWD_STAGES * FWD_BKV * d_kernel * 2
+    offsets, at = [], 0
+    for size in (bq * d_kernel * 2, kv_bytes, kv_bytes,
+                 bq * FWD_WINDOW_BYTES, (2 * FWD_STAGES + 1) * 8):
+        offsets.append(at)
+        at += size
+    smem = FWD_ALIGN_SLACK + at
+    check_smem("attention forward", smem)
+    dims = ((d_kernel, h, n, b) if layout == "bnhd" else (d_kernel, n, h, b))
+    return FwdPlan(d_kernel=d_kernel, bq=bq, bkv=FWD_BKV, stages=FWD_STAGES,
+                   grid=(-(-n // bq), b * h), smem=smem,
+                   offsets=tuple(offsets), tmap_dims=dims)
 
 
 def pad_head_dim(t: torch.Tensor, d: int) -> torch.Tensor:
@@ -213,8 +280,9 @@ def _check_qkv(q, k, v) -> int:
 
 def _fwd_cuda(symbol, layout, q, k, v, *, scale, n_valid, dropout_rate, seed,
               return_stats):
-    d_kernel = _check_qkv(q, k, v)
+    _check_qkv(q, k, v)
     b, n, h, d = _dims(q, layout)
+    d_kernel = flash_fwd_plan(b, n, h, d, layout).d_kernel
     n_valid = _n_valid(q, n_valid, layout)
     inv_keep, keep_q = dropout_args(dropout_rate)
     q, k, v = (pad_head_dim(t, d_kernel) for t in (q, k, v))

@@ -7,7 +7,8 @@ operands (``chip_smoke.py``'s kernel-phase shapes: batch 8 x 1001 tokens,
 dim 1024, 8 heads of 64, MLP 2048; the ResNet pool at [8, 90, 45, 45, 64]),
 with the library behind it switched between the two in the order other,
 this, this, other, ``--rounds`` times; each turn is the median of 10
-CUDA-event timings after 2 warm-up launches. Printed per kernel: the
+CUDA-event timings after 2 warm-up launches; K1 also at dropout 0.1 with
+its row sums (the train step's call). Printed per kernel: the
 median over each checkout's turns, their ratio, and the spread of the
 other checkout's own turns (the distance between its quartiles, as a
 share of its median), with the card's name and power limit. K4 is left
@@ -88,6 +89,8 @@ def cases() -> dict:
     return {
         "flash_attention": ("nvt_flash_attention_fwd", lambda: (
             fa.flash_attention_cuda(*qkv, scale=d ** -0.5, n_valid=n))),
+        "flash_attention dropout": ("nvt_flash_attention_fwd", lambda: (
+            fa.flash_attention_cuda(*qkv, return_stats=True, **att))),
         "fused_ln_qkv": ("nvt_fused_ln_qkv_fwd", lambda: (
             fused_qkv.fused_ln_qkv_cuda(x, *ln, wqkv.to(bf), h, d))),
         "fused_outproj_residual": ("nvt_fused_outproj_fwd", lambda: (

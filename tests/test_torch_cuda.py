@@ -6,9 +6,12 @@ the Grad-CAM probe that runs it, the int8 serving kernels K10-K13, the
 ResNet stem's max-pool K14 and its backward K15; K1-K13 at every ViT width
 of the matrix (``models/vit3d.py`` WIDTHS: head dims 16, 32, 64, 80 and
 128, the ViT-S/B/L widths), K4's shared-memory plan against the kernel's
-own count, head dim < 8 on the plain attention; and the probes' kernels,
-K16 (fused dropout, bit-equal forward and backward) and K17/K18 (the GEMM
-probes: int8 and K18 bit-equal, bf16 within K 2^-23 sum|a||b|).
+own count, head dim < 8 on the plain attention; the probes' kernels, K16
+(fused dropout, bit-equal forward and backward) and K17/K18 (the GEMM
+probes: int8 and K18 bit-equal, bf16 within K 2^-23 sum|a||b|); and the
+attention forward K1/K6 on TMA + wgmma at head dims 16-128, n_valid on and
+next to the 64-key tile edges, grids under and over the 132 SMs, with a
+descriptor probe (V one-hot by key) and its shared-memory plan.
 
 These need an NVIDIA GPU with sm_90a and nvcc; elsewhere they skip. Run on
 the card with:
@@ -716,3 +719,104 @@ def _gemm_bench():
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+# ---------------------------------------------------------------------------
+# K1/K6, the attention forward on TMA + wgmma: head dims (16 and 32 through
+# the zero pad to 64, 80 through the pad to 128), token counts, n_valid on
+# and next to the 64-key tile edges, dropout, grids under and over the
+# card's 132 SMs, and a descriptor probe.
+# ---------------------------------------------------------------------------
+
+FWD_EDGES = (1, 63, 64, 65, 127, 128, 129, 900)
+FWD_CASES = [(d, n, nv) for d in (16, 32, 64, 80, 128) for n in (64, 130, 1001)
+             for nv in sorted({e for e in FWD_EDGES if e <= n} | {n})]
+
+
+def _fwd_both_layouts(q, k, v, kw):
+    """K6 on q, k, v [B, H, N, D] against its plain version, and K1 on the
+    transposed inputs equal to it bit for bit (the same bits, the same
+    arithmetic), o and the row sums; each launched once."""
+    before = (fa.flash_attention_cuda.launches,
+              fa.flash_attention_bhnd_cuda.launches)
+    o, lsum = fa.flash_attention_bhnd_cuda(q, k, v, return_stats=True, **kw)
+    o_p, lsum_p = fa.flash_attention_bhnd_plain(q, k, v, return_stats=True,
+                                                **kw)
+    _check((o,), (o_p,))
+    assert torch.allclose(lsum, lsum_p, rtol=1e-5)
+
+    def tr(t):
+        return t.transpose(1, 2).contiguous()
+
+    o1, lsum1 = fa.flash_attention_cuda(tr(q), tr(k), tr(v),
+                                        return_stats=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, tr(o1)) and torch.equal(lsum, lsum1)
+    assert (fa.flash_attention_cuda.launches,
+            fa.flash_attention_bhnd_cuda.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    return o, o_p
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("d,n,n_valid", FWD_CASES)
+def test_flash_fwd_edges(cuda, d, n, n_valid, rate):
+    rng = np.random.default_rng(d * 7 + n + n_valid)
+    q, k, v = (_rand(rng, (1, 2, n, d), cuda) for _ in range(3))
+    _fwd_both_layouts(q, k, v, {"scale": d ** -0.5, "n_valid": n_valid,
+                                "dropout_rate": rate, "seed": 41})
+
+
+@pytest.mark.parametrize("b,h,n,d", [(1, 8, 1001, 64), (8, 8, 1001, 64),
+                                     (3, 11, 130, 64), (40, 4, 130, 128),
+                                     (2, 3, 70, 64)])
+def test_flash_fwd_grids(cuda, b, h, n, d):
+    """Grids of 64-row blocks (B H ceil(N / 128) under 132) and of 128-row
+    blocks, with the kernel's own choice equal to the plan's."""
+    import ctypes
+
+    from neurovit_tpu_torch.ops import _build
+    fn = _build.library().nvt_flash_fwd_block_rows
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int] * 3
+    assert fn(b, n, h) == fa.flash_fwd_plan(b, n, h, d, "bhnd").bq
+    rng = np.random.default_rng(b * h + n)
+    q, k, v = (_rand(rng, (b, h, n, d), cuda) for _ in range(3))
+    for rate in (0.0, 0.1):
+        _fwd_both_layouts(q, k, v, {"scale": d ** -0.5, "n_valid": n - 3,
+                                    "dropout_rate": rate, "seed": 43})
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_flash_fwd_descriptor_probe(cuda, d, rate):
+    """V one-hot by key (v[key] = e_(key mod D)) and integer scores in the
+    exp2 domain (q, k in {-1, 0, 1}, scale 1 / log2 e), so p = 2^s is exact
+    and column c of o sums p over the keys = c mod D: a V or P laid out
+    transposed or mis-swizzled moves whole columns."""
+    rng = np.random.default_rng(d)
+    n = 130
+    keys = torch.arange(n, device=cuda)
+    v = torch.zeros(1, 2, n, d, dtype=torch.bfloat16, device=cuda)
+    v[:, :, keys, keys % d] = 1
+    q, k = (torch.tensor(rng.integers(-1, 2, (1, 2, n, d)) * (
+        rng.random((1, 2, n, d)) < 4 / d), dtype=torch.bfloat16, device=cuda)
+        for _ in range(2))
+    kw = {"scale": 1 / fa.LOG2E, "n_valid": 129, "dropout_rate": rate,
+          "seed": 44}
+    o, o_p = _fwd_both_layouts(q, k, v, kw)
+    err = (o.float() - o_p.float()).abs().amax(dim=(0, 1, 2))
+    assert (err <= 2 ** -8).all(), err
+
+
+def test_flash_fwd_smem_plan_matches_the_kernel(cuda):
+    """The wrapper's forward plan counts the shared-memory bytes the kernel
+    asks for, at every head dim and block height."""
+    import ctypes
+
+    from neurovit_tpu_torch.ops import _build
+    fn = _build.library().nvt_flash_fwd_smem_bytes
+    fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 2
+    for b, n, h, d in [(1, 1001, 8, 64), (8, 1001, 8, 64), (1, 1001, 8, 128),
+                       (8, 1001, 8, 128), (1, 130, 2, 16), (8, 1001, 8, 80)]:
+        plan = fa.flash_fwd_plan(b, n, h, d, "bnhd")
+        assert fn(plan.d_kernel, plan.bq) == plan.smem, (b, n, h, d)
