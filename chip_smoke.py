@@ -8,7 +8,10 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, each printing a line; any failure raises and exits non-zero:
 
 1. device      nvidia-smi's name and power limit, torch's device name
-2. build       compile the kernels from neurovit_tpu_torch/csrc
+2. build       compile the kernels from neurovit_tpu_torch/csrc; from the
+               build's log, every ptxas note on a kernel (C7514, wgmma
+               serialised, among them) and every kernel that spills, and
+               the registers of the attention backward's instances
 3. kernels     each kernel against its plain PyTorch version on the card, at
                the flagship shapes (batch 8 x 1001 tokens), with CUDA-event
                timings of both: the forwards K1-K4 at dropout 0, K1, K3 and
@@ -21,7 +24,8 @@ Phases, each printing a line; any failure raises and exits non-zero:
                its bf16 counterpart (K2, K3, K4, K1) on the same inputs;
                then the profiler's device times of K1 and K6 (and K1 at
                dropout 0.1) beside SDPA's in both layouts, the enqueue time
-               per call and the exp2 floor
+               per call and the exp2 floor, and of K5 (dropout 0.1 and 0)
+               and K6's backward beside SDPA's backward
                (scripts/torch_attention_device_times.py)
 4. widths      every ViT width of the matrix (models/vit3d.py WIDTHS: the
                smoke model, head dims 32, 80 and 128, ViT-S/B/L and the
@@ -102,7 +106,9 @@ and a tie-heavy input: values and codes bit-equal to the plain version, dx
 within one bf16 ulp; each kernel is timed beside one PyTorch call computing
 the same function where there is one (scaled_dot_product_attention,
 F.max_pool3d and its backward), and its bound computed from its bytes and
-operations.
+operations. The backward attention kernels' library call is SDPA's
+backward: ``torch.autograd.grad`` of ``F.scaled_dot_product_attention`` at
+dropout 0 on the same q, k, v and dO, its graph built once.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``. Without CUDA, the script exits
@@ -331,7 +337,9 @@ def attention_device_times(results: dict, qkv: list, qkv_h: list,
     """The device times of K1 and K6 at dropout 0 and of SDPA in both
     layouts (``scripts/torch_attention_device_times.py``), into the
     kernels' results; K1's at dropout 0.1 and the enqueue time per call
-    logged beside them, with the bound and the exp2 floor."""
+    logged beside them, with the bound and the exp2 floor. Then those of K5
+    (at dropout 0.1, its timed case, and 0) and K6's backward (dropout 0)
+    beside SDPA's backward, each pass's time logged."""
     times = script("torch_attention_device_times")
     floor = times.exp2_floor_ms(B)
     for name, layout, ops in (("flash_attention", "bnhd", qkv),
@@ -350,6 +358,55 @@ def attention_device_times(results: dict, qkv: list, qkv_h: list,
             if drop and m["device_ms"]:
                 msg += f" ({drop / m['device_ms']:.2f}x)"
         log("kernels", f"{msg}; {card}")
+    # The backward, K5 first at dropout 0.1 (its timed case), then 0.
+    for name, layout, ops, rates in (
+            ("flash_attention_bwd", "bnhd", qkv, (DROPOUT, 0.0)),
+            ("flash_attention_bhnd_bwd", "bhnd", qkv_h, (0.0,))):
+        for rate in rates:
+            m = times.measure_bwd(ops, layout, rate, 10)
+            if rate == rates[0]:
+                results[name].update(
+                    device_ms=m["device_ms"],
+                    library_device_ms=m["library_device_ms"])
+            log("kernels", f"{name} at dropout {rate}: device "
+                f"{m['device_ms']} ms (passes "
+                f"{sorted(round(v, 1) for v in m['passes_us'].values())} "
+                f"us), SDPA backward device {m['library_device_ms']} ms, "
+                f"bound {results[name]['bound_ms']:.4f} ms; enqueue "
+                f"{m['enqueue_us']:.1f} us a call (SDPA "
+                f"{m['library_enqueue_us']:.1f}); {card}")
+
+
+def build_notes(lib) -> None:
+    """Log, from the build's compiler output, every ptxas note on a kernel
+    (C7514 and C7512, wgmma serialised; C7508, setmaxnreg ignored) and
+    every kernel that spills, with its name, and the registers of each
+    instance of the attention backward."""
+    from neurovit_tpu_torch.ops import _build
+    path = _build.build_log(lib)
+    if not path.exists():
+        log("build", f"no build log at {path} (the library was built "
+            "before the log was kept)")
+        return
+    kernels, notes = _build.ptxas_report(path.read_text())
+    names = sorted({k[1] for k in kernels} | {n[1] for n in notes if n[1]})
+    readable = dict(zip(names, names))
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        if out.returncode == 0:
+            readable = dict(zip(names, out.stdout.splitlines()))
+    except OSError:
+        pass
+    for source, fn, regs, stores, loads in kernels:
+        if stores or loads or "flash_bwd" in fn:
+            log("build", f"{source} {readable.get(fn, fn)}: {regs} "
+                f"registers, spill stores {stores} B, spill loads {loads} B")
+    for source, fn, line in notes:
+        log("build", f"{source} {readable.get(fn, fn)}: {line}")
+    log("build", f"ptxas: {len(kernels)} kernels, "
+        f"{sum(1 for k in kernels if k[3] or k[4])} spilling, {len(notes)} "
+        f"notes ({sum('C7514' in n[2] for n in notes)} C7514)")
 
 
 def kernel_phase(card: str) -> dict:
@@ -577,6 +634,14 @@ def kernel_phase(card: str) -> dict:
     }
     # One PyTorch call computing the same function, where there is one: a
     # yardstick only, never called by the port.
+    def sdpa_bwd(q_, k_, v_, do_):
+        """SDPA's backward on [B, H, N, D] views at dropout 0, its graph
+        built once here."""
+        leaves = [a.detach().requires_grad_() for a in (q_, k_, v_)]
+        out = F.scaled_dot_product_attention(*leaves, scale=scale)
+        return lambda: torch.autograd.grad(out, leaves, do_,
+                                           retain_graph=True)
+
     pool_x = pools["continuous"].permute(0, 4, 1, 2, 3)   # NCDHW view
     _, pool_idx = F.max_pool3d(pool_x, 3, 2, 1, return_indices=True)
     library = {
@@ -590,6 +655,9 @@ def kernel_phase(card: str) -> dict:
             lambda: torch.ops.aten.max_pool3d_with_indices_backward(
                 pool_g.permute(0, 4, 1, 2, 3), pool_x, [3] * 3, [2] * 3,
                 [1] * 3, [1] * 3, False, pool_idx),
+        "flash_attention_bwd": sdpa_bwd(*(a.transpose(1, 2)
+                                          for a in (*qkv, do))),
+        "flash_attention_bhnd_bwd": sdpa_bwd(*qkv_h, do_h),
     }
     # (name, label) -> (what, call, layout): the bf16 kernel each int8
     # kernel stands in for, on the same inputs; K1 or K5 beside K6 on the
@@ -1917,6 +1985,7 @@ def main() -> int:
     lib = _build.build()
     _build.library()
     log("build", f"{lib.name} in {time.perf_counter() - t0:.1f} s")
+    build_notes(lib)
 
     kernel_stats = kernel_phase(card)
     torch.cuda.empty_cache()

@@ -56,35 +56,23 @@
 // ptxas reported the wgmmas serialised, C7514, and the kernel ran slower.)
 // With two consumer warpgroups, one's softmax also runs under the other's
 // wgmmas. The Philox blocks of a row are shared within the quad that holds
-// the row: a 64-key
-// tile of one row lies in a window of five 16-byte blocks (rows start at i
-// = row * N, not on a block edge), the first of which is the previous
-// tile's last. Thread t % 4 of the quad computes block t % 4 + 1 of each of
-// its two rows' windows, thread 3 keeps the window's last block for the
-// next tile, and the quad exchanges the words through a per-row window of
-// 80 bytes in shared memory, from which each thread reads its bytes by
-// position: two Philox calls per thread per tile, where each thread
-// computing its own would make eight to ten (its 16 keys of a row touch
-// four or five blocks), and no data-dependent branch.
+// the row (QuadWindows, flash_attention.cuh): two Philox calls per thread
+// per tile, where each thread computing its own would make eight to ten
+// (its 16 keys of a row touch four or five blocks), and no data-dependent
+// branch. The grid is one-dimensional, a head's q tiles adjacent
+// (GridTile), so B * H is not bounded by the grid's y.
 //
 // D = 16 and 32 reach this kernel zero-padded to 64 by the wrapper (the
 // 128-byte swizzle row is 64 bf16), other D from 8 to 128 to 64 or 128.
-#include "hopper_gemm.cuh"
+#include "flash_attention.cuh"
 
 namespace nvt {
 namespace {
 
 using hopper::fence_operand;
+using namespace flash;
 
-constexpr int kBKV = 64;                     // keys per tile
 constexpr int kStages = 3;                   // K/V ring depth
-constexpr int kRowBytes = 128;               // one swizzled row: 64 bf16
-constexpr int kPanelBytes = 64 * kRowBytes;  // 64 rows x 64 columns
-constexpr int kKStepBytes = 16 * kRowBytes;  // 16 keys of an MN-major V
-constexpr int kWindowBytes = 80;             // 5 Philox blocks of a row
-constexpr float kScoreCap = 96.f;
-// Blocks of 128 rows where they fill the card, else 64.
-constexpr int kSMs = 132;
 
 // Shared memory of one block: the consumers' Q tiles, the K and V rings,
 // the dropout windows, the barriers, and 1 KiB of slack to align the tiles
@@ -103,30 +91,6 @@ struct FwdPlan {
       1024 + kQBytes + 2 * kStages * kKVBytes + kXBytes + kBarriers * 8;
 };
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Load the 64-row, 64-column box at (column c0, token row n) of one head.
-template <bool kBhnd>
-__device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int n, int h,
-                                         int b) {
-  if constexpr (kBhnd)
-    hopper::tma_load_4d(dst, map, bar, c0, n, h, b);
-  else
-    hopper::tma_load_4d(dst, map, bar, c0, h, n, b);
-}
-
-// 2^x in one MUFU op, subnormal results flushed to 0: none occur, since
-// x >= -96 and 2^-96 is a normal f32.
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // p = exp2(clamp(s * scale_log2e)) of one thread's 32 scores, in place,
 // with keys at or past n_valid zeroed (kRagged: the tile crosses n_valid),
 // summed into rowsum before dropout; then the dropout mask from the rows'
@@ -141,24 +105,13 @@ __device__ __forceinline__ void softmax_tile(
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int R = i / 2, e = i % 2;
-      float p = exp2_ftz(fminf(fmaxf(acc[4 * j + i] * scale_log2e,
-                                     -kScoreCap),
-                               kScoreCap));
+      float p = capped_exp2(acc[4 * j + i], scale_log2e);
       if (kRagged && key0 + 8 * j + e >= n_valid) p = 0.f;
       rowsum[R] += p;
       if (kDrop && win[R][8 * j + e] >= keep_q) p = 0.f;
       acc[4 * j + i] = p;
     }
   }
-}
-
-// P rounded to bf16 pairs: pa[2 j + R] holds acc[4 j + 2 R] and
-// acc[4 j + 2 R + 1], so pa[4 c .. 4 c + 3] is the A operand of the tile's
-// k16 chunk c (WgmmaRegA64).
-__device__ __forceinline__ void pack_p(const float (&acc)[32],
-                                       uint32_t (&pa)[16]) {
-#pragma unroll
-  for (int k = 0; k < 16; ++k) pa[k] = pack_bf16x2(acc[2 * k], acc[2 * k + 1]);
 }
 
 template <int D, int kConsumers, bool kBhnd>
@@ -182,8 +135,9 @@ __global__ void __launch_bounds__(FwdPlan<D, kConsumers>::kThreads)
   uint64_t* empty = full + kStages;
   uint64_t* qfull = empty + kStages;
 
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * P::BQ;
+  const GridTile g((N + P::BQ - 1) / P::BQ, H);
+  const int bh = g.bh, b = g.b, h = g.h;
+  const int q0 = g.tile * P::BQ;
   const int n_tiles = (n_valid + kBKV - 1) / kBKV;
   const int wg = threadIdx.x / 128;
 
@@ -231,23 +185,10 @@ __global__ void __launch_bounds__(FwdPlan<D, kConsumers>::kThreads)
   const int qw = q0 + 64 * wg;
   unsigned char* Qw = Qs + wg * kPanels * kPanelBytes;
 
-  // Dropout: the Philox block of the window's first byte, the row's offset
-  // into it, and the window in shared memory, per row.
+  // Dropout: the quad's shared Philox windows of the thread's two rows.
   const bool drop = keep_q != 0;
-  uint64_t blk0[2];
-  const unsigned char* win[2];
-  unsigned char* xrow[2];
-  uint4 carry[2] = {make_uint4(0, 0, 0, 0), make_uint4(0, 0, 0, 0)};
-#pragma unroll
-  for (int R = 0; R < 2; ++R) {
-    const uint64_t i0 =
-        (static_cast<uint64_t>(bh) * N + (qw + r0 + 8 * R)) *
-        static_cast<uint64_t>(N);
-    blk0[R] = i0 >> 4;
-    xrow[R] = Xs + (64 * wg + r0 + 8 * R) * kWindowBytes;
-    win[R] = xrow[R] + (i0 & 15) + 2 * quad;
-    if (drop && quad == 3) carry[R] = philox4x32_10(blk0[R], seed);
-  }
+  QuadWindows xw(Xs + 64 * wg * kWindowBytes,
+                 static_cast<uint64_t>(bh) * N + qw, N, r0, quad, drop, seed);
 
   float oacc[kPanels][32];
 #pragma unroll
@@ -287,34 +228,22 @@ __global__ void __launch_bounds__(FwdPlan<D, kConsumers>::kThreads)
     hopper::wgmma_commit();
   };
   auto softmax = [&](int t) {
-    if (drop) {   // this tile's windows
-      __syncwarp();   // the quad has read the previous tile's
-#pragma unroll
-      for (int R = 0; R < 2; ++R) {
-        const uint4 w = philox4x32_10(blk0[R] + 4 * t + quad + 1, seed);
-        *reinterpret_cast<uint4*>(xrow[R] + 16 * (quad + 1)) = w;
-        if (quad == 3) {
-          *reinterpret_cast<uint4*>(xrow[R]) = carry[R];
-          carry[R] = w;
-        }
-      }
-      __syncwarp();
-    }
+    if (drop) xw.fill(t, seed);   // this tile's windows
     const int key0 = t * kBKV + 2 * quad;
     if ((t + 1) * kBKV > n_valid) {
       if (drop)
         softmax_tile<true, true>(sacc, rowsum, scale_log2e, key0, n_valid,
-                                 win, keep_q);
+                                 xw.win, keep_q);
       else
         softmax_tile<true, false>(sacc, rowsum, scale_log2e, key0, n_valid,
-                                  win, keep_q);
+                                  xw.win, keep_q);
     } else {
       if (drop)
         softmax_tile<false, true>(sacc, rowsum, scale_log2e, key0, n_valid,
-                                  win, keep_q);
+                                  xw.win, keep_q);
       else
         softmax_tile<false, false>(sacc, rowsum, scale_log2e, key0, n_valid,
-                                   win, keep_q);
+                                   xw.win, keep_q);
     }
   };
 
@@ -353,7 +282,7 @@ __global__ void __launch_bounds__(FwdPlan<D, kConsumers>::kThreads)
 #pragma unroll
   for (int i = 0; i < 32; ++i) fence_operand(sacc[i]);
   softmax(0);
-  pack_p(sacc, pa);
+  pack_pairs(sacc, pa);
   for (int t = 0; t + 1 < n_tiles; ++t) {
     issue_s(t + 1);
     issue_pv(t);
@@ -362,7 +291,7 @@ __global__ void __launch_bounds__(FwdPlan<D, kConsumers>::kThreads)
     for (int i = 0; i < 32; ++i) fence_operand(sacc[i]);
     softmax(t + 1);
     retire_pv(t);
-    pack_p(sacc, pa);
+    pack_pairs(sacc, pa);
   }
   issue_pv(n_tiles - 1);
   retire_pv(n_tiles - 1);
@@ -377,38 +306,16 @@ __global__ void __launch_bounds__(FwdPlan<D, kConsumers>::kThreads)
       lsum[static_cast<size_t>(bh) * N + qi] = rowsum[R];
   }
   const float denom[2] = {rowsum[0] * keep, rowsum[1] * keep};
-  // bf16 O into the Q slot, 128-byte swizzled: the 16-byte chunk j of row
-  // r sits at chunk j ^ (r % 8).
-#pragma unroll
-  for (int p = 0; p < kPanels; ++p)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int R = 0; R < 2; ++R) {
-        const int r = r0 + 8 * R;
-        *reinterpret_cast<uint32_t*>(Qw + p * kPanelBytes + r * kRowBytes +
-                                     ((j ^ (r % 8)) * 16) + 4 * quad) =
-            pack_bf16x2(oacc[p][4 * j + 2 * R] / denom[R],
-                        oacc[p][4 * j + 2 * R + 1] / denom[R]);
-      }
+  // bf16 O into the Q slot, 128-byte swizzled, stored by TMA.
+  stage_rows(Qw, oacc, r0, quad,
+             [&](float x, int R) { return x / denom[R]; });
   hopper::fence_proxy_async();
   hopper::named_barrier(1 + wg, 128);
   if (t128 == 0 && qw < N) {
-    for (int p = 0; p < kPanels; ++p) {
-      if constexpr (kBhnd)
-        hopper::tma_store_4d(&to, Qw + p * kPanelBytes, 64 * p, qw, h, b);
-      else
-        hopper::tma_store_4d(&to, Qw + p * kPanelBytes, 64 * p, h, qw, b);
-    }
+    for (int p = 0; p < kPanels; ++p)
+      store_box<kBhnd>(&to, Qw + p * kPanelBytes, 64 * p, qw, h, b);
     hopper::tma_store_wait();
   }
-}
-
-// Consumer warpgroups of a launch: two (128-row blocks) where those fill
-// the card's SMs, else one.
-int fwd_consumers(int B, int N, int H) {
-  const long long tiles128 = static_cast<long long>(B) * H * ((N + 127) / 128);
-  return tiles128 >= kSMs ? 2 : 1;
 }
 
 template <int D, int kConsumers, bool kBhnd>
@@ -434,7 +341,7 @@ cudaError_t launch_plan(const void* q, const void* k, const void* v, void* o,
   const auto kernel = flash_fwd_kernel<D, kConsumers, kBhnd>;
   cudaError_t err = allow_smem(kernel, P::kSmemBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + P::BQ - 1) / P::BQ, B * H);
+  const dim3 grid(((N + P::BQ - 1) / P::BQ) * B * H);
   kernel<<<grid, P::kThreads, P::kSmemBytes, stream>>>(
       maps[0], maps[1], maps[2], maps[3], N, H, n_valid, scale_log2e, keep,
       static_cast<uint32_t>(keep_q), seed, static_cast<float*>(lsum));
@@ -446,7 +353,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
                      int B, int N, int H, int n_valid, float scale_log2e,
                      float keep, int keep_q, uint64_t seed, void* lsum,
                      cudaStream_t stream) {
-  return fwd_consumers(B, N, H) == 2
+  return consumers(B, N, H) == 2
              ? launch_plan<D, 2, kBhnd>(q, k, v, o, B, N, H, n_valid,
                                         scale_log2e, keep, keep_q, seed, lsum,
                                         stream)
@@ -461,7 +368,8 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, int B,
                float keep, int keep_q, uint64_t seed, void* lsum,
                void* stream) {
   if (B < 1 || N < 1 || H < 1 || n_valid < 1 || n_valid > N || keep_q < 0 ||
-      keep_q > 255 || static_cast<long long>(B) * H > 65535)
+      keep_q > 255 ||
+      static_cast<long long>(B) * H * ((N + 63) / 64) > 0x7FFFFFFF)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   switch (D) {
@@ -482,7 +390,8 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace nvt
 
 // K1. q, k, v, o: [B, N, H, D] bf16, contiguous, D in {64, 128} (the
-// wrapper zero-pads other head dims). 1 <= n_valid <= N, B * H <= 65535.
+// wrapper zero-pads other head dims). 1 <= n_valid <= N, B * H *
+// ceil(N / 64) < 2^31 (the grid's x).
 // keep_q: dropout threshold q of keep = q / 256, 0 for no dropout (then
 // keep = 1). lsum: [B, H, N] f32 row sums, or null (serving).
 extern "C" int nvt_flash_attention_fwd(const void* q, const void* k,
@@ -508,7 +417,7 @@ extern "C" int nvt_flash_attention_bhnd_fwd(const void* q, const void* k,
 
 // Query rows per block of a launch at (B, N, H): 128 or 64.
 extern "C" int nvt_flash_fwd_block_rows(int B, int N, int H) {
-  return 64 * nvt::fwd_consumers(B, N, H);
+  return 64 * nvt::flash::consumers(B, N, H);
 }
 
 // Dynamic shared memory of one block of the forward at head dim d (64 or

@@ -33,7 +33,9 @@
 // same pieces and a few more: rank-4 tensor maps (encode_bf16_4d) loaded
 // and stored by TMA (tma_load_4d, tma_store_4d), the descriptor of an
 // MN-major B tile (smem_desc_mn64) and wgmma with A in registers
-// (WgmmaRegA64).
+// (WgmmaRegA64). The attention backward (flash_attention_bwd.cu) adds
+// m64n32k16 (Wgmma<false, 32>) and moves registers between warpgroups
+// (setmaxnreg).
 #pragma once
 
 #include <cuda.h>
@@ -201,6 +203,19 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+// Lower (dec) or raise (inc) the registers of every thread of the calling
+// warpgroup to N; an inc draws only on registers other warpgroups of the
+// block released. The warpgroup's roles must part in one branch that never
+// rejoins, or ptxas ignores the request (C7508).
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // Keep the compiler from moving reads or writes of an accumulator register
 // across the asynchronous wgmma (CUTLASS's warpgroup_fence_operand).
 __device__ __forceinline__ void fence_operand(float& r) {
@@ -219,6 +234,23 @@ __device__ __forceinline__ void fence_operand(uint32_t& r) {
 // column 8 j + 2 (t % 4) + i % 2.
 template <bool kInt8, int N>
 struct Wgmma;
+
+template <>
+struct Wgmma<false, 32> {
+  __device__ __forceinline__ static void mma(
+      float (&d)[16], uint64_t da, uint64_t db) {
+    asm volatile(
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15},"
+        " %16, %17, 1, 1, 1, 0, 0;\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db));
+  }
+};
 
 template <>
 struct Wgmma<false, 64> {

@@ -6,7 +6,10 @@ one ``nvt_*`` launch function per kernel, returning the launch's
 ``cudaError_t``. The library lands in ``build/neurovit_tpu_torch/`` at the
 repository root under a name that hashes the sources, headers and flags, so
 an edited source is rebuilt and an unchanged one is loaded as it is. Only
-the sources in the checkout and the CUDA toolkit are used.
+the sources in the checkout and the CUDA toolkit are used. The compiler's
+output of a successful build (ptxas's registers, spills and warnings for
+every kernel) is kept beside the library as ``<library>.log``
+(:func:`build_log`, :func:`ptxas_report`).
 
 Nothing here runs at import: the CPU tests import every module of the
 package on a machine without ``nvcc``.
@@ -18,6 +21,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -27,7 +31,7 @@ from typing import Sequence
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "neurovit_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC", "-lineinfo")
+              "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v")
 # Where the toolkit lives when neither CUDA_HOME nor PATH names it.
 NVCC_FALLBACKS = ("/usr/local/cuda/bin/nvcc",)
 
@@ -84,9 +88,10 @@ def build() -> Path:
                 [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src),
                  "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        failures = []
+        failures, outputs = [], []
         for src, proc in procs:
             out, _ = proc.communicate()
+            outputs.append(f"== {src.name}\n{out}")
             if proc.returncode != 0:
                 failures.append(f"{src.name}:\n{out}")
         if failures:
@@ -97,8 +102,47 @@ def build() -> Path:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        log = Path(tmp) / build_log(lib).name
+        log.write_text("".join(outputs))
+        os.replace(log, build_log(lib))
         os.replace(partial, lib)
     return lib
+
+
+def build_log(lib: Path) -> Path:
+    """Where the compiler's output of the build of ``lib`` is kept."""
+    return lib.with_suffix(".log")
+
+
+def ptxas_report(text: str) -> tuple:
+    """ptxas's ``-v`` output in a build log, per kernel: a list of
+    ``(source, function, registers, spill store bytes, spill load bytes)``
+    and the warnings and performance notes (each ``(source, function or
+    "", line)``), such as C7514 and C7512 (wgmma serialised) or C7508
+    (setmaxnreg ignored)."""
+    kernels, warnings = [], []
+    source, function, spills = "", "", (0, 0)
+    for line in text.splitlines():
+        if line.startswith("== "):
+            source = line[3:].strip()
+            continue
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            function, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and function:
+            kernels.append((source, function, int(m.group(1)), *spills))
+            continue
+        if "warning" in line or re.search(r"\(C75\d\d\)", line):
+            m = re.search(r"function '([^']+)'", line)
+            warnings.append((source, m.group(1) if m else "", line.strip()))
+    return kernels, warnings
 
 
 @functools.cache

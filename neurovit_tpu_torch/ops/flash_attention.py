@@ -31,16 +31,15 @@ CPU tensors run the ``*_plain`` functions; CUDA tensors run the kernels in
 (K5, K6's backward), each layout a template instance with its own launch
 symbol and its own launch count.
 
-Head dims: the backward kernels are instances for D in :data:`HEAD_DIMS`
-(16, 32, 64, 128). Any other D from 8 to 128 is zero-padded along D to the
-next instance and the result sliced back (:func:`pad_head_dim`): zero
-columns add nothing to q . k or dO . v, and the columns of o, dq, dk and dv
-they produce are dropped. The forward (TMA + ``wgmma``, 128-byte swizzled
-rows of 64 bf16) has only the instances 64 and 128 (:data:`FWD_HEAD_DIMS`),
-so it pads 16 and 32 to 64 the same way; :func:`flash_fwd_plan` gives its
-launch. D < 8 takes the plain attention on every device, by shape alone,
-where JAX leaves Pallas for its dense XLA path (flash_attention.py:517-520);
-D > 128 is refused.
+Head dims: the kernels (TMA + ``wgmma``, 128-byte swizzled rows of 64
+bf16) are instances for D in :data:`FWD_HEAD_DIMS` (64, 128). Any other D
+from 8 to 128 is zero-padded along D to the next instance and the result
+sliced back (:func:`pad_head_dim`): zero columns add nothing to q . k or
+dO . v, and the columns of o, dq, dk and dv they produce are dropped.
+:func:`flash_fwd_plan` and :func:`flash_bwd_plan` give the launches. D < 8
+takes the plain attention on every device, by shape alone, where JAX leaves
+Pallas for its dense XLA path (flash_attention.py:517-520); D > 128 is
+refused.
 """
 
 from __future__ import annotations
@@ -59,8 +58,9 @@ from neurovit_tpu_torch.ops.common import (FLOAT, INT, SHAPE_QUEUE, U64, VOID,
 LOG2E = 1.4426950408889634
 SCORE_CAP = 96.0
 LAYOUTS = ("bnhd", "bhnd")
-# The kernels' head-dim instances; below MIN_KERNEL_HEAD_DIM the plain
-# attention runs on every device.
+# Head dims a kernel is written for (the int8 attention K13's instances;
+# the bf16 kernels pad them to FWD_HEAD_DIMS); below MIN_KERNEL_HEAD_DIM
+# the plain attention runs on every device.
 HEAD_DIMS = (16, 32, 64, 128)
 MIN_KERNEL_HEAD_DIM = 8
 
@@ -78,24 +78,30 @@ def kernel_head_dim(d: int) -> int:
     return next(h for h in HEAD_DIMS if h >= d)
 
 
-# The forward kernel's launch (csrc/flash_attention.cu): head-dim
-# instances, keys per tile, K/V ring stages, bytes of a row's Philox window
-# (five 16-byte blocks), the SMs that a grid of 128-row blocks must fill
-# (else 64-row blocks), and the slack that aligns the tiles to 1024 bytes.
+# The kernels' launches (csrc/flash_attention.cu, flash_attention_bwd.cu,
+# flash_attention.cuh): head-dim instances, keys per tile, ring stages,
+# bytes of a row's Philox window (five 16-byte blocks), the SMs that a grid
+# of 128-row blocks must fill (else 64-row blocks), and the slack that
+# aligns the tiles to 1024 bytes. The grids are one-dimensional (row tiles
+# times B * H) and the backward indexes the [B, H, N] statistics' rows in
+# 32 bits: B * H * N rounded up to 64 stays below 2^31.
 FWD_HEAD_DIMS = (64, 128)
 FWD_BKV, FWD_STAGES, FWD_WINDOW_BYTES = 64, 3, 80
 FWD_SMS = 132
 FWD_ALIGN_SLACK = 1024
-MAX_GRID_Y = 65535
+MAX_GRID_X = 2 ** 31 - 1
+BWD_STAGES = 3
+BWD_STAT_BYTES = 64 * 4
 
 
 class FwdPlan(NamedTuple):
     """How one launch of the forward (K1 or K6) covers [B, N, H, D]: the
     kernel's head-dim instance ``d_kernel`` (q, k and v zero-padded to
     it), ``bq`` query rows a block (64 per consumer warpgroup) on a grid of
-    (q tiles, B * H), q tiles fastest, so that a head's tiles run together
-    and its K/V stay in L2; ``bkv`` keys a tile through a ring of
-    ``stages``; ``smem`` bytes of dynamic shared memory a block, each tile
+    (q tiles, B * H), q tiles fastest, linearised into the grid's x, so that
+    a head's tiles run together and its K/V stay in L2; ``bkv`` keys a tile
+    through a ring of ``stages``; ``smem`` bytes of dynamic shared memory a
+    block, each tile
     on a 1024-byte boundary at ``offsets`` (Q, K ring, V ring, dropout
     windows, barriers) from the aligned base; ``tmap_dims`` the tensor
     maps' dims, innermost first, ordered by the layout so that a box never
@@ -111,8 +117,30 @@ class FwdPlan(NamedTuple):
 
 
 def fwd_head_dim(d: int) -> int:
-    """The forward kernel's instance for head dim ``d``: 64 or 128."""
+    """The attention kernels' instance for head dim ``d``: 64 or 128."""
     return next(h for h in FWD_HEAD_DIMS if h >= kernel_head_dim(d))
+
+
+def _block_rows(b: int, n: int, h: int) -> int:
+    """128-row blocks (two consumer warpgroups) where b * h * ceil(n / 128)
+    fills the card's 132 SMs, else 64."""
+    return 128 if b * h * -(-n // 128) >= FWD_SMS else 64
+
+
+def _check_grid(what: str, b: int, n: int, h: int) -> None:
+    if b * h * -(-n // 64) * 64 > MAX_GRID_X:
+        raise ValueError(f"the attention {what} takes B * H * N < 2^31 (its "
+                         f"grid and row coordinates), got B {b}, H {h}, N "
+                         f"{n} ({SHAPE_QUEUE})")
+
+
+def _offsets(*sizes: int) -> tuple:
+    """Offsets of consecutive regions of ``sizes`` bytes, and their end."""
+    offsets, at = [], 0
+    for size in sizes:
+        offsets.append(at)
+        at += size
+    return tuple(offsets), at
 
 
 def flash_fwd_plan(b: int, n: int, h: int, d: int, layout: str) -> FwdPlan:
@@ -123,22 +151,79 @@ def flash_fwd_plan(b: int, n: int, h: int, d: int, layout: str) -> FwdPlan:
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
     d_kernel = fwd_head_dim(d)
-    if b * h > MAX_GRID_Y:
-        raise ValueError(f"the attention forward takes B * H <= {MAX_GRID_Y} "
-                         f"(the grid's y), got {b * h} ({SHAPE_QUEUE})")
-    bq = 128 if b * h * -(-n // 128) >= FWD_SMS else 64
+    _check_grid("forward", b, n, h)
+    bq = _block_rows(b, n, h)
     kv_bytes = FWD_STAGES * FWD_BKV * d_kernel * 2
-    offsets, at = [], 0
-    for size in (bq * d_kernel * 2, kv_bytes, kv_bytes,
-                 bq * FWD_WINDOW_BYTES, (2 * FWD_STAGES + 1) * 8):
-        offsets.append(at)
-        at += size
+    offsets, at = _offsets(bq * d_kernel * 2, kv_bytes, kv_bytes,
+                           bq * FWD_WINDOW_BYTES, (2 * FWD_STAGES + 1) * 8)
     smem = FWD_ALIGN_SLACK + at
     check_smem("attention forward", smem)
     dims = ((d_kernel, h, n, b) if layout == "bnhd" else (d_kernel, n, h, b))
     return FwdPlan(d_kernel=d_kernel, bq=bq, bkv=FWD_BKV, stages=FWD_STAGES,
                    grid=(-(-n // bq), b * h), smem=smem,
-                   offsets=tuple(offsets), tmap_dims=dims)
+                   offsets=offsets, tmap_dims=dims)
+
+
+class BwdPlan(NamedTuple):
+    """How one launch of the backward (K5 or K6's) covers [B, N, H, D]: the
+    head-dim instance ``d_kernel`` (every operand zero-padded to it);
+    ``rows`` rows a block in both passes (64 per consumer warpgroup: query
+    rows in pass 1, keys in pass 2) on a grid of (row tiles, B * H), row
+    tiles fastest, linearised into the grid's x; ``bkv`` keys a tile of
+    pass 1 and 64 queries a tile of pass 2, both through rings of
+    ``stages``; ``nq`` queries a sub-tile of pass 2 (its S^T and dP^T are
+    64 x nq); ``dq_smem`` and ``dkv_smem`` bytes of dynamic shared memory a
+    block of each pass, each tile on a 1024-byte boundary at
+    ``dq_offsets`` (Q, dO, K ring, V ring, dropout windows, barriers) and
+    ``dkv_offsets`` (K, V, Q ring, dO ring, statistics ring, dropout byte
+    tiles, barriers) from the aligned base; ``tmap_dims`` the bf16 tensor
+    maps' dims, innermost first, ordered by the layout."""
+    d_kernel: int
+    rows: int
+    bkv: int
+    nq: int
+    stages: int
+    grid: tuple
+    dq_smem: int
+    dq_offsets: tuple
+    dkv_smem: int
+    dkv_offsets: tuple
+    tmap_dims: tuple
+
+
+def flash_bwd_plan(b: int, n: int, h: int, d: int, layout: str) -> BwdPlan:
+    """The backward kernels' plan for q, k, v, o, dO of batch ``b``, ``n``
+    tokens, ``h`` heads of ``d`` in ``layout``: the forward's block heights
+    (128 rows where b * h * ceil(n / 128) fills the card's 132 SMs), and
+    pass 2's sub-tiles of 32 queries at D = 128 (the dK and dV accumulators
+    take 128 registers a thread there), else 64. Raises where the kernels
+    do not take the shape."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+    d_kernel = fwd_head_dim(d)
+    _check_grid("backward", b, n, h)
+    rows = _block_rows(b, n, h)
+    tile = FWD_BKV * d_kernel * 2
+    block = rows * d_kernel * 2
+    nq = 64 if d_kernel == 64 else 32
+    barriers = (2 * BWD_STAGES + 1) * 8
+    dq_offsets, at = _offsets(block, block, BWD_STAGES * tile,
+                              BWD_STAGES * tile, rows * FWD_WINDOW_BYTES,
+                              barriers)
+    dq_smem = FWD_ALIGN_SLACK + at
+    consumers = rows // 64
+    dkv_offsets, at = _offsets(block, block, BWD_STAGES * tile,
+                               BWD_STAGES * tile,
+                               BWD_STAGES * 2 * BWD_STAT_BYTES,
+                               consumers * 2 * nq * FWD_WINDOW_BYTES,
+                               barriers)
+    dkv_smem = FWD_ALIGN_SLACK + at
+    check_smem("attention backward", max(dq_smem, dkv_smem))
+    dims = ((d_kernel, h, n, b) if layout == "bnhd" else (d_kernel, n, h, b))
+    return BwdPlan(d_kernel=d_kernel, rows=rows, bkv=FWD_BKV, nq=nq,
+                   stages=BWD_STAGES, grid=(-(-n // rows), b * h),
+                   dq_smem=dq_smem, dq_offsets=dq_offsets, dkv_smem=dkv_smem,
+                   dkv_offsets=dkv_offsets, tmap_dims=dims)
 
 
 def pad_head_dim(t: torch.Tensor, d: int) -> torch.Tensor:
@@ -299,8 +384,9 @@ def _fwd_cuda(symbol, layout, q, k, v, *, scale, n_valid, dropout_rate, seed,
 
 def _bwd_cuda(symbol, layout, q, k, v, o, do, lsum, *, scale, n_valid,
               dropout_rate, seed):
-    d_kernel = _check_qkv(q, k, v)
+    _check_qkv(q, k, v)
     b, n, h, d = _dims(q, layout)
+    d_kernel = flash_bwd_plan(b, n, h, d, layout).d_kernel
     check_operand("o", o, torch.bfloat16, q.shape)
     check_operand("do", do, torch.bfloat16, q.shape)
     check_operand("lsum", lsum, torch.float32, (b, h, n))
@@ -339,7 +425,7 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lsum, *, scale: float,
                              n_valid: int, dropout_rate: float = 0.0,
                              seed: int = 0):
     """Launch the Hopper kernel K5 (two passes: dQ with delta, then dK and
-    dV); returns dq, dk, dv [B, N, H, D] bf16."""
+    dV, on TMA + ``wgmma``); returns dq, dk, dv [B, N, H, D] bf16."""
     out = _bwd_cuda("nvt_flash_attention_bwd", "bnhd", q, k, v, o, do, lsum,
                     scale=scale, n_valid=n_valid, dropout_rate=dropout_rate,
                     seed=seed)

@@ -1,4 +1,5 @@
-"""Device-only times of the attention forward (K1, K6) beside SDPA.
+"""Device-only times of the attention forward (K1, K6) and backward (K5,
+K6's) beside SDPA's.
 
 ``chip_smoke.py`` times one call with CUDA events around it, which for a
 call near 0.1 ms also counts the host's enqueue. This script reads the
@@ -15,7 +16,18 @@ take far less), the exp2 floor (B H N n_valid exponentials on 16 MUFU
 lanes a clock on each of 132 SMs at 1.98 GHz) and the host's enqueue time
 per call.
 
+The backward: K5 at batch 1, 8, 32 and 128 at dropout 0 and 0.1 and K6's
+backward at batch 1 and 8 at dropout 0, at the same shapes, on o and the row
+sums from the kernel forward and a seeded dO, each timed by the profiler
+and by one-call CUDA events (median of 25), beside SDPA's backward:
+``torch.autograd.grad`` of ``F.scaled_dot_product_attention`` on the same
+q, k, v and dO at dropout 0, its graph built once outside the timed call.
+Its rate counts 14 B H N^2 D flops a call (the two passes' seven
+products), its bound the 10 B H N^2 D of the minimum five (2.5 times the
+forward's).
+
     python scripts/torch_attention_device_times.py [--iters 20]
+        [--only fwd|bwd]
 
 Needs the card; prints nvidia-smi's name and power limit first.
 """
@@ -44,6 +56,8 @@ EXP2_PER_S = 132 * 16 * 1.98e9
 # (kernel, layout, batches, dropout rates)
 CASES = (("K1", "bnhd", (1, 8, 32, 128), (0.0, 0.1)),
          ("K6", "bhnd", (1, 8), (0.0,)))
+BWD_CASES = (("K5", "bnhd", (1, 8, 32, 128), (0.0, 0.1)),
+             ("K6 bwd", "bhnd", (1, 8), (0.0,)))
 
 
 def operands(b: int, d: int, layout: str, seed: int = 0) -> list:
@@ -86,6 +100,74 @@ def measure(qkv: list, layout: str, rate: float, iters: int) -> dict:
             "library_enqueue_us": enqueue_us(lib, 4 * iters)}
 
 
+def events_ms(fn, warmup: int = 3, runs: int = 25) -> float:
+    """Median milliseconds of one call of ``fn`` by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def bwd_calls(qkv: list, layout: str, rate: float, seed: int = 1):
+    """The backward kernel's call on qkv (o and the row sums from the kernel
+    forward, a seeded dO) and SDPA's backward on the same q, k, v, dO at
+    dropout 0, its graph built once here."""
+    d = qkv[0].shape[-1]
+    kw = dict(scale=d ** -0.5, n_valid=N, dropout_rate=rate, seed=1234)
+    fwd = (fa.flash_attention_cuda if layout == "bnhd"
+           else fa.flash_attention_bhnd_cuda)
+    bwd = (fa.flash_attention_bwd_cuda if layout == "bnhd"
+           else fa.flash_attention_bhnd_bwd_cuda)
+    o, lsum = fwd(*qkv, return_stats=True, **kw)
+    do = operands(qkv[0].shape[0], d, layout, seed)[0]
+    heads_first = [t.transpose(1, 2) if layout == "bnhd" else t
+                   for t in qkv + [do]]
+    leaves = [t.detach().requires_grad_() for t in heads_first[:3]]
+    out = F.scaled_dot_product_attention(*leaves, scale=d ** -0.5)
+    return (lambda: bwd(*qkv, o, do, lsum, **kw),
+            lambda: torch.autograd.grad(out, leaves, heads_first[3],
+                                        retain_graph=True))
+
+
+def measure_bwd(qkv: list, layout: str, rate: float, iters: int) -> dict:
+    """As :func:`measure` for the backward, with one-call event times."""
+    kernel, lib = bwd_calls(qkv, layout, rate)
+    dev, lib_dev = device_us(kernel, iters), device_us(lib, iters)
+    return {"device_ms": sum(dev.values()) / 1e3 if dev else None,
+            "library_device_ms": (sum(lib_dev.values()) / 1e3 if lib_dev
+                                  else None),
+            "ms": events_ms(kernel), "library_ms": events_ms(lib),
+            "passes_us": dev,
+            "enqueue_us": enqueue_us(kernel, 4 * iters),
+            "library_enqueue_us": enqueue_us(lib, 4 * iters)}
+
+
+def bwd_line(name: str, b: int, d: int, rate: float, m: dict) -> str:
+    flop = 14 * b * HEADS * N * N * d
+    bound_ms = 10 * b * HEADS * N * N * d / PEAK_BF16 * 1e3
+
+    def ms(t):
+        return ("not measured" if t is None
+                else f"{t:.4f} ms ({flop / t / 1e9:.1f} TFLOP/s)")
+
+    passes = ", ".join(f"{k[:40]} {v:.1f} us"
+                       for k, v in sorted(m["passes_us"].items()))
+    return (f"{name} B {b} N {N} H {HEADS} D {d} dropout {rate}: device "
+            f"{ms(m['device_ms'])} [{passes}], events {m['ms']:.4f} ms; SDPA "
+            f"backward device {ms(m['library_device_ms'])}, events "
+            f"{m['library_ms']:.4f} ms; bound {bound_ms:.4f} ms; enqueue "
+            f"{m['enqueue_us']:.1f} us a call (SDPA "
+            f"{m['library_enqueue_us']:.1f})")
+
+
 def line(name: str, b: int, d: int, rate: float, m: dict) -> str:
     flop = 4 * b * HEADS * N * N * d
     bound_ms = flop / PEAK_BF16 * 1e3
@@ -104,6 +186,8 @@ def line(name: str, b: int, d: int, rate: float, m: dict) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--only", choices=("fwd", "bwd"), default=None,
+                    help="time only the forward or only the backward")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_attention_device_times: needs the card", file=sys.stderr)
@@ -111,16 +195,21 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip())
-    for name, layout, batches, rates in CASES:
-        for d in (64, 128):
-            for b in batches:
-                qkv = operands(b, d, layout)
-                for rate in rates:
-                    print(line(name, b, d, rate,
-                               measure(qkv, layout, rate, args.iters)),
-                          flush=True)
-                del qkv
-                torch.cuda.empty_cache()
+    for cases, measure_fn, line_fn, what in (
+            (CASES, measure, line, "fwd"),
+            (BWD_CASES, measure_bwd, bwd_line, "bwd")):
+        if args.only not in (None, what):
+            continue
+        for name, layout, batches, rates in cases:
+            for d in (64, 128):
+                for b in batches:
+                    qkv = operands(b, d, layout)
+                    for rate in rates:
+                        print(line_fn(name, b, d, rate,
+                                      measure_fn(qkv, layout, rate,
+                                                 args.iters)), flush=True)
+                    del qkv
+                    torch.cuda.empty_cache()
     return 0
 
 

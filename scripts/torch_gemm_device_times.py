@@ -42,8 +42,14 @@ SWEEP_K = (256, 512, 1024, 2048, 4096)
 
 def device_us(fn, iters: int) -> dict:
     """Mean device microseconds per call of each kernel ``fn`` launches,
-    over ``iters`` calls after a warm-up. A trace that comes back without
-    kernels is taken again, up to three times; then {} (not measured)."""
+    over ``iters`` calls after a warm-up: the kernel's mean over the
+    launches the trace recorded, times its launches a call. Traces on the
+    card's machine come back short of some launches, more often the more
+    traces a process has taken, so the launches a call are the recorded
+    count over ``iters``, rounded, and at least 1 (exact for a complete
+    trace; right for a kernel launched once a call however many records
+    are lost). A trace that comes back without kernels is taken again, up
+    to three times; then {} (not measured)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
@@ -54,7 +60,8 @@ def device_us(fn, iters: int) -> dict:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        out = {e.key: e.self_device_time_total / iters
+        out = {e.key: e.self_device_time_total / e.count
+               * max(1, round(e.count / iters))
                for e in prof.key_averages()
                if "CUDA" in str(e.device_type)
                and e.self_device_time_total > 0

@@ -89,8 +89,10 @@ def test_fwd_head_dim(d, want):
 def test_flash_fwd_plan_refuses():
     with pytest.raises(ValueError, match="head dim <= 128"):
         fa.flash_fwd_plan(1, 10, 1, 160, "bnhd")
-    with pytest.raises(ValueError, match="B \\* H"):
-        fa.flash_fwd_plan(70000, 10, 1, 64, "bnhd")
+    # B * H is no longer bounded by a grid's y (65535): 70 000 plans, on
+    # the one-dimensional grid.
+    plan = fa.flash_fwd_plan(70000, 10, 1, 64, "bnhd")
+    assert plan.grid == (1, 70000)
     with pytest.raises(ValueError, match="layout"):
         fa.flash_fwd_plan(1, 10, 1, 64, "nbhd")
 

@@ -9,9 +9,10 @@ of the matrix (``models/vit3d.py`` WIDTHS: head dims 16, 32, 64, 80 and
 own count, head dim < 8 on the plain attention; the probes' kernels, K16
 (fused dropout, bit-equal forward and backward) and K17/K18 (the GEMM
 probes: int8 and K18 bit-equal, bf16 within K 2^-23 sum|a||b|); and the
-attention forward K1/K6 on TMA + wgmma at head dims 16-128, n_valid on and
-next to the 64-key tile edges, grids under and over the 132 SMs, with a
-descriptor probe (V one-hot by key) and its shared-memory plan.
+attention forward K1/K6 and backward K5/K6's on TMA + wgmma at head dims
+16-128, n_valid on and next to the 64-key tile edges, grids under and over
+the 132 SMs, with descriptor probes (V one-hot by key, dO one-hot by query),
+repeat calls bit for bit, their shared-memory plans, and B * H past 65535.
 
 These need an NVIDIA GPU with sm_90a and nvcc; elsewhere they skip. Run on
 the card with:
@@ -820,3 +821,121 @@ def test_flash_fwd_smem_plan_matches_the_kernel(cuda):
                        (8, 1001, 8, 128), (1, 130, 2, 16), (8, 1001, 8, 80)]:
         plan = fa.flash_fwd_plan(b, n, h, d, "bnhd")
         assert fn(plan.d_kernel, plan.bq) == plan.smem, (b, n, h, d)
+
+
+# ---------------------------------------------------------------------------
+# K5/K6's backward on TMA + wgmma: head dims (16 and 32 through the zero pad
+# to 64, 80 through the pad to 128), token counts, n_valid on and next to
+# the 64- and 128-key tile edges, dropout, both block heights, repeat calls
+# bit for bit, a descriptor probe, its shared-memory plan; and B * H past
+# 65535 through the forward and the backward.
+# ---------------------------------------------------------------------------
+
+def _bwd_both_layouts(q, k, v, do, kw):
+    """K6's backward on q, k, v, dO [B, H, N, D] (residuals from the plain
+    forward) against its plain version, dK and dV exact zeros past
+    n_valid, a second call equal bit for bit, and K5 on the transposed
+    inputs equal to it bit for bit; launched as counted."""
+    o_p, lsum_p = fa.flash_attention_bhnd_plain(q, k, v, return_stats=True,
+                                                **kw)
+    before = (fa.flash_attention_bwd_cuda.launches,
+              fa.flash_attention_bhnd_bwd_cuda.launches)
+    got = fa.flash_attention_bhnd_bwd_cuda(q, k, v, o_p, do, lsum_p, **kw)
+    want = fa.flash_attention_bhnd_bwd_plain(q, k, v, o_p, do, lsum_p, **kw)
+    _check_grads(got, want)
+    nv = kw["n_valid"]
+    assert not got[1][:, :, nv:].any() and not got[2][:, :, nv:].any()
+    again = fa.flash_attention_bhnd_bwd_cuda(q, k, v, o_p, do, lsum_p, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+    def tr(t):
+        return t.transpose(1, 2).contiguous()
+
+    got1 = fa.flash_attention_bwd_cuda(tr(q), tr(k), tr(v), tr(o_p), tr(do),
+                                       lsum_p, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, tr(g1)) for g, g1 in zip(got, got1))
+    assert (fa.flash_attention_bwd_cuda.launches,
+            fa.flash_attention_bhnd_bwd_cuda.launches) == (before[0] + 1,
+                                                           before[1] + 2)
+    return got, want
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("d,n,n_valid", FWD_CASES)
+def test_flash_bwd_edges(cuda, d, n, n_valid, rate):
+    rng = np.random.default_rng(d * 11 + n + n_valid)
+    q, k, v, do = (_rand(rng, (1, 2, n, d), cuda) for _ in range(4))
+    _bwd_both_layouts(q, k, v, do, {"scale": d ** -0.5, "n_valid": n_valid,
+                                    "dropout_rate": rate, "seed": 45})
+
+
+@pytest.mark.parametrize("b,h,n,d", [(1, 8, 1001, 64), (8, 8, 1001, 64),
+                                     (3, 11, 130, 64), (40, 4, 130, 128),
+                                     (2, 3, 70, 64), (2, 8, 1001, 128)])
+def test_flash_bwd_grids(cuda, b, h, n, d):
+    """Both passes on 64-row blocks (B H ceil(N / 128) under 132) and on
+    128-row blocks, with the kernel's own choice equal to the plan's."""
+    import ctypes
+
+    from neurovit_tpu_torch.ops import _build
+    fn = _build.library().nvt_flash_bwd_block_rows
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int] * 3
+    assert fn(b, n, h) == fa.flash_bwd_plan(b, n, h, d, "bhnd").rows
+    rng = np.random.default_rng(b * h + n + 1)
+    q, k, v, do = (_rand(rng, (b, h, n, d), cuda) for _ in range(4))
+    for rate in (0.0, 0.1):
+        _bwd_both_layouts(q, k, v, do, {"scale": d ** -0.5, "n_valid": n - 3,
+                                        "dropout_rate": rate, "seed": 46})
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_flash_bwd_descriptor_probe(cuda, d, rate):
+    """dO one-hot by query (do[q] = e_(q mod D)) and integer scores in the
+    exp2 domain (q, k in {-1, 0, 1}, scale 1 / log2 e): column c of dV sums
+    P^T m over the queries = c mod D, so a dO read transposed or
+    mis-swizzled as pass 2's MN-major B operand moves whole columns of dV;
+    dP = dO V^T picks one column of V a query, and dQ = dS K reads K as
+    pass 1's MN-major operand."""
+    rng = np.random.default_rng(d + 1)
+    n = 130
+    queries = torch.arange(n, device=cuda)
+    do = torch.zeros(1, 2, n, d, dtype=torch.bfloat16, device=cuda)
+    do[:, :, queries, queries % d] = 1
+    q, k = (torch.tensor(rng.integers(-1, 2, (1, 2, n, d)) * (
+        rng.random((1, 2, n, d)) < 4 / d), dtype=torch.bfloat16, device=cuda)
+        for _ in range(2))
+    v = _rand(rng, (1, 2, n, d), cuda)
+    got, want = _bwd_both_layouts(q, k, v, do, {
+        "scale": 1 / fa.LOG2E, "n_valid": 129, "dropout_rate": rate,
+        "seed": 47})
+    dv, dv_p = got[2].float(), want[2].float()
+    err = (dv - dv_p).abs().amax(dim=(0, 1, 2))
+    assert (err <= 1e-4 + 2 ** -6 * dv_p.abs().amax()).all(), err
+
+
+def test_flash_bwd_smem_plan_matches_the_kernel(cuda):
+    """The wrapper's backward plan counts the shared-memory bytes each pass
+    asks for, at every head dim and block height."""
+    import ctypes
+
+    from neurovit_tpu_torch.ops import _build
+    fn = _build.library().nvt_flash_bwd_smem_bytes
+    fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 3
+    for b, n, h, d in [(1, 1001, 8, 64), (8, 1001, 8, 64), (1, 1001, 8, 128),
+                       (8, 1001, 8, 128), (1, 130, 2, 16), (8, 1001, 8, 80)]:
+        plan = fa.flash_bwd_plan(b, n, h, d, "bnhd")
+        assert fn(plan.d_kernel, plan.rows, 1) == plan.dq_smem, (b, n, h, d)
+        assert fn(plan.d_kernel, plan.rows, 2) == plan.dkv_smem, (b, n, h, d)
+
+
+def test_flash_attention_past_65535_heads(cuda):
+    """B * H = 65 544 (B 8193, H 8, N 16, D 16): more (b, h) than a grid's
+    y could hold; the forward and the backward cover every head."""
+    rng = np.random.default_rng(65544)
+    q, k, v, do = (_rand(rng, (8193, 8, 16, 16), cuda) for _ in range(4))
+    kw = {"scale": 0.25, "n_valid": 15, "dropout_rate": 0.1, "seed": 48}
+    _fwd_both_layouts(q, k, v, kw)
+    _bwd_both_layouts(q, k, v, do, kw)
