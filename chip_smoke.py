@@ -11,7 +11,8 @@ Phases, each printing a line; any failure raises and exits non-zero:
 2. build       compile the kernels from neurovit_tpu_torch/csrc; from the
                build's log, every ptxas note on a kernel (C7514, wgmma
                serialised, among them) and every kernel that spills, and
-               the registers of the attention backward's instances
+               the registers of the attention backward's instances and of
+               K12's passes
 3. kernels     each kernel against its plain PyTorch version on the card, at
                the flagship shapes (batch 8 x 1001 tokens), with CUDA-event
                timings of both: the forwards K1-K4 at dropout 0, K1, K3 and
@@ -20,13 +21,18 @@ Phases, each printing a line; any failure raises and exits non-zero:
                [B, H, N, D] attention) forward at n_valid 1001 and 900 and
                at dropout 0.1 and backward at dropout 0 and 0.1, each also
                timed beside K1 or K5 on the transposed inputs, and the int8
-               kernels K10-K13 (K13 also at n_valid 900), each timed beside
-               its bf16 counterpart (K2, K3, K4, K1) on the same inputs;
-               then the profiler's device times of K1 and K6 (and K1 at
-               dropout 0.1) beside SDPA's in both layouts, the enqueue time
-               per call and the exp2 floor, and of K5 (dropout 0.1 and 0)
-               and K6's backward beside SDPA's backward
-               (scripts/torch_attention_device_times.py)
+               kernels K10-K13 (K13 also at n_valid 900; K12 also at 130
+               rows, at dim 1280 / mlp 5120 and dim 1024 / mlp 8192 at
+               batch 2, and on all-zero rows, which give bf16(b2), and two
+               calls bit-equal), each timed beside its bf16 counterpart
+               (K2, K3, K4, K1) on the same inputs; then the profiler's
+               device times of K1 and K6 (and K1 at dropout 0.1) beside
+               SDPA's in both layouts, the enqueue time per call and the
+               exp2 floor, and of K5 (dropout 0.1 and 0) and K6's backward
+               beside SDPA's backward
+               (scripts/torch_attention_device_times.py), and of K12's four
+               passes beside K17 int8 at its two GEMM shapes
+               (scripts/torch_int8_mlp_device_times.py)
 4. widths      every ViT width of the matrix (models/vit3d.py WIDTHS: the
                smoke model, head dims 32, 80 and 128, ViT-S/B/L and the
                flagship) at batch 2 x 1001 tokens through K1-K13 against the
@@ -377,11 +383,26 @@ def attention_device_times(results: dict, qkv: list, qkv_h: list,
                 f"{m['library_enqueue_us']:.1f}); {card}")
 
 
+def int8_mlp_device_times(results: dict, args: tuple, card: str) -> None:
+    """K12's device time on the kernel phase's operands, pass by pass
+    (``scripts/torch_int8_mlp_device_times.py``), into its result; K17
+    int8 at the two GEMM shapes logged beside it."""
+    times = script("torch_int8_mlp_device_times")
+    m = times.measure(args, 10)
+    results["int8_mlp_block"]["device_ms"] = m["device_ms"]
+    log("kernels", times.line(f"int8_mlp_block at B={B} N={N}", m)
+        + f", bound {results['int8_mlp_block']['bound_ms']:.4f} ms; {card}")
+    for shape, dev in times.yardstick(B * N, DIM, MLP, 10).items():
+        log("kernels", f"K17 int8 {shape}: " + (", ".join(
+            f"{k} {us:.1f} us" for k, us in dev.items()) or
+            "device not measured (no kernels traced)") + f"; {card}")
+
+
 def build_notes(lib) -> None:
     """Log, from the build's compiler output, every ptxas note on a kernel
     (C7514 and C7512, wgmma serialised; C7508, setmaxnreg ignored) and
     every kernel that spills, with its name, and the registers of each
-    instance of the attention backward."""
+    instance of the attention backward and of K12's four passes."""
     from neurovit_tpu_torch.ops import _build
     path = _build.build_log(lib)
     if not path.exists():
@@ -399,7 +420,7 @@ def build_notes(lib) -> None:
     except OSError:
         pass
     for source, fn, regs, stores, loads in kernels:
-        if stores or loads or "flash_bwd" in fn:
+        if stores or loads or "flash_bwd" in fn or source == "int8_mlp.cu":
             log("build", f"{source} {readable.get(fn, fn)}: {regs} "
                 f"registers, spill stores {stores} B, spill loads {loads} B")
     for source, fn, line in notes:
@@ -489,6 +510,25 @@ def kernel_phase(card: str) -> dict:
     out8 = q8.quantize_weight(wout.float())
     mlp8 = (*q8.quantize_weight(w1.float()), b1,
             *q8.quantize_weight(w2.float()), b2)
+    # K12 beyond the flagship: a ragged last row tile (130 rows), the two
+    # widths the wmma version refused (ViT-H, mlp 8192) at batch 2, and
+    # all-zero rows of x with beta = b1 = 0 (u and g all zero: amax 0,
+    # scale 1) at a tile's first and last row.
+    mlp8_more = {"130 rows": (x[:1, :130].contiguous(), *ln, *mlp8)}
+    for dim_, hid_ in ((1280, 5120), (1024, 8192)):
+        xw = t(2, N, dim_)
+        mlp8_more[f"dim {dim_} mlp {hid_}"] = (
+            xw, t(dim_, scale=0.1, dtype=torch.float32, offset=1.0),
+            t(dim_, scale=0.1, dtype=torch.float32),
+            *q8.quantize_weight(w(hid_, dim_)),
+            t(hid_, scale=0.03, dtype=torch.float32),
+            *q8.quantize_weight(w(dim_, hid_)),
+            t(dim_, scale=0.02, dtype=torch.float32))
+    x0 = x.clone()
+    x0[0, [0, 127, 128, 1000]] = 0
+    mlp8_more["zero rows, beta = b1 = 0"] = (
+        x0, ln[0], torch.zeros_like(ln[1]), mlp8[0], mlp8[1],
+        torch.zeros_like(b1), *mlp8[3:])
     # K14/K15 at the ResNet stem's shape: continuous values, and post-ReLU
     # zeros and small integers in bf16, where most windows tie.
     pools = {"continuous": t(*POOL_SHAPE),
@@ -580,7 +620,10 @@ def kernel_phase(card: str) -> dict:
              lambda: q8.int8_outproj_residual_plain(x, attn, *out8, bout))],
         "int8_mlp_block": [
             ("", lambda: q8.int8_mlp_block_cuda(x, *ln, *mlp8),
-             lambda: q8.int8_mlp_block_plain(x, *ln, *mlp8))],
+             lambda: q8.int8_mlp_block_plain(x, *ln, *mlp8)),
+            *[(label, lambda a=a: q8.int8_mlp_block_cuda(*a),
+               lambda a=a: q8.int8_mlp_block_plain(*a))
+              for label, a in mlp8_more.items()]],
         "int8_flash_attention": [
             (f"n_valid {n_valid}", lambda n_valid=n_valid:
              q8.int8_flash_attention_cuda(*qkv, scale=scale, n_valid=n_valid),
@@ -736,7 +779,20 @@ def kernel_phase(card: str) -> dict:
         results[name].update(max_abs_err=max_abs, max_rel_err=max_rel)
         log("kernels", f"{name}: max abs err {max_abs:.3e}, max rel err "
             f"{max_rel:.3e} over {len(calls)} cases; {card}")
+    y0 = q8.int8_mlp_block_cuda(*mlp8_more["zero rows, beta = b1 = 0"])
+    if not torch.equal(y0[0, [0, 127, 128, 1000]],
+                       b2.to(torch.bfloat16).expand(4, -1)):
+        raise AssertionError("int8_mlp_block: an all-zero row is not bf16(b2)")
+    for label, a in (("flagship", (x, *ln, *mlp8)),
+                     ("130 rows", mlp8_more["130 rows"])):
+        if not torch.equal(q8.int8_mlp_block_cuda(*a),
+                           q8.int8_mlp_block_cuda(*a)):
+            raise AssertionError(f"int8_mlp_block {label}: two calls differ")
+    log("kernels", "int8_mlp_block: all-zero rows give bf16(b2); two calls "
+        "bit-equal at the flagship and at 130 rows")
+    del mlp8_more, x0, y0
     attention_device_times(results, qkv, qkv_h, card)
+    int8_mlp_device_times(results, (x, *ln, *mlp8), card)
     return results
 
 

@@ -1,4 +1,4 @@
-// int8 residual MLP block (K12), serving only.
+// int8 residual MLP block (K12), serving only, on TMA + wgmma.
 //
 // Replaces the TPU kernel neurovit_tpu/ops/int8_serving.py:173
 // (_mlp_kernel, launched at :263 by int8_mlp_block):
@@ -10,167 +10,352 @@
 //   z = float(g8 . W2^T) * s2_row * s2_col + b2
 //   y = bf16(z + x)
 // W1 [hid, dim] and W2 [dim, hid] are torch-layout int8 weights with
-// per-output-channel scales s1_col [hid] and s2_col [dim].
+// per-output-channel scales s1_col [hid] and s2_col [dim]. Both are
+// K-major as they lie, so wgmma reads them with no transpose.
 //
-// What bounds it on the H100: 4*M*dim*hid int8 operations, compute-bound
-// on the int8 tensor cores. The hard part is the second rowquant: it needs
-// the amax of g over all hid (2048) columns before any column of g can be
-// quantized, and the f32 g of a row block does not fit beside the GEMM
-// tiles in shared memory (64 rows x 2048 x 4 bytes = 512 KB; K4 keeps g as
-// bf16, which this scheme must not round to). This kernel makes one f32
-// round trip of g through device memory instead, as K7 and K9 do with du:
-// a block owns 32 rows; the GEMM1 epilogue writes each tile's g to the
-// scratch gbuf [M, hid] and folds |g| into a per-row amax in shared memory
-// (atomicMax on the bit pattern of a non-negative float, exact and
-// order-free); once the last tile is done, the block reads its own rows
-// back (mostly from L2), quantizes them into int8 codes in shared memory
-// where u's codes were, and runs GEMM2 from there. The round trip costs 8
-// bytes per hidden element against the 2*dim int8 operations that made
-// it; a second pass over GEMM1 for the amax alone would cost 50 % more
-// operations instead. Grid: ceil(M/32) blocks of eight warps. Widths are
-// multiples of 16 (dim <= 1024; hid has no bound but shared memory's, 32 x
-// hid bytes of codes: ViT-L's 4096 takes 146 KB in all): codes past dim and
-// hid are 0 up to the k tile, and the last column tile of each GEMM is
-// masked.
+// What bounds it on the H100: 4 M dim hid int8 operations (0.034 ms at
+// 1,979 TOP/s for the flagship block at batch 8, M = 8008, dim 1024, hid
+// 2048), and, in this design, the bytes of g's round trip through device
+// memory: 8 bytes per hidden element written and read (131 MB at that
+// shape, 0.039 ms at 3.35 TB/s) beside x, y and the codes.
+//
+// Why four launches. g must be quantized with the amax of its whole hid
+// row, which spans hid / 128 column tiles of fc1; on Hopper those tiles
+// are different blocks, and the f32 g of a row block does not fit in
+// shared memory beside the GEMM ring. So the row's amax is a second,
+// exact pass, with no atomics (the max does not depend on order, so every
+// code is deterministic):
+//   1. ln_rowquant: x -> u8 [M, dim], s1_row [M]; one warp per row, the
+//      row read from L1/L2 once for each statistic, so any dim is taken.
+//   2. fc1: hopper_gemm.cuh Mainloop<true, 128, 128, 3> over ceil(M / 128) x
+//      ceil(hid / 128) tiles, A = u8, Bt = W1. The epilogue dequantizes,
+//      adds b1, takes GELU, writes g f32 [M, hid] in 8-byte pairs and the
+//      amax of |g| over the tile's 128 columns of each row into gmax [M,
+//      ceil(hid / 128)] (a quad's shuffle, no atomics).
+//   3. g_rowquant: s2_row from gmax's row, then g -> g8 [M, hid] reading
+//      g once; one warp per row, any hid.
+//   4. fc2: the same mainloop over ceil(M / 128) x ceil(dim / 128)
+//      tiles, A = g8, Bt = W2; the epilogue is y = bf16((dequant + b2) +
+//      x), K18's dequant epilogue with the bias and the residual.
+// TMA zero-fills the boxes past M, dim and hid, so ragged edges need no
+// masked loads; the epilogues mask rows >= M and columns past N. A split
+// that keeps g in L2 (a persistent fc1 walking a row block's column
+// tiles, or pass 3 folded into fc2's producer) is later work.
+//
+// Rounding points are the JAX kernel's and the plain version's: LN's mean
+// and mean of squared deviations in f32, rsqrt(var + eps), xhat * gamma +
+// beta; scale = amax / 127 (1 where amax is 0); code = rint(v / scale)
+// clamped to +-127, an IEEE division; dequant (float(acc) * s_row) *
+// s_col then + b, each rounded (no contraction).
+//
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; profiler device times from
+// scripts/torch_int8_mlp_device_times.py, two runs): at batch 8 the four
+// passes take 0.1717-0.1735 ms, ln_rowquant 18.6-18.7 us, fc1 68.8-69.5,
+// g_rowquant 29.7-30.1, fc2 54.6-55.2; K17 int8's GEMM kernel alone takes
+// 49.3-49.7 us at fc1's shape and 35.1-38.4 at fc2's. The single wmma
+// kernel this replaces took 0.7149 ms by one-call events. With a 4-stage
+// ring (one GEMM block an SM) fc1 and fc2 took 88.8-91.4 and 65.9-68.1
+// us; with 8-column lane chunks in the row passes and scalar gamma / beta
+// loads, pass 1 took 39.4-40.7 and pass 3 36.9-37.8.
+#include "hopper_gemm.cuh"
 #include "int8.cuh"
 
 namespace nvt {
 namespace {
 
-constexpr int kBM = 32, kBN = 128, kBK = 64;
-using Gemm = TileGemmI8<kBM, kBN, kBK, 2, 4>;
+constexpr int kRowWarps = 8;             // rows a block of passes 1 and 3
+constexpr int kBM = 128, kBN = 128;      // the GEMMs' output tile
+// Three stages (97 KiB of ring) let two GEMM blocks share an SM, so one
+// block's epilogue runs under the other's mainloop.
+constexpr int kStages = 3;
+using Loop = hopper::Mainloop<true, kBM, kBN, kStages>;
 
-__global__ void __launch_bounds__(Gemm::kThreads)
-    int8_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
-                    const float* __restrict__ beta,
-                    const int8_t* __restrict__ w1,
+// Scratch of one call, one allocation: g first (f32, the largest), then
+// u8, g8, gmax and the two row-scale vectors, each on a 256-byte boundary.
+struct Scratch {
+  size_t g, u8, g8, gmax, s1_row, s2_row, bytes;
+  Scratch(int M, int dim, int hid) {
+    const size_t m = static_cast<size_t>(M);
+    const size_t tiles = static_cast<size_t>((hid + kBN - 1) / kBN);
+    size_t at = 0;
+    auto take = [&](size_t n) {
+      const size_t here = at;
+      at = round_up(at + n, 256);
+      return here;
+    };
+    g = take(m * hid * sizeof(float));
+    u8 = take(m * dim);
+    g8 = take(m * hid);
+    gmax = take(m * tiles * sizeof(float));
+    s1_row = take(m * sizeof(float));
+    s2_row = take(m * sizeof(float));
+    bytes = at;
+  }
+};
+
+// Four int8 codes, one 4-byte store.
+__device__ __forceinline__ uint32_t pack4(const int (&c)[4]) {
+  uint32_t word = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    word |= (static_cast<uint32_t>(c[i]) & 0xFFu) << (8 * i);
+  return word;
+}
+
+// Pass 1: (u8, s1_row) = rowquant(LN(x) * gamma + beta), one warp a row.
+// Lane l takes columns 128 i + 4 l .. + 3 of each step i, so each load of
+// x (8 bytes), gamma and beta (16 bytes) is one contiguous run across the
+// warp; the row is read again for each statistic and for the codes, from
+// L1 or L2.
+__global__ void __launch_bounds__(kRowWarps * 32)
+    ln_rowquant_kernel(const bf16* __restrict__ x,
+                       const float* __restrict__ gamma,
+                       const float* __restrict__ beta, int8_t* __restrict__ u8,
+                       float* __restrict__ s1_row, int M, int dim, float eps) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kRowWarps + threadIdx.x / 32;
+  if (row >= M) return;
+  const bf16* xr = x + static_cast<size_t>(row) * dim;
+  auto load = [&](int c, float (&v)[4]) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(xr + c);
+    const float2 lo = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 hi = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    v[0] = lo.x, v[1] = lo.y, v[2] = hi.x, v[3] = hi.y;
+  };
+  float s = 0.f;
+  for (int c = lane * 4; c < dim; c += 128) {
+    float v[4];
+    load(c, v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s += v[i];
+  }
+  const float mean = warp_sum(s) / dim;
+  float ss = 0.f;
+  for (int c = lane * 4; c < dim; c += 128) {
+    float v[4];
+    load(c, v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float d = v[i] - mean;
+      ss += d * d;
+    }
+  }
+  const float rstd = rsqrtf(warp_sum(ss) / dim + eps);
+  // u = LN(x) * gamma + beta at columns c .. c + 3.
+  auto u_at = [&](int c, float (&u)[4]) {
+    float v[4];
+    load(c, v);
+    const float4 gm = *reinterpret_cast<const float4*>(gamma + c);
+    const float4 bt = *reinterpret_cast<const float4*>(beta + c);
+    const float g4[4] = {gm.x, gm.y, gm.z, gm.w};
+    const float b4[4] = {bt.x, bt.y, bt.z, bt.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      u[i] = __fadd_rn(__fmul_rn(__fmul_rn(v[i] - mean, rstd), g4[i]),
+                       b4[i]);
+  };
+  float amax = 0.f;
+  for (int c = lane * 4; c < dim; c += 128) {
+    float u[4];
+    u_at(c, u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) amax = fmaxf(amax, fabsf(u[i]));
+  }
+  const float scale = quant_scale(warp_max(amax));
+  int8_t* out = u8 + static_cast<size_t>(row) * dim;
+  for (int c = lane * 4; c < dim; c += 128) {
+    float u[4];
+    u_at(c, u);
+    int codes[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) codes[i] = quant_code(u[i], scale, -127.f);
+    *reinterpret_cast<uint32_t*>(out + c) = pack4(codes);
+  }
+  if (lane == 0) s1_row[row] = scale;
+}
+
+// Pass 2: g = GELU(dequant(u8 . W1^T) + b1) and each row's amax of |g| over
+// the tile's columns. The thread's accumulator pairs lie as wgmma's m64nN
+// layout puts them (hopper_gemm.cuh, Wgmma): rows r0 and r0 + 8, columns
+// 8 j + c0 and + 1; the four threads of a quad hold a row's 128 columns.
+__global__ void __launch_bounds__(Loop::kThreads)
+    fc1_gelu_kernel(const __grid_constant__ CUtensorMap tu8,
+                    const __grid_constant__ CUtensorMap tw1,
+                    const float* __restrict__ s1_row,
                     const float* __restrict__ s1_col,
-                    const float* __restrict__ b1,
-                    const int8_t* __restrict__ w2,
-                    const float* __restrict__ s2_col,
-                    const float* __restrict__ b2, bf16* __restrict__ y,
-                    float* __restrict__ gbuf, int M, int dim, int hid,
-                    float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int dim_k = static_cast<int>(round_up(dim, kBK));
-  const int hid_k = static_cast<int>(round_up(hid, kBK));
-  const int width = dim_k > hid_k ? dim_k : hid_k;
-  const size_t q_bytes = round_up(static_cast<size_t>(kBM) * width, 128);
-  // Q8 holds u's codes for GEMM1, then g's codes for GEMM2.
-  int8_t* Q8 = reinterpret_cast<int8_t*>(smem);
-  float* s1_row = reinterpret_cast<float*>(smem + q_bytes);
-  float* s2_row = s1_row + kBM;
-  int* amax_bits = reinterpret_cast<int*>(s2_row + kBM);
-  void* scratch = smem + q_bytes + round_up(3 * kBM * sizeof(float), 128);
-  const int* C = reinterpret_cast<const int*>(scratch);
-
-  const int row0 = blockIdx.x * kBM;
-  if (threadIdx.x < kBM) amax_bits[threadIdx.x] = 0;
-  rowquant_rows<kBM, Gemm::kThreads, true>(x, gamma, beta, Q8, s1_row, row0,
-                                           M, dim, dim_k, eps);
-
-  // g = GELU(h), tile by tile, to gbuf; its per-row amax into amax_bits.
-  for (int n0 = 0; n0 < hid; n0 += kBN) {
-    Gemm::run(Q8, w1, dim, n0, dim, scratch, hid);
-    for (int e = threadIdx.x; e < kBM * kBN / 8; e += Gemm::kThreads) {
-      const int r = e / (kBN / 8), c = (e % (kBN / 8)) * 8;
-      const int row = row0 + r;
-      if (row >= M || n0 + c >= hid) continue;
-      float g[8];
-      float m = 0.f;
+                    const float* __restrict__ b1, float* __restrict__ g,
+                    float* __restrict__ gmax, int M, int dim, int hid) {
+  extern __shared__ unsigned char smem[];
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  int acc[Loop::kAccRegs];
+  if (!Loop::run(&tu8, &tw1, m0, n0, dim, smem, acc)) return;
+  const int t = threadIdx.x % 128;
+  const int r0 = (threadIdx.x / 128) * 64 + (t / 32) * 16 + (t % 32) / 4;
+  const int c0 = 2 * (t % 4);
+  const int tiles = gridDim.x;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float h = __fadd_rn(
-            dequant(C[r * Gemm::LDC + c + i], s1_row[r], s1_col[n0 + c + i]),
-            b1[n0 + c + i]);
-        g[i] = gelu_erf(h);
-        m = fmaxf(m, fabsf(g[i]));
-      }
-      atomicMax(amax_bits + r, __float_as_int(m));
-      float4* dst = reinterpret_cast<float4*>(
-          gbuf + static_cast<size_t>(row) * hid + n0 + c);
-      dst[0] = make_float4(g[0], g[1], g[2], g[3]);
-      dst[1] = make_float4(g[4], g[5], g[6], g[7]);
-    }
-  }
-  // The block's gbuf writes and amax are visible to all its threads.
-  __syncthreads();
-
-  // (g8, s2_row) = rowquant(g): one warp per row, reading the row back.
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < kBM; r += Gemm::kThreads / 32) {
-    const int row = row0 + r;
-    const float scale = quant_scale(__int_as_float(amax_bits[r]));
-    if (lane == 0) s2_row[r] = scale;
-    for (int c = lane * 8; c < hid_k; c += 256) {
-      int codes[8] = {};
-      if (row < M && c < hid) {
-        const float4* src = reinterpret_cast<const float4*>(
-            gbuf + static_cast<size_t>(row) * hid + c);
-        const float4 lo = src[0], hi = src[1];
-        const float g[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  for (int half = 0; half < 2; ++half) {
+    const int row = m0 + r0 + 8 * half;
+    float m = 0.f;
+    if (row < M) {
+      const float s = s1_row[row];
+      float* grow = g + static_cast<size_t>(row) * hid;
 #pragma unroll
-        for (int i = 0; i < 8; ++i) codes[i] = quant_code(g[i], scale, -127.f);
+      for (int j = 0; j < kBN / 8; ++j) {
+        const int col = n0 + 8 * j + c0;
+        if (col >= hid) continue;   // hid is even: col + 1 < hid too
+        const float2 sc = *reinterpret_cast<const float2*>(s1_col + col);
+        const float2 bc = *reinterpret_cast<const float2*>(b1 + col);
+        const float g0 = gelu_erf(
+            __fadd_rn(dequant(acc[4 * j + 2 * half], s, sc.x), bc.x));
+        const float g1 = gelu_erf(
+            __fadd_rn(dequant(acc[4 * j + 2 * half + 1], s, sc.y), bc.y));
+        *reinterpret_cast<float2*>(grow + col) = make_float2(g0, g1);
+        m = fmaxf(m, fmaxf(fabsf(g0), fabsf(g1)));
       }
-      *reinterpret_cast<uint2*>(Q8 + chunked(r, c, kBM)) = pack_codes(codes);
     }
-  }
-
-  // y = bf16(x + (g8 . W2^T) * s2_row * s2_col + b2).
-  for (int n0 = 0; n0 < dim; n0 += kBN) {
-    Gemm::run(Q8, w2, hid, n0, hid, scratch, dim);
-    for (int e = threadIdx.x; e < kBM * kBN / 8; e += Gemm::kThreads) {
-      const int r = e / (kBN / 8), c = (e % (kBN / 8)) * 8;
-      const int row = row0 + r;
-      if (row >= M || n0 + c >= dim) continue;
-      const size_t off = static_cast<size_t>(row) * dim + n0 + c;
-      float xf[8], out[8];
-      unpack8(*reinterpret_cast<const uint4*>(x + off), xf);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float z = __fadd_rn(
-            dequant(C[r * Gemm::LDC + c + i], s2_row[r], s2_col[n0 + c + i]),
-            b2[n0 + c + i]);
-        out[i] = __fadd_rn(z, xf[i]);
-      }
-      *reinterpret_cast<uint4*>(y + off) = pack8(out);
-    }
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    if (row < M && t % 4 == 0)
+      gmax[static_cast<size_t>(row) * tiles + blockIdx.x] = m;
   }
 }
 
-size_t smem_bytes(int dim, int hid) {
-  const int width = static_cast<int>(round_up(dim > hid ? dim : hid, kBK));
-  return round_up(static_cast<size_t>(kBM) * width, 128) +
-         round_up(3 * kBM * sizeof(float), 128) + Gemm::kScratchBytes;
+// Pass 3: (g8, s2_row) = rowquant(g), the amax from gmax's row, g read once
+// (lane l takes columns 128 i + 4 l .. + 3, one 16-byte load each).
+__global__ void __launch_bounds__(kRowWarps * 32)
+    g_rowquant_kernel(const float* __restrict__ g,
+                      const float* __restrict__ gmax, int8_t* __restrict__ g8,
+                      float* __restrict__ s2_row, int M, int hid, int tiles) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kRowWarps + threadIdx.x / 32;
+  if (row >= M) return;
+  float amax = 0.f;
+  for (int i = lane; i < tiles; i += 32)
+    amax = fmaxf(amax, gmax[static_cast<size_t>(row) * tiles + i]);
+  const float scale = quant_scale(warp_max(amax));
+  const float* grow = g + static_cast<size_t>(row) * hid;
+  int8_t* out = g8 + static_cast<size_t>(row) * hid;
+#pragma unroll 4
+  for (int c = lane * 4; c < hid; c += 128) {
+    const float4 v = *reinterpret_cast<const float4*>(grow + c);
+    const int codes[4] = {quant_code(v.x, scale, -127.f),
+                          quant_code(v.y, scale, -127.f),
+                          quant_code(v.z, scale, -127.f),
+                          quant_code(v.w, scale, -127.f)};
+    *reinterpret_cast<uint32_t*>(out + c) = pack4(codes);
+  }
+  if (lane == 0) s2_row[row] = scale;
+}
+
+// Pass 4: y = bf16((dequant(g8 . W2^T) + b2) + x).
+__global__ void __launch_bounds__(Loop::kThreads)
+    fc2_residual_kernel(const __grid_constant__ CUtensorMap tg8,
+                        const __grid_constant__ CUtensorMap tw2,
+                        const float* __restrict__ s2_row,
+                        const float* __restrict__ s2_col,
+                        const float* __restrict__ b2,
+                        const bf16* __restrict__ x, bf16* __restrict__ y,
+                        int M, int dim, int hid) {
+  extern __shared__ unsigned char smem[];
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  int acc[Loop::kAccRegs];
+  if (!Loop::run(&tg8, &tw2, m0, n0, hid, smem, acc)) return;
+  Loop::for_each_pair(acc, [&](int r, int c, int v0, int v1) {
+    const int row = m0 + r, col = n0 + c;
+    if (row >= M || col >= dim) return;   // dim is even: col + 1 < dim too
+    const size_t at = static_cast<size_t>(row) * dim + col;
+    const float s = s2_row[row];
+    const float2 xf = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(x + at));
+    const float2 sc = *reinterpret_cast<const float2*>(s2_col + col);
+    const float2 bc = *reinterpret_cast<const float2*>(b2 + col);
+    const float z0 = __fadd_rn(dequant(v0, s, sc.x), bc.x);
+    const float z1 = __fadd_rn(dequant(v1, s, sc.y), bc.y);
+    *reinterpret_cast<__nv_bfloat162*>(y + at) =
+        __floats2bfloat162_rn(__fadd_rn(z0, xf.x), __fadd_rn(z1, xf.y));
+  });
+}
+
+cudaError_t launch_all(const bf16* x, const float* gamma, const float* beta,
+                       const int8_t* w1, const float* s1, const float* b1,
+                       const int8_t* w2, const float* s2, const float* b2,
+                       bf16* y, unsigned char* scratch, int M, int dim,
+                       int hid, float eps, cudaStream_t stream) {
+  const Scratch at(M, dim, hid);
+  float* g = reinterpret_cast<float*>(scratch + at.g);
+  int8_t* u8 = reinterpret_cast<int8_t*>(scratch + at.u8);
+  int8_t* g8 = reinterpret_cast<int8_t*>(scratch + at.g8);
+  float* gmax = reinterpret_cast<float*>(scratch + at.gmax);
+  float* s1_row = reinterpret_cast<float*>(scratch + at.s1_row);
+  float* s2_row = reinterpret_cast<float*>(scratch + at.s2_row);
+  // Every map is encoded before the first launch: a failed encode leaves
+  // nothing half done.
+  CUtensorMap tu8, tw1, tg8, tw2;
+  cudaError_t err = hopper::encode_kmajor(&tu8, u8, M, dim, true, kBM);
+  if (err == cudaSuccess)
+    err = hopper::encode_kmajor(&tw1, w1, hid, dim, true, kBN);
+  if (err == cudaSuccess)
+    err = hopper::encode_kmajor(&tg8, g8, M, hid, true, kBM);
+  if (err == cudaSuccess)
+    err = hopper::encode_kmajor(&tw2, w2, dim, hid, true, kBN);
+  if (err == cudaSuccess) err = allow_smem(fc1_gelu_kernel, Loop::kSmemBytes);
+  if (err == cudaSuccess)
+    err = allow_smem(fc2_residual_kernel, Loop::kSmemBytes);
+  if (err != cudaSuccess) return err;
+
+  const int row_blocks = (M + kRowWarps - 1) / kRowWarps;
+  const int m_tiles = (M + kBM - 1) / kBM;
+  const int hid_tiles = (hid + kBN - 1) / kBN;
+  ln_rowquant_kernel<<<row_blocks, kRowWarps * 32, 0, stream>>>(
+      x, gamma, beta, u8, s1_row, M, dim, eps);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  fc1_gelu_kernel<<<dim3(hid_tiles, m_tiles), Loop::kThreads,
+                    Loop::kSmemBytes, stream>>>(tu8, tw1, s1_row, s1, b1, g,
+                                                gmax, M, dim, hid);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  g_rowquant_kernel<<<row_blocks, kRowWarps * 32, 0, stream>>>(
+      g, gmax, g8, s2_row, M, hid, hid_tiles);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  fc2_residual_kernel<<<dim3((dim + kBN - 1) / kBN, m_tiles), Loop::kThreads,
+                        Loop::kSmemBytes, stream>>>(tg8, tw2, s2_row, s2, b2,
+                                                    x, y, M, dim, hid);
+  return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace nvt
 
 // x [M, dim] bf16; gamma, beta [dim] f32; w1 [hid, dim] int8; s1, b1 [hid]
-// f32; w2 [dim, hid] int8; s2, b2 [dim] f32; y [M, dim] bf16; gbuf [M, hid]
-// f32 scratch. dim % 16 == 0, dim <= 1024, hid % 16 == 0; the codes of a
-// 32-row block must fit in shared memory (the launch fails with
-// cudaErrorInvalidValue when they do not).
+// f32; w2 [dim, hid] int8; s2, b2 [dim] f32; y [M, dim] bf16; scratch
+// nvt_int8_mlp_scratch_bytes(M, dim, hid) bytes, 256-byte aligned. dim and
+// hid are multiples of 16 (TMA's 16-byte rows), of any size.
 extern "C" int nvt_int8_mlp(const void* x, const void* gamma, const void* beta,
                             const void* w1, const void* s1, const void* b1,
                             const void* w2, const void* s2, const void* b2,
-                            void* y, void* gbuf, int M, int dim, int hid,
+                            void* y, void* scratch, int M, int dim, int hid,
                             float eps, void* stream) {
   using namespace nvt;
-  if (M < 1 || dim < 16 || dim % 16 != 0 || dim > 1024 || hid < 16 ||
-      hid % 16 != 0)
+  if (M < 1 || dim < 16 || dim % 16 != 0 || hid < 16 || hid % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(dim, hid);
-  cudaError_t err = allow_smem(int8_mlp_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int8_mlp_kernel<<<(M + kBM - 1) / kBM, Gemm::kThreads, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
+  return static_cast<int>(launch_all(
       static_cast<const bf16*>(x), static_cast<const float*>(gamma),
       static_cast<const float*>(beta), static_cast<const int8_t*>(w1),
       static_cast<const float*>(s1), static_cast<const float*>(b1),
       static_cast<const int8_t*>(w2), static_cast<const float*>(s2),
       static_cast<const float*>(b2), static_cast<bf16*>(y),
-      static_cast<float*>(gbuf), M, dim, hid, eps);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<unsigned char*>(scratch), M, dim, hid, eps,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// Bytes of the scratch one call takes (ops/int8_serving.py, mlp_plan).
+extern "C" long long nvt_int8_mlp_scratch_bytes(int M, int dim, int hid) {
+  return static_cast<long long>(nvt::Scratch(M, dim, hid).bytes);
+}
+
+// Dynamic shared memory of a block of either GEMM pass.
+extern "C" long long nvt_int8_mlp_smem_bytes() {
+  return static_cast<long long>(nvt::Loop::kSmemBytes);
 }

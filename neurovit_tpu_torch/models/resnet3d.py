@@ -119,7 +119,15 @@ def _triple(v) -> list:
 class _Conv3d(torch.autograd.Function):
     """``F.conv3d`` without bias, forward and backward both run with TF32
     off: cuDNN reads the flag when each runs, so autograd's own backward of
-    ``F.conv3d`` would follow the global setting, True by default."""
+    ``F.conv3d`` would follow the global setting, True by default.
+
+    On the CPU a bf16 backward runs on the operands' values in f32 and
+    rounds dx and dw to bf16 once: oneDNN's bf16 convolution backward on a
+    CPU with AMX-BF16 gives other bits from call to call on the same
+    operands at some shapes, now and then a NaN (the 64 -> 64 channel 3^3
+    convolution on [4, 64, 2, 3, 3] differed in 199 of 200 calls;
+    ``scripts/torch_resnet_nan_repro.py``). Its f32 backward is
+    deterministic there, and it sums in f32 as the bf16 one does."""
 
     @staticmethod
     def forward(ctx, x, w, stride, padding):
@@ -131,12 +139,16 @@ class _Conv3d(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
+        dtype = x.dtype
+        if x.device.type == "cpu" and dtype == torch.bfloat16:
+            g, x, w = g.float(), x.float(), w.float()
         with _no_tf32():
             dx, dw, _ = torch.ops.aten.convolution_backward(
                 g, x, w, None, ctx.stride, ctx.padding, [1, 1, 1], False,
                 [0, 0, 0], 1, [ctx.needs_input_grad[0],
                                ctx.needs_input_grad[1], False])
-        return dx, dw, None, None
+        return (None if dx is None else dx.to(dtype),
+                None if dw is None else dw.to(dtype), None, None)
 
 
 def conv3d(x: torch.Tensor, weight: torch.Tensor, stride=1,

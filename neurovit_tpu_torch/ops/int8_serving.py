@@ -29,27 +29,28 @@ SERVING-ONLY, as in JAX: there is no backward and no dropout. CPU tensors
 run the plain versions; CUDA tensors run ``csrc/int8_qkv.cu``,
 ``csrc/int8_outproj.cu``, ``csrc/int8_mlp.cu`` and
 ``csrc/int8_attention.cu``. The kernels take widths that are multiples of
-16; a row they quantize (K10's dim, K11's inner, K12's dim) is at most 1024
-wide, held in one warp's registers; K13 takes K1's head dims (8 to 128,
-zero-padded to an instance).
+16; a row that K10 or K11 quantizes (K10's dim, K11's inner) is at most
+1024 wide, held in one warp's registers; K12 takes any such width (four
+launches on the TMA + ``wgmma`` mainloop, :func:`mlp_plan`); K13 takes K1's
+head dims (8 to 128, zero-padded to an instance).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from neurovit_tpu_torch import nn
 from neurovit_tpu_torch.ops.common import (FLOAT, INT, VOID, check_operand,
-                                           check_smem, check_widths,
-                                           gemm_scratch_bytes, launch,
-                                           on_cpu, ptr, round_up)
+                                           check_widths, launch, on_cpu, ptr,
+                                           round_up)
 from neurovit_tpu_torch.ops.flash_attention import (LOG2E,
                                                     MIN_KERNEL_HEAD_DIM,
                                                     _check_qkv, _n_valid,
                                                     _probs, flash_attention,
                                                     pad_head_dim)
+from neurovit_tpu_torch.ops.int8_gemm import ALIGN_SLACK, BOX_BYTES
 
 # Above this sequence length, or below head dim 8, int8_flash_attention
 # takes the bf16 attention (int8_serving.py:343-347: MAX_RESIDENT_N).
@@ -188,12 +189,59 @@ def check_outproj_shapes(dim: int, inner: int) -> None:
 
 
 def check_mlp_shapes(dim: int, hid: int) -> None:
-    """Raise unless K12 takes x [*, dim] and mlp_dim hid: its codes of 32
-    rows x max(dim, hid) sit beside its GEMM tiles in shared memory."""
-    check_widths("int8 MLP", max_width=MAX_ROW, dim=dim)
-    check_widths("int8 MLP", mlp_dim=hid)
-    check_smem("int8 MLP", round_up(32 * round_up(max(dim, hid), 64), 128)
-               + 384 + gemm_scratch_bytes(32))
+    """Raise unless K12 takes x [*, dim] and mlp_dim hid: multiples of 16,
+    the 16-byte rows of its TMA operands, of any size (no row is held
+    whole in registers or shared memory)."""
+    check_widths("int8 MLP", dim=dim, mlp_dim=hid)
+
+
+# K12's passes (csrc/int8_mlp.cu): rows (one warp each) a block of the two
+# row passes, the GEMM passes' square output tile and ring stages (three,
+# so two GEMM blocks share an SM), and the alignment of each piece of the
+# scratch.
+ROW_WARPS, MLP_TILE, MLP_STAGES, SCRATCH_ALIGN = 8, 128, 3, 256
+
+
+class MlpPlan(NamedTuple):
+    """How one K12 call covers x [m, dim] with mlp_dim hid. ``launches``:
+    the four kernels in launch order, each (name, grid, threads, dynamic
+    shared memory bytes), a grid (x, y). ``scratch``: the pieces of the one
+    scratch allocation, name -> (byte offset, bytes), in ``scratch_bytes``
+    bytes. g comes first, [m, hid] f32: the scratch an older checkout's
+    ``nvt_int8_mlp`` takes at the same argument, so
+    ``scripts/torch_kernel_ab.py`` can time either library through this
+    wrapper."""
+    launches: tuple
+    scratch: dict
+    scratch_bytes: int
+
+
+def mlp_plan(m: int, dim: int, hid: int) -> MlpPlan:
+    """K12's plan for m rows (the kernel's own count of the scratch is
+    ``nvt_int8_mlp_scratch_bytes``; the card test holds the two equal).
+    Raises where the kernel does not take the widths."""
+    check_mlp_shapes(dim, hid)
+    if m < 1:
+        raise ValueError(f"the int8 MLP kernel takes at least one row, got "
+                         f"{m}")
+    m_tiles, hid_tiles = -(-m // MLP_TILE), -(-hid // MLP_TILE)
+    rows = -(-m // ROW_WARPS)
+    gemm_threads = 2 * 128 + 32          # two consumer warpgroups + producer
+    gemm_smem = (ALIGN_SLACK + MLP_STAGES * 2 * MLP_TILE * BOX_BYTES
+                 + 2 * MLP_STAGES * 8)
+    launches = (
+        ("ln_rowquant", (rows, 1), ROW_WARPS * 32, 0),
+        ("fc1_gelu", (hid_tiles, m_tiles), gemm_threads, gemm_smem),
+        ("g_rowquant", (rows, 1), ROW_WARPS * 32, 0),
+        ("fc2_residual", (-(-dim // MLP_TILE), m_tiles), gemm_threads,
+         gemm_smem))
+    scratch, at = {}, 0
+    for name, nbytes in (("g", m * hid * 4), ("u8", m * dim),
+                         ("g8", m * hid), ("gmax", m * hid_tiles * 4),
+                         ("s1_row", m * 4), ("s2_row", m * 4)):
+        scratch[name] = (at, nbytes)
+        at = round_up(at + nbytes, SCRATCH_ALIGN)
+    return MlpPlan(launches=launches, scratch=scratch, scratch_bytes=at)
 
 
 def int8_ln_qkv_cuda(x: torch.Tensor, gamma: torch.Tensor,
@@ -245,8 +293,11 @@ def int8_mlp_block_cuda(x: torch.Tensor, gamma: torch.Tensor,
                         beta: torch.Tensor, w1: torch.Tensor,
                         s1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                         s2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """Launch the Hopper kernel K12 on bf16 x [B, N, dim]. It takes an f32
-    scratch [B * N, mlp_dim] for the one round trip of g (csrc/int8_mlp.cu)."""
+    """Launch the Hopper kernel K12 on bf16 x [B, N, dim]: its four passes
+    (csrc/int8_mlp.cu) on the current stream, one call. They share one
+    scratch allocation holding u8, g, g8, the partial amax of g and the two
+    row-scale vectors (:func:`mlp_plan`); the C entry point encodes the
+    four tensor maps and raises through ``launch`` on any failure."""
     b, n, dim = x.shape
     hid = w1.shape[0]
     check_operand("x", x, torch.bfloat16)
@@ -254,13 +305,14 @@ def int8_mlp_block_cuda(x: torch.Tensor, gamma: torch.Tensor,
     check_operand("w2", w2, torch.int8, (dim, hid))
     vecs = _vectors(gamma=(gamma, dim), beta=(beta, dim), s1=(s1, hid),
                     b1=(b1, hid), s2=(s2, dim), b2=(b2, dim))
-    check_mlp_shapes(dim, hid)
+    plan = mlp_plan(b * n, dim, hid)
     y = torch.empty_like(x)
-    gbuf = torch.empty((b * n, hid), dtype=torch.float32, device=x.device)
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
+                          device=x.device)
     launch("nvt_int8_mlp", (VOID,) * 11 + (INT, INT, INT, FLOAT), x,
            ptr(x), ptr(vecs["gamma"]), ptr(vecs["beta"]), ptr(w1),
            ptr(vecs["s1"]), ptr(vecs["b1"]), ptr(w2), ptr(vecs["s2"]),
-           ptr(vecs["b2"]), ptr(y), ptr(gbuf), b * n, dim, hid, nn.LN_EPS)
+           ptr(vecs["b2"]), ptr(y), ptr(scratch), b * n, dim, hid, nn.LN_EPS)
     int8_mlp_block_cuda.launches += 1
     return y
 

@@ -12,7 +12,10 @@ probes: int8 and K18 bit-equal, bf16 within K 2^-23 sum|a||b|); and the
 attention forward K1/K6 and backward K5/K6's on TMA + wgmma at head dims
 16-128, n_valid on and next to the 64-key tile edges, grids under and over
 the 132 SMs, with descriptor probes (V one-hot by key, dO one-hot by query),
-repeat calls bit for bit, their shared-memory plans, and B * H past 65535.
+repeat calls bit for bit, their shared-memory plans, and B * H past 65535;
+and K12 on TMA + wgmma at ragged rows (130, 8008), ViT-H and mlp 8192,
+ragged column tiles, all-zero rows, repeat calls bit for bit and its
+plan's scratch and shared-memory bytes against the kernel's count.
 
 These need an NVIDIA GPU with sm_90a and nvcc; elsewhere they skip. Run on
 the card with:
@@ -386,6 +389,82 @@ def test_int8_mlp_kernel(cuda, m):
            int8_serving.int8_mlp_block_plain(*args))
 
 
+def _int8_mlp_args(rng, m, dim, hid, device, zero_rows=(), zero_bias=False):
+    """K12's operands for x [1, m, dim]; ``zero_rows`` of x are 0, and
+    with ``zero_bias`` beta and b1 are 0 too, so those rows quantize an
+    all-zero u and an all-zero g (amax 0, scale 1)."""
+    x = _rand(rng, (1, m, dim), device)
+    x[0, list(zero_rows)] = 0
+    gamma = _rand(rng, (dim,), device, torch.float32, 0.1, 1.0)
+    beta = _rand(rng, (dim,), device, torch.float32, 0.1)
+    w1, s1 = _int8_weight(rng, hid, dim, device)
+    b1 = _rand(rng, (hid,), device, torch.float32, 0.05)
+    w2, s2 = _int8_weight(rng, dim, hid, device)
+    b2 = _rand(rng, (dim,), device, torch.float32, 0.05)
+    if zero_bias:
+        beta.zero_()
+        b1.zero_()
+    return (x, gamma, beta, w1, s1, b1, w2, s2, b2)
+
+
+# K12 on TMA + wgmma: a ragged last row tile (130), the flagship's rows at
+# batch 8 (8008 = 62 tiles + 72), ViT-H and mlp 8192 (refused by the
+# earlier kernel), a hid and a dim that are not multiples of the 128-wide
+# tile (ragged column tiles in both GEMMs and a K tail in fc2's last box).
+INT8_MLP_CASES = [(130, 1024, 2048), (8008, 1024, 2048), (130, 1280, 5120),
+                  (130, 64, 8192), (200, 1024, 8192), (65, 336, 1360)]
+
+
+@pytest.mark.parametrize("m,dim,hid", INT8_MLP_CASES)
+def test_int8_mlp_kernel_widths(cuda, m, dim, hid):
+    """K12 against plain, one launch-count a call, and two calls bit-equal
+    (no atomics: every code and sum is in a fixed order)."""
+    args = _int8_mlp_args(np.random.default_rng(m + dim + hid), m, dim, hid,
+                          cuda)
+    before = int8_serving.int8_mlp_block_cuda.launches
+    got = int8_serving.int8_mlp_block(*args)
+    _check(got, int8_serving.int8_mlp_block_plain(*args))
+    again = int8_serving.int8_mlp_block(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert int8_serving.int8_mlp_block_cuda.launches == before + 2
+
+
+@pytest.mark.parametrize("zero_bias", [True, False])
+def test_int8_mlp_kernel_zero_rows(cuda, zero_bias):
+    """All-zero rows of x, at a tile's first and last row and in the
+    ragged tile: with beta = b1 = 0, u and g of those rows are all zero
+    (amax 0, scale 1, codes 0) and y is bf16(b2) there exactly."""
+    rows = (0, 127, 128, 129)
+    args = _int8_mlp_args(np.random.default_rng(3), 130, 256, 384, cuda,
+                          zero_rows=rows, zero_bias=zero_bias)
+    got = int8_serving.int8_mlp_block_cuda(*args)
+    _check(got, int8_serving.int8_mlp_block_plain(*args))
+    if zero_bias:
+        want = args[-1].to(torch.bfloat16).expand(len(rows), -1)
+        assert torch.equal(got[0, list(rows)], want)
+
+
+def test_int8_mlp_plan_matches_the_kernel(cuda):
+    """The wrapper's K12 plan counts the scratch and the GEMM passes'
+    shared memory as the kernel does."""
+    import ctypes
+
+    from neurovit_tpu_torch.models.vit3d import WIDTHS
+    from neurovit_tpu_torch.ops import _build
+    lib = _build.library()
+    scratch, smem = lib.nvt_int8_mlp_scratch_bytes, lib.nvt_int8_mlp_smem_bytes
+    scratch.restype, scratch.argtypes = ctypes.c_longlong, [ctypes.c_int] * 3
+    smem.restype, smem.argtypes = ctypes.c_longlong, []
+    widths = [(w[0], w[3]) for w in WIDTHS.values()] + [
+        (d, h) for _, d, h in INT8_MLP_CASES]
+    for dim, hid in widths:
+        for m in (1, 130, 8008, 32032):
+            plan = int8_serving.mlp_plan(m, dim, hid)
+            assert scratch(m, dim, hid) == plan.scratch_bytes, (m, dim, hid)
+            assert {s for _, _, _, s in plan.launches if s} == {smem()}
+
+
 @pytest.mark.parametrize("b,n,n_valid", [(1, 1, 1), (2, 70, 70),
                                          (2, 130, 97), (1, 1001, 900)])
 def test_int8_attention_kernel(cuda, b, n, n_valid):
@@ -415,11 +494,11 @@ def test_int8_kernels_refuse_what_they_do_not_take(cuda):
         int8_serving.int8_outproj_residual(
             zeros(1, 4, 256, dtype=bf), zeros(1, 4, 1280, dtype=bf),
             zeros(256, 1280, dtype=i8), zeros(256), zeros(256))
-    with pytest.raises(ValueError, match="dim <= 1024"):      # dim 1280
-        int8_serving.int8_mlp_block(
-            zeros(1, 4, 1280, dtype=bf), zeros(1280), zeros(1280),
-            zeros(256, 1280, dtype=i8), zeros(256), zeros(256),
-            zeros(1280, 256, dtype=i8), zeros(1280), zeros(1280))
+    with pytest.raises(ValueError, match="mlp_dim as a multiple of 16"):
+        int8_serving.int8_mlp_block(                          # mlp_dim 264
+            zeros(1, 4, 256, dtype=bf), zeros(256), zeros(256),
+            zeros(264, 256, dtype=i8), zeros(264), zeros(264),
+            zeros(256, 264, dtype=i8), zeros(256), zeros(256))
     q = zeros(1, 4, 2, 256, dtype=bf)
     with pytest.raises(ValueError, match="head dim <= 128"):
         int8_serving.int8_flash_attention(q, q, q, scale=1.0)

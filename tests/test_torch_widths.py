@@ -251,7 +251,7 @@ def test_kernel_gates_accept_every_width(width):
     (fused_mlp.check_bwd_shapes, (1536, 6144), "dim <= 1024"),
     (q8.check_qkv_shapes, (1280, 1280), "dim <= 1024"),
     (q8.check_outproj_shapes, (1024, 1536), "inner <= 1024"),
-    (q8.check_mlp_shapes, (1024, 8192), "bytes of shared memory"),
+    (q8.check_mlp_shapes, (1024, 8200), "mlp_dim as a multiple of 16"),
     (fa.kernel_head_dim, (256,), "head dim <= 128"),
 ])
 def test_kernel_gates_refuse_and_name_the_queue(gate, args, match):
