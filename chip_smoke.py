@@ -16,7 +16,10 @@ Phases, each printing a line; any failure raises and exits non-zero:
 3. kernels     each kernel against its plain PyTorch version on the card, at
                the flagship shapes (batch 8 x 1001 tokens), with CUDA-event
                timings of both: the forwards K1-K4 at dropout 0, K1, K3 and
-               K4 again at dropout 0.1 (the same mask bits on both sides),
+               K4 again at dropout 0.1 (the same mask bits on both sides;
+               K4 with h, also at 130 rows and at dim 1280 / mlp 5120 and
+               dim 1024 / mlp 8192 at batch 2, and on all-zero rows, which
+               give bf16(b2), and two calls bit-equal),
                the backwards K5, K7, K8, K9 at dropout 0 and 0.1, K6 (the
                [B, H, N, D] attention) forward at n_valid 1001 and 900 and
                at dropout 0.1 and backward at dropout 0 and 0.1, each also
@@ -30,15 +33,17 @@ Phases, each printing a line; any failure raises and exits non-zero:
                SDPA's in both layouts, the enqueue time per call and the
                exp2 floor, and of K5 (dropout 0.1 and 0) and K6's backward
                beside SDPA's backward
-               (scripts/torch_attention_device_times.py), and of K12's four
+               (scripts/torch_attention_device_times.py), of K12's four
                passes beside K17 int8 at its two GEMM shapes
-               (scripts/torch_int8_mlp_device_times.py)
+               (scripts/torch_int8_mlp_device_times.py), and of K4's three
+               passes, serving and at dropout 0.1 with h, beside K17 bf16
+               at its two GEMM shapes (scripts/torch_mlp_device_times.py)
 4. widths      every ViT width of the matrix (models/vit3d.py WIDTHS: the
                smoke model, head dims 32, 80 and 128, ViT-S/B/L and the
                flagship) at batch 2 x 1001 tokens through K1-K13 against the
-               plain versions, dropout 0.1 where an op has it; K4's
-               shared-memory plan against the kernel's; K4 and K9 timed at
-               batch 8 at the ViT-B, ViT-L and flagship widths
+               plain versions, dropout 0.1 where an op has it; K4's plan
+               (scratch, shared memory) against the kernel's; K4 and K9
+               timed at batch 8 at the ViT-B, ViT-L and flagship widths
 5. probes      the probe scripts' main paths with their launch counts
                (scripts/torch_dropout_bench.py, scripts/torch_int8_gemm_bench.py
                at its seven shapes); K16 forward and backward at
@@ -63,7 +68,7 @@ Phases, each printing a line; any failure raises and exits non-zero:
                forward and K1-K4 never; one forward with SERVING_INT8_ATTN
                off runs K1 in place of K13
 9. rate        the int8 and the bf16 forward at batch 32, device-only by
-               CUDA events, and a profiler split of the int8 forward
+               CUDA events, and a profiler split of each
 10. gradcam    Grad-CAM of the same checkpoint with its LayerNorm affines
                moved off their init: the launch counts of one
                get_attention_map of 4 volumes (K1-K3 depth - 1 times, K4
@@ -398,11 +403,31 @@ def int8_mlp_device_times(results: dict, args: tuple, card: str) -> None:
             "device not measured (no kernels traced)") + f"; {card}")
 
 
+def mlp_device_times(results: dict, args: tuple, card: str) -> None:
+    """K4's device time on the kernel phase's operands, pass by pass
+    (``scripts/torch_mlp_device_times.py``), into its result, and as the
+    train step calls it (dropout 0.1, h stored); K17 bf16 at the two GEMM
+    shapes logged beside it."""
+    times = script("torch_mlp_device_times")
+    m = times.measure(args, 10)
+    results["fused_mlp_block"]["device_ms"] = m["device_ms"]
+    log("kernels", times.line(f"fused_mlp_block at B={B} N={N}", m)
+        + f", bound {results['fused_mlp_block']['bound_ms']:.4f} ms; {card}")
+    log("kernels", times.line(
+        f"fused_mlp_block at B={B} N={N} dropout {DROPOUT} with h",
+        times.measure(args, 10, **times.TRAIN)) + f"; {card}")
+    for shape, dev in times.yardstick(B * N, DIM, MLP, 10).items():
+        log("kernels", f"K17 bf16 {shape}: " + (", ".join(
+            f"{k} {us:.1f} us" for k, us in dev.items()) or
+            "device not measured (no kernels traced)") + f"; {card}")
+
+
 def build_notes(lib) -> None:
     """Log, from the build's compiler output, every ptxas note on a kernel
     (C7514 and C7512, wgmma serialised; C7508, setmaxnreg ignored) and
     every kernel that spills, with its name, and the registers of each
-    instance of the attention backward and of K12's four passes."""
+    instance of the attention backward, of K12's four passes and of K4's
+    three."""
     from neurovit_tpu_torch.ops import _build
     path = _build.build_log(lib)
     if not path.exists():
@@ -420,7 +445,8 @@ def build_notes(lib) -> None:
     except OSError:
         pass
     for source, fn, regs, stores, loads in kernels:
-        if stores or loads or "flash_bwd" in fn or source == "int8_mlp.cu":
+        if (stores or loads or "flash_bwd" in fn
+                or source in ("int8_mlp.cu", "fused_mlp.cu")):
             log("build", f"{source} {readable.get(fn, fn)}: {regs} "
                 f"registers, spill stores {stores} B, spill loads {loads} B")
     for source, fn, line in notes:
@@ -526,6 +552,20 @@ def kernel_phase(card: str) -> dict:
             t(dim_, scale=0.02, dtype=torch.float32))
     x0 = x.clone()
     x0[0, [0, 127, 128, 1000]] = 0
+    # K4 beyond the flagship, at dropout 0.1 with h: a ragged last row tile
+    # (130 rows), the two widths the wmma version refused (ViT-H, mlp 8192)
+    # at batch 2; all-zero rows with beta = b1 = 0 at dropout 0.
+    mlp_more = {"130 rows": (x[:1, :130].contiguous(), *ln, w1, b1, w2, b2)}
+    for dim_, hid_ in ((1280, 5120), (1024, 8192)):
+        mlp_more[f"dim {dim_} mlp {hid_}"] = (
+            t(2, N, dim_), t(dim_, scale=0.1, dtype=torch.float32, offset=1.0),
+            t(dim_, scale=0.1, dtype=torch.float32),
+            w(hid_, dim_, torch.bfloat16),
+            t(hid_, scale=0.03, dtype=torch.float32),
+            w(dim_, hid_, torch.bfloat16),
+            t(dim_, scale=0.02, dtype=torch.float32))
+    mlp_zero = (x0, ln[0], torch.zeros_like(ln[1]), w1, torch.zeros_like(b1),
+                w2, b2)
     mlp8_more["zero rows, beta = b1 = 0"] = (
         x0, ln[0], torch.zeros_like(ln[1]), mlp8[0], mlp8[1],
         torch.zeros_like(b1), *mlp8[3:])
@@ -576,7 +616,16 @@ def kernel_phase(card: str) -> dict:
              lambda: fused_mlp.fused_mlp_block_cuda(*mlp_args, return_h=True,
                                                     **mdrop),
              lambda: fused_mlp.fused_mlp_block_plain(*mlp_args, return_h=True,
-                                                     **mdrop))],
+                                                     **mdrop)),
+            *[(f"{label} dropout {DROPOUT} with h",
+               lambda a=a: fused_mlp.fused_mlp_block_cuda(*a, return_h=True,
+                                                          **mdrop),
+               lambda a=a: fused_mlp.fused_mlp_block_plain(*a, return_h=True,
+                                                           **mdrop))
+              for label, a in mlp_more.items()],
+            ("zero rows, beta = b1 = 0",
+             lambda: fused_mlp.fused_mlp_block_cuda(*mlp_zero),
+             lambda: fused_mlp.fused_mlp_block_plain(*mlp_zero))],
         "flash_attention_bwd": [
             (f"dropout {rate}", attn_bwd(fa.flash_attention_bwd_cuda, rate),
              attn_bwd(fa.flash_attention_bwd_plain, rate), True, ())
@@ -790,9 +839,25 @@ def kernel_phase(card: str) -> dict:
             raise AssertionError(f"int8_mlp_block {label}: two calls differ")
     log("kernels", "int8_mlp_block: all-zero rows give bf16(b2); two calls "
         "bit-equal at the flagship and at 130 rows")
-    del mlp8_more, x0, y0
+    y0 = fused_mlp.fused_mlp_block_cuda(*mlp_zero)
+    if not torch.equal(y0[0, [0, 127, 128, 1000]],
+                       b2.to(torch.bfloat16).expand(4, -1)):
+        raise AssertionError("fused_mlp_block: an all-zero row is not "
+                             "bf16(b2)")
+    for label, a in (("flagship", mlp_args),
+                     ("130 rows", mlp_more["130 rows"])):
+        one, two = (fused_mlp.fused_mlp_block_cuda(*a, return_h=True, **mdrop)
+                    for _ in range(2))
+        if not (torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])):
+            raise AssertionError(f"fused_mlp_block {label}: two calls "
+                                 "differ")
+    log("kernels", "fused_mlp_block: all-zero rows give bf16(b2); two calls "
+        f"at dropout {DROPOUT} with h bit-equal at the flagship and at 130 "
+        "rows")
+    del mlp8_more, mlp_more, mlp_zero, x0, y0, one, two
     attention_device_times(results, qkv, qkv_h, card)
     int8_mlp_device_times(results, (x, *ln, *mlp8), card)
+    mlp_device_times(results, mlp_args, card)
     return results
 
 
@@ -824,9 +889,9 @@ def _width_operands(rng, b: int, dim: int, heads: int, dh: int, hid: int
 def widths_phase(card: str) -> None:
     """Every ViT width of the matrix (models/vit3d.py WIDTHS) at batch 2 x
     1001 tokens through K1-K13 against the plain versions, with the kernel
-    phase's tolerances, dropout 0.1 where an op has it; K4's shared-memory
-    plan against the kernel's own count; then K4 and K9 timed at batch 8 at
-    the ViT-B, ViT-L and flagship widths."""
+    phase's tolerances, dropout 0.1 where an op has it; K4's plan (scratch
+    and shared memory) against the kernel's own count; then K4 and K9 timed
+    at batch 8 at the ViT-B, ViT-L and flagship widths."""
     import ctypes
 
     from neurovit_tpu_torch.models.vit3d import WIDTHS
@@ -835,15 +900,21 @@ def widths_phase(card: str) -> None:
     from neurovit_tpu_torch.ops import fused_mlp, fused_outproj, fused_qkv
     from neurovit_tpu_torch.ops import int8_serving as q8
 
-    smem = _build.library().nvt_fused_mlp_smem_bytes
-    smem.restype, smem.argtypes = ctypes.c_longlong, [ctypes.c_int] * 3
+    lib = _build.library()
+    scratch, smem = lib.nvt_fused_mlp_scratch_bytes, lib.nvt_fused_mlp_smem_bytes
+    scratch.restype, scratch.argtypes = ctypes.c_longlong, [ctypes.c_int] * 3
+    smem.restype, smem.argtypes = ctypes.c_longlong, [ctypes.c_int] * 2
     rng = np.random.default_rng(SEED + 6)
     bf = torch.bfloat16
     for name, (dim, heads, dh, hid) in WIDTHS.items():
-        rows, plan_bytes = fused_mlp.smem_plan(dim, hid)
-        if smem(rows, dim, hid) != plan_bytes:
-            raise AssertionError(f"{name}: K4's plan counts {plan_bytes} "
-                                 f"bytes, the kernel {smem(rows, dim, hid)}")
+        plan = fused_mlp.mlp_plan(2 * N, dim, hid)
+        counted = (scratch(2 * N, dim, hid), smem(2 * N, hid),
+                   smem(2 * N, dim))
+        mine = (plan.scratch_bytes, plan.launches[1][3], plan.launches[2][3])
+        if counted != mine:
+            raise AssertionError(f"{name}: K4's plan counts (scratch, fc1's "
+                                 f"and fc2's shared memory) {mine} bytes, "
+                                 f"the kernel {counted}")
         p = _width_operands(rng, 2, dim, heads, dh, hid)
         x, ln, (q, k, v), do = p["x"], p["ln"], p["qkv"], p["do"]
         wqkv, wout = p["wqkv"].to(bf), p["wout"].to(bf)
@@ -904,14 +975,15 @@ def widths_phase(card: str) -> None:
                                       *check)
             del got, want
         log("widths", f"{name}: dim {dim}, {heads} heads x {dh}, mlp {hid} "
-            f"(K4 {rows} rows a block, {plan_bytes} B of shared memory); "
-            f"K1-K13 "
+            f"(K4 grids {[g for _, g, _, _ in plan.launches]}, "
+            f"{plan.scratch_bytes} B of scratch, {mine[1:]} B of shared "
+            f"memory a GEMM block); K1-K13 "
             f"against plain at B=2 N={N}, max abs err "
             f"{max(worst.values()):.3e} ({max(worst, key=worst.get)})")
         del p, o, lsum, h, qh, kh, vh, oh, doh, cases
 
-    # K4 and K9 where their plans differ (ViT-B and ViT-L take 16-row K4
-    # blocks, K9's du GEMM two chunks of dh at ViT-L) beside the flagship.
+    # K4 and K9 at ViT-B and ViT-L (K4's widest tiles, K9's du GEMM two
+    # chunks of dh at ViT-L) beside the flagship.
     for name in ("flagship", "vit_b", "vit_l"):
         dim, heads, dh, hid = WIDTHS[name]
         p = _width_operands(rng, B, dim, heads, dh, hid)
@@ -1580,7 +1652,7 @@ def int8_phase(config, ckpt: str, rng, workdir: str, counters: dict) -> dict:
 def rate_phase(config, ckpt: str, card: str, batch: int = 32) -> None:
     """The int8 and the bf16 forward at batch 32, device-only: two medians
     of 10 CUDA-event timings each, taken in turns bf16, int8, int8, bf16,
-    and their mean; then a profiler split of the int8 forward."""
+    and their mean; then a profiler split of each forward."""
     from neurovit_tpu_torch.models import NeuroEncoder
     from neurovit_tpu_torch.models.vit3d import quantize_blocks
     from neurovit_tpu_torch.training.checkpoint import load_checkpoint
@@ -1604,8 +1676,10 @@ def rate_phase(config, ckpt: str, card: str, batch: int = 32) -> None:
             log("rate", f"{quant} forward at batch {batch}: {mean:.3f} ms "
                 f"(runs {[round(t, 3) for t in ms]}), "
                 f"{batch / mean * 1e3:.1f} vol/s; {card}")
-        profile_split("rate", "int8 forward", lambda: models["int8"](vols),
-                      float(np.mean(times["int8"])))
+        for quant in ("int8", "bf16"):
+            profile_split("rate", f"{quant} forward",
+                          lambda: models[quant](vols),
+                          float(np.mean(times[quant])))
 
 
 def _lift_layer_norms(model, seed: int) -> None:

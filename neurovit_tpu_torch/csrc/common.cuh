@@ -2,9 +2,10 @@
 //
 // The kernels compute bf16 products with f32 accumulation on the tensor
 // cores, most through nvcuda::wmma 16x16x16 tiles: the simple, correct
-// first version. K17/K18 (int8_gemm.cu) and the attention forward
-// (flash_attention.cu) run on TMA and wgmma (hopper_gemm.cuh); the others
-// follow kernel by kernel.
+// first version. K17/K18 (int8_gemm.cu), the attention forward and
+// backward (flash_attention*.cu), K12 (int8_mlp.cu) and K4 (fused_mlp.cu)
+// run on TMA and wgmma (hopper_gemm.cuh); the others follow kernel by
+// kernel.
 //
 // Host entry points have a plain C interface: each returns the
 // cudaError_t of its launch (0 on success) and allocates nothing; the

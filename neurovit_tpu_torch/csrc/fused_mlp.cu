@@ -1,4 +1,4 @@
-// Fused residual MLP block, bf16, deterministic.
+// Fused residual MLP block (K4), bf16, deterministic, on TMA + wgmma.
 //
 // Replaces the TPU kernel neurovit_tpu/ops/fused_mlp.py:108 (_fwd_kernel,
 // launched at :213 by fused_mlp_block):
@@ -9,173 +9,410 @@
 //   y = bf16(x + z)                      x added in f32, one rounding
 // The masks (training only, fused_mlp.py:125-133) are nvt::DropoutBits of
 // two sites: mask1 at row * hid + j of the hidden, mask2 at row * dim + c
-// of the output. In training h is also stored (h_out [M, hid] bf16, from
-// registers), the tensor the backward reads; serving passes null.
-// W1 [hid, dim] and W2 [dim, hid] are torch Linear weights.
+// of the output. In training h is also stored (h [M, hid] bf16), the tensor
+// the backward (fused_mlp_bwd.cu) reads; serving passes null. W1 [hid, dim]
+// and W2 [dim, hid] are torch Linear weights: both are K-major for their
+// GEMM as they lie, so wgmma reads them with no transpose.
 //
-// What bounds it on the H100: 4*M*dim*hid flops; the [M, hid] hidden would
-// be the largest tensor of the block if it went to HBM (4 MB per 1001-token
-// volume at hid 2048, written and read back). The point of the TPU kernel
-// (fused_mlp.py:10-14) is that it never does, and here neither: a block owns
-// BM rows, keeps u [BM, dim] and g [BM, hid] as bf16 in shared memory, and
-// runs both GEMMs out of it; W1 and W2 stream from L2 through
-// nvt::TileGemm's two-stage ring. The hidden never touches HBM. BM is 32
-// where that fits the 227 KB a block may have (66 KB + 132 KB at dim 1024,
-// hid 2048: the flagship), else 16 (ViT-B's 768 / 3072 and ViT-L's 1024 /
-// 4096, 144 KB and 185 KB): the wrapper picks it (ops/fused_mlp.py,
-// smem_plan) and refuses a shape that fits neither. GELU uses CUDA's erff,
-// not the TPU kernel's Abramowitz-Stegun polynomial (fused_mlp.py:65-79);
-// both are within 1.5e-7 of erf, below bf16 resolution. Widths are
-// multiples of 16: u's and g's columns past dim and hid are zero up to the
-// k tile, and the last column tile of each GEMM is masked. Grid:
-// ceil(M/BM) blocks of eight warps.
-#include "common.cuh"
+// What bounds it on the H100: 4 M dim hid flops on the tensor cores (0.068
+// ms at 989 TFLOP/s for the flagship block at batch 8: M = 8008, dim 1024,
+// hid 2048). The TPU kernel keeps the [rows, hid] hidden in VMEM. The
+// earlier wmma kernel kept a block's u and g (32 or 16 rows) in shared
+// memory and read all of W1 and W2 again for every such block; a block
+// that feeds wgmma from a TMA ring has no room for them. Here u and g go
+// through device memory as bf16 (with x read twice, y and the weights,
+// about 160 MB at that shape: 0.047 ms at 3.35 TB/s), in three launches
+// on the caller's stream:
+//   1. ln_rows: x -> u [M, dim], one warp a row; the row is read again
+//      from L1/L2 for each statistic, so any dim is taken. Lane l takes
+//      columns 256 i + 8 l .. + 7, the order of layer_norm_rows
+//      (common.cuh), so u has the bits of the earlier kernel's.
+//   2. fc1_gelu: hopper_gemm.cuh Mainloop<false, 128, BN, 3> over
+//      ceil(hid / BN) x ceil(M / 128) tiles, A = u, Bt = W1. The epilogue,
+//      from the accumulator registers: + b1, h rounded, GELU, mask1, g
+//      rounded; h (when stored) and g go to the ring and out by TMA.
+//   3. fc2_residual: the same mainloop over ceil(dim / BN) x ceil(M / 128)
+//      tiles, A = g, Bt = W2; the epilogue adds b2, applies mask2, adds x
+//      in f32 and rounds y once, stored as bf16 pairs from registers.
+// Three stages (97 KiB of ring at BN = 128) let two GEMM blocks share an
+// SM, so one block's epilogue runs under the other's mainloop. BN is 128,
+// or 64 where 128-wide tiles would give the card fewer blocks than its 132
+// SMs (fc1 and fc2 at one volume). TMA zero-fills the boxes past M, dim and
+// hid on loads and clips them on stores, so ragged edges need no masks but
+// the epilogue's column bound. Widths are multiples of 16 (TMA's 16-byte
+// rows) of any size.
+//
+// fc1's stores: once both consumer warpgroups are done with the ring, each
+// thread writes its bf16 pairs of g and h into it as the maps' 64-column
+// boxes (128-byte swizzle: no bank conflicts), and one thread stores the
+// boxes by TMA. Stores of the pairs straight from registers (4 bytes a
+// thread, 16 contiguous bytes a quad) took fc1 98.3 us at batch 8, 137.2
+// with h, against 90.0 and 104.9 staged; fc2's y staged so gained 2 us
+// serving and lost 3 with dropout, and stays in registers (PERF.md,
+// section 6; times on an H100 80GB HBM3 at 700 W).
+//
+// Dropout in the wgmma layout: a thread holds columns 8 j + 2 (t % 4) and
+// + 1 of rows r0 and r0 + 8 (hopper_gemm.cuh, Wgmma), so its 32 elements of
+// a row touch all eight 16-byte Philox blocks of the row's 128-column tile
+// (a row starts on a block edge: hid and dim are multiples of 16). Thread o
+// of the quad draws blocks 2 o and 2 o + 1 and turns their 32 bytes into 32
+// keep bits; one shuffle from each of the four threads hands every thread
+// the bits of its positions (QuadKeep). Two Philox calls a thread a row,
+// each block drawn once; the bits are nn.keep_mask's
+// (tests/test_torch_mlp_plan.py models the exchange).
+//
+// GELU uses CUDA's erff, not the TPU kernel's Abramowitz-Stegun polynomial
+// (fused_mlp.py:65-79); both are within 1.5e-7 of erf, below bf16
+// resolution.
+#include "hopper_gemm.cuh"
 
 namespace nvt {
 namespace {
 
-constexpr int kBN = 128, kBK = 32;
-template <int BM>
-using MlpGemm = TileGemm<BM, kBN, kBK, BM / 16, 8 / (BM / 16)>;
+constexpr int kRowWarps = 8;             // rows a block of pass 1
+constexpr int kBM = 128;                 // the GEMMs' output tile rows
+constexpr int kStages = 3;
+template <int BN>
+using Loop = hopper::Mainloop<false, kBM, BN, kStages>;
+constexpr int kThreads = Loop<128>::kThreads;   // either width: 288
+constexpr int kConsumerThreads = kThreads - 32;
+// Two GEMM blocks an SM: at most 65536 / (2 * 288) registers a thread.
+constexpr int kGemmBlocksPerSm = 2;
+constexpr int kSms = 132;                // the H100 SXM's
 
-template <int BM>
-__global__ void __launch_bounds__(256)
-    mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
-               const float* __restrict__ beta, const bf16* __restrict__ w1,
-               const float* __restrict__ b1, const bf16* __restrict__ w2,
-               const float* __restrict__ b2, bf16* __restrict__ y,
-               bf16* __restrict__ h_out, int M, int dim, int hid, float eps,
-               float inv_keep, uint32_t keep_q, uint64_t seed1,
-               uint64_t seed2) {
-  using Gemm = MlpGemm<BM>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int dim_k = static_cast<int>(round_up(dim, kBK));
-  const int hid_k = static_cast<int>(round_up(hid, kBK));
-  const int ldu = dim_k + kPad, ldg = hid_k + kPad;
-  const size_t u_bytes = round_up(static_cast<size_t>(BM) * ldu * sizeof(bf16), 128);
-  const size_t g_bytes = round_up(static_cast<size_t>(BM) * ldg * sizeof(bf16), 128);
-  bf16* U = reinterpret_cast<bf16*>(smem);
-  bf16* G = reinterpret_cast<bf16*>(smem + u_bytes);
-  void* scratch = smem + u_bytes + g_bytes;
-  const float* C = reinterpret_cast<const float*>(scratch);
+// The output tile's columns in the GEMM pass with an [M, N] output: 128,
+// or 64 where 128-wide tiles would give the card fewer blocks than SMs.
+int tile_n(int M, int N) {
+  return ((N + 127) / 128) * ((M + kBM - 1) / kBM) < kSms ? 64 : 128;
+}
 
-  const int row0 = blockIdx.x * BM;
-  layer_norm_rows<BM, Gemm::kThreads>(x, gamma, beta, U, ldu, row0, M, dim,
-                                      eps);
-  zero_cols<Gemm::kThreads>(U, ldu, BM, dim, dim_k);
+size_t gemm_smem_bytes(int M, int N) {
+  return tile_n(M, N) == 64 ? Loop<64>::kSmemBytes : Loop<128>::kSmemBytes;
+}
 
-  // g = bf16(GELU(bf16(u W1^T + b1)) * mask1 / keep), tile by tile, into
-  // shared memory; zeros past hid.
-  DropoutBits bits1(seed1), bits2(seed2);
-  for (int n0 = 0; n0 < hid; n0 += kBN) {
-    Gemm::run(U, ldu, w1, dim, n0, dim, scratch, hid);
-    for (int e = threadIdx.x; e < BM * kBN / 8; e += Gemm::kThreads) {
-      const int r = e / (kBN / 8), c = (e % (kBN / 8)) * 8;
-      const int col = n0 + c;
-      if (col >= hid_k) continue;
-      if (col >= hid) {
-        *reinterpret_cast<uint4*>(G + r * ldg + col) = make_uint4(0, 0, 0, 0);
-        continue;
-      }
-      const int row = row0 + r;
-      const size_t hoff = static_cast<size_t>(row) * hid + col;
-      float h[8], g[8];
+// Scratch of one call, one allocation: u [M, dim], then g [M, hid], both
+// bf16, each on a 256-byte boundary.
+struct Scratch {
+  size_t u, g, bytes;
+  Scratch(int M, int dim, int hid) {
+    const size_t m = static_cast<size_t>(M);
+    u = 0;
+    g = round_up(m * dim * sizeof(bf16), 256);
+    bytes = round_up(g + m * hid * sizeof(bf16), 256);
+  }
+};
+
+// Pass 1: u = bf16(LN(x) * gamma + beta), one warp a row, in
+// layer_norm_rows's order of operations and of sums.
+__global__ void __launch_bounds__(kRowWarps * 32)
+    ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
+                   const float* __restrict__ beta, bf16* __restrict__ u,
+                   int M, int dim, float eps) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kRowWarps + threadIdx.x / 32;
+  if (row >= M) return;
+  const bf16* xr = x + static_cast<size_t>(row) * dim;
+  float f[8];
+  float s = 0.f;
+  for (int c = lane * 8; c < dim; c += 256) {
+    unpack8(*reinterpret_cast<const uint4*>(xr + c), f);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        h[i] = __bfloat162float(
-            __float2bfloat16(C[r * Gemm::LDC + c + i] + b1[col + i]));
-        g[i] = gelu_erf(h[i]);
-        if (keep_q) g[i] *= bits1.keep(hoff + i, keep_q) ? inv_keep : 0.f;
-      }
-      *reinterpret_cast<uint4*>(G + r * ldg + col) = pack8(g);
-      if (h_out != nullptr && row < M)
-        *reinterpret_cast<uint4*>(h_out + hoff) = pack8(h);
+    for (int i = 0; i < 8; ++i) s += f[i];
+  }
+  const float mean = warp_sum(s) / dim;
+  float ss = 0.f;
+  for (int c = lane * 8; c < dim; c += 256) {
+    unpack8(*reinterpret_cast<const uint4*>(xr + c), f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float d = f[i] - mean;
+      ss += d * d;
     }
   }
-
-  // y = bf16(x + (g W2^T + b2)).
-  for (int n0 = 0; n0 < dim; n0 += kBN) {
-    Gemm::run(G, ldg, w2, hid, n0, hid, scratch, dim);
-    for (int e = threadIdx.x; e < BM * kBN / 8; e += Gemm::kThreads) {
-      const int r = e / (kBN / 8), c = (e % (kBN / 8)) * 8;
-      const int row = row0 + r;
-      if (row >= M || n0 + c >= dim) continue;
-      const size_t off = static_cast<size_t>(row) * dim + n0 + c;
-      float xf[8], out[8];
-      unpack8(*reinterpret_cast<const uint4*>(x + off), xf);
+  const float rstd = rsqrtf(warp_sum(ss) / dim + eps);
+  bf16* ur = u + static_cast<size_t>(row) * dim;
+  for (int c = lane * 8; c < dim; c += 256) {
+    unpack8(*reinterpret_cast<const uint4*>(xr + c), f);
+    const float4 g0 = *reinterpret_cast<const float4*>(gamma + c);
+    const float4 g1 = *reinterpret_cast<const float4*>(gamma + c + 4);
+    const float4 b0 = *reinterpret_cast<const float4*>(beta + c);
+    const float4 b1 = *reinterpret_cast<const float4*>(beta + c + 4);
+    const float gm[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+    const float bt[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        float z = C[r * Gemm::LDC + c + i] + b2[n0 + c + i];
-        if (keep_q) z *= bits2.keep(off + i, keep_q) ? inv_keep : 0.f;
-        out[i] = z + xf[i];
+    for (int i = 0; i < 8; ++i) {
+      const float xhat = __fmul_rn(f[i] - mean, rstd);
+      f[i] = __fadd_rn(__fmul_rn(xhat, gm[i]), bt[i]);
+    }
+    *reinterpret_cast<uint4*>(ur + c) = pack8(f);
+  }
+}
+
+// The keep bits of one row of a 128-column tile, shared within the quad.
+// Thread o (= t % 4) draws Philox blocks blk0 + 2 o + k, k = 0, 1, and packs
+// the keep decision of byte p of word w of block k at bit 8 p + 4 k + w.
+// After one shuffle from each thread, word[o] holds thread o's bits shifted
+// so that the thread's own column 8 j + 2 (t % 4) + e, j = 4 o + 2 k + jj,
+// is at bit 8 e + 4 k + 2 jj: that column is byte 2 (t % 2) + e of word 2 jj
+// + (t % 4) / 2 of block 2 o + k. A 64-column tile uses the first four
+// blocks (threads 2 and 3 draw two past it).
+struct QuadKeep {
+  uint32_t word[4];
+
+  __device__ __forceinline__ void draw(uint64_t blk0, int quad,
+                                       uint32_t keep_q, uint64_t seed) {
+    const uint32_t q4 = keep_q * 0x01010101u;
+    uint32_t mine = 0;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const uint4 w = philox4x32_10(blk0 + 2 * quad + k, seed);
+      const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        mine |= (__vcmpltu4(ws[i], q4) & 0x01010101u) << (4 * k + i);
+    }
+    const int shift = 16 * (quad % 2) + quad / 2;
+    const int base = (threadIdx.x % 32) & ~3;
+#pragma unroll
+    for (int o = 0; o < 4; ++o)
+      word[o] = __shfl_sync(0xffffffffu, mine, base + o) >> shift;
+  }
+
+  // Whether the thread's element e (0, 1) of column group j is kept.
+  __device__ __forceinline__ bool keep(int j, int e) const {
+    return (word[j / 4] >> (8 * e + 4 * ((j / 2) % 2) + 2 * (j % 2))) & 1u;
+  }
+};
+
+// The thread's place in the tile (hopper_gemm.cuh, Mainloop::for_each_pair):
+// rows r0 and r0 + 8, columns 8 j + c0 and + 1 of every j < BN / 8.
+struct Place {
+  int r0, quad;
+  __device__ Place()
+      : r0((threadIdx.x / 128) * 64 + ((threadIdx.x % 128) / 32) * 16 +
+           (threadIdx.x % 32) / 4),
+        quad(threadIdx.x % 4) {}
+};
+
+// fc1's output tiles are staged in the block's ring: kBM x BN bf16 as BN /
+// 64 boxes of kBM rows x 128 bytes, laid out as the maps' 64-column boxes
+// with the 128-byte swizzle (the 16-byte chunk c of row r at chunk c ^ (r
+// % 8)), so a warp's pair stores hit 32 different banks and one TMA store
+// writes each box. This is the byte offset of the pair at row r, columns
+// 8 j + 2 quad and + 1.
+__device__ __forceinline__ int staged_at(int r, int j, int quad) {
+  return (j / 8) * (kBM * 128) + r * 128 + (((j % 8) ^ (r % 8)) * 16) +
+         4 * quad;
+}
+
+// Pass 2: h = bf16(u . W1^T + b1) (stored when store_h), g = bf16(GELU(h)
+// * mask1 / keep).
+template <int BN>
+__global__ void __launch_bounds__(kThreads, kGemmBlocksPerSm)
+    fc1_gelu_kernel(const __grid_constant__ CUtensorMap tu,
+                    const __grid_constant__ CUtensorMap tw1,
+                    const __grid_constant__ CUtensorMap tg,
+                    const __grid_constant__ CUtensorMap th,
+                    const float* __restrict__ b1, bool store_h, int M,
+                    int dim, int hid, float inv_keep, uint32_t keep_q,
+                    uint64_t seed1) {
+  extern __shared__ unsigned char smem[];
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * BN;
+  float acc[Loop<BN>::kAccRegs];
+  if (!Loop<BN>::run(&tu, &tw1, m0, n0, dim, smem, acc)) return;
+  const Place at;
+  unsigned char* gs = reinterpret_cast<unsigned char*>(
+      round_up(reinterpret_cast<size_t>(smem), 1024));   // the ring
+  unsigned char* hs = gs + kBM * BN * sizeof(bf16);
+  hopper::named_barrier(1, kConsumerThreads);   // no wgmma reads it now
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = at.r0 + 8 * half;
+    // Every thread of the warp takes part in the quads' shuffles; rows
+    // past M are computed too and clipped by the store.
+    QuadKeep bits;
+    if (keep_q)
+      bits.draw((static_cast<uint64_t>(m0 + r) * hid + n0) >> 4, at.quad,
+                keep_q, seed1);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * at.quad;
+      if (col >= hid) continue;   // hid is even: col + 1 < hid too
+      const float2 bc = *reinterpret_cast<const float2*>(b1 + col);
+      const __nv_bfloat162 hv = __floats2bfloat162_rn(
+          __fadd_rn(acc[4 * j + 2 * half], bc.x),
+          __fadd_rn(acc[4 * j + 2 * half + 1], bc.y));
+      const int where = staged_at(r, j, at.quad);
+      if (store_h) *reinterpret_cast<__nv_bfloat162*>(hs + where) = hv;
+      const float2 hf = __bfloat1622float2(hv);
+      float g0 = gelu_erf(hf.x), g1 = gelu_erf(hf.y);
+      if (keep_q) {
+        g0 *= bits.keep(j, 0) ? inv_keep : 0.f;
+        g1 *= bits.keep(j, 1) ? inv_keep : 0.f;
       }
-      *reinterpret_cast<uint4*>(y + off) = pack8(out);
+      *reinterpret_cast<__nv_bfloat162*>(gs + where) =
+          __floats2bfloat162_rn(g0, g1);
+    }
+  }
+  // One thread stores the boxes (columns past hid skipped, rows past M
+  // clipped by TMA) and waits until TMA has read them.
+  hopper::fence_proxy_async();
+  hopper::named_barrier(1, kConsumerThreads);
+  if (threadIdx.x != 0) return;
+  for (int b = 0; b < BN / 64 && n0 + 64 * b < hid; ++b) {
+    hopper::tma_store_2d(&tg, gs + b * kBM * 128, n0 + 64 * b, m0);
+    if (store_h) hopper::tma_store_2d(&th, hs + b * kBM * 128, n0 + 64 * b, m0);
+  }
+  hopper::tma_store_wait();
+}
+
+// Pass 3: y = bf16(x + (g . W2^T + b2) * mask2 / keep).
+template <int BN>
+__global__ void __launch_bounds__(kThreads, kGemmBlocksPerSm)
+    fc2_residual_kernel(const __grid_constant__ CUtensorMap tg,
+                        const __grid_constant__ CUtensorMap tw2,
+                        const float* __restrict__ b2,
+                        const bf16* __restrict__ x, bf16* __restrict__ y,
+                        int M, int dim, int hid, float inv_keep,
+                        uint32_t keep_q, uint64_t seed2) {
+  extern __shared__ unsigned char smem[];
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * BN;
+  float acc[Loop<BN>::kAccRegs];
+  if (!Loop<BN>::run(&tg, &tw2, m0, n0, hid, smem, acc)) return;
+  const Place at;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = at.r0 + 8 * half;
+    const int row = m0 + r;
+    QuadKeep bits;
+    if (keep_q)
+      bits.draw((static_cast<uint64_t>(row) * dim + n0) >> 4, at.quad,
+                keep_q, seed2);
+    if (row >= M) continue;
+    const size_t off = static_cast<size_t>(row) * dim;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * at.quad;
+      if (col >= dim) continue;   // dim is even: col + 1 < dim too
+      const float2 bc = *reinterpret_cast<const float2*>(b2 + col);
+      const float2 xf = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(x + off + col));
+      float z0 = __fadd_rn(acc[4 * j + 2 * half], bc.x);
+      float z1 = __fadd_rn(acc[4 * j + 2 * half + 1], bc.y);
+      if (keep_q) {
+        z0 *= bits.keep(j, 0) ? inv_keep : 0.f;
+        z1 *= bits.keep(j, 1) ? inv_keep : 0.f;
+      }
+      *reinterpret_cast<__nv_bfloat162*>(y + off + col) =
+          __floats2bfloat162_rn(__fadd_rn(z0, xf.x), __fadd_rn(z1, xf.y));
     }
   }
 }
 
-size_t smem_bytes(int rows, int dim, int hid) {
-  const size_t scratch = rows == 32 ? MlpGemm<32>::kScratchBytes
-                                    : MlpGemm<16>::kScratchBytes;
-  return round_up(static_cast<size_t>(rows) * (round_up(dim, kBK) + kPad) *
-                      sizeof(bf16),
-                  128) +
-         round_up(static_cast<size_t>(rows) * (round_up(hid, kBK) + kPad) *
-                      sizeof(bf16),
-                  128) +
-         scratch;
+template <int BN>
+cudaError_t allow_gemm_smem() {
+  cudaError_t err = allow_smem(fc1_gelu_kernel<BN>, Loop<BN>::kSmemBytes);
+  return err == cudaSuccess
+             ? allow_smem(fc2_residual_kernel<BN>, Loop<BN>::kSmemBytes)
+             : err;
 }
 
-template <int BM>
-int launch(const void* x, const void* gamma, const void* beta, const void* w1,
-           const void* b1, const void* w2, const void* b2, void* y, void* h,
-           int M, int dim, int hid, float eps, float inv_keep, int keep_q,
-           uint64_t seed1, uint64_t seed2, cudaStream_t stream) {
-  const size_t smem = smem_bytes(BM, dim, hid);
-  cudaError_t err = allow_smem(mlp_kernel<BM>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  mlp_kernel<BM><<<(M + BM - 1) / BM, 256, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<const bf16*>(w1),
-      static_cast<const float*>(b1), static_cast<const bf16*>(w2),
-      static_cast<const float*>(b2), static_cast<bf16*>(y),
-      static_cast<bf16*>(h), M, dim, hid, eps, inv_keep,
-      static_cast<uint32_t>(keep_q), seed1, seed2);
-  return static_cast<int>(cudaGetLastError());
+template <int BN>
+void launch_fc1(const CUtensorMap& tu, const CUtensorMap& tw1,
+                const CUtensorMap& tg, const CUtensorMap& th, const float* b1,
+                bool store_h, int M, int dim, int hid, float inv_keep,
+                uint32_t keep_q, uint64_t seed1, cudaStream_t stream) {
+  fc1_gelu_kernel<BN><<<dim3((hid + BN - 1) / BN, (M + kBM - 1) / kBM),
+                        kThreads, Loop<BN>::kSmemBytes, stream>>>(
+      tu, tw1, tg, th, b1, store_h, M, dim, hid, inv_keep, keep_q, seed1);
+}
+
+template <int BN>
+void launch_fc2(const CUtensorMap& tg, const CUtensorMap& tw2,
+                const float* b2, const bf16* x, bf16* y, int M, int dim,
+                int hid, float inv_keep, uint32_t keep_q, uint64_t seed2,
+                cudaStream_t stream) {
+  fc2_residual_kernel<BN><<<dim3((dim + BN - 1) / BN, (M + kBM - 1) / kBM),
+                            kThreads, Loop<BN>::kSmemBytes, stream>>>(
+      tg, tw2, b2, x, y, M, dim, hid, inv_keep, keep_q, seed2);
+}
+
+cudaError_t launch_all(const bf16* x, const float* gamma, const float* beta,
+                       const bf16* w1, const float* b1, const bf16* w2,
+                       const float* b2, bf16* y, bf16* h,
+                       unsigned char* scratch, int M, int dim, int hid,
+                       float eps, float inv_keep, uint32_t keep_q,
+                       uint64_t seed1, uint64_t seed2, cudaStream_t stream) {
+  const Scratch at(M, dim, hid);
+  bf16* u = reinterpret_cast<bf16*>(scratch + at.u);
+  bf16* g = reinterpret_cast<bf16*>(scratch + at.g);
+  const int bn1 = tile_n(M, hid), bn2 = tile_n(M, dim);
+  // Every map is encoded, and every instance allowed its shared memory,
+  // before the first launch: a failure leaves nothing half done. g's map
+  // serves fc1's store and fc2's load (64-column boxes of kBM rows).
+  CUtensorMap tu, tw1, tg, tw2, th = {};
+  cudaError_t err = hopper::encode_kmajor(&tu, u, M, dim, false, kBM);
+  if (err == cudaSuccess)
+    err = hopper::encode_kmajor(&tw1, w1, hid, dim, false, bn1);
+  if (err == cudaSuccess)
+    err = hopper::encode_kmajor(&tg, g, M, hid, false, kBM);
+  if (err == cudaSuccess)
+    err = hopper::encode_kmajor(&tw2, w2, dim, hid, false, bn2);
+  if (err == cudaSuccess && h != nullptr)
+    err = hopper::encode_kmajor(&th, h, M, hid, false, kBM);
+  if (err == cudaSuccess) err = allow_gemm_smem<64>();
+  if (err == cudaSuccess) err = allow_gemm_smem<128>();
+  if (err != cudaSuccess) return err;
+
+  ln_rows_kernel<<<(M + kRowWarps - 1) / kRowWarps, kRowWarps * 32, 0,
+                   stream>>>(x, gamma, beta, u, M, dim, eps);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  (bn1 == 64 ? launch_fc1<64> : launch_fc1<128>)(
+      tu, tw1, tg, th, b1, h != nullptr, M, dim, hid, inv_keep, keep_q, seed1,
+      stream);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  (bn2 == 64 ? launch_fc2<64> : launch_fc2<128>)(
+      tg, tw2, b2, x, y, M, dim, hid, inv_keep, keep_q, seed2, stream);
+  return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace nvt
 
-// Shared memory of one block of `rows` (16 or 32) rows at (dim, hid): the
-// wrapper's smem_plan must agree (chip_smoke.py and the card tests check).
-extern "C" long long nvt_fused_mlp_smem_bytes(int rows, int dim, int hid) {
-  return static_cast<long long>(nvt::smem_bytes(rows, dim, hid));
-}
-
 // x [M, dim] bf16; gamma, beta [dim] f32; w1 [hid, dim] bf16; b1 [hid] f32;
 // w2 [dim, hid] bf16; b2 [dim] f32; y [M, dim] bf16; h [M, hid] bf16 or
-// null. dim % 16 == 0, hid % 16 == 0; rows (16 or 32) per block, whose u
-// and g must fit in the block's shared memory (the wrapper checks; the
-// launch fails otherwise). keep_q: dropout threshold (0 = none); seed1 the
-// hidden site, seed2 the output.
+// null; scratch nvt_fused_mlp_scratch_bytes(M, dim, hid) bytes, 256-byte
+// aligned. dim and hid are multiples of 16, of any size. keep_q: dropout
+// threshold (0 = none); seed1 the hidden site, seed2 the output.
 extern "C" int nvt_fused_mlp_fwd(const void* x, const void* gamma,
                                  const void* beta, const void* w1,
                                  const void* b1, const void* w2,
-                                 const void* b2, void* y, void* h, int M,
-                                 int dim, int hid, int rows, float eps,
-                                 float inv_keep, int keep_q, uint64_t seed1,
-                                 uint64_t seed2, void* stream) {
+                                 const void* b2, void* y, void* h,
+                                 void* scratch, int M, int dim, int hid,
+                                 float eps, float inv_keep, int keep_q,
+                                 uint64_t seed1, uint64_t seed2,
+                                 void* stream) {
   using namespace nvt;
   if (M < 1 || dim < 16 || dim % 16 != 0 || hid < 16 || hid % 16 != 0 ||
       keep_q < 0 || keep_q > 255)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (rows == 32)
-    return launch<32>(x, gamma, beta, w1, b1, w2, b2, y, h, M, dim, hid, eps,
-                      inv_keep, keep_q, seed1, seed2, s);
-  if (rows == 16)
-    return launch<16>(x, gamma, beta, w1, b1, w2, b2, y, h, M, dim, hid, eps,
-                      inv_keep, keep_q, seed1, seed2, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_all(
+      static_cast<const bf16*>(x), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<const bf16*>(w1),
+      static_cast<const float*>(b1), static_cast<const bf16*>(w2),
+      static_cast<const float*>(b2), static_cast<bf16*>(y),
+      static_cast<bf16*>(h), static_cast<unsigned char*>(scratch), M, dim,
+      hid, eps, inv_keep, static_cast<uint32_t>(keep_q), seed1, seed2,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// Bytes of the scratch one call takes (ops/fused_mlp.py, mlp_plan).
+extern "C" long long nvt_fused_mlp_scratch_bytes(int M, int dim, int hid) {
+  return static_cast<long long>(nvt::Scratch(M, dim, hid).bytes);
+}
+
+// Dynamic shared memory of a block of the GEMM pass whose output is
+// [M, N] (fc1: N = hid; fc2: N = dim), which follows its tile's width.
+extern "C" long long nvt_fused_mlp_smem_bytes(int M, int N) {
+  return static_cast<long long>(nvt::gemm_smem_bytes(M, N));
 }

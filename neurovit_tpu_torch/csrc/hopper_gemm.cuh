@@ -29,6 +29,9 @@
 // Dynamic shared memory: kSmemBytes (the ring, the barriers and 1 KiB of
 // slack to align the ring to the swizzle's 1024 bytes).
 //
+// K4's fc1 (fused_mlp.cu) stages its output tiles in the freed ring and
+// stores them with tma_store_2d.
+//
 // The attention forward (flash_attention.cu) builds its own loop from the
 // same pieces and a few more: rank-4 tensor maps (encode_bf16_4d) loaded
 // and stored by TMA (tma_load_4d, tma_store_4d), the descriptor of an
@@ -134,6 +137,18 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
       " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Store the box at src to the coordinates (c0 along K, c1 along rows) of a
+// rank-2 map, as tma_store_4d.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
       : "memory");
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }

@@ -10,65 +10,100 @@ kernels ``_fwd_kernel`` :108 and ``_bwd_kernel`` :141):
     y = x + z                         x added in f32, rounded once
 
 The masks (``dropout_rate`` > 0, training) are the Philox masks of two
-sites, the hidden and the output, with the keys ``seeds``. The hidden
-[B*N, mlp_dim] never reaches device memory in the serving kernel; in
-training the forward stores h, which the backward (:class:`FusedMlp`)
-reads: it recomputes LN, GELU and both masks, and emits dx, u, a, dz, dh
-and dgamma / dbeta. dW1 = dh^T u, dW2 = dz^T a and the bias gradients are
-plain matmuls and sums outside, as in JAX.
+sites, the hidden and the output, with the keys ``seeds``. In training the
+forward stores h, which the backward (:class:`FusedMlp`) reads: it
+recomputes LN, GELU and both masks, and emits dx, u, a, dz, dh and dgamma /
+dbeta. dW1 = dh^T u, dW2 = dz^T a and the bias gradients are plain matmuls
+and sums outside, as in JAX.
 
 CPU tensors run the ``*_plain`` functions; CUDA tensors run
-``csrc/fused_mlp.cu`` (K4) and ``csrc/fused_mlp_bwd.cu`` (K9). The kernels
-take dim and mlp_dim as multiples of 16, and K9 dim <= 1024. K4 keeps u and
-g of its rows in shared memory: 32 rows a block where they fit (the
-flagship), else 16 (ViT-B, ViT-L), else the shape is refused
-(:func:`smem_plan`).
+``csrc/fused_mlp.cu`` (K4) and ``csrc/fused_mlp_bwd.cu`` (K9). K4 runs in
+three launches on TMA + ``wgmma`` (:func:`mlp_plan`): LN rows into u, fc1
+with bias, GELU and the hidden mask in its epilogue into g, fc2 with bias,
+the output mask and the residual; u and g go through one scratch
+allocation. It takes dim and mlp_dim as any multiples of 16; K9 takes dim
+<= 1024.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from neurovit_tpu_torch import nn
-from neurovit_tpu_torch.ops.common import (FLOAT, INT, SHAPE_QUEUE,
-                                           SMEM_LIMIT, U64, VOID,
+from neurovit_tpu_torch.ops.common import (FLOAT, INT, U64, VOID,
                                            check_operand, check_widths,
-                                           dropout_args, gemm_tile_bytes,
-                                           is_training, launch, on_cpu, ptr,
-                                           weight_grad)
+                                           dropout_args, is_training, launch,
+                                           on_cpu, ptr, round_up, weight_grad)
 from neurovit_tpu_torch.ops.fused_qkv import LN_BWD_MAX_DIM, ln_backward_plain
+from neurovit_tpu_torch.ops.int8_gemm import ALIGN_SLACK, BOX_BYTES
 
 Seeds = Tuple[int, int]
-# K4's rows per block, the first whose shared memory fits.
-MLP_ROWS = (32, 16)
-# K4's W tile ring (2 stages of 128 x 40 bf16), which also holds the
-# [rows, 132] f32 product tile.
-MLP_SCRATCH_BYTES = 20480
+# K4's passes (csrc/fused_mlp.cu): rows (one warp each) a block of the LN
+# pass, the GEMM passes' output tile rows (and columns, or half that where
+# full tiles would give the card's 132 SMs fewer blocks) and ring stages
+# (three, so two GEMM blocks share an SM), and the alignment of each piece
+# of the scratch.
+ROW_WARPS, MLP_TILE, MLP_STAGES, SCRATCH_ALIGN = 8, 128, 3, 256
+SMS = 132
+# A GEMM block: two consumer warpgroups and the producer warp.
+GEMM_THREADS = 2 * 128 + 32
 
 
-def smem_bytes(rows: int, dim: int, hid: int) -> int:
-    """K4's shared memory at ``rows`` rows a block: u [rows, dim] and g
-    [rows, hid] bf16, and the GEMM scratch (csrc/fused_mlp.cu,
-    nvt_fused_mlp_smem_bytes)."""
-    return (gemm_tile_bytes(rows, dim) + gemm_tile_bytes(rows, hid)
-            + MLP_SCRATCH_BYTES)
+def gemm_tile_n(m: int, n: int) -> int:
+    """Output columns of a K4 GEMM block with an [m, n] output: 128, or 64
+    where 128-wide tiles would make fewer blocks than the card has SMs."""
+    return 64 if -(-n // MLP_TILE) * -(-m // MLP_TILE) < SMS else MLP_TILE
 
 
-def smem_plan(dim: int, hid: int) -> Tuple[int, int]:
-    """(rows a block, shared-memory bytes) of K4 at (dim, hid): 32 rows
-    where they fit in a block's shared memory, else 16. Raises, with the
-    byte count, where neither fits, or for widths K4 does not take."""
+def gemm_smem_bytes(tile_n: int) -> int:
+    """Dynamic shared memory of a K4 GEMM block: the ring's stages of a
+    128 x 128-byte A box and a tile_n x 128-byte Bt box, a full and an
+    empty barrier a stage, and the slack that aligns the ring to 1 KiB
+    (csrc/hopper_gemm.cuh, Mainloop::kSmemBytes)."""
+    return (ALIGN_SLACK + MLP_STAGES * (MLP_TILE + tile_n) * BOX_BYTES
+            + 2 * MLP_STAGES * 8)
+
+
+class MlpPlan(NamedTuple):
+    """How one K4 call covers x [m, dim] with mlp_dim hid. ``launches``:
+    the three kernels in launch order, each (name, grid, threads, dynamic
+    shared memory bytes), a grid (x, y). ``scratch``: the pieces of the one
+    scratch allocation, name -> (byte offset, bytes), in ``scratch_bytes``
+    bytes: u [m, dim] then g [m, hid], both bf16."""
+    launches: tuple
+    scratch: dict
+    scratch_bytes: int
+
+
+def check_fwd_shapes(dim: int, hid: int) -> None:
+    """Raise unless K4 takes x [*, dim] and mlp_dim hid: multiples of 16,
+    the 16-byte rows of its TMA operands, of any size (no row is held
+    whole in registers or shared memory)."""
     check_widths("MLP", dim=dim, mlp_dim=hid)
-    for rows in MLP_ROWS:
-        nbytes = smem_bytes(rows, dim, hid)
-        if nbytes <= SMEM_LIMIT:
-            return rows, nbytes
-    raise ValueError(
-        f"the MLP kernel keeps u and g of {MLP_ROWS[-1]} rows in shared "
-        f"memory: {smem_bytes(MLP_ROWS[-1], dim, hid)} bytes at dim {dim}, "
-        f"mlp_dim {hid}; a block may have {SMEM_LIMIT} ({SHAPE_QUEUE})")
+
+
+def mlp_plan(m: int, dim: int, hid: int) -> MlpPlan:
+    """K4's plan for m rows (the kernel's own counts are
+    ``nvt_fused_mlp_scratch_bytes`` and ``nvt_fused_mlp_smem_bytes``; the
+    card test holds them equal). Raises where the kernel does not take the
+    widths."""
+    check_fwd_shapes(dim, hid)
+    if m < 1:
+        raise ValueError(f"the MLP kernel takes at least one row, got {m}")
+    m_tiles = -(-m // MLP_TILE)
+    launches = [("ln_rows", (-(-m // ROW_WARPS), 1), ROW_WARPS * 32, 0)]
+    for name, n in (("fc1_gelu", hid), ("fc2_residual", dim)):
+        tile_n = gemm_tile_n(m, n)
+        launches.append((name, (-(-n // tile_n), m_tiles), GEMM_THREADS,
+                         gemm_smem_bytes(tile_n)))
+    scratch, at = {}, 0
+    for name, nbytes in (("u", m * dim * 2), ("g", m * hid * 2)):
+        scratch[name] = (at, nbytes)
+        at = round_up(at + nbytes, SCRATCH_ALIGN)
+    return MlpPlan(launches=tuple(launches), scratch=scratch,
+                   scratch_bytes=at)
 
 
 def check_bwd_shapes(dim: int, hid: int) -> None:
@@ -153,16 +188,18 @@ def fused_mlp_block_cuda(x: torch.Tensor, gamma: torch.Tensor,
     b, n, dim = x.shape
     hid = w1.shape[0]
     w1b, w2b, vecs = _operands(x, w1, w2, gamma=gamma, beta=beta, b1=b1, b2=b2)
-    rows, _ = smem_plan(dim, hid)
+    plan = mlp_plan(b * n, dim, hid)
     inv_keep, keep_q = dropout_args(dropout_rate)
     y = torch.empty_like(x)
     h = x.new_empty(b, n, hid) if return_h else None
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
+                          device=x.device)
     launch("nvt_fused_mlp_fwd",
-           (VOID,) * 9 + (INT,) * 4 + (FLOAT, FLOAT, INT, U64, U64), x,
+           (VOID,) * 10 + (INT,) * 3 + (FLOAT, FLOAT, INT, U64, U64), x,
            ptr(x), ptr(vecs["gamma"]), ptr(vecs["beta"]), ptr(w1b),
-           ptr(vecs["b1"]), ptr(w2b), ptr(vecs["b2"]), ptr(y), ptr(h), b * n,
-           dim, hid, rows, nn.LN_EPS, inv_keep, keep_q, int(seeds[0]),
-           int(seeds[1]))
+           ptr(vecs["b1"]), ptr(w2b), ptr(vecs["b2"]), ptr(y), ptr(h),
+           ptr(scratch), b * n, dim, hid, nn.LN_EPS, inv_keep, keep_q,
+           int(seeds[0]), int(seeds[1]))
     fused_mlp_block_cuda.launches += 1
     return (y, h) if return_h else y
 

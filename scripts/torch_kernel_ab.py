@@ -7,13 +7,14 @@ operands (``chip_smoke.py``'s kernel-phase shapes: batch 8 x 1001 tokens,
 dim 1024, 8 heads of 64, MLP 2048; the ResNet pool at [8, 90, 45, 45, 64]),
 with the library behind it switched between the two in the order other,
 this, this, other, ``--rounds`` times; each turn is the median of 10
-CUDA-event timings after 2 warm-up launches; K1 also at dropout 0.1 with
-its row sums (the train step's call). Printed per kernel: the
+CUDA-event timings after 2 warm-up launches; K1 and K4 also at dropout
+0.1, with K1's row sums and K4's h (the train step's calls). Printed per kernel: the
 median over each checkout's turns, their ratio, and the spread of the
 other checkout's own turns (the distance between its quartiles, as a
-share of its median), with the card's name and power limit. K4 is left
-out: its entry point takes a rows-a-block argument since the width repair
-(ops/fused_mlp.py, smem_plan), so the two libraries are not called alike.
+share of its median), with the card's name and power limit. K4 is
+called through each library's own entry point (:func:`fused_mlp_call`):
+an older checkout's ``nvt_fused_mlp_fwd`` takes the rows of a block (32
+at the flagship) and no scratch, this one's a scratch allocation.
 
     python scripts/torch_kernel_ab.py --other <checkout> [--rounds 10]
 """
@@ -33,7 +34,9 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
 import chip_smoke as cs  # noqa: E402
+from neurovit_tpu_torch import nn  # noqa: E402
 from neurovit_tpu_torch.ops import _build  # noqa: E402
+from neurovit_tpu_torch.ops import common  # noqa: E402
 from neurovit_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from neurovit_tpu_torch.ops import (fused_mlp, fused_outproj,  # noqa: E402
                                     fused_qkv, int8_serving, maxpool3d)
@@ -47,6 +50,30 @@ def other_library(tree: str) -> str:
         env={**os.environ, "PYTHONPATH": tree}, capture_output=True,
         text=True, check=True)
     return out.stdout.strip().splitlines()[-1]
+
+
+def fused_mlp_call(args: tuple, dropout_rate: float = 0.0, seeds=(0, 0),
+                   return_h: bool = False, rows: int = 32):
+    """K4 on ``args`` (bf16 x and weights, f32 vectors) through the library
+    in use: this checkout's wrapper where the library counts a scratch
+    (``nvt_fused_mlp_scratch_bytes``), else the older entry point, which
+    takes ``rows`` a block and no scratch."""
+    if hasattr(_build.library(), "nvt_fused_mlp_scratch_bytes"):
+        return fused_mlp.fused_mlp_block_cuda(
+            *args, dropout_rate=dropout_rate, seeds=seeds, return_h=return_h)
+    x, gamma, beta, w1, b1, w2, b2 = args
+    b, n, dim = x.shape
+    hid = w1.shape[0]
+    inv_keep, keep_q = common.dropout_args(dropout_rate)
+    y = torch.empty_like(x)
+    h = x.new_empty(b, n, hid) if return_h else None
+    p = common.ptr
+    common.launch("nvt_fused_mlp_fwd", (common.VOID,) * 9 + (common.INT,) * 4
+                  + (common.FLOAT, common.FLOAT, common.INT, common.U64,
+                     common.U64), x, p(x), p(gamma), p(beta), p(w1), p(b1),
+                  p(w2), p(b2), p(y), p(h), b * n, dim, hid, rows, nn.LN_EPS,
+                  inv_keep, keep_q, int(seeds[0]), int(seeds[1]))
+    return (y, h) if return_h else y
 
 
 def cases() -> dict:
@@ -76,8 +103,8 @@ def cases() -> dict:
            "seed": 1234}
     mdrop = {"dropout_rate": cs.DROPOUT, "seeds": (1235, 1236)}
     o, lsum = fa.flash_attention_plain(*qkv, return_stats=True, **att)
-    _, hh = fused_mlp.fused_mlp_block_plain(x, *ln, w1.to(bf), b1, w2.to(bf),
-                                            b2, return_h=True, **mdrop)
+    mlp = (x, *ln, w1.to(bf), b1, w2.to(bf), b2)
+    _, hh = fused_mlp.fused_mlp_block_plain(*mlp, return_h=True, **mdrop)
     tr = [a.transpose(1, 2).contiguous() for a in (*qkv, o, do)]
     q8 = int8_serving
     qkv8, out8 = q8.quantize_weight(wqkv), q8.quantize_weight(wout)
@@ -96,6 +123,10 @@ def cases() -> dict:
         "fused_outproj_residual": ("nvt_fused_outproj_fwd", lambda: (
             fused_outproj.fused_outproj_residual_cuda(x, attn, wout.to(bf),
                                                       bout))),
+        "fused_mlp_block": ("nvt_fused_mlp_fwd", lambda: (
+            fused_mlp_call(mlp))),
+        "fused_mlp_block dropout h": ("nvt_fused_mlp_fwd", lambda: (
+            fused_mlp_call(mlp, return_h=True, **mdrop))),
         "flash_attention_bwd": ("nvt_flash_attention_bwd", lambda: (
             fa.flash_attention_bwd_cuda(*qkv, o, do, lsum, **att))),
         "flash_attention_bhnd": ("nvt_flash_attention_bhnd_fwd", lambda: (

@@ -5,17 +5,17 @@ K7, K8 and K9, K6 (the [B, H, N, D] attention, forward and backward) and
 the Grad-CAM probe that runs it, the int8 serving kernels K10-K13, the
 ResNet stem's max-pool K14 and its backward K15; K1-K13 at every ViT width
 of the matrix (``models/vit3d.py`` WIDTHS: head dims 16, 32, 64, 80 and
-128, the ViT-S/B/L widths), K4's shared-memory plan against the kernel's
-own count, head dim < 8 on the plain attention; the probes' kernels, K16
+128, the ViT-S/B/L widths), head dim < 8 on the plain attention; the probes' kernels, K16
 (fused dropout, bit-equal forward and backward) and K17/K18 (the GEMM
 probes: int8 and K18 bit-equal, bf16 within K 2^-23 sum|a||b|); and the
 attention forward K1/K6 and backward K5/K6's on TMA + wgmma at head dims
 16-128, n_valid on and next to the 64-key tile edges, grids under and over
 the 132 SMs, with descriptor probes (V one-hot by key, dO one-hot by query),
 repeat calls bit for bit, their shared-memory plans, and B * H past 65535;
-and K12 on TMA + wgmma at ragged rows (130, 8008), ViT-H and mlp 8192,
-ragged column tiles, all-zero rows, repeat calls bit for bit and its
-plan's scratch and shared-memory bytes against the kernel's count.
+and K4 and K12 on TMA + wgmma at ragged rows (1-300, 8008), ViT-H and
+mlp 8192, ragged column tiles, all-zero rows, repeat calls bit for bit
+(K4 also without h, and K9 on K4's own h) and their plans' scratch and
+shared-memory bytes against the kernels' counts.
 
 These need an NVIDIA GPU with sm_90a and nvcc; elsewhere they skip. Run on
 the card with:
@@ -278,27 +278,94 @@ def test_fused_outproj_fwd_bwd_kernels(cuda, m, rate):
     _check_grads(got, want)
 
 
+def _mlp_args(rng, m, dim, hid, device, zero_rows=(), zero_bias=False):
+    """K4's operands for x [1, m, dim]; ``zero_rows`` of x are 0, and with
+    ``zero_bias`` beta and b1 are 0 too, so u, h and g of those rows are 0
+    and y there is bf16(b2 * mask2 / keep)."""
+    x = _rand(rng, (1, m, dim), device)
+    x[0, list(zero_rows)] = 0
+    gamma = _rand(rng, (dim,), device, torch.float32, 0.1, 1.0)
+    beta = _rand(rng, (dim,), device, torch.float32, 0.1)
+    w1 = _rand(rng, (hid, dim), device, torch.bfloat16, dim ** -0.5)
+    b1 = _rand(rng, (hid,), device, torch.float32, 0.05)
+    w2 = _rand(rng, (dim, hid), device, torch.bfloat16, hid ** -0.5)
+    b2 = _rand(rng, (dim,), device, torch.float32, 0.05)
+    if zero_bias:
+        beta.zero_()
+        b1.zero_()
+    return (x, gamma, beta, w1, b1, w2, b2)
+
+
+# K4 on TMA + wgmma: one row, ragged last row tiles (33, 65, 130, 300), the
+# flagship's rows at batch 8 (8008 = 62 tiles + 72); the smoke model's and
+# a ragged width (hid 384: three column tiles, 384 = 3 x 128; dim 256),
+# ViT-H (1280 / 5120) and mlp 8192 at dim 1024, the two widths the wmma
+# kernel refused. K9 (dim <= 1024) runs on the kernel's own h.
+MLP_WIDTHS = [(64, 128), (256, 384), (1280, 5120), (1024, 8192)]
+
+
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("m", [1, 33, 65, 300])
-def test_fused_mlp_fwd_bwd_kernels(cuda, m, rate):
-    rng = np.random.default_rng(m + 3)
-    x = _rand(rng, (1, m, 256), cuda)
-    gamma = _rand(rng, (256,), cuda, torch.float32, 0.1, 1.0)
-    beta = _rand(rng, (256,), cuda, torch.float32, 0.1)
-    w1 = _rand(rng, (384, 256), cuda, torch.bfloat16, 256 ** -0.5)
-    b1 = _rand(rng, (384,), cuda, torch.float32, 0.05)
-    w2 = _rand(rng, (256, 384), cuda, torch.bfloat16, 384 ** -0.5)
-    b2 = _rand(rng, (256,), cuda, torch.float32, 0.05)
+@pytest.mark.parametrize("dim,hid", MLP_WIDTHS)
+@pytest.mark.parametrize("m", [1, 33, 65, 130, 300, 8008])
+def test_fused_mlp_fwd_bwd_kernels(cuda, m, dim, hid, rate):
+    args = _mlp_args(np.random.default_rng(m + 3 + dim + hid), m, dim, hid,
+                     cuda)
     kw = {"dropout_rate": rate, "seeds": (8, 9)}
-    args = (x, gamma, beta, w1, b1, w2, b2)
-    _check(fused_mlp.fused_mlp_block_cuda(*args, return_h=True, **kw),
-           fused_mlp.fused_mlp_block_plain(*args, return_h=True, **kw))
-    _, h = fused_mlp.fused_mlp_block_plain(*args, return_h=True, **kw)
-    dy = _rand(rng, (1, m, 256), cuda)
-    got = fused_mlp.fused_mlp_bwd_cuda(dy, x, h, gamma, beta, w1, w2, **kw)
+    got = fused_mlp.fused_mlp_block_cuda(*args, return_h=True, **kw)
+    _check(got, fused_mlp.fused_mlp_block_plain(*args, return_h=True, **kw))
+    if dim > 1024:                       # K9's LayerNorm rows: dim <= 1024
+        return
+    x, gamma, beta, w1, _, w2, _ = args
+    h = got[1]
+    dy = _rand(np.random.default_rng(m), (1, m, dim), cuda)
+    bwd = fused_mlp.fused_mlp_bwd_cuda(dy, x, h, gamma, beta, w1, w2, **kw)
     want = fused_mlp.fused_mlp_bwd_plain(dy, x, h, gamma, beta, w1, w2, **kw)
-    got = [t.reshape(w.shape) for t, w in zip(got, want)]
-    _check_grads(got, want, params=(5, 6))
+    bwd = [t.reshape(w.shape) for t, w in zip(bwd, want)]
+    _check_grads(bwd, want, params=(5, 6))
+
+
+@pytest.mark.parametrize("zero_bias", [True, False])
+def test_fused_mlp_kernel_zero_rows(cuda, zero_bias):
+    """All-zero rows of x, at a tile's first and last row and in the
+    ragged tile: with beta = b1 = 0, u, h and g of those rows are 0 and y
+    is bf16(b2) there exactly (dropout 0), and h is 0."""
+    rows = (0, 127, 128, 129)
+    args = _mlp_args(np.random.default_rng(3), 130, 256, 384, cuda,
+                     zero_rows=rows, zero_bias=zero_bias)
+    y, h = fused_mlp.fused_mlp_block_cuda(*args, return_h=True)
+    _check((y, h), fused_mlp.fused_mlp_block_plain(*args, return_h=True))
+    if zero_bias:
+        want = args[-1].to(torch.bfloat16).expand(len(rows), -1)
+        assert torch.equal(y[0, list(rows)], want)
+        assert not h[0, list(rows)].float().abs().max()
+
+
+@pytest.mark.parametrize("m,dim,hid", [(130, 256, 384), (8008, 1024, 2048)])
+def test_fused_mlp_kernel_repeats_and_h(cuda, m, dim, hid):
+    """Two calls bit-equal (every sum in a fixed order, no atomics), at
+    dropout 0.1 with h; without return_h the call gives the same y and
+    allocates no h (its peak is lower by at least h's bytes)."""
+    args = _mlp_args(np.random.default_rng(m + 7), m, dim, hid, cuda)
+    kw = {"dropout_rate": 0.1, "seeds": (21, 22)}
+    before = fused_mlp.fused_mlp_block_cuda.launches
+    y, h = fused_mlp.fused_mlp_block_cuda(*args, return_h=True, **kw)
+    y2, h2 = fused_mlp.fused_mlp_block_cuda(*args, return_h=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    assert fused_mlp.fused_mlp_block_cuda.launches == before + 2
+
+    def peak(return_h):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fused_mlp.fused_mlp_block_cuda(*args, return_h=return_h, **kw)
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    _, with_h = peak(True)
+    y3, without = peak(False)
+    assert isinstance(y3, torch.Tensor) and torch.equal(y3, y)
+    assert without + h.numel() * h.element_size() <= with_h
 
 
 def test_training_autograd_runs_the_kernels(cuda):
@@ -685,18 +752,26 @@ def test_widths_int8_kernels(cuda, width):
 
 
 def test_mlp_smem_plan_matches_the_kernel(cuda):
-    """The wrapper's K4 plan (32 rows where they fit, else 16) counts the
-    bytes the kernel asks for, at every width of the matrix."""
+    """The wrapper's K4 plan (``mlp_plan``) counts the scratch and the GEMM
+    passes' shared memory (which follows each pass's tile width) as the
+    kernel does, at every width of the matrix and the card tests' widths,
+    at row counts on both sides of the 64-column tile rule."""
     import ctypes
 
     from neurovit_tpu_torch.models.vit3d import WIDTHS
     from neurovit_tpu_torch.ops import _build
-    fn = _build.library().nvt_fused_mlp_smem_bytes
-    fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 3
-    for dim, _, _, hid in WIDTHS.values():
-        rows, nbytes = fused_mlp.smem_plan(dim, hid)
-        assert fn(rows, dim, hid) == nbytes == fused_mlp.smem_bytes(rows, dim,
-                                                                   hid)
+    lib = _build.library()
+    scratch = lib.nvt_fused_mlp_scratch_bytes
+    smem = lib.nvt_fused_mlp_smem_bytes
+    scratch.restype, scratch.argtypes = ctypes.c_longlong, [ctypes.c_int] * 3
+    smem.restype, smem.argtypes = ctypes.c_longlong, [ctypes.c_int] * 2
+    widths = [(w[0], w[3]) for w in WIDTHS.values()] + MLP_WIDTHS
+    for dim, hid in widths:
+        for m in (1, 130, 1001, 2048, 8008, 32032):
+            plan = fused_mlp.mlp_plan(m, dim, hid)
+            assert scratch(m, dim, hid) == plan.scratch_bytes, (m, dim, hid)
+            assert [s for *_, s in plan.launches] == [
+                0, smem(m, hid), smem(m, dim)], (m, dim, hid)
 
 
 def test_head_dim_below_8_runs_plain_on_the_card(cuda):

@@ -229,10 +229,13 @@ def test_kernel_gates_accept_every_width(width):
     fused_qkv.check_fwd_shapes(dim, inner)
     fused_qkv.check_bwd_shapes(dim, inner)
     fused_outproj.check_shapes(dim, inner)
-    rows, nbytes = fused_mlp.smem_plan(dim, hid)
-    assert nbytes <= SMEM_LIMIT
-    # The flagship keeps its 32-row plan; ViT-B and ViT-L take 16 rows.
-    assert rows == (16 if width in ("vit_b", "vit_l") else 32)
+    # K4: three launches at any multiple-of-16 width, each GEMM block
+    # within a block's shared memory, the scratch holding u and g.
+    plan = fused_mlp.mlp_plan(1001, dim, hid)
+    assert [name for name, *_ in plan.launches] == ["ln_rows", "fc1_gelu",
+                                                     "fc2_residual"]
+    assert all(smem <= SMEM_LIMIT for *_, smem in plan.launches)
+    assert plan.scratch_bytes >= 1001 * (dim + hid) * 2
     fused_mlp.check_bwd_shapes(dim, hid)
     q8.check_qkv_shapes(dim, inner)
     q8.check_outproj_shapes(dim, inner)
@@ -246,8 +249,7 @@ def test_kernel_gates_accept_every_width(width):
     (fused_qkv.check_fwd_shapes, (2048, 512), "bytes of shared memory"),
     (fused_qkv.check_bwd_shapes, (1280, 512), "dim <= 1024"),
     (fused_outproj.check_shapes, (1000, 512), "multiple of 16"),
-    (fused_mlp.smem_plan, (1024, 8192), "bytes at dim 1024, mlp_dim 8192"),
-    (fused_mlp.smem_plan, (1024, 2056), "multiple of 16"),
+    (fused_mlp.check_fwd_shapes, (1024, 2056), "multiple of 16"),
     (fused_mlp.check_bwd_shapes, (1536, 6144), "dim <= 1024"),
     (q8.check_qkv_shapes, (1280, 1280), "dim <= 1024"),
     (q8.check_outproj_shapes, (1024, 1536), "inner <= 1024"),
@@ -258,6 +260,17 @@ def test_kernel_gates_refuse_and_name_the_queue(gate, args, match):
     with pytest.raises(ValueError, match=match) as err:
         gate(*args)
     assert "ROADMAP.md, Queue 3" in str(err.value)
+
+
+@pytest.mark.parametrize("dim,hid", [(1024, 8192), (1280, 5120)])
+def test_mlp_gate_accepts_the_widths_once_refused(dim, hid):
+    """K4 kept u and g of 16 or 32 rows in shared memory and refused mlp
+    8192 at dim 1024 (and ViT-H's 1280 / 5120); on TMA + wgmma it takes
+    them, and so does its plan."""
+    fused_mlp.check_fwd_shapes(dim, hid)
+    plan = fused_mlp.mlp_plan(8008, dim, hid)
+    assert plan.launches[1][1] == (hid // 128, 63)
+    assert plan.launches[2][1] == (dim // 128, 63)
 
 
 @pytest.mark.parametrize("value", [None, "", "none", "int8"])
