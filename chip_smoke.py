@@ -20,7 +20,10 @@ Phases, each printing a line; any failure raises and exits non-zero:
                K4 with h, also at 130 rows and at dim 1280 / mlp 5120 and
                dim 1024 / mlp 8192 at batch 2, and on all-zero rows, which
                give bf16(b2), and two calls bit-equal),
-               the backwards K5, K7, K8, K9 at dropout 0 and 0.1, K6 (the
+               the backwards K5, K7, K8, K9 at dropout 0 and 0.1 (K9 also
+               at 130 rows and at dim 1280 / mlp 5120 and dim 1536 / mlp
+               6144 at batch 2, on all-zero rows of dy, which give dz =
+               dh = dx = 0 there, and two calls bit-equal), K6 (the
                [B, H, N, D] attention) forward at n_valid 1001 and 900 and
                at dropout 0.1 and backward at dropout 0 and 0.1, each also
                timed beside K1 or K5 on the transposed inputs, and the int8
@@ -37,13 +40,18 @@ Phases, each printing a line; any failure raises and exits non-zero:
                passes beside K17 int8 at its two GEMM shapes
                (scripts/torch_int8_mlp_device_times.py), and of K4's three
                passes, serving and at dropout 0.1 with h, beside K17 bf16
-               at its two GEMM shapes (scripts/torch_mlp_device_times.py)
+               at its two GEMM shapes (scripts/torch_mlp_device_times.py),
+               and of K9's five passes at dropout 0.1 and 0 beside K17
+               bf16 at its two GEMM shapes
+               (scripts/torch_mlp_bwd_device_times.py)
 4. widths      every ViT width of the matrix (models/vit3d.py WIDTHS: the
                smoke model, head dims 32, 80 and 128, ViT-S/B/L and the
                flagship) at batch 2 x 1001 tokens through K1-K13 against the
-               plain versions, dropout 0.1 where an op has it; K4's plan
-               (scratch, shared memory) against the kernel's; K4 and K9
-               timed at batch 8 at the ViT-B, ViT-L and flagship widths
+               plain versions, dropout 0.1 where an op has it; K4's and
+               K9's plans (scratch, shared memory) against the kernels';
+               K4 and K9 at ViT-H (dim 1280, mlp 5120) against plain; K4
+               and K9 timed at batch 8 at the ViT-B, ViT-L, ViT-H and
+               flagship widths
 5. probes      the probe scripts' main paths with their launch counts
                (scripts/torch_dropout_bench.py, scripts/torch_int8_gemm_bench.py
                at its seven shapes); K16 forward and backward at
@@ -422,12 +430,31 @@ def mlp_device_times(results: dict, args: tuple, card: str) -> None:
             "device not measured (no kernels traced)") + f"; {card}")
 
 
+def mlp_bwd_device_times(results: dict, args: tuple, card: str) -> None:
+    """K9's device time on the kernel phase's operands at dropout 0.1 (its
+    timed case) and 0, pass by pass (``scripts/torch_mlp_bwd_device_times.py``),
+    the first into its result; K17 bf16 at the two GEMM shapes logged
+    beside it."""
+    times = script("torch_mlp_bwd_device_times")
+    for rate in (DROPOUT, 0.0):
+        m = times.measure(args, 10, dropout_rate=rate, seeds=(1235, 1236))
+        if rate == DROPOUT:
+            results["fused_mlp_bwd"]["device_ms"] = m["device_ms"]
+        log("kernels", times.line(
+            f"fused_mlp_bwd at B={B} N={N} dropout {rate}", m)
+            + f", bound {results['fused_mlp_bwd']['bound_ms']:.4f} ms; {card}")
+    for shape, dev in times.yardstick(B * N, DIM, MLP, 10).items():
+        log("kernels", f"K17 bf16 {shape}: " + (", ".join(
+            f"{k} {us:.1f} us" for k, us in dev.items()) or
+            "device not measured (no kernels traced)") + f"; {card}")
+
+
 def build_notes(lib) -> None:
     """Log, from the build's compiler output, every ptxas note on a kernel
     (C7514 and C7512, wgmma serialised; C7508, setmaxnreg ignored) and
     every kernel that spills, with its name, and the registers of each
-    instance of the attention backward, of K12's four passes and of K4's
-    three."""
+    instance of the attention backward, of K12's four passes, of K4's
+    three and of K9's five."""
     from neurovit_tpu_torch.ops import _build
     path = _build.build_log(lib)
     if not path.exists():
@@ -446,7 +473,8 @@ def build_notes(lib) -> None:
         pass
     for source, fn, regs, stores, loads in kernels:
         if (stores or loads or "flash_bwd" in fn
-                or source in ("int8_mlp.cu", "fused_mlp.cu")):
+                or source in ("int8_mlp.cu", "fused_mlp.cu",
+                              "fused_mlp_bwd.cu")):
             log("build", f"{source} {readable.get(fn, fn)}: {regs} "
                 f"registers, spill stores {stores} B, spill loads {loads} B")
     for source, fn, line in notes:
@@ -556,7 +584,7 @@ def kernel_phase(card: str) -> dict:
     # (130 rows), the two widths the wmma version refused (ViT-H, mlp 8192)
     # at batch 2; all-zero rows with beta = b1 = 0 at dropout 0.
     mlp_more = {"130 rows": (x[:1, :130].contiguous(), *ln, w1, b1, w2, b2)}
-    for dim_, hid_ in ((1280, 5120), (1024, 8192)):
+    for dim_, hid_ in ((1280, 5120), (1024, 8192), (1536, 6144)):
         mlp_more[f"dim {dim_} mlp {hid_}"] = (
             t(2, N, dim_), t(dim_, scale=0.1, dtype=torch.float32, offset=1.0),
             t(dim_, scale=0.1, dtype=torch.float32),
@@ -566,6 +594,21 @@ def kernel_phase(card: str) -> dict:
             t(dim_, scale=0.02, dtype=torch.float32))
     mlp_zero = (x0, ln[0], torch.zeros_like(ln[1]), w1, torch.zeros_like(b1),
                 w2, b2)
+    # K9 beyond the flagship, at dropout 0.1: the first 130 rows, and the
+    # widths the wmma version refused (ViT-H, dim 1536 / mlp 6144) at batch
+    # 2 on the plain forward's h; dy with all-zero rows at a tile's first
+    # and last row (dz, dh and dx are 0 there).
+    bwd_more = {"130 rows": (dy[:1, :130].contiguous(),
+                             x[:1, :130].contiguous(),
+                             h[DROPOUT][:1, :130].contiguous(), *ln, w1, w2)}
+    for label in ("dim 1280 mlp 5120", "dim 1536 mlp 6144"):
+        a = mlp_more[label]
+        _, h_ = fused_mlp.fused_mlp_block_plain(*a, return_h=True, **mdrop)
+        bwd_more[label] = (t(*a[0].shape, scale=0.1), a[0], h_, a[1], a[2],
+                           a[3], a[5])
+    dy0 = dy.clone()
+    dy0[0, [0, 127, 128, 1000]] = 0
+    bwd_more["zero rows of dy"] = (dy0, x, h[DROPOUT], *ln, w1, w2)
     mlp8_more["zero rows, beta = b1 = 0"] = (
         x0, ln[0], torch.zeros_like(ln[1]), mlp8[0], mlp8[1],
         torch.zeros_like(b1), *mlp8[3:])
@@ -658,9 +701,13 @@ def kernel_phase(card: str) -> dict:
              outproj_bwd(fused_outproj.fused_outproj_bwd_plain, rate), True,
              ()) for rate in (DROPOUT, 0.0)],
         "fused_mlp_bwd": [
-            (f"dropout {rate}", mlp_bwd(fused_mlp.fused_mlp_bwd_cuda, rate),
-             mlp_bwd(fused_mlp.fused_mlp_bwd_plain, rate), True, (5, 6))
-            for rate in (DROPOUT, 0.0)],
+            *[(f"dropout {rate}", mlp_bwd(fused_mlp.fused_mlp_bwd_cuda, rate),
+               mlp_bwd(fused_mlp.fused_mlp_bwd_plain, rate), True, (5, 6))
+              for rate in (DROPOUT, 0.0)],
+            *[(f"{label} dropout {DROPOUT}",
+               lambda a=a: fused_mlp.fused_mlp_bwd_cuda(*a, **mdrop),
+               lambda a=a: fused_mlp.fused_mlp_bwd_plain(*a, **mdrop), True,
+               (5, 6)) for label, a in bwd_more.items()]],
         "int8_ln_qkv": [
             ("", lambda: q8.int8_ln_qkv_cuda(x, *ln, *qkv8, HEADS, DIM_HEAD),
              lambda: q8.int8_ln_qkv_plain(x, *ln, *qkv8, HEADS, DIM_HEAD))],
@@ -854,10 +901,26 @@ def kernel_phase(card: str) -> dict:
     log("kernels", "fused_mlp_block: all-zero rows give bf16(b2); two calls "
         f"at dropout {DROPOUT} with h bit-equal at the flagship and at 130 "
         "rows")
-    del mlp8_more, mlp_more, mlp_zero, x0, y0, one, two
+    bwd_args = (dy, x, h[DROPOUT], *ln, w1, w2)
+    got0 = fused_mlp.fused_mlp_bwd_cuda(*bwd_more["zero rows of dy"], **mdrop)
+    for i, what in ((0, "dx"), (3, "dz"), (4, "dh")):
+        if got0[i].reshape(B * N, -1)[[0, 127, 128, 1000]].float().abs().max():
+            raise AssertionError(f"fused_mlp_bwd: {what} is not 0 on an "
+                                 "all-zero row of dy")
+    for label, a in (("flagship", bwd_args), ("130 rows", bwd_more["130 rows"]),
+                     ("dim 1536 mlp 6144", bwd_more["dim 1536 mlp 6144"])):
+        one, two = (fused_mlp.fused_mlp_bwd_cuda(*a, **mdrop)
+                    for _ in range(2))
+        if not all(torch.equal(p, q) for p, q in zip(one, two)):
+            raise AssertionError(f"fused_mlp_bwd {label}: two calls differ")
+    log("kernels", "fused_mlp_bwd: all-zero rows of dy give dz = dh = dx = "
+        f"0; two calls at dropout {DROPOUT} bit-equal (dgamma and dbeta "
+        "included) at the flagship, at 130 rows and at dim 1536 / mlp 6144")
+    del mlp8_more, mlp_more, mlp_zero, x0, y0, one, two, bwd_more, got0, dy0
     attention_device_times(results, qkv, qkv_h, card)
     int8_mlp_device_times(results, (x, *ln, *mlp8), card)
     mlp_device_times(results, mlp_args, card)
+    mlp_bwd_device_times(results, bwd_args, card)
     return results
 
 
@@ -889,9 +952,11 @@ def _width_operands(rng, b: int, dim: int, heads: int, dh: int, hid: int
 def widths_phase(card: str) -> None:
     """Every ViT width of the matrix (models/vit3d.py WIDTHS) at batch 2 x
     1001 tokens through K1-K13 against the plain versions, with the kernel
-    phase's tolerances, dropout 0.1 where an op has it; K4's plan (scratch
-    and shared memory) against the kernel's own count; then K4 and K9 timed
-    at batch 8 at the ViT-B, ViT-L and flagship widths."""
+    phase's tolerances, dropout 0.1 where an op has it; K4's and K9's plans
+    (scratch and shared memory) against the kernels' own counts; K4 and K9
+    at ViT-H (dim 1280, 16 heads of 80, mlp 5120), which the wmma K9
+    refused, against plain; then K4 and K9 timed at batch 8 at the ViT-B,
+    ViT-L, ViT-H and flagship widths."""
     import ctypes
 
     from neurovit_tpu_torch.models.vit3d import WIDTHS
@@ -902,8 +967,12 @@ def widths_phase(card: str) -> None:
 
     lib = _build.library()
     scratch, smem = lib.nvt_fused_mlp_scratch_bytes, lib.nvt_fused_mlp_smem_bytes
-    scratch.restype, scratch.argtypes = ctypes.c_longlong, [ctypes.c_int] * 3
-    smem.restype, smem.argtypes = ctypes.c_longlong, [ctypes.c_int] * 2
+    bwd_scratch = lib.nvt_fused_mlp_bwd_scratch_bytes
+    bwd_smem = lib.nvt_fused_mlp_bwd_smem_bytes
+    for fn in (scratch, bwd_scratch):
+        fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 3
+    for fn in (smem, bwd_smem):
+        fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 2
     rng = np.random.default_rng(SEED + 6)
     bf = torch.bfloat16
     for name, (dim, heads, dh, hid) in WIDTHS.items():
@@ -915,6 +984,15 @@ def widths_phase(card: str) -> None:
             raise AssertionError(f"{name}: K4's plan counts (scratch, fc1's "
                                  f"and fc2's shared memory) {mine} bytes, "
                                  f"the kernel {counted}")
+        bplan = fused_mlp.mlp_bwd_plan(2 * N, dim, hid)
+        counted = (bwd_scratch(2 * N, dim, hid), bwd_smem(2 * N, hid),
+                   bwd_smem(2 * N, dim))
+        theirs = (bplan.scratch_bytes, bplan.launches[1][3],
+                  bplan.launches[2][3])
+        if counted != theirs:
+            raise AssertionError(f"{name}: K9's plan counts (scratch, the "
+                                 f"hidden and du passes' shared memory) "
+                                 f"{theirs} bytes, the kernel {counted}")
         p = _width_operands(rng, 2, dim, heads, dh, hid)
         x, ln, (q, k, v), do = p["x"], p["ln"], p["qkv"], p["do"]
         wqkv, wout = p["wqkv"].to(bf), p["wout"].to(bf)
@@ -982,10 +1060,30 @@ def widths_phase(card: str) -> None:
             f"{max(worst.values()):.3e} ({max(worst, key=worst.get)})")
         del p, o, lsum, h, qh, kh, vh, oh, doh, cases
 
-    # K4 and K9 at ViT-B and ViT-L (K4's widest tiles, K9's du GEMM two
-    # chunks of dh at ViT-L) beside the flagship.
-    for name in ("flagship", "vit_b", "vit_l"):
-        dim, heads, dh, hid = WIDTHS[name]
+    # K4 and K9 at ViT-H, which the wmma K9 refused (its LayerNorm rows sat
+    # in one warp's registers), against plain at batch 2.
+    vit_h = (1280, 16, 80, 5120)
+    p = _width_operands(rng, 2, vit_h[0], *vit_h[1:])
+    mlp = (p["x"], *p["ln"], p["w1"].to(bf), p["b1"], p["w2"].to(bf),
+           p["b2"])
+    mdrop = {"dropout_rate": DROPOUT, "seeds": (13, 14)}
+    got = fused_mlp.fused_mlp_block_cuda(*mlp, return_h=True, **mdrop)
+    compare("widths vit_h K4", got, fused_mlp.fused_mlp_block_plain(
+        *mlp, return_h=True, **mdrop))
+    bwd = (p["dy"], p["x"], got[1], *p["ln"], mlp[3], mlp[5])
+    err, _ = compare("widths vit_h K9",
+                     fused_mlp.fused_mlp_bwd_cuda(*bwd, **mdrop),
+                     fused_mlp.fused_mlp_bwd_plain(*bwd, **mdrop), True,
+                     (5, 6))
+    log("widths", f"vit_h: dim 1280, 16 heads x 80, mlp 5120; K4 and K9 "
+        f"at dropout {DROPOUT} against plain at B=2 N={N}, K9 max abs err "
+        f"{err:.3e}")
+    del p, mlp, got, bwd
+    # K4 and K9 at ViT-B, ViT-L and ViT-H (K4's widest tiles, K9's widest
+    # rows) beside the flagship.
+    for name, (dim, heads, dh, hid) in (
+            *((n, WIDTHS[n]) for n in ("flagship", "vit_b", "vit_l")),
+            ("vit_h", vit_h)):
         p = _width_operands(rng, B, dim, heads, dh, hid)
         mlp = (p["x"], *p["ln"], p["w1"].to(bf), p["b1"], p["w2"].to(bf),
                p["b2"])

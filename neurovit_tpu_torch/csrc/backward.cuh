@@ -1,14 +1,15 @@
-// Device code shared by the backward kernels of the row-blocked ops (K7
-// fused_qkv_bwd.cu, K8 fused_outproj_bwd.cu, K9 fused_mlp_bwd.cu).
+// Device code shared by the backward kernels of the row-blocked ops on
+// wmma (K7 fused_qkv_bwd.cu, K8 fused_outproj_bwd.cu; K9, fused_mlp_bwd.cu,
+// runs on TMA + wgmma with passes of its own and uses none of it).
 //
 // - dropout_rows: the backward's dz = bf16(dy * mask / keep) for a row
 //   block, staged in shared memory as a GEMM A operand (and stored);
 // - du_gemm_kernel: du = A . W in f32 for 32-row blocks, A the concatenation
 //   along k of up to three [M, part] bf16 tensors, W [K, N] row-major (the
 //   torch weight, read with no transpose). A block holds its rows of A in
-//   shared memory 2048 columns at a time: at K <= 2048 (the flagship's K7
-//   and K9) all of them, and past it (ViT-B's K7 at 3 * 768, ViT-L's K9 at
-//   4096) chunk by chunk, adding each chunk's f32 product into du;
+//   shared memory 2048 columns at a time: at K <= 2048 (the flagship's K7)
+//   all of them, and past it (ViT-B's K7 at 3 * 768) chunk by chunk,
+//   adding each chunk's f32 product into du;
 // - ln_bwd_kernel + colsum_kernel: the LayerNorm backward of a row from x
 //   and du, plus the residual dy, and dgamma / dbeta as per-row-block f32
 //   partials summed over the blocks in a fixed order (deterministic; the
@@ -132,7 +133,7 @@ __global__ void __launch_bounds__(DuGemm::kThreads)
 //   xhat = (x - mean) * rstd               the forward's statistics, in f32
 //   dxhat = du * gamma
 //   dx = bf16(rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)) + dy)
-//   u = bf16(xhat * gamma + beta)          when u_out is given (K9 emits it)
+//   u = bf16(xhat * gamma + beta)          when u_out is given
 // and this block's partial sums of du * xhat and du over its rows.
 // A warp holds its row in registers, lane l the columns 256 i + 8 l .. + 7:
 // dim % 8 == 0, dim <= 1024. Columns past dim take no part.

@@ -1,4 +1,5 @@
-// Backward of the fused residual MLP block, bf16, deterministic.
+// Backward of the fused residual MLP block (K9), bf16, deterministic, on
+// TMA + wgmma.
 //
 // Replaces the TPU kernel neurovit_tpu/ops/fused_mlp.py:141 (_bwd_kernel,
 // launched at :241). From dy, x, the forward's h and the regenerated masks:
@@ -9,89 +10,448 @@
 //   du = dh . W1                                    f32, [M, dim]
 //   dx = bf16(LN backward of du at x + dy),  u = bf16(LN(x) * gamma + beta)
 //   dgamma = sum_rows(du * xhat), dbeta = sum_rows(du)
-// dW1 = u^T dh, dW2 = a^T dz, db1 and db2 stay outside (fused_mlp.py:285-300).
+// dW1 = u^T dh, dW2 = a^T dz, db1 and db2 stay outside (ops/fused_mlp.py,
+// FusedMlp.backward).
 //
-// What bounds it on the H100: 8 * M * dim * hid flops in two GEMMs, on the
-// tensor cores through nvt::TileGemm's [K, N] mode (W2 [dim, hid] and W1
-// [hid, dim] are the torch weights, read with no transpose). The TPU kernel
-// runs both GEMMs per row block with the [rows, hid] da in VMEM; here that
-// f32 da does not fit beside dz in shared memory, so the work splits where
-// JAX writes to HBM anyway:
-//   1. hidden_kernel, grid (ceil(M/64), ceil(hid/512)): dz rows into shared
-//      memory (and out), da tile by tile, its epilogue writes a and dh;
-//   2. du_gemm_kernel (backward.cuh): du = dh . W1 for 32-row blocks (dh
-//      resident 2048 columns at a time, so ViT-L's hid 4096 takes two);
-//   3. the LayerNorm backward rows (+ dy, + u) and the dgamma / dbeta sums.
-// Widths are multiples of 16 with dim <= 1024 (the LayerNorm rows sit in
-// one warp's registers); dz's columns past dim are zero up to the k tile
-// and the last column tile is masked.
-#include "backward.cuh"
+// What bounds it on the H100: 4 M dim hid flops in two GEMMs (67.2 GFLOP,
+// 0.068 ms at 989 TFLOP/s, for the flagship block at batch 8: M = 8008,
+// dim 1024, hid 2048). The TPU kernel runs both GEMMs per row block with
+// the [rows, hid] da in VMEM. A block that feeds wgmma from a TMA ring has
+// no room for a row block's da or du, so the work goes through device
+// memory where JAX writes to HBM anyway, plus du's f32 round trip (the
+// LayerNorm backward needs whole rows of it): dy and x read twice, h once,
+// dz, u, a, dh, dx written, dh read again, du written and read as f32,
+// about 336 MB at that shape (0.100 ms at 3.35 TB/s), in five launches on
+// the caller's stream:
+//   1. dz_rows: one warp a row writes u (ln_row, fused_mlp.cuh: K4's
+//      ln_rows, so u has the forward's bits), the row's (mean, rstd), and
+//      dz (lane l takes columns 512 i + 16 l .. + 15: one Philox block).
+//   2. hidden: fused_mlp.cuh Loop<BN, true> over ceil(hid / BN) x
+//      ceil(M / 128) tiles, A = dz, B = W2 [dim, hid] as it lies (MN-major
+//      for this product: hopper_gemm.cuh's MN-major B mode, wgmma's
+//      transpose-B). The producer has TMA prefetch the block's h tile into
+//      L2 as the mainloop starts, and once the ring is free TMA loads it
+//      beside the two output tiles while the threads draw mask1 as K4's
+//      fc1 draws it (QuadKeep at row * hid + j). The epilogue, from the
+//      accumulator registers: erf, GELU and GELU', a and dh rounded and
+//      staged in the ring, stored by TMA (K4's fc1 stores g and h so).
+//   3. du: the same mainloop over ceil(dim / BN) x ceil(M / 128) tiles,
+//      A = dh, B = W1 [hid, dim] as it lies. The epilogue stores du as f32
+//      pairs from registers (a quad writes 32 contiguous bytes) and, with
+//      x's pairs and the row statistics, takes the tile's share of the
+//      LayerNorm backward's sums: per row, sum(du gamma) and sum(du gamma
+//      xhat) over its columns (a quad's shuffles); per column, sum(du
+//      xhat) and sum(du) over its rows (each thread's two rows into the
+//      freed ring, then added over the 64 row groups in order).
+//   4. ln_bwd: one warp a row, its two sums from the du pass's column
+//      tiles in tile order, then one sweep over the row:
+//        xhat = (x - mean) * rstd,
+//        dx = bf16(rstd (du gamma - m1 - xhat m2) + dy).
+//   5. colsum: dgamma and dbeta from the du pass's row tiles, each warp a
+//      fixed share in order, the warps' sums in warp order: no atomics,
+//      two calls give the same bits.
+// Three stages (97 KiB of ring at BN = 128) let two GEMM blocks share an
+// SM, so one block's epilogue runs under the other's mainloop; BN is 128,
+// or 64 where 128-wide tiles would give the card fewer blocks than its 132
+// SMs (tile_n, K4's rule). TMA zero-fills the boxes past M, dim and hid on
+// loads and clips them on stores. Widths are multiples of 16 (TMA's 16-byte
+// rows) of any size. du, the row statistics and the partial sums live in
+// one scratch allocation (ops/fused_mlp.py, mlp_bwd_plan).
+//
+// GELU and GELU' use CUDA's erff and expf, not the TPU kernel's
+// Abramowitz-Stegun polynomial (fused_mlp.py:65-85); both are within
+// 1.5e-7 of erf, below bf16 resolution.
+#include "fused_mlp.cuh"
 
 namespace nvt {
 namespace {
 
-constexpr int kBM = 64, kBN = 128, kBK = 32, kChunk = 512;
-using Gemm = TileGemm<kBM, kBN, kBK, 2, 4, true>;
+using namespace mlp;
+
+constexpr int kSumWarps = 8;             // warps a block of pass 5
 constexpr float kInvSqrt2 = 0.7071067811865476f;
 constexpr float kInvSqrt2Pi = 0.3989422804014327f;
 
-__global__ void __launch_bounds__(Gemm::kThreads)
-    mlp_bwd_hidden_kernel(const bf16* __restrict__ dy,
-                          const bf16* __restrict__ h,
-                          const bf16* __restrict__ w2, bf16* __restrict__ dz,
-                          bf16* __restrict__ a_out, bf16* __restrict__ dh_out,
-                          int M, int dim, int hid, float inv_keep,
-                          uint32_t keep_q, uint64_t seed1, uint64_t seed2) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int dim_k = static_cast<int>(round_up(dim, kBK));
-  const int lda = dim_k + kPad;
-  bf16* A = reinterpret_cast<bf16*>(smem);
-  void* scratch =
-      smem + round_up(static_cast<size_t>(kBM) * lda * sizeof(bf16), 128);
-  const int row0 = blockIdx.x * kBM;
-  dropout_rows<kBM, Gemm::kThreads>(dy, A, lda,
-                                    blockIdx.y == 0 ? dz : nullptr, row0, M,
-                                    dim, inv_keep, keep_q, seed2);
-  zero_cols<Gemm::kThreads>(A, lda, kBM, dim, dim_k);
+int row_tiles(int M) { return (M + kBM - 1) / kBM; }
 
-  const float* C = reinterpret_cast<const float*>(scratch);
-  DropoutBits bits(seed1);
-  const int n_begin = blockIdx.y * kChunk;
-  const int n_end = min(n_begin + kChunk, hid);
-  for (int n0 = n_begin; n0 < n_end; n0 += kBN) {
-    Gemm::run(A, lda, w2, hid, n0, dim, scratch, hid);
-    for (int e = threadIdx.x; e < kBM * kBN / 8; e += Gemm::kThreads) {
-      const int r = e / (kBN / 8), c = (e % (kBN / 8)) * 8;
-      const int row = row0 + r;
-      if (row >= M || n0 + c >= hid) continue;
-      const size_t off = static_cast<size_t>(row) * hid + n0 + c;
-      float hf[8], a[8], dh[8];
-      unpack8(*reinterpret_cast<const uint4*>(h + off), hf);
+// Scratch of one call, one allocation, each piece on a 256-byte boundary:
+// du [M, dim] f32; the rows' (mean, rstd) [M] float2; the du pass's row
+// partials of sum(du gamma) then sum(du gamma xhat), [2, M, col_tiles]
+// f32 (col_tiles = its grid's x); its column partials of dgamma then
+// dbeta, [2, row_tiles(M), dim] f32.
+struct Scratch {
+  size_t du, stats, rowpart, colpart, bytes;
+  Scratch(int M, int dim) {
+    const size_t m = static_cast<size_t>(M);
+    const int bn = tile_n(M, dim);
+    du = 0;
+    stats = round_up(m * dim * sizeof(float), 256);
+    rowpart = round_up(stats + m * sizeof(float2), 256);
+    colpart = round_up(
+        rowpart + 2 * m * ((dim + bn - 1) / bn) * sizeof(float), 256);
+    bytes = round_up(colpart + 2 * static_cast<size_t>(row_tiles(M)) * dim *
+                                   sizeof(float),
+                     256);
+  }
+};
+
+// Pass 1: u and the row's statistics as K4's ln_rows, and dz = bf16(dy *
+// mask2 / keep), one warp a row.
+__global__ void __launch_bounds__(kRowWarps * 32)
+    dz_rows_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ x,
+                   const float* __restrict__ gamma,
+                   const float* __restrict__ beta, bf16* __restrict__ dz,
+                   bf16* __restrict__ u, float2* __restrict__ stats, int M,
+                   int dim, float eps, float inv_keep, uint32_t keep_q,
+                   uint64_t seed2) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kRowWarps + threadIdx.x / 32;
+  if (row >= M) return;
+  const size_t off = static_cast<size_t>(row) * dim;
+  const float2 st = ln_row(x + off, gamma, beta, u + off, dim, eps);
+  if (lane == 0) stats[row] = st;
+  // off + c is a multiple of 16 (dim is): the 16 columns are byte e of
+  // Philox block (off + c) / 16, nn.keep_mask's bits.
+  for (int c = lane * 16; c < dim; c += 512) {
+    uint4 v[2] = {*reinterpret_cast<const uint4*>(dy + off + c),
+                  *reinterpret_cast<const uint4*>(dy + off + c + 8)};
+    if (keep_q) {
+      const uint4 w = philox4x32_10((off + c) >> 4, seed2);
+      const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        // GELU as fused_mlp.cu computes it; GELU' = Phi(x) + x phi(x).
-        const float x = hf[i];
-        const float e = erff(x * kInvSqrt2);
-        a[i] = 0.5f * x * (1.f + e);
-        dh[i] = C[r * Gemm::LDC + c + i] *
-                (0.5f * (1.f + e) + x * expf(-0.5f * x * x) * kInvSqrt2Pi);
-        if (keep_q) {
-          const float m = bits.keep(off + i, keep_q) ? inv_keep : 0.f;
-          a[i] *= m;
-          dh[i] *= m;
+      for (int half = 0; half < 2; ++half) {
+        float f[8];
+        unpack8(v[half], f);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int e = 8 * half + i;
+          const uint32_t byte = (ws[e / 4] >> (8 * (e % 4))) & 0xFFu;
+          f[i] *= byte < keep_q ? inv_keep : 0.f;
         }
+        v[half] = pack8(f);
       }
-      *reinterpret_cast<uint4*>(a_out + off) = pack8(a);
-      *reinterpret_cast<uint4*>(dh_out + off) = pack8(dh);
     }
+    *reinterpret_cast<uint4*>(dz + off + c) = v[0];
+    *reinterpret_cast<uint4*>(dz + off + c + 8) = v[1];
   }
 }
 
-size_t hidden_smem(int dim) {
-  return round_up(static_cast<size_t>(kBM) * (round_up(dim, kBK) + kPad) *
-                      sizeof(bf16),
-                  128) +
-         Gemm::kScratchBytes;
+// Pass 2: da = dz . W2 in registers; a = bf16(GELU(h) * mask1 / keep) and
+// dh = bf16(da * GELU'(h) * mask1 / keep), staged and stored by TMA. The
+// producer prefetches the block's h tile into L2 as the mainloop starts;
+// once the ring is free, TMA loads it past the two staged tiles while the
+// threads draw their dropout bits.
+template <int BN>
+__global__ void __launch_bounds__(kThreads, kGemmBlocksPerSm)
+    hidden_kernel(const __grid_constant__ CUtensorMap tdz,
+                  const __grid_constant__ CUtensorMap tw2,
+                  const __grid_constant__ CUtensorMap th,
+                  const __grid_constant__ CUtensorMap ta,
+                  const __grid_constant__ CUtensorMap tdh, int dim, int hid,
+                  float inv_keep, uint32_t keep_q, uint64_t seed1) {
+  extern __shared__ unsigned char smem[];
+  __shared__ uint64_t h_full;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * BN;
+  if (threadIdx.x == 0) hopper::mbar_init(&h_full, 1);   // fenced in run()
+  if (threadIdx.x == kConsumerThreads)
+    for (int b = 0; b < BN / 64; ++b)
+      hopper::tma_prefetch_l2_2d(&th, n0 + 64 * b, m0);
+  float acc[Loop<BN, true>::kAccRegs];
+  if (!Loop<BN, true>::run(&tdz, &tw2, m0, n0, dim, smem, acc)) return;
+  const Place at;
+  unsigned char* as = reinterpret_cast<unsigned char*>(
+      round_up(reinterpret_cast<size_t>(smem), 1024));   // the ring
+  unsigned char* dhs = as + kBM * BN * sizeof(bf16);
+  const unsigned char* hs = dhs + kBM * BN * sizeof(bf16);
+  hopper::named_barrier(1, kConsumerThreads);   // no wgmma reads it now
+  if (threadIdx.x == 0) {
+    hopper::mbar_expect_tx(&h_full, kBM * BN * sizeof(bf16));
+    for (int b = 0; b < BN / 64; ++b)
+      hopper::tma_load_2d(const_cast<unsigned char*>(hs) + b * kBM * 128,
+                          &th, &h_full, n0 + 64 * b, m0);
+  }
+  // Every thread of the warp takes part in the quads' shuffles; rows past
+  // M (h zero-filled by TMA, da 0) are clipped by the store.
+  QuadKeep bits[2];
+  if (keep_q)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      bits[half].draw(
+          (static_cast<uint64_t>(m0 + at.r0 + 8 * half) * hid + n0) >> 4,
+          at.quad, keep_q, seed1);
+  hopper::mbar_wait(&h_full, 0);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = at.r0 + 8 * half;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * at.quad;
+      if (col >= hid) continue;   // hid is even: col + 1 < hid too
+      const int where = staged_at(r, j, at.quad);
+      const float2 hf = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(hs + where));
+      const float hv[2] = {hf.x, hf.y};
+      float av[2], dv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        // GELU as fused_mlp.cu computes it; GELU' = Phi(h) + h phi(h).
+        const float x = hv[e];
+        const float erf_x = erff(x * kInvSqrt2);
+        av[e] = 0.5f * x * (1.f + erf_x);
+        dv[e] = acc[4 * j + 2 * half + e] *
+                (0.5f * (1.f + erf_x) + x * expf(-0.5f * x * x) * kInvSqrt2Pi);
+        if (keep_q) {
+          const float m = bits[half].keep(j, e) ? inv_keep : 0.f;
+          av[e] *= m;
+          dv[e] *= m;
+        }
+      }
+      *reinterpret_cast<__nv_bfloat162*>(as + where) =
+          __floats2bfloat162_rn(av[0], av[1]);
+      *reinterpret_cast<__nv_bfloat162*>(dhs + where) =
+          __floats2bfloat162_rn(dv[0], dv[1]);
+    }
+  }
+  store_staged<BN>(&ta, as, &tdh, dhs, n0, m0, hid);
+}
+
+// Pass 3: du = dh . W1, f32, stored from registers; from the same
+// registers, with x and the row statistics, the tile's share of the
+// LayerNorm backward's sums: per row, sum(du gamma) and sum(du gamma xhat)
+// over the tile's columns (rowpart, [2, M, gridDim.x]); per column,
+// sum(du xhat) and sum(du) over the tile's rows (colpart, [2,
+// gridDim.y, dim]), through the freed ring: thread t's two rows are row
+// group t / 4, whose column partials the threads add over the 64 groups
+// in order.
+template <int BN>
+__global__ void __launch_bounds__(kThreads, kGemmBlocksPerSm)
+    du_kernel(const __grid_constant__ CUtensorMap tdh,
+              const __grid_constant__ CUtensorMap tw1, float* __restrict__ du,
+              const bf16* __restrict__ x, const float* __restrict__ gamma,
+              const float2* __restrict__ stats, float* __restrict__ rowpart,
+              float* __restrict__ colpart, int M, int dim, int hid) {
+  extern __shared__ unsigned char smem[];
+  constexpr int kGroups = kConsumerThreads / 4, kLd = BN + 8;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * BN;
+  float acc[Loop<BN, true>::kAccRegs];
+  if (!Loop<BN, true>::run(&tdh, &tw1, m0, n0, hid, smem, acc)) return;
+  const Place at;
+  // [2][kGroups][kLd] f32 in the ring; the row stride's 8 extra floats put
+  // a half warp's float2 stores on 16 different bank pairs.
+  float* colbuf = reinterpret_cast<float*>(
+      round_up(reinterpret_cast<size_t>(smem), 1024));
+  const int group = threadIdx.x / 4;
+  int row[2];
+  float2 st[2];
+  float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    row[half] = m0 + at.r0 + 8 * half;
+    st[half] = row[half] < M ? stats[row[half]] : make_float2(0.f, 0.f);
+  }
+  hopper::named_barrier(1, kConsumerThreads);   // no wgmma reads it now
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = 8 * j + 2 * at.quad, col = n0 + c;
+    float2 pg = make_float2(0.f, 0.f), pb = make_float2(0.f, 0.f);
+    if (col < dim) {   // dim is even: col + 1 < dim too
+      const float2 gm = *reinterpret_cast<const float2*>(gamma + col);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        if (row[half] >= M) continue;
+        const size_t off = static_cast<size_t>(row[half]) * dim + col;
+        const float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
+        *reinterpret_cast<float2*>(du + off) = make_float2(v0, v1);
+        const float2 xf = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(x + off));
+        const float xh0 = __fmul_rn(xf.x - st[half].x, st[half].y);
+        const float xh1 = __fmul_rn(xf.y - st[half].x, st[half].y);
+        const float d0 = v0 * gm.x, d1 = v1 * gm.y;
+        s1[half] += d0;
+        s1[half] += d1;
+        s2[half] += d0 * xh0;
+        s2[half] += d1 * xh1;
+        pg.x += v0 * xh0;
+        pg.y += v1 * xh1;
+        pb.x += v0;
+        pb.y += v1;
+      }
+    }
+    *reinterpret_cast<float2*>(colbuf + group * kLd + c) = pg;
+    *reinterpret_cast<float2*>(colbuf + (kGroups + group) * kLd + c) = pb;
+  }
+  // The row partials: the quad's four threads hold the row's columns.
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      s1[half] += __shfl_xor_sync(0xffffffffu, s1[half], o);
+      s2[half] += __shfl_xor_sync(0xffffffffu, s2[half], o);
+    }
+    if (at.quad == 0 && row[half] < M) {
+      const size_t at_row =
+          static_cast<size_t>(row[half]) * gridDim.x + blockIdx.x;
+      rowpart[at_row] = s1[half];
+      rowpart[static_cast<size_t>(M) * gridDim.x + at_row] = s2[half];
+    }
+  }
+  hopper::named_barrier(1, kConsumerThreads);
+  for (int i = threadIdx.x; i < 2 * BN; i += kConsumerThreads) {
+    const int which = i / BN, c = i % BN;
+    if (n0 + c >= dim) continue;
+    const float* p = colbuf + which * kGroups * kLd + c;
+    float sum = 0.f;
+    for (int g = 0; g < kGroups; ++g) sum += p[g * kLd];
+    colpart[(static_cast<size_t>(which) * gridDim.y + blockIdx.y) * dim +
+            n0 + c] = sum;
+  }
+}
+
+// Pass 4: the LayerNorm backward of a row (neurovit_tpu/ops/
+// fused_mlp.py:188-196), one warp a row, with the residual dy added:
+//   dx = bf16(rstd (du gamma - m1 - xhat m2) + dy),
+// m1 and m2 the row means of du gamma and du gamma xhat from the du
+// pass's col_tiles partials, added in tile order.
+__global__ void __launch_bounds__(kRowWarps * 32)
+    ln_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ du,
+                  const float* __restrict__ gamma,
+                  const float2* __restrict__ stats,
+                  const float* __restrict__ rowpart,
+                  const bf16* __restrict__ dy, bf16* __restrict__ dx, int M,
+                  int dim, int col_tiles) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kRowWarps + threadIdx.x / 32;
+  if (row >= M) return;
+  const float2 st = stats[row];
+  const float* p1 = rowpart + static_cast<size_t>(row) * col_tiles;
+  const float* p2 = p1 + static_cast<size_t>(M) * col_tiles;
+  float s1 = 0.f, s2 = 0.f;
+  for (int t = 0; t < col_tiles; ++t) {
+    s1 += p1[t];
+    s2 += p2[t];
+  }
+  const float m1 = s1 / dim, m2 = s2 / dim;
+  const size_t base = static_cast<size_t>(row) * dim;
+  for (int c = lane * 8; c < dim; c += 256) {
+    float xv[8], res[8], out[8];
+    unpack8(*reinterpret_cast<const uint4*>(x + base + c), xv);
+    unpack8(*reinterpret_cast<const uint4*>(dy + base + c), res);
+    const float4 d0 = *reinterpret_cast<const float4*>(du + base + c);
+    const float4 d1 = *reinterpret_cast<const float4*>(du + base + c + 4);
+    const float4 g0 = *reinterpret_cast<const float4*>(gamma + c);
+    const float4 g1 = *reinterpret_cast<const float4*>(gamma + c + 4);
+    const float dv[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+    const float gm[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float xhat = __fmul_rn(xv[i] - st.x, st.y);
+      out[i] = st.y * (dv[i] * gm[i] - m1 - xhat * m2) + res[i];
+    }
+    *reinterpret_cast<uint4*>(dx + base + c) = pack8(out);
+  }
+}
+
+// Pass 5: dgamma and dbeta from the du pass's column partials, 32 columns
+// of the [2 dim] outputs a block: warp w adds row tiles w, w + 8, ... in
+// order, then the eight warps' sums are added in warp order.
+__global__ void __launch_bounds__(kSumWarps * 32)
+    colsum_kernel(const float* __restrict__ colpart,
+                  float* __restrict__ dgamma, float* __restrict__ dbeta,
+                  int row_tiles, int dim) {
+  __shared__ float red[kSumWarps][32];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int c = blockIdx.x * 32 + lane;   // 2 dim is a multiple of 32
+  const int which = c / dim, col = c % dim;
+  const float* p =
+      colpart + static_cast<size_t>(which) * row_tiles * dim + col;
+  float s = 0.f;
+  for (int t = warp; t < row_tiles; t += kSumWarps)
+    s += p[static_cast<size_t>(t) * dim];
+  red[warp][lane] = s;
+  __syncthreads();
+  if (warp != 0) return;
+  float sum = 0.f;
+  for (int w = 0; w < kSumWarps; ++w) sum += red[w][lane];
+  (which == 0 ? dgamma : dbeta)[col] = sum;
+}
+
+template <int BN>
+cudaError_t allow_gemm_smem() {
+  cudaError_t err = allow_smem(hidden_kernel<BN>, Loop<BN, true>::kSmemBytes);
+  return err == cudaSuccess
+             ? allow_smem(du_kernel<BN>, Loop<BN, true>::kSmemBytes)
+             : err;
+}
+
+template <int BN>
+void launch_hidden(const CUtensorMap& tdz, const CUtensorMap& tw2,
+                   const CUtensorMap& th, const CUtensorMap& ta,
+                   const CUtensorMap& tdh, int M, int dim, int hid,
+                   float inv_keep, uint32_t keep_q, uint64_t seed1,
+                   cudaStream_t stream) {
+  hidden_kernel<BN><<<dim3((hid + BN - 1) / BN, row_tiles(M)), kThreads,
+                      Loop<BN, true>::kSmemBytes, stream>>>(
+      tdz, tw2, th, ta, tdh, dim, hid, inv_keep, keep_q, seed1);
+}
+
+template <int BN>
+void launch_du(const CUtensorMap& tdh, const CUtensorMap& tw1, float* du,
+               const bf16* x, const float* gamma, const float2* stats,
+               float* rowpart, float* colpart, int M, int dim, int hid,
+               cudaStream_t stream) {
+  du_kernel<BN><<<dim3((dim + BN - 1) / BN, row_tiles(M)), kThreads,
+                  Loop<BN, true>::kSmemBytes, stream>>>(
+      tdh, tw1, du, x, gamma, stats, rowpart, colpart, M, dim, hid);
+}
+
+cudaError_t launch_all(const bf16* dy, const bf16* x, const bf16* h,
+                       const float* gamma, const float* beta, const bf16* w1,
+                       const bf16* w2, bf16* dx, bf16* u, bf16* a, bf16* dz,
+                       bf16* dh, float* dgamma, float* dbeta,
+                       unsigned char* scratch, int M, int dim, int hid,
+                       float eps, float inv_keep, uint32_t keep_q,
+                       uint64_t seed1, uint64_t seed2, cudaStream_t stream) {
+  const Scratch at(M, dim);
+  float* du = reinterpret_cast<float*>(scratch + at.du);
+  float2* stats = reinterpret_cast<float2*>(scratch + at.stats);
+  float* rowpart = reinterpret_cast<float*>(scratch + at.rowpart);
+  float* colpart = reinterpret_cast<float*>(scratch + at.colpart);
+  const int bn1 = tile_n(M, hid), bn2 = tile_n(M, dim);
+  // Every map is encoded, and every instance allowed its shared memory,
+  // before the first launch: a failure leaves nothing half done. dh's map
+  // serves the hidden pass's store and the du pass's load (64-column boxes
+  // of kBM rows); h's, a's and dz's have the same boxes.
+  CUtensorMap tdz, tw2, th, ta, tdh, tw1;
+  cudaError_t err = hopper::encode_kmajor(&tdz, dz, M, dim, false, kBM);
+  if (err == cudaSuccess) err = hopper::encode_mnmajor(&tw2, w2, dim, hid);
+  if (err == cudaSuccess)
+    err = hopper::encode_kmajor(&th, h, M, hid, false, kBM);
+  if (err == cudaSuccess)
+    err = hopper::encode_kmajor(&ta, a, M, hid, false, kBM);
+  if (err == cudaSuccess)
+    err = hopper::encode_kmajor(&tdh, dh, M, hid, false, kBM);
+  if (err == cudaSuccess) err = hopper::encode_mnmajor(&tw1, w1, hid, dim);
+  if (err == cudaSuccess) err = allow_gemm_smem<64>();
+  if (err == cudaSuccess) err = allow_gemm_smem<128>();
+  if (err != cudaSuccess) return err;
+
+  const int row_blocks = (M + kRowWarps - 1) / kRowWarps;
+  dz_rows_kernel<<<row_blocks, kRowWarps * 32, 0, stream>>>(
+      dy, x, gamma, beta, dz, u, stats, M, dim, eps, inv_keep, keep_q, seed2);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  (bn1 == 64 ? launch_hidden<64> : launch_hidden<128>)(
+      tdz, tw2, th, ta, tdh, M, dim, hid, inv_keep, keep_q, seed1, stream);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  (bn2 == 64 ? launch_du<64> : launch_du<128>)(tdh, tw1, du, x, gamma, stats,
+                                                rowpart, colpart, M, dim,
+                                                hid, stream);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ln_bwd_kernel<<<row_blocks, kRowWarps * 32, 0, stream>>>(
+      x, du, gamma, stats, rowpart, dy, dx, M, dim, (dim + bn2 - 1) / bn2);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  colsum_kernel<<<2 * dim / 32, kSumWarps * 32, 0, stream>>>(
+      colpart, dgamma, dbeta, row_tiles(M), dim);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -99,48 +459,40 @@ size_t hidden_smem(int dim) {
 
 // dy, x [M, dim], h [M, hid], w1 [hid, dim], w2 [dim, hid] bf16; gamma,
 // beta [dim] f32. Outputs: dx, u, dz [M, dim] and a, dh [M, hid] bf16;
-// dgamma, dbeta [dim] f32. Scratch: du [M, dim] f32, part_g, part_b
-// [ceil(M/32), dim] f32. dim % 16 == 0, dim <= 1024, hid % 16 == 0.
-// keep_q 0 = no dropout; seed1 the hidden site, seed2 the output site.
+// dgamma, dbeta [dim] f32. scratch: nvt_fused_mlp_bwd_scratch_bytes(M, dim,
+// hid) bytes, 256-byte aligned. dim and hid are multiples of 16, of any
+// size. keep_q: dropout threshold (0 = none); seed1 the hidden site, seed2
+// the output site.
 extern "C" int nvt_fused_mlp_bwd(
     const void* dy, const void* x, const void* h, const void* gamma,
     const void* beta, const void* w1, const void* w2, void* dx, void* u,
-    void* a, void* dz, void* dh, void* du, void* part_g, void* part_b,
-    void* dgamma, void* dbeta, int M, int dim, int hid, float eps,
-    float inv_keep, int keep_q, uint64_t seed1, uint64_t seed2,
-    void* stream) {
+    void* a, void* dz, void* dh, void* dgamma, void* dbeta, void* scratch,
+    int M, int dim, int hid, float eps, float inv_keep, int keep_q,
+    uint64_t seed1, uint64_t seed2, void* stream) {
   using namespace nvt;
-  if (M < 1 || !ln_dim_ok(dim) || hid < 16 || hid % 16 != 0 || keep_q < 0 ||
-      keep_q > 255)
+  if (M < 1 || dim < 16 || dim % 16 != 0 || hid < 16 || hid % 16 != 0 ||
+      keep_q < 0 || keep_q > 255)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const size_t smem1 = hidden_smem(dim);
-  cudaError_t err = allow_smem(mlp_bwd_hidden_kernel, smem1);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid1((M + kBM - 1) / kBM, (hid + kChunk - 1) / kChunk);
-  mlp_bwd_hidden_kernel<<<grid1, Gemm::kThreads, smem1, s>>>(
-      static_cast<const bf16*>(dy), static_cast<const bf16*>(h),
-      static_cast<const bf16*>(w2), static_cast<bf16*>(dz),
-      static_cast<bf16*>(a), static_cast<bf16*>(dh), M, dim, hid, inv_keep,
-      static_cast<uint32_t>(keep_q), seed1, seed2);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_all(
+      static_cast<const bf16*>(dy), static_cast<const bf16*>(x),
+      static_cast<const bf16*>(h), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<const bf16*>(w1),
+      static_cast<const bf16*>(w2), static_cast<bf16*>(dx),
+      static_cast<bf16*>(u), static_cast<bf16*>(a), static_cast<bf16*>(dz),
+      static_cast<bf16*>(dh), static_cast<float*>(dgamma),
+      static_cast<float*>(dbeta), static_cast<unsigned char*>(scratch), M,
+      dim, hid, eps, inv_keep, static_cast<uint32_t>(keep_q), seed1, seed2,
+      static_cast<cudaStream_t>(stream)));
+}
 
-  const size_t smem2 = du_gemm_smem(hid);
-  err = allow_smem(du_gemm_kernel, smem2);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid2((M + kDuBM - 1) / kDuBM, (dim + kDuChunk - 1) / kDuChunk);
-  du_gemm_kernel<<<grid2, DuGemm::kThreads, smem2, s>>>(
-      static_cast<const bf16*>(dh), nullptr, nullptr, hid,
-      static_cast<const bf16*>(w1), static_cast<float*>(du), M, hid, dim);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+// Bytes of the scratch one call takes (ops/fused_mlp.py, mlp_bwd_plan).
+extern "C" long long nvt_fused_mlp_bwd_scratch_bytes(int M, int dim,
+                                                     int /*hid*/) {
+  return static_cast<long long>(nvt::Scratch(M, dim).bytes);
+}
 
-  return static_cast<int>(launch_ln_bwd(
-      static_cast<const bf16*>(x), static_cast<const float*>(du),
-      static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      static_cast<const bf16*>(dy), static_cast<bf16*>(dx),
-      static_cast<bf16*>(u), static_cast<float*>(part_g),
-      static_cast<float*>(part_b), static_cast<float*>(dgamma),
-      static_cast<float*>(dbeta), M, dim, eps, s));
+// Dynamic shared memory of a block of the GEMM pass whose output is
+// [M, N] (hidden: N = hid; du: N = dim), which follows its tile's width.
+extern "C" long long nvt_fused_mlp_bwd_smem_bytes(int M, int N) {
+  return static_cast<long long>(nvt::mlp::gemm_smem_bytes(M, N));
 }

@@ -9,6 +9,16 @@
 // 128-byte swizzle; TMA zero-fills the box past M, N and K, so a ragged
 // tile needs no masked loads and contributes zeros.
 //
+// Mainloop<false, BM, BN, kStages, true> takes B MN-major instead: B [K, N]
+// row-major (bf16), as a torch Linear weight [out, in] is for a product
+// that contracts its out dimension (K9's dz . W2 and dh . W1). Its map
+// (encode_mnmajor) has boxes of 64 rows of K by 64 columns (128 bytes);
+// a stage holds BN / 64 such boxes side by side, and wgmma reads them with
+// the transpose-B immediate through smem_desc_mn (SBO 1024 bytes between
+// 8-row groups along K, LBO 8192 bytes between the 64-column boxes along
+// N; a k16 step is 16 rows, 2048 bytes further). The stage's bytes, and
+// so kSmemBytes, are those of the K-major mode.
+//
 // Roles: kConsumers = BM / 64 warpgroups (threads 0 .. 128 kConsumers - 1)
 // each own 64 rows of the tile; one producer warp after them issues the
 // loads. A stage holds one A box and one Bt box; kStages stages form a
@@ -125,6 +135,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// Ask TMA to bring the box at coordinates (c0, c1) of a rank-2 map into
+// L2, with no shared memory and no barrier: a later load of it hits L2.
+__device__ __forceinline__ void tma_prefetch_l2_2d(const CUtensorMap* map,
+                                                   int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.prefetch.tensor.2d.L2.global.tile [%0, {%1, %2}];\n" ::
+          "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // Store the box at src to the coordinates of a rank-4 map; TMA writes no
 // element outside the tensor. Make the generic proxy's writes to src
 // visible first (fence_proxy_async), and keep src alive until
@@ -190,20 +211,28 @@ __device__ __forceinline__ uint64_t smem_desc(const void* tile) {
 // The descriptor of the next k step: 32 bytes further along K.
 constexpr uint64_t kDescStepK = 32 >> 4;
 
-// Descriptor of an MN-major B operand tile as TMA's 128-byte swizzle lays
-// out a row-major [K, N] tile of 64 bf16 columns: K rows of 128 bytes, the
-// 8-row groups along K 1024 bytes apart. For this layout the stride of the
-// 8-row groups along K is SBO and the stride of the 64-column groups along
-// N is LBO (CUTLASS's make_gmma_desc<Major::MN>). A 64-column tile has one
-// group along N, so its LBO is never read; it is set to 1024 as well,
-// which leaves the descriptor right under either reading of the two fields.
-// A k16 step is 16 rows further: 2048 bytes, a whole number of swizzle
-// atoms, so the base offset stays 0.
-__device__ __forceinline__ uint64_t smem_desc_mn64(const void* tile) {
+// Descriptor of an MN-major B stage of BN / 64 boxes, each K rows of 64
+// bf16 columns (128-byte rows, 128-byte swizzle) and box_bytes long, side
+// by side along N, as TMA lays out a row-major [K, N] tile: the stride of
+// the 8-row groups along K is SBO (1024 bytes) and the stride of the
+// 64-column groups along N is LBO (box_bytes; CUTLASS's
+// make_gmma_desc<Major::MN>), layout B128. A k16 step is 16 rows further:
+// 2048 bytes, a whole number of swizzle atoms, so the base offset stays 0.
+__device__ __forceinline__ uint64_t smem_desc_mn(const void* tile,
+                                                 uint32_t box_bytes) {
   const uint64_t addr = smem_u32(tile);
-  return ((addr & 0x3FFFF) >> 4) | (uint64_t(1024 >> 4) << 16) |
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t(box_bytes >> 4) << 16) |
          (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
 }
+
+// The descriptor of a 64-column MN-major tile (the attention's V, dO, Q
+// and K): one group along N, so LBO is never read.
+__device__ __forceinline__ uint64_t smem_desc_mn64(const void* tile) {
+  return smem_desc_mn(tile, 1024);
+}
+
+// The MN-major descriptor of the next k16 step: 16 rows, 2048 bytes.
+constexpr uint64_t kDescStepKMn = 2048 >> 4;
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -325,6 +354,70 @@ struct Wgmma<false, 128> {
   }
 };
 
+// D[64, N] += A[64, 16] . B[16, N] from two shared-memory descriptors, A
+// K-major and B MN-major (the transpose-B immediate set): bf16, f32 sums.
+// The accumulator's layout is Wgmma's.
+template <int N>
+struct WgmmaTB;
+
+template <>
+struct WgmmaTB<64> {
+  __device__ __forceinline__ static void mma(
+      float (&d)[32], uint64_t da, uint64_t db) {
+    asm volatile(
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31},"
+        " %32, %33, 1, 1, 1, 0, 1;\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db));
+  }
+};
+
+template <>
+struct WgmmaTB<128> {
+  __device__ __forceinline__ static void mma(
+      float (&d)[64], uint64_t da, uint64_t db) {
+    asm volatile(
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63},"
+        " %64, %65, 1, 1, 1, 0, 1;\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db));
+  }
+};
+
 // D[64, 64] += A[64, 16] . B[16, 64] with A in registers and B an MN-major
 // bf16 tile in shared memory (the transpose-B immediate set): f32 sums.
 // Thread t of the warpgroup holds A as four bf16 pairs, row r = 16 (t / 32)
@@ -416,10 +509,11 @@ struct Wgmma<true, 128> {
 // The mainloop
 // ---------------------------------------------------------------------------
 
-template <bool kInt8, int BM, int BN, int kStages = 4>
+template <bool kInt8, int BM, int BN, int kStages = 4, bool kBMn = false>
 struct Mainloop {
   using Acc = typename std::conditional<kInt8, int, float>::type;
   static_assert(BM % 64 == 0 && (BN == 64 || BN == 128), "tile shape");
+  static_assert(!(kInt8 && kBMn), "wgmma transposes 16-bit operands only");
   static constexpr int kConsumers = BM / 64;                // warpgroups
   static constexpr int kThreads = kConsumers * 128 + 32;    // + producer
   static constexpr int kBoxBytes = 128;                     // K per stage
@@ -428,6 +522,7 @@ struct Mainloop {
   static constexpr int kABytes = BM * kBoxBytes;
   static constexpr int kBBytes = BN * kBoxBytes;
   static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kBBoxBytes = BK * kBoxBytes;          // MN-major box
   static constexpr int kAccRegs = BN / 2;                   // 64 BN / 128
   static constexpr size_t kSmemBytes =
       1024 + size_t(kStages) * kStageBytes + 2 * kStages * sizeof(uint64_t);
@@ -467,7 +562,14 @@ struct Mainloop {
           if (kt >= kStages) mbar_wait(&empty[s], ((kt / kStages) - 1) & 1);
           mbar_expect_tx(&full[s], kStageBytes);
           tma_load_2d(a_ring + s * kABytes, ta, &full[s], kt * BK, m0);
-          tma_load_2d(b_ring + s * kBBytes, tb, &full[s], kt * BK, n0);
+          if constexpr (kBMn) {
+#pragma unroll
+            for (int p = 0; p < BN / 64; ++p)
+              tma_load_2d(b_ring + s * kBBytes + p * kBBoxBytes, tb,
+                          &full[s], n0 + 64 * p, kt * BK);
+          } else {
+            tma_load_2d(b_ring + s * kBBytes, tb, &full[s], kt * BK, n0);
+          }
         }
       }
       return false;
@@ -483,11 +585,18 @@ struct Mainloop {
       mbar_wait(&full[s], (kt / kStages) & 1);
       const uint64_t da =
           smem_desc(a_ring + s * kABytes + wg * 64 * kBoxBytes);
-      const uint64_t db = smem_desc(b_ring + s * kBBytes);
+      const uint64_t db =
+          kBMn ? smem_desc_mn(b_ring + s * kBBytes, kBBoxBytes)
+               : smem_desc(b_ring + s * kBBytes);
       wgmma_fence();
 #pragma unroll
-      for (int k = 0; k < kSteps; ++k)
-        Wgmma<kInt8, BN>::mma(acc, da + k * kDescStepK, db + k * kDescStepK);
+      for (int k = 0; k < kSteps; ++k) {
+        if constexpr (kBMn)
+          WgmmaTB<BN>::mma(acc, da + k * kDescStepK, db + k * kDescStepKMn);
+        else
+          Wgmma<kInt8, BN>::mma(acc, da + k * kDescStepK,
+                                db + k * kDescStepK);
+      }
       wgmma_commit();
       // Keep this stage's wgmmas in flight while the next stage's issue;
       // once the previous stage's are done, the producer may refill it.
@@ -573,6 +682,14 @@ inline cudaError_t encode_kmajor(CUtensorMap* map, const void* ptr, int rows,
     return cudaErrorInvalidValue;
   }
   return cudaSuccess;
+}
+
+// The tensor map of a row-major bf16 B [K, N] that Mainloop<..., true>
+// reads MN-major: boxes of 64 columns (128 bytes) by 64 rows of K. N must
+// be a multiple of 8 and ptr 16-byte aligned. Failures as encode_kmajor's.
+inline cudaError_t encode_mnmajor(CUtensorMap* map, const void* ptr, int K,
+                                  int N) {
+  return encode_kmajor(map, ptr, K, N, false, 64);
 }
 
 // The tensor map of a rank-4 bf16 tensor: dims innermost first, byte

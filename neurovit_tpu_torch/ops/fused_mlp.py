@@ -17,12 +17,17 @@ dbeta. dW1 = dh^T u, dW2 = dz^T a and the bias gradients are plain matmuls
 and sums outside, as in JAX.
 
 CPU tensors run the ``*_plain`` functions; CUDA tensors run
-``csrc/fused_mlp.cu`` (K4) and ``csrc/fused_mlp_bwd.cu`` (K9). K4 runs in
-three launches on TMA + ``wgmma`` (:func:`mlp_plan`): LN rows into u, fc1
-with bias, GELU and the hidden mask in its epilogue into g, fc2 with bias,
-the output mask and the residual; u and g go through one scratch
-allocation. It takes dim and mlp_dim as any multiples of 16; K9 takes dim
-<= 1024.
+``csrc/fused_mlp.cu`` (K4) and ``csrc/fused_mlp_bwd.cu`` (K9), both on TMA
++ ``wgmma``. K4 runs in three launches (:func:`mlp_plan`): LN rows into u,
+fc1 with bias, GELU and the hidden mask in its epilogue into g, fc2 with
+bias, the output mask and the residual; u and g go through one scratch
+allocation. K9 runs in five (:func:`mlp_bwd_plan`): dz, u and each row's
+LN statistics; da = dz W2 with a and dh in its epilogue; du = dh W1 in f32
+with the tile's partial LN-backward sums (per row and per column) in its
+epilogue; the LayerNorm backward rows with the residual; the dgamma /
+dbeta sums over the row tiles in a fixed order. du, the statistics and
+the partial sums go through one scratch allocation. Both take dim and
+mlp_dim as any multiples of 16.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ from neurovit_tpu_torch.ops.common import (FLOAT, INT, U64, VOID,
                                            check_operand, check_widths,
                                            dropout_args, is_training, launch,
                                            on_cpu, ptr, round_up, weight_grad)
-from neurovit_tpu_torch.ops.fused_qkv import LN_BWD_MAX_DIM, ln_backward_plain
+from neurovit_tpu_torch.ops.fused_qkv import ln_backward_plain
 from neurovit_tpu_torch.ops.int8_gemm import ALIGN_SLACK, BOX_BYTES
 
 Seeds = Tuple[int, int]
@@ -49,6 +54,9 @@ ROW_WARPS, MLP_TILE, MLP_STAGES, SCRATCH_ALIGN = 8, 128, 3, 256
 SMS = 132
 # A GEMM block: two consumer warpgroups and the producer warp.
 GEMM_THREADS = 2 * 128 + 32
+# K9's column-sum pass: columns of [dgamma, dbeta] a block (one a lane),
+# and its warps, which split the row tiles.
+SUM_COLUMNS, SUM_WARPS = 32, 8
 
 
 def gemm_tile_n(m: int, n: int) -> int:
@@ -107,9 +115,54 @@ def mlp_plan(m: int, dim: int, hid: int) -> MlpPlan:
 
 
 def check_bwd_shapes(dim: int, hid: int) -> None:
-    """Raise unless K9 takes these widths: multiples of 16, dim <= 1024."""
-    check_widths("MLP backward", mlp_dim=hid)
-    check_widths("MLP backward", max_width=LN_BWD_MAX_DIM, dim=dim)
+    """Raise unless K9 takes these widths: multiples of 16, of any size
+    (its LayerNorm rows read the row again for each statistic, and its
+    GEMM passes stage no whole row)."""
+    check_widths("MLP backward", dim=dim, mlp_dim=hid)
+
+
+class MlpBwdPlan(NamedTuple):
+    """How one K9 call covers m rows of width dim with mlp_dim hid.
+    ``launches``: the five kernels in launch order, each (name, grid,
+    threads, dynamic shared memory bytes), a grid (x, y). ``scratch``: the
+    pieces of the one scratch allocation, name -> (byte offset, bytes), in
+    ``scratch_bytes`` bytes: du [m, dim] f32, each row's (mean, rstd) as
+    two f32, the du pass's row partials of sum(du gamma) and sum(du gamma
+    xhat), [2, m, column tiles] f32, and its column partials of dgamma and
+    dbeta, [2, row tiles, dim] f32."""
+    launches: tuple
+    scratch: dict
+    scratch_bytes: int
+
+
+def mlp_bwd_plan(m: int, dim: int, hid: int) -> MlpBwdPlan:
+    """K9's plan for m rows (the kernel's own counts are
+    ``nvt_fused_mlp_bwd_scratch_bytes`` and ``nvt_fused_mlp_bwd_smem_bytes``;
+    the card test holds them equal). The GEMM passes take K4's tiles and
+    ring (:func:`gemm_tile_n`, :func:`gemm_smem_bytes`). Raises where the
+    kernel does not take the widths."""
+    check_bwd_shapes(dim, hid)
+    if m < 1:
+        raise ValueError(f"the MLP backward kernel takes at least one row, "
+                         f"got {m}")
+    m_tiles = -(-m // MLP_TILE)
+    rows = (-(-m // ROW_WARPS), 1)
+    launches = [("dz_rows", rows, ROW_WARPS * 32, 0)]
+    for name, n in (("hidden", hid), ("du", dim)):
+        tile_n = gemm_tile_n(m, n)
+        launches.append((name, (-(-n // tile_n), m_tiles), GEMM_THREADS,
+                         gemm_smem_bytes(tile_n)))
+    n_tiles = launches[-1][1][0]
+    launches += [("ln_bwd", rows, ROW_WARPS * 32, 0),
+                 ("colsum", (2 * dim // SUM_COLUMNS, 1), SUM_WARPS * 32, 0)]
+    scratch, at = {}, 0
+    for name, nbytes in (("du", m * dim * 4), ("stats", m * 8),
+                         ("rowpart", 2 * m * n_tiles * 4),
+                         ("colpart", 2 * m_tiles * dim * 4)):
+        scratch[name] = (at, nbytes)
+        at = round_up(at + nbytes, SCRATCH_ALIGN)
+    return MlpBwdPlan(launches=tuple(launches), scratch=scratch,
+                      scratch_bytes=at)
 
 
 def fused_mlp_block_plain(x: torch.Tensor, gamma: torch.Tensor,
@@ -209,29 +262,28 @@ fused_mlp_block_cuda.launches = 0
 
 def fused_mlp_bwd_cuda(dy, x, h, gamma, beta, w1, w2, *,
                        dropout_rate: float = 0.0, seeds: Seeds = (0, 0)):
-    """Launch the Hopper kernel K9 (hidden pass, du GEMM, LayerNorm rows,
-    dgamma/dbeta sums); returns (dx, u, a, dz, dh, dgamma, dbeta)."""
+    """Launch the Hopper kernel K9 (:func:`mlp_bwd_plan`: dz rows, the
+    hidden GEMM, the du GEMM, LayerNorm backward rows, dgamma/dbeta sums);
+    returns (dx, u, a, dz, dh, dgamma, dbeta)."""
     b, n, dim = x.shape
     hid = w1.shape[0]
     m = b * n
     w1b, w2b, vecs = _operands(x, w1, w2, gamma=gamma, beta=beta)
     check_operand("dy", dy, torch.bfloat16, (b, n, dim))
     check_operand("h", h, torch.bfloat16, (b, n, hid))
-    check_bwd_shapes(dim, hid)
+    plan = mlp_bwd_plan(m, dim, hid)
     inv_keep, keep_q = dropout_args(dropout_rate)
     dx, u, dz = (torch.empty_like(x) for _ in range(3))
     a, dh = (x.new_empty(m, hid) for _ in range(2))
-    f32 = dict(dtype=torch.float32, device=x.device)
-    du = torch.empty((m, dim), **f32)
-    parts = torch.empty((2, (m + 31) // 32, dim), **f32)
-    dgb = torch.empty((2, dim), **f32)
+    dgb = torch.empty((2, dim), dtype=torch.float32, device=x.device)
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
+                          device=x.device)
     launch("nvt_fused_mlp_bwd",
-           (VOID,) * 17 + (INT, INT, INT, FLOAT, FLOAT, INT, U64, U64), x,
+           (VOID,) * 15 + (INT, INT, INT, FLOAT, FLOAT, INT, U64, U64), x,
            ptr(dy), ptr(x), ptr(h), ptr(vecs["gamma"]), ptr(vecs["beta"]),
            ptr(w1b), ptr(w2b), ptr(dx), ptr(u), ptr(a), ptr(dz), ptr(dh),
-           ptr(du), ptr(parts[0]), ptr(parts[1]), ptr(dgb[0]), ptr(dgb[1]),
-           m, dim, hid, nn.LN_EPS, inv_keep, keep_q, int(seeds[0]),
-           int(seeds[1]))
+           ptr(dgb[0]), ptr(dgb[1]), ptr(scratch), m, dim, hid, nn.LN_EPS,
+           inv_keep, keep_q, int(seeds[0]), int(seeds[1]))
     fused_mlp_bwd_cuda.launches += 1
     return (dx, u.reshape(m, dim), a, dz.reshape(m, dim), dh, dgb[0],
             dgb[1])

@@ -8,15 +8,19 @@ dim 1024, 8 heads of 64, MLP 2048; the ResNet pool at [8, 90, 45, 45, 64]),
 with the library behind it switched between the two in the order other,
 this, this, other, ``--rounds`` times; each turn is the median of 10
 CUDA-event timings after 2 warm-up launches; K1 and K4 also at dropout
-0.1, with K1's row sums and K4's h (the train step's calls). Printed per kernel: the
+0.1, with K1's row sums and K4's h (the train step's calls), and K9 at
+dropout 0.1 (the train step's) and 0 (Grad-CAM's). Printed per kernel: the
 median over each checkout's turns, their ratio, and the spread of the
 other checkout's own turns (the distance between its quartiles, as a
-share of its median), with the card's name and power limit. K4 is
-called through each library's own entry point (:func:`fused_mlp_call`):
-an older checkout's ``nvt_fused_mlp_fwd`` takes the rows of a block (32
-at the flagship) and no scratch, this one's a scratch allocation.
+share of its median), with the card's name and power limit. K4 and K9
+are called through each library's own entry point (:func:`fused_mlp_call`,
+:func:`fused_mlp_bwd_call`): an older checkout's ``nvt_fused_mlp_fwd``
+takes the rows of a block (32 at the flagship) and no scratch, and its
+``nvt_fused_mlp_bwd`` its scratch as four tensors; this one's take one
+scratch allocation each.
 
     python scripts/torch_kernel_ab.py --other <checkout> [--rounds 10]
+        [--only <substring of a kernel's name>]
 """
 
 from __future__ import annotations
@@ -76,6 +80,46 @@ def fused_mlp_call(args: tuple, dropout_rate: float = 0.0, seeds=(0, 0),
     return (y, h) if return_h else y
 
 
+def fused_mlp_bwd_call(args: tuple, dropout_rate: float = 0.0,
+                       seeds=(0, 0)):
+    """K9 on ``args`` (dy, x, h, gamma, beta, w1, w2) through the library
+    in use, with the scratch that library counts
+    (``nvt_fused_mlp_bwd_scratch_bytes``) in one allocation; a library
+    without that count has the older entry point, which takes du [M, dim]
+    and the dgamma and dbeta partials [ceil(M / 32), dim] (f32) as separate
+    buffers."""
+    dy, x, h, gamma, beta, w1, w2 = args
+    b, n, dim = x.shape
+    hid = w1.shape[0]
+    m = b * n
+    inv_keep, keep_q = common.dropout_args(dropout_rate)
+    dx, u, dz = (torch.empty_like(x) for _ in range(3))
+    a, dh = (x.new_empty(m, hid) for _ in range(2))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dgb = torch.empty((2, dim), **f32)
+    p = common.ptr
+    tail = (m, dim, hid, nn.LN_EPS, inv_keep, keep_q, int(seeds[0]),
+            int(seeds[1]))
+    types = (common.INT,) * 3 + (common.FLOAT, common.FLOAT, common.INT,
+                                 common.U64, common.U64)
+    lib = _build.library()
+    if hasattr(lib, "nvt_fused_mlp_bwd_scratch_bytes"):
+        count = lib.nvt_fused_mlp_bwd_scratch_bytes
+        count.restype = ctypes.c_longlong
+        count.argtypes = [ctypes.c_int] * 3
+        scratch = torch.empty(count(m, dim, hid), dtype=torch.uint8,
+                              device=x.device)
+        bufs = (p(dgb[0]), p(dgb[1]), p(scratch))
+    else:
+        du = torch.empty((m, dim), **f32)
+        parts = torch.empty((2, (m + 31) // 32, dim), **f32)
+        bufs = (p(du), p(parts[0]), p(parts[1]), p(dgb[0]), p(dgb[1]))
+    common.launch("nvt_fused_mlp_bwd", (common.VOID,) * (12 + len(bufs))
+                  + types, x, p(dy), p(x), p(h), p(gamma), p(beta), p(w1),
+                  p(w2), p(dx), p(u), p(a), p(dz), p(dh), *bufs, *tail)
+    return dx, u, a, dz, dh, dgb[0], dgb[1]
+
+
 def cases() -> dict:
     """name -> (C entry point, call) at the kernel phase's shapes."""
     b, n, dim, h, d, hid = cs.B, cs.N, cs.DIM, cs.HEADS, cs.DIM_HEAD, cs.MLP
@@ -105,6 +149,7 @@ def cases() -> dict:
     o, lsum = fa.flash_attention_plain(*qkv, return_stats=True, **att)
     mlp = (x, *ln, w1.to(bf), b1, w2.to(bf), b2)
     _, hh = fused_mlp.fused_mlp_block_plain(*mlp, return_h=True, **mdrop)
+    bwd = (dy, x, hh, *ln, w1.to(bf), w2.to(bf))
     tr = [a.transpose(1, 2).contiguous() for a in (*qkv, o, do)]
     q8 = int8_serving
     qkv8, out8 = q8.quantize_weight(wqkv), q8.quantize_weight(wout)
@@ -141,8 +186,9 @@ def cases() -> dict:
                                                  dropout_rate=cs.DROPOUT,
                                                  seed=1234))),
         "fused_mlp_bwd": ("nvt_fused_mlp_bwd", lambda: (
-            fused_mlp.fused_mlp_bwd_cuda(dy, x, hh, *ln, w1.to(bf),
-                                         w2.to(bf), **mdrop))),
+            fused_mlp_bwd_call(bwd, **mdrop))),
+        "fused_mlp_bwd dropout 0": ("nvt_fused_mlp_bwd", lambda: (
+            fused_mlp_bwd_call(bwd))),
         "int8_ln_qkv": ("nvt_int8_ln_qkv", lambda: (
             q8.int8_ln_qkv_cuda(x, *ln, *qkv8, h, d))),
         "int8_outproj_residual": ("nvt_int8_outproj", lambda: (
@@ -170,6 +216,8 @@ def main(argv=None) -> int:
     ap.add_argument("--other", required=True,
                     help="root of the other checkout (e.g. the parent)")
     ap.add_argument("--rounds", type=int, default=10)
+    ap.add_argument("--only", default="",
+                    help="time only the kernels whose name contains this")
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     libs = {"other": ctypes.CDLL(other_library(os.path.abspath(args.other))),
@@ -179,6 +227,8 @@ def main(argv=None) -> int:
     print(f"{'kernel':26s} {'other ms':>9s} {'this ms':>9s} {'ratio':>6s} "
           f"{'other IQR':>9s}")
     for name, (symbol, call) in cases().items():
+        if args.only not in name:
+            continue
         if not hasattr(libs["other"], symbol):
             print(f"{name:26s} no {symbol} in the other checkout")
             continue

@@ -12,10 +12,11 @@ attention forward K1/K6 and backward K5/K6's on TMA + wgmma at head dims
 16-128, n_valid on and next to the 64-key tile edges, grids under and over
 the 132 SMs, with descriptor probes (V one-hot by key, dO one-hot by query),
 repeat calls bit for bit, their shared-memory plans, and B * H past 65535;
-and K4 and K12 on TMA + wgmma at ragged rows (1-300, 8008), ViT-H and
-mlp 8192, ragged column tiles, all-zero rows, repeat calls bit for bit
-(K4 also without h, and K9 on K4's own h) and their plans' scratch and
-shared-memory bytes against the kernels' counts.
+and K4, K9 and K12 on TMA + wgmma at ragged rows (1-300, 8008), ViT-H,
+dim 1536 / mlp 6144 and mlp 8192, ragged column tiles, all-zero rows,
+repeat calls bit for bit (K4 also without h, K9 on K4's own h and with
+dgamma / dbeta) and their plans' scratch and shared-memory bytes against
+the kernels' counts.
 
 These need an NVIDIA GPU with sm_90a and nvcc; elsewhere they skip. Run on
 the card with:
@@ -296,12 +297,14 @@ def _mlp_args(rng, m, dim, hid, device, zero_rows=(), zero_bias=False):
     return (x, gamma, beta, w1, b1, w2, b2)
 
 
-# K4 on TMA + wgmma: one row, ragged last row tiles (33, 65, 130, 300), the
-# flagship's rows at batch 8 (8008 = 62 tiles + 72); the smoke model's and
-# a ragged width (hid 384: three column tiles, 384 = 3 x 128; dim 256),
-# ViT-H (1280 / 5120) and mlp 8192 at dim 1024, the two widths the wmma
-# kernel refused. K9 (dim <= 1024) runs on the kernel's own h.
-MLP_WIDTHS = [(64, 128), (256, 384), (1280, 5120), (1024, 8192)]
+# K4 and K9 on TMA + wgmma: one row, ragged last row tiles (33, 65, 130,
+# 300), the flagship's rows at batch 8 (8008 = 62 tiles + 72); the smoke
+# model's and a ragged width (hid 384: three column tiles, 384 = 3 x 128;
+# dim 256), ViT-H (1280 / 5120), dim 1536 / mlp 6144 and mlp 8192 at dim
+# 1024, widths the wmma kernels refused (K4 the last two of them, K9 the
+# dims past 1024). K9 runs on K4's own h.
+MLP_WIDTHS = [(64, 128), (256, 384), (1280, 5120), (1536, 6144),
+              (1024, 8192)]
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
@@ -313,8 +316,6 @@ def test_fused_mlp_fwd_bwd_kernels(cuda, m, dim, hid, rate):
     kw = {"dropout_rate": rate, "seeds": (8, 9)}
     got = fused_mlp.fused_mlp_block_cuda(*args, return_h=True, **kw)
     _check(got, fused_mlp.fused_mlp_block_plain(*args, return_h=True, **kw))
-    if dim > 1024:                       # K9's LayerNorm rows: dim <= 1024
-        return
     x, gamma, beta, w1, _, w2, _ = args
     h = got[1]
     dy = _rand(np.random.default_rng(m), (1, m, dim), cuda)
@@ -366,6 +367,48 @@ def test_fused_mlp_kernel_repeats_and_h(cuda, m, dim, hid):
     y3, without = peak(False)
     assert isinstance(y3, torch.Tensor) and torch.equal(y3, y)
     assert without + h.numel() * h.element_size() <= with_h
+
+
+@pytest.mark.parametrize("m,dim,hid", [(130, 256, 384), (8008, 1024, 2048),
+                                       (300, 1280, 5120)])
+def test_fused_mlp_bwd_kernel_repeats(cuda, m, dim, hid):
+    """K9 twice on the same operands at dropout 0.1: every output, dgamma
+    and dbeta included, bit-equal (sums in a fixed order, no atomics)."""
+    x, gamma, beta, w1, b1, w2, b2 = _mlp_args(
+        np.random.default_rng(m + 11), m, dim, hid, cuda)
+    kw = {"dropout_rate": 0.1, "seeds": (23, 24)}
+    _, h = fused_mlp.fused_mlp_block_cuda(x, gamma, beta, w1, b1, w2, b2,
+                                          return_h=True, **kw)
+    dy = _rand(np.random.default_rng(m + 12), (1, m, dim), cuda)
+    before = fused_mlp.fused_mlp_bwd_cuda.launches
+    one, two = (fused_mlp.fused_mlp_bwd_cuda(dy, x, h, gamma, beta, w1, w2,
+                                             **kw) for _ in range(2))
+    torch.cuda.synchronize()
+    assert fused_mlp.fused_mlp_bwd_cuda.launches == before + 2
+    assert all(torch.equal(p, q) for p, q in zip(one, two))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_fused_mlp_bwd_kernel_zero_rows(cuda, rate):
+    """All-zero rows of dy, at a tile's first and last row and in the
+    ragged tile: dz and dh are 0 there, so du is, and dx is 0 exactly; the
+    other rows match plain."""
+    rows = [0, 127, 128, 129]
+    x, gamma, beta, w1, b1, w2, b2 = _mlp_args(np.random.default_rng(5), 130,
+                                               256, 384, cuda)
+    kw = {"dropout_rate": rate, "seeds": (25, 26)}
+    _, h = fused_mlp.fused_mlp_block_cuda(x, gamma, beta, w1, b1, w2, b2,
+                                          return_h=True, **kw)
+    dy = _rand(np.random.default_rng(6), (1, 130, 256), cuda)
+    dy[0, rows] = 0
+    got = fused_mlp.fused_mlp_bwd_cuda(dy, x, h, gamma, beta, w1, w2, **kw)
+    want = fused_mlp.fused_mlp_bwd_plain(dy, x, h, gamma, beta, w1, w2, **kw)
+    got = [t.reshape(w.shape) for t, w in zip(got, want)]
+    _check_grads(got, want, params=(5, 6))
+    dx, _, _, dz, dh, _, _ = got
+    assert not dz.reshape(130, -1)[rows].float().abs().max()
+    assert not dh.reshape(130, -1)[rows].float().abs().max()
+    assert not dx.reshape(130, -1)[rows].float().abs().max()
 
 
 def test_training_autograd_runs_the_kernels(cuda):
@@ -772,6 +815,29 @@ def test_mlp_smem_plan_matches_the_kernel(cuda):
             assert scratch(m, dim, hid) == plan.scratch_bytes, (m, dim, hid)
             assert [s for *_, s in plan.launches] == [
                 0, smem(m, hid), smem(m, dim)], (m, dim, hid)
+
+
+def test_mlp_bwd_plan_matches_the_kernel(cuda):
+    """The wrapper's K9 plan (``mlp_bwd_plan``) counts the scratch and the
+    GEMM passes' shared memory as the kernel does, at every width of the
+    matrix and the card tests' widths, on both sides of the 64-column tile
+    rule."""
+    import ctypes
+
+    from neurovit_tpu_torch.models.vit3d import WIDTHS
+    from neurovit_tpu_torch.ops import _build
+    lib = _build.library()
+    scratch = lib.nvt_fused_mlp_bwd_scratch_bytes
+    smem = lib.nvt_fused_mlp_bwd_smem_bytes
+    scratch.restype, scratch.argtypes = ctypes.c_longlong, [ctypes.c_int] * 3
+    smem.restype, smem.argtypes = ctypes.c_longlong, [ctypes.c_int] * 2
+    widths = [(w[0], w[3]) for w in WIDTHS.values()] + MLP_WIDTHS
+    for dim, hid in widths:
+        for m in (1, 130, 1001, 2048, 8008, 32032):
+            plan = fused_mlp.mlp_bwd_plan(m, dim, hid)
+            assert scratch(m, dim, hid) == plan.scratch_bytes, (m, dim, hid)
+            assert [s for *_, s in plan.launches] == [
+                0, smem(m, hid), smem(m, dim), 0, 0], (m, dim, hid)
 
 
 def test_head_dim_below_8_runs_plain_on_the_card(cuda):

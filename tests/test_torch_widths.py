@@ -236,7 +236,14 @@ def test_kernel_gates_accept_every_width(width):
                                                      "fc2_residual"]
     assert all(smem <= SMEM_LIMIT for *_, smem in plan.launches)
     assert plan.scratch_bytes >= 1001 * (dim + hid) * 2
+    # K9: five launches, its GEMM passes on K4's tiles, the scratch holding
+    # du in f32.
     fused_mlp.check_bwd_shapes(dim, hid)
+    bwd = fused_mlp.mlp_bwd_plan(1001, dim, hid)
+    assert [name for name, *_ in bwd.launches] == [
+        "dz_rows", "hidden", "du", "ln_bwd", "colsum"]
+    assert all(smem <= SMEM_LIMIT for *_, smem in bwd.launches)
+    assert bwd.scratch_bytes >= 1001 * dim * 4
     q8.check_qkv_shapes(dim, inner)
     q8.check_outproj_shapes(dim, inner)
     q8.check_mlp_shapes(dim, hid)
@@ -250,7 +257,7 @@ def test_kernel_gates_accept_every_width(width):
     (fused_qkv.check_bwd_shapes, (1280, 512), "dim <= 1024"),
     (fused_outproj.check_shapes, (1000, 512), "multiple of 16"),
     (fused_mlp.check_fwd_shapes, (1024, 2056), "multiple of 16"),
-    (fused_mlp.check_bwd_shapes, (1536, 6144), "dim <= 1024"),
+    (fused_mlp.check_bwd_shapes, (1536, 6152), "mlp_dim as a multiple of 16"),
     (q8.check_qkv_shapes, (1280, 1280), "dim <= 1024"),
     (q8.check_outproj_shapes, (1024, 1536), "inner <= 1024"),
     (q8.check_mlp_shapes, (1024, 8200), "mlp_dim as a multiple of 16"),
@@ -262,15 +269,19 @@ def test_kernel_gates_refuse_and_name_the_queue(gate, args, match):
     assert "ROADMAP.md, Queue 3" in str(err.value)
 
 
-@pytest.mark.parametrize("dim,hid", [(1024, 8192), (1280, 5120)])
+@pytest.mark.parametrize("dim,hid", [(1024, 8192), (1280, 5120),
+                                     (1536, 6144)])
 def test_mlp_gate_accepts_the_widths_once_refused(dim, hid):
     """K4 kept u and g of 16 or 32 rows in shared memory and refused mlp
-    8192 at dim 1024 (and ViT-H's 1280 / 5120); on TMA + wgmma it takes
-    them, and so does its plan."""
+    8192 at dim 1024 (and ViT-H's 1280 / 5120); K9 held a LayerNorm row in
+    one warp's registers and refused dim > 1024 (ViT-H, 1536 / 6144). On
+    TMA + wgmma both take them, and so do their plans."""
     fused_mlp.check_fwd_shapes(dim, hid)
-    plan = fused_mlp.mlp_plan(8008, dim, hid)
-    assert plan.launches[1][1] == (hid // 128, 63)
-    assert plan.launches[2][1] == (dim // 128, 63)
+    fused_mlp.check_bwd_shapes(dim, hid)
+    for plan in (fused_mlp.mlp_plan(8008, dim, hid),
+                 fused_mlp.mlp_bwd_plan(8008, dim, hid)):
+        assert plan.launches[1][1] == (hid // 128, 63)
+        assert plan.launches[2][1] == (dim // 128, 63)
 
 
 @pytest.mark.parametrize("value", [None, "", "none", "int8"])
