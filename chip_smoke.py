@@ -12,7 +12,7 @@ Phases, each printing a line; any failure raises and exits non-zero:
                build's log, every ptxas note on a kernel (C7514, wgmma
                serialised, among them) and every kernel that spills, and
                the registers of the attention backward's instances and of
-               K12's passes
+               the passes of K4, K9, K12 and K13
 3. kernels     each kernel against its plain PyTorch version on the card, at
                the flagship shapes (batch 8 x 1001 tokens), with CUDA-event
                timings of both: the forwards K1-K4 at dropout 0, K1, K3 and
@@ -38,7 +38,9 @@ Phases, each printing a line; any failure raises and exits non-zero:
                beside SDPA's backward
                (scripts/torch_attention_device_times.py), of K12's four
                passes beside K17 int8 at its two GEMM shapes
-               (scripts/torch_int8_mlp_device_times.py), and of K4's three
+               (scripts/torch_int8_mlp_device_times.py), of K13's three
+               launches at n_valid 1001 and 900 beside K1's device time
+               (scripts/torch_int8_attention_device_times.py), and of K4's three
                passes, serving and at dropout 0.1 with h, beside K17 bf16
                at its two GEMM shapes (scripts/torch_mlp_device_times.py),
                and of K9's five passes at dropout 0.1 and 0 beside K17
@@ -411,6 +413,20 @@ def int8_mlp_device_times(results: dict, args: tuple, card: str) -> None:
             "device not measured (no kernels traced)") + f"; {card}")
 
 
+def int8_attention_device_times(results: dict, qkv: list, card: str) -> None:
+    """K13's device time on the kernel phase's q, k, v at n_valid N (its
+    timed case) and N_VALID_MASKED, launch by launch
+    (``scripts/torch_int8_attention_device_times.py``), the first into its
+    result, each beside K1's on the same operands."""
+    times = script("torch_int8_attention_device_times")
+    for n_valid in (N, N_VALID_MASKED):
+        m = times.measure(qkv, n_valid, 10)
+        if n_valid == N:
+            results["int8_flash_attention"]["device_ms"] = m["device_ms"]
+        log("kernels", times.line("int8_flash_attention", B, DIM_HEAD,
+                                  n_valid, m) + f"; {card}")
+
+
 def mlp_device_times(results: dict, args: tuple, card: str) -> None:
     """K4's device time on the kernel phase's operands, pass by pass
     (``scripts/torch_mlp_device_times.py``), into its result, and as the
@@ -474,7 +490,7 @@ def build_notes(lib) -> None:
     for source, fn, regs, stores, loads in kernels:
         if (stores or loads or "flash_bwd" in fn
                 or source in ("int8_mlp.cu", "fused_mlp.cu",
-                              "fused_mlp_bwd.cu")):
+                              "fused_mlp_bwd.cu", "int8_attention.cu")):
             log("build", f"{source} {readable.get(fn, fn)}: {regs} "
                 f"registers, spill stores {stores} B, spill loads {loads} B")
     for source, fn, line in notes:
@@ -919,6 +935,7 @@ def kernel_phase(card: str) -> dict:
     del mlp8_more, mlp_more, mlp_zero, x0, y0, one, two, bwd_more, got0, dy0
     attention_device_times(results, qkv, qkv_h, card)
     int8_mlp_device_times(results, (x, *ln, *mlp8), card)
+    int8_attention_device_times(results, qkv, card)
     mlp_device_times(results, mlp_args, card)
     mlp_bwd_device_times(results, bwd_args, card)
     return results

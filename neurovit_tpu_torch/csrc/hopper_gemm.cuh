@@ -48,7 +48,9 @@
 // MN-major B tile (smem_desc_mn64) and wgmma with A in registers
 // (WgmmaRegA64). The attention backward (flash_attention_bwd.cu) adds
 // m64n32k16 (Wgmma<false, 32>) and moves registers between warpgroups
-// (setmaxnreg).
+// (setmaxnreg). The int8 attention (int8_attention.cu) adds s8 wgmma with A
+// in registers (WgmmaRegAS8) on int8 tiles of 64-byte rows loaded with the
+// 64-byte swizzle (encode_kmajor's row_bytes 64, smem_desc_sw64).
 #pragma once
 
 #include <cuda.h>
@@ -296,8 +298,11 @@ struct Wgmma<false, 32> {
   }
 };
 
+// Wgmma<false, 64>::mma<0> ignores d's values and writes A . B^T (the
+// scale-d immediate 0): the first k step of a product, with no zeroing.
 template <>
 struct Wgmma<false, 64> {
+  template <int kScaleD = 1>
   __device__ __forceinline__ static void mma(
       float (&d)[32], uint64_t da, uint64_t db) {
     asm volatile(
@@ -306,7 +311,7 @@ struct Wgmma<false, 64> {
         "%8, %9, %10, %11, %12, %13, %14, %15,"
         "%16, %17, %18, %19, %20, %21, %22, %23,"
         "%24, %25, %26, %27, %28, %29, %30, %31},"
-        " %32, %33, 1, 1, 1, 0, 0;\n"
+        " %32, %33, %34, 1, 1, 0, 0;\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -315,7 +320,7 @@ struct Wgmma<false, 64> {
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db));
+        : "l"(da), "l"(db), "n"(kScaleD));
   }
 };
 
@@ -443,6 +448,83 @@ struct WgmmaRegA64 {
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+  }
+};
+
+// Descriptor of a K-major int8 tile whose rows are 64 bytes (64 int8 of K),
+// as TMA's 64-byte swizzle lays it out: 8-row groups 512 bytes apart (SBO),
+// layout type 2 (B64). The tile starts on a 512-byte boundary; a k32 step
+// is 32 bytes further along K (kDescStepK).
+__device__ __forceinline__ uint64_t smem_desc_sw64(const void* tile) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
+         (uint64_t(512 >> 4) << 32) | (uint64_t(2) << 62);
+}
+
+// D[64, N] += A[64, 32] . B[N, 32]^T with A in registers and B a K-major
+// int8 tile in shared memory: s8 x s8, exact int32 sums. Thread t of the
+// warpgroup holds A as four registers of four s8 each, row r = 16 (t / 32)
+// + (t % 32) / 4, k = 4 (t % 4): a[0] (r, k .. k + 3), a[1] (r + 8, k ..),
+// a[2] (r, 16 + k ..), a[3] (r + 8, 16 + k ..), the lowest k in the lowest
+// byte. The accumulator's layout is Wgmma's.
+template <int N>
+struct WgmmaRegAS8;
+
+template <>
+struct WgmmaRegAS8<64> {
+  __device__ __forceinline__ static void mma(
+      int (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31},"
+        " {%32, %33, %34, %35}, %36, 1;\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+          "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+  }
+};
+
+template <>
+struct WgmmaRegAS8<128> {
+  __device__ __forceinline__ static void mma(
+      int (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63},"
+        " {%64, %65, %66, %67}, %68, 1;\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+          "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+          "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+          "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+          "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+          "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
   }
 };
@@ -653,11 +735,14 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
 }
 
 // The tensor map of a row-major [rows, K] operand for Mainloop: boxes of
-// 128 bytes of K by box_rows rows, 128-byte swizzle, zeros past the edges.
-// K * element size must be a multiple of 16 and ptr 16-byte aligned. A
-// failed encode prints its CUresult and returns cudaErrorInvalidValue.
+// 128 bytes of K by box_rows rows, 128-byte swizzle, zeros past the edges
+// (row_bytes 64: boxes of 64 bytes of K, 64-byte swizzle, for
+// smem_desc_sw64). K * element size must be a multiple of 16 and ptr
+// 16-byte aligned. A failed encode prints its CUresult and returns
+// cudaErrorInvalidValue.
 inline cudaError_t encode_kmajor(CUtensorMap* map, const void* ptr, int rows,
-                                 int K, bool int8, int box_rows) {
+                                 int K, bool int8, int box_rows,
+                                 int row_bytes = 128) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) {
     fprintf(stderr, "nvt: the driver has no cuTensorMapEncodeTiled\n");
@@ -666,13 +751,15 @@ inline cudaError_t encode_kmajor(CUtensorMap* map, const void* ptr, int rows,
   const size_t esize = int8 ? 1 : 2;
   const cuuint64_t dims[2] = {cuuint64_t(K), cuuint64_t(rows)};
   const cuuint64_t strides[1] = {cuuint64_t(K) * esize};
-  const cuuint32_t box[2] = {cuuint32_t(128 / esize), cuuint32_t(box_rows)};
+  const cuuint32_t box[2] = {cuuint32_t(row_bytes / esize),
+                             cuuint32_t(box_rows)};
   const cuuint32_t elem_strides[2] = {1, 1};
   const CUresult res = encode(
       map,
       int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
       2, const_cast<void*>(ptr), dims, strides, box, elem_strides,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (res != CUDA_SUCCESS) {
     fprintf(stderr,

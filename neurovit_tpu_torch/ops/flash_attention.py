@@ -58,9 +58,10 @@ from neurovit_tpu_torch.ops.common import (FLOAT, INT, SHAPE_QUEUE, U64, VOID,
 LOG2E = 1.4426950408889634
 SCORE_CAP = 96.0
 LAYOUTS = ("bnhd", "bhnd")
-# Head dims a kernel is written for (the int8 attention K13's instances;
-# the bf16 kernels pad them to FWD_HEAD_DIMS); below MIN_KERNEL_HEAD_DIM
-# the plain attention runs on every device.
+# The head dims the attention kernels take, each rounded up to the next of
+# HEAD_DIMS (kernel_head_dim) and then padded to an instance of
+# FWD_HEAD_DIMS; below MIN_KERNEL_HEAD_DIM the plain attention runs on
+# every device.
 HEAD_DIMS = (16, 32, 64, 128)
 MIN_KERNEL_HEAD_DIM = 8
 

@@ -32,7 +32,10 @@ run the plain versions; CUDA tensors run ``csrc/int8_qkv.cu``,
 16; a row that K10 or K11 quantizes (K10's dim, K11's inner) is at most
 1024 wide, held in one warp's registers; K12 takes any such width (four
 launches on the TMA + ``wgmma`` mainloop, :func:`mlp_plan`); K13 takes K1's
-head dims (8 to 128, zero-padded to an instance).
+head dims (8 to 128, zero-padded to 64 or 128) in three launches on TMA +
+``wgmma``: V's quantization prologue in two passes, then the two-sweep
+attention with the P V product as an s8 ``wgmma`` from registers
+(:func:`int8_attn_plan`, :func:`v8_key_order`).
 """
 
 from __future__ import annotations
@@ -42,13 +45,18 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from neurovit_tpu_torch import nn
-from neurovit_tpu_torch.ops.common import (FLOAT, INT, VOID, check_operand,
+from neurovit_tpu_torch.ops.common import (FLOAT, INT, SHAPE_QUEUE, VOID,
+                                           check_operand, check_smem,
                                            check_widths, launch, on_cpu, ptr,
                                            round_up)
-from neurovit_tpu_torch.ops.flash_attention import (LOG2E,
+from neurovit_tpu_torch.ops.flash_attention import (FWD_ALIGN_SLACK, LOG2E,
+                                                    MAX_GRID_X,
                                                     MIN_KERNEL_HEAD_DIM,
+                                                    _block_rows, _check_grid,
                                                     _check_qkv, _n_valid,
-                                                    _probs, flash_attention,
+                                                    _offsets, _probs,
+                                                    flash_attention,
+                                                    fwd_head_dim,
                                                     pad_head_dim)
 from neurovit_tpu_torch.ops.int8_gemm import ALIGN_SLACK, BOX_BYTES
 
@@ -138,14 +146,13 @@ def int8_mlp_block_plain(x: torch.Tensor, gamma: torch.Tensor,
     return (z + x.float()).to(x.dtype)
 
 
-def int8_flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
-                               v: torch.Tensor, *, scale: float,
-                               n_valid: Optional[int] = None) -> torch.Tensor:
-    """K13's function in plain PyTorch (int8_serving.py:286-333), over
-    [B, N, H, D]. V is quantized per channel over the keys below n_valid
-    only; the probabilities per row against their row max, after the row
-    sum of the exact f32 p is taken."""
-    n_valid = _n_valid(q, n_valid)
+def attn_codes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               scale: float, n_valid: int) -> tuple:
+    """K13's quantized operands in plain PyTorch, over [B, N, H, D]:
+    (p8 [B, H, N, N], v8 [B, H, N, D], both integer-valued f32; s_p and
+    denom [B, H, N, 1]; s_v [B, H, 1, D]). V is quantized per channel over
+    the keys below n_valid only; the probabilities per row against their
+    row max, after the row sum of the exact f32 p is taken."""
     qf, kf, vf = (t.permute(0, 2, 1, 3).float() for t in (q, k, v))
     p = _probs(qf, kf, scale, n_valid)
     denom = p.sum(dim=-1, keepdim=True)
@@ -153,6 +160,17 @@ def int8_flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     p8 = torch.clamp(torch.round(p / s_p), 0, 127)
     s_v = _scale(vf[:, :, :n_valid].abs().amax(dim=2, keepdim=True))
     v8 = torch.clamp(torch.round(vf / s_v), -127, 127)
+    return p8, v8, s_p, denom, s_v
+
+
+def int8_flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, *, scale: float,
+                               n_valid: Optional[int] = None) -> torch.Tensor:
+    """K13's function in plain PyTorch (int8_serving.py:286-333), over
+    [B, N, H, D]: o = float(p8 . v8) * (s_p / denom * s_v) from
+    :func:`attn_codes`."""
+    n_valid = _n_valid(q, n_valid)
+    p8, v8, s_p, denom, s_v = attn_codes(q, k, v, scale, n_valid)
     acc = torch.matmul(p8.double(), v8.double()).float()
     o = acc * (s_p / denom * s_v)
     return o.to(q.dtype).permute(0, 2, 1, 3).contiguous()
@@ -320,27 +338,106 @@ def int8_mlp_block_cuda(x: torch.Tensor, gamma: torch.Tensor,
 int8_mlp_block_cuda.launches = 0
 
 
+# K13 (csrc/int8_attention.cu): ring stages of its K and v8 tiles, keys a
+# tile, and threads of a prologue block.
+ATTN_STAGES, ATTN_BKV, ATTN_PROLOGUE_THREADS = 4, 64, 256
+# The s8 A operand of K13's P V: for each of its four registers, which of a
+# thread's 16 accumulator values of a 32-key chunk (acc[4 j + i], j = 0..3:
+# row r + 8 (i // 2), key 8 j + 2 (t % 4) + i % 2) fill its bytes, lowest
+# byte first. Registers 0 and 2 hold row r at k 4 (t % 4) .. + 3 and 16 +
+# 4 (t % 4) .. + 3, registers 1 and 3 row r + 8 at the same k.
+P8_PACK = ((0, 1, 4, 5), (2, 3, 6, 7), (8, 9, 12, 13), (10, 11, 14, 15))
+
+
+def v8_key_order(n_pad: int) -> torch.Tensor:
+    """The key whose code K13's transposed v8 holds at each stored position
+    0 .. n_pad - 1 of a channel's row: within each group of 32 keys,
+    position 16 half + 4 q + i holds key 16 half + 2 q + 8 (i // 2) + i % 2,
+    so that the codes a thread's S accumulator gives, packed by
+    :data:`P8_PACK`, meet the v8 of their own keys."""
+    k = torch.arange(n_pad)
+    half, q, i = k % 32 // 16, k % 16 // 4, k % 4
+    return k // 32 * 32 + 16 * half + 2 * q + 8 * (i // 2) + i % 2
+
+
+class Int8AttnPlan(NamedTuple):
+    """How one K13 call covers q, k, v [B, N, H, D] at n_valid = N: the
+    head-dim instance ``d_kernel`` (operands zero-padded to it), ``bq``
+    query rows a block of the main kernel (64 per consumer warpgroup: one
+    at d_kernel 64, where three blocks share an SM; at 128 two where the
+    grid of 128-row blocks fills the card's 132 SMs, as K1's);
+    ``launches``, the three kernels in launch order, each (name, grid,
+    threads, dynamic shared memory bytes): the prologue's two passes on a
+    (B * H, key tiles) grid, then the attention on a one-dimensional grid
+    of q tiles times B * H; ``offsets`` of the main kernel's Q tiles, K
+    ring, v8 ring and barriers from its 1024-byte aligned base; the
+    scratch: v8 [B * H, d_kernel, n_pad] int8 (``v8_bytes``, n_pad = N
+    rounded up to 64) and the f32 ``stats`` (s_v [B * H, d_kernel] and the
+    prologue's partial amax [B * H, N / 64 tiles, d_kernel],
+    ``stats_bytes``). A call at n_valid < N runs the prologue over the key
+    tiles n_valid reaches."""
+    d_kernel: int
+    bq: int
+    launches: tuple
+    offsets: tuple
+    n_pad: int
+    v8_bytes: int
+    stats_bytes: int
+
+
+def int8_attn_plan(b: int, n: int, h: int, d: int) -> Int8AttnPlan:
+    """K13's plan (the kernel's own counts are ``nvt_int8_attn_smem_bytes``,
+    ``nvt_int8_attn_block_rows``, ``nvt_int8_attn_v8_bytes`` and
+    ``nvt_int8_attn_stats_bytes``; the card test holds them equal). Raises
+    where the kernel does not take the shape."""
+    d_kernel = fwd_head_dim(d)
+    _check_grid("int8 forward", b, n, h)
+    if b * h * d_kernel > MAX_GRID_X:
+        raise ValueError(f"the int8 attention takes B * H * D < 2^31 (v8's "
+                         f"rows), got B {b}, H {h}, D {d_kernel} "
+                         f"({SHAPE_QUEUE})")
+    bq = 64 if d_kernel == 64 else _block_rows(b, n, h)
+    tiles = -(-n // ATTN_BKV)
+    offsets, at = _offsets(bq * d_kernel * 2,
+                           ATTN_STAGES * ATTN_BKV * d_kernel * 2,
+                           ATTN_STAGES * ATTN_BKV * d_kernel,
+                           (2 * ATTN_STAGES + 1) * 8)
+    smem = FWD_ALIGN_SLACK + at
+    check_smem("int8 attention", smem)
+    prologue = (b * h, tiles)
+    launches = (("v_amax", prologue, ATTN_PROLOGUE_THREADS, 0),
+                ("v_quant", prologue, ATTN_PROLOGUE_THREADS, 0),
+                ("attention", (-(-n // bq) * b * h,), 2 * bq + 32, smem))
+    return Int8AttnPlan(d_kernel=d_kernel, bq=bq, launches=launches,
+                        offsets=offsets, n_pad=tiles * ATTN_BKV,
+                        v8_bytes=b * h * d_kernel * tiles * ATTN_BKV,
+                        stats_bytes=b * h * d_kernel * (1 + tiles) * 4)
+
+
 def int8_flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, scale: float,
                               n_valid: Optional[int] = None) -> torch.Tensor:
-    """Launch the Hopper kernel K13 (V's quantization prologue, then the
-    two-sweep attention): bf16 [B, N, H, D], contiguous, 8 <= D <= 128 (zero
-    columns to K1's next instance: their codes are 0 and they are sliced
-    off)."""
-    d_kernel = _check_qkv(q, k, v)
+    """Launch the Hopper kernel K13 (V's two-pass quantization prologue,
+    then the two-sweep attention): bf16 [B, N, H, D], contiguous, 8 <= D <=
+    128 (zero columns to 64 or 128: their codes are 0 and they are sliced
+    off). The scratch is v8 and the f32 stats of :func:`int8_attn_plan`;
+    the C entry point encodes the four tensor maps and raises through
+    ``launch`` on any failure."""
+    _check_qkv(q, k, v)
     b, n, h, d = q.shape
+    plan = int8_attn_plan(b, n, h, d)
     n_valid = _n_valid(q, n_valid)
-    n_pad = (n + 63) // 64 * 64
-    q, k, v = (pad_head_dim(t, d_kernel) for t in (q, k, v))
+    q, k, v = (pad_head_dim(t, plan.d_kernel) for t in (q, k, v))
     o = torch.empty_like(q)
-    v8 = torch.empty((b * h, n_pad, d_kernel), dtype=torch.int8,
+    v8 = torch.empty((b * h, plan.d_kernel, plan.n_pad), dtype=torch.int8,
                      device=q.device)
-    s_v = torch.empty((b * h, d_kernel), dtype=torch.float32, device=q.device)
+    stats = torch.empty(plan.stats_bytes // 4, dtype=torch.float32,
+                        device=q.device)
     launch("nvt_int8_attention", (VOID,) * 6 + (INT,) * 5 + (FLOAT,), q,
-           ptr(q), ptr(k), ptr(v), ptr(o), ptr(v8), ptr(s_v), b, n, h,
-           d_kernel, n_valid, float(scale * LOG2E))
+           ptr(q), ptr(k), ptr(v), ptr(o), ptr(v8), ptr(stats), b, n, h,
+           plan.d_kernel, n_valid, float(scale * LOG2E))
     int8_flash_attention_cuda.launches += 1
-    return o[..., :d].contiguous() if d_kernel != d else o
+    return o[..., :d].contiguous() if plan.d_kernel != d else o
 
 
 int8_flash_attention_cuda.launches = 0

@@ -17,7 +17,9 @@ are called through each library's own entry point (:func:`fused_mlp_call`,
 :func:`fused_mlp_bwd_call`): an older checkout's ``nvt_fused_mlp_fwd``
 takes the rows of a block (32 at the flagship) and no scratch, and its
 ``nvt_fused_mlp_bwd`` its scratch as four tensors; this one's take one
-scratch allocation each.
+scratch allocation each. K13 goes through this checkout's wrapper with
+either library: an older ``nvt_int8_attention`` (at head dim 64) takes
+the same bytes of v8 scratch and s_v at the head of the f32 stats.
 
     python scripts/torch_kernel_ab.py --other <checkout> [--rounds 10]
         [--only <substring of a kernel's name>]

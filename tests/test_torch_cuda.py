@@ -16,7 +16,10 @@ and K4, K9 and K12 on TMA + wgmma at ragged rows (1-300, 8008), ViT-H,
 dim 1536 / mlp 6144 and mlp 8192, ragged column tiles, all-zero rows,
 repeat calls bit for bit (K4 also without h, K9 on K4's own h and with
 dgamma / dbeta) and their plans' scratch and shared-memory bytes against
-the kernels' counts.
+the kernels' counts; and K13 on TMA + wgmma at head dims 16-128, n_valid
+on and off the key tiles, batch 8 and 32 at 1001 tokens, repeat calls bit
+for bit, its prologue's scales and permuted codes bit for bit, an all-zero
+V, B * H past 65535 and its plan's bytes against the kernel's counts.
 
 These need an NVIDIA GPU with sm_90a and nvcc; elsewhere they skip. Run on
 the card with:
@@ -575,19 +578,120 @@ def test_int8_mlp_plan_matches_the_kernel(cuda):
             assert {s for _, _, _, s in plan.launches if s} == {smem()}
 
 
-@pytest.mark.parametrize("b,n,n_valid", [(1, 1, 1), (2, 70, 70),
-                                         (2, 130, 97), (1, 1001, 900)])
-def test_int8_attention_kernel(cuda, b, n, n_valid):
-    """Ragged n_valid: keys past it get p8 = 0 and stay out of V's scale."""
-    rng = np.random.default_rng(n + 7)
-    q, k, v = (_rand(rng, (b, n, 3, 64), cuda) for _ in range(3))
-    kw = {"scale": 0.125, "n_valid": n_valid}
+INT8_ATTN_CASES = (
+    [(1, 1, 1, 3, 64), (2, 70, 70, 3, 64), (2, 130, 97, 3, 64),
+     (1, 1001, 900, 3, 64), (8, 1001, 1001, 8, 64), (32, 1001, 1001, 8, 64),
+     (8, 1001, 900, 8, 128)]
+    + [(1, 130, nv, 2, d) for d in (16, 32, 80, 128) for nv in (1, 97, 130)]
+    + [(2, 1001, 1001, 3, d) for d in (16, 32, 80, 128)])
+
+
+@pytest.mark.parametrize("b,n,n_valid,h,d", INT8_ATTN_CASES)
+def test_int8_attention_kernel(cuda, b, n, n_valid, h, d):
+    """K13 against its plain version at head dims 16-128 (padded to 64 or
+    128), n_valid on and off the 64-key tiles, both block heights (batch 8
+    and 32 at 1001 tokens take 128-row blocks); two calls bit-equal; keys
+    past n_valid get p8 = 0 and stay out of V's scale."""
+    rng = np.random.default_rng(n + 7 * d + b)
+    q, k, v = (_rand(rng, (b, n, h, d), cuda) for _ in range(3))
+    kw = {"scale": d ** -0.5, "n_valid": n_valid}
     before = int8_serving.int8_flash_attention_cuda.launches
     got = int8_serving.int8_flash_attention(q, k, v, **kw)
     _check(got, int8_serving.int8_flash_attention_plain(q, k, v, **kw))
     assert int8_serving.int8_flash_attention_cuda.launches == before + 1
+    assert torch.equal(got, int8_serving.int8_flash_attention(q, k, v, **kw))
     v[:, n_valid:] = 100.0
     assert torch.equal(got, int8_serving.int8_flash_attention(q, k, v, **kw))
+
+
+def _int8_attention_scratch(q, k, v, n_valid):
+    """Run K13's C entry point as its wrapper does and return (o, v8,
+    stats), the scratch as the kernel left it."""
+    from neurovit_tpu_torch.ops.common import FLOAT, INT, VOID, launch, ptr
+    b, n, h, d = q.shape
+    plan = int8_serving.int8_attn_plan(b, n, h, d)
+    o = torch.empty_like(q)
+    v8 = torch.zeros((b * h, d, plan.n_pad), dtype=torch.int8,
+                     device=q.device)
+    stats = torch.zeros(plan.stats_bytes // 4, dtype=torch.float32,
+                        device=q.device)
+    launch("nvt_int8_attention", (VOID,) * 6 + (INT,) * 5 + (FLOAT,), q,
+           ptr(q), ptr(k), ptr(v), ptr(o), ptr(v8), ptr(stats), b, n, h, d,
+           n_valid, float(d ** -0.5 * fa.LOG2E))
+    torch.cuda.synchronize()
+    return o, v8, stats
+
+
+@pytest.mark.parametrize("n,n_valid,d", [(130, 97, 64), (1001, 900, 128),
+                                         (1001, 1001, 64)])
+def test_int8_attention_prologue_codes(cuda, n, n_valid, d):
+    """The prologue's s_v and codes are the IEEE quotients amax / 127 and
+    rint(v / s_v) bit for bit (each f32 quotient taken in f64 and rounded
+    once, which is the correctly rounded f32 quotient: torch's division by
+    the scalar 127 on the card multiplies by its reciprocal, an ulp away at
+    times), and v8 holds the codes transposed and permuted (v8_key_order),
+    zero past n_valid, over the key tiles n_valid reaches."""
+    rng = np.random.default_rng(n_valid + d)
+    q, k, v = (_rand(rng, (2, n, 3, d), cuda) for _ in range(3))
+    _, v8, stats = _int8_attention_scratch(q, k, v, n_valid)
+    vf = v.permute(0, 2, 1, 3).reshape(6, n, d).double()
+    amax = vf[:, :n_valid].abs().amax(dim=1)
+    s_v = torch.where(amax > 0, (amax / 127).float(), 1.0)
+    assert torch.equal(stats[:6 * d], s_v.reshape(-1))
+    codes = torch.clamp(torch.round((vf / s_v[:, None].double()).float()),
+                        -127, 127)
+    reach = -(-n_valid // 64) * 64
+    order = int8_serving.v8_key_order(reach).to(cuda)
+    want = torch.zeros(6, reach, d, dtype=torch.int8, device=cuda)
+    want[:, :n_valid] = codes[:, :n_valid].to(torch.int8)
+    assert torch.equal(v8[:, :, :reach], want[:, order].transpose(1, 2))
+
+
+def test_int8_attention_all_zero_v(cuda):
+    """V all zero: every channel's scale is 1, every code 0, and o is 0."""
+    rng = np.random.default_rng(0)
+    q, k = (_rand(rng, (2, 1001, 8, 64), cuda) for _ in range(2))
+    v = torch.zeros_like(q)
+    o, v8, stats = _int8_attention_scratch(q, k, v, 1001)
+    assert torch.equal(stats[:16 * 64], torch.ones_like(stats[:16 * 64]))
+    assert not v8.any() and not o.any()
+    assert not int8_serving.int8_flash_attention(q, k, v, scale=0.125).any()
+
+
+def test_int8_attention_past_65535_heads(cuda):
+    """B * H = 65 544 (B 8193, H 8, N 16, D 16): more (b, h) than a grid's
+    y could hold; every head is covered."""
+    rng = np.random.default_rng(65544)
+    q, k, v = (_rand(rng, (8193, 16, 8, 16), cuda) for _ in range(3))
+    kw = {"scale": 0.25, "n_valid": 15}
+    _check(int8_serving.int8_flash_attention(q, k, v, **kw),
+           int8_serving.int8_flash_attention_plain(q, k, v, **kw))
+
+
+def test_int8_attention_plan_matches_the_kernel(cuda):
+    """The wrapper's K13 plan counts the main kernel's block rows and
+    shared memory and the two scratch buffers as the kernel does."""
+    import ctypes
+
+    from neurovit_tpu_torch.models.vit3d import WIDTHS
+    from neurovit_tpu_torch.ops import _build
+    lib = _build.library()
+    rows, smem = lib.nvt_int8_attn_block_rows, lib.nvt_int8_attn_smem_bytes
+    v8b, statb = lib.nvt_int8_attn_v8_bytes, lib.nvt_int8_attn_stats_bytes
+    rows.restype, rows.argtypes = ctypes.c_int, [ctypes.c_int] * 4
+    smem.restype, smem.argtypes = ctypes.c_longlong, [ctypes.c_int] * 2
+    for fn in (v8b, statb):
+        fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 4
+    shapes = [(b, 1001, 8, d) for b in (1, 8, 32) for d in (64, 128)] + [
+        (b, n, heads, dh) for _, heads, dh, _ in WIDTHS.values()
+        for b in (1, 8) for n in (130, 1001)] + [(8193, 16, 8, 16)]
+    for b, n, h, d in shapes:
+        plan = int8_serving.int8_attn_plan(b, n, h, d)
+        dk = plan.d_kernel
+        assert rows(b, n, h, dk) == plan.bq, (b, n, h, d)
+        assert smem(dk, plan.bq) == plan.launches[2][3], (b, n, h, d)
+        assert v8b(b, n, h, dk) == plan.v8_bytes, (b, n, h, d)
+        assert statb(b, n, h, dk) == plan.stats_bytes, (b, n, h, d)
 
 
 def test_int8_kernels_refuse_what_they_do_not_take(cuda):
