@@ -27,7 +27,9 @@ Phases, each printing a line; any failure raises and exits non-zero:
                [B, H, N, D] attention) forward at n_valid 1001 and 900 and
                at dropout 0.1 and backward at dropout 0 and 0.1, each also
                timed beside K1 or K5 on the transposed inputs, and the int8
-               kernels K10-K13 (K13 also at n_valid 900; K12 also at 130
+               kernels K10-K13 (K13 also at n_valid 900; K10 also at 130
+               rows and on all-zero rows with beta = 0, which give q = k =
+               v = 0, and two calls bit-equal; K12 also at 130
                rows, at dim 1280 / mlp 5120 and dim 1024 / mlp 8192 at
                batch 2, and on all-zero rows, which give bf16(b2), and two
                calls bit-equal), each timed beside its bf16 counterpart
@@ -36,7 +38,9 @@ Phases, each printing a line; any failure raises and exits non-zero:
                SDPA's in both layouts, the enqueue time per call and the
                exp2 floor, and of K5 (dropout 0.1 and 0) and K6's backward
                beside SDPA's backward
-               (scripts/torch_attention_device_times.py), of K12's four
+               (scripts/torch_attention_device_times.py), of K10's two
+               passes beside K17 int8 and torch._int_mm at its GEMM's shape
+               (scripts/torch_int8_qkv_device_times.py), of K12's four
                passes beside K17 int8 at its two GEMM shapes
                (scripts/torch_int8_mlp_device_times.py), of K13's three
                launches at n_valid 1001 and 900 beside K1's device time
@@ -49,9 +53,11 @@ Phases, each printing a line; any failure raises and exits non-zero:
 4. widths      every ViT width of the matrix (models/vit3d.py WIDTHS: the
                smoke model, head dims 32, 80 and 128, ViT-S/B/L and the
                flagship) at batch 2 x 1001 tokens through K1-K13 against the
-               plain versions, dropout 0.1 where an op has it; K4's and
-               K9's plans (scratch, shared memory) against the kernels';
-               K4 and K9 at ViT-H (dim 1280, mlp 5120) against plain; K4
+               plain versions, dropout 0.1 where an op has it; K4's, K9's
+               and K10's plans (scratch, shared memory) against the
+               kernels'; K4 and K9 at ViT-H (dim 1280, mlp 5120) against
+               plain; K10 at ViT-H (dim 1280, 16 heads x 80) and at dim
+               1536 / inner 1536, batch 2 and 130 rows, against plain; K4
                and K9 timed at batch 8 at the ViT-B, ViT-L, ViT-H and
                flagship widths
 5. probes      the probe scripts' main paths with their launch counts
@@ -413,6 +419,22 @@ def int8_mlp_device_times(results: dict, args: tuple, card: str) -> None:
             "device not measured (no kernels traced)") + f"; {card}")
 
 
+def int8_qkv_device_times(results: dict, args: tuple, card: str) -> None:
+    """K10's device time on the kernel phase's operands, pass by pass
+    (``scripts/torch_int8_qkv_device_times.py``), into its result; K17 int8
+    and ``torch._int_mm`` at its GEMM's shape logged beside it."""
+    times = script("torch_int8_qkv_device_times")
+    m = times.measure(args, 10)
+    results["int8_ln_qkv"]["device_ms"] = m["device_ms"]
+    log("kernels", times.line(f"int8_ln_qkv at B={B} N={N}", m, times.floors(
+        B * N, DIM, HEADS * DIM_HEAD)) + f"; {card}")
+    for shape, dev in times.yardstick(B * N, DIM, HEADS * DIM_HEAD,
+                                      10).items():
+        log("kernels", f"{shape}: " + (", ".join(
+            f"{k} {us:.1f} us" for k, us in dev.items()) or
+            "device not measured (no kernels traced)") + f"; {card}")
+
+
 def int8_attention_device_times(results: dict, qkv: list, card: str) -> None:
     """K13's device time on the kernel phase's q, k, v at n_valid N (its
     timed case) and N_VALID_MASKED, launch by launch
@@ -489,7 +511,8 @@ def build_notes(lib) -> None:
         pass
     for source, fn, regs, stores, loads in kernels:
         if (stores or loads or "flash_bwd" in fn
-                or source in ("int8_mlp.cu", "fused_mlp.cu",
+                or source in ("int8_qkv.cu", "int8_rowquant.cu",
+                              "int8_mlp.cu", "fused_mlp.cu",
                               "fused_mlp_bwd.cu", "int8_attention.cu")):
             log("build", f"{source} {readable.get(fn, fn)}: {regs} "
                 f"registers, spill stores {stores} B, spill loads {loads} B")
@@ -628,6 +651,13 @@ def kernel_phase(card: str) -> dict:
     mlp8_more["zero rows, beta = b1 = 0"] = (
         x0, ln[0], torch.zeros_like(ln[1]), mlp8[0], mlp8[1],
         torch.zeros_like(b1), *mlp8[3:])
+    # K10 beyond the flagship: a ragged last row tile (130 rows), and
+    # all-zero rows of x with beta = 0 (u all zero: amax 0, scale 1) at a
+    # tile's first and last row.
+    qkv8_more = {
+        "130 rows": (x[:1, :130].contiguous(), *ln, *qkv8, HEADS, DIM_HEAD),
+        "zero rows, beta = 0": (x0, ln[0], torch.zeros_like(ln[1]), *qkv8,
+                                HEADS, DIM_HEAD)}
     # K14/K15 at the ResNet stem's shape: continuous values, and post-ReLU
     # zeros and small integers in bf16, where most windows tie.
     pools = {"continuous": t(*POOL_SHAPE),
@@ -726,7 +756,10 @@ def kernel_phase(card: str) -> dict:
                (5, 6)) for label, a in bwd_more.items()]],
         "int8_ln_qkv": [
             ("", lambda: q8.int8_ln_qkv_cuda(x, *ln, *qkv8, HEADS, DIM_HEAD),
-             lambda: q8.int8_ln_qkv_plain(x, *ln, *qkv8, HEADS, DIM_HEAD))],
+             lambda: q8.int8_ln_qkv_plain(x, *ln, *qkv8, HEADS, DIM_HEAD)),
+            *[(label, lambda a=a: q8.int8_ln_qkv_cuda(*a),
+               lambda a=a: q8.int8_ln_qkv_plain(*a))
+              for label, a in qkv8_more.items()]],
         "int8_outproj_residual": [
             ("", lambda: q8.int8_outproj_residual_cuda(x, attn, *out8, bout),
              lambda: q8.int8_outproj_residual_plain(x, attn, *out8, bout))],
@@ -891,6 +924,18 @@ def kernel_phase(card: str) -> dict:
         results[name].update(max_abs_err=max_abs, max_rel_err=max_rel)
         log("kernels", f"{name}: max abs err {max_abs:.3e}, max rel err "
             f"{max_rel:.3e} over {len(calls)} cases; {card}")
+    zero_rows = [0, 127, 128, 1000]
+    if any(t_.reshape(B * N, -1)[zero_rows].float().abs().max()
+           for t_ in q8.int8_ln_qkv_cuda(*qkv8_more["zero rows, beta = 0"])):
+        raise AssertionError("int8_ln_qkv: an all-zero row with beta = 0 "
+                             "does not give q = k = v = 0")
+    for label, a in (("flagship", (x, *ln, *qkv8, HEADS, DIM_HEAD)),
+                     ("130 rows", qkv8_more["130 rows"])):
+        one, two = (q8.int8_ln_qkv_cuda(*a) for _ in range(2))
+        if not all(torch.equal(p, q) for p, q in zip(one, two)):
+            raise AssertionError(f"int8_ln_qkv {label}: two calls differ")
+    log("kernels", "int8_ln_qkv: all-zero rows with beta = 0 give q = k = "
+        "v = 0; two calls bit-equal at the flagship and at 130 rows")
     y0 = q8.int8_mlp_block_cuda(*mlp8_more["zero rows, beta = b1 = 0"])
     if not torch.equal(y0[0, [0, 127, 128, 1000]],
                        b2.to(torch.bfloat16).expand(4, -1)):
@@ -933,7 +978,9 @@ def kernel_phase(card: str) -> dict:
         f"0; two calls at dropout {DROPOUT} bit-equal (dgamma and dbeta "
         "included) at the flagship, at 130 rows and at dim 1536 / mlp 6144")
     del mlp8_more, mlp_more, mlp_zero, x0, y0, one, two, bwd_more, got0, dy0
+    del qkv8_more
     attention_device_times(results, qkv, qkv_h, card)
+    int8_qkv_device_times(results, (x, *ln, *qkv8, HEADS, DIM_HEAD), card)
     int8_mlp_device_times(results, (x, *ln, *mlp8), card)
     int8_attention_device_times(results, qkv, card)
     mlp_device_times(results, mlp_args, card)
@@ -969,11 +1016,12 @@ def _width_operands(rng, b: int, dim: int, heads: int, dh: int, hid: int
 def widths_phase(card: str) -> None:
     """Every ViT width of the matrix (models/vit3d.py WIDTHS) at batch 2 x
     1001 tokens through K1-K13 against the plain versions, with the kernel
-    phase's tolerances, dropout 0.1 where an op has it; K4's and K9's plans
-    (scratch and shared memory) against the kernels' own counts; K4 and K9
-    at ViT-H (dim 1280, 16 heads of 80, mlp 5120), which the wmma K9
-    refused, against plain; then K4 and K9 timed at batch 8 at the ViT-B,
-    ViT-L, ViT-H and flagship widths."""
+    phase's tolerances, dropout 0.1 where an op has it; K4's, K9's and
+    K10's plans (scratch and shared memory) against the kernels' own
+    counts; K4 and K9 at ViT-H (dim 1280, 16 heads of 80, mlp 5120), which
+    the wmma K9 refused, against plain; K10 at ViT-H and at dim 1536 /
+    inner 1536, which the wmma K10 refused, against plain; then K4 and K9
+    timed at batch 8 at the ViT-B, ViT-L, ViT-H and flagship widths."""
     import ctypes
 
     from neurovit_tpu_torch.models.vit3d import WIDTHS
@@ -986,9 +1034,11 @@ def widths_phase(card: str) -> None:
     scratch, smem = lib.nvt_fused_mlp_scratch_bytes, lib.nvt_fused_mlp_smem_bytes
     bwd_scratch = lib.nvt_fused_mlp_bwd_scratch_bytes
     bwd_smem = lib.nvt_fused_mlp_bwd_smem_bytes
-    for fn in (scratch, bwd_scratch):
+    qkv_scratch = lib.nvt_int8_qkv_scratch_bytes
+    qkv_smem = lib.nvt_int8_qkv_smem_bytes
+    for fn in (scratch, bwd_scratch, qkv_scratch):
         fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 3
-    for fn in (smem, bwd_smem):
+    for fn in (smem, bwd_smem, qkv_smem):
         fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 2
     rng = np.random.default_rng(SEED + 6)
     bf = torch.bfloat16
@@ -1010,6 +1060,14 @@ def widths_phase(card: str) -> None:
             raise AssertionError(f"{name}: K9's plan counts (scratch, the "
                                  f"hidden and du passes' shared memory) "
                                  f"{theirs} bytes, the kernel {counted}")
+        qplan = q8.qkv_plan(2 * N, dim, heads * dh)
+        counted = (qkv_scratch(2 * N, dim, heads * dh),
+                   qkv_smem(2 * N, heads * dh))
+        if counted != (qplan.scratch_bytes, qplan.launches[1][3]):
+            raise AssertionError(
+                f"{name}: K10's plan counts (scratch, the GEMM's shared "
+                f"memory) {(qplan.scratch_bytes, qplan.launches[1][3])} "
+                f"bytes, the kernel {counted}")
         p = _width_operands(rng, 2, dim, heads, dh, hid)
         x, ln, (q, k, v), do = p["x"], p["ln"], p["qkv"], p["do"]
         wqkv, wout = p["wqkv"].to(bf), p["wout"].to(bf)
@@ -1096,6 +1154,26 @@ def widths_phase(card: str) -> None:
         f"at dropout {DROPOUT} against plain at B=2 N={N}, K9 max abs err "
         f"{err:.3e}")
     del p, mlp, got, bwd
+    # K10 at the widths the wmma version refused (its LayerNorm rows sat in
+    # one warp's registers): ViT-H and dim 1536 / inner 1536, at batch 2
+    # and at 130 rows, against plain.
+    for dim, heads, dh in ((1280, 16, 80), (1536, 24, 64)):
+        p = _width_operands(rng, 2, dim, heads, dh, 16)
+        qkv8 = q8.quantize_weight(p["wqkv"])
+        worst = []
+        for label, x in ((f"B=2 N={N}", p["x"]),
+                         ("130 rows", p["x"][:1, :130].contiguous())):
+            err, _ = compare(f"widths dim {dim} inner {heads * dh} K10 "
+                             f"{label}",
+                             q8.int8_ln_qkv_cuda(x, *p["ln"], *qkv8, heads,
+                                                 dh),
+                             q8.int8_ln_qkv_plain(x, *p["ln"], *qkv8, heads,
+                                                  dh))
+            worst.append(err)
+        log("widths", f"dim {dim}, {heads} heads x {dh}: K10 against plain "
+            f"at B=2 N={N} and at 130 rows, max abs err {max(worst):.3e} "
+            f"(GEMM grid {q8.qkv_plan(2 * N, dim, heads * dh).launches[1][1]})")
+        del p, qkv8
     # K4 and K9 at ViT-B, ViT-L and ViT-H (K4's widest tiles, K9's widest
     # rows) beside the flagship.
     for name, (dim, heads, dh, hid) in (

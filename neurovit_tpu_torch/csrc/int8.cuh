@@ -7,13 +7,17 @@
 // (rint is round-half-even, like jnp.round); the products are exact int32
 // sums, dequantized as float(acc) * s_row * s_col in f32.
 //
-// int8 tiles in shared memory are "K16-chunked": element (r, k) of a tile
-// of R rows sits at byte ((k / 16) * R + r) * 16 + k % 16. Every 16 x 16
-// wmma fragment is then one contiguous 256-byte block with a leading
-// dimension of 16, so its pointer has the 32-byte (256-bit) alignment that
-// load_matrix_sync asks for at every k step (a row-major int8 tile would
-// put every other 16-wide k step on a 16-byte boundary), and a warp's
-// fragment load touches each bank the same number of times.
+// K10 and K12 share one LayerNorm row-quantize pass, launch_ln_rowquant
+// (int8_rowquant.cu), which writes the codes to device memory for their
+// TMA + wgmma GEMMs. K11 still quantizes its rows into shared memory
+// (rowquant_rows) and runs TileGemmI8 on wmma there. Its int8 tiles in
+// shared memory are "K16-chunked": element (r, k) of a tile of R rows sits
+// at byte ((k / 16) * R + r) * 16 + k % 16. Every 16 x 16 wmma fragment is
+// then one contiguous 256-byte block with a leading dimension of 16, so its
+// pointer has the 32-byte (256-bit) alignment that load_matrix_sync asks
+// for at every k step (a row-major int8 tile would put every other 16-wide
+// k step on a 16-byte boundary), and a warp's fragment load touches each
+// bank the same number of times.
 #pragma once
 
 #include "common.cuh"
@@ -58,23 +62,36 @@ __device__ __forceinline__ uint2 pack_codes(const int* c) {
   return make_uint2(lo, hi);
 }
 
+// Four int8 codes, one 4-byte store.
+__device__ __forceinline__ uint32_t pack4(const int (&c)[4]) {
+  uint32_t word = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    word |= (static_cast<uint32_t>(c[i]) & 0xFFu) << (8 * i);
+  return word;
+}
+
+// Rows (one warp each) a block of the LayerNorm row-quantize pass.
+constexpr int kLnRowWarps = 8;
+
+// (u8, s_row) = rowquant(LN(x) * gamma + beta) for x [M, dim] bf16: u8
+// [M, dim] int8 and s_row [M] f32 in device memory, one warp a row, any
+// dim that is a multiple of 4 (int8_rowquant.cu). Launched on stream by K10
+// and K12 alike; returns the launch's error.
+cudaError_t launch_ln_rowquant(const bf16* x, const float* gamma,
+                               const float* beta, int8_t* u8, float* s_row,
+                               int M, int dim, float eps, cudaStream_t stream);
+
 // Quantize the BM rows row0 .. row0 + BM - 1 of x [M, dim] (bf16) per row
 // into A8 (chunked, BM rows) and s_row[BM]: one warp per row, the row held
 // in registers (lane l holds columns 256 g + 8 l .. + 7; dim % 8 == 0,
-// dim <= 1024), so amax is known before any code is written. The amax and
-// the LayerNorm statistics are over the dim real columns; the codes of the
-// columns dim .. width - 1 (the GEMM's k tile, width % 8 == 0) are 0. With
-// LN, the row is first u = LN(x) * gamma + beta in f32 with the JAX
-// kernels' order of operations (int8_serving.py:122-127, 158-159): mean,
-// mean of squared deviations, rsqrt(var + eps), xhat * gamma + beta -- and,
-// unlike the bf16 kernels, u is not rounded to bf16. Rows at or past M get
-// zero codes.
-template <int BM, int THREADS, bool LN>
-__device__ void rowquant_rows(const bf16* __restrict__ x,
-                              const float* __restrict__ gamma,
-                              const float* __restrict__ beta, int8_t* A8,
+// dim <= 1024), so amax is known before any code is written. The amax is
+// over the dim real columns; the codes of the columns dim .. width - 1 (the
+// GEMM's k tile, width % 8 == 0) are 0. Rows at or past M get zero codes.
+template <int BM, int THREADS>
+__device__ void rowquant_rows(const bf16* __restrict__ x, int8_t* A8,
                               float* s_row, int row0, int M, int dim,
-                              int width, float eps) {
+                              int width) {
   constexpr int kMaxGroups = 4;  // 4 x 256 columns
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   // Group g of this lane holds real columns.
@@ -89,45 +106,13 @@ __device__ void rowquant_rows(const bf16* __restrict__ x,
     }
     const bf16* xrow = x + static_cast<size_t>(row) * dim;
     // Lane l holds columns g * 256 + l * 8 .. + 7 of each group g; the
-    // groups past dim stay zero and take no part in the sums or the amax.
+    // groups past dim stay zero and take no part in the amax.
     float u[kMaxGroups][8] = {};
 #pragma unroll
     for (int g = 0; g < kMaxGroups; ++g) {
       if (in_row(g)) {
         unpack8(*reinterpret_cast<const uint4*>(xrow + g * 256 + lane * 8),
                 u[g]);
-      }
-    }
-    if constexpr (LN) {
-      float s = 0.f;
-#pragma unroll
-      for (int g = 0; g < kMaxGroups; ++g) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) s += u[g][i];
-      }
-      const float mean = warp_sum(s) / dim;
-      float ss = 0.f;
-#pragma unroll
-      for (int g = 0; g < kMaxGroups; ++g) {
-        if (in_row(g)) {
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const float d = u[g][i] - mean;
-            ss += d * d;
-          }
-        }
-      }
-      const float rstd = rsqrtf(warp_sum(ss) / dim + eps);
-#pragma unroll
-      for (int g = 0; g < kMaxGroups; ++g) {
-        if (in_row(g)) {
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const int c = g * 256 + lane * 8 + i;
-            const float xhat = __fmul_rn(u[g][i] - mean, rstd);
-            u[g][i] = __fadd_rn(__fmul_rn(xhat, gamma[c]), beta[c]);
-          }
-        }
       }
     }
     float amax = 0.f;

@@ -27,6 +27,7 @@
 // code is deterministic):
 //   1. ln_rowquant: x -> u8 [M, dim], s1_row [M]; one warp per row, the
 //      row read from L1/L2 once for each statistic, so any dim is taken.
+//      The pass is K10's too (launch_ln_rowquant, int8_rowquant.cu).
 //   2. fc1: hopper_gemm.cuh Mainloop<true, 128, 128, 3> over ceil(M / 128) x
 //      ceil(hid / 128) tiles, A = u8, Bt = W1. The epilogue dequantizes,
 //      adds b1, takes GELU, writes g f32 [M, hid] in 8-byte pairs and the
@@ -63,7 +64,7 @@
 namespace nvt {
 namespace {
 
-constexpr int kRowWarps = 8;             // rows a block of passes 1 and 3
+constexpr int kRowWarps = kLnRowWarps;   // rows a block of passes 1 and 3
 constexpr int kBM = 128, kBN = 128;      // the GEMMs' output tile
 // Three stages (97 KiB of ring) let two GEMM blocks share an SM, so one
 // block's epilogue runs under the other's mainloop.
@@ -92,89 +93,6 @@ struct Scratch {
     bytes = at;
   }
 };
-
-// Four int8 codes, one 4-byte store.
-__device__ __forceinline__ uint32_t pack4(const int (&c)[4]) {
-  uint32_t word = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    word |= (static_cast<uint32_t>(c[i]) & 0xFFu) << (8 * i);
-  return word;
-}
-
-// Pass 1: (u8, s1_row) = rowquant(LN(x) * gamma + beta), one warp a row.
-// Lane l takes columns 128 i + 4 l .. + 3 of each step i, so each load of
-// x (8 bytes), gamma and beta (16 bytes) is one contiguous run across the
-// warp; the row is read again for each statistic and for the codes, from
-// L1 or L2.
-__global__ void __launch_bounds__(kRowWarps * 32)
-    ln_rowquant_kernel(const bf16* __restrict__ x,
-                       const float* __restrict__ gamma,
-                       const float* __restrict__ beta, int8_t* __restrict__ u8,
-                       float* __restrict__ s1_row, int M, int dim, float eps) {
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kRowWarps + threadIdx.x / 32;
-  if (row >= M) return;
-  const bf16* xr = x + static_cast<size_t>(row) * dim;
-  auto load = [&](int c, float (&v)[4]) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(xr + c);
-    const float2 lo = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 hi = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    v[0] = lo.x, v[1] = lo.y, v[2] = hi.x, v[3] = hi.y;
-  };
-  float s = 0.f;
-  for (int c = lane * 4; c < dim; c += 128) {
-    float v[4];
-    load(c, v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s += v[i];
-  }
-  const float mean = warp_sum(s) / dim;
-  float ss = 0.f;
-  for (int c = lane * 4; c < dim; c += 128) {
-    float v[4];
-    load(c, v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float d = v[i] - mean;
-      ss += d * d;
-    }
-  }
-  const float rstd = rsqrtf(warp_sum(ss) / dim + eps);
-  // u = LN(x) * gamma + beta at columns c .. c + 3.
-  auto u_at = [&](int c, float (&u)[4]) {
-    float v[4];
-    load(c, v);
-    const float4 gm = *reinterpret_cast<const float4*>(gamma + c);
-    const float4 bt = *reinterpret_cast<const float4*>(beta + c);
-    const float g4[4] = {gm.x, gm.y, gm.z, gm.w};
-    const float b4[4] = {bt.x, bt.y, bt.z, bt.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      u[i] = __fadd_rn(__fmul_rn(__fmul_rn(v[i] - mean, rstd), g4[i]),
-                       b4[i]);
-  };
-  float amax = 0.f;
-  for (int c = lane * 4; c < dim; c += 128) {
-    float u[4];
-    u_at(c, u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) amax = fmaxf(amax, fabsf(u[i]));
-  }
-  const float scale = quant_scale(warp_max(amax));
-  int8_t* out = u8 + static_cast<size_t>(row) * dim;
-  for (int c = lane * 4; c < dim; c += 128) {
-    float u[4];
-    u_at(c, u);
-    int codes[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) codes[i] = quant_code(u[i], scale, -127.f);
-    *reinterpret_cast<uint32_t*>(out + c) = pack4(codes);
-  }
-  if (lane == 0) s1_row[row] = scale;
-}
 
 // Pass 2: g = GELU(dequant(u8 . W1^T) + b1) and each row's amax of |g| over
 // the tile's columns. The thread's accumulator pairs lie as wgmma's m64nN
@@ -309,9 +227,8 @@ cudaError_t launch_all(const bf16* x, const float* gamma, const float* beta,
   const int row_blocks = (M + kRowWarps - 1) / kRowWarps;
   const int m_tiles = (M + kBM - 1) / kBM;
   const int hid_tiles = (hid + kBN - 1) / kBN;
-  ln_rowquant_kernel<<<row_blocks, kRowWarps * 32, 0, stream>>>(
-      x, gamma, beta, u8, s1_row, M, dim, eps);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = launch_ln_rowquant(x, gamma, beta, u8, s1_row, M, dim, eps, stream);
+  if (err != cudaSuccess) return err;
   fc1_gelu_kernel<<<dim3(hid_tiles, m_tiles), Loop::kThreads,
                     Loop::kSmemBytes, stream>>>(tu8, tw1, s1_row, s1, b1, g,
                                                 gmax, M, dim, hid);

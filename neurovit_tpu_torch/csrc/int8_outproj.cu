@@ -40,8 +40,7 @@ __global__ void __launch_bounds__(Gemm::kThreads)
   void* scratch = smem + a_bytes + round_up(kBM * sizeof(float), 128);
 
   const int row0 = blockIdx.x * kBM;
-  rowquant_rows<kBM, Gemm::kThreads, false>(a, nullptr, nullptr, A8, s_row,
-                                            row0, M, inner, inner_k, 0.f);
+  rowquant_rows<kBM, Gemm::kThreads>(a, A8, s_row, row0, M, inner, inner_k);
   const int* C = reinterpret_cast<const int*>(scratch);
   const int n_begin = blockIdx.y * kChunk;
   const int n_end = min(n_begin + kChunk, dim);

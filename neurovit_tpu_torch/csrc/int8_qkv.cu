@@ -1,4 +1,5 @@
-// LayerNorm + per-row int8 quantization + int8 QKV projection (K10).
+// LayerNorm + per-row int8 quantization + int8 QKV projection (K10), on
+// TMA + wgmma.
 //
 // Replaces the TPU kernel neurovit_tpu/ops/int8_serving.py:154
 // (_qkv_kernel, launched at :209 by int8_ln_qkv):
@@ -7,96 +8,200 @@
 //   [q | k | v] = bf16(float(u8 . W8^T) * s_row * s_col)
 // W8 is the torch-layout int8 weight [3*inner, dim] (rows ordered (3,
 // heads, dim_head)) with per-output-channel scales s_col [3*inner], so q,
-// k and v each come out [M, inner] and view as [B, N, H, D].
+// k and v each come out [M, inner] and view as [B, N, H, D]. W8 is K-major
+// as it lies, so wgmma reads it with no transpose.
 //
-// What bounds it on the H100: 2*M*dim*3*inner int8 operations against
-// about 2*M*dim + 6*M*inner bytes of activations and 1.5 MB of weights --
-// compute-bound, on the int8 tensor cores. The TPU kernel holds W8 in VMEM;
-// here it streams from L2 in 128 x 64 tiles through nvt::TileGemmI8's
-// two-stage ring, shared by all row blocks. The bf16 kernel K2 cannot be
-// reused as it is: it stages u as bf16 (fused_qkv.cu), and the per-row
-// scale needs the amax of the f32 u before any code is written. With one
-// warp per row and dim <= 1024 the f32 row fits in a lane's registers
-// (32 floats), so LN, amax, scale and the int8 codes are all made there
-// and only the codes (64 x dim bytes) reach shared memory.
-// Grid: (ceil(M/64), 3), blockIdx.y picks q, k or v, as K2's does; each
-// block loops over that output's 128-column tiles. Widths are multiples of
-// 16 (dim <= 1024): u's codes past dim are 0 up to the k tile, and the last
-// column tile is masked.
+// What bounds it on the H100: 6 M dim inner int8 operations (0.0127 ms at
+// 1,979 TOP/s for the flagship block at batch 8: M = 8008, dim 1024, inner
+// 512). This design also moves about 59 MB (x 16.4, the codes written and
+// read 16.4, q, k and v 24.6, W8 1.6): 0.018 ms at 3.35 TB/s.
+//
+// Why two launches. The TPU kernel holds a 512-row block and all of W8 in
+// VMEM, and quantizes each row before one [512, dim] x [dim, 3 inner] dot.
+// On the card the column tiles of a row block are different blocks, and
+// every one of them needs the row's scale, the amax of the whole f32 u row,
+// before its first code. So the row quantization is a pass of its own:
+//   1. ln_rowquant (int8_rowquant.cu, K12's pass 1 too): x -> u8 [M, dim],
+//      s_row [M]; one warp a row, any dim.
+//   2. qkv_gemm: hopper_gemm.cuh Mainloop<true, 128, BN, 3> over (3
+//      ceil(inner / BN), ceil(M / 128)) tiles, A = u8, Bt = W8. Column tile
+//      j serves output which = j / ceil(inner / BN) at its columns c0 = (j
+//      mod ceil(inner / BN)) BN, from W8's rows which inner + c0 on, so a
+//      tile never straddles q, k and v and each block writes one tensor.
+//      The epilogue dequantizes each accumulator pair and stores it as a
+//      bf16 pair from registers, masking the rows past M and the columns
+//      past inner (where inner is not a multiple of BN, the last tile of a
+//      section reads rows of the next; TMA zero-fills past 3 inner).
+// BN is 128, or 64 where 128-wide tiles would give the card fewer blocks
+// than its 132 SMs (batch 1 of the flagship). Three stages (97 KiB of ring
+// at BN = 128) let two GEMM blocks share an SM, so one block's epilogue
+// runs under the other's mainloop. Widths are multiples of 16 (TMA's
+// 16-byte rows), of any size: no row is held whole in registers or shared
+// memory.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; profiler device times from
+// scripts/torch_int8_qkv_device_times.py, three runs): at batch 8 the two
+// passes take 0.0588-0.0607 ms, ln_rowquant 20.4-20.6 us (22.0-22.1 before
+// its sweeps were unrolled) and qkv_gemm 37.7-38.7, where K17 int8's GEMM
+// kernel alone takes 39.9-40.1 us at the same [8016, 1024] x [1024, 1536]
+// and torch._int_mm 211-213; at batch 32 0.1906-0.1909 ms. The single wmma
+// kernel this replaces took 0.2395-0.2410 ms (0.7335-0.7347 at batch 32). Staging the output tile in the ring and
+// storing it by TMA, as K4's fc1 does, took qkv_gemm 39.4 us at batch 8
+// and 155.4 at batch 32 against 37.7 and 131.0 in the same run: the
+// register stores of one block run under the other block's mainloop.
+//
+// Rounding points are the JAX kernel's and the plain version's: LN's mean
+// and mean of squared deviations in f32, rsqrt(var + eps), xhat * gamma +
+// beta; scale = amax / 127 (1 where amax is 0); code = rint(u / scale)
+// clamped to +-127, an IEEE division; dequant (float(acc) * s_row) * s_col,
+// each product rounded (no contraction), then bf16.
+#include "hopper_gemm.cuh"
 #include "int8.cuh"
 
 namespace nvt {
 namespace {
 
-constexpr int kBM = 64, kBN = 128, kBK = 64;
-using Gemm = TileGemmI8<kBM, kBN, kBK, 2, 4>;
+constexpr int kBM = 128;                 // the GEMM's output tile rows
+constexpr int kStages = 3;
+constexpr int kSms = 132;                // the H100 SXM's
+template <int BN>
+using Loop = hopper::Mainloop<true, kBM, BN, kStages>;
 
-__global__ void __launch_bounds__(Gemm::kThreads)
-    int8_qkv_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
-                    const float* __restrict__ beta,
-                    const int8_t* __restrict__ w8,
+// The GEMM's output tile columns: 128, or 64 where 128-wide tiles over
+// the [M, 3 inner] output would give the card fewer blocks than SMs (the
+// rule of K4's passes, fused_mlp.cuh tile_n).
+int tile_n(int M, int inner) {
+  return ((3 * inner + 127) / 128) * ((M + kBM - 1) / kBM) < kSms ? 64 : 128;
+}
+
+size_t smem_bytes(int M, int inner) {
+  return tile_n(M, inner) == 64 ? Loop<64>::kSmemBytes
+                                : Loop<128>::kSmemBytes;
+}
+
+// Scratch of one call, one allocation: u8 [M, dim] then s_row [M] f32,
+// each on a 256-byte boundary.
+struct Scratch {
+  size_t u8, s_row, bytes;
+  Scratch(int M, int dim) {
+    const size_t m = static_cast<size_t>(M);
+    u8 = 0;
+    s_row = round_up(m * dim, 256);
+    bytes = round_up(s_row + m * sizeof(float), 256);
+  }
+};
+
+// Pass 2: [q | k | v] = bf16(dequant(u8 . W8^T)). The thread's
+// accumulator pairs lie as wgmma's m64nN layout puts them (hopper_gemm.cuh,
+// Wgmma): rows r0 and r0 + 8, columns 8 j + 2 (t % 4) and + 1.
+template <int BN>
+__global__ void __launch_bounds__(Loop<BN>::kThreads)
+    qkv_gemm_kernel(const __grid_constant__ CUtensorMap tu8,
+                    const __grid_constant__ CUtensorMap tw8,
+                    const float* __restrict__ s_row,
                     const float* __restrict__ s_col, bf16* __restrict__ q,
-                    bf16* __restrict__ k, bf16* __restrict__ v, int M, int dim,
-                    int inner, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int dim_k = static_cast<int>(round_up(dim, kBK));
-  const size_t a_bytes = round_up(static_cast<size_t>(kBM) * dim_k, 128);
-  int8_t* A8 = reinterpret_cast<int8_t*>(smem);
-  float* s_row = reinterpret_cast<float*>(smem + a_bytes);
-  void* scratch = smem + a_bytes + round_up(kBM * sizeof(float), 128);
-
-  const int row0 = blockIdx.x * kBM;
-  rowquant_rows<kBM, Gemm::kThreads, true>(x, gamma, beta, A8, s_row, row0,
-                                           M, dim, dim_k, eps);
-  const int which = blockIdx.y;
+                    bf16* __restrict__ k, bf16* __restrict__ v, int M,
+                    int dim, int inner) {
+  extern __shared__ unsigned char smem[];
+  const int tiles = (inner + BN - 1) / BN;   // column tiles of a section
+  const int which = blockIdx.x / tiles;
+  const int c0 = (blockIdx.x % tiles) * BN;
+  const int n0 = which * inner + c0;         // W8's first row
+  const int m0 = blockIdx.y * kBM;
+  int acc[Loop<BN>::kAccRegs];
+  if (!Loop<BN>::run(&tu8, &tw8, m0, n0, dim, smem, acc)) return;
   bf16* out = which == 0 ? q : (which == 1 ? k : v);
-  const int* C = reinterpret_cast<const int*>(scratch);
-  for (int c0 = 0; c0 < inner; c0 += kBN) {
-    const int n0 = which * inner + c0;
-    Gemm::run(A8, w8, dim, n0, dim, scratch, (which + 1) * inner);
-    for (int e = threadIdx.x; e < kBM * kBN / 8; e += Gemm::kThreads) {
-      const int r = e / (kBN / 8), c = (e % (kBN / 8)) * 8;
-      const int row = row0 + r;
-      if (row >= M || c0 + c >= inner) continue;
-      float f[8];
+  const int t = threadIdx.x % 128;
+  const int r0 = (threadIdx.x / 128) * 64 + (t / 32) * 16 + (t % 32) / 4;
+  const int cq = 2 * (t % 4);
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        f[i] = dequant(C[r * Gemm::LDC + c + i], s_row[r], s_col[n0 + c + i]);
-      *reinterpret_cast<uint4*>(out + static_cast<size_t>(row) * inner + c0 +
-                                c) = pack8(f);
+  for (int half = 0; half < 2; ++half) {
+    const int row = m0 + r0 + 8 * half;
+    if (row >= M) continue;
+    const float s = s_row[row];
+    bf16* orow = out + static_cast<size_t>(row) * inner;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = c0 + 8 * j + cq;
+      if (col >= inner) continue;   // inner is even: col + 1 < inner too
+      const float2 sc =
+          *reinterpret_cast<const float2*>(s_col + which * inner + col);
+      *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
+          dequant(acc[4 * j + 2 * half], s, sc.x),
+          dequant(acc[4 * j + 2 * half + 1], s, sc.y));
     }
   }
 }
 
-size_t smem_bytes(int dim) {
-  return round_up(static_cast<size_t>(kBM) * round_up(dim, kBK), 128) +
-         round_up(kBM * sizeof(float), 128) + Gemm::kScratchBytes;
+template <int BN>
+void launch_gemm(const CUtensorMap& tu8, const CUtensorMap& tw8,
+                 const float* s_row, const float* s_col, bf16* q, bf16* k,
+                 bf16* v, int M, int dim, int inner, cudaStream_t stream) {
+  const dim3 grid(3 * ((inner + BN - 1) / BN), (M + kBM - 1) / kBM);
+  qkv_gemm_kernel<BN><<<grid, Loop<BN>::kThreads, Loop<BN>::kSmemBytes,
+                        stream>>>(tu8, tw8, s_row, s_col, q, k, v, M, dim,
+                                  inner);
+}
+
+cudaError_t launch_all(const bf16* x, const float* gamma, const float* beta,
+                       const int8_t* w8, const float* s_col, bf16* q,
+                       bf16* k, bf16* v, unsigned char* scratch, int M,
+                       int dim, int inner, float eps, cudaStream_t stream) {
+  const Scratch at(M, dim);
+  int8_t* u8 = reinterpret_cast<int8_t*>(scratch + at.u8);
+  float* s_row = reinterpret_cast<float*>(scratch + at.s_row);
+  const int bn = tile_n(M, inner);
+  // Every map is encoded, and both instances allowed their shared memory,
+  // before the first launch: a failure leaves nothing half done.
+  CUtensorMap tu8, tw8;
+  cudaError_t err = hopper::encode_kmajor(&tu8, u8, M, dim, true, kBM);
+  if (err == cudaSuccess)
+    err = hopper::encode_kmajor(&tw8, w8, 3 * inner, dim, true, bn);
+  if (err == cudaSuccess)
+    err = allow_smem(qkv_gemm_kernel<64>, Loop<64>::kSmemBytes);
+  if (err == cudaSuccess)
+    err = allow_smem(qkv_gemm_kernel<128>, Loop<128>::kSmemBytes);
+  if (err != cudaSuccess) return err;
+
+  err = launch_ln_rowquant(x, gamma, beta, u8, s_row, M, dim, eps, stream);
+  if (err != cudaSuccess) return err;
+  (bn == 64 ? launch_gemm<64> : launch_gemm<128>)(
+      tu8, tw8, s_row, s_col, q, k, v, M, dim, inner, stream);
+  return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace nvt
 
 // x [M, dim] bf16; gamma, beta [dim] f32; w8 [3*inner, dim] int8; s_col
-// [3*inner] f32; q, k, v [M, inner] bf16. dim % 16 == 0, dim <= 1024,
-// inner % 16 == 0.
+// [3*inner] f32; q, k, v [M, inner] bf16; scratch
+// nvt_int8_qkv_scratch_bytes(M, dim, inner) bytes, 256-byte aligned. dim
+// and inner are multiples of 16 (TMA's 16-byte rows), of any size.
 extern "C" int nvt_int8_ln_qkv(const void* x, const void* gamma,
                                const void* beta, const void* w8,
                                const void* s_col, void* q, void* k, void* v,
-                               int M, int dim, int inner, float eps,
-                               void* stream) {
+                               void* scratch, int M, int dim, int inner,
+                               float eps, void* stream) {
   using namespace nvt;
-  if (M < 1 || dim < 16 || dim % 16 != 0 || dim > 1024 || inner < 16 ||
-      inner % 16 != 0)
+  if (M < 1 || dim < 16 || dim % 16 != 0 || inner < 16 || inner % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(dim);
-  cudaError_t err = allow_smem(int8_qkv_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((M + kBM - 1) / kBM, 3);
-  int8_qkv_kernel<<<grid, Gemm::kThreads, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
+  return static_cast<int>(launch_all(
       static_cast<const bf16*>(x), static_cast<const float*>(gamma),
       static_cast<const float*>(beta), static_cast<const int8_t*>(w8),
       static_cast<const float*>(s_col), static_cast<bf16*>(q),
-      static_cast<bf16*>(k), static_cast<bf16*>(v), M, dim, inner, eps);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<bf16*>(k), static_cast<bf16*>(v),
+      static_cast<unsigned char*>(scratch), M, dim, inner, eps,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// Bytes of the scratch one call takes (ops/int8_serving.py, qkv_plan).
+extern "C" long long nvt_int8_qkv_scratch_bytes(int M, int dim, int inner) {
+  (void)inner;
+  return static_cast<long long>(nvt::Scratch(M, dim).bytes);
+}
+
+// Dynamic shared memory of a block of the GEMM pass for M rows at inner,
+// which follows its tile's width.
+extern "C" long long nvt_int8_qkv_smem_bytes(int M, int inner) {
+  return static_cast<long long>(nvt::smem_bytes(M, inner));
 }

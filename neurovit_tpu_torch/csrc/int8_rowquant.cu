@@ -1,0 +1,112 @@
+// The LayerNorm row-quantize pass that K10 (int8_qkv.cu) and K12
+// (int8_mlp.cu) launch first:
+//   u = LN(x) * gamma + beta                 f32, not rounded
+//   (u8, s_row) = rowquant(u)                per-row symmetric int8
+// with the JAX kernels' order of operations (int8_serving.py:122-127,
+// 158-159): mean, mean of squared deviations, rsqrt(var + eps), xhat *
+// gamma + beta, each rounded; scale = amax / 127 (1 where amax is 0),
+// code = rint(u / scale) clamped to +-127, an IEEE division.
+//
+// What bounds it on the H100: bytes, 3 per element of x (bf16 in, int8
+// out); 16.4 MB at the flagship block at batch 8 (M = 8008, dim 1024),
+// 0.005 ms at 3.35 TB/s. One warp a row; the row is read again from L1 or
+// L2 for each statistic and for the codes, so no row is held whole in
+// registers and any dim is taken. Measured (NVIDIA H100 80GB HBM3, 700.00
+// W; scripts/torch_int8_qkv_device_times.py and
+// scripts/torch_int8_mlp_device_times.py, one run): 20.6 us at that shape
+// inside K10, 18.2 inside K12, 57.1 at batch 32, 25.9 at dim 1280; with
+// the sweeps rolled as the compiler chose, 22.0, 18.6, 59.6 and 27.9.
+#include "int8.cuh"
+
+namespace nvt {
+namespace {
+
+// Lane l takes columns 128 i + 4 l .. + 3 of each step i, so each load of
+// x (8 bytes), gamma and beta (16 bytes) is one contiguous run across the
+// warp. Each sweep is unrolled by 8 (dim 1024 in one step), so a lane's
+// loads of the row are in flight together.
+__global__ void __launch_bounds__(kLnRowWarps * 32)
+    ln_rowquant_kernel(const bf16* __restrict__ x,
+                       const float* __restrict__ gamma,
+                       const float* __restrict__ beta, int8_t* __restrict__ u8,
+                       float* __restrict__ s_row, int M, int dim, float eps) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kLnRowWarps + threadIdx.x / 32;
+  if (row >= M) return;
+  const bf16* xr = x + static_cast<size_t>(row) * dim;
+  auto load = [&](int c, float (&v)[4]) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(xr + c);
+    const float2 lo = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 hi = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    v[0] = lo.x, v[1] = lo.y, v[2] = hi.x, v[3] = hi.y;
+  };
+  float s = 0.f;
+#pragma unroll 8
+  for (int c = lane * 4; c < dim; c += 128) {
+    float v[4];
+    load(c, v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s += v[i];
+  }
+  const float mean = warp_sum(s) / dim;
+  float ss = 0.f;
+#pragma unroll 8
+  for (int c = lane * 4; c < dim; c += 128) {
+    float v[4];
+    load(c, v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float d = v[i] - mean;
+      ss += d * d;
+    }
+  }
+  const float rstd = rsqrtf(warp_sum(ss) / dim + eps);
+  // u = LN(x) * gamma + beta at columns c .. c + 3.
+  auto u_at = [&](int c, float (&u)[4]) {
+    float v[4];
+    load(c, v);
+    const float4 gm = *reinterpret_cast<const float4*>(gamma + c);
+    const float4 bt = *reinterpret_cast<const float4*>(beta + c);
+    const float g4[4] = {gm.x, gm.y, gm.z, gm.w};
+    const float b4[4] = {bt.x, bt.y, bt.z, bt.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      u[i] = __fadd_rn(__fmul_rn(__fmul_rn(v[i] - mean, rstd), g4[i]),
+                       b4[i]);
+  };
+  float amax = 0.f;
+#pragma unroll 8
+  for (int c = lane * 4; c < dim; c += 128) {
+    float u[4];
+    u_at(c, u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) amax = fmaxf(amax, fabsf(u[i]));
+  }
+  const float scale = quant_scale(warp_max(amax));
+  int8_t* out = u8 + static_cast<size_t>(row) * dim;
+#pragma unroll 8
+  for (int c = lane * 4; c < dim; c += 128) {
+    float u[4];
+    u_at(c, u);
+    int codes[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) codes[i] = quant_code(u[i], scale, -127.f);
+    *reinterpret_cast<uint32_t*>(out + c) = pack4(codes);
+  }
+  if (lane == 0) s_row[row] = scale;
+}
+
+}  // namespace
+
+cudaError_t launch_ln_rowquant(const bf16* x, const float* gamma,
+                               const float* beta, int8_t* u8, float* s_row,
+                               int M, int dim, float eps,
+                               cudaStream_t stream) {
+  ln_rowquant_kernel<<<(M + kLnRowWarps - 1) / kLnRowWarps, kLnRowWarps * 32,
+                       0, stream>>>(x, gamma, beta, u8, s_row, M, dim, eps);
+  return cudaGetLastError();
+}
+
+}  // namespace nvt

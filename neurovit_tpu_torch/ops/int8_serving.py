@@ -29,9 +29,11 @@ SERVING-ONLY, as in JAX: there is no backward and no dropout. CPU tensors
 run the plain versions; CUDA tensors run ``csrc/int8_qkv.cu``,
 ``csrc/int8_outproj.cu``, ``csrc/int8_mlp.cu`` and
 ``csrc/int8_attention.cu``. The kernels take widths that are multiples of
-16; a row that K10 or K11 quantizes (K10's dim, K11's inner) is at most
-1024 wide, held in one warp's registers; K12 takes any such width (four
-launches on the TMA + ``wgmma`` mainloop, :func:`mlp_plan`); K13 takes K1's
+16; a row that K11 quantizes (its inner) is at most 1024 wide, held in one
+warp's registers; K10 takes any such width (two launches: the LN row
+quantizer it shares with K12, then its GEMM on the TMA + ``wgmma``
+mainloop, :func:`qkv_plan`), and so does K12 (four launches on that
+mainloop, :func:`mlp_plan`); K13 takes K1's
 head dims (8 to 128, zero-padded to 64 or 128) in three launches on TMA +
 ``wgmma``: V's quantization prologue in two passes, then the two-sweep
 attention with the P V product as an s8 ``wgmma`` from registers
@@ -58,7 +60,8 @@ from neurovit_tpu_torch.ops.flash_attention import (FWD_ALIGN_SLACK, LOG2E,
                                                     flash_attention,
                                                     fwd_head_dim,
                                                     pad_head_dim)
-from neurovit_tpu_torch.ops.int8_gemm import ALIGN_SLACK, BOX_BYTES
+from neurovit_tpu_torch.ops.fused_mlp import (GEMM_THREADS, gemm_smem_bytes,
+                                              gemm_tile_n)
 
 # Above this sequence length, or below head dim 8, int8_flash_attention
 # takes the bf16 attention (int8_serving.py:343-347: MAX_RESIDENT_N).
@@ -190,14 +193,14 @@ def _vectors(**named) -> dict:
     return out
 
 
-# The row quantizers hold a row in one warp's registers.
+# K11's row quantizer holds a row in one warp's registers.
 MAX_ROW = 1024
 
 
 def check_qkv_shapes(dim: int, inner: int) -> None:
-    """Raise unless K10 takes x [*, dim] and heads * dim_head = inner."""
-    check_widths("int8 LN+QKV", max_width=MAX_ROW, dim=dim)
-    check_widths("int8 LN+QKV", inner=inner)
+    """Raise unless K10 takes x [*, dim] and heads * dim_head = inner:
+    multiples of 16, the 16-byte rows of its TMA operands, of any size."""
+    check_widths("int8 LN+QKV", dim=dim, inner=inner)
 
 
 def check_outproj_shapes(dim: int, inner: int) -> None:
@@ -213,11 +216,11 @@ def check_mlp_shapes(dim: int, hid: int) -> None:
     check_widths("int8 MLP", dim=dim, mlp_dim=hid)
 
 
-# K12's passes (csrc/int8_mlp.cu): rows (one warp each) a block of the two
-# row passes, the GEMM passes' square output tile and ring stages (three,
-# so two GEMM blocks share an SM), and the alignment of each piece of the
-# scratch.
-ROW_WARPS, MLP_TILE, MLP_STAGES, SCRATCH_ALIGN = 8, 128, 3, 256
+# K10's and K12's passes (csrc/int8_qkv.cu, csrc/int8_mlp.cu): rows (one
+# warp each) a block of the row passes, the GEMM passes' output tile rows
+# (and K12's columns; their ring of three stages is K4's, so two GEMM
+# blocks share an SM), and the alignment of each piece of the scratch.
+ROW_WARPS, MLP_TILE, SCRATCH_ALIGN = 8, 128, 256
 
 
 class MlpPlan(NamedTuple):
@@ -244,14 +247,12 @@ def mlp_plan(m: int, dim: int, hid: int) -> MlpPlan:
                          f"{m}")
     m_tiles, hid_tiles = -(-m // MLP_TILE), -(-hid // MLP_TILE)
     rows = -(-m // ROW_WARPS)
-    gemm_threads = 2 * 128 + 32          # two consumer warpgroups + producer
-    gemm_smem = (ALIGN_SLACK + MLP_STAGES * 2 * MLP_TILE * BOX_BYTES
-                 + 2 * MLP_STAGES * 8)
+    gemm_smem = gemm_smem_bytes(MLP_TILE)
     launches = (
         ("ln_rowquant", (rows, 1), ROW_WARPS * 32, 0),
-        ("fc1_gelu", (hid_tiles, m_tiles), gemm_threads, gemm_smem),
+        ("fc1_gelu", (hid_tiles, m_tiles), GEMM_THREADS, gemm_smem),
         ("g_rowquant", (rows, 1), ROW_WARPS * 32, 0),
-        ("fc2_residual", (-(-dim // MLP_TILE), m_tiles), gemm_threads,
+        ("fc2_residual", (-(-dim // MLP_TILE), m_tiles), GEMM_THREADS,
          gemm_smem))
     scratch, at = {}, 0
     for name, nbytes in (("g", m * hid * 4), ("u8", m * dim),
@@ -262,22 +263,68 @@ def mlp_plan(m: int, dim: int, hid: int) -> MlpPlan:
     return MlpPlan(launches=launches, scratch=scratch, scratch_bytes=at)
 
 
+class QkvPlan(NamedTuple):
+    """How one K10 call covers x [m, dim] with heads * dim_head = inner.
+    ``launches``: the two kernels in launch order, each (name, grid,
+    threads, dynamic shared memory bytes), a grid (x, y): the LN row
+    quantizer, then the GEMM over (3 column tiles of inner each rounded
+    up, row tiles of 128). ``tile_n``: the GEMM's output tile columns.
+    ``scratch``: the pieces of the one scratch allocation, name -> (byte
+    offset, bytes), in ``scratch_bytes`` bytes: u8 [m, dim] int8, then
+    s_row [m] f32."""
+    launches: tuple
+    tile_n: int
+    scratch: dict
+    scratch_bytes: int
+
+
+def qkv_plan(m: int, dim: int, inner: int) -> QkvPlan:
+    """K10's plan for m rows (the kernel's own counts are
+    ``nvt_int8_qkv_scratch_bytes`` and ``nvt_int8_qkv_smem_bytes``; the
+    card test holds them equal). The GEMM's tiles are 128 x 128, or 128 x
+    64 where 128-wide tiles over the [m, 3 inner] output would give the
+    card fewer blocks than SMs, the rule of K4's passes
+    (:func:`~neurovit_tpu_torch.ops.fused_mlp.gemm_tile_n`). Raises where
+    the kernel does not take the widths."""
+    check_qkv_shapes(dim, inner)
+    if m < 1:
+        raise ValueError(f"the int8 LN+QKV kernel takes at least one row, "
+                         f"got {m}")
+    tile_n = gemm_tile_n(m, 3 * inner)
+    launches = (
+        ("ln_rowquant", (-(-m // ROW_WARPS), 1), ROW_WARPS * 32, 0),
+        ("qkv_gemm", (3 * -(-inner // tile_n), -(-m // MLP_TILE)),
+         GEMM_THREADS, gemm_smem_bytes(tile_n)))
+    scratch, at = {}, 0
+    for name, nbytes in (("u8", m * dim), ("s_row", m * 4)):
+        scratch[name] = (at, nbytes)
+        at = round_up(at + nbytes, SCRATCH_ALIGN)
+    return QkvPlan(launches=launches, tile_n=tile_n, scratch=scratch,
+                   scratch_bytes=at)
+
+
 def int8_ln_qkv_cuda(x: torch.Tensor, gamma: torch.Tensor,
                      beta: torch.Tensor, w8: torch.Tensor,
                      scale: torch.Tensor, heads: int, dim_head: int) -> QKV:
-    """Launch the Hopper kernel K10 on bf16 x [B, N, dim]."""
+    """Launch the Hopper kernel K10 on bf16 x [B, N, dim]: its two passes
+    (csrc/int8_qkv.cu) on the current stream, one call. They share one
+    scratch allocation holding u8 and the row scales (:func:`qkv_plan`);
+    the C entry point encodes the two tensor maps and raises through
+    ``launch`` on any failure."""
     b, n, dim = x.shape
     inner = heads * dim_head
     check_operand("x", x, torch.bfloat16)
     check_operand("w8", w8, torch.int8, (3 * inner, dim))
     vecs = _vectors(gamma=(gamma, dim), beta=(beta, dim),
                     scale=(scale, 3 * inner))
-    check_qkv_shapes(dim, inner)
+    plan = qkv_plan(b * n, dim, inner)
     q, k, v = (x.new_empty(b, n, heads, dim_head) for _ in range(3))
-    launch("nvt_int8_ln_qkv", (VOID,) * 8 + (INT, INT, INT, FLOAT), x,
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
+                          device=x.device)
+    launch("nvt_int8_ln_qkv", (VOID,) * 9 + (INT, INT, INT, FLOAT), x,
            ptr(x), ptr(vecs["gamma"]), ptr(vecs["beta"]), ptr(w8),
-           ptr(vecs["scale"]), ptr(q), ptr(k), ptr(v), b * n, dim, inner,
-           nn.LN_EPS)
+           ptr(vecs["scale"]), ptr(q), ptr(k), ptr(v), ptr(scratch), b * n,
+           dim, inner, nn.LN_EPS)
     int8_ln_qkv_cuda.launches += 1
     return q, k, v
 

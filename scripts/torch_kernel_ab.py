@@ -17,7 +17,9 @@ are called through each library's own entry point (:func:`fused_mlp_call`,
 :func:`fused_mlp_bwd_call`): an older checkout's ``nvt_fused_mlp_fwd``
 takes the rows of a block (32 at the flagship) and no scratch, and its
 ``nvt_fused_mlp_bwd`` its scratch as four tensors; this one's take one
-scratch allocation each. K13 goes through this checkout's wrapper with
+scratch allocation each. K10 likewise (:func:`int8_qkv_call`): an older
+``nvt_int8_ln_qkv`` takes no scratch, this one's one allocation. K13 goes
+through this checkout's wrapper with
 either library: an older ``nvt_int8_attention`` (at head dim 64) takes
 the same bytes of v8 scratch and s_v at the head of the f32 stats.
 
@@ -80,6 +82,24 @@ def fused_mlp_call(args: tuple, dropout_rate: float = 0.0, seeds=(0, 0),
                   p(w2), p(b2), p(y), p(h), b * n, dim, hid, rows, nn.LN_EPS,
                   inv_keep, keep_q, int(seeds[0]), int(seeds[1]))
     return (y, h) if return_h else y
+
+
+def int8_qkv_call(args: tuple):
+    """K10 on ``args`` (x, gamma, beta, w8, scale, heads, dim_head) through
+    the library in use: this checkout's wrapper where the library counts a
+    scratch (``nvt_int8_qkv_scratch_bytes``), else the older entry point,
+    which takes no scratch."""
+    if hasattr(_build.library(), "nvt_int8_qkv_scratch_bytes"):
+        return int8_serving.int8_ln_qkv_cuda(*args)
+    x, gamma, beta, w8, scale, heads, dim_head = args
+    b, n, dim = x.shape
+    q, k, v = (x.new_empty(b, n, heads, dim_head) for _ in range(3))
+    p = common.ptr
+    common.launch("nvt_int8_ln_qkv", (common.VOID,) * 8 + (common.INT,) * 3
+                  + (common.FLOAT,), x, p(x), p(gamma), p(beta), p(w8),
+                  p(scale), p(q), p(k), p(v), b * n, dim, heads * dim_head,
+                  nn.LN_EPS)
+    return q, k, v
 
 
 def fused_mlp_bwd_call(args: tuple, dropout_rate: float = 0.0,
@@ -192,7 +212,7 @@ def cases() -> dict:
         "fused_mlp_bwd dropout 0": ("nvt_fused_mlp_bwd", lambda: (
             fused_mlp_bwd_call(bwd))),
         "int8_ln_qkv": ("nvt_int8_ln_qkv", lambda: (
-            q8.int8_ln_qkv_cuda(x, *ln, *qkv8, h, d))),
+            int8_qkv_call((x, *ln, *qkv8, h, d)))),
         "int8_outproj_residual": ("nvt_int8_outproj", lambda: (
             q8.int8_outproj_residual_cuda(x, attn, *out8, bout))),
         "int8_mlp_block": ("nvt_int8_mlp", lambda: (

@@ -461,18 +461,90 @@ def _int8_weight(rng, out_f, in_f, device):
     return int8_serving.quantize_weight(w)
 
 
-@pytest.mark.parametrize("m", [1, 65, 300])
-def test_int8_ln_qkv_kernel(cuda, m):
-    rng = np.random.default_rng(m + 4)
-    x = _rand(rng, (1, m, 512), cuda)
-    gamma = _rand(rng, (512,), cuda, torch.float32, 0.1, 1.0)
-    beta = _rand(rng, (512,), cuda, torch.float32, 0.1)
-    w8, s = _int8_weight(rng, 3 * 256, 512, cuda)
-    args = (x, gamma, beta, w8, s, 4, 64)
+def _int8_qkv_args(rng, m, dim, heads, dh, device, zero_rows=(),
+                   zero_beta=False):
+    """K10's operands for x [1, m, dim]; ``zero_rows`` of x are 0, and
+    with ``zero_beta`` beta is 0 too, so those rows quantize an all-zero u
+    (amax 0, scale 1, codes 0)."""
+    x = _rand(rng, (1, m, dim), device)
+    x[0, list(zero_rows)] = 0
+    gamma = _rand(rng, (dim,), device, torch.float32, 0.1, 1.0)
+    beta = _rand(rng, (dim,), device, torch.float32, 0.1)
+    if zero_beta:
+        beta.zero_()
+    w8, s = _int8_weight(rng, 3 * heads * dh, dim, device)
+    return (x, gamma, beta, w8, s, heads, dh)
+
+
+# K10 on TMA + wgmma: (m, dim, heads, dim_head). Ragged rows (1, 65, 300),
+# the flagship's rows at batch 8 (8008 = 62 tiles + 72) and its widths,
+# dims up to ViT-H's 1280 and 1536 (refused by the earlier kernel), inners
+# that are not a multiple of the 128- or 64-column tile (320, 384: the last
+# tile of q and k reads W8's rows of the next section), and grids on both
+# sides of the 64-column tile rule.
+INT8_QKV_CASES = [(1, 512, 4, 64), (65, 512, 4, 64), (300, 512, 4, 64),
+                  (8008, 1024, 8, 64), (300, 64, 4, 80), (65, 384, 6, 64),
+                  (130, 1280, 16, 80), (8008, 1280, 16, 80),
+                  (300, 1536, 8, 64), (1, 1536, 24, 64), (8008, 384, 4, 80),
+                  (2002, 1536, 6, 64)]
+
+
+@pytest.mark.parametrize("m,dim,heads,dh", INT8_QKV_CASES)
+def test_int8_ln_qkv_kernel(cuda, m, dim, heads, dh):
+    """K10 against plain, one launch-count a call, and two calls bit-equal
+    (every code and sum is in a fixed order)."""
+    args = _int8_qkv_args(np.random.default_rng(m + dim + heads * dh), m,
+                          dim, heads, dh, cuda)
     before = int8_serving.int8_ln_qkv_cuda.launches
-    _check(int8_serving.int8_ln_qkv(*args),
-           int8_serving.int8_ln_qkv_plain(*args))
-    assert int8_serving.int8_ln_qkv_cuda.launches == before + 1
+    got = int8_serving.int8_ln_qkv(*args)
+    _check(got, int8_serving.int8_ln_qkv_plain(*args))
+    again = int8_serving.int8_ln_qkv(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert int8_serving.int8_ln_qkv_cuda.launches == before + 2
+
+
+@pytest.mark.parametrize("zero_beta", [True, False])
+def test_int8_ln_qkv_kernel_zero_rows(cuda, zero_beta):
+    """All-zero rows of x, at a tile's first and last row and in the
+    ragged tile: with beta = 0, u of those rows is all zero (amax 0, scale
+    1, codes 0) and q = k = v = 0 there exactly; an all-zero x gives
+    all-zero q, k and v."""
+    rows = (0, 127, 128, 129)
+    args = _int8_qkv_args(np.random.default_rng(4), 130, 256, 4, 64, cuda,
+                          zero_rows=rows, zero_beta=zero_beta)
+    got = int8_serving.int8_ln_qkv_cuda(*args)
+    _check(got, int8_serving.int8_ln_qkv_plain(*args))
+    if zero_beta:
+        assert all(not t[0, list(rows)].float().abs().max() for t in got)
+        args[0].zero_()
+        got = int8_serving.int8_ln_qkv_cuda(*args)
+        torch.cuda.synchronize()
+        assert all(not t.float().abs().max() for t in got)
+
+
+def test_int8_qkv_plan_matches_the_kernel(cuda):
+    """The wrapper's K10 plan counts the scratch and the GEMM pass's shared
+    memory (which follows its tile width) as the kernel does, at every
+    width of the matrix and the card tests' widths, on both sides of the
+    64-column tile rule."""
+    import ctypes
+
+    from neurovit_tpu_torch.models.vit3d import WIDTHS
+    from neurovit_tpu_torch.ops import _build
+    lib = _build.library()
+    scratch, smem = lib.nvt_int8_qkv_scratch_bytes, lib.nvt_int8_qkv_smem_bytes
+    scratch.restype, scratch.argtypes = ctypes.c_longlong, [ctypes.c_int] * 3
+    smem.restype, smem.argtypes = ctypes.c_longlong, [ctypes.c_int] * 2
+    widths = [(w[0], w[1] * w[2]) for w in WIDTHS.values()] + [
+        (d, h * dh) for _, d, h, dh in INT8_QKV_CASES]
+    for dim, inner in widths:
+        for m in (1, 130, 1001, 2048, 8008, 32032):
+            plan = int8_serving.qkv_plan(m, dim, inner)
+            assert scratch(m, dim, inner) == plan.scratch_bytes, (m, dim,
+                                                                  inner)
+            assert [s for *_, s in plan.launches] == [
+                0, smem(m, inner)], (m, dim, inner)
 
 
 @pytest.mark.parametrize("m", [1, 65, 300])

@@ -128,6 +128,29 @@ def test_int8_ln_qkv_matches_jax(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_int8_ln_qkv_matches_jax_at_vit_h(dtype):
+    """At ViT-H's widths (dim 1280, 16 heads of 80), which K10 refused
+    while it held a row in one warp's registers (dim <= 1024), at a few
+    tokens."""
+    jdt, tdt, tol = DTYPES[dtype]
+    dim, heads, dim_head = 1280, 16, 80
+    rng = np.random.default_rng(1280)
+    xj, xn = _act(rng, (1, 5, dim), jdt)
+    gamma = (1.0 + 0.2 * rng.standard_normal(dim)).astype(np.float32)
+    beta = (0.1 * rng.standard_normal(dim)).astype(np.float32)
+    w, _ = _linear(rng, dim, 3 * heads * dim_head)
+    jw, (w8, s) = _both_quantized(w)
+    block = {"attn_norm": {"scale": jnp.asarray(gamma),
+                           "bias": jnp.asarray(beta)}, "qkv_q8": jw}
+    want = jq.int8_ln_qkv(block, xj, heads, dim_head)
+    got = q8.int8_ln_qkv(_t(xn, tdt), _t(gamma), _t(beta), w8, s, heads,
+                         dim_head)
+    for g, wj in zip(got, want):
+        assert g.shape == (1, 5, heads, dim_head) and g.dtype == tdt
+        assert _rel(g, wj) <= tol
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_int8_outproj_residual_matches_jax(dtype):
     jdt, tdt, tol = DTYPES[dtype]
     rng = np.random.default_rng(11)

@@ -258,7 +258,7 @@ def test_kernel_gates_accept_every_width(width):
     (fused_outproj.check_shapes, (1000, 512), "multiple of 16"),
     (fused_mlp.check_fwd_shapes, (1024, 2056), "multiple of 16"),
     (fused_mlp.check_bwd_shapes, (1536, 6152), "mlp_dim as a multiple of 16"),
-    (q8.check_qkv_shapes, (1280, 1280), "dim <= 1024"),
+    (q8.check_qkv_shapes, (1288, 1280), "dim as a multiple of 16"),
     (q8.check_outproj_shapes, (1024, 1536), "inner <= 1024"),
     (q8.check_mlp_shapes, (1024, 8200), "mlp_dim as a multiple of 16"),
     (fa.kernel_head_dim, (256,), "head dim <= 128"),
@@ -282,6 +282,17 @@ def test_mlp_gate_accepts_the_widths_once_refused(dim, hid):
                  fused_mlp.mlp_bwd_plan(8008, dim, hid)):
         assert plan.launches[1][1] == (hid // 128, 63)
         assert plan.launches[2][1] == (dim // 128, 63)
+
+
+@pytest.mark.parametrize("dim,inner", [(1280, 1280), (1536, 1536)])
+def test_int8_qkv_gate_accepts_the_widths_once_refused(dim, inner):
+    """K10 held a LayerNorm row in one warp's registers and refused dim >
+    1024 (ViT-H, 1280 / 1280; 1536 / 1536). Its LN row quantizer is a pass
+    of its own on TMA + wgmma, so it takes them, and so does its plan."""
+    q8.check_qkv_shapes(dim, inner)
+    plan = q8.qkv_plan(8008, dim, inner)
+    assert plan.launches[1][1] == (3 * inner // 128, 63)
+    assert plan.scratch["u8"] == (0, 8008 * dim)
 
 
 @pytest.mark.parametrize("value", [None, "", "none", "int8"])
