@@ -20,7 +20,9 @@ Phases, each printing a line; any failure raises and exits non-zero:
                K4 with h, also at 130 rows and at dim 1280 / mlp 5120 and
                dim 1024 / mlp 8192 at batch 2, and on all-zero rows, which
                give bf16(b2), and two calls bit-equal),
-               the backwards K5, K7, K8, K9 at dropout 0 and 0.1 (K9 also
+               the backwards K5, K7, K8, K9 at dropout 0 and 0.1 (K7 also
+               at 130 rows and on all-zero rows of dqkv, which give dx = 0
+               there, and two calls bit-equal; K9 also
                at 130 rows and at dim 1280 / mlp 5120 and dim 1536 / mlp
                6144 at batch 2, on all-zero rows of dy, which give dz =
                dh = dx = 0 there, and two calls bit-equal), K6 (the
@@ -47,17 +49,19 @@ Phases, each printing a line; any failure raises and exits non-zero:
                (scripts/torch_int8_attention_device_times.py), and of K4's three
                passes, serving and at dropout 0.1 with h, beside K17 bf16
                at its two GEMM shapes (scripts/torch_mlp_device_times.py),
-               and of K9's five passes at dropout 0.1 and 0 beside K17
+               of K9's five passes at dropout 0.1 and 0 beside K17
                bf16 at its two GEMM shapes
-               (scripts/torch_mlp_bwd_device_times.py)
+               (scripts/torch_mlp_bwd_device_times.py), and of K7's four
+               passes beside K17 bf16 at du's shape, the bound and the
+               design's bytes (scripts/torch_qkv_bwd_device_times.py)
 4. widths      every ViT width of the matrix (models/vit3d.py WIDTHS: the
                smoke model, head dims 32, 80 and 128, ViT-S/B/L and the
                flagship) at batch 2 x 1001 tokens through K1-K13 against the
-               plain versions, dropout 0.1 where an op has it; K4's, K9's
-               and K10's plans (scratch, shared memory) against the
+               plain versions, dropout 0.1 where an op has it; K4's, K9's,
+               K10's and K7's plans (scratch, shared memory) against the
                kernels'; K4 and K9 at ViT-H (dim 1280, mlp 5120) against
-               plain; K10 at ViT-H (dim 1280, 16 heads x 80) and at dim
-               1536 / inner 1536, batch 2 and 130 rows, against plain; K4
+               plain; K10 and K7 at ViT-H (dim 1280, 16 heads x 80) and at
+               dim 1536 / inner 1536, batch 2 and 130 rows, against plain; K4
                and K9 timed at batch 8 at the ViT-B, ViT-L, ViT-H and
                flagship widths
 5. probes      the probe scripts' main paths with their launch counts
@@ -487,12 +491,28 @@ def mlp_bwd_device_times(results: dict, args: tuple, card: str) -> None:
             "device not measured (no kernels traced)") + f"; {card}")
 
 
+def qkv_bwd_device_times(results: dict, args: tuple, card: str) -> None:
+    """K7's device time on the kernel phase's operands, pass by pass
+    (``scripts/torch_qkv_bwd_device_times.py``), into its result; beside
+    it, K17 bf16 at du's shape, the bound and the design's bytes floor."""
+    times = script("torch_qkv_bwd_device_times")
+    m = times.measure(args, 10)
+    results["fused_ln_qkv_bwd"]["device_ms"] = m["device_ms"]
+    log("kernels", times.line(f"fused_ln_qkv_bwd at B={B} N={N}", m, B * N)
+        + f"; {card}")
+    for shape, dev in times.yardstick(B * N, DIM, HEADS * DIM_HEAD,
+                                      10).items():
+        log("kernels", f"K17 bf16 {shape}: " + (", ".join(
+            f"{k} {us:.1f} us" for k, us in dev.items()) or
+            "device not measured (no kernels traced)") + f"; {card}")
+
+
 def build_notes(lib) -> None:
     """Log, from the build's compiler output, every ptxas note on a kernel
     (C7514 and C7512, wgmma serialised; C7508, setmaxnreg ignored) and
     every kernel that spills, with its name, and the registers of each
     instance of the attention backward, of K12's four passes, of K4's
-    three and of K9's five."""
+    three, of K9's five and of K7's four."""
     from neurovit_tpu_torch.ops import _build
     path = _build.build_log(lib)
     if not path.exists():
@@ -513,7 +533,8 @@ def build_notes(lib) -> None:
         if (stores or loads or "flash_bwd" in fn
                 or source in ("int8_qkv.cu", "int8_rowquant.cu",
                               "int8_mlp.cu", "fused_mlp.cu",
-                              "fused_mlp_bwd.cu", "int8_attention.cu")):
+                              "fused_mlp_bwd.cu", "fused_qkv_bwd.cu",
+                              "int8_attention.cu")):
             log("build", f"{source} {readable.get(fn, fn)}: {regs} "
                 f"registers, spill stores {stores} B, spill loads {loads} B")
     for source, fn, line in notes:
@@ -570,7 +591,8 @@ def kernel_phase(card: str) -> dict:
         _, h[rate] = fused_mlp.fused_mlp_block_plain(
             *mlp_args, dropout_rate=rate, seeds=(1235, 1236), return_h=True)
     do = t(B, N, HEADS, DIM_HEAD)
-    dqkv = [t(B, N, HEADS, DIM_HEAD, scale=0.1) for _ in range(3)]
+    # [dq | dk | dv], K7's one A operand.
+    dqkv = torch.cat([t(B, N, inner, scale=0.1) for _ in range(3)], dim=2)
     dy = t(B, N, DIM, scale=0.1)
 
     def attn_bwd(fn, rate):
@@ -651,6 +673,15 @@ def kernel_phase(card: str) -> dict:
     mlp8_more["zero rows, beta = b1 = 0"] = (
         x0, ln[0], torch.zeros_like(ln[1]), mlp8[0], mlp8[1],
         torch.zeros_like(b1), *mlp8[3:])
+    # K7 beyond the flagship: a ragged last row tile (130 rows), and
+    # all-zero rows of dqkv at a tile's first and last row (du is 0 there,
+    # so dx is).
+    dqkv0 = dqkv.clone()
+    dqkv0[0, [0, 127, 128, 1000]] = 0
+    qkv_bwd = {"": (dqkv, x, ln[0], wqkv),
+               "130 rows": (dqkv[:1, :130].contiguous(),
+                            x[:1, :130].contiguous(), ln[0], wqkv),
+               "zero rows of dqkv": (dqkv0, x, ln[0], wqkv)}
     # K10 beyond the flagship: a ragged last row tile (130 rows), and
     # all-zero rows of x with beta = 0 (u all zero: amax 0, scale 1) at a
     # tile's first and last row.
@@ -738,9 +769,9 @@ def kernel_phase(card: str) -> dict:
              attn_bhnd_bwd(fa.flash_attention_bhnd_bwd_plain, rate), True, ())
             for rate in (0.0, DROPOUT)],
         "fused_ln_qkv_bwd": [
-            ("", lambda: oq.fused_ln_qkv_bwd_cuda(*dqkv, x, ln[0], wqkv),
-             lambda: oq.fused_ln_qkv_bwd_plain(*dqkv, x, ln[0], wqkv), True,
-             (1, 2))],
+            (label, lambda a=a: oq.fused_ln_qkv_bwd_cuda(*a),
+             lambda a=a: oq.fused_ln_qkv_bwd_plain(*a), True, (1, 2))
+            for label, a in qkv_bwd.items()],
         "fused_outproj_bwd": [
             (f"dropout {rate}",
              outproj_bwd(fused_outproj.fused_outproj_bwd_cuda, rate),
@@ -802,7 +833,7 @@ def kernel_phase(card: str) -> dict:
                                 {"bf16": 2.5 * att}),
         "flash_attention_bhnd_bwd": (nbytes(*qkv_h, o_h[0.0], do_h,
                                             lsum[0.0]), {"bf16": 2.5 * att}),
-        "fused_ln_qkv_bwd": (nbytes(*dqkv, x, ln[0], wqkv),
+        "fused_ln_qkv_bwd": (nbytes(dqkv, x, ln[0], wqkv),
                              {"bf16": 2 * B * N * 3 * inner * DIM}),
         "fused_outproj_bwd": (nbytes(dy, wout),
                               {"bf16": 2 * B * N * DIM * inner}),
@@ -977,14 +1008,28 @@ def kernel_phase(card: str) -> dict:
     log("kernels", "fused_mlp_bwd: all-zero rows of dy give dz = dh = dx = "
         f"0; two calls at dropout {DROPOUT} bit-equal (dgamma and dbeta "
         "included) at the flagship, at 130 rows and at dim 1536 / mlp 6144")
+    dx0, _, _ = oq.fused_ln_qkv_bwd_cuda(*qkv_bwd["zero rows of dqkv"])
+    if dx0.reshape(B * N, -1)[[0, 127, 128, 1000]].float().abs().max():
+        raise AssertionError("fused_ln_qkv_bwd: dx is not 0 on an all-zero "
+                             "row of dqkv")
+    for label in ("", "130 rows"):
+        one, two = (oq.fused_ln_qkv_bwd_cuda(*qkv_bwd[label])
+                    for _ in range(2))
+        if not all(torch.equal(p, q) for p, q in zip(one, two)):
+            raise AssertionError(f"fused_ln_qkv_bwd {label or 'flagship'}: "
+                                 "two calls differ")
+    log("kernels", "fused_ln_qkv_bwd: all-zero rows of dqkv give dx = 0; "
+        "two calls bit-equal (dgamma and dbeta included) at the flagship "
+        "and at 130 rows")
     del mlp8_more, mlp_more, mlp_zero, x0, y0, one, two, bwd_more, got0, dy0
-    del qkv8_more
+    del qkv8_more, qkv_bwd, dqkv0, dx0
     attention_device_times(results, qkv, qkv_h, card)
     int8_qkv_device_times(results, (x, *ln, *qkv8, HEADS, DIM_HEAD), card)
     int8_mlp_device_times(results, (x, *ln, *mlp8), card)
     int8_attention_device_times(results, qkv, card)
     mlp_device_times(results, mlp_args, card)
     mlp_bwd_device_times(results, bwd_args, card)
+    qkv_bwd_device_times(results, (dqkv, x, ln[0], wqkv), card)
     return results
 
 
@@ -1009,19 +1054,21 @@ def _width_operands(rng, b: int, dim: int, heads: int, dh: int, hid: int
         w1=w(hid, dim), b1=t(hid, scale=0.03, dtype=torch.float32),
         w2=w(dim, hid), b2=t(dim, scale=0.02, dtype=torch.float32),
         qkv=[t(b, N, heads, dh) for _ in range(3)], do=t(b, N, heads, dh),
-        dqkv=[t(b, N, heads, dh, scale=0.1) for _ in range(3)],
+        dqkv=torch.cat([t(b, N, inner, scale=0.1) for _ in range(3)],
+                       dim=2),
         dy=t(b, N, dim, scale=0.1))
 
 
 def widths_phase(card: str) -> None:
     """Every ViT width of the matrix (models/vit3d.py WIDTHS) at batch 2 x
     1001 tokens through K1-K13 against the plain versions, with the kernel
-    phase's tolerances, dropout 0.1 where an op has it; K4's, K9's and
-    K10's plans (scratch and shared memory) against the kernels' own
+    phase's tolerances, dropout 0.1 where an op has it; K4's, K9's, K10's
+    and K7's plans (scratch and shared memory) against the kernels' own
     counts; K4 and K9 at ViT-H (dim 1280, 16 heads of 80, mlp 5120), which
-    the wmma K9 refused, against plain; K10 at ViT-H and at dim 1536 /
-    inner 1536, which the wmma K10 refused, against plain; then K4 and K9
-    timed at batch 8 at the ViT-B, ViT-L, ViT-H and flagship widths."""
+    the wmma K9 refused, against plain; K10 and K7 at ViT-H and at dim
+    1536 / inner 1536, which their wmma versions refused, against plain;
+    then K4 and K9 timed at batch 8 at the ViT-B, ViT-L, ViT-H and
+    flagship widths."""
     import ctypes
 
     from neurovit_tpu_torch.models.vit3d import WIDTHS
@@ -1036,9 +1083,11 @@ def widths_phase(card: str) -> None:
     bwd_smem = lib.nvt_fused_mlp_bwd_smem_bytes
     qkv_scratch = lib.nvt_int8_qkv_scratch_bytes
     qkv_smem = lib.nvt_int8_qkv_smem_bytes
-    for fn in (scratch, bwd_scratch, qkv_scratch):
+    k7_scratch = lib.nvt_fused_ln_qkv_bwd_scratch_bytes
+    k7_smem = lib.nvt_fused_ln_qkv_bwd_smem_bytes
+    for fn in (scratch, bwd_scratch, qkv_scratch, k7_scratch):
         fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 3
-    for fn in (smem, bwd_smem, qkv_smem):
+    for fn in (smem, bwd_smem, qkv_smem, k7_smem):
         fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 2
     rng = np.random.default_rng(SEED + 6)
     bf = torch.bfloat16
@@ -1060,6 +1109,13 @@ def widths_phase(card: str) -> None:
             raise AssertionError(f"{name}: K9's plan counts (scratch, the "
                                  f"hidden and du passes' shared memory) "
                                  f"{theirs} bytes, the kernel {counted}")
+        k7plan = fused_qkv.qkv_bwd_plan(2 * N, dim, heads * dh)
+        counted = (k7_scratch(2 * N, dim, heads * dh), k7_smem(2 * N, dim))
+        if counted != (k7plan.scratch_bytes, k7plan.launches[1][3]):
+            raise AssertionError(
+                f"{name}: K7's plan counts (scratch, the du pass's shared "
+                f"memory) {(k7plan.scratch_bytes, k7plan.launches[1][3])} "
+                f"bytes, the kernel {counted}")
         qplan = q8.qkv_plan(2 * N, dim, heads * dh)
         counted = (qkv_scratch(2 * N, dim, heads * dh),
                    qkv_smem(2 * N, heads * dh))
@@ -1106,7 +1162,7 @@ def widths_phase(card: str) -> None:
                          return_stats=True, **att)),
             ("K6 bwd", *both("flash_attention_bhnd_bwd", qh, kh, vh, oh, doh,
                              lsum, module=fa, **att), True, ()),
-            ("K7", *both("fused_ln_qkv_bwd", *p["dqkv"], x, ln[0], wqkv,
+            ("K7", *both("fused_ln_qkv_bwd", p["dqkv"], x, ln[0], wqkv,
                          module=fused_qkv), True, (1, 2)),
             ("K8", *both("fused_outproj_bwd", p["dy"], wout,
                          module=fused_outproj, **drop), True, ()),
@@ -1154,26 +1210,37 @@ def widths_phase(card: str) -> None:
         f"at dropout {DROPOUT} against plain at B=2 N={N}, K9 max abs err "
         f"{err:.3e}")
     del p, mlp, got, bwd
-    # K10 at the widths the wmma version refused (its LayerNorm rows sat in
-    # one warp's registers): ViT-H and dim 1536 / inner 1536, at batch 2
-    # and at 130 rows, against plain.
+    # K10 and K7 at the widths their wmma versions refused (their
+    # LayerNorm rows sat in one warp's registers): ViT-H and dim 1536 /
+    # inner 1536, at batch 2 and at 130 rows, against plain.
     for dim, heads, dh in ((1280, 16, 80), (1536, 24, 64)):
         p = _width_operands(rng, 2, dim, heads, dh, 16)
         qkv8 = q8.quantize_weight(p["wqkv"])
-        worst = []
-        for label, x in ((f"B=2 N={N}", p["x"]),
-                         ("130 rows", p["x"][:1, :130].contiguous())):
+        wqkv = p["wqkv"].to(bf)
+        worst = {"K10": [], "K7": []}
+        for label, rows in ((f"B=2 N={N}", (slice(None),)),
+                            ("130 rows", (slice(0, 1), slice(0, 130)))):
+            x = p["x"][rows].contiguous()
             err, _ = compare(f"widths dim {dim} inner {heads * dh} K10 "
                              f"{label}",
                              q8.int8_ln_qkv_cuda(x, *p["ln"], *qkv8, heads,
                                                  dh),
                              q8.int8_ln_qkv_plain(x, *p["ln"], *qkv8, heads,
                                                   dh))
-            worst.append(err)
-        log("widths", f"dim {dim}, {heads} heads x {dh}: K10 against plain "
-            f"at B=2 N={N} and at 130 rows, max abs err {max(worst):.3e} "
-            f"(GEMM grid {q8.qkv_plan(2 * N, dim, heads * dh).launches[1][1]})")
-        del p, qkv8
+            worst["K10"].append(err)
+            k7 = (p["dqkv"][rows].contiguous(), x, p["ln"][0], wqkv)
+            err, _ = compare(f"widths dim {dim} inner {heads * dh} K7 "
+                             f"{label}", fused_qkv.fused_ln_qkv_bwd_cuda(*k7),
+                             fused_qkv.fused_ln_qkv_bwd_plain(*k7), True,
+                             (1, 2))
+            worst["K7"].append(err)
+        grids = [plan_of(2 * N, dim, heads * dh).launches[1][1]
+                 for plan_of in (q8.qkv_plan, fused_qkv.qkv_bwd_plan)]
+        log("widths", f"dim {dim}, {heads} heads x {dh}: K10 and K7 against "
+            f"plain at B=2 N={N} and at 130 rows, max abs err "
+            f"{max(worst['K10']):.3e} and {max(worst['K7']):.3e} (GEMM "
+            f"grids {grids[0]} and {grids[1]})")
+        del p, qkv8, wqkv, k7
     # K4 and K9 at ViT-B, ViT-L and ViT-H (K4's widest tiles, K9's widest
     # rows) beside the flagship.
     for name, (dim, heads, dh, hid) in (

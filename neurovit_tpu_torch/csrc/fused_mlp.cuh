@@ -1,9 +1,11 @@
 // Pieces the bf16 residual MLP's forward (fused_mlp.cu, K4) and its
 // data-grad backward (fused_mlp_bwd.cu, K9) share on TMA + wgmma: the GEMM
 // passes' tile and ring (hopper_gemm.cuh Mainloop), the rule that picks a
-// pass's tile width, a LayerNorm row in one warp, a thread's place in the
-// accumulator tile, the quad's shared dropout bits in that layout, and the
-// swizzled staging of a bf16 output tile in the freed ring.
+// pass's tile width, a LayerNorm row and its statistics in one warp, a
+// thread's place in the accumulator tile, the quad's shared dropout bits in
+// that layout, and the swizzled staging of a bf16 output tile in the freed
+// ring. The LN + QKV backward (fused_qkv_bwd.cu, K7) shares the statistics
+// and, through ln_bwd.cuh, K9's last three passes.
 #pragma once
 
 #include "hopper_gemm.cuh"
@@ -34,16 +36,14 @@ inline size_t gemm_smem_bytes(int M, int N) {
   return tile_n(M, N) == 64 ? Loop<64>::kSmemBytes : Loop<128>::kSmemBytes;
 }
 
-// One warp's LayerNorm of the row xr: ur = bf16(LN(xr) * gamma + beta),
-// in layer_norm_rows's order of operations and of sums (common.cuh): lane
-// l takes columns 256 i + 8 l .. + 7, and the row is read again from L1 /
-// L2 for each statistic, so any dim that is a multiple of 8 is taken.
-// Returns (mean, rstd) to every lane.
-__device__ __forceinline__ float2 ln_row(const bf16* __restrict__ xr,
-                                         const float* __restrict__ gamma,
-                                         const float* __restrict__ beta,
-                                         bf16* __restrict__ ur, int dim,
-                                         float eps) {
+// One warp's LayerNorm statistics of the row xr, (mean, rstd) to every
+// lane, in layer_norm_rows's order of operations and of sums (common.cuh):
+// lane l takes columns 256 i + 8 l .. + 7, and the row is read again from
+// L1 / L2 for the second statistic, so any dim that is a multiple of 8 is
+// taken. K4's and K9's rows (ln_row) and K7's row_stats pass share it, so
+// K7's xhat has the forward's statistics bit for bit.
+__device__ __forceinline__ float2 ln_stats(const bf16* __restrict__ xr,
+                                           int dim, float eps) {
   const int lane = threadIdx.x % 32;
   float f[8];
   float s = 0.f;
@@ -62,7 +62,21 @@ __device__ __forceinline__ float2 ln_row(const bf16* __restrict__ xr,
       ss += d * d;
     }
   }
-  const float rstd = rsqrtf(warp_sum(ss) / dim + eps);
+  return make_float2(mean, rsqrtf(warp_sum(ss) / dim + eps));
+}
+
+// One warp's LayerNorm of the row xr: ur = bf16(LN(xr) * gamma + beta),
+// the statistics by ln_stats, then a third sweep over the row. Returns
+// (mean, rstd) to every lane.
+__device__ __forceinline__ float2 ln_row(const bf16* __restrict__ xr,
+                                         const float* __restrict__ gamma,
+                                         const float* __restrict__ beta,
+                                         bf16* __restrict__ ur, int dim,
+                                         float eps) {
+  const int lane = threadIdx.x % 32;
+  const float2 st = ln_stats(xr, dim, eps);
+  const float mean = st.x, rstd = st.y;
+  float f[8];
   for (int c = lane * 8; c < dim; c += 256) {
     unpack8(*reinterpret_cast<const uint4*>(xr + c), f);
     const float4 g0 = *reinterpret_cast<const float4*>(gamma + c);
@@ -78,7 +92,7 @@ __device__ __forceinline__ float2 ln_row(const bf16* __restrict__ xr,
     }
     *reinterpret_cast<uint4*>(ur + c) = pack8(f);
   }
-  return make_float2(mean, rstd);
+  return st;
 }
 
 // The keep bits of one row of a 128-column tile, shared within the quad.

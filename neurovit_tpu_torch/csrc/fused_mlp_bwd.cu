@@ -35,21 +35,12 @@
 //      fc1 draws it (QuadKeep at row * hid + j). The epilogue, from the
 //      accumulator registers: erf, GELU and GELU', a and dh rounded and
 //      staged in the ring, stored by TMA (K4's fc1 stores g and h so).
-//   3. du: the same mainloop over ceil(dim / BN) x ceil(M / 128) tiles,
-//      A = dh, B = W1 [hid, dim] as it lies. The epilogue stores du as f32
-//      pairs from registers (a quad writes 32 contiguous bytes) and, with
-//      x's pairs and the row statistics, takes the tile's share of the
-//      LayerNorm backward's sums: per row, sum(du gamma) and sum(du gamma
-//      xhat) over its columns (a quad's shuffles); per column, sum(du
-//      xhat) and sum(du) over its rows (each thread's two rows into the
-//      freed ring, then added over the 64 row groups in order).
-//   4. ln_bwd: one warp a row, its two sums from the du pass's column
-//      tiles in tile order, then one sweep over the row:
-//        xhat = (x - mean) * rstd,
-//        dx = bf16(rstd (du gamma - m1 - xhat m2) + dy).
-//   5. colsum: dgamma and dbeta from the du pass's row tiles, each warp a
-//      fixed share in order, the warps' sums in warp order: no atomics,
-//      two calls give the same bits.
+//   3-5. du, ln_bwd, colsum: ln_bwd.cuh's passes, which K7
+//      (fused_qkv_bwd.cu) launches too, with A = dh, B = W1 [hid, dim] as
+//      it lies and the residual dy: du = dh . W1 in f32 with the tile's
+//      share of the LayerNorm backward's sums in its epilogue, one warp a
+//      row for dx = bf16(rstd (du gamma - m1 - xhat m2) + dy), and dgamma
+//      / dbeta summed over the row tiles in a fixed order.
 // Three stages (97 KiB of ring at BN = 128) let two GEMM blocks share an
 // SM, so one block's epilogue runs under the other's mainloop; BN is 128,
 // or 64 where 128-wide tiles would give the card fewer blocks than its 132
@@ -61,39 +52,13 @@
 // GELU and GELU' use CUDA's erff and expf, not the TPU kernel's
 // Abramowitz-Stegun polynomial (fused_mlp.py:65-85); both are within
 // 1.5e-7 of erf, below bf16 resolution.
-#include "fused_mlp.cuh"
+#include "ln_bwd.cuh"
 
 namespace nvt {
 namespace {
 
-using namespace mlp;
-
-constexpr int kSumWarps = 8;             // warps a block of pass 5
 constexpr float kInvSqrt2 = 0.7071067811865476f;
 constexpr float kInvSqrt2Pi = 0.3989422804014327f;
-
-int row_tiles(int M) { return (M + kBM - 1) / kBM; }
-
-// Scratch of one call, one allocation, each piece on a 256-byte boundary:
-// du [M, dim] f32; the rows' (mean, rstd) [M] float2; the du pass's row
-// partials of sum(du gamma) then sum(du gamma xhat), [2, M, col_tiles]
-// f32 (col_tiles = its grid's x); its column partials of dgamma then
-// dbeta, [2, row_tiles(M), dim] f32.
-struct Scratch {
-  size_t du, stats, rowpart, colpart, bytes;
-  Scratch(int M, int dim) {
-    const size_t m = static_cast<size_t>(M);
-    const int bn = tile_n(M, dim);
-    du = 0;
-    stats = round_up(m * dim * sizeof(float), 256);
-    rowpart = round_up(stats + m * sizeof(float2), 256);
-    colpart = round_up(
-        rowpart + 2 * m * ((dim + bn - 1) / bn) * sizeof(float), 256);
-    bytes = round_up(colpart + 2 * static_cast<size_t>(row_tiles(M)) * dim *
-                                   sizeof(float),
-                     256);
-  }
-};
 
 // Pass 1: u and the row's statistics as K4's ln_rows, and dz = bf16(dy *
 // mask2 / keep), one warp a row.
@@ -215,174 +180,6 @@ __global__ void __launch_bounds__(kThreads, kGemmBlocksPerSm)
   store_staged<BN>(&ta, as, &tdh, dhs, n0, m0, hid);
 }
 
-// Pass 3: du = dh . W1, f32, stored from registers; from the same
-// registers, with x and the row statistics, the tile's share of the
-// LayerNorm backward's sums: per row, sum(du gamma) and sum(du gamma xhat)
-// over the tile's columns (rowpart, [2, M, gridDim.x]); per column,
-// sum(du xhat) and sum(du) over the tile's rows (colpart, [2,
-// gridDim.y, dim]), through the freed ring: thread t's two rows are row
-// group t / 4, whose column partials the threads add over the 64 groups
-// in order.
-template <int BN>
-__global__ void __launch_bounds__(kThreads, kGemmBlocksPerSm)
-    du_kernel(const __grid_constant__ CUtensorMap tdh,
-              const __grid_constant__ CUtensorMap tw1, float* __restrict__ du,
-              const bf16* __restrict__ x, const float* __restrict__ gamma,
-              const float2* __restrict__ stats, float* __restrict__ rowpart,
-              float* __restrict__ colpart, int M, int dim, int hid) {
-  extern __shared__ unsigned char smem[];
-  constexpr int kGroups = kConsumerThreads / 4, kLd = BN + 8;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * BN;
-  float acc[Loop<BN, true>::kAccRegs];
-  if (!Loop<BN, true>::run(&tdh, &tw1, m0, n0, hid, smem, acc)) return;
-  const Place at;
-  // [2][kGroups][kLd] f32 in the ring; the row stride's 8 extra floats put
-  // a half warp's float2 stores on 16 different bank pairs.
-  float* colbuf = reinterpret_cast<float*>(
-      round_up(reinterpret_cast<size_t>(smem), 1024));
-  const int group = threadIdx.x / 4;
-  int row[2];
-  float2 st[2];
-  float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    row[half] = m0 + at.r0 + 8 * half;
-    st[half] = row[half] < M ? stats[row[half]] : make_float2(0.f, 0.f);
-  }
-  hopper::named_barrier(1, kConsumerThreads);   // no wgmma reads it now
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int c = 8 * j + 2 * at.quad, col = n0 + c;
-    float2 pg = make_float2(0.f, 0.f), pb = make_float2(0.f, 0.f);
-    if (col < dim) {   // dim is even: col + 1 < dim too
-      const float2 gm = *reinterpret_cast<const float2*>(gamma + col);
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        if (row[half] >= M) continue;
-        const size_t off = static_cast<size_t>(row[half]) * dim + col;
-        const float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
-        *reinterpret_cast<float2*>(du + off) = make_float2(v0, v1);
-        const float2 xf = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(x + off));
-        const float xh0 = __fmul_rn(xf.x - st[half].x, st[half].y);
-        const float xh1 = __fmul_rn(xf.y - st[half].x, st[half].y);
-        const float d0 = v0 * gm.x, d1 = v1 * gm.y;
-        s1[half] += d0;
-        s1[half] += d1;
-        s2[half] += d0 * xh0;
-        s2[half] += d1 * xh1;
-        pg.x += v0 * xh0;
-        pg.y += v1 * xh1;
-        pb.x += v0;
-        pb.y += v1;
-      }
-    }
-    *reinterpret_cast<float2*>(colbuf + group * kLd + c) = pg;
-    *reinterpret_cast<float2*>(colbuf + (kGroups + group) * kLd + c) = pb;
-  }
-  // The row partials: the quad's four threads hold the row's columns.
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-#pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      s1[half] += __shfl_xor_sync(0xffffffffu, s1[half], o);
-      s2[half] += __shfl_xor_sync(0xffffffffu, s2[half], o);
-    }
-    if (at.quad == 0 && row[half] < M) {
-      const size_t at_row =
-          static_cast<size_t>(row[half]) * gridDim.x + blockIdx.x;
-      rowpart[at_row] = s1[half];
-      rowpart[static_cast<size_t>(M) * gridDim.x + at_row] = s2[half];
-    }
-  }
-  hopper::named_barrier(1, kConsumerThreads);
-  for (int i = threadIdx.x; i < 2 * BN; i += kConsumerThreads) {
-    const int which = i / BN, c = i % BN;
-    if (n0 + c >= dim) continue;
-    const float* p = colbuf + which * kGroups * kLd + c;
-    float sum = 0.f;
-    for (int g = 0; g < kGroups; ++g) sum += p[g * kLd];
-    colpart[(static_cast<size_t>(which) * gridDim.y + blockIdx.y) * dim +
-            n0 + c] = sum;
-  }
-}
-
-// Pass 4: the LayerNorm backward of a row (neurovit_tpu/ops/
-// fused_mlp.py:188-196), one warp a row, with the residual dy added:
-//   dx = bf16(rstd (du gamma - m1 - xhat m2) + dy),
-// m1 and m2 the row means of du gamma and du gamma xhat from the du
-// pass's col_tiles partials, added in tile order.
-__global__ void __launch_bounds__(kRowWarps * 32)
-    ln_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ du,
-                  const float* __restrict__ gamma,
-                  const float2* __restrict__ stats,
-                  const float* __restrict__ rowpart,
-                  const bf16* __restrict__ dy, bf16* __restrict__ dx, int M,
-                  int dim, int col_tiles) {
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kRowWarps + threadIdx.x / 32;
-  if (row >= M) return;
-  const float2 st = stats[row];
-  const float* p1 = rowpart + static_cast<size_t>(row) * col_tiles;
-  const float* p2 = p1 + static_cast<size_t>(M) * col_tiles;
-  float s1 = 0.f, s2 = 0.f;
-  for (int t = 0; t < col_tiles; ++t) {
-    s1 += p1[t];
-    s2 += p2[t];
-  }
-  const float m1 = s1 / dim, m2 = s2 / dim;
-  const size_t base = static_cast<size_t>(row) * dim;
-  for (int c = lane * 8; c < dim; c += 256) {
-    float xv[8], res[8], out[8];
-    unpack8(*reinterpret_cast<const uint4*>(x + base + c), xv);
-    unpack8(*reinterpret_cast<const uint4*>(dy + base + c), res);
-    const float4 d0 = *reinterpret_cast<const float4*>(du + base + c);
-    const float4 d1 = *reinterpret_cast<const float4*>(du + base + c + 4);
-    const float4 g0 = *reinterpret_cast<const float4*>(gamma + c);
-    const float4 g1 = *reinterpret_cast<const float4*>(gamma + c + 4);
-    const float dv[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
-    const float gm[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float xhat = __fmul_rn(xv[i] - st.x, st.y);
-      out[i] = st.y * (dv[i] * gm[i] - m1 - xhat * m2) + res[i];
-    }
-    *reinterpret_cast<uint4*>(dx + base + c) = pack8(out);
-  }
-}
-
-// Pass 5: dgamma and dbeta from the du pass's column partials, 32 columns
-// of the [2 dim] outputs a block: warp w adds row tiles w, w + 8, ... in
-// order, then the eight warps' sums are added in warp order.
-__global__ void __launch_bounds__(kSumWarps * 32)
-    colsum_kernel(const float* __restrict__ colpart,
-                  float* __restrict__ dgamma, float* __restrict__ dbeta,
-                  int row_tiles, int dim) {
-  __shared__ float red[kSumWarps][32];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int c = blockIdx.x * 32 + lane;   // 2 dim is a multiple of 32
-  const int which = c / dim, col = c % dim;
-  const float* p =
-      colpart + static_cast<size_t>(which) * row_tiles * dim + col;
-  float s = 0.f;
-  for (int t = warp; t < row_tiles; t += kSumWarps)
-    s += p[static_cast<size_t>(t) * dim];
-  red[warp][lane] = s;
-  __syncthreads();
-  if (warp != 0) return;
-  float sum = 0.f;
-  for (int w = 0; w < kSumWarps; ++w) sum += red[w][lane];
-  (which == 0 ? dgamma : dbeta)[col] = sum;
-}
-
-template <int BN>
-cudaError_t allow_gemm_smem() {
-  cudaError_t err = allow_smem(hidden_kernel<BN>, Loop<BN, true>::kSmemBytes);
-  return err == cudaSuccess
-             ? allow_smem(du_kernel<BN>, Loop<BN, true>::kSmemBytes)
-             : err;
-}
-
 template <int BN>
 void launch_hidden(const CUtensorMap& tdz, const CUtensorMap& tw2,
                    const CUtensorMap& th, const CUtensorMap& ta,
@@ -394,16 +191,6 @@ void launch_hidden(const CUtensorMap& tdz, const CUtensorMap& tw2,
       tdz, tw2, th, ta, tdh, dim, hid, inv_keep, keep_q, seed1);
 }
 
-template <int BN>
-void launch_du(const CUtensorMap& tdh, const CUtensorMap& tw1, float* du,
-               const bf16* x, const float* gamma, const float2* stats,
-               float* rowpart, float* colpart, int M, int dim, int hid,
-               cudaStream_t stream) {
-  du_kernel<BN><<<dim3((dim + BN - 1) / BN, row_tiles(M)), kThreads,
-                  Loop<BN, true>::kSmemBytes, stream>>>(
-      tdh, tw1, du, x, gamma, stats, rowpart, colpart, M, dim, hid);
-}
-
 cudaError_t launch_all(const bf16* dy, const bf16* x, const bf16* h,
                        const float* gamma, const float* beta, const bf16* w1,
                        const bf16* w2, bf16* dx, bf16* u, bf16* a, bf16* dz,
@@ -411,12 +198,8 @@ cudaError_t launch_all(const bf16* dy, const bf16* x, const bf16* h,
                        unsigned char* scratch, int M, int dim, int hid,
                        float eps, float inv_keep, uint32_t keep_q,
                        uint64_t seed1, uint64_t seed2, cudaStream_t stream) {
-  const Scratch at(M, dim);
-  float* du = reinterpret_cast<float*>(scratch + at.du);
-  float2* stats = reinterpret_cast<float2*>(scratch + at.stats);
-  float* rowpart = reinterpret_cast<float*>(scratch + at.rowpart);
-  float* colpart = reinterpret_cast<float*>(scratch + at.colpart);
-  const int bn1 = tile_n(M, hid), bn2 = tile_n(M, dim);
+  float2* stats =
+      reinterpret_cast<float2*>(scratch + Scratch(M, dim).stats);
   // Every map is encoded, and every instance allowed its shared memory,
   // before the first launch: a failure leaves nothing half done. dh's map
   // serves the hidden pass's store and the du pass's load (64-column boxes
@@ -431,27 +214,22 @@ cudaError_t launch_all(const bf16* dy, const bf16* x, const bf16* h,
   if (err == cudaSuccess)
     err = hopper::encode_kmajor(&tdh, dh, M, hid, false, kBM);
   if (err == cudaSuccess) err = hopper::encode_mnmajor(&tw1, w1, hid, dim);
-  if (err == cudaSuccess) err = allow_gemm_smem<64>();
-  if (err == cudaSuccess) err = allow_gemm_smem<128>();
+  if (err == cudaSuccess)
+    err = allow_smem(hidden_kernel<64>, Loop<64, true>::kSmemBytes);
+  if (err == cudaSuccess)
+    err = allow_smem(hidden_kernel<128>, Loop<128, true>::kSmemBytes);
+  if (err == cudaSuccess) err = allow_du_smem();
   if (err != cudaSuccess) return err;
 
-  const int row_blocks = (M + kRowWarps - 1) / kRowWarps;
-  dz_rows_kernel<<<row_blocks, kRowWarps * 32, 0, stream>>>(
-      dy, x, gamma, beta, dz, u, stats, M, dim, eps, inv_keep, keep_q, seed2);
+  dz_rows_kernel<<<(M + kRowWarps - 1) / kRowWarps, kRowWarps * 32, 0,
+                   stream>>>(dy, x, gamma, beta, dz, u, stats, M, dim, eps,
+                             inv_keep, keep_q, seed2);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  (bn1 == 64 ? launch_hidden<64> : launch_hidden<128>)(
+  (tile_n(M, hid) == 64 ? launch_hidden<64> : launch_hidden<128>)(
       tdz, tw2, th, ta, tdh, M, dim, hid, inv_keep, keep_q, seed1, stream);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  (bn2 == 64 ? launch_du<64> : launch_du<128>)(tdh, tw1, du, x, gamma, stats,
-                                                rowpart, colpart, M, dim,
-                                                hid, stream);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  ln_bwd_kernel<<<row_blocks, kRowWarps * 32, 0, stream>>>(
-      x, du, gamma, stats, rowpart, dy, dx, M, dim, (dim + bn2 - 1) / bn2);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  colsum_kernel<<<2 * dim / 32, kSumWarps * 32, 0, stream>>>(
-      colpart, dgamma, dbeta, row_tiles(M), dim);
-  return cudaGetLastError();
+  return launch_ln_bwd(tdh, tw1, x, gamma, dy, dx, dgamma, dbeta, scratch, M,
+                       dim, hid, stream);
 }
 
 }  // namespace

@@ -27,7 +27,9 @@ with the tile's partial LN-backward sums (per row and per column) in its
 epilogue; the LayerNorm backward rows with the residual; the dgamma /
 dbeta sums over the row tiles in a fixed order. du, the statistics and
 the partial sums go through one scratch allocation. Both take dim and
-mlp_dim as any multiples of 16.
+mlp_dim as any multiples of 16. K9's last three passes
+(:func:`ln_bwd_passes`, csrc/ln_bwd.cuh) are also K7's, the LN + QKV
+backward (ops/fused_qkv.py).
 """
 
 from __future__ import annotations
@@ -41,7 +43,6 @@ from neurovit_tpu_torch.ops.common import (FLOAT, INT, U64, VOID,
                                            check_operand, check_widths,
                                            dropout_args, is_training, launch,
                                            on_cpu, ptr, round_up, weight_grad)
-from neurovit_tpu_torch.ops.fused_qkv import ln_backward_plain
 from neurovit_tpu_torch.ops.int8_gemm import ALIGN_SLACK, BOX_BYTES
 
 Seeds = Tuple[int, int]
@@ -135,34 +136,74 @@ class MlpBwdPlan(NamedTuple):
     scratch_bytes: int
 
 
-def mlp_bwd_plan(m: int, dim: int, hid: int) -> MlpBwdPlan:
-    """K9's plan for m rows (the kernel's own counts are
-    ``nvt_fused_mlp_bwd_scratch_bytes`` and ``nvt_fused_mlp_bwd_smem_bytes``;
-    the card test holds them equal). The GEMM passes take K4's tiles and
-    ring (:func:`gemm_tile_n`, :func:`gemm_smem_bytes`). Raises where the
-    kernel does not take the widths."""
-    check_bwd_shapes(dim, hid)
-    if m < 1:
-        raise ValueError(f"the MLP backward kernel takes at least one row, "
-                         f"got {m}")
+def ln_bwd_passes(m: int, dim: int) -> tuple:
+    """The passes K9 and K7 share (csrc/ln_bwd.cuh) for m rows of width
+    dim: (launches, scratch, scratch_bytes). ``launches``: the du GEMM on
+    K4's tiles and ring (:func:`gemm_tile_n`, :func:`gemm_smem_bytes`), the
+    LayerNorm backward rows (one warp a row) and the column sums (a lane a
+    column of dgamma and dbeta), each (name, grid, threads, dynamic shared
+    memory bytes). ``scratch``: du [m, dim] f32, each row's (mean, rstd)
+    as two f32, the du pass's row partials of sum(du gamma) and sum(du
+    gamma xhat), [2, m, column tiles] f32, and its column partials of
+    dgamma and dbeta, [2, row tiles, dim] f32, name -> (byte offset,
+    bytes), each on a 256-byte boundary, in ``scratch_bytes`` bytes."""
     m_tiles = -(-m // MLP_TILE)
-    rows = (-(-m // ROW_WARPS), 1)
-    launches = [("dz_rows", rows, ROW_WARPS * 32, 0)]
-    for name, n in (("hidden", hid), ("du", dim)):
-        tile_n = gemm_tile_n(m, n)
-        launches.append((name, (-(-n // tile_n), m_tiles), GEMM_THREADS,
-                         gemm_smem_bytes(tile_n)))
-    n_tiles = launches[-1][1][0]
-    launches += [("ln_bwd", rows, ROW_WARPS * 32, 0),
-                 ("colsum", (2 * dim // SUM_COLUMNS, 1), SUM_WARPS * 32, 0)]
+    tile_n = gemm_tile_n(m, dim)
+    n_tiles = -(-dim // tile_n)
+    launches = (("du", (n_tiles, m_tiles), GEMM_THREADS,
+                 gemm_smem_bytes(tile_n)),
+                ("ln_bwd", (-(-m // ROW_WARPS), 1), ROW_WARPS * 32, 0),
+                ("colsum", (2 * dim // SUM_COLUMNS, 1), SUM_WARPS * 32, 0))
     scratch, at = {}, 0
     for name, nbytes in (("du", m * dim * 4), ("stats", m * 8),
                          ("rowpart", 2 * m * n_tiles * 4),
                          ("colpart", 2 * m_tiles * dim * 4)):
         scratch[name] = (at, nbytes)
         at = round_up(at + nbytes, SCRATCH_ALIGN)
-    return MlpBwdPlan(launches=tuple(launches), scratch=scratch,
-                      scratch_bytes=at)
+    return launches, scratch, at
+
+
+def mlp_bwd_plan(m: int, dim: int, hid: int) -> MlpBwdPlan:
+    """K9's plan for m rows (the kernel's own counts are
+    ``nvt_fused_mlp_bwd_scratch_bytes`` and ``nvt_fused_mlp_bwd_smem_bytes``;
+    the card test holds them equal): dz rows and the hidden GEMM on K4's
+    tiles and ring, then :func:`ln_bwd_passes`. Raises where the kernel
+    does not take the widths."""
+    check_bwd_shapes(dim, hid)
+    if m < 1:
+        raise ValueError(f"the MLP backward kernel takes at least one row, "
+                         f"got {m}")
+    tile_n = gemm_tile_n(m, hid)
+    tail, scratch, nbytes = ln_bwd_passes(m, dim)
+    launches = (("dz_rows", (-(-m // ROW_WARPS), 1), ROW_WARPS * 32, 0),
+                ("hidden", (-(-hid // tile_n), -(-m // MLP_TILE)),
+                 GEMM_THREADS, gemm_smem_bytes(tile_n))) + tail
+    return MlpBwdPlan(launches=launches, scratch=scratch,
+                      scratch_bytes=nbytes)
+
+
+def _ln_stats(xf: torch.Tensor):
+    """(xhat, rstd) per row in f32, as nn.layer_norm computes them."""
+    mean = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mean
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + nn.LN_EPS)
+    return xc * rstd, rstd
+
+
+def ln_backward_plain(x2d: torch.Tensor, du: torch.Tensor,
+                      gamma: torch.Tensor):
+    """LayerNorm backward of f32 du at rows x2d (neurovit_tpu/ops/
+    fused_qkv.py:80-96, fused_mlp.py:188-196), the plain version of
+    :func:`ln_bwd_passes` without its GEMM and residual: f32 (dx, dgamma,
+    dbeta)."""
+    xhat, rstd = _ln_stats(x2d.float())
+    dgamma = (du * xhat).sum(0)
+    dbeta = du.sum(0)
+    dxhat = du * gamma.float()
+    m1 = dxhat.mean(dim=1, keepdim=True)
+    m2 = (dxhat * xhat).mean(dim=1, keepdim=True)
+    return rstd * (dxhat - m1 - xhat * m2), dgamma, dbeta
 
 
 def fused_mlp_block_plain(x: torch.Tensor, gamma: torch.Tensor,

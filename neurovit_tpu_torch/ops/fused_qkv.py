@@ -14,14 +14,20 @@ the backward (:class:`FusedLnQkv`) computes du = [dq | dk | dv] Wqkv and
 the LayerNorm backward (dx, dgamma, dbeta).
 
 CPU tensors run the ``*_plain`` functions; CUDA tensors run
-``csrc/fused_qkv.cu`` (K2) and ``csrc/fused_qkv_bwd.cu`` (K7). The kernels
-take dim and heads * dim_head as multiples of 16, and K7 dim <= 1024 (the
-LayerNorm backward holds a row in one warp's registers).
+``csrc/fused_qkv.cu`` (K2) and ``csrc/fused_qkv_bwd.cu`` (K7). K7 runs on
+TMA + ``wgmma`` in four launches (:func:`qkv_bwd_plan`): each row's
+LayerNorm statistics, then K9's last three passes (``csrc/ln_bwd.cuh``):
+du = [dq | dk | dv] Wqkv in f32 with the tile's partial LayerNorm-backward
+sums in its epilogue, the LayerNorm backward rows, the dgamma / dbeta sums
+over the row tiles in a fixed order; du, the statistics and the partial
+sums go through one scratch allocation. The kernels take dim and heads *
+dim_head as multiples of 16: K2 while its [64, dim] u block fits in shared
+memory, K7 of any size.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -31,9 +37,8 @@ from neurovit_tpu_torch.ops.common import (FLOAT, INT, VOID, check_operand,
                                            gemm_scratch_bytes,
                                            gemm_tile_bytes, is_training,
                                            launch, on_cpu, ptr, weight_grad)
-
-# The LayerNorm backward rows (csrc/backward.cuh) sit in a warp's registers.
-LN_BWD_MAX_DIM = 1024
+from neurovit_tpu_torch.ops.fused_mlp import (ROW_WARPS, ln_backward_plain,
+                                              ln_bwd_passes)
 
 
 def check_fwd_shapes(dim: int, inner: int) -> None:
@@ -45,9 +50,41 @@ def check_fwd_shapes(dim: int, inner: int) -> None:
 
 
 def check_bwd_shapes(dim: int, inner: int) -> None:
-    """Raise unless K7 takes these widths: multiples of 16, dim <= 1024."""
-    check_widths("LN+QKV backward", inner=inner)
-    check_widths("LN+QKV backward", max_width=LN_BWD_MAX_DIM, dim=dim)
+    """Raise unless K7 takes these widths: multiples of 16, the 16-byte
+    rows of its TMA operands, of any size (its LayerNorm rows read the row
+    again for each statistic, and its GEMM stages no whole row)."""
+    check_widths("LN+QKV backward", dim=dim, inner=inner)
+
+
+class QkvBwdPlan(NamedTuple):
+    """How one K7 call covers m rows of width dim with heads * dim_head =
+    inner. ``launches``: the four kernels in launch order, each (name,
+    grid, threads, dynamic shared memory bytes), a grid (x, y): the row
+    statistics, then :func:`~neurovit_tpu_torch.ops.fused_mlp.ln_bwd_passes`
+    (the du GEMM over K = 3 inner, the LayerNorm backward rows, the column
+    sums). ``scratch``: the pieces of the one scratch allocation, name ->
+    (byte offset, bytes), in ``scratch_bytes`` bytes: du [m, dim] f32, each
+    row's (mean, rstd) as two f32, the du pass's row partials [2, m, column
+    tiles] f32 and its column partials [2, row tiles, dim] f32."""
+    launches: tuple
+    scratch: dict
+    scratch_bytes: int
+
+
+def qkv_bwd_plan(m: int, dim: int, inner: int) -> QkvBwdPlan:
+    """K7's plan for m rows (the kernel's own counts are
+    ``nvt_fused_ln_qkv_bwd_scratch_bytes`` and
+    ``nvt_fused_ln_qkv_bwd_smem_bytes``; the card test holds them equal).
+    Raises where the kernel does not take the widths."""
+    check_bwd_shapes(dim, inner)
+    if m < 1:
+        raise ValueError(f"the LN+QKV backward kernel takes at least one "
+                         f"row, got {m}")
+    tail, scratch, nbytes = ln_bwd_passes(m, dim)
+    launches = (("row_stats", (-(-m // ROW_WARPS), 1), ROW_WARPS * 32, 0),
+                ) + tail
+    return QkvBwdPlan(launches=launches, scratch=scratch,
+                      scratch_bytes=nbytes)
 
 QKV = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -64,42 +101,21 @@ def fused_ln_qkv_plain(x: torch.Tensor, gamma: torch.Tensor,
     return (q, k, v, u) if return_u else (q, k, v)
 
 
-def _ln_stats(xf: torch.Tensor):
-    """(xhat, rstd) per row in f32, as nn.layer_norm computes them."""
-    mean = xf.mean(dim=-1, keepdim=True)
-    xc = xf - mean
-    var = (xc * xc).mean(dim=-1, keepdim=True)
-    rstd = torch.rsqrt(var + nn.LN_EPS)
-    return xc * rstd, rstd
-
-
-def ln_backward_plain(x2d: torch.Tensor, du: torch.Tensor,
-                      gamma: torch.Tensor):
-    """LayerNorm backward of f32 du at rows x2d (fused_qkv.py:80-96):
-    f32 (dx, dgamma, dbeta)."""
-    xhat, rstd = _ln_stats(x2d.float())
-    dgamma = (du * xhat).sum(0)
-    dbeta = du.sum(0)
-    dxhat = du * gamma.float()
-    m1 = dxhat.mean(dim=1, keepdim=True)
-    m2 = (dxhat * xhat).mean(dim=1, keepdim=True)
-    return rstd * (dxhat - m1 - xhat * m2), dgamma, dbeta
-
-
-def fused_ln_qkv_bwd_plain(dq, dk, dv, x, gamma, w_qkv):
-    """The backward kernel's function in plain PyTorch: dx (x's dtype),
-    dgamma, dbeta (f32)."""
+def fused_ln_qkv_bwd_plain(dqkv, x, gamma, w_qkv):
+    """The backward kernel's function in plain PyTorch on dqkv = [dq | dk |
+    dv] [B, N, 3 * heads * dim_head]: dx (x's dtype), dgamma, dbeta
+    (f32)."""
     b, n, dim = x.shape
-    dqkv = torch.cat([t.reshape(b * n, -1) for t in (dq, dk, dv)], dim=1)
-    du = torch.matmul(dqkv.float(), w_qkv.to(x.dtype).float())
+    du = torch.matmul(dqkv.reshape(b * n, -1).float(),
+                      w_qkv.to(x.dtype).float())
     dx, dgamma, dbeta = ln_backward_plain(x.reshape(b * n, dim), du, gamma)
     return dx.to(x.dtype).reshape(x.shape), dgamma, dbeta
 
 
-def _operands(x, w_qkv, heads, dim_head, **vectors):
+def _operands(x, w_qkv, inner, **vectors):
     """The launch's bf16 weight and f32 LN vectors (gamma, beta by name),
-    checked."""
-    dim, inner = x.shape[-1], heads * dim_head
+    checked, for heads * dim_head = inner."""
+    dim = x.shape[-1]
     check_operand("x", x, torch.bfloat16)
     w = w_qkv.to(torch.bfloat16).contiguous()
     check_operand("w_qkv", w, torch.bfloat16, (3 * inner, dim))
@@ -116,7 +132,7 @@ def fused_ln_qkv_cuda(x: torch.Tensor, gamma: torch.Tensor,
     """Launch the Hopper kernel K2 on bf16 x [B, N, dim]; the weight is cast
     to bf16 and the LN affine to f32, as the JAX op casts them."""
     b, n, dim = x.shape
-    w, vecs = _operands(x, w_qkv, heads, dim_head, gamma=gamma, beta=beta)
+    w, vecs = _operands(x, w_qkv, heads * dim_head, gamma=gamma, beta=beta)
     check_fwd_shapes(dim, heads * dim_head)
     q, k, v = (x.new_empty(b, n, heads, dim_head) for _ in range(3))
     u = torch.empty_like(x) if return_u else None
@@ -131,26 +147,24 @@ def fused_ln_qkv_cuda(x: torch.Tensor, gamma: torch.Tensor,
 fused_ln_qkv_cuda.launches = 0
 
 
-def fused_ln_qkv_bwd_cuda(dq, dk, dv, x, gamma, w_qkv):
-    """Launch the Hopper kernel K7 (du GEMM, LayerNorm rows, dgamma/dbeta
-    sums); returns dx bf16, dgamma and dbeta f32."""
+def fused_ln_qkv_bwd_cuda(dqkv, x, gamma, w_qkv):
+    """Launch the Hopper kernel K7 (:func:`qkv_bwd_plan`: row statistics,
+    the du GEMM, LayerNorm backward rows, dgamma/dbeta sums) on dqkv = [dq
+    | dk | dv] [B, N, 3 * inner] bf16; returns dx bf16, dgamma and dbeta
+    f32."""
     b, n, dim = x.shape
-    heads, dim_head = dq.shape[2], dq.shape[3]
-    inner = heads * dim_head
-    w, vecs = _operands(x, w_qkv, heads, dim_head, gamma=gamma)
-    for name, t in (("dq", dq), ("dk", dk), ("dv", dv)):
-        check_operand(name, t, torch.bfloat16, (b, n, heads, dim_head))
-    check_bwd_shapes(dim, inner)
+    inner = dqkv.shape[-1] // 3
+    w, vecs = _operands(x, w_qkv, inner, gamma=gamma)
+    check_operand("dqkv", dqkv, torch.bfloat16, (b, n, 3 * inner))
     m = b * n
-    f32 = dict(dtype=torch.float32, device=x.device)
-    du = torch.empty((m, dim), **f32)
-    parts = torch.empty((2, (m + 31) // 32, dim), **f32)
-    dgb = torch.empty((2, dim), **f32)
+    plan = qkv_bwd_plan(m, dim, inner)
     dx = torch.empty_like(x)
-    launch("nvt_fused_ln_qkv_bwd", (VOID,) * 12 + (INT, INT, INT, FLOAT), x,
-           ptr(dq), ptr(dk), ptr(dv), ptr(x), ptr(vecs["gamma"]), ptr(w),
-           ptr(du), ptr(parts[0]), ptr(parts[1]), ptr(dx), ptr(dgb[0]),
-           ptr(dgb[1]), m, dim, inner, nn.LN_EPS)
+    dgb = torch.empty((2, dim), dtype=torch.float32, device=x.device)
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
+                          device=x.device)
+    launch("nvt_fused_ln_qkv_bwd", (VOID,) * 8 + (INT, INT, INT, FLOAT), x,
+           ptr(dqkv), ptr(x), ptr(vecs["gamma"]), ptr(w), ptr(dx),
+           ptr(dgb[0]), ptr(dgb[1]), ptr(scratch), m, dim, inner, nn.LN_EPS)
     fused_ln_qkv_bwd_cuda.launches += 1
     return dx, dgb[0], dgb[1]
 
@@ -173,13 +187,14 @@ class FusedLnQkv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dq, dk, dv):
         x, gamma, w_qkv, u = ctx.saved_tensors
-        dq, dk, dv = (t.contiguous() for t in (dq, dk, dv))
-        bwd = (fused_ln_qkv_bwd_plain if on_cpu(x, dq)
+        b, n, _ = x.shape
+        # [dq | dk | dv] once, the operand of both du and dWqkv.
+        dqkv = torch.cat([t.reshape(b, n, -1) for t in (dq, dk, dv)], dim=2)
+        bwd = (fused_ln_qkv_bwd_plain if on_cpu(x, dqkv)
                else fused_ln_qkv_bwd_cuda)
-        dx, dgamma, dbeta = bwd(dq, dk, dv, x, gamma, w_qkv)
-        m = x.shape[0] * x.shape[1]
-        dqkv = torch.cat([t.reshape(m, -1) for t in (dq, dk, dv)], dim=1)
-        dw = weight_grad(dqkv, u.reshape(m, -1)).to(w_qkv.dtype)
+        dx, dgamma, dbeta = bwd(dqkv, x, gamma, w_qkv)
+        dw = weight_grad(dqkv.reshape(b * n, -1),
+                         u.reshape(b * n, -1)).to(w_qkv.dtype)
         return dx, dgamma, dbeta, dw, None, None
 
 

@@ -18,7 +18,10 @@ are called through each library's own entry point (:func:`fused_mlp_call`,
 takes the rows of a block (32 at the flagship) and no scratch, and its
 ``nvt_fused_mlp_bwd`` its scratch as four tensors; this one's take one
 scratch allocation each. K10 likewise (:func:`int8_qkv_call`): an older
-``nvt_int8_ln_qkv`` takes no scratch, this one's one allocation. K13 goes
+``nvt_int8_ln_qkv`` takes no scratch, this one's one allocation. K7 too
+(:func:`fused_ln_qkv_bwd_call`): an older ``nvt_fused_ln_qkv_bwd`` takes
+dq, dk and dv apart and its scratch as three tensors, this one's [dq | dk
+| dv] and one allocation. K13 goes
 through this checkout's wrapper with
 either library: an older ``nvt_int8_attention`` (at head dim 64) takes
 the same bytes of v8 scratch and s_v at the head of the f32 stats.
@@ -142,6 +145,32 @@ def fused_mlp_bwd_call(args: tuple, dropout_rate: float = 0.0,
     return dx, u, a, dz, dh, dgb[0], dgb[1]
 
 
+def fused_ln_qkv_bwd_call(dqkv: torch.Tensor, parts: list, x: torch.Tensor,
+                          gamma: torch.Tensor, w: torch.Tensor):
+    """K7 on dqkv = [dq | dk | dv] (its three [B, N, H, D] ``parts`` made
+    beforehand), x, f32 gamma and bf16 w through the library in use: this
+    checkout's wrapper where the library counts a scratch
+    (``nvt_fused_ln_qkv_bwd_scratch_bytes``), else the older entry point,
+    which takes dq, dk and dv apart and du [M, dim] and the dgamma and
+    dbeta partials [ceil(M / 32), dim] (f32) as separate buffers."""
+    if hasattr(_build.library(), "nvt_fused_ln_qkv_bwd_scratch_bytes"):
+        return fused_qkv.fused_ln_qkv_bwd_cuda(dqkv, x, gamma, w)
+    b, n, dim = x.shape
+    m = b * n
+    f32 = dict(dtype=torch.float32, device=x.device)
+    du = torch.empty((m, dim), **f32)
+    part = torch.empty((2, (m + 31) // 32, dim), **f32)
+    dgb = torch.empty((2, dim), **f32)
+    dx = torch.empty_like(x)
+    p = common.ptr
+    common.launch("nvt_fused_ln_qkv_bwd", (common.VOID,) * 12
+                  + (common.INT,) * 3 + (common.FLOAT,), x, *map(p, parts),
+                  p(x), p(gamma), p(w), p(du), p(part[0]), p(part[1]),
+                  p(dx), p(dgb[0]), p(dgb[1]), m, dim, dqkv.shape[-1] // 3,
+                  nn.LN_EPS)
+    return dx, dgb[0], dgb[1]
+
+
 def cases() -> dict:
     """name -> (C entry point, call) at the kernel phase's shapes."""
     b, n, dim, h, d, hid = cs.B, cs.N, cs.DIM, cs.HEADS, cs.DIM_HEAD, cs.MLP
@@ -165,6 +194,7 @@ def cases() -> dict:
     b2, attn, dy = t(dim, scale=0.02, dtype=torch.float32), t(b, n, h * d), \
         t(b, n, dim, scale=0.1)
     bf = torch.bfloat16
+    dqkv = torch.cat([a.reshape(b, n, -1) for a in qkv], dim=2)
     att = {"scale": d ** -0.5, "n_valid": n, "dropout_rate": cs.DROPOUT,
            "seed": 1234}
     mdrop = {"dropout_rate": cs.DROPOUT, "seeds": (1235, 1236)}
@@ -202,7 +232,7 @@ def cases() -> dict:
         "flash_attention_bhnd_bwd": ("nvt_flash_attention_bhnd_bwd", lambda: (
             fa.flash_attention_bhnd_bwd_cuda(*tr, lsum, **att))),
         "fused_ln_qkv_bwd": ("nvt_fused_ln_qkv_bwd", lambda: (
-            fused_qkv.fused_ln_qkv_bwd_cuda(*qkv, x, ln[0], wqkv.to(bf)))),
+            fused_ln_qkv_bwd_call(dqkv, qkv, x, ln[0], wqkv.to(bf)))),
         "fused_outproj_bwd": ("nvt_fused_outproj_bwd", lambda: (
             fused_outproj.fused_outproj_bwd_cuda(dy, wout.to(bf),
                                                  dropout_rate=cs.DROPOUT,

@@ -16,7 +16,10 @@ and K4, K9 and K12 on TMA + wgmma at ragged rows (1-300, 8008), ViT-H,
 dim 1536 / mlp 6144 and mlp 8192, ragged column tiles, all-zero rows,
 repeat calls bit for bit (K4 also without h, K9 on K4's own h and with
 dgamma / dbeta) and their plans' scratch and shared-memory bytes against
-the kernels' counts; and K13 on TMA + wgmma at head dims 16-128, n_valid
+the kernels' counts; K7 on TMA + wgmma at ragged rows (1-300, 8008), dims
+64-1536 and inners 80-1280 (ViT-H and 1536 / 1536 among them), an
+all-zero dqkv and all-zero rows of it, repeat calls bit for bit and its
+plan's bytes against the kernel's counts; and K13 on TMA + wgmma at head dims 16-128, n_valid
 on and off the key tiles, batch 8 and 32 at 1001 tokens, repeat calls bit
 for bit, its prologue's scales and permuted codes bit for bit, an all-zero
 V, B * H past 65535 and its plan's bytes against the kernel's counts.
@@ -247,7 +250,7 @@ def test_gradcam_probe_runs_k6(cuda):
         assert err <= 2e-2, err
 
 @pytest.mark.parametrize("m", [1, 33, 65, 300])
-def test_fused_ln_qkv_bwd_kernel(cuda, m):
+def test_fused_ln_qkv_kernel_with_u(cuda, m):
     rng = np.random.default_rng(m + 1)
     x = _rand(rng, (1, m, 256), cuda)
     gamma = _rand(rng, (256,), cuda, torch.float32, 0.1, 1.0)
@@ -258,10 +261,67 @@ def test_fused_ln_qkv_bwd_kernel(cuda, m):
     *qkv_p, u_p = fused_qkv.fused_ln_qkv_plain(x, gamma, beta, w, 2, 64,
                                                return_u=True)
     _check(tuple(qkv) + (u,), tuple(qkv_p) + (u_p,))
-    dq, dk, dv = (_rand(rng, (1, m, 2, 64), cuda) for _ in range(3))
-    _check_grads(fused_qkv.fused_ln_qkv_bwd_cuda(dq, dk, dv, x, gamma, w),
-                 fused_qkv.fused_ln_qkv_bwd_plain(dq, dk, dv, x, gamma, w),
-                 params=(1, 2))
+
+
+# K7's widths: the smoke model's dim with inner 128, inner 80 (3 inner =
+# 240, a K tail inside one 64-column box), ViT-S-like 256 / 320, the
+# flagship's 1024 / 512, and ViT-H's 1280 / 1280 and 1536 / 1536, which the
+# wmma K7 refused (dim > 1024).
+QKV_BWD_WIDTHS = [(64, 128), (256, 80), (256, 320), (1024, 512),
+                  (1280, 1280), (1536, 1536)]
+
+
+def _qkv_bwd_args(rng, m, dim, inner, device):
+    x = _rand(rng, (1, m, dim), device)
+    gamma = _rand(rng, (dim,), device, torch.float32, 0.1, 1.0)
+    w = _rand(rng, (3 * inner, dim), device, torch.bfloat16, dim ** -0.5)
+    dqkv = _rand(rng, (1, m, 3 * inner), device, scale=0.1)
+    return dqkv, x, gamma, w
+
+
+@pytest.mark.parametrize("dim,inner", QKV_BWD_WIDTHS)
+@pytest.mark.parametrize("m", [1, 33, 65, 300, 8008])
+def test_fused_ln_qkv_bwd_kernel(cuda, m, dim, inner):
+    args = _qkv_bwd_args(np.random.default_rng(m + dim + inner), m, dim,
+                         inner, cuda)
+    before = fused_qkv.fused_ln_qkv_bwd_cuda.launches
+    _check_grads(fused_qkv.fused_ln_qkv_bwd_cuda(*args),
+                 fused_qkv.fused_ln_qkv_bwd_plain(*args), params=(1, 2))
+    assert fused_qkv.fused_ln_qkv_bwd_cuda.launches == before + 1
+
+
+@pytest.mark.parametrize("m,dim,inner", [(130, 256, 320), (8008, 1024, 512),
+                                         (300, 1280, 1280)])
+def test_fused_ln_qkv_bwd_kernel_repeats(cuda, m, dim, inner):
+    """K7 twice on the same operands: dx, dgamma and dbeta bit-equal (sums
+    in a fixed order, no atomics)."""
+    args = _qkv_bwd_args(np.random.default_rng(m + 13), m, dim, inner, cuda)
+    one, two = (fused_qkv.fused_ln_qkv_bwd_cuda(*args) for _ in range(2))
+    torch.cuda.synchronize()
+    assert all(torch.equal(p, q) for p, q in zip(one, two))
+
+
+@pytest.mark.parametrize("zero", ["all", "rows"])
+def test_fused_ln_qkv_bwd_kernel_zero(cuda, zero):
+    """An all-zero dqkv gives du = 0, so dx = 0 and dgamma = dbeta = 0
+    exactly; all-zero rows of dqkv at a tile's first and last row and in
+    the ragged tile give dx = 0 on those rows, and the rest matches
+    plain."""
+    rows = [0, 127, 128, 129]
+    dqkv, x, gamma, w = _qkv_bwd_args(np.random.default_rng(7), 130, 256,
+                                      320, cuda)
+    if zero == "all":
+        dqkv.zero_()
+    else:
+        dqkv[0, rows] = 0
+    got = fused_qkv.fused_ln_qkv_bwd_cuda(dqkv, x, gamma, w)
+    _check_grads(got, fused_qkv.fused_ln_qkv_bwd_plain(dqkv, x, gamma, w),
+                 params=() if zero == "all" else (1, 2))
+    dx = got[0].reshape(130, -1)
+    if zero == "all":
+        assert not any(float(t.float().abs().max()) for t in got)
+    else:
+        assert not dx[rows].float().abs().max()
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
@@ -912,9 +972,10 @@ def test_widths_bf16_kernels(cuda, width):
     _check(fused_qkv.fused_ln_qkv_cuda(x, *ln, wqkv, heads, dh, return_u=True),
            fused_qkv.fused_ln_qkv_plain(x, *ln, wqkv, heads, dh,
                                         return_u=True))
-    dqkv = [t * 0.1 for t in p["qkv"]]
-    _check_grads(fused_qkv.fused_ln_qkv_bwd_cuda(*dqkv, x, ln[0], wqkv),
-                 fused_qkv.fused_ln_qkv_bwd_plain(*dqkv, x, ln[0], wqkv),
+    dqkv = torch.cat([t.reshape(*x.shape[:2], -1) * 0.1 for t in p["qkv"]],
+                     dim=2)
+    _check_grads(fused_qkv.fused_ln_qkv_bwd_cuda(dqkv, x, ln[0], wqkv),
+                 fused_qkv.fused_ln_qkv_bwd_plain(dqkv, x, ln[0], wqkv),
                  params=(1, 2))
     kw = {"scale": dh ** -0.5, "n_valid": 97, "dropout_rate": 0.1, "seed": 3}
     q, k, v = p["qkv"]
@@ -1014,6 +1075,30 @@ def test_mlp_bwd_plan_matches_the_kernel(cuda):
             assert scratch(m, dim, hid) == plan.scratch_bytes, (m, dim, hid)
             assert [s for *_, s in plan.launches] == [
                 0, smem(m, hid), smem(m, dim), 0, 0], (m, dim, hid)
+
+
+def test_qkv_bwd_plan_matches_the_kernel(cuda):
+    """The wrapper's K7 plan (``qkv_bwd_plan``) counts the scratch and the
+    du pass's shared memory as the kernel does, at every width of the
+    matrix and the card tests' widths, on both sides of the 64-column tile
+    rule."""
+    import ctypes
+
+    from neurovit_tpu_torch.models.vit3d import WIDTHS
+    from neurovit_tpu_torch.ops import _build
+    lib = _build.library()
+    scratch = lib.nvt_fused_ln_qkv_bwd_scratch_bytes
+    smem = lib.nvt_fused_ln_qkv_bwd_smem_bytes
+    scratch.restype, scratch.argtypes = ctypes.c_longlong, [ctypes.c_int] * 3
+    smem.restype, smem.argtypes = ctypes.c_longlong, [ctypes.c_int] * 2
+    widths = [(w[0], w[1] * w[2]) for w in WIDTHS.values()] + QKV_BWD_WIDTHS
+    for dim, inner in widths:
+        for m in (1, 130, 1001, 2048, 8008, 32032, 128128):
+            plan = fused_qkv.qkv_bwd_plan(m, dim, inner)
+            assert scratch(m, dim, inner) == plan.scratch_bytes, (m, dim,
+                                                                  inner)
+            assert [s for *_, s in plan.launches] == [
+                0, smem(m, dim), 0, 0], (m, dim, inner)
 
 
 def test_head_dim_below_8_runs_plain_on_the_card(cuda):

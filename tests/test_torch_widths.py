@@ -254,7 +254,7 @@ def test_kernel_gates_accept_every_width(width):
     (fused_qkv.check_fwd_shapes, (72, 64), "dim as a multiple of 16"),
     (fused_qkv.check_fwd_shapes, (64, 40), "inner as a multiple of 16"),
     (fused_qkv.check_fwd_shapes, (2048, 512), "bytes of shared memory"),
-    (fused_qkv.check_bwd_shapes, (1280, 512), "dim <= 1024"),
+    (fused_qkv.check_bwd_shapes, (1288, 512), "dim as a multiple of 16"),
     (fused_outproj.check_shapes, (1000, 512), "multiple of 16"),
     (fused_mlp.check_fwd_shapes, (1024, 2056), "multiple of 16"),
     (fused_mlp.check_bwd_shapes, (1536, 6152), "mlp_dim as a multiple of 16"),
@@ -282,6 +282,20 @@ def test_mlp_gate_accepts_the_widths_once_refused(dim, hid):
                  fused_mlp.mlp_bwd_plan(8008, dim, hid)):
         assert plan.launches[1][1] == (hid // 128, 63)
         assert plan.launches[2][1] == (dim // 128, 63)
+
+
+@pytest.mark.parametrize("dim,inner", [(1280, 1280), (1536, 1536)])
+def test_qkv_bwd_gate_accepts_the_widths_once_refused(dim, inner):
+    """K7 held a LayerNorm row in one warp's registers and refused dim >
+    1024 (ViT-H, 1280 / 1280; 1536 / 1536). On K9's TMA + wgmma passes it
+    takes them, and so does its plan: four launches, the du GEMM over 128
+    columns of dim."""
+    fused_qkv.check_bwd_shapes(dim, inner)
+    plan = fused_qkv.qkv_bwd_plan(8008, dim, inner)
+    assert [name for name, *_ in plan.launches] == [
+        "row_stats", "du", "ln_bwd", "colsum"]
+    assert plan.launches[1][1] == (dim // 128, 63)
+    assert plan.scratch["du"] == (0, 8008 * dim * 4)
 
 
 @pytest.mark.parametrize("dim,inner", [(1280, 1280), (1536, 1536)])
