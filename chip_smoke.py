@@ -15,7 +15,10 @@ Phases, each printing a line; any failure raises and exits non-zero:
                the passes of K4, K9, K12 and K13
 3. kernels     each kernel against its plain PyTorch version on the card, at
                the flagship shapes (batch 8 x 1001 tokens), with CUDA-event
-               timings of both: the forwards K1-K4 at dropout 0, K1, K3 and
+               timings of both: the forwards K1-K4 at dropout 0 (K2 also
+               with u, at 130 rows and on all-zero rows with beta = 0,
+               which give q = k = v = 0, and two calls bit-equal, u
+               included), K1, K3 and
                K4 again at dropout 0.1 (the same mask bits on both sides;
                K4 with h, also at 130 rows and at dim 1280 / mlp 5120 and
                dim 1024 / mlp 8192 at batch 2, and on all-zero rows, which
@@ -53,15 +56,19 @@ Phases, each printing a line; any failure raises and exits non-zero:
                bf16 at its two GEMM shapes
                (scripts/torch_mlp_bwd_device_times.py), and of K7's four
                passes beside K17 bf16 at du's shape, the bound and the
-               design's bytes (scripts/torch_qkv_bwd_device_times.py)
+               design's bytes (scripts/torch_qkv_bwd_device_times.py), and
+               of K2's two passes beside K17 bf16 at its GEMM's shape, the
+               bound and the design's bytes
+               (scripts/torch_qkv_device_times.py)
 4. widths      every ViT width of the matrix (models/vit3d.py WIDTHS: the
                smoke model, head dims 32, 80 and 128, ViT-S/B/L and the
                flagship) at batch 2 x 1001 tokens through K1-K13 against the
                plain versions, dropout 0.1 where an op has it; K4's, K9's,
-               K10's and K7's plans (scratch, shared memory) against the
-               kernels'; K4 and K9 at ViT-H (dim 1280, mlp 5120) against
-               plain; K10 and K7 at ViT-H (dim 1280, 16 heads x 80) and at
-               dim 1536 / inner 1536, batch 2 and 130 rows, against plain; K4
+               K2's, K10's and K7's plans (scratch, shared memory) against
+               the kernels'; K4 and K9 at ViT-H (dim 1280, mlp 5120)
+               against plain; K2, K10 and K7 at ViT-H (dim 1280, 16 heads x
+               80), at dim 1536 / inner 1536 and at dim 2048 / inner 2048,
+               batch 2 and 130 rows, against plain; K4
                and K9 timed at batch 8 at the ViT-B, ViT-L, ViT-H and
                flagship widths
 5. probes      the probe scripts' main paths with their launch counts
@@ -507,12 +514,32 @@ def qkv_bwd_device_times(results: dict, args: tuple, card: str) -> None:
             "device not measured (no kernels traced)") + f"; {card}")
 
 
+def qkv_device_times(results: dict, args: tuple, card: str) -> None:
+    """K2's device time on the kernel phase's operands, pass by pass
+    (``scripts/torch_qkv_device_times.py``), into its result, and as the
+    train step calls it (u returned); beside it, K17 bf16 at its GEMM's
+    shape, the bound and the design's bytes floor."""
+    times = script("torch_qkv_device_times")
+    f = times.floors(B * N, DIM, HEADS * DIM_HEAD)
+    m = times.measure(args, 10)
+    results["fused_ln_qkv"]["device_ms"] = m["device_ms"]
+    log("kernels", times.line(f"fused_ln_qkv at B={B} N={N}", m, f)
+        + f"; {card}")
+    log("kernels", times.line(f"fused_ln_qkv at B={B} N={N} with u",
+                              times.measure(args, 10, True), f) + f"; {card}")
+    for shape, dev in times.yardstick(B * N, DIM, HEADS * DIM_HEAD,
+                                      10).items():
+        log("kernels", f"K17 bf16 {shape}: " + (", ".join(
+            f"{k} {us:.1f} us" for k, us in dev.items()) or
+            "device not measured (no kernels traced)") + f"; {card}")
+
+
 def build_notes(lib) -> None:
     """Log, from the build's compiler output, every ptxas note on a kernel
     (C7514 and C7512, wgmma serialised; C7508, setmaxnreg ignored) and
     every kernel that spills, with its name, and the registers of each
     instance of the attention backward, of K12's four passes, of K4's
-    three, of K9's five and of K7's four."""
+    three, of K9's five, of K7's four and of K2's GEMM."""
     from neurovit_tpu_torch.ops import _build
     path = _build.build_log(lib)
     if not path.exists():
@@ -532,7 +559,7 @@ def build_notes(lib) -> None:
     for source, fn, regs, stores, loads in kernels:
         if (stores or loads or "flash_bwd" in fn
                 or source in ("int8_qkv.cu", "int8_rowquant.cu",
-                              "int8_mlp.cu", "fused_mlp.cu",
+                              "int8_mlp.cu", "fused_mlp.cu", "fused_qkv.cu",
                               "fused_mlp_bwd.cu", "fused_qkv_bwd.cu",
                               "int8_attention.cu")):
             log("build", f"{source} {readable.get(fn, fn)}: {regs} "
@@ -682,6 +709,13 @@ def kernel_phase(card: str) -> dict:
                "130 rows": (dqkv[:1, :130].contiguous(),
                             x[:1, :130].contiguous(), ln[0], wqkv),
                "zero rows of dqkv": (dqkv0, x, ln[0], wqkv)}
+    # K2 beyond the flagship, with u: a ragged last row tile (130 rows),
+    # and all-zero rows of x with beta = 0 (u all zero) at a tile's first
+    # and last row.
+    qkv_more = {
+        "130 rows": (x[:1, :130].contiguous(), *ln, wqkv, HEADS, DIM_HEAD),
+        "zero rows, beta = 0": (x0, ln[0], torch.zeros_like(ln[1]), wqkv,
+                                HEADS, DIM_HEAD)}
     # K10 beyond the flagship: a ragged last row tile (130 rows), and
     # all-zero rows of x with beta = 0 (u all zero: amax 0, scale 1) at a
     # tile's first and last row.
@@ -718,7 +752,11 @@ def kernel_phase(card: str) -> dict:
             ("with u", lambda: oq.fused_ln_qkv_cuda(
                 x, *ln, wqkv, HEADS, DIM_HEAD, return_u=True),
              lambda: oq.fused_ln_qkv_plain(x, *ln, wqkv, HEADS, DIM_HEAD,
-                                           return_u=True))],
+                                           return_u=True)),
+            *[(f"{label} with u",
+               lambda a=a: oq.fused_ln_qkv_cuda(*a, return_u=True),
+               lambda a=a: oq.fused_ln_qkv_plain(*a, return_u=True))
+              for label, a in qkv_more.items()]],
         "fused_outproj_residual": [
             ("", lambda: fused_outproj.fused_outproj_residual_cuda(
                 x, attn, wout, bout),
@@ -957,6 +995,23 @@ def kernel_phase(card: str) -> dict:
             f"{max_rel:.3e} over {len(calls)} cases; {card}")
     zero_rows = [0, 127, 128, 1000]
     if any(t_.reshape(B * N, -1)[zero_rows].float().abs().max()
+           for t_ in oq.fused_ln_qkv_cuda(*qkv_more["zero rows, beta = 0"],
+                                          return_u=True)):
+        raise AssertionError("fused_ln_qkv: an all-zero row with beta = 0 "
+                             "does not give u = q = k = v = 0")
+    for label, a in (("flagship", (x, *ln, wqkv, HEADS, DIM_HEAD)),
+                     ("130 rows", qkv_more["130 rows"])):
+        one, two = (oq.fused_ln_qkv_cuda(*a, return_u=True) for _ in range(2))
+        served = oq.fused_ln_qkv_cuda(*a)
+        if not all(torch.equal(p, q) for p, q in zip(one, two)):
+            raise AssertionError(f"fused_ln_qkv {label}: two calls differ")
+        if not all(torch.equal(p, q) for p, q in zip(one, served)):
+            raise AssertionError(f"fused_ln_qkv {label}: q, k, v served "
+                                 "differ from q, k, v with u")
+    log("kernels", "fused_ln_qkv: all-zero rows with beta = 0 give u = q = "
+        "k = v = 0; two calls with u bit-equal, and q, k, v served equal "
+        "to them, at the flagship and at 130 rows")
+    if any(t_.reshape(B * N, -1)[zero_rows].float().abs().max()
            for t_ in q8.int8_ln_qkv_cuda(*qkv8_more["zero rows, beta = 0"])):
         raise AssertionError("int8_ln_qkv: an all-zero row with beta = 0 "
                              "does not give q = k = v = 0")
@@ -1022,8 +1077,9 @@ def kernel_phase(card: str) -> dict:
         "two calls bit-equal (dgamma and dbeta included) at the flagship "
         "and at 130 rows")
     del mlp8_more, mlp_more, mlp_zero, x0, y0, one, two, bwd_more, got0, dy0
-    del qkv8_more, qkv_bwd, dqkv0, dx0
+    del qkv8_more, qkv_bwd, dqkv0, dx0, qkv_more, served
     attention_device_times(results, qkv, qkv_h, card)
+    qkv_device_times(results, (x, *ln, wqkv, HEADS, DIM_HEAD), card)
     int8_qkv_device_times(results, (x, *ln, *qkv8, HEADS, DIM_HEAD), card)
     int8_mlp_device_times(results, (x, *ln, *mlp8), card)
     int8_attention_device_times(results, qkv, card)
@@ -1062,13 +1118,13 @@ def _width_operands(rng, b: int, dim: int, heads: int, dh: int, hid: int
 def widths_phase(card: str) -> None:
     """Every ViT width of the matrix (models/vit3d.py WIDTHS) at batch 2 x
     1001 tokens through K1-K13 against the plain versions, with the kernel
-    phase's tolerances, dropout 0.1 where an op has it; K4's, K9's, K10's
-    and K7's plans (scratch and shared memory) against the kernels' own
-    counts; K4 and K9 at ViT-H (dim 1280, 16 heads of 80, mlp 5120), which
-    the wmma K9 refused, against plain; K10 and K7 at ViT-H and at dim
-    1536 / inner 1536, which their wmma versions refused, against plain;
-    then K4 and K9 timed at batch 8 at the ViT-B, ViT-L, ViT-H and
-    flagship widths."""
+    phase's tolerances, dropout 0.1 where an op has it; K4's, K9's, K2's,
+    K10's and K7's plans (scratch and shared memory) against the kernels'
+    own counts; K4 and K9 at ViT-H (dim 1280, 16 heads of 80, mlp 5120),
+    which the wmma K9 refused, against plain; K2, K10 and K7 at ViT-H, at
+    dim 1536 / inner 1536 and at dim 2048 / inner 2048, which their wmma
+    versions refused (K2 the last), against plain; then K4 and K9 timed at
+    batch 8 at the ViT-B, ViT-L, ViT-H and flagship widths."""
     import ctypes
 
     from neurovit_tpu_torch.models.vit3d import WIDTHS
@@ -1085,9 +1141,11 @@ def widths_phase(card: str) -> None:
     qkv_smem = lib.nvt_int8_qkv_smem_bytes
     k7_scratch = lib.nvt_fused_ln_qkv_bwd_scratch_bytes
     k7_smem = lib.nvt_fused_ln_qkv_bwd_smem_bytes
-    for fn in (scratch, bwd_scratch, qkv_scratch, k7_scratch):
+    k2_scratch = lib.nvt_fused_ln_qkv_fwd_scratch_bytes
+    k2_smem = lib.nvt_fused_ln_qkv_fwd_smem_bytes
+    for fn in (scratch, bwd_scratch, qkv_scratch, k7_scratch, k2_scratch):
         fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 3
-    for fn in (smem, bwd_smem, qkv_smem, k7_smem):
+    for fn in (smem, bwd_smem, qkv_smem, k7_smem, k2_smem):
         fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 2
     rng = np.random.default_rng(SEED + 6)
     bf = torch.bfloat16
@@ -1116,6 +1174,14 @@ def widths_phase(card: str) -> None:
                 f"{name}: K7's plan counts (scratch, the du pass's shared "
                 f"memory) {(k7plan.scratch_bytes, k7plan.launches[1][3])} "
                 f"bytes, the kernel {counted}")
+        k2plan = fused_qkv.qkv_plan(2 * N, dim, heads * dh)
+        counted = (k2_scratch(2 * N, dim, heads * dh),
+                   k2_smem(2 * N, heads * dh))
+        if counted != (k2plan.scratch_bytes, k2plan.launches[1][3]):
+            raise AssertionError(
+                f"{name}: K2's plan counts (serving scratch, the GEMM's "
+                f"shared memory) {(k2plan.scratch_bytes, k2plan.launches[1][3])}"
+                f" bytes, the kernel {counted}")
         qplan = q8.qkv_plan(2 * N, dim, heads * dh)
         counted = (qkv_scratch(2 * N, dim, heads * dh),
                    qkv_smem(2 * N, heads * dh))
@@ -1210,17 +1276,24 @@ def widths_phase(card: str) -> None:
         f"at dropout {DROPOUT} against plain at B=2 N={N}, K9 max abs err "
         f"{err:.3e}")
     del p, mlp, got, bwd
-    # K10 and K7 at the widths their wmma versions refused (their
-    # LayerNorm rows sat in one warp's registers): ViT-H and dim 1536 /
-    # inner 1536, at batch 2 and at 130 rows, against plain.
-    for dim, heads, dh in ((1280, 16, 80), (1536, 24, 64)):
+    # K2, K10 and K7 at the widths their wmma versions refused (K10's and
+    # K7's LayerNorm rows sat in one warp's registers, K2's u block in
+    # shared memory up to dim 1536): ViT-H, dim 1536 / inner 1536 and dim
+    # 2048 / inner 2048, at batch 2 and at 130 rows, against plain.
+    for dim, heads, dh in ((1280, 16, 80), (1536, 24, 64), (2048, 16, 128)):
         p = _width_operands(rng, 2, dim, heads, dh, 16)
         qkv8 = q8.quantize_weight(p["wqkv"])
         wqkv = p["wqkv"].to(bf)
-        worst = {"K10": [], "K7": []}
+        worst = {"K2": [], "K10": [], "K7": []}
         for label, rows in ((f"B=2 N={N}", (slice(None),)),
                             ("130 rows", (slice(0, 1), slice(0, 130)))):
             x = p["x"][rows].contiguous()
+            k2 = (x, *p["ln"], wqkv, heads, dh)
+            err, _ = compare(f"widths dim {dim} inner {heads * dh} K2 "
+                             f"{label}",
+                             fused_qkv.fused_ln_qkv_cuda(*k2, return_u=True),
+                             fused_qkv.fused_ln_qkv_plain(*k2, return_u=True))
+            worst["K2"].append(err)
             err, _ = compare(f"widths dim {dim} inner {heads * dh} K10 "
                              f"{label}",
                              q8.int8_ln_qkv_cuda(x, *p["ln"], *qkv8, heads,
@@ -1235,12 +1308,14 @@ def widths_phase(card: str) -> None:
                              (1, 2))
             worst["K7"].append(err)
         grids = [plan_of(2 * N, dim, heads * dh).launches[1][1]
-                 for plan_of in (q8.qkv_plan, fused_qkv.qkv_bwd_plan)]
-        log("widths", f"dim {dim}, {heads} heads x {dh}: K10 and K7 against "
-            f"plain at B=2 N={N} and at 130 rows, max abs err "
-            f"{max(worst['K10']):.3e} and {max(worst['K7']):.3e} (GEMM "
-            f"grids {grids[0]} and {grids[1]})")
-        del p, qkv8, wqkv, k7
+                 for plan_of in (fused_qkv.qkv_plan, q8.qkv_plan,
+                                 fused_qkv.qkv_bwd_plan)]
+        log("widths", f"dim {dim}, {heads} heads x {dh}: K2, K10 and K7 "
+            f"against plain at B=2 N={N} and at 130 rows, max abs err "
+            f"{max(worst['K2']):.3e}, {max(worst['K10']):.3e} and "
+            f"{max(worst['K7']):.3e} (GEMM grids {grids[0]}, {grids[1]} and "
+            f"{grids[2]})")
+        del p, qkv8, wqkv, k2, k7
     # K4 and K9 at ViT-B, ViT-L and ViT-H (K4's widest tiles, K9's widest
     # rows) beside the flagship.
     for name, (dim, heads, dh, hid) in (

@@ -1,11 +1,9 @@
 // Shared device code for the package's Hopper kernels (sm_90a).
 //
 // The kernels compute bf16 products with f32 accumulation on the tensor
-// cores, most through nvcuda::wmma 16x16x16 tiles: the simple, correct
-// first version. K17/K18 (int8_gemm.cu), the attention forward and
-// backward (flash_attention*.cu), K12 (int8_mlp.cu) and K4 (fused_mlp.cu)
-// run on TMA and wgmma (hopper_gemm.cuh); the others follow kernel by
-// kernel.
+// cores. K3, K8 (fused_outproj*.cu) and K11 (int8_outproj.cu) still run
+// on nvcuda::wmma 16x16x16 tiles, the simple, correct first version; the
+// others run on TMA and wgmma (hopper_gemm.cuh).
 //
 // Host entry points have a plain C interface: each returns the
 // cudaError_t of its launch (0 on success) and allocates nothing; the
@@ -154,58 +152,6 @@ __device__ __forceinline__ uint4 pack8(const float* f) {
 #pragma unroll
   for (int i = 0; i < 8; ++i) h[i] = __float2bfloat16(f[i]);
   return raw;
-}
-
-// U[r, :] = bf16(LN(x[row0 + r, :]) * gamma + beta) for the BM rows of a
-// row block, in f32 with the JAX kernels' order of operations
-// (neurovit_tpu/ops/fused_qkv.py:48-63): mean, then the mean of squared
-// deviations, rsqrt(var + eps), xhat * gamma + beta, one rounding to bf16.
-// One warp per row; rows at or past M are written as zeros. dim % 8 == 0.
-template <int BM, int THREADS>
-__device__ void layer_norm_rows(const bf16* __restrict__ x,
-                                const float* __restrict__ gamma,
-                                const float* __restrict__ beta, bf16* U,
-                                int ldu, int row0, int M, int dim,
-                                float eps) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  constexpr int kWarps = THREADS / 32;
-  for (int r = warp; r < BM; r += kWarps) {
-    const int row = row0 + r;
-    bf16* urow = U + static_cast<size_t>(r) * ldu;
-    if (row >= M) {
-      for (int c = lane * 8; c < dim; c += 256)
-        *reinterpret_cast<uint4*>(urow + c) = make_uint4(0, 0, 0, 0);
-      continue;
-    }
-    const bf16* xrow = x + static_cast<size_t>(row) * dim;
-    float f[8];
-    float s = 0.f;
-    for (int c = lane * 8; c < dim; c += 256) {
-      unpack8(*reinterpret_cast<const uint4*>(xrow + c), f);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) s += f[i];
-    }
-    const float mean = warp_sum(s) / dim;
-    float ss = 0.f;
-    for (int c = lane * 8; c < dim; c += 256) {
-      unpack8(*reinterpret_cast<const uint4*>(xrow + c), f);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float d = f[i] - mean;
-        ss += d * d;
-      }
-    }
-    const float rstd = rsqrtf(warp_sum(ss) / dim + eps);
-    for (int c = lane * 8; c < dim; c += 256) {
-      unpack8(*reinterpret_cast<const uint4*>(xrow + c), f);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float xhat = __fmul_rn(f[i] - mean, rstd);
-        f[i] = __fadd_rn(__fmul_rn(xhat, gamma[c + i]), beta[c + i]);
-      }
-      *reinterpret_cast<uint4*>(urow + c) = pack8(f);
-    }
-  }
 }
 
 // Zero the bf16 columns [c0, c1) of the `rows` rows of a shared-memory tile

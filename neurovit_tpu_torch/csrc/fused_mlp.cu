@@ -23,10 +23,9 @@
 // through device memory as bf16 (with x read twice, y and the weights,
 // about 160 MB at that shape: 0.047 ms at 3.35 TB/s), in three launches
 // on the caller's stream:
-//   1. ln_rows: x -> u [M, dim], one warp a row; the row is read again
-//      from L1/L2 for each statistic, so any dim is taken. Lane l takes
-//      columns 256 i + 8 l .. + 7, the order of layer_norm_rows
-//      (common.cuh), so u has the bits of the earlier kernel's.
+//   1. ln_rows: x -> u [M, dim], one warp a row (fused_mlp.cuh ln_row);
+//      the row is read again from L1/L2 for each statistic, so any dim is
+//      taken. K2 (fused_qkv.cu) launches the same pass (launch_ln_rows).
 //   2. fc1_gelu: hopper_gemm.cuh Mainloop<false, 128, BN, 3> over
 //      ceil(hid / BN) x ceil(M / 128) tiles, A = u, Bt = W1. The epilogue,
 //      from the accumulator registers: + b1, h rounded, GELU, mask1, g
@@ -83,8 +82,7 @@ struct Scratch {
   }
 };
 
-// Pass 1: u = bf16(LN(x) * gamma + beta), one warp a row, in
-// layer_norm_rows's order of operations and of sums.
+// Pass 1: u = bf16(LN(x) * gamma + beta), one warp a row (ln_row).
 __global__ void __launch_bounds__(kRowWarps * 32)
     ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
                    const float* __restrict__ beta, bf16* __restrict__ u,
@@ -245,9 +243,9 @@ cudaError_t launch_all(const bf16* x, const float* gamma, const float* beta,
   if (err == cudaSuccess) err = allow_gemm_smem<128>();
   if (err != cudaSuccess) return err;
 
-  ln_rows_kernel<<<(M + kRowWarps - 1) / kRowWarps, kRowWarps * 32, 0,
-                   stream>>>(x, gamma, beta, u, M, dim, eps);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = launch_ln_rows(x, gamma, beta, u, M, dim, eps, stream)) !=
+      cudaSuccess)
+    return err;
   (bn1 == 64 ? launch_fc1<64> : launch_fc1<128>)(
       tu, tw1, tg, th, b1, h != nullptr, M, dim, hid, inv_keep, keep_q, seed1,
       stream);
@@ -258,6 +256,15 @@ cudaError_t launch_all(const bf16* x, const float* gamma, const float* beta,
 }
 
 }  // namespace
+
+cudaError_t mlp::launch_ln_rows(const bf16* x, const float* gamma,
+                                const float* beta, bf16* u, int M, int dim,
+                                float eps, cudaStream_t stream) {
+  ln_rows_kernel<<<(M + kRowWarps - 1) / kRowWarps, kRowWarps * 32, 0,
+                   stream>>>(x, gamma, beta, u, M, dim, eps);
+  return cudaGetLastError();
+}
+
 }  // namespace nvt
 
 // x [M, dim] bf16; gamma, beta [dim] f32; w1 [hid, dim] bf16; b1 [hid] f32;

@@ -4,8 +4,10 @@
 // pass's tile width, a LayerNorm row and its statistics in one warp, a
 // thread's place in the accumulator tile, the quad's shared dropout bits in
 // that layout, and the swizzled staging of a bf16 output tile in the freed
-// ring. The LN + QKV backward (fused_qkv_bwd.cu, K7) shares the statistics
-// and, through ln_bwd.cuh, K9's last three passes.
+// ring. The LN + QKV forward (fused_qkv.cu, K2) launches K4's LN rows pass
+// (launch_ln_rows) and uses its GEMM tiles; the LN + QKV backward
+// (fused_qkv_bwd.cu, K7) shares the statistics and, through ln_bwd.cuh,
+// K9's last three passes.
 #pragma once
 
 #include "hopper_gemm.cuh"
@@ -37,11 +39,13 @@ inline size_t gemm_smem_bytes(int M, int N) {
 }
 
 // One warp's LayerNorm statistics of the row xr, (mean, rstd) to every
-// lane, in layer_norm_rows's order of operations and of sums (common.cuh):
-// lane l takes columns 256 i + 8 l .. + 7, and the row is read again from
-// L1 / L2 for the second statistic, so any dim that is a multiple of 8 is
-// taken. K4's and K9's rows (ln_row) and K7's row_stats pass share it, so
-// K7's xhat has the forward's statistics bit for bit.
+// lane, with the JAX kernels' order of operations
+// (neurovit_tpu/ops/fused_qkv.py:48-63): the mean, then the mean of
+// squared deviations, rsqrt(var + eps). Lane l takes columns 256 i + 8 l
+// .. + 7, and the row is read again from L1 / L2 for the second statistic,
+// so any dim that is a multiple of 8 is taken. K2's and K4's u and K9's
+// rows (ln_row) and K7's row_stats pass share it, so K7's xhat has the
+// forward's statistics bit for bit.
 __device__ __forceinline__ float2 ln_stats(const bf16* __restrict__ xr,
                                            int dim, float eps) {
   const int lane = threadIdx.x % 32;
@@ -94,6 +98,13 @@ __device__ __forceinline__ float2 ln_row(const bf16* __restrict__ xr,
   }
   return st;
 }
+
+// K4's pass 1, which K2 launches too (fused_mlp.cu): u = bf16(LN(x) *
+// gamma + beta) for x [M, dim], one warp (ln_row) a row, kRowWarps rows a
+// block, on the stream. Returns the launch's error.
+cudaError_t launch_ln_rows(const bf16* x, const float* gamma,
+                           const float* beta, bf16* u, int M, int dim,
+                           float eps, cudaStream_t stream);
 
 // The keep bits of one row of a 128-column tile, shared within the quad.
 // Thread o (= t % 4) draws Philox blocks blk0 + 2 o + k, k = 0, 1, and packs

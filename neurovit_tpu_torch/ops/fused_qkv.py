@@ -14,15 +14,17 @@ the backward (:class:`FusedLnQkv`) computes du = [dq | dk | dv] Wqkv and
 the LayerNorm backward (dx, dgamma, dbeta).
 
 CPU tensors run the ``*_plain`` functions; CUDA tensors run
-``csrc/fused_qkv.cu`` (K2) and ``csrc/fused_qkv_bwd.cu`` (K7). K7 runs on
-TMA + ``wgmma`` in four launches (:func:`qkv_bwd_plan`): each row's
-LayerNorm statistics, then K9's last three passes (``csrc/ln_bwd.cuh``):
-du = [dq | dk | dv] Wqkv in f32 with the tile's partial LayerNorm-backward
-sums in its epilogue, the LayerNorm backward rows, the dgamma / dbeta sums
-over the row tiles in a fixed order; du, the statistics and the partial
-sums go through one scratch allocation. The kernels take dim and heads *
-dim_head as multiples of 16: K2 while its [64, dim] u block fits in shared
-memory, K7 of any size.
+``csrc/fused_qkv.cu`` (K2) and ``csrc/fused_qkv_bwd.cu`` (K7), both on TMA
++ ``wgmma``. K2 runs in two launches (:func:`qkv_plan`): K4's LayerNorm
+rows pass writes u (the caller's u in training, a scratch in serving),
+then the QKV GEMM, each column tile serving one of q, k, v. K7 runs in
+four (:func:`qkv_bwd_plan`): each row's LayerNorm statistics, then K9's
+last three passes (``csrc/ln_bwd.cuh``): du = [dq | dk | dv] Wqkv in f32
+with the tile's partial LayerNorm-backward sums in its epilogue, the
+LayerNorm backward rows, the dgamma / dbeta sums over the row tiles in a
+fixed order; du, the statistics and the partial sums go through one
+scratch allocation. Both take dim and heads * dim_head as multiples of
+16, of any size.
 """
 
 from __future__ import annotations
@@ -33,20 +35,62 @@ import torch
 
 from neurovit_tpu_torch import nn
 from neurovit_tpu_torch.ops.common import (FLOAT, INT, VOID, check_operand,
-                                           check_smem, check_widths,
-                                           gemm_scratch_bytes,
-                                           gemm_tile_bytes, is_training,
-                                           launch, on_cpu, ptr, weight_grad)
-from neurovit_tpu_torch.ops.fused_mlp import (ROW_WARPS, ln_backward_plain,
+                                           check_widths, is_training, launch,
+                                           on_cpu, ptr, round_up,
+                                           weight_grad)
+from neurovit_tpu_torch.ops.fused_mlp import (GEMM_THREADS, MLP_TILE,
+                                              ROW_WARPS, SCRATCH_ALIGN,
+                                              gemm_smem_bytes, gemm_tile_n,
+                                              ln_backward_plain,
                                               ln_bwd_passes)
 
 
 def check_fwd_shapes(dim: int, inner: int) -> None:
-    """Raise unless K2 takes x [*, dim] and heads * dim_head = inner: both
-    multiples of 16, and u's [64, dim] block beside the GEMM tiles fits in
-    shared memory."""
+    """Raise unless K2 takes x [*, dim] and heads * dim_head = inner:
+    multiples of 16, the 16-byte rows of its TMA operands, of any size (its
+    LayerNorm rows read the row again for each statistic, and its GEMM
+    stages no whole row)."""
     check_widths("LN+QKV", dim=dim, inner=inner)
-    check_smem("LN+QKV", gemm_tile_bytes(64, dim) + gemm_scratch_bytes(64))
+
+
+class QkvPlan(NamedTuple):
+    """How one K2 call covers x [m, dim] with heads * dim_head = inner.
+    ``launches``: the two kernels in launch order, each (name, grid,
+    threads, dynamic shared memory bytes), a grid (x, y): K4's LayerNorm
+    rows pass, then the GEMM over (3 column tiles of inner each rounded up,
+    row tiles of 128). ``tile_n``: the GEMM's output tile columns.
+    ``scratch``: the pieces of the scratch allocation, name -> (byte
+    offset, bytes), in ``scratch_bytes`` bytes: u [m, dim] bf16 in serving,
+    nothing in training, where u is the call's own output."""
+    launches: tuple
+    tile_n: int
+    scratch: dict
+    scratch_bytes: int
+
+
+def qkv_plan(m: int, dim: int, inner: int, *,
+             return_u: bool = False) -> QkvPlan:
+    """K2's plan for m rows (the kernel's own counts are
+    ``nvt_fused_ln_qkv_fwd_scratch_bytes``, for serving, and
+    ``nvt_fused_ln_qkv_fwd_smem_bytes``; the card test holds them equal).
+    The GEMM's tiles are 128 x 128, or 128 x 64 where 128-wide tiles over
+    the [m, 3 inner] output would give the card fewer blocks than SMs
+    (:func:`~neurovit_tpu_torch.ops.fused_mlp.gemm_tile_n`). Raises where
+    the kernel does not take the widths."""
+    check_fwd_shapes(dim, inner)
+    if m < 1:
+        raise ValueError(f"the LN+QKV kernel takes at least one row, got {m}")
+    tile_n = gemm_tile_n(m, 3 * inner)
+    launches = (
+        ("ln_rows", (-(-m // ROW_WARPS), 1), ROW_WARPS * 32, 0),
+        ("qkv_gemm", (3 * -(-inner // tile_n), -(-m // MLP_TILE)),
+         GEMM_THREADS, gemm_smem_bytes(tile_n)))
+    if return_u:
+        return QkvPlan(launches=launches, tile_n=tile_n, scratch={},
+                       scratch_bytes=0)
+    return QkvPlan(launches=launches, tile_n=tile_n,
+                   scratch={"u": (0, m * dim * 2)},
+                   scratch_bytes=round_up(m * dim * 2, SCRATCH_ALIGN))
 
 
 def check_bwd_shapes(dim: int, inner: int) -> None:
@@ -129,13 +173,16 @@ def _operands(x, w_qkv, inner, **vectors):
 def fused_ln_qkv_cuda(x: torch.Tensor, gamma: torch.Tensor,
                       beta: torch.Tensor, w_qkv: torch.Tensor, heads: int,
                       dim_head: int, *, return_u: bool = False):
-    """Launch the Hopper kernel K2 on bf16 x [B, N, dim]; the weight is cast
-    to bf16 and the LN affine to f32, as the JAX op casts them."""
+    """Launch the Hopper kernel K2 (:func:`qkv_plan`: LayerNorm rows, the
+    QKV GEMM) on bf16 x [B, N, dim]; the weight is cast to bf16 and the LN
+    affine to f32, as the JAX op casts them. u goes into the returned
+    tensor with ``return_u``, else into one scratch allocation."""
     b, n, dim = x.shape
     w, vecs = _operands(x, w_qkv, heads * dim_head, gamma=gamma, beta=beta)
-    check_fwd_shapes(dim, heads * dim_head)
+    plan = qkv_plan(b * n, dim, heads * dim_head, return_u=return_u)
     q, k, v = (x.new_empty(b, n, heads, dim_head) for _ in range(3))
-    u = torch.empty_like(x) if return_u else None
+    u = (torch.empty_like(x) if return_u else
+         torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=x.device))
     launch("nvt_fused_ln_qkv_fwd",
            (VOID,) * 8 + (INT, INT, INT, FLOAT), x,
            ptr(x), ptr(vecs["gamma"]), ptr(vecs["beta"]), ptr(w), ptr(q),

@@ -8,11 +8,16 @@ dim 1024, 8 heads of 64, MLP 2048; the ResNet pool at [8, 90, 45, 45, 64]),
 with the library behind it switched between the two in the order other,
 this, this, other, ``--rounds`` times; each turn is the median of 10
 CUDA-event timings after 2 warm-up launches; K1 and K4 also at dropout
-0.1, with K1's row sums and K4's h (the train step's calls), and K9 at
-dropout 0.1 (the train step's) and 0 (Grad-CAM's). Printed per kernel: the
-median over each checkout's turns, their ratio, and the spread of the
-other checkout's own turns (the distance between its quartiles, as a
-share of its median), with the card's name and power limit. K4 and K9
+0.1, with K1's row sums and K4's h (the train step's calls), K2 also with
+u (the train step's call), and K9 at dropout 0.1 (the train step's) and 0
+(Grad-CAM's). Printed per kernel: the median over each checkout's turns,
+their ratio, the spread of the other checkout's own turns (the distance
+between its quartiles, as a share of its median), and the largest
+|this - other| of each output of one call on the same operands (0 where
+the bits are equal), with the card's name and power limit. K2 is called
+through :func:`fused_ln_qkv_call`: an older ``nvt_fused_ln_qkv_fwd`` (one
+``wmma`` kernel) takes a null u when serving, this one's u or a scratch.
+K4 and K9
 are called through each library's own entry point (:func:`fused_mlp_call`,
 :func:`fused_mlp_bwd_call`): an older checkout's ``nvt_fused_mlp_fwd``
 takes the rows of a block (32 at the flagship) and no scratch, and its
@@ -85,6 +90,25 @@ def fused_mlp_call(args: tuple, dropout_rate: float = 0.0, seeds=(0, 0),
                   p(w2), p(b2), p(y), p(h), b * n, dim, hid, rows, nn.LN_EPS,
                   inv_keep, keep_q, int(seeds[0]), int(seeds[1]))
     return (y, h) if return_h else y
+
+
+def fused_ln_qkv_call(args: tuple, return_u: bool = False):
+    """K2 on ``args`` (x, gamma, beta, bf16 w, heads, dim_head) through the
+    library in use: this checkout's wrapper where the library counts a
+    scratch (``nvt_fused_ln_qkv_fwd_scratch_bytes``), else the older entry
+    point, which takes u null when serving and writes no u then."""
+    if hasattr(_build.library(), "nvt_fused_ln_qkv_fwd_scratch_bytes"):
+        return fused_qkv.fused_ln_qkv_cuda(*args, return_u=return_u)
+    x, gamma, beta, w, heads, dim_head = args
+    b, n, dim = x.shape
+    q, k, v = (x.new_empty(b, n, heads, dim_head) for _ in range(3))
+    u = torch.empty_like(x) if return_u else None
+    p = common.ptr
+    common.launch("nvt_fused_ln_qkv_fwd", (common.VOID,) * 8
+                  + (common.INT,) * 3 + (common.FLOAT,), x, p(x), p(gamma),
+                  p(beta), p(w), p(q), p(k), p(v), p(u), b * n, dim,
+                  heads * dim_head, nn.LN_EPS)
+    return (q, k, v, u) if return_u else (q, k, v)
 
 
 def int8_qkv_call(args: tuple):
@@ -194,6 +218,7 @@ def cases() -> dict:
     b2, attn, dy = t(dim, scale=0.02, dtype=torch.float32), t(b, n, h * d), \
         t(b, n, dim, scale=0.1)
     bf = torch.bfloat16
+    wqkv16 = wqkv.to(bf)
     dqkv = torch.cat([a.reshape(b, n, -1) for a in qkv], dim=2)
     att = {"scale": d ** -0.5, "n_valid": n, "dropout_rate": cs.DROPOUT,
            "seed": 1234}
@@ -216,7 +241,9 @@ def cases() -> dict:
         "flash_attention dropout": ("nvt_flash_attention_fwd", lambda: (
             fa.flash_attention_cuda(*qkv, return_stats=True, **att))),
         "fused_ln_qkv": ("nvt_fused_ln_qkv_fwd", lambda: (
-            fused_qkv.fused_ln_qkv_cuda(x, *ln, wqkv.to(bf), h, d))),
+            fused_ln_qkv_call((x, *ln, wqkv16, h, d)))),
+        "fused_ln_qkv with u": ("nvt_fused_ln_qkv_fwd", lambda: (
+            fused_ln_qkv_call((x, *ln, wqkv16, h, d), return_u=True))),
         "fused_outproj_residual": ("nvt_fused_outproj_fwd", lambda: (
             fused_outproj.fused_outproj_residual_cuda(x, attn, wout.to(bf),
                                                       bout))),
@@ -263,6 +290,26 @@ def use(lib: ctypes.CDLL) -> None:
     _build.library = lambda: lib
 
 
+def tensors(out) -> list:
+    """The tensors of a call's result, in order (None entries dropped)."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for t in out if t is not None]
+
+
+def output_diffs(libs: dict, call) -> list:
+    """The largest |this - other| of each output of one call on the same
+    operands, 0.0 where the two are bit-equal."""
+    outs = {}
+    for side in ("other", "this"):
+        use(libs[side])
+        outs[side] = tensors(call())
+    torch.cuda.synchronize()
+    return [0.0 if torch.equal(a, b) else
+            float((a.float() - b.float()).abs().max())
+            for a, b in zip(outs["this"], outs["other"])]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True,
@@ -277,7 +324,7 @@ def main(argv=None) -> int:
     print(f"card: {cs.card_line()}; {args.rounds} rounds of other, this, "
           f"this, other; each turn the median of 10 launches")
     print(f"{'kernel':26s} {'other ms':>9s} {'this ms':>9s} {'ratio':>6s} "
-          f"{'other IQR':>9s}")
+          f"{'other IQR':>9s}  max |this - other| per output")
     for name, (symbol, call) in cases().items():
         if args.only not in name:
             continue
@@ -291,8 +338,9 @@ def main(argv=None) -> int:
                 turns[side].append(cs.cuda_ms(call, warmup=2, runs=10))
         a, b = (float(np.median(turns[s])) for s in ("other", "this"))
         q1, q3 = np.percentile(turns["other"], [25, 75])
+        diffs = ", ".join(f"{d:.3e}" for d in output_diffs(libs, call))
         print(f"{name:26s} {a:9.4f} {b:9.4f} {b / a:6.3f} "
-              f"{(q3 - q1) / a:9.3f}", flush=True)
+              f"{(q3 - q1) / a:9.3f}  [{diffs}]", flush=True)
     return 0
 
 

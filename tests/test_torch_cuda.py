@@ -16,7 +16,11 @@ and K4, K9 and K12 on TMA + wgmma at ragged rows (1-300, 8008), ViT-H,
 dim 1536 / mlp 6144 and mlp 8192, ragged column tiles, all-zero rows,
 repeat calls bit for bit (K4 also without h, K9 on K4's own h and with
 dgamma / dbeta) and their plans' scratch and shared-memory bytes against
-the kernels' counts; K7 on TMA + wgmma at ragged rows (1-300, 8008), dims
+the kernels' counts; K2 on TMA + wgmma at ragged rows (1-2002, 8008),
+dims 64-2048 and inners 256-2048 (ViT-H and dim 2048 among them), with
+and without u, u served from the scratch bit-equal to u returned,
+all-zero rows, repeat calls bit for bit and its plan's bytes against the
+kernel's counts; K7 on TMA + wgmma at ragged rows (1-300, 8008), dims
 64-1536 and inners 80-1280 (ViT-H and 1536 / 1536 among them), an
 all-zero dqkv and all-zero rows of it, repeat calls bit for bit and its
 plan's bytes against the kernel's counts; and K13 on TMA + wgmma at head dims 16-128, n_valid
@@ -261,6 +265,123 @@ def test_fused_ln_qkv_kernel_with_u(cuda, m):
     *qkv_p, u_p = fused_qkv.fused_ln_qkv_plain(x, gamma, beta, w, 2, 64,
                                                return_u=True)
     _check(tuple(qkv) + (u,), tuple(qkv_p) + (u_p,))
+
+
+# K2 on TMA + wgmma: (m, dim, heads, dim_head). Ragged rows (1, 65, 130,
+# 300, 2002), the flagship at batch 8 (8008 = 62 tiles + 72 rows), inner
+# 320 off both tile widths (the last tile of q and k reads Wqkv's rows of
+# the next section), ViT-H (1280, 16 x 80) and the widths the wmma K2
+# refused (its [64, dim] u block in shared memory): dim 1536 past one
+# 64-column box, and dim 2048 at inner 1024 and 2048; grids on both sides
+# of the 64-column tile rule.
+QKV_CASES = [(1, 1024, 8, 64), (65, 1024, 8, 64), (300, 1024, 8, 64),
+             (8008, 1024, 8, 64), (300, 64, 4, 80), (65, 384, 6, 64),
+             (130, 1280, 16, 80), (8008, 1280, 16, 80), (1, 1536, 24, 64),
+             (2002, 1536, 24, 64), (300, 2048, 16, 64),
+             (130, 2048, 16, 128)]
+
+
+def _qkv_args(rng, m, dim, heads, dh, device, zero_rows=(),
+              zero_beta=False):
+    """K2's operands for x [1, m, dim]; ``zero_rows`` of x are 0, and with
+    ``zero_beta`` beta is 0 too, so u is 0 on those rows."""
+    x = _rand(rng, (1, m, dim), device)
+    x[0, list(zero_rows)] = 0
+    gamma = _rand(rng, (dim,), device, torch.float32, 0.1, 1.0)
+    beta = _rand(rng, (dim,), device, torch.float32, 0.1)
+    if zero_beta:
+        beta.zero_()
+    w = _rand(rng, (3 * heads * dh, dim), device, torch.bfloat16,
+              dim ** -0.5)
+    return (x, gamma, beta, w, heads, dh)
+
+
+@pytest.mark.parametrize("return_u", [False, True])
+@pytest.mark.parametrize("m,dim,heads,dh", QKV_CASES)
+def test_fused_ln_qkv_kernel_widths(cuda, m, dim, heads, dh, return_u):
+    """K2 against plain, with and without u, one launch-count a call."""
+    args = _qkv_args(np.random.default_rng(m + dim + heads * dh), m, dim,
+                     heads, dh, cuda)
+    before = fused_qkv.fused_ln_qkv_cuda.launches
+    _check(fused_qkv.fused_ln_qkv_cuda(*args, return_u=return_u),
+           fused_qkv.fused_ln_qkv_plain(*args, return_u=return_u))
+    assert fused_qkv.fused_ln_qkv_cuda.launches == before + 1
+
+
+def _served_u(args):
+    """q, k, v and u of one serving launch of K2, u read back from the
+    scratch the serving call allocates (the wrapper's launch, by hand)."""
+    from neurovit_tpu_torch import nn
+    from neurovit_tpu_torch.ops import common
+    x, gamma, beta, w, heads, dh = args
+    b, n, dim = x.shape
+    plan = fused_qkv.qkv_plan(b * n, dim, heads * dh)
+    q, k, v = (x.new_empty(b, n, heads, dh) for _ in range(3))
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
+                          device=x.device)
+    p = common.ptr
+    common.launch("nvt_fused_ln_qkv_fwd", (common.VOID,) * 8
+                  + (common.INT,) * 3 + (common.FLOAT,), x, p(x), p(gamma),
+                  p(beta), p(w), p(q), p(k), p(v), p(scratch), b * n, dim,
+                  heads * dh, nn.LN_EPS)
+    u = scratch[:b * n * dim * 2].view(torch.bfloat16).reshape(x.shape)
+    return q, k, v, u
+
+
+@pytest.mark.parametrize("m,dim,heads,dh", [(130, 256, 4, 80),
+                                            (8008, 1024, 8, 64),
+                                            (300, 2048, 16, 128)])
+def test_fused_ln_qkv_kernel_repeats_and_u(cuda, m, dim, heads, dh):
+    """Two training calls bit-equal (u included); u within the bf16
+    tolerance of the plain version's and bit-equal to the u a serving
+    call leaves in its scratch, and the serving call's q, k, v equal."""
+    args = _qkv_args(np.random.default_rng(m + 17), m, dim, heads, dh, cuda)
+    one, two = (fused_qkv.fused_ln_qkv_cuda(*args, return_u=True)
+                for _ in range(2))
+    served = _served_u(args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+    assert all(torch.equal(a, b) for a, b in zip(one, served))
+    _check(one[3], fused_qkv.fused_ln_qkv_plain(*args, return_u=True)[3])
+
+
+@pytest.mark.parametrize("zero_beta", [True, False])
+def test_fused_ln_qkv_kernel_zero_rows(cuda, zero_beta):
+    """All-zero rows of x at a tile's first and last row and in the ragged
+    tile: with beta = 0, u is 0 there, so q = k = v = 0 exactly; the rest
+    matches plain."""
+    rows = (0, 127, 128, 129)
+    args = _qkv_args(np.random.default_rng(5), 130, 256, 4, 64, cuda,
+                     zero_rows=rows, zero_beta=zero_beta)
+    got = fused_qkv.fused_ln_qkv_cuda(*args, return_u=True)
+    _check(got, fused_qkv.fused_ln_qkv_plain(*args, return_u=True))
+    if zero_beta:
+        assert all(not t[0, list(rows)].float().abs().max() for t in got)
+
+
+def test_qkv_plan_matches_the_kernel(cuda):
+    """The wrapper's K2 plan (``qkv_plan``) counts the serving scratch and
+    the GEMM pass's shared memory (which follows its tile width) as the
+    kernel does, at every width of the matrix and the card tests' widths,
+    on both sides of the 64-column tile rule."""
+    import ctypes
+
+    from neurovit_tpu_torch.models.vit3d import WIDTHS
+    from neurovit_tpu_torch.ops import _build
+    lib = _build.library()
+    scratch = lib.nvt_fused_ln_qkv_fwd_scratch_bytes
+    smem = lib.nvt_fused_ln_qkv_fwd_smem_bytes
+    scratch.restype, scratch.argtypes = ctypes.c_longlong, [ctypes.c_int] * 3
+    smem.restype, smem.argtypes = ctypes.c_longlong, [ctypes.c_int] * 2
+    widths = [(w[0], w[1] * w[2]) for w in WIDTHS.values()] + [
+        (d, h * dh) for _, d, h, dh in QKV_CASES]
+    for dim, inner in widths:
+        for m in (1, 130, 1001, 2048, 8008, 32032, 128128):
+            plan = fused_qkv.qkv_plan(m, dim, inner)
+            assert scratch(m, dim, inner) == plan.scratch_bytes, (m, dim,
+                                                                  inner)
+            assert [s for *_, s in plan.launches] == [
+                0, smem(m, inner)], (m, dim, inner)
 
 
 # K7's widths: the smoke model's dim with inner 128, inner 80 (3 inner =

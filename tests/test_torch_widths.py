@@ -253,7 +253,6 @@ def test_kernel_gates_accept_every_width(width):
 @pytest.mark.parametrize("gate,args,match", [
     (fused_qkv.check_fwd_shapes, (72, 64), "dim as a multiple of 16"),
     (fused_qkv.check_fwd_shapes, (64, 40), "inner as a multiple of 16"),
-    (fused_qkv.check_fwd_shapes, (2048, 512), "bytes of shared memory"),
     (fused_qkv.check_bwd_shapes, (1288, 512), "dim as a multiple of 16"),
     (fused_outproj.check_shapes, (1000, 512), "multiple of 16"),
     (fused_mlp.check_fwd_shapes, (1024, 2056), "multiple of 16"),
@@ -282,6 +281,19 @@ def test_mlp_gate_accepts_the_widths_once_refused(dim, hid):
                  fused_mlp.mlp_bwd_plan(8008, dim, hid)):
         assert plan.launches[1][1] == (hid // 128, 63)
         assert plan.launches[2][1] == (dim // 128, 63)
+
+
+@pytest.mark.parametrize("dim,inner", [(2048, 512), (2048, 2048)])
+def test_qkv_gate_accepts_the_widths_once_refused(dim, inner):
+    """K2 kept a [64, dim] u block in shared memory beside its GEMM tiles
+    and refused dim past 1536 ("bytes of shared memory"). On K4's LayerNorm
+    rows and the TMA + wgmma GEMM it takes them, and so does its plan: two
+    launches, the GEMM over 3 inner / 128 column tiles."""
+    fused_qkv.check_fwd_shapes(dim, inner)
+    plan = fused_qkv.qkv_plan(8008, dim, inner)
+    assert [name for name, *_ in plan.launches] == ["ln_rows", "qkv_gemm"]
+    assert plan.launches[1][1] == (3 * inner // 128, 63)
+    assert plan.scratch["u"] == (0, 8008 * dim * 2)
 
 
 @pytest.mark.parametrize("dim,inner", [(1280, 1280), (1536, 1536)])
