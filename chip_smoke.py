@@ -20,6 +20,7 @@ Phases, each printing a line; any failure raises and exits non-zero:
                which give q = k = v = 0, and two calls bit-equal, u
                included), K1, K3 and
                K4 again at dropout 0.1 (the same mask bits on both sides;
+               K3 also at 130 rows;
                K4 with h, also at 130 rows and at dim 1280 / mlp 5120 and
                dim 1024 / mlp 8192 at batch 2, and on all-zero rows, which
                give bf16(b2), and two calls bit-equal),
@@ -34,7 +35,9 @@ Phases, each printing a line; any failure raises and exits non-zero:
                timed beside K1 or K5 on the transposed inputs, and the int8
                kernels K10-K13 (K13 also at n_valid 900; K10 also at 130
                rows and on all-zero rows with beta = 0, which give q = k =
-               v = 0, and two calls bit-equal; K12 also at 130
+               v = 0, and two calls bit-equal; K11 bit-equal to plain, also
+               at 130 rows and on all-zero rows of a, which give bf16(b +
+               x), and two calls bit-equal; K12 also at 130
                rows, at dim 1280 / mlp 5120 and dim 1024 / mlp 8192 at
                batch 2, and on all-zero rows, which give bf16(b2), and two
                calls bit-equal), each timed beside its bf16 counterpart
@@ -59,7 +62,12 @@ Phases, each printing a line; any failure raises and exits non-zero:
                design's bytes (scripts/torch_qkv_bwd_device_times.py), and
                of K2's two passes beside K17 bf16 at its GEMM's shape, the
                bound and the design's bytes
-               (scripts/torch_qkv_device_times.py)
+               (scripts/torch_qkv_device_times.py), and of K3 at dropout 0
+               and 0.1, K11's two passes and K8 at dropout 0.1 and 0
+               beside torch.mm, K17 bf16, torch._int_mm, K17 int8 and
+               torch.mm(dy, Wout) at their GEMMs' shapes, with the bound
+               and the design's bytes
+               (scripts/torch_outproj_device_times.py)
 4. widths      every ViT width of the matrix (models/vit3d.py WIDTHS: the
                smoke model, head dims 32, 80 and 128, ViT-S/B/L and the
                flagship) at batch 2 x 1001 tokens through K1-K13 against the
@@ -68,7 +76,9 @@ Phases, each printing a line; any failure raises and exits non-zero:
                the kernels'; K4 and K9 at ViT-H (dim 1280, mlp 5120)
                against plain; K2, K10 and K7 at ViT-H (dim 1280, 16 heads x
                80), at dim 1536 / inner 1536 and at dim 2048 / inner 2048,
-               batch 2 and 130 rows, against plain; K4
+               batch 2 and 130 rows, against plain, and K3 (dropout 0.1)
+               and K11 (bit-equal) there too, with their plans (K11's
+               scratch, both GEMMs' shared memory) against the kernels'; K4
                and K9 timed at batch 8 at the ViT-B, ViT-L, ViT-H and
                flagship widths
 5. probes      the probe scripts' main paths with their launch counts
@@ -534,12 +544,29 @@ def qkv_device_times(results: dict, args: tuple, card: str) -> None:
             "device not measured (no kernels traced)") + f"; {card}")
 
 
+def outproj_device_times(results: dict, card: str) -> None:
+    """The device times of K3 at dropout 0 and 0.1, K11 pass by pass and
+    K8 at dropout 0 and 0.1 at the kernel phase's shapes, on the script's
+    own seeded operands (``scripts/torch_outproj_device_times.py``): K3's
+    and K11's first cases and K8's at dropout 0.1 into their results; the
+    yardsticks at their GEMMs' shapes logged beside them."""
+    times = script("torch_outproj_device_times")
+    lines, measured = times.run(B, 10)
+    for key, name in (("K3", "fused_outproj_residual"),
+                      ("K11", "int8_outproj_residual"),
+                      (f"K8 dropout {DROPOUT}", "fused_outproj_bwd")):
+        results[name]["device_ms"] = measured[key]["device_ms"]
+    for text in lines:
+        log("kernels", f"{text.strip()}; {card}")
+
+
 def build_notes(lib) -> None:
     """Log, from the build's compiler output, every ptxas note on a kernel
     (C7514 and C7512, wgmma serialised; C7508, setmaxnreg ignored) and
     every kernel that spills, with its name, and the registers of each
     instance of the attention backward, of K12's four passes, of K4's
-    three, of K9's five, of K7's four and of K2's GEMM."""
+    three, of K9's five, of K7's four, of K2's GEMM and of K10's and
+    K11's row pass."""
     from neurovit_tpu_torch.ops import _build
     path = _build.build_log(lib)
     if not path.exists():
@@ -560,6 +587,7 @@ def build_notes(lib) -> None:
         if (stores or loads or "flash_bwd" in fn
                 or source in ("int8_qkv.cu", "int8_rowquant.cu",
                               "int8_mlp.cu", "fused_mlp.cu", "fused_qkv.cu",
+                              "int8_outproj.cu", "fused_outproj.cu",
                               "fused_mlp_bwd.cu", "fused_qkv_bwd.cu",
                               "int8_attention.cu")):
             log("build", f"{source} {readable.get(fn, fn)}: {regs} "
@@ -723,6 +751,14 @@ def kernel_phase(card: str) -> dict:
         "130 rows": (x[:1, :130].contiguous(), *ln, *qkv8, HEADS, DIM_HEAD),
         "zero rows, beta = 0": (x0, ln[0], torch.zeros_like(ln[1]), *qkv8,
                                 HEADS, DIM_HEAD)}
+    # K11 beyond the flagship: a ragged last row tile (130 rows), and
+    # all-zero rows of a (amax 0, scale 1, codes 0) at a tile's first and
+    # last row, which give y = bf16(b + x) there.
+    attn0 = attn.clone()
+    attn0[0, [0, 127, 128, 1000]] = 0
+    out_130 = (x[:1, :130].contiguous(), attn[:1, :130].contiguous())
+    out8_more = {"130 rows": (*out_130, *out8, bout),
+                 "zero rows of a": (x, attn0, *out8, bout)}
     # K14/K15 at the ResNet stem's shape: continuous values, and post-ReLU
     # zeros and small integers in bf16, where most windows tie.
     pools = {"continuous": t(*POOL_SHAPE),
@@ -766,7 +802,12 @@ def kernel_phase(card: str) -> dict:
              lambda: fused_outproj.fused_outproj_residual_cuda(
                  x, attn, wout, bout, **drop),
              lambda: fused_outproj.fused_outproj_residual_plain(
-                 x, attn, wout, bout, **drop))],
+                 x, attn, wout, bout, **drop)),
+            (f"130 rows dropout {DROPOUT}",
+             lambda: fused_outproj.fused_outproj_residual_cuda(
+                 *out_130, wout, bout, **drop),
+             lambda: fused_outproj.fused_outproj_residual_plain(
+                 *out_130, wout, bout, **drop))],
         "fused_mlp_block": [
             ("", lambda: fused_mlp.fused_mlp_block_cuda(*mlp_args),
              lambda: fused_mlp.fused_mlp_block_plain(*mlp_args)),
@@ -831,7 +872,11 @@ def kernel_phase(card: str) -> dict:
               for label, a in qkv8_more.items()]],
         "int8_outproj_residual": [
             ("", lambda: q8.int8_outproj_residual_cuda(x, attn, *out8, bout),
-             lambda: q8.int8_outproj_residual_plain(x, attn, *out8, bout))],
+             lambda: q8.int8_outproj_residual_plain(x, attn, *out8, bout),
+             False, (), "exact"),
+            *[(label, lambda a=a: q8.int8_outproj_residual_cuda(*a),
+               lambda a=a: q8.int8_outproj_residual_plain(*a), False, (),
+               "exact") for label, a in out8_more.items()]],
         "int8_mlp_block": [
             ("", lambda: q8.int8_mlp_block_cuda(x, *ln, *mlp8),
              lambda: q8.int8_mlp_block_plain(x, *ln, *mlp8)),
@@ -1022,6 +1067,19 @@ def kernel_phase(card: str) -> dict:
             raise AssertionError(f"int8_ln_qkv {label}: two calls differ")
     log("kernels", "int8_ln_qkv: all-zero rows with beta = 0 give q = k = "
         "v = 0; two calls bit-equal at the flagship and at 130 rows")
+    y0 = q8.int8_outproj_residual_cuda(*out8_more["zero rows of a"])
+    if not torch.equal(y0[0, [0, 127, 128, 1000]], (
+            bout + x[0, [0, 127, 128, 1000]].float()).to(torch.bfloat16)):
+        raise AssertionError("int8_outproj_residual: an all-zero row of a is "
+                             "not bf16(b + x)")
+    for label, a in (("flagship", (x, attn, *out8, bout)),
+                     ("130 rows", out8_more["130 rows"])):
+        if not torch.equal(q8.int8_outproj_residual_cuda(*a),
+                           q8.int8_outproj_residual_cuda(*a)):
+            raise AssertionError(f"int8_outproj_residual {label}: two calls "
+                                 "differ")
+    log("kernels", "int8_outproj_residual: all-zero rows of a give bf16(b + "
+        "x); two calls bit-equal at the flagship and at 130 rows")
     y0 = q8.int8_mlp_block_cuda(*mlp8_more["zero rows, beta = b1 = 0"])
     if not torch.equal(y0[0, [0, 127, 128, 1000]],
                        b2.to(torch.bfloat16).expand(4, -1)):
@@ -1078,6 +1136,7 @@ def kernel_phase(card: str) -> dict:
         "and at 130 rows")
     del mlp8_more, mlp_more, mlp_zero, x0, y0, one, two, bwd_more, got0, dy0
     del qkv8_more, qkv_bwd, dqkv0, dx0, qkv_more, served
+    del out8_more, attn0, out_130
     attention_device_times(results, qkv, qkv_h, card)
     qkv_device_times(results, (x, *ln, wqkv, HEADS, DIM_HEAD), card)
     int8_qkv_device_times(results, (x, *ln, *qkv8, HEADS, DIM_HEAD), card)
@@ -1086,6 +1145,7 @@ def kernel_phase(card: str) -> dict:
     mlp_device_times(results, mlp_args, card)
     mlp_bwd_device_times(results, bwd_args, card)
     qkv_bwd_device_times(results, (dqkv, x, ln[0], wqkv), card)
+    outproj_device_times(results, card)
     return results
 
 
@@ -1118,13 +1178,14 @@ def _width_operands(rng, b: int, dim: int, heads: int, dh: int, hid: int
 def widths_phase(card: str) -> None:
     """Every ViT width of the matrix (models/vit3d.py WIDTHS) at batch 2 x
     1001 tokens through K1-K13 against the plain versions, with the kernel
-    phase's tolerances, dropout 0.1 where an op has it; K4's, K9's, K2's,
-    K10's and K7's plans (scratch and shared memory) against the kernels'
-    own counts; K4 and K9 at ViT-H (dim 1280, 16 heads of 80, mlp 5120),
-    which the wmma K9 refused, against plain; K2, K10 and K7 at ViT-H, at
-    dim 1536 / inner 1536 and at dim 2048 / inner 2048, which their wmma
-    versions refused (K2 the last), against plain; then K4 and K9 timed at
-    batch 8 at the ViT-B, ViT-L, ViT-H and flagship widths."""
+    phase's tolerances (K11 bit for bit), dropout 0.1 where an op has it;
+    K4's, K9's, K2's, K10's, K7's, K11's and K3's plans (scratch and shared
+    memory) against the kernels' own counts; K4 and K9 at ViT-H (dim 1280,
+    16 heads of 80, mlp 5120), which the wmma K9 refused, against plain;
+    K2, K10, K7, K3 and K11 at ViT-H, at dim 1536 / inner 1536 and at dim
+    2048 / inner 2048, which their wmma versions refused, against plain;
+    then K4 and K9 timed at batch 8 at the ViT-B, ViT-L, ViT-H and flagship
+    widths."""
     import ctypes
 
     from neurovit_tpu_torch.models.vit3d import WIDTHS
@@ -1143,10 +1204,30 @@ def widths_phase(card: str) -> None:
     k7_smem = lib.nvt_fused_ln_qkv_bwd_smem_bytes
     k2_scratch = lib.nvt_fused_ln_qkv_fwd_scratch_bytes
     k2_smem = lib.nvt_fused_ln_qkv_fwd_smem_bytes
-    for fn in (scratch, bwd_scratch, qkv_scratch, k7_scratch, k2_scratch):
+    k11_scratch = lib.nvt_int8_outproj_scratch_bytes
+    k11_smem = lib.nvt_int8_outproj_smem_bytes
+    k3_smem = lib.nvt_fused_outproj_smem_bytes
+    for fn in (scratch, bwd_scratch, qkv_scratch, k7_scratch, k2_scratch,
+               k11_scratch):
         fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 3
-    for fn in (smem, bwd_smem, qkv_smem, k7_smem, k2_smem):
+    for fn in (smem, bwd_smem, qkv_smem, k7_smem, k2_smem, k11_smem,
+               k3_smem):
         fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 2
+
+    def check_outproj_plans(what: str, m: int, dim: int, inner: int) -> None:
+        """K11's plan (scratch, the GEMM's shared memory) and K3's (its
+        launch's shared memory) against the kernels' own counts."""
+        plan8 = q8.int8_outproj_plan(m, dim, inner)
+        counted = (k11_scratch(m, dim, inner), k11_smem(m, dim),
+                   k3_smem(m, dim))
+        mine = (plan8.scratch_bytes, plan8.launches[1][3],
+                fused_outproj.outproj_plan(m, dim, inner).launches[0][3])
+        if counted != mine:
+            raise AssertionError(
+                f"{what}: K11's and K3's plans count (K11's scratch and "
+                f"shared memory, K3's shared memory) {mine} bytes, the "
+                f"kernels {counted}")
+
     rng = np.random.default_rng(SEED + 6)
     bf = torch.bfloat16
     for name, (dim, heads, dh, hid) in WIDTHS.items():
@@ -1182,6 +1263,7 @@ def widths_phase(card: str) -> None:
                 f"{name}: K2's plan counts (serving scratch, the GEMM's "
                 f"shared memory) {(k2plan.scratch_bytes, k2plan.launches[1][3])}"
                 f" bytes, the kernel {counted}")
+        check_outproj_plans(name, 2 * N, dim, heads * dh)
         qplan = q8.qkv_plan(2 * N, dim, heads * dh)
         counted = (qkv_scratch(2 * N, dim, heads * dh),
                    qkv_smem(2 * N, heads * dh))
@@ -1237,7 +1319,7 @@ def widths_phase(card: str) -> None:
             ("K10", *both("int8_ln_qkv", x, *ln, *qkv8, heads, dh,
                           module=q8)),
             ("K11", *both("int8_outproj_residual", x, p["attn"], *out8,
-                          p["bout"], module=q8)),
+                          p["bout"], module=q8), False, (), "exact"),
             ("K12", *both("int8_mlp_block", x, *ln, *mlp8, module=q8)),
             ("K13", *both("int8_flash_attention", q, k, v, module=q8,
                           **i8att)),
@@ -1276,15 +1358,21 @@ def widths_phase(card: str) -> None:
         f"at dropout {DROPOUT} against plain at B=2 N={N}, K9 max abs err "
         f"{err:.3e}")
     del p, mlp, got, bwd
-    # K2, K10 and K7 at the widths their wmma versions refused (K10's and
-    # K7's LayerNorm rows sat in one warp's registers, K2's u block in
-    # shared memory up to dim 1536): ViT-H, dim 1536 / inner 1536 and dim
-    # 2048 / inner 2048, at batch 2 and at 130 rows, against plain.
+    # K2, K10, K7, K3 and K11 at the widths their wmma versions refused
+    # (K10's, K7's and K11's rows sat in one warp's registers, K2's u block
+    # and K3's a block in shared memory up to dim or inner 1536): ViT-H,
+    # dim 1536 / inner 1536 and dim 2048 / inner 2048, at batch 2 and at
+    # 130 rows, against plain (K3 at dropout 0.1, K11 bit for bit).
     for dim, heads, dh in ((1280, 16, 80), (1536, 24, 64), (2048, 16, 128)):
         p = _width_operands(rng, 2, dim, heads, dh, 16)
         qkv8 = q8.quantize_weight(p["wqkv"])
-        wqkv = p["wqkv"].to(bf)
-        worst = {"K2": [], "K10": [], "K7": []}
+        out8 = q8.quantize_weight(p["wout"])
+        wqkv, wout = p["wqkv"].to(bf), p["wout"].to(bf)
+        drop = {"dropout_rate": DROPOUT, "seed": 12}
+        for m in (2 * N, 130):
+            check_outproj_plans(f"dim {dim} inner {heads * dh}", m, dim,
+                                heads * dh)
+        worst = {"K2": [], "K10": [], "K7": [], "K3": [], "K11": []}
         for label, rows in ((f"B=2 N={N}", (slice(None),)),
                             ("130 rows", (slice(0, 1), slice(0, 130)))):
             x = p["x"][rows].contiguous()
@@ -1307,15 +1395,33 @@ def widths_phase(card: str) -> None:
                              fused_qkv.fused_ln_qkv_bwd_plain(*k7), True,
                              (1, 2))
             worst["K7"].append(err)
+            out = (x, p["attn"][rows].contiguous())
+            err, _ = compare(f"widths dim {dim} inner {heads * dh} K3 "
+                             f"{label}",
+                             fused_outproj.fused_outproj_residual_cuda(
+                                 *out, wout, p["bout"], **drop),
+                             fused_outproj.fused_outproj_residual_plain(
+                                 *out, wout, p["bout"], **drop))
+            worst["K3"].append(err)
+            err, _ = compare(f"widths dim {dim} inner {heads * dh} K11 "
+                             f"{label}",
+                             q8.int8_outproj_residual_cuda(*out, *out8,
+                                                           p["bout"]),
+                             q8.int8_outproj_residual_plain(*out, *out8,
+                                                            p["bout"]),
+                             mode="exact")
+            worst["K11"].append(err)
         grids = [plan_of(2 * N, dim, heads * dh).launches[1][1]
                  for plan_of in (fused_qkv.qkv_plan, q8.qkv_plan,
-                                 fused_qkv.qkv_bwd_plan)]
-        log("widths", f"dim {dim}, {heads} heads x {dh}: K2, K10 and K7 "
-            f"against plain at B=2 N={N} and at 130 rows, max abs err "
-            f"{max(worst['K2']):.3e}, {max(worst['K10']):.3e} and "
-            f"{max(worst['K7']):.3e} (GEMM grids {grids[0]}, {grids[1]} and "
-            f"{grids[2]})")
-        del p, qkv8, wqkv, k2, k7
+                                 fused_qkv.qkv_bwd_plan,
+                                 q8.int8_outproj_plan)]
+        log("widths", f"dim {dim}, {heads} heads x {dh}: K2, K10, K7, K3 "
+            f"(dropout {DROPOUT}) and K11 against plain at B=2 N={N} and "
+            f"at 130 rows, max abs err "
+            + ", ".join(f"{k} {max(v):.3e}" for k, v in worst.items())
+            + f" (GEMM grids K2 {grids[0]}, K10 {grids[1]}, K7 {grids[2]}, "
+            f"K11 and K3 {grids[3]})")
+        del p, qkv8, wqkv, k2, k7, out8, wout, out
     # K4 and K9 at ViT-B, ViT-L and ViT-H (K4's widest tiles, K9's widest
     # rows) beside the flagship.
     for name, (dim, heads, dh, hid) in (

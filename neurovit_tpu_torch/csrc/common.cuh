@@ -1,9 +1,9 @@
 // Shared device code for the package's Hopper kernels (sm_90a).
 //
 // The kernels compute bf16 products with f32 accumulation on the tensor
-// cores. K3, K8 (fused_outproj*.cu) and K11 (int8_outproj.cu) still run
-// on nvcuda::wmma 16x16x16 tiles, the simple, correct first version; the
-// others run on TMA and wgmma (hopper_gemm.cuh).
+// cores. K8 (fused_outproj_bwd.cu) still runs on nvcuda::wmma 16x16x16
+// tiles (TileGemm), the simple, correct first version; the others run on
+// TMA and wgmma (hopper_gemm.cuh).
 //
 // Host entry points have a plain C interface: each returns the
 // cudaError_t of its launch (0 on success) and allocates nothing; the
@@ -14,8 +14,6 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace nvt {
 
@@ -167,36 +165,35 @@ __device__ __forceinline__ void zero_cols(bf16* T, int ld, int rows, int c0,
         make_uint4(0, 0, 0, 0);
 }
 
-// C[BM, BN] = A[BM, K] . W[n0 : n0 + BN, 0 : K]^T, bf16 in, f32 out.
+// C[BM, BN] = A[BM, K] . W[0 : K, n0 : n0 + BN], bf16 in, f32 out: K8's
+// product dZ . Wout by the torch weight Wout [K, N] as it lies.
 //
 // A is a bf16 row block resident in shared memory (leading dimension lda);
-// W is a torch Linear weight [N, K], row-major in global memory, so each
-// W row is one column of the product: a col_major wmma B operand with no
-// transpose anywhere. With KN = true, W is instead [K, N] row-major (the
-// backward's products dY . W by the same torch weight) and is read as a
-// row_major B operand, again with no transpose. W streams through a
-// two-stage cp.async ring of BN x BK tiles (from L2: every row block of
-// the grid reads the same W). The f32 result lands in shared memory as
-// C[BM][BN + 4], aliasing the ring, for the caller's fused epilogue.
+// W is row-major [K, N] in global memory, read as a row_major wmma B
+// operand with no transpose. W streams through a two-stage cp.async ring of
+// BK x BN tiles (from L2: every row block of the grid reads the same W).
+// The f32 result lands in shared memory as C[BM][BN + 4], aliasing the
+// ring, for the caller's fused epilogue.
 //
 // Ragged shapes: the k loop runs ceil(K / BK) steps, and W elements at
 // k >= K or at output columns n >= n_end are zero-filled in the ring, so
 // C's columns past n_end are 0 and the caller masks them. A's columns
 // K .. round_up(K, BK) must be zero (zero_cols). Only a ragged tile takes
 // the masked loads: when every tile paid the bounds tests, the flagship's
-// K2 and K4, whose tiles all fit, slowed measurably (PERF.md, section 6).
+// K2 and K4 (then on this GEMM), whose tiles all fit, slowed measurably
+// (PERF.md, section 6).
 //
 // Contract: K % 8 == 0, A, W and scratch are 16-byte aligned. All threads
 // of the block call run() together.
-template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, bool KN = false>
+template <int BM, int BN, int BK, int WARPS_M, int WARPS_N>
 struct TileGemm {
   static constexpr int kThreads = WARPS_M * WARPS_N * 32;
   static constexpr int WM = BM / WARPS_M;
   static constexpr int WN = BN / WARPS_N;
   static constexpr int FM = WM / 16;
   static constexpr int FN = WN / 16;
-  static constexpr int LDB = KN ? BN + kPad : BK + kPad;
-  static constexpr int kStage = KN ? BK * LDB : BN * LDB;
+  static constexpr int LDB = BN + kPad;
+  static constexpr int kStage = BK * LDB;
   static constexpr int LDC = BN + 4;
   static constexpr size_t kRingBytes = 2ull * kStage * sizeof(bf16);
   static constexpr size_t kCBytes = 1ull * BM * LDC * sizeof(float);
@@ -207,24 +204,13 @@ struct TileGemm {
   template <bool kMask>
   __device__ static void load_w(bf16* stage, const bf16* __restrict__ W,
                                 int ldw, int n0, int k0, int K, int n_end) {
-    if constexpr (KN) {
-      constexpr int kChunks = BK * BN / 8;
-      for (int c = threadIdx.x; c < kChunks; c += kThreads) {
-        const int r = c / (BN / 8), col = (c % (BN / 8)) * 8;
-        const bool ok = !kMask || (k0 + r < K && n0 + col < n_end);
-        cp_async16(stage + r * LDB + col,
-                   ok ? W + static_cast<size_t>(k0 + r) * ldw + n0 + col : W,
-                   ok ? 16 : 0);
-      }
-    } else {
-      constexpr int kChunks = BN * BK / 8;
-      for (int c = threadIdx.x; c < kChunks; c += kThreads) {
-        const int r = c / (BK / 8), col = (c % (BK / 8)) * 8;
-        const bool ok = !kMask || (n0 + r < n_end && k0 + col < K);
-        cp_async16(stage + r * LDB + col,
-                   ok ? W + static_cast<size_t>(n0 + r) * ldw + k0 + col : W,
-                   ok ? 16 : 0);
-      }
+    constexpr int kChunks = BK * BN / 8;
+    for (int c = threadIdx.x; c < kChunks; c += kThreads) {
+      const int r = c / (BN / 8), col = (c % (BN / 8)) * 8;
+      const bool ok = !kMask || (k0 + r < K && n0 + col < n_end);
+      cp_async16(stage + r * LDB + col,
+                 ok ? W + static_cast<size_t>(k0 + r) * ldw + n0 + col : W,
+                 ok ? 16 : 0);
     }
   }
 
@@ -273,9 +259,8 @@ struct TileGemm {
       for (int kk = 0; kk < BK; kk += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
             a[FM];
-        using BLayout = typename std::conditional<KN, wmma::row_major,
-                                                  wmma::col_major>::type;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> b[FN];
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
+            b[FN];
 #pragma unroll
         for (int i = 0; i < FM; ++i)
           wmma::load_matrix_sync(
@@ -283,14 +268,8 @@ struct TileGemm {
                         kt * BK + kk,
               lda);
 #pragma unroll
-        for (int j = 0; j < FN; ++j) {
-          if constexpr (KN)
-            wmma::load_matrix_sync(b[j], Ws + kk * LDB + wn * WN + j * 16,
-                                   LDB);
-          else
-            wmma::load_matrix_sync(b[j], Ws + (wn * WN + j * 16) * LDB + kk,
-                                   LDB);
-        }
+        for (int j = 0; j < FN; ++j)
+          wmma::load_matrix_sync(b[j], Ws + kk * LDB + wn * WN + j * 16, LDB);
 #pragma unroll
         for (int i = 0; i < FM; ++i)
 #pragma unroll

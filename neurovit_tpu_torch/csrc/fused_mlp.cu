@@ -32,7 +32,8 @@
 //      rounded; h (when stored) and g go to the ring and out by TMA.
 //   3. fc2_residual: the same mainloop over ceil(dim / BN) x ceil(M / 128)
 //      tiles, A = g, Bt = W2; the epilogue adds b2, applies mask2, adds x
-//      in f32 and rounds y once, stored as bf16 pairs from registers.
+//      in f32 and rounds y once, stored as bf16 pairs from registers. K3
+//      (fused_outproj.cu) launches the same pass (launch_fc2_residual).
 // Three stages (97 KiB of ring at BN = 128) let two GEMM blocks share an
 // SM, so one block's epilogue runs under the other's mainloop. BN is 128,
 // or 64 where 128-wide tiles would give the card fewer blocks than its 132
@@ -189,11 +190,8 @@ __global__ void __launch_bounds__(kThreads, kGemmBlocksPerSm)
 }
 
 template <int BN>
-cudaError_t allow_gemm_smem() {
-  cudaError_t err = allow_smem(fc1_gelu_kernel<BN>, Loop<BN>::kSmemBytes);
-  return err == cudaSuccess
-             ? allow_smem(fc2_residual_kernel<BN>, Loop<BN>::kSmemBytes)
-             : err;
+cudaError_t allow_fc1_smem() {
+  return allow_smem(fc1_gelu_kernel<BN>, Loop<BN>::kSmemBytes);
 }
 
 template <int BN>
@@ -214,6 +212,11 @@ void launch_fc2(const CUtensorMap& tg, const CUtensorMap& tw2,
   fc2_residual_kernel<BN><<<dim3((dim + BN - 1) / BN, (M + kBM - 1) / kBM),
                             kThreads, Loop<BN>::kSmemBytes, stream>>>(
       tg, tw2, b2, x, y, M, dim, hid, inv_keep, keep_q, seed2);
+}
+
+template <int BN>
+cudaError_t allow_fc2_smem() {
+  return allow_smem(fc2_residual_kernel<BN>, Loop<BN>::kSmemBytes);
 }
 
 cudaError_t launch_all(const bf16* x, const float* gamma, const float* beta,
@@ -239,8 +242,9 @@ cudaError_t launch_all(const bf16* x, const float* gamma, const float* beta,
     err = hopper::encode_kmajor(&tw2, w2, dim, hid, false, bn2);
   if (err == cudaSuccess && h != nullptr)
     err = hopper::encode_kmajor(&th, h, M, hid, false, kBM);
-  if (err == cudaSuccess) err = allow_gemm_smem<64>();
-  if (err == cudaSuccess) err = allow_gemm_smem<128>();
+  if (err == cudaSuccess) err = allow_fc1_smem<64>();
+  if (err == cudaSuccess) err = allow_fc1_smem<128>();
+  if (err == cudaSuccess) err = allow_fc2_residual_smem();
   if (err != cudaSuccess) return err;
 
   if ((err = launch_ln_rows(x, gamma, beta, u, M, dim, eps, stream)) !=
@@ -250,12 +254,28 @@ cudaError_t launch_all(const bf16* x, const float* gamma, const float* beta,
       tu, tw1, tg, th, b1, h != nullptr, M, dim, hid, inv_keep, keep_q, seed1,
       stream);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  (bn2 == 64 ? launch_fc2<64> : launch_fc2<128>)(
-      tg, tw2, b2, x, y, M, dim, hid, inv_keep, keep_q, seed2, stream);
-  return cudaGetLastError();
+  return launch_fc2_residual(tg, tw2, b2, x, y, M, dim, hid, inv_keep, keep_q,
+                             seed2, bn2, stream);
 }
 
 }  // namespace
+
+cudaError_t mlp::allow_fc2_residual_smem() {
+  const cudaError_t err = allow_fc2_smem<64>();
+  return err == cudaSuccess ? allow_fc2_smem<128>() : err;
+}
+
+cudaError_t mlp::launch_fc2_residual(const CUtensorMap& tg,
+                                     const CUtensorMap& tb, const float* b,
+                                     const bf16* x, bf16* y, int M, int N,
+                                     int K, float inv_keep, uint32_t keep_q,
+                                     uint64_t seed, int bn,
+                                     cudaStream_t stream) {
+  (bn == 64 ? launch_fc2<64> : launch_fc2<128>)(tg, tb, b, x, y, M, N, K,
+                                                inv_keep, keep_q, seed,
+                                                stream);
+  return cudaGetLastError();
+}
 
 cudaError_t mlp::launch_ln_rows(const bf16* x, const float* gamma,
                                 const float* beta, bf16* u, int M, int dim,

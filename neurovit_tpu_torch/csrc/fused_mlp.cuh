@@ -5,9 +5,10 @@
 // thread's place in the accumulator tile, the quad's shared dropout bits in
 // that layout, and the swizzled staging of a bf16 output tile in the freed
 // ring. The LN + QKV forward (fused_qkv.cu, K2) launches K4's LN rows pass
-// (launch_ln_rows) and uses its GEMM tiles; the LN + QKV backward
-// (fused_qkv_bwd.cu, K7) shares the statistics and, through ln_bwd.cuh,
-// K9's last three passes.
+// (launch_ln_rows) and uses its GEMM tiles; the out-projection (K3,
+// fused_outproj.cu) is K4's last pass (launch_fc2_residual); the LN + QKV
+// backward (fused_qkv_bwd.cu, K7) shares the statistics and, through
+// ln_bwd.cuh, K9's last three passes.
 #pragma once
 
 #include "hopper_gemm.cuh"
@@ -105,6 +106,22 @@ __device__ __forceinline__ float2 ln_row(const bf16* __restrict__ xr,
 cudaError_t launch_ln_rows(const bf16* x, const float* gamma,
                            const float* beta, bf16* u, int M, int dim,
                            float eps, cudaStream_t stream);
+
+// K4's pass 3, which K3 launches too (fused_mlp.cu):
+//   y = bf16(x + (g . Bt^T + b) * mask / keep)
+// for g [M, K] and Bt [N, K] bf16 through the maps tg (boxes of kBM rows)
+// and tb (boxes of bn rows, bn 64 or 128); b [N] f32; x and y [M, N] bf16,
+// N a multiple of 16. The mask of element (row, col) is nn.keep_mask's bit
+// at row * N + col under seed (QuadKeep); keep_q 0 turns it off. Loop<bn>
+// over (ceil(N / bn), ceil(M / kBM)) tiles on the stream; the epilogue
+// stores bf16 pairs from registers. allow_fc2_residual_smem() opts both
+// instances into their shared memory; call it before the first launch of
+// a call. Each returns the CUDA error.
+cudaError_t allow_fc2_residual_smem();
+cudaError_t launch_fc2_residual(const CUtensorMap& tg, const CUtensorMap& tb,
+                                const float* b, const bf16* x, bf16* y, int M,
+                                int N, int K, float inv_keep, uint32_t keep_q,
+                                uint64_t seed, int bn, cudaStream_t stream);
 
 // The keep bits of one row of a 128-column tile, shared within the quad.
 // Thread o (= t % 4) draws Philox blocks blk0 + 2 o + k, k = 0, 1, and packs

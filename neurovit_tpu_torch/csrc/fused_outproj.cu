@@ -1,88 +1,42 @@
-// Fused attention out-projection + bias + residual, bf16, deterministic.
+// Fused attention out-projection + bias + dropout + residual (K3), bf16,
+// deterministic, on TMA + wgmma.
 //
 // Replaces the TPU kernel neurovit_tpu/ops/fused_outproj.py:44 (_fwd_kernel,
 // launched at :79 by fused_outproj_residual):
 //   z = a . Wout^T + b                   f32
 //   z = z * (mask * (1 / keep))          training only (fused_outproj.py:50-52)
 //   y = bf16(x + z)                      x added in f32, one rounding
-// The mask of element (row, col) is nvt::DropoutBits at row * dim + col.
-// a [M, inner] is the attention output viewed as rows (no head transpose),
-// Wout the torch weight [dim, inner].
+// The mask of element (row, col) is nn.keep_mask's bit at row * dim + col
+// under seed, the site the plain version and K8 regenerate. a [M, inner] is
+// the attention output viewed as rows (no head transpose), Wout the torch
+// weight [dim, inner], K-major as it lies, so wgmma reads it with no
+// transpose.
 //
-// What bounds it on the H100: 2*M*inner*dim flops against about
-// 2*(M*inner + 2*M*dim) bytes: compute-bound at the serving shapes, with
-// the residual read riding the epilogue so x makes no separate round trip
-// (the point of the TPU kernel). The 64-row block of a is copied into
-// shared memory once with cp.async; Wout (1 MB, resident in VMEM on the
-// TPU) streams from L2 through nvt::TileGemm's two-stage ring. Grid:
-// (ceil(M/64), ceil(dim/512)); each block loops over its 512 output columns
-// in 128-column tiles. Widths are multiples of 16: a's columns past inner
-// are zero up to the k tile, and the last column tile is masked.
-#include "common.cuh"
-
-namespace nvt {
-namespace {
-
-constexpr int kBM = 64, kBN = 128, kBK = 32, kChunk = 512;
-using Gemm = TileGemm<kBM, kBN, kBK, 2, 4>;
-
-__global__ void __launch_bounds__(Gemm::kThreads)
-    outproj_kernel(const bf16* __restrict__ a, const bf16* __restrict__ x,
-                   const bf16* __restrict__ w, const float* __restrict__ bias,
-                   bf16* __restrict__ y, int M, int inner, int dim,
-                   float inv_keep, uint32_t keep_q, uint64_t seed) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int inner_k = static_cast<int>(round_up(inner, kBK));
-  const int lda = inner_k + kPad;
-  bf16* A = reinterpret_cast<bf16*>(smem);
-  void* scratch = smem + round_up(static_cast<size_t>(kBM) * lda * sizeof(bf16), 128);
-
-  const int row0 = blockIdx.x * kBM;
-  // Columns past inner (up to the k tile) are zero-filled by the copy.
-  for (int c = threadIdx.x; c < kBM * (inner_k / 8); c += Gemm::kThreads) {
-    const int r = c / (inner_k / 8), col = (c % (inner_k / 8)) * 8;
-    const int row = row0 + r;
-    const bool ok = row < M && col < inner;
-    cp_async16(A + r * lda + col,
-               ok ? a + static_cast<size_t>(row) * inner + col : a,
-               ok ? 16 : 0);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-
-  const float* C = reinterpret_cast<const float*>(scratch);
-  const int n_begin = blockIdx.y * kChunk;
-  DropoutBits bits(seed);
-  const int n_end = min(n_begin + kChunk, dim);
-  for (int n0 = n_begin; n0 < n_end; n0 += kBN) {
-    Gemm::run(A, lda, w, inner, n0, inner, scratch, dim);
-    for (int e = threadIdx.x; e < kBM * kBN / 8; e += Gemm::kThreads) {
-      const int r = e / (kBN / 8), c = (e % (kBN / 8)) * 8;
-      const int row = row0 + r;
-      if (row >= M || n0 + c >= dim) continue;
-      const size_t off = static_cast<size_t>(row) * dim + n0 + c;
-      float xf[8], out[8];
-      unpack8(*reinterpret_cast<const uint4*>(x + off), xf);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        float z = C[r * Gemm::LDC + c + i] + bias[n0 + c + i];
-        if (keep_q) z *= bits.keep(off + i, keep_q) ? inv_keep : 0.f;
-        out[i] = z + xf[i];
-      }
-      *reinterpret_cast<uint4*>(y + off) = pack8(out);
-    }
-  }
-}
-
-size_t smem_bytes(int inner) {
-  return round_up(static_cast<size_t>(kBM) * (round_up(inner, kBK) + kPad) *
-                      sizeof(bf16),
-                  128) +
-         Gemm::kScratchBytes;
-}
-
-}  // namespace
-}  // namespace nvt
+// What bounds it on the H100: the bytes of a, x, y and Wout (42.0 MB for
+// the flagship block at batch 8, M = 8008, inner 512, dim 1024: 0.0126 ms
+// at 3.35 TB/s) above its 2 M inner dim flops (0.0085 ms at 989 TFLOP/s).
+//
+// The design is one launch of K4's pass 3 (fused_mlp.cu, fc2_residual,
+// launch_fc2_residual) with A = a, Bt = Wout and K = inner: fused_mlp.cuh
+// Loop<BN> over (ceil(dim / BN), ceil(M / 128)) tiles, a 3-stage ring so
+// two blocks share an SM; the epilogue adds b, applies the mask (QuadKeep:
+// the quad's four threads draw the row's Philox blocks once), adds x in f32
+// and rounds y once, stored as bf16 pairs from registers. BN is 128, or 64
+// where 128-wide tiles would give the card fewer blocks than its 132 SMs
+// (fused_mlp.cuh tile_n). TMA zero-fills the boxes past M, dim and inner;
+// the epilogue masks rows >= M and columns >= dim. No row block of a is
+// held in shared memory, so inner is any multiple of 16 (TMA's 16-byte
+// rows), and Wout is read by each row tile from L2.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; profiler device times from
+// scripts/torch_outproj_device_times.py, four runs): 0.0332-0.0343 ms at
+// batch 8, 0.0349-0.0361 at dropout 0.1, where torch.mm with bf16 out
+// takes 15.1-15.2 us for the GEMM alone and K17 bf16's GEMM kernel
+// 26.9-27.0; the wmma kernel this replaces took 0.0766 and 0.0890. At K =
+// 512 a tile has eight k steps, too few to hide each block's ring fill and
+// its epilogue; an L2 prefetch of the block's x tile as it starts took
+// 39.4-42.0 us.
+#include "fused_mlp.cuh"
 
 // a [M, inner], x [M, dim], w [dim, inner] bf16; bias [dim] f32;
 // y [M, dim] bf16. inner % 16 == 0, dim % 16 == 0. keep_q: dropout
@@ -95,15 +49,24 @@ extern "C" int nvt_fused_outproj_fwd(const void* a, const void* x,
   if (M < 1 || inner < 16 || inner % 16 != 0 || dim < 16 || dim % 16 != 0 ||
       keep_q < 0 || keep_q > 255)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(inner);
-  cudaError_t err = allow_smem(outproj_kernel, smem);
+  const int bn = mlp::tile_n(M, dim);
+  // Both maps are encoded, and both instances allowed their shared memory,
+  // before the launch.
+  CUtensorMap ta, tw;
+  cudaError_t err = hopper::encode_kmajor(&ta, a, M, inner, false, mlp::kBM);
+  if (err == cudaSuccess)
+    err = hopper::encode_kmajor(&tw, w, dim, inner, false, bn);
+  if (err == cudaSuccess) err = mlp::allow_fc2_residual_smem();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((M + kBM - 1) / kBM, (dim + kChunk - 1) / kChunk);
-  outproj_kernel<<<grid, Gemm::kThreads, smem,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(a), static_cast<const bf16*>(x),
-      static_cast<const bf16*>(w), static_cast<const float*>(bias),
-      static_cast<bf16*>(y), M, inner, dim, inv_keep,
-      static_cast<uint32_t>(keep_q), seed);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(mlp::launch_fc2_residual(
+      ta, tw, static_cast<const float*>(bias), static_cast<const bf16*>(x),
+      static_cast<bf16*>(y), M, dim, inner, inv_keep,
+      static_cast<uint32_t>(keep_q), seed, bn,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// Dynamic shared memory of a block of K3's one launch for M rows at dim,
+// which follows its tile's width (ops/fused_outproj.py, outproj_plan).
+extern "C" long long nvt_fused_outproj_smem_bytes(int M, int dim) {
+  return static_cast<long long>(nvt::mlp::gemm_smem_bytes(M, dim));
 }

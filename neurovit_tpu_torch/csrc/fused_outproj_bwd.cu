@@ -11,7 +11,7 @@
 // and writing dz and dattn once: compute-bound at the training shapes. A
 // 64-row block turns its dy rows into dz in shared memory (the GEMM's A
 // operand, also stored for the dW product outside) and streams Wout [dim,
-// inner] -- the torch weight, in nvt::TileGemm's [K, N] mode -- from L2.
+// inner] -- the torch weight, as nvt::TileGemm reads it -- from L2.
 // Grid: (ceil(M/64), ceil(inner/512)); each block loops over 128-column
 // tiles of its chunk. Widths are multiples of 16: dz's columns past dim
 // are zero up to the k tile, and the last column tile is masked.
@@ -21,7 +21,7 @@ namespace nvt {
 namespace {
 
 constexpr int kBM = 64, kBN = 128, kBK = 32, kChunk = 512;
-using Gemm = TileGemm<kBM, kBN, kBK, 2, 4, true>;
+using Gemm = TileGemm<kBM, kBN, kBK, 2, 4>;
 
 __global__ void __launch_bounds__(Gemm::kThreads)
     outproj_bwd_kernel(const bf16* __restrict__ dy,

@@ -37,7 +37,9 @@
 //      g once; one warp per row, any hid.
 //   4. fc2: the same mainloop over ceil(M / 128) x ceil(dim / 128)
 //      tiles, A = g8, Bt = W2; the epilogue is y = bf16((dequant + b2) +
-//      x), K18's dequant epilogue with the bias and the residual.
+//      x), K18's dequant epilogue with the bias and the residual. K11
+//      (int8_outproj.cu) launches the same pass on its own codes
+//      (launch_fc2_residual, int8.cuh).
 // TMA zero-fills the boxes past M, dim and hid, so ragged edges need no
 // masked loads; the epilogues mask rows >= M and columns past N. A split
 // that keeps g in L2 (a persistent fc1 walking a row block's column
@@ -65,11 +67,11 @@ namespace nvt {
 namespace {
 
 constexpr int kRowWarps = kLnRowWarps;   // rows a block of passes 1 and 3
-constexpr int kBM = 128, kBN = 128;      // the GEMMs' output tile
-// Three stages (97 KiB of ring) let two GEMM blocks share an SM, so one
-// block's epilogue runs under the other's mainloop.
-constexpr int kStages = 3;
-using Loop = hopper::Mainloop<true, kBM, kBN, kStages>;
+// The GEMMs' output tile, 128 x 128. Three stages (97 KiB of ring) let two
+// GEMM blocks share an SM, so one block's epilogue runs under the other's
+// mainloop.
+constexpr int kBM = kGemmRows, kBN = 128;
+using Loop = GemmLoop<kBN>;
 
 // Scratch of one call, one allocation: g first (f32, the largest), then
 // u8, g8, gmax and the two row-scale vectors, each on a 256-byte boundary.
@@ -168,8 +170,10 @@ __global__ void __launch_bounds__(kRowWarps * 32)
   if (lane == 0) s2_row[row] = scale;
 }
 
-// Pass 4: y = bf16((dequant(g8 . W2^T) + b2) + x).
-__global__ void __launch_bounds__(Loop::kThreads)
+// Pass 4: y = bf16((dequant(g8 . W2^T) + b2) + x), BN columns a tile; K11
+// launches it too, with A = its codes of a and Bt = its W8.
+template <int BN>
+__global__ void __launch_bounds__(GemmLoop<BN>::kThreads)
     fc2_residual_kernel(const __grid_constant__ CUtensorMap tg8,
                         const __grid_constant__ CUtensorMap tw2,
                         const float* __restrict__ s2_row,
@@ -178,10 +182,10 @@ __global__ void __launch_bounds__(Loop::kThreads)
                         const bf16* __restrict__ x, bf16* __restrict__ y,
                         int M, int dim, int hid) {
   extern __shared__ unsigned char smem[];
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  int acc[Loop::kAccRegs];
-  if (!Loop::run(&tg8, &tw2, m0, n0, hid, smem, acc)) return;
-  Loop::for_each_pair(acc, [&](int r, int c, int v0, int v1) {
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * BN;
+  int acc[GemmLoop<BN>::kAccRegs];
+  if (!GemmLoop<BN>::run(&tg8, &tw2, m0, n0, hid, smem, acc)) return;
+  GemmLoop<BN>::for_each_pair(acc, [&](int r, int c, int v0, int v1) {
     const int row = m0 + r, col = n0 + c;
     if (row >= M || col >= dim) return;   // dim is even: col + 1 < dim too
     const size_t at = static_cast<size_t>(row) * dim + col;
@@ -220,8 +224,7 @@ cudaError_t launch_all(const bf16* x, const float* gamma, const float* beta,
   if (err == cudaSuccess)
     err = hopper::encode_kmajor(&tw2, w2, dim, hid, true, kBN);
   if (err == cudaSuccess) err = allow_smem(fc1_gelu_kernel, Loop::kSmemBytes);
-  if (err == cudaSuccess)
-    err = allow_smem(fc2_residual_kernel, Loop::kSmemBytes);
+  if (err == cudaSuccess) err = allow_fc2_residual_smem();
   if (err != cudaSuccess) return err;
 
   const int row_blocks = (M + kRowWarps - 1) / kRowWarps;
@@ -236,13 +239,36 @@ cudaError_t launch_all(const bf16* x, const float* gamma, const float* beta,
   g_rowquant_kernel<<<row_blocks, kRowWarps * 32, 0, stream>>>(
       g, gmax, g8, s2_row, M, hid, hid_tiles);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  fc2_residual_kernel<<<dim3((dim + kBN - 1) / kBN, m_tiles), Loop::kThreads,
-                        Loop::kSmemBytes, stream>>>(tg8, tw2, s2_row, s2, b2,
-                                                    x, y, M, dim, hid);
-  return cudaGetLastError();
+  return launch_fc2_residual(tg8, tw2, s2_row, s2, b2, x, y, M, dim, hid,
+                             kBN, stream);
 }
 
 }  // namespace
+
+cudaError_t allow_fc2_residual_smem() {
+  const cudaError_t err =
+      allow_smem(fc2_residual_kernel<64>, GemmLoop<64>::kSmemBytes);
+  return err == cudaSuccess
+             ? allow_smem(fc2_residual_kernel<128>, GemmLoop<128>::kSmemBytes)
+             : err;
+}
+
+cudaError_t launch_fc2_residual(const CUtensorMap& ta, const CUtensorMap& tb,
+                                const float* s_row, const float* s_col,
+                                const float* b, const bf16* x, bf16* y, int M,
+                                int N, int K, int bn, cudaStream_t stream) {
+  const dim3 grid((N + bn - 1) / bn, (M + kBM - 1) / kBM);
+  if (bn == 64)
+    fc2_residual_kernel<64><<<grid, GemmLoop<64>::kThreads,
+                              GemmLoop<64>::kSmemBytes, stream>>>(
+        ta, tb, s_row, s_col, b, x, y, M, N, K);
+  else
+    fc2_residual_kernel<128><<<grid, GemmLoop<128>::kThreads,
+                               GemmLoop<128>::kSmemBytes, stream>>>(
+        ta, tb, s_row, s_col, b, x, y, M, N, K);
+  return cudaGetLastError();
+}
+
 }  // namespace nvt
 
 // x [M, dim] bf16; gamma, beta [dim] f32; w1 [hid, dim] int8; s1, b1 [hid]

@@ -1,4 +1,5 @@
-// Per-row int8 quantization + int8 out-projection + bias + residual (K11).
+// Per-row int8 quantization + int8 out-projection + bias + residual (K11),
+// on TMA + wgmma.
 //
 // Replaces the TPU kernel neurovit_tpu/ops/int8_serving.py:167
 // (_outproj_kernel, launched at :236 by int8_outproj_residual):
@@ -6,90 +7,122 @@
 //   z = float(a8 . W8^T) * s_row * s_col + b  f32
 //   y = bf16(z + x)                          x added in f32, one rounding
 // a [M, inner] is the attention output viewed as rows (no head transpose),
-// W8 the torch-layout int8 weight [dim, inner] with scales s_col [dim].
+// W8 the torch-layout int8 weight [dim, inner] with scales s_col [dim]. W8
+// is K-major as it lies, so wgmma reads it with no transpose.
 //
-// What bounds it on the H100: 2*M*inner*dim int8 operations against about
-// 2*(M*inner + 2*M*dim) bytes -- the smallest GEMM of the block, close to
-// the line between compute and memory; the residual read rides the
-// epilogue, as in the bf16 K3. Each block quantizes its 64 rows of a, one
-// warp per row with the row in registers (inner <= 1024), into shared
-// memory, then W8 (0.5 MB) streams from L2 through nvt::TileGemmI8's ring.
-// Grid: (ceil(M/64), ceil(dim/512)), K3's; each block loops over its 512
-// output columns in 128-column tiles. Widths are multiples of 16 (inner <=
-// 1024): a's codes past inner are 0 up to the k tile, and the last column
-// tile is masked.
+// What bounds it on the H100: the bytes of a, x, y and W8 (41.5 MB for the
+// flagship block at batch 8, M = 8008, inner 512, dim 1024: 0.0124 ms at
+// 3.35 TB/s) above its 2 M inner dim int8 operations (0.0042 ms at 1,979
+// TOP/s). This design also writes a8 and reads it again (49.7 MB, 0.0148
+// ms).
+//
+// Why two launches. Every column tile of a row block needs the row's
+// scale, the amax of the whole row of a, before its first code; on the
+// card the column tiles are different blocks. So the row quantization is a
+// pass of its own, and the product is K12's last pass:
+//   1. rowquant (int8_rowquant.cu, K10's and K12's LN row quantizer
+//      without the LayerNorm): a -> a8 [M, inner], s_row [M]; one warp a
+//      row, reading the row from L1/L2 once for the amax and once for the
+//      codes, so any inner is taken.
+//   2. fc2_residual (int8_mlp.cu, K12's pass 4, launch_fc2_residual):
+//      GemmLoop<BN> over (ceil(dim / BN), ceil(M / 128)) tiles, A = a8, Bt
+//      = W8, K = inner; the epilogue dequantizes, adds b and x and rounds y
+//      once, stored as bf16 pairs from registers.
+// BN is 128, or 64 where 128-wide tiles would give the card fewer blocks
+// than its 132 SMs (gemm_tile_n): at batch 1 of the flagship the 8 x 8
+// tiles of 128 would leave half the SMs idle, and 16 x 8 tiles of 64 fill
+// them, as K10's rule does at the same rows. TMA zero-fills the boxes past
+// M, dim and inner; the epilogue masks rows >= M and columns >= dim.
+// Widths are multiples of 16 (TMA's 16-byte rows), of any size.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; profiler device times from
+// scripts/torch_outproj_device_times.py, four runs): at batch 8 the two
+// passes take 0.0450-0.0459 ms, rowquant 8.8-9.0 us and fc2_residual
+// 36.2-36.9, where K17 int8's GEMM kernel alone takes 21.0-21.1 us at the
+// same [8016, 512] x [512, 1024]; at batch 1 0.0100 ms with 64-column
+// tiles. The single wmma kernel this replaces took 0.0737 ms at batch 8
+// and 0.0407 at batch 1. At K = 512 a tile has four k steps, too few to
+// hide each block's ring fill and its epilogue.
+//
+// Rounding points are the JAX kernel's and the plain version's: scale =
+// amax / 127 (1 where amax is 0); code = rint(a / scale) clamped to +-127,
+// an IEEE division; dequant (float(acc) * s_row) * s_col, + b, + x, each
+// rounded (no contraction), then bf16. The int32 sums are exact, so y is
+// the plain version's bit for bit.
 #include "int8.cuh"
 
 namespace nvt {
 namespace {
 
-constexpr int kBM = 64, kBN = 128, kBK = 64, kChunk = 512;
-using Gemm = TileGemmI8<kBM, kBN, kBK, 2, 4>;
-
-__global__ void __launch_bounds__(Gemm::kThreads)
-    int8_outproj_kernel(const bf16* __restrict__ a, const bf16* __restrict__ x,
-                        const int8_t* __restrict__ w8,
-                        const float* __restrict__ s_col,
-                        const float* __restrict__ bias, bf16* __restrict__ y,
-                        int M, int inner, int dim) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int inner_k = static_cast<int>(round_up(inner, kBK));
-  const size_t a_bytes = round_up(static_cast<size_t>(kBM) * inner_k, 128);
-  int8_t* A8 = reinterpret_cast<int8_t*>(smem);
-  float* s_row = reinterpret_cast<float*>(smem + a_bytes);
-  void* scratch = smem + a_bytes + round_up(kBM * sizeof(float), 128);
-
-  const int row0 = blockIdx.x * kBM;
-  rowquant_rows<kBM, Gemm::kThreads>(a, A8, s_row, row0, M, inner, inner_k);
-  const int* C = reinterpret_cast<const int*>(scratch);
-  const int n_begin = blockIdx.y * kChunk;
-  const int n_end = min(n_begin + kChunk, dim);
-  for (int n0 = n_begin; n0 < n_end; n0 += kBN) {
-    Gemm::run(A8, w8, inner, n0, inner, scratch, dim);
-    for (int e = threadIdx.x; e < kBM * kBN / 8; e += Gemm::kThreads) {
-      const int r = e / (kBN / 8), c = (e % (kBN / 8)) * 8;
-      const int row = row0 + r;
-      if (row >= M || n0 + c >= dim) continue;
-      const size_t off = static_cast<size_t>(row) * dim + n0 + c;
-      float xf[8], out[8];
-      unpack8(*reinterpret_cast<const uint4*>(x + off), xf);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float z = __fadd_rn(
-            dequant(C[r * Gemm::LDC + c + i], s_row[r], s_col[n0 + c + i]),
-            bias[n0 + c + i]);
-        out[i] = __fadd_rn(z, xf[i]);
-      }
-      *reinterpret_cast<uint4*>(y + off) = pack8(out);
-    }
+// Scratch of one call, one allocation: a8 [M, inner] then s_row [M] f32,
+// each on a 256-byte boundary.
+struct Scratch {
+  size_t a8, s_row, bytes;
+  Scratch(int M, int inner) {
+    const size_t m = static_cast<size_t>(M);
+    a8 = 0;
+    s_row = round_up(m * inner, 256);
+    bytes = round_up(s_row + m * sizeof(float), 256);
   }
-}
+};
 
-size_t smem_bytes(int inner) {
-  return round_up(static_cast<size_t>(kBM) * round_up(inner, kBK), 128) +
-         round_up(kBM * sizeof(float), 128) + Gemm::kScratchBytes;
+cudaError_t launch_all(const bf16* a, const bf16* x, const int8_t* w8,
+                       const float* s_col, const float* bias, bf16* y,
+                       unsigned char* scratch, int M, int inner, int dim,
+                       cudaStream_t stream) {
+  const Scratch at(M, inner);
+  int8_t* a8 = reinterpret_cast<int8_t*>(scratch + at.a8);
+  float* s_row = reinterpret_cast<float*>(scratch + at.s_row);
+  const int bn = gemm_tile_n(M, dim);
+  // Both maps are encoded, and both GEMM instances allowed their shared
+  // memory, before the first launch: a failure leaves nothing half done.
+  CUtensorMap ta8, tw8;
+  cudaError_t err =
+      hopper::encode_kmajor(&ta8, a8, M, inner, true, kGemmRows);
+  if (err == cudaSuccess)
+    err = hopper::encode_kmajor(&tw8, w8, dim, inner, true, bn);
+  if (err == cudaSuccess) err = allow_fc2_residual_smem();
+  if (err != cudaSuccess) return err;
+
+  if ((err = launch_rowquant(a, a8, s_row, M, inner, stream)) != cudaSuccess)
+    return err;
+  return launch_fc2_residual(ta8, tw8, s_row, s_col, bias, x, y, M, dim,
+                             inner, bn, stream);
 }
 
 }  // namespace
 }  // namespace nvt
 
 // a [M, inner], x [M, dim] bf16; w8 [dim, inner] int8; s_col, bias [dim]
-// f32; y [M, dim] bf16. inner % 16 == 0, inner <= 1024, dim % 16 == 0.
+// f32; y [M, dim] bf16; scratch nvt_int8_outproj_scratch_bytes(M, dim,
+// inner) bytes, 256-byte aligned. inner and dim are multiples of 16 (TMA's
+// 16-byte rows), of any size.
 extern "C" int nvt_int8_outproj(const void* a, const void* x, const void* w8,
                                 const void* s_col, const void* bias, void* y,
-                                int M, int inner, int dim, void* stream) {
+                                void* scratch, int M, int inner, int dim,
+                                void* stream) {
   using namespace nvt;
-  if (M < 1 || inner < 16 || inner % 16 != 0 || inner > 1024 || dim < 16 ||
-      dim % 16 != 0)
+  if (M < 1 || inner < 16 || inner % 16 != 0 || dim < 16 || dim % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(inner);
-  cudaError_t err = allow_smem(int8_outproj_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((M + kBM - 1) / kBM, (dim + kChunk - 1) / kChunk);
-  int8_outproj_kernel<<<grid, Gemm::kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
+  return static_cast<int>(launch_all(
       static_cast<const bf16*>(a), static_cast<const bf16*>(x),
       static_cast<const int8_t*>(w8), static_cast<const float*>(s_col),
-      static_cast<const float*>(bias), static_cast<bf16*>(y), M, inner, dim);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<const float*>(bias), static_cast<bf16*>(y),
+      static_cast<unsigned char*>(scratch), M, inner, dim,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// Bytes of the scratch one call takes (ops/int8_serving.py,
+// int8_outproj_plan).
+extern "C" long long nvt_int8_outproj_scratch_bytes(int M, int dim,
+                                                    int inner) {
+  (void)dim;
+  return static_cast<long long>(nvt::Scratch(M, inner).bytes);
+}
+
+// Dynamic shared memory of a block of the GEMM pass for M rows at dim,
+// which follows its tile's width.
+extern "C" long long nvt_int8_outproj_smem_bytes(int M, int dim) {
+  return static_cast<long long>(
+      nvt::gemm_smem_bytes(nvt::gemm_tile_n(M, dim)));
 }

@@ -61,23 +61,13 @@
 namespace nvt {
 namespace {
 
-constexpr int kBM = 128;                 // the GEMM's output tile rows
-constexpr int kStages = 3;
-constexpr int kSms = 132;                // the H100 SXM's
+constexpr int kBM = kGemmRows;           // the GEMM's output tile rows
 template <int BN>
-using Loop = hopper::Mainloop<true, kBM, BN, kStages>;
+using Loop = GemmLoop<BN>;
 
-// The GEMM's output tile columns: 128, or 64 where 128-wide tiles over
-// the [M, 3 inner] output would give the card fewer blocks than SMs (the
-// rule of K4's passes, fused_mlp.cuh tile_n).
-int tile_n(int M, int inner) {
-  return ((3 * inner + 127) / 128) * ((M + kBM - 1) / kBM) < kSms ? 64 : 128;
-}
-
-size_t smem_bytes(int M, int inner) {
-  return tile_n(M, inner) == 64 ? Loop<64>::kSmemBytes
-                                : Loop<128>::kSmemBytes;
-}
+// The GEMM's output tile columns over the [M, 3 inner] output
+// (gemm_tile_n, int8.cuh).
+int tile_n(int M, int inner) { return gemm_tile_n(M, 3 * inner); }
 
 // Scratch of one call, one allocation: u8 [M, dim] then s_row [M] f32,
 // each on a 256-byte boundary.
@@ -203,5 +193,6 @@ extern "C" long long nvt_int8_qkv_scratch_bytes(int M, int dim, int inner) {
 // Dynamic shared memory of a block of the GEMM pass for M rows at inner,
 // which follows its tile's width.
 extern "C" long long nvt_int8_qkv_smem_bytes(int M, int inner) {
-  return static_cast<long long>(nvt::smem_bytes(M, inner));
+  return static_cast<long long>(
+      nvt::gemm_smem_bytes(nvt::tile_n(M, inner)));
 }

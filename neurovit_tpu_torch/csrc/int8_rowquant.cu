@@ -1,11 +1,14 @@
-// The LayerNorm row-quantize pass that K10 (int8_qkv.cu) and K12
-// (int8_mlp.cu) launch first:
+// The row-quantize pass of the int8 kernels, one definition in two
+// instances. K10 (int8_qkv.cu) and K12 (int8_mlp.cu) launch it with the
+// LayerNorm (launch_ln_rowquant):
 //   u = LN(x) * gamma + beta                 f32, not rounded
 //   (u8, s_row) = rowquant(u)                per-row symmetric int8
-// with the JAX kernels' order of operations (int8_serving.py:122-127,
-// 158-159): mean, mean of squared deviations, rsqrt(var + eps), xhat *
-// gamma + beta, each rounded; scale = amax / 127 (1 where amax is 0),
-// code = rint(u / scale) clamped to +-127, an IEEE division.
+// K11 (int8_outproj.cu) launches it without (launch_rowquant): u =
+// float(x), the attention output's bf16 values.
+// The JAX kernels' order of operations (int8_serving.py:122-127, 158-159):
+// mean, mean of squared deviations, rsqrt(var + eps), xhat * gamma + beta,
+// each rounded; scale = amax / 127 (1 where amax is 0), code = rint(u /
+// scale) clamped to +-127, an IEEE division.
 //
 // What bounds it on the H100: bytes, 3 per element of x (bf16 in, int8
 // out); 16.4 MB at the flagship block at batch 8 (M = 8008, dim 1024),
@@ -24,12 +27,14 @@ namespace {
 // Lane l takes columns 128 i + 4 l .. + 3 of each step i, so each load of
 // x (8 bytes), gamma and beta (16 bytes) is one contiguous run across the
 // warp. Each sweep is unrolled by 8 (dim 1024 in one step), so a lane's
-// loads of the row are in flight together.
+// loads of the row are in flight together. Without kLn, the two sweeps of
+// the statistics go and gamma and beta are not read (null).
+template <bool kLn>
 __global__ void __launch_bounds__(kLnRowWarps * 32)
-    ln_rowquant_kernel(const bf16* __restrict__ x,
-                       const float* __restrict__ gamma,
-                       const float* __restrict__ beta, int8_t* __restrict__ u8,
-                       float* __restrict__ s_row, int M, int dim, float eps) {
+    rowquant_kernel(const bf16* __restrict__ x,
+                    const float* __restrict__ gamma,
+                    const float* __restrict__ beta, int8_t* __restrict__ u8,
+                    float* __restrict__ s_row, int M, int dim, float eps) {
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * kLnRowWarps + threadIdx.x / 32;
   if (row >= M) return;
@@ -42,39 +47,43 @@ __global__ void __launch_bounds__(kLnRowWarps * 32)
         *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
     v[0] = lo.x, v[1] = lo.y, v[2] = hi.x, v[3] = hi.y;
   };
-  float s = 0.f;
+  float mean = 0.f, rstd = 1.f;
+  if constexpr (kLn) {
+    float s = 0.f;
 #pragma unroll 8
-  for (int c = lane * 4; c < dim; c += 128) {
-    float v[4];
-    load(c, v);
+    for (int c = lane * 4; c < dim; c += 128) {
+      float v[4];
+      load(c, v);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) s += v[i];
-  }
-  const float mean = warp_sum(s) / dim;
-  float ss = 0.f;
-#pragma unroll 8
-  for (int c = lane * 4; c < dim; c += 128) {
-    float v[4];
-    load(c, v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float d = v[i] - mean;
-      ss += d * d;
+      for (int i = 0; i < 4; ++i) s += v[i];
     }
-  }
-  const float rstd = rsqrtf(warp_sum(ss) / dim + eps);
-  // u = LN(x) * gamma + beta at columns c .. c + 3.
-  auto u_at = [&](int c, float (&u)[4]) {
-    float v[4];
-    load(c, v);
-    const float4 gm = *reinterpret_cast<const float4*>(gamma + c);
-    const float4 bt = *reinterpret_cast<const float4*>(beta + c);
-    const float g4[4] = {gm.x, gm.y, gm.z, gm.w};
-    const float b4[4] = {bt.x, bt.y, bt.z, bt.w};
+    mean = warp_sum(s) / dim;
+    float ss = 0.f;
+#pragma unroll 8
+    for (int c = lane * 4; c < dim; c += 128) {
+      float v[4];
+      load(c, v);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      u[i] = __fadd_rn(__fmul_rn(__fmul_rn(v[i] - mean, rstd), g4[i]),
-                       b4[i]);
+      for (int i = 0; i < 4; ++i) {
+        const float d = v[i] - mean;
+        ss += d * d;
+      }
+    }
+    rstd = rsqrtf(warp_sum(ss) / dim + eps);
+  }
+  // u = LN(x) * gamma + beta (kLn) or float(x) at columns c .. c + 3.
+  auto u_at = [&](int c, float (&u)[4]) {
+    load(c, u);
+    if constexpr (kLn) {
+      const float4 gm = *reinterpret_cast<const float4*>(gamma + c);
+      const float4 bt = *reinterpret_cast<const float4*>(beta + c);
+      const float g4[4] = {gm.x, gm.y, gm.z, gm.w};
+      const float b4[4] = {bt.x, bt.y, bt.z, bt.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        u[i] = __fadd_rn(__fmul_rn(__fmul_rn(u[i] - mean, rstd), g4[i]),
+                         b4[i]);
+    }
   };
   float amax = 0.f;
 #pragma unroll 8
@@ -104,8 +113,17 @@ cudaError_t launch_ln_rowquant(const bf16* x, const float* gamma,
                                const float* beta, int8_t* u8, float* s_row,
                                int M, int dim, float eps,
                                cudaStream_t stream) {
-  ln_rowquant_kernel<<<(M + kLnRowWarps - 1) / kLnRowWarps, kLnRowWarps * 32,
-                       0, stream>>>(x, gamma, beta, u8, s_row, M, dim, eps);
+  rowquant_kernel<true><<<(M + kLnRowWarps - 1) / kLnRowWarps,
+                          kLnRowWarps * 32, 0, stream>>>(x, gamma, beta, u8,
+                                                         s_row, M, dim, eps);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_rowquant(const bf16* x, int8_t* x8, float* s_row, int M,
+                            int dim, cudaStream_t stream) {
+  rowquant_kernel<false><<<(M + kLnRowWarps - 1) / kLnRowWarps,
+                           kLnRowWarps * 32, 0, stream>>>(
+      x, nullptr, nullptr, x8, s_row, M, dim, 0.f);
   return cudaGetLastError();
 }
 

@@ -31,19 +31,15 @@ def round_up(x: int, to: int) -> int:
     return (x + to - 1) // to * to
 
 
-def check_widths(what: str, max_width=None, **widths: int) -> None:
-    """Raise unless every named width is a positive multiple of 16 (and at
-    most ``max_width``): the shapes the kernel ``what`` takes."""
+def check_widths(what: str, **widths: int) -> None:
+    """Raise unless every named width is a positive multiple of 16: the
+    shapes the kernel ``what`` takes."""
     for name, w in widths.items():
         if w < WIDTH_MULTIPLE or w % WIDTH_MULTIPLE:
             raise ValueError(
                 f"the {what} kernel takes {name} as a multiple of "
                 f"{WIDTH_MULTIPLE} (16-byte rows, wmma's k = 16), got {w} "
                 f"({SHAPE_QUEUE})")
-        if max_width is not None and w > max_width:
-            raise ValueError(
-                f"the {what} kernel takes {name} <= {max_width} (a row sits "
-                f"in one warp's registers), got {w} ({SHAPE_QUEUE})")
 
 
 def check_smem(what: str, nbytes: int) -> None:

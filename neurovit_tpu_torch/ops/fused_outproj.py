@@ -13,11 +13,16 @@ The backward (:class:`FusedOutproj`) regenerates the mask: dz = dy * mask
 db = sum(dz) outside it, as in JAX.
 
 CPU tensors run the ``*_plain`` functions; CUDA tensors run
-``csrc/fused_outproj.cu`` (K3) and ``csrc/fused_outproj_bwd.cu`` (K8). The
-kernels take inner and dim as multiples of 16.
+``csrc/fused_outproj.cu`` (K3) and ``csrc/fused_outproj_bwd.cu`` (K8). K3
+is one launch of K4's last pass on TMA + ``wgmma`` (:func:`outproj_plan`)
+and takes inner and dim as any multiples of 16. K8 still runs on ``wmma``
+with a 64-row block of dz in shared memory beside its GEMM tiles, which
+bounds dim (:func:`check_bwd_shapes`).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -28,16 +33,50 @@ from neurovit_tpu_torch.ops.common import (FLOAT, INT, U64, VOID,
                                            gemm_scratch_bytes,
                                            gemm_tile_bytes, is_training,
                                            launch, on_cpu, ptr, weight_grad)
+from neurovit_tpu_torch.ops.fused_mlp import (GEMM_THREADS, MLP_TILE,
+                                              gemm_smem_bytes, gemm_tile_n)
 
 
-def check_shapes(dim: int, inner: int) -> None:
-    """Raise unless K3 and K8 take the attention width inner and the model
-    width dim: multiples of 16, with a 64-row block of a (K3) or of dz (K8)
-    beside the GEMM tiles in shared memory."""
+def check_fwd_shapes(dim: int, inner: int) -> None:
+    """Raise unless K3 takes the attention width inner and the model width
+    dim: multiples of 16, the 16-byte rows of its TMA operands, of any size
+    (no row block of a is held in shared memory)."""
     check_widths("out-projection", inner=inner, dim=dim)
-    for what, k in (("out-projection", inner),
-                    ("out-projection backward", dim)):
-        check_smem(what, gemm_tile_bytes(64, k) + gemm_scratch_bytes(64))
+
+
+def check_bwd_shapes(dim: int, inner: int) -> None:
+    """Raise unless K8 takes these widths: multiples of 16, with a 64-row
+    block of dz [*, dim] beside its ``wmma`` GEMM tiles in shared memory."""
+    check_widths("out-projection backward", inner=inner, dim=dim)
+    check_smem("out-projection backward",
+               gemm_tile_bytes(64, dim) + gemm_scratch_bytes(64))
+
+
+class OutprojPlan(NamedTuple):
+    """How one K3 call covers a [m, inner] and x [m, dim]: ``launches``,
+    its one kernel (name, grid, threads, dynamic shared memory bytes), K4's
+    fc2_residual pass over (column tiles of dim, row tiles of 128); and
+    ``tile_n``, its output tile columns."""
+    launches: tuple
+    tile_n: int
+
+
+def outproj_plan(m: int, dim: int, inner: int) -> OutprojPlan:
+    """K3's plan for m rows (the kernel's own count of the shared memory is
+    ``nvt_fused_outproj_smem_bytes``; the card test holds the two equal).
+    The tiles are 128 x 128, or 128 x 64 where 128-wide tiles over the
+    [m, dim] output would give the card fewer blocks than SMs
+    (:func:`~neurovit_tpu_torch.ops.fused_mlp.gemm_tile_n`). Raises where
+    the kernel does not take the widths."""
+    check_fwd_shapes(dim, inner)
+    if m < 1:
+        raise ValueError(f"the out-projection kernel takes at least one row, "
+                         f"got {m}")
+    tile_n = gemm_tile_n(m, dim)
+    return OutprojPlan(launches=(("fc2_residual",
+                                  (-(-dim // tile_n), -(-m // MLP_TILE)),
+                                  GEMM_THREADS, gemm_smem_bytes(tile_n)),),
+                       tile_n=tile_n)
 
 
 def fused_outproj_residual_plain(x: torch.Tensor, attn: torch.Tensor,
@@ -69,7 +108,9 @@ def fused_outproj_residual_cuda(x: torch.Tensor, attn: torch.Tensor,
                                 w_out: torch.Tensor, b_out: torch.Tensor, *,
                                 dropout_rate: float = 0.0,
                                 seed: int = 0) -> torch.Tensor:
-    """Launch the Hopper kernel K3 on bf16 activations."""
+    """Launch the Hopper kernel K3 on bf16 activations: one launch
+    (:func:`outproj_plan`) on the current stream; the C entry point encodes
+    the two tensor maps and raises through ``launch`` on any failure."""
     b, n, dim = x.shape
     inner = attn.shape[-1]
     check_operand("x", x, torch.bfloat16)
@@ -78,7 +119,7 @@ def fused_outproj_residual_cuda(x: torch.Tensor, attn: torch.Tensor,
     bias = b_out.float().contiguous()
     check_operand("w_out", w, torch.bfloat16, (dim, inner))
     check_operand("b_out", bias, torch.float32, (dim,))
-    check_shapes(dim, inner)
+    outproj_plan(b * n, dim, inner)
     inv_keep, keep_q = dropout_args(dropout_rate)
     y = torch.empty_like(x)
     launch("nvt_fused_outproj_fwd",
@@ -100,7 +141,7 @@ def fused_outproj_bwd_cuda(dy: torch.Tensor, w_out: torch.Tensor, *,
     check_operand("dy", dy, torch.bfloat16)
     w = w_out.to(torch.bfloat16).contiguous()
     check_operand("w_out", w, torch.bfloat16, (dim, inner))
-    check_shapes(dim, inner)
+    check_bwd_shapes(dim, inner)
     inv_keep, keep_q = dropout_args(dropout_rate)
     dattn = dy.new_empty(b, n, inner)
     dz = torch.empty_like(dy)

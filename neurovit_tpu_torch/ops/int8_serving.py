@@ -29,11 +29,11 @@ SERVING-ONLY, as in JAX: there is no backward and no dropout. CPU tensors
 run the plain versions; CUDA tensors run ``csrc/int8_qkv.cu``,
 ``csrc/int8_outproj.cu``, ``csrc/int8_mlp.cu`` and
 ``csrc/int8_attention.cu``. The kernels take widths that are multiples of
-16; a row that K11 quantizes (its inner) is at most 1024 wide, held in one
-warp's registers; K10 takes any such width (two launches: the LN row
-quantizer it shares with K12, then its GEMM on the TMA + ``wgmma``
-mainloop, :func:`qkv_plan`), and so does K12 (four launches on that
-mainloop, :func:`mlp_plan`); K13 takes K1's
+16, of any size: K10 in two launches (the LN row quantizer it shares with
+K12, then its GEMM on the TMA + ``wgmma`` mainloop, :func:`qkv_plan`), K11
+in two (that row quantizer without the LayerNorm, then K12's last pass,
+:func:`int8_outproj_plan`), K12 in four on that mainloop
+(:func:`mlp_plan`); K13 takes K1's
 head dims (8 to 128, zero-padded to 64 or 128) in three launches on TMA +
 ``wgmma``: V's quantization prologue in two passes, then the two-sweep
 attention with the P V product as an s8 ``wgmma`` from registers
@@ -71,8 +71,12 @@ QKV = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 def _scale(amax: torch.Tensor) -> torch.Tensor:
     """The symmetric int8 scale of a row or channel with largest magnitude
-    amax."""
-    return torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    amax: amax / 127, an IEEE division. The divisor is a tensor: PyTorch
+    divides a CUDA tensor by a Python scalar as a product with the
+    scalar's reciprocal, one ulp off the quotient for some amax, while the
+    CPU and the kernels divide."""
+    return torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
+                       torch.ones_like(amax))
 
 
 def _rowquant(u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -193,10 +197,6 @@ def _vectors(**named) -> dict:
     return out
 
 
-# K11's row quantizer holds a row in one warp's registers.
-MAX_ROW = 1024
-
-
 def check_qkv_shapes(dim: int, inner: int) -> None:
     """Raise unless K10 takes x [*, dim] and heads * dim_head = inner:
     multiples of 16, the 16-byte rows of its TMA operands, of any size."""
@@ -204,9 +204,10 @@ def check_qkv_shapes(dim: int, inner: int) -> None:
 
 
 def check_outproj_shapes(dim: int, inner: int) -> None:
-    """Raise unless K11 takes a [*, inner] and x [*, dim]."""
-    check_widths("int8 out-projection", max_width=MAX_ROW, inner=inner)
-    check_widths("int8 out-projection", dim=dim)
+    """Raise unless K11 takes a [*, inner] and x [*, dim]: multiples of 16,
+    the 16-byte rows of its TMA operands, of any size (its row quantizer
+    reads a row again from L1/L2 for the codes)."""
+    check_widths("int8 out-projection", dim=dim, inner=inner)
 
 
 def check_mlp_shapes(dim: int, hid: int) -> None:
@@ -216,10 +217,11 @@ def check_mlp_shapes(dim: int, hid: int) -> None:
     check_widths("int8 MLP", dim=dim, mlp_dim=hid)
 
 
-# K10's and K12's passes (csrc/int8_qkv.cu, csrc/int8_mlp.cu): rows (one
-# warp each) a block of the row passes, the GEMM passes' output tile rows
-# (and K12's columns; their ring of three stages is K4's, so two GEMM
-# blocks share an SM), and the alignment of each piece of the scratch.
+# K10's, K11's and K12's passes (csrc/int8_qkv.cu, csrc/int8_outproj.cu,
+# csrc/int8_mlp.cu): rows (one warp each) a block of the row passes, the
+# GEMM passes' output tile rows (and K12's columns; their ring of three
+# stages is K4's, so two GEMM blocks share an SM), and the alignment of
+# each piece of the scratch.
 ROW_WARPS, MLP_TILE, SCRATCH_ALIGN = 8, 128, 256
 
 
@@ -303,6 +305,45 @@ def qkv_plan(m: int, dim: int, inner: int) -> QkvPlan:
                    scratch_bytes=at)
 
 
+class Int8OutprojPlan(NamedTuple):
+    """How one K11 call covers a [m, inner] and x [m, dim]. ``launches``:
+    the two kernels in launch order, each (name, grid, threads, dynamic
+    shared memory bytes), a grid (x, y): the row quantizer, then K12's
+    fc2_residual pass over (column tiles of dim, row tiles of 128).
+    ``tile_n``: the GEMM's output tile columns. ``scratch``: the pieces of
+    the one scratch allocation, name -> (byte offset, bytes), in
+    ``scratch_bytes`` bytes: a8 [m, inner] int8, then s_row [m] f32."""
+    launches: tuple
+    tile_n: int
+    scratch: dict
+    scratch_bytes: int
+
+
+def int8_outproj_plan(m: int, dim: int, inner: int) -> Int8OutprojPlan:
+    """K11's plan for m rows (the kernel's own counts are
+    ``nvt_int8_outproj_scratch_bytes`` and ``nvt_int8_outproj_smem_bytes``;
+    the card test holds them equal). The GEMM's tiles are 128 x 128, or 128
+    x 64 where 128-wide tiles over the [m, dim] output would give the card
+    fewer blocks than SMs (batch 1 of the flagship), the rule of K10 and of
+    K4's passes (:func:`~neurovit_tpu_torch.ops.fused_mlp.gemm_tile_n`).
+    Raises where the kernel does not take the widths."""
+    check_outproj_shapes(dim, inner)
+    if m < 1:
+        raise ValueError(f"the int8 out-projection kernel takes at least one "
+                         f"row, got {m}")
+    tile_n = gemm_tile_n(m, dim)
+    launches = (
+        ("rowquant", (-(-m // ROW_WARPS), 1), ROW_WARPS * 32, 0),
+        ("fc2_residual", (-(-dim // tile_n), -(-m // MLP_TILE)),
+         GEMM_THREADS, gemm_smem_bytes(tile_n)))
+    scratch, at = {}, 0
+    for name, nbytes in (("a8", m * inner), ("s_row", m * 4)):
+        scratch[name] = (at, nbytes)
+        at = round_up(at + nbytes, SCRATCH_ALIGN)
+    return Int8OutprojPlan(launches=launches, tile_n=tile_n,
+                           scratch=scratch, scratch_bytes=at)
+
+
 def int8_ln_qkv_cuda(x: torch.Tensor, gamma: torch.Tensor,
                      beta: torch.Tensor, w8: torch.Tensor,
                      scale: torch.Tensor, heads: int, dim_head: int) -> QKV:
@@ -335,18 +376,24 @@ int8_ln_qkv_cuda.launches = 0
 def int8_outproj_residual_cuda(x: torch.Tensor, a: torch.Tensor,
                                w8: torch.Tensor, scale: torch.Tensor,
                                bias: torch.Tensor) -> torch.Tensor:
-    """Launch the Hopper kernel K11 on bf16 x [B, N, dim], a [B, N, inner]."""
+    """Launch the Hopper kernel K11 on bf16 x [B, N, dim], a [B, N, inner]:
+    its two passes (csrc/int8_outproj.cu) on the current stream, one call.
+    They share one scratch allocation holding a8 and the row scales
+    (:func:`int8_outproj_plan`); the C entry point encodes the two tensor
+    maps and raises through ``launch`` on any failure."""
     b, n, dim = x.shape
     inner = a.shape[-1]
     check_operand("x", x, torch.bfloat16)
     check_operand("a", a, torch.bfloat16, (b, n, inner))
     check_operand("w8", w8, torch.int8, (dim, inner))
     vecs = _vectors(scale=(scale, dim), bias=(bias, dim))
-    check_outproj_shapes(dim, inner)
+    plan = int8_outproj_plan(b * n, dim, inner)
     y = torch.empty_like(x)
-    launch("nvt_int8_outproj", (VOID,) * 6 + (INT,) * 3, x, ptr(a), ptr(x),
-           ptr(w8), ptr(vecs["scale"]), ptr(vecs["bias"]), ptr(y), b * n,
-           inner, dim)
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
+                          device=x.device)
+    launch("nvt_int8_outproj", (VOID,) * 7 + (INT,) * 3, x, ptr(a), ptr(x),
+           ptr(w8), ptr(vecs["scale"]), ptr(vecs["bias"]), ptr(y),
+           ptr(scratch), b * n, inner, dim)
     int8_outproj_residual_cuda.launches += 1
     return y
 

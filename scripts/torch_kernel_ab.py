@@ -23,7 +23,10 @@ are called through each library's own entry point (:func:`fused_mlp_call`,
 takes the rows of a block (32 at the flagship) and no scratch, and its
 ``nvt_fused_mlp_bwd`` its scratch as four tensors; this one's take one
 scratch allocation each. K10 likewise (:func:`int8_qkv_call`): an older
-``nvt_int8_ln_qkv`` takes no scratch, this one's one allocation. K7 too
+``nvt_int8_ln_qkv`` takes no scratch, this one's one allocation; and K11
+(:func:`int8_outproj_call`): an older ``nvt_int8_outproj`` (one ``wmma``
+kernel) takes no scratch, this one's a8 and the row scales in one
+allocation. K7 too
 (:func:`fused_ln_qkv_bwd_call`): an older ``nvt_fused_ln_qkv_bwd`` takes
 dq, dk and dv apart and its scratch as three tensors, this one's [dq | dk
 | dv] and one allocation. K13 goes
@@ -127,6 +130,23 @@ def int8_qkv_call(args: tuple):
                   p(scale), p(q), p(k), p(v), b * n, dim, heads * dim_head,
                   nn.LN_EPS)
     return q, k, v
+
+
+def int8_outproj_call(args: tuple):
+    """K11 on ``args`` (x, a, w8, scale, bias) through the library in use:
+    this checkout's wrapper where the library counts a scratch
+    (``nvt_int8_outproj_scratch_bytes``), else the older entry point, which
+    takes no scratch."""
+    if hasattr(_build.library(), "nvt_int8_outproj_scratch_bytes"):
+        return int8_serving.int8_outproj_residual_cuda(*args)
+    x, a, w8, scale, bias = args
+    b, n, dim = x.shape
+    y = torch.empty_like(x)
+    p = common.ptr
+    common.launch("nvt_int8_outproj", (common.VOID,) * 6 + (common.INT,) * 3,
+                  x, p(a), p(x), p(w8), p(scale), p(bias), p(y), b * n,
+                  a.shape[-1], dim)
+    return y
 
 
 def fused_mlp_bwd_call(args: tuple, dropout_rate: float = 0.0,
@@ -271,7 +291,7 @@ def cases() -> dict:
         "int8_ln_qkv": ("nvt_int8_ln_qkv", lambda: (
             int8_qkv_call((x, *ln, *qkv8, h, d)))),
         "int8_outproj_residual": ("nvt_int8_outproj", lambda: (
-            q8.int8_outproj_residual_cuda(x, attn, *out8, bout))),
+            int8_outproj_call((x, attn, *out8, bout)))),
         "int8_mlp_block": ("nvt_int8_mlp", lambda: (
             q8.int8_mlp_block_cuda(x, *ln, *mlp8))),
         "int8_flash_attention": ("nvt_int8_attention", lambda: (

@@ -1,0 +1,225 @@
+"""Device-only times of the out-projections: K3 (bf16, forward), K11 (int8,
+serving) pass by pass, and K8 (bf16, backward), beside the GEMM
+yardsticks at their shapes.
+
+``chip_smoke.py`` times a call with CUDA events around it, which also
+counts the wrapper's enqueue (tensor maps and launches). This script reads
+the device's own kernel times from ``torch.profiler`` (``device_us`` of
+``scripts/torch_gemm_device_times.py``) at the flagship (dim 1024, 8 heads
+of 64: inner 512) at batch 1, 8, 32 and 128 x 1001 tokens:
+
+- K3 at dropout 0 and 0.1 (the train step's rate): one launch of K4's
+  ``fc2_residual`` pass; an older checkout's ``wmma`` kernel shows as
+  ``outproj_kernel``.
+- K11: its row quantizer (``rowquant``) and K12's ``fc2_residual`` pass;
+  an older checkout's single ``wmma`` kernel shows as
+  ``int8_outproj_kernel``.
+- K8 at dropout 0 and 0.1 (``outproj_bwd_kernel``, still ``wmma``).
+
+Each line gives the function's bound (its bytes at 3.35 TB/s or its
+operations at the peak of their type, the larger), the design's bytes
+floor (K11 also writes a8 and reads it again), the median one-call
+CUDA-event time and the host's enqueue time per call. Then the
+yardsticks, each with its device time and one-call CUDA-event time: ``torch.mm`` with bf16 out and K17 bf16's GEMM kernel at K3's
+[M, inner] x [inner, dim]; ``torch._int_mm`` and K17 int8's at K11's;
+and ``torch.mm(dy, Wout)`` at [M, dim] x [dim, inner], which is K8's
+function at dropout 0 (K17 and ``torch._int_mm`` at M rounded up to 16).
+
+    python scripts/torch_outproj_device_times.py [--iters 20]
+
+Needs the card; prints nvidia-smi's name and power limit first. Copied
+into an older checkout's ``scripts/``, it times that checkout's kernels.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from neurovit_tpu_torch.ops import fused_outproj as k3  # noqa: E402
+from neurovit_tpu_torch.ops import int8_gemm as k17  # noqa: E402
+from neurovit_tpu_torch.ops import int8_serving as q8  # noqa: E402
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_attention_device_times import events_ms  # noqa: E402
+from torch_gemm_device_times import device_us, enqueue_us  # noqa: E402
+
+N = 1001
+DIM, INNER = 1024, 512
+BATCHES = (1, 8, 32, 128)
+DROPOUT = 0.1
+PEAK = {"bf16": 989e12, "int8": 1979e12}
+HBM_BYTES_PER_S = 3.35e12
+# Kernel names as the profiler shows them, most specific first.
+PASSES = ("int8_outproj_kernel", "outproj_bwd_kernel", "outproj_kernel",
+          "rowquant_kernel", "fc2_residual_kernel", "transpose_kernel",
+          "gemm_kernel")
+
+
+def operands(b: int, dim: int = DIM, inner: int = INNER,
+             seed: int = 42) -> dict:
+    """The operands of K3, K11 and K8 for b x N tokens, made as
+    chip_smoke.py's kernel phase makes them: standard normal x and a, dy at
+    0.1, the weight in nn.Linear's default range (bf16, and int8 per output
+    channel from the same f32 values), a small bias."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0, dtype=torch.bfloat16):
+        return torch.tensor(scale * rng.standard_normal(shape), dtype=dtype,
+                            device="cuda")
+
+    w = torch.tensor(rng.uniform(-1, 1, (dim, inner)) / inner ** 0.5,
+                     dtype=torch.float32, device="cuda")
+    return {"x": t(b, N, dim), "a": t(b, N, inner),
+            "b": t(dim, scale=0.03, dtype=torch.float32),
+            "w": w.to(torch.bfloat16), "w8": q8.quantize_weight(w),
+            "dy": t(b, N, dim, scale=0.1)}
+
+
+def floors(kernel: str, m: int, dim: int = DIM, inner: int = INNER) -> dict:
+    """The bound of ``kernel`` ("K3", "K11" or "K8") for m rows and by what,
+    and the design's bytes floor, in ms. The bytes of the function: each
+    input read once and each output written once (K3: a, x, Wout, b in and
+    y out; K11: a, x, W8, its scales and b in, y out; K8: dy and Wout in,
+    dattn and dz out); its operations 2 m inner dim, bf16 or int8. K11's
+    design also writes a8 and its row scales and reads them again."""
+    if kernel == "K3":
+        nbytes = 2 * m * inner + 4 * m * dim + 2 * dim * inner + 4 * dim
+        kind, design = "bf16", nbytes
+    elif kernel == "K11":
+        nbytes = 2 * m * inner + 4 * m * dim + dim * inner + 8 * dim
+        kind, design = "int8", nbytes + 2 * m * inner + 8 * m
+    else:
+        nbytes = 4 * m * dim + 2 * dim * inner + 2 * m * inner
+        kind, design = "bf16", nbytes
+    t_ops = 2 * m * inner * dim / PEAK[kind]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "design_ms": design / HBM_BYTES_PER_S * 1e3}
+
+
+def short(name: str) -> str:
+    for key in PASSES:
+        if key in name:
+            return key
+    return name[:48]
+
+
+def calls(ops: dict, rate: float = DROPOUT) -> dict:
+    """name -> one call of each kernel on ``ops``."""
+    seed = {"dropout_rate": rate, "seed": 1234}
+    return {
+        "K3": lambda: k3.fused_outproj_residual_cuda(ops["x"], ops["a"],
+                                                     ops["w"], ops["b"]),
+        f"K3 dropout {rate}": lambda: k3.fused_outproj_residual_cuda(
+            ops["x"], ops["a"], ops["w"], ops["b"], **seed),
+        "K11": lambda: q8.int8_outproj_residual_cuda(ops["x"], ops["a"],
+                                                     *ops["w8"], ops["b"]),
+        "K8": lambda: k3.fused_outproj_bwd_cuda(ops["dy"], ops["w"]),
+        f"K8 dropout {rate}": lambda: k3.fused_outproj_bwd_cuda(
+            ops["dy"], ops["w"], **seed)}
+
+
+def measure(call, iters: int) -> dict:
+    """Device microseconds of each kernel of one call, their sum in ms ({}
+    and None where the trace held no kernels), the median one-call
+    CUDA-event ms, and the host's enqueue microseconds a call."""
+    passes = {}
+    for key, us in device_us(call, iters).items():
+        passes[short(key)] = passes.get(short(key), 0.0) + us
+    return {"passes_us": passes,
+            "device_ms": sum(passes.values()) / 1e3 if passes else None,
+            "events_ms": events_ms(call),
+            "enqueue_us": enqueue_us(call, 4 * iters)}
+
+
+def yardstick(ops: dict, iters: int) -> dict:
+    """{call at its shape: ({kernel: device us}, one-call CUDA-event ms)}:
+    torch.mm (bf16 out) and K17 bf16 at K3's GEMM, torch._int_mm and K17
+    int8 at K11's, torch.mm(dy, Wout) at K8's; K17 and torch._int_mm at
+    the rows rounded up to 16."""
+    b, n, inner = ops["a"].shape
+    m, dim = b * n, ops["w"].shape[0]
+    m16 = -(-m // 16) * 16
+    a2, wt = ops["a"].reshape(m, inner), ops["w"].t().contiguous()
+    rng = np.random.default_rng(0)
+    a16 = torch.tensor(rng.standard_normal((m16, inner)),
+                       dtype=torch.bfloat16, device="cuda")
+    a8 = torch.tensor(rng.integers(-127, 128, (m16, inner)),
+                      dtype=torch.int8, device="cuda")
+    w8t = ops["w8"][0].t().contiguous()
+    dy2 = ops["dy"].reshape(m, dim)
+    out = {}
+    for name, fn in (
+            (f"torch.mm bf16 [{m}, {inner}] x [{inner}, {dim}]",
+             lambda: torch.mm(a2, ops["w"].t())),
+            (f"K17 bf16 [{m16}, {inner}] x [{inner}, {dim}]",
+             lambda: k17.gemm_bf16_cuda(a16, wt)),
+            (f"torch._int_mm [{m16}, {inner}] x [{inner}, {dim}]",
+             lambda: torch._int_mm(a8, w8t)),
+            (f"K17 int8 [{m16}, {inner}] x [{inner}, {dim}]",
+             lambda: k17.gemm_int8_cuda(a8, w8t)),
+            (f"torch.mm(dy, Wout) [{m}, {dim}] x [{dim}, {inner}]",
+             lambda: torch.mm(dy2, ops["w"]))):
+        out[name] = ({short(key): us for key, us in device_us(
+            fn, iters).items()}, events_ms(fn))
+    return out
+
+
+def line(what: str, m: dict, f: dict) -> str:
+    if not m["passes_us"]:
+        head = f"{what}: device not measured (no kernels traced)"
+    else:
+        parts = ", ".join(f"{p} {us:.1f}" for p, us in m["passes_us"].items())
+        head = f"{what}: device {m['device_ms']:.4f} ms ({parts} us)"
+    return (f"{head}; events {m['events_ms']:.4f} ms; bound "
+            f"{f['bound_ms']:.4f} ms ({f['bound_by']}), design bytes "
+            f"{f['design_ms']:.4f} ms; enqueue {m['enqueue_us']:.1f} us a "
+            f"call")
+
+
+def run(b: int, iters: int) -> tuple:
+    """(lines, measured) at batch b: a line for each kernel, then the
+    yardsticks' lines; each kernel's :func:`measure` by name."""
+    ops = operands(b)
+    m = b * N
+    lines, measured = [], {}
+    for name, call in calls(ops).items():
+        what = f"{name} batch {b} (M {m}, dim {DIM}, inner {INNER})"
+        measured[name] = measure(call, iters)
+        lines.append(line(what, measured[name], floors(name.split()[0], m)))
+    for shape, (dev, ms) in yardstick(ops, iters).items():
+        lines.append(f"  {shape}: " + (", ".join(
+            f"{k} {us:.1f} us" for k, us in dev.items()) or
+            "device not measured (no kernels traced)")
+            + f"; events {ms:.4f} ms")
+    return lines, measured
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--iters", type=int, default=20)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("torch_outproj_device_times: needs the card", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout.strip())
+    for b in BATCHES:
+        for text in run(b, args.iters)[0]:
+            print(text, flush=True)
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -26,7 +26,13 @@ all-zero dqkv and all-zero rows of it, repeat calls bit for bit and its
 plan's bytes against the kernel's counts; and K13 on TMA + wgmma at head dims 16-128, n_valid
 on and off the key tiles, batch 8 and 32 at 1001 tokens, repeat calls bit
 for bit, its prologue's scales and permuted codes bit for bit, an all-zero
-V, B * H past 65535 and its plan's bytes against the kernel's counts.
+V, B * H past 65535 and its plan's bytes against the kernel's counts; and
+K3 and K11 on TMA + wgmma (K4's and K12's fc2_residual pass) at ragged
+rows (1-8008), the flagship at batch 1 (64-column tiles) and 8, and the
+widths their wmma versions refused (K11's inner 1280-2048, K3's inner
+2048), K3 at dropout 0 and 0.1 with the dropped positions those of the
+plain mask, K11 bit-equal to plain, all-zero rows of a, repeat calls bit
+for bit and their plans' bytes against the kernels' counts.
 
 These need an NVIDIA GPU with sm_90a and nvcc; elsewhere they skip. Run on
 the card with:
@@ -53,6 +59,7 @@ import numpy as np
 import pytest
 import torch
 
+from neurovit_tpu_torch import nn
 from neurovit_tpu_torch.ops import flash_attention as fa
 from neurovit_tpu_torch.ops import (fused_mlp, fused_outproj, fused_qkv,
                                     int8_serving, maxpool3d)
@@ -740,6 +747,104 @@ def test_int8_outproj_kernel(cuda, m):
            int8_serving.int8_outproj_residual_plain(*args))
 
 
+# K11 and K3 on TMA + wgmma: ragged rows (1, 130), the flagship at batch 1
+# (64-column tiles) and 8, inner off the 128-wide k box, and the widths
+# their wmma versions refused: K11's inner past 1024 (ViT-H 1280, 1536,
+# 2048) and K3's inner past 1536 (2048).
+OUTPROJ_CASES = [(1, 512, 256), (130, 512, 256), (1001, 1024, 512),
+                 (8008, 1024, 512), (130, 384, 320), (130, 1280, 1280),
+                 (2002, 1280, 1280), (130, 1536, 1536), (130, 2048, 2048),
+                 (1001, 1024, 2048)]
+
+
+def _outproj_args(rng, m, dim, inner, device):
+    """x [1, m, dim], a [1, m, inner], f32 Wout [dim, inner] and b [dim]."""
+    return (_rand(rng, (1, m, dim), device), _rand(rng, (1, m, inner), device),
+            _rand(rng, (dim, inner), device, torch.float32, inner ** -0.5),
+            _rand(rng, (dim,), device, torch.float32, 0.05))
+
+
+@pytest.mark.parametrize("m,dim,inner", OUTPROJ_CASES)
+def test_int8_outproj_kernel_widths(cuda, m, dim, inner):
+    """K11 equal to plain bit for bit (the int32 sums are exact and both
+    round at the same points), one launch-count a call, two calls equal."""
+    x, a, w, b = _outproj_args(np.random.default_rng(m + dim + inner), m,
+                               dim, inner, cuda)
+    args = (x, a, *int8_serving.quantize_weight(w), b)
+    before = int8_serving.int8_outproj_residual_cuda.launches
+    got = int8_serving.int8_outproj_residual(*args)
+    want = int8_serving.int8_outproj_residual_plain(*args)
+    again = int8_serving.int8_outproj_residual(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), float((got.float() - want.float())
+                                         .abs().max())
+    assert torch.equal(got, again)
+    assert int8_serving.int8_outproj_residual_cuda.launches == before + 2
+
+
+def test_int8_outproj_kernel_zero_rows(cuda):
+    """All-zero rows of a, at a tile's first and last row and in the
+    ragged tile: amax 0, scale 1, codes 0, so y is bf16(b + x) there."""
+    rows = [0, 127, 128, 129]
+    x, a, w, b = _outproj_args(np.random.default_rng(9), 130, 512, 256, cuda)
+    a[0, rows] = 0
+    args = (x, a, *int8_serving.quantize_weight(w), b)
+    got = int8_serving.int8_outproj_residual_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, int8_serving.int8_outproj_residual_plain(*args))
+    assert torch.equal(got[0, rows], (b + x[0, rows].float()).to(x.dtype))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("m,dim,inner", OUTPROJ_CASES)
+def test_fused_outproj_kernel_widths(cuda, m, dim, inner, rate):
+    """K3 against plain (the same mask bits at dropout 0.1, the ragged
+    last tile included), one launch-count a call, two calls bit-equal."""
+    x, a, w, b = _outproj_args(np.random.default_rng(m + dim + inner + 1),
+                               m, dim, inner, cuda)
+    w = w.to(torch.bfloat16)
+    kw = {"dropout_rate": rate, "seed": 7}
+    before = fused_outproj.fused_outproj_residual_cuda.launches
+    got = fused_outproj.fused_outproj_residual(x, a, w, b, **kw)
+    _check(got, fused_outproj.fused_outproj_residual_plain(x, a, w, b, **kw))
+    again = fused_outproj.fused_outproj_residual(x, a, w, b, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert fused_outproj.fused_outproj_residual_cuda.launches == before + 2
+    if rate:      # the dropped positions are those of the plain mask
+        drop = ~nn.keep_mask(7, (m, dim), rate).to(cuda)
+        assert torch.equal(got.reshape(m, dim)[drop],
+                           x.reshape(m, dim)[drop])
+
+
+def test_outproj_plans_match_the_kernels(cuda):
+    """The wrappers' K3 and K11 plans count the scratch and the GEMM
+    pass's shared memory (which follows its tile width) as the kernels do,
+    at every width of the matrix and the card tests' widths, on both sides
+    of the 64-column tile rule."""
+    import ctypes
+
+    from neurovit_tpu_torch.models.vit3d import WIDTHS
+    from neurovit_tpu_torch.ops import _build
+    lib = _build.library()
+    scratch = lib.nvt_int8_outproj_scratch_bytes
+    scratch.restype, scratch.argtypes = ctypes.c_longlong, [ctypes.c_int] * 3
+    smem8, smem = lib.nvt_int8_outproj_smem_bytes, \
+        lib.nvt_fused_outproj_smem_bytes
+    for fn in (smem8, smem):
+        fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 2
+    widths = [(w[0], w[1] * w[2]) for w in WIDTHS.values()] + [
+        (d, i) for _, d, i in OUTPROJ_CASES]
+    for dim, inner in widths:
+        for m in (1, 130, 1001, 2048, 8008, 32032):
+            plan = int8_serving.int8_outproj_plan(m, dim, inner)
+            assert scratch(m, dim, inner) == plan.scratch_bytes, (m, dim,
+                                                                  inner)
+            assert [s for *_, s in plan.launches] == [0, smem8(m, dim)]
+            bplan = fused_outproj.outproj_plan(m, dim, inner)
+            assert bplan.launches[0][3] == smem(m, dim), (m, dim, inner)
+
+
 @pytest.mark.parametrize("m", [1, 33, 300])
 def test_int8_mlp_kernel(cuda, m):
     rng = np.random.default_rng(m + 6)
@@ -957,10 +1062,10 @@ def test_int8_kernels_refuse_what_they_do_not_take(cuda):
         int8_serving.int8_ln_qkv(zeros(1, 4, 72, dtype=bf), zeros(72),
                                  zeros(72), zeros(384, 72, dtype=i8),
                                  zeros(384), 2, 64)
-    with pytest.raises(ValueError, match="inner <= 1024"):    # inner 1280
-        int8_serving.int8_outproj_residual(
-            zeros(1, 4, 256, dtype=bf), zeros(1, 4, 1280, dtype=bf),
-            zeros(256, 1280, dtype=i8), zeros(256), zeros(256))
+    with pytest.raises(ValueError, match="inner as a multiple of 16"):
+        int8_serving.int8_outproj_residual(                   # inner 1288
+            zeros(1, 4, 256, dtype=bf), zeros(1, 4, 1288, dtype=bf),
+            zeros(256, 1288, dtype=i8), zeros(256), zeros(256))
     with pytest.raises(ValueError, match="mlp_dim as a multiple of 16"):
         int8_serving.int8_mlp_block(                          # mlp_dim 264
             zeros(1, 4, 256, dtype=bf), zeros(256), zeros(256),

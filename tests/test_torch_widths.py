@@ -228,7 +228,8 @@ def test_kernel_gates_accept_every_width(width):
     inner = heads * dh
     fused_qkv.check_fwd_shapes(dim, inner)
     fused_qkv.check_bwd_shapes(dim, inner)
-    fused_outproj.check_shapes(dim, inner)
+    fused_outproj.check_fwd_shapes(dim, inner)
+    fused_outproj.check_bwd_shapes(dim, inner)
     # K4: three launches at any multiple-of-16 width, each GEMM block
     # within a block's shared memory, the scratch holding u and g.
     plan = fused_mlp.mlp_plan(1001, dim, hid)
@@ -254,11 +255,11 @@ def test_kernel_gates_accept_every_width(width):
     (fused_qkv.check_fwd_shapes, (72, 64), "dim as a multiple of 16"),
     (fused_qkv.check_fwd_shapes, (64, 40), "inner as a multiple of 16"),
     (fused_qkv.check_bwd_shapes, (1288, 512), "dim as a multiple of 16"),
-    (fused_outproj.check_shapes, (1000, 512), "multiple of 16"),
+    (fused_outproj.check_fwd_shapes, (1000, 512), "multiple of 16"),
     (fused_mlp.check_fwd_shapes, (1024, 2056), "multiple of 16"),
     (fused_mlp.check_bwd_shapes, (1536, 6152), "mlp_dim as a multiple of 16"),
     (q8.check_qkv_shapes, (1288, 1280), "dim as a multiple of 16"),
-    (q8.check_outproj_shapes, (1024, 1536), "inner <= 1024"),
+    (q8.check_outproj_shapes, (1024, 1288), "inner as a multiple of 16"),
     (q8.check_mlp_shapes, (1024, 8200), "mlp_dim as a multiple of 16"),
     (fa.kernel_head_dim, (256,), "head dim <= 128"),
 ])
@@ -281,6 +282,36 @@ def test_mlp_gate_accepts_the_widths_once_refused(dim, hid):
                  fused_mlp.mlp_bwd_plan(8008, dim, hid)):
         assert plan.launches[1][1] == (hid // 128, 63)
         assert plan.launches[2][1] == (dim // 128, 63)
+
+
+@pytest.mark.parametrize("dim,inner", [(1280, 1280), (1024, 1536),
+                                       (2048, 2048)])
+def test_int8_outproj_gate_accepts_the_widths_once_refused(dim, inner):
+    """K11 held a row of a in one warp's registers and refused inner past
+    1024 (ViT-H's 1280 among them). On its row quantizer and K12's
+    fc2_residual pass it takes them, and so does its plan: two launches,
+    the GEMM over dim / 128 column tiles, a8 [m, inner] first in the
+    scratch."""
+    q8.check_outproj_shapes(dim, inner)
+    plan = q8.int8_outproj_plan(8008, dim, inner)
+    assert [name for name, *_ in plan.launches] == ["rowquant",
+                                                     "fc2_residual"]
+    assert plan.launches[1][1] == (dim // 128, 63)
+    assert plan.scratch["a8"] == (0, 8008 * inner)
+
+
+@pytest.mark.parametrize("dim,inner", [(1024, 2048), (2048, 2048)])
+def test_outproj_gate_accepts_the_widths_once_refused(dim, inner):
+    """K3 kept a 64-row block of a in shared memory beside its wmma tiles
+    and refused inner past 1536 ("bytes of shared memory"). As K4's
+    fc2_residual pass it takes them, and so does its plan: one launch over
+    dim / 128 column tiles. K8 keeps its shared-memory gate on dim."""
+    fused_outproj.check_fwd_shapes(dim, inner)
+    plan = fused_outproj.outproj_plan(8008, dim, inner)
+    assert [name for name, *_ in plan.launches] == ["fc2_residual"]
+    assert plan.launches[0][1] == (dim // 128, 63)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        fused_outproj.check_bwd_shapes(2048, inner)
 
 
 @pytest.mark.parametrize("dim,inner", [(2048, 512), (2048, 2048)])
