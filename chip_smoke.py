@@ -12,7 +12,7 @@ Phases, each printing a line; any failure raises and exits non-zero:
                build's log, every ptxas note on a kernel (C7514, wgmma
                serialised, among them) and every kernel that spills, and
                the registers of the attention backward's instances and of
-               the passes of K4, K9, K12 and K13
+               the passes of K2, K4, K7-K13
 3. kernels     each kernel against its plain PyTorch version on the card, at
                the flagship shapes (batch 8 x 1001 tokens), with CUDA-event
                timings of both: the forwards K1-K4 at dropout 0 (K2 also
@@ -24,7 +24,9 @@ Phases, each printing a line; any failure raises and exits non-zero:
                K4 with h, also at 130 rows and at dim 1280 / mlp 5120 and
                dim 1024 / mlp 8192 at batch 2, and on all-zero rows, which
                give bf16(b2), and two calls bit-equal),
-               the backwards K5, K7, K8, K9 at dropout 0 and 0.1 (K7 also
+               the backwards K5, K7, K8, K9 at dropout 0 and 0.1 (K8 also
+               at 130 rows, its dz bit-equal to plain's, dy itself at
+               dropout 0, and two calls bit-equal; K7 also
                at 130 rows and on all-zero rows of dqkv, which give dx = 0
                there, and two calls bit-equal; K9 also
                at 130 rows and at dim 1280 / mlp 5120 and dim 1536 / mlp
@@ -76,9 +78,10 @@ Phases, each printing a line; any failure raises and exits non-zero:
                the kernels'; K4 and K9 at ViT-H (dim 1280, mlp 5120)
                against plain; K2, K10 and K7 at ViT-H (dim 1280, 16 heads x
                80), at dim 1536 / inner 1536 and at dim 2048 / inner 2048,
-               batch 2 and 130 rows, against plain, and K3 (dropout 0.1)
-               and K11 (bit-equal) there too, with their plans (K11's
-               scratch, both GEMMs' shared memory) against the kernels'; K4
+               batch 2 and 130 rows, against plain, and K3 (dropout 0.1),
+               K11 (bit-equal) and K8 (dropout 0.1, dz bit-equal) there
+               too, with their plans (K11's scratch, the three GEMMs'
+               shared memory) against the kernels'; K4
                and K9 timed at batch 8 at the ViT-B, ViT-L, ViT-H and
                flagship widths
 5. probes      the probe scripts' main paths with their launch counts
@@ -565,8 +568,8 @@ def build_notes(lib) -> None:
     (C7514 and C7512, wgmma serialised; C7508, setmaxnreg ignored) and
     every kernel that spills, with its name, and the registers of each
     instance of the attention backward, of K12's four passes, of K4's
-    three, of K9's five, of K7's four, of K2's GEMM and of K10's and
-    K11's row pass."""
+    three, of K9's five, of K7's four, of K2's GEMM, of K10's and K11's
+    row pass and of K8's GEMM."""
     from neurovit_tpu_torch.ops import _build
     path = _build.build_log(lib)
     if not path.exists():
@@ -588,6 +591,7 @@ def build_notes(lib) -> None:
                 or source in ("int8_qkv.cu", "int8_rowquant.cu",
                               "int8_mlp.cu", "fused_mlp.cu", "fused_qkv.cu",
                               "int8_outproj.cu", "fused_outproj.cu",
+                              "fused_outproj_bwd.cu",
                               "fused_mlp_bwd.cu", "fused_qkv_bwd.cu",
                               "int8_attention.cu")):
             log("build", f"{source} {readable.get(fn, fn)}: {regs} "
@@ -757,6 +761,7 @@ def kernel_phase(card: str) -> dict:
     attn0 = attn.clone()
     attn0[0, [0, 127, 128, 1000]] = 0
     out_130 = (x[:1, :130].contiguous(), attn[:1, :130].contiguous())
+    dy_130 = dy[:1, :130].contiguous()
     out8_more = {"130 rows": (*out_130, *out8, bout),
                  "zero rows of a": (x, attn0, *out8, bout)}
     # K14/K15 at the ResNet stem's shape: continuous values, and post-ReLU
@@ -852,10 +857,16 @@ def kernel_phase(card: str) -> dict:
              lambda a=a: oq.fused_ln_qkv_bwd_plain(*a), True, (1, 2))
             for label, a in qkv_bwd.items()],
         "fused_outproj_bwd": [
-            (f"dropout {rate}",
-             outproj_bwd(fused_outproj.fused_outproj_bwd_cuda, rate),
-             outproj_bwd(fused_outproj.fused_outproj_bwd_plain, rate), True,
-             ()) for rate in (DROPOUT, 0.0)],
+            *[(f"dropout {rate}",
+               outproj_bwd(fused_outproj.fused_outproj_bwd_cuda, rate),
+               outproj_bwd(fused_outproj.fused_outproj_bwd_plain, rate),
+               True, ()) for rate in (DROPOUT, 0.0)],
+            (f"130 rows dropout {DROPOUT}",
+             lambda: fused_outproj.fused_outproj_bwd_cuda(dy_130, wout,
+                                                         **drop),
+             lambda: fused_outproj.fused_outproj_bwd_plain(dy_130, wout,
+                                                          **drop), True,
+             ())],
         "fused_mlp_bwd": [
             *[(f"dropout {rate}", mlp_bwd(fused_mlp.fused_mlp_bwd_cuda, rate),
                mlp_bwd(fused_mlp.fused_mlp_bwd_plain, rate), True, (5, 6))
@@ -1134,9 +1145,29 @@ def kernel_phase(card: str) -> dict:
     log("kernels", "fused_ln_qkv_bwd: all-zero rows of dqkv give dx = 0; "
         "two calls bit-equal (dgamma and dbeta included) at the flagship "
         "and at 130 rows")
+    # K8: dz bit-equal to plain's (dy itself at dropout 0), two calls
+    # bit-equal, at the flagship and at 130 rows.
+    for label, dy_ in (("flagship", dy), ("130 rows", dy_130)):
+        for rate in (DROPOUT, 0.0):
+            one, two = (fused_outproj.fused_outproj_bwd_cuda(
+                dy_, wout, dropout_rate=rate, seed=1234) for _ in range(2))
+            _, dz_plain = fused_outproj.fused_outproj_bwd_plain(
+                dy_, wout, dropout_rate=rate, seed=1234)
+            if not torch.equal(one[1], dz_plain):
+                raise AssertionError(f"fused_outproj_bwd {label} dropout "
+                                     f"{rate}: dz differs from plain's")
+            if not rate and one[1] is not dy_:
+                raise AssertionError(f"fused_outproj_bwd {label}: dz at "
+                                     "dropout 0 is not dy")
+            if not all(torch.equal(p, q) for p, q in zip(one, two)):
+                raise AssertionError(f"fused_outproj_bwd {label} dropout "
+                                     f"{rate}: two calls differ")
+    log("kernels", f"fused_outproj_bwd: dz bit-equal to plain at dropout "
+        f"{DROPOUT} and dy itself at 0; two calls bit-equal at the flagship "
+        "and at 130 rows")
     del mlp8_more, mlp_more, mlp_zero, x0, y0, one, two, bwd_more, got0, dy0
-    del qkv8_more, qkv_bwd, dqkv0, dx0, qkv_more, served
-    del out8_more, attn0, out_130
+    del qkv8_more, qkv_bwd, dqkv0, dx0, qkv_more, served, dz_plain
+    del out8_more, attn0, out_130, dy_130
     attention_device_times(results, qkv, qkv_h, card)
     qkv_device_times(results, (x, *ln, wqkv, HEADS, DIM_HEAD), card)
     int8_qkv_device_times(results, (x, *ln, *qkv8, HEADS, DIM_HEAD), card)
@@ -1179,11 +1210,12 @@ def widths_phase(card: str) -> None:
     """Every ViT width of the matrix (models/vit3d.py WIDTHS) at batch 2 x
     1001 tokens through K1-K13 against the plain versions, with the kernel
     phase's tolerances (K11 bit for bit), dropout 0.1 where an op has it;
-    K4's, K9's, K2's, K10's, K7's, K11's and K3's plans (scratch and shared
-    memory) against the kernels' own counts; K4 and K9 at ViT-H (dim 1280,
-    16 heads of 80, mlp 5120), which the wmma K9 refused, against plain;
-    K2, K10, K7, K3 and K11 at ViT-H, at dim 1536 / inner 1536 and at dim
-    2048 / inner 2048, which their wmma versions refused, against plain;
+    K4's, K9's, K2's, K10's, K7's, K11's, K3's and K8's plans (scratch and
+    shared memory) against the kernels' own counts; K4 and K9 at ViT-H (dim
+    1280, 16 heads of 80, mlp 5120), which the wmma K9 refused, against
+    plain; K2, K10, K7, K3, K11 and K8 at ViT-H, at dim 1536 / inner 1536
+    and at dim 2048 / inner 2048, which their wmma versions refused,
+    against plain;
     then K4 and K9 timed at batch 8 at the ViT-B, ViT-L, ViT-H and flagship
     widths."""
     import ctypes
@@ -1207,26 +1239,29 @@ def widths_phase(card: str) -> None:
     k11_scratch = lib.nvt_int8_outproj_scratch_bytes
     k11_smem = lib.nvt_int8_outproj_smem_bytes
     k3_smem = lib.nvt_fused_outproj_smem_bytes
+    k8_smem = lib.nvt_fused_outproj_bwd_smem_bytes
     for fn in (scratch, bwd_scratch, qkv_scratch, k7_scratch, k2_scratch,
                k11_scratch):
         fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 3
     for fn in (smem, bwd_smem, qkv_smem, k7_smem, k2_smem, k11_smem,
-               k3_smem):
+               k3_smem, k8_smem):
         fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 2
 
     def check_outproj_plans(what: str, m: int, dim: int, inner: int) -> None:
-        """K11's plan (scratch, the GEMM's shared memory) and K3's (its
-        launch's shared memory) against the kernels' own counts."""
+        """K11's plan (scratch, the GEMM's shared memory), K3's and K8's
+        (their GEMM's shared memory) against the kernels' own counts."""
         plan8 = q8.int8_outproj_plan(m, dim, inner)
         counted = (k11_scratch(m, dim, inner), k11_smem(m, dim),
-                   k3_smem(m, dim))
+                   k3_smem(m, dim), k8_smem(m, inner))
         mine = (plan8.scratch_bytes, plan8.launches[1][3],
-                fused_outproj.outproj_plan(m, dim, inner).launches[0][3])
+                fused_outproj.outproj_plan(m, dim, inner).launches[0][3],
+                fused_outproj.outproj_bwd_plan(m, dim, inner,
+                                               DROPOUT).launches[1][3])
         if counted != mine:
             raise AssertionError(
-                f"{what}: K11's and K3's plans count (K11's scratch and "
-                f"shared memory, K3's shared memory) {mine} bytes, the "
-                f"kernels {counted}")
+                f"{what}: K11's, K3's and K8's plans count (K11's scratch "
+                f"and shared memory, K3's and K8's shared memory) {mine} "
+                f"bytes, the kernels {counted}")
 
     rng = np.random.default_rng(SEED + 6)
     bf = torch.bfloat16
@@ -1358,11 +1393,12 @@ def widths_phase(card: str) -> None:
         f"at dropout {DROPOUT} against plain at B=2 N={N}, K9 max abs err "
         f"{err:.3e}")
     del p, mlp, got, bwd
-    # K2, K10, K7, K3 and K11 at the widths their wmma versions refused
-    # (K10's, K7's and K11's rows sat in one warp's registers, K2's u block
-    # and K3's a block in shared memory up to dim or inner 1536): ViT-H,
-    # dim 1536 / inner 1536 and dim 2048 / inner 2048, at batch 2 and at
-    # 130 rows, against plain (K3 at dropout 0.1, K11 bit for bit).
+    # K2, K10, K7, K3, K11 and K8 at the widths their wmma versions refused
+    # (K10's, K7's and K11's rows sat in one warp's registers, K2's u block,
+    # K3's a block and K8's dz block in shared memory up to dim or inner
+    # 1536): ViT-H, dim 1536 / inner 1536 and dim 2048 / inner 2048, at
+    # batch 2 and at 130 rows, against plain (K3 and K8 at dropout 0.1, K8's
+    # dz and K11 bit for bit).
     for dim, heads, dh in ((1280, 16, 80), (1536, 24, 64), (2048, 16, 128)):
         p = _width_operands(rng, 2, dim, heads, dh, 16)
         qkv8 = q8.quantize_weight(p["wqkv"])
@@ -1372,7 +1408,8 @@ def widths_phase(card: str) -> None:
         for m in (2 * N, 130):
             check_outproj_plans(f"dim {dim} inner {heads * dh}", m, dim,
                                 heads * dh)
-        worst = {"K2": [], "K10": [], "K7": [], "K3": [], "K11": []}
+        worst = {"K2": [], "K10": [], "K7": [], "K3": [], "K11": [],
+                 "K8": []}
         for label, rows in ((f"B=2 N={N}", (slice(None),)),
                             ("130 rows", (slice(0, 1), slice(0, 130)))):
             x = p["x"][rows].contiguous()
@@ -1411,17 +1448,28 @@ def widths_phase(card: str) -> None:
                                                             p["bout"]),
                              mode="exact")
             worst["K11"].append(err)
+            dy = p["dy"][rows].contiguous()
+            got = fused_outproj.fused_outproj_bwd_cuda(dy, wout, **drop)
+            want = fused_outproj.fused_outproj_bwd_plain(dy, wout, **drop)
+            err, _ = compare(f"widths dim {dim} inner {heads * dh} K8 "
+                             f"{label}", got, want, True, ())
+            if not torch.equal(got[1], want[1]):
+                raise AssertionError(f"widths dim {dim} K8 {label}: dz "
+                                     "differs from plain's")
+            worst["K8"].append(err)
         grids = [plan_of(2 * N, dim, heads * dh).launches[1][1]
                  for plan_of in (fused_qkv.qkv_plan, q8.qkv_plan,
                                  fused_qkv.qkv_bwd_plan,
                                  q8.int8_outproj_plan)]
+        k8_grid = fused_outproj.outproj_bwd_plan(2 * N, dim, heads * dh,
+                                                 DROPOUT).launches[1][1]
         log("widths", f"dim {dim}, {heads} heads x {dh}: K2, K10, K7, K3 "
-            f"(dropout {DROPOUT}) and K11 against plain at B=2 N={N} and "
-            f"at 130 rows, max abs err "
+            f"(dropout {DROPOUT}), K11 and K8 (dropout {DROPOUT}) against "
+            f"plain at B=2 N={N} and at 130 rows, max abs err "
             + ", ".join(f"{k} {max(v):.3e}" for k, v in worst.items())
             + f" (GEMM grids K2 {grids[0]}, K10 {grids[1]}, K7 {grids[2]}, "
-            f"K11 and K3 {grids[3]})")
-        del p, qkv8, wqkv, k2, k7, out8, wout, out
+            f"K11 and K3 {grids[3]}, K8 {k8_grid})")
+        del p, qkv8, wqkv, k2, k7, out8, wout, out, dy, got, want
     # K4 and K9 at ViT-B, ViT-L and ViT-H (K4's widest tiles, K9's widest
     # rows) beside the flagship.
     for name, (dim, heads, dh, hid) in (

@@ -15,7 +15,7 @@
 // The +-96 clamp replaces the row-max subtraction (flash_attention.py:39-45),
 // so the key loop only sums: no online-softmax rescaling. The dropout mask
 // of element (b, h, q, k) is byte i % 16 of Philox4x32-10(i / 16, seed) at
-// i = ((b*H + h)*N + q)*N + k (DropoutBits, common.cuh): a function of
+// i = ((b*H + h)*N + q)*N + k (nn.py, random_bytes): a function of
 // position, so the backward (flash_attention_bwd.cu) regenerates it under
 // its own tiling, and K1 and K6 draw the same bits. When a graph is
 // recorded (training, Grad-CAM) the kernel also writes the f32 row sum

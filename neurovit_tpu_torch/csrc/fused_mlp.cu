@@ -7,9 +7,9 @@
 //   g = bf16(GELU(h) * mask1 / keep)     exact-erf GELU in f32, CUDA erff
 //   z = (g . W2^T + b2) * mask2 / keep   f32
 //   y = bf16(x + z)                      x added in f32, one rounding
-// The masks (training only, fused_mlp.py:125-133) are nvt::DropoutBits of
-// two sites: mask1 at row * hid + j of the hidden, mask2 at row * dim + c
-// of the output. In training h is also stored (h [M, hid] bf16), the tensor
+// The masks (training only, fused_mlp.py:125-133) are nn.keep_mask's bits
+// of two sites: mask1 at row * hid + j of the hidden, mask2 at row * dim +
+// c of the output. In training h is also stored (h [M, hid] bf16), the tensor
 // the backward (fused_mlp_bwd.cu) reads; serving passes null. W1 [hid, dim]
 // and W2 [dim, hid] are torch Linear weights: both are K-major for their
 // GEMM as they lie, so wgmma reads them with no transpose.
@@ -92,6 +92,51 @@ __global__ void __launch_bounds__(kRowWarps * 32)
   if (row >= M) return;
   const size_t off = static_cast<size_t>(row) * dim;
   ln_row(x + off, gamma, beta, u + off, dim, eps);
+}
+
+// K9's pass 1 (fused_mlp_bwd.cu), and K8's without the LayerNorm
+// (fused_outproj_bwd.cu): dz = bf16(dy * mask / keep), one warp a row;
+// with kLn also u and the row's statistics as ln_rows writes them.
+template <bool kLn>
+__global__ void __launch_bounds__(kRowWarps * 32)
+    dz_rows_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ x,
+                   const float* __restrict__ gamma,
+                   const float* __restrict__ beta, bf16* __restrict__ dz,
+                   bf16* __restrict__ u, float2* __restrict__ stats, int M,
+                   int dim, float eps, float inv_keep, uint32_t keep_q,
+                   uint64_t seed) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kRowWarps + threadIdx.x / 32;
+  if (row >= M) return;
+  const size_t off = static_cast<size_t>(row) * dim;
+  if constexpr (kLn) {
+    const float2 st = ln_row(x + off, gamma, beta, u + off, dim, eps);
+    if (lane == 0) stats[row] = st;
+  }
+  // off + c is a multiple of 16 (dim is): the 16 columns are byte e of
+  // Philox block (off + c) / 16, nn.keep_mask's bits.
+  for (int c = lane * 16; c < dim; c += 512) {
+    uint4 v[2] = {*reinterpret_cast<const uint4*>(dy + off + c),
+                  *reinterpret_cast<const uint4*>(dy + off + c + 8)};
+    if (keep_q) {
+      const uint4 w = philox4x32_10((off + c) >> 4, seed);
+      const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float f[8];
+        unpack8(v[half], f);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int e = 8 * half + i;
+          const uint32_t byte = (ws[e / 4] >> (8 * (e % 4))) & 0xFFu;
+          f[i] *= byte < keep_q ? inv_keep : 0.f;
+        }
+        v[half] = pack8(f);
+      }
+    }
+    *reinterpret_cast<uint4*>(dz + off + c) = v[0];
+    *reinterpret_cast<uint4*>(dz + off + c + 8) = v[1];
+  }
 }
 
 // Pass 2: h = bf16(u . W1^T + b1) (stored when store_h), g = bf16(GELU(h)
@@ -282,6 +327,24 @@ cudaError_t mlp::launch_ln_rows(const bf16* x, const float* gamma,
                                 float eps, cudaStream_t stream) {
   ln_rows_kernel<<<(M + kRowWarps - 1) / kRowWarps, kRowWarps * 32, 0,
                    stream>>>(x, gamma, beta, u, M, dim, eps);
+  return cudaGetLastError();
+}
+
+cudaError_t mlp::launch_dz_rows(const bf16* dy, const bf16* x,
+                                const float* gamma, const float* beta,
+                                bf16* dz, bf16* u, float2* stats, int M,
+                                int dim, float eps, float inv_keep,
+                                uint32_t keep_q, uint64_t seed,
+                                cudaStream_t stream) {
+  const int blocks = (M + kRowWarps - 1) / kRowWarps;
+  if (x != nullptr)
+    dz_rows_kernel<true><<<blocks, kRowWarps * 32, 0, stream>>>(
+        dy, x, gamma, beta, dz, u, stats, M, dim, eps, inv_keep, keep_q,
+        seed);
+  else
+    dz_rows_kernel<false><<<blocks, kRowWarps * 32, 0, stream>>>(
+        dy, nullptr, nullptr, nullptr, dz, nullptr, nullptr, M, dim, 0.f,
+        inv_keep, keep_q, seed);
   return cudaGetLastError();
 }
 

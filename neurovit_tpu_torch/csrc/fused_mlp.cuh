@@ -4,11 +4,13 @@
 // pass's tile width, a LayerNorm row and its statistics in one warp, a
 // thread's place in the accumulator tile, the quad's shared dropout bits in
 // that layout, and the swizzled staging of a bf16 output tile in the freed
-// ring. The LN + QKV forward (fused_qkv.cu, K2) launches K4's LN rows pass
-// (launch_ln_rows) and uses its GEMM tiles; the out-projection (K3,
-// fused_outproj.cu) is K4's last pass (launch_fc2_residual); the LN + QKV
-// backward (fused_qkv_bwd.cu, K7) shares the statistics and, through
-// ln_bwd.cuh, K9's last three passes.
+// ring (store_tile). The LN + QKV forward (fused_qkv.cu, K2) launches K4's
+// LN rows pass (launch_ln_rows) and uses its GEMM tiles; the out-projection
+// (K3, fused_outproj.cu) is K4's last pass (launch_fc2_residual); the LN +
+// QKV backward (fused_qkv_bwd.cu, K7) shares the statistics and, through
+// ln_bwd.cuh, K9's last three passes; the out-projection backward
+// (fused_outproj_bwd.cu, K8) launches K9's dz rows pass without the
+// LayerNorm (launch_dz_rows) and its GEMM on K9's MN-major B tiles.
 #pragma once
 
 #include "hopper_gemm.cuh"
@@ -107,6 +109,21 @@ cudaError_t launch_ln_rows(const bf16* x, const float* gamma,
                            const float* beta, bf16* u, int M, int dim,
                            float eps, cudaStream_t stream);
 
+// K9's pass 1, which K8 launches too (fused_mlp.cu), one warp a row,
+// kRowWarps rows a block, on the stream:
+//   dz = bf16(dy * mask / keep)         dy, dz [M, dim] bf16
+// the mask nn.keep_mask's bits at row * dim + col under seed (keep_q 0:
+// none). Lane l takes columns 512 i + 16 l .. + 15 of the row, byte e of
+// Philox block (row * dim + col) / 16. With x non-null (K9) the row's
+// LayerNorm too, as ln_row: u = bf16(LN(x) * gamma + beta) and (mean,
+// rstd) into stats [M]; with x null (K8) gamma, beta, u and stats are not
+// touched. Returns the launch's error.
+cudaError_t launch_dz_rows(const bf16* dy, const bf16* x, const float* gamma,
+                           const float* beta, bf16* dz, bf16* u,
+                           float2* stats, int M, int dim, float eps,
+                           float inv_keep, uint32_t keep_q, uint64_t seed,
+                           cudaStream_t stream);
+
 // K4's pass 3, which K3 launches too (fused_mlp.cu):
 //   y = bf16(x + (g . Bt^T + b) * mask / keep)
 // for g [M, K] and Bt [N, K] bf16 through the maps tg (boxes of kBM rows)
@@ -199,6 +216,33 @@ __device__ __forceinline__ void store_staged(const CUtensorMap* map0,
       hopper::tma_store_2d(map1, t1 + b * kBM * 128, n0 + 64 * b, m0);
   }
   hopper::tma_store_wait();
+}
+
+// The epilogue of a GEMM pass whose output is the plain bf16 product (K2's
+// qkv_gemm, K8's dattn): once no wgmma reads the ring, each consumer
+// thread rounds its f32 accumulator pairs to bf16 pairs and stages them
+// (staged_at); then store_staged writes the tile at (n0, m0) of map,
+// columns past n_end skipped and rows past the map's clipped by TMA. Every
+// consumer thread calls it with the block's dynamic shared memory.
+template <int BN>
+__device__ __forceinline__ void store_tile(const CUtensorMap* map,
+                                           unsigned char* smem,
+                                           const float (&acc)[BN / 2], int n0,
+                                           int m0, int n_end) {
+  const Place at;
+  unsigned char* os = reinterpret_cast<unsigned char*>(
+      round_up(reinterpret_cast<size_t>(smem), 1024));   // the ring
+  hopper::named_barrier(1, kConsumerThreads);   // no wgmma reads it now
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = at.r0 + 8 * half;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(os + staged_at(r, j, at.quad)) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * half],
+                                acc[4 * j + 2 * half + 1]);
+  }
+  store_staged<BN>(map, os, nullptr, nullptr, n0, m0, n_end);
 }
 
 }  // namespace mlp

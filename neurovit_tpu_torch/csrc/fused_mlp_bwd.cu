@@ -23,9 +23,11 @@
 // dz, u, a, dh, dx written, dh read again, du written and read as f32,
 // about 336 MB at that shape (0.100 ms at 3.35 TB/s), in five launches on
 // the caller's stream:
-//   1. dz_rows: one warp a row writes u (ln_row, fused_mlp.cuh: K4's
-//      ln_rows, so u has the forward's bits), the row's (mean, rstd), and
-//      dz (lane l takes columns 512 i + 16 l .. + 15: one Philox block).
+//   1. dz_rows (fused_mlp.cu, launch_dz_rows, which K8 launches without
+//      the LayerNorm): one warp a row writes u (ln_row, fused_mlp.cuh:
+//      K4's ln_rows, so u has the forward's bits), the row's (mean, rstd),
+//      and dz (lane l takes columns 512 i + 16 l .. + 15: one Philox
+//      block).
 //   2. hidden: fused_mlp.cuh Loop<BN, true> over ceil(hid / BN) x
 //      ceil(M / 128) tiles, A = dz, B = W2 [dim, hid] as it lies (MN-major
 //      for this product: hopper_gemm.cuh's MN-major B mode, wgmma's
@@ -59,47 +61,6 @@ namespace {
 
 constexpr float kInvSqrt2 = 0.7071067811865476f;
 constexpr float kInvSqrt2Pi = 0.3989422804014327f;
-
-// Pass 1: u and the row's statistics as K4's ln_rows, and dz = bf16(dy *
-// mask2 / keep), one warp a row.
-__global__ void __launch_bounds__(kRowWarps * 32)
-    dz_rows_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ x,
-                   const float* __restrict__ gamma,
-                   const float* __restrict__ beta, bf16* __restrict__ dz,
-                   bf16* __restrict__ u, float2* __restrict__ stats, int M,
-                   int dim, float eps, float inv_keep, uint32_t keep_q,
-                   uint64_t seed2) {
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kRowWarps + threadIdx.x / 32;
-  if (row >= M) return;
-  const size_t off = static_cast<size_t>(row) * dim;
-  const float2 st = ln_row(x + off, gamma, beta, u + off, dim, eps);
-  if (lane == 0) stats[row] = st;
-  // off + c is a multiple of 16 (dim is): the 16 columns are byte e of
-  // Philox block (off + c) / 16, nn.keep_mask's bits.
-  for (int c = lane * 16; c < dim; c += 512) {
-    uint4 v[2] = {*reinterpret_cast<const uint4*>(dy + off + c),
-                  *reinterpret_cast<const uint4*>(dy + off + c + 8)};
-    if (keep_q) {
-      const uint4 w = philox4x32_10((off + c) >> 4, seed2);
-      const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float f[8];
-        unpack8(v[half], f);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int e = 8 * half + i;
-          const uint32_t byte = (ws[e / 4] >> (8 * (e % 4))) & 0xFFu;
-          f[i] *= byte < keep_q ? inv_keep : 0.f;
-        }
-        v[half] = pack8(f);
-      }
-    }
-    *reinterpret_cast<uint4*>(dz + off + c) = v[0];
-    *reinterpret_cast<uint4*>(dz + off + c + 8) = v[1];
-  }
-}
 
 // Pass 2: da = dz . W2 in registers; a = bf16(GELU(h) * mask1 / keep) and
 // dh = bf16(da * GELU'(h) * mask1 / keep), staged and stored by TMA. The
@@ -221,10 +182,9 @@ cudaError_t launch_all(const bf16* dy, const bf16* x, const bf16* h,
   if (err == cudaSuccess) err = allow_du_smem();
   if (err != cudaSuccess) return err;
 
-  dz_rows_kernel<<<(M + kRowWarps - 1) / kRowWarps, kRowWarps * 32, 0,
-                   stream>>>(dy, x, gamma, beta, dz, u, stats, M, dim, eps,
-                             inv_keep, keep_q, seed2);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = launch_dz_rows(dy, x, gamma, beta, dz, u, stats, M, dim, eps,
+                            inv_keep, keep_q, seed2, stream)) != cudaSuccess)
+    return err;
   (tile_n(M, hid) == 64 ? launch_hidden<64> : launch_hidden<128>)(
       tdz, tw2, th, ta, tdh, M, dim, hid, inv_keep, keep_q, seed1, stream);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;

@@ -63,10 +63,9 @@ size_t scratch_bytes(int M, int dim) {
   return round_up(static_cast<size_t>(M) * dim * sizeof(bf16), 256);
 }
 
-// Pass 2: [q | k | v] = bf16(u . Wqkv^T). The thread's accumulator pairs
-// lie as wgmma's m64nN layout puts them (Place): rows r0 and r0 + 8,
-// columns 8 j + 2 quad and + 1. Rows past M are staged too and clipped by
-// the store.
+// Pass 2: [q | k | v] = bf16(u . Wqkv^T), staged in the ring and stored by
+// TMA (fused_mlp.cuh store_tile). Rows past M are staged too and clipped
+// by the store.
 template <int BN>
 __global__ void __launch_bounds__(kThreads, kGemmBlocksPerSm)
     qkv_gemm_kernel(const __grid_constant__ CUtensorMap tu,
@@ -83,21 +82,8 @@ __global__ void __launch_bounds__(kThreads, kGemmBlocksPerSm)
   float acc[Loop<BN>::kAccRegs];
   if (!Loop<BN>::run(&tu, &tw, m0, which * inner + c0, dim, smem, acc))
     return;
-  const CUtensorMap* out = which == 0 ? &tq : (which == 1 ? &tk : &tv);
-  const Place at;
-  unsigned char* os = reinterpret_cast<unsigned char*>(
-      round_up(reinterpret_cast<size_t>(smem), 1024));   // the ring
-  hopper::named_barrier(1, kConsumerThreads);   // no wgmma reads it now
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = at.r0 + 8 * half;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(os + staged_at(r, j, at.quad)) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * half],
-                                acc[4 * j + 2 * half + 1]);
-  }
-  store_staged<BN>(out, os, nullptr, nullptr, c0, m0, inner);
+  store_tile<BN>(which == 0 ? &tq : (which == 1 ? &tk : &tv), smem, acc, c0,
+                 m0, inner);
 }
 
 template <int BN>

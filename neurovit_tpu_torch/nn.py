@@ -20,7 +20,7 @@ probabilities, the out-projection and the two MLP sites) is a pure function
 of the element's row-major index ``i`` in the site's logical tensor:
 byte ``i % 16`` of Philox4x32-10(counter = i // 16, key = the site's 64-bit
 seed), and the element is kept where that byte is below q. A CUDA kernel
-(``csrc/common.cuh``, ``DropoutBits``), its backward kernel whatever its
+(``csrc/common.cuh``, ``philox4x32_10``), its backward kernel whatever its
 tiling, and the plain versions here regenerate bit-identical masks.
 """
 

@@ -22,8 +22,8 @@ SMEM_LIMIT = 232448
 # Where the shape limits that remain are queued.
 SHAPE_QUEUE = "ROADMAP.md, Queue 3"
 # Every width a kernel takes is a multiple of this: rows of bf16 and int8
-# operands start on 16-byte boundaries for the vector and cp.async loads,
-# and wmma's k step is 16.
+# operands start on 16-byte boundaries, as TMA's tensor maps and the vector
+# loads need.
 WIDTH_MULTIPLE = 16
 
 
@@ -38,7 +38,7 @@ def check_widths(what: str, **widths: int) -> None:
         if w < WIDTH_MULTIPLE or w % WIDTH_MULTIPLE:
             raise ValueError(
                 f"the {what} kernel takes {name} as a multiple of "
-                f"{WIDTH_MULTIPLE} (16-byte rows, wmma's k = 16), got {w} "
+                f"{WIDTH_MULTIPLE} (TMA's 16-byte rows), got {w} "
                 f"({SHAPE_QUEUE})")
 
 
@@ -50,19 +50,6 @@ def check_smem(what: str, nbytes: int) -> None:
             f"the {what} kernel would need {nbytes} bytes of shared memory "
             f"per block at these widths; a block may have {SMEM_LIMIT} "
             f"({SHAPE_QUEUE})")
-
-
-def gemm_scratch_bytes(rows: int) -> int:
-    """Bytes of a TileGemm's scratch at 128 output columns: its f32 product
-    tile [rows, 128 + 4], which the (smaller, at 64 rows) W ring shares."""
-    return rows * 132 * 4
-
-
-def gemm_tile_bytes(rows: int, width: int, k_tile: int = 32) -> int:
-    """Bytes of a [rows, width] bf16 GEMM operand resident in shared memory,
-    as the kernels lay it out: width rounded up to the k tile, 8 elements of
-    row padding, the block rounded up to 128 bytes."""
-    return round_up(rows * (round_up(width, k_tile) + 8) * 2, 128)
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:

@@ -13,11 +13,12 @@ The backward (:class:`FusedOutproj`) regenerates the mask: dz = dy * mask
 db = sum(dz) outside it, as in JAX.
 
 CPU tensors run the ``*_plain`` functions; CUDA tensors run
-``csrc/fused_outproj.cu`` (K3) and ``csrc/fused_outproj_bwd.cu`` (K8). K3
-is one launch of K4's last pass on TMA + ``wgmma`` (:func:`outproj_plan`)
-and takes inner and dim as any multiples of 16. K8 still runs on ``wmma``
-with a 64-row block of dz in shared memory beside its GEMM tiles, which
-bounds dim (:func:`check_bwd_shapes`).
+``csrc/fused_outproj.cu`` (K3) and ``csrc/fused_outproj_bwd.cu`` (K8), both
+on TMA + ``wgmma``. K3 is one launch of K4's last pass
+(:func:`outproj_plan`). K8 is K9's dz rows pass without the LayerNorm,
+at dropout > 0 only, then a GEMM that reads Wout as it lies
+(:func:`outproj_bwd_plan`); at dropout 0 dz is dy. Both take inner and
+dim as any multiples of 16.
 """
 
 from __future__ import annotations
@@ -28,13 +29,12 @@ import torch
 
 from neurovit_tpu_torch import nn
 from neurovit_tpu_torch.ops.common import (FLOAT, INT, U64, VOID,
-                                           check_operand, check_smem,
-                                           check_widths, dropout_args,
-                                           gemm_scratch_bytes,
-                                           gemm_tile_bytes, is_training,
-                                           launch, on_cpu, ptr, weight_grad)
+                                           check_operand, check_widths,
+                                           dropout_args, is_training, launch,
+                                           on_cpu, ptr, weight_grad)
 from neurovit_tpu_torch.ops.fused_mlp import (GEMM_THREADS, MLP_TILE,
-                                              gemm_smem_bytes, gemm_tile_n)
+                                              ROW_WARPS, gemm_smem_bytes,
+                                              gemm_tile_n)
 
 
 def check_fwd_shapes(dim: int, inner: int) -> None:
@@ -45,11 +45,10 @@ def check_fwd_shapes(dim: int, inner: int) -> None:
 
 
 def check_bwd_shapes(dim: int, inner: int) -> None:
-    """Raise unless K8 takes these widths: multiples of 16, with a 64-row
-    block of dz [*, dim] beside its ``wmma`` GEMM tiles in shared memory."""
+    """Raise unless K8 takes these widths: multiples of 16, the 16-byte
+    rows of its TMA operands, of any size (no row of dz is held in shared
+    memory)."""
     check_widths("out-projection backward", inner=inner, dim=dim)
-    check_smem("out-projection backward",
-               gemm_tile_bytes(64, dim) + gemm_scratch_bytes(64))
 
 
 class OutprojPlan(NamedTuple):
@@ -77,6 +76,38 @@ def outproj_plan(m: int, dim: int, inner: int) -> OutprojPlan:
                                   (-(-dim // tile_n), -(-m // MLP_TILE)),
                                   GEMM_THREADS, gemm_smem_bytes(tile_n)),),
                        tile_n=tile_n)
+
+
+class OutprojBwdPlan(NamedTuple):
+    """How one K8 call covers dy [m, dim] and dattn [m, inner]:
+    ``launches``, its kernels in launch order, each (name, grid, threads,
+    dynamic shared memory bytes): at dropout > 0 dz_rows (one warp a row,
+    K9's pass 1 without the LayerNorm), then dattn, the GEMM over (column
+    tiles of inner, row tiles of 128); and ``tile_n``, dattn's output tile
+    columns."""
+    launches: tuple
+    tile_n: int
+
+
+def outproj_bwd_plan(m: int, dim: int, inner: int,
+                     dropout_rate: float) -> OutprojBwdPlan:
+    """K8's plan for m rows (the kernel's own count of the shared memory is
+    ``nvt_fused_outproj_bwd_smem_bytes``; the card test holds the two
+    equal). The tiles are 128 x 128, or 128 x 64 where 128-wide tiles over
+    the [m, inner] output would give the card fewer blocks than SMs
+    (:func:`~neurovit_tpu_torch.ops.fused_mlp.gemm_tile_n`). At dropout 0
+    the GEMM reads dy and there is no dz_rows launch. Raises where the
+    kernel does not take the widths."""
+    check_bwd_shapes(dim, inner)
+    if m < 1:
+        raise ValueError(f"the out-projection backward kernel takes at "
+                         f"least one row, got {m}")
+    tile_n = gemm_tile_n(m, inner)
+    dattn = ("dattn", (-(-inner // tile_n), -(-m // MLP_TILE)),
+             GEMM_THREADS, gemm_smem_bytes(tile_n))
+    rows = ("dz_rows", (-(-m // ROW_WARPS), 1), ROW_WARPS * 32, 0)
+    return OutprojBwdPlan(
+        launches=(rows, dattn) if dropout_rate else (dattn,), tile_n=tile_n)
 
 
 def fused_outproj_residual_plain(x: torch.Tensor, attn: torch.Tensor,
@@ -135,22 +166,25 @@ fused_outproj_residual_cuda.launches = 0
 
 def fused_outproj_bwd_cuda(dy: torch.Tensor, w_out: torch.Tensor, *,
                            dropout_rate: float = 0.0, seed: int = 0):
-    """Launch the Hopper kernel K8; returns (dattn, dz) bf16."""
+    """Launch the Hopper kernel K8 (:func:`outproj_bwd_plan`) on the
+    current stream; the C entry point encodes the tensor maps and raises
+    through ``launch`` on any failure. Returns (dattn, dz) bf16; at
+    dropout 0 dz is dy itself, the plain version's bits."""
     b, n, dim = dy.shape
     inner = w_out.shape[1]
     check_operand("dy", dy, torch.bfloat16)
     w = w_out.to(torch.bfloat16).contiguous()
     check_operand("w_out", w, torch.bfloat16, (dim, inner))
-    check_bwd_shapes(dim, inner)
+    outproj_bwd_plan(b * n, dim, inner, dropout_rate)
     inv_keep, keep_q = dropout_args(dropout_rate)
     dattn = dy.new_empty(b, n, inner)
-    dz = torch.empty_like(dy)
+    dz = torch.empty_like(dy) if keep_q else None
     launch("nvt_fused_outproj_bwd",
            (VOID,) * 4 + (INT,) * 3 + (FLOAT, INT, U64), dy, ptr(dy),
            ptr(w), ptr(dattn), ptr(dz), b * n, inner, dim, inv_keep, keep_q,
            int(seed))
     fused_outproj_bwd_cuda.launches += 1
-    return dattn, dz
+    return dattn, dy if dz is None else dz
 
 
 fused_outproj_bwd_cuda.launches = 0

@@ -9,8 +9,9 @@ with the library behind it switched between the two in the order other,
 this, this, other, ``--rounds`` times; each turn is the median of 10
 CUDA-event timings after 2 warm-up launches; K1 and K4 also at dropout
 0.1, with K1's row sums and K4's h (the train step's calls), K2 also with
-u (the train step's call), and K9 at dropout 0.1 (the train step's) and 0
-(Grad-CAM's). Printed per kernel: the median over each checkout's turns,
+u (the train step's call), and K8 and K9 at dropout 0.1 (the train
+step's) and 0 (Grad-CAM's). ``--batch`` sets the batch of the ViT
+kernels' operands. Printed per kernel: the median over each checkout's turns,
 their ratio, the spread of the other checkout's own turns (the distance
 between its quartiles, as a share of its median), and the largest
 |this - other| of each output of one call on the same operands (0 where
@@ -32,10 +33,13 @@ dq, dk and dv apart and its scratch as three tensors, this one's [dq | dk
 | dv] and one allocation. K13 goes
 through this checkout's wrapper with
 either library: an older ``nvt_int8_attention`` (at head dim 64) takes
-the same bytes of v8 scratch and s_v at the head of the f32 stats.
+the same bytes of v8 scratch and s_v at the head of the f32 stats. K8
+goes through :func:`fused_outproj_bwd_call`: an older
+``nvt_fused_outproj_bwd`` (one ``wmma`` kernel) writes dz at dropout 0
+too, this one's reads dy and writes no dz then.
 
     python scripts/torch_kernel_ab.py --other <checkout> [--rounds 10]
-        [--only <substring of a kernel's name>]
+        [--only <substring of a kernel's name>] [--batch 8]
 """
 
 from __future__ import annotations
@@ -215,9 +219,32 @@ def fused_ln_qkv_bwd_call(dqkv: torch.Tensor, parts: list, x: torch.Tensor,
     return dx, dgb[0], dgb[1]
 
 
-def cases() -> dict:
-    """name -> (C entry point, call) at the kernel phase's shapes."""
-    b, n, dim, h, d, hid = cs.B, cs.N, cs.DIM, cs.HEADS, cs.DIM_HEAD, cs.MLP
+def fused_outproj_bwd_call(dy: torch.Tensor, w: torch.Tensor,
+                           dropout_rate: float = 0.0, seed: int = 0):
+    """K8 on dy and bf16 w through the library in use: this checkout's
+    wrapper where the library counts its GEMM's shared memory
+    (``nvt_fused_outproj_bwd_smem_bytes``), else the older entry point,
+    which writes dz at every rate."""
+    if hasattr(_build.library(), "nvt_fused_outproj_bwd_smem_bytes"):
+        return fused_outproj.fused_outproj_bwd_cuda(
+            dy, w, dropout_rate=dropout_rate, seed=seed)
+    b, n, dim = dy.shape
+    inner = w.shape[1]
+    inv_keep, keep_q = common.dropout_args(dropout_rate)
+    dattn, dz = dy.new_empty(b, n, inner), torch.empty_like(dy)
+    p = common.ptr
+    common.launch("nvt_fused_outproj_bwd", (common.VOID,) * 4
+                  + (common.INT,) * 3 + (common.FLOAT, common.INT,
+                                          common.U64), dy, p(dy), p(w),
+                  p(dattn), p(dz), b * n, inner, dim, inv_keep, keep_q,
+                  int(seed))
+    return dattn, dz
+
+
+def cases(b: int = cs.B) -> dict:
+    """name -> (C entry point, call) at the kernel phase's shapes, the ViT
+    kernels' operands at batch ``b``."""
+    n, dim, h, d, hid = cs.N, cs.DIM, cs.HEADS, cs.DIM_HEAD, cs.MLP
     rng = np.random.default_rng(cs.SEED)
 
     def t(*shape, scale=1.0, dtype=torch.bfloat16, offset=0.0):
@@ -238,7 +265,7 @@ def cases() -> dict:
     b2, attn, dy = t(dim, scale=0.02, dtype=torch.float32), t(b, n, h * d), \
         t(b, n, dim, scale=0.1)
     bf = torch.bfloat16
-    wqkv16 = wqkv.to(bf)
+    wqkv16, wout16 = wqkv.to(bf), wout.to(bf)
     dqkv = torch.cat([a.reshape(b, n, -1) for a in qkv], dim=2)
     att = {"scale": d ** -0.5, "n_valid": n, "dropout_rate": cs.DROPOUT,
            "seed": 1234}
@@ -253,7 +280,8 @@ def cases() -> dict:
     mlp8 = (*q8.quantize_weight(w1), b1, *q8.quantize_weight(w2), b2)
     pool = t(*cs.POOL_SHAPE)
     _, codes = maxpool3d.max_pool3d_argmax_plain(pool)
-    pool_g = t(b, *(maxpool3d.out_dim(s) for s in cs.POOL_SHAPE[1:4]),
+    pool_g = t(cs.POOL_SHAPE[0], *(maxpool3d.out_dim(s)
+                                  for s in cs.POOL_SHAPE[1:4]),
                cs.POOL_SHAPE[4])
     return {
         "flash_attention": ("nvt_flash_attention_fwd", lambda: (
@@ -281,9 +309,9 @@ def cases() -> dict:
         "fused_ln_qkv_bwd": ("nvt_fused_ln_qkv_bwd", lambda: (
             fused_ln_qkv_bwd_call(dqkv, qkv, x, ln[0], wqkv.to(bf)))),
         "fused_outproj_bwd": ("nvt_fused_outproj_bwd", lambda: (
-            fused_outproj.fused_outproj_bwd_cuda(dy, wout.to(bf),
-                                                 dropout_rate=cs.DROPOUT,
-                                                 seed=1234))),
+            fused_outproj_bwd_call(dy, wout16, cs.DROPOUT, 1234))),
+        "fused_outproj_bwd dropout 0": ("nvt_fused_outproj_bwd", lambda: (
+            fused_outproj_bwd_call(dy, wout16))),
         "fused_mlp_bwd": ("nvt_fused_mlp_bwd", lambda: (
             fused_mlp_bwd_call(bwd, **mdrop))),
         "fused_mlp_bwd dropout 0": ("nvt_fused_mlp_bwd", lambda: (
@@ -337,15 +365,18 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--only", default="",
                     help="time only the kernels whose name contains this")
+    ap.add_argument("--batch", type=int, default=cs.B,
+                    help="batch of the ViT kernels' operands (x 1001 tokens)")
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     libs = {"other": ctypes.CDLL(other_library(os.path.abspath(args.other))),
             "this": ctypes.CDLL(str(_build.build()))}
-    print(f"card: {cs.card_line()}; {args.rounds} rounds of other, this, "
-          f"this, other; each turn the median of 10 launches")
+    print(f"card: {cs.card_line()}; batch {args.batch}; {args.rounds} "
+          f"rounds of other, this, this, other; each turn the median of 10 "
+          f"launches")
     print(f"{'kernel':26s} {'other ms':>9s} {'this ms':>9s} {'ratio':>6s} "
           f"{'other IQR':>9s}  max |this - other| per output")
-    for name, (symbol, call) in cases().items():
+    for name, (symbol, call) in cases(args.batch).items():
         if args.only not in name:
             continue
         if not hasattr(libs["other"], symbol):

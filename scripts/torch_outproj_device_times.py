@@ -14,16 +14,22 @@ of 64: inner 512) at batch 1, 8, 32 and 128 x 1001 tokens:
 - K11: its row quantizer (``rowquant``) and K12's ``fc2_residual`` pass;
   an older checkout's single ``wmma`` kernel shows as
   ``int8_outproj_kernel``.
-- K8 at dropout 0 and 0.1 (``outproj_bwd_kernel``, still ``wmma``).
+- K8 at dropout 0 and 0.1: K9's ``dz_rows`` pass without the LayerNorm
+  (at dropout 0.1 only) and the ``dattn`` GEMM; an older checkout's
+  single ``wmma`` kernel shows under the first 48 characters of its
+  name.
 
 Each line gives the function's bound (its bytes at 3.35 TB/s or its
 operations at the peak of their type, the larger), the design's bytes
-floor (K11 also writes a8 and reads it again), the median one-call
+floor (K11 also writes a8 and reads it again; K8 reads dz again at
+dropout 0.1 and writes no dz at dropout 0), the median one-call
 CUDA-event time and the host's enqueue time per call. Then the
-yardsticks, each with its device time and one-call CUDA-event time: ``torch.mm`` with bf16 out and K17 bf16's GEMM kernel at K3's
-[M, inner] x [inner, dim]; ``torch._int_mm`` and K17 int8's at K11's;
-and ``torch.mm(dy, Wout)`` at [M, dim] x [dim, inner], which is K8's
-function at dropout 0 (K17 and ``torch._int_mm`` at M rounded up to 16).
+yardsticks, each with its device time and one-call CUDA-event time:
+``torch.mm`` with bf16 out and K17 bf16's GEMM kernel at K3's [M, inner]
+x [inner, dim]; ``torch._int_mm`` and K17 int8's at K11's; and
+``torch.mm(dy, Wout)`` and K17 bf16's at [M, dim] x [dim, inner], K8's
+function at dropout 0 (K17 and ``torch._int_mm`` at M rounded up to
+16).
 
     python scripts/torch_outproj_device_times.py [--iters 20]
 
@@ -58,9 +64,9 @@ DROPOUT = 0.1
 PEAK = {"bf16": 989e12, "int8": 1979e12}
 HBM_BYTES_PER_S = 3.35e12
 # Kernel names as the profiler shows them, most specific first.
-PASSES = ("int8_outproj_kernel", "outproj_bwd_kernel", "outproj_kernel",
-          "rowquant_kernel", "fc2_residual_kernel", "transpose_kernel",
-          "gemm_kernel")
+PASSES = ("int8_outproj_kernel", "outproj_kernel", "rowquant_kernel",
+          "fc2_residual_kernel", "dz_rows_kernel", "dattn_kernel",
+          "transpose_kernel", "gemm_kernel")
 
 
 def operands(b: int, dim: int = DIM, inner: int = INNER,
@@ -83,13 +89,16 @@ def operands(b: int, dim: int = DIM, inner: int = INNER,
             "dy": t(b, N, dim, scale=0.1)}
 
 
-def floors(kernel: str, m: int, dim: int = DIM, inner: int = INNER) -> dict:
+def floors(kernel: str, m: int, dim: int = DIM, inner: int = INNER,
+           rate: float = DROPOUT) -> dict:
     """The bound of ``kernel`` ("K3", "K11" or "K8") for m rows and by what,
     and the design's bytes floor, in ms. The bytes of the function: each
     input read once and each output written once (K3: a, x, Wout, b in and
     y out; K11: a, x, W8, its scales and b in, y out; K8: dy and Wout in,
     dattn and dz out); its operations 2 m inner dim, bf16 or int8. K11's
-    design also writes a8 and its row scales and reads them again."""
+    design also writes a8 and its row scales and reads them again; K8's
+    reads dz again at dropout ``rate`` > 0 and writes no dz at rate 0
+    (dz is dy)."""
     if kernel == "K3":
         nbytes = 2 * m * inner + 4 * m * dim + 2 * dim * inner + 4 * dim
         kind, design = "bf16", nbytes
@@ -98,7 +107,8 @@ def floors(kernel: str, m: int, dim: int = DIM, inner: int = INNER) -> dict:
         kind, design = "int8", nbytes + 2 * m * inner + 8 * m
     else:
         nbytes = 4 * m * dim + 2 * dim * inner + 2 * m * inner
-        kind, design = "bf16", nbytes
+        kind = "bf16"
+        design = nbytes + (2 if rate else -2) * m * dim
     t_ops = 2 * m * inner * dim / PEAK[kind]
     t_bytes = nbytes / HBM_BYTES_PER_S
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
@@ -144,8 +154,8 @@ def measure(call, iters: int) -> dict:
 def yardstick(ops: dict, iters: int) -> dict:
     """{call at its shape: ({kernel: device us}, one-call CUDA-event ms)}:
     torch.mm (bf16 out) and K17 bf16 at K3's GEMM, torch._int_mm and K17
-    int8 at K11's, torch.mm(dy, Wout) at K8's; K17 and torch._int_mm at
-    the rows rounded up to 16."""
+    int8 at K11's, torch.mm(dy, Wout) and K17 bf16 at K8's; K17 and
+    torch._int_mm at the rows rounded up to 16."""
     b, n, inner = ops["a"].shape
     m, dim = b * n, ops["w"].shape[0]
     m16 = -(-m // 16) * 16
@@ -157,6 +167,8 @@ def yardstick(ops: dict, iters: int) -> dict:
                       dtype=torch.int8, device="cuda")
     w8t = ops["w8"][0].t().contiguous()
     dy2 = ops["dy"].reshape(m, dim)
+    dy16 = torch.tensor(rng.standard_normal((m16, dim)),
+                        dtype=torch.bfloat16, device="cuda")
     out = {}
     for name, fn in (
             (f"torch.mm bf16 [{m}, {inner}] x [{inner}, {dim}]",
@@ -168,7 +180,9 @@ def yardstick(ops: dict, iters: int) -> dict:
             (f"K17 int8 [{m16}, {inner}] x [{inner}, {dim}]",
              lambda: k17.gemm_int8_cuda(a8, w8t)),
             (f"torch.mm(dy, Wout) [{m}, {dim}] x [{dim}, {inner}]",
-             lambda: torch.mm(dy2, ops["w"]))):
+             lambda: torch.mm(dy2, ops["w"])),
+            (f"K17 bf16 [{m16}, {dim}] x [{dim}, {inner}]",
+             lambda: k17.gemm_bf16_cuda(dy16, ops["w"]))):
         out[name] = ({short(key): us for key, us in device_us(
             fn, iters).items()}, events_ms(fn))
     return out
@@ -195,7 +209,9 @@ def run(b: int, iters: int) -> tuple:
     for name, call in calls(ops).items():
         what = f"{name} batch {b} (M {m}, dim {DIM}, inner {INNER})"
         measured[name] = measure(call, iters)
-        lines.append(line(what, measured[name], floors(name.split()[0], m)))
+        rate = DROPOUT if "dropout" in name else 0.0
+        lines.append(line(what, measured[name],
+                          floors(name.split()[0], m, rate=rate)))
     for shape, (dev, ms) in yardstick(ops, iters).items():
         lines.append(f"  {shape}: " + (", ".join(
             f"{k} {us:.1f} us" for k, us in dev.items()) or

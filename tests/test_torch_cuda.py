@@ -32,7 +32,11 @@ rows (1-8008), the flagship at batch 1 (64-column tiles) and 8, and the
 widths their wmma versions refused (K11's inner 1280-2048, K3's inner
 2048), K3 at dropout 0 and 0.1 with the dropped positions those of the
 plain mask, K11 bit-equal to plain, all-zero rows of a, repeat calls bit
-for bit and their plans' bytes against the kernels' counts.
+for bit and their plans' bytes against the kernels' counts; and K8 on
+K9's dz rows pass and a TMA + wgmma GEMM at 1-8008 rows, every width of
+the matrix, ViT-H, dim 1536 and 2048 and inner 1040 (not a multiple of
+64), at dropout 0 (dz is dy) and 0.1 (dz bit-equal to plain), repeat
+calls bit for bit and its plan's shared memory against the kernel's.
 
 These need an NVIDIA GPU with sm_90a and nvcc; elsewhere they skip. Run on
 the card with:
@@ -60,6 +64,7 @@ import pytest
 import torch
 
 from neurovit_tpu_torch import nn
+from neurovit_tpu_torch.models.vit3d import WIDTHS
 from neurovit_tpu_torch.ops import flash_attention as fa
 from neurovit_tpu_torch.ops import (fused_mlp, fused_outproj, fused_qkv,
                                     int8_serving, maxpool3d)
@@ -373,7 +378,6 @@ def test_qkv_plan_matches_the_kernel(cuda):
     on both sides of the 64-column tile rule."""
     import ctypes
 
-    from neurovit_tpu_torch.models.vit3d import WIDTHS
     from neurovit_tpu_torch.ops import _build
     lib = _build.library()
     scratch = lib.nvt_fused_ln_qkv_fwd_scratch_bytes
@@ -718,7 +722,6 @@ def test_int8_qkv_plan_matches_the_kernel(cuda):
     64-column tile rule."""
     import ctypes
 
-    from neurovit_tpu_torch.models.vit3d import WIDTHS
     from neurovit_tpu_torch.ops import _build
     lib = _build.library()
     scratch, smem = lib.nvt_int8_qkv_scratch_bytes, lib.nvt_int8_qkv_smem_bytes
@@ -817,24 +820,55 @@ def test_fused_outproj_kernel_widths(cuda, m, dim, inner, rate):
                            x.reshape(m, dim)[drop])
 
 
+OUTPROJ_BWD_CASES = [
+    (1, 512, 256), (130, 512, 256), (1001, 1024, 512), (8008, 1024, 512),
+    (130, 1280, 1280), (130, 1536, 1536), (130, 2048, 2048),
+    (130, 2048, 512), (130, 1024, 1040), (1001, 1024, 1040),
+    *((130, d, h * dh) for d, h, dh, _ in WIDTHS.values())]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("m,dim,inner", OUTPROJ_BWD_CASES)
+def test_fused_outproj_bwd_kernel_widths(cuda, m, dim, inner, rate):
+    """K8 against plain: dz bit-equal (dy itself at dropout 0), dattn
+    within the backward's tolerance; one launch-count a call, two calls
+    bit-equal."""
+    rng = np.random.default_rng(m + dim + inner + 3)
+    dy = _rand(rng, (1, m, dim), cuda, scale=0.1)
+    w = _rand(rng, (dim, inner), cuda, torch.float32,
+              inner ** -0.5).to(torch.bfloat16)
+    kw = {"dropout_rate": rate, "seed": 7}
+    before = fused_outproj.fused_outproj_bwd_cuda.launches
+    got = fused_outproj.fused_outproj_bwd_cuda(dy, w, **kw)
+    want = fused_outproj.fused_outproj_bwd_plain(dy, w, **kw)
+    again = fused_outproj.fused_outproj_bwd_cuda(dy, w, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    if not rate:
+        assert got[1] is dy
+    _check_grads(got, want)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert fused_outproj.fused_outproj_bwd_cuda.launches == before + 2
+
+
 def test_outproj_plans_match_the_kernels(cuda):
-    """The wrappers' K3 and K11 plans count the scratch and the GEMM
+    """The wrappers' K3, K11 and K8 plans count the scratch and the GEMM
     pass's shared memory (which follows its tile width) as the kernels do,
     at every width of the matrix and the card tests' widths, on both sides
     of the 64-column tile rule."""
     import ctypes
 
-    from neurovit_tpu_torch.models.vit3d import WIDTHS
     from neurovit_tpu_torch.ops import _build
     lib = _build.library()
     scratch = lib.nvt_int8_outproj_scratch_bytes
     scratch.restype, scratch.argtypes = ctypes.c_longlong, [ctypes.c_int] * 3
     smem8, smem = lib.nvt_int8_outproj_smem_bytes, \
         lib.nvt_fused_outproj_smem_bytes
-    for fn in (smem8, smem):
+    smem_bwd = lib.nvt_fused_outproj_bwd_smem_bytes
+    for fn in (smem8, smem, smem_bwd):
         fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 2
     widths = [(w[0], w[1] * w[2]) for w in WIDTHS.values()] + [
-        (d, i) for _, d, i in OUTPROJ_CASES]
+        (d, i) for _, d, i in OUTPROJ_CASES + OUTPROJ_BWD_CASES]
     for dim, inner in widths:
         for m in (1, 130, 1001, 2048, 8008, 32032):
             plan = int8_serving.int8_outproj_plan(m, dim, inner)
@@ -843,6 +877,10 @@ def test_outproj_plans_match_the_kernels(cuda):
             assert [s for *_, s in plan.launches] == [0, smem8(m, dim)]
             bplan = fused_outproj.outproj_plan(m, dim, inner)
             assert bplan.launches[0][3] == smem(m, dim), (m, dim, inner)
+            for rate in (0.0, 0.1):
+                k8 = fused_outproj.outproj_bwd_plan(m, dim, inner, rate)
+                assert k8.launches[-1][3] == smem_bwd(m, inner), (m, dim,
+                                                                 inner)
 
 
 @pytest.mark.parametrize("m", [1, 33, 300])
@@ -921,7 +959,6 @@ def test_int8_mlp_plan_matches_the_kernel(cuda):
     shared memory as the kernel does."""
     import ctypes
 
-    from neurovit_tpu_torch.models.vit3d import WIDTHS
     from neurovit_tpu_torch.ops import _build
     lib = _build.library()
     scratch, smem = lib.nvt_int8_mlp_scratch_bytes, lib.nvt_int8_mlp_smem_bytes
@@ -1031,7 +1068,6 @@ def test_int8_attention_plan_matches_the_kernel(cuda):
     shared memory and the two scratch buffers as the kernel does."""
     import ctypes
 
-    from neurovit_tpu_torch.models.vit3d import WIDTHS
     from neurovit_tpu_torch.ops import _build
     lib = _build.library()
     rows, smem = lib.nvt_int8_attn_block_rows, lib.nvt_int8_attn_smem_bytes
@@ -1165,7 +1201,6 @@ def test_maxpool_autograd_and_resnet_forward_backward(cuda):
 # ---------------------------------------------------------------------------
 
 def _block(rng, width, device, m=130):
-    from neurovit_tpu_torch.models.vit3d import WIDTHS
     dim, heads, dh, hid = WIDTHS[width]
     inner = heads * dh
 
@@ -1264,7 +1299,6 @@ def test_mlp_smem_plan_matches_the_kernel(cuda):
     at row counts on both sides of the 64-column tile rule."""
     import ctypes
 
-    from neurovit_tpu_torch.models.vit3d import WIDTHS
     from neurovit_tpu_torch.ops import _build
     lib = _build.library()
     scratch = lib.nvt_fused_mlp_scratch_bytes
@@ -1287,7 +1321,6 @@ def test_mlp_bwd_plan_matches_the_kernel(cuda):
     rule."""
     import ctypes
 
-    from neurovit_tpu_torch.models.vit3d import WIDTHS
     from neurovit_tpu_torch.ops import _build
     lib = _build.library()
     scratch = lib.nvt_fused_mlp_bwd_scratch_bytes
@@ -1310,7 +1343,6 @@ def test_qkv_bwd_plan_matches_the_kernel(cuda):
     rule."""
     import ctypes
 
-    from neurovit_tpu_torch.models.vit3d import WIDTHS
     from neurovit_tpu_torch.ops import _build
     lib = _build.library()
     scratch = lib.nvt_fused_ln_qkv_bwd_scratch_bytes

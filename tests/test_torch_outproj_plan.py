@@ -1,5 +1,6 @@
-"""K3 and K11, the bf16 and int8 out-projections, as launch plans:
-``outproj_plan`` (ops/fused_outproj.py) and ``int8_outproj_plan``
+"""K3 and K11, the bf16 and int8 out-projections, and K8, the bf16
+out-projection's backward, as launch plans: ``outproj_plan`` and
+``outproj_bwd_plan`` (ops/fused_outproj.py) and ``int8_outproj_plan``
 (ops/int8_serving.py) as pure functions.
 
 K3 is one launch of K4's fc2_residual pass; K11 is two, the row quantizer
@@ -11,12 +12,15 @@ row scales in order on 256-byte boundaries. At the flagship at batch 1, 8
 and 32, one row, ragged 65 and 130, one full tile, every entry of
 models/vit3d.py WIDTHS, ViT-H (1280, 16 heads of 80) and dim / inner 1536
 and 2048. Widths off 16 and fewer than one row are refused; no width
-limit is left on either forward, and K8 keeps its shared-memory gate. K3's
-dropout bits, drawn by the quad in the wgmma layout, are nn.keep_mask's at
-K3's site (row * dim + col) on the ragged 130-row tile at dim 1536 and
-2048 with 64-column tiles. The card test holds the plans' bytes against
-the kernels' own counts. ``scripts/torch_outproj_device_times.py``'s
-bounds are the functions' and it refuses to run without the card.
+limit is left on either forward or on K8. K8 is K9's dz rows pass (at
+dropout > 0 only) and a GEMM over inner's column tiles, also planned at an
+inner that is not a multiple of 64 (1040). K3's dropout bits, drawn by the
+quad in the wgmma layout, and K8's, drawn a Philox block a lane by its
+dz rows pass, are nn.keep_mask's at the site (row * dim + col) on the
+ragged 130-row tile at dim 1536 and 2048. The card test holds the plans'
+bytes against the kernels' own counts.
+``scripts/torch_outproj_device_times.py``'s bounds are the functions' and
+it refuses to run without the card.
 """
 
 import importlib.util
@@ -31,12 +35,15 @@ from neurovit_tpu_torch.models.vit3d import WIDTHS
 from neurovit_tpu_torch.ops import fused_outproj as k3
 from neurovit_tpu_torch.ops import int8_serving as q8
 from neurovit_tpu_torch.ops.common import SMEM_LIMIT
-from test_torch_mlp_plan import _tile_keep
+from test_torch_mlp_plan import _blocks, _tile_keep
 
 # name -> (dim, inner)
 PLAN_WIDTHS = {**{name: (w[0], w[1] * w[2]) for name, w in WIDTHS.items()},
                "vit_h": (1280, 1280), "dim1536": (1536, 1536),
                "dim2048": (2048, 2048)}
+# K8's widths also take an inner that is not a multiple of 64: the last
+# column tile's second 64-column box lies past inner.
+BWD_WIDTHS = {**PLAN_WIDTHS, "inner1040": (1024, 1040)}
 # The flagship at batch 1, 8 and 32 (x 1001 tokens), one row, the card
 # tests' ragged 65 and 130, and one full 128-row tile.
 ROWS = [1001, 8008, 32032, 1, 65, 130, 128]
@@ -147,16 +154,124 @@ def test_outproj_plans_refuse_no_rows(plan, m):
         plan(m, 1024, 512)
 
 
-@pytest.mark.parametrize("dim,refused", [(1024, False), (1536, False),
-                                         (2048, True)])
-def test_outproj_backward_keeps_its_gate(dim, refused):
-    """K8 stays on wmma with a 64-row block of dz beside its tiles: dim
-    2048 is still refused, whatever the inner."""
-    if not refused:
-        k3.check_bwd_shapes(dim, 512)
-        return
-    with pytest.raises(ValueError, match="bytes of shared memory"):
-        k3.check_bwd_shapes(dim, 512)
+@pytest.mark.parametrize("dim,inner", [(1024, 512), (1536, 512),
+                                       (2048, 512), (2048, 2048)])
+def test_outproj_backward_keeps_its_gate(dim, inner):
+    """K8's gate is the width gate alone: the wmma K8 held a 64-row block
+    of dz beside its tiles and refused dim 2048 ("bytes of shared
+    memory"); on K9's dz rows pass and the TMA + wgmma GEMM it takes dim
+    2048 at any inner, and plans it: the GEMM over inner / 128 column
+    tiles, no shared memory asked past two blocks an SM."""
+    k3.check_bwd_shapes(dim, inner)
+    plan = k3.outproj_bwd_plan(8008, dim, inner, 0.1)
+    assert [name for name, *_ in plan.launches] == ["dz_rows", "dattn"]
+    assert plan.launches[1][1] == (inner // 128, 63)
+    assert plan.launches[1][3] == _gemm_smem(128)
+    for gate in (k3.check_bwd_shapes,
+                 lambda d, i: k3.outproj_bwd_plan(3, d, i, 0.1)):
+        with pytest.raises(ValueError, match="dim as a multiple of 16"):
+            gate(dim + 8, inner)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("m", ROWS)
+@pytest.mark.parametrize("width", list(BWD_WIDTHS))
+def test_outproj_bwd_plan(width, m, rate):
+    """K8: at dropout > 0 the dz rows pass (one warp a row, eight rows a
+    block, no shared memory), then the dattn GEMM over (column tiles of
+    inner, row tiles of 128) on K4's tiles, 64 columns wide exactly where
+    128-wide tiles would give the card's 132 SMs fewer blocks; at dropout
+    0 the GEMM alone, on dy."""
+    dim, inner = BWD_WIDTHS[width]
+    k3.check_bwd_shapes(dim, inner)
+    plan = k3.outproj_bwd_plan(m, dim, inner, rate)
+    names = [launch[0] for launch in plan.launches]
+    assert names == (["dz_rows", "dattn"] if rate else ["dattn"])
+    if rate:
+        _, (rx, ry), r_threads, r_smem = plan.launches[0]
+        assert ry == 1 and (rx - 1) * 8 < m <= rx * 8
+        assert r_threads == 256 and r_smem == 0
+    name, (gx, gy), threads, smem = plan.launches[-1]
+    wide = _ceil(inner, TILE) * _ceil(m, TILE)
+    assert plan.tile_n == (64 if wide < SMS else TILE)
+    assert (gx, gy) == (_ceil(inner, plan.tile_n), _ceil(m, TILE))
+    assert threads == GEMM_THREADS
+    assert smem == _gemm_smem(plan.tile_n) <= SMEM_LIMIT
+    assert 2 * (smem + 1024) <= 228 * 1024       # two blocks an SM
+
+
+def test_outproj_bwd_plan_at_the_flagship():
+    """Batch 1: 64-column tiles (4 x 8 128-wide tiles would fill 32 of
+    132 SMs), 8 x 8; batch 8: 4 x 63 of 128; batch 32: 4 x 251. Inner 1040
+    at batch 8: 9 column tiles of 128, the last holding 16 columns."""
+    for b, tile_n, grid in ((1, 64, (8, 8)), (8, 128, (4, 63)),
+                            (32, 128, (4, 251))):
+        for rate in (0.0, 0.1):
+            plan = k3.outproj_bwd_plan(b * 1001, 1024, 512, rate)
+            assert plan.tile_n == tile_n
+            assert plan.launches[-1][1] == grid
+    plan = k3.outproj_bwd_plan(8008, 1024, 512, 0.1)
+    assert plan.launches[0][1] == (1001, 1)
+    assert k3.outproj_bwd_plan(8008, 1024, 1040, 0.1).launches[1][1] == (
+        9, 63)
+
+
+@pytest.mark.parametrize("dim,inner,match", [
+    (1000, 512, "dim as a multiple of 16"),
+    (1024, 1288, "inner as a multiple of 16"),
+    (1024, 8, "inner as a multiple of 16"),
+    (8, 64, "dim as a multiple of 16")])
+def test_outproj_bwd_plan_refuses_widths_off_16(dim, inner, match):
+    for rate in (0.0, 0.1):
+        with pytest.raises(ValueError, match=match) as err:
+            k3.outproj_bwd_plan(130, dim, inner, rate)
+        assert "ROADMAP.md, Queue 3" in str(err.value)
+
+
+@pytest.mark.parametrize("m", [0, -1])
+def test_outproj_bwd_plan_refuses_no_rows(m):
+    with pytest.raises(ValueError, match="at least one row"):
+        k3.outproj_bwd_plan(m, 1024, 512, 0.1)
+
+
+def _dz_rows_keep(m: int, dim: int, seed: int, q: int):
+    """Each lane's keep decisions in K8's dz rows pass (K9's pass 1,
+    csrc/fused_mlp.cu dz_rows_kernel): warp ``row``, lane l, step i take
+    columns c = 512 i + 16 l .. + 15 (c < dim), element e being byte e % 4
+    of word e / 4 of Philox block (row * dim + c) / 16. Returns [m, steps,
+    32, 16] keep bits and the columns of each."""
+    steps = _ceil(dim, 512)
+    cols = (512 * np.arange(steps)[:, None, None]
+            + 16 * np.arange(32)[None, :, None]
+            + np.arange(16)[None, None, :])          # [steps, 32, 16]
+    got = np.zeros((m, steps, 32, 16), dtype=bool)
+    c0 = cols[..., 0]
+    for row in range(m):
+        blk = np.where(c0 < dim, (row * dim + c0) >> 4, 0)
+        words = _blocks(blk, seed)                  # [steps, 32, 4]
+        for e in range(16):
+            byte = (words[..., e // 4] >> np.uint64(8 * (e % 4))) & \
+                np.uint64(0xFF)
+            got[row, :, :, e] = byte < q
+    return got, cols
+
+
+@pytest.mark.parametrize("m,dim", [(130, 1536), (130, 2048), (3, 1040),
+                                   (1, 64)])
+def test_outproj_bwd_dz_bits_are_keep_mask_bits(m, dim):
+    """K8's mask, as its dz rows pass draws it, is nn.keep_mask's at K8's
+    site (the forward's, row * dim + col under K3's seed): at every column
+    inside the row each lane's bit equals the mask's, and every column of
+    every row is taken by exactly one lane of one step."""
+    seed, rate = 1234, 0.1
+    q, _ = nn.keep_threshold(rate)
+    mask = nn.keep_mask(seed, (m, dim), rate).numpy()
+    got, cols = _dz_rows_keep(m, dim, seed, q)
+    inside = cols < dim
+    for row in range(m):
+        assert np.array_equal(got[row][inside], mask[row, cols[inside]])
+    seen = np.bincount(cols[inside], minlength=dim)
+    assert (seen == 1).all()
 
 
 @pytest.mark.parametrize("m,dim", [(130, 1536), (130, 2048), (1001, 1024),
@@ -210,9 +325,10 @@ def _device_times_script():
     # s_row and reads them again.
     ("K11", lambda m: 2 * m * 512 + 4 * m * 1024 + 512 * 1024 + 8 * 1024,
      lambda m: 2 * m * 512 + 8 * m, "int8"),
-    # K8: dy, Wout in; dattn and dz out.
+    # K8: dy, Wout in; dattn and dz out. At dropout 0.1 the design also
+    # reads dz again.
     ("K8", lambda m: 4 * m * 1024 + 2 * 512 * 1024 + 2 * m * 512,
-     lambda m: 0, "bf16")])
+     lambda m: 2 * m * 1024, "bf16")])
 @pytest.mark.parametrize("b", [1, 8, 32, 128])
 def test_device_times_script_floors(kernel, nbytes, design, kind, b):
     """The script's bound is the function's: its bytes at 3.35 TB/s, which
@@ -230,6 +346,22 @@ def test_device_times_script_floors(kernel, nbytes, design, kind, b):
         want = {"K3": (0.0125, 0.0126), "K11": (0.0123, 0.0125),
                 "K8": (0.0125, 0.0126)}[kernel]
         assert want[0] < f["bound_ms"] < want[1]
+
+
+@pytest.mark.parametrize("b", [1, 8, 32, 128])
+def test_device_times_script_k8_floor_at_dropout_0(b):
+    """At dropout 0 dz is dy: K8's bound is still the function's, and its
+    design writes no dz, dy and Wout in and dattn out. At batch 8 the
+    design's bytes take 0.0076 ms, under the 8.4 GFLOP's 0.0085."""
+    m = b * 1001
+    times = _device_times_script()
+    f = times.floors("K8", m, rate=0.0)
+    assert f["bound_ms"] == times.floors("K8", m)["bound_ms"]
+    design = 2 * m * 1024 + 2 * 512 * 1024 + 2 * m * 512
+    assert f["design_ms"] == pytest.approx(design / 3.35e9)
+    if b == 8:
+        assert 0.0076 < f["design_ms"] < 0.0077
+        assert 0.0084 < 2 * m * 512 * 1024 / 989e12 * 1e3 < 0.0086
 
 
 def test_device_times_script_needs_the_card():

@@ -305,13 +305,17 @@ def test_outproj_gate_accepts_the_widths_once_refused(dim, inner):
     """K3 kept a 64-row block of a in shared memory beside its wmma tiles
     and refused inner past 1536 ("bytes of shared memory"). As K4's
     fc2_residual pass it takes them, and so does its plan: one launch over
-    dim / 128 column tiles. K8 keeps its shared-memory gate on dim."""
+    dim / 128 column tiles. K8 refused dim 2048 for its dz block; on K9's
+    dz rows pass and a TMA + wgmma GEMM it takes dim 2048 too, and plans
+    it: dz rows, then dattn over inner / 128 column tiles."""
     fused_outproj.check_fwd_shapes(dim, inner)
     plan = fused_outproj.outproj_plan(8008, dim, inner)
     assert [name for name, *_ in plan.launches] == ["fc2_residual"]
     assert plan.launches[0][1] == (dim // 128, 63)
-    with pytest.raises(ValueError, match="bytes of shared memory"):
-        fused_outproj.check_bwd_shapes(2048, inner)
+    fused_outproj.check_bwd_shapes(2048, inner)
+    bplan = fused_outproj.outproj_bwd_plan(8008, 2048, inner, 0.1)
+    assert [name for name, *_ in bplan.launches] == ["dz_rows", "dattn"]
+    assert bplan.launches[1][1] == (inner // 128, 63)
 
 
 @pytest.mark.parametrize("dim,inner", [(2048, 512), (2048, 2048)])
