@@ -152,9 +152,12 @@ Phases, each printing a line; any failure raises and exits non-zero:
                path
 
 The kernel phase also checks K14 (the stem's max-pool with its argmax
-codes) and K15 (its backward) at [8, 90, 45, 45, 64] bf16 on a continuous
-and a tie-heavy input: values and codes bit-equal to the plain version, dx
-within one bf16 ulp; each kernel is timed beside one PyTorch call computing
+codes) and K15 (its backward) at [8, 90, 45, 45, 64] bf16 on a continuous,
+a tie-heavy and a NaN and +-inf input: values, codes and dx bit-equal to
+the plain version (NaN where it has NaN), and logs their device times
+beside F.max_pool3d's and its backward's with their bound
+(scripts/torch_pool_device_times.py); each kernel is timed beside one
+PyTorch call computing
 the same function where there is one (scaled_dot_product_attention,
 F.max_pool3d and its backward), and its bound computed from its bytes and
 operations. The backward attention kernels' library call is SDPA's
@@ -321,7 +324,9 @@ def compare(name: str, got, want, grads: bool = False, params=(),
     """Elementwise check of every output (``grads``: the backward's
     tolerance); outputs at the indices ``params`` are parameter gradients,
     checked by relative Frobenius error. ``mode`` "exact": every output
-    equal bit for bit; "ulp": within one bf16 ulp of the plain value."""
+    equal bit for bit; "ulp": within one bf16 ulp of the plain value;
+    "nan": inputs with NaN and +-inf, every output equal to the plain
+    version's and NaN exactly where it is NaN (a NaN's bits may differ)."""
     got = [got] if isinstance(got, torch.Tensor) else list(got)
     want = [want] if isinstance(want, torch.Tensor) else list(want)
     max_abs, max_rel = 0.0, 0.0
@@ -329,6 +334,13 @@ def compare(name: str, got, want, grads: bool = False, params=(),
         if mode == "exact" and (g.dtype != w.dtype or not torch.equal(g, w)):
             raise AssertionError(f"{name}: output {i} differs from the "
                                  "plain version")
+        if mode == "nan":
+            nan = torch.isnan(w)
+            if g.dtype != w.dtype or not torch.equal(torch.isnan(g), nan) \
+                    or not torch.equal(g[~nan], w[~nan]):
+                raise AssertionError(f"{name}: output {i} differs from the "
+                                     "plain version")
+            continue
         g, w = g.float().reshape(w.shape), w.float()
         if not torch.isfinite(g).all():
             raise AssertionError(f"{name}: kernel output {i} is not finite")
@@ -563,6 +575,22 @@ def outproj_device_times(results: dict, card: str) -> None:
         log("kernels", f"{text.strip()}; {card}")
 
 
+def pool_device_times(results: dict, card: str) -> None:
+    """The device times of K14 and K15 at the kernel phase's pool shape
+    beside F.max_pool3d and its backward, with their bound, on the
+    script's own seeded operands (``scripts/torch_pool_device_times.py``),
+    into the two kernels' results."""
+    times = script("torch_pool_device_times")
+    lines, measured = times.run(B, 10)
+    for name, key, lib in (("max_pool3d_argmax", "K14", "F.max_pool3d"),
+                           ("max_pool3d_argmax_bwd", "K15",
+                            "max_pool3d_with_indices_backward")):
+        results[name].update(device_ms=measured[key]["device_ms"],
+                             library_device_ms=measured[lib]["device_ms"])
+    for text in lines:
+        log("kernels", f"{text.strip()}; {card}")
+
+
 def build_notes(lib) -> None:
     """Log, from the build's compiler output, every ptxas note on a kernel
     (C7514 and C7512, wgmma serialised; C7508, setmaxnreg ignored) and
@@ -764,11 +792,20 @@ def kernel_phase(card: str) -> dict:
     dy_130 = dy[:1, :130].contiguous()
     out8_more = {"130 rows": (*out_130, *out8, bout),
                  "zero rows of a": (x, attn0, *out8, bout)}
-    # K14/K15 at the ResNet stem's shape: continuous values, and post-ReLU
-    # zeros and small integers in bf16, where most windows tie.
+    # K14/K15 at the ResNet stem's shape: continuous values; post-ReLU
+    # zeros and small integers in bf16, where most windows tie; continuous
+    # values with 3 % NaN, 3 % +inf and 6 % -inf.
+    nan_inf = rng.standard_normal(POOL_SHAPE)
+    pick = rng.random(POOL_SHAPE)
+    nan_inf[pick < 0.03] = np.nan
+    nan_inf[(pick >= 0.03) & (pick < 0.06)] = np.inf
+    nan_inf[(pick >= 0.06) & (pick < 0.12)] = -np.inf
     pools = {"continuous": t(*POOL_SHAPE),
              "tie-heavy": torch.tensor(np.maximum(rng.integers(
-                 -3, 4, POOL_SHAPE), 0), dtype=torch.bfloat16, device=dev)}
+                 -3, 4, POOL_SHAPE), 0), dtype=torch.bfloat16, device=dev),
+             "NaN and inf": torch.tensor(nan_inf, dtype=torch.bfloat16,
+                                         device=dev)}
+    del nan_inf, pick
     pool_codes = {k: mp.max_pool3d_argmax_plain(v)[1]
                   for k, v in pools.items()}
     pool_g = t(B, *(mp.out_dim(n) for n in POOL_SHAPE[1:4]), POOL_SHAPE[4])
@@ -902,13 +939,14 @@ def kernel_phase(card: str) -> dict:
             for n_valid in (N, N_VALID_MASKED)],
         "max_pool3d_argmax": [
             (kind, lambda x=x: mp.max_pool3d_argmax_cuda(x),
-             lambda x=x: mp.max_pool3d_argmax_plain(x), False, (), "exact")
+             lambda x=x: mp.max_pool3d_argmax_plain(x), False, (),
+             "nan" if kind == "NaN and inf" else "exact")
             for kind, x in pools.items()],
         "max_pool3d_argmax_bwd": [
             (kind, lambda c=c: mp.max_pool3d_argmax_bwd_cuda(
                 c, pool_g, POOL_SHAPE, torch.bfloat16),
              lambda c=c: mp.max_pool3d_argmax_bwd_plain(
-                 c, pool_g, POOL_SHAPE, torch.bfloat16), True, (), "ulp")
+                 c, pool_g, POOL_SHAPE, torch.bfloat16), True, (), "exact")
             for kind, c in pool_codes.items()],
     }
     # The inputs and operations of each kernel's first (timed) case, for
@@ -1177,6 +1215,7 @@ def kernel_phase(card: str) -> dict:
     mlp_bwd_device_times(results, bwd_args, card)
     qkv_bwd_device_times(results, (dqkv, x, ln[0], wqkv), card)
     outproj_device_times(results, card)
+    pool_device_times(results, card)
     return results
 
 

@@ -36,7 +36,10 @@ either library: an older ``nvt_int8_attention`` (at head dim 64) takes
 the same bytes of v8 scratch and s_v at the head of the f32 stats. K8
 goes through :func:`fused_outproj_bwd_call`: an older
 ``nvt_fused_outproj_bwd`` (one ``wmma`` kernel) writes dz at dropout 0
-too, this one's reads dy and writes no dz then.
+too, this one's reads dy and writes no dz then. K14 and K15 go through
+:func:`max_pool3d_call` and :func:`max_pool3d_bwd_call`: an older
+``nvt_maxpool3d_fwd`` / ``_bwd`` (a thread a window) takes the shape
+alone, this one's also ``pool_plan``'s walk.
 
     python scripts/torch_kernel_ab.py --other <checkout> [--rounds 10]
         [--only <substring of a kernel's name>] [--batch 8]
@@ -241,6 +244,38 @@ def fused_outproj_bwd_call(dy: torch.Tensor, w: torch.Tensor,
     return dattn, dz
 
 
+def _old_pool_launch(name: str, like: torch.Tensor, ptrs, shape) -> None:
+    """An older checkout's pool entry point: pointers, the shape and
+    is_bf16, no walk."""
+    common.launch(name, (common.VOID,) * 3 + (common.INT,) * 6, like,
+                  *(common.ptr(t) for t in ptrs), *shape,
+                  int(like.dtype == torch.bfloat16))
+
+
+def max_pool3d_call(x: torch.Tensor):
+    """K14 on x through the library in use: this checkout's wrapper where
+    the library takes a walk (``nvt_maxpool3d_smem_bytes``), else the
+    older entry point."""
+    if hasattr(_build.library(), "nvt_maxpool3d_smem_bytes"):
+        return maxpool3d.max_pool3d_argmax_cuda(x)
+    b, d, h, w, c = x.shape
+    shape = (b, *(maxpool3d.out_dim(n) for n in (d, h, w)), c)
+    out = x.new_empty(shape)
+    codes = torch.empty(shape, dtype=torch.uint8, device=x.device)
+    _old_pool_launch("nvt_maxpool3d_fwd", x, (x, out, codes), x.shape)
+    return out, codes
+
+
+def max_pool3d_bwd_call(codes: torch.Tensor, g: torch.Tensor, x_shape):
+    """K15 likewise: dx in g's dtype."""
+    if hasattr(_build.library(), "nvt_maxpool3d_smem_bytes"):
+        return maxpool3d.max_pool3d_argmax_bwd_cuda(codes, g, x_shape,
+                                                    g.dtype)
+    dx = g.new_empty(tuple(x_shape))
+    _old_pool_launch("nvt_maxpool3d_bwd", g, (codes, g, dx), x_shape)
+    return dx
+
+
 def cases(b: int = cs.B) -> dict:
     """name -> (C entry point, call) at the kernel phase's shapes, the ViT
     kernels' operands at batch ``b``."""
@@ -325,10 +360,9 @@ def cases(b: int = cs.B) -> dict:
         "int8_flash_attention": ("nvt_int8_attention", lambda: (
             q8.int8_flash_attention_cuda(*qkv, scale=d ** -0.5, n_valid=n))),
         "max_pool3d_argmax": ("nvt_maxpool3d_fwd", lambda: (
-            maxpool3d.max_pool3d_argmax_cuda(pool))),
+            max_pool3d_call(pool))),
         "max_pool3d_argmax_bwd": ("nvt_maxpool3d_bwd", lambda: (
-            maxpool3d.max_pool3d_argmax_bwd_cuda(codes, pool_g,
-                                                 cs.POOL_SHAPE, bf))),
+            max_pool3d_bwd_call(codes, pool_g, cs.POOL_SHAPE))),
     }
 
 

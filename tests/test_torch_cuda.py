@@ -3,7 +3,10 @@ small and ragged shapes (the model's shapes are in chip_smoke.py): the
 forward kernels K1-K4 with and without dropout, the backward kernels K5,
 K7, K8 and K9, K6 (the [B, H, N, D] attention, forward and backward) and
 the Grad-CAM probe that runs it, the int8 serving kernels K10-K13, the
-ResNet stem's max-pool K14 and its backward K15; K1-K13 at every ViT width
+ResNet stem's max-pool K14 and its backward K15 (continuous, tie-heavy
+and NaN / +-inf inputs, C = 3 on the ordinary-load path, B * D past 65535,
+the stem at batch 1, walks of many items a block and of tiled columns and
+channels, the plan's shared memory); K1-K13 at every ViT width
 of the matrix (``models/vit3d.py`` WIDTHS: head dims 16, 32, 64, 80 and
 128, the ViT-S/B/L widths), head dim < 8 on the plain attention; the probes' kernels, K16
 (fused dropout, bit-equal forward and backward) and K17/K18 (the GEMM
@@ -1116,28 +1119,57 @@ def test_int8_kernels_refuse_what_they_do_not_take(cuda):
             zeros(512, 256), zeros(512), zeros(512))
 
 
-def _pool_input(rng, shape, ties: bool, device, dtype):
-    if ties:     # post-ReLU zeros and small integers: most windows tie
+def _pool_input(rng, shape, kind: str, device, dtype):
+    if kind == "ties":     # post-ReLU zeros and small integers: most tie
         a = np.maximum(rng.integers(-3, 4, shape), 0)
     else:
         a = rng.standard_normal(shape)
+    if kind == "nan_inf":  # 3 % NaN, 3 % +inf, 6 % -inf
+        pick = rng.random(shape)
+        a[pick < 0.03] = np.nan
+        a[(pick >= 0.03) & (pick < 0.06)] = np.inf
+        a[(pick >= 0.06) & (pick < 0.12)] = -np.inf
     return torch.tensor(a, dtype=dtype, device=device)
 
 
+def _same_or_nan(got, want):
+    """Equal values, and NaN exactly where the plain version has NaN (a
+    NaN's bits may differ: each conversion rounds it to its own NaN)."""
+    nan = torch.isnan(want)
+    assert got.dtype == want.dtype and torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan], want[~nan])
+
+
+# The card tests' four shapes; C = 3, whose rows take ordinary loads; B * D
+# = 65700, past the old grid's 65535; the stem at batch 1.
+POOL_SHAPES = [(2, 9, 7, 10, 8), (1, 8, 8, 8, 4), (2, 5, 6, 9, 16),
+               (2, 18, 9, 9, 64), (2, 9, 7, 45, 3), (730, 90, 1, 1, 8),
+               (1, 90, 45, 45, 64)]
+
+
+def _launch_pool(name, p, ops, shape, dtype):
+    """K14 (``nvt_maxpool3d_fwd`` on x, out, codes) or K15
+    (``nvt_maxpool3d_bwd`` on codes, g, dx) on the walk ``p``."""
+    from neurovit_tpu_torch.ops.common import INT, VOID, launch, ptr
+    launch(name, (VOID,) * 3 + (INT,) * 13, ops[0], *(ptr(t) for t in ops),
+           *shape, int(dtype == torch.bfloat16), p.rows, p.cols, p.chans,
+           p.chunks, p.slots, int(p.bulk), p.grid)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("ties", [False, True])
-@pytest.mark.parametrize("shape", [(2, 9, 7, 10, 8), (1, 8, 8, 8, 4),
-                                   (2, 5, 6, 9, 16), (2, 18, 9, 9, 64)])
-def test_maxpool_kernels(cuda, shape, ties, dtype):
+@pytest.mark.parametrize("kind", ["continuous", "ties", "nan_inf"])
+@pytest.mark.parametrize("shape", POOL_SHAPES)
+def test_maxpool_kernels(cuda, shape, kind, dtype):
     rng = np.random.default_rng(sum(shape))
-    x = _pool_input(rng, shape, ties, cuda, dtype)
+    x = _pool_input(rng, shape, kind, cuda, dtype)
     before = (maxpool3d.max_pool3d_argmax_cuda.launches,
               maxpool3d.max_pool3d_argmax_bwd_cuda.launches)
     out, codes = maxpool3d.max_pool3d_argmax(x)
     want, want_codes = maxpool3d.max_pool3d_argmax_plain(x)
     torch.cuda.synchronize()
-    assert torch.equal(out, want) and torch.equal(codes, want_codes)
-    g = _pool_input(rng, tuple(out.shape), False, cuda, dtype)
+    _same_or_nan(out, want)
+    assert torch.equal(codes, want_codes)
+    g = _pool_input(rng, tuple(out.shape), "continuous", cuda, dtype)
     dx = maxpool3d.max_pool3d_argmax_bwd(codes, g, shape, dtype)
     want_dx = maxpool3d.max_pool3d_argmax_bwd_plain(codes, g, shape, dtype)
     torch.cuda.synchronize()
@@ -1145,6 +1177,70 @@ def test_maxpool_kernels(cuda, shape, ties, dtype):
     assert (maxpool3d.max_pool3d_argmax_cuda.launches,
             maxpool3d.max_pool3d_argmax_bwd_cuda.launches) == (
         before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 9, 7, 10, 8), (2, 5, 6, 9, 32),
+                                   (2, 9, 7, 45, 3)])
+def test_maxpool_tiled_walks(cuda, shape, dtype):
+    """The kernels on walks the stem never takes, bit-equal to plain: one
+    SM's grid, so a block's ring runs through many items; the ordinary-load
+    path on the planned tile; tiles of 2 output columns and, at C = 32, 16
+    channels, on 3 blocks, by bulk copies where the runs are 16-byte
+    ones (a copy each row's columns, or each column's channels)."""
+    rng = np.random.default_rng(3)
+    x = _pool_input(rng, shape, "ties", cuda, dtype)
+    want, want_codes = maxpool3d.max_pool3d_argmax_plain(x)
+    g = _pool_input(rng, tuple(want.shape), "continuous", cuda, dtype)
+    want_dx = maxpool3d.max_pool3d_argmax_bwd_plain(want_codes, g, shape,
+                                                   dtype)
+    plan = maxpool3d.pool_plan(shape, dtype, sms=1)
+    walks = [plan, maxpool3d.PoolPlan(*(p._replace(bulk=False)
+                                        for p in plan))]
+    c = shape[4]
+    if c % 8 == 0:
+        chans = 16 if c == 32 else c
+        elts = {"fwd": (dtype.itemsize,), "bwd": (dtype.itemsize, 1)}
+        walks.append(maxpool3d.PoolPlan(*(p._replace(
+            cols=2, chans=chans, grid=3, bulk=maxpool3d._bulk_ok(
+                0, c, chans, False, elts[kind]))
+            for kind, p in zip(("fwd", "bwd"), plan))))
+    for walk in walks:
+        out, codes = torch.empty_like(want), torch.empty_like(want_codes)
+        dx = torch.empty_like(x)
+        _launch_pool("nvt_maxpool3d_fwd", walk.fwd, (x, out, codes), shape,
+                     dtype)
+        _launch_pool("nvt_maxpool3d_bwd", walk.bwd, (want_codes, g, dx),
+                     shape, dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want) and torch.equal(codes, want_codes)
+        assert torch.equal(dx, want_dx), walk
+
+
+def test_maxpool_plan_smem_is_the_kernels(cuda):
+    """pool_plan's shared memory is what the kernels' launch asks for
+    (``nvt_maxpool3d_smem_bytes``, the count the launcher sizes the launch
+    with), and a bulk walk on rows that are not 16-byte runs is refused."""
+    import ctypes
+
+    from neurovit_tpu_torch.ops import _build
+    fn = _build.library().nvt_maxpool3d_smem_bytes
+    fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 9
+    for shape in POOL_SHAPES + [(8, 90, 45, 45, 64), (64, 90, 45, 45, 64),
+                                (1, 6, 4, 900, 64), (1, 4, 4, 4, 4096)]:
+        for dtype in (torch.bfloat16, torch.float32):
+            plan = maxpool3d.pool_plan(shape, dtype)
+            for fwd, p in ((1, plan.fwd), (0, plan.bwd)):
+                assert fn(fwd, *shape[2:], int(dtype == torch.bfloat16),
+                          p.rows, p.cols, p.chans, p.slots) == p.smem_bytes
+    shape = (2, 9, 7, 45, 3)
+    x = torch.zeros(shape, device=cuda)
+    out = torch.empty(2, 5, 4, 23, 3, device=cuda)
+    codes = torch.empty(out.shape, dtype=torch.uint8, device=cuda)
+    p = maxpool3d.pool_plan(shape, x.dtype).fwd
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _launch_pool("nvt_maxpool3d_fwd", p._replace(bulk=True),
+                     (x, out, codes), shape, x.dtype)
 
 
 def test_maxpool_autograd_and_resnet_forward_backward(cuda):
@@ -1159,8 +1255,8 @@ def test_maxpool_autograd_and_resnet_forward_backward(cuda):
     farther from the CPU's f32 ones than the CPU's bf16 gradients are (1.5x
     plus 2e-2, worst and median parameter, as chip_smoke.py holds them)."""
     from neurovit_tpu_torch.models import resnet3d
-    x = _pool_input(np.random.default_rng(1), (2, 8, 8, 8, 64), True, cuda,
-                    torch.bfloat16).requires_grad_()
+    x = _pool_input(np.random.default_rng(1), (2, 8, 8, 8, 64), "ties",
+                    cuda, torch.bfloat16).requires_grad_()
     before = maxpool3d.max_pool3d_argmax_bwd_cuda.launches
     maxpool3d.max_pool3d(x).float().sum().backward()
     assert maxpool3d.max_pool3d_argmax_bwd_cuda.launches == before + 1

@@ -1,11 +1,14 @@
 """The port's max-pool K14/K15 plain versions against the JAX package's
 Pallas kernels in interpret mode (as tests/test_maxpool_pallas.py runs
-them), on that file's four shapes, f32 and bf16, tie-free and tie-heavy.
+them), on that file's four shapes, f32 and bf16, tie-free, tie-heavy and
+with NaN and +-inf in the windows.
 
 Tolerances: values and codes bit-equal (both sides compare in f32 and pick
 the same winner); the backward's f32 sums within 1e-6 (the same at most 8
 terms per input element, added in another order), its bf16 results
-bit-equal (one rounding of those sums). The autograd Function against
+bit-equal (one rounding of those sums); NaN where JAX has NaN (both
+propagate it as jnp.maximum does, and a NaN loses every strict '>', so
+the code stays where it was). The autograd Function against
 ``jax.grad`` of ``max_pool3d_pallas``: the same bounds.
 """
 
@@ -35,6 +38,15 @@ def _input(kind: str, shape, seed: int) -> np.ndarray:
                                np.arange(0xB000, 0xD000)]).astype(np.uint32)
         pick = rng.choice(bits, int(np.prod(shape)), replace=False)
         return (pick << 16).view(np.float32).reshape(shape)
+    if kind == "nan_inf":
+        # Continuous values with 3 % NaN, 3 % +inf and 6 % -inf, so windows
+        # hold NaN beside larger values, ties at +inf, and all -inf taps.
+        a = rng.standard_normal(shape).astype(np.float32)
+        pick = rng.random(shape)
+        a[pick < 0.03] = np.nan
+        a[(pick >= 0.03) & (pick < 0.06)] = np.inf
+        a[(pick >= 0.06) & (pick < 0.12)] = -np.inf
+        return a
     # Post-ReLU activations in bf16: zeros and small integers, so most
     # windows hold ties, and all-zero windows occur.
     return np.maximum(rng.integers(-3, 4, shape), 0).astype(np.float32)
@@ -54,7 +66,7 @@ def _np(t) -> np.ndarray:
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("kind", ["tie_free", "tie_heavy"])
+@pytest.mark.parametrize("kind", ["tie_free", "tie_heavy", "nan_inf"])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_pool_and_gradient_match_pallas(shape, kind, dtype):
     a = _input(kind, shape, seed=sum(shape))
@@ -67,6 +79,8 @@ def test_pool_and_gradient_match_pallas(shape, kind, dtype):
                                   np.asarray(jcodes))
     if kind == "tie_heavy":
         assert (np.asarray(jcodes) != 13).mean() > 0.2   # not just centres
+    if kind == "nan_inf":
+        assert np.isnan(_np(out)).any() and np.isposinf(_np(out)).any()
 
     g = np.random.default_rng(7).standard_normal(out.shape).astype(np.float32)
     jg, tg = _pair(g, dtype)
