@@ -145,7 +145,30 @@ Phases, each printing a line; any failure raises and exits non-zero:
                their latency at batch 1 and 8 by CUDA events; K14 launched
                once per forward and K15 once per backward, and K15 never in
                a CAM
-16. widths     the verify recipe's smoke model (dim 64, 4 heads of 16)
+16. 4d         configs/config4D.yaml (the flagship ViT frozen, seed 42)
+               on seeded [90^3, 140] series, 4 train and 2 val at batch 2,
+               accumulation 2: (a) Trainer.run() for 2 epochs, the encoder
+               bit-unchanged, the head moved, K1-K4 depth times per
+               encoder forward and no backward kernel; (b) the feature
+               cache: K1-K4 only in the precompute, losses against (a)'s,
+               cached features against a fresh encode_sequence, a second
+               Trainer reloading the persisted views with no launch; (c)
+               the int8 encoder: K10-K13 and never K1-K4, its features
+               within 5e-2 of the bf16 encoder's, its checkpoint with
+               (a)'s keys and f32 encoder weights; (d) 4D encodings
+               bit-equal to the 3D forward on the same volumes; the fold of
+               all 280 volumes against the CPU plain path at the first and
+               last 3 timepoints of each sequence (encodings, and the ViT's
+               last block output per volume, each nearest its own CPU row);
+               the head at f32 against the CPU plain path; a T = 4
+               sequence's encodings and logits against the CPU; (e) Predictor at 1 and 2 sequences bit-equal, the batch
+               CLI on two NIfTI series (timepoint -1 rows), HTTP /healthz
+               (is_4d) and a POSTed series, --quant int8; (f) the train
+               step at B 2 x T 140, with the cache and with the int8
+               encoder, the encoder's share, peak memory, profiler splits;
+               (g) the ResNet-18 encoder in 4D at B 1 x T 8, one K14, its
+               encodings and the logits against the CPU plain path
+17. widths     the verify recipe's smoke model (dim 64, 4 heads of 16)
                trained for an epoch in bf16 on cuda through the CLI's main(),
                every block kernel launched; a ViT-B-width model (768, 12 x
                64, 3072, depth 4) served by Predictor against the CPU plain
@@ -2617,38 +2640,550 @@ def resnet_phase(config, workdir: str, card: str, counters: dict) -> dict:
     return launches
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available; this script runs the "
-              "port on the card only", file=sys.stderr)
-        return 1
+# ---------------------------------------------------------------------------
+# The 4D path: config4D's frozen flagship ViT over B·T volumes
+# ---------------------------------------------------------------------------
+
+# config4D's series: 140 timepoints of 90^3; the serving CLI's files are
+# cut to 8 timepoints to keep them small.
+SEQ_T = 140
+CLI_T = 8
+# Cached against recomputed training, per step loss: the JAX test's bound
+# (tests/test_feature_cache_4d.py).
+CACHE_LOSS_RTOL = 1e-5
+# The int8 encoder's features against the bf16 encoder's: relative
+# Frobenius error (tests/test_int8_serving.py's bound on model outputs).
+INT8_FEAT_RTOL = 5e-2
+# The temporal head and projection at f32, card against the CPU plain path.
+HEAD_F32_ATOL = 1e-3
+# One sequence through the whole bf16 model, card against the CPU, and the
+# volume encoder's bf16 encodings (its logits) against the CPU's.
+BF16_LOGIT_ATOL = 5e-2
+# The full B·T fold is held against the CPU plain path at its first and
+# last EDGE_T timepoints of each sequence: the first and last rows of the
+# fold and the seam between the two sequences.
+EDGE_T = 3
+# The block kernels' backwards: a 4D phase launches none of them.
+BACKWARD_KERNELS = ["flash_attention_bwd", "fused_ln_qkv_bwd",
+                    "fused_outproj_bwd", "fused_mlp_bwd"]
+BF16_BLOCK_KERNELS = ["flash_attention", "fused_ln_qkv",
+                      "fused_outproj_residual", "fused_mlp_block"]
+
+
+class _SeededSequences:
+    """[size^3, T] series made lazily per index from a seed, the host never
+    holding the corpus: a standard-normal volume plus a wave along x that
+    moves with the timepoint (an affine change of a whole volume would
+    vanish in the patch LayerNorm), its amplitude set by the label."""
+
+    def __init__(self, n: int, size: int, t: int, seed: int, mode: str):
+        self.n, self.size, self.t, self.seed, self.mode = n, size, t, seed, mode
+
+    def __len__(self):
+        return self.n
+
+    def sample(self, idx):
+        rng = np.random.default_rng((self.seed, idx))
+        label = idx % 2
+        base = rng.standard_normal((self.size,) * 3, dtype=np.float32)
+        x = np.arange(self.size, dtype=np.float32)[:, None]
+        t = np.arange(self.t, dtype=np.float32)[None, :]
+        wave = ((1 + label) * np.sin(0.2 * x + 0.15 * t)).astype(np.float32)
+        return {"volume": base[..., None] + wave[:, None, None, :],
+                "label": label, "subject": f"{self.mode}_{idx}",
+                "timepoint": 0}
+
+
+def _fourd_config(workdir: str, **extra) -> dict:
+    """configs/config4D.yaml through the port's load_config, with one
+    epoch's accumulation (2 micro-batches of 2 sequences make one update)
+    and a workdir of its own."""
     from neurovit_tpu_torch.config import load_config
-    from neurovit_tpu_torch.ops import (_build, dropout, flash_attention,
-                                        fused_mlp, fused_outproj, fused_qkv,
-                                        int8_gemm, int8_serving, maxpool3d)
-    from neurovit_tpu_torch.serving import Predictor
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(os.path.join(here, "configs", "config4D.yaml"))
+    return {**cfg, "TRAINING_ACCUMULATION_STEP": 2, "TRAINING_EPOCHS": 2,
+            "TRAINING_NUM_WORKERS": 4, "WANDB_ENABLED": False,
+            "GLOBAL_OUTPUT_DIR": os.path.join(workdir, "runs4d"), **extra}
+
+
+def _run_trainer(trainer, counters: dict, epochs=None) -> tuple:
+    """Trainer.run() (or ``epochs`` of train + validate) with the launch
+    counts set to 0 just before and read just after; returns (the
+    per-step losses, the launch counts, the printed text)."""
+    losses = []
+    step = trainer.train_step
+
+    def recorded(*args, **kwargs):
+        m = step(*args, **kwargs)
+        losses.append(float(m["loss"]))
+        return m
+
+    trainer.train_step = recorded
+    out = io.StringIO()
+    for fn in counters.values():
+        fn.launches = 0
+    with contextlib.redirect_stdout(out):
+        if epochs is None:
+            trainer.run()
+        else:
+            for epoch in range(epochs):
+                trainer.train(epoch)
+                trainer.validate(epoch)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    trainer.train_step = step
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"4D losses are not finite: {losses}")
+    return losses, launches, out.getvalue()
+
+
+def _want(names: list, count: int, counters: dict) -> dict:
+    return {name: count if name in names else 0 for name in counters}
+
+
+def _encoder_forwards(model) -> list:
+    """A one-element list counting the frozen ViT's forward calls."""
+    return _count_forwards(model.volume_encoder.vit3d)
+
+
+def _checkpoint(run_dir: str) -> str:
+    import glob
+    pkl = glob.glob(os.path.join(run_dir, "*", "model-e0.state_dict.pkl"))
+    if len(pkl) != 1:
+        raise AssertionError(f"no single model-e0 checkpoint: {pkl}")
+    return pkl[0]
+
+
+def _fold_against_cpu(model, cpu, x: torch.Tensor) -> None:
+    """The card's encode_sequence of all B·T volumes of ``x`` against the
+    CPU plain path on the first and last EDGE_T timepoints of each
+    sequence: the encodings at the bf16 bound, and the ViT's last block
+    output (the head's input, [N + 1, dim] a volume) by relative Frobenius
+    error per volume, each volume's nearer its own CPU row than any other
+    held volume's, so that a row offset in the fold shows."""
+    b, t = x.shape[0], x.shape[-1]
+    ts = list(range(EDGE_T)) + list(range(t - EDGE_T, t))
+    rows = [i * t + j for i in range(b) for j in ts]
+    acts = {}
+
+    def keep(dev, index):
+        def hook(_module, _args, out):
+            acts[dev] = out[index].float().cpu().reshape(len(rows), -1)
+        return hook
+
+    index = torch.tensor(rows, device=x.device)
+    for dev, m, vols in (("cuda", model, x), ("cpu", cpu, x[..., ts].cpu())):
+        handle = m.volume_encoder.vit3d.transformer.register_forward_hook(
+            keep(dev, index if dev == "cuda" else slice(None)))
+        t0 = time.perf_counter()
+        try:
+            enc = m.encode_sequence(vols)
+        finally:
+            handle.remove()
+        if dev == "cuda":
+            got = enc[:, ts].cpu()
+        else:
+            want, cpu_s = enc, time.perf_counter() - t0
+    diff = float((got - want).abs().max())
+    errs = ((acts["cuda"] - acts["cpu"]).norm(dim=1)
+            / acts["cpu"].norm(dim=1)).tolist()
+    dist = torch.cdist(acts["cuda"], acts["cpu"])
+    own = bool((dist.argmin(dim=1) == torch.arange(len(rows))).all())
+    apart = torch.cdist(acts["cpu"], acts["cpu"]) / acts["cpu"].norm(
+        dim=1, keepdim=True)
+    apart.fill_diagonal_(float("inf"))
+    log("4d", f"(d) the card's fold of {b} x {t} = {b * t} volumes against "
+        f"the cpu plain path at timepoints {ts} of each sequence (rows "
+        f"{rows}): encodings max diff {diff:.3e} (tol {BF16_LOGIT_ATOL}); "
+        f"last block output relative errors {[round(e, 6) for e in errs]} "
+        f"(tol {GRAD_RTOL}), each volume nearest its own cpu row {own}, "
+        f"the nearest other held volume {float(apart.min()):.3e} apart; cpu "
+        f"{cpu_s:.1f} s host clock")
+    if not (bool(torch.isfinite(got).all()) and diff <= BF16_LOGIT_ATOL
+            and max(errs) <= GRAD_RTOL and own):
+        raise AssertionError("the 4D fold differs from the cpu plain path")
+
+
+def fourd_phase(workdir: str, card: str, counters: dict) -> dict:
+    """config4D's 4D path on the card (see the module docstring, phase
+    16): (a) the bf16 encoder's Trainer, (b) the feature cache, (c) the
+    int8 encoder, (d) parity, (e) serving, (f) timing, (g) the ResNet-18
+    encoder in 4D. Returns the launch counts of its main-path runs,
+    summed."""
     from neurovit_tpu_torch.models import NeuroEncoder
+    from neurovit_tpu_torch.training import Trainer
+    from neurovit_tpu_torch.training import state_dict as sd
 
-    # The plain versions' f32 matmuls are the reference: no TF32.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    t_start = time.perf_counter()
+    phase = "4d"
+    cfg = _fourd_config(workdir)
+    size = cfg["TRAINING_VIT_INPUT_SIZE"]
+    depth = cfg["MODEL_VIT_DEPTH"]
+    total = {name: 0 for name in counters}
 
-    card = card_line()
-    kind = torch.cuda.get_device_name(0)
-    log("device", f"nvidia-smi: {card}; torch: {kind}, "
-        f"{torch.cuda.device_count()} device(s), torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}")
+    def add(launches):
+        for name, n in launches.items():
+            total[name] += n
 
+    # (a) The bf16 encoder: Trainer.run(), 2 epochs of 4 train and 2 val
+    # sequences at batch 2, accumulation 2: one update an epoch.
+    model = NeuroEncoder(cfg, device="cuda", seed=SEED)
+    log(phase, f"config4D: B {cfg['TRAINING_BATCH_SIZE']} x T {SEQ_T} of "
+        f"{size}^3 = {cfg['TRAINING_BATCH_SIZE'] * SEQ_T} volumes a step "
+        f"through the frozen ViT (dim {model.vit_cfg.dim}, depth {depth}), "
+        f"{cfg['TRAINING_PRECISION']}; accumulation overridden 8 -> 2 so one "
+        f"epoch of 4 sequences makes one update; temporal dropout "
+        f"{model.temporal_cfg.dropout}; "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f} M "
+        f"parameters, {model.param_count()[1]} trainable")
+    encoder0 = {k: v.clone() for k, v in model.state_dict().items()
+                if k.startswith("volume_encoder.")}
+    head0 = {k: v.clone() for k, v in model.state_dict().items()
+             if not k.startswith("volume_encoder.")}
+    train_ds = _SeededSequences(4, size, SEQ_T, SEED, "train4d")
+    val_ds = _SeededSequences(2, size, SEQ_T, SEED + 1, "val4d")
+    trainer = Trainer(cfg, model, train_ds, val_ds)
+    forwards = _encoder_forwards(model)
     t0 = time.perf_counter()
-    lib = _build.build()
-    _build.library()
-    log("build", f"{lib.name} in {time.perf_counter() - t0:.1f} s")
-    build_notes(lib)
+    losses_a, launches, text = _run_trainer(trainer, counters)
+    secs = time.perf_counter() - t0
+    for line in text.splitlines():
+        log(phase, line.expandtabs(1))
+    _check_counts("the 4D bf16 run", launches,
+                  _want(BF16_BLOCK_KERNELS, depth * forwards[0], counters))
+    add(launches)
+    state = model.state_dict()
+    if any(not torch.equal(state[k], v) for k, v in encoder0.items()):
+        raise AssertionError("the frozen encoder moved")
+    if all(torch.equal(state[k], v) for k, v in head0.items()):
+        raise AssertionError("the temporal head and projection did not move")
+    if trainer.optimizer.steps != 2:
+        raise AssertionError(f"{trainer.optimizer.steps} updates, expected 2")
+    ckpt_a = _checkpoint(cfg["GLOBAL_OUTPUT_DIR"])
+    log(phase, f"(a) bf16 encoder: 2 epochs ({len(losses_a)} micro-steps, "
+        f"{trainer.optimizer.steps} updates, {forwards[0]} encoder forwards) "
+        f"in {secs:.1f} s host clock, data made in the run; losses "
+        f"{[round(v, 6) for v in losses_a]}; encoder bit-unchanged, head "
+        f"moved; launches {launches}")
 
-    kernel_stats = kernel_phase(card)
+    # (b) The feature cache, persisted: precompute launches K1-K4, the
+    # epochs none; a second Trainer reloads the views by fingerprint.
+    ccfg = dict(cfg, TRAINING_4D_FEATURE_CACHE=True,
+                TRAINING_4D_FEATURE_CACHE_DIR=os.path.join(workdir, "cache"),
+                GLOBAL_OUTPUT_DIR=os.path.join(workdir, "runs4d_cache"))
+    cmodel = NeuroEncoder(ccfg, device="cuda", seed=SEED)
+    cached = Trainer(ccfg, cmodel, train_ds, val_ds)
+    forwards = _encoder_forwards(cmodel)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cached._ensure_feature_cache()
+    torch.cuda.synchronize()
+    pre = {name: fn.launches for name, fn in counters.items()}
+    log(phase, f"(b) precompute: {forwards[0]} encoder forwards in "
+        f"{time.perf_counter() - t0:.1f} s host clock; launches {pre}")
+    _check_counts("the 4D precompute", pre,
+                  _want(BF16_BLOCK_KERNELS, depth * forwards[0], counters))
+    add(pre)
+    losses_b, epochs_b, _ = _run_trainer(cached, counters, epochs=2)
+    _check_counts("the cached epochs", epochs_b, _want([], 0, counters))
+    diffs = [abs(a - b) / max(abs(a), 1e-30)
+             for a, b in zip(losses_b, losses_a)]
+    log(phase, f"(b) cached epochs: losses {[round(v, 6) for v in losses_b]}"
+        f", max relative difference from (a) {max(diffs):.3e} (tol "
+        f"{CACHE_LOSS_RTOL}); no kernel launched")
+    if len(losses_b) != len(losses_a) or max(diffs) > CACHE_LOSS_RTOL:
+        raise AssertionError(f"cached losses {losses_b} against {losses_a}")
+    view = cached._feature_cache["train"]
+    worst, equal = 0.0, True
+    for i in range(len(train_ds)):
+        x = torch.from_numpy(train_ds.sample(i)["volume"][None]).cuda()
+        fresh = cmodel.encode_sequence(x)[0].cpu()
+        got = torch.from_numpy(view.feats[i])
+        compare(f"cached features {i}", got, fresh)
+        worst = max(worst, float((got - fresh).abs().max()))
+        equal = equal and torch.equal(got, fresh)
+    log(phase, f"(b) cached features against a fresh encode_sequence of "
+        f"each sequence alone: max abs difference {worst:.3e}, bit-equal "
+        f"{equal}")
+    again = Trainer(ccfg, NeuroEncoder(ccfg, device="cuda", seed=SEED),
+                    train_ds, val_ds)
+    _, reload, text = _run_trainer(again, counters, epochs=1)
+    if "loaded persisted train cache" not in text or \
+            "loaded persisted val cache" not in text:
+        raise AssertionError(f"the views were not reloaded: {text}")
+    _check_counts("the reloaded cache's epoch", reload,
+                  _want([], 0, counters))
+    log(phase, "(b) a second Trainer reloaded both views by fingerprint "
+        "and launched no kernel")
+    del again, cached, cmodel
+
+    # (c) The int8 encoder: K10-K13, never K1-K4; its checkpoint keeps
+    # the f32 encoder and (a)'s keys.
+    qcfg = dict(cfg, TRAINING_4D_ENCODER_QUANT="int8", TRAINING_EPOCHS=1,
+                GLOBAL_OUTPUT_DIR=os.path.join(workdir, "runs4d_int8"))
+    qmodel = NeuroEncoder(qcfg, device="cuda", seed=SEED)
+    quant = Trainer(qcfg, qmodel, train_ds, val_ds)
+    forwards = _count_forwards(quant._q8_encoder)
+    losses_c, launches, _ = _run_trainer(quant, counters)
+    _check_counts("the 4D int8 run", launches,
+                  _want(INT8_KERNELS, depth * forwards[0], counters))
+    add(launches)
+    batch = next(iter(quant.val_dataloader))
+    x = torch.from_numpy(batch["volume"]).cuda()
+    f8 = qmodel.encode_sequence(x, encoder=quant._q8_encoder)
+    fb = qmodel.encode_sequence(x)
+    rel = float((f8 - fb).norm() / fb.norm())
+    wa, wc = sd.load(ckpt_a), sd.load(_checkpoint(qcfg["GLOBAL_OUTPUT_DIR"]))
+    same = set(wa) == set(wc) and all(
+        torch.equal(wa[k], wc[k]) and wc[k].dtype == torch.float32
+        for k in wa if k.startswith("volume_encoder."))
+    log(phase, f"(c) int8 encoder: {forwards[0]} forwards, losses "
+        f"{[round(v, 6) for v in losses_c]}; features against the bf16 "
+        f"encoder's: relative error {rel:.3e} (tol {INT8_FEAT_RTOL}); "
+        f"checkpoint keys and f32 encoder weights equal (a)'s: {same}; "
+        f"launches {launches}")
+    if rel > INT8_FEAT_RTOL or not same:
+        raise AssertionError("the int8 encoder's features or checkpoint")
+
+    # (d) Parity: 4D encodings against the 3D model's forward on the same
+    # volumes; the head at f32 and one T = 4 sequence against the CPU.
+    model3d = NeuroEncoder(dict(cfg, TRAINING_DIM=3), device="cuda",
+                           seed=SEED + 1)
+    model3d.load_state_dict(encoder0, strict=False)
+    b, t = x.shape[0], x.shape[-1]
+    with torch.no_grad():
+        enc = model.encode_sequence(x)
+        flat = model3d(x.permute(0, 4, 1, 2, 3).reshape(b * t, *x.shape[1:4]))
+    diff = float((enc.reshape(b * t, -1) - flat).abs().max())
+    log(phase, f"(d) 4D encodings of {b} x {t} volumes against the 3D "
+        f"model's forward on them: max abs difference {diff:.3e} "
+        f"(bit-equal {torch.equal(enc.reshape(b * t, -1), flat)})")
+    if not torch.equal(enc.reshape(b * t, -1), flat):
+        raise AssertionError("4D encodings differ from the 3D forward")
+    del model3d, flat
+    head = {k: v for k, v in model.state_dict().items()
+            if not k.startswith("volume_encoder.")}
+    fcfg = dict(cfg, TRAINING_PRECISION="f32")
+    heads = {}
+    for dev in ("cuda", "cpu"):
+        m = NeuroEncoder(fcfg, device=dev, seed=SEED)
+        m.load_state_dict(head, strict=False)
+        with torch.no_grad():
+            heads[dev] = m.apply_features(enc.to(dev)).cpu()
+    diff = float((heads["cuda"] - heads["cpu"]).abs().max())
+    log(phase, f"(d) temporal head + projection at f32 on those features: "
+        f"cuda {heads['cuda'].tolist()} vs cpu, max diff {diff:.3e} (tol "
+        f"{HEAD_F32_ATOL})")
+    if diff > HEAD_F32_ATOL:
+        raise AssertionError(f"the f32 head differs by {diff}")
+    cpu = NeuroEncoder(cfg, device="cpu", seed=SEED + 2)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    _fold_against_cpu(model, cpu, x)
+    x4 = torch.from_numpy(np.ascontiguousarray(
+        val_ds.sample(0)["volume"][None, ..., :4]))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        enc_want = cpu.encode_sequence(x4)
+        want = cpu.apply_features(enc_want)
+        got = model(x4.cuda()).cpu()
+        enc_got = model.encode_sequence(x4.cuda()).cpu()
+    diff = float((got - want).abs().max())
+    enc_diff = float((enc_got - enc_want).abs().max())
+    log(phase, f"(d) one sequence at T = 4, bf16: encodings cuda "
+        f"{enc_got.tolist()} vs cpu {enc_want.tolist()}, max diff "
+        f"{enc_diff:.3e}; logits cuda {got.tolist()} vs cpu {want.tolist()}, "
+        f"max diff {diff:.3e} (tol {BF16_LOGIT_ATOL} for both); cpu "
+        f"{time.perf_counter() - t0:.1f} s host clock")
+    if diff > BF16_LOGIT_ATOL or enc_diff > BF16_LOGIT_ATOL:
+        raise AssertionError(f"T = 4 encodings or logits differ by "
+                             f"{enc_diff}, {diff}")
+    del cpu
+
+    # (e) Serving: Predictor, the batch CLI, HTTP, --quant int8.
+    seqs = np.stack([val_ds.sample(i)["volume"] for i in range(2)])
+    launches = fourd_serving(cfg, ckpt_a, seqs, workdir, counters)
+    add(launches)
+
+    # (f) Timing at config4D's shape, medians of CUDA-event timings.
+    dbatch, _, _ = next(trainer._device_prefetch(trainer.val_dataloader))
+    fbatch = {"volume": model.encode_sequence(dbatch["volume"]),
+              "label": dbatch["label"], "valid": dbatch["valid"]}
+    qbatch, _, _ = next(quant._device_prefetch(quant.val_dataloader))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = {"step": cuda_ms(lambda: trainer.train_step(dbatch), 2, 7)}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms["encoder"] = cuda_ms(lambda: model.encode_sequence(dbatch["volume"]),
+                            2, 7)
+    ms["cached step"] = cuda_ms(lambda: trainer.train_step(fbatch), 3, 25)
+    ms["int8 step"] = cuda_ms(lambda: quant.train_step(qbatch), 2, 7)
+    ms["int8 encoder"] = cuda_ms(lambda: qmodel.encode_sequence(
+        qbatch["volume"], encoder=quant._q8_encoder), 2, 7)
+    vols = b * t
+    log(phase, f"(f) train step at B {b} x T {t} ({vols} volumes): "
+        f"{ms['step']:.3f} ms ({vols / ms['step'] * 1e3:.1f} vol/s), the "
+        f"encoder {ms['encoder']:.3f} ms = "
+        f"{100 * ms['encoder'] / ms['step']:.1f} % of it; with the feature "
+        f"cache {ms['cached step']:.3f} ms; with the int8 encoder "
+        f"{ms['int8 step']:.3f} ms (its encoder {ms['int8 encoder']:.3f} ms "
+        f"= {100 * ms['int8 encoder'] / ms['int8 step']:.1f} %); peak memory "
+        f"{peak:.2f} GiB in the bf16 steps; {card}")
+    profile_split(phase, "4D train step",
+                  lambda: trainer.train_step(dbatch), ms["step"])
+    profile_split(phase, "cached 4D train step",
+                  lambda: trainer.train_step(fbatch), ms["cached step"])
+    del trainer, quant, dbatch, qbatch, fbatch
     torch.cuda.empty_cache()
 
-    counters = {
+    # (g) The ResNet-18 volume encoder in 4D at B 1 x T 8, eval: K14 once
+    # per forward, against the CPU plain path.
+    rcfg = dict(cfg, MODEL_VOLUME_ENCODER="resnet")
+    rmodel = NeuroEncoder(rcfg, device="cuda", seed=SEED)
+    rcpu = NeuroEncoder(rcfg, device="cpu", seed=SEED)
+    xr = np.ascontiguousarray(val_ds.sample(1)["volume"][None, ..., :8])
+    for fn in counters.values():
+        fn.launches = 0
+    with torch.no_grad():
+        got = torch.softmax(rmodel(torch.from_numpy(xr).cuda()), -1).cpu()
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    _check_counts("the 4D ResNet forward", launches,
+                  _want(RESNET_KERNELS[:1], 1, counters))
+    add(launches)
+    with torch.no_grad():
+        enc_want = rcpu.encode_sequence(torch.from_numpy(xr))
+        want = torch.softmax(rcpu.apply_features(enc_want), -1)
+        enc_got = rmodel.encode_sequence(torch.from_numpy(xr).cuda()).cpu()
+    diff = float((got - want).abs().max())
+    enc_diff = float((torch.softmax(enc_got, -1)
+                      - torch.softmax(enc_want, -1)).abs().max())
+    log(phase, f"(g) ResNet-{rmodel.resnet_cfg.depth} encoder in 4D, B 1 x "
+        f"T 8: the encoder's probabilities at the 8 timepoints against the "
+        f"cpu's, max diff {enc_diff:.3e}; probs {got.tolist()} vs cpu "
+        f"{want.tolist()}, max diff {diff:.3e} (tol {PROB_ATOL} for both); "
+        f"launches {launches}")
+    if diff > PROB_ATOL or enc_diff > PROB_ATOL:
+        raise AssertionError(f"the 4D ResNet differs from the CPU by "
+                             f"{enc_diff}, {diff}")
+    log("counts", f"4d phase: launches {total}")
+    if any(total[name] for name in BACKWARD_KERNELS):
+        raise AssertionError(f"a 4D phase launched a backward kernel: {total}")
+    return total
+
+
+def fourd_serving(cfg, ckpt: str, seqs: np.ndarray, workdir: str,
+                  counters: dict) -> dict:
+    """(e): the 4D checkpoint through Predictor at n = 1 and 2 sequences,
+    the batch CLI on two NIfTI series, one HTTP POST of a series with
+    /healthz, and --quant int8. Returns the launch counts of the bf16
+    Predictor's requests and the int8 ones."""
+    import yaml
+
+    from neurovit_tpu_torch import serving
+    from neurovit_tpu_torch.data import nifti
+    from neurovit_tpu_torch.serving import Predictor, _collect_volume_jobs
+    from neurovit_tpu_torch.serving_http import make_server
+
+    phase = "4d"
+    depth = cfg["MODEL_VIT_DEPTH"]
+    predictor = Predictor.from_checkpoint(cfg, ckpt, batch_size=2,
+                                          device="cuda")
+    forwards = _count_forwards(predictor.model.volume_encoder.vit3d)
+    for fn in counters.values():
+        fn.launches = 0
+    _, probs = predictor(seqs)
+    singles = np.concatenate([predictor(seqs[i:i + 1])[1] for i in range(2)])
+    launches = {name: fn.launches for name, fn in counters.items()}
+    _check_counts("4D serving", launches,
+                  _want(BF16_BLOCK_KERNELS, depth * forwards[0], counters))
+    log(phase, f"(e) Predictor, buckets {predictor.bucket_sizes}: 2 "
+        f"sequences {probs.tolist()}, bit-equal to single calls "
+        f"{np.array_equal(singles, probs)} (max diff "
+        f"{float(np.abs(singles - probs).max()):.3e}); launches {launches}")
+    if not np.isfinite(probs).all() or not np.array_equal(singles, probs):
+        raise AssertionError("4D bucket parity")
+
+    # The batch CLI on two series of CLI_T timepoints (raw 91 x 109 x 91).
+    rng = np.random.default_rng(SEED + 9)
+    paths = []
+    for i in range(2):
+        path = os.path.join(workdir, f"series{i}.nii")
+        nifti.save(path, rng.standard_normal((91, 109, 91, CLI_T)).astype(
+            np.float32))
+        paths.append(path)
+    cfg_path = os.path.join(workdir, "config4d.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    out = os.path.join(workdir, "pred4d.csv")
+    with contextlib.redirect_stdout(io.StringIO()):
+        serving.main(paths + ["--config", cfg_path, "--checkpoint", ckpt,
+                              "--output", out])
+    with open(out) as f:
+        rows = f.read().strip().splitlines()
+    series = np.stack([v for _, _, v in _collect_volume_jobs(
+        paths, True, sequence=True)])
+    _, want = predictor(series)
+    got = np.array([[float(p) for p in r.split(",")[3:]] for r in rows[1:]])
+    if ([r.split(",")[:2] for r in rows[1:]] != [[p, "-1"] for p in paths]
+            or got.shape != want.shape
+            or np.abs(got - want).max() > PROB_ATOL):
+        raise AssertionError(f"the 4D CLI wrote {rows}")
+    log(phase, f"(e) batch CLI on two series of T {CLI_T}: rows "
+        f"{[r.split(',')[1:3] for r in rows[1:]]}, max diff vs Predictor "
+        f"{float(np.abs(got - want).max()):.3e}")
+
+    # HTTP: /healthz and one POST of a series.
+    server, batcher = make_server(predictor, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as resp:
+            health = json.loads(resp.read())
+        with open(paths[0], "rb") as f:
+            req = urllib.request.Request(url + "/predict", data=f.read(),
+                                         method="POST")
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            status, rows = resp.status, json.loads(resp.read())["rows"]
+    finally:
+        server.shutdown()
+        batcher.stop()
+        thread.join(timeout=60)
+        server.server_close()
+    diff = float(np.abs(np.array(rows[0]["probs"]) - want[0]).max())
+    log(phase, f"(e) /healthz {health}; POST series0: {status}, rows "
+        f"{rows}, max diff vs Predictor {diff:.3e}")
+    if (health.get("is_4d") is not True or status != 200 or len(rows) != 1
+            or rows[0]["timepoint"] != -1 or diff > PROB_ATOL):
+        raise AssertionError("4D HTTP serving")
+    del predictor
+
+    # --quant int8 on the same checkpoint: K10-K13 only.
+    q8 = Predictor.from_checkpoint(cfg, ckpt, batch_size=2, device="cuda",
+                                   quant="int8")
+    forwards = _count_forwards(q8.model.volume_encoder.vit3d)
+    for fn in counters.values():
+        fn.launches = 0
+    _, got = q8(seqs)
+    int8 = {name: fn.launches for name, fn in counters.items()}
+    _check_counts("4D int8 serving", int8,
+                  _want(INT8_KERNELS, depth * forwards[0], counters))
+    diff = float(np.abs(got - probs).max())
+    log(phase, f"(e) --quant int8: {got.tolist()}, max diff vs bf16 "
+        f"{diff:.3e} (tol {INT8_ATOL}); launches {int8}")
+    if diff > INT8_ATOL:
+        raise AssertionError(f"4D int8 serving differs by {diff}")
+    return {name: launches[name] + int8[name] for name in counters}
+
+
+def kernel_counters() -> dict:
+    """Each kernel's wrapper, whose ``launches`` counts its launches, by
+    the kernel's name."""
+    from neurovit_tpu_torch.ops import (dropout, flash_attention, fused_mlp,
+                                        fused_outproj, fused_qkv, int8_gemm,
+                                        int8_serving, maxpool3d)
+    return {
         "flash_attention": flash_attention.flash_attention_cuda,
         "fused_ln_qkv": fused_qkv.fused_ln_qkv_cuda,
         "fused_outproj_residual": fused_outproj.fused_outproj_residual_cuda,
@@ -2671,6 +3206,38 @@ def main() -> int:
         "gemm_int8": int8_gemm.gemm_int8_cuda,
         "dynquant_matmul": int8_gemm.dynquant_matmul_cuda,
     }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script runs the "
+              "port on the card only", file=sys.stderr)
+        return 1
+    from neurovit_tpu_torch.config import load_config
+    from neurovit_tpu_torch.ops import _build
+    from neurovit_tpu_torch.serving import Predictor
+    from neurovit_tpu_torch.models import NeuroEncoder
+
+    # The plain versions' f32 matmuls are the reference: no TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    log("device", f"nvidia-smi: {card}; torch: {kind}, "
+        f"{torch.cuda.device_count()} device(s), torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    lib = _build.build()
+    _build.library()
+    log("build", f"{lib.name} in {time.perf_counter() - t0:.1f} s")
+    build_notes(lib)
+
+    kernel_stats = kernel_phase(card)
+    torch.cuda.empty_cache()
+
+    counters = kernel_counters()
     widths_phase(card)
     torch.cuda.empty_cache()
     probe_stats, probe_launches = probes_phase(card, counters)
@@ -2720,6 +3287,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         resnet_launches = resnet_phase(config, workdir, card, counters)
         torch.cuda.empty_cache()
+        fourd_launches = fourd_phase(workdir, card, counters)
+        torch.cuda.empty_cache()
         widths_model_phase(config, workdir, counters)
 
     launches.update({name: int8_launches[name] for name in INT8_KERNELS})
@@ -2727,6 +3296,8 @@ def main() -> int:
     launches.update({name: gradcam_launches[name]
                      for name in GRADCAM_KERNELS})
     launches.update({name: resnet_launches[name] for name in RESNET_KERNELS})
+    for name, n in fourd_launches.items():
+        launches[name] += n
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[name],

@@ -24,7 +24,8 @@ from neurovit_tpu_torch.config import get_config
 from neurovit_tpu_torch.data import get_datasets
 from neurovit_tpu_torch.models.neuro_encoder import NeuroEncoder, not_ported
 from neurovit_tpu_torch.training import MetricLogger, Trainer
-from neurovit_tpu_torch.training.checkpoint import load_checkpoint
+from neurovit_tpu_torch.training.checkpoint import (
+    load_checkpoint, load_pretrained_volume_encoder)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -70,11 +71,22 @@ def resolve_device(args: argparse.Namespace) -> torch.device:
 
 
 def build(config, device: torch.device):
-    """Datasets and a seeded model on ``device`` (root main.py:28-45)."""
+    """Datasets and a seeded model on ``device`` (root main.py:28-45). A 4D
+    model's frozen volume encoder is bootstrapped from the 3D checkpoint
+    at ``BEST_MODEL_PATH`` when that file exists."""
     np.random.seed(config["TRAINING_SEED"])
     torch.manual_seed(config["TRAINING_SEED"])
     dataset_train, dataset_val = get_datasets(config)
     model = NeuroEncoder(config, device=device)
+    if model.is_4d:
+        best = os.path.join(config["GLOBAL_BASE_PATH"],
+                            config["BEST_MODEL_PATH"])
+        if os.path.exists(best):
+            load_pretrained_volume_encoder(model, best)
+            print(f"Loaded frozen volume encoder from {best}")
+        else:
+            print(f"WARNING: BEST_MODEL_PATH {best} not found; "
+                  f"4D volume encoder starts from random init")
     return dataset_train, dataset_val, model
 
 

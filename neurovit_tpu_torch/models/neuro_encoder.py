@@ -1,8 +1,7 @@
-"""NeuroEncoder, 3D mode (the ViT or the ResNet volume encoder), for
+"""NeuroEncoder, 3D and 4D (the ViT or the ResNet volume encoder), for
 serving and training.
 
-Counterpart of ``neurovit_tpu/models/neuro_encoder.py`` for ``TRAINING_DIM:
-3``:
+Counterpart of ``neurovit_tpu/models/neuro_encoder.py``:
 
 - ``num_classes``: (grid / cube)^3 for the synthetic ``gradcam`` dataset,
   else 2 (neuro_encoder.py:50-51);
@@ -23,6 +22,17 @@ Counterpart of ``neurovit_tpu/models/neuro_encoder.py`` for ``TRAINING_DIM:
   ``train=False`` uses; the ResNet has no dropout;
 - everything is trainable in 3D (``trainable_mask``, ``param_count``,
   neuro_encoder.py:240-258);
+- 4D (``TRAINING_DIM: 4``, neuro_encoder.py:156-238): ``forward`` takes
+  [B, H, W, D, T] sequences. ``encode_sequence`` folds T into the batch
+  and runs the volume encoder frozen (``requires_grad_(False)``), in eval
+  and under ``torch.no_grad()`` on all B·T volumes in one call, giving f32
+  encodings [B, T, num_classes]; ``apply_features`` casts them to the
+  compute dtype, runs ``models.temporal``'s layer (dropout
+  ``MODEL_TEMPORAL_DROPOUT``, default 0.1, when ``train``), takes the mean
+  over T in f32 and applies the projection, giving f32 logits. The frozen
+  encoder is not trainable (``trainable_mask``). ``encoder`` stands in for
+  the ViT in ``encode_sequence`` (the trainer's int8 copy,
+  ``TRAINING_4D_ENCODER_QUANT``);
 - Grad-CAM of the ViT (neuro_encoder.py:143-179, 262-268): ``probe`` is
   ``apply`` with a ``probe_shift``, returning the logits and the last
   block's attention-LN activation; ``get_attention_map`` and
@@ -44,6 +54,9 @@ import torch
 from torch import nn as tnn
 
 from neurovit_tpu_torch.models.resnet3d import ResNet3D, ResNetConfig
+from neurovit_tpu_torch.models.temporal import (ProjectionHead,
+                                                TemporalConfig,
+                                                TemporalTransformer)
 from neurovit_tpu_torch.models.vit3d import ViT3D, ViTConfig
 
 
@@ -85,7 +98,8 @@ class ResNet3DEncoder(tnn.Module):
 
 
 class NeuroEncoder(tnn.Module):
-    """[B, H, W, D] volumes -> f32 logits [B, num_classes].
+    """[B, H, W, D] volumes (3D) or [B, H, W, D, T] sequences (4D) -> f32
+    logits [B, num_classes].
 
     Parameters are drawn from ``torch.Generator().manual_seed(seed)``
     (default ``TRAINING_SEED``) on the CPU and copied to ``device``, so a
@@ -95,8 +109,7 @@ class NeuroEncoder(tnn.Module):
                  seed: Optional[int] = None):
         super().__init__()
         self.config = config
-        if int(config.get("TRAINING_DIM", 3)) == 4:
-            raise not_ported("4D mode (TRAINING_DIM: 4)", "4D")
+        self.is_4d = int(config.get("TRAINING_DIM", 3)) == 4
         self.encoder_kind = config.get("MODEL_VOLUME_ENCODER", "vit")
         if self.encoder_kind not in ("vit", "resnet"):
             raise ValueError(f"unknown MODEL_VOLUME_ENCODER "
@@ -142,22 +155,89 @@ class NeuroEncoder(tnn.Module):
         else:
             self.volume_encoder = ViT3DEncoder(self.vit_cfg, device=device)
             self.volume_encoder.vit3d.reset_parameters(gen)
+        if self.is_4d:
+            # The reference leaves torch's default 0.1 on the temporal layer
+            # whatever TRAINING_DROPOUT says (neuro_encoder.py:113-119).
+            self.temporal_cfg = TemporalConfig(
+                d_model=self.num_classes, nhead=2, num_layers=1,
+                dropout=float(config.get("MODEL_TEMPORAL_DROPOUT", 0.1)))
+            self.temporal_transformer = TemporalTransformer(
+                self.temporal_cfg, device=device)
+            self.temporal_transformer.reset_parameters(gen)
+            self.projection_head = ProjectionHead(
+                self.num_classes, self.num_classes, device=device)
+            self.projection_head.reset_parameters(gen)
+            self.frozen_encoder.requires_grad_(False)
 
-    def forward(self, volumes: torch.Tensor, *, train: bool = False,
-                seed: Optional[int] = None) -> torch.Tensor:
-        """``train=True`` applies the ViT's dropout keyed by the step's
-        ``seed``, or the ResNet's batch statistics."""
+    @property
+    def frozen_encoder(self) -> tnn.Module:
+        """The volume encoder's module (``volume_encoder`` or
+        ``resnet_3d``), frozen in 4D."""
+        return (self.resnet_3d if self.encoder_kind == "resnet"
+                else self.volume_encoder)
+
+    def encode_volume(self, volumes: torch.Tensor, *, train: bool = False,
+                      seed: Optional[int] = None,
+                      encoder: Optional[ViT3D] = None) -> torch.Tensor:
+        """[B, H, W, D] -> f32 logits [B, num_classes] of the volume
+        encoder (neuro_encoder.py:143-154); ``encoder`` replaces the ViT."""
         x = volumes.permute(0, 3, 1, 2)[:, None]      # [B, 1, D, H, W]
         if self.encoder_kind == "resnet":
             return self.resnet_3d.resnet(x.to(self.compute_dtype),
                                          train=train)
-        return self.volume_encoder.vit3d(x.to(self.compute_dtype),
-                                         train=train, seed=seed)
+        vit = encoder if encoder is not None else self.volume_encoder.vit3d
+        return vit(x.to(self.compute_dtype), train=train, seed=seed)
+
+    def forward(self, volumes: torch.Tensor, *, train: bool = False,
+                seed: Optional[int] = None,
+                encoder: Optional[ViT3D] = None) -> torch.Tensor:
+        """3D: [B, H, W, D] volumes; ``train=True`` applies the ViT's
+        dropout keyed by the step's ``seed``, or the ResNet's batch
+        statistics. 4D: [B, H, W, D, T] sequences through the frozen
+        encoder (``encoder`` in place of the ViT), then the temporal head,
+        its dropout keyed by ``seed`` when ``train``."""
+        if not self.is_4d:
+            return self.encode_volume(volumes, train=train, seed=seed,
+                                      encoder=encoder)
+        return self.apply_features(
+            self.encode_sequence(volumes, encoder=encoder), train=train,
+            seed=seed)
+
+    def encode_sequence(self, x: torch.Tensor, *,
+                        encoder: Optional[ViT3D] = None) -> torch.Tensor:
+        """[B, H, W, D, T] -> f32 encodings [B, T, num_classes]: every
+        timepoint through the frozen volume encoder in eval, all B·T
+        volumes in one call, recording no autograd graph
+        (neuro_encoder.py:188-218). Deterministic, so a static 4D dataset's
+        encodings are the same every epoch (the feature cache's premise)."""
+        b, h, w, d, t = x.shape
+        vols = x.to(self.compute_dtype).permute(0, 4, 1, 2, 3).reshape(
+            b * t, h, w, d)
+        with torch.no_grad():
+            enc = self.encode_volume(vols, encoder=encoder)
+        return enc.float().reshape(b, t, self.num_classes)
+
+    def apply_features(self, enc: torch.Tensor, *, train: bool = False,
+                       seed: Optional[int] = None) -> torch.Tensor:
+        """Encodings [B, T, num_classes] (fresh or cached) -> f32 logits
+        [B, num_classes]: the temporal layer in the compute dtype, the mean
+        over T summed in f32 (``jnp.mean`` of bf16), the projection
+        (neuro_encoder.py:220-238)."""
+        rate = self.temporal_cfg.dropout if train else 0.0
+        if rate and seed is None:
+            raise ValueError("dropout in training needs a seed")
+        x = self.temporal_transformer(enc.to(self.compute_dtype), rate,
+                                      seed if rate else 0)
+        pooled = x.float().mean(dim=1).to(x.dtype)
+        return self.projection_head(pooled).float()
 
     def trainable_mask(self) -> Dict[str, bool]:
-        """Parameter name -> trainable. In 3D every parameter is
-        (neuro_encoder.py:240-249: only the 4D frozen encoder is not)."""
-        return {name: True for name, _ in self.named_parameters()}
+        """Parameter name -> trainable: everything in 3D; in 4D all but
+        the frozen volume encoder (neuro_encoder.py:240-249)."""
+        frozen = ("resnet_3d." if self.encoder_kind == "resnet"
+                  else "volume_encoder.")
+        return {name: not (self.is_4d and name.startswith(frozen))
+                for name, _ in self.named_parameters()}
 
     def param_count(self) -> Tuple[int, int]:
         """(total, trainable) parameter counts (the trainer's banner)."""
@@ -174,6 +254,8 @@ class NeuroEncoder(tnn.Module):
         if self.encoder_kind != "vit":
             raise ValueError("the attention probe is the ViT's; the ResNet's "
                              "CAMs are explainability.gradcam_resnet's")
+        if self.is_4d:
+            raise ValueError("the attention probe takes 3D volumes")
         x = volumes.permute(0, 3, 1, 2)[:, None]      # [B, 1, D, H, W]
         return self.volume_encoder.vit3d.probe(x.to(self.compute_dtype),
                                                probe_shift)

@@ -1,10 +1,11 @@
 """Batched inference serving for NeuroEncoder checkpoints, on the card.
 
-Counterpart of ``neurovit_tpu/serving.py`` (3D checkpoints): a
-``Predictor`` loads a checkpoint once and serves any request size through
-a fixed set of batch buckets -- full ``batch_size`` chunks stream through,
-the tail routes to the smallest bucket that fits and is padded by
-repeating its last volume (the padding is thrown away).
+Counterpart of ``neurovit_tpu/serving.py``: a ``Predictor`` loads a
+checkpoint once and serves any request size through a fixed set of batch
+buckets -- full ``batch_size`` chunks stream through, the tail routes to
+the smallest bucket that fits and is padded by repeating its last volume
+(the padding is thrown away). A 4D checkpoint serves whole sequences: a
+request is [N, H, W, D, T] and a bucket counts sequences.
 
     predictor = Predictor.from_checkpoint(config, "best_model.pkl")
     labels, probs = predictor(volumes)          # [N, H, W, D] -> [N], [N, C]
@@ -119,7 +120,8 @@ class Predictor:
         return self.batch_size
 
     def __call__(self, volumes: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-        """volumes [N, H, W, D] -> (labels [N], probabilities [N, C]).
+        """volumes [N, H, W, D] (3D) or sequences [N, H, W, D, T] (4D) ->
+        (labels [N], probabilities [N, C]).
 
         At most two chunks are in flight: chunk i+1 is staged in pinned host
         memory, copied without blocking and its forward enqueued before
@@ -171,10 +173,14 @@ class Predictor:
             probs_out[s:s + real] = out[:real].numpy()
         return probs_out.argmax(axis=1), probs_out
 
-    def warmup(self) -> None:
+    def warmup(self, seq_len: Optional[int] = None) -> None:
         """Run every bucket once ahead of the first request: builds the
-        kernels and warms the allocator."""
+        kernels and warms the allocator. A 4D model warms sequences of
+        ``seq_len`` timepoints (default 1; pass the deployment's T,
+        serving.py:245-252)."""
         base = (self.model.config["TRAINING_VIT_INPUT_SIZE"],) * 3
+        if self.model.is_4d:
+            base = base + (seq_len if seq_len is not None else 1,)
         for bucket in self.bucket_sizes:
             self(np.zeros((bucket,) + base, np.float32))
 
@@ -183,12 +189,17 @@ class Predictor:
 # Batch-prediction CLI: NIfTI files in -> CSV of predictions out
 # --------------------------------------------------------------------------
 
-def _collect_volume_jobs(inputs, crop: bool):
+def _collect_volume_jobs(inputs, crop: bool, sequence: bool = False):
     """Expand inputs (dirs / .nii(.gz) files / a manifest CSV with a
-    Path_fMRI_brain column) into (path, timepoint, volume) samples: one
-    [H, W, D] volume per (file, timepoint), with the ADNI preprocessing
-    (crop [1:, 10:-9, 1:] + per-volume z-score) when ``crop``, else the raw
-    volume z-scored (neurovit_tpu/serving.py:261-305, 3D mode)."""
+    Path_fMRI_brain column) into (path, timepoint, volume) samples
+    (neurovit_tpu/serving.py:261-305).
+
+    3D (default): one [H, W, D] volume per (file, timepoint), with the ADNI
+    preprocessing (crop [1:, 10:-9, 1:] + per-volume z-score) when
+    ``crop``, else the raw volume z-scored. ``sequence`` (4D checkpoints):
+    one whole [H, W, D, T] series per file, cropped on the spatial axes and
+    z-scored over the whole 4D array (the 4D dataset's preprocessing),
+    yielded as (path, -1, series); a 3D file is a series of T = 1."""
     import glob
 
     from neurovit_tpu_torch.data import nifti
@@ -208,6 +219,13 @@ def _collect_volume_jobs(inputs, crop: bool):
             paths.append(inp)
     for path in paths:
         img = nifti.load(nifti.readable_path(path))
+        if sequence:
+            box = img.dataobj[1:, 10:-9, 1:] if crop else img.dataobj[...]
+            box = np.asarray(box, np.float32)
+            if box.ndim == 3:
+                box = box[..., None]
+            yield path, -1, (box - box.mean()) / (box.std() + 1e-8)
+            continue
         n_t = img.shape[3] if len(img.shape) == 4 else 1
         for t in range(n_t):
             box = img.dataobj[..., t] if len(img.shape) == 4 else img.dataobj
@@ -243,10 +261,11 @@ def _prefetch_jobs(jobs, depth: int):
         yield item
 
 
-def _default_batch_size() -> int:
-    """Batch when --batch-size is omitted: the JAX CLI's 3D default of 128
-    (neurovit_tpu/serving.py:336-352), not yet measured on the card."""
-    return 128
+def _default_batch_size(is_4d: bool) -> int:
+    """Batch when --batch-size is omitted, the JAX CLI's defaults
+    (neurovit_tpu/serving.py:336-352): 128 volumes in 3D, 2 sequences in
+    4D (each [H, W, D, T] series is 200-400 MB on the host)."""
+    return 2 if is_4d else 128
 
 
 def predictor_from_cli_args(parser, args, config) -> "Predictor":
@@ -263,8 +282,9 @@ def predictor_from_cli_args(parser, args, config) -> "Predictor":
     buckets = (() if args.buckets == "" else
                None if args.buckets is None else
                tuple(int(b) for b in args.buckets.split(",")))
+    is_4d = int(config.get("TRAINING_DIM", 3)) == 4
     batch_size = (args.batch_size if args.batch_size is not None
-                  else _default_batch_size())
+                  else _default_batch_size(is_4d))
     return Predictor.from_checkpoint(
         config, ckpt_path, batch_size=batch_size,
         host_transfer_dtype="bf16" if args.host_bf16 else None,
@@ -299,7 +319,8 @@ def add_serving_args(parser) -> None:
 def main(argv=None) -> None:
     """``python -m neurovit_tpu_torch.serving``: batch inference over NIfTI
     files -- directories, explicit files or a manifest CSV -- one
-    prediction row per (file, timepoint) into --output."""
+    prediction row per (file, timepoint) into --output; a 4D checkpoint
+    gives one row per file, its timepoint -1."""
     import argparse
     import csv
 
@@ -312,7 +333,8 @@ def main(argv=None) -> None:
                              "manifest CSV (Path_fMRI_brain column)")
     parser.add_argument("--output", default="predictions.csv")
     parser.add_argument("--batch-size", type=int, default=None,
-                        help="largest batch (default 128)")
+                        help="largest batch (default 128; 2 sequences "
+                             "for a 4D checkpoint)")
     parser.add_argument("--no-crop", action="store_true",
                         help="skip the ADNI crop [1:, 10:-9, 1:] "
                              "(volumes already at model size)")
@@ -323,7 +345,9 @@ def main(argv=None) -> None:
     predictor = predictor_from_cli_args(parser, args, config)
 
     # Stream batch-sized chunks through the predictor: host memory stays
-    # bounded at batch_size volumes whatever the manifest's length.
+    # bounded at batch_size volumes whatever the manifest's length. A 4D
+    # checkpoint serves whole series; series of another T flush first.
+    sequence = predictor.model.is_4d
     n_rows = 0
     writer = None
     chunk_meta, chunk_vols = [], []
@@ -344,10 +368,12 @@ def main(argv=None) -> None:
         chunk_vols.clear()
 
     with open(args.output, "w", newline="") as f:
-        jobs = _collect_volume_jobs(args.inputs, crop=not args.no_crop)
-        for path, t, vol in _prefetch_jobs(jobs, depth=predictor.batch_size):
+        jobs = _collect_volume_jobs(args.inputs, crop=not args.no_crop,
+                                    sequence=sequence)
+        for path, t, vol in _prefetch_jobs(
+                jobs, depth=2 if sequence else predictor.batch_size):
             if chunk_vols and vol.shape != chunk_vols[0].shape:
-                flush(f)          # a new spatial shape: its own batch
+                flush(f)          # a new shape (or T): its own batch
             chunk_meta.append((path, t))
             chunk_vols.append(vol)
             if len(chunk_vols) == predictor.batch_size:

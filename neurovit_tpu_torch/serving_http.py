@@ -14,7 +14,9 @@ Endpoints:
   GET  /healthz            liveness + model/bucket metadata (JSON)
   POST /predict[?crop=0]   body = one NIfTI (.nii or gzipped .nii.gz);
                            response = one JSON row per (file, timepoint),
-                           with the batch CLI's ADNI preprocessing.
+                           with the batch CLI's ADNI preprocessing; a 4D
+                           checkpoint answers one row, timepoint -1, for
+                           the whole series.
 """
 
 from __future__ import annotations
@@ -119,10 +121,11 @@ class MicroBatcher:
         self._thread.join()
 
 
-def _decode_nifti_jobs(body: bytes, crop: bool
+def _decode_nifti_jobs(body: bytes, crop: bool, sequence: bool = False
                        ) -> List[Tuple[int, np.ndarray]]:
     """Parse one POSTed NIfTI body into (timepoint, volume) samples with
-    the batch CLI's preprocessing, through a temp file into
+    the batch CLI's preprocessing (per timepoint, or with ``sequence`` the
+    whole series as timepoint -1), through a temp file into
     serving._collect_volume_jobs. Gzipped bodies decompress in memory (a
     temp ``.nii.gz`` per request would grow the decompressed-file cache)."""
     if body[:2] == _GZ_MAGIC:
@@ -133,7 +136,7 @@ def _decode_nifti_jobs(body: bytes, crop: bool
         with os.fdopen(fd, "wb") as f:
             f.write(body)
         return [(t, vol) for _, t, vol in
-                _collect_volume_jobs([path], crop=crop)]
+                _collect_volume_jobs([path], crop=crop, sequence=sequence)]
     finally:
         os.unlink(path)
 
@@ -146,6 +149,7 @@ def make_server(predictor: Predictor, host: str = "127.0.0.1",
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
     batcher = MicroBatcher(predictor, window=window)
+    sequence = bool(predictor.model.is_4d)
 
     class Handler(BaseHTTPRequestHandler):
 
@@ -163,7 +167,7 @@ def make_server(predictor: Predictor, host: str = "127.0.0.1",
                 return
             self._send(200, {
                 "status": "ok",
-                "is_4d": False,
+                "is_4d": sequence,
                 "batch_size": predictor.batch_size,
                 "buckets": list(predictor.bucket_sizes),
                 "quant": predictor.quant,
@@ -182,7 +186,7 @@ def make_server(predictor: Predictor, host: str = "127.0.0.1",
                 return
             body = self.rfile.read(length)
             try:
-                jobs = _decode_nifti_jobs(body, crop=crop)
+                jobs = _decode_nifti_jobs(body, crop=crop, sequence=sequence)
             except Exception as exc:
                 self._send(400, {"error": f"unreadable NIfTI: {exc}"})
                 return
@@ -224,7 +228,8 @@ def main(argv=None) -> None:
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--batch-size", type=int, default=None,
-                        help="largest coalesced batch (default 128)")
+                        help="largest coalesced batch (default 128; 2 "
+                             "sequences for a 4D checkpoint)")
     parser.add_argument("--window", type=float, default=0.005,
                         help="micro-batch coalescing window in seconds")
     parser.add_argument("--no-warmup", action="store_true",

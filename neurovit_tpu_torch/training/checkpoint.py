@@ -11,7 +11,9 @@ Counterpart of ``neurovit_tpu/training/checkpoint.py``:
   (checkpoint.py:89-94, the reference's ``Trainer.py:54``);
 - :func:`load_checkpoint`: the inference load (``load_variables_file``,
   checkpoint.py:116; the reference's main.py:166-170), ``strict=False`` by
-  default.
+  default;
+- :func:`load_pretrained_volume_encoder`: the 4D bootstrap
+  (checkpoint.py:97-105), a 3D run's ViT weights into the frozen encoder.
 
 The JAX package's asynchronous Orbax save has no counterpart yet.
 """
@@ -61,3 +63,14 @@ def load_checkpoint(model: tnn.Module, path: str, strict: bool = False):
     ``strict=False`` skips missing and unknown keys; a shape mismatch
     raises either way. Returns torch's (missing_keys, unexpected_keys)."""
     return model.load_state_dict(sd.load(path), strict=strict)
+
+
+def load_pretrained_volume_encoder(model: tnn.Module, path: str):
+    """4D bootstrap (checkpoint.py:97-105, the reference's
+    NeuroEncoder.py:25-32): load only the ``volume_encoder.vit3d.`` keys of
+    the state-dict file at ``path`` (the port's or the JAX package's) into
+    ``model``, ``strict=False``; a shape mismatch raises. Returns torch's
+    (missing_keys, unexpected_keys)."""
+    weights = {k: v for k, v in sd.load(path).items()
+               if k.startswith(sd.PREFIX)}
+    return model.load_state_dict(weights, strict=False)

@@ -15,7 +15,10 @@ same weights. It takes the ViT's params pytree or the ResNet's
 its Linear head is transposed, and its BatchNorm running stats fill the
 ``nn.BatchNorm3d`` buffers (the keys of
 ``neurovit_tpu/training/state_dict.py:107-157``), with a
-``num_batches_tracked`` of 0 as JAX's ``to_state_dict`` writes it.
+``num_batches_tracked`` of 0 as JAX's ``to_state_dict`` writes it. A 4D
+model's ``temporal`` and ``projection`` subtrees go across with either
+encoder, under ``temporal_transformer.`` and ``projection_head.``
+(state_dict.py:80-104).
 """
 
 from __future__ import annotations
@@ -60,6 +63,40 @@ _BLOCK: List[Tuple[str, Tuple[str, ...], bool]] = [
 ]
 
 
+# The 4D head (state_dict.py:80-104): the temporal layer under
+# temporal_transformer.transformer.layers.0. and the projection.
+_TEMPORAL_LAYER = "temporal_transformer.transformer.layers.0."
+_TEMPORAL: List[Tuple[str, Tuple[str, ...], bool]] = [
+    (_TEMPORAL_LAYER + "self_attn.in_proj_weight",
+     ("temporal", "layer0", "in_proj", "kernel"), True),
+    (_TEMPORAL_LAYER + "self_attn.in_proj_bias",
+     ("temporal", "layer0", "in_proj", "bias"), False),
+    (_TEMPORAL_LAYER + "self_attn.out_proj.weight",
+     ("temporal", "layer0", "out_proj", "kernel"), True),
+    (_TEMPORAL_LAYER + "self_attn.out_proj.bias",
+     ("temporal", "layer0", "out_proj", "bias"), False),
+    (_TEMPORAL_LAYER + "linear1.weight",
+     ("temporal", "layer0", "fc1", "kernel"), True),
+    (_TEMPORAL_LAYER + "linear1.bias",
+     ("temporal", "layer0", "fc1", "bias"), False),
+    (_TEMPORAL_LAYER + "linear2.weight",
+     ("temporal", "layer0", "fc2", "kernel"), True),
+    (_TEMPORAL_LAYER + "linear2.bias",
+     ("temporal", "layer0", "fc2", "bias"), False),
+    (_TEMPORAL_LAYER + "norm1.weight",
+     ("temporal", "layer0", "norm1", "scale"), False),
+    (_TEMPORAL_LAYER + "norm1.bias",
+     ("temporal", "layer0", "norm1", "bias"), False),
+    (_TEMPORAL_LAYER + "norm2.weight",
+     ("temporal", "layer0", "norm2", "scale"), False),
+    (_TEMPORAL_LAYER + "norm2.bias",
+     ("temporal", "layer0", "norm2", "bias"), False),
+    ("projection_head.projection_head.weight", ("projection", "kernel"),
+     True),
+    ("projection_head.projection_head.bias", ("projection", "bias"), False),
+]
+
+
 def _get(tree: Dict[str, Any], path: Tuple[str, ...]) -> np.ndarray:
     for p in path:
         tree = tree[p]
@@ -77,8 +114,9 @@ def from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     The ResNet's variables (``{"params": {"volume_encoder": ...}, "state":
     {"volume_encoder": ...}}``): see :func:`_resnet_state_dict`."""
     if "params" in params:
-        return _resnet_state_dict(params["params"]["volume_encoder"],
-                                  params["state"]["volume_encoder"])
+        out = _resnet_state_dict(params["params"]["volume_encoder"],
+                                 params["state"]["volume_encoder"])
+        return {**out, **_temporal_state_dict(params["params"])}
     vit = params["volume_encoder"]
     blocks = vit["blocks"]
     depth = np.asarray(blocks["qkv"]["kernel"]).shape[0]
@@ -87,7 +125,15 @@ def from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         for key, path, t in _BLOCK:
             out[f"{PREFIX}transformer.layers.{i}.{key}"] = _tensor(
                 _get(blocks, path)[i], t)
-    return out
+    return {**out, **_temporal_state_dict(params)}
+
+
+def _temporal_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The 4D head's entries when ``params`` has its ``temporal`` and
+    ``projection`` subtrees (a 4D model), else none; kernels transposed."""
+    if "temporal" not in params:
+        return {}
+    return {key: _tensor(_get(params, path), t) for key, path, t in _TEMPORAL}
 
 
 def _bn(key: str, params: Dict[str, Any], state: Dict[str, Any]

@@ -1,5 +1,5 @@
-"""Trainer: the 3D ViT's and the 3D ResNet's train and eval loops on one
-device.
+"""Trainer: the ViT's and the ResNet's train and eval loops, 3D and 4D, on
+one device.
 
 Counterpart of ``neurovit_tpu/training/trainer.py`` (the reference's
 ``src/Trainer.py``), on the fused kernels:
@@ -27,16 +27,29 @@ as the JAX trainer's ``model_state`` does under ``optax.MultiSteps``; they
 are buffers of the model, so the train state, the weight files and
 ``--resume`` carry them, and eval and ``--inference`` normalize by them.
 
+4D (a ``TRAINING_DIM: 4`` model, trainer.py:101-126, 188-195, 272-310,
+460-509): the frozen volume encoder records no graph and is neither
+updated nor decayed (the optimizer holds only ``requires_grad``
+parameters); sequences are never z-major and are not padded; with
+``TRAINING_4D_ENCODER_QUANT: int8`` the encoder's forward runs on an int8
+copy of the ViT (``models.vit3d.quantize_blocks`` of a deep copy, made
+here and again after ``restore``), outside the model's ``state_dict()``, so
+checkpoints keep the f32 encoder; ``TRAINING_4D_FEATURE_CACHE`` trains on
+features encoded once (``training.feature_cache``, persisted under
+``TRAINING_4D_FEATURE_CACHE_DIR``), drawing the same per-step seeds as the
+volume path.
+
 The model's device is the trainer's. The ViT's kernels take bf16 only, so
 its ``TRAINING_PRECISION: f32`` runs on the CPU (the plain path) and is
 refused on CUDA; the ResNet's pool kernels take f32 and its convs are
-cuDNN's, so it trains in f32 on either. 4D, the feature cache, a mesh of more than one device, the
-asynchronous checkpoint and ``TRAINING_PROFILE_STEPS`` are not ported yet
-and raise, naming their ROADMAP item.
+cuDNN's, so it trains in f32 on either. A mesh of more than one device,
+the asynchronous checkpoint and ``TRAINING_PROFILE_STEPS`` are not ported
+yet and raise, naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
+import copy
 import datetime
 import os
 import signal
@@ -61,13 +74,11 @@ def check_supported(config: Dict[str, Any], device: torch.device) -> None:
     """Raise for the training options the port does not run yet, and for
     values the JAX trainer rejects."""
     # As neurovit_tpu/training/trainer.py:109-112, in 3D too; "int8" acts
-    # only on a 4D model, which NeuroEncoder refuses until the 4D slice.
+    # only on a 4D model.
     quant4d = config.get("TRAINING_4D_ENCODER_QUANT")
     if quant4d not in (None, "", "none", "int8"):
         raise ValueError(f"unknown TRAINING_4D_ENCODER_QUANT {quant4d!r} "
                          "(supported: 'int8')")
-    if config.get("TRAINING_4D_FEATURE_CACHE", False):
-        raise not_ported("the 4D feature cache", "4D")
     if (int(config.get("MESH_MODEL_AXIS", 1)) > 1
             or int(config.get("MESH_DATA_AXIS", -1)) not in (-1, 1)):
         raise not_ported("a mesh of more than one device", "multi-GPU")
@@ -123,6 +134,19 @@ class Trainer:
                 "TRAINING_PRECISION: bf16 (with f32 compute the host cast "
                 "would lose precision the device path keeps)")
 
+        # TRAINING_4D_ENCODER_QUANT: int8 (trainer.py:109-126): the frozen
+        # encoder's forward on an int8 copy; the model keeps its weights.
+        self._quant4d = (config.get("TRAINING_4D_ENCODER_QUANT") == "int8"
+                         and model.is_4d)
+        if self._quant4d and model.encoder_kind != "vit":
+            raise ValueError("TRAINING_4D_ENCODER_QUANT supports the ViT "
+                             "volume encoder only")
+        self._q8_encoder = self._quantized_encoder()
+        self._seed = seed
+        self._use_feature_cache = (bool(config.get(
+            "TRAINING_4D_FEATURE_CACHE", False)) and model.is_4d)
+        self._feature_cache = None
+
         self.optimizer = Optimizer(config, model.parameters(),
                                    steps_per_epoch=max(1, len(self.dataloader)))
         self._plateau = config.get("TRAINING_LR_SCHEDULE") == "plateau"
@@ -145,6 +169,13 @@ class Trainer:
               f"of size {self.batch_size}")
         print("=" * 50)
 
+    def _quantized_encoder(self):
+        """The int8 copy of the ViT the 4D encoder runs on, or None."""
+        if not self._quant4d:
+            return None
+        from neurovit_tpu_torch.models.vit3d import quantize_blocks
+        return quantize_blocks(copy.deepcopy(self.model.volume_encoder.vit3d))
+
     # ------------------------------------------------------------------
     # steps
     # ------------------------------------------------------------------
@@ -163,19 +194,28 @@ class Trainer:
         self.model.train()
         seed = int(torch.randint(0, SEED_HIGH, (1,),
                                  generator=self.generator))
-        logits = self.model(self._model_volume(batch["volume"], zyx),
-                            train=True, seed=seed)
+        logits = self._logits(batch, zyx, train=True, seed=seed)
         loss, correct, count = nn.masked_mean_ce(logits, batch["label"],
                                                  batch["valid"])
         loss.backward()
         self.optimizer.step()
         return {"loss": loss.detach(), "correct": correct, "count": count}
 
+    def _logits(self, batch: Dict[str, torch.Tensor], zyx: bool,
+                train: bool = False, seed: Optional[int] = None):
+        """The model on a volume batch, or its temporal head on a batch of
+        cached [B, T, C] features (they ride the ``volume`` key)."""
+        if batch["volume"].dim() == 3:
+            return self.model.apply_features(batch["volume"], train=train,
+                                             seed=seed)
+        return self.model(self._model_volume(batch["volume"], zyx),
+                          train=train, seed=seed, encoder=self._q8_encoder)
+
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, torch.Tensor], zyx: bool = False
                   ) -> Dict[str, torch.Tensor]:
         self.model.eval()
-        logits = self.model(self._model_volume(batch["volume"], zyx))
+        logits = self._logits(batch, zyx)
         loss, correct, count = nn.masked_mean_ce(logits, batch["label"],
                                                  batch["valid"])
         return {"loss": loss, "correct": correct, "count": count,
@@ -189,9 +229,11 @@ class Trainer:
                     ) -> Tuple[Dict[str, torch.Tensor], bool]:
         """The arrays the steps consume, as CPU tensors (pinned when the
         device is a GPU). z-major batches ship their raw [B, Z, Y, X]
-        buffer (loader.stack_volumes); bf16 host transfer casts it here."""
+        buffer (loader.stack_volumes); bf16 host transfer casts it here,
+        as it does cached [B, T, C] features (the rounding apply_features'
+        cast to the compute dtype would make)."""
         vol = batch["volume"]
-        zyx = bool(batch.get("zyx", False))
+        zyx = bool(batch.get("zyx", False)) and not self.model.is_4d
         ship = vol.transpose(0, 3, 2, 1) if zyx else np.asarray(vol,
                                                                 np.float32)
         volume = torch.from_numpy(np.ascontiguousarray(ship, np.float32))
@@ -237,6 +279,8 @@ class Trainer:
         plateau counters."""
         state = ckpt.load_train_state(path)
         self.model.load_state_dict(state["model"])
+        self._q8_encoder = self._quantized_encoder()
+        self._feature_cache = None       # encoded again from these weights
         self.optimizer.load_state_dict(state["optimizer"])
         self.epoch = int(state["epoch"])
         self.generator.set_state(state["generator"])
@@ -314,12 +358,59 @@ class Trainer:
         finally:
             restore_handlers()
 
+    def _ensure_feature_cache(self) -> None:
+        """Build the 4D feature cache and its loaders on first use
+        (trainer.py:460-515). With ``TRAINING_4D_FEATURE_CACHE_DIR`` each
+        split's view is persisted under its fingerprint and reloaded when
+        the fingerprint matches; otherwise it is encoded again."""
+        if not self._use_feature_cache or self._feature_cache is not None:
+            return
+        from neurovit_tpu_torch.training import feature_cache
+        cache_dir = self.config.get("TRAINING_4D_FEATURE_CACHE_DIR")
+        views = {}
+        for split, ds in (("train", self.data), ("val", self.val_data)):
+            path = fp = None
+            if cache_dir:
+                os.makedirs(cache_dir, exist_ok=True)
+                path = os.path.join(cache_dir, f"feats_{split}.npz")
+                fp = feature_cache.fingerprint(self.model.frozen_encoder,
+                                               self._quant4d, ds)
+                views[split] = feature_cache.load_view(path, fp)
+                if views[split] is not None:
+                    print(f"[4D FEATURE CACHE] loaded persisted {split} "
+                          f"cache ({len(views[split])} sequences, "
+                          f"fingerprint {fp})")
+                    continue
+            views[split] = feature_cache.precompute(
+                self.model, ds, batch_size=self.batch_size,
+                num_workers=self.num_workers, host_bf16=self._host_bf16,
+                encoder=self._q8_encoder)
+            if path:
+                feature_cache.save_view(path, views[split], fp)
+        self._feature_cache = views
+        self._feat_dataloader = DataLoader(
+            views["train"], self.batch_size, shuffle=True,
+            num_workers=self.num_workers, seed=self._seed)
+        self._feat_val_dataloader = DataLoader(
+            views["val"], self.batch_size, shuffle=False,
+            num_workers=self.num_workers, seed=self._seed)
+
+    def _loader(self, train: bool):
+        """The cached features' loader once the cache is built, else the
+        volumes'."""
+        self._ensure_feature_cache()
+        if self._feature_cache is not None:
+            return (self._feat_dataloader if train
+                    else self._feat_val_dataloader)
+        return self.dataloader if train else self.val_dataloader
+
     def train(self, epoch: int) -> None:
-        self.dataloader.set_epoch(epoch)
+        loader = self._loader(train=True)
+        loader.set_epoch(epoch)
         running: list = []
         start_time = time.time()
         for i, (batch, zyx, _) in enumerate(
-                self._device_prefetch(self.dataloader)):
+                self._device_prefetch(loader)):
             if self._preempt_requested:
                 break                    # run() saves the preempt state
             running.append(self.train_step(batch, zyx))
@@ -343,10 +434,11 @@ class Trainer:
                 start_time = time.time()
 
     def validate(self, epoch: int) -> None:
+        loader = self._loader(train=False)
         losses, correct, total = [], 0.0, 0.0
         i = -1
         for i, (batch, zyx, _) in enumerate(
-                self._device_prefetch(self.val_dataloader)):
+                self._device_prefetch(loader)):
             m = self.eval_step(batch, zyx)
             losses.append(float(m["loss"]))
             correct += float(m["correct"])

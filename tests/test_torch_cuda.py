@@ -1774,3 +1774,124 @@ def test_flash_attention_past_65535_heads(cuda):
     kw = {"scale": 0.25, "n_valid": 15, "dropout_rate": 0.1, "seed": 48}
     _fwd_both_layouts(q, k, v, kw)
     _bwd_both_layouts(q, k, v, do, kw)
+
+
+# The 4D path: the frozen ViT over B·T volumes, the temporal head, the
+# int8 encoder and the ResNet encoder, at the smoke model's widths (dim
+# 64, 4 heads of 16, MLP 128, depth 2) on 20^3 volumes.
+
+FOURD_BF16 = (fa.flash_attention_cuda, fused_qkv.fused_ln_qkv_cuda,
+              fused_outproj.fused_outproj_residual_cuda,
+              fused_mlp.fused_mlp_block_cuda)
+FOURD_BWD = (fa.flash_attention_bwd_cuda, fused_qkv.fused_ln_qkv_bwd_cuda,
+             fused_outproj.fused_outproj_bwd_cuda, fused_mlp.fused_mlp_bwd_cuda)
+FOURD_INT8 = (int8_serving.int8_ln_qkv_cuda,
+              int8_serving.int8_outproj_residual_cuda,
+              int8_serving.int8_mlp_block_cuda,
+              int8_serving.int8_flash_attention_cuda)
+
+
+def _fourd_config(**extra):
+    from neurovit_tpu_torch.config import load_config
+    return load_config(overrides={
+        "TRAINING_VIT_INPUT_SIZE": 20, "TRAINING_VIT_PATCH_SIZE": 5,
+        "TRAINING_DIM": 4, "DATASET_NAME": "adni4D", "MODEL_VIT_DIM": 64,
+        "MODEL_VIT_DEPTH": 2, "MODEL_VIT_HEADS": 4, "MODEL_VIT_DIM_HEAD": 16,
+        "MODEL_VIT_MLP_DIM": 128, "TRAINING_PRECISION": "bf16", **extra})
+
+
+def _launches(fns):
+    return [fn.launches for fn in fns]
+
+
+def _fourd_pair(cuda, **extra):
+    from neurovit_tpu_torch.models import NeuroEncoder
+    config = _fourd_config(**extra)
+    model = NeuroEncoder(config, device=cuda, seed=3)
+    cpu = NeuroEncoder(config, device="cpu", seed=3)
+    return model, cpu
+
+
+def _fourd_seqs(b=2, t=5):
+    x = np.random.default_rng(t).standard_normal((b, 20, 20, 20, t))
+    for i in range(t):
+        x[:, 2 + 2 * i:10 + 2 * i, 4:12, 4:12, i] += 3.0
+    return torch.tensor(x, dtype=torch.float32)
+
+
+def test_fourd_train_step_launches_no_backward_kernel(cuda):
+    """A 4D train step on the card: K1-K4 once per block in the encoder's
+    one call on B·T volumes, no backward kernel, no gradient on the frozen
+    encoder; the logits against the CPU plain path (5e-2 of the largest)."""
+    model, cpu = _fourd_pair(cuda)
+    x = _fourd_seqs()
+    fwd, bwd = _launches(FOURD_BF16), _launches(FOURD_BWD)
+    logits = model(x.to(cuda), train=True, seed=5)
+    logits.square().sum().backward()
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_launches(FOURD_BF16), fwd)] == [2] * 4
+    assert _launches(FOURD_BWD) == bwd
+    assert all(p.grad is None for p in model.volume_encoder.parameters())
+    assert model.projection_head.projection_head.weight.grad is not None
+    with torch.no_grad():
+        got, want = model(x.to(cuda)).cpu(), cpu(x)
+    assert (got - want).abs().max() <= 5e-2 * want.abs().max()
+
+
+def test_fourd_encodings_equal_the_3d_forward(cuda):
+    """encode_sequence on the card equals the 3D model's forward on the
+    same B·T volumes, bit for bit."""
+    from neurovit_tpu_torch.models import NeuroEncoder
+    model, _ = _fourd_pair(cuda)
+    model3d = NeuroEncoder(_fourd_config(TRAINING_DIM=3), device=cuda, seed=3)
+    x = _fourd_seqs().to(cuda)
+    b, t = x.shape[0], x.shape[-1]
+    with torch.no_grad():
+        flat = model3d(x.permute(0, 4, 1, 2, 3).reshape(b * t, 20, 20, 20))
+    assert torch.equal(model.encode_sequence(x).reshape(b * t, -1), flat)
+
+
+def test_fourd_head_f32_matches_cpu(cuda):
+    """The temporal layer and projection at f32 on the card against the CPU
+    plain path within 1e-3, with dropout (the same Philox bits)."""
+    model, cpu = _fourd_pair(cuda, TRAINING_PRECISION="f32")
+    enc = torch.randn(2, 7, 2, generator=torch.Generator().manual_seed(0))
+    for train in (False, True):
+        got = model.apply_features(enc.to(cuda), train=train, seed=11)
+        want = cpu.apply_features(enc, train=train, seed=11)
+        assert (got.detach().cpu() - want.detach()).abs().max() <= 1e-3
+
+
+def test_fourd_int8_encoder_runs_the_int8_kernels(cuda):
+    """The trainer's int8 copy of the encoder: K10-K13, never K1-K4; its
+    features within 5e-2 relative error of the bf16 encoder's."""
+    import copy
+    from neurovit_tpu_torch.models.vit3d import quantize_blocks
+    model, _ = _fourd_pair(cuda)
+    q8 = quantize_blocks(copy.deepcopy(model.volume_encoder.vit3d))
+    x = _fourd_seqs().to(cuda)
+    fwd, i8 = _launches(FOURD_BF16), _launches(FOURD_INT8)
+    got = model.encode_sequence(x, encoder=q8)
+    torch.cuda.synchronize()
+    assert _launches(FOURD_BF16) == fwd
+    assert [a - b for a, b in zip(_launches(FOURD_INT8), i8)] == [2] * 4
+    want = model.encode_sequence(x)
+    assert float((got - want).norm() / want.norm()) < 5e-2
+
+
+def test_fourd_resnet_encoder_launches_k14(cuda):
+    """The ResNet-10 as the 4D encoder: one K14 per forward, no K15, the
+    probabilities against the CPU plain path within 2e-2."""
+    model, cpu = _fourd_pair(cuda, MODEL_VOLUME_ENCODER="resnet",
+                             MODEL_RESNET_DEPTH=10)
+    x = _fourd_seqs(1, 4)
+    pool, pool_bwd = (maxpool3d.max_pool3d_argmax_cuda,
+                      maxpool3d.max_pool3d_argmax_bwd_cuda)
+    before = (pool.launches, pool_bwd.launches)
+    got = torch.softmax(model(x.to(cuda), train=True, seed=1), -1)
+    got.sum().backward()
+    torch.cuda.synchronize()
+    assert (pool.launches, pool_bwd.launches) == (before[0] + 1, before[1])
+    with torch.no_grad():
+        want = torch.softmax(cpu(x), -1)
+    assert (got.detach().cpu() - want).abs().max() <= 2e-2

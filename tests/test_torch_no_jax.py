@@ -65,6 +65,10 @@ def test_every_module_imports_with_jax_blocked():
         "logits = model(torch.from_numpy(batch['volume']), train=True)\n"
         "logits.sum().backward()\n"
         "assert logits.shape == (2, 8)\n"
+        "model = NeuroEncoder(dict(config, TRAINING_DIM=4), device='cpu')\n"
+        "seq = torch.from_numpy(batch['volume'])[..., None].repeat("
+        "1, 1, 1, 1, 3)\n"
+        "assert model(seq, train=True, seed=1).shape == (2, 8)\n"
         "loaded = [m for m in sys.modules if m == 'jax' or m == "
         "'neurovit_tpu' or m.startswith(('jax.', 'neurovit_tpu.'))]\n"
         "assert not [m for m in loaded if sys.modules[m] is not None], "
@@ -74,6 +78,8 @@ def test_every_module_imports_with_jax_blocked():
         "assert 'neurovit_tpu_torch.explainability.driver_smri' in names\n"
         "assert 'neurovit_tpu_torch.ops.dropout' in names\n"
         "assert 'neurovit_tpu_torch.ops.int8_gemm' in names\n"
+        "assert 'neurovit_tpu_torch.models.temporal' in names\n"
+        "assert 'neurovit_tpu_torch.training.feature_cache' in names\n"
         "import importlib.util\n"
         "def script(name):\n"
         "    spec = importlib.util.spec_from_file_location(\n"
@@ -159,6 +165,13 @@ def test_cpu_path_launches_no_kernel():
     from neurovit_tpu_torch.explainability.gradcam_resnet import resnet_cam
     cam, _ = resnet_cam(resnet, rng.standard_normal((16, 16, 16)))
     assert cam.shape == (16, 16, 16)
+    # A 4D model's train forward and backward, plain and int8 encoders.
+    model4d = NeuroEncoder(dict(config, TRAINING_DIM=4), device="cpu")
+    model4d(t(2, 10, 10, 10, 3), train=True, seed=1).sum().backward()
+    from neurovit_tpu_torch.models.vit3d import quantize_blocks
+    import copy
+    q8 = quantize_blocks(copy.deepcopy(model4d.volume_encoder.vit3d))
+    model4d(t(1, 10, 10, 10, 2), encoder=q8)
     # The probes' ops: K16 forward and backward, K17 and K18.
     xd = t(3, 40).requires_grad_()
     dropout.dropout(xd, 0.1, 7).sum().backward()

@@ -213,7 +213,7 @@ def test_plateau_halves_the_lr_after_patience(tiny_config):
 
 
 @pytest.mark.parametrize("extra,item", [
-    ({"TRAINING_4D_FEATURE_CACHE": True}, "4D"),
+    ({"MESH_DATA_AXIS": 2}, "multi-GPU"),
     ({"MESH_MODEL_AXIS": 2}, "multi-GPU"),
     ({"TRAINING_PROFILE_STEPS": 3}, "train step, profile steps"),
     ({"TRAINING_ASYNC_CHECKPOINT": True}, "train step, async checkpoint"),

@@ -121,7 +121,7 @@ def test_seeded_init_is_deterministic_and_pytorch_distributed():
 
 
 @pytest.mark.parametrize("extra,item", [
-    ({"TRAINING_DIM": 4}, "4D"),
+    ({"TRAINING_DIM": 4, "TRAINING_REMAT": True}, "train step"),
     ({"MESH_PIPE_AXIS": 2}, "multi-GPU"),
     ({"MODEL_VIT_PATCH_EMBED": "conv"}, "odds and ends"),
     ({"TRAINING_REMAT": True}, "train step"),

@@ -206,9 +206,10 @@ def test_head_dim_instances():
 
 
 def test_head_dim_below_8_runs_the_plain_attention():
-    """The 4D temporal layer's head dim 1: the plain attention, as JAX's
-    dense path for D < 8 (flash_attention.py:517-520), here forward and
-    backward with dropout."""
+    """Head dims below 8 take the plain attention on every device, where
+    JAX's flash_attention takes its dense path (flash_attention.py:517-520),
+    here forward and backward with dropout. (The 4D temporal layer, head dim
+    1, has an attention of its own: models/temporal.py.)"""
     rng = np.random.default_rng(1)
     q, k, v = (torch.from_numpy(rng.standard_normal((2, 5, 2, 1)).astype(
         np.float32)).requires_grad_() for _ in range(3))
