@@ -129,7 +129,31 @@ Phases, each printing a line; any failure raises and exits non-zero:
 14. counts     in phase 12, every bf16 forward kernel launched depth times
                per forward and every backward kernel depth times per
                backward
-15. resnet     the full-width ResNet-18 (the config with
+15. train_features
+               the flagship width (dim 1024, 8 heads of 64, MLP
+               2048, 1001 tokens, bf16): (a) remat: a train step at
+               batch 128, dropout 0.1, without TRAINING_REMAT, again
+               without, and with it on the same weights, batch and seed:
+               the remat step's loss and every parameter gradient equal
+               the first step's where the two steps without remat are
+               bit-equal, else within their largest gap; each step's
+               launches (K1-K4 2 x depth - 1 times with remat, depth
+               without; each backward kernel depth times); step ms
+               (median of 5 after 3 warm-ups) and peak memory with and
+               without remat; (b) Trainer.run() of 6 steps at batch 8
+               with TRAINING_PROFILE_STEPS 2: the Chrome trace under
+               GLOBAL_OUTPUT_DIR/profile names every CUDA kernel of
+               K1-K5 and K7-K9; (c) two epochs twice on the same seeds,
+               with TRAINING_ASYNC_CHECKPOINT and without: both epochs'
+               train states and weight files equal tensor for tensor,
+               and each run's epoch times; (d) main(["--sweep", ...]) in
+               this process: SWEEP_COUNT 2 at depth 2 on a synthetic
+               gradcam set under a GLOBAL_BASE_PATH holding
+               configs/sweep.yaml with epochs cut to [1], two trials with
+               finite val_loss, their parameters those of run_sweep on
+               the CPU at the seed, card memory after trial 2 within 5 %
+               of after trial 1
+16. resnet     the full-width ResNet-18 (the config with
                MODEL_VOLUME_ENCODER: resnet, bf16, seed 42) saved with
                torch.save and served by Predictor (requests of 1, 3 and 32
                against single calls and the CPU plain path) and one HTTP
@@ -145,7 +169,7 @@ Phases, each printing a line; any failure raises and exits non-zero:
                their latency at batch 1 and 8 by CUDA events; K14 launched
                once per forward and K15 once per backward, and K15 never in
                a CAM
-16. 4d         configs/config4D.yaml (the flagship ViT frozen, seed 42)
+17. 4d         configs/config4D.yaml (the flagship ViT frozen, seed 42)
                on seeded [90^3, 140] series, 4 train and 2 val at batch 2,
                accumulation 2: (a) Trainer.run() for 2 epochs, the encoder
                bit-unchanged, the head moved, K1-K4 depth times per
@@ -168,7 +192,7 @@ Phases, each printing a line; any failure raises and exits non-zero:
                encoder, the encoder's share, peak memory, profiler splits;
                (g) the ResNet-18 encoder in 4D at B 1 x T 8, one K14, its
                encodings and the logits against the CPU plain path
-17. widths     the verify recipe's smoke model (dim 64, 4 heads of 16)
+18. widths     the verify recipe's smoke model (dim 64, 4 heads of 16)
                trained for an epoch in bf16 on cuda through the CLI's main(),
                every block kernel launched; a ViT-B-width model (768, 12 x
                64, 3072, depth 4) served by Predictor against the CPU plain
@@ -195,6 +219,7 @@ non-zero before printing either.
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import os
@@ -3177,6 +3202,406 @@ def fourd_serving(cfg, ckpt: str, seqs: np.ndarray, workdir: str,
     return {name: launches[name] + int8[name] for name in counters}
 
 
+# ---------------------------------------------------------------------------
+# train_features: remat, profile steps, async checkpoints and the sweep
+# ---------------------------------------------------------------------------
+
+# The CUDA kernels (the sources' __global__ functions) that each block
+# kernel's wrapper launches in a train step at dropout 0.1; the profiled
+# window's trace must name every one. K3 is one launch of K4's
+# fc2_residual pass, so its name is K4's.
+TRACE_NAMES = {
+    "flash_attention": ["flash_fwd_kernel"],
+    "fused_ln_qkv": ["ln_rows_kernel", "qkv_gemm_kernel"],
+    "fused_outproj_residual": ["fc2_residual_kernel"],
+    "fused_mlp_block": ["ln_rows_kernel", "fc1_gelu_kernel",
+                        "fc2_residual_kernel"],
+    "flash_attention_bwd": ["flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel"],
+    "fused_ln_qkv_bwd": ["row_stats_kernel", "du_kernel", "ln_bwd_kernel",
+                         "colsum_kernel"],
+    "fused_outproj_bwd": ["dz_rows_kernel", "dattn_kernel"],
+    "fused_mlp_bwd": ["dz_rows_kernel", "hidden_kernel", "du_kernel",
+                      "ln_bwd_kernel", "colsum_kernel"],
+}
+# The sweep's card memory after its second trial against after its first.
+SWEEP_MEMORY_RTOL = 0.05
+
+
+def _reset(counters: dict) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def _read(counters: dict, total: dict) -> dict:
+    """The counts since the last _reset, also added into ``total``."""
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for name, n in launches.items():
+        total[name] += n
+    return launches
+
+
+def _step_launches(counters: dict, forwards: int, backwards: int) -> dict:
+    """A ViT train run's counts: K1-K4 ``forwards`` times, K5 and K7-K9
+    ``backwards`` times, nothing else."""
+    return {name: forwards if name in BF16_BLOCK_KERNELS
+            else backwards if name in BACKWARD_KERNELS else 0
+            for name in counters}
+
+
+def _grad_step(trainer, batch, zyx) -> tuple:
+    """One Trainer.train_step; returns its loss and every parameter's
+    gradient as the optimizer got them, both copied to the host."""
+    grads = {}
+    opt_step = trainer.optimizer.step
+
+    def capture():
+        for name, p in trainer.model.named_parameters():
+            grads[name] = p.grad.detach().cpu()
+        return opt_step()
+
+    trainer.optimizer.step = capture
+    try:
+        loss = trainer.train_step(batch, zyx)["loss"].detach().cpu()
+    finally:
+        del trainer.optimizer.step       # the class's method again
+    return loss, grads
+
+
+def _timed_steps(trainer, batch, zyx, warmup: int = 3, runs: int = 5
+                 ) -> tuple:
+    """Median step ms of ``runs`` after ``warmup`` steps, all the times,
+    and the peak memory of those steps in GiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(warmup + runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(batch, zyx)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return (float(np.median(times)), [round(t, 2) for t in times],
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _max_gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def _equal_states(a, b, where: str = "") -> None:
+    """Two loaded checkpoints hold equal values, tensors bit for bit."""
+    if isinstance(a, torch.Tensor):
+        if not (isinstance(b, torch.Tensor) and a.shape == b.shape
+                and a.dtype == b.dtype and torch.equal(a, b)):
+            raise AssertionError(f"{where} differs")
+    elif isinstance(a, dict):
+        if a.keys() != b.keys():
+            raise AssertionError(f"{where}: keys differ")
+        for k in a:
+            _equal_states(a[k], b[k], f"{where}/{k}")
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"{where}: lengths differ")
+        for i, (x, y) in enumerate(zip(a, b)):
+            _equal_states(x, y, f"{where}/{i}")
+    elif a != b:
+        raise AssertionError(f"{where}: {a!r} != {b!r}")
+
+
+def _remat_part(config, workdir: str, card: str, counters: dict,
+                total: dict) -> None:
+    """(a) The flagship at batch 128, dropout 0.1, one seed: a train step
+    without remat, again without, and with remat. The remat step's loss
+    and gradients equal the first step's wherever the two steps without
+    remat are bit-equal, else within their largest gap; step ms and peak
+    memory with and without remat; K1-K4 depth - 1 more launches a step."""
+    from neurovit_tpu_torch.models import NeuroEncoder
+    from neurovit_tpu_torch.training import Trainer
+
+    phase = "train_features"
+    batch_size = 128
+    base = _train_config(config, workdir, TRAINING_BATCH_SIZE=batch_size)
+    size = base["TRAINING_VIT_INPUT_SIZE"]
+    ds = _SeededVolumes(batch_size, size, SEED + 4, "remat")
+    runs, timing, batch = {}, {}, None
+    for name, remat in (("plain", False), ("again", False), ("remat", True)):
+        gc.collect()        # no earlier trainer's tensors in the peak
+        cfg = dict(base, TRAINING_REMAT=remat)
+        model = NeuroEncoder(cfg, device="cuda", seed=SEED)
+        depth = model.vit_cfg.depth
+        trainer = Trainer(cfg, model, ds, ds)
+        if batch is None:
+            batch, zyx, _ = next(trainer._device_prefetch(
+                trainer.val_dataloader))
+        _reset(counters)
+        runs[name] = _grad_step(trainer, batch, zyx)
+        torch.cuda.synchronize()
+        _check_counts(f"{phase} (a) {name} step", _read(counters, total),
+                      _step_launches(counters, (2 * depth - 1) if remat
+                                     else depth, depth))
+        if name != "again":
+            _reset(counters)
+            timing[name] = _timed_steps(trainer, batch, zyx)
+            _check_counts(f"{phase} (a) {name} timed steps",
+                          _read(counters, total),
+                          _step_launches(counters, 8 * ((2 * depth - 1)
+                                                        if remat else depth),
+                                         8 * depth))
+        del trainer, model
+    (loss0, g0), (loss1, g1), (loss_r, g_r) = (runs["plain"], runs["again"],
+                                               runs["remat"])
+    gaps = {k: _max_gap(g0[k], g1[k]) for k in g0}
+    worst = max(gaps.values())
+    bit_equal = [k for k, gap in gaps.items() if gap == 0]
+    if g_r.keys() != g0.keys():
+        raise AssertionError("remat changed the set of gradients")
+    for k in g0:
+        gap = _max_gap(g_r[k], g0[k])
+        if (gaps[k] == 0 and not torch.equal(g_r[k], g0[k])) or gap > worst:
+            raise AssertionError(
+                f"remat gradient {k} is {gap} from the step without remat "
+                f"(two steps without remat: {gaps[k]}, largest {worst})")
+    if abs(float(loss_r) - float(loss0)) > abs(float(loss1) - float(loss0)):
+        raise AssertionError(f"remat loss {loss_r} against {loss0}, {loss1}")
+    log(phase, f"(a) remat at batch {batch_size}, dropout {DROPOUT}: loss "
+        f"{float(loss_r):.6f} (without remat {float(loss0):.6f}, "
+        f"{float(loss1):.6f}); {len(bit_equal)} of {len(g0)} gradients "
+        f"bit-equal between the two steps without remat, the remat step's "
+        f"equal to them there and within the largest gap ({worst:.3e}) "
+        f"elsewhere")
+    for name in ("plain", "remat"):
+        ms, times, peak = timing[name]
+        log(phase, f"(a) {name}: step {ms:.2f} ms median of 5 (all "
+            f"{times}), {batch_size / ms * 1e3:.1f} vol/s, peak memory "
+            f"{peak:.2f} GiB; {card}")
+    log(phase, f"(a) remat costs {timing['remat'][0] / timing['plain'][0]:.3f}"
+        f"x the step and saves "
+        f"{timing['plain'][2] - timing['remat'][2]:.2f} GiB of peak memory")
+
+
+def _trace_kernel_names(prof_dir: str) -> set:
+    """The CUDA kernel names in the one Chrome trace under ``prof_dir``."""
+    import glob
+    files = glob.glob(os.path.join(prof_dir, "*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"expected one trace in {prof_dir}: {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    return {e.get("name", "") for e in events
+            if str(e.get("cat", "")).lower() == "kernel"}
+
+
+def _profile_part(config, workdir: str, counters: dict, total: dict
+                  ) -> None:
+    """(b) Trainer.run() of 6 steps at batch 8 with TRAINING_PROFILE_STEPS
+    2: the trace under GLOBAL_OUTPUT_DIR/profile names the CUDA kernels of
+    K1-K5 and K7-K9 (names, not counts: the profiler's traces lose kernel
+    records, PERF.md §7)."""
+    from neurovit_tpu_torch.models import NeuroEncoder
+    from neurovit_tpu_torch.training import Trainer
+
+    phase = "train_features"
+    cfg = _train_config(config, workdir, TRAINING_BATCH_SIZE=8,
+                        TRAINING_PROFILE_STEPS=2,
+                        GLOBAL_OUTPUT_DIR=os.path.join(workdir, "prof_runs"))
+    size = cfg["TRAINING_VIT_INPUT_SIZE"]
+    model = NeuroEncoder(cfg, device="cuda", seed=SEED)
+    depth = model.vit_cfg.depth
+    trainer = Trainer(cfg, model, _SeededVolumes(48, size, SEED + 5, "prof"),
+                      _SeededVolumes(8, size, SEED + 6, "prof_val"))
+    t0 = time.perf_counter()
+    _, launches, text = _run_trainer(trainer, counters)
+    secs = time.perf_counter() - t0
+    _read(counters, total)
+    _check_counts(f"{phase} (b)", launches,
+                  _step_launches(counters, 7 * depth, 6 * depth))
+    if "MODEL SAVED to ." not in text:
+        raise AssertionError("the profiled run saved no checkpoint")
+    names = _trace_kernel_names(os.path.join(cfg["GLOBAL_OUTPUT_DIR"],
+                                             "profile"))
+    for kernel, parts in TRACE_NAMES.items():
+        missing = [p for p in parts if not any(p in n for n in names)]
+        if missing:
+            raise AssertionError(f"the profiled window's trace names no "
+                                 f"{missing} of {kernel}")
+    log(phase, f"(b) TRAINING_PROFILE_STEPS 2: Trainer.run() of 6 steps in "
+        f"{secs:.1f} s host clock; the trace of steps 2-4 names "
+        f"{len(names)} CUDA kernels, among them every pass of K1-K5 and "
+        f"K7-K9 ({sorted(set(p for v in TRACE_NAMES.values() for p in v))})")
+    del trainer, model
+
+
+def _async_part(config, workdir: str, counters: dict, total: dict) -> None:
+    """(c) Two epochs twice on the same seeds, with
+    TRAINING_ASYNC_CHECKPOINT and without: every tensor of both epochs'
+    model-e{N} train states and weight files equal between the runs; each
+    run's epoch times."""
+    import glob
+    import shutil
+
+    from neurovit_tpu_torch.models import NeuroEncoder
+    from neurovit_tpu_torch.training import Trainer
+    from neurovit_tpu_torch.training import checkpoint as ckpt
+
+    phase = "train_features"
+    files, epoch_s = {}, {}
+    for mode in (False, True):
+        cfg = _train_config(config, workdir, TRAINING_BATCH_SIZE=8,
+                            TRAINING_EPOCHS=2,
+                            TRAINING_ASYNC_CHECKPOINT=mode,
+                            GLOBAL_OUTPUT_DIR=os.path.join(
+                                workdir, f"async_{mode}"))
+        size = cfg["TRAINING_VIT_INPUT_SIZE"]
+        model = NeuroEncoder(cfg, device="cuda", seed=SEED)
+        depth = model.vit_cfg.depth
+        trainer = Trainer(cfg, model,
+                          _SeededVolumes(16, size, SEED + 7, "async"),
+                          _SeededVolumes(8, size, SEED + 8, "async_val"))
+        starts = []
+        train = trainer.train
+
+        def timed_train(epoch, train=train, starts=starts):
+            starts.append(time.perf_counter())
+            return train(epoch)
+
+        trainer.train = timed_train
+        _, launches, _ = _run_trainer(trainer, counters)
+        starts.append(time.perf_counter())
+        del trainer.train
+        _read(counters, total)
+        _check_counts(f"{phase} (c)", launches,
+                      _step_launches(counters, 6 * depth, 4 * depth))
+        if ckpt._in_flight is not None:
+            raise AssertionError("Trainer.run() left a save in flight")
+        epoch_s[mode] = np.diff(starts).tolist()
+        files[mode] = sorted(glob.glob(os.path.join(
+            cfg["GLOBAL_OUTPUT_DIR"], "*", "model-e*")))
+        del trainer, model
+    names = [os.path.basename(f) for f in files[False]]
+    if names != ["model-e0", "model-e0.state_dict.pkl", "model-e1",
+                 "model-e1.state_dict.pkl"] or names != [
+                     os.path.basename(f) for f in files[True]]:
+        raise AssertionError(f"checkpoints {files}")
+    for sync, async_ in zip(files[False], files[True]):
+        if sync.endswith(".pkl"):
+            a, b = (torch.load(f, weights_only=True) for f in (sync, async_))
+        else:
+            a, b = (ckpt.load_train_state(f) for f in (sync, async_))
+        _equal_states(a, b, os.path.basename(sync))
+    log(phase, f"(c) two epochs of 2 steps at batch 8 with and without "
+        f"TRAINING_ASYNC_CHECKPOINT: {names} equal tensor for tensor; "
+        f"epoch seconds (train, validate, save) sync "
+        f"{[round(t, 3) for t in epoch_s[False]]}, async "
+        f"{[round(t, 3) for t in epoch_s[True]]}")
+    for mode in (False, True):
+        shutil.rmtree(os.path.join(workdir, f"async_{mode}"))
+
+
+def _sweep_part(config, workdir: str, counters: dict, total: dict) -> None:
+    """(d) ``main(["--sweep", ...])`` in this process on the card: two
+    trials at full width and depth 2 of a synthetic gradcam set, under a
+    GLOBAL_BASE_PATH holding configs/sweep.yaml with epochs cut to [1].
+    Two trials with finite val_loss, their parameters those run_sweep
+    proposes on the CPU at the seed, and card memory after trial 2 within
+    SWEEP_MEMORY_RTOL of after trial 1."""
+    import yaml
+
+    from neurovit_tpu_torch import main as port_main
+    from neurovit_tpu_torch.training.sweep import run_sweep
+
+    phase = "train_features"
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "configs", "sweep.yaml")) as f:
+        sweep_cfg = yaml.safe_load(f)
+    sweep_cfg["parameters"]["epochs"] = {"values": [1]}
+    base = os.path.join(workdir, "sweep_base")
+    os.makedirs(os.path.join(base, "configs"))
+    sweep_path = os.path.join(base, "configs", "sweep.yaml")
+    with open(sweep_path, "w") as f:
+        yaml.safe_dump(sweep_cfg, f)
+    cfg = {**config, "MODEL_VIT_DEPTH": 2, "DATASET_NAME": "gradcam",
+           "DATASET_GENERATE": False, "GRADCAM_NUM_SAMPLES": 80,
+           "GRADCAM_TRAIN_PATH": None, "GRADCAM_VAL_PATH": None,
+           "GLOBAL_BASE_PATH": base, "SWEEP_COUNT": 2,
+           "GLOBAL_OUTPUT_DIR": os.path.join(workdir, "sweep_runs")}
+    cfg_path = os.path.join(workdir, "sweep_config.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+
+    trial, after, trial_s = port_main.sweep_trial, [], []
+
+    def recorded(trial_config, device):
+        t0 = time.perf_counter()
+        metrics = trial(trial_config, device)
+        torch.cuda.synchronize()
+        trial_s.append(time.perf_counter() - t0)
+        after.append(torch.cuda.memory_allocated())
+        return metrics
+
+    before = torch.cuda.memory_allocated()
+    out = io.StringIO()
+    port_main.sweep_trial = recorded
+    _reset(counters)
+    try:
+        with contextlib.redirect_stdout(out):
+            port_main.main(["--sweep", "--wandb", "false", "--config",
+                            cfg_path])
+    finally:
+        port_main.sweep_trial = trial
+    torch.cuda.synchronize()
+    launches = _read(counters, total)
+    text = out.getvalue()
+    for line in text.splitlines():
+        if line.startswith(("[sweep]", "Sweep", "[VALIDATION]")):
+            log(phase, "(d) " + line.expandtabs(1))
+    with open(os.path.join(cfg["GLOBAL_OUTPUT_DIR"],
+                           "sweep_results.jsonl")) as f:
+        trials = [json.loads(line) for line in f]
+    if [t["trial"] for t in trials] != [0, 1] or not all(
+            np.isfinite(t["metrics"]["val_loss"]) for t in trials):
+        raise AssertionError(f"sweep results {trials}")
+    cpu_dir = os.path.join(workdir, "sweep_cpu")
+    with contextlib.redirect_stdout(io.StringIO()):
+        run_sweep(dict(cfg, GLOBAL_OUTPUT_DIR=cpu_dir),
+                  lambda _config: {"val_loss": 0.0}, sweep_path, count=2)
+    with open(os.path.join(cpu_dir, "sweep_results.jsonl")) as f:
+        want = [json.loads(line)["params"] for line in f]
+    if [t["params"] for t in trials] != want:
+        raise AssertionError(f"the card's sweep proposed "
+                             f"{[t['params'] for t in trials]}, the CPU's "
+                             f"run_sweep {want}")
+    for name in BF16_BLOCK_KERNELS + BACKWARD_KERNELS:
+        if launches[name] == 0:
+            raise AssertionError(f"the sweep launched no {name}")
+    mib = [a / 2 ** 20 for a in after]
+    log(phase, f"(d) --sweep: 2 trials in {[round(t, 1) for t in trial_s]} "
+        f"s, val_loss {[t['metrics']['val_loss'] for t in trials]}, params "
+        f"equal to the CPU run_sweep's; card memory allocated before "
+        f"{before / 2 ** 20:.1f} MiB, after each trial "
+        f"{[round(m, 1) for m in mib]} MiB; launches {launches}")
+    if abs(after[1] - after[0]) > SWEEP_MEMORY_RTOL * after[0]:
+        raise AssertionError(f"card memory grew from trial 1 to trial 2: "
+                             f"{mib} MiB")
+
+
+def train_features_phase(config, workdir: str, card: str,
+                         counters: dict) -> dict:
+    """Remat, profile steps, async checkpoints and the sweep at the flagship
+    width ((a)-(d) above); returns the phase's launch counts."""
+    t0 = time.perf_counter()
+    total = {name: 0 for name in counters}
+    _remat_part(config, workdir, card, counters, total)
+    torch.cuda.empty_cache()
+    _profile_part(config, workdir, counters, total)
+    _async_part(config, workdir, counters, total)
+    torch.cuda.empty_cache()
+    _sweep_part(config, workdir, counters, total)
+    log("train_features", f"done in {time.perf_counter() - t0:.1f} s; "
+        f"launches {total}")
+    return total
+
+
 def kernel_counters() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches, by
     the kernel's name."""
@@ -3285,6 +3710,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         train_rate_phase(config, workdir, card)
         torch.cuda.empty_cache()
+        feature_launches = train_features_phase(config, workdir, card,
+                                                counters)
+        torch.cuda.empty_cache()
         resnet_launches = resnet_phase(config, workdir, card, counters)
         torch.cuda.empty_cache()
         fourd_launches = fourd_phase(workdir, card, counters)
@@ -3297,6 +3725,8 @@ def main() -> int:
                      for name in GRADCAM_KERNELS})
     launches.update({name: resnet_launches[name] for name in RESNET_KERNELS})
     for name, n in fourd_launches.items():
+        launches[name] += n
+    for name, n in feature_launches.items():
         launches[name] += n
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": source,

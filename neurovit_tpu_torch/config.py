@@ -6,10 +6,10 @@ behaviour: ``load_config`` (config.py:140-155) reads the YAML, fills
 ``EXTRA_DEFAULTS`` (config.py:52-130) and checks it with
 ``validate_config`` (config.py:158-174, ``REQUIRED_KEYS`` config.py:39-48);
 ``get_config`` (config.py:215-227) adds the runtime keys from the CLI's
-arguments. ``default_config_path`` is still the repository's
-``configs/config.yaml``. The CLI flags are ``neurovit_tpu_torch.main``'s
-own ``parse_args``; the sweep overrides (``apply_sweep_overrides``) wait
-for the sweep (ROADMAP.md, Queue 1: train step).
+arguments; ``apply_sweep_overrides`` (config.py:27-36, 177-184) maps a
+sweep's lowercase parameter names onto the UPPERCASE keys.
+``default_config_path`` is still the repository's ``configs/config.yaml``.
+The CLI flags are ``neurovit_tpu_torch.main``'s own ``parse_args``.
 """
 
 from __future__ import annotations
@@ -19,6 +19,21 @@ import os
 from typing import Any, Dict, Optional
 
 import yaml
+
+# Map wandb-sweep parameter names (reference configs/sweep.yaml:8-25) onto the
+# UPPERCASE config keys actually read by the framework. The reference's
+# dict.update of these lowercase keys was inert (quirk: main.py:73-76).
+# TRAINING_OPTIMIZER is read by nobody: AdamW is the only optimizer.
+SWEEP_KEY_MAP = {
+    "seed": "TRAINING_SEED",
+    "num_workers": "TRAINING_NUM_WORKERS",
+    "learning_rate": "TRAINING_LEARNING_RATE",
+    "batch_size": "TRAINING_BATCH_SIZE",
+    "epochs": "TRAINING_EPOCHS",
+    "dropout": "TRAINING_DROPOUT",
+    "weight_decay": "TRAINING_WEIGHT_DECAY",
+    "optimizer": "TRAINING_OPTIMIZER",
+}
 
 # Keys every config must define to run training (subset of config.yaml keys).
 REQUIRED_KEYS = (
@@ -157,6 +172,18 @@ def validate_config(config: Dict[str, Any]) -> None:
         )
     if config["DATASET_NAME"] not in ("adni", "adni4D", "pain", "gradcam"):
         raise ValueError(f"Unknown DATASET_NAME: {config['DATASET_NAME']}")
+
+
+def apply_sweep_overrides(config: Dict[str, Any],
+                          sweep_params: Dict[str, Any]) -> Dict[str, Any]:
+    """Merge sweep parameters into a copy of ``config``, translating
+    lowercase sweep names to the UPPERCASE keys the framework reads (fixes
+    reference main.py:73-76), and validate the result."""
+    out = dict(config)
+    for key, value in sweep_params.items():
+        out[SWEEP_KEY_MAP.get(key, key)] = value
+    validate_config(out)
+    return out
 
 
 def get_config(args: argparse.Namespace) -> Dict[str, Any]:

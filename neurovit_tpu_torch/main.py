@@ -1,19 +1,24 @@
-"""Entry point of the port: train, resume, k-fold and inference.
+"""Entry point of the port: train, resume, k-fold, sweep and inference.
 
 Counterpart of the root ``main.py`` (the reference's CLI):
 
     python -m neurovit_tpu_torch.main [name] [--cuda N] [--wandb bool]
-        [--config PATH] [--resume PATH] [--folds K] [--inference]
+        [--config PATH] [--resume PATH] [--folds K] [--inference] [--sweep]
 
 It trains on ``cuda:N`` (``--cuda``, the reference's own flag, default 0)
 and never drops to the CPU: without CUDA it raises. ``--device cpu`` runs
-the plain PyTorch path on purpose (tests, debugging). ``--sweep`` is not
-ported yet and raises, naming its ROADMAP item.
+the plain PyTorch path on purpose (tests, debugging). The modes take the
+JAX CLI's order (main.py:69-124): training unless ``--inference`` or
+``--sweep`` is given, then the sweep, then inference, so ``--inference
+--sweep`` sweeps. ``--sweep`` runs ``SWEEP_COUNT`` (default 50) trials of
+``GLOBAL_BASE_PATH/configs/sweep.yaml`` (``training.sweep.run_sweep``),
+each a fresh model and ``Trainer.run``.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import os
 import warnings
 
@@ -22,7 +27,7 @@ import torch
 
 from neurovit_tpu_torch.config import get_config
 from neurovit_tpu_torch.data import get_datasets
-from neurovit_tpu_torch.models.neuro_encoder import NeuroEncoder, not_ported
+from neurovit_tpu_torch.models.neuro_encoder import NeuroEncoder
 from neurovit_tpu_torch.training import MetricLogger, Trainer
 from neurovit_tpu_torch.training.checkpoint import (
     load_checkpoint, load_pretrained_volume_encoder)
@@ -38,7 +43,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--inference", action="store_true",
                         help="Run in inference mode")
     parser.add_argument("--sweep", action="store_true",
-                        help="Run hyperparameter sweep (not ported yet)")
+                        help="Run hyperparameter sweep")
     parser.add_argument("--cuda", type=int, default=0,
                         help="CUDA device ordinal: runs on cuda:N")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -90,6 +95,21 @@ def build(config, device: torch.device):
     return dataset_train, dataset_val, model
 
 
+def sweep_trial(config, device: torch.device) -> dict:
+    """One sweep trial: datasets, model and ``Trainer.run`` for the trial's
+    config. The trial's model, optimizer and trainer are freed before the
+    next trial is built, so card memory does not grow across a sweep."""
+    ds_train, ds_val, model = build(config, device)
+    trainer = Trainer(config, model, ds_train, ds_val)
+    trainer.run()
+    metrics = {"val_loss": trainer.val_loss}
+    del trainer, model, ds_train, ds_val
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return metrics
+
+
 def main(argv=None) -> None:
     warnings.simplefilter(action="ignore", category=FutureWarning)
     args = parse_args(argv)
@@ -97,9 +117,7 @@ def main(argv=None) -> None:
     device = resolve_device(args)
     config["DEVICE"] = str(device)
 
-    if config["SWEEP"]:
-        raise not_ported("--sweep", "train step, sweep")
-    if not config["INFERENCE"]:
+    if not config["INFERENCE"] and not config["SWEEP"]:
         print("Training mode enabled.")
         folds = config.get("FOLDS", 0)
         if folds:
@@ -129,6 +147,15 @@ def main(argv=None) -> None:
             print(f"Resumed from {config['RESUME']} at epoch {trainer.epoch}")
         trainer.run()
         logger.finish()
+    elif config["SWEEP"]:
+        print("Sweep mode enabled.")
+        from neurovit_tpu_torch.training.sweep import run_sweep
+        sweep_path = os.path.join(config["GLOBAL_BASE_PATH"],
+                                  "configs/sweep.yaml")
+        # 50 trials matches the reference's wandb.agent count (main.py:157).
+        best = run_sweep(config, lambda c: sweep_trial(c, device),
+                         sweep_path, count=config.get("SWEEP_COUNT", 50))
+        print(f"Sweep finished: best={best}")
     else:
         print("Training is disabled. Inference only.")
         dataset_train, dataset_val, model = build(config, device)

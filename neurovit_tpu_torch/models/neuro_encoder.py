@@ -17,9 +17,13 @@ Counterpart of ``neurovit_tpu/models/neuro_encoder.py``:
   (neuro_encoder.py:74-84): "pv" (the default, and YAML ``on``) or "off".
   The JAX package's environment default ``NEUROVIT_INT8_ATTN`` is not read:
   the port has no environment switches;
+  ``TRAINING_REMAT`` recomputes blocks 0..depth-2 in the backward
+  (``ViTConfig.remat``, neuro_encoder.py:102); the 4D model's frozen
+  encoder records no graph, so it has nothing to recompute there;
 - ResNet: ``forward(train=True)`` normalizes by the batch statistics and
   moves the BatchNorm running stats (the JAX model's ``state``), which
-  ``train=False`` uses; the ResNet has no dropout;
+  ``train=False`` uses; the ResNet has no dropout and ignores
+  ``TRAINING_REMAT``, as JAX does;
 - everything is trainable in 3D (``trainable_mask``, ``param_count``,
   neuro_encoder.py:240-258);
 - 4D (``TRAINING_DIM: 4``, neuro_encoder.py:156-238): ``forward`` takes
@@ -121,9 +125,6 @@ class NeuroEncoder(tnn.Module):
         if self.encoder_kind == "vit":
             if config.get("MODEL_VIT_PATCH_EMBED", "auto") == "conv":
                 raise not_ported("the conv patch embed", "odds and ends")
-            if bool(config.get("TRAINING_REMAT", False)):
-                raise not_ported("remat (TRAINING_REMAT)",
-                                  "train step, remat")
         grid = config["TRAINING_VIT_INPUT_SIZE"]
         patch = config["TRAINING_VIT_PATCH_SIZE"]
         cube = config.get("GRADCAM_CUBE_SIZE", 8)
@@ -140,7 +141,8 @@ class NeuroEncoder(tnn.Module):
             channels=1, pool=config.get("MODEL_VIT_POOL", "cls"),
             dropout=float(config.get("TRAINING_DROPOUT", 0.0)),
             emb_dropout=float(config.get("TRAINING_DROPOUT", 0.0)),
-            int8_attn=int8_attn_mode(config.get("SERVING_INT8_ATTN")))
+            int8_attn=int8_attn_mode(config.get("SERVING_INT8_ATTN")),
+            remat=bool(config.get("TRAINING_REMAT", False)))
         self.resnet_cfg = ResNetConfig(
             depth=int(config.get("MODEL_RESNET_DEPTH", 18)),
             n_input_channels=1, n_classes=self.num_classes)

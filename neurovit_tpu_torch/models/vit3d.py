@@ -61,17 +61,30 @@ accumulation), which rounds once before the out-projection's f32 bias is
 added and once after (``_dense``). An int8-quantized model refuses the
 probe, as JAX does (vit3d.py:401-404).
 
-Not ported here: the pipeline path, the conv patch embed and remat (see
+**Remat** (``ViTConfig.remat``, ``TRAINING_REMAT``; vit3d.py:513-529): in
+a forward that autograd records with ``train=True``, blocks 0..depth-2 run
+under ``torch.utils.checkpoint`` (non-reentrant), so they keep no
+activations for the backward and run their forward again inside it; the
+last block runs as is, as JAX's scan wraps only the scanned blocks in
+``jax.checkpoint``. Each block's site keys are ints computed outside the
+checkpointed function, so the recompute draws the same dropout bits and
+there is no RNG state to preserve. The kernels' ``autograd.Function``s
+keep only numbers on ``ctx`` besides ``save_for_backward``, so every tensor
+they save is dropped and recomputed. Serving, the probe, eval and int8 run
+unchanged.
+
+Not ported here: the pipeline path and the conv patch embed (see
 ``NeuroEncoder``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn as tnn
+from torch.utils.checkpoint import checkpoint
 
 from neurovit_tpu_torch import nn
 from neurovit_tpu_torch.ops.attention import sdpa
@@ -124,6 +137,8 @@ class ViTConfig:
     # int8 serving's attention: "pv" runs PV in int8 (K13), "off" the bf16
     # attention (K1) between the int8 QKV and out-projection.
     int8_attn: str = "pv"
+    # Recompute blocks 0..depth-2 in the backward (training only).
+    remat: bool = False
 
     def __post_init__(self):
         if self.image_size % self.image_patch_size:
@@ -344,14 +359,28 @@ class Transformer(tnn.Module):
             for _ in range(cfg.depth))
 
     def forward(self, x: torch.Tensor, rate: float = 0.0,
-                seed: int = 0, depth: Optional[int] = None) -> torch.Tensor:
+                seed: int = 0, depth: Optional[int] = None,
+                remat: bool = False) -> torch.Tensor:
         """``rate`` > 0: dropout with the site keys of step ``seed``.
-        ``depth`` runs only the first ``depth`` blocks."""
+        ``depth`` runs only the first ``depth`` blocks. ``remat``: every
+        block but the stack's last runs under non-reentrant
+        ``checkpoint``."""
+        last = len(self.layers) - 1
         for i, (attn, ff) in enumerate(self.layers[:depth]):
             s = [nn.site_seed(seed, 1 + 4 * i + j) if rate else 0
                  for j in range(4)]
-            x = ff(attn(x, rate, (s[0], s[1])), rate, (s[2], s[3]))
+            if remat and i < last:
+                x = checkpoint(_block, attn, ff, x, rate, s,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = _block(attn, ff, x, rate, s)
         return x
+
+
+def _block(attn: tnn.Module, ff: tnn.Module, x: torch.Tensor, rate: float,
+           s: Sequence[int]) -> torch.Tensor:
+    """One block, attention then MLP, with its four site keys ``s``."""
+    return ff(attn(x, rate, (s[0], s[1])), rate, (s[2], s[3]))
 
 
 class ViT3D(tnn.Module):
@@ -423,7 +452,9 @@ class ViT3D(tnn.Module):
         if train and cfg.emb_dropout:
             x = nn.dropout(x, cfg.emb_dropout, nn.site_seed(seed, 0))
         x = self.transformer(x, cfg.dropout if train else 0.0,
-                             seed if train and cfg.dropout else 0)
+                             seed if train and cfg.dropout else 0,
+                             remat=(train and cfg.remat
+                                    and torch.is_grad_enabled()))
         return self._head(x)
 
     def probe(self, volume: torch.Tensor, probe_shift: torch.Tensor

@@ -13,9 +13,15 @@ Counterpart of ``neurovit_tpu/training/trainer.py`` (the reference's
 - the reference's log lines: every 10% of batches, per-epoch validation,
   ``evaluate_samples`` (trainer.py:556-559, 593-594, 647-648);
 - checkpoints each epoch (full train state + the weights pickle) and the
-  rolling ``last_model``; SIGTERM / SIGINT save the train state at the next
-  batch boundary (trainer.py:361-404); the plateau schedule
-  (trainer.py:600-613);
+  rolling ``last_model``, the train state's write overlapping the next
+  epoch with ``TRAINING_ASYNC_CHECKPOINT`` (trainer.py:423-441; the run's
+  exit, ``restore`` and the preempt save wait for it); SIGTERM / SIGINT
+  save the train state at the next batch boundary (trainer.py:361-404);
+  the plateau schedule (trainer.py:600-613);
+- ``TRAINING_PROFILE_STEPS`` = n > 0 traces steps 2 .. 2 + n of epoch 0
+  with ``torch.profiler`` into ``GLOBAL_OUTPUT_DIR/profile``
+  (trainer.py:524-545); an epoch or a preemption that ends the loop first
+  stops the trace there (JAX leaves it running);
 - batches go one ahead to the device from pinned memory with
   ``non_blocking`` copies (trainer.py:444-458); the z-major volume layout is
   transposed on the device (trainer.py:227-234); with
@@ -42,13 +48,13 @@ volume path.
 The model's device is the trainer's. The ViT's kernels take bf16 only, so
 its ``TRAINING_PRECISION: f32`` runs on the CPU (the plain path) and is
 refused on CUDA; the ResNet's pool kernels take f32 and its convs are
-cuDNN's, so it trains in f32 on either. A mesh of more than one device,
-the asynchronous checkpoint and ``TRAINING_PROFILE_STEPS`` are not ported
-yet and raise, naming their ROADMAP item.
+cuDNN's, so it trains in f32 on either. A mesh of more than one device is
+not ported yet and raises, naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import datetime
 import os
@@ -66,6 +72,7 @@ from neurovit_tpu_torch.models.neuro_encoder import NeuroEncoder, not_ported
 from neurovit_tpu_torch.training import checkpoint as ckpt
 from neurovit_tpu_torch.training.metrics import MetricLogger
 from neurovit_tpu_torch.training.optim import Optimizer
+from neurovit_tpu_torch.utils import profiling
 
 SEED_HIGH = 2 ** 63 - 1
 
@@ -82,17 +89,11 @@ def check_supported(config: Dict[str, Any], device: torch.device) -> None:
     if (int(config.get("MESH_MODEL_AXIS", 1)) > 1
             or int(config.get("MESH_DATA_AXIS", -1)) not in (-1, 1)):
         raise not_ported("a mesh of more than one device", "multi-GPU")
-    if int(config.get("TRAINING_PROFILE_STEPS", 0) or 0) > 0:
-        raise not_ported("TRAINING_PROFILE_STEPS (torch.profiler)",
-                          "train step, profile steps")
-    if config.get("TRAINING_ASYNC_CHECKPOINT", False):
-        raise not_ported("TRAINING_ASYNC_CHECKPOINT",
-                          "train step, async checkpoint")
     if (device.type == "cuda"
             and config.get("MODEL_VOLUME_ENCODER", "vit") == "vit"
             and config.get("TRAINING_PRECISION", "bf16") != "bf16"):
         raise not_ported("f32 compute of the ViT on CUDA (its kernels take "
-                         "bf16)", "train step, f32 on CUDA")
+                         "bf16)", "f32 on CUDA")
 
 
 class Trainer:
@@ -277,6 +278,7 @@ class Trainer:
     def restore(self, path: str) -> None:
         """Resume: weights, optimizer, epoch, the dropout seed stream and the
         plateau counters."""
+        ckpt.wait_for_async_saves()   # never read a still-writing checkpoint
         state = ckpt.load_train_state(path)
         self.model.load_state_dict(state["model"])
         self._q8_encoder = self._quantized_encoder()
@@ -324,6 +326,7 @@ class Trainer:
         if not self._preempt_requested:
             return False
         save_path = os.path.join(path, "model-preempt")
+        ckpt.wait_for_async_saves()
         ckpt.save_train_state(save_path, self._checkpoint_state(), self.model)
         print(f"PREEMPTED: train state saved to .{save_path}  "
               f"(resume with --resume {save_path})")
@@ -348,14 +351,18 @@ class Trainer:
                     return
                 self.validate(epoch)
                 self.epoch = epoch + 1
-                ckpt.save_train_state(os.path.join(path, f"model-e{epoch}"),
-                                      self._checkpoint_state(), self.model)
+                ckpt.save_train_state(
+                    os.path.join(path, f"model-e{epoch}"),
+                    self._checkpoint_state(), self.model,
+                    asynchronous=bool(
+                        self.config.get("TRAINING_ASYNC_CHECKPOINT", False)))
                 ckpt.save_last_model(self.model)
                 print(f"MODEL SAVED to .{path}/model-e{epoch}")
                 if self._preempt_requested:
                     print(f"PREEMPTED: exiting after epoch {epoch} save")
                     return
         finally:
+            ckpt.wait_for_async_saves()
             restore_handlers()
 
     def _ensure_feature_cache(self) -> None:
@@ -409,29 +416,44 @@ class Trainer:
         loader.set_epoch(epoch)
         running: list = []
         start_time = time.time()
-        for i, (batch, zyx, _) in enumerate(
-                self._device_prefetch(loader)):
-            if self._preempt_requested:
-                break                    # run() saves the preempt state
-            running.append(self.train_step(batch, zyx))
-            if i != 0 and i % self.log_interval == 0:
-                avg_loss = round(float(np.mean(
-                    [float(m["loss"]) for m in running])), 5)
-                correct = float(sum(int(m["correct"]) for m in running))
-                total = float(sum(int(m["count"]) for m in running))
-                accuracy = round(correct / max(total, 1), 5)
-                lr = round(self.optimizer.current_lr(), 5)
-                duration = time.time() - start_time
-                print(f"epoch {epoch}\t| batch {i}/{len(self.dataloader)}\t| "
-                      f"train_loss: {avg_loss:.5f}\t| train_accuracy: "
-                      f"{accuracy:.5f}\t| learning_rate: {lr:.5f}\t| "
-                      f"duration: {duration:.2f}s")
-                self.logger.log({"epoch": epoch, "batch": i,
-                                 "train_loss": avg_loss,
-                                 "train_accuracy": accuracy,
-                                 "learning_rate": lr, "duration": duration})
-                running = []
-                start_time = time.time()
+        profile_steps = (int(self.config.get("TRAINING_PROFILE_STEPS", 0)
+                             or 0) if epoch == 0 else 0)
+        with contextlib.ExitStack() as window:
+            for i, (batch, zyx, _) in enumerate(
+                    self._device_prefetch(loader)):
+                if self._preempt_requested:
+                    break                # run() saves the preempt state
+                if profile_steps and i == 2:
+                    window.enter_context(profiling.trace(
+                        os.path.join(self.output_dir, "profile"),
+                        cuda=self.device.type == "cuda"))
+                running.append(self.train_step(batch, zyx))
+                if profile_steps and i == 2 + profile_steps:
+                    window.close()
+                    profile_steps = 0
+                if i != 0 and i % self.log_interval == 0:
+                    self._log_train(epoch, i, running, start_time)
+                    running = []
+                    start_time = time.time()
+
+    def _log_train(self, epoch: int, i: int, running: list,
+                   start_time: float) -> None:
+        """The reference's line every 10% of batches, over the window's
+        steps."""
+        avg_loss = round(float(np.mean([float(m["loss"]) for m in running])),
+                         5)
+        correct = float(sum(int(m["correct"]) for m in running))
+        total = float(sum(int(m["count"]) for m in running))
+        accuracy = round(correct / max(total, 1), 5)
+        lr = round(self.optimizer.current_lr(), 5)
+        duration = time.time() - start_time
+        print(f"epoch {epoch}\t| batch {i}/{len(self.dataloader)}\t| "
+              f"train_loss: {avg_loss:.5f}\t| train_accuracy: "
+              f"{accuracy:.5f}\t| learning_rate: {lr:.5f}\t| "
+              f"duration: {duration:.2f}s")
+        self.logger.log({"epoch": epoch, "batch": i, "train_loss": avg_loss,
+                         "train_accuracy": accuracy, "learning_rate": lr,
+                         "duration": duration})
 
     def validate(self, epoch: int) -> None:
         loader = self._loader(train=False)

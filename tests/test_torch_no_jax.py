@@ -35,7 +35,8 @@ COUNTED = (fa.flash_attention_cuda, fused_qkv.fused_ln_qkv_cuda,
 
 def test_every_module_imports_with_jax_blocked():
     """With ``jax`` and ``neurovit_tpu`` both blocked: every module of the
-    port imports, the config loads, the data layer batches the synthetic
+    port imports (the sweep and the profiler among them, each called once),
+    the config loads, the data layer batches the synthetic
     cube dataset, a small ResNet runs forward and backward, the two probe
     scripts (scripts/torch_dropout_bench.py and
     scripts/torch_int8_gemm_bench.py) run their plain paths at a tiny size,
@@ -80,6 +81,20 @@ def test_every_module_imports_with_jax_blocked():
         "assert 'neurovit_tpu_torch.ops.int8_gemm' in names\n"
         "assert 'neurovit_tpu_torch.models.temporal' in names\n"
         "assert 'neurovit_tpu_torch.training.feature_cache' in names\n"
+        "assert 'neurovit_tpu_torch.training.sweep' in names\n"
+        "assert 'neurovit_tpu_torch.utils.profiling' in names\n"
+        "import numpy as np\n"
+        "from neurovit_tpu_torch.training.sweep import tpe_sample\n"
+        "params = tpe_sample({'learning_rate': {'min': 1e-5, 'max': 1e-2}},\n"
+        "                    [], np.random.RandomState(42), 1.0)\n"
+        "assert 1e-5 <= params['learning_rate'] <= 1e-2, params\n"
+        "from neurovit_tpu_torch.utils.profiling import StepTimer, trace\n"
+        "timer = StepTimer()\n"
+        "import tempfile\n"
+        "with tempfile.TemporaryDirectory() as d, trace(d, cuda=False):\n"
+        "    timer.mark()\n"
+        "    timer.mark(torch.ones(2) * 2)\n"
+        "assert timer.summary()['steps'] == 2\n"
         "import importlib.util\n"
         "def script(name):\n"
         "    spec = importlib.util.spec_from_file_location(\n"

@@ -215,8 +215,6 @@ def test_plateau_halves_the_lr_after_patience(tiny_config):
 @pytest.mark.parametrize("extra,item", [
     ({"MESH_DATA_AXIS": 2}, "multi-GPU"),
     ({"MESH_MODEL_AXIS": 2}, "multi-GPU"),
-    ({"TRAINING_PROFILE_STEPS": 3}, "train step, profile steps"),
-    ({"TRAINING_ASYNC_CHECKPOINT": True}, "train step, async checkpoint"),
 ])
 def test_unported_training_options_name_their_roadmap_item(tiny_config,
                                                             extra, item):
