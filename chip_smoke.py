@@ -192,7 +192,32 @@ Phases, each printing a line; any failure raises and exits non-zero:
                encoder, the encoder's share, peak memory, profiler splits;
                (g) the ResNet-18 encoder in 4D at B 1 x T 8, one K14, its
                encodings and the logits against the CPU plain path
-18. widths     the verify recipe's smoke model (dim 64, 4 heads of 16)
+18. f32        K1-K4 at f32 (FFMA on the CUDA cores), with
+               torch.backends.cuda.matmul.allow_tf32 off: (a) each against
+               its plain version at the flagship block (batch 8 x 1001),
+               within 1e-4 (1 + |plain|), two calls bit-equal: K1 at
+               n_valid 1001 and 900, at dropout 0.1 with its row sums, and
+               at head dims 32, 64 and 128 at batch 2 x 2 heads; K2
+               serving and with u, at 130 rows and on all-zero rows with
+               beta = 0 (u = 0 there); K3 at dropout 0 and 0.1 and at 130
+               rows; K4 serving, at dropout 0.1 with h, at 130 rows and
+               on all-zero rows with beta = b1 = 0 (h = 0, y = b2 there);
+               the first case of each timed by CUDA events beside the
+               plain version, its library yardstick (f32 SDPA; torch.mm at
+               f32 for each GEMM pass), its bound (bytes at 3.35 TB/s or
+               operations at 165 TFLOP/s, 3xTF32) and its FFMA floor
+               (67 TFLOP/s); (b) the seed-42 flagship served at f32 by
+               Predictor (every bucket, 3 volumes) and one HTTP POST, each
+               f32 kernel launched depth times per forward and no other
+               kernel; the logits of 3 volumes against the CPU plain path
+               within 1e-3; the forward at batch 32 timed with a profiler
+               split; (c) config4D at f32 (B 2 x T 140): Trainer.run() of
+               one epoch, two steps with finite losses, K1-K4 at f32 depth
+               times per encoder forward and nothing else; the step and
+               the encoder timed, peak memory; the encodings and the last
+               block's output of the first and last timepoint of each
+               sequence against the CPU plain path within 1e-3
+19. widths     the verify recipe's smoke model (dim 64, 4 heads of 16)
                trained for an epoch in bf16 on cuda through the CLI's main(),
                every block kernel launched; a ViT-B-width model (768, 12 x
                64, 3072, depth 4) served by Predictor against the CPU plain
@@ -317,6 +342,15 @@ KERNELS = [
      "scripts/int8_pallas_bench.py:30"),
     ("dynquant_matmul", "neurovit_tpu_torch/csrc/int8_gemm.cu",
      "scripts/int8_pallas_bench.py:55"),
+    ("flash_attention_f32", "neurovit_tpu_torch/csrc/flash_attention_f32.cu",
+     "neurovit_tpu/ops/flash_attention.py:233"),
+    ("fused_ln_qkv_f32", "neurovit_tpu_torch/csrc/fused_qkv_f32.cu",
+     "neurovit_tpu/ops/fused_qkv.py:57"),
+    ("fused_outproj_residual_f32",
+     "neurovit_tpu_torch/csrc/fused_outproj_f32.cu",
+     "neurovit_tpu/ops/fused_outproj.py:44"),
+    ("fused_mlp_block_f32", "neurovit_tpu_torch/csrc/fused_mlp_f32.cu",
+     "neurovit_tpu/ops/fused_mlp.py:108"),
 ]
 INT8_KERNELS = [name for name, _, _ in KERNELS if name.startswith("int8_")]
 # K6: only the Grad-CAM probe's last block runs it.
@@ -325,18 +359,31 @@ GRADCAM_KERNELS = ["flash_attention_bhnd", "flash_attention_bhnd_bwd"]
 RESNET_KERNELS = ["max_pool3d_argmax", "max_pool3d_argmax_bwd"]
 # K16-K18: only the probe scripts run them.
 PROBE_KERNELS = ["dropout", "gemm_bf16", "gemm_int8", "dynquant_matmul"]
-# Kernels no ViT block forward or backward launches.
+# K1-K4 at f32: only an f32 ViT's forward runs them (phase 18).
+F32_KERNELS = [name for name, _, _ in KERNELS if name.endswith("_f32")]
+# Kernels no bf16 ViT block forward or backward launches.
 OFF_BLOCK_KERNELS = (INT8_KERNELS + GRADCAM_KERNELS + RESNET_KERNELS
-                     + PROBE_KERNELS)
+                     + PROBE_KERNELS + F32_KERNELS)
 # K16's x in its probe (scripts/torch_dropout_bench.py); the GEMM probe's
 # shapes are its SHAPES, fc1 first.
 DROPOUT_SHAPE = (32 * 1001, 2048)
 # The ResNet stem's pool input at batch 8: [B, 90, 45, 45, 64] NDHWC.
 POOL_SHAPE = (B, 90, 45, 45, 64)
 # The card's peaks for the bound (H100 SXM data sheet, dense): device
-# memory bytes/s and operations/s by operand type.
+# memory bytes/s and operations/s by operand type. f32 products exact to
+# f32: three TF32 products each (a big and a small part of the operands)
+# at the 495 TF32 TFLOP/s, the fastest f32-accurate route on the card;
+# F32_FFMA_PER_S, the CUDA cores' f32 rate, is the floor of the f32
+# kernels' design, printed beside it.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 495e12 / 3}
+F32_FFMA_PER_S = 67e12
+# The f32 kernels against their plain versions, elementwise: |kernel -
+# plain| <= F32_TOL (1 + |plain|), f32 sums taken in another order; the
+# f32 model's logits and encodings on the card against the CPU plain path
+# within F32_LOGIT_ATOL, six blocks deep.
+F32_TOL = 1e-4
+F32_LOGIT_ATOL = 1e-3
 
 
 def log(phase: str, msg: str) -> None:
@@ -2779,15 +2826,18 @@ def _checkpoint(run_dir: str) -> str:
     return pkl[0]
 
 
-def _fold_against_cpu(model, cpu, x: torch.Tensor) -> None:
+def _fold_against_cpu(model, cpu, x: torch.Tensor, *, phase: str = "4d",
+                      edge: int = EDGE_T, atol: float = BF16_LOGIT_ATOL,
+                      rtol: float = GRAD_RTOL) -> None:
     """The card's encode_sequence of all B·T volumes of ``x`` against the
-    CPU plain path on the first and last EDGE_T timepoints of each
-    sequence: the encodings at the bf16 bound, and the ViT's last block
-    output (the head's input, [N + 1, dim] a volume) by relative Frobenius
-    error per volume, each volume's nearer its own CPU row than any other
-    held volume's, so that a row offset in the fold shows."""
+    CPU plain path on the first and last ``edge`` timepoints of each
+    sequence: the encodings within ``atol`` (the bf16 bound by default),
+    and the ViT's last block output (the head's input, [N + 1, dim] a
+    volume) by relative Frobenius error per volume within ``rtol``, each
+    volume's nearer its own CPU row than any other held volume's, so that
+    a row offset in the fold shows."""
     b, t = x.shape[0], x.shape[-1]
-    ts = list(range(EDGE_T)) + list(range(t - EDGE_T, t))
+    ts = list(range(edge)) + list(range(t - edge, t))
     rows = [i * t + j for i in range(b) for j in ts]
     acts = {}
 
@@ -2817,15 +2867,15 @@ def _fold_against_cpu(model, cpu, x: torch.Tensor) -> None:
     apart = torch.cdist(acts["cpu"], acts["cpu"]) / acts["cpu"].norm(
         dim=1, keepdim=True)
     apart.fill_diagonal_(float("inf"))
-    log("4d", f"(d) the card's fold of {b} x {t} = {b * t} volumes against "
+    log(phase, f"(d) the card's fold of {b} x {t} = {b * t} volumes against "
         f"the cpu plain path at timepoints {ts} of each sequence (rows "
-        f"{rows}): encodings max diff {diff:.3e} (tol {BF16_LOGIT_ATOL}); "
-        f"last block output relative errors {[round(e, 6) for e in errs]} "
-        f"(tol {GRAD_RTOL}), each volume nearest its own cpu row {own}, "
+        f"{rows}): encodings max diff {diff:.3e} (tol {atol}); "
+        f"last block output relative errors {[round(e, 8) for e in errs]} "
+        f"(tol {rtol}), each volume nearest its own cpu row {own}, "
         f"the nearest other held volume {float(apart.min()):.3e} apart; cpu "
         f"{cpu_s:.1f} s host clock")
-    if not (bool(torch.isfinite(got).all()) and diff <= BF16_LOGIT_ATOL
-            and max(errs) <= GRAD_RTOL and own):
+    if not (bool(torch.isfinite(got).all()) and diff <= atol
+            and max(errs) <= rtol and own):
         raise AssertionError("the 4D fold differs from the cpu plain path")
 
 
@@ -3210,6 +3260,289 @@ def fourd_serving(cfg, ckpt: str, seqs: np.ndarray, workdir: str,
 # kernel's wrapper launches in a train step at dropout 0.1; the profiled
 # window's trace must name every one. K3 is one launch of K4's
 # fc2_residual pass, so its name is K4's.
+def _f32_kernel_checks(card: str) -> dict:
+    """(a) of the f32 phase: K1-K4 at f32 against their plain versions on
+    the card at the flagship block (batch 8 x 1001), each case also run
+    twice bit-equal; the first case of each kernel timed beside its plain
+    version, its library yardstick (f32 SDPA, torch.mm at f32 for each
+    GEMM pass) and its bound. Returns each kernel's stats."""
+    import torch.nn.functional as F
+
+    from neurovit_tpu_torch.ops import flash_attention as fa
+    from neurovit_tpu_torch.ops import fused_mlp, fused_outproj, fused_qkv
+
+    rng = np.random.default_rng(SEED + 23)
+
+    def t(*shape, scale=1.0, offset=0.0):
+        return torch.tensor(offset + scale * rng.standard_normal(shape),
+                            dtype=torch.float32, device="cuda")
+
+    def w(out_f, in_f):                      # nn.Linear's default range
+        return torch.tensor(rng.uniform(-1, 1, (out_f, in_f)) / in_f ** 0.5,
+                            dtype=torch.float32, device="cuda")
+
+    inner, m = HEADS * DIM_HEAD, B * N
+    scale = DIM_HEAD ** -0.5
+    x, attn = t(B, N, DIM), t(B, N, inner)
+    qkv = [t(B, N, HEADS, DIM_HEAD) for _ in range(3)]
+    ln = (t(DIM, scale=0.1, offset=1.0), t(DIM, scale=0.1))
+    zero_ln = (ln[0], torch.zeros_like(ln[1]))
+    wqkv, wout, bout = w(3 * inner, DIM), w(DIM, inner), t(DIM, scale=0.03)
+    w1, b1, w2, b2 = w(MLP, DIM), t(MLP, scale=0.03), w(DIM, MLP), t(
+        DIM, scale=0.02)
+    drop = {"dropout_rate": DROPOUT, "seed": 2301}
+    mdrop = {"dropout_rate": DROPOUT, "seeds": (2302, 2303)}
+    # All-zero rows at a tile's first and last row and in the last tile.
+    x0 = x.clone()
+    x0[0, [0, 127, 128, 1000]] = 0
+
+    def rows(a, n=130):
+        return a[:1, :n].contiguous()
+
+    def attention(q, k, v, **kw):
+        return (lambda: fa.flash_attention_f32_cuda(q, k, v, **kw),
+                lambda: fa.flash_attention_plain(q, k, v, **kw))
+
+    def ln_qkv(x_, g, b, **kw):
+        args = (x_, g, b, wqkv, HEADS, DIM_HEAD)
+        return (lambda: fused_qkv.fused_ln_qkv_f32_cuda(*args, **kw),
+                lambda: fused_qkv.fused_ln_qkv_plain(*args, **kw))
+
+    def outproj(x_, a, **kw):
+        args = (x_, a, wout, bout)
+        return (lambda: fused_outproj.fused_outproj_residual_f32_cuda(
+            *args, **kw),
+            lambda: fused_outproj.fused_outproj_residual_plain(*args, **kw))
+
+    def mlp(x_, g, b, b1_, **kw):
+        args = (x_, g, b, w1, b1_, w2, b2)
+        return (lambda: fused_mlp.fused_mlp_block_f32_cuda(*args, **kw),
+                lambda: fused_mlp.fused_mlp_block_plain(*args, **kw))
+
+    cases = {
+        "flash_attention_f32": [
+            (f"n_valid {N}", *attention(*qkv, scale=scale, n_valid=N)),
+            (f"n_valid {N_VALID_MASKED}",
+             *attention(*qkv, scale=scale, n_valid=N_VALID_MASKED)),
+            (f"dropout {DROPOUT} with row sums",
+             *attention(*qkv, scale=scale, n_valid=N, return_stats=True,
+                        **drop))],
+        "fused_ln_qkv_f32": [
+            ("serving", *ln_qkv(x, *ln)),
+            ("with u", *ln_qkv(x, *ln, return_u=True)),
+            ("130 rows with u", *ln_qkv(rows(x), *ln, return_u=True)),
+            ("zero rows, beta = 0, with u",
+             *ln_qkv(x0, *zero_ln, return_u=True))],
+        "fused_outproj_residual_f32": [
+            ("dropout 0", *outproj(x, attn)),
+            (f"dropout {DROPOUT}", *outproj(x, attn, **drop)),
+            (f"130 rows, dropout {DROPOUT}",
+             *outproj(rows(x), rows(attn), **drop))],
+        "fused_mlp_block_f32": [
+            ("serving", *mlp(x, *ln, b1)),
+            (f"dropout {DROPOUT} with h", *mlp(x, *ln, b1, return_h=True,
+                                               **mdrop)),
+            (f"130 rows with h, dropout {DROPOUT}",
+             *mlp(rows(x), *ln, b1, return_h=True, **mdrop)),
+            ("zero rows, beta = b1 = 0, with h",
+             *mlp(x0, *zero_ln, torch.zeros_like(b1), return_h=True))],
+    }
+    # Head dims 32, 64 and 128 at a narrow width: batch 2 x 2 heads.
+    for d in (32, 64, 128):
+        qd = [t(2, N, 2, d) for _ in range(3)]
+        cases["flash_attention_f32"].append(
+            (f"head dim {d}, batch 2 x 2 heads, dropout {DROPOUT}",
+             *attention(*qd, scale=d ** -0.5, n_valid=N, **drop)))
+
+    x2, attn2 = x.reshape(m, DIM), attn.reshape(m, inner)
+    h2 = t(m, MLP)
+    qh, kh, vh = (a.transpose(1, 2) for a in qkv)
+    library = {
+        "flash_attention_f32": lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, scale=scale),
+        "fused_ln_qkv_f32": lambda: torch.mm(x2, wqkv.t()),
+        "fused_outproj_residual_f32": lambda: torch.mm(attn2, wout.t()),
+        "fused_mlp_block_f32": lambda: (torch.mm(x2, w1.t()),
+                                        torch.mm(h2, w2.t())),
+    }
+    # (input bytes, operations) of each timed case.
+    work = {
+        "flash_attention_f32": (nbytes(*qkv), 4 * B * HEADS * N * N
+                                * DIM_HEAD),
+        "fused_ln_qkv_f32": (nbytes(x, wqkv, *ln), 6 * m * DIM * inner),
+        "fused_outproj_residual_f32": (nbytes(x, attn, wout, bout),
+                                       2 * m * inner * DIM),
+        "fused_mlp_block_f32": (nbytes(x, *ln, w1, b1, w2, b2),
+                                4 * m * DIM * MLP),
+    }
+    stats = {}
+    for name, calls in cases.items():
+        max_abs = 0.0
+        for i, (label, kernel, plain) in enumerate(calls):
+            case_abs = 0.0
+            got, want = kernel(), plain()
+            again = kernel()
+            torch.cuda.synchronize()
+            got = [got] if isinstance(got, torch.Tensor) else list(got)
+            want = [want] if isinstance(want, torch.Tensor) else list(want)
+            again = [again] if isinstance(again, torch.Tensor) else list(
+                again)
+            for j, (g, w_, a) in enumerate(zip(got, want, again)):
+                if g.dtype != torch.float32 or g.shape != w_.shape:
+                    raise AssertionError(f"{name} {label}: output {j} is "
+                                         f"{g.dtype} {tuple(g.shape)}")
+                if not torch.isfinite(g).all():
+                    raise AssertionError(f"{name} {label}: output {j} is "
+                                         "not finite")
+                diff = (g - w_).abs()
+                bad = diff > F32_TOL * (1 + w_.abs())
+                if bad.any():
+                    raise AssertionError(
+                        f"{name} {label}: output {j}: {int(bad.sum())} "
+                        f"elements outside the tolerance (max abs err "
+                        f"{float(diff.max()):.3e})")
+                if not torch.equal(g, a):
+                    raise AssertionError(f"{name} {label}: output {j} of two "
+                                         "calls differs")
+                case_abs = max(case_abs, float(diff.max()))
+            max_abs = max(max_abs, case_abs)
+            if label.startswith("zero rows"):
+                zero = [0, 127, 128, 1000]
+                if name == "fused_mlp_block_f32":
+                    y0, h0 = (a_.reshape(m, -1)[zero] for a_ in got)
+                    if h0.abs().max() or not torch.equal(
+                            y0, b2.expand(len(zero), -1)):
+                        raise AssertionError("K4 f32 on zero rows: h not 0 "
+                                             "or y not b2")
+                elif got[3].reshape(m, -1)[zero].abs().max():
+                    raise AssertionError("K2 f32 on zero rows: u not beta")
+            msg = f"{name} {label}: max abs err {case_abs:.3e}"
+            if i == 0 or "dropout" in label and i < 3:
+                ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+                msg += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                if i == 0:
+                    in_bytes, ops = work[name]
+                    bound_ms, bound_by = bound(in_bytes, nbytes(*got),
+                                               {"f32": ops})
+                    stats[name] = {
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by,
+                        "library_ms": cuda_ms(library[name])}
+                    msg += (f", library call {stats[name]['library_ms']:.4f} "
+                            f"ms, bound {bound_ms:.4f} ms by {bound_by} "
+                            f"(3xTF32 at 165 TFLOP/s), FFMA floor "
+                            f"{ops / F32_FFMA_PER_S * 1e3:.4f} ms "
+                            f"({ops / 1e9:.2f} GFLOP at 67 TFLOP/s): "
+                            f"{ops / ms / 1e9:.1f} TFLOP/s")
+            log("f32", msg + "; bit-equal on a second call")
+            del got, want, again
+        stats[name]["max_abs_err"] = max_abs
+        log("f32", f"{name}: max abs err {max_abs:.3e} over {len(calls)} "
+            f"cases (tol {F32_TOL} (1 + |plain|)); {card}")
+    return stats
+
+
+def f32_phase(config, ckpt: str, workdir: str, card: str,
+              counters: dict) -> tuple:
+    """Phase 18 (see the module docstring): (a) the f32 kernels, (b) f32
+    serving of the flagship, (c) the f32 4D step at config4D's shape.
+    Returns (the kernels' stats, the launch counts of (b) and (c))."""
+    from neurovit_tpu_torch.models import NeuroEncoder
+    from neurovit_tpu_torch.serving import Predictor
+    from neurovit_tpu_torch.training import Trainer
+    from neurovit_tpu_torch.training.checkpoint import load_checkpoint
+
+    phase = "f32"
+    t_phase = time.perf_counter()
+    stats = _f32_kernel_checks(card)
+    torch.cuda.empty_cache()
+
+    # (b) f32 serving: the seed-42 checkpoint through Predictor and HTTP.
+    fcfg = dict(config, TRAINING_PRECISION="f32")
+    size = fcfg["TRAINING_VIT_INPUT_SIZE"]
+    rng = np.random.default_rng(SEED + 23)
+    predictor = Predictor.from_checkpoint(fcfg, ckpt, batch_size=32,
+                                          device="cuda")
+    model = predictor.model
+    depth = model.vit_cfg.depth
+    forwards = _count_forwards(model)
+    vols = _volumes(rng, 3, size)
+    _reset(counters)
+    predictor.warmup()
+    _, probs = predictor(vols)
+    http_phase(predictor, rng, workdir, n_files=1, concurrent=False)
+    torch.cuda.synchronize()
+    serving = {name: fn.launches for name, fn in counters.items()}
+    log(phase, f"(b) f32 serving: warmup of buckets "
+        f"{predictor.bucket_sizes}, 3 volumes, one POST: {forwards[0]} "
+        f"forward calls x depth {depth}; launches {serving}")
+    _check_counts("f32 serving", serving, _want(F32_KERNELS,
+                                                depth * forwards[0],
+                                                counters))
+    cpu = NeuroEncoder(fcfg, device="cpu", seed=SEED + 5).eval()
+    load_checkpoint(cpu, ckpt, strict=True)
+    with torch.inference_mode():
+        want = cpu(torch.from_numpy(vols))
+        got = model(torch.from_numpy(vols).cuda()).cpu()
+    diff = float((got - want).abs().max())
+    pdiff = float(np.abs(probs - torch.softmax(want, -1).numpy()).max())
+    log(phase, f"(b) f32 logits of 3 volumes, cuda {got.tolist()} vs cpu "
+        f"{want.tolist()}: max diff {diff:.3e}, Predictor's probabilities "
+        f"{pdiff:.3e} (tol {F32_LOGIT_ATOL})")
+    if not torch.isfinite(got).all() or max(diff, pdiff) > F32_LOGIT_ATOL:
+        raise AssertionError(f"f32 logits differ from the cpu by {diff}")
+    del cpu
+    x32 = torch.from_numpy(_volumes(rng, 32, size)).cuda()
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: model(x32), warmup=2, runs=5)
+        log(phase, f"(b) f32 forward at batch 32: {ms:.3f} ms, "
+            f"{32 / ms * 1e3:.1f} vol/s, "
+            f"{89.4 * 32 / ms:.1f} TFLOP/s at 89.4 GFLOP a volume; {card}")
+        profile_split(phase, "f32 forward at batch 32", lambda: model(x32),
+                      ms)
+    del predictor, model, x32
+    torch.cuda.empty_cache()
+
+    # (c) The f32 4D step at B 2 x T 140: Trainer.run() of one epoch (two
+    # steps, one update), then the step and the encoder timed.
+    cfg = _fourd_config(workdir, TRAINING_PRECISION="f32", TRAINING_EPOCHS=1,
+                        GLOBAL_OUTPUT_DIR=os.path.join(workdir, "runs4d_f32"))
+    depth4 = cfg["MODEL_VIT_DEPTH"]
+    size4 = cfg["TRAINING_VIT_INPUT_SIZE"]
+    model = NeuroEncoder(cfg, device="cuda", seed=SEED)
+    trainer = Trainer(cfg, model, _SeededSequences(4, size4, SEQ_T, SEED,
+                                                   "train4d"),
+                      _SeededSequences(2, size4, SEQ_T, SEED + 1, "val4d"))
+    enc_forwards = _encoder_forwards(model)
+    losses, fourd, text = _run_trainer(trainer, counters)
+    for line in text.splitlines()[-3:]:
+        log(phase, "(c) " + line.expandtabs(1))
+    log(phase, f"(c) f32 4D run: losses {losses}; {enc_forwards[0]} encoder "
+        f"forwards x depth {depth4}; launches {fourd}")
+    _check_counts("the f32 4D run", fourd,
+                  _want(F32_KERNELS, depth4 * enc_forwards[0], counters))
+    batch, _, _ = next(trainer._device_prefetch(trainer.val_dataloader))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(lambda: trainer.train_step(batch), 1, 3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    enc_ms = cuda_ms(lambda: model.encode_sequence(batch["volume"]), 1, 3)
+    vols4 = batch["volume"].shape[0] * batch["volume"].shape[-1]
+    log(phase, f"(c) f32 4D train step at B 2 x T {SEQ_T} ({vols4} "
+        f"volumes): {step_ms:.3f} ms ({vols4 / step_ms * 1e3:.1f} vol/s), "
+        f"the encoder {enc_ms:.3f} ms = {100 * enc_ms / step_ms:.1f} % of "
+        f"it, {89.4 * vols4 / enc_ms:.1f} TFLOP/s; peak memory {peak:.2f} "
+        f"GiB; {card}")
+    cpu = NeuroEncoder(cfg, device="cpu", seed=SEED + 2)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    _fold_against_cpu(model, cpu, batch["volume"], phase=phase, edge=1,
+                      atol=F32_LOGIT_ATOL, rtol=F32_LOGIT_ATOL)
+    del trainer, model, cpu, batch
+    torch.cuda.empty_cache()
+    log(phase, f"done in {time.perf_counter() - t_phase:.1f} s")
+    return stats, {name: serving[name] + fourd[name] for name in counters}
+
+
 TRACE_NAMES = {
     "flash_attention": ["flash_fwd_kernel"],
     "fused_ln_qkv": ["ln_rows_kernel", "qkv_gemm_kernel"],
@@ -3630,6 +3963,11 @@ def kernel_counters() -> dict:
         "gemm_bf16": int8_gemm.gemm_bf16_cuda,
         "gemm_int8": int8_gemm.gemm_int8_cuda,
         "dynquant_matmul": int8_gemm.dynquant_matmul_cuda,
+        "flash_attention_f32": flash_attention.flash_attention_f32_cuda,
+        "fused_ln_qkv_f32": fused_qkv.fused_ln_qkv_f32_cuda,
+        "fused_outproj_residual_f32":
+            fused_outproj.fused_outproj_residual_f32_cuda,
+        "fused_mlp_block_f32": fused_mlp.fused_mlp_block_f32_cuda,
     }
 
 
@@ -3717,6 +4055,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         fourd_launches = fourd_phase(workdir, card, counters)
         torch.cuda.empty_cache()
+        f32_stats, f32_launches = f32_phase(config, ckpt, workdir, card,
+                                            counters)
+        kernel_stats.update(f32_stats)
+        torch.cuda.empty_cache()
         widths_model_phase(config, workdir, counters)
 
     launches.update({name: int8_launches[name] for name in INT8_KERNELS})
@@ -3728,6 +4070,8 @@ def main() -> int:
         launches[name] += n
     for name, n in feature_launches.items():
         launches[name] += n
+    for name in F32_KERNELS:
+        launches[name] = f32_launches[name]
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[name],

@@ -1,7 +1,8 @@
 // Shared device code for the package's Hopper kernels (sm_90a).
 //
-// The kernels compute bf16 products with f32 accumulation on the tensor
-// cores, on TMA and wgmma (hopper_gemm.cuh).
+// The kernels compute bf16 (or int8) products with f32 (int32)
+// accumulation on the tensor cores, on TMA and wgmma (hopper_gemm.cuh);
+// the f32 forwards compute f32 products on the CUDA cores (ffma.cuh).
 //
 // Host entry points have a plain C interface: each returns the
 // cudaError_t of its launch (0 on success) and allocates nothing; the

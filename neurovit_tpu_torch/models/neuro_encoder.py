@@ -57,6 +57,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn as tnn
 
+from neurovit_tpu_torch import nn
 from neurovit_tpu_torch.models.resnet3d import ResNet3D, ResNetConfig
 from neurovit_tpu_torch.models.temporal import (ProjectionHead,
                                                 TemporalConfig,
@@ -68,6 +69,11 @@ def not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to neurovit_tpu_torch yet "
         f"(ROADMAP.md, Queue 1: {item})")
+
+
+# The ROADMAP item of what the ViT cannot run at f32 on CUDA yet: only the
+# forwards K1-K4 have f32 instances there.
+F32_ON_CUDA = "f32 on CUDA"
 
 
 def int8_attn_mode(raw) -> str:
@@ -178,6 +184,21 @@ class NeuroEncoder(tnn.Module):
         return (self.resnet_3d if self.encoder_kind == "resnet"
                 else self.volume_encoder)
 
+    @property
+    def device(self) -> torch.device:
+        """The device of the parameters."""
+        return next(self.parameters()).device
+
+    def refuse_f32_on_cuda(self, what: str) -> None:
+        """Raise ``not_ported`` for ``what`` on an f32 ViT whose parameters
+        lie on a CUDA device, before any kernel runs: there only the
+        forwards K1-K4 take f32 (the backwards, K6 and the int8 kernels
+        take bf16 activations)."""
+        if (self.encoder_kind == "vit"
+                and self.compute_dtype == torch.float32
+                and self.device.type == "cuda"):
+            raise not_ported(f"{what} of an f32 ViT on CUDA", F32_ON_CUDA)
+
     def encode_volume(self, volumes: torch.Tensor, *, train: bool = False,
                       seed: Optional[int] = None,
                       encoder: Optional[ViT3D] = None) -> torch.Tensor:
@@ -224,14 +245,16 @@ class NeuroEncoder(tnn.Module):
         """Encodings [B, T, num_classes] (fresh or cached) -> f32 logits
         [B, num_classes]: the temporal layer in the compute dtype, the mean
         over T summed in f32 (``jnp.mean`` of bf16), the projection
-        (neuro_encoder.py:220-238)."""
+        (neuro_encoder.py:220-238); in f32 its products at full f32
+        (``nn.full_f32``)."""
         rate = self.temporal_cfg.dropout if train else 0.0
         if rate and seed is None:
             raise ValueError("dropout in training needs a seed")
-        x = self.temporal_transformer(enc.to(self.compute_dtype), rate,
-                                      seed if rate else 0)
-        pooled = x.float().mean(dim=1).to(x.dtype)
-        return self.projection_head(pooled).float()
+        with nn.full_f32(self.compute_dtype):
+            x = self.temporal_transformer(enc.to(self.compute_dtype), rate,
+                                          seed if rate else 0)
+            pooled = x.float().mean(dim=1).to(x.dtype)
+            return self.projection_head(pooled).float()
 
     def trainable_mask(self) -> Dict[str, bool]:
         """Parameter name -> trainable: everything in 3D; in 4D all but
@@ -258,6 +281,7 @@ class NeuroEncoder(tnn.Module):
                              "CAMs are explainability.gradcam_resnet's")
         if self.is_4d:
             raise ValueError("the attention probe takes 3D volumes")
+        self.refuse_f32_on_cuda("the Grad-CAM probe")
         x = volumes.permute(0, 3, 1, 2)[:, None]      # [B, 1, D, H, W]
         return self.volume_encoder.vit3d.probe(x.to(self.compute_dtype),
                                                probe_shift)

@@ -442,20 +442,23 @@ class ViT3D(tnn.Module):
 
     def forward(self, volume: torch.Tensor, *, train: bool = False,
                 seed: Optional[int] = None) -> torch.Tensor:
-        """``train=True`` applies dropout, keyed by the step's ``seed``."""
+        """``train=True`` applies dropout, keyed by the step's ``seed``.
+        In f32 the products outside the kernels (patch embedding, head) run
+        at full f32 (``nn.full_f32``)."""
         cfg = self.cfg
         if train and self.quantized:
             raise ValueError(SERVING_ONLY)
         if train and (cfg.dropout or cfg.emb_dropout) and seed is None:
             raise ValueError("dropout in training needs a seed")
-        x = self._embed(volume)
-        if train and cfg.emb_dropout:
-            x = nn.dropout(x, cfg.emb_dropout, nn.site_seed(seed, 0))
-        x = self.transformer(x, cfg.dropout if train else 0.0,
-                             seed if train and cfg.dropout else 0,
-                             remat=(train and cfg.remat
-                                    and torch.is_grad_enabled()))
-        return self._head(x)
+        with nn.full_f32(volume.dtype):
+            x = self._embed(volume)
+            if train and cfg.emb_dropout:
+                x = nn.dropout(x, cfg.emb_dropout, nn.site_seed(seed, 0))
+            x = self.transformer(x, cfg.dropout if train else 0.0,
+                                 seed if train and cfg.dropout else 0,
+                                 remat=(train and cfg.remat
+                                        and torch.is_grad_enabled()))
+            return self._head(x)
 
     def probe(self, volume: torch.Tensor, probe_shift: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -468,12 +471,13 @@ class ViT3D(tnn.Module):
         if self.quantized:
             raise ValueError(PROBE_INT8)
         depth = self.cfg.depth
-        with torch.set_grad_enabled(torch.is_grad_enabled()
-                                    and volume.requires_grad):
-            x = self.transformer(self._embed(volume), depth=depth - 1)
-        attn, ff = self.transformer.layers[depth - 1]
-        x, probe_act = attn.forward_probe(x, probe_shift)
-        return self._head(ff(x)), probe_act
+        with nn.full_f32(volume.dtype):
+            with torch.set_grad_enabled(torch.is_grad_enabled()
+                                        and volume.requires_grad):
+                x = self.transformer(self._embed(volume), depth=depth - 1)
+            attn, ff = self.transformer.layers[depth - 1]
+            x, probe_act = attn.forward_probe(x, probe_shift)
+            return self._head(ff(x)), probe_act
 
 
 @torch.no_grad()

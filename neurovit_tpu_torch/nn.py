@@ -9,6 +9,8 @@ does, which is not what ``F.layer_norm`` and ``F.linear`` do in bf16:
 - ``linear``: an f32 sum of the (dtype-rounded) products plus an f32 bias,
   rounded once;
 - ``gelu``: exact erf GELU;
+- ``full_f32``: f32 products at full f32 (no TF32) inside a block, as JAX
+  runs its f32 products at "highest" (``nn.py:28-32``);
 - ``dropout``: inverted dropout with the keep probability quantized to
   q/256 (``nn.py:88-114``), its mask drawn from :func:`random_bytes`;
 - ``softmax_cross_entropy`` and the trainer's masked mean CE.
@@ -26,6 +28,7 @@ tiling, and the plain versions here regenerate bit-identical masks.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
@@ -63,6 +66,24 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
     if bias is not None:
         y = y + bias.float()
     return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def full_f32(dtype: torch.dtype):
+    """Inside the block, with ``dtype`` f32: torch's f32 matmuls at
+    "highest" precision (TF32 off) whatever the caller set through
+    ``torch.set_float32_matmul_precision`` (or ``allow_tf32``), and the
+    caller's setting again after. JAX runs its f32 products at "highest"
+    (neurovit_tpu/nn.py:28-32). Other dtypes leave the setting alone."""
+    if dtype != torch.float32:
+        yield
+        return
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

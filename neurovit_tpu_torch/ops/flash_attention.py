@@ -40,6 +40,12 @@ dO . v, and the columns of o, dq, dk and dv they produce are dropped.
 takes the plain attention on every device, by shape alone, where JAX leaves
 Pallas for its dense XLA path (flash_attention.py:517-520); D > 128 is
 refused.
+
+f32 CUDA tensors in the bnhd layout run ``csrc/flash_attention_f32.cu``
+(K1 at f32, :func:`flash_f32_plan`: FFMA products on the CUDA cores, P not
+rounded, as the TPU kernel computes at f32), with instances for D in
+:data:`F32_HEAD_DIMS` (32, 64, 128) and the same zero-padding of the
+others; the forward only so far, and not K6.
 """
 
 from __future__ import annotations
@@ -53,7 +59,7 @@ from neurovit_tpu_torch import nn
 from neurovit_tpu_torch.ops.common import (FLOAT, INT, SHAPE_QUEUE, U64, VOID,
                                            check_operand, check_smem,
                                            dropout_args, is_training, launch,
-                                           on_cpu, ptr)
+                                           on_cpu, pick, ptr)
 
 LOG2E = 1.4426950408889634
 SCORE_CAP = 96.0
@@ -93,6 +99,10 @@ FWD_ALIGN_SLACK = 1024
 MAX_GRID_X = 2 ** 31 - 1
 BWD_STAGES = 3
 BWD_STAT_BYTES = 64 * 4
+# K1 at f32 (csrc/flash_attention_f32.cu): head-dim instances, query rows
+# a block, keys a tile, threads a block.
+F32_HEAD_DIMS = (32, 64, 128)
+F32_BQ, F32_BKV, F32_THREADS = 64, 32, 128
 
 
 class FwdPlan(NamedTuple):
@@ -163,6 +173,40 @@ def flash_fwd_plan(b: int, n: int, h: int, d: int, layout: str) -> FwdPlan:
     return FwdPlan(d_kernel=d_kernel, bq=bq, bkv=FWD_BKV, stages=FWD_STAGES,
                    grid=(-(-n // bq), b * h), smem=smem,
                    offsets=offsets, tmap_dims=dims)
+
+
+class F32FwdPlan(NamedTuple):
+    """How one launch of K1 at f32 covers [B, N, H, D]: the head-dim
+    instance ``d_kernel`` (q, k and v zero-padded to it), ``bq`` query rows
+    a block of ``threads`` on a one-dimensional grid of (q tiles x B * H),
+    q tiles fastest; ``bkv`` keys a tile, two tiles of K and V in flight;
+    ``smem`` bytes of dynamic shared memory a block (the Q tile, two K and
+    two V tiles, the P tile, all f32)."""
+    d_kernel: int
+    bq: int
+    bkv: int
+    threads: int
+    grid: tuple
+    smem: int
+
+
+def f32_head_dim(d: int) -> int:
+    """K1 f32's instance for head dim ``d``: 32, 64 or 128."""
+    return next(h for h in F32_HEAD_DIMS if h >= kernel_head_dim(d))
+
+
+def flash_f32_plan(b: int, n: int, h: int, d: int) -> F32FwdPlan:
+    """K1 f32's plan for q, k, v [b, n, h, d] (the kernel's own count of
+    the shared memory is ``nvt_flash_attention_f32_smem_bytes``). Raises
+    where the kernel does not take the shape: the head dims and grids K1
+    takes in bf16."""
+    d_kernel = f32_head_dim(d)
+    _check_grid("forward", b, n, h)
+    smem = (F32_BQ * d_kernel + 4 * F32_BKV * d_kernel + F32_BQ * F32_BKV) * 4
+    check_smem("attention forward", smem)
+    return F32FwdPlan(d_kernel=d_kernel, bq=F32_BQ, bkv=F32_BKV,
+                      threads=F32_THREADS, grid=(-(-n // F32_BQ) * b * h,),
+                      smem=smem)
 
 
 class BwdPlan(NamedTuple):
@@ -357,18 +401,19 @@ def flash_attention_bhnd_bwd_plain(q, k, v, o, do, lsum, *, scale: float,
                       dropout_rate=dropout_rate, seed=seed, layout="bhnd")
 
 
-def _check_qkv(q, k, v) -> int:
+def _check_qkv(q, k, v, dtype=torch.bfloat16) -> int:
     """Check the operands of a launch; returns the kernel's head dim."""
     for name, t in (("q", q), ("k", k), ("v", v)):
-        check_operand(name, t, torch.bfloat16, q.shape)
+        check_operand(name, t, dtype, q.shape)
     return kernel_head_dim(q.shape[3])
 
 
 def _fwd_cuda(symbol, layout, q, k, v, *, scale, n_valid, dropout_rate, seed,
-              return_stats):
-    _check_qkv(q, k, v)
+              return_stats, f32=False):
+    _check_qkv(q, k, v, torch.float32 if f32 else torch.bfloat16)
     b, n, h, d = _dims(q, layout)
-    d_kernel = flash_fwd_plan(b, n, h, d, layout).d_kernel
+    d_kernel = (flash_f32_plan(b, n, h, d) if f32
+                else flash_fwd_plan(b, n, h, d, layout)).d_kernel
     n_valid = _n_valid(q, n_valid, layout)
     inv_keep, keep_q = dropout_args(dropout_rate)
     q, k, v = (pad_head_dim(t, d_kernel) for t in (q, k, v))
@@ -422,6 +467,23 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_cuda.launches = 0
 
 
+def flash_attention_f32_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, scale: float,
+                             n_valid: Optional[int] = None,
+                             dropout_rate: float = 0.0, seed: int = 0,
+                             return_stats: bool = False):
+    """Launch K1 at f32 (:func:`flash_f32_plan`): f32 [B, N, H, D],
+    contiguous, 8 <= D <= 128; exact f32 products on the CUDA cores."""
+    out = _fwd_cuda("nvt_flash_attention_f32_fwd", "bnhd", q, k, v,
+                    scale=scale, n_valid=n_valid, dropout_rate=dropout_rate,
+                    seed=seed, return_stats=return_stats, f32=True)
+    flash_attention_f32_cuda.launches += 1
+    return out
+
+
+flash_attention_f32_cuda.launches = 0
+
+
 def flash_attention_bwd_cuda(q, k, v, o, do, lsum, *, scale: float,
                              n_valid: int, dropout_rate: float = 0.0,
                              seed: int = 0):
@@ -468,14 +530,27 @@ def flash_attention_bhnd_bwd_cuda(q, k, v, o, do, lsum, *, scale: float,
 
 flash_attention_bhnd_bwd_cuda.launches = 0
 
-# layout -> ((plain forward, kernel forward), (plain backward, kernel
-# backward)).
+# Per layout: the forward's (plain, bf16 kernel, f32 kernel), the
+# backward's (plain, kernel). K6 has no f32 instance yet: its bf16 kernel
+# stands in the f32 place, and raises for f32 operands.
 _IMPLS = {
-    "bnhd": ((flash_attention_plain, flash_attention_cuda),
+    "bnhd": ((flash_attention_plain, flash_attention_cuda,
+              flash_attention_f32_cuda),
              (flash_attention_bwd_plain, flash_attention_bwd_cuda)),
-    "bhnd": ((flash_attention_bhnd_plain, flash_attention_bhnd_cuda),
+    "bhnd": ((flash_attention_bhnd_plain, flash_attention_bhnd_cuda,
+              flash_attention_bhnd_cuda),
              (flash_attention_bhnd_bwd_plain, flash_attention_bhnd_bwd_cuda)),
 }
+
+
+def _fwd_impl(layout: str, q: torch.Tensor, *tensors: torch.Tensor):
+    """The forward of a call: the plain version where ``uses_kernel`` says
+    so (CPU operands, head dim < 8), else ``common.pick``'s (plain, K1 or
+    K6, K1 at f32)."""
+    impls = _IMPLS[layout][0]
+    if not uses_kernel(q, *tensors):
+        return impls[0]
+    return pick(*impls, q, *tensors)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -486,7 +561,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, scale, n_valid, dropout_rate, seed, layout):
-        fwd = _IMPLS[layout][0][uses_kernel(q, k, v)]
+        fwd = _fwd_impl(layout, q, k, v)
         o, lsum = fwd(q, k, v, scale=scale, n_valid=n_valid,
                       dropout_rate=dropout_rate, seed=seed, return_stats=True)
         ctx.save_for_backward(q, k, v, o, lsum)
@@ -512,14 +587,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     layout; keys at or past ``n_valid`` (default N) get zero weight;
     probabilities dropped at ``dropout_rate`` with the site key ``seed``.
     Differentiable when an input requires grad. CPU tensors take the plain
-    version, CUDA tensors the kernels (head dim < 8: the plain version on
-    either device)."""
+    version, CUDA tensors the kernels (bf16, or f32 in the bnhd layout,
+    forward only; head dim < 8: the plain version on either device)."""
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
     n_valid = _n_valid(q, n_valid, layout)
     if is_training(q, k, v):
         return FlashAttention.apply(q, k, v, scale, n_valid,
                                     float(dropout_rate), int(seed), layout)
-    fn = _IMPLS[layout][0][uses_kernel(q, k, v)]
+    fn = _fwd_impl(layout, q, k, v)
     return fn(q, k, v, scale=scale, n_valid=n_valid,
               dropout_rate=dropout_rate, seed=seed)

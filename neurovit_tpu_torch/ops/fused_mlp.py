@@ -16,12 +16,14 @@ recomputes LN, GELU and both masks, and emits dx, u, a, dz, dh and dgamma /
 dbeta. dW1 = dh^T u, dW2 = dz^T a and the bias gradients are plain matmuls
 and sums outside, as in JAX.
 
-CPU tensors run the ``*_plain`` functions; CUDA tensors run
+CPU tensors run the ``*_plain`` functions; bf16 CUDA tensors run
 ``csrc/fused_mlp.cu`` (K4) and ``csrc/fused_mlp_bwd.cu`` (K9), both on TMA
-+ ``wgmma``. K4 runs in three launches (:func:`mlp_plan`): LN rows into u,
-fc1 with bias, GELU and the hidden mask in its epilogue into g, fc2 with
-bias, the output mask and the residual; u and g go through one scratch
-allocation. K9 runs in five (:func:`mlp_bwd_plan`): dz, u and each row's
++ ``wgmma``; f32 CUDA tensors run ``csrc/fused_mlp_f32.cu`` (K4 at f32,
+:func:`mlp_f32_plan`: the same three passes in f32 on the CUDA cores,
+through ``csrc/ffma.cuh``'s GEMM), the forward only so far. K4 runs in
+three launches (:func:`mlp_plan`): LN rows into u, fc1 with bias, GELU
+and the hidden mask in its epilogue into g, fc2 with bias, the output
+mask and the residual; u and g go through one scratch allocation. K9 runs in five (:func:`mlp_bwd_plan`): dz, u and each row's
 LN statistics; da = dz W2 with a and dh in its epilogue; du = dh W1 in f32
 with the tile's partial LN-backward sums (per row and per column) in its
 epilogue; the LayerNorm backward rows with the residual; the dgamma /
@@ -42,7 +44,8 @@ from neurovit_tpu_torch import nn
 from neurovit_tpu_torch.ops.common import (FLOAT, INT, U64, VOID,
                                            check_operand, check_widths,
                                            dropout_args, is_training, launch,
-                                           on_cpu, ptr, round_up, weight_grad)
+                                           on_cpu, pick, ptr, round_up,
+                                           weight_grad)
 from neurovit_tpu_torch.ops.int8_gemm import ALIGN_SLACK, BOX_BYTES
 
 Seeds = Tuple[int, int]
@@ -58,6 +61,26 @@ GEMM_THREADS = 2 * 128 + 32
 # K9's column-sum pass: columns of [dgamma, dbeta] a block (one a lane),
 # and its warps, which split the row tiles.
 SUM_COLUMNS, SUM_WARPS = 32, 8
+
+
+# The f32 forwards' GEMM (csrc/ffma.cuh): output tile rows and columns,
+# the depth of a staged k slice, the slices in flight, and its threads.
+F32_TILE, F32_BK, F32_STAGES, F32_THREADS = 128, 16, 2, 256
+
+
+def f32_gemm_smem_bytes() -> int:
+    """Dynamic shared memory of an f32 GEMM block (ffma.cuh kSmemBytes,
+    ``nvt_ffma_gemm_smem_bytes``): the slices in flight of A and B, each
+    16 k rows of 128 + 4 floats."""
+    return F32_STAGES * 2 * F32_BK * (F32_TILE + 4) * 4
+
+
+def f32_gemm_launch(name: str, m: int, n: int) -> tuple:
+    """(name, grid, threads, dynamic shared memory bytes) of an f32 GEMM
+    pass with an [m, n] output: one block a 128 x 128 tile, a grid of
+    (column tiles, row tiles)."""
+    return (name, (-(-n // F32_TILE), -(-m // F32_TILE)), F32_THREADS,
+            f32_gemm_smem_bytes())
 
 
 def gemm_tile_n(m: int, n: int) -> int:
@@ -113,6 +136,26 @@ def mlp_plan(m: int, dim: int, hid: int) -> MlpPlan:
         at = round_up(at + nbytes, SCRATCH_ALIGN)
     return MlpPlan(launches=tuple(launches), scratch=scratch,
                    scratch_bytes=at)
+
+
+def mlp_f32_plan(m: int, dim: int, hid: int) -> MlpPlan:
+    """K4 f32's plan for m rows (the kernel's own count of the scratch is
+    ``nvt_fused_mlp_f32_scratch_bytes``, of the shared memory
+    ``nvt_ffma_gemm_smem_bytes``): LayerNorm rows, then fc1 with GELU and
+    fc2 with the residual on 128 x 128 tiles; u [m, dim] and g [m, hid]
+    f32 in the scratch. The widths K4 takes, the same as bf16's. Raises
+    where the kernel does not take them."""
+    check_fwd_shapes(dim, hid)
+    if m < 1:
+        raise ValueError(f"the MLP kernel takes at least one row, got {m}")
+    launches = (("ln_rows", (-(-m // ROW_WARPS), 1), ROW_WARPS * 32, 0),
+                f32_gemm_launch("fc1_gelu", m, hid),
+                f32_gemm_launch("fc2_residual", m, dim))
+    scratch, at = {}, 0
+    for name, nbytes in (("u", m * dim * 4), ("g", m * hid * 4)):
+        scratch[name] = (at, nbytes)
+        at = round_up(at + nbytes, SCRATCH_ALIGN)
+    return MlpPlan(launches=launches, scratch=scratch, scratch_bytes=at)
 
 
 def check_bwd_shapes(dim: int, hid: int) -> None:
@@ -256,15 +299,15 @@ def fused_mlp_bwd_plain(dy, x, h, gamma, beta, w1, w2, *,
     return dx, u, a.to(dt), dz, dh, dgamma, dbeta
 
 
-def _operands(x, w1, w2, **vectors):
-    """The launch's bf16 weights and f32 vectors (gamma, beta, b1, b2 by
-    name), checked."""
+def _operands(x, w1, w2, dtype=torch.bfloat16, **vectors):
+    """The launch's weights in ``dtype`` (x's) and f32 vectors (gamma,
+    beta, b1, b2 by name), checked."""
     dim, hid = x.shape[-1], w1.shape[0]
-    check_operand("x", x, torch.bfloat16)
-    w1b = w1.to(torch.bfloat16).contiguous()
-    w2b = w2.to(torch.bfloat16).contiguous()
-    check_operand("w1", w1b, torch.bfloat16, (hid, dim))
-    check_operand("w2", w2b, torch.bfloat16, (dim, hid))
+    check_operand("x", x, dtype)
+    w1b = w1.to(dtype).contiguous()
+    w2b = w2.to(dtype).contiguous()
+    check_operand("w1", w1b, dtype, (hid, dim))
+    check_operand("w2", w2b, dtype, (dim, hid))
     sizes = {"gamma": dim, "beta": dim, "b1": hid, "b2": dim}
     vecs = {}
     for name, t in vectors.items():
@@ -299,6 +342,42 @@ def fused_mlp_block_cuda(x: torch.Tensor, gamma: torch.Tensor,
 
 
 fused_mlp_block_cuda.launches = 0
+
+
+def fused_mlp_block_f32_cuda(x: torch.Tensor, gamma: torch.Tensor,
+                             beta: torch.Tensor, w1: torch.Tensor,
+                             b1: torch.Tensor, w2: torch.Tensor,
+                             b2: torch.Tensor, *, dropout_rate: float = 0.0,
+                             seeds: Seeds = (0, 0), return_h: bool = False):
+    """Launch K4 at f32 (:func:`mlp_f32_plan`) on f32 x [B, N, dim]: exact
+    f32 products on the CUDA cores; h is the pre-GELU hidden."""
+    b, n, dim = x.shape
+    hid = w1.shape[0]
+    w1f, w2f, vecs = _operands(x, w1, w2, torch.float32, gamma=gamma,
+                               beta=beta, b1=b1, b2=b2)
+    plan = mlp_f32_plan(b * n, dim, hid)
+    inv_keep, keep_q = dropout_args(dropout_rate)
+    y = torch.empty_like(x)
+    h = x.new_empty(b, n, hid) if return_h else None
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
+                          device=x.device)
+    launch("nvt_fused_mlp_f32_fwd",
+           (VOID,) * 10 + (INT,) * 3 + (FLOAT, FLOAT, INT, U64, U64), x,
+           ptr(x), ptr(vecs["gamma"]), ptr(vecs["beta"]), ptr(w1f),
+           ptr(vecs["b1"]), ptr(w2f), ptr(vecs["b2"]), ptr(y), ptr(h),
+           ptr(scratch), b * n, dim, hid, nn.LN_EPS, inv_keep, keep_q,
+           int(seeds[0]), int(seeds[1]))
+    fused_mlp_block_f32_cuda.launches += 1
+    return (y, h) if return_h else y
+
+
+fused_mlp_block_f32_cuda.launches = 0
+
+
+def _forward(*tensors):
+    """The forward of a call (``common.pick``): plain, K4 or K4 at f32."""
+    return pick(fused_mlp_block_plain, fused_mlp_block_cuda,
+                fused_mlp_block_f32_cuda, *tensors)
 
 
 def fused_mlp_bwd_cuda(dy, x, h, gamma, beta, w1, w2, *,
@@ -338,8 +417,7 @@ class FusedMlp(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, gamma, beta, w1, b1, w2, b2, dropout_rate, seeds):
-        cpu = on_cpu(x, gamma, beta, w1, b1, w2, b2)
-        fwd = fused_mlp_block_plain if cpu else fused_mlp_block_cuda
+        fwd = _forward(x, gamma, beta, w1, b1, w2, b2)
         y, h = fwd(x, gamma, beta, w1, b1, w2, b2, dropout_rate=dropout_rate,
                    seeds=seeds, return_h=True)
         ctx.save_for_backward(x, h, gamma, beta, w1, w2)
@@ -366,10 +444,9 @@ def fused_mlp_block(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                     seeds: Seeds = (0, 0)) -> torch.Tensor:
     """x + Drop(fc2(Drop(GELU(fc1(LN(x)))))), [B, N, dim]. Differentiable
     when an input requires grad. CPU tensors take the plain version, CUDA
-    tensors the kernels."""
+    tensors the kernels (bf16 or, forward only, f32)."""
     args = (x, gamma, beta, w1, b1, w2, b2)
     if is_training(*args):
         return FusedMlp.apply(*args, float(dropout_rate),
                               (int(seeds[0]), int(seeds[1])))
-    fn = fused_mlp_block_plain if on_cpu(*args) else fused_mlp_block_cuda
-    return fn(*args, dropout_rate=dropout_rate, seeds=seeds)
+    return _forward(*args)(*args, dropout_rate=dropout_rate, seeds=seeds)

@@ -18,7 +18,10 @@ on TMA + ``wgmma``. K3 is one launch of K4's last pass
 (:func:`outproj_plan`). K8 is K9's dz rows pass without the LayerNorm,
 at dropout > 0 only, then a GEMM that reads Wout as it lies
 (:func:`outproj_bwd_plan`); at dropout 0 dz is dy. Both take inner and
-dim as any multiples of 16.
+dim as any multiples of 16. f32 CUDA tensors run
+``csrc/fused_outproj_f32.cu`` (K3 at f32, :func:`outproj_f32_plan`: one
+launch of ``csrc/ffma.cuh``'s GEMM in f32 on the CUDA cores, K4 f32's
+fc2), the forward only so far.
 """
 
 from __future__ import annotations
@@ -31,10 +34,11 @@ from neurovit_tpu_torch import nn
 from neurovit_tpu_torch.ops.common import (FLOAT, INT, U64, VOID,
                                            check_operand, check_widths,
                                            dropout_args, is_training, launch,
-                                           on_cpu, ptr, weight_grad)
-from neurovit_tpu_torch.ops.fused_mlp import (GEMM_THREADS, MLP_TILE,
-                                              ROW_WARPS, gemm_smem_bytes,
-                                              gemm_tile_n)
+                                           on_cpu, pick, ptr, weight_grad)
+from neurovit_tpu_torch.ops.fused_mlp import (F32_TILE, GEMM_THREADS,
+                                              MLP_TILE, ROW_WARPS,
+                                              f32_gemm_launch,
+                                              gemm_smem_bytes, gemm_tile_n)
 
 
 def check_fwd_shapes(dim: int, inner: int) -> None:
@@ -76,6 +80,19 @@ def outproj_plan(m: int, dim: int, inner: int) -> OutprojPlan:
                                   (-(-dim // tile_n), -(-m // MLP_TILE)),
                                   GEMM_THREADS, gemm_smem_bytes(tile_n)),),
                        tile_n=tile_n)
+
+
+def outproj_f32_plan(m: int, dim: int, inner: int) -> OutprojPlan:
+    """K3 f32's plan for m rows (the kernel's own count of the shared
+    memory is ``nvt_ffma_gemm_smem_bytes``): K4 f32's fc2_residual pass on
+    128 x 128 tiles over the [m, dim] output. The widths K3 takes. Raises
+    where the kernel does not take them."""
+    check_fwd_shapes(dim, inner)
+    if m < 1:
+        raise ValueError(f"the out-projection kernel takes at least one row, "
+                         f"got {m}")
+    return OutprojPlan(launches=(f32_gemm_launch("fc2_residual", m, dim),),
+                       tile_n=F32_TILE)
 
 
 class OutprojBwdPlan(NamedTuple):
@@ -164,6 +181,40 @@ def fused_outproj_residual_cuda(x: torch.Tensor, attn: torch.Tensor,
 fused_outproj_residual_cuda.launches = 0
 
 
+def fused_outproj_residual_f32_cuda(x: torch.Tensor, attn: torch.Tensor,
+                                    w_out: torch.Tensor, b_out: torch.Tensor,
+                                    *, dropout_rate: float = 0.0,
+                                    seed: int = 0) -> torch.Tensor:
+    """Launch K3 at f32 (:func:`outproj_f32_plan`) on f32 activations:
+    exact f32 products on the CUDA cores."""
+    b, n, dim = x.shape
+    inner = attn.shape[-1]
+    check_operand("x", x, torch.float32)
+    check_operand("attn", attn, torch.float32, (b, n, inner))
+    w = w_out.float().contiguous()
+    bias = b_out.float().contiguous()
+    check_operand("w_out", w, torch.float32, (dim, inner))
+    check_operand("b_out", bias, torch.float32, (dim,))
+    outproj_f32_plan(b * n, dim, inner)
+    inv_keep, keep_q = dropout_args(dropout_rate)
+    y = torch.empty_like(x)
+    launch("nvt_fused_outproj_f32_fwd",
+           (VOID,) * 5 + (INT,) * 3 + (FLOAT, INT, U64), x, ptr(attn),
+           ptr(x), ptr(w), ptr(bias), ptr(y), b * n, inner, dim, inv_keep,
+           keep_q, int(seed))
+    fused_outproj_residual_f32_cuda.launches += 1
+    return y
+
+
+fused_outproj_residual_f32_cuda.launches = 0
+
+
+def _forward(*tensors):
+    """The forward of a call (``common.pick``): plain, K3 or K3 at f32."""
+    return pick(fused_outproj_residual_plain, fused_outproj_residual_cuda,
+                fused_outproj_residual_f32_cuda, *tensors)
+
+
 def fused_outproj_bwd_cuda(dy: torch.Tensor, w_out: torch.Tensor, *,
                            dropout_rate: float = 0.0, seed: int = 0):
     """Launch the Hopper kernel K8 (:func:`outproj_bwd_plan`) on the
@@ -195,9 +246,7 @@ class FusedOutproj(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, attn, w_out, b_out, dropout_rate, seed):
-        fwd = (fused_outproj_residual_plain
-               if on_cpu(x, attn, w_out, b_out)
-               else fused_outproj_residual_cuda)
+        fwd = _forward(x, attn, w_out, b_out)
         y = fwd(x, attn, w_out, b_out, dropout_rate=dropout_rate, seed=seed)
         ctx.save_for_backward(attn, w_out)
         ctx.args = dict(dropout_rate=dropout_rate, seed=seed)
@@ -223,10 +272,10 @@ def fused_outproj_residual(x: torch.Tensor, attn: torch.Tensor,
                            seed: int = 0) -> torch.Tensor:
     """x + Drop(attn @ Wout^T + b), [B, N, dim]. Differentiable when an
     input requires grad. CPU tensors take the plain version, CUDA tensors
-    the kernels."""
+    the kernels (bf16 or, forward only, f32)."""
     if is_training(x, attn, w_out, b_out):
         return FusedOutproj.apply(x, attn, w_out, b_out, float(dropout_rate),
                                   int(seed))
-    fn = (fused_outproj_residual_plain if on_cpu(x, attn, w_out, b_out)
-          else fused_outproj_residual_cuda)
-    return fn(x, attn, w_out, b_out, dropout_rate=dropout_rate, seed=seed)
+    return _forward(x, attn, w_out, b_out)(x, attn, w_out, b_out,
+                                           dropout_rate=dropout_rate,
+                                           seed=seed)

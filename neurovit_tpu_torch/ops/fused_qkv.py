@@ -24,7 +24,9 @@ with the tile's partial LayerNorm-backward sums in its epilogue, the
 LayerNorm backward rows, the dgamma / dbeta sums over the row tiles in a
 fixed order; du, the statistics and the partial sums go through one
 scratch allocation. Both take dim and heads * dim_head as multiples of
-16, of any size.
+16, of any size. f32 CUDA tensors run ``csrc/fused_qkv_f32.cu`` (K2 at
+f32, :func:`qkv_f32_plan`: the same two passes in f32 on the CUDA cores,
+through ``csrc/ffma.cuh``'s GEMM), the forward only so far.
 """
 
 from __future__ import annotations
@@ -36,10 +38,11 @@ import torch
 from neurovit_tpu_torch import nn
 from neurovit_tpu_torch.ops.common import (FLOAT, INT, VOID, check_operand,
                                            check_widths, is_training, launch,
-                                           on_cpu, ptr, round_up,
+                                           on_cpu, pick, ptr, round_up,
                                            weight_grad)
-from neurovit_tpu_torch.ops.fused_mlp import (GEMM_THREADS, MLP_TILE,
-                                              ROW_WARPS, SCRATCH_ALIGN,
+from neurovit_tpu_torch.ops.fused_mlp import (F32_TILE, GEMM_THREADS,
+                                              MLP_TILE, ROW_WARPS,
+                                              SCRATCH_ALIGN, f32_gemm_launch,
                                               gemm_smem_bytes, gemm_tile_n,
                                               ln_backward_plain,
                                               ln_bwd_passes)
@@ -91,6 +94,26 @@ def qkv_plan(m: int, dim: int, inner: int, *,
     return QkvPlan(launches=launches, tile_n=tile_n,
                    scratch={"u": (0, m * dim * 2)},
                    scratch_bytes=round_up(m * dim * 2, SCRATCH_ALIGN))
+
+
+def qkv_f32_plan(m: int, dim: int, inner: int, *,
+                 return_u: bool = False) -> QkvPlan:
+    """K2 f32's plan for m rows (the kernel's own count of the shared
+    memory is ``nvt_ffma_gemm_smem_bytes``): LayerNorm rows, then the QKV
+    GEMM on 128 x 128 tiles over the [m, 3 inner] output; u [m, dim] f32
+    in the scratch when serving. The widths K2 takes. Raises where the
+    kernel does not take them."""
+    check_fwd_shapes(dim, inner)
+    if m < 1:
+        raise ValueError(f"the LN+QKV kernel takes at least one row, got {m}")
+    launches = (("ln_rows", (-(-m // ROW_WARPS), 1), ROW_WARPS * 32, 0),
+                f32_gemm_launch("qkv_gemm", m, 3 * inner))
+    if return_u:
+        return QkvPlan(launches=launches, tile_n=F32_TILE, scratch={},
+                       scratch_bytes=0)
+    return QkvPlan(launches=launches, tile_n=F32_TILE,
+                   scratch={"u": (0, m * dim * 4)},
+                   scratch_bytes=round_up(m * dim * 4, SCRATCH_ALIGN))
 
 
 def check_bwd_shapes(dim: int, inner: int) -> None:
@@ -156,13 +179,13 @@ def fused_ln_qkv_bwd_plain(dqkv, x, gamma, w_qkv):
     return dx.to(x.dtype).reshape(x.shape), dgamma, dbeta
 
 
-def _operands(x, w_qkv, inner, **vectors):
-    """The launch's bf16 weight and f32 LN vectors (gamma, beta by name),
-    checked, for heads * dim_head = inner."""
+def _operands(x, w_qkv, inner, dtype=torch.bfloat16, **vectors):
+    """The launch's weight in ``dtype`` (x's) and f32 LN vectors (gamma,
+    beta by name), checked, for heads * dim_head = inner."""
     dim = x.shape[-1]
-    check_operand("x", x, torch.bfloat16)
-    w = w_qkv.to(torch.bfloat16).contiguous()
-    check_operand("w_qkv", w, torch.bfloat16, (3 * inner, dim))
+    check_operand("x", x, dtype)
+    w = w_qkv.to(dtype).contiguous()
+    check_operand("w_qkv", w, dtype, (3 * inner, dim))
     vecs = {}
     for name, t in vectors.items():
         vecs[name] = t.float().contiguous()
@@ -192,6 +215,39 @@ def fused_ln_qkv_cuda(x: torch.Tensor, gamma: torch.Tensor,
 
 
 fused_ln_qkv_cuda.launches = 0
+
+
+def fused_ln_qkv_f32_cuda(x: torch.Tensor, gamma: torch.Tensor,
+                          beta: torch.Tensor, w_qkv: torch.Tensor,
+                          heads: int, dim_head: int, *,
+                          return_u: bool = False):
+    """Launch K2 at f32 (:func:`qkv_f32_plan`: LayerNorm rows, the QKV
+    GEMM) on f32 x [B, N, dim]: exact f32 products on the CUDA cores. u
+    goes into the returned tensor with ``return_u``, else into a
+    scratch."""
+    b, n, dim = x.shape
+    inner = heads * dim_head
+    w, vecs = _operands(x, w_qkv, inner, torch.float32, gamma=gamma,
+                        beta=beta)
+    plan = qkv_f32_plan(b * n, dim, inner, return_u=return_u)
+    q, k, v = (x.new_empty(b, n, heads, dim_head) for _ in range(3))
+    u = (torch.empty_like(x) if return_u else
+         torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=x.device))
+    launch("nvt_fused_ln_qkv_f32_fwd",
+           (VOID,) * 8 + (INT, INT, INT, FLOAT), x,
+           ptr(x), ptr(vecs["gamma"]), ptr(vecs["beta"]), ptr(w), ptr(q),
+           ptr(k), ptr(v), ptr(u), b * n, dim, inner, nn.LN_EPS)
+    fused_ln_qkv_f32_cuda.launches += 1
+    return (q, k, v, u) if return_u else (q, k, v)
+
+
+fused_ln_qkv_f32_cuda.launches = 0
+
+
+def _forward(*tensors):
+    """The forward of a call (``common.pick``): plain, K2 or K2 at f32."""
+    return pick(fused_ln_qkv_plain, fused_ln_qkv_cuda, fused_ln_qkv_f32_cuda,
+                *tensors)
 
 
 def fused_ln_qkv_bwd_cuda(dqkv, x, gamma, w_qkv):
@@ -224,8 +280,7 @@ class FusedLnQkv(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, gamma, beta, w_qkv, heads, dim_head):
-        fwd = (fused_ln_qkv_plain if on_cpu(x, gamma, beta, w_qkv)
-               else fused_ln_qkv_cuda)
+        fwd = _forward(x, gamma, beta, w_qkv)
         q, k, v, u = fwd(x, gamma, beta, w_qkv, heads, dim_head,
                          return_u=True)
         ctx.save_for_backward(x, gamma, w_qkv, u)
@@ -249,9 +304,8 @@ def fused_ln_qkv(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                  w_qkv: torch.Tensor, heads: int, dim_head: int) -> QKV:
     """LN(x) then the QKV projection: [B, N, dim] -> q, k, v [B, N, H, D].
     Differentiable when an input requires grad. CPU tensors take the plain
-    version, CUDA tensors the kernels."""
+    version, CUDA tensors the kernels (bf16 or, forward only, f32)."""
     if is_training(x, gamma, beta, w_qkv):
         return FusedLnQkv.apply(x, gamma, beta, w_qkv, heads, dim_head)
-    fn = (fused_ln_qkv_plain if on_cpu(x, gamma, beta, w_qkv)
-          else fused_ln_qkv_cuda)
-    return fn(x, gamma, beta, w_qkv, heads, dim_head)
+    return _forward(x, gamma, beta, w_qkv)(x, gamma, beta, w_qkv, heads,
+                                           dim_head)

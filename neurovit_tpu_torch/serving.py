@@ -94,6 +94,7 @@ class Predictor:
             if model.encoder_kind != "vit":
                 raise ValueError("quant='int8' supports the ViT volume "
                                  "encoder only")
+            model.refuse_f32_on_cuda("int8 serving (quant='int8')")
             quantize_blocks(model.volume_encoder.vit3d)
 
     @classmethod

@@ -45,10 +45,13 @@ features encoded once (``training.feature_cache``, persisted under
 ``TRAINING_4D_FEATURE_CACHE_DIR``), drawing the same per-step seeds as the
 volume path.
 
-The model's device is the trainer's. The ViT's kernels take bf16 only, so
-its ``TRAINING_PRECISION: f32`` runs on the CPU (the plain path) and is
-refused on CUDA; the ResNet's pool kernels take f32 and its convs are
-cuDNN's, so it trains in f32 on either. A mesh of more than one device is
+The model's device is the trainer's. The ViT's kernels take f32 in the
+forwards K1-K4 only, so a 3D ViT's ``TRAINING_PRECISION: f32`` trains on
+the CPU (the plain path) and is refused on CUDA, while a 4D model, whose
+frozen ViT runs forward only, trains at f32 on either (its int8 encoder
+is refused at f32 on CUDA: K10-K13 take bf16 activations); the ResNet's
+pool kernels take f32 and its convs are cuDNN's, so it trains in f32 on
+either. A mesh of more than one device is
 not ported yet and raises, naming its ROADMAP item.
 """
 
@@ -68,7 +71,9 @@ import torch
 
 from neurovit_tpu_torch import nn
 from neurovit_tpu_torch.data.loader import DataLoader
-from neurovit_tpu_torch.models.neuro_encoder import NeuroEncoder, not_ported
+from neurovit_tpu_torch.models.neuro_encoder import (F32_ON_CUDA,
+                                                     NeuroEncoder,
+                                                     not_ported)
 from neurovit_tpu_torch.training import checkpoint as ckpt
 from neurovit_tpu_torch.training.metrics import MetricLogger
 from neurovit_tpu_torch.training.optim import Optimizer
@@ -92,8 +97,15 @@ def check_supported(config: Dict[str, Any], device: torch.device) -> None:
     if (device.type == "cuda"
             and config.get("MODEL_VOLUME_ENCODER", "vit") == "vit"
             and config.get("TRAINING_PRECISION", "bf16") != "bf16"):
-        raise not_ported("f32 compute of the ViT on CUDA (its kernels take "
-                         "bf16)", "f32 on CUDA")
+        # A 4D model's frozen ViT runs forward only, through K1-K4's f32
+        # instances; the 3D train step needs the backwards at f32.
+        if int(config.get("TRAINING_DIM", 3)) != 4:
+            raise not_ported("training an f32 3D ViT on CUDA (its backward "
+                             "kernels take bf16)", F32_ON_CUDA)
+        if quant4d == "int8":
+            raise not_ported("the int8 encoder (TRAINING_4D_ENCODER_QUANT) "
+                             "of an f32 ViT on CUDA (K10-K13 take bf16 "
+                             "activations)", F32_ON_CUDA)
 
 
 class Trainer:
@@ -190,16 +202,18 @@ class Trainer:
     def train_step(self, batch: Dict[str, torch.Tensor], zyx: bool = False
                    ) -> Dict[str, torch.Tensor]:
         """One micro-batch: forward with dropout, masked CE, backward, and
-        the optimizer step when the accumulation window is full. Returns
+        the optimizer step when the accumulation window is full, an f32
+        model's products at full f32 throughout (``nn.full_f32``). Returns
         device tensors (fetched at the log boundary)."""
         self.model.train()
         seed = int(torch.randint(0, SEED_HIGH, (1,),
                                  generator=self.generator))
-        logits = self._logits(batch, zyx, train=True, seed=seed)
-        loss, correct, count = nn.masked_mean_ce(logits, batch["label"],
-                                                 batch["valid"])
-        loss.backward()
-        self.optimizer.step()
+        with nn.full_f32(self.model.compute_dtype):
+            logits = self._logits(batch, zyx, train=True, seed=seed)
+            loss, correct, count = nn.masked_mean_ce(logits, batch["label"],
+                                                     batch["valid"])
+            loss.backward()
+            self.optimizer.step()
         return {"loss": loss.detach(), "correct": correct, "count": count}
 
     def _logits(self, batch: Dict[str, torch.Tensor], zyx: bool,

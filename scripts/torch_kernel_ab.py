@@ -39,7 +39,9 @@ goes through :func:`fused_outproj_bwd_call`: an older
 too, this one's reads dy and writes no dz then. K14 and K15 go through
 :func:`max_pool3d_call` and :func:`max_pool3d_bwd_call`: an older
 ``nvt_maxpool3d_fwd`` / ``_bwd`` (a thread a window) takes the shape
-alone, this one's also ``pool_plan``'s walk.
+alone, this one's also ``pool_plan``'s walk. The f32 forwards K1-K4 go through
+this checkout's wrappers on the same operands in f32 (K2 also with u, K4
+also at dropout 0.1 with h).
 
     python scripts/torch_kernel_ab.py --other <checkout> [--rounds 10]
         [--only <substring of a kernel's name>] [--batch 8]
@@ -318,6 +320,9 @@ def cases(b: int = cs.B) -> dict:
     pool_g = t(cs.POOL_SHAPE[0], *(maxpool3d.out_dim(s)
                                   for s in cs.POOL_SHAPE[1:4]),
                cs.POOL_SHAPE[4])
+    xf, attnf = x.float(), attn.float()
+    qkvf = [a.float() for a in qkv]
+    mlpf = (xf, *ln, w1, b1, w2, b2)
     return {
         "flash_attention": ("nvt_flash_attention_fwd", lambda: (
             fa.flash_attention_cuda(*qkv, scale=d ** -0.5, n_valid=n))),
@@ -363,6 +368,22 @@ def cases(b: int = cs.B) -> dict:
             max_pool3d_call(pool))),
         "max_pool3d_argmax_bwd": ("nvt_maxpool3d_bwd", lambda: (
             max_pool3d_bwd_call(codes, pool_g, cs.POOL_SHAPE))),
+        "flash_attention_f32": ("nvt_flash_attention_f32_fwd", lambda: (
+            fa.flash_attention_f32_cuda(*qkvf, scale=d ** -0.5,
+                                        n_valid=n))),
+        "fused_ln_qkv_f32": ("nvt_fused_ln_qkv_f32_fwd", lambda: (
+            fused_qkv.fused_ln_qkv_f32_cuda(xf, *ln, wqkv, h, d))),
+        "fused_ln_qkv_f32 with u": ("nvt_fused_ln_qkv_f32_fwd", lambda: (
+            fused_qkv.fused_ln_qkv_f32_cuda(xf, *ln, wqkv, h, d,
+                                            return_u=True))),
+        "fused_outproj_residual_f32": ("nvt_fused_outproj_f32_fwd", lambda: (
+            fused_outproj.fused_outproj_residual_f32_cuda(xf, attnf, wout,
+                                                          bout))),
+        "fused_mlp_block_f32": ("nvt_fused_mlp_f32_fwd", lambda: (
+            fused_mlp.fused_mlp_block_f32_cuda(*mlpf))),
+        "fused_mlp_block_f32 dropout h": ("nvt_fused_mlp_f32_fwd", lambda: (
+            fused_mlp.fused_mlp_block_f32_cuda(*mlpf, return_h=True,
+                                               **mdrop))),
     }
 
 

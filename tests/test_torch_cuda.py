@@ -39,7 +39,12 @@ for bit and their plans' bytes against the kernels' counts; and K8 on
 K9's dz rows pass and a TMA + wgmma GEMM at 1-8008 rows, every width of
 the matrix, ViT-H, dim 1536 and 2048 and inner 1040 (not a multiple of
 64), at dropout 0 (dz is dy) and 0.1 (dz bit-equal to plain), repeat
-calls bit for bit and its plan's shared memory against the kernel's.
+calls bit for bit and its plan's shared memory against the kernel's; and
+K1-K4 at f32 (FFMA on the CUDA cores) at rtol = atol = 1e-4: K1 at head
+dims 16-128, n_valid off the key tiles and the flagship at batch 8, K2
+with and without u, K3, K4 with h, at dropout 0 and 0.1, all-zero rows,
+repeat calls bit for bit, the plans' bytes against the kernels', and an
+f32 ViT's forward launching only the f32 kernels.
 
 These need an NVIDIA GPU with sm_90a and nvcc; elsewhere they skip. Run on
 the card with:
@@ -634,12 +639,13 @@ def test_training_autograd_runs_the_kernels(cuda):
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
-    """An f32 activation, a head dim past the largest instance, and a width
+    """An f16 activation, a head dim past the largest instance, and a width
     that is not a multiple of 16; each refusal names ROADMAP.md, Queue 3."""
-    x = torch.zeros(1, 4, 512, device=cuda)              # f32, not bf16
+    x = torch.zeros(1, 4, 512, device=cuda,              # neither bf16
+                    dtype=torch.float16)                 # nor f32
     with pytest.raises(TypeError):
         fused_outproj.fused_outproj_residual(
-            x, torch.zeros(1, 4, 128, device=cuda),
+            x, torch.zeros_like(x[..., :128]),
             torch.zeros(512, 128, device=cuda), torch.zeros(512, device=cuda))
     q = torch.zeros(1, 4, 2, 256, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="head dim <= 128.*Queue 3"):
@@ -1895,3 +1901,216 @@ def test_fourd_resnet_encoder_launches_k14(cuda):
     with torch.no_grad():
         want = torch.softmax(cpu(x), -1)
     assert (got.detach().cpu() - want).abs().max() <= 2e-2
+
+
+# K1-K4 at f32 (csrc/*_f32.cu, csrc/ffma.cuh): f32 products on the CUDA
+# cores, held to the plain versions at rtol = atol = 1e-4 (f32 sums taken
+# in another order; the dropout masks are the same bits on both sides).
+F32_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _check_f32(got, want):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.float32 and g.shape == w.shape
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, **F32_TOL)
+
+
+def _f32(rng, shape, device, scale=1.0, offset=0.0):
+    return _rand(rng, shape, device, torch.float32, scale, offset)
+
+
+# (b, n, n_valid, heads, head dim): one token, ragged query and key tiles,
+# n_valid inside the last key tile and off it, head dims on each instance
+# (32, 64, 128) and padded to one (16, 80), the flagship at batch 8.
+F32_ATTN_CASES = [(1, 1, 1, 2, 64), (2, 70, 70, 3, 64), (2, 130, 97, 2, 32),
+                  (1, 1001, 900, 2, 128), (2, 65, 65, 4, 16),
+                  (1, 100, 33, 2, 80), (8, 1001, 1001, 8, 64)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,n,n_valid,h,d", F32_ATTN_CASES)
+def test_flash_attention_f32_kernel(cuda, b, n, n_valid, h, d, rate):
+    """K1 at f32 with its row sums against plain, one launch a call, two
+    calls bit-equal; the bf16 K1 not launched."""
+    rng = np.random.default_rng(n + d)
+    q, k, v = (_f32(rng, (b, n, h, d), cuda) for _ in range(3))
+    kw = {"scale": d ** -0.5, "n_valid": n_valid, "dropout_rate": rate,
+          "seed": 5, "return_stats": True}
+    before = (fa.flash_attention_f32_cuda.launches,
+              fa.flash_attention_cuda.launches)
+    got = fa.flash_attention(q, k, v, scale=kw["scale"], n_valid=n_valid,
+                             dropout_rate=rate, seed=5)
+    _check_f32(got, fa.flash_attention_plain(q, k, v, **dict(
+        kw, return_stats=False)))
+    assert (fa.flash_attention_f32_cuda.launches,
+            fa.flash_attention_cuda.launches) == (before[0] + 1, before[1])
+    o, lsum = fa.flash_attention_f32_cuda(q, k, v, **kw)
+    _check_f32((o, lsum), fa.flash_attention_plain(q, k, v, **kw))
+    again = fa.flash_attention_f32_cuda(q, k, v, **kw)
+    assert torch.equal(o, again[0]) and torch.equal(lsum, again[1])
+
+
+F32_QKV_CASES = [(1, 64, 4, 16), (65, 512, 4, 64), (130, 1024, 8, 64),
+                 (300, 384, 6, 64), (130, 1280, 16, 80), (8008, 1024, 8, 64)]
+
+
+@pytest.mark.parametrize("return_u", [False, True])
+@pytest.mark.parametrize("m,dim,heads,dh", F32_QKV_CASES)
+def test_fused_ln_qkv_f32_kernel(cuda, m, dim, heads, dh, return_u):
+    """K2 at f32 (u too in training) against plain; u served from the
+    scratch gives the q, k, v of u returned, bit for bit."""
+    rng = np.random.default_rng(m + dim)
+    args = (_f32(rng, (1, m, dim), cuda),
+            _f32(rng, (dim,), cuda, 0.1, 1.0), _f32(rng, (dim,), cuda, 0.1),
+            _f32(rng, (3 * heads * dh, dim), cuda, dim ** -0.5), heads, dh)
+    got = fused_qkv.fused_ln_qkv_f32_cuda(*args, return_u=return_u)
+    _check_f32(got, fused_qkv.fused_ln_qkv_plain(*args, return_u=return_u))
+    other = fused_qkv.fused_ln_qkv_f32_cuda(*args, return_u=not return_u)
+    assert all(torch.equal(a, b) for a, b in zip(got[:3], other[:3]))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("m,dim,inner", [(1, 64, 64), (130, 1024, 512),
+                                         (300, 768, 768), (8008, 1024, 512),
+                                         (65, 1280, 1280)])
+def test_fused_outproj_f32_kernel(cuda, m, dim, inner, rate):
+    rng = np.random.default_rng(m + inner)
+    args = (_f32(rng, (1, m, dim), cuda), _f32(rng, (1, m, inner), cuda),
+            _f32(rng, (dim, inner), cuda, inner ** -0.5),
+            _f32(rng, (dim,), cuda, 0.05))
+    kw = {"dropout_rate": rate, "seed": 11}
+    before = fused_outproj.fused_outproj_residual_f32_cuda.launches
+    got = fused_outproj.fused_outproj_residual(*args, **kw)
+    _check_f32(got, fused_outproj.fused_outproj_residual_plain(*args, **kw))
+    assert fused_outproj.fused_outproj_residual_f32_cuda.launches == \
+        before + 1
+    assert torch.equal(got, fused_outproj.fused_outproj_residual(*args, **kw))
+
+
+def _mlp_f32_args(rng, m, dim, hid, device, zero_rows=(), zero_bias=False):
+    x = _f32(rng, (1, m, dim), device)
+    x[0, list(zero_rows)] = 0
+    args = [x, _f32(rng, (dim,), device, 0.1, 1.0),
+            _f32(rng, (dim,), device, 0.1),
+            _f32(rng, (hid, dim), device, dim ** -0.5),
+            _f32(rng, (hid,), device, 0.05),
+            _f32(rng, (dim, hid), device, hid ** -0.5),
+            _f32(rng, (dim,), device, 0.05)]
+    if zero_bias:
+        args[2].zero_()
+        args[4].zero_()
+    return tuple(args)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("m,dim,hid", [(1, 64, 128), (33, 256, 384),
+                                       (130, 1024, 2048), (300, 1280, 5120),
+                                       (8008, 1024, 2048)])
+def test_fused_mlp_f32_kernel(cuda, m, dim, hid, rate):
+    """K4 at f32 with h (the pre-GELU hidden) against plain, and without
+    h the same y; two calls bit-equal."""
+    args = _mlp_f32_args(np.random.default_rng(m + hid), m, dim, hid, cuda)
+    kw = {"dropout_rate": rate, "seeds": (8, 9)}
+    got = fused_mlp.fused_mlp_block_f32_cuda(*args, return_h=True, **kw)
+    _check_f32(got, fused_mlp.fused_mlp_block_plain(*args, return_h=True,
+                                                    **kw))
+    y = fused_mlp.fused_mlp_block_f32_cuda(*args, **kw)
+    assert torch.equal(y, got[0])
+
+
+@pytest.mark.parametrize("zero_bias", [True, False])
+def test_f32_kernels_zero_rows(cuda, zero_bias):
+    """All-zero rows at a tile's first and last row and in the ragged tile:
+    with beta = b1 = 0, K4's h is 0 there and y is b2; K2's u is beta."""
+    rows = (0, 127, 128, 129)
+    args = _mlp_f32_args(np.random.default_rng(3), 130, 256, 384, cuda,
+                         zero_rows=rows, zero_bias=zero_bias)
+    y, h = fused_mlp.fused_mlp_block_f32_cuda(*args, return_h=True)
+    _check_f32((y, h), fused_mlp.fused_mlp_block_plain(*args, return_h=True))
+    x, gamma, beta = args[:3]
+    w = _f32(np.random.default_rng(4), (3 * 128, 256), cuda, 256 ** -0.5)
+    qkvu = fused_qkv.fused_ln_qkv_f32_cuda(x, gamma, beta, w, 2, 64,
+                                           return_u=True)
+    _check_f32(qkvu, fused_qkv.fused_ln_qkv_plain(x, gamma, beta, w, 2, 64,
+                                                  return_u=True))
+    if zero_bias:
+        assert torch.equal(y[0, list(rows)],
+                           args[-1].expand(len(rows), -1))
+        assert not h[0, list(rows)].abs().max()
+        assert not qkvu[3][0, list(rows)].abs().max()
+
+
+def test_f32_plans_match_the_kernels(cuda):
+    """The wrappers' f32 plans count the GEMM's shared memory, K4's
+    scratch and K1's shared memory as the kernels do."""
+    import ctypes
+
+    from neurovit_tpu_torch.ops import _build
+    lib = _build.library()
+    gemm = lib.nvt_ffma_gemm_smem_bytes
+    gemm.restype, gemm.argtypes = ctypes.c_longlong, []
+    scratch = lib.nvt_fused_mlp_f32_scratch_bytes
+    scratch.restype, scratch.argtypes = ctypes.c_longlong, [ctypes.c_int] * 3
+    attn = lib.nvt_flash_attention_f32_smem_bytes
+    attn.restype, attn.argtypes = ctypes.c_longlong, [ctypes.c_int]
+    assert gemm() == fused_mlp.f32_gemm_smem_bytes()
+    for dim, heads, dh, hid in WIDTHS.values():
+        for m in (1, 130, 8008, 32032):
+            assert scratch(m, dim, hid) == fused_mlp.mlp_f32_plan(
+                m, dim, hid).scratch_bytes
+        plan = fa.flash_f32_plan(2, 1001, heads, dh)
+        assert attn(plan.d_kernel) == plan.smem
+
+
+def test_f32_kernels_do_not_spill(cuda):
+    """ptxas's report in the build log: no kernel of the f32 forwards
+    (csrc/*_f32.cu, the LayerNorm rows of csrc/ffma.cu) spills."""
+    from neurovit_tpu_torch.ops import _build
+    kernels, _ = _build.ptxas_report(
+        _build.build_log(_build.build()).read_text())
+    f32 = [k for k in kernels
+           if k[0].endswith("_f32.cu") or k[0] == "ffma.cu"]
+    assert len(f32) >= 8
+    assert [k[:2] for k in f32 if k[3] or k[4]] == []
+
+
+def test_f32_forward_runs_the_f32_kernels(cuda):
+    """An f32 ViT's forward on the card launches K1-K4 at f32 once a block
+    and no bf16 kernel, its logits within 1e-4 of the CPU plain path; a
+    bf16 forward of the same weights launches no f32 kernel."""
+    from neurovit_tpu_torch.config import load_config
+    from neurovit_tpu_torch.models import NeuroEncoder
+
+    config = load_config(overrides={
+        "TRAINING_VIT_INPUT_SIZE": 20, "TRAINING_VIT_PATCH_SIZE": 5,
+        "DATASET_NAME": "adni", "TRAINING_PRECISION": "f32",
+        "MODEL_VIT_DIM": 256, "MODEL_VIT_DEPTH": 2, "MODEL_VIT_HEADS": 4,
+        "MODEL_VIT_DIM_HEAD": 64, "MODEL_VIT_MLP_DIM": 512})
+    f32 = (fa.flash_attention_f32_cuda, fused_qkv.fused_ln_qkv_f32_cuda,
+           fused_outproj.fused_outproj_residual_f32_cuda,
+           fused_mlp.fused_mlp_block_f32_cuda)
+    bf16 = (fa.flash_attention_cuda, fused_qkv.fused_ln_qkv_cuda,
+            fused_outproj.fused_outproj_residual_cuda,
+            fused_mlp.fused_mlp_block_cuda)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (3, 20, 20, 20)).astype(np.float32))
+    cpu = NeuroEncoder(config, device="cpu", seed=3)
+    model = NeuroEncoder(config, device=cuda, seed=3)
+    before = [fn.launches for fn in f32 + bf16]
+    with torch.no_grad():
+        got = model(x.to(cuda))
+        want = cpu(x)
+    torch.cuda.synchronize()
+    assert [fn.launches - b for fn, b in zip(f32 + bf16, before)] == \
+        [2] * 4 + [0] * 4
+    torch.testing.assert_close(got.cpu(), want, **F32_TOL)
+    model16 = NeuroEncoder(dict(config, TRAINING_PRECISION="bf16"),
+                           device=cuda, seed=3)
+    before = [fn.launches for fn in f32]
+    with torch.no_grad():
+        model16(x.to(cuda))
+    assert [fn.launches for fn in f32] == before

@@ -1,0 +1,291 @@
+"""The f32 forwards K1-K4 (csrc/*_f32.cu, csrc/ffma.cuh) as far as the CPU
+reaches them: their plans at the flagship, at 130 rows, at every width of
+``models/vit3d.py`` WIDTHS and at head dims 32, 64 and 128; the kernels'
+index maps (the GEMM's staging copies, the attention's permuted chunks)
+modelled in numpy; their dropout bytes against ``nn.keep_mask``; and the
+dispatch rule (CPU tensors run the plain versions, f32 CUDA tensors the
+f32 kernels, bf16 ones the bf16 kernels). The kernels themselves run on
+the card only (tests/test_torch_cuda.py, chip_smoke.py's ``f32`` phase).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from neurovit_tpu_torch import nn
+from neurovit_tpu_torch.models.vit3d import WIDTHS
+from neurovit_tpu_torch.ops import common
+from neurovit_tpu_torch.ops import flash_attention as fa
+from neurovit_tpu_torch.ops import fused_mlp, fused_outproj, fused_qkv
+from neurovit_tpu_torch.ops.common import SMEM_LIMIT
+
+torch.set_num_threads(1)
+
+F32_COUNTED = (fa.flash_attention_f32_cuda, fused_qkv.fused_ln_qkv_f32_cuda,
+               fused_outproj.fused_outproj_residual_f32_cuda,
+               fused_mlp.fused_mlp_block_f32_cuda)
+# Rows: one volume, 130, the flagship at batch 8 and 32 (1001 tokens).
+ROWS = [1001, 130, 8008, 32032]
+
+
+def _gemm_covers(launch, m, n):
+    name, grid, threads, smem = launch
+    assert threads == fused_mlp.F32_THREADS == 256
+    assert smem == fused_mlp.f32_gemm_smem_bytes() == 2 * 2 * 16 * 132 * 4
+    assert smem <= SMEM_LIMIT
+    assert grid[0] * 128 >= n > (grid[0] - 1) * 128
+    assert grid[1] * 128 >= m > (grid[1] - 1) * 128
+
+
+@pytest.mark.parametrize("m", ROWS)
+@pytest.mark.parametrize("width", sorted(WIDTHS))
+def test_f32_gemm_plans(width, m):
+    """K2, K3 and K4 at f32: LayerNorm rows a warp each, then GEMMs whose
+    128 x 128 tiles cover the output; the scratch holds u (and g) f32 on
+    256-byte boundaries."""
+    dim, heads, dh, hid = WIDTHS[width]
+    inner = heads * dh
+    for return_u in (False, True):
+        plan = fused_qkv.qkv_f32_plan(m, dim, inner, return_u=return_u)
+        (ln, grid, threads, smem), gemm = plan.launches
+        assert (ln, grid, threads, smem) == ("ln_rows", (-(-m // 8), 1), 256,
+                                             0)
+        assert gemm[0] == "qkv_gemm"
+        _gemm_covers(gemm, m, 3 * inner)
+        assert plan.scratch == ({} if return_u else {"u": (0, m * dim * 4)})
+        assert plan.scratch_bytes % 256 == 0
+        assert plan.scratch_bytes >= sum(b for _, b in plan.scratch.values())
+    plan = fused_outproj.outproj_f32_plan(m, dim, inner)
+    (gemm,) = plan.launches
+    assert gemm[0] == "fc2_residual"
+    _gemm_covers(gemm, m, dim)
+    plan = fused_mlp.mlp_f32_plan(m, dim, hid)
+    ln, fc1, fc2 = plan.launches
+    assert ln[:3] == ("ln_rows", (-(-m // 8), 1), 256)
+    assert (fc1[0], fc2[0]) == ("fc1_gelu", "fc2_residual")
+    _gemm_covers(fc1, m, hid)
+    _gemm_covers(fc2, m, dim)
+    (u0, ub), (g0, gb) = plan.scratch["u"], plan.scratch["g"]
+    assert (u0, ub, gb) == (0, m * dim * 4, m * hid * 4)
+    assert g0 % 256 == 0 and g0 >= ub
+    assert plan.scratch_bytes % 256 == 0 and plan.scratch_bytes >= g0 + gb
+
+
+@pytest.mark.parametrize("b,n", [(1, 1), (1, 130), (8, 1001), (32, 1001),
+                                 (280, 1001)])
+@pytest.mark.parametrize("d,d_kernel", [(8, 32), (16, 32), (32, 32),
+                                        (64, 64), (80, 128), (128, 128)])
+def test_flash_f32_plan(d, d_kernel, b, n):
+    """K1 at f32: instances at 32, 64 and 128 (other head dims padded), a
+    64-row query tile a block of 128 threads, 32 keys a tile; shared
+    memory (Q, two K and two V tiles, P) under 227 KB."""
+    plan = fa.flash_f32_plan(b, n, 8, d)
+    assert plan.d_kernel == d_kernel == fa.f32_head_dim(d)
+    assert (plan.bq, plan.bkv, plan.threads) == (64, 32, 128)
+    assert plan.grid == (-(-n // 64) * b * 8,)
+    assert plan.smem == (64 * d_kernel + 4 * 32 * d_kernel + 64 * 32) * 4
+    assert plan.smem <= SMEM_LIMIT
+
+
+def test_f32_plans_refuse_what_bf16_refuses():
+    """The f32 instances take the widths and head dims the bf16 ones take,
+    and refuse the same others."""
+    with pytest.raises(ValueError, match="head dim <= 128"):
+        fa.flash_f32_plan(1, 10, 2, 160)
+    with pytest.raises(ValueError, match="2\\^31"):
+        fa.flash_f32_plan(2 ** 16, 2 ** 12, 2 ** 4, 64)
+    for plan in (lambda: fused_qkv.qkv_f32_plan(10, 72, 64),
+                 lambda: fused_outproj.outproj_f32_plan(10, 64, 40),
+                 lambda: fused_mlp.mlp_f32_plan(10, 64, 100)):
+        with pytest.raises(ValueError, match="multiple of 16"):
+            plan()
+    for plan in (lambda: fused_qkv.qkv_f32_plan(0, 64, 64),
+                 lambda: fused_outproj.outproj_f32_plan(0, 64, 64),
+                 lambda: fused_mlp.mlp_f32_plan(0, 64, 64)):
+        with pytest.raises(ValueError, match="at least one row"):
+            plan()
+
+
+def test_gemm_staging_copies_are_a_conflict_free_bijection():
+    """ffma.cuh stage_slice: copy c of thread t takes element idx = t +
+    256 c of a 16 x 128 slice, k = (idx & 7) + 8 (idx >> 10), r = (idx >>
+    3) & 127, into As[k][r] (rows of 132 floats), which the kernel computes
+    as t % 8 + 8 (c / 4) and t / 8 + 32 (c % 4). Every element once; a
+    warp's copy lands in 32 banks and reads 4 rows' 32 contiguous bytes."""
+    idx = np.arange(16 * 128)
+    k = (idx & 7) + 8 * (idx >> 10)
+    r = (idx >> 3) & 127
+    t, c = idx % 256, idx // 256
+    np.testing.assert_array_equal(k, t % 8 + 8 * (c // 4))
+    np.testing.assert_array_equal(r, t // 8 + 32 * (c % 4))
+    assert len(set(zip(k.tolist(), r.tolist()))) == idx.size
+    for warp in range(idx.size // 32):
+        lanes = slice(32 * warp, 32 * warp + 32)
+        banks = (k[lanes] * 132 + r[lanes]) % 32
+        assert len(set(banks.tolist())) == 32
+        rows = set(r[lanes].tolist())
+        assert len(rows) == 4
+        for row in rows:
+            assert sorted(k[lanes][r[lanes] == row].tolist()) == \
+                list(range(k[lanes][0] // 8 * 8, k[lanes][0] // 8 * 8 + 8))
+
+
+@pytest.mark.parametrize("width", [32, 64, 128])
+def test_attention_chunk_permutation(width):
+    """flash_attention_f32.cu swz: chunk c of row r at c ^ ((r / 4) % 8), a
+    permutation of each row's chunks; the Q rows (ty*4 + i, four ty a warp)
+    and the K rows (tx*4 + j, eight tx a warp) that a warp reads at one
+    chunk fall into distinct 16-byte bank slots."""
+    def swz(r, c):
+        return r * width + ((c ^ ((r >> 2) & 7)) << 2)
+
+    rows = 64
+    for r in range(rows):
+        offs = sorted(swz(r, c) - r * width for c in range(width // 4))
+        assert offs == list(range(0, width, 4))
+    for c in range(width // 4):
+        for i in range(4):
+            for warp in range(4):
+                q_slots = {swz(ty * 4 + i, c) % 32 // 4
+                           for ty in range(4 * warp, 4 * warp + 4)}
+                assert len(q_slots) == 4
+            k_slots = {swz(tx * 4 + i, c) % 32 // 4 for tx in range(8)}
+            assert len(k_slots) == 8
+
+
+def _word_byte(words, i):
+    """Byte i % 16 of the Philox block words (x, y, z, w)."""
+    j = i & 15
+    return (int(words[j >> 2]) >> (8 * (j & 3))) & 0xFF
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_gemm_dropout_bytes_are_keep_mask(rate):
+    """ffma.cuh keep4 at every float4 of an [m, n] site (n % 16 == 0):
+    word (i >> 2) & 3 of Philox(i >> 4), its four bytes below q, equal to
+    nn.keep_mask's bits."""
+    m, n, seed = 5, 48, 0x1234_5678_9ABC
+    q, _ = nn.keep_threshold(rate)
+    want = nn.keep_mask(seed, (m, n), rate).reshape(-1).numpy()
+    got = np.zeros(m * n, bool)
+    for i in range(0, m * n, 4):
+        w = nn.philox4x32(torch.tensor([i >> 4]), seed)[0].tolist()
+        word = w[(i >> 2) & 3]
+        for j in range(4):
+            got[i + j] = ((word >> (8 * j)) & 0xFF) < q
+    np.testing.assert_array_equal(got, want)
+
+
+def test_attention_dropout_bytes_are_keep_mask():
+    """flash_attention_f32.cu: a thread's four keys of a row, ((b H + h) N
+    + q) N + key0 .. + 3, from the Philox blocks of the first and last
+    (N = 1001 is odd, so they straddle blocks), equal to nn.keep_mask over
+    [B, H, N, N]."""
+    b, h, n, rate, seed = 2, 3, 1001, 0.1, 99
+    q, _ = nn.keep_threshold(rate)
+    mask = nn.keep_mask(seed, (b, h, n, n), rate).numpy()
+    rng = np.random.default_rng(0)
+    for _ in range(40):
+        bh = int(rng.integers(b * h))
+        row = int(rng.integers(n))
+        key0 = 4 * int(rng.integers(n // 4))
+        i0 = (bh * n + row) * n + key0
+        w0 = nn.philox4x32(torch.tensor([i0 >> 4]), seed)[0].tolist()
+        w1 = nn.philox4x32(torch.tensor([(i0 + 3) >> 4]), seed)[0].tolist()
+        for j in range(4):
+            e = i0 + j
+            byte = _word_byte(w0 if e >> 4 == i0 >> 4 else w1, e)
+            if key0 + j < n:
+                assert (byte < q) == mask[bh // h, bh % h, row, key0 + j]
+
+
+def _block_args(rng, dtype=torch.float32):
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(
+            np.float32)).to(dtype)
+    return t
+
+
+def test_cpu_f32_runs_the_plain_versions_and_counts_nothing():
+    """f32 CPU tensors through the four public ops, serving and in
+    training (autograd functions), equal the plain versions; no f32 (or
+    bf16) kernel counts a launch."""
+    before = [fn.launches for fn in F32_COUNTED]
+    t = _block_args(np.random.default_rng(3))
+    x, g, bt = t(2, 9, 64), t(64), t(64)
+    w = t(3 * 64, 64, scale=0.1)
+    for grad in (False, True):
+        params = [p.clone().requires_grad_(grad) for p in (g, bt, w)]
+        got = fused_qkv.fused_ln_qkv(x, *params, 4, 16)
+        want = fused_qkv.fused_ln_qkv_plain(x, g, bt, w, 4, 16)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        q, k, v = got
+        o = fa.flash_attention(q, k, v, scale=0.25, n_valid=7)
+        torch.testing.assert_close(
+            o, fa.flash_attention_plain(q, k, v, scale=0.25, n_valid=7),
+            rtol=0, atol=0)
+        wo, bo = t(64, 64, scale=0.1), t(64)
+        y = fused_outproj.fused_outproj_residual(x, o.reshape(2, 9, 64), wo,
+                                                 bo)
+        torch.testing.assert_close(y, fused_outproj.fused_outproj_residual_plain(
+            x, o.reshape(2, 9, 64), wo, bo), rtol=0, atol=0)
+        args = (y, g, bt, t(128, 64, scale=0.1), t(128), t(64, 128, scale=0.1),
+                t(64))
+        torch.testing.assert_close(fused_mlp.fused_mlp_block(*args),
+                                   fused_mlp.fused_mlp_block_plain(*args),
+                                   rtol=0, atol=0)
+    assert [fn.launches for fn in F32_COUNTED] == before == [0] * 4
+
+
+@pytest.mark.parametrize("dtype,kernel", [
+    (torch.float32, "f32"), (torch.bfloat16, "bf16"),
+    (torch.float16, "bf16")])
+def test_dispatch_on_card_tensors(monkeypatch, dtype, kernel):
+    """With operands taken as on the card: f32 picks each op's f32
+    kernel, bf16 its bf16 kernel, and any other dtype the bf16 kernel,
+    which raises for it (there is no fallback); bhnd f32 is K6's, which
+    takes bf16 only."""
+    for module in (common, fa):
+        monkeypatch.setattr(module, "on_cpu", lambda *_: False)
+    x = torch.zeros(1, 4, 64, dtype=dtype)
+    q = torch.zeros(1, 4, 2, fa.MIN_KERNEL_HEAD_DIM, dtype=dtype)
+    picks = {
+        "qkv": fused_qkv._forward(x),
+        "outproj": fused_outproj._forward(x),
+        "mlp": fused_mlp._forward(x),
+        "attention": fa._fwd_impl("bnhd", q),
+    }
+    want = {
+        "f32": {"qkv": fused_qkv.fused_ln_qkv_f32_cuda,
+                "outproj": fused_outproj.fused_outproj_residual_f32_cuda,
+                "mlp": fused_mlp.fused_mlp_block_f32_cuda,
+                "attention": fa.flash_attention_f32_cuda},
+        "bf16": {"qkv": fused_qkv.fused_ln_qkv_cuda,
+                 "outproj": fused_outproj.fused_outproj_residual_cuda,
+                 "mlp": fused_mlp.fused_mlp_block_cuda,
+                 "attention": fa.flash_attention_cuda}}[kernel]
+    assert picks == want
+    assert fa._fwd_impl("bhnd", q) is fa.flash_attention_bhnd_cuda
+
+
+def test_f32_wrappers_refuse_cpu_tensors():
+    """Each f32 kernel's wrapper takes CUDA tensors only: on CPU tensors it
+    raises before any launch, and counts nothing."""
+    before = [fn.launches for fn in F32_COUNTED]
+    t = _block_args(np.random.default_rng(4))
+    x = t(1, 5, 64)
+    calls = [
+        lambda: fa.flash_attention_f32_cuda(t(1, 5, 2, 32), t(1, 5, 2, 32),
+                                            t(1, 5, 2, 32), scale=0.2),
+        lambda: fused_qkv.fused_ln_qkv_f32_cuda(x, t(64), t(64), t(96, 64),
+                                                2, 16),
+        lambda: fused_outproj.fused_outproj_residual_f32_cuda(
+            x, t(1, 5, 32), t(64, 32), t(64)),
+        lambda: fused_mlp.fused_mlp_block_f32_cuda(
+            x, t(64), t(64), t(128, 64), t(128), t(64, 128), t(64)),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            call()
+    assert [fn.launches for fn in F32_COUNTED] == before
