@@ -192,7 +192,7 @@ Phases, each printing a line; any failure raises and exits non-zero:
                encoder, the encoder's share, peak memory, profiler splits;
                (g) the ResNet-18 encoder in 4D at B 1 x T 8, one K14, its
                encodings and the logits against the CPU plain path
-18. f32        K1-K4 at f32 (FFMA on the CUDA cores), with
+18. f32        K1-K5, K7-K9 at f32 (FFMA on the CUDA cores), with
                torch.backends.cuda.matmul.allow_tf32 off: (a) each against
                its plain version at the flagship block (batch 8 x 1001),
                within 1e-4 (1 + |plain|), two calls bit-equal: K1 at
@@ -216,7 +216,25 @@ Phases, each printing a line; any failure raises and exits non-zero:
                times per encoder forward and nothing else; the step and
                the encoder timed, peak memory; the encodings and the last
                block's output of the first and last timepoint of each
-               sequence against the CPU plain path within 1e-3
+               sequence against the CPU plain path within 1e-3; (d) K5,
+               K7, K8 and K9 at f32 against their plain versions at the
+               flagship block, the data gradients within 1e-4 (1 +
+               |plain|), dgamma and dbeta within 1e-5 relative Frobenius
+               error, two calls bit-equal: K5 at n_valid 1001 (dropout
+               0.1 and 0) and 900 and at head dims 32, 64 and 128; K7, K8
+               and K9 at dropout 0.1 and 0, at 130 rows and on all-zero
+               rows of dqkv or dy (dx, dattn, dz and dh 0 there); each
+               timed as in (a), beside f32 torch.mm at its GEMMs or f32
+               SDPA's backward; (e) the flagship's loss and every
+               parameter gradient at f32 (batch 2, dropout 0.1) on cuda
+               against the CPU plain path, the worst within 1e-3 relative
+               Frobenius error; (f) Trainer.run() of the flagship at f32
+               (two steps at batch 32 and a validation batch), K1-K4 at
+               f32 depth times per forward and K5, K7-K9 at f32 depth
+               times per step, nothing else; the step at batch 32 timed
+               (vol/s, TFLOP/s at 274.4 GFLOP a volume, peak memory) with
+               a profiler split; the smoke model trained at f32 through
+               the CLI, launching the f32 kernels only
 19. widths     the verify recipe's smoke model (dim 64, 4 heads of 16)
                trained for an epoch in bf16 on cuda through the CLI's main(),
                every block kernel launched; a ViT-B-width model (768, 12 x
@@ -351,6 +369,16 @@ KERNELS = [
      "neurovit_tpu/ops/fused_outproj.py:44"),
     ("fused_mlp_block_f32", "neurovit_tpu_torch/csrc/fused_mlp_f32.cu",
      "neurovit_tpu/ops/fused_mlp.py:108"),
+    ("flash_attention_bwd_f32",
+     "neurovit_tpu_torch/csrc/flash_attention_bwd_f32.cu",
+     "neurovit_tpu/ops/flash_attention.py:269"),
+    ("fused_ln_qkv_bwd_f32", "neurovit_tpu_torch/csrc/fused_qkv_bwd_f32.cu",
+     "neurovit_tpu/ops/fused_qkv.py:71"),
+    ("fused_outproj_bwd_f32",
+     "neurovit_tpu_torch/csrc/fused_outproj_bwd_f32.cu",
+     "neurovit_tpu/ops/fused_outproj.py:56"),
+    ("fused_mlp_bwd_f32", "neurovit_tpu_torch/csrc/fused_mlp_bwd_f32.cu",
+     "neurovit_tpu/ops/fused_mlp.py:141"),
 ]
 INT8_KERNELS = [name for name, _, _ in KERNELS if name.startswith("int8_")]
 # K6: only the Grad-CAM probe's last block runs it.
@@ -359,8 +387,12 @@ GRADCAM_KERNELS = ["flash_attention_bhnd", "flash_attention_bhnd_bwd"]
 RESNET_KERNELS = ["max_pool3d_argmax", "max_pool3d_argmax_bwd"]
 # K16-K18: only the probe scripts run them.
 PROBE_KERNELS = ["dropout", "gemm_bf16", "gemm_int8", "dynquant_matmul"]
-# K1-K4 at f32: only an f32 ViT's forward runs them (phase 18).
+# K1-K5 and K7-K9 at f32: only an f32 ViT runs them (phase 18); serving
+# and the 4D step launch the forwards alone.
 F32_KERNELS = [name for name, _, _ in KERNELS if name.endswith("_f32")]
+F32_BACKWARD_KERNELS = [name for name in F32_KERNELS if "_bwd" in name]
+F32_FORWARD_KERNELS = [name for name in F32_KERNELS
+                       if name not in F32_BACKWARD_KERNELS]
 # Kernels no bf16 ViT block forward or backward launches.
 OFF_BLOCK_KERNELS = (INT8_KERNELS + GRADCAM_KERNELS + RESNET_KERNELS
                      + PROBE_KERNELS + F32_KERNELS)
@@ -384,6 +416,14 @@ F32_FFMA_PER_S = 67e12
 # within F32_LOGIT_ATOL, six blocks deep.
 F32_TOL = 1e-4
 F32_LOGIT_ATOL = 1e-3
+# The f32 backwards' dgamma and dbeta against plain: relative Frobenius
+# error (their sums over the rows taken in another order move them by
+# about 1e-7 of their norm). The f32 model's parameter gradients on the
+# card against the CPU plain path: relative Frobenius error, worst
+# parameter (f32 sums in another order through six blocks and back, where
+# a gradient that nearly cancels loses its relative digits first).
+F32_PARAM_RTOL = 1e-5
+F32_GRAD_RTOL = 1e-3
 
 
 def log(phase: str, msg: str) -> None:
@@ -1768,20 +1808,18 @@ def probes_phase(card: str, counters: dict) -> tuple:
     return stats, launches
 
 
-def widths_model_phase(config, workdir: str, counters: dict) -> None:
+def smoke_cli(config, workdir: str, counters: dict, precision: str,
+              phase: str) -> dict:
     """The verify recipe's smoke model (dim 64, 4 heads of 16, MLP 128,
-    depth 2, 20^3 synthetic cubes) trained for an epoch in bf16 on cuda
-    through ``python -m neurovit_tpu_torch.main``'s main(), every bf16
-    forward and backward kernel launched; then a ViT-B-width model (dim
-    768, 12 heads of 64, MLP 3072, depth cut to 4, 90^3 volumes) served by
-    Predictor against the CPU plain path."""
+    depth 2, 20^3 synthetic cubes) trained for an epoch at ``precision``
+    on cuda through ``python -m neurovit_tpu_torch.main``'s main(), which
+    must print its training lines and save its checkpoint. Returns the
+    run's launch counts."""
     import yaml
 
     from neurovit_tpu_torch import main as cli
-    from neurovit_tpu_torch.models import NeuroEncoder
-    from neurovit_tpu_torch.serving import Predictor
 
-    runs = os.path.join(workdir, "smoke_runs")
+    runs = os.path.join(workdir, f"smoke_runs_{precision}")
     smoke = dict(config, DATASET_NAME="gradcam", DATASET_GENERATE=True,
                  GRADCAM_NUM_SAMPLES=80,
                  GRADCAM_TRAIN_PATH=os.path.join(runs, "train.pkl"),
@@ -1790,15 +1828,14 @@ def widths_model_phase(config, workdir: str, counters: dict) -> None:
                  MODEL_VIT_DIM=64, MODEL_VIT_DEPTH=2, MODEL_VIT_HEADS=4,
                  MODEL_VIT_DIM_HEAD=16, MODEL_VIT_MLP_DIM=128,
                  TRAINING_EPOCHS=1, TRAINING_BATCH_SIZE=8,
-                 TRAINING_PRECISION="bf16", TRAINING_LEARNING_RATE=1e-3,
+                 TRAINING_PRECISION=precision, TRAINING_LEARNING_RATE=1e-3,
                  TRAINING_NUM_WORKERS=2, GRADCAM_SLICE_IDX=10,
                  GLOBAL_OUTPUT_DIR=runs,
                  BEST_MODEL_PATH=os.path.join(runs, "best_model.pkl"))
-    path = os.path.join(workdir, "smoke.yaml")
+    path = os.path.join(workdir, f"smoke_{precision}.yaml")
     with open(path, "w") as f:
         yaml.safe_dump(smoke, f)
-    for fn in counters.values():
-        fn.launches = 0
+    _reset(counters)
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
@@ -1808,17 +1845,31 @@ def widths_model_phase(config, workdir: str, counters: dict) -> None:
     text = out.getvalue()
     lines = [ln.expandtabs(1) for ln in text.splitlines()]
     for line in lines[-6:]:
-        log("widths", f"smoke CLI: {line}")
+        log(phase, f"smoke CLI: {line}")
     if "train_loss" not in text or "MODEL SAVED to" not in text:
         raise AssertionError("the smoke model's CLI run printed no training "
                              "or no checkpoint")
+    log(phase, f"smoke model (64, 4 x 16, 128) trained for an epoch in "
+        f"{precision} on cuda through the CLI in "
+        f"{time.perf_counter() - t0:.1f} s; launches {launches}")
+    return launches
+
+
+def widths_model_phase(config, workdir: str, counters: dict) -> None:
+    """The verify recipe's smoke model (dim 64, 4 heads of 16, MLP 128,
+    depth 2, 20^3 synthetic cubes) trained for an epoch in bf16 on cuda
+    through ``python -m neurovit_tpu_torch.main``'s main(), every bf16
+    forward and backward kernel launched; then a ViT-B-width model (dim
+    768, 12 heads of 64, MLP 3072, depth cut to 4, 90^3 volumes) served by
+    Predictor against the CPU plain path."""
+    from neurovit_tpu_torch.models import NeuroEncoder
+    from neurovit_tpu_torch.serving import Predictor
+
+    launches = smoke_cli(config, workdir, counters, "bf16", "widths")
     block = [name for name, _, _ in KERNELS if name not in OFF_BLOCK_KERNELS]
     if any(launches[name] == 0 for name in block) or any(
             launches[name] for name in OFF_BLOCK_KERNELS):
         raise AssertionError(f"the smoke CLI run launched {launches}")
-    log("widths", f"smoke model (64, 4 x 16, 128) trained for an epoch in "
-        f"bf16 on cuda through the CLI in {time.perf_counter() - t0:.1f} s; "
-        f"launches {launches}")
 
     vit_b = dict(config, MODEL_VIT_DIM=768, MODEL_VIT_HEADS=12,
                  MODEL_VIT_DIM_HEAD=64, MODEL_VIT_MLP_DIM=3072,
@@ -3375,6 +3426,37 @@ def _f32_kernel_checks(card: str) -> dict:
         "fused_mlp_block_f32": (nbytes(x, *ln, w1, b1, w2, b2),
                                 4 * m * DIM * MLP),
     }
+    def zero_rows(name, label, got):
+        if not label.startswith("zero rows"):
+            return
+        zero = [0, 127, 128, 1000]
+        if name == "fused_mlp_block_f32":
+            y0, h0 = (a_.reshape(m, -1)[zero] for a_ in got)
+            if h0.abs().max() or not torch.equal(
+                    y0, b2.expand(len(zero), -1)):
+                raise AssertionError("K4 f32 on zero rows: h not 0 or y not "
+                                     "b2")
+        elif got[3].reshape(m, -1)[zero].abs().max():
+            raise AssertionError("K2 f32 on zero rows: u not beta")
+
+    return _hold_f32_cases(cases, work, library, card, check=zero_rows)
+
+
+def _hold_f32_cases(cases: dict, work: dict, library: dict, card: str, *,
+                    params: dict = None, check=None,
+                    design_ops: dict = None) -> dict:
+    """Each f32 kernel's cases (label, kernel call, plain call) held to
+    their plain versions: every output f32 of plain's shape, finite,
+    within F32_TOL (1 + |plain|) elementwise, or, at the indices in
+    ``params`` (dgamma and dbeta), within F32_PARAM_RTOL relative
+    Frobenius error, and two calls bit-equal; ``check(name, label, got)``
+    any case's own test. The first case of each kernel (and its dropout
+    cases among the first three) timed by CUDA events beside the plain
+    version; the first also beside its library call, with its bound from
+    ``work`` ((input bytes, operations): 3xTF32 at 165 TFLOP/s) and its
+    FFMA floor at 67 TFLOP/s of ``design_ops`` (the operations this
+    design takes) or of the operations. Returns each kernel's stats."""
+    params, design_ops = params or {}, design_ops or {}
     stats = {}
     for name, calls in cases.items():
         max_abs = 0.0
@@ -3388,6 +3470,7 @@ def _f32_kernel_checks(card: str) -> dict:
             again = [again] if isinstance(again, torch.Tensor) else list(
                 again)
             for j, (g, w_, a) in enumerate(zip(got, want, again)):
+                g = g.reshape(w_.shape) if g.numel() == w_.numel() else g
                 if g.dtype != torch.float32 or g.shape != w_.shape:
                     raise AssertionError(f"{name} {label}: output {j} is "
                                          f"{g.dtype} {tuple(g.shape)}")
@@ -3395,33 +3478,34 @@ def _f32_kernel_checks(card: str) -> dict:
                     raise AssertionError(f"{name} {label}: output {j} is "
                                          "not finite")
                 diff = (g - w_).abs()
-                bad = diff > F32_TOL * (1 + w_.abs())
-                if bad.any():
-                    raise AssertionError(
-                        f"{name} {label}: output {j}: {int(bad.sum())} "
-                        f"elements outside the tolerance (max abs err "
-                        f"{float(diff.max()):.3e})")
-                if not torch.equal(g, a):
+                if j in params.get(name, ()):
+                    err = float((g - w_).norm())
+                    if err > F32_PARAM_RTOL * float(w_.norm()):
+                        raise AssertionError(
+                            f"{name} {label}: output {j} relative Frobenius "
+                            f"error {err / float(w_.norm()):.3e} > "
+                            f"{F32_PARAM_RTOL}")
+                else:
+                    bad = diff > F32_TOL * (1 + w_.abs())
+                    if bad.any():
+                        raise AssertionError(
+                            f"{name} {label}: output {j}: {int(bad.sum())} "
+                            f"elements outside the tolerance (max abs err "
+                            f"{float(diff.max()):.3e})")
+                    case_abs = max(case_abs, float(diff.max()))
+                if not torch.equal(g, a.reshape(g.shape)):
                     raise AssertionError(f"{name} {label}: output {j} of two "
                                          "calls differs")
-                case_abs = max(case_abs, float(diff.max()))
             max_abs = max(max_abs, case_abs)
-            if label.startswith("zero rows"):
-                zero = [0, 127, 128, 1000]
-                if name == "fused_mlp_block_f32":
-                    y0, h0 = (a_.reshape(m, -1)[zero] for a_ in got)
-                    if h0.abs().max() or not torch.equal(
-                            y0, b2.expand(len(zero), -1)):
-                        raise AssertionError("K4 f32 on zero rows: h not 0 "
-                                             "or y not b2")
-                elif got[3].reshape(m, -1)[zero].abs().max():
-                    raise AssertionError("K2 f32 on zero rows: u not beta")
+            if check is not None:
+                check(name, label, got)
             msg = f"{name} {label}: max abs err {case_abs:.3e}"
             if i == 0 or "dropout" in label and i < 3:
                 ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
                 msg += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
                 if i == 0:
                     in_bytes, ops = work[name]
+                    floor_ops = design_ops.get(name, ops)
                     bound_ms, bound_by = bound(in_bytes, nbytes(*got),
                                                {"f32": ops})
                     stats[name] = {
@@ -3430,23 +3514,165 @@ def _f32_kernel_checks(card: str) -> dict:
                         "library_ms": cuda_ms(library[name])}
                     msg += (f", library call {stats[name]['library_ms']:.4f} "
                             f"ms, bound {bound_ms:.4f} ms by {bound_by} "
-                            f"(3xTF32 at 165 TFLOP/s), FFMA floor "
-                            f"{ops / F32_FFMA_PER_S * 1e3:.4f} ms "
-                            f"({ops / 1e9:.2f} GFLOP at 67 TFLOP/s): "
-                            f"{ops / ms / 1e9:.1f} TFLOP/s")
+                            f"(3xTF32 at 165 TFLOP/s, {ops / 1e9:.2f} GFLOP), "
+                            f"FFMA floor "
+                            f"{floor_ops / F32_FFMA_PER_S * 1e3:.4f} ms "
+                            f"({floor_ops / 1e9:.2f} GFLOP at 67 TFLOP/s): "
+                            f"{floor_ops / ms / 1e9:.1f} TFLOP/s")
             log("f32", msg + "; bit-equal on a second call")
             del got, want, again
         stats[name]["max_abs_err"] = max_abs
         log("f32", f"{name}: max abs err {max_abs:.3e} over {len(calls)} "
-            f"cases (tol {F32_TOL} (1 + |plain|)); {card}")
+            f"cases (tol {F32_TOL} (1 + |plain|)"
+            + (f", dgamma and dbeta {F32_PARAM_RTOL} relative Frobenius"
+               if name in params else "") + f"); {card}")
     return stats
+
+
+def _f32_bwd_kernel_checks(card: str) -> dict:
+    """(d) of the f32 phase: K5, K7, K8 and K9 at f32 against their plain
+    versions on the card at the flagship block (batch 8 x 1001): K5 at
+    n_valid 1001 (dropout 0.1 and 0) and 900, and at head dims 32, 64 and
+    128 at batch 2 x 2 heads; K7, K8 and K9 at dropout 0.1 and 0 (K7 has
+    none), at 130 rows, and on all-zero rows of dy or dqkv, which give
+    dattn = 0, dx = 0 and dz = dh = dx = 0 there. Held and timed by
+    ``_hold_f32_cases``: each beside f32 torch.mm at its GEMMs or f32
+    SDPA's backward."""
+    import torch.nn.functional as F
+
+    from neurovit_tpu_torch.ops import flash_attention as fa
+    from neurovit_tpu_torch.ops import fused_mlp, fused_outproj, fused_qkv
+
+    rng = np.random.default_rng(SEED + 24)
+
+    def t(*shape, scale=1.0, offset=0.0):
+        return torch.tensor(offset + scale * rng.standard_normal(shape),
+                            dtype=torch.float32, device="cuda")
+
+    def w(out_f, in_f):                      # nn.Linear's default range
+        return torch.tensor(rng.uniform(-1, 1, (out_f, in_f)) / in_f ** 0.5,
+                            dtype=torch.float32, device="cuda")
+
+    inner, m = HEADS * DIM_HEAD, B * N
+    scale = DIM_HEAD ** -0.5
+    x, dy, h = t(B, N, DIM), t(B, N, DIM), t(B, N, MLP)
+    dqkv = t(B, N, 3 * inner)
+    qkv = [t(B, N, HEADS, DIM_HEAD) for _ in range(4)]
+    ln = (t(DIM, scale=0.1, offset=1.0), t(DIM, scale=0.1))
+    wqkv, wout, w1, w2 = w(3 * inner, DIM), w(DIM, inner), w(MLP, DIM), w(
+        DIM, MLP)
+    zero = [0, 127, 128, 1000]
+    dy0, dqkv0 = dy.clone(), dqkv.clone()
+    dy0[0, zero] = 0
+    dqkv0[0, zero] = 0
+
+    def rows(a, n=130):
+        return a[:1, :n].contiguous()
+
+    def attention(q, k, v, do, n_valid, **kw):
+        kw = dict(scale=q.shape[-1] ** -0.5, n_valid=n_valid, **kw)
+        o, lsum = fa.flash_attention_plain(q, k, v, return_stats=True, **kw)
+        args = (q, k, v, o, do, lsum)
+        return (lambda: fa.flash_attention_bwd_f32_cuda(*args, **kw),
+                lambda: fa.flash_attention_bwd_plain(*args, **kw))
+
+    def ln_qkv(d, x_):
+        args = (d, x_, ln[0], wqkv)
+        return (lambda: fused_qkv.fused_ln_qkv_bwd_f32_cuda(*args),
+                lambda: fused_qkv.fused_ln_qkv_bwd_plain(*args))
+
+    def outproj(d, **kw):
+        return (lambda: fused_outproj.fused_outproj_bwd_f32_cuda(d, wout,
+                                                                 **kw),
+                lambda: fused_outproj.fused_outproj_bwd_plain(d, wout, **kw))
+
+    def mlp(d, x_, h_, **kw):
+        args = (d, x_, h_, *ln, w1, w2)
+        return (lambda: fused_mlp.fused_mlp_bwd_f32_cuda(*args, **kw),
+                lambda: fused_mlp.fused_mlp_bwd_plain(*args, **kw))
+
+    drop = {"dropout_rate": DROPOUT, "seed": 2401}
+    mdrop = {"dropout_rate": DROPOUT, "seeds": (2402, 2403)}
+    cases = {
+        "flash_attention_bwd_f32": [
+            (f"n_valid {N}, dropout {DROPOUT}", *attention(*qkv, N, **drop)),
+            (f"n_valid {N}, dropout 0", *attention(*qkv, N)),
+            (f"n_valid {N_VALID_MASKED}, dropout {DROPOUT}",
+             *attention(*qkv, N_VALID_MASKED, **drop))],
+        "fused_ln_qkv_bwd_f32": [
+            ("flagship", *ln_qkv(dqkv, x)),
+            ("130 rows", *ln_qkv(rows(dqkv), rows(x))),
+            ("zero rows of dqkv", *ln_qkv(dqkv0, x))],
+        "fused_outproj_bwd_f32": [
+            (f"dropout {DROPOUT}", *outproj(dy, **drop)),
+            ("dropout 0", *outproj(dy)),
+            (f"130 rows, dropout {DROPOUT}", *outproj(rows(dy), **drop)),
+            (f"zero rows of dy, dropout {DROPOUT}", *outproj(dy0, **drop))],
+        "fused_mlp_bwd_f32": [
+            (f"dropout {DROPOUT}", *mlp(dy, x, h, **mdrop)),
+            ("dropout 0", *mlp(dy, x, h)),
+            (f"130 rows, dropout {DROPOUT}",
+             *mlp(rows(dy), rows(x), rows(h), **mdrop)),
+            (f"zero rows of dy, dropout {DROPOUT}",
+             *mlp(dy0, x, h, **mdrop))],
+    }
+    for d in (32, 64, 128):
+        qd = [t(2, N, 2, d) for _ in range(4)]
+        cases["flash_attention_bwd_f32"].append(
+            (f"head dim {d}, batch 2 x 2 heads, dropout {DROPOUT}",
+             *attention(*qd, N, **drop)))
+
+    def zero_rows(name, label, got):
+        if not label.startswith("zero rows"):
+            return
+        zeroed = {"fused_ln_qkv_bwd_f32": (0,),
+                  "fused_outproj_bwd_f32": (0, 1),
+                  "fused_mlp_bwd_f32": (0, 3, 4)}[name]
+        for j in zeroed:
+            if got[j].reshape(m, -1)[zero].abs().max():
+                raise AssertionError(f"{name} on {label}: output {j} not 0 "
+                                     "there")
+
+    qh, kh, vh, doh = (a.transpose(1, 2).detach().requires_grad_()
+                       for a in qkv)
+    sdpa = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+    dy2, dqkv2 = dy.reshape(m, DIM), dqkv.reshape(m, 3 * inner)
+    dh2 = h.reshape(m, MLP)
+    library = {
+        "flash_attention_bwd_f32": lambda: torch.autograd.grad(
+            sdpa, (qh, kh, vh), doh.detach(), retain_graph=True),
+        "fused_ln_qkv_bwd_f32": lambda: torch.mm(dqkv2, wqkv),
+        "fused_outproj_bwd_f32": lambda: torch.mm(dy2, wout),
+        "fused_mlp_bwd_f32": lambda: (torch.mm(dy2, w2), torch.mm(dh2, w1)),
+    }
+    q, k, v, do = qkv
+    o, lsum = fa.flash_attention_plain(q, k, v, scale=scale,
+                                       return_stats=True)
+    # (input bytes, operations) of each timed case: K5's five products,
+    # which its two passes take as seven (S and dP in each).
+    attn_ops = 2 * B * HEADS * N * N * DIM_HEAD
+    work = {
+        "flash_attention_bwd_f32": (nbytes(q, k, v, o, do, lsum),
+                                    5 * attn_ops),
+        "fused_ln_qkv_bwd_f32": (nbytes(dqkv, x, ln[0], wqkv),
+                                 6 * m * inner * DIM),
+        "fused_outproj_bwd_f32": (nbytes(dy, wout), 2 * m * DIM * inner),
+        "fused_mlp_bwd_f32": (nbytes(dy, x, h, *ln, w1, w2),
+                              4 * m * DIM * MLP),
+    }
+    return _hold_f32_cases(
+        cases, work, library, card, check=zero_rows,
+        params={"fused_ln_qkv_bwd_f32": (1, 2), "fused_mlp_bwd_f32": (5, 6)},
+        design_ops={"flash_attention_bwd_f32": 7 * attn_ops})
 
 
 def f32_phase(config, ckpt: str, workdir: str, card: str,
               counters: dict) -> tuple:
-    """Phase 18 (see the module docstring): (a) the f32 kernels, (b) f32
-    serving of the flagship, (c) the f32 4D step at config4D's shape.
-    Returns (the kernels' stats, the launch counts of (b) and (c))."""
+    """Phase 18 (see the module docstring): (a) the f32 forwards, (b) f32
+    serving of the flagship, (c) the f32 4D step at config4D's shape, (d)
+    the f32 backwards, (e) the flagship's f32 gradients against the CPU,
+    (f) the f32 train runs of the flagship and the smoke model. Returns
+    (the kernels' stats, the launch counts of (b), (c) and (f))."""
     from neurovit_tpu_torch.models import NeuroEncoder
     from neurovit_tpu_torch.serving import Predictor
     from neurovit_tpu_torch.training import Trainer
@@ -3476,7 +3702,7 @@ def f32_phase(config, ckpt: str, workdir: str, card: str,
     log(phase, f"(b) f32 serving: warmup of buckets "
         f"{predictor.bucket_sizes}, 3 volumes, one POST: {forwards[0]} "
         f"forward calls x depth {depth}; launches {serving}")
-    _check_counts("f32 serving", serving, _want(F32_KERNELS,
+    _check_counts("f32 serving", serving, _want(F32_FORWARD_KERNELS,
                                                 depth * forwards[0],
                                                 counters))
     cpu = NeuroEncoder(fcfg, device="cpu", seed=SEED + 5).eval()
@@ -3520,7 +3746,8 @@ def f32_phase(config, ckpt: str, workdir: str, card: str,
     log(phase, f"(c) f32 4D run: losses {losses}; {enc_forwards[0]} encoder "
         f"forwards x depth {depth4}; launches {fourd}")
     _check_counts("the f32 4D run", fourd,
-                  _want(F32_KERNELS, depth4 * enc_forwards[0], counters))
+                  _want(F32_FORWARD_KERNELS, depth4 * enc_forwards[0],
+                        counters))
     batch, _, _ = next(trainer._device_prefetch(trainer.val_dataloader))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3539,8 +3766,67 @@ def f32_phase(config, ckpt: str, workdir: str, card: str,
                       atol=F32_LOGIT_ATOL, rtol=F32_LOGIT_ATOL)
     del trainer, model, cpu, batch
     torch.cuda.empty_cache()
+
+    # (d) The f32 backwards against their plain versions.
+    stats.update(_f32_bwd_kernel_checks(card))
+    torch.cuda.empty_cache()
+
+    # (e) The flagship's loss and parameter gradients at f32, card against
+    # the CPU plain path, batch 2, dropout 0.1.
+    losses, grads = {}, {}
+    for dev in ("cuda", "cpu"):
+        losses[dev], grads[dev] = param_grads(fcfg, dev, phase)
+    errs = grad_errs(grads["cuda"], grads["cpu"])
+    log(phase, f"(e) f32 loss cuda {losses['cuda']:.7f} vs cpu "
+        f"{losses['cpu']:.7f}; {err_text(errs)} (worst held to "
+        f"{F32_GRAD_RTOL})")
+    if abs(losses["cuda"] - losses["cpu"]) > F32_TOL * (
+            1 + abs(losses["cpu"])) or max(errs.values()) > F32_GRAD_RTOL:
+        raise AssertionError(f"f32 loss or gradients differ from the cpu: "
+                             f"{losses}, {err_text(errs)}")
+    del grads
+    torch.cuda.empty_cache()
+
+    # (f) Trainer.run() of the flagship at f32 (two steps at batch 32 and
+    # a validation batch), then the step timed at batch 32; the verify
+    # recipe's smoke model at f32 through the CLI.
+    cfg = _train_config(config, workdir, TRAINING_PRECISION="f32",
+                        GLOBAL_OUTPUT_DIR=os.path.join(workdir, "runs_f32"))
+    model = NeuroEncoder(cfg, device="cuda", seed=SEED)
+    trainer = Trainer(cfg, model,
+                      _SeededVolumes(64, size, SEED + 6, "train_f32"),
+                      _SeededVolumes(32, size, SEED + 7, "val_f32"))
+    forwards = _count_forwards(model)
+    losses, train, text = _run_trainer(trainer, counters)
+    for line in text.splitlines()[-3:]:
+        log(phase, "(f) " + line.expandtabs(1))
+    log(phase, f"(f) f32 train run: losses {losses}; {forwards[0]} forwards "
+        f"and {len(losses)} backwards x depth {depth}; launches {train}")
+    _check_counts("the f32 train run", train, {
+        name: depth * forwards[0] if name in F32_FORWARD_KERNELS
+        else depth * len(losses) if name in F32_BACKWARD_KERNELS else 0
+        for name in counters})
+    batch, zyx, _ = next(trainer._device_prefetch(trainer.val_dataloader))
+    step_ms, all_ms, peak = _timed_steps(trainer, batch, zyx, warmup=2)
+    vols = batch["volume"].shape[0]
+    log(phase, f"(f) f32 train step at batch {vols}: {step_ms:.3f} ms median "
+        f"of 5 (all {all_ms}), {vols / step_ms * 1e3:.1f} vol/s, "
+        f"{TRAIN_GFLOP_PER_VOL * vols / step_ms:.1f} TFLOP/s "
+        f"({TRAIN_GFLOP_PER_VOL:.1f} GFLOP/vol), peak memory {peak:.2f} GiB; "
+        f"{card}")
+    profile_split(phase, f"f32 train step at batch {vols}",
+                  lambda: trainer.train_step(batch, zyx), step_ms)
+    del trainer, model, batch
+    torch.cuda.empty_cache()
+    smoke = smoke_cli(config, workdir, counters, "f32", phase)
+    f32_counts = [smoke[name] for name in F32_KERNELS]
+    backward = {smoke[name] for name in F32_BACKWARD_KERNELS}
+    if (0 in f32_counts or len(backward) != 1 or backward.pop() % 2
+            or any(n for name, n in smoke.items() if name not in F32_KERNELS)):
+        raise AssertionError(f"the f32 smoke CLI run launched {smoke}")
     log(phase, f"done in {time.perf_counter() - t_phase:.1f} s")
-    return stats, {name: serving[name] + fourd[name] for name in counters}
+    return stats, {name: serving[name] + fourd[name] + train[name]
+                   + smoke[name] for name in counters}
 
 
 TRACE_NAMES = {
@@ -3968,6 +4254,10 @@ def kernel_counters() -> dict:
         "fused_outproj_residual_f32":
             fused_outproj.fused_outproj_residual_f32_cuda,
         "fused_mlp_block_f32": fused_mlp.fused_mlp_block_f32_cuda,
+        "flash_attention_bwd_f32": flash_attention.flash_attention_bwd_f32_cuda,
+        "fused_ln_qkv_bwd_f32": fused_qkv.fused_ln_qkv_bwd_f32_cuda,
+        "fused_outproj_bwd_f32": fused_outproj.fused_outproj_bwd_f32_cuda,
+        "fused_mlp_bwd_f32": fused_mlp.fused_mlp_bwd_f32_cuda,
     }
 
 

@@ -100,6 +100,28 @@ __device__ __forceinline__ uint4 pack8(const float* f) {
   return raw;
 }
 
+// Eight consecutive elements at p (16-byte aligned for bf16, 32 for f32)
+// <-> floats: the row passes instanced on the element type.
+__device__ __forceinline__ void load8(const bf16* p, float* f) {
+  unpack8(*reinterpret_cast<const uint4*>(p), f);
+}
+
+__device__ __forceinline__ void load8(const float* p, float* f) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w;
+  f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
+}
+
+__device__ __forceinline__ void store8(bf16* p, const float* f) {
+  *reinterpret_cast<uint4*>(p) = pack8(f);
+}
+
+__device__ __forceinline__ void store8(float* p, const float* f) {
+  *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(f[4], f[5], f[6], f[7]);
+}
+
 // The rows of one (b, h) attention head, D wide: token t starts at element
 // base + t * stride. bnhd [B, N, H, D] (K1, K5): stride H * D, base
 // (b * N * H + h) * D. bhnd [B, H, N, D] (K6): stride D, base

@@ -12,8 +12,10 @@
 // So the f32 kernels are bounded by the card's 67 TFLOP/s of f32 FFMA.
 //
 // gemm_kernel: C[M, N] = A[M, K] . B[N, K]^T for row-major A and B (the
-// activations and a torch Linear weight as they lie), K % 16 == 0, N % 4
-// == 0, any M. One block of 256 threads computes a 128 x 128 tile of C:
+// activations and a torch Linear weight as they lie: the forwards), or,
+// with kBKn, C = A . B for B [K, N] row-major (the weight as it lies in
+// the backwards' products dz . Wout, dqkv . Wqkv, dz . W2 and dh . W1),
+// K % 16 == 0, N % 4 == 0, any M. One block of 256 threads computes a 128 x 128 tile of C:
 // eight warps of 32 x 64 (4 x 2), a warp's lanes 4 (rows) x 8 (columns),
 // 8 x 8 outputs a thread (rows wm*32 + ly*4 + 16 i4 + i, columns wn*64 +
 // lx*4 + 32 j4 + j). A k step reads two 16-byte vectors of A (the four
@@ -24,9 +26,12 @@
 // 32 contiguous bytes each, into 32 different banks; a thread's eight
 // copies are one pointer plus constant steps. Two slices: the copy of
 // slice s + 1 runs under the products of slice s, one __syncthreads a
-// slice. Rows past M and past N are zero-filled by the copy (src-size 0);
-// the epilogue gets float4s of C at (row < M, col < N, col % 4 == 0) and
-// does the rest.
+// slice. A 16-deep slice of B [K, N] is k-major as it lies: a thread
+// copies two 16-byte vectors of it (stage_slice_kn), a warp one k row's
+// 512 contiguous bytes. Rows past M and past N are zero-filled by the copy
+// (src-size 0); the epilogue gets float4s of C at (row < M, col < N, col %
+// 4 == 0) and does the rest (tile_products is the mainloop alone, for a
+// kernel with an epilogue of its own: ffma_ln_bwd.cuh).
 //
 // Registers bound the design. Two blocks an SM (__launch_bounds__(256,
 // 2)) leave a thread 128 registers for 64 accumulators, 16 operands, the
@@ -130,30 +135,56 @@ __device__ __forceinline__ void stage_slice(float* xs, const float* x, int r0,
   }
 }
 
-// One block a 128 x 128 tile of C = A . B^T at grid (column tile, row
-// tile); epi(row, col, float4) for every float4 of C inside [M, N].
-// acc[i][j] is C at row rb + (i & 3) + 16 (i >> 2), column cb + (j & 3) +
-// 32 (j >> 2), where rb = wm*32 + ly*4 and cb = wn*64 + lx*4 for warp
-// (wm, wn) = (w & 3, w >> 2) and lane (ly, lx) = (l >> 3, l & 7).
-template <typename Epi>
-__global__ void __launch_bounds__(kThreads, 2)
-    gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                int M, int N, int K, Epi epi) {
-  constexpr int kSlice = kBK * kLd;
-  extern __shared__ __align__(16) float smem[];
-  float* as = smem;
-  float* bs = smem + kStages * kSlice;
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
+// Copy the 16-deep slice k0 of the 128-column tile at column c0 of X [K,
+// N] (row-major, N % 4 == 0) into Xs[k][c], as it lies. Copy c of thread t
+// takes the 16-byte vector idx = t + 256 c: k = idx / 32 = t / 32 + 8 c,
+// columns 4 (idx % 32) = 4 (t % 32) .. + 3; a warp writes one k row's 512
+// contiguous bytes, each quarter warp 128 of them in 32 banks. Vectors
+// past N are zero-filled.
+__device__ __forceinline__ void stage_slice_kn(float* xs, const float* x,
+                                               int c0, int N, int k0) {
+  static_assert(kBK == 2 * kThreads / 32 && kTile == 4 * 32,
+                "two 16-byte copies a thread");
+  const int k = threadIdx.x >> 5, c = 4 * (threadIdx.x & 31);
+  const bool valid = c0 + c < N;
+  const float* src = x + static_cast<size_t>(k0 + k) * N + c0 + c;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    cp_async16(xs + (k + 8 * i) * kLd + c,
+               valid ? src + static_cast<size_t>(8 * i) * N : x, valid);
+}
+
+// The products of the 128 x 128 tile of C = A . B^T (A . B with kBKn) at
+// (m0, n0), into acc, which they zero first. acc[i][j] is C at row rb +
+// (i & 3) + 16 (i >> 2), column cb + (j & 3) + 32 (j >> 2), where rb =
+// wm*32 + ly*4 and cb = wn*64 + lx*4 for warp (wm, wn) = (w & 3, w >> 2)
+// and lane (ly, lx) = (l >> 3, l & 7) (warp_tile_origin). smem: kSmemBytes.
+__device__ __forceinline__ int2 warp_tile_origin() {
   constexpr int kWarpsM = kTile / (4 * kTM);
   static_assert(kThreads * kTM * kTN == kTile * kTile, "the tile's outputs");
   const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  const int rb = (w % kWarpsM) * 4 * kTM + (l >> 3) * 4;
-  const int cb = (w / kWarpsM) * 8 * kTN + (l & 7) * 4;
-  float acc[kTM][kTN];
+  return make_int2((w % kWarpsM) * 4 * kTM + (l >> 3) * 4,
+                   (w / kWarpsM) * 8 * kTN + (l & 7) * 4);
+}
+
+template <bool kBKn>
+__device__ __forceinline__ void tile_products(
+    const float* __restrict__ A, const float* __restrict__ B, int M, int N,
+    int K, int m0, int n0, int rb, int cb, float* smem,
+    float (&acc)[kTM][kTN]) {
+  constexpr int kSlice = kBK * kLd;
+  float* as = smem;
+  float* bs = smem + kStages * kSlice;
 #pragma unroll
   for (int i = 0; i < kTM; ++i)
 #pragma unroll
     for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+  auto stage_b = [&](float* to, int k0) {
+    if constexpr (kBKn)
+      stage_slice_kn(to, B, n0, N, k0);
+    else
+      stage_slice(to, B, n0, N, K, k0);
+  };
   // The products of one staged slice, a float4 of A's rows and of B's
   // columns at a time.
   auto slice_products = [&](const float* a, const float* b) {
@@ -189,7 +220,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   // test written out.
   if (slices > 0) {
     stage_slice(as, A, m0, M, K, 0);
-    stage_slice(bs, B, n0, N, K, 0);
+    stage_b(bs, 0);
   }
   cp_async_commit();
   for (int s = 0; s < slices; ++s) {
@@ -199,11 +230,26 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();
     if (s + 1 < slices) {
       stage_slice(as + ((s + 1) & 1) * kSlice, A, m0, M, K, (s + 1) * kBK);
-      stage_slice(bs + ((s + 1) & 1) * kSlice, B, n0, N, K, (s + 1) * kBK);
+      stage_b(bs + ((s + 1) & 1) * kSlice, (s + 1) * kBK);
     }
     cp_async_commit();
     slice_products(as + (s & 1) * kSlice, bs + (s & 1) * kSlice);
   }
+}
+
+// One block a 128 x 128 tile of C = A . B^T (A . B with kBKn) at grid
+// (column tile, row tile); epi(row, col, float4) for every float4 of C
+// inside [M, N].
+template <typename Epi, bool kBKn>
+__global__ void __launch_bounds__(kThreads, 2)
+    gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                int M, int N, int K, Epi epi) {
+  extern __shared__ __align__(16) float smem[];
+  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
+  const int2 o = warp_tile_origin();
+  const int rb = o.x, cb = o.y;
+  float acc[kTM][kTN];
+  tile_products<kBKn>(A, B, M, N, K, m0, n0, rb, cb, smem, acc);
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
     const int row = m0 + rb + (i & 3) + 16 * (i >> 2);
@@ -218,16 +264,29 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <typename Epi>
+// B [N, K] (the forwards), or B [K, N] with kBKn (the backwards).
+template <bool kBKn = false, typename Epi>
 cudaError_t launch_gemm(const float* A, const float* B, int M, int N, int K,
                         const Epi& epi, cudaStream_t stream) {
-  cudaError_t err = allow_smem(gemm_kernel<Epi>, kSmemBytes);
+  cudaError_t err = allow_smem(gemm_kernel<Epi, kBKn>, kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
-  gemm_kernel<Epi><<<grid, kThreads, kSmemBytes, stream>>>(A, B, M, N, K,
-                                                           epi);
+  gemm_kernel<Epi, kBKn><<<grid, kThreads, kSmemBytes, stream>>>(A, B, M, N,
+                                                                 K, epi);
   return cudaGetLastError();
 }
+
+// The epilogue of a GEMM whose output is the product itself, C [M, n]
+// (K8's da = dz . Wout).
+struct StoreEpi {
+  float* c;
+  int n;
+
+  __device__ __forceinline__ void operator()(int row, int col,
+                                             float4 v) const {
+    *reinterpret_cast<float4*>(c + static_cast<size_t>(row) * n + col) = v;
+  }
+};
 
 // The epilogue of a GEMM whose output is a residual stream: y = x +
 // (C + bias) * keep factors (fc2 of K4, K3): z = C + b, dropped and scaled
@@ -256,6 +315,24 @@ struct ResidualEpi {
 cudaError_t launch_ln_rows(const float* x, const float* gamma,
                            const float* beta, float* u, int M, int dim,
                            float eps, cudaStream_t stream);
+
+// Each row's (mean, rstd) of x [M, dim] into stats [M], as launch_ln_rows
+// computes them (K7's pass 1 at f32, so its xhat has K2 f32's statistics
+// bit for bit), one row a warp (ffma.cu); dim % 4 == 0.
+cudaError_t launch_row_stats(const float* x, float2* stats, int M, int dim,
+                             float eps, cudaStream_t stream);
+
+// K9's pass 1 at f32, and K8's without the LayerNorm (ffma.cu), one row a
+// warp: dz = dy * mask / keep for dy, dz [M, dim] (dz null: not written),
+// the mask nn.keep_mask's bits at row * dim + col under seed (keep4); with
+// x non-null also u = LN(x) * gamma + beta and (mean, rstd) into stats
+// [M], as launch_ln_rows computes them (so u is K4 f32's bit for bit).
+// dim % 4 == 0.
+cudaError_t launch_dz_rows(const float* dy, const float* x,
+                           const float* gamma, const float* beta, float* dz,
+                           float* u, float2* stats, int M, int dim,
+                           float eps, float inv_keep, uint32_t keep_q,
+                           uint64_t seed, cudaStream_t stream);
 
 }  // namespace ffma
 }  // namespace nvt

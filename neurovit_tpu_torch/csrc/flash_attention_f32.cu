@@ -35,15 +35,19 @@
 //
 // Measured (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py's f32 phase,
 // medians of 25 one-call CUDA-event timings at batch 8): 0.6546 ms, 25.1
-// TFLOP/s, 2.7x the FFMA floor; f32 SDPA 0.5671 ms. 142 registers a thread
-// at D = 64, 168 at D = 128, no spills.
-#include "ffma.cuh"
+// TFLOP/s, 2.7x the FFMA floor; f32 SDPA 0.5671 ms. 128 registers a thread
+// at D = 64, 168 at D = 128, no spills (the build log).
+#include "flash_f32.cuh"
 
 namespace nvt {
 namespace {
 
-constexpr int kBQ = 64, kBKV = 32, kThreads = 128;
-constexpr float kCap = 96.f;
+using flash_f32::kCap;
+using flash_f32::kThreads;
+using flash_f32::stage_rows;
+using flash_f32::swz;
+
+constexpr int kBQ = 64, kBKV = 32;
 
 template <int D>
 struct Layout {
@@ -53,36 +57,6 @@ struct Layout {
   static constexpr size_t kBytes =
       static_cast<size_t>(kQ + 4 * kKV + kP) * sizeof(float);
 };
-
-// Float offset of chunk c (4 floats) of row r in a tile of rows w floats
-// wide (w % 32 == 0), its chunks permuted by the row's quad.
-__device__ __forceinline__ int swz(int r, int c, int w) {
-  return r * w + ((c ^ ((r >> 2) & 7)) << 2);
-}
-
-// Copy rows [r0, r0 + rows) of a head into a tile, zero-filling rows past
-// N; swizzled (Q, K) or as they lie (V).
-template <int D, int kRows, bool kSwz>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
-                                           const HeadRows<false>& hr, int r0,
-                                           int N) {
-  constexpr int kChunks = D / 4;
-  for (int c = threadIdx.x; c < kRows * kChunks; c += kThreads) {
-    const int r = c / kChunks, ch = c % kChunks;
-    const bool valid = r0 + r < N;
-    const float* from = src + hr.base +
-                        static_cast<size_t>(valid ? r0 + r : 0) * hr.stride +
-                        ch * 4;
-    ffma::cp_async16(dst + (kSwz ? swz(r, ch, D) : r * D + ch * 4), from,
-                     valid);
-  }
-}
-
-__device__ __forceinline__ uint32_t byte_of(const uint4& w, uint32_t j) {
-  const uint32_t word =
-      (j >> 2) == 0 ? w.x : ((j >> 2) == 1 ? w.y : ((j >> 2) == 2 ? w.z : w.w));
-  return (word >> (8 * (j & 3))) & 0xffu;
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -175,19 +149,12 @@ __global__ void __launch_bounds__(kThreads)
         l[i] += p[j];
       }
       if (keep_q) {
-        const uint64_t i0 =
-            (static_cast<uint64_t>(bh) * N + q0 + ty * 4 + i) * N + key0;
-        const uint4 w0 = philox4x32_10(i0 >> 4, seed);
-        const uint4 w1 = ((i0 + 3) >> 4) != (i0 >> 4)
-                             ? philox4x32_10((i0 + 3) >> 4, seed)
-                             : w0;
+        const uint32_t kept = flash_f32::keep_bits4(
+            (static_cast<uint64_t>(bh) * N + q0 + ty * 4 + i) * N + key0,
+            seed, keep_q);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const uint64_t e = i0 + j;
-          const uint32_t byte = byte_of((e >> 4) == (i0 >> 4) ? w0 : w1,
-                                        static_cast<uint32_t>(e & 15));
-          if (byte >= keep_q) p[j] = 0.f;
-        }
+        for (int j = 0; j < 4; ++j)
+          if (!((kept >> j) & 1u)) p[j] = 0.f;
       }
       *reinterpret_cast<float4*>(ps + swz(ty * 4 + i, tx, kBKV)) =
           make_float4(p[0], p[1], p[2], p[3]);

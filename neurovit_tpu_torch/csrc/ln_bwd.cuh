@@ -19,11 +19,10 @@
 //           columns (a quad's shuffles); per column, sum(du xhat) and
 //           sum(du) over its rows (each thread's two rows into the freed
 //           ring, then added over the 64 row groups in order).
-//   ln_bwd: one warp a row, its two sums from the du pass's column tiles
-//           in tile order, then one sweep over the row.
-//   colsum: dgamma and dbeta from the du pass's row tiles, each warp a
-//           fixed share in order, the warps' sums in warp order: no
-//           atomics, two calls give the same bits.
+//   ln_bwd, colsum: ln_bwd_rows.cuh's bf16 instances (the f32 backwards
+//           launch its f32 ones): one warp a row for dx, its two sums from
+//           the du pass's column tiles in tile order; dgamma and dbeta from
+//           its row tiles in a fixed order, no atomics.
 // The LayerNorm backward needs whole rows of du (its row means), and a
 // block that feeds wgmma from a TMA ring has no room for a row block's f32
 // du, so du makes one f32 round trip through device memory. du, the row
@@ -35,13 +34,12 @@
 #pragma once
 
 #include "fused_mlp.cuh"
+#include "ln_bwd_rows.cuh"
 
 namespace nvt {
 namespace {
 
 using namespace mlp;
-
-constexpr int kSumWarps = 8;             // warps a block of colsum
 
 int row_tiles(int M) { return (M + kBM - 1) / kBM; }
 
@@ -157,80 +155,6 @@ __global__ void __launch_bounds__(kThreads, kGemmBlocksPerSm)
   }
 }
 
-// The LayerNorm backward of a row (neurovit_tpu/ops/fused_mlp.py:188-196,
-// fused_qkv.py:80-96), one warp a row, with the residual dy added where
-// kResidual:
-//   dx = bf16(rstd (du gamma - m1 - xhat m2) [+ dy]),
-// m1 and m2 the row means of du gamma and du gamma xhat from the du
-// pass's col_tiles partials, added in tile order.
-template <bool kResidual>
-__global__ void __launch_bounds__(kRowWarps * 32)
-    ln_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ du,
-                  const float* __restrict__ gamma,
-                  const float2* __restrict__ stats,
-                  const float* __restrict__ rowpart,
-                  const bf16* __restrict__ dy, bf16* __restrict__ dx, int M,
-                  int dim, int col_tiles) {
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kRowWarps + threadIdx.x / 32;
-  if (row >= M) return;
-  const float2 st = stats[row];
-  const float* p1 = rowpart + static_cast<size_t>(row) * col_tiles;
-  const float* p2 = p1 + static_cast<size_t>(M) * col_tiles;
-  float s1 = 0.f, s2 = 0.f;
-  for (int t = 0; t < col_tiles; ++t) {
-    s1 += p1[t];
-    s2 += p2[t];
-  }
-  const float m1 = s1 / dim, m2 = s2 / dim;
-  const size_t base = static_cast<size_t>(row) * dim;
-  for (int c = lane * 8; c < dim; c += 256) {
-    float xv[8], res[8], out[8];
-    unpack8(*reinterpret_cast<const uint4*>(x + base + c), xv);
-    if constexpr (kResidual)
-      unpack8(*reinterpret_cast<const uint4*>(dy + base + c), res);
-    const float4 d0 = *reinterpret_cast<const float4*>(du + base + c);
-    const float4 d1 = *reinterpret_cast<const float4*>(du + base + c + 4);
-    const float4 g0 = *reinterpret_cast<const float4*>(gamma + c);
-    const float4 g1 = *reinterpret_cast<const float4*>(gamma + c + 4);
-    const float dv[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
-    const float gm[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float xhat = __fmul_rn(xv[i] - st.x, st.y);
-      if constexpr (kResidual)
-        out[i] = st.y * (dv[i] * gm[i] - m1 - xhat * m2) + res[i];
-      else
-        out[i] = st.y * (dv[i] * gm[i] - m1 - xhat * m2);
-    }
-    *reinterpret_cast<uint4*>(dx + base + c) = pack8(out);
-  }
-}
-
-// dgamma and dbeta from the du pass's column partials, 32 columns of the
-// [2 dim] outputs a block: warp w adds row tiles w, w + 8, ... in order,
-// then the eight warps' sums are added in warp order.
-__global__ void __launch_bounds__(kSumWarps * 32)
-    colsum_kernel(const float* __restrict__ colpart,
-                  float* __restrict__ dgamma, float* __restrict__ dbeta,
-                  int row_tiles, int dim) {
-  __shared__ float red[kSumWarps][32];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int c = blockIdx.x * 32 + lane;   // 2 dim is a multiple of 32
-  const int which = c / dim, col = c % dim;
-  const float* p =
-      colpart + static_cast<size_t>(which) * row_tiles * dim + col;
-  float s = 0.f;
-  for (int t = warp; t < row_tiles; t += kSumWarps)
-    s += p[static_cast<size_t>(t) * dim];
-  red[warp][lane] = s;
-  __syncthreads();
-  if (warp != 0) return;
-  float sum = 0.f;
-  for (int w = 0; w < kSumWarps; ++w) sum += red[w][lane];
-  (which == 0 ? dgamma : dbeta)[col] = sum;
-}
-
 // Let both du instances take their ring: called, with every tensor map
 // encoded, before a call's first launch.
 cudaError_t allow_du_smem() {
@@ -268,20 +192,11 @@ cudaError_t launch_ln_bwd(const CUtensorMap& ta, const CUtensorMap& tb,
   (bn == 64 ? launch_du<64> : launch_du<128>)(ta, tb, du, x, gamma, stats,
                                               rowpart, colpart, M, dim, K,
                                               stream);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int row_blocks = (M + kRowWarps - 1) / kRowWarps;
-  const int col_tiles = (dim + bn - 1) / bn;
-  if (dy != nullptr)
-    ln_bwd_kernel<true><<<row_blocks, kRowWarps * 32, 0, stream>>>(
-        x, du, gamma, stats, rowpart, dy, dx, M, dim, col_tiles);
-  else
-    ln_bwd_kernel<false><<<row_blocks, kRowWarps * 32, 0, stream>>>(
-        x, du, gamma, stats, rowpart, nullptr, dx, M, dim, col_tiles);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  colsum_kernel<<<2 * dim / 32, kSumWarps * 32, 0, stream>>>(
-      colpart, dgamma, dbeta, row_tiles(M), dim);
-  return cudaGetLastError();
+  return launch_ln_bwd_rows(x, du, gamma, stats, rowpart, colpart, dy, dx,
+                            dgamma, dbeta, M, dim, (dim + bn - 1) / bn,
+                            row_tiles(M), stream);
 }
 
 }  // namespace

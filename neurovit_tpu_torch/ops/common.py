@@ -67,10 +67,10 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
 
 
 def pick(plain, kernel, f32_kernel, *tensors: torch.Tensor):
-    """The forward a block op runs on ``tensors``, the first one's dtype
-    deciding: the plain version on CPU tensors, ``f32_kernel`` on f32 CUDA
-    tensors and ``kernel`` (the bf16 one, which raises for a dtype it does
-    not take) on any other. There is no fallback."""
+    """The forward or backward a block op runs on ``tensors``, the first
+    one's dtype deciding: the plain version on CPU tensors, ``f32_kernel``
+    on f32 CUDA tensors and ``kernel`` (the bf16 one, which raises for a
+    dtype it does not take) on any other. There is no fallback."""
     if on_cpu(*tensors):
         return plain
     return f32_kernel if tensors[0].dtype == torch.float32 else kernel

@@ -42,10 +42,11 @@ Pallas for its dense XLA path (flash_attention.py:517-520); D > 128 is
 refused.
 
 f32 CUDA tensors in the bnhd layout run ``csrc/flash_attention_f32.cu``
-(K1 at f32, :func:`flash_f32_plan`: FFMA products on the CUDA cores, P not
-rounded, as the TPU kernel computes at f32), with instances for D in
-:data:`F32_HEAD_DIMS` (32, 64, 128) and the same zero-padding of the
-others; the forward only so far, and not K6.
+(K1 at f32, :func:`flash_f32_plan`) and ``csrc/flash_attention_bwd_f32.cu``
+(K5 at f32, :func:`flash_f32_bwd_plan`: the bf16 K5's two passes): FFMA
+products on the CUDA cores, P and dS not rounded, as the TPU kernels
+compute at f32, with instances for D in :data:`F32_HEAD_DIMS` (32, 64,
+128) and the same zero-padding of the others; not K6.
 """
 
 from __future__ import annotations
@@ -103,6 +104,10 @@ BWD_STAT_BYTES = 64 * 4
 # a block, keys a tile, threads a block.
 F32_HEAD_DIMS = (32, 64, 128)
 F32_BQ, F32_BKV, F32_THREADS = 64, 32, 128
+# K5 at f32 (csrc/flash_attention_bwd_f32.cu): rows a block of either pass
+# (query rows in pass 1, keys in pass 2), keys a tile of pass 1 and
+# queries a tile of pass 2, and pass 2's columns of dK and dV a block.
+F32_BWD_ROWS, F32_BWD_TILE, F32_BWD_COLS = 64, 32, 64
 
 
 class FwdPlan(NamedTuple):
@@ -207,6 +212,48 @@ def flash_f32_plan(b: int, n: int, h: int, d: int) -> F32FwdPlan:
     return F32FwdPlan(d_kernel=d_kernel, bq=F32_BQ, bkv=F32_BKV,
                       threads=F32_THREADS, grid=(-(-n // F32_BQ) * b * h,),
                       smem=smem)
+
+
+class F32BwdPlan(NamedTuple):
+    """How one launch of K5 at f32 covers [B, N, H, D]: the head-dim
+    instance ``d_kernel`` (every operand zero-padded to it); ``rows`` rows a
+    block of ``threads`` in both passes (query rows in pass 1, keys in
+    pass 2), ``tile`` keys a tile of pass 1 and queries a tile of pass 2;
+    pass 2's blocks each take ``cols`` columns of dK and dV; the
+    one-dimensional grids ``dq_grid`` (q tiles x B * H) and ``dkv_grid``
+    (key tiles x column parts x B * H), tiles fastest; ``dq_smem`` (Q, dO,
+    two K and two V tiles, dS) and ``dkv_smem`` (K, V, two Q and two dO
+    tiles, dS^T, (P m)^T, two tiles' l and delta) bytes of dynamic shared
+    memory a block, all f32."""
+    d_kernel: int
+    rows: int
+    tile: int
+    cols: int
+    threads: int
+    dq_grid: tuple
+    dkv_grid: tuple
+    dq_smem: int
+    dkv_smem: int
+
+
+def flash_f32_bwd_plan(b: int, n: int, h: int, d: int) -> F32BwdPlan:
+    """K5 f32's plan for q, k, v, o, dO [b, n, h, d] (the kernel's own
+    count of the shared memory is ``nvt_flash_attention_f32_bwd_smem_bytes``).
+    Raises where the kernel does not take the shape: the head dims and
+    grids K5 takes in bf16."""
+    d_kernel = f32_head_dim(d)
+    _check_grid("backward", b, n, h)
+    rows, tile = F32_BWD_ROWS, F32_BWD_TILE
+    cols = min(d_kernel, F32_BWD_COLS)
+    dq_smem = (2 * rows * d_kernel + 4 * tile * d_kernel + rows * tile) * 4
+    dkv_smem = (2 * rows * d_kernel + 4 * tile * d_kernel + 2 * rows * tile
+                + 4 * tile) * 4
+    check_smem("attention backward", max(dq_smem, dkv_smem))
+    tiles = -(-n // rows)
+    return F32BwdPlan(d_kernel=d_kernel, rows=rows, tile=tile, cols=cols,
+                      threads=F32_THREADS, dq_grid=(tiles * b * h,),
+                      dkv_grid=(tiles * (d_kernel // cols) * b * h,),
+                      dq_smem=dq_smem, dkv_smem=dkv_smem)
 
 
 class BwdPlan(NamedTuple):
@@ -429,12 +476,14 @@ def _fwd_cuda(symbol, layout, q, k, v, *, scale, n_valid, dropout_rate, seed,
 
 
 def _bwd_cuda(symbol, layout, q, k, v, o, do, lsum, *, scale, n_valid,
-              dropout_rate, seed):
-    _check_qkv(q, k, v)
+              dropout_rate, seed, f32=False):
+    dtype = torch.float32 if f32 else torch.bfloat16
+    _check_qkv(q, k, v, dtype)
     b, n, h, d = _dims(q, layout)
-    d_kernel = flash_bwd_plan(b, n, h, d, layout).d_kernel
-    check_operand("o", o, torch.bfloat16, q.shape)
-    check_operand("do", do, torch.bfloat16, q.shape)
+    d_kernel = (flash_f32_bwd_plan(b, n, h, d) if f32
+                else flash_bwd_plan(b, n, h, d, layout)).d_kernel
+    check_operand("o", o, dtype, q.shape)
+    check_operand("do", do, dtype, q.shape)
     check_operand("lsum", lsum, torch.float32, (b, h, n))
     inv_keep, keep_q = dropout_args(dropout_rate)
     keep = 1.0 / inv_keep
@@ -499,6 +548,22 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lsum, *, scale: float,
 flash_attention_bwd_cuda.launches = 0
 
 
+def flash_attention_bwd_f32_cuda(q, k, v, o, do, lsum, *, scale: float,
+                                 n_valid: int, dropout_rate: float = 0.0,
+                                 seed: int = 0):
+    """Launch K5 at f32 (:func:`flash_f32_bwd_plan`: dQ with delta, then dK
+    and dV, exact f32 products on the CUDA cores); returns dq, dk, dv
+    [B, N, H, D] f32."""
+    out = _bwd_cuda("nvt_flash_attention_f32_bwd", "bnhd", q, k, v, o, do,
+                    lsum, scale=scale, n_valid=n_valid,
+                    dropout_rate=dropout_rate, seed=seed, f32=True)
+    flash_attention_bwd_f32_cuda.launches += 1
+    return out
+
+
+flash_attention_bwd_f32_cuda.launches = 0
+
+
 def flash_attention_bhnd_cuda(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, scale: float,
                               n_valid: Optional[int] = None,
@@ -530,24 +595,28 @@ def flash_attention_bhnd_bwd_cuda(q, k, v, o, do, lsum, *, scale: float,
 
 flash_attention_bhnd_bwd_cuda.launches = 0
 
-# Per layout: the forward's (plain, bf16 kernel, f32 kernel), the
-# backward's (plain, kernel). K6 has no f32 instance yet: its bf16 kernel
-# stands in the f32 place, and raises for f32 operands.
+# Per layout: the forward's and the backward's (plain, bf16 kernel, f32
+# kernel). K6 has no f32 instance yet: its bf16 kernels stand in the f32
+# place, and raise for f32 operands.
 _IMPLS = {
     "bnhd": ((flash_attention_plain, flash_attention_cuda,
               flash_attention_f32_cuda),
-             (flash_attention_bwd_plain, flash_attention_bwd_cuda)),
+             (flash_attention_bwd_plain, flash_attention_bwd_cuda,
+              flash_attention_bwd_f32_cuda)),
     "bhnd": ((flash_attention_bhnd_plain, flash_attention_bhnd_cuda,
               flash_attention_bhnd_cuda),
-             (flash_attention_bhnd_bwd_plain, flash_attention_bhnd_bwd_cuda)),
+             (flash_attention_bhnd_bwd_plain, flash_attention_bhnd_bwd_cuda,
+              flash_attention_bhnd_bwd_cuda)),
 }
 
 
-def _fwd_impl(layout: str, q: torch.Tensor, *tensors: torch.Tensor):
-    """The forward of a call: the plain version where ``uses_kernel`` says
-    so (CPU operands, head dim < 8), else ``common.pick``'s (plain, K1 or
-    K6, K1 at f32)."""
-    impls = _IMPLS[layout][0]
+def _impl(layout: str, backward: bool, q: torch.Tensor,
+          *tensors: torch.Tensor):
+    """The forward (or backward) of a call: the plain version where
+    ``uses_kernel`` says so (CPU operands, head dim < 8), else
+    ``common.pick``'s (plain, K1 or K6, K1 at f32; plain, K5 or K6's
+    backward, K5 at f32)."""
+    impls = _IMPLS[layout][backward]
     if not uses_kernel(q, *tensors):
         return impls[0]
     return pick(*impls, q, *tensors)
@@ -561,7 +630,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, scale, n_valid, dropout_rate, seed, layout):
-        fwd = _fwd_impl(layout, q, k, v)
+        fwd = _impl(layout, False, q, k, v)
         o, lsum = fwd(q, k, v, scale=scale, n_valid=n_valid,
                       dropout_rate=dropout_rate, seed=seed, return_stats=True)
         ctx.save_for_backward(q, k, v, o, lsum)
@@ -573,7 +642,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lsum = ctx.saved_tensors
-        bwd = _IMPLS[ctx.layout][1][uses_kernel(q, do)]
+        bwd = _impl(ctx.layout, True, q, do)
         dq, dk, dv = bwd(q, k, v, o, do.contiguous(), lsum, **ctx.args)
         return dq, dk, dv, None, None, None, None, None
 
@@ -587,14 +656,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     layout; keys at or past ``n_valid`` (default N) get zero weight;
     probabilities dropped at ``dropout_rate`` with the site key ``seed``.
     Differentiable when an input requires grad. CPU tensors take the plain
-    version, CUDA tensors the kernels (bf16, or f32 in the bnhd layout,
-    forward only; head dim < 8: the plain version on either device)."""
+    version, CUDA tensors the kernels (bf16, or f32 in the bnhd layout;
+    head dim < 8: the plain version on either device)."""
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
     n_valid = _n_valid(q, n_valid, layout)
     if is_training(q, k, v):
         return FlashAttention.apply(q, k, v, scale, n_valid,
                                     float(dropout_rate), int(seed), layout)
-    fn = _fwd_impl(layout, q, k, v)
+    fn = _impl(layout, False, q, k, v)
     return fn(q, k, v, scale=scale, n_valid=n_valid,
               dropout_rate=dropout_rate, seed=seed)

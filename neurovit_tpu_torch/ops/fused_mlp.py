@@ -19,8 +19,11 @@ and sums outside, as in JAX.
 CPU tensors run the ``*_plain`` functions; bf16 CUDA tensors run
 ``csrc/fused_mlp.cu`` (K4) and ``csrc/fused_mlp_bwd.cu`` (K9), both on TMA
 + ``wgmma``; f32 CUDA tensors run ``csrc/fused_mlp_f32.cu`` (K4 at f32,
-:func:`mlp_f32_plan`: the same three passes in f32 on the CUDA cores,
-through ``csrc/ffma.cuh``'s GEMM), the forward only so far. K4 runs in
+:func:`mlp_f32_plan`) and ``csrc/fused_mlp_bwd_f32.cu`` (K9 at f32,
+:func:`mlp_bwd_f32_plan`): the same passes in f32 on the CUDA cores,
+through ``csrc/ffma.cuh``'s GEMM, the backward's last three
+(:func:`ln_bwd_f32_passes`, ``csrc/ffma_ln_bwd.cuh``) shared with K7 at
+f32. K4 runs in
 three launches (:func:`mlp_plan`): LN rows into u, fc1 with bias, GELU
 and the hidden mask in its epilogue into g, fc2 with bias, the output
 mask and the residual; u and g go through one scratch allocation. K9 runs in five (:func:`mlp_bwd_plan`): dz, u and each row's
@@ -44,8 +47,7 @@ from neurovit_tpu_torch import nn
 from neurovit_tpu_torch.ops.common import (FLOAT, INT, U64, VOID,
                                            check_operand, check_widths,
                                            dropout_args, is_training, launch,
-                                           on_cpu, pick, ptr, round_up,
-                                           weight_grad)
+                                           pick, ptr, round_up, weight_grad)
 from neurovit_tpu_torch.ops.int8_gemm import ALIGN_SLACK, BOX_BYTES
 
 Seeds = Tuple[int, int]
@@ -193,17 +195,40 @@ def ln_bwd_passes(m: int, dim: int) -> tuple:
     m_tiles = -(-m // MLP_TILE)
     tile_n = gemm_tile_n(m, dim)
     n_tiles = -(-dim // tile_n)
-    launches = (("du", (n_tiles, m_tiles), GEMM_THREADS,
-                 gemm_smem_bytes(tile_n)),
+    du = ("du", (n_tiles, m_tiles), GEMM_THREADS, gemm_smem_bytes(tile_n))
+    return _ln_bwd_tail(du, m, dim, n_tiles, m_tiles)
+
+
+def _ln_bwd_tail(du: tuple, m: int, dim: int, col_parts: int,
+                 row_parts: int) -> tuple:
+    """(launches, scratch, scratch_bytes) of a du pass ``du`` whose
+    epilogue writes ``col_parts`` partial sums a row and ``row_parts`` a
+    column, then the LayerNorm backward rows and the column sums."""
+    launches = (du,
                 ("ln_bwd", (-(-m // ROW_WARPS), 1), ROW_WARPS * 32, 0),
                 ("colsum", (2 * dim // SUM_COLUMNS, 1), SUM_WARPS * 32, 0))
     scratch, at = {}, 0
     for name, nbytes in (("du", m * dim * 4), ("stats", m * 8),
-                         ("rowpart", 2 * m * n_tiles * 4),
-                         ("colpart", 2 * m_tiles * dim * 4)):
+                         ("rowpart", 2 * m * col_parts * 4),
+                         ("colpart", 2 * row_parts * dim * 4)):
         scratch[name] = (at, nbytes)
         at = round_up(at + nbytes, SCRATCH_ALIGN)
     return launches, scratch, at
+
+
+def ln_bwd_f32_passes(m: int, dim: int) -> tuple:
+    """The passes K9 and K7 at f32 share (csrc/ffma_ln_bwd.cuh) for m rows
+    of width dim: (launches, scratch, scratch_bytes), as
+    :func:`ln_bwd_passes`. ``launches``: the du GEMM on the f32 GEMM's 128
+    x 128 tiles with the LayerNorm backward's partial sums in its epilogue,
+    the LayerNorm backward rows and the column sums. ``scratch``: du [m,
+    dim] f32, each row's (mean, rstd), the du pass's row partials [2, m,
+    column parts] f32 (two parts a column tile, a warp's 64 columns each)
+    and its column partials [2, row parts, dim] f32 (four parts a row
+    tile, a warp's 32 rows each), each on a 256-byte boundary. The
+    kernels' own count is ``nvt_ln_bwd_f32_scratch_bytes``."""
+    return _ln_bwd_tail(f32_gemm_launch("du", m, dim), m, dim,
+                        2 * -(-dim // F32_TILE), 4 * -(-m // F32_TILE))
 
 
 def mlp_bwd_plan(m: int, dim: int, hid: int) -> MlpBwdPlan:
@@ -221,6 +246,23 @@ def mlp_bwd_plan(m: int, dim: int, hid: int) -> MlpBwdPlan:
     launches = (("dz_rows", (-(-m // ROW_WARPS), 1), ROW_WARPS * 32, 0),
                 ("hidden", (-(-hid // tile_n), -(-m // MLP_TILE)),
                  GEMM_THREADS, gemm_smem_bytes(tile_n))) + tail
+    return MlpBwdPlan(launches=launches, scratch=scratch,
+                      scratch_bytes=nbytes)
+
+
+def mlp_bwd_f32_plan(m: int, dim: int, hid: int) -> MlpBwdPlan:
+    """K9 f32's plan for m rows: dz rows (u, the statistics and, at
+    dropout > 0, dz), the hidden GEMM on the f32 GEMM's tiles over the
+    [m, hid] output with a and dh in its epilogue, then
+    :func:`ln_bwd_f32_passes`. The widths K9 takes, the same as bf16's.
+    Raises where the kernel does not take them."""
+    check_bwd_shapes(dim, hid)
+    if m < 1:
+        raise ValueError(f"the MLP backward kernel takes at least one row, "
+                         f"got {m}")
+    tail, scratch, nbytes = ln_bwd_f32_passes(m, dim)
+    launches = (("dz_rows", (-(-m // ROW_WARPS), 1), ROW_WARPS * 32, 0),
+                f32_gemm_launch("hidden", m, hid)) + tail
     return MlpBwdPlan(launches=launches, scratch=scratch,
                       scratch_bytes=nbytes)
 
@@ -412,8 +454,45 @@ def fused_mlp_bwd_cuda(dy, x, h, gamma, beta, w1, w2, *,
 fused_mlp_bwd_cuda.launches = 0
 
 
+def fused_mlp_bwd_f32_cuda(dy, x, h, gamma, beta, w1, w2, *,
+                           dropout_rate: float = 0.0, seeds: Seeds = (0, 0)):
+    """Launch K9 at f32 (:func:`mlp_bwd_f32_plan`) on f32 operands: exact
+    f32 products on the CUDA cores; returns (dx, u, a, dz, dh, dgamma,
+    dbeta) in f32. At dropout 0 dz is dy itself, the plain version's
+    values."""
+    b, n, dim = x.shape
+    hid = w1.shape[0]
+    m = b * n
+    w1f, w2f, vecs = _operands(x, w1, w2, torch.float32, gamma=gamma,
+                               beta=beta)
+    check_operand("dy", dy, torch.float32, (b, n, dim))
+    check_operand("h", h, torch.float32, (b, n, hid))
+    plan = mlp_bwd_f32_plan(m, dim, hid)
+    inv_keep, keep_q = dropout_args(dropout_rate)
+    dx, u = torch.empty_like(x), torch.empty_like(x)
+    dz = torch.empty_like(dy) if keep_q else None
+    a, dh = (x.new_empty(m, hid) for _ in range(2))
+    dgb = torch.empty((2, dim), dtype=torch.float32, device=x.device)
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
+                          device=x.device)
+    launch("nvt_fused_mlp_f32_bwd",
+           (VOID,) * 15 + (INT, INT, INT, FLOAT, FLOAT, INT, U64, U64), x,
+           ptr(dy), ptr(x), ptr(h), ptr(vecs["gamma"]), ptr(vecs["beta"]),
+           ptr(w1f), ptr(w2f), ptr(dx), ptr(u), ptr(a), ptr(dz), ptr(dh),
+           ptr(dgb[0]), ptr(dgb[1]), ptr(scratch), m, dim, hid, nn.LN_EPS,
+           inv_keep, keep_q, int(seeds[0]), int(seeds[1]))
+    fused_mlp_bwd_f32_cuda.launches += 1
+    dz = dy if dz is None else dz
+    return (dx, u.reshape(m, dim), a, dz.reshape(m, dim), dh, dgb[0],
+            dgb[1])
+
+
+fused_mlp_bwd_f32_cuda.launches = 0
+
+
 class FusedMlp(torch.autograd.Function):
-    """K4 forward (with h), K9 backward; dW1, dW2, db1, db2 outside."""
+    """K4 forward (with h), K9 backward (bf16 or f32, ``common.pick``);
+    dW1, dW2, db1, db2 outside."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, w1, b1, w2, b2, dropout_rate, seeds):
@@ -428,7 +507,8 @@ class FusedMlp(torch.autograd.Function):
     def backward(ctx, dy):
         x, h, gamma, beta, w1, w2 = ctx.saved_tensors
         dy = dy.contiguous()
-        bwd = fused_mlp_bwd_plain if on_cpu(x, dy) else fused_mlp_bwd_cuda
+        bwd = pick(fused_mlp_bwd_plain, fused_mlp_bwd_cuda,
+                   fused_mlp_bwd_f32_cuda, x, dy)
         dx, u, a, dz, dh, dgamma, dbeta = bwd(dy, x, h, gamma, beta, w1, w2,
                                               **ctx.args)
         dw1 = weight_grad(dh, u).to(w1.dtype)
@@ -444,7 +524,7 @@ def fused_mlp_block(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                     seeds: Seeds = (0, 0)) -> torch.Tensor:
     """x + Drop(fc2(Drop(GELU(fc1(LN(x)))))), [B, N, dim]. Differentiable
     when an input requires grad. CPU tensors take the plain version, CUDA
-    tensors the kernels (bf16 or, forward only, f32)."""
+    tensors the kernels (bf16 or f32)."""
     args = (x, gamma, beta, w1, b1, w2, b2)
     if is_training(*args):
         return FusedMlp.apply(*args, float(dropout_rate),

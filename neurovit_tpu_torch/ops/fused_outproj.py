@@ -21,7 +21,9 @@ at dropout > 0 only, then a GEMM that reads Wout as it lies
 dim as any multiples of 16. f32 CUDA tensors run
 ``csrc/fused_outproj_f32.cu`` (K3 at f32, :func:`outproj_f32_plan`: one
 launch of ``csrc/ffma.cuh``'s GEMM in f32 on the CUDA cores, K4 f32's
-fc2), the forward only so far.
+fc2) and ``csrc/fused_outproj_bwd_f32.cu`` (K8 at f32,
+:func:`outproj_bwd_f32_plan`: K9 f32's dz rows pass without the
+LayerNorm at dropout > 0, then the GEMM with Wout as it lies).
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from neurovit_tpu_torch import nn
 from neurovit_tpu_torch.ops.common import (FLOAT, INT, U64, VOID,
                                            check_operand, check_widths,
                                            dropout_args, is_training, launch,
-                                           on_cpu, pick, ptr, weight_grad)
+                                           pick, ptr, weight_grad)
 from neurovit_tpu_torch.ops.fused_mlp import (F32_TILE, GEMM_THREADS,
                                               MLP_TILE, ROW_WARPS,
                                               f32_gemm_launch,
@@ -125,6 +127,24 @@ def outproj_bwd_plan(m: int, dim: int, inner: int,
     rows = ("dz_rows", (-(-m // ROW_WARPS), 1), ROW_WARPS * 32, 0)
     return OutprojBwdPlan(
         launches=(rows, dattn) if dropout_rate else (dattn,), tile_n=tile_n)
+
+
+def outproj_bwd_f32_plan(m: int, dim: int, inner: int,
+                         dropout_rate: float) -> OutprojBwdPlan:
+    """K8 f32's plan for m rows: at dropout > 0 dz_rows (K9 f32's pass 1
+    without the LayerNorm), then dattn, the f32 GEMM on 128 x 128 tiles
+    over the [m, inner] output with Wout read as it lies (its shared
+    memory ``nvt_ffma_gemm_smem_bytes``). The widths K8 takes. Raises where
+    the kernel does not take them."""
+    check_bwd_shapes(dim, inner)
+    if m < 1:
+        raise ValueError(f"the out-projection backward kernel takes at "
+                         f"least one row, got {m}")
+    dattn = f32_gemm_launch("dattn", m, inner)
+    rows = ("dz_rows", (-(-m // ROW_WARPS), 1), ROW_WARPS * 32, 0)
+    return OutprojBwdPlan(
+        launches=(rows, dattn) if dropout_rate else (dattn,),
+        tile_n=F32_TILE)
 
 
 def fused_outproj_residual_plain(x: torch.Tensor, attn: torch.Tensor,
@@ -241,8 +261,34 @@ def fused_outproj_bwd_cuda(dy: torch.Tensor, w_out: torch.Tensor, *,
 fused_outproj_bwd_cuda.launches = 0
 
 
+def fused_outproj_bwd_f32_cuda(dy: torch.Tensor, w_out: torch.Tensor, *,
+                               dropout_rate: float = 0.0, seed: int = 0):
+    """Launch K8 at f32 (:func:`outproj_bwd_f32_plan`) on f32 dy: exact f32
+    products on the CUDA cores. Returns (dattn, dz) f32; at dropout 0 dz
+    is dy itself."""
+    b, n, dim = dy.shape
+    inner = w_out.shape[1]
+    check_operand("dy", dy, torch.float32)
+    w = w_out.float().contiguous()
+    check_operand("w_out", w, torch.float32, (dim, inner))
+    outproj_bwd_f32_plan(b * n, dim, inner, dropout_rate)
+    inv_keep, keep_q = dropout_args(dropout_rate)
+    dattn = dy.new_empty(b, n, inner)
+    dz = torch.empty_like(dy) if keep_q else None
+    launch("nvt_fused_outproj_f32_bwd",
+           (VOID,) * 4 + (INT,) * 3 + (FLOAT, INT, U64), dy, ptr(dy),
+           ptr(w), ptr(dattn), ptr(dz), b * n, inner, dim, inv_keep, keep_q,
+           int(seed))
+    fused_outproj_bwd_f32_cuda.launches += 1
+    return dattn, dy if dz is None else dz
+
+
+fused_outproj_bwd_f32_cuda.launches = 0
+
+
 class FusedOutproj(torch.autograd.Function):
-    """K3 forward, K8 backward; dWout, db and dx = dy outside."""
+    """K3 forward, K8 backward (bf16 or f32, ``common.pick``); dWout, db
+    and dx = dy outside."""
 
     @staticmethod
     def forward(ctx, x, attn, w_out, b_out, dropout_rate, seed):
@@ -256,8 +302,8 @@ class FusedOutproj(torch.autograd.Function):
     def backward(ctx, dy):
         attn, w_out = ctx.saved_tensors
         dy = dy.contiguous()
-        bwd = (fused_outproj_bwd_plain if on_cpu(dy, w_out)
-               else fused_outproj_bwd_cuda)
+        bwd = pick(fused_outproj_bwd_plain, fused_outproj_bwd_cuda,
+                   fused_outproj_bwd_f32_cuda, dy, w_out)
         dattn, dz = bwd(dy, w_out, **ctx.args)
         m = dy.shape[0] * dy.shape[1]
         dz2 = dz.reshape(m, -1)
@@ -272,7 +318,7 @@ def fused_outproj_residual(x: torch.Tensor, attn: torch.Tensor,
                            seed: int = 0) -> torch.Tensor:
     """x + Drop(attn @ Wout^T + b), [B, N, dim]. Differentiable when an
     input requires grad. CPU tensors take the plain version, CUDA tensors
-    the kernels (bf16 or, forward only, f32)."""
+    the kernels (bf16 or f32)."""
     if is_training(x, attn, w_out, b_out):
         return FusedOutproj.apply(x, attn, w_out, b_out, float(dropout_rate),
                                   int(seed))

@@ -25,8 +25,10 @@ LayerNorm backward rows, the dgamma / dbeta sums over the row tiles in a
 fixed order; du, the statistics and the partial sums go through one
 scratch allocation. Both take dim and heads * dim_head as multiples of
 16, of any size. f32 CUDA tensors run ``csrc/fused_qkv_f32.cu`` (K2 at
-f32, :func:`qkv_f32_plan`: the same two passes in f32 on the CUDA cores,
-through ``csrc/ffma.cuh``'s GEMM), the forward only so far.
+f32, :func:`qkv_f32_plan`) and ``csrc/fused_qkv_bwd_f32.cu`` (K7 at f32,
+:func:`qkv_bwd_f32_plan`): the same passes in f32 on the CUDA cores,
+through ``csrc/ffma.cuh``'s GEMM, the backward's last three K9 f32's
+(``csrc/ffma_ln_bwd.cuh``).
 """
 
 from __future__ import annotations
@@ -38,13 +40,13 @@ import torch
 from neurovit_tpu_torch import nn
 from neurovit_tpu_torch.ops.common import (FLOAT, INT, VOID, check_operand,
                                            check_widths, is_training, launch,
-                                           on_cpu, pick, ptr, round_up,
-                                           weight_grad)
+                                           pick, ptr, round_up, weight_grad)
 from neurovit_tpu_torch.ops.fused_mlp import (F32_TILE, GEMM_THREADS,
                                               MLP_TILE, ROW_WARPS,
                                               SCRATCH_ALIGN, f32_gemm_launch,
                                               gemm_smem_bytes, gemm_tile_n,
                                               ln_backward_plain,
+                                              ln_bwd_f32_passes,
                                               ln_bwd_passes)
 
 
@@ -152,6 +154,24 @@ def qkv_bwd_plan(m: int, dim: int, inner: int) -> QkvBwdPlan:
                 ) + tail
     return QkvBwdPlan(launches=launches, scratch=scratch,
                       scratch_bytes=nbytes)
+
+
+def qkv_bwd_f32_plan(m: int, dim: int, inner: int) -> QkvBwdPlan:
+    """K7 f32's plan for m rows: the row statistics (K2 f32's), then
+    :func:`~neurovit_tpu_torch.ops.fused_mlp.ln_bwd_f32_passes` (the du
+    GEMM over K = 3 inner on the f32 GEMM's tiles, the LayerNorm backward
+    rows, the column sums). The widths K7 takes, the same as bf16's.
+    Raises where the kernel does not take them."""
+    check_bwd_shapes(dim, inner)
+    if m < 1:
+        raise ValueError(f"the LN+QKV backward kernel takes at least one "
+                         f"row, got {m}")
+    tail, scratch, nbytes = ln_bwd_f32_passes(m, dim)
+    launches = (("row_stats", (-(-m // ROW_WARPS), 1), ROW_WARPS * 32, 0),
+                ) + tail
+    return QkvBwdPlan(launches=launches, scratch=scratch,
+                      scratch_bytes=nbytes)
+
 
 QKV = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -275,8 +295,33 @@ def fused_ln_qkv_bwd_cuda(dqkv, x, gamma, w_qkv):
 fused_ln_qkv_bwd_cuda.launches = 0
 
 
+def fused_ln_qkv_bwd_f32_cuda(dqkv, x, gamma, w_qkv):
+    """Launch K7 at f32 (:func:`qkv_bwd_f32_plan`) on f32 dqkv = [dq | dk |
+    dv] [B, N, 3 * inner] and x: exact f32 products on the CUDA cores;
+    returns dx, dgamma and dbeta, f32."""
+    b, n, dim = x.shape
+    inner = dqkv.shape[-1] // 3
+    w, vecs = _operands(x, w_qkv, inner, torch.float32, gamma=gamma)
+    check_operand("dqkv", dqkv, torch.float32, (b, n, 3 * inner))
+    m = b * n
+    plan = qkv_bwd_f32_plan(m, dim, inner)
+    dx = torch.empty_like(x)
+    dgb = torch.empty((2, dim), dtype=torch.float32, device=x.device)
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
+                          device=x.device)
+    launch("nvt_fused_ln_qkv_f32_bwd", (VOID,) * 8 + (INT, INT, INT, FLOAT),
+           x, ptr(dqkv), ptr(x), ptr(vecs["gamma"]), ptr(w), ptr(dx),
+           ptr(dgb[0]), ptr(dgb[1]), ptr(scratch), m, dim, inner, nn.LN_EPS)
+    fused_ln_qkv_bwd_f32_cuda.launches += 1
+    return dx, dgb[0], dgb[1]
+
+
+fused_ln_qkv_bwd_f32_cuda.launches = 0
+
+
 class FusedLnQkv(torch.autograd.Function):
-    """K2 forward (with u), K7 backward; dWqkv = dqkv^T u outside."""
+    """K2 forward (with u), K7 backward (bf16 or f32, ``common.pick``);
+    dWqkv = dqkv^T u outside."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, w_qkv, heads, dim_head):
@@ -292,8 +337,8 @@ class FusedLnQkv(torch.autograd.Function):
         b, n, _ = x.shape
         # [dq | dk | dv] once, the operand of both du and dWqkv.
         dqkv = torch.cat([t.reshape(b, n, -1) for t in (dq, dk, dv)], dim=2)
-        bwd = (fused_ln_qkv_bwd_plain if on_cpu(x, dqkv)
-               else fused_ln_qkv_bwd_cuda)
+        bwd = pick(fused_ln_qkv_bwd_plain, fused_ln_qkv_bwd_cuda,
+                   fused_ln_qkv_bwd_f32_cuda, x, dqkv)
         dx, dgamma, dbeta = bwd(dqkv, x, gamma, w_qkv)
         dw = weight_grad(dqkv.reshape(b * n, -1),
                          u.reshape(b * n, -1)).to(w_qkv.dtype)
@@ -304,7 +349,7 @@ def fused_ln_qkv(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                  w_qkv: torch.Tensor, heads: int, dim_head: int) -> QKV:
     """LN(x) then the QKV projection: [B, N, dim] -> q, k, v [B, N, H, D].
     Differentiable when an input requires grad. CPU tensors take the plain
-    version, CUDA tensors the kernels (bf16 or, forward only, f32)."""
+    version, CUDA tensors the kernels (bf16 or f32)."""
     if is_training(x, gamma, beta, w_qkv):
         return FusedLnQkv.apply(x, gamma, beta, w_qkv, heads, dim_head)
     return _forward(x, gamma, beta, w_qkv)(x, gamma, beta, w_qkv, heads,

@@ -45,13 +45,11 @@ features encoded once (``training.feature_cache``, persisted under
 ``TRAINING_4D_FEATURE_CACHE_DIR``), drawing the same per-step seeds as the
 volume path.
 
-The model's device is the trainer's. The ViT's kernels take f32 in the
-forwards K1-K4 only, so a 3D ViT's ``TRAINING_PRECISION: f32`` trains on
-the CPU (the plain path) and is refused on CUDA, while a 4D model, whose
-frozen ViT runs forward only, trains at f32 on either (its int8 encoder
-is refused at f32 on CUDA: K10-K13 take bf16 activations); the ResNet's
-pool kernels take f32 and its convs are cuDNN's, so it trains in f32 on
-either. A mesh of more than one device is
+The model's device is the trainer's. The ViT's block kernels K1-K5 and
+K7-K9 have f32 instances, so ``TRAINING_PRECISION: f32`` trains a 3D ViT
+and a 4D model on either device (a 4D model's int8 encoder is refused at
+f32 on CUDA: K10-K13 take bf16 activations); the ResNet's pool kernels
+take f32 and its convs are cuDNN's, so it trains in f32 on either. A mesh of more than one device is
 not ported yet and raises, naming its ROADMAP item.
 """
 
@@ -96,16 +94,12 @@ def check_supported(config: Dict[str, Any], device: torch.device) -> None:
         raise not_ported("a mesh of more than one device", "multi-GPU")
     if (device.type == "cuda"
             and config.get("MODEL_VOLUME_ENCODER", "vit") == "vit"
-            and config.get("TRAINING_PRECISION", "bf16") != "bf16"):
-        # A 4D model's frozen ViT runs forward only, through K1-K4's f32
-        # instances; the 3D train step needs the backwards at f32.
-        if int(config.get("TRAINING_DIM", 3)) != 4:
-            raise not_ported("training an f32 3D ViT on CUDA (its backward "
-                             "kernels take bf16)", F32_ON_CUDA)
-        if quant4d == "int8":
-            raise not_ported("the int8 encoder (TRAINING_4D_ENCODER_QUANT) "
-                             "of an f32 ViT on CUDA (K10-K13 take bf16 "
-                             "activations)", F32_ON_CUDA)
+            and config.get("TRAINING_PRECISION", "bf16") != "bf16"
+            and int(config.get("TRAINING_DIM", 3)) == 4
+            and quant4d == "int8"):
+        raise not_ported("the int8 encoder (TRAINING_4D_ENCODER_QUANT) of "
+                         "an f32 ViT on CUDA (K10-K13 take bf16 "
+                         "activations)", F32_ON_CUDA)
 
 
 class Trainer:

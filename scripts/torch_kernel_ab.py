@@ -39,9 +39,10 @@ goes through :func:`fused_outproj_bwd_call`: an older
 too, this one's reads dy and writes no dz then. K14 and K15 go through
 :func:`max_pool3d_call` and :func:`max_pool3d_bwd_call`: an older
 ``nvt_maxpool3d_fwd`` / ``_bwd`` (a thread a window) takes the shape
-alone, this one's also ``pool_plan``'s walk. The f32 forwards K1-K4 go through
-this checkout's wrappers on the same operands in f32 (K2 also with u, K4
-also at dropout 0.1 with h).
+alone, this one's also ``pool_plan``'s walk. The f32 forwards K1-K4 and
+backwards K5, K7-K9 go through this checkout's wrappers on the same
+operands in f32 (K2 also with u, K4 also at dropout 0.1 with h; K5, K8
+and K9 at dropout 0.1).
 
     python scripts/torch_kernel_ab.py --other <checkout> [--rounds 10]
         [--only <substring of a kernel's name>] [--batch 8]
@@ -323,6 +324,10 @@ def cases(b: int = cs.B) -> dict:
     xf, attnf = x.float(), attn.float()
     qkvf = [a.float() for a in qkv]
     mlpf = (xf, *ln, w1, b1, w2, b2)
+    dyf, dqkvf, dof = dy.float(), dqkv.float(), do.float()
+    of, lsumf = fa.flash_attention_plain(*qkvf, return_stats=True, **att)
+    _, hf = fused_mlp.fused_mlp_block_plain(*mlpf, return_h=True, **mdrop)
+    bwdf = (dyf, xf, hf, *ln, w1, w2)
     return {
         "flash_attention": ("nvt_flash_attention_fwd", lambda: (
             fa.flash_attention_cuda(*qkv, scale=d ** -0.5, n_valid=n))),
@@ -384,6 +389,15 @@ def cases(b: int = cs.B) -> dict:
         "fused_mlp_block_f32 dropout h": ("nvt_fused_mlp_f32_fwd", lambda: (
             fused_mlp.fused_mlp_block_f32_cuda(*mlpf, return_h=True,
                                                **mdrop))),
+        "flash_attention_bwd_f32": ("nvt_flash_attention_f32_bwd", lambda: (
+            fa.flash_attention_bwd_f32_cuda(*qkvf, of, dof, lsumf, **att))),
+        "fused_ln_qkv_bwd_f32": ("nvt_fused_ln_qkv_f32_bwd", lambda: (
+            fused_qkv.fused_ln_qkv_bwd_f32_cuda(dqkvf, xf, ln[0], wqkv))),
+        "fused_outproj_bwd_f32": ("nvt_fused_outproj_f32_bwd", lambda: (
+            fused_outproj.fused_outproj_bwd_f32_cuda(
+                dyf, wout, dropout_rate=cs.DROPOUT, seed=1234))),
+        "fused_mlp_bwd_f32": ("nvt_fused_mlp_f32_bwd", lambda: (
+            fused_mlp.fused_mlp_bwd_f32_cuda(*bwdf, **mdrop))),
     }
 
 

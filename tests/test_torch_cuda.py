@@ -44,7 +44,14 @@ K1-K4 at f32 (FFMA on the CUDA cores) at rtol = atol = 1e-4: K1 at head
 dims 16-128, n_valid off the key tiles and the flagship at batch 8, K2
 with and without u, K3, K4 with h, at dropout 0 and 0.1, all-zero rows,
 repeat calls bit for bit, the plans' bytes against the kernels', and an
-f32 ViT's forward launching only the f32 kernels.
+f32 ViT's forward launching only the f32 kernels; and the f32 backwards
+K5, K7, K8 and K9 at the same tolerance for the data gradients (dgamma
+and dbeta by relative Frobenius error <= 1e-5: f32 sums over the rows
+taken in another order), K5 at head dims 16-128 and n_valid off the key
+tiles, K8 and K9 at dropout 0 and 0.1 (dz is dy at 0), all-zero rows,
+repeat calls bit for bit, the plans' bytes against the kernels', and an
+f32 ViT's train step launching only the f32 kernels, its gradients
+against the CPU plain path's.
 
 These need an NVIDIA GPU with sm_90a and nvcc; elsewhere they skip. Run on
 the card with:
@@ -2067,14 +2074,14 @@ def test_f32_plans_match_the_kernels(cuda):
 
 
 def test_f32_kernels_do_not_spill(cuda):
-    """ptxas's report in the build log: no kernel of the f32 forwards
-    (csrc/*_f32.cu, the LayerNorm rows of csrc/ffma.cu) spills."""
+    """ptxas's report in the build log: no kernel of the f32 forwards and
+    backwards (csrc/*_f32.cu, the row passes of csrc/ffma.cu) spills."""
     from neurovit_tpu_torch.ops import _build
     kernels, _ = _build.ptxas_report(
         _build.build_log(_build.build()).read_text())
     f32 = [k for k in kernels
            if k[0].endswith("_f32.cu") or k[0] == "ffma.cu"]
-    assert len(f32) >= 8
+    assert len(f32) >= 25
     assert [k[:2] for k in f32 if k[3] or k[4]] == []
 
 
@@ -2114,3 +2121,192 @@ def test_f32_forward_runs_the_f32_kernels(cuda):
     with torch.no_grad():
         model16(x.to(cuda))
     assert [fn.launches for fn in f32] == before
+
+
+# The f32 backwards K5, K7, K8 and K9 (csrc/*_bwd_f32.cu): data gradients
+# at F32_TOL, dgamma and dbeta by relative Frobenius error (f32 sums over
+# the rows in another order).
+F32_PARAM_RTOL = 1e-5
+
+
+def _check_f32_bwd(got, want, params=()):
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype == torch.float32
+        assert g.reshape(w.shape).shape == w.shape
+        g = g.reshape(w.shape)
+        assert torch.isfinite(g).all()
+        if i in params:
+            assert float((g - w).norm()) <= F32_PARAM_RTOL * float(w.norm())
+        else:
+            torch.testing.assert_close(g, w, **F32_TOL)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,n,n_valid,h,d", F32_ATTN_CASES)
+def test_flash_attention_bwd_f32_kernel(cuda, b, n, n_valid, h, d, rate):
+    """K5 at f32 against plain on the forward's o and row sums, one launch
+    a call and no bf16 K5, two calls bit-equal."""
+    rng = np.random.default_rng(n + d + 1)
+    q, k, v, do = (_f32(rng, (b, n, h, d), cuda) for _ in range(4))
+    kw = {"scale": d ** -0.5, "n_valid": n_valid, "dropout_rate": rate,
+          "seed": 7}
+    o, lsum = fa.flash_attention_plain(q, k, v, return_stats=True, **kw)
+    before = (fa.flash_attention_bwd_f32_cuda.launches,
+              fa.flash_attention_bwd_cuda.launches)
+    got = fa.flash_attention_bwd_f32_cuda(q, k, v, o, do, lsum, **kw)
+    assert (fa.flash_attention_bwd_f32_cuda.launches,
+            fa.flash_attention_bwd_cuda.launches) == (before[0] + 1,
+                                                      before[1])
+    _check_f32_bwd(got, fa.flash_attention_bwd_plain(q, k, v, o, do, lsum,
+                                                     **kw))
+    again = fa.flash_attention_bwd_f32_cuda(q, k, v, o, do, lsum, **kw)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    if n_valid < n:
+        assert not got[1][:, n_valid:].abs().max()
+        assert not got[2][:, n_valid:].abs().max()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("m,dim,inner", [(1, 64, 64), (130, 1024, 512),
+                                         (300, 768, 768), (8008, 1024, 512),
+                                         (65, 1280, 1280), (33, 1536, 1040)])
+def test_fused_outproj_bwd_f32_kernel(cuda, m, dim, inner, rate):
+    """K8 at f32: (dattn, dz) against plain, dz dy itself at dropout 0,
+    two calls bit-equal."""
+    rng = np.random.default_rng(m + inner + 2)
+    dy = _f32(rng, (1, m, dim), cuda)
+    w = _f32(rng, (dim, inner), cuda, inner ** -0.5)
+    kw = {"dropout_rate": rate, "seed": 12}
+    got = fused_outproj.fused_outproj_bwd_f32_cuda(dy, w, **kw)
+    _check_f32_bwd(got, fused_outproj.fused_outproj_bwd_plain(dy, w, **kw))
+    if not rate:
+        assert got[1] is dy
+    again = fused_outproj.fused_outproj_bwd_f32_cuda(dy, w, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("m,dim,heads,dh", F32_QKV_CASES)
+def test_fused_ln_qkv_bwd_f32_kernel(cuda, m, dim, heads, dh):
+    """K7 at f32: dx against plain, dgamma and dbeta by relative Frobenius
+    error, two calls bit-equal; all-zero rows of dqkv give dx 0 there."""
+    rng = np.random.default_rng(m + dim + 3)
+    inner = heads * dh
+    dqkv = _f32(rng, (1, m, 3 * inner), cuda)
+    dqkv[0, [0, m - 1]] = 0
+    args = (dqkv, _f32(rng, (1, m, dim), cuda),
+            _f32(rng, (dim,), cuda, 0.1, 1.0),
+            _f32(rng, (3 * inner, dim), cuda, dim ** -0.5))
+    got = fused_qkv.fused_ln_qkv_bwd_f32_cuda(*args)
+    _check_f32_bwd(got, fused_qkv.fused_ln_qkv_bwd_plain(*args), (1, 2))
+    assert not got[0][0, [0, m - 1]].abs().max()
+    again = fused_qkv.fused_ln_qkv_bwd_f32_cuda(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("m,dim,hid", [(1, 64, 128), (33, 256, 384),
+                                       (130, 1024, 2048), (300, 1280, 5120),
+                                       (8008, 1024, 2048)])
+def test_fused_mlp_bwd_f32_kernel(cuda, m, dim, hid, rate):
+    """K9 at f32 on K4 f32's own h: (dx, u, a, dz, dh) against plain,
+    dgamma and dbeta by relative Frobenius error; an all-zero row of dy
+    gives dz = dh = dx = 0 there; u bit-equal to the u that K4 f32's
+    LayerNorm pass computes (K2 f32 returns it); two calls bit-equal."""
+    args = _mlp_f32_args(np.random.default_rng(m + hid + 4), m, dim, hid,
+                         cuda)
+    x, gamma, beta, w1, b1, w2, b2 = args
+    kw = {"dropout_rate": rate, "seeds": (21, 22)}
+    _, h = fused_mlp.fused_mlp_block_f32_cuda(*args, return_h=True, **kw)
+    dy = _f32(np.random.default_rng(m), (1, m, dim), cuda)
+    dy[0, 0] = 0
+    bargs = (dy, x, h, gamma, beta, w1, w2)
+    got = fused_mlp.fused_mlp_bwd_f32_cuda(*bargs, **kw)
+    _check_f32_bwd(got, fused_mlp.fused_mlp_bwd_plain(*bargs, **kw), (5, 6))
+    for j in (0, 3, 4):
+        assert not got[j].reshape(m, -1)[0].abs().max()
+    u = fused_qkv.fused_ln_qkv_f32_cuda(
+        x, gamma, beta, torch.zeros(48, dim, device=cuda), 1, 16,
+        return_u=True)[3]
+    assert torch.equal(got[1], u.reshape(m, dim))
+    if not rate:
+        assert torch.equal(got[3], dy.reshape(m, dim))
+    again = fused_mlp.fused_mlp_bwd_f32_cuda(*bargs, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_f32_bwd_plans_match_the_kernels(cuda):
+    """The wrappers' f32 backward plans count the scratch of K7 and K9 and
+    K5's shared memory as the kernels do."""
+    import ctypes
+
+    from neurovit_tpu_torch.ops import _build
+    lib = _build.library()
+    scratch = lib.nvt_ln_bwd_f32_scratch_bytes
+    scratch.restype, scratch.argtypes = ctypes.c_longlong, [ctypes.c_int] * 2
+    attn = lib.nvt_flash_attention_f32_bwd_smem_bytes
+    attn.restype, attn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 2
+    for dim, heads, dh, hid in WIDTHS.values():
+        for m in (1, 130, 8008, 32032):
+            want = scratch(m, dim)
+            assert want == fused_mlp.mlp_bwd_f32_plan(m, dim,
+                                                      hid).scratch_bytes
+            assert want == fused_qkv.qkv_bwd_f32_plan(
+                m, dim, heads * dh).scratch_bytes
+        plan = fa.flash_f32_bwd_plan(2, 1001, heads, dh)
+        assert attn(plan.d_kernel, 1) == plan.dq_smem
+        assert attn(plan.d_kernel, 2) == plan.dkv_smem
+
+
+def test_f32_train_step_runs_the_f32_kernels(cuda):
+    """An f32 ViT's train step on the card (loss.backward through the
+    model) launches K1-K5 and K7-K9 at f32 once a block and no bf16 block
+    kernel; its loss and every parameter gradient within 1e-4 relative
+    Frobenius error of the CPU plain path's, at dropout 0.1."""
+    from neurovit_tpu_torch.config import load_config
+    from neurovit_tpu_torch.models import NeuroEncoder
+
+    config = load_config(overrides={
+        "TRAINING_VIT_INPUT_SIZE": 20, "TRAINING_VIT_PATCH_SIZE": 5,
+        "DATASET_NAME": "adni", "TRAINING_PRECISION": "f32",
+        "MODEL_VIT_DIM": 256, "MODEL_VIT_DEPTH": 2, "MODEL_VIT_HEADS": 4,
+        "MODEL_VIT_DIM_HEAD": 64, "MODEL_VIT_MLP_DIM": 512})
+    f32 = (fa.flash_attention_f32_cuda, fused_qkv.fused_ln_qkv_f32_cuda,
+           fused_outproj.fused_outproj_residual_f32_cuda,
+           fused_mlp.fused_mlp_block_f32_cuda,
+           fa.flash_attention_bwd_f32_cuda,
+           fused_qkv.fused_ln_qkv_bwd_f32_cuda,
+           fused_outproj.fused_outproj_bwd_f32_cuda,
+           fused_mlp.fused_mlp_bwd_f32_cuda)
+    bf16 = (fa.flash_attention_cuda, fused_qkv.fused_ln_qkv_cuda,
+            fused_outproj.fused_outproj_residual_cuda,
+            fused_mlp.fused_mlp_block_cuda, fa.flash_attention_bwd_cuda,
+            fused_qkv.fused_ln_qkv_bwd_cuda, fused_outproj.fused_outproj_bwd_cuda,
+            fused_mlp.fused_mlp_bwd_cuda)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (3, 20, 20, 20)).astype(np.float32))
+    w = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (3, 2)).astype(np.float32))
+    grads, losses = {}, {}
+    for device in ("cpu", cuda):
+        model = NeuroEncoder(config, device=device, seed=4).train()
+        before = [fn.launches for fn in f32 + bf16]
+        with nn.full_f32(torch.float32):
+            loss = (model(x.to(device), train=True, seed=9)
+                    * w.to(device)).sum()
+            loss.backward()
+        torch.cuda.synchronize()
+        if device == cuda:
+            assert [fn.launches - b for fn, b in zip(f32 + bf16, before)] \
+                == [2] * 8 + [0] * 8
+        losses[str(device)] = float(loss.detach())
+        grads[str(device)] = {n: p.grad.detach().cpu()
+                              for n, p in model.named_parameters()
+                              if p.grad is not None}
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * (
+        1 + abs(losses["cpu"]))
+    assert grads["cuda"].keys() == grads["cpu"].keys()
+    for name, want in grads["cpu"].items():
+        got = grads["cuda"][name]
+        assert float((got - want).norm() / want.norm().clamp_min(1e-30)) \
+            <= 1e-4, name

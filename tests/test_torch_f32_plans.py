@@ -1,11 +1,13 @@
-"""The f32 forwards K1-K4 (csrc/*_f32.cu, csrc/ffma.cuh) as far as the CPU
-reaches them: their plans at the flagship, at 130 rows, at every width of
-``models/vit3d.py`` WIDTHS and at head dims 32, 64 and 128; the kernels'
-index maps (the GEMM's staging copies, the attention's permuted chunks)
-modelled in numpy; their dropout bytes against ``nn.keep_mask``; and the
-dispatch rule (CPU tensors run the plain versions, f32 CUDA tensors the
-f32 kernels, bf16 ones the bf16 kernels). The kernels themselves run on
-the card only (tests/test_torch_cuda.py, chip_smoke.py's ``f32`` phase).
+"""The f32 forwards K1-K4 and backwards K5, K7, K8 and K9 (csrc/*_f32.cu,
+csrc/ffma.cuh) as far as the CPU reaches them: their plans at the
+flagship, at 130 rows, at every width of ``models/vit3d.py`` WIDTHS and
+the smoke model's, and at head dims 32, 64 and 128; the kernels' index
+maps (the GEMM's staging copies of B [N, K] and of B [K, N], the
+attention's permuted chunks) modelled in numpy; their dropout bytes
+against ``nn.keep_mask``; and the dispatch rule (CPU tensors run the
+plain versions, f32 CUDA tensors the f32 kernels, bf16 ones the bf16
+kernels), forward and backward. The kernels themselves run on the card
+only (tests/test_torch_cuda.py, chip_smoke.py's ``f32`` phase).
 """
 
 import numpy as np
@@ -23,9 +25,16 @@ torch.set_num_threads(1)
 
 F32_COUNTED = (fa.flash_attention_f32_cuda, fused_qkv.fused_ln_qkv_f32_cuda,
                fused_outproj.fused_outproj_residual_f32_cuda,
-               fused_mlp.fused_mlp_block_f32_cuda)
+               fused_mlp.fused_mlp_block_f32_cuda,
+               fa.flash_attention_bwd_f32_cuda,
+               fused_qkv.fused_ln_qkv_bwd_f32_cuda,
+               fused_outproj.fused_outproj_bwd_f32_cuda,
+               fused_mlp.fused_mlp_bwd_f32_cuda)
 # Rows: one volume, 130, the flagship at batch 8 and 32 (1001 tokens).
 ROWS = [1001, 130, 8008, 32032]
+# The verify recipe's smoke model: dim 64, 4 heads of 16, MLP 128.
+SMOKE = (64, 4, 16, 128)
+BWD_WIDTHS = sorted(WIDTHS.values()) + [SMOKE]
 
 
 def _gemm_covers(launch, m, n):
@@ -69,6 +78,106 @@ def test_f32_gemm_plans(width, m):
     assert (u0, ub, gb) == (0, m * dim * 4, m * hid * 4)
     assert g0 % 256 == 0 and g0 >= ub
     assert plan.scratch_bytes % 256 == 0 and plan.scratch_bytes >= g0 + gb
+
+
+def _ln_bwd_f32_covers(launches, scratch, nbytes, m, dim):
+    """The f32 du GEMM, LayerNorm rows and column sums of
+    ffma_ln_bwd.cuh, and their scratch: du, the statistics, the row sums
+    over two column parts a 128-column tile, the column sums over four row
+    parts a 128-row tile, each on a 256-byte boundary."""
+    du, rows, cols = launches
+    assert du[0] == "du"
+    _gemm_covers(du, m, dim)
+    assert rows == ("ln_bwd", (-(-m // 8), 1), 256, 0)
+    assert cols == ("colsum", (2 * dim // 32, 1), 256, 0)
+    col_parts, row_parts = 2 * -(-dim // 128), 4 * -(-m // 128)
+    sizes = {"du": m * dim * 4, "stats": m * 8,
+             "rowpart": 2 * m * col_parts * 4,
+             "colpart": 2 * row_parts * dim * 4}
+    at = 0
+    for name, (offset, size) in scratch.items():
+        assert (offset, size) == (at, sizes[name])
+        at = -(-(offset + size) // 256) * 256
+    assert list(scratch) == list(sizes) and nbytes == at
+
+
+@pytest.mark.parametrize("m", ROWS)
+@pytest.mark.parametrize("dim,heads,dh,hid", BWD_WIDTHS)
+def test_f32_bwd_gemm_plans(dim, heads, dh, hid, m):
+    """K7, K8 and K9 at f32: row passes a warp a row, GEMMs whose 128 x 128
+    tiles cover the output (K8's dattn over [m, inner], K9's hidden over
+    [m, hid], the du GEMM over [m, dim]), and the LayerNorm backward's
+    scratch."""
+    inner = heads * dh
+    plan = fused_qkv.qkv_bwd_f32_plan(m, dim, inner)
+    assert plan.launches[0] == ("row_stats", (-(-m // 8), 1), 256, 0)
+    _ln_bwd_f32_covers(plan.launches[1:], plan.scratch, plan.scratch_bytes,
+                       m, dim)
+    for rate in (0.0, 0.1):
+        plan = fused_outproj.outproj_bwd_f32_plan(m, dim, inner, rate)
+        *rows, gemm = plan.launches
+        assert rows == ([("dz_rows", (-(-m // 8), 1), 256, 0)] if rate
+                        else [])
+        assert gemm[0] == "dattn" and plan.tile_n == 128
+        _gemm_covers(gemm, m, inner)
+    plan = fused_mlp.mlp_bwd_f32_plan(m, dim, hid)
+    rows, hidden = plan.launches[:2]
+    assert rows == ("dz_rows", (-(-m // 8), 1), 256, 0)
+    assert hidden[0] == "hidden"
+    _gemm_covers(hidden, m, hid)
+    _ln_bwd_f32_covers(plan.launches[2:], plan.scratch, plan.scratch_bytes,
+                       m, dim)
+
+
+@pytest.mark.parametrize("b,n", [(1, 1), (1, 130), (8, 1001), (32, 1001)])
+@pytest.mark.parametrize("d,d_kernel", [(8, 32), (16, 32), (32, 32),
+                                        (64, 64), (80, 128), (128, 128)])
+def test_flash_f32_bwd_plan(d, d_kernel, b, n):
+    """K5 at f32: K1 f32's instances, 64 rows a block of 128 threads in
+    both passes, 32 keys (pass 1) or queries (pass 2) a tile, pass 2's
+    blocks splitting D = 128 into two 64-column halves; shared memory under
+    227 KB."""
+    plan = fa.flash_f32_bwd_plan(b, n, 8, d)
+    assert plan.d_kernel == d_kernel == fa.f32_head_dim(d)
+    assert (plan.rows, plan.tile, plan.threads) == (64, 32, 128)
+    assert plan.cols == min(d_kernel, 64)
+    tiles = -(-n // 64)
+    assert plan.dq_grid == (tiles * b * 8,)
+    assert plan.dkv_grid == (tiles * (d_kernel // plan.cols) * b * 8,)
+    assert plan.dq_smem == (2 * 64 * d_kernel + 4 * 32 * d_kernel
+                            + 64 * 32) * 4
+    assert plan.dkv_smem == (2 * 64 * d_kernel + 4 * 32 * d_kernel
+                             + 2 * 64 * 32 + 4 * 32) * 4
+    assert max(plan.dq_smem, plan.dkv_smem) <= SMEM_LIMIT
+
+
+def test_f32_bwd_plans_refuse_what_bf16_refuses():
+    """The f32 backwards take the widths and head dims the bf16 ones
+    take, and refuse the same others."""
+    for plan in (lambda: fa.flash_f32_bwd_plan(1, 10, 2, 160),
+                 lambda: fa.flash_bwd_plan(1, 10, 2, 160, "bnhd")):
+        with pytest.raises(ValueError, match="head dim <= 128"):
+            plan()
+    for plan in (lambda: fa.flash_f32_bwd_plan(2 ** 16, 2 ** 12, 2 ** 4, 64),
+                 lambda: fa.flash_bwd_plan(2 ** 16, 2 ** 12, 2 ** 4, 64,
+                                           "bnhd")):
+        with pytest.raises(ValueError, match="2\\^31"):
+            plan()
+    for f32, bf16 in (
+            (lambda: fused_qkv.qkv_bwd_f32_plan(10, 72, 64),
+             lambda: fused_qkv.qkv_bwd_plan(10, 72, 64)),
+            (lambda: fused_outproj.outproj_bwd_f32_plan(10, 64, 40, 0.1),
+             lambda: fused_outproj.outproj_bwd_plan(10, 64, 40, 0.1)),
+            (lambda: fused_mlp.mlp_bwd_f32_plan(10, 64, 100),
+             lambda: fused_mlp.mlp_bwd_plan(10, 64, 100))):
+        for plan in (f32, bf16):
+            with pytest.raises(ValueError, match="multiple of 16"):
+                plan()
+    for plan in (lambda: fused_qkv.qkv_bwd_f32_plan(0, 64, 64),
+                 lambda: fused_outproj.outproj_bwd_f32_plan(0, 64, 64, 0.0),
+                 lambda: fused_mlp.mlp_bwd_f32_plan(0, 64, 64)):
+        with pytest.raises(ValueError, match="at least one row"):
+            plan()
 
 
 @pytest.mark.parametrize("b,n", [(1, 1), (1, 130), (8, 1001), (32, 1001),
@@ -130,6 +239,29 @@ def test_gemm_staging_copies_are_a_conflict_free_bijection():
                 list(range(k[lanes][0] // 8 * 8, k[lanes][0] // 8 * 8 + 8))
 
 
+def test_gemm_kn_staging_copies_are_a_conflict_free_bijection():
+    """ffma.cuh stage_slice_kn: copy c of thread t takes the 16-byte vector
+    idx = t + 256 c of a 16 x 128 slice of B [K, N], k = idx / 32 = t / 32
+    + 8 c, columns 4 (t % 32) .. + 3, into Bs[k][4 (t % 32)] (rows of 132
+    floats). Every vector once; a warp writes one k row's 512 contiguous
+    bytes, and each quarter warp's eight vectors fill the 32 banks."""
+    idx = np.arange(16 * 32)
+    t, c = idx % 256, idx // 256
+    k, col = idx // 32, 4 * (idx % 32)
+    np.testing.assert_array_equal(k, t // 32 + 8 * c)
+    np.testing.assert_array_equal(col, 4 * (t % 32))
+    assert len(set(zip(k.tolist(), col.tolist()))) == idx.size
+    for warp in range(idx.size // 32):
+        lanes = slice(32 * warp, 32 * warp + 32)
+        assert len(set(k[lanes].tolist())) == 1
+        assert sorted(col[lanes].tolist()) == list(range(0, 128, 4))
+        for quarter in range(4):
+            q = slice(32 * warp + 8 * quarter, 32 * warp + 8 * quarter + 8)
+            start = (k[q] * 132 + col[q]) % 32
+            banks = {(s + e) % 32 for s in start.tolist() for e in range(4)}
+            assert len(banks) == 32
+
+
 @pytest.mark.parametrize("width", [32, 64, 128])
 def test_attention_chunk_permutation(width):
     """flash_attention_f32.cu swz: chunk c of row r at c ^ ((r / 4) % 8), a
@@ -163,7 +295,9 @@ def _word_byte(words, i):
 def test_gemm_dropout_bytes_are_keep_mask(rate):
     """ffma.cuh keep4 at every float4 of an [m, n] site (n % 16 == 0):
     word (i >> 2) & 3 of Philox(i >> 4), its four bytes below q, equal to
-    nn.keep_mask's bits."""
+    nn.keep_mask's bits. The forwards' epilogues and the backwards' (K9
+    f32's HiddenEpi at row * hid + col, the dz rows pass of K8 and K9 at
+    f32 at row * dim + col) draw it so."""
     m, n, seed = 5, 48, 0x1234_5678_9ABC
     q, _ = nn.keep_threshold(rate)
     want = nn.keep_mask(seed, (m, n), rate).reshape(-1).numpy()
@@ -208,8 +342,8 @@ def _block_args(rng, dtype=torch.float32):
 
 def test_cpu_f32_runs_the_plain_versions_and_counts_nothing():
     """f32 CPU tensors through the four public ops, serving and in
-    training (autograd functions), equal the plain versions; no f32 (or
-    bf16) kernel counts a launch."""
+    training (autograd functions, forward and backward), equal the plain
+    versions; no f32 (or bf16) kernel counts a launch."""
     before = [fn.launches for fn in F32_COUNTED]
     t = _block_args(np.random.default_rng(3))
     x, g, bt = t(2, 9, 64), t(64), t(64)
@@ -232,10 +366,13 @@ def test_cpu_f32_runs_the_plain_versions_and_counts_nothing():
             x, o.reshape(2, 9, 64), wo, bo), rtol=0, atol=0)
         args = (y, g, bt, t(128, 64, scale=0.1), t(128), t(64, 128, scale=0.1),
                 t(64))
-        torch.testing.assert_close(fused_mlp.fused_mlp_block(*args),
-                                   fused_mlp.fused_mlp_block_plain(*args),
-                                   rtol=0, atol=0)
-    assert [fn.launches for fn in F32_COUNTED] == before == [0] * 4
+        out = fused_mlp.fused_mlp_block(*args)
+        torch.testing.assert_close(out, fused_mlp.fused_mlp_block_plain(
+            *args), rtol=0, atol=0)
+        if grad:
+            out.sum().backward()
+            assert all(p.grad is not None for p in params)
+    assert [fn.launches for fn in F32_COUNTED] == before == [0] * 8
 
 
 @pytest.mark.parametrize("dtype,kernel", [
@@ -243,9 +380,9 @@ def test_cpu_f32_runs_the_plain_versions_and_counts_nothing():
     (torch.float16, "bf16")])
 def test_dispatch_on_card_tensors(monkeypatch, dtype, kernel):
     """With operands taken as on the card: f32 picks each op's f32
-    kernel, bf16 its bf16 kernel, and any other dtype the bf16 kernel,
-    which raises for it (there is no fallback); bhnd f32 is K6's, which
-    takes bf16 only."""
+    kernel, forward and backward, bf16 its bf16 kernel, and any other
+    dtype the bf16 kernel, which raises for it (there is no fallback);
+    bhnd f32 is K6's, which takes bf16 only."""
     for module in (common, fa):
         monkeypatch.setattr(module, "on_cpu", lambda *_: False)
     x = torch.zeros(1, 4, 64, dtype=dtype)
@@ -254,19 +391,36 @@ def test_dispatch_on_card_tensors(monkeypatch, dtype, kernel):
         "qkv": fused_qkv._forward(x),
         "outproj": fused_outproj._forward(x),
         "mlp": fused_mlp._forward(x),
-        "attention": fa._fwd_impl("bnhd", q),
+        "attention": fa._impl("bnhd", False, q),
+        "attention_bwd": fa._impl("bnhd", True, q),
     }
+    for name, module, op in (("qkv_bwd", fused_qkv, "fused_ln_qkv_bwd"),
+                             ("outproj_bwd", fused_outproj,
+                              "fused_outproj_bwd"),
+                             ("mlp_bwd", fused_mlp, "fused_mlp_bwd")):
+        picks[name] = common.pick(getattr(module, op + "_plain"),
+                                  getattr(module, op + "_cuda"),
+                                  getattr(module, op + "_f32_cuda"), x)
     want = {
         "f32": {"qkv": fused_qkv.fused_ln_qkv_f32_cuda,
                 "outproj": fused_outproj.fused_outproj_residual_f32_cuda,
                 "mlp": fused_mlp.fused_mlp_block_f32_cuda,
-                "attention": fa.flash_attention_f32_cuda},
+                "attention": fa.flash_attention_f32_cuda,
+                "attention_bwd": fa.flash_attention_bwd_f32_cuda,
+                "qkv_bwd": fused_qkv.fused_ln_qkv_bwd_f32_cuda,
+                "outproj_bwd": fused_outproj.fused_outproj_bwd_f32_cuda,
+                "mlp_bwd": fused_mlp.fused_mlp_bwd_f32_cuda},
         "bf16": {"qkv": fused_qkv.fused_ln_qkv_cuda,
                  "outproj": fused_outproj.fused_outproj_residual_cuda,
                  "mlp": fused_mlp.fused_mlp_block_cuda,
-                 "attention": fa.flash_attention_cuda}}[kernel]
+                 "attention": fa.flash_attention_cuda,
+                 "attention_bwd": fa.flash_attention_bwd_cuda,
+                 "qkv_bwd": fused_qkv.fused_ln_qkv_bwd_cuda,
+                 "outproj_bwd": fused_outproj.fused_outproj_bwd_cuda,
+                 "mlp_bwd": fused_mlp.fused_mlp_bwd_cuda}}[kernel]
     assert picks == want
-    assert fa._fwd_impl("bhnd", q) is fa.flash_attention_bhnd_cuda
+    assert fa._impl("bhnd", False, q) is fa.flash_attention_bhnd_cuda
+    assert fa._impl("bhnd", True, q) is fa.flash_attention_bhnd_bwd_cuda
 
 
 def test_f32_wrappers_refuse_cpu_tensors():
@@ -284,6 +438,14 @@ def test_f32_wrappers_refuse_cpu_tensors():
             x, t(1, 5, 32), t(64, 32), t(64)),
         lambda: fused_mlp.fused_mlp_block_f32_cuda(
             x, t(64), t(64), t(128, 64), t(128), t(64, 128), t(64)),
+        lambda: fa.flash_attention_bwd_f32_cuda(
+            *(t(1, 5, 2, 32) for _ in range(5)), t(1, 2, 5), scale=0.2,
+            n_valid=5),
+        lambda: fused_qkv.fused_ln_qkv_bwd_f32_cuda(t(1, 5, 96), x, t(64),
+                                                    t(96, 64)),
+        lambda: fused_outproj.fused_outproj_bwd_f32_cuda(x, t(64, 32)),
+        lambda: fused_mlp.fused_mlp_bwd_f32_cuda(
+            x, x, t(1, 5, 128), t(64), t(64), t(128, 64), t(64, 128)),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA tensor"):

@@ -510,14 +510,18 @@ def test_cpu_path_counts_no_launch_and_cam_runs_no_backward(cam_pair):
 
 
 def test_check_supported_refuses_f32_on_cuda_for_the_vit_only(tmp_path):
-    """The 3D ViT's f32 train step needs the backward kernels at f32; a 4D
-    model's frozen ViT runs forward only, through K1-K4's f32 instances."""
+    """At f32 on CUDA the trainer takes the ResNet, the 3D ViT (its
+    backward kernels have f32 instances) and a 4D model; of the ViT it
+    refuses only the int8 encoder, whose kernels take bf16 activations."""
     cuda = torch.device("cuda")
     check_supported(_config(tmp_path), cuda)
     check_supported(_config(tmp_path, MODEL_VOLUME_ENCODER="vit",
                             TRAINING_DIM=4), cuda)
+    check_supported(_config(tmp_path, MODEL_VOLUME_ENCODER="vit"), cuda)
     with pytest.raises(NotImplementedError, match="f32 on CUDA"):
-        check_supported(_config(tmp_path, MODEL_VOLUME_ENCODER="vit"), cuda)
+        check_supported(_config(tmp_path, MODEL_VOLUME_ENCODER="vit",
+                                TRAINING_DIM=4,
+                                TRAINING_4D_ENCODER_QUANT="int8"), cuda)
 
 
 def _write_yaml(tmp_path, config) -> str:
