@@ -234,7 +234,29 @@ Phases, each printing a line; any failure raises and exits non-zero:
                times per step, nothing else; the step at batch 32 timed
                (vol/s, TFLOP/s at 274.4 GFLOP a volume, peak memory) with
                a profiler split; the smoke model trained at f32 through
-               the CLI, launching the f32 kernels only
+               the CLI, launching the f32 kernels only; (g) K10-K13 at f32
+               against their plain versions at the flagship block within
+               1e-2 + 2^-6 |plain| on the rows whose codes are plain's,
+               the codes in the kernels' scratch (K10's and K12's u8,
+               K11's a8, K12's g8) one step off plain's at most and in at
+               most 1e-3 of the positions, the outputs plain's arithmetic
+               on the kernels' own codes bit for bit (K11 plain's bit for
+               bit), two calls bit-equal: K10 and K12 serving, at 130
+               rows and on all-zero rows, K11 also on all-zero rows of a,
+               K13 at n_valid 1001 and 900 and at head dims 32, 64 and
+               128; each timed beside plain and torch._int_mm at its
+               GEMMs (K13 beside K1 at f32 and its FFMA floor); (h) the
+               seed-42 flagship at f32 served with quant="int8" by
+               Predictor, one POST and the batch CLI, each f32 int8
+               kernel launched depth times per forward and no other, a
+               SERVING_INT8_ATTN off forward (K1 at f32 in place of
+               K13), the probabilities within 1e-3 of the CPU's f32 int8
+               path (the logits within 1e-2) and within 0.05 of f32
+               serving, the forward at batch 32 with a profiler split;
+               (i) config4D at f32 with the int8 encoder through
+               Trainer.run(), uncached and with the feature cache, the
+               f32 int8 kernels depth times per encoder forward, the
+               step and the encoder timed, the fold against the CPU
 19. widths     the verify recipe's smoke model (dim 64, 4 heads of 16)
                trained for an epoch in bf16 on cuda through the CLI's main(),
                every block kernel launched; a ViT-B-width model (768, 12 x
@@ -379,8 +401,22 @@ KERNELS = [
      "neurovit_tpu/ops/fused_outproj.py:56"),
     ("fused_mlp_bwd_f32", "neurovit_tpu_torch/csrc/fused_mlp_bwd_f32.cu",
      "neurovit_tpu/ops/fused_mlp.py:141"),
+    ("int8_ln_qkv_f32", "neurovit_tpu_torch/csrc/int8_qkv.cu",
+     "neurovit_tpu/ops/int8_serving.py:154"),
+    ("int8_outproj_residual_f32", "neurovit_tpu_torch/csrc/int8_outproj.cu",
+     "neurovit_tpu/ops/int8_serving.py:167"),
+    ("int8_mlp_block_f32", "neurovit_tpu_torch/csrc/int8_mlp.cu",
+     "neurovit_tpu/ops/int8_serving.py:173"),
+    ("int8_flash_attention_f32",
+     "neurovit_tpu_torch/csrc/int8_attention_f32.cu",
+     "neurovit_tpu/ops/int8_serving.py:286"),
 ]
-INT8_KERNELS = [name for name, _, _ in KERNELS if name.startswith("int8_")]
+# K10-K13 (bf16) and their f32 instances: int8 serving of a bf16 ViT, and
+# of an f32 ViT (phase 18's (g)-(i)).
+INT8_F32_KERNELS = [name for name, _, _ in KERNELS
+                    if name.startswith("int8_") and name.endswith("_f32")]
+INT8_KERNELS = [name for name, _, _ in KERNELS if name.startswith("int8_")
+                and name not in INT8_F32_KERNELS]
 # K6: only the Grad-CAM probe's last block runs it.
 GRADCAM_KERNELS = ["flash_attention_bhnd", "flash_attention_bhnd_bwd"]
 # K14, K15: only the ResNet's stem runs them.
@@ -389,13 +425,14 @@ RESNET_KERNELS = ["max_pool3d_argmax", "max_pool3d_argmax_bwd"]
 PROBE_KERNELS = ["dropout", "gemm_bf16", "gemm_int8", "dynquant_matmul"]
 # K1-K5 and K7-K9 at f32: only an f32 ViT runs them (phase 18); serving
 # and the 4D step launch the forwards alone.
-F32_KERNELS = [name for name, _, _ in KERNELS if name.endswith("_f32")]
+F32_KERNELS = [name for name, _, _ in KERNELS if name.endswith("_f32")
+               and name not in INT8_F32_KERNELS]
 F32_BACKWARD_KERNELS = [name for name in F32_KERNELS if "_bwd" in name]
 F32_FORWARD_KERNELS = [name for name in F32_KERNELS
                        if name not in F32_BACKWARD_KERNELS]
 # Kernels no bf16 ViT block forward or backward launches.
 OFF_BLOCK_KERNELS = (INT8_KERNELS + GRADCAM_KERNELS + RESNET_KERNELS
-                     + PROBE_KERNELS + F32_KERNELS)
+                     + PROBE_KERNELS + F32_KERNELS + INT8_F32_KERNELS)
 # K16's x in its probe (scripts/torch_dropout_bench.py); the GEMM probe's
 # shapes are its SHAPES, fc1 first.
 DROPOUT_SHAPE = (32 * 1001, 2048)
@@ -2879,14 +2916,15 @@ def _checkpoint(run_dir: str) -> str:
 
 def _fold_against_cpu(model, cpu, x: torch.Tensor, *, phase: str = "4d",
                       edge: int = EDGE_T, atol: float = BF16_LOGIT_ATOL,
-                      rtol: float = GRAD_RTOL) -> None:
+                      rtol: float = GRAD_RTOL, encoders=(None, None)) -> None:
     """The card's encode_sequence of all B·T volumes of ``x`` against the
     CPU plain path on the first and last ``edge`` timepoints of each
     sequence: the encodings within ``atol`` (the bf16 bound by default),
     and the ViT's last block output (the head's input, [N + 1, dim] a
     volume) by relative Frobenius error per volume within ``rtol``, each
     volume's nearer its own CPU row than any other held volume's, so that
-    a row offset in the fold shows."""
+    a row offset in the fold shows. ``encoders``: the ViTs that encode on
+    the card and on the CPU in place of the models' own (int8 copies)."""
     b, t = x.shape[0], x.shape[-1]
     ts = list(range(edge)) + list(range(t - edge, t))
     rows = [i * t + j for i in range(b) for j in ts]
@@ -2898,12 +2936,14 @@ def _fold_against_cpu(model, cpu, x: torch.Tensor, *, phase: str = "4d",
         return hook
 
     index = torch.tensor(rows, device=x.device)
-    for dev, m, vols in (("cuda", model, x), ("cpu", cpu, x[..., ts].cpu())):
-        handle = m.volume_encoder.vit3d.transformer.register_forward_hook(
+    for dev, m, vols, vit in (("cuda", model, x, encoders[0]),
+                              ("cpu", cpu, x[..., ts].cpu(), encoders[1])):
+        vit = vit if vit is not None else m.volume_encoder.vit3d
+        handle = vit.transformer.register_forward_hook(
             keep(dev, index if dev == "cuda" else slice(None)))
         t0 = time.perf_counter()
         try:
-            enc = m.encode_sequence(vols)
+            enc = m.encode_sequence(vols, encoder=vit)
         finally:
             handle.remove()
         if dev == "cuda":
@@ -3666,13 +3706,508 @@ def _f32_bwd_kernel_checks(card: str) -> dict:
         design_ops={"flash_attention_bwd_f32": 7 * attn_ops})
 
 
+# K10-K13 at f32 against their plain versions, f32 phase (g): the bf16
+# int8 kernels' bound, ATOL + RTOL |plain| elementwise, and no looser.
+# Both sides take the same exact int32 products and round at the same
+# points, but an f32 LayerNorm, GELU or score sum taken in another order
+# can move one code by one step, and one step of one of a row's codes
+# moves that row's outputs by up to about 1e-2 (the change passes through
+# a whole GEMM). So where the codes can be read from a kernel's scratch
+# (K10's u8, K11's a8, K12's u8 and g8), the positions where they differ
+# from plain's are counted, each one step at most and at most
+# INT8_F32_FLIP_FRAC of them; the outputs must equal plain's arithmetic on
+# the kernel's own codes and row scales bit for bit; and the rows whose
+# codes are all plain's are held to the bound. K11 rounds where plain does
+# and is held bit for bit; K13's codes of P never leave its registers, and
+# its outputs are held to the bound everywhere.
+INT8_F32_FLIP_FRAC = 1e-3
+# The f32 int8 model on the card against the CPU plain path, six blocks
+# deep (f32 phase (h), (i)): the probabilities within F32_LOGIT_ATOL, the
+# logits, encodings and last block outputs (relative) within
+# INT8_F32_LOGIT_ATOL. A code flip in one row moves that row by about
+# 1e-3 relative; attention carries a share of it to every row, whose codes
+# in the next block then flip in proportion, so the two paths drift apart
+# block by block toward int8's own noise (int8 against f32 serving, held
+# to INT8_ATOL), not toward 0 as in f32; 1e-2 is one code step's reach in
+# a row, (g). Both logits of a volume move mostly together, which the
+# probabilities do not see.
+INT8_F32_LOGIT_ATOL = 1e-2
+
+
+def _int8_f32_own_codes(name: str, args: tuple, got):
+    """(g): run the f32 int8 kernel ``name`` (K10, K11 or K12) through its C
+    entry point on ``args`` with a scratch kept here: its outputs must be
+    the wrapper's ``got`` bit for bit and plain's arithmetic on its own
+    codes and row scales bit for bit. Returns (the flipped codes' count,
+    the rows [m] where a code differs from plain's)."""
+    from neurovit_tpu_torch import nn
+    from neurovit_tpu_torch.ops import int8_serving as q8
+    from neurovit_tpu_torch.ops.common import FLOAT, INT, VOID, launch, ptr
+
+    x = args[0]
+    dim = x.shape[-1]
+    m = x.numel() // dim
+    if name == "int8_ln_qkv_f32":
+        _, gamma, beta, w8, sc, heads, dh = args
+        plan = q8.qkv_plan(m, dim, heads * dh)
+        outs = [torch.empty_like(g) for g in got]
+        symbol, argtypes = ("nvt_int8_ln_qkv_f32",
+                            (VOID,) * 9 + (INT, INT, INT, FLOAT))
+        tail = (m, dim, heads * dh, nn.LN_EPS)
+        ptrs = [ptr(t) for t in (x, gamma, beta, w8, sc, *outs)]
+    elif name == "int8_outproj_residual_f32":
+        _, a, w8, sc, bias = args
+        plan = q8.int8_outproj_plan(m, dim, a.shape[-1])
+        outs = [torch.empty_like(got)]
+        symbol, argtypes = "nvt_int8_outproj_f32", (VOID,) * 7 + (INT,) * 3
+        tail = (m, a.shape[-1], dim)
+        ptrs = [ptr(t) for t in (a, x, w8, sc, bias, *outs)]
+    else:
+        _, gamma, beta, w1, s1, b1, w2, s2, b2 = args
+        plan = q8.mlp_plan(m, dim, w1.shape[0])
+        outs = [torch.empty_like(got)]
+        symbol, argtypes = ("nvt_int8_mlp_f32",
+                            (VOID,) * 11 + (INT, INT, INT, FLOAT))
+        tail = (m, dim, w1.shape[0], nn.LN_EPS)
+        ptrs = [ptr(t) for t in args + tuple(outs)]
+    scratch = torch.zeros(plan.scratch_bytes, dtype=torch.uint8,
+                          device="cuda")
+    launch(symbol, argtypes, x, *ptrs, ptr(scratch), *tail)
+    torch.cuda.synchronize()
+
+    def piece(key, dtype, cols):
+        at, n = plan.scratch[key]
+        return scratch[at:at + n].view(dtype).reshape(-1, cols)
+
+    got = [got] if isinstance(got, torch.Tensor) else list(got)
+    if not all(torch.equal(a, b) for a, b in zip(outs, got)):
+        raise AssertionError(f"{name}: the entry point and the wrapper differ")
+    pairs = []
+    with nn.full_f32(torch.float32):
+        if name == "int8_ln_qkv_f32":
+            u8, s_row = piece("u8", torch.int8, dim), piece("s_row",
+                                                            torch.float32, 1)
+            pairs.append((u8, q8._rowquant(q8._ln(x, gamma, beta))[0]))
+            mine = q8._deq_dot(u8.float(), s_row, w8, sc).reshape(
+                m, 3, heads * dh)
+            exact = all(torch.equal(g.reshape(m, -1), mine[:, i])
+                        for i, g in enumerate(got))
+        elif name == "int8_outproj_residual_f32":
+            a8 = piece("a8", torch.int8, a.shape[-1])
+            pairs.append((a8, q8._rowquant(a.float())[0]))
+            exact = True                    # got is plain's, bit for bit
+        else:
+            hid = w1.shape[0]
+            u8, s1_row = (piece("u8", torch.int8, dim),
+                          piece("s1_row", torch.float32, 1))
+            g8, s2_row = (piece("g8", torch.int8, hid),
+                          piece("s2_row", torch.float32, 1))
+            pairs.append((u8, q8._rowquant(q8._ln(x, gamma, beta))[0]))
+            h = q8._deq_dot(u8.float(), s1_row, w1, s1) + b1
+            pairs.append((g8, q8._rowquant(nn.gelu(h))[0]))
+            mine = (q8._deq_dot(g8.float(), s2_row, w2, s2) + b2
+                    + x.reshape(m, dim))
+            exact = torch.equal(got[0].reshape(m, dim), mine)
+    if not exact:
+        raise AssertionError(f"{name}: the outputs are not plain's arithmetic "
+                             "on the kernel's own codes")
+    flips, rows = 0, torch.zeros(m, dtype=torch.bool, device="cuda")
+    for codes, want in pairs:
+        diff = (codes.long() - want.reshape(codes.shape).long()).abs()
+        n = int(diff.sum())
+        if int(diff.max()) > 1 or n > INT8_F32_FLIP_FRAC * diff.numel():
+            raise AssertionError(f"{name}: codes differ from plain's by up to "
+                                 f"{int(diff.max())} steps at {n} of "
+                                 f"{diff.numel()} positions")
+        flips += n
+        rows |= diff.any(dim=1)
+    return flips, rows
+
+
+def _int8_f32_kernel_checks(card: str) -> dict:
+    """(g) of the f32 phase: K10-K13 at f32 against their plain versions
+    (at "highest" precision) on the card at the flagship block (batch 8 x
+    1001): K10 serving, at 130 rows and on all-zero rows with beta = 0; K11
+    there, at 130 rows and on all-zero rows of a; K12 serving, at 130 rows
+    and on all-zero rows with beta = b1 = 0; K13 at n_valid 1001 and 900
+    and at head dims 32, 64 and 128 at batch 2 x 2 heads. Held as
+    INT8_F32_FLIP_FRAC's comment says, two calls bit-equal; the first case
+    of each timed beside plain, torch._int_mm at its GEMMs (K13: K1 at f32
+    on the same inputs, and the FFMA floor of its two sweeps of QK^T), with
+    its bound. Returns each kernel's stats."""
+    from neurovit_tpu_torch import nn
+    from neurovit_tpu_torch.ops import flash_attention as fa
+    from neurovit_tpu_torch.ops import int8_serving as q8
+
+    rng = np.random.default_rng(SEED + 25)
+
+    def t(*shape, scale=1.0, offset=0.0):
+        return torch.tensor(offset + scale * rng.standard_normal(shape),
+                            dtype=torch.float32, device="cuda")
+
+    def w8(out_f, in_f):                     # nn.Linear's default range
+        return q8.quantize_weight(torch.tensor(
+            rng.uniform(-1, 1, (out_f, in_f)) / in_f ** 0.5,
+            dtype=torch.float32, device="cuda"))
+
+    inner, m, zero = HEADS * DIM_HEAD, B * N, [0, 127, 128, 1000]
+    scale = DIM_HEAD ** -0.5
+    x, attn = t(B, N, DIM), t(B, N, inner)
+    qkv = [t(B, N, HEADS, DIM_HEAD) for _ in range(3)]
+    ln = (t(DIM, scale=0.1, offset=1.0), t(DIM, scale=0.1))
+    zero_ln = (ln[0], torch.zeros_like(ln[1]))
+    qkv8, out8, bout = w8(3 * inner, DIM), w8(DIM, inner), t(DIM, scale=0.03)
+    mlp8 = (*w8(MLP, DIM), t(MLP, scale=0.03), *w8(DIM, MLP),
+            t(DIM, scale=0.02))
+    zero_mlp = mlp8[:2] + (torch.zeros_like(mlp8[2]),) + mlp8[3:]
+    x0, a0 = x.clone(), attn.clone()
+    x0[0, zero] = 0
+    a0[0, zero] = 0
+
+    def rows(a, n=130):
+        return a[:1, :n].contiguous()
+
+    def case(label, op, *args, **kw):
+        kernel, plain = (getattr(q8, op + "_f32_cuda"),
+                         getattr(q8, op + "_plain"))
+
+        def run_plain():
+            with nn.full_f32(torch.float32):
+                return plain(*args, **kw)
+        return label, args, (lambda: kernel(*args, **kw)), run_plain
+
+    heads = (HEADS, DIM_HEAD)
+    cases = {
+        "int8_ln_qkv_f32": [
+            case("serving", "int8_ln_qkv", x, *ln, *qkv8, *heads),
+            case("130 rows", "int8_ln_qkv", rows(x), *ln, *qkv8, *heads),
+            case("zero rows, beta = 0", "int8_ln_qkv", x0, *zero_ln, *qkv8,
+                 *heads)],
+        "int8_outproj_residual_f32": [
+            case("flagship", "int8_outproj_residual", x, attn, *out8, bout),
+            case("130 rows", "int8_outproj_residual", rows(x), rows(attn),
+                 *out8, bout),
+            case("zero rows of a", "int8_outproj_residual", x, a0, *out8,
+                 bout)],
+        "int8_mlp_block_f32": [
+            case("serving", "int8_mlp_block", x, *ln, *mlp8),
+            case("130 rows", "int8_mlp_block", rows(x), *ln, *mlp8),
+            case("zero rows, beta = b1 = 0", "int8_mlp_block", x0, *zero_ln,
+                 *zero_mlp)],
+        "int8_flash_attention_f32": [
+            case(f"n_valid {N}", "int8_flash_attention", *qkv, scale=scale,
+                 n_valid=N),
+            case(f"n_valid {N_VALID_MASKED}", "int8_flash_attention", *qkv,
+                 scale=scale, n_valid=N_VALID_MASKED)],
+    }
+    for d in (32, 64, 128):
+        qd = [t(2, N, 2, d) for _ in range(3)]
+        cases["int8_flash_attention_f32"].append(case(
+            f"head dim {d}, batch 2 x 2 heads", "int8_flash_attention", *qd,
+            scale=d ** -0.5, n_valid=N))
+
+    # The inputs and operations of each first case, for its bound; QK^T is
+    # f32 (3xTF32 at 165 TFLOP/s), P V int8.
+    att = 2 * B * HEADS * N * N * DIM_HEAD
+    work = {
+        "int8_ln_qkv_f32": (nbytes(x, *ln, *qkv8),
+                            {"int8": 2 * m * DIM * 3 * inner}),
+        "int8_outproj_residual_f32": (nbytes(x, attn, *out8, bout),
+                                      {"int8": 2 * m * inner * DIM}),
+        "int8_mlp_block_f32": (nbytes(x, *ln, *mlp8),
+                               {"int8": 4 * m * DIM * MLP}),
+        "int8_flash_attention_f32": (nbytes(*qkv), {"f32": att, "int8": att}),
+    }
+    # The library yardstick: torch._int_mm at each GEMM on int8 codes of
+    # the GEMM's shapes.
+    int_mm = script("torch_int8_gemm_bench").library_int_mm
+    u8, a8, g8 = (torch.randint(-127, 128, (m, k), dtype=torch.int8,
+                                device="cuda") for k in (DIM, inner, MLP))
+    gemms = {
+        "int8_ln_qkv_f32": [int_mm(u8, qkv8[0].t())],
+        "int8_outproj_residual_f32": [int_mm(a8, out8[0].t())],
+        "int8_mlp_block_f32": [int_mm(u8, mlp8[0].t()),
+                               int_mm(g8, mlp8[3].t())],
+    }
+    library = {name: (None if name not in gemms
+                      or any(fn is None for fn in gemms[name])
+                      else (lambda fns=gemms[name]: [fn() for fn in fns]))
+               for name in cases}
+    stats = {}
+    for name, calls in cases.items():
+        max_abs, flips_total = 0.0, 0
+        for i, (label, args, kernel, plain) in enumerate(calls):
+            got, want = kernel(), plain()
+            again = kernel()
+            torch.cuda.synchronize()
+            outs = [got] if isinstance(got, torch.Tensor) else list(got)
+            if any(o.dtype != torch.float32 for o in outs):
+                raise AssertionError(f"{name} {label}: not f32 outputs")
+            if not all(torch.equal(a, b) for a, b in zip(
+                    outs, [again] if isinstance(again, torch.Tensor)
+                    else again)):
+                raise AssertionError(f"{name} {label}: two calls differ")
+            flips, held = 0, outs
+            wants = [want] if isinstance(want, torch.Tensor) else list(want)
+            if name == "int8_outproj_residual_f32":
+                compare(f"{name} {label}", outs, wants, mode="exact")
+            if name != "int8_flash_attention_f32":
+                flips, flipped = _int8_f32_own_codes(name, args, got)
+                keep = ~flipped
+                held = [o.reshape(keep.numel(), -1)[keep] for o in outs]
+                wants = [w_.reshape(keep.numel(), -1)[keep] for w_ in wants]
+            a, _ = compare(f"{name} {label}", held, wants)
+            max_abs, flips_total = max(max_abs, a), flips_total + flips
+            msg = (f"{name} {label}: max abs err {a:.3e} on the rows whose "
+                   f"codes are plain's; {flips} codes one step from plain's; "
+                   "bit-equal on a second call")
+            if label.startswith("zero rows"):
+                zero_out = [o.reshape(m, -1)[zero] for o in outs]
+                ok = (all(not z.abs().max() for z in zero_out)
+                      if name == "int8_ln_qkv_f32" else
+                      torch.equal(zero_out[0], (bout + x[0, zero]))
+                      if name == "int8_outproj_residual_f32" else
+                      torch.equal(zero_out[0],
+                                  mlp8[-1].expand(len(zero), -1)))
+                if not ok:
+                    raise AssertionError(f"{name} {label}: the zero rows")
+                msg += "; the zero rows exact"
+            if i == 0:
+                ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+                in_bytes, ops = work[name]
+                bound_ms, bound_by = bound(in_bytes, nbytes(*outs), ops)
+                lib = library[name]
+                stats[name] = {"ms": ms, "plain_ms": plain_ms,
+                               "bound_ms": bound_ms, "bound_by": bound_by,
+                               "library_ms": cuda_ms(lib) if lib else None}
+                msg += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                        f"torch._int_mm at its GEMMs "
+                        f"{stats[name]['library_ms']} ms, bound "
+                        f"{bound_ms:.4f} ms by {bound_by}")
+                if name == "int8_flash_attention_f32":
+                    k1 = cuda_ms(lambda: fa.flash_attention_f32_cuda(
+                        *qkv, scale=scale, n_valid=N))
+                    msg += (f"; K1 at f32 on the same inputs {k1:.4f} ms; "
+                            f"FFMA floor of two sweeps of QK^T "
+                            f"{2 * att / F32_FFMA_PER_S * 1e3:.4f} ms "
+                            f"({2 * att / 1e9:.2f} GFLOP at 67 TFLOP/s): "
+                            f"{2 * att / ms / 1e9:.1f} TFLOP/s")
+            log("f32", msg)
+            del got, want, again, outs, held, wants
+        stats[name]["max_abs_err"] = max_abs
+        log("f32", f"(g) {name}: max abs err {max_abs:.3e} over {len(calls)} "
+            f"cases (tol {ATOL} + {RTOL} |plain|, on the rows whose codes "
+            f"are plain's; {flips_total} codes one step off in all); {card}")
+    return stats
+
+
+def _int8_f32_serving(fcfg, ckpt: str, workdir: str, card: str,
+                      counters: dict) -> dict:
+    """(h) of the f32 phase: the seed-42 flagship at f32 served with
+    quant="int8" through Predictor (every bucket, 3 volumes), one HTTP
+    POST and the batch CLI with --quant int8: each f32 int8 kernel
+    launched depth times per forward of the model, nothing else; one
+    forward with SERVING_INT8_ATTN off (K1 at f32 in place of K13); the
+    logits of 3 volumes against the CPU's f32 int8 path within
+    INT8_F32_LOGIT_ATOL and its probabilities within F32_LOGIT_ATOL, the
+    probabilities against f32 serving within INT8_ATOL (the JAX test's
+    bound); the forward at batch 32 timed with a profiler split. Returns
+    the launch counts."""
+    import yaml
+
+    from neurovit_tpu_torch import serving
+    from neurovit_tpu_torch.data import nifti
+    from neurovit_tpu_torch.models import NeuroEncoder
+    from neurovit_tpu_torch.models.vit3d import quantize_blocks
+    from neurovit_tpu_torch.serving import Predictor, _collect_volume_jobs
+    from neurovit_tpu_torch.training.checkpoint import load_checkpoint
+
+    phase, depth = "f32", fcfg["MODEL_VIT_DEPTH"]
+    size = fcfg["TRAINING_VIT_INPUT_SIZE"]
+    rng = np.random.default_rng(SEED + 26)
+    path = os.path.join(workdir, "scan_f32_int8.nii")
+    nifti.save(path, rng.standard_normal((91, 109, 91)).astype(np.float32))
+    cfg_path = os.path.join(workdir, "config_f32.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(fcfg, f)
+    out = os.path.join(workdir, "pred_f32_int8.csv")
+    # Every forward of any NeuroEncoder, the CLI's own model's too.
+    forwards, forward = [0], NeuroEncoder.forward
+
+    def counted(self, *args, **kwargs):
+        forwards[0] += 1
+        return forward(self, *args, **kwargs)
+
+    predictor = Predictor.from_checkpoint(fcfg, ckpt, batch_size=32,
+                                          device="cuda", quant="int8")
+    vols = _volumes(rng, 3, size)
+    NeuroEncoder.forward = counted
+    try:
+        _reset(counters)
+        predictor.warmup()
+        _, probs = predictor(vols)
+        http_phase(predictor, rng, workdir, n_files=1, concurrent=False)
+        with contextlib.redirect_stdout(io.StringIO()):
+            serving.main([path, "--config", cfg_path, "--checkpoint", ckpt,
+                          "--output", out, "--quant", "int8"])
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counters.items()}
+    finally:
+        NeuroEncoder.forward = forward
+    log(phase, f"(h) f32 int8 serving: warmup of buckets "
+        f"{predictor.bucket_sizes}, 3 volumes, one POST, the batch CLI with "
+        f"--quant int8: {forwards[0]} forward calls x depth {depth}; "
+        f"launches {launches}")
+    _check_counts("f32 int8 serving", launches,
+                  _want(INT8_F32_KERNELS, depth * forwards[0], counters))
+    with open(out) as f:
+        row = f.read().strip().splitlines()[1].split(",")
+    _, _, vol = next(_collect_volume_jobs([path], crop=True))
+    diff = float(np.abs(np.array([float(v) for v in row[3:]])
+                        - predictor(vol[None])[1][0]).max())
+    log(phase, f"(h) the batch CLI's row {row[1:]}: max diff vs Predictor "
+        f"{diff:.3e} (tol {PROB_ATOL})")
+    if diff > PROB_ATOL:
+        raise AssertionError(f"the f32 int8 CLI differs by {diff}")
+
+    off = Predictor.from_checkpoint(dict(fcfg, SERVING_INT8_ATTN=False),
+                                    ckpt, batch_size=1, bucket_sizes=(),
+                                    device="cuda", quant="int8")
+    _reset(counters)
+    _, got_off = off(vols[:1])
+    counts = {name: fn.launches for name, fn in counters.items()}
+    _check_counts("the f32 SERVING_INT8_ATTN: off forward", counts, {
+        name: depth if name in ("int8_ln_qkv_f32",
+                                "int8_outproj_residual_f32",
+                                "int8_mlp_block_f32", "flash_attention_f32")
+        else 0 for name in counters})
+    for name, n in counts.items():
+        launches[name] += n
+    del off
+
+    cpu = NeuroEncoder(fcfg, device="cpu", seed=SEED + 5).eval()
+    load_checkpoint(cpu, ckpt, strict=True)
+    quantize_blocks(cpu.volume_encoder.vit3d)
+    f32 = Predictor.from_checkpoint(fcfg, ckpt, batch_size=32, device="cuda")
+    _, want_f32 = f32(vols)
+    with torch.inference_mode():
+        want = cpu(torch.from_numpy(vols))
+        got = predictor.model(torch.from_numpy(vols).cuda()).cpu()
+    diff = float((got - want).abs().max())
+    cdiff = float(np.abs(probs - torch.softmax(want, -1).numpy()).max())
+    pdiff = float(np.abs(probs - want_f32).max())
+    odiff = float(np.abs(got_off[0] - probs[0]).max())
+    log(phase, f"(h) f32 int8 logits of 3 volumes, cuda {got.tolist()} vs "
+        f"cpu {want.tolist()}: max diff {diff:.3e} (tol "
+        f"{INT8_F32_LOGIT_ATOL}), Predictor's probabilities {cdiff:.3e} (tol "
+        f"{F32_LOGIT_ATOL}); probabilities against f32 serving {pdiff:.3e} "
+        f"(tol {INT8_ATOL}); SERVING_INT8_ATTN off against pv {odiff:.3e} "
+        f"(tol {INT8_ATOL})")
+    if (not torch.isfinite(got).all() or diff > INT8_F32_LOGIT_ATOL
+            or cdiff > F32_LOGIT_ATOL or max(pdiff, odiff) > INT8_ATOL):
+        raise AssertionError("f32 int8 serving differs from the cpu or from "
+                             "f32 serving")
+    del cpu, f32
+    x32 = torch.from_numpy(_volumes(rng, 32, size)).cuda()
+    model = predictor.model
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: model(x32), warmup=2, runs=5)
+        log(phase, f"(h) f32 int8 forward at batch 32: {ms:.3f} ms, "
+            f"{32 / ms * 1e3:.1f} vol/s; {card}")
+        profile_split(phase, "f32 int8 forward at batch 32",
+                      lambda: model(x32), ms)
+    del predictor, model, x32
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _int8_f32_fourd(workdir: str, card: str, counters: dict) -> dict:
+    """(i) of the f32 phase: config4D at f32 with TRAINING_4D_ENCODER_QUANT
+    int8 (B 2 x T 140): Trainer.run() of one epoch (two steps), then again
+    with the feature cache; each run's launches (each f32 int8 kernel depth
+    times per encoder forward, nothing else), the losses of the two runs
+    against each other, the step and the encoder timed, peak memory; the
+    int8 encodings and the last block's output of the first and last
+    timepoint of each sequence against the CPU's f32 int8 path within
+    INT8_F32_LOGIT_ATOL. Returns the launch counts."""
+    import copy
+
+    from neurovit_tpu_torch.models import NeuroEncoder
+    from neurovit_tpu_torch.models.vit3d import quantize_blocks
+    from neurovit_tpu_torch.training import Trainer
+
+    phase = "f32"
+    total = {name: 0 for name in counters}
+    runs = {}
+    for cache in (False, True):
+        cfg = _fourd_config(
+            workdir, TRAINING_PRECISION="f32", TRAINING_EPOCHS=1,
+            TRAINING_4D_ENCODER_QUANT="int8",
+            TRAINING_4D_FEATURE_CACHE=cache,
+            TRAINING_4D_FEATURE_CACHE_DIR=os.path.join(workdir,
+                                                       "cache_f32_int8"),
+            GLOBAL_OUTPUT_DIR=os.path.join(workdir, f"runs4d_f32_int8_{cache}"))
+        depth, size = cfg["MODEL_VIT_DEPTH"], cfg["TRAINING_VIT_INPUT_SIZE"]
+        model = NeuroEncoder(cfg, device="cuda", seed=SEED)
+        trainer = Trainer(cfg, model, _SeededSequences(4, size, SEQ_T, SEED,
+                                                       "train4d"),
+                          _SeededSequences(2, size, SEQ_T, SEED + 1, "val4d"))
+        forwards = _count_forwards(trainer._q8_encoder)
+        losses, launches, _ = _run_trainer(trainer, counters)
+        what = "with the feature cache" if cache else "uncached"
+        log(phase, f"(i) f32 4D run with the int8 encoder, {what}: losses "
+            f"{losses}; {forwards[0]} encoder forwards x depth {depth}; "
+            f"launches {launches}")
+        _check_counts(f"the f32 int8 4D run {what}", launches,
+                      _want(INT8_F32_KERNELS, depth * forwards[0], counters))
+        for name, n in launches.items():
+            total[name] += n
+        runs[cache] = (trainer, model, losses)
+    diffs = [abs(a - b) / max(abs(a), 1e-30)
+             for a, b in zip(runs[True][2], runs[False][2])]
+    log(phase, f"(i) cached against uncached losses: max relative difference "
+        f"{max(diffs):.3e} (tol {INT8_F32_LOGIT_ATOL}: the encoder's "
+        f"products outside the blocks see other batch shapes, and an ulp "
+        f"there can move a code by one step)")
+    if len(diffs) != len(runs[False][2]) or max(diffs) > INT8_F32_LOGIT_ATOL:
+        raise AssertionError("the cached f32 int8 4D losses differ")
+    trainer, model, _ = runs[False]
+    del runs
+    batch, _, _ = next(trainer._device_prefetch(trainer.val_dataloader))
+    q8 = trainer._q8_encoder
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(lambda: trainer.train_step(batch), 1, 3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    enc_ms = cuda_ms(lambda: model.encode_sequence(batch["volume"],
+                                                   encoder=q8), 1, 3)
+    vols = batch["volume"].shape[0] * batch["volume"].shape[-1]
+    log(phase, f"(i) f32 4D train step with the int8 encoder at B 2 x T "
+        f"{SEQ_T} ({vols} volumes): {step_ms:.3f} ms "
+        f"({vols / step_ms * 1e3:.1f} vol/s), the encoder {enc_ms:.3f} ms = "
+        f"{100 * enc_ms / step_ms:.1f} % of it; peak memory {peak:.2f} GiB; "
+        f"{card}")
+    cfg = trainer.config
+    cpu = NeuroEncoder(cfg, device="cpu", seed=SEED + 2)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu_q8 = quantize_blocks(copy.deepcopy(cpu.volume_encoder.vit3d))
+    _fold_against_cpu(model, cpu, batch["volume"], phase=phase, edge=1,
+                      atol=INT8_F32_LOGIT_ATOL, rtol=INT8_F32_LOGIT_ATOL,
+                      encoders=(q8, cpu_q8))
+    del trainer, model, cpu, cpu_q8, batch
+    torch.cuda.empty_cache()
+    return total
+
+
 def f32_phase(config, ckpt: str, workdir: str, card: str,
               counters: dict) -> tuple:
     """Phase 18 (see the module docstring): (a) the f32 forwards, (b) f32
     serving of the flagship, (c) the f32 4D step at config4D's shape, (d)
     the f32 backwards, (e) the flagship's f32 gradients against the CPU,
-    (f) the f32 train runs of the flagship and the smoke model. Returns
-    (the kernels' stats, the launch counts of (b), (c) and (f))."""
+    (f) the f32 train runs of the flagship and the smoke model, (g) the
+    f32 int8 kernels, (h) f32 int8 serving, (i) the f32 4D step on the int8
+    encoder. Returns (the kernels' stats, the launch counts of (b), (c),
+    (f), (h) and (i))."""
     from neurovit_tpu_torch.models import NeuroEncoder
     from neurovit_tpu_torch.serving import Predictor
     from neurovit_tpu_torch.training import Trainer
@@ -3824,9 +4359,20 @@ def f32_phase(config, ckpt: str, workdir: str, card: str,
     if (0 in f32_counts or len(backward) != 1 or backward.pop() % 2
             or any(n for name, n in smoke.items() if name not in F32_KERNELS)):
         raise AssertionError(f"the f32 smoke CLI run launched {smoke}")
-    log(phase, f"done in {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+
+    # (g)-(i): K10-K13 at f32, then int8 serving of the f32 flagship and
+    # the f32 4D step on the int8 encoder.
+    t_int8 = time.perf_counter()
+    stats.update(_int8_f32_kernel_checks(card))
+    torch.cuda.empty_cache()
+    int8_serving = _int8_f32_serving(fcfg, ckpt, workdir, card, counters)
+    int8_fourd = _int8_f32_fourd(workdir, card, counters)
+    log(phase, f"(g)-(i) in {time.perf_counter() - t_int8:.1f} s; done in "
+        f"{time.perf_counter() - t_phase:.1f} s")
     return stats, {name: serving[name] + fourd[name] + train[name]
-                   + smoke[name] for name in counters}
+                   + smoke[name] + int8_serving[name] + int8_fourd[name]
+                   for name in counters}
 
 
 TRACE_NAMES = {
@@ -4258,6 +4804,12 @@ def kernel_counters() -> dict:
         "fused_ln_qkv_bwd_f32": fused_qkv.fused_ln_qkv_bwd_f32_cuda,
         "fused_outproj_bwd_f32": fused_outproj.fused_outproj_bwd_f32_cuda,
         "fused_mlp_bwd_f32": fused_mlp.fused_mlp_bwd_f32_cuda,
+        "int8_ln_qkv_f32": int8_serving.int8_ln_qkv_f32_cuda,
+        "int8_outproj_residual_f32":
+            int8_serving.int8_outproj_residual_f32_cuda,
+        "int8_mlp_block_f32": int8_serving.int8_mlp_block_f32_cuda,
+        "int8_flash_attention_f32":
+            int8_serving.int8_flash_attention_f32_cuda,
     }
 
 
@@ -4360,7 +4912,7 @@ def main() -> int:
         launches[name] += n
     for name, n in feature_launches.items():
         launches[name] += n
-    for name in F32_KERNELS:
+    for name in F32_KERNELS + INT8_F32_KERNELS:
         launches[name] = f32_launches[name]
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": source,

@@ -70,6 +70,10 @@
 // codes, transposed and permuted (the partials and s_v share the wrapper's
 // f32 scratch). Keys at or past n_valid give code 0 and no amax; v8 past
 // the last key tile that n_valid reaches is not written and never read.
+// The prologue has an f32 instance on the element type of V
+// (launch_v_prologue, int8.cuh), which K13 at f32 (int8_attention_f32.cu)
+// launches before its own attention kernel: the same codes and scales of
+// f32 V, in the same layout.
 #include <cfloat>
 
 #include "flash_attention.cuh"
@@ -103,23 +107,24 @@ struct AttnPlan {
 };
 
 // Prologue pass 1: amax[bh, t, :] = the per-channel amax of |v| over the
-// keys of tile t below n_valid. D / 8 threads a key, 8 channels each.
-template <int D>
+// keys of tile t below n_valid. D / 8 threads a key, 8 channels each; V's
+// elements of type T (bf16 or float).
+template <typename T, int D>
 __global__ void __launch_bounds__(kPrologueThreads)
-    v_amax_kernel(const bf16* __restrict__ v, float* __restrict__ amax, int N,
+    v_amax_kernel(const T* __restrict__ v, float* __restrict__ amax, int N,
                   int H, int n_valid, int n_tiles) {
   constexpr int kLanes = D / 8, kKeys = kPrologueThreads / kLanes;
   __shared__ float part[kKeys][D + 1];
   const int bh = blockIdx.x, t = blockIdx.y, b = bh / H, h = bh - b * H;
   const size_t stride = static_cast<size_t>(H) * D;
-  const bf16* vh = v + (static_cast<size_t>(b) * N * H + h) * D;
+  const T* vh = v + (static_cast<size_t>(b) * N * H + h) * D;
   const int kr = threadIdx.x / kLanes, c0 = (threadIdx.x % kLanes) * 8;
   const int key_end = min(kBKV * (t + 1), n_valid);
   float m[8] = {};
 #pragma unroll
   for (int key = kBKV * t + kr; key < key_end; key += kKeys) {
     float f[8];
-    unpack8(*reinterpret_cast<const uint4*>(vh + key * stride + c0), f);
+    load8(vh + key * stride + c0, f);
 #pragma unroll
     for (int i = 0; i < 8; ++i) m[i] = fmaxf(m[i], fabsf(f[i]));
   }
@@ -135,29 +140,33 @@ __global__ void __launch_bounds__(kPrologueThreads)
 }
 
 // Prologue pass 2: s_v[bh, :] from the head's partials, and the codes of
-// key tile t into v8[bh, d, 64 t .. 64 t + 63] in the permuted order.
-template <int D>
+// key tile t into v8[bh, d, 64 t .. 64 t + 63] in the permuted order. A
+// thread moves 8 channels of a key: one 16-byte vector of bf16, two of f32.
+template <typename T, int D>
 __global__ void __launch_bounds__(kPrologueThreads)
-    v_quant_kernel(const bf16* __restrict__ v, const float* __restrict__ amax,
+    v_quant_kernel(const T* __restrict__ v, const float* __restrict__ amax,
                    float* __restrict__ s_v, int8_t* __restrict__ v8, int N,
                    int H, int n_valid, int n_tiles, int n_pad) {
   constexpr int kLanes = D / 8, kKeys = kPrologueThreads / kLanes;
-  __shared__ __align__(16) bf16 tile[kBKV][D + 8];   // keys x channels
+  constexpr int kVecs = sizeof(T) / 2;                // 16-byte vectors
+  __shared__ __align__(16) T tile[kBKV][D + 8];       // keys x channels
   __shared__ float scale[D];
   const int bh = blockIdx.x, t = blockIdx.y, b = bh / H, h = bh - b * H;
   // The tile's keys into registers, zero at and past n_valid (so their
   // codes are 0), in flight while the channel scales are reduced.
   constexpr int kLoads = kBKV / kKeys;
   const size_t stride = static_cast<size_t>(H) * D;
-  const bf16* vh = v + (static_cast<size_t>(b) * N * H + h) * D;
+  const T* vh = v + (static_cast<size_t>(b) * N * H + h) * D;
   const int kr = threadIdx.x / kLanes, c0 = (threadIdx.x % kLanes) * 8;
-  uint4 raw[kLoads];
+  uint4 raw[kLoads][kVecs];
 #pragma unroll
   for (int l = 0; l < kLoads; ++l) {
     const int key = kBKV * t + kr + l * kKeys;
-    raw[l] = key < n_valid
-                 ? *reinterpret_cast<const uint4*>(vh + key * stride + c0)
-                 : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int w = 0; w < kVecs; ++w)
+      raw[l][w] = key < n_valid ? reinterpret_cast<const uint4*>(
+                                      vh + key * stride + c0)[w]
+                                : make_uint4(0u, 0u, 0u, 0u);
   }
   if (threadIdx.x < D) {
     float a = 0.f;
@@ -171,7 +180,9 @@ __global__ void __launch_bounds__(kPrologueThreads)
   }
 #pragma unroll
   for (int l = 0; l < kLoads; ++l)
-    *reinterpret_cast<uint4*>(&tile[kr + l * kKeys][c0]) = raw[l];
+#pragma unroll
+    for (int w = 0; w < kVecs; ++w)
+      reinterpret_cast<uint4*>(&tile[kr + l * kKeys][c0])[w] = raw[l][w];
   __syncthreads();
   // Thread w: stored positions 16 u .. 16 u + 15 of channel d; position
   // 16 u + 4 q + i holds key 16 u + 2 q + 8 (i / 2) + i % 2 of the tile.
@@ -185,7 +196,7 @@ __global__ void __launch_bounds__(kPrologueThreads)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = 16 * u + 2 * q + 8 * (i / 2) + i % 2;
-        const int c = quant_code(__bfloat162float(tile[r][d]), sc, -127.f);
+        const int c = quant_code(to_float(tile[r][d]), sc, -127.f);
         packed |= (static_cast<uint32_t>(c) & 0xFFu) << (8 * i);
       }
       word[q] = packed;
@@ -558,18 +569,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* v8, void* stats, int B, int N, int H, int n_valid,
                    float scale_log2e, cudaStream_t s) {
   const int n_pad = (N + kBKV - 1) / kBKV * kBKV;
-  const int n_tiles = (n_valid + kBKV - 1) / kBKV;
   float* s_v = static_cast<float*>(stats);
-  float* amax = s_v + static_cast<size_t>(B) * H * D;
-  const dim3 grid(B * H, n_tiles);
-  v_amax_kernel<D><<<grid, kPrologueThreads, 0, s>>>(
-      static_cast<const bf16*>(v), amax, N, H, n_valid, n_tiles);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  v_quant_kernel<D><<<grid, kPrologueThreads, 0, s>>>(
-      static_cast<const bf16*>(v), amax, s_v, static_cast<int8_t*>(v8), N, H,
-      n_valid, n_tiles, n_pad);
-  err = cudaGetLastError();
+  const cudaError_t err = launch_v_prologue<bf16, D>(
+      static_cast<const bf16*>(v), s_v, static_cast<int8_t*>(v8), B, N, H,
+      n_valid, s);
   if (err != cudaSuccess) return err;
   if constexpr (D == 64)
     return launch_main<64, 1>(q, k, v8, o, s_v, B, N, H, n_valid, n_pad,
@@ -582,13 +585,44 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                                    scale_log2e, s);
 }
 
-bool takes(int B, int N, int H, int D) {
+}  // namespace
+
+template <typename T, int D>
+cudaError_t launch_v_prologue(const T* v, float* stats, int8_t* v8, int B,
+                              int N, int H, int n_valid, cudaStream_t s) {
+  using flash::kBKV;
+  const int n_pad = (N + kBKV - 1) / kBKV * kBKV;
+  const int n_tiles = (n_valid + kBKV - 1) / kBKV;
+  float* amax = stats + static_cast<size_t>(B) * H * D;   // after s_v
+  const dim3 grid(B * H, n_tiles);
+  v_amax_kernel<T, D><<<grid, kPrologueThreads, 0, s>>>(v, amax, N, H,
+                                                        n_valid, n_tiles);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  v_quant_kernel<T, D><<<grid, kPrologueThreads, 0, s>>>(
+      v, amax, stats, v8, N, H, n_valid, n_tiles, n_pad);
+  return cudaGetLastError();
+}
+
+template cudaError_t launch_v_prologue<bf16, 64>(const bf16*, float*,
+                                                 int8_t*, int, int, int, int,
+                                                 cudaStream_t);
+template cudaError_t launch_v_prologue<bf16, 128>(const bf16*, float*,
+                                                  int8_t*, int, int, int, int,
+                                                  cudaStream_t);
+template cudaError_t launch_v_prologue<float, 64>(const float*, float*,
+                                                  int8_t*, int, int, int, int,
+                                                  cudaStream_t);
+template cudaError_t launch_v_prologue<float, 128>(const float*, float*,
+                                                   int8_t*, int, int, int,
+                                                   int, cudaStream_t);
+
+bool int8_attn_takes(int B, int N, int H, int D) {
   return B >= 1 && N >= 1 && H >= 1 && (D == 64 || D == 128) &&
          static_cast<long long>(B) * H * ((N + 63) / 64) <= 0x7FFFFFFF &&
          static_cast<long long>(B) * H * D <= 0x7FFFFFFF;
 }
 
-}  // namespace
 }  // namespace nvt
 
 // q, k, v, o: [B, N, H, D] bf16, contiguous, D in {64, 128} (the wrapper
@@ -603,7 +637,7 @@ extern "C" int nvt_int8_attention(const void* q, const void* k, const void* v,
                                   int H, int D, int n_valid, float scale_log2e,
                                   void* stream) {
   using namespace nvt;
-  if (!takes(B, N, H, D) || n_valid < 1 || n_valid > N)
+  if (!int8_attn_takes(B, N, H, D) || n_valid < 1 || n_valid > N)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
@@ -632,7 +666,7 @@ extern "C" long long nvt_int8_attn_smem_bytes(int d, int bq) {
 // Bytes of the v8 scratch at (B, N, H, D), or -1 for a shape the kernel
 // does not take.
 extern "C" long long nvt_int8_attn_v8_bytes(int B, int N, int H, int D) {
-  if (!nvt::takes(B, N, H, D)) return -1;
+  if (!nvt::int8_attn_takes(B, N, H, D)) return -1;
   const long long n_pad = (N + nvt::flash::kBKV - 1) / nvt::flash::kBKV *
                           nvt::flash::kBKV;
   return static_cast<long long>(B) * H * D * n_pad;
@@ -641,7 +675,7 @@ extern "C" long long nvt_int8_attn_v8_bytes(int B, int N, int H, int D) {
 // Bytes of the f32 stats scratch at (B, N, H, D): s_v and the partial amax
 // of every key tile, or -1 for a shape the kernel does not take.
 extern "C" long long nvt_int8_attn_stats_bytes(int B, int N, int H, int D) {
-  if (!nvt::takes(B, N, H, D)) return -1;
+  if (!nvt::int8_attn_takes(B, N, H, D)) return -1;
   const long long tiles = (N + nvt::flash::kBKV - 1) / nvt::flash::kBKV;
   return static_cast<long long>(B) * H * D * (1 + tiles) * 4;
 }

@@ -8,7 +8,7 @@
 //   g = GELU(h)                              exact-erf GELU in f32
 //   (g8, s2_row) = rowquant(g)               amax over the whole hid row
 //   z = float(g8 . W2^T) * s2_row * s2_col + b2
-//   y = bf16(z + x)
+//   y = T(z + x)                             T: x's type, bf16 or f32
 // W1 [hid, dim] and W2 [dim, hid] are torch-layout int8 weights with
 // per-output-channel scales s1_col [hid] and s2_col [dim]. Both are
 // K-major as they lie, so wgmma reads them with no transpose.
@@ -36,14 +36,22 @@
 //   3. g_rowquant: s2_row from gmax's row, then g -> g8 [M, hid] reading
 //      g once; one warp per row, any hid.
 //   4. fc2: the same mainloop over ceil(M / 128) x ceil(dim / 128)
-//      tiles, A = g8, Bt = W2; the epilogue is y = bf16((dequant + b2) +
-//      x), K18's dequant epilogue with the bias and the residual. K11
+//      tiles, A = g8, Bt = W2; the epilogue is y = T((dequant + b2) + x),
+//      K18's dequant epilogue with the bias and the residual. K11
 //      (int8_outproj.cu) launches the same pass on its own codes
 //      (launch_fc2_residual, int8.cuh).
 // TMA zero-fills the boxes past M, dim and hid, so ragged edges need no
 // masked loads; the epilogues mask rows >= M and columns past N. A split
 // that keeps g in L2 (a persistent fc1 walking a row block's column
 // tiles, or pass 3 folded into fc2's producer) is later work.
+//
+// The f32 instance (nvt_int8_mlp_f32, int8 serving of an f32 ViT) runs the
+// same four passes: pass 1 reads f32 x (16-byte loads), passes 2 and 3 are
+// the same kernels (g is f32 in both), and pass 4 reads f32 x and writes
+// f32 y as 8-byte pairs from registers. No pass stages x or y in shared
+// memory, so the scratch and the shared memory are the bf16 instance's.
+// Its bound at the flagship block is the bf16 one's, 0.034 ms of int8
+// operations; its x and y move 65.6 MB (0.020 ms).
 //
 // Rounding points are the JAX kernel's and the plain version's: LN's mean
 // and mean of squared deviations in f32, rsqrt(var + eps), xhat * gamma +
@@ -59,7 +67,9 @@
 // kernel this replaces took 0.7149 ms by one-call events. With a 4-stage
 // ring (one GEMM block an SM) fc1 and fc2 took 88.8-91.4 and 65.9-68.1
 // us; with 8-column lane chunks in the row passes and scalar gamma / beta
-// loads, pass 1 took 39.4-40.7 and pass 3 36.9-37.8.
+// loads, pass 1 took 39.4-40.7 and pass 3 36.9-37.8. The f32 instance
+// (chip_smoke.py's f32 phase (g), two runs): 0.2664-0.2750 ms by one-call
+// events at batch 8.
 #include "hopper_gemm.cuh"
 #include "int8.cuh"
 
@@ -170,16 +180,16 @@ __global__ void __launch_bounds__(kRowWarps * 32)
   if (lane == 0) s2_row[row] = scale;
 }
 
-// Pass 4: y = bf16((dequant(g8 . W2^T) + b2) + x), BN columns a tile; K11
+// Pass 4: y = T((dequant(g8 . W2^T) + b2) + x), BN columns a tile; K11
 // launches it too, with A = its codes of a and Bt = its W8.
-template <int BN>
+template <typename T, int BN>
 __global__ void __launch_bounds__(GemmLoop<BN>::kThreads)
     fc2_residual_kernel(const __grid_constant__ CUtensorMap tg8,
                         const __grid_constant__ CUtensorMap tw2,
                         const float* __restrict__ s2_row,
                         const float* __restrict__ s2_col,
                         const float* __restrict__ b2,
-                        const bf16* __restrict__ x, bf16* __restrict__ y,
+                        const T* __restrict__ x, T* __restrict__ y,
                         int M, int dim, int hid) {
   extern __shared__ unsigned char smem[];
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * BN;
@@ -190,22 +200,21 @@ __global__ void __launch_bounds__(GemmLoop<BN>::kThreads)
     if (row >= M || col >= dim) return;   // dim is even: col + 1 < dim too
     const size_t at = static_cast<size_t>(row) * dim + col;
     const float s = s2_row[row];
-    const float2 xf = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(x + at));
+    const float2 xf = load2(x + at);
     const float2 sc = *reinterpret_cast<const float2*>(s2_col + col);
     const float2 bc = *reinterpret_cast<const float2*>(b2 + col);
     const float z0 = __fadd_rn(dequant(v0, s, sc.x), bc.x);
     const float z1 = __fadd_rn(dequant(v1, s, sc.y), bc.y);
-    *reinterpret_cast<__nv_bfloat162*>(y + at) =
-        __floats2bfloat162_rn(__fadd_rn(z0, xf.x), __fadd_rn(z1, xf.y));
+    store2(y + at, __fadd_rn(z0, xf.x), __fadd_rn(z1, xf.y));
   });
 }
 
-cudaError_t launch_all(const bf16* x, const float* gamma, const float* beta,
+template <typename T>
+cudaError_t launch_all(const T* x, const float* gamma, const float* beta,
                        const int8_t* w1, const float* s1, const float* b1,
                        const int8_t* w2, const float* s2, const float* b2,
-                       bf16* y, unsigned char* scratch, int M, int dim,
-                       int hid, float eps, cudaStream_t stream) {
+                       T* y, unsigned char* scratch, int M, int dim, int hid,
+                       float eps, cudaStream_t stream) {
   const Scratch at(M, dim, hid);
   float* g = reinterpret_cast<float*>(scratch + at.g);
   int8_t* u8 = reinterpret_cast<int8_t*>(scratch + at.u8);
@@ -224,7 +233,7 @@ cudaError_t launch_all(const bf16* x, const float* gamma, const float* beta,
   if (err == cudaSuccess)
     err = hopper::encode_kmajor(&tw2, w2, dim, hid, true, kBN);
   if (err == cudaSuccess) err = allow_smem(fc1_gelu_kernel, Loop::kSmemBytes);
-  if (err == cudaSuccess) err = allow_fc2_residual_smem();
+  if (err == cudaSuccess) err = allow_fc2_residual_smem<T>();
   if (err != cudaSuccess) return err;
 
   const int row_blocks = (M + kRowWarps - 1) / kRowWarps;
@@ -245,30 +254,61 @@ cudaError_t launch_all(const bf16* x, const float* gamma, const float* beta,
 
 }  // namespace
 
+template <typename T>
 cudaError_t allow_fc2_residual_smem() {
   const cudaError_t err =
-      allow_smem(fc2_residual_kernel<64>, GemmLoop<64>::kSmemBytes);
-  return err == cudaSuccess
-             ? allow_smem(fc2_residual_kernel<128>, GemmLoop<128>::kSmemBytes)
-             : err;
+      allow_smem(fc2_residual_kernel<T, 64>, GemmLoop<64>::kSmemBytes);
+  return err == cudaSuccess ? allow_smem(fc2_residual_kernel<T, 128>,
+                                         GemmLoop<128>::kSmemBytes)
+                            : err;
 }
 
+template <typename T>
 cudaError_t launch_fc2_residual(const CUtensorMap& ta, const CUtensorMap& tb,
                                 const float* s_row, const float* s_col,
-                                const float* b, const bf16* x, bf16* y, int M,
+                                const float* b, const T* x, T* y, int M,
                                 int N, int K, int bn, cudaStream_t stream) {
   const dim3 grid((N + bn - 1) / bn, (M + kBM - 1) / kBM);
   if (bn == 64)
-    fc2_residual_kernel<64><<<grid, GemmLoop<64>::kThreads,
-                              GemmLoop<64>::kSmemBytes, stream>>>(
+    fc2_residual_kernel<T, 64><<<grid, GemmLoop<64>::kThreads,
+                                 GemmLoop<64>::kSmemBytes, stream>>>(
         ta, tb, s_row, s_col, b, x, y, M, N, K);
   else
-    fc2_residual_kernel<128><<<grid, GemmLoop<128>::kThreads,
-                               GemmLoop<128>::kSmemBytes, stream>>>(
+    fc2_residual_kernel<T, 128><<<grid, GemmLoop<128>::kThreads,
+                                  GemmLoop<128>::kSmemBytes, stream>>>(
         ta, tb, s_row, s_col, b, x, y, M, N, K);
   return cudaGetLastError();
 }
 
+template cudaError_t allow_fc2_residual_smem<bf16>();
+template cudaError_t allow_fc2_residual_smem<float>();
+template cudaError_t launch_fc2_residual<bf16>(
+    const CUtensorMap&, const CUtensorMap&, const float*, const float*,
+    const float*, const bf16*, bf16*, int, int, int, int, cudaStream_t);
+template cudaError_t launch_fc2_residual<float>(
+    const CUtensorMap&, const CUtensorMap&, const float*, const float*,
+    const float*, const float*, float*, int, int, int, int, cudaStream_t);
+
+namespace {
+
+template <typename T>
+int entry(const void* x, const void* gamma, const void* beta, const void* w1,
+          const void* s1, const void* b1, const void* w2, const void* s2,
+          const void* b2, void* y, void* scratch, int M, int dim, int hid,
+          float eps, void* stream) {
+  if (M < 1 || dim < 16 || dim % 16 != 0 || hid < 16 || hid % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_all<T>(
+      static_cast<const T*>(x), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<const int8_t*>(w1),
+      static_cast<const float*>(s1), static_cast<const float*>(b1),
+      static_cast<const int8_t*>(w2), static_cast<const float*>(s2),
+      static_cast<const float*>(b2), static_cast<T*>(y),
+      static_cast<unsigned char*>(scratch), M, dim, hid, eps,
+      static_cast<cudaStream_t>(stream)));
+}
+
+}  // namespace
 }  // namespace nvt
 
 // x [M, dim] bf16; gamma, beta [dim] f32; w1 [hid, dim] int8; s1, b1 [hid]
@@ -280,17 +320,20 @@ extern "C" int nvt_int8_mlp(const void* x, const void* gamma, const void* beta,
                             const void* w2, const void* s2, const void* b2,
                             void* y, void* scratch, int M, int dim, int hid,
                             float eps, void* stream) {
-  using namespace nvt;
-  if (M < 1 || dim < 16 || dim % 16 != 0 || hid < 16 || hid % 16 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_all(
-      static_cast<const bf16*>(x), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<const int8_t*>(w1),
-      static_cast<const float*>(s1), static_cast<const float*>(b1),
-      static_cast<const int8_t*>(w2), static_cast<const float*>(s2),
-      static_cast<const float*>(b2), static_cast<bf16*>(y),
-      static_cast<unsigned char*>(scratch), M, dim, hid, eps,
-      static_cast<cudaStream_t>(stream)));
+  return nvt::entry<nvt::bf16>(x, gamma, beta, w1, s1, b1, w2, s2, b2, y,
+                               scratch, M, dim, hid, eps, stream);
+}
+
+// The f32 instance: x and y [M, dim] f32, every other operand and the
+// scratch as nvt_int8_mlp's.
+extern "C" int nvt_int8_mlp_f32(const void* x, const void* gamma,
+                                const void* beta, const void* w1,
+                                const void* s1, const void* b1, const void* w2,
+                                const void* s2, const void* b2, void* y,
+                                void* scratch, int M, int dim, int hid,
+                                float eps, void* stream) {
+  return nvt::entry<float>(x, gamma, beta, w1, s1, b1, w2, s2, b2, y,
+                           scratch, M, dim, hid, eps, stream);
 }
 
 // Bytes of the scratch one call takes (ops/int8_serving.py, mlp_plan).

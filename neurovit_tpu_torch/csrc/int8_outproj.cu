@@ -5,7 +5,11 @@
 // (_outproj_kernel, launched at :236 by int8_outproj_residual):
 //   (a8, s_row) = rowquant(float(a))         per-row symmetric int8
 //   z = float(a8 . W8^T) * s_row * s_col + b  f32
-//   y = bf16(z + x)                          x added in f32, one rounding
+//   y = T(z + x)                             x added in f32, one rounding
+// T is x's type: bf16, or f32 in the f32 instance (nvt_int8_outproj_f32,
+// int8 serving of an f32 ViT), whose passes read f32 a and x and write f32
+// y and are otherwise the bf16 ones; its scratch and shared memory are
+// theirs (no pass stages a, x or y in shared memory).
 // a [M, inner] is the attention output viewed as rows (no head transpose),
 // W8 the torch-layout int8 weight [dim, inner] with scales s_col [dim]. W8
 // is K-major as it lies, so wgmma reads it with no transpose.
@@ -14,7 +18,7 @@
 // flagship block at batch 8, M = 8008, inner 512, dim 1024: 0.0124 ms at
 // 3.35 TB/s) above its 2 M inner dim int8 operations (0.0042 ms at 1,979
 // TOP/s). This design also writes a8 and reads it again (49.7 MB, 0.0148
-// ms).
+// ms). At f32 a, x and y take twice the bytes: 82.6 MB, 0.0247 ms.
 //
 // Why two launches. Every column tile of a row block needs the row's
 // scale, the amax of the whole row of a, before its first code; on the
@@ -27,7 +31,7 @@
 //   2. fc2_residual (int8_mlp.cu, K12's pass 4, launch_fc2_residual):
 //      GemmLoop<BN> over (ceil(dim / BN), ceil(M / 128)) tiles, A = a8, Bt
 //      = W8, K = inner; the epilogue dequantizes, adds b and x and rounds y
-//      once, stored as bf16 pairs from registers.
+//      once, stored as pairs of T from registers.
 // BN is 128, or 64 where 128-wide tiles would give the card fewer blocks
 // than its 132 SMs (gemm_tile_n): at batch 1 of the flagship the 8 x 8
 // tiles of 128 would leave half the SMs idle, and 16 x 8 tiles of 64 fill
@@ -42,7 +46,9 @@
 // same [8016, 512] x [512, 1024]; at batch 1 0.0100 ms with 64-column
 // tiles. The single wmma kernel this replaces took 0.0737 ms at batch 8
 // and 0.0407 at batch 1. At K = 512 a tile has four k steps, too few to
-// hide each block's ring fill and its epilogue.
+// hide each block's ring fill and its epilogue. The f32 instance
+// (chip_smoke.py's f32 phase (g), two runs): 0.1116-0.1163 ms by one-call
+// events at batch 8.
 //
 // Rounding points are the JAX kernel's and the plain version's: scale =
 // amax / 127 (1 where amax is 0); code = rint(a / scale) clamped to +-127,
@@ -66,8 +72,9 @@ struct Scratch {
   }
 };
 
-cudaError_t launch_all(const bf16* a, const bf16* x, const int8_t* w8,
-                       const float* s_col, const float* bias, bf16* y,
+template <typename T>
+cudaError_t launch_all(const T* a, const T* x, const int8_t* w8,
+                       const float* s_col, const float* bias, T* y,
                        unsigned char* scratch, int M, int inner, int dim,
                        cudaStream_t stream) {
   const Scratch at(M, inner);
@@ -81,13 +88,27 @@ cudaError_t launch_all(const bf16* a, const bf16* x, const int8_t* w8,
       hopper::encode_kmajor(&ta8, a8, M, inner, true, kGemmRows);
   if (err == cudaSuccess)
     err = hopper::encode_kmajor(&tw8, w8, dim, inner, true, bn);
-  if (err == cudaSuccess) err = allow_fc2_residual_smem();
+  if (err == cudaSuccess) err = allow_fc2_residual_smem<T>();
   if (err != cudaSuccess) return err;
 
   if ((err = launch_rowquant(a, a8, s_row, M, inner, stream)) != cudaSuccess)
     return err;
   return launch_fc2_residual(ta8, tw8, s_row, s_col, bias, x, y, M, dim,
                              inner, bn, stream);
+}
+
+template <typename T>
+int entry(const void* a, const void* x, const void* w8, const void* s_col,
+          const void* bias, void* y, void* scratch, int M, int inner, int dim,
+          void* stream) {
+  if (M < 1 || inner < 16 || inner % 16 != 0 || dim < 16 || dim % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_all<T>(
+      static_cast<const T*>(a), static_cast<const T*>(x),
+      static_cast<const int8_t*>(w8), static_cast<const float*>(s_col),
+      static_cast<const float*>(bias), static_cast<T*>(y),
+      static_cast<unsigned char*>(scratch), M, inner, dim,
+      static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace
@@ -101,15 +122,18 @@ extern "C" int nvt_int8_outproj(const void* a, const void* x, const void* w8,
                                 const void* s_col, const void* bias, void* y,
                                 void* scratch, int M, int inner, int dim,
                                 void* stream) {
-  using namespace nvt;
-  if (M < 1 || inner < 16 || inner % 16 != 0 || dim < 16 || dim % 16 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_all(
-      static_cast<const bf16*>(a), static_cast<const bf16*>(x),
-      static_cast<const int8_t*>(w8), static_cast<const float*>(s_col),
-      static_cast<const float*>(bias), static_cast<bf16*>(y),
-      static_cast<unsigned char*>(scratch), M, inner, dim,
-      static_cast<cudaStream_t>(stream)));
+  return nvt::entry<nvt::bf16>(a, x, w8, s_col, bias, y, scratch, M, inner,
+                               dim, stream);
+}
+
+// The f32 instance: a, x and y f32, every other operand and the scratch as
+// nvt_int8_outproj's.
+extern "C" int nvt_int8_outproj_f32(const void* a, const void* x,
+                                    const void* w8, const void* s_col,
+                                    const void* bias, void* y, void* scratch,
+                                    int M, int inner, int dim, void* stream) {
+  return nvt::entry<float>(a, x, w8, s_col, bias, y, scratch, M, inner, dim,
+                           stream);
 }
 
 // Bytes of the scratch one call takes (ops/int8_serving.py,

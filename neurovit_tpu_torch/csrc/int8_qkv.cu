@@ -5,7 +5,11 @@
 // (_qkv_kernel, launched at :209 by int8_ln_qkv):
 //   u = LN(x) * gamma + beta                 f32, NOT rounded to bf16
 //   (u8, s_row) = rowquant(u)                per-row symmetric int8
-//   [q | k | v] = bf16(float(u8 . W8^T) * s_row * s_col)
+//   [q | k | v] = T(float(u8 . W8^T) * s_row * s_col)
+// T is x's type: bf16, or f32 in the f32 instance (nvt_int8_ln_qkv_f32,
+// int8 serving of an f32 ViT), whose row pass reads f32 x and whose GEMM
+// writes f32 q, k and v; otherwise its passes, scratch and shared memory
+// are the bf16 instance's.
 // W8 is the torch-layout int8 weight [3*inner, dim] (rows ordered (3,
 // heads, dim_head)) with per-output-channel scales s_col [3*inner], so q,
 // k and v each come out [M, inner] and view as [B, N, H, D]. W8 is K-major
@@ -14,7 +18,9 @@
 // What bounds it on the H100: 6 M dim inner int8 operations (0.0127 ms at
 // 1,979 TOP/s for the flagship block at batch 8: M = 8008, dim 1024, inner
 // 512). This design also moves about 59 MB (x 16.4, the codes written and
-// read 16.4, q, k and v 24.6, W8 1.6): 0.018 ms at 3.35 TB/s.
+// read 16.4, q, k and v 24.6, W8 1.6): 0.018 ms at 3.35 TB/s. At f32 the
+// bytes bound it: x 32.8 MB in and q, k and v 49.2 MB out, 0.0245 ms; this
+// design moves about 99 MB (0.030 ms).
 //
 // Why two launches. The TPU kernel holds a 512-row block and all of W8 in
 // VMEM, and quantizes each row before one [512, dim] x [dim, 3 inner] dot.
@@ -29,7 +35,7 @@
 //      mod ceil(inner / BN)) BN, from W8's rows which inner + c0 on, so a
 //      tile never straddles q, k and v and each block writes one tensor.
 //      The epilogue dequantizes each accumulator pair and stores it as a
-//      bf16 pair from registers, masking the rows past M and the columns
+//      pair of T from registers, masking the rows past M and the columns
 //      past inner (where inner is not a multiple of BN, the last tile of a
 //      section reads rows of the next; TMA zero-fills past 3 inner).
 // BN is 128, or 64 where 128-wide tiles would give the card fewer blocks
@@ -49,12 +55,14 @@
 // storing it by TMA, as K4's fc1 does, took qkv_gemm 39.4 us at batch 8
 // and 155.4 at batch 32 against 37.7 and 131.0 in the same run: the
 // register stores of one block run under the other block's mainloop.
+// The f32 instance (chip_smoke.py's f32 phase (g), two runs): 0.1344-
+// 0.1483 ms by one-call events at batch 8.
 //
 // Rounding points are the JAX kernel's and the plain version's: LN's mean
 // and mean of squared deviations in f32, rsqrt(var + eps), xhat * gamma +
 // beta; scale = amax / 127 (1 where amax is 0); code = rint(u / scale)
 // clamped to +-127, an IEEE division; dequant (float(acc) * s_row) * s_col,
-// each product rounded (no contraction), then bf16.
+// each product rounded (no contraction), then T.
 #include "hopper_gemm.cuh"
 #include "int8.cuh"
 
@@ -81,17 +89,17 @@ struct Scratch {
   }
 };
 
-// Pass 2: [q | k | v] = bf16(dequant(u8 . W8^T)). The thread's
-// accumulator pairs lie as wgmma's m64nN layout puts them (hopper_gemm.cuh,
-// Wgmma): rows r0 and r0 + 8, columns 8 j + 2 (t % 4) and + 1.
-template <int BN>
+// Pass 2: [q | k | v] = T(dequant(u8 . W8^T)). The thread's accumulator
+// pairs lie as wgmma's m64nN layout puts them (hopper_gemm.cuh, Wgmma):
+// rows r0 and r0 + 8, columns 8 j + 2 (t % 4) and + 1.
+template <typename T, int BN>
 __global__ void __launch_bounds__(Loop<BN>::kThreads)
     qkv_gemm_kernel(const __grid_constant__ CUtensorMap tu8,
                     const __grid_constant__ CUtensorMap tw8,
                     const float* __restrict__ s_row,
-                    const float* __restrict__ s_col, bf16* __restrict__ q,
-                    bf16* __restrict__ k, bf16* __restrict__ v, int M,
-                    int dim, int inner) {
+                    const float* __restrict__ s_col, T* __restrict__ q,
+                    T* __restrict__ k, T* __restrict__ v, int M, int dim,
+                    int inner) {
   extern __shared__ unsigned char smem[];
   const int tiles = (inner + BN - 1) / BN;   // column tiles of a section
   const int which = blockIdx.x / tiles;
@@ -100,7 +108,7 @@ __global__ void __launch_bounds__(Loop<BN>::kThreads)
   const int m0 = blockIdx.y * kBM;
   int acc[Loop<BN>::kAccRegs];
   if (!Loop<BN>::run(&tu8, &tw8, m0, n0, dim, smem, acc)) return;
-  bf16* out = which == 0 ? q : (which == 1 ? k : v);
+  T* out = which == 0 ? q : (which == 1 ? k : v);
   const int t = threadIdx.x % 128;
   const int r0 = (threadIdx.x / 128) * 64 + (t / 32) * 16 + (t % 32) / 4;
   const int cq = 2 * (t % 4);
@@ -109,34 +117,34 @@ __global__ void __launch_bounds__(Loop<BN>::kThreads)
     const int row = m0 + r0 + 8 * half;
     if (row >= M) continue;
     const float s = s_row[row];
-    bf16* orow = out + static_cast<size_t>(row) * inner;
+    T* orow = out + static_cast<size_t>(row) * inner;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int col = c0 + 8 * j + cq;
       if (col >= inner) continue;   // inner is even: col + 1 < inner too
       const float2 sc =
           *reinterpret_cast<const float2*>(s_col + which * inner + col);
-      *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
-          dequant(acc[4 * j + 2 * half], s, sc.x),
-          dequant(acc[4 * j + 2 * half + 1], s, sc.y));
+      store2(orow + col, dequant(acc[4 * j + 2 * half], s, sc.x),
+             dequant(acc[4 * j + 2 * half + 1], s, sc.y));
     }
   }
 }
 
-template <int BN>
+template <typename T, int BN>
 void launch_gemm(const CUtensorMap& tu8, const CUtensorMap& tw8,
-                 const float* s_row, const float* s_col, bf16* q, bf16* k,
-                 bf16* v, int M, int dim, int inner, cudaStream_t stream) {
+                 const float* s_row, const float* s_col, T* q, T* k, T* v,
+                 int M, int dim, int inner, cudaStream_t stream) {
   const dim3 grid(3 * ((inner + BN - 1) / BN), (M + kBM - 1) / kBM);
-  qkv_gemm_kernel<BN><<<grid, Loop<BN>::kThreads, Loop<BN>::kSmemBytes,
-                        stream>>>(tu8, tw8, s_row, s_col, q, k, v, M, dim,
-                                  inner);
+  qkv_gemm_kernel<T, BN><<<grid, Loop<BN>::kThreads, Loop<BN>::kSmemBytes,
+                           stream>>>(tu8, tw8, s_row, s_col, q, k, v, M, dim,
+                                     inner);
 }
 
-cudaError_t launch_all(const bf16* x, const float* gamma, const float* beta,
-                       const int8_t* w8, const float* s_col, bf16* q,
-                       bf16* k, bf16* v, unsigned char* scratch, int M,
-                       int dim, int inner, float eps, cudaStream_t stream) {
+template <typename T>
+cudaError_t launch_all(const T* x, const float* gamma, const float* beta,
+                       const int8_t* w8, const float* s_col, T* q, T* k,
+                       T* v, unsigned char* scratch, int M, int dim,
+                       int inner, float eps, cudaStream_t stream) {
   const Scratch at(M, dim);
   int8_t* u8 = reinterpret_cast<int8_t*>(scratch + at.u8);
   float* s_row = reinterpret_cast<float*>(scratch + at.s_row);
@@ -148,16 +156,31 @@ cudaError_t launch_all(const bf16* x, const float* gamma, const float* beta,
   if (err == cudaSuccess)
     err = hopper::encode_kmajor(&tw8, w8, 3 * inner, dim, true, bn);
   if (err == cudaSuccess)
-    err = allow_smem(qkv_gemm_kernel<64>, Loop<64>::kSmemBytes);
+    err = allow_smem(qkv_gemm_kernel<T, 64>, Loop<64>::kSmemBytes);
   if (err == cudaSuccess)
-    err = allow_smem(qkv_gemm_kernel<128>, Loop<128>::kSmemBytes);
+    err = allow_smem(qkv_gemm_kernel<T, 128>, Loop<128>::kSmemBytes);
   if (err != cudaSuccess) return err;
 
   err = launch_ln_rowquant(x, gamma, beta, u8, s_row, M, dim, eps, stream);
   if (err != cudaSuccess) return err;
-  (bn == 64 ? launch_gemm<64> : launch_gemm<128>)(
+  (bn == 64 ? launch_gemm<T, 64> : launch_gemm<T, 128>)(
       tu8, tw8, s_row, s_col, q, k, v, M, dim, inner, stream);
   return cudaGetLastError();
+}
+
+template <typename T>
+int entry(const void* x, const void* gamma, const void* beta, const void* w8,
+          const void* s_col, void* q, void* k, void* v, void* scratch, int M,
+          int dim, int inner, float eps, void* stream) {
+  if (M < 1 || dim < 16 || dim % 16 != 0 || inner < 16 || inner % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_all<T>(
+      static_cast<const T*>(x), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<const int8_t*>(w8),
+      static_cast<const float*>(s_col), static_cast<T*>(q),
+      static_cast<T*>(k), static_cast<T*>(v),
+      static_cast<unsigned char*>(scratch), M, dim, inner, eps,
+      static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace
@@ -172,16 +195,19 @@ extern "C" int nvt_int8_ln_qkv(const void* x, const void* gamma,
                                const void* s_col, void* q, void* k, void* v,
                                void* scratch, int M, int dim, int inner,
                                float eps, void* stream) {
-  using namespace nvt;
-  if (M < 1 || dim < 16 || dim % 16 != 0 || inner < 16 || inner % 16 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_all(
-      static_cast<const bf16*>(x), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<const int8_t*>(w8),
-      static_cast<const float*>(s_col), static_cast<bf16*>(q),
-      static_cast<bf16*>(k), static_cast<bf16*>(v),
-      static_cast<unsigned char*>(scratch), M, dim, inner, eps,
-      static_cast<cudaStream_t>(stream)));
+  return nvt::entry<nvt::bf16>(x, gamma, beta, w8, s_col, q, k, v, scratch,
+                               M, dim, inner, eps, stream);
+}
+
+// The f32 instance: x, q, k and v f32, every other operand and the scratch
+// as nvt_int8_ln_qkv's.
+extern "C" int nvt_int8_ln_qkv_f32(const void* x, const void* gamma,
+                                   const void* beta, const void* w8,
+                                   const void* s_col, void* q, void* k,
+                                   void* v, void* scratch, int M, int dim,
+                                   int inner, float eps, void* stream) {
+  return nvt::entry<float>(x, gamma, beta, w8, s_col, q, k, v, scratch, M,
+                           dim, inner, eps, stream);
 }
 
 // Bytes of the scratch one call takes (ops/int8_serving.py, qkv_plan).

@@ -4,7 +4,9 @@
 //   u = LN(x) * gamma + beta                 f32, not rounded
 //   (u8, s_row) = rowquant(u)                per-row symmetric int8
 // K11 (int8_outproj.cu) launches it without (launch_rowquant): u =
-// float(x), the attention output's bf16 values.
+// float(x), the attention output's values. Each has a bf16 and an f32
+// instance (the element type T of x), the f32 one for the int8 serving of
+// an f32 ViT; they differ in their loads alone.
 // The JAX kernels' order of operations (int8_serving.py:122-127, 158-159):
 // mean, mean of squared deviations, rsqrt(var + eps), xhat * gamma + beta,
 // each rounded; scale = amax / 127 (1 where amax is 0), code = rint(u /
@@ -12,7 +14,7 @@
 //
 // What bounds it on the H100: bytes, 3 per element of x (bf16 in, int8
 // out); 16.4 MB at the flagship block at batch 8 (M = 8008, dim 1024),
-// 0.005 ms at 3.35 TB/s. One warp a row; the row is read again from L1 or
+// 0.005 ms at 3.35 TB/s; 5 per element (41 MB, 0.012 ms) at f32. One warp a row; the row is read again from L1 or
 // L2 for each statistic and for the codes, so no row is held whole in
 // registers and any dim is taken. Measured (NVIDIA H100 80GB HBM3, 700.00
 // W; scripts/torch_int8_qkv_device_times.py and
@@ -25,28 +27,21 @@ namespace nvt {
 namespace {
 
 // Lane l takes columns 128 i + 4 l .. + 3 of each step i, so each load of
-// x (8 bytes), gamma and beta (16 bytes) is one contiguous run across the
-// warp. Each sweep is unrolled by 8 (dim 1024 in one step), so a lane's
+// x (8 bytes of bf16, 16 of f32), gamma and beta (16 bytes) is one
+// contiguous run across the warp. Each sweep is unrolled by 8 (dim 1024 in one step), so a lane's
 // loads of the row are in flight together. Without kLn, the two sweeps of
 // the statistics go and gamma and beta are not read (null).
-template <bool kLn>
+template <typename T, bool kLn>
 __global__ void __launch_bounds__(kLnRowWarps * 32)
-    rowquant_kernel(const bf16* __restrict__ x,
+    rowquant_kernel(const T* __restrict__ x,
                     const float* __restrict__ gamma,
                     const float* __restrict__ beta, int8_t* __restrict__ u8,
                     float* __restrict__ s_row, int M, int dim, float eps) {
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * kLnRowWarps + threadIdx.x / 32;
   if (row >= M) return;
-  const bf16* xr = x + static_cast<size_t>(row) * dim;
-  auto load = [&](int c, float (&v)[4]) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(xr + c);
-    const float2 lo = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 hi = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    v[0] = lo.x, v[1] = lo.y, v[2] = hi.x, v[3] = hi.y;
-  };
+  const T* xr = x + static_cast<size_t>(row) * dim;
+  auto load = [&](int c, float (&v)[4]) { load4(xr + c, v); };
   float mean = 0.f, rstd = 1.f;
   if constexpr (kLn) {
     float s = 0.f;
@@ -109,22 +104,35 @@ __global__ void __launch_bounds__(kLnRowWarps * 32)
 
 }  // namespace
 
-cudaError_t launch_ln_rowquant(const bf16* x, const float* gamma,
+template <typename T>
+cudaError_t launch_ln_rowquant(const T* x, const float* gamma,
                                const float* beta, int8_t* u8, float* s_row,
                                int M, int dim, float eps,
                                cudaStream_t stream) {
-  rowquant_kernel<true><<<(M + kLnRowWarps - 1) / kLnRowWarps,
-                          kLnRowWarps * 32, 0, stream>>>(x, gamma, beta, u8,
-                                                         s_row, M, dim, eps);
+  rowquant_kernel<T, true><<<(M + kLnRowWarps - 1) / kLnRowWarps,
+                             kLnRowWarps * 32, 0, stream>>>(
+      x, gamma, beta, u8, s_row, M, dim, eps);
   return cudaGetLastError();
 }
 
-cudaError_t launch_rowquant(const bf16* x, int8_t* x8, float* s_row, int M,
+template <typename T>
+cudaError_t launch_rowquant(const T* x, int8_t* x8, float* s_row, int M,
                             int dim, cudaStream_t stream) {
-  rowquant_kernel<false><<<(M + kLnRowWarps - 1) / kLnRowWarps,
-                           kLnRowWarps * 32, 0, stream>>>(
+  rowquant_kernel<T, false><<<(M + kLnRowWarps - 1) / kLnRowWarps,
+                              kLnRowWarps * 32, 0, stream>>>(
       x, nullptr, nullptr, x8, s_row, M, dim, 0.f);
   return cudaGetLastError();
 }
+
+template cudaError_t launch_ln_rowquant<bf16>(const bf16*, const float*,
+                                              const float*, int8_t*, float*,
+                                              int, int, float, cudaStream_t);
+template cudaError_t launch_ln_rowquant<float>(const float*, const float*,
+                                               const float*, int8_t*, float*,
+                                               int, int, float, cudaStream_t);
+template cudaError_t launch_rowquant<bf16>(const bf16*, int8_t*, float*, int,
+                                           int, cudaStream_t);
+template cudaError_t launch_rowquant<float>(const float*, int8_t*, float*,
+                                            int, int, cudaStream_t);
 
 }  // namespace nvt

@@ -71,8 +71,8 @@ def not_ported(what: str, item: str) -> NotImplementedError:
         f"(ROADMAP.md, Queue 1: {item})")
 
 
-# The ROADMAP item of what the ViT cannot run at f32 on CUDA yet: K6 and
-# the int8 kernels have no f32 instances there.
+# The ROADMAP item of what the ViT cannot run at f32 on CUDA yet: K6 (the
+# Grad-CAM probe's attention) and its backward have no f32 instances there.
 F32_ON_CUDA = "f32 on CUDA"
 
 
@@ -192,8 +192,8 @@ class NeuroEncoder(tnn.Module):
     def refuse_f32_on_cuda(self, what: str) -> None:
         """Raise ``not_ported`` for ``what`` on an f32 ViT whose parameters
         lie on a CUDA device, before any kernel runs: there the block
-        kernels K1-K5 and K7-K9 take f32, K6 (the Grad-CAM probe's
-        attention) and the int8 kernels bf16 activations only."""
+        kernels K1-K5 and K7-K9 and the int8 kernels K10-K13 take f32, K6
+        (the Grad-CAM probe's attention) and its backward bf16 only."""
         if (self.encoder_kind == "vit"
                 and self.compute_dtype == torch.float32
                 and self.device.type == "cuda"):

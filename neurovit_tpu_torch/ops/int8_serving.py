@@ -17,7 +17,8 @@ and every product is an exact int32 sum, dequantized in f32 as
     int8_outproj_residual  (K11)  rowquant -> int8 out-projection + b + x
     int8_mlp_block         (K12)  LN -> rowquant -> W1 + b1 -> GELU ->
                                   rowquant -> W2 + b2 + x
-    int8_flash_attention   (K13)  bf16 QK^T and exp2 softmax, int8 PV
+    int8_flash_attention   (K13)  QK^T in x's dtype and exp2 softmax,
+                                  int8 PV
 
 Unlike the bf16 ops, LN's u and the MLP's h stay f32: they are quantized,
 not rounded to bf16. The plain versions compute the int8 products as f64
@@ -26,9 +27,14 @@ matmuls of the integer-valued operands, exact here (|acc| <= 127^2 * K <
 path on CUDA); the int32 -> f32 conversion then rounds as the kernels'.
 
 SERVING-ONLY, as in JAX: there is no backward and no dropout. CPU tensors
-run the plain versions; CUDA tensors run ``csrc/int8_qkv.cu``,
+run the plain versions; bf16 CUDA tensors run ``csrc/int8_qkv.cu``,
 ``csrc/int8_outproj.cu``, ``csrc/int8_mlp.cu`` and
-``csrc/int8_attention.cu``. The kernels take widths that are multiples of
+``csrc/int8_attention.cu``, and f32 CUDA tensors (the int8 serving of an
+f32 ViT, where the JAX kernels write ``x.dtype``) their f32 instances:
+K10-K12's ``nvt_int8_*_f32`` entry points in the same sources (the same
+passes on f32 loads and stores, the same plans), and K13 at f32 in
+``csrc/int8_attention_f32.cu`` (QK^T by FFMA on the CUDA cores in two
+sweeps, P V by ``__dp4a``, :func:`int8_attn_f32_plan`). The kernels take widths that are multiples of
 16, of any size: K10 in two launches (the LN row quantizer it shares with
 K12, then its GEMM on the TMA + ``wgmma`` mainloop, :func:`qkv_plan`), K11
 in two (that row quantizer without the LayerNorm, then K12's last pass,
@@ -49,7 +55,7 @@ import torch
 from neurovit_tpu_torch import nn
 from neurovit_tpu_torch.ops.common import (FLOAT, INT, SHAPE_QUEUE, VOID,
                                            check_operand, check_smem,
-                                           check_widths, launch, on_cpu, ptr,
+                                           check_widths, launch, pick, ptr,
                                            round_up)
 from neurovit_tpu_torch.ops.flash_attention import (FWD_ALIGN_SLACK, LOG2E,
                                                     MAX_GRID_X,
@@ -344,6 +350,25 @@ def int8_outproj_plan(m: int, dim: int, inner: int) -> Int8OutprojPlan:
                            scratch=scratch, scratch_bytes=at)
 
 
+def _ln_qkv_cuda(symbol: str, dtype: torch.dtype, x, gamma, beta, w8,
+                 scale, heads: int, dim_head: int) -> QKV:
+    b, n, dim = x.shape
+    inner = heads * dim_head
+    check_operand("x", x, dtype)
+    check_operand("w8", w8, torch.int8, (3 * inner, dim))
+    vecs = _vectors(gamma=(gamma, dim), beta=(beta, dim),
+                    scale=(scale, 3 * inner))
+    plan = qkv_plan(b * n, dim, inner)
+    q, k, v = (x.new_empty(b, n, heads, dim_head) for _ in range(3))
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
+                          device=x.device)
+    launch(symbol, (VOID,) * 9 + (INT, INT, INT, FLOAT), x,
+           ptr(x), ptr(vecs["gamma"]), ptr(vecs["beta"]), ptr(w8),
+           ptr(vecs["scale"]), ptr(q), ptr(k), ptr(v), ptr(scratch), b * n,
+           dim, inner, nn.LN_EPS)
+    return q, k, v
+
+
 def int8_ln_qkv_cuda(x: torch.Tensor, gamma: torch.Tensor,
                      beta: torch.Tensor, w8: torch.Tensor,
                      scale: torch.Tensor, heads: int, dim_head: int) -> QKV:
@@ -352,25 +377,47 @@ def int8_ln_qkv_cuda(x: torch.Tensor, gamma: torch.Tensor,
     scratch allocation holding u8 and the row scales (:func:`qkv_plan`);
     the C entry point encodes the two tensor maps and raises through
     ``launch`` on any failure."""
-    b, n, dim = x.shape
-    inner = heads * dim_head
-    check_operand("x", x, torch.bfloat16)
-    check_operand("w8", w8, torch.int8, (3 * inner, dim))
-    vecs = _vectors(gamma=(gamma, dim), beta=(beta, dim),
-                    scale=(scale, 3 * inner))
-    plan = qkv_plan(b * n, dim, inner)
-    q, k, v = (x.new_empty(b, n, heads, dim_head) for _ in range(3))
-    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
-                          device=x.device)
-    launch("nvt_int8_ln_qkv", (VOID,) * 9 + (INT, INT, INT, FLOAT), x,
-           ptr(x), ptr(vecs["gamma"]), ptr(vecs["beta"]), ptr(w8),
-           ptr(vecs["scale"]), ptr(q), ptr(k), ptr(v), ptr(scratch), b * n,
-           dim, inner, nn.LN_EPS)
+    out = _ln_qkv_cuda("nvt_int8_ln_qkv", torch.bfloat16, x, gamma, beta,
+                       w8, scale, heads, dim_head)
     int8_ln_qkv_cuda.launches += 1
-    return q, k, v
+    return out
 
 
 int8_ln_qkv_cuda.launches = 0
+
+
+def int8_ln_qkv_f32_cuda(x: torch.Tensor, gamma: torch.Tensor,
+                         beta: torch.Tensor, w8: torch.Tensor,
+                         scale: torch.Tensor, heads: int,
+                         dim_head: int) -> QKV:
+    """Launch K10 at f32 on f32 x [B, N, dim]: the bf16 kernel's two
+    passes on f32 loads of x and f32 stores of q, k and v, with its plan
+    (:func:`qkv_plan`: the same scratch and shared memory)."""
+    out = _ln_qkv_cuda("nvt_int8_ln_qkv_f32", torch.float32, x, gamma, beta,
+                       w8, scale, heads, dim_head)
+    int8_ln_qkv_f32_cuda.launches += 1
+    return out
+
+
+int8_ln_qkv_f32_cuda.launches = 0
+
+
+def _outproj_cuda(symbol: str, dtype: torch.dtype, x, a, w8, scale,
+                  bias) -> torch.Tensor:
+    b, n, dim = x.shape
+    inner = a.shape[-1]
+    check_operand("x", x, dtype)
+    check_operand("a", a, dtype, (b, n, inner))
+    check_operand("w8", w8, torch.int8, (dim, inner))
+    vecs = _vectors(scale=(scale, dim), bias=(bias, dim))
+    plan = int8_outproj_plan(b * n, dim, inner)
+    y = torch.empty_like(x)
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
+                          device=x.device)
+    launch(symbol, (VOID,) * 7 + (INT,) * 3, x, ptr(a), ptr(x),
+           ptr(w8), ptr(vecs["scale"]), ptr(vecs["bias"]), ptr(y),
+           ptr(scratch), b * n, inner, dim)
+    return y
 
 
 def int8_outproj_residual_cuda(x: torch.Tensor, a: torch.Tensor,
@@ -381,24 +428,48 @@ def int8_outproj_residual_cuda(x: torch.Tensor, a: torch.Tensor,
     They share one scratch allocation holding a8 and the row scales
     (:func:`int8_outproj_plan`); the C entry point encodes the two tensor
     maps and raises through ``launch`` on any failure."""
-    b, n, dim = x.shape
-    inner = a.shape[-1]
-    check_operand("x", x, torch.bfloat16)
-    check_operand("a", a, torch.bfloat16, (b, n, inner))
-    check_operand("w8", w8, torch.int8, (dim, inner))
-    vecs = _vectors(scale=(scale, dim), bias=(bias, dim))
-    plan = int8_outproj_plan(b * n, dim, inner)
-    y = torch.empty_like(x)
-    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
-                          device=x.device)
-    launch("nvt_int8_outproj", (VOID,) * 7 + (INT,) * 3, x, ptr(a), ptr(x),
-           ptr(w8), ptr(vecs["scale"]), ptr(vecs["bias"]), ptr(y),
-           ptr(scratch), b * n, inner, dim)
+    y = _outproj_cuda("nvt_int8_outproj", torch.bfloat16, x, a, w8, scale,
+                      bias)
     int8_outproj_residual_cuda.launches += 1
     return y
 
 
 int8_outproj_residual_cuda.launches = 0
+
+
+def int8_outproj_residual_f32_cuda(x: torch.Tensor, a: torch.Tensor,
+                                   w8: torch.Tensor, scale: torch.Tensor,
+                                   bias: torch.Tensor) -> torch.Tensor:
+    """Launch K11 at f32 on f32 x [B, N, dim] and a [B, N, inner]: the
+    bf16 kernel's two passes on f32 loads of a and x and f32 stores of y,
+    with its plan (:func:`int8_outproj_plan`)."""
+    y = _outproj_cuda("nvt_int8_outproj_f32", torch.float32, x, a, w8, scale,
+                      bias)
+    int8_outproj_residual_f32_cuda.launches += 1
+    return y
+
+
+int8_outproj_residual_f32_cuda.launches = 0
+
+
+def _mlp_cuda(symbol: str, dtype: torch.dtype, x, gamma, beta, w1, s1, b1,
+              w2, s2, b2) -> torch.Tensor:
+    b, n, dim = x.shape
+    hid = w1.shape[0]
+    check_operand("x", x, dtype)
+    check_operand("w1", w1, torch.int8, (hid, dim))
+    check_operand("w2", w2, torch.int8, (dim, hid))
+    vecs = _vectors(gamma=(gamma, dim), beta=(beta, dim), s1=(s1, hid),
+                    b1=(b1, hid), s2=(s2, dim), b2=(b2, dim))
+    plan = mlp_plan(b * n, dim, hid)
+    y = torch.empty_like(x)
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
+                          device=x.device)
+    launch(symbol, (VOID,) * 11 + (INT, INT, INT, FLOAT), x,
+           ptr(x), ptr(vecs["gamma"]), ptr(vecs["beta"]), ptr(w1),
+           ptr(vecs["s1"]), ptr(vecs["b1"]), ptr(w2), ptr(vecs["s2"]),
+           ptr(vecs["b2"]), ptr(y), ptr(scratch), b * n, dim, hid, nn.LN_EPS)
+    return y
 
 
 def int8_mlp_block_cuda(x: torch.Tensor, gamma: torch.Tensor,
@@ -410,26 +481,30 @@ def int8_mlp_block_cuda(x: torch.Tensor, gamma: torch.Tensor,
     scratch allocation holding u8, g, g8, the partial amax of g and the two
     row-scale vectors (:func:`mlp_plan`); the C entry point encodes the
     four tensor maps and raises through ``launch`` on any failure."""
-    b, n, dim = x.shape
-    hid = w1.shape[0]
-    check_operand("x", x, torch.bfloat16)
-    check_operand("w1", w1, torch.int8, (hid, dim))
-    check_operand("w2", w2, torch.int8, (dim, hid))
-    vecs = _vectors(gamma=(gamma, dim), beta=(beta, dim), s1=(s1, hid),
-                    b1=(b1, hid), s2=(s2, dim), b2=(b2, dim))
-    plan = mlp_plan(b * n, dim, hid)
-    y = torch.empty_like(x)
-    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
-                          device=x.device)
-    launch("nvt_int8_mlp", (VOID,) * 11 + (INT, INT, INT, FLOAT), x,
-           ptr(x), ptr(vecs["gamma"]), ptr(vecs["beta"]), ptr(w1),
-           ptr(vecs["s1"]), ptr(vecs["b1"]), ptr(w2), ptr(vecs["s2"]),
-           ptr(vecs["b2"]), ptr(y), ptr(scratch), b * n, dim, hid, nn.LN_EPS)
+    y = _mlp_cuda("nvt_int8_mlp", torch.bfloat16, x, gamma, beta, w1, s1, b1,
+                  w2, s2, b2)
     int8_mlp_block_cuda.launches += 1
     return y
 
 
 int8_mlp_block_cuda.launches = 0
+
+
+def int8_mlp_block_f32_cuda(x: torch.Tensor, gamma: torch.Tensor,
+                            beta: torch.Tensor, w1: torch.Tensor,
+                            s1: torch.Tensor, b1: torch.Tensor,
+                            w2: torch.Tensor, s2: torch.Tensor,
+                            b2: torch.Tensor) -> torch.Tensor:
+    """Launch K12 at f32 on f32 x [B, N, dim]: the bf16 kernel's four
+    passes on f32 loads of x and f32 stores of y, with its plan
+    (:func:`mlp_plan`; g was f32 in both)."""
+    y = _mlp_cuda("nvt_int8_mlp_f32", torch.float32, x, gamma, beta, w1, s1,
+                  b1, w2, s2, b2)
+    int8_mlp_block_f32_cuda.launches += 1
+    return y
+
+
+int8_mlp_block_f32_cuda.launches = 0
 
 
 # K13 (csrc/int8_attention.cu): ring stages of its K and v8 tiles, keys a
@@ -479,33 +554,101 @@ class Int8AttnPlan(NamedTuple):
     stats_bytes: int
 
 
-def int8_attn_plan(b: int, n: int, h: int, d: int) -> Int8AttnPlan:
-    """K13's plan (the kernel's own counts are ``nvt_int8_attn_smem_bytes``,
-    ``nvt_int8_attn_block_rows``, ``nvt_int8_attn_v8_bytes`` and
-    ``nvt_int8_attn_stats_bytes``; the card test holds them equal). Raises
-    where the kernel does not take the shape."""
+def _attn_prologue(b: int, n: int, h: int, d: int) -> tuple:
+    """What both instances of K13 share: (the head-dim instance, V's
+    prologue launches, n_pad, v8's bytes, the f32 stats' bytes). Raises
+    where the kernels do not take the shape."""
     d_kernel = fwd_head_dim(d)
     _check_grid("int8 forward", b, n, h)
     if b * h * d_kernel > MAX_GRID_X:
         raise ValueError(f"the int8 attention takes B * H * D < 2^31 (v8's "
                          f"rows), got B {b}, H {h}, D {d_kernel} "
                          f"({SHAPE_QUEUE})")
-    bq = 64 if d_kernel == 64 else _block_rows(b, n, h)
     tiles = -(-n // ATTN_BKV)
+    prologue = (b * h, tiles)
+    launches = (("v_amax", prologue, ATTN_PROLOGUE_THREADS, 0),
+                ("v_quant", prologue, ATTN_PROLOGUE_THREADS, 0))
+    return (d_kernel, launches, tiles * ATTN_BKV,
+            b * h * d_kernel * tiles * ATTN_BKV,
+            b * h * d_kernel * (1 + tiles) * 4)
+
+
+def int8_attn_plan(b: int, n: int, h: int, d: int) -> Int8AttnPlan:
+    """K13's plan (the kernel's own counts are ``nvt_int8_attn_smem_bytes``,
+    ``nvt_int8_attn_block_rows``, ``nvt_int8_attn_v8_bytes`` and
+    ``nvt_int8_attn_stats_bytes``; the card test holds them equal). Raises
+    where the kernel does not take the shape."""
+    d_kernel, prologue, n_pad, v8_bytes, stats_bytes = _attn_prologue(
+        b, n, h, d)
+    bq = 64 if d_kernel == 64 else _block_rows(b, n, h)
     offsets, at = _offsets(bq * d_kernel * 2,
                            ATTN_STAGES * ATTN_BKV * d_kernel * 2,
                            ATTN_STAGES * ATTN_BKV * d_kernel,
                            (2 * ATTN_STAGES + 1) * 8)
     smem = FWD_ALIGN_SLACK + at
     check_smem("int8 attention", smem)
-    prologue = (b * h, tiles)
-    launches = (("v_amax", prologue, ATTN_PROLOGUE_THREADS, 0),
-                ("v_quant", prologue, ATTN_PROLOGUE_THREADS, 0),
-                ("attention", (-(-n // bq) * b * h,), 2 * bq + 32, smem))
+    launches = prologue + (
+        ("attention", (-(-n // bq) * b * h,), 2 * bq + 32, smem),)
     return Int8AttnPlan(d_kernel=d_kernel, bq=bq, launches=launches,
-                        offsets=offsets, n_pad=tiles * ATTN_BKV,
-                        v8_bytes=b * h * d_kernel * tiles * ATTN_BKV,
-                        stats_bytes=b * h * d_kernel * (1 + tiles) * 4)
+                        offsets=offsets, n_pad=n_pad, v8_bytes=v8_bytes,
+                        stats_bytes=stats_bytes)
+
+
+# K13 at f32 (csrc/int8_attention_f32.cu): query rows a block, keys a tile
+# (two tiles in flight), threads a block.
+ATTN_F32_BQ, ATTN_F32_BKV, ATTN_F32_THREADS = 64, 32, 128
+
+
+class Int8AttnF32Plan(NamedTuple):
+    """How one call of K13 at f32 covers q, k, v [B, N, H, D] at n_valid
+    = N: the head-dim instance ``d_kernel`` (operands zero-padded to it, as
+    the bf16 K13's); ``launches``, the three kernels in launch order, each
+    (name, grid, threads, dynamic shared memory bytes): the bf16 K13's
+    prologue on f32 V, then the attention on a one-dimensional grid of
+    (query tiles of ``bq`` rows x B * H), query tiles fastest, its shared
+    memory the Q tile and two K tiles (f32), two v8 tiles ([d_kernel, bkv]
+    int8) and the P8 tile ([bq, bkv] int8); the scratch as the bf16 K13's
+    (``n_pad``, ``v8_bytes``, ``stats_bytes``)."""
+    d_kernel: int
+    bq: int
+    bkv: int
+    launches: tuple
+    n_pad: int
+    v8_bytes: int
+    stats_bytes: int
+
+
+def int8_attn_f32_plan(b: int, n: int, h: int, d: int) -> Int8AttnF32Plan:
+    """K13 f32's plan (the kernel's own count of the shared memory is
+    ``nvt_int8_attn_f32_smem_bytes``; the card test holds them equal).
+    Raises where the kernel does not take the shape: the shapes the bf16
+    K13 takes."""
+    d_kernel, prologue, n_pad, v8_bytes, stats_bytes = _attn_prologue(
+        b, n, h, d)
+    bq, bkv = ATTN_F32_BQ, ATTN_F32_BKV
+    smem = (bq + 2 * bkv) * d_kernel * 4 + 2 * d_kernel * bkv + bq * bkv
+    check_smem("int8 attention", smem)
+    launches = prologue + (
+        ("attention", (-(-n // bq) * b * h,), ATTN_F32_THREADS, smem),)
+    return Int8AttnF32Plan(d_kernel=d_kernel, bq=bq, bkv=bkv,
+                           launches=launches, n_pad=n_pad, v8_bytes=v8_bytes,
+                           stats_bytes=stats_bytes)
+
+
+def _attn_cuda(symbol: str, plan, q, k, v, scale: float,
+               n_valid: Optional[int]) -> torch.Tensor:
+    b, n, h, d = q.shape
+    n_valid = _n_valid(q, n_valid)
+    q, k, v = (pad_head_dim(t, plan.d_kernel) for t in (q, k, v))
+    o = torch.empty_like(q)
+    v8 = torch.empty((b * h, plan.d_kernel, plan.n_pad), dtype=torch.int8,
+                     device=q.device)
+    stats = torch.empty(plan.stats_bytes // 4, dtype=torch.float32,
+                        device=q.device)
+    launch(symbol, (VOID,) * 6 + (INT,) * 5 + (FLOAT,), q,
+           ptr(q), ptr(k), ptr(v), ptr(o), ptr(v8), ptr(stats), b, n, h,
+           plan.d_kernel, n_valid, float(scale * LOG2E))
+    return o[..., :d].contiguous() if plan.d_kernel != d else o
 
 
 def int8_flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -518,23 +661,31 @@ def int8_flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
     the C entry point encodes the four tensor maps and raises through
     ``launch`` on any failure."""
     _check_qkv(q, k, v)
-    b, n, h, d = q.shape
-    plan = int8_attn_plan(b, n, h, d)
-    n_valid = _n_valid(q, n_valid)
-    q, k, v = (pad_head_dim(t, plan.d_kernel) for t in (q, k, v))
-    o = torch.empty_like(q)
-    v8 = torch.empty((b * h, plan.d_kernel, plan.n_pad), dtype=torch.int8,
-                     device=q.device)
-    stats = torch.empty(plan.stats_bytes // 4, dtype=torch.float32,
-                        device=q.device)
-    launch("nvt_int8_attention", (VOID,) * 6 + (INT,) * 5 + (FLOAT,), q,
-           ptr(q), ptr(k), ptr(v), ptr(o), ptr(v8), ptr(stats), b, n, h,
-           plan.d_kernel, n_valid, float(scale * LOG2E))
+    plan = int8_attn_plan(*q.shape)
+    o = _attn_cuda("nvt_int8_attention", plan, q, k, v, scale, n_valid)
     int8_flash_attention_cuda.launches += 1
-    return o[..., :d].contiguous() if plan.d_kernel != d else o
+    return o
 
 
 int8_flash_attention_cuda.launches = 0
+
+
+def int8_flash_attention_f32_cuda(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, *, scale: float,
+                                  n_valid: Optional[int] = None
+                                  ) -> torch.Tensor:
+    """Launch K13 at f32 (V's prologue on f32 V, then the two-sweep
+    attention with QK^T by FFMA and P V by ``__dp4a``): f32 [B, N, H, D],
+    contiguous, 8 <= D <= 128, zero-padded to 64 or 128 as the bf16 K13's.
+    The scratch is v8 and the f32 stats of :func:`int8_attn_f32_plan`."""
+    _check_qkv(q, k, v, torch.float32)
+    plan = int8_attn_f32_plan(*q.shape)
+    o = _attn_cuda("nvt_int8_attention_f32", plan, q, k, v, scale, n_valid)
+    int8_flash_attention_f32_cuda.launches += 1
+    return o
+
+
+int8_flash_attention_f32_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -546,9 +697,10 @@ def int8_ln_qkv(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                 dim_head: int) -> QKV:
     """LN, per-row int8 quantization and the int8 QKV projection:
     [B, N, dim] -> q, k, v [B, N, H, D]. CPU tensors take the plain
-    version, CUDA tensors the kernel."""
-    fn = (int8_ln_qkv_plain if on_cpu(x, gamma, beta, w8, scale)
-          else int8_ln_qkv_cuda)
+    version, CUDA tensors the kernel of x's dtype (``common.pick``: f32 or
+    bf16, which raises for any other)."""
+    fn = pick(int8_ln_qkv_plain, int8_ln_qkv_cuda, int8_ln_qkv_f32_cuda, x,
+              gamma, beta, w8, scale)
     return fn(x, gamma, beta, w8, scale, heads, dim_head)
 
 
@@ -556,8 +708,8 @@ def int8_outproj_residual(x: torch.Tensor, a: torch.Tensor, w8: torch.Tensor,
                           scale: torch.Tensor, bias: torch.Tensor
                           ) -> torch.Tensor:
     """x + int8 out-projection of the attention output a [B, N, inner]."""
-    fn = (int8_outproj_residual_plain if on_cpu(x, a, w8, scale, bias)
-          else int8_outproj_residual_cuda)
+    fn = pick(int8_outproj_residual_plain, int8_outproj_residual_cuda,
+              int8_outproj_residual_f32_cuda, x, a, w8, scale, bias)
     return fn(x, a, w8, scale, bias)
 
 
@@ -567,7 +719,8 @@ def int8_mlp_block(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                    ) -> torch.Tensor:
     """x + fc2(GELU(fc1(LN(x)))) with both GEMMs int8, [B, N, dim]."""
     args = (x, gamma, beta, w1, s1, b1, w2, s2, b2)
-    fn = int8_mlp_block_plain if on_cpu(*args) else int8_mlp_block_cuda
+    fn = pick(int8_mlp_block_plain, int8_mlp_block_cuda,
+              int8_mlp_block_f32_cuda, *args)
     return fn(*args)
 
 
@@ -576,11 +729,11 @@ def int8_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          ) -> torch.Tensor:
     """Attention over [B, N, H, D] with the PV product in int8; keys at or
     past ``n_valid`` get zero weight. As the JAX wrapper chooses by shape
-    (int8_serving.py:343-347), N > 4096 or D < 8 takes the bf16
-    :func:`flash_attention` (K1) instead."""
+    (int8_serving.py:343-347), N > 4096 or D < 8 takes
+    :func:`flash_attention` (K1, bf16 or f32) instead."""
     b, n, h, d = q.shape
     if n > MAX_RESIDENT_N or d < MIN_KERNEL_HEAD_DIM:
         return flash_attention(q, k, v, scale=scale, n_valid=n_valid)
-    fn = (int8_flash_attention_plain if on_cpu(q, k, v)
-          else int8_flash_attention_cuda)
+    fn = pick(int8_flash_attention_plain, int8_flash_attention_cuda,
+              int8_flash_attention_f32_cuda, q, k, v)
     return fn(q, k, v, scale=scale, n_valid=n_valid)

@@ -13,7 +13,8 @@ request is [N, H, W, D, T] and a bucket counts sequences.
 Runs on ``device`` (default ``cuda``), which must exist: there is no drop
 to the CPU. ``device="cpu"`` asks for the plain PyTorch path explicitly.
 ``quant="int8"`` serves the int8 blocks (``models.vit3d.quantize_blocks``,
-kernels K10-K13), quantized once when the predictor is built.
+kernels K10-K13, at bf16 or, for an f32 model, their f32 instances),
+quantized once when the predictor is built.
 """
 
 from __future__ import annotations
@@ -94,7 +95,6 @@ class Predictor:
             if model.encoder_kind != "vit":
                 raise ValueError("quant='int8' supports the ViT volume "
                                  "encoder only")
-            model.refuse_f32_on_cuda("int8 serving (quant='int8')")
             quantize_blocks(model.volume_encoder.vit3d)
 
     @classmethod

@@ -47,8 +47,8 @@ volume path.
 
 The model's device is the trainer's. The ViT's block kernels K1-K5 and
 K7-K9 have f32 instances, so ``TRAINING_PRECISION: f32`` trains a 3D ViT
-and a 4D model on either device (a 4D model's int8 encoder is refused at
-f32 on CUDA: K10-K13 take bf16 activations); the ResNet's pool kernels
+and a 4D model on either device (a 4D model's int8 encoder too: K10-K13
+have f32 instances); the ResNet's pool kernels
 take f32 and its convs are cuDNN's, so it trains in f32 on either. A mesh of more than one device is
 not ported yet and raises, naming its ROADMAP item.
 """
@@ -69,8 +69,7 @@ import torch
 
 from neurovit_tpu_torch import nn
 from neurovit_tpu_torch.data.loader import DataLoader
-from neurovit_tpu_torch.models.neuro_encoder import (F32_ON_CUDA,
-                                                     NeuroEncoder,
+from neurovit_tpu_torch.models.neuro_encoder import (NeuroEncoder,
                                                      not_ported)
 from neurovit_tpu_torch.training import checkpoint as ckpt
 from neurovit_tpu_torch.training.metrics import MetricLogger
@@ -92,14 +91,6 @@ def check_supported(config: Dict[str, Any], device: torch.device) -> None:
     if (int(config.get("MESH_MODEL_AXIS", 1)) > 1
             or int(config.get("MESH_DATA_AXIS", -1)) not in (-1, 1)):
         raise not_ported("a mesh of more than one device", "multi-GPU")
-    if (device.type == "cuda"
-            and config.get("MODEL_VOLUME_ENCODER", "vit") == "vit"
-            and config.get("TRAINING_PRECISION", "bf16") != "bf16"
-            and int(config.get("TRAINING_DIM", 3)) == 4
-            and quant4d == "int8"):
-        raise not_ported("the int8 encoder (TRAINING_4D_ENCODER_QUANT) of "
-                         "an f32 ViT on CUDA (K10-K13 take bf16 "
-                         "activations)", F32_ON_CUDA)
 
 
 class Trainer:

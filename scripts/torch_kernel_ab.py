@@ -42,7 +42,9 @@ too, this one's reads dy and writes no dz then. K14 and K15 go through
 alone, this one's also ``pool_plan``'s walk. The f32 forwards K1-K4 and
 backwards K5, K7-K9 go through this checkout's wrappers on the same
 operands in f32 (K2 also with u, K4 also at dropout 0.1 with h; K5, K8
-and K9 at dropout 0.1).
+and K9 at dropout 0.1), and so do the f32 instances of the int8 kernels
+K10-K13. A kernel whose entry point the other checkout lacks is timed in
+this one alone (the median of 2 x ``--rounds`` turns).
 
     python scripts/torch_kernel_ab.py --other <checkout> [--rounds 10]
         [--only <substring of a kernel's name>] [--batch 8]
@@ -398,6 +400,15 @@ def cases(b: int = cs.B) -> dict:
                 dyf, wout, dropout_rate=cs.DROPOUT, seed=1234))),
         "fused_mlp_bwd_f32": ("nvt_fused_mlp_f32_bwd", lambda: (
             fused_mlp.fused_mlp_bwd_f32_cuda(*bwdf, **mdrop))),
+        "int8_ln_qkv_f32": ("nvt_int8_ln_qkv_f32", lambda: (
+            q8.int8_ln_qkv_f32_cuda(xf, *ln, *qkv8, h, d))),
+        "int8_outproj_residual_f32": ("nvt_int8_outproj_f32", lambda: (
+            q8.int8_outproj_residual_f32_cuda(xf, attnf, *out8, bout))),
+        "int8_mlp_block_f32": ("nvt_int8_mlp_f32", lambda: (
+            q8.int8_mlp_block_f32_cuda(xf, *ln, *mlp8))),
+        "int8_flash_attention_f32": ("nvt_int8_attention_f32", lambda: (
+            q8.int8_flash_attention_f32_cuda(*qkvf, scale=d ** -0.5,
+                                             n_valid=n))),
     }
 
 
@@ -449,7 +460,12 @@ def main(argv=None) -> int:
         if args.only not in name:
             continue
         if not hasattr(libs["other"], symbol):
-            print(f"{name:26s} no {symbol} in the other checkout")
+            use(libs["this"])
+            this = [cs.cuda_ms(call, warmup=2, runs=10)
+                    for _ in range(2 * args.rounds)]
+            print(f"{name:26s} {'-':>9s} {float(np.median(this)):9.4f}  "
+                  f"(no {symbol} in the other checkout: this one's alone)",
+                  flush=True)
             continue
         turns = {"other": [], "this": []}
         for _ in range(args.rounds):

@@ -51,7 +51,14 @@ taken in another order), K5 at head dims 16-128 and n_valid off the key
 tiles, K8 and K9 at dropout 0 and 0.1 (dz is dy at 0), all-zero rows,
 repeat calls bit for bit, the plans' bytes against the kernels', and an
 f32 ViT's train step launching only the f32 kernels, its gradients
-against the CPU plain path's.
+against the CPU plain path's; and K10-K13 at f32 (the int8 serving of an
+f32 ViT): K10 and K12 with the codes in their scratch one step off
+plain's at most and their outputs plain's arithmetic on those codes bit
+for bit, K11 bit-equal to plain, K13 at head dims 16-128 and n_valid off
+the key tiles with its prologue's codes and scales bit for bit, all-zero
+rows, repeat calls bit for bit, K13 f32's plan against the kernel, an f32
+ViT quantized to int8 launching only the f32 int8 kernels, and no spill
+in any f32 instance of csrc/int8_*.cu.
 
 These need an NVIDIA GPU with sm_90a and nvcc; elsewhere they skip. Run on
 the card with:
@@ -2075,13 +2082,18 @@ def test_f32_plans_match_the_kernels(cuda):
 
 def test_f32_kernels_do_not_spill(cuda):
     """ptxas's report in the build log: no kernel of the f32 forwards and
-    backwards (csrc/*_f32.cu, the row passes of csrc/ffma.cu) spills."""
+    backwards (csrc/*_f32.cu, the row passes of csrc/ffma.cu) spills, nor
+    any f32 instance in csrc/int8_*.cu (the int8 serving kernels' passes
+    on the element type float, which their templates take first: names
+    "<kernel>If...")."""
     from neurovit_tpu_torch.ops import _build
     kernels, _ = _build.ptxas_report(
         _build.build_log(_build.build()).read_text())
+    int8_f32 = [k for k in kernels if k[0].startswith("int8_")
+                and not k[0].endswith("_f32.cu") and "_kernelIf" in k[1]]
     f32 = [k for k in kernels
-           if k[0].endswith("_f32.cu") or k[0] == "ffma.cu"]
-    assert len(f32) >= 25
+           if k[0].endswith("_f32.cu") or k[0] == "ffma.cu"] + int8_f32
+    assert len(f32) >= 37 and len(int8_f32) >= 10
     assert [k[:2] for k in f32 if k[3] or k[4]] == []
 
 
@@ -2310,3 +2322,302 @@ def test_f32_train_step_runs_the_f32_kernels(cuda):
         got = grads["cuda"][name]
         assert float((got - want).norm() / want.norm().clamp_min(1e-30)) \
             <= 1e-4, name
+
+
+# K10-K13 at f32 (the int8 serving of an f32 ViT): the f32 instances of
+# csrc/int8_{rowquant,qkv,outproj,mlp}.cu and csrc/int8_attention_f32.cu,
+# held to the plain versions at the bf16 int8 kernels' ATOL + RTOL |plain|.
+# Their int32 products are exact on both sides; an f32 LayerNorm, GELU or
+# score sum taken in another order can move a code by one step, and one
+# step of one of a row's codes moves the row's outputs by up to about 1e-2
+# (the change passes through a whole GEMM). So the codes the kernels leave
+# in their scratch are read back: each differs from plain's by one step at
+# most and in at most 1e-3 of the positions; the outputs equal plain's
+# arithmetic on the kernel's own codes and row scales bit for bit; and the
+# rows whose codes are all plain's are within ATOL + RTOL |plain| of plain.
+# K11 at f32 rounds where plain does and is held bit for bit.
+INT8_F32_QKV_CASES = [(1, 512, 4, 64), (130, 1024, 8, 64),
+                      (8008, 1024, 8, 64), (300, 1280, 16, 80),
+                      (65, 384, 6, 64)]
+INT8_F32_MLP_CASES = [(1, 64, 128), (130, 1024, 2048), (8008, 1024, 2048),
+                      (65, 336, 1360)]
+
+
+def _int8_f32_scratch(symbol, argtypes, args, plan):
+    """Run an f32 int8 kernel's C entry point with a scratch kept here;
+    ``args(scratch pointer)`` gives its arguments. Returns piece(name,
+    dtype, columns): that piece of the scratch as [rows, columns]."""
+    from neurovit_tpu_torch.ops.common import launch, ptr
+    scratch = torch.zeros(plan.scratch_bytes, dtype=torch.uint8,
+                          device="cuda")
+    launch(symbol, argtypes, scratch, *args(ptr(scratch)))
+    torch.cuda.synchronize()
+
+    def piece(name, dtype, columns):
+        at, nbytes = plan.scratch[name]
+        return scratch[at:at + nbytes].view(dtype).reshape(-1, columns)
+    return piece
+
+
+def _code_flips(got, want):
+    """The rows where the kernel's codes differ from plain's, each by one
+    step at most, in at most 1e-3 of the positions (at least one)."""
+    diff = (got.long() - want.reshape(got.shape).long()).abs()
+    assert int(diff.max()) <= 1, int(diff.max())
+    assert int(diff.sum()) <= max(1, diff.numel() // 1000), int(diff.sum())
+    return diff.any(dim=1)
+
+
+def _check_rows(got, want, rows):
+    """_check on the rows (of [1, m, ...] outputs) where ``rows`` is
+    False."""
+    keep = ~rows
+    _check(tuple(g[0, keep] for g in got), tuple(w[0, keep] for w in want))
+
+
+@pytest.mark.parametrize("m,dim,heads,dh", INT8_F32_QKV_CASES)
+def test_int8_ln_qkv_f32_kernel(cuda, m, dim, heads, dh):
+    """K10 at f32: f32 q, k and v, one launch a call, two calls bit-equal,
+    the bf16 K10 not launched; its codes u8 plain's but for one-step
+    flips, q, k and v plain's products of them bit for bit, and plain's
+    within the tolerance on the rows without a flip."""
+    from neurovit_tpu_torch.ops.common import FLOAT, INT, VOID, ptr
+    rng = np.random.default_rng(m + dim + heads * dh + 1)
+    x, gamma, beta, w8, s, _, _ = _int8_qkv_args(rng, m, dim, heads, dh,
+                                                  cuda)
+    x, inner = x.float(), heads * dh
+    args = (x, gamma, beta, w8, s, heads, dh)
+    before = (int8_serving.int8_ln_qkv_f32_cuda.launches,
+              int8_serving.int8_ln_qkv_cuda.launches)
+    got = int8_serving.int8_ln_qkv(*args)
+    again = int8_serving.int8_ln_qkv(*args)
+    torch.cuda.synchronize()
+    assert all(g.dtype == torch.float32 for g in got)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert (int8_serving.int8_ln_qkv_f32_cuda.launches,
+            int8_serving.int8_ln_qkv_cuda.launches) == (before[0] + 2,
+                                                        before[1])
+    outs = [torch.empty_like(g) for g in got]
+    piece = _int8_f32_scratch(
+        "nvt_int8_ln_qkv_f32", (VOID,) * 9 + (INT, INT, INT, FLOAT),
+        lambda sc: (ptr(x), ptr(gamma), ptr(beta), ptr(w8), ptr(s),
+                    *(ptr(o) for o in outs), sc, m, dim, inner, nn.LN_EPS),
+        int8_serving.qkv_plan(m, dim, inner))
+    u8, s_row = piece("u8", torch.int8, dim), piece("s_row", torch.float32, 1)
+    assert all(torch.equal(a, b) for a, b in zip(got, outs))
+    codes, _ = int8_serving._rowquant(int8_serving._ln(x, gamma, beta))
+    flipped = _code_flips(u8, codes)
+    mine = int8_serving._deq_dot(u8.float(), s_row, w8, s).reshape(
+        1, m, 3, heads, dh)
+    assert all(torch.equal(got[i], mine[:, :, i]) for i in range(3))
+    _check_rows(got, int8_serving.int8_ln_qkv_plain(*args), flipped)
+
+
+@pytest.mark.parametrize("m,dim,inner", [(1, 512, 256), (130, 1024, 512),
+                                         (8008, 1024, 512),
+                                         (130, 1280, 1280)])
+def test_int8_outproj_f32_kernel(cuda, m, dim, inner):
+    """K11 at f32 equal to plain bit for bit (exact int32 sums, the same
+    rounding points), one launch a call, two calls equal; all-zero rows of
+    a give b + x there."""
+    x, a, w, b = _outproj_args(np.random.default_rng(m + dim + inner + 2),
+                               m, dim, inner, cuda)
+    x, a = x.float(), a.float()
+    a[0, [0, m - 1]] = 0
+    args = (x, a, *int8_serving.quantize_weight(w), b)
+    before = int8_serving.int8_outproj_residual_f32_cuda.launches
+    got = int8_serving.int8_outproj_residual(*args)
+    want = int8_serving.int8_outproj_residual_plain(*args)
+    again = int8_serving.int8_outproj_residual(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert torch.equal(got, want), float((got - want).abs().max())
+    assert torch.equal(got, again)
+    assert torch.equal(got[0, [0, m - 1]], b + x[0, [0, m - 1]])
+    assert int8_serving.int8_outproj_residual_f32_cuda.launches == before + 2
+
+
+@pytest.mark.parametrize("m,dim,hid", INT8_F32_MLP_CASES)
+def test_int8_mlp_f32_kernel(cuda, m, dim, hid):
+    """K12 at f32: f32 y, one launch a call, two calls bit-equal; its codes
+    u8 plain's and its g8 plain's GELU of its own u8's product, each but
+    for one-step flips; y plain's product of its own g8 bit for bit, and
+    plain's within the tolerance on the rows without a flip."""
+    from neurovit_tpu_torch.ops.common import FLOAT, INT, VOID, ptr
+    args = _int8_mlp_args(np.random.default_rng(m + dim + hid + 3), m, dim,
+                          hid, cuda)
+    args = (args[0].float(),) + args[1:]
+    x, gamma, beta, w1, s1, b1, w2, s2, b2 = args
+    before = int8_serving.int8_mlp_block_f32_cuda.launches
+    got = int8_serving.int8_mlp_block(*args)
+    again = int8_serving.int8_mlp_block(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    assert int8_serving.int8_mlp_block_f32_cuda.launches == before + 2
+    y = torch.empty_like(got)
+    piece = _int8_f32_scratch(
+        "nvt_int8_mlp_f32", (VOID,) * 11 + (INT, INT, INT, FLOAT),
+        lambda sc: (*(ptr(t) for t in args), ptr(y), sc, m, dim, hid,
+                    nn.LN_EPS),
+        int8_serving.mlp_plan(m, dim, hid))
+    assert torch.equal(y, got)
+    q8 = int8_serving
+    u8, s1_row = piece("u8", torch.int8, dim), piece("s1_row",
+                                                     torch.float32, 1)
+    g8, s2_row = piece("g8", torch.int8, hid), piece("s2_row",
+                                                     torch.float32, 1)
+    codes, _ = q8._rowquant(q8._ln(x, gamma, beta))
+    flipped = _code_flips(u8, codes)
+    h = q8._deq_dot(u8.float(), s1_row, w1, s1) + b1
+    g_codes, _ = q8._rowquant(nn.gelu(h))
+    flipped |= _code_flips(g8, g_codes)
+    mine = (q8._deq_dot(g8.float(), s2_row, w2, s2) + b2) + x.reshape(m, dim)
+    assert torch.equal(got.reshape(m, dim), mine)
+    _check_rows((got,), (q8.int8_mlp_block_plain(*args),), flipped)
+
+
+@pytest.mark.parametrize("zero_bias", [True, False])
+def test_int8_f32_kernels_zero_rows(cuda, zero_bias):
+    """All-zero rows of x at a tile's first and last row and in the ragged
+    tile: with beta (and b1) = 0, K10 at f32 gives q = k = v = 0 there and
+    K12 at f32 gives y = b2 exactly."""
+    rows = (0, 127, 128, 129)
+    qkv = _int8_qkv_args(np.random.default_rng(5), 130, 256, 4, 64, cuda,
+                         zero_rows=rows, zero_beta=zero_bias)
+    qkv = (qkv[0].float(),) + qkv[1:]
+    got = int8_serving.int8_ln_qkv_f32_cuda(*qkv)
+    _check(got, int8_serving.int8_ln_qkv_plain(*qkv))
+    mlp = _int8_mlp_args(np.random.default_rng(6), 130, 256, 384, cuda,
+                         zero_rows=rows, zero_bias=zero_bias)
+    mlp = (mlp[0].float(),) + mlp[1:]
+    y = int8_serving.int8_mlp_block_f32_cuda(*mlp)
+    _check(y, int8_serving.int8_mlp_block_plain(*mlp))
+    if zero_bias:
+        assert all(not t[0, list(rows)].abs().max() for t in got)
+        assert torch.equal(y[0, list(rows)], mlp[-1].expand(len(rows), -1))
+
+
+INT8_F32_ATTN_CASES = (
+    [(1, 1, 1, 3, 64), (2, 70, 70, 3, 64), (2, 130, 97, 3, 64),
+     (1, 1001, 900, 3, 64), (8, 1001, 1001, 8, 64), (8, 1001, 900, 8, 64),
+     (2, 1001, 900, 2, 128)]
+    + [(2, 130, nv, 2, d) for d in (16, 32, 80, 128) for nv in (1, 33, 130)])
+
+
+@pytest.mark.parametrize("b,n,n_valid,h,d", INT8_F32_ATTN_CASES)
+def test_int8_attention_f32_kernel(cuda, b, n, n_valid, h, d):
+    """K13 at f32 against plain at head dims 16-128 (padded to 64 or 128),
+    n_valid on and off the 32- and 64-key tiles, the flagship at batch 8;
+    f32 o, one launch a call, the bf16 K13 not launched, two calls
+    bit-equal; keys past n_valid get p8 = 0 and stay out of V's scale."""
+    rng = np.random.default_rng(n + 7 * d + b + 11)
+    q, k, v = (_f32(rng, (b, n, h, d), cuda) for _ in range(3))
+    kw = {"scale": d ** -0.5, "n_valid": n_valid}
+    before = (int8_serving.int8_flash_attention_f32_cuda.launches,
+              int8_serving.int8_flash_attention_cuda.launches)
+    got = int8_serving.int8_flash_attention(q, k, v, **kw)
+    _check(got, int8_serving.int8_flash_attention_plain(q, k, v, **kw))
+    assert got.dtype == torch.float32
+    assert (int8_serving.int8_flash_attention_f32_cuda.launches,
+            int8_serving.int8_flash_attention_cuda.launches) == (
+                before[0] + 1, before[1])
+    assert torch.equal(got, int8_serving.int8_flash_attention(q, k, v, **kw))
+    v[:, n_valid:] = 100.0
+    assert torch.equal(got, int8_serving.int8_flash_attention(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("n,n_valid,d", [(130, 97, 64), (1001, 900, 128),
+                                         (1001, 1001, 64)])
+def test_int8_attention_f32_prologue_codes(cuda, n, n_valid, d):
+    """The prologue on f32 V: s_v and the codes are the IEEE quotients bit
+    for bit, transposed and permuted as the bf16 K13's (v8_key_order),
+    zero past n_valid."""
+    from neurovit_tpu_torch.ops.common import FLOAT, INT, VOID, launch, ptr
+    rng = np.random.default_rng(n_valid + d + 1)
+    q, k, v = (_f32(rng, (2, n, 3, d), cuda) for _ in range(3))
+    plan = int8_serving.int8_attn_f32_plan(2, n, 3, d)
+    v8 = torch.zeros((6, d, plan.n_pad), dtype=torch.int8, device=cuda)
+    stats = torch.zeros(plan.stats_bytes // 4, dtype=torch.float32,
+                        device=cuda)
+    launch("nvt_int8_attention_f32", (VOID,) * 6 + (INT,) * 5 + (FLOAT,), q,
+           ptr(q), ptr(k), ptr(v), ptr(torch.empty_like(q)), ptr(v8),
+           ptr(stats), 2, n, 3, d, n_valid, float(d ** -0.5 * fa.LOG2E))
+    torch.cuda.synchronize()
+    vf = v.permute(0, 2, 1, 3).reshape(6, n, d).double()
+    amax = vf[:, :n_valid].abs().amax(dim=1)
+    s_v = torch.where(amax > 0, (amax / 127).float(), 1.0)
+    assert torch.equal(stats[:6 * d], s_v.reshape(-1))
+    codes = torch.clamp(torch.round((vf / s_v[:, None].double()).float()),
+                        -127, 127)
+    reach = -(-n_valid // 64) * 64
+    order = int8_serving.v8_key_order(reach).to(cuda)
+    want = torch.zeros(6, reach, d, dtype=torch.int8, device=cuda)
+    want[:, :n_valid] = codes[:, :n_valid].to(torch.int8)
+    assert torch.equal(v8[:, :, :reach], want[:, order].transpose(1, 2))
+
+
+def test_int8_f32_plans_match_the_kernels(cuda):
+    """K13 f32's plan counts the attention kernel's shared memory as the
+    kernel does; its scratch is the bf16 K13's, counted by the same
+    functions. K10-K12 at f32 take the bf16 plans (their passes stage no
+    activation in shared memory), which the bf16 tests hold."""
+    import ctypes
+
+    from neurovit_tpu_torch.ops import _build
+    lib = _build.library()
+    smem = lib.nvt_int8_attn_f32_smem_bytes
+    smem.restype, smem.argtypes = ctypes.c_longlong, [ctypes.c_int]
+    v8b, statb = lib.nvt_int8_attn_v8_bytes, lib.nvt_int8_attn_stats_bytes
+    for fn in (v8b, statb):
+        fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 4
+    for b, n, h, d in [(1, 1001, 8, 64), (8, 1001, 8, 64), (2, 1001, 2, 128),
+                       (2, 130, 2, 16), (8193, 16, 8, 16)] + [
+            (8, 1001, heads, dh) for _, heads, dh, _ in WIDTHS.values()]:
+        plan = int8_serving.int8_attn_f32_plan(b, n, h, d)
+        assert smem(plan.d_kernel) == plan.launches[2][3], (b, n, h, d)
+        assert v8b(b, n, h, plan.d_kernel) == plan.v8_bytes
+        assert statb(b, n, h, plan.d_kernel) == plan.stats_bytes
+
+
+def test_int8_f32_forward_runs_the_f32_int8_kernels(cuda):
+    """An f32 ViT quantized to int8 on the card launches K10-K13 at f32 once
+    a block and no other kernel, its logits within 1e-3 of the CPU plain
+    path's on the same int8 weights; with int8_attn "off", K1 at f32 in
+    place of K13."""
+    from neurovit_tpu_torch.config import load_config
+    from neurovit_tpu_torch.models import NeuroEncoder
+    from neurovit_tpu_torch.models.vit3d import quantize_blocks
+
+    f32 = (int8_serving.int8_ln_qkv_f32_cuda,
+           int8_serving.int8_flash_attention_f32_cuda,
+           int8_serving.int8_outproj_residual_f32_cuda,
+           int8_serving.int8_mlp_block_f32_cuda, fa.flash_attention_f32_cuda)
+    others = (int8_serving.int8_ln_qkv_cuda,
+              int8_serving.int8_flash_attention_cuda,
+              int8_serving.int8_outproj_residual_cuda,
+              int8_serving.int8_mlp_block_cuda, fa.flash_attention_cuda,
+              fused_qkv.fused_ln_qkv_f32_cuda,
+              fused_outproj.fused_outproj_residual_f32_cuda,
+              fused_mlp.fused_mlp_block_f32_cuda)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (3, 20, 20, 20)).astype(np.float32))
+    for attn, want in (("pv", [2, 2, 2, 2, 0]), ("off", [2, 0, 2, 2, 2])):
+        config = load_config(overrides={
+            "TRAINING_VIT_INPUT_SIZE": 20, "TRAINING_VIT_PATCH_SIZE": 5,
+            "DATASET_NAME": "adni", "TRAINING_PRECISION": "f32",
+            "MODEL_VIT_DIM": 256, "MODEL_VIT_DEPTH": 2, "MODEL_VIT_HEADS": 4,
+            "MODEL_VIT_DIM_HEAD": 64, "MODEL_VIT_MLP_DIM": 512,
+            "SERVING_INT8_ATTN": attn})
+        logits = {}
+        for device in ("cpu", cuda):
+            model = NeuroEncoder(config, device=device, seed=4).eval()
+            quantize_blocks(model.volume_encoder.vit3d)
+            before = [fn.launches for fn in f32 + others]
+            with torch.no_grad():
+                logits[str(device)] = model(x.to(device)).cpu()
+            torch.cuda.synchronize()
+            if device == cuda:
+                assert [fn.launches - b for fn, b in
+                        zip(f32 + others, before)] == want + [0] * 8, attn
+        torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=1e-3,
+                                   atol=1e-3)

@@ -1,10 +1,11 @@
 """The f32 paths that the f32 forwards K1-K4 open on the card, as far as the
 CPU reaches them: the f32 ``Predictor`` against the JAX ``Predictor`` on
 its Pallas kernels (interpret mode) with weights carried by
-``from_jax_params``; which f32 runs the trainer takes on CUDA (the 4D
-model and the 3D ViT) and which it refuses (the int8 encoder); Grad-CAM, integrated gradients, grad x input and
-int8 serving of an f32 ViT on CUDA refused at their entry points before
-any op runs; and the model's own f32 products (patch embedding, head,
+``from_jax_params``; the f32 runs the trainer takes on CUDA (the 4D model,
+its int8 encoder, which K10-K13's f32 instances run, and the 3D ViT);
+Grad-CAM, integrated gradients and grad x input of an f32 ViT on CUDA
+refused at their entry points before any op runs, and int8 serving of it
+built there; and the model's own f32 products (patch embedding, head,
 temporal head) at full f32 whatever the caller set.
 
 Tolerance against JAX: rtol = atol = 1e-4 (f32 sums taken in another
@@ -67,29 +68,23 @@ def _config(**extra):
     return load_config(overrides={**TINY, **extra})
 
 
-@pytest.mark.parametrize("extra,refused", [
-    ({"TRAINING_DIM": 4}, None),
-    ({"TRAINING_DIM": 4, "TRAINING_PRECISION": "bf16"}, None),
-    ({"TRAINING_DIM": 3}, None),
-    ({"TRAINING_DIM": 3, "TRAINING_PRECISION": "bf16"}, None),
-    ({"TRAINING_DIM": 4, "TRAINING_4D_ENCODER_QUANT": "int8"},
-     "the int8 encoder"),
-    ({"TRAINING_DIM": 4, "TRAINING_4D_ENCODER_QUANT": "int8",
-      "TRAINING_PRECISION": "bf16"}, None),
+@pytest.mark.parametrize("extra", [
+    {"TRAINING_DIM": 4},
+    {"TRAINING_DIM": 4, "TRAINING_PRECISION": "bf16"},
+    {"TRAINING_DIM": 3},
+    {"TRAINING_DIM": 3, "TRAINING_PRECISION": "bf16"},
+    {"TRAINING_DIM": 4, "TRAINING_4D_ENCODER_QUANT": "int8"},
+    {"TRAINING_DIM": 4, "TRAINING_4D_ENCODER_QUANT": "int8",
+     "TRAINING_PRECISION": "bf16"},
 ])
-def test_check_supported_at_f32_on_cuda(extra, refused):
+def test_check_supported_at_f32_on_cuda(extra):
     """On CUDA the trainer takes an f32 4D model (its frozen ViT runs
-    forward only) and the f32 3D ViT (the backwards have f32 instances),
-    and refuses the int8 encoder at f32, naming "f32 on CUDA"; on the CPU
-    it takes all of them."""
+    forward only), its int8 encoder at f32 (K10-K13 have f32 instances)
+    and the f32 3D ViT (the backwards have f32 instances), as on the
+    CPU."""
     config = _config(**extra)
-    check_supported(config, torch.device("cpu"))
-    if refused is None:
-        check_supported(config, torch.device("cuda"))
-        return
-    with pytest.raises(NotImplementedError,
-                       match=f"{refused}.*Queue 1: f32 on CUDA"):
-        check_supported(config, torch.device("cuda"))
+    for device in ("cpu", "cuda"):
+        check_supported(config, torch.device(device))
 
 
 @pytest.fixture
@@ -113,21 +108,30 @@ def f32_model_on_cuda(monkeypatch):
 
 @pytest.mark.parametrize("entry", ["gradcam", "menu", "ig", "grad_x_input",
                                    "int8"])
-def test_f32_on_cuda_refused_at_the_entry_point(f32_model_on_cuda, entry):
-    """Grad-CAM (get_attention_map and the menu), integrated gradients,
-    grad x input and int8 serving of an f32 ViT on CUDA raise not_ported
-    ("f32 on CUDA") before any op of the blocks runs."""
+def test_f32_on_cuda_refused_at_the_entry_point(f32_model_on_cuda,
+                                                monkeypatch, entry):
+    """Grad-CAM (get_attention_map and the menu), integrated gradients and
+    grad x input of an f32 ViT on CUDA raise not_ported ("f32 on CUDA")
+    before any op of the blocks runs. int8 serving of it is not refused
+    (K10-K13 have f32 instances): Predictor(quant="int8") builds,
+    quantizing the blocks and running none of their ops."""
     from neurovit_tpu_torch.explainability.cam_methods import compute_cam
+    from neurovit_tpu_torch.ops.int8_serving import quantize_weight
 
     model = f32_model_on_cuda
     x = _vols(0, 1)[0]
+    if entry == "int8":
+        monkeypatch.setattr(vit3d, "quantize_weight", quantize_weight)
+        predictor = Predictor(model, batch_size=2, quant="int8")
+        assert predictor.quant == "int8"
+        assert model.volume_encoder.vit3d.quantized
+        return
     calls = {
         "gradcam": lambda: model.get_attention_map(x),
         "menu": lambda: compute_cam(model, x, method="gradcam"),
         "ig": lambda: integrated_gradients.integrated_gradients(model, x,
                                                                 steps=2),
         "grad_x_input": lambda: bcos.explain(model, x),
-        "int8": lambda: Predictor(model, batch_size=2, quant="int8"),
     }
     with pytest.raises(NotImplementedError, match="Queue 1: f32 on CUDA"):
         calls[entry]()

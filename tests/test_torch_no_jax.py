@@ -33,7 +33,11 @@ COUNTED = (fa.flash_attention_cuda, fused_qkv.fused_ln_qkv_cuda,
            int8_gemm.dynquant_matmul_cuda, fa.flash_attention_f32_cuda,
            fused_qkv.fused_ln_qkv_f32_cuda,
            fused_outproj.fused_outproj_residual_f32_cuda,
-           fused_mlp.fused_mlp_block_f32_cuda)
+           fused_mlp.fused_mlp_block_f32_cuda,
+           int8_serving.int8_ln_qkv_f32_cuda,
+           int8_serving.int8_outproj_residual_f32_cuda,
+           int8_serving.int8_mlp_block_f32_cuda,
+           int8_serving.int8_flash_attention_f32_cuda)
 
 
 def test_every_module_imports_with_jax_blocked():
@@ -198,7 +202,7 @@ def test_cpu_path_launches_no_kernel():
     int8_gemm.blocked_matmul(a8, b8)
     int8_gemm.blocked_matmul(t(32, 16).bfloat16(), t(16, 48).bfloat16())
     int8_gemm.dynquant_matmul(a8, b8, t(32).abs(), t(48).abs())
-    assert [fn.launches for fn in COUNTED] == before == [0] * 24
+    assert [fn.launches for fn in COUNTED] == before == [0] * 28
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

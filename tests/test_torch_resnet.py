@@ -511,17 +511,17 @@ def test_cpu_path_counts_no_launch_and_cam_runs_no_backward(cam_pair):
 
 def test_check_supported_refuses_f32_on_cuda_for_the_vit_only(tmp_path):
     """At f32 on CUDA the trainer takes the ResNet, the 3D ViT (its
-    backward kernels have f32 instances) and a 4D model; of the ViT it
-    refuses only the int8 encoder, whose kernels take bf16 activations."""
+    backward kernels have f32 instances), a 4D model and its int8 encoder
+    (K10-K13 have f32 instances): of the ViT it refuses nothing at f32
+    any more."""
     cuda = torch.device("cuda")
     check_supported(_config(tmp_path), cuda)
     check_supported(_config(tmp_path, MODEL_VOLUME_ENCODER="vit",
                             TRAINING_DIM=4), cuda)
     check_supported(_config(tmp_path, MODEL_VOLUME_ENCODER="vit"), cuda)
-    with pytest.raises(NotImplementedError, match="f32 on CUDA"):
-        check_supported(_config(tmp_path, MODEL_VOLUME_ENCODER="vit",
-                                TRAINING_DIM=4,
-                                TRAINING_4D_ENCODER_QUANT="int8"), cuda)
+    check_supported(_config(tmp_path, MODEL_VOLUME_ENCODER="vit",
+                            TRAINING_DIM=4,
+                            TRAINING_4D_ENCODER_QUANT="int8"), cuda)
 
 
 def _write_yaml(tmp_path, config) -> str:

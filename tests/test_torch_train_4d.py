@@ -344,6 +344,31 @@ def test_int8_encoder_matches_jax_q8(tiny_config, tmp_path):
     assert torch.equal(again, got)
 
 
+def test_int8_encoder_matches_jax_q8_at_f32(tiny_config, tmp_path):
+    """TRAINING_4D_ENCODER_QUANT: int8 at TRAINING_PRECISION f32: the port's
+    int8 copy of the f32 encoder against JAX's q8 model state, whose
+    kernels take and give f32 activations there, within 1e-3 relative
+    error (both sides take the same int32 products; an f32 LayerNorm or
+    score sum in another order can move a code by one step); the copy is
+    the bf16 run's, with f32 activations throughout."""
+    config = _cfg(tiny_config, tmp_path, TRAINING_PRECISION="f32",
+                  TRAINING_4D_ENCODER_QUANT="int8")
+    jtrainer, _, trainer = _both(config)
+    x = _batches(1)[0]["volume"]
+    ts = jtrainer.train_state
+    want, _, _ = jtrainer.model.encode_sequence(ts["params"],
+                                                ts["model_state"],
+                                                jnp.asarray(x))
+    got = trainer.model.encode_sequence(torch.from_numpy(x),
+                                        encoder=trainer._q8_encoder)
+    assert got.dtype == torch.float32 and trainer._q8_encoder.quantized
+    want = np.asarray(want, np.float32)
+    rel = np.linalg.norm(got.numpy() - want) / np.linalg.norm(want)
+    assert rel < 1e-3
+    assert not torch.equal(got, trainer.model.encode_sequence(
+        torch.from_numpy(x)))
+
+
 def test_quant_rejects_resnet_and_unknown_modes(tiny_config, tmp_path):
     config = _cfg(tiny_config, tmp_path, TRAINING_4D_ENCODER_QUANT="int8",
                   MODEL_VOLUME_ENCODER="resnet", MODEL_RESNET_DEPTH=10)
