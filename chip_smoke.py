@@ -498,7 +498,8 @@ def compare(name: str, got, want, grads: bool = False, params=(),
     checked by relative Frobenius error. ``mode`` "exact": every output
     equal bit for bit; "ulp": within one bf16 ulp of the plain value;
     "nan": inputs with NaN and +-inf, every output equal to the plain
-    version's and NaN exactly where it is NaN (a NaN's bits may differ)."""
+    version's and NaN exactly where it is NaN (a NaN's bits may differ);
+    "f32": within F32_TOL (1 + |plain|)."""
     got = [got] if isinstance(got, torch.Tensor) else list(got)
     want = [want] if isinstance(want, torch.Tensor) else list(want)
     max_abs, max_rel = 0.0, 0.0
@@ -531,6 +532,8 @@ def compare(name: str, got, want, grads: bool = False, params=(),
                 torch.floor(torch.log2(w.abs())) - 7))
         elif mode == "exact":
             tol = torch.zeros_like(w)
+        elif mode == "f32":
+            tol = F32_TOL * (1 + w.abs())
         else:
             tol = ((BWD_ATOL + BWD_FRAC * w.abs().max()) if grads
                    else ATOL) + RTOL * w.abs()
@@ -2916,7 +2919,7 @@ def _checkpoint(run_dir: str) -> str:
 
 def _fold_against_cpu(model, cpu, x: torch.Tensor, *, phase: str = "4d",
                       edge: int = EDGE_T, atol: float = BF16_LOGIT_ATOL,
-                      rtol: float = GRAD_RTOL, encoders=(None, None)) -> None:
+                      rtol: float = GRAD_RTOL, encoders=(None, None)) -> tuple:
     """The card's encode_sequence of all B·T volumes of ``x`` against the
     CPU plain path on the first and last ``edge`` timepoints of each
     sequence: the encodings within ``atol`` (the bf16 bound by default),
@@ -2924,7 +2927,9 @@ def _fold_against_cpu(model, cpu, x: torch.Tensor, *, phase: str = "4d",
     volume) by relative Frobenius error per volume within ``rtol``, each
     volume's nearer its own CPU row than any other held volume's, so that
     a row offset in the fold shows. ``encoders``: the ViTs that encode on
-    the card and on the CPU in place of the models' own (int8 copies)."""
+    the card and on the CPU in place of the models' own (int8 copies).
+    Returns the CPU's (encodings, last block outputs [rows, -1]) of the
+    held timepoints."""
     b, t = x.shape[0], x.shape[-1]
     ts = list(range(edge)) + list(range(t - edge, t))
     rows = [i * t + j for i in range(b) for j in ts]
@@ -2968,6 +2973,23 @@ def _fold_against_cpu(model, cpu, x: torch.Tensor, *, phase: str = "4d",
     if not (bool(torch.isfinite(got).all()) and diff <= atol
             and max(errs) <= rtol and own):
         raise AssertionError("the 4D fold differs from the cpu plain path")
+    return want, acts["cpu"]
+
+
+def _cpu_encodings(cpu, vit, vols: torch.Tensor) -> tuple:
+    """The CPU model's encode_sequence of ``vols`` [B, ..., T] through the
+    ViT ``vit``: (the encodings, the ViT's last block output of each
+    volume, [B·T, -1] f32)."""
+    acts = []
+    handle = vit.transformer.register_forward_hook(
+        lambda _module, _args, out: acts.append(
+            out.float().reshape(out.shape[0], -1)))
+    try:
+        with torch.inference_mode():
+            enc = cpu.encode_sequence(vols, encoder=vit)
+    finally:
+        handle.remove()
+    return enc, torch.cat(acts)
 
 
 def fourd_phase(workdir: str, card: str, counters: dict) -> dict:
@@ -3706,73 +3728,131 @@ def _f32_bwd_kernel_checks(card: str) -> dict:
         design_ops={"flash_attention_bwd_f32": 7 * attn_ops})
 
 
-# K10-K13 at f32 against their plain versions, f32 phase (g): the bf16
-# int8 kernels' bound, ATOL + RTOL |plain| elementwise, and no looser.
-# Both sides take the same exact int32 products and round at the same
-# points, but an f32 LayerNorm, GELU or score sum taken in another order
-# can move one code by one step, and one step of one of a row's codes
-# moves that row's outputs by up to about 1e-2 (the change passes through
-# a whole GEMM). So where the codes can be read from a kernel's scratch
-# (K10's u8, K11's a8, K12's u8 and g8), the positions where they differ
-# from plain's are counted, each one step at most and at most
+# K10-K12 at f32 against their plain versions, f32 phase (g). Both sides
+# take the same exact int32 products and round at the same points, but an
+# f32 LayerNorm or GELU taken in another order can move one code by one
+# step, and one step of one of a row's codes moves that row's outputs by
+# up to about 1e-2 (the change passes through a whole GEMM). So each case
+# runs again with a scratch kept here and its codes are read back (K10's
+# u8, K11's a8, K12's u8 and g8): the positions where they differ from
+# plain's are counted, each one step at most and at most
 # INT8_F32_FLIP_FRAC of them; the outputs must equal plain's arithmetic on
 # the kernel's own codes and row scales bit for bit; and the rows whose
-# codes are all plain's are held to the bound. K11 rounds where plain does
-# and is held bit for bit; K13's codes of P never leave its registers, and
-# its outputs are held to the bound everywhere.
+# codes are all plain's own (K12's g8 also against plain's g8 of plain's
+# own u8) are held to F32_TOL (1 + |plain|). K11 rounds where plain does
+# and is held bit for bit.
 INT8_F32_FLIP_FRAC = 1e-3
+# K13 at f32 against its plain version (f32 phase (g) and the card test):
+# every element within F32_TOL (1 + |plain|). Both sides take the same
+# scores (one rounded FMA at a time along D, as the plain version's f32
+# matmul sums them), so the same p and codes, and differ by the row sum's
+# order: 9e-8 at most (H100 80GB HBM3, 700 W). A score summed in another
+# order would move a p near a code's rounding boundary to the next code,
+# which moves its row by about 4e-3 of the row's largest |o|: 11-12 of
+# 4004 rows (4 heads at N 1001) when the scores are summed in f64 and
+# rounded once (tests/test_torch_int8_f32.py's model). So the query rows
+# outside the bound are counted, at most INT8_F32_ATTN_ROW_FRAC of them,
+# and every element is held to the bf16 int8 bound ATOL + RTOL |plain|
+# (one code's reach). Two faults that bound lets pass, QK^T in TF32 and
+# the denominator taken from the codes, put 3591-3640 and 1671-1765 of
+# those 4004 rows outside; (g) runs both on the card and fails unless each
+# puts more than the allowance outside.
+INT8_F32_ATTN_ROW_FRAC = 1e-2
 # The f32 int8 model on the card against the CPU plain path, six blocks
-# deep (f32 phase (h), (i)): the probabilities within F32_LOGIT_ATOL, the
-# logits, encodings and last block outputs (relative) within
-# INT8_F32_LOGIT_ATOL. A code flip in one row moves that row by about
-# 1e-3 relative; attention carries a share of it to every row, whose codes
-# in the next block then flip in proportion, so the two paths drift apart
-# block by block toward int8's own noise (int8 against f32 serving, held
-# to INT8_ATOL), not toward 0 as in f32; 1e-2 is one code step's reach in
-# a row, (g). Both logits of a volume move mostly together, which the
-# probabilities do not see.
-INT8_F32_LOGIT_ATOL = 1e-2
+# deep (f32 phase (h), (i)). A code flip moves its row by up to 1e-2 (g),
+# attention carries a share of it to every row and the next block's codes
+# flip in proportion, so any change in the order of an f32 sum moves the
+# int8 path's outputs by far more than f32 rounding. The CPU's own path
+# shows it: every voxel moved by one ulp moves the flagship's logits by
+# 3.246e-3 and config4D's int8 encodings by 3.16e-3 (last block 4.38e-3
+# relative), where the card differs from the CPU by 1.954e-3, 4.00e-3 and
+# 4.42e-3 (H100 80GB HBM3, 700 W). The limits stand at about 1.5 times the
+# larger reading, and (h), (i) hold the CPU's own drift to them too. The
+# int8 path's distance from the f32 path is no larger on these random
+# weights (1.911e-3 in the logits, 3.43e-3 and 5.44e-3 in 4D), so these
+# comparisons cannot tell the two paths apart: the exact launch counts
+# and (g) do. The probabilities are held to F32_LOGIT_ATOL.
+INT8_F32_LOGIT_ATOL = 5e-3
+INT8_F32_FOLD_TOL = 7e-3
+
+
+def int8_attn_f32_rows(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """K13 at f32's o [B, N, H, D] against plain's: (the query rows (b, n,
+    h) with an element outside F32_TOL (1 + |plain|), the rows, whether
+    every element is finite and within the bf16 int8 bound ATOL + RTOL
+    |plain|)."""
+    d = want.shape[-1]
+    g, w = got.float().reshape(-1, d), want.float().reshape(-1, d)
+    diff = (g - w).abs()
+    over = (diff > F32_TOL * (1 + w.abs())).any(dim=1)
+    ok = bool(torch.isfinite(g).all()) and not bool(
+        (diff > ATOL + RTOL * w.abs()).any())
+    return int(over.sum()), over.numel(), ok
+
+
+def hold_int8_attn_f32(name: str, got: torch.Tensor,
+                       want: torch.Tensor) -> int:
+    """K13 at f32's o against plain's as INT8_F32_ATTN_ROW_FRAC's comment
+    says; raises outside the bounds. Returns the number of query rows
+    outside F32_TOL (1 + |plain|)."""
+    over, rows, ok = int8_attn_f32_rows(got, want)
+    allowed = int(INT8_F32_ATTN_ROW_FRAC * rows)
+    if not ok or over > allowed:
+        raise AssertionError(
+            f"{name}: {over} of {rows} query rows outside F32_TOL (1 + "
+            f"|plain|) (at most {allowed}), or an element outside ATOL + "
+            f"RTOL |plain|: max abs err "
+            f"{float((got.float() - want.float()).abs().max()):.3e}")
+    return over
+
+
+def int8_attn_faults(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     scale: float, n_valid: int) -> dict:
+    """Two faulty K13s at f32 in plain PyTorch, on f32 q, k, v [B, N, H,
+    D]: "QK^T in TF32" (q and k rounded to TF32's 10 mantissa bits, to
+    nearest with ties away as cvt.rna.tf32.f32 rounds, then the plain
+    version) and "the denominator from the codes" (s_p sum(p8) in place of
+    the row sum of the exact p). Run them where f32 matmuls are exact to
+    f32 (``nn.full_f32``)."""
+    from neurovit_tpu_torch.ops import int8_serving as q8
+
+    def tf32(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1fff).view(torch.float32)
+
+    p8, v8, s_p, _, s_v = q8.attn_codes(q, k, v, scale, n_valid)
+    acc = torch.matmul(p8.double(), v8.double()).float()
+    codes = acc * (s_p / (s_p * p8.sum(dim=-1, keepdim=True)) * s_v)
+    return {"QK^T in TF32": q8.int8_flash_attention_plain(
+                tf32(q), tf32(k), v, scale=scale, n_valid=n_valid),
+            "the denominator from the codes":
+                codes.permute(0, 2, 1, 3).contiguous()}
 
 
 def _int8_f32_own_codes(name: str, args: tuple, got):
-    """(g): run the f32 int8 kernel ``name`` (K10, K11 or K12) through its C
-    entry point on ``args`` with a scratch kept here: its outputs must be
-    the wrapper's ``got`` bit for bit and plain's arithmetic on its own
-    codes and row scales bit for bit. Returns (the flipped codes' count,
-    the rows [m] where a code differs from plain's)."""
+    """(g): run the f32 int8 kernel ``name`` (K10, K11 or K12) again on
+    ``args`` with a scratch kept here and read its codes and row scales
+    back. Its outputs must be the wrapper's ``got`` bit for bit and (K10,
+    K12) plain's arithmetic on its own codes and row scales bit for bit,
+    its codes within one step of plain's as INT8_F32_FLIP_FRAC's comment
+    says. Returns (the flipped codes' count, the rows [m] where a code
+    differs from plain's own, how many of them K12's g8 alone marks: g8
+    the GELU of its own u8's product, but not plain's g8)."""
     from neurovit_tpu_torch import nn
     from neurovit_tpu_torch.ops import int8_serving as q8
-    from neurovit_tpu_torch.ops.common import FLOAT, INT, VOID, launch, ptr
 
     x = args[0]
     dim = x.shape[-1]
     m = x.numel() // dim
     if name == "int8_ln_qkv_f32":
-        _, gamma, beta, w8, sc, heads, dh = args
-        plan = q8.qkv_plan(m, dim, heads * dh)
-        outs = [torch.empty_like(g) for g in got]
-        symbol, argtypes = ("nvt_int8_ln_qkv_f32",
-                            (VOID,) * 9 + (INT, INT, INT, FLOAT))
-        tail = (m, dim, heads * dh, nn.LN_EPS)
-        ptrs = [ptr(t) for t in (x, gamma, beta, w8, sc, *outs)]
+        plan = q8.qkv_plan(m, dim, args[5] * args[6])
     elif name == "int8_outproj_residual_f32":
-        _, a, w8, sc, bias = args
-        plan = q8.int8_outproj_plan(m, dim, a.shape[-1])
-        outs = [torch.empty_like(got)]
-        symbol, argtypes = "nvt_int8_outproj_f32", (VOID,) * 7 + (INT,) * 3
-        tail = (m, a.shape[-1], dim)
-        ptrs = [ptr(t) for t in (a, x, w8, sc, bias, *outs)]
+        plan = q8.int8_outproj_plan(m, dim, args[1].shape[-1])
     else:
-        _, gamma, beta, w1, s1, b1, w2, s2, b2 = args
-        plan = q8.mlp_plan(m, dim, w1.shape[0])
-        outs = [torch.empty_like(got)]
-        symbol, argtypes = ("nvt_int8_mlp_f32",
-                            (VOID,) * 11 + (INT, INT, INT, FLOAT))
-        tail = (m, dim, w1.shape[0], nn.LN_EPS)
-        ptrs = [ptr(t) for t in args + tuple(outs)]
+        plan = q8.mlp_plan(m, dim, args[3].shape[0])
     scratch = torch.zeros(plan.scratch_bytes, dtype=torch.uint8,
                           device="cuda")
-    launch(symbol, argtypes, x, *ptrs, ptr(scratch), *tail)
+    outs = getattr(q8, name + "_cuda")(*args, scratch=scratch)
     torch.cuda.synchronize()
 
     def piece(key, dtype, cols):
@@ -3780,34 +3860,38 @@ def _int8_f32_own_codes(name: str, args: tuple, got):
         return scratch[at:at + n].view(dtype).reshape(-1, cols)
 
     got = [got] if isinstance(got, torch.Tensor) else list(got)
+    outs = [outs] if isinstance(outs, torch.Tensor) else list(outs)
     if not all(torch.equal(a, b) for a, b in zip(outs, got)):
-        raise AssertionError(f"{name}: the entry point and the wrapper differ")
-    pairs = []
+        raise AssertionError(f"{name}: the scratch's call and the wrapper's "
+                             "differ")
+    pairs, g8_rows, exact = [], None, True
     with nn.full_f32(torch.float32):
-        if name == "int8_ln_qkv_f32":
-            u8, s_row = piece("u8", torch.int8, dim), piece("s_row",
-                                                            torch.float32, 1)
-            pairs.append((u8, q8._rowquant(q8._ln(x, gamma, beta))[0]))
-            mine = q8._deq_dot(u8.float(), s_row, w8, sc).reshape(
-                m, 3, heads * dh)
-            exact = all(torch.equal(g.reshape(m, -1), mine[:, i])
-                        for i, g in enumerate(got))
-        elif name == "int8_outproj_residual_f32":
-            a8 = piece("a8", torch.int8, a.shape[-1])
-            pairs.append((a8, q8._rowquant(a.float())[0]))
-            exact = True                    # got is plain's, bit for bit
+        if name == "int8_outproj_residual_f32":
+            a = args[1]
+            pairs.append((piece("a8", torch.int8, a.shape[-1]),
+                          q8._rowquant(a.float())[0]))
         else:
-            hid = w1.shape[0]
-            u8, s1_row = (piece("u8", torch.int8, dim),
-                          piece("s1_row", torch.float32, 1))
-            g8, s2_row = (piece("g8", torch.int8, hid),
-                          piece("s2_row", torch.float32, 1))
-            pairs.append((u8, q8._rowquant(q8._ln(x, gamma, beta))[0]))
-            h = q8._deq_dot(u8.float(), s1_row, w1, s1) + b1
+            u8 = piece("u8", torch.int8, dim)
+            codes, s_row = q8._rowquant(q8._ln(x, args[1], args[2]))
+            pairs.append((u8, codes))
+        if name == "int8_ln_qkv_f32":
+            _, _, _, w8, sc, heads, dh = args
+            mine = q8._deq_dot(u8.float(), piece("s_row", torch.float32, 1),
+                               w8, sc).reshape(m, 3, heads * dh)
+            exact = all(torch.equal(g.reshape(m, -1), mine[:, i])
+                        for i, g in enumerate(outs))
+        elif name == "int8_mlp_block_f32":
+            _, _, _, w1, s1, b1, w2, s2, b2 = args
+            g8 = piece("g8", torch.int8, w1.shape[0])
+            h = q8._deq_dot(u8.float(), piece("s1_row", torch.float32, 1),
+                            w1, s1) + b1
             pairs.append((g8, q8._rowquant(nn.gelu(h))[0]))
-            mine = (q8._deq_dot(g8.float(), s2_row, w2, s2) + b2
-                    + x.reshape(m, dim))
-            exact = torch.equal(got[0].reshape(m, dim), mine)
+            h = q8._deq_dot(codes, s_row, w1, s1) + b1   # plain's own h
+            g8_rows = (g8.float() != q8._rowquant(nn.gelu(h))[0].reshape(
+                g8.shape)).any(dim=1)
+            mine = (q8._deq_dot(g8.float(), piece("s2_row", torch.float32, 1),
+                                w2, s2) + b2 + x.reshape(m, dim))
+            exact = torch.equal(outs[0].reshape(m, dim), mine)
     if not exact:
         raise AssertionError(f"{name}: the outputs are not plain's arithmetic "
                              "on the kernel's own codes")
@@ -3821,7 +3905,8 @@ def _int8_f32_own_codes(name: str, args: tuple, got):
                                  f"{diff.numel()} positions")
         flips += n
         rows |= diff.any(dim=1)
-    return flips, rows
+    g8_only = 0 if g8_rows is None else int((g8_rows & ~rows).sum())
+    return flips, rows if g8_rows is None else rows | g8_rows, g8_only
 
 
 def _int8_f32_kernel_checks(card: str) -> dict:
@@ -3831,7 +3916,9 @@ def _int8_f32_kernel_checks(card: str) -> dict:
     there, at 130 rows and on all-zero rows of a; K12 serving, at 130 rows
     and on all-zero rows with beta = b1 = 0; K13 at n_valid 1001 and 900
     and at head dims 32, 64 and 128 at batch 2 x 2 heads. Held as
-    INT8_F32_FLIP_FRAC's comment says, two calls bit-equal; the first case
+    INT8_F32_FLIP_FRAC's and INT8_F32_ATTN_ROW_FRAC's comments say (K13's
+    n_valid cases also against its two faulty versions,
+    :func:`int8_attn_faults`), two calls bit-equal; the first case
     of each timed beside plain, torch._int_mm at its GEMMs (K13: K1 at f32
     on the same inputs, and the FFMA floor of its two sweeps of QK^T), with
     its bound. Returns each kernel's stats."""
@@ -3874,7 +3961,7 @@ def _int8_f32_kernel_checks(card: str) -> dict:
         def run_plain():
             with nn.full_f32(torch.float32):
                 return plain(*args, **kw)
-        return label, args, (lambda: kernel(*args, **kw)), run_plain
+        return label, args, kw, (lambda: kernel(*args, **kw)), run_plain
 
     heads = (HEADS, DIM_HEAD)
     cases = {
@@ -3935,8 +4022,8 @@ def _int8_f32_kernel_checks(card: str) -> dict:
                for name in cases}
     stats = {}
     for name, calls in cases.items():
-        max_abs, flips_total = 0.0, 0
-        for i, (label, args, kernel, plain) in enumerate(calls):
+        max_abs, flips_total, over_total = 0.0, 0, 0
+        for i, (label, args, kw, kernel, plain) in enumerate(calls):
             got, want = kernel(), plain()
             again = kernel()
             torch.cuda.synchronize()
@@ -3947,20 +4034,49 @@ def _int8_f32_kernel_checks(card: str) -> dict:
                     outs, [again] if isinstance(again, torch.Tensor)
                     else again)):
                 raise AssertionError(f"{name} {label}: two calls differ")
-            flips, held = 0, outs
             wants = [want] if isinstance(want, torch.Tensor) else list(want)
             if name == "int8_outproj_residual_f32":
                 compare(f"{name} {label}", outs, wants, mode="exact")
-            if name != "int8_flash_attention_f32":
-                flips, flipped = _int8_f32_own_codes(name, args, got)
+            if name == "int8_flash_attention_f32":
+                a = float((got - want).abs().max())
+                over = hold_int8_attn_f32(f"{name} {label}", got, want)
+                rows = want.numel() // want.shape[-1]
+                over_total += over
+                allowed = int(INT8_F32_ATTN_ROW_FRAC * rows)
+                msg = (f"{name} {label}: max abs err {a:.3e}; {over} of "
+                       f"{rows} query rows outside F32_TOL (1 + |plain|) (at "
+                       f"most {allowed}); bit-equal on a second call")
+                if label.startswith("n_valid"):
+                    with nn.full_f32(torch.float32):
+                        faults = int8_attn_faults(*args, **kw)
+                    for fault, o in faults.items():
+                        n_over, _, _ = int8_attn_f32_rows(o, want)
+                        msg += (f"; {fault}: {n_over} rows outside, max abs "
+                                f"err {float((o - want).abs().max()):.3e}")
+                        if n_over <= allowed:
+                            raise AssertionError(f"{name} {label}: the bound "
+                                                 f"does not see {fault}")
+                    del faults
+            else:
+                flips, flipped, g8_only = _int8_f32_own_codes(name, args, got)
+                a = max(float((o.reshape(w_.shape) - w_).abs().max())
+                        for o, w_ in zip(outs, wants))
                 keep = ~flipped
-                held = [o.reshape(keep.numel(), -1)[keep] for o in outs]
-                wants = [w_.reshape(keep.numel(), -1)[keep] for w_ in wants]
-            a, _ = compare(f"{name} {label}", held, wants)
-            max_abs, flips_total = max(max_abs, a), flips_total + flips
-            msg = (f"{name} {label}: max abs err {a:.3e} on the rows whose "
-                   f"codes are plain's; {flips} codes one step from plain's; "
-                   "bit-equal on a second call")
+                clean, _ = compare(
+                    f"{name} {label}, the rows whose codes are plain's",
+                    [o.reshape(keep.numel(), -1)[keep] for o in outs],
+                    [w_.reshape(keep.numel(), -1)[keep] for w_ in wants],
+                    mode="f32")
+                msg = (f"{name} {label}: max abs err {a:.3e}, on the "
+                       f"{int(keep.sum())} of {keep.numel()} rows whose codes "
+                       f"are plain's {clean:.3e} (tol F32_TOL (1 + |plain|)); "
+                       f"{flips} codes one step from plain's")
+                if name == "int8_mlp_block_f32":
+                    msg += (f"; {g8_only} rows whose g8 differs from plain's "
+                            "own g8 alone")
+                msg += "; bit-equal on a second call"
+                flips_total += flips
+            max_abs = max(max_abs, a)
             if label.startswith("zero rows"):
                 zero_out = [o.reshape(m, -1)[zero] for o in outs]
                 ok = (all(not z.abs().max() for z in zero_out)
@@ -3993,11 +4109,14 @@ def _int8_f32_kernel_checks(card: str) -> dict:
                             f"({2 * att / 1e9:.2f} GFLOP at 67 TFLOP/s): "
                             f"{2 * att / ms / 1e9:.1f} TFLOP/s")
             log("f32", msg)
-            del got, want, again, outs, held, wants
+            del got, want, again, outs, wants
         stats[name]["max_abs_err"] = max_abs
+        held = (f"{over_total} query rows outside F32_TOL (1 + |plain|) in all"
+                if name == "int8_flash_attention_f32" else
+                f"the rows whose codes are plain's within F32_TOL (1 + "
+                f"|plain|); {flips_total} codes one step off in all")
         log("f32", f"(g) {name}: max abs err {max_abs:.3e} over {len(calls)} "
-            f"cases (tol {ATOL} + {RTOL} |plain|, on the rows whose codes "
-            f"are plain's; {flips_total} codes one step off in all); {card}")
+            f"cases ({held}); {card}")
     return stats
 
 
@@ -4009,10 +4128,11 @@ def _int8_f32_serving(fcfg, ckpt: str, workdir: str, card: str,
     launched depth times per forward of the model, nothing else; one
     forward with SERVING_INT8_ATTN off (K1 at f32 in place of K13); the
     logits of 3 volumes against the CPU's f32 int8 path within
-    INT8_F32_LOGIT_ATOL and its probabilities within F32_LOGIT_ATOL, the
-    probabilities against f32 serving within INT8_ATOL (the JAX test's
-    bound); the forward at batch 32 timed with a profiler split. Returns
-    the launch counts."""
+    INT8_F32_LOGIT_ATOL, as the CPU's own logits with every voxel moved by
+    one ulp, and its probabilities within F32_LOGIT_ATOL; int8 against f32
+    logits read; the probabilities against f32 serving within INT8_ATOL
+    (the JAX test's bound); the forward at batch 32 timed with a profiler
+    split. Returns the launch counts."""
     import yaml
 
     from neurovit_tpu_torch import serving
@@ -4090,20 +4210,28 @@ def _int8_f32_serving(fcfg, ckpt: str, workdir: str, card: str,
     quantize_blocks(cpu.volume_encoder.vit3d)
     f32 = Predictor.from_checkpoint(fcfg, ckpt, batch_size=32, device="cuda")
     _, want_f32 = f32(vols)
+    moved = np.nextafter(vols, np.float32(np.inf))
     with torch.inference_mode():
         want = cpu(torch.from_numpy(vols))
+        witness = cpu(torch.from_numpy(moved))
         got = predictor.model(torch.from_numpy(vols).cuda()).cpu()
+        got_f32 = f32.model(torch.from_numpy(vols).cuda()).cpu()
     diff = float((got - want).abs().max())
+    wdiff = float((witness - want).abs().max())
+    fdiff = float((got - got_f32).abs().max())
     cdiff = float(np.abs(probs - torch.softmax(want, -1).numpy()).max())
     pdiff = float(np.abs(probs - want_f32).max())
     odiff = float(np.abs(got_off[0] - probs[0]).max())
     log(phase, f"(h) f32 int8 logits of 3 volumes, cuda {got.tolist()} vs "
-        f"cpu {want.tolist()}: max diff {diff:.3e} (tol "
-        f"{INT8_F32_LOGIT_ATOL}), Predictor's probabilities {cdiff:.3e} (tol "
-        f"{F32_LOGIT_ATOL}); probabilities against f32 serving {pdiff:.3e} "
-        f"(tol {INT8_ATOL}); SERVING_INT8_ATTN off against pv {odiff:.3e} "
-        f"(tol {INT8_ATOL})")
-    if (not torch.isfinite(got).all() or diff > INT8_F32_LOGIT_ATOL
+        f"cpu {want.tolist()}: max diff {diff:.3e}, the cpu against itself "
+        f"with every voxel moved by one ulp {wdiff:.3e} (tol "
+        f"{INT8_F32_LOGIT_ATOL}); int8 against f32 logits on the card "
+        f"{fdiff:.3e}; Predictor's probabilities against the cpu "
+        f"{cdiff:.3e} (tol {F32_LOGIT_ATOL}); probabilities against f32 "
+        f"serving {pdiff:.3e} (tol {INT8_ATOL}); SERVING_INT8_ATTN off "
+        f"against pv {odiff:.3e} (tol {INT8_ATOL})")
+    if (not torch.isfinite(got).all()
+            or max(diff, wdiff) > INT8_F32_LOGIT_ATOL
             or cdiff > F32_LOGIT_ATOL or max(pdiff, odiff) > INT8_ATOL):
         raise AssertionError("f32 int8 serving differs from the cpu or from "
                              "f32 serving")
@@ -4126,10 +4254,11 @@ def _int8_f32_fourd(workdir: str, card: str, counters: dict) -> dict:
     int8 (B 2 x T 140): Trainer.run() of one epoch (two steps), then again
     with the feature cache; each run's launches (each f32 int8 kernel depth
     times per encoder forward, nothing else), the losses of the two runs
-    against each other, the step and the encoder timed, peak memory; the
-    int8 encodings and the last block's output of the first and last
-    timepoint of each sequence against the CPU's f32 int8 path within
-    INT8_F32_LOGIT_ATOL. Returns the launch counts."""
+    equal, the step and the encoder timed, peak memory; the int8
+    encodings and the last block's output of the first and last timepoint
+    of each sequence against the CPU's f32 int8 path within
+    INT8_F32_FOLD_TOL, as the CPU's own with every voxel moved by one ulp;
+    the f32 encoder's distance read. Returns the launch counts."""
     import copy
 
     from neurovit_tpu_torch.models import NeuroEncoder
@@ -4163,13 +4292,9 @@ def _int8_f32_fourd(workdir: str, card: str, counters: dict) -> dict:
         for name, n in launches.items():
             total[name] += n
         runs[cache] = (trainer, model, losses)
-    diffs = [abs(a - b) / max(abs(a), 1e-30)
-             for a, b in zip(runs[True][2], runs[False][2])]
-    log(phase, f"(i) cached against uncached losses: max relative difference "
-        f"{max(diffs):.3e} (tol {INT8_F32_LOGIT_ATOL}: the encoder's "
-        f"products outside the blocks see other batch shapes, and an ulp "
-        f"there can move a code by one step)")
-    if len(diffs) != len(runs[False][2]) or max(diffs) > INT8_F32_LOGIT_ATOL:
+    log(phase, f"(i) cached against uncached losses: {runs[True][2]} vs "
+        f"{runs[False][2]}, held equal")
+    if runs[True][2] != runs[False][2]:
         raise AssertionError("the cached f32 int8 4D losses differ")
     trainer, model, _ = runs[False]
     del runs
@@ -4191,9 +4316,29 @@ def _int8_f32_fourd(workdir: str, card: str, counters: dict) -> dict:
     cpu = NeuroEncoder(cfg, device="cpu", seed=SEED + 2)
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     cpu_q8 = quantize_blocks(copy.deepcopy(cpu.volume_encoder.vit3d))
-    _fold_against_cpu(model, cpu, batch["volume"], phase=phase, edge=1,
-                      atol=INT8_F32_LOGIT_ATOL, rtol=INT8_F32_LOGIT_ATOL,
-                      encoders=(q8, cpu_q8))
+    want, acts = _fold_against_cpu(model, cpu, batch["volume"], phase=phase,
+                                   edge=1, atol=INT8_F32_FOLD_TOL,
+                                   rtol=INT8_F32_FOLD_TOL,
+                                   encoders=(q8, cpu_q8))
+    # The CPU's own drift (every voxel moved by one ulp), held to the same
+    # limits, and the f32 encoder's distance on the same volumes.
+    xs = batch["volume"][..., [0, batch["volume"].shape[-1] - 1]].cpu()
+    readings = {}
+    for what, vit, x_in in (
+            ("moved by one ulp", cpu_q8,
+             torch.nextafter(xs, torch.full_like(xs, float("inf")))),
+            ("the f32 encoder", cpu.volume_encoder.vit3d, xs)):
+        enc, act = _cpu_encodings(cpu, vit, x_in)
+        readings[what] = (float((enc - want).abs().max()), float(
+            ((act - acts).norm(dim=1) / acts.norm(dim=1)).max()))
+    log(phase, f"(i) the cpu's int8 encodings and last block outputs "
+        f"(max diff, worst relative error) against themselves "
+        f"with every voxel moved by one ulp {readings['moved by one ulp']}, "
+        f"(tol {INT8_F32_FOLD_TOL}), against the f32 encoder "
+        f"{readings['the f32 encoder']}")
+    if max(readings["moved by one ulp"]) > INT8_F32_FOLD_TOL:
+        raise AssertionError("the cpu's own int8 drift passes the 4D fold's "
+                             "limit")
     del trainer, model, cpu, cpu_q8, batch
     torch.cuda.empty_cache()
     return total
@@ -4833,75 +4978,76 @@ def main() -> int:
         f"{torch.cuda.device_count()} device(s), torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
 
+    seconds = {}
+
+    def timed(name: str, fn, *args):
+        """Run a phase, keep its seconds by the host's clock, and free the
+        card's cached blocks after it."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        torch.cuda.empty_cache()
+        return out
+
     t0 = time.perf_counter()
     lib = _build.build()
     _build.library()
-    log("build", f"{lib.name} in {time.perf_counter() - t0:.1f} s")
+    seconds["build"] = round(time.perf_counter() - t0, 1)
+    log("build", f"{lib.name} in {seconds['build']} s")
     build_notes(lib)
 
-    kernel_stats = kernel_phase(card)
-    torch.cuda.empty_cache()
-
+    kernel_stats = timed("kernels", kernel_phase, card)
     counters = kernel_counters()
-    widths_phase(card)
-    torch.cuda.empty_cache()
-    probe_stats, probe_launches = probes_phase(card, counters)
+    timed("widths", widths_phase, card)
+    probe_stats, probe_launches = timed("probes", probes_phase, card,
+                                        counters)
     kernel_stats.update(probe_stats)
-    torch.cuda.empty_cache()
     config = load_config()
     rng = np.random.default_rng(SEED)
     with tempfile.TemporaryDirectory() as workdir:
         ckpt = os.path.join(workdir, "flagship.pt")
         torch.save(NeuroEncoder(config, device="cpu", seed=SEED).state_dict(),
                    ckpt)
-        predictor = Predictor.from_checkpoint(config, ckpt, batch_size=32,
-                                              device="cuda")
-        depth = predictor.model.vit_cfg.depth
-        forwards = _count_forwards(predictor.model)
-        for fn in counters.values():
-            fn.launches = 0
-        t0 = time.perf_counter()
-        predictor.warmup()
-        log("slice", f"warmup of buckets {predictor.bucket_sizes}: "
-            f"{time.perf_counter() - t0:.1f} s")
-        slice_phase(config, ckpt, predictor, rng)
-        http_phase(predictor, rng, workdir)
-        serving = {name: fn.launches for name, fn in counters.items()}
-        log("http", f"serving: {forwards[0]} forward calls x depth {depth}; "
-            f"launches {serving}")
-        _check_counts("serving", serving, {
-            name: 0 if name.endswith("_bwd")
-            or name in OFF_BLOCK_KERNELS
-            else depth * forwards[0] for name in counters})
-        del predictor
-        torch.cuda.empty_cache()
 
-        int8_launches = int8_phase(config, ckpt, rng, workdir, counters)
-        torch.cuda.empty_cache()
-        rate_phase(config, ckpt, card)
-        torch.cuda.empty_cache()
-        gradcam_launches = gradcam_phase(config, ckpt, workdir, card,
-                                         counters)
-        torch.cuda.empty_cache()
+        def serve() -> None:
+            predictor = Predictor.from_checkpoint(config, ckpt, batch_size=32,
+                                                  device="cuda")
+            depth = predictor.model.vit_cfg.depth
+            forwards = _count_forwards(predictor.model)
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            predictor.warmup()
+            log("slice", f"warmup of buckets {predictor.bucket_sizes}: "
+                f"{time.perf_counter() - t0:.1f} s")
+            slice_phase(config, ckpt, predictor, rng)
+            http_phase(predictor, rng, workdir)
+            serving = {name: fn.launches for name, fn in counters.items()}
+            log("http", f"serving: {forwards[0]} forward calls x depth "
+                f"{depth}; launches {serving}")
+            _check_counts("serving", serving, {
+                name: 0 if name.endswith("_bwd")
+                or name in OFF_BLOCK_KERNELS
+                else depth * forwards[0] for name in counters})
 
-        grad_phase(config)
-        torch.cuda.empty_cache()
-        launches = train_phase(config, workdir, counters)
-        torch.cuda.empty_cache()
-        train_rate_phase(config, workdir, card)
-        torch.cuda.empty_cache()
-        feature_launches = train_features_phase(config, workdir, card,
-                                                counters)
-        torch.cuda.empty_cache()
-        resnet_launches = resnet_phase(config, workdir, card, counters)
-        torch.cuda.empty_cache()
-        fourd_launches = fourd_phase(workdir, card, counters)
-        torch.cuda.empty_cache()
-        f32_stats, f32_launches = f32_phase(config, ckpt, workdir, card,
-                                            counters)
+        timed("slice+http", serve)
+        int8_launches = timed("int8", int8_phase, config, ckpt, rng, workdir,
+                              counters)
+        timed("rate", rate_phase, config, ckpt, card)
+        gradcam_launches = timed("gradcam", gradcam_phase, config, ckpt,
+                                 workdir, card, counters)
+        timed("grad", grad_phase, config)
+        launches = timed("train", train_phase, config, workdir, counters)
+        timed("train_rate", train_rate_phase, config, workdir, card)
+        feature_launches = timed("train_features", train_features_phase,
+                                 config, workdir, card, counters)
+        resnet_launches = timed("resnet", resnet_phase, config, workdir, card,
+                                counters)
+        fourd_launches = timed("4d", fourd_phase, workdir, card, counters)
+        f32_stats, f32_launches = timed("f32", f32_phase, config, ckpt,
+                                        workdir, card, counters)
         kernel_stats.update(f32_stats)
-        torch.cuda.empty_cache()
-        widths_model_phase(config, workdir, counters)
+        timed("widths_model", widths_model_phase, config, workdir, counters)
 
     launches.update({name: int8_launches[name] for name in INT8_KERNELS})
     launches.update(probe_launches)
@@ -4922,7 +5068,8 @@ def main() -> int:
              "library_ms", "device_ms", "library_device_ms")
             if key in kernel_stats[name]}}
         for name, source, replaces in KERNELS]}
-    log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
+    log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s; "
+        f"seconds by phase {seconds}")
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -350,8 +350,24 @@ def int8_outproj_plan(m: int, dim: int, inner: int) -> Int8OutprojPlan:
                            scratch=scratch, scratch_bytes=at)
 
 
+def _scratch(plan, x: torch.Tensor,
+             scratch: Optional[torch.Tensor]) -> torch.Tensor:
+    """The one scratch allocation of a K10-K12 call: a new one, or the
+    caller's (uint8, at least ``plan.scratch_bytes``), whose pieces
+    (``plan.scratch``: the codes and row scales) it can read after."""
+    if scratch is None:
+        return torch.empty(plan.scratch_bytes, dtype=torch.uint8,
+                           device=x.device)
+    check_operand("scratch", scratch, torch.uint8)
+    if scratch.numel() < plan.scratch_bytes:
+        raise ValueError(f"the scratch holds {scratch.numel()} bytes, the "
+                         f"call needs {plan.scratch_bytes}")
+    return scratch
+
+
 def _ln_qkv_cuda(symbol: str, dtype: torch.dtype, x, gamma, beta, w8,
-                 scale, heads: int, dim_head: int) -> QKV:
+                 scale, heads: int, dim_head: int,
+                 scratch: Optional[torch.Tensor] = None) -> QKV:
     b, n, dim = x.shape
     inner = heads * dim_head
     check_operand("x", x, dtype)
@@ -360,8 +376,7 @@ def _ln_qkv_cuda(symbol: str, dtype: torch.dtype, x, gamma, beta, w8,
                     scale=(scale, 3 * inner))
     plan = qkv_plan(b * n, dim, inner)
     q, k, v = (x.new_empty(b, n, heads, dim_head) for _ in range(3))
-    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
-                          device=x.device)
+    scratch = _scratch(plan, x, scratch)
     launch(symbol, (VOID,) * 9 + (INT, INT, INT, FLOAT), x,
            ptr(x), ptr(vecs["gamma"]), ptr(vecs["beta"]), ptr(w8),
            ptr(vecs["scale"]), ptr(q), ptr(k), ptr(v), ptr(scratch), b * n,
@@ -388,13 +403,15 @@ int8_ln_qkv_cuda.launches = 0
 
 def int8_ln_qkv_f32_cuda(x: torch.Tensor, gamma: torch.Tensor,
                          beta: torch.Tensor, w8: torch.Tensor,
-                         scale: torch.Tensor, heads: int,
-                         dim_head: int) -> QKV:
+                         scale: torch.Tensor, heads: int, dim_head: int, *,
+                         scratch: Optional[torch.Tensor] = None) -> QKV:
     """Launch K10 at f32 on f32 x [B, N, dim]: the bf16 kernel's two
     passes on f32 loads of x and f32 stores of q, k and v, with its plan
-    (:func:`qkv_plan`: the same scratch and shared memory)."""
+    (:func:`qkv_plan`: the same scratch and shared memory). ``scratch``: a
+    caller's uint8 scratch of the plan's bytes, where its u8 and s_row
+    stay to be read."""
     out = _ln_qkv_cuda("nvt_int8_ln_qkv_f32", torch.float32, x, gamma, beta,
-                       w8, scale, heads, dim_head)
+                       w8, scale, heads, dim_head, scratch)
     int8_ln_qkv_f32_cuda.launches += 1
     return out
 
@@ -403,7 +420,8 @@ int8_ln_qkv_f32_cuda.launches = 0
 
 
 def _outproj_cuda(symbol: str, dtype: torch.dtype, x, a, w8, scale,
-                  bias) -> torch.Tensor:
+                  bias, scratch: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     b, n, dim = x.shape
     inner = a.shape[-1]
     check_operand("x", x, dtype)
@@ -412,8 +430,7 @@ def _outproj_cuda(symbol: str, dtype: torch.dtype, x, a, w8, scale,
     vecs = _vectors(scale=(scale, dim), bias=(bias, dim))
     plan = int8_outproj_plan(b * n, dim, inner)
     y = torch.empty_like(x)
-    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
-                          device=x.device)
+    scratch = _scratch(plan, x, scratch)
     launch(symbol, (VOID,) * 7 + (INT,) * 3, x, ptr(a), ptr(x),
            ptr(w8), ptr(vecs["scale"]), ptr(vecs["bias"]), ptr(y),
            ptr(scratch), b * n, inner, dim)
@@ -439,12 +456,15 @@ int8_outproj_residual_cuda.launches = 0
 
 def int8_outproj_residual_f32_cuda(x: torch.Tensor, a: torch.Tensor,
                                    w8: torch.Tensor, scale: torch.Tensor,
-                                   bias: torch.Tensor) -> torch.Tensor:
+                                   bias: torch.Tensor, *,
+                                   scratch: Optional[torch.Tensor] = None
+                                   ) -> torch.Tensor:
     """Launch K11 at f32 on f32 x [B, N, dim] and a [B, N, inner]: the
     bf16 kernel's two passes on f32 loads of a and x and f32 stores of y,
-    with its plan (:func:`int8_outproj_plan`)."""
+    with its plan (:func:`int8_outproj_plan`). ``scratch``: a caller's
+    uint8 scratch of the plan's bytes, where a8 and s_row stay."""
     y = _outproj_cuda("nvt_int8_outproj_f32", torch.float32, x, a, w8, scale,
-                      bias)
+                      bias, scratch)
     int8_outproj_residual_f32_cuda.launches += 1
     return y
 
@@ -453,7 +473,8 @@ int8_outproj_residual_f32_cuda.launches = 0
 
 
 def _mlp_cuda(symbol: str, dtype: torch.dtype, x, gamma, beta, w1, s1, b1,
-              w2, s2, b2) -> torch.Tensor:
+              w2, s2, b2, scratch: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
     b, n, dim = x.shape
     hid = w1.shape[0]
     check_operand("x", x, dtype)
@@ -463,8 +484,7 @@ def _mlp_cuda(symbol: str, dtype: torch.dtype, x, gamma, beta, w1, s1, b1,
                     b1=(b1, hid), s2=(s2, dim), b2=(b2, dim))
     plan = mlp_plan(b * n, dim, hid)
     y = torch.empty_like(x)
-    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
-                          device=x.device)
+    scratch = _scratch(plan, x, scratch)
     launch(symbol, (VOID,) * 11 + (INT, INT, INT, FLOAT), x,
            ptr(x), ptr(vecs["gamma"]), ptr(vecs["beta"]), ptr(w1),
            ptr(vecs["s1"]), ptr(vecs["b1"]), ptr(w2), ptr(vecs["s2"]),
@@ -494,12 +514,15 @@ def int8_mlp_block_f32_cuda(x: torch.Tensor, gamma: torch.Tensor,
                             beta: torch.Tensor, w1: torch.Tensor,
                             s1: torch.Tensor, b1: torch.Tensor,
                             w2: torch.Tensor, s2: torch.Tensor,
-                            b2: torch.Tensor) -> torch.Tensor:
+                            b2: torch.Tensor, *,
+                            scratch: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
     """Launch K12 at f32 on f32 x [B, N, dim]: the bf16 kernel's four
     passes on f32 loads of x and f32 stores of y, with its plan
-    (:func:`mlp_plan`; g was f32 in both)."""
+    (:func:`mlp_plan`; g was f32 in both). ``scratch``: a caller's uint8
+    scratch of the plan's bytes, where u8, g8 and the row scales stay."""
     y = _mlp_cuda("nvt_int8_mlp_f32", torch.float32, x, gamma, beta, w1, s1,
-                  b1, w2, s2, b2)
+                  b1, w2, s2, b2, scratch)
     int8_mlp_block_f32_cuda.launches += 1
     return y
 

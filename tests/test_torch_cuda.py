@@ -2325,17 +2325,17 @@ def test_f32_train_step_runs_the_f32_kernels(cuda):
 
 
 # K10-K13 at f32 (the int8 serving of an f32 ViT): the f32 instances of
-# csrc/int8_{rowquant,qkv,outproj,mlp}.cu and csrc/int8_attention_f32.cu,
-# held to the plain versions at the bf16 int8 kernels' ATOL + RTOL |plain|.
-# Their int32 products are exact on both sides; an f32 LayerNorm, GELU or
-# score sum taken in another order can move a code by one step, and one
-# step of one of a row's codes moves the row's outputs by up to about 1e-2
-# (the change passes through a whole GEMM). So the codes the kernels leave
-# in their scratch are read back: each differs from plain's by one step at
-# most and in at most 1e-3 of the positions; the outputs equal plain's
+# csrc/int8_{rowquant,qkv,outproj,mlp}.cu and csrc/int8_attention_f32.cu.
+# Their int32 products are exact on both sides; an f32 LayerNorm or GELU
+# taken in another order can move a code by one step, and one step of one
+# of a row's codes moves the row's outputs by up to about 1e-2 (the change
+# passes through a whole GEMM). So the codes the kernels leave in a scratch
+# kept here are read back: each differs from plain's by one step at most
+# and in at most 1e-3 of the positions; the outputs equal plain's
 # arithmetic on the kernel's own codes and row scales bit for bit; and the
-# rows whose codes are all plain's are within ATOL + RTOL |plain| of plain.
-# K11 at f32 rounds where plain does and is held bit for bit.
+# rows whose codes are all plain's own are within F32_TOL, 1e-4 (1 +
+# |plain|). K11 at f32 rounds where plain does and is held bit for bit;
+# K13 at f32 is held as chip_smoke.py's hold_int8_attn_f32 holds it.
 INT8_F32_QKV_CASES = [(1, 512, 4, 64), (130, 1024, 8, 64),
                       (8008, 1024, 8, 64), (300, 1280, 16, 80),
                       (65, 384, 6, 64)]
@@ -2343,20 +2343,30 @@ INT8_F32_MLP_CASES = [(1, 64, 128), (130, 1024, 2048), (8008, 1024, 2048),
                       (65, 336, 1360)]
 
 
-def _int8_f32_scratch(symbol, argtypes, args, plan):
-    """Run an f32 int8 kernel's C entry point with a scratch kept here;
-    ``args(scratch pointer)`` gives its arguments. Returns piece(name,
-    dtype, columns): that piece of the scratch as [rows, columns]."""
-    from neurovit_tpu_torch.ops.common import launch, ptr
+def _chip_smoke():
+    """chip_smoke.py, loaded by path, for its f32 bounds."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _int8_f32_scratch(fn, args, plan):
+    """Call the f32 int8 wrapper ``fn`` on ``args`` with a scratch kept
+    here. Returns (its outputs, piece(name, dtype, columns): that piece of
+    the scratch as [rows, columns])."""
     scratch = torch.zeros(plan.scratch_bytes, dtype=torch.uint8,
                           device="cuda")
-    launch(symbol, argtypes, scratch, *args(ptr(scratch)))
+    out = fn(*args, scratch=scratch)
     torch.cuda.synchronize()
 
     def piece(name, dtype, columns):
         at, nbytes = plan.scratch[name]
         return scratch[at:at + nbytes].view(dtype).reshape(-1, columns)
-    return piece
+    return out, piece
 
 
 def _code_flips(got, want):
@@ -2369,10 +2379,11 @@ def _code_flips(got, want):
 
 
 def _check_rows(got, want, rows):
-    """_check on the rows (of [1, m, ...] outputs) where ``rows`` is
-    False."""
+    """F32_TOL, 1e-4 (1 + |plain|), on the rows (of [1, m, ...] outputs)
+    where ``rows`` is False."""
     keep = ~rows
-    _check(tuple(g[0, keep] for g in got), tuple(w[0, keep] for w in want))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g[0, keep], w[0, keep], **F32_TOL)
 
 
 @pytest.mark.parametrize("m,dim,heads,dh", INT8_F32_QKV_CASES)
@@ -2380,8 +2391,7 @@ def test_int8_ln_qkv_f32_kernel(cuda, m, dim, heads, dh):
     """K10 at f32: f32 q, k and v, one launch a call, two calls bit-equal,
     the bf16 K10 not launched; its codes u8 plain's but for one-step
     flips, q, k and v plain's products of them bit for bit, and plain's
-    within the tolerance on the rows without a flip."""
-    from neurovit_tpu_torch.ops.common import FLOAT, INT, VOID, ptr
+    within F32_TOL on the rows without a flip."""
     rng = np.random.default_rng(m + dim + heads * dh + 1)
     x, gamma, beta, w8, s, _, _ = _int8_qkv_args(rng, m, dim, heads, dh,
                                                   cuda)
@@ -2397,20 +2407,18 @@ def test_int8_ln_qkv_f32_kernel(cuda, m, dim, heads, dh):
     assert (int8_serving.int8_ln_qkv_f32_cuda.launches,
             int8_serving.int8_ln_qkv_cuda.launches) == (before[0] + 2,
                                                         before[1])
-    outs = [torch.empty_like(g) for g in got]
-    piece = _int8_f32_scratch(
-        "nvt_int8_ln_qkv_f32", (VOID,) * 9 + (INT, INT, INT, FLOAT),
-        lambda sc: (ptr(x), ptr(gamma), ptr(beta), ptr(w8), ptr(s),
-                    *(ptr(o) for o in outs), sc, m, dim, inner, nn.LN_EPS),
-        int8_serving.qkv_plan(m, dim, inner))
+    outs, piece = _int8_f32_scratch(int8_serving.int8_ln_qkv_f32_cuda, args,
+                                    int8_serving.qkv_plan(m, dim, inner))
     u8, s_row = piece("u8", torch.int8, dim), piece("s_row", torch.float32, 1)
     assert all(torch.equal(a, b) for a, b in zip(got, outs))
-    codes, _ = int8_serving._rowquant(int8_serving._ln(x, gamma, beta))
-    flipped = _code_flips(u8, codes)
-    mine = int8_serving._deq_dot(u8.float(), s_row, w8, s).reshape(
-        1, m, 3, heads, dh)
+    with nn.full_f32(torch.float32):
+        codes, _ = int8_serving._rowquant(int8_serving._ln(x, gamma, beta))
+        flipped = _code_flips(u8, codes)
+        mine = int8_serving._deq_dot(u8.float(), s_row, w8, s).reshape(
+            1, m, 3, heads, dh)
+        want = int8_serving.int8_ln_qkv_plain(*args)
     assert all(torch.equal(got[i], mine[:, :, i]) for i in range(3))
-    _check_rows(got, int8_serving.int8_ln_qkv_plain(*args), flipped)
+    _check_rows(got, want, flipped)
 
 
 @pytest.mark.parametrize("m,dim,inner", [(1, 512, 256), (130, 1024, 512),
@@ -2442,8 +2450,8 @@ def test_int8_mlp_f32_kernel(cuda, m, dim, hid):
     """K12 at f32: f32 y, one launch a call, two calls bit-equal; its codes
     u8 plain's and its g8 plain's GELU of its own u8's product, each but
     for one-step flips; y plain's product of its own g8 bit for bit, and
-    plain's within the tolerance on the rows without a flip."""
-    from neurovit_tpu_torch.ops.common import FLOAT, INT, VOID, ptr
+    plain's within F32_TOL on the rows whose u8 and g8 are plain's own (g8
+    also against plain's g8 of plain's own u8)."""
     args = _int8_mlp_args(np.random.default_rng(m + dim + hid + 3), m, dim,
                           hid, cuda)
     args = (args[0].float(),) + args[1:]
@@ -2454,26 +2462,28 @@ def test_int8_mlp_f32_kernel(cuda, m, dim, hid):
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and torch.equal(got, again)
     assert int8_serving.int8_mlp_block_f32_cuda.launches == before + 2
-    y = torch.empty_like(got)
-    piece = _int8_f32_scratch(
-        "nvt_int8_mlp_f32", (VOID,) * 11 + (INT, INT, INT, FLOAT),
-        lambda sc: (*(ptr(t) for t in args), ptr(y), sc, m, dim, hid,
-                    nn.LN_EPS),
-        int8_serving.mlp_plan(m, dim, hid))
-    assert torch.equal(y, got)
     q8 = int8_serving
+    y, piece = _int8_f32_scratch(q8.int8_mlp_block_f32_cuda, args,
+                                 q8.mlp_plan(m, dim, hid))
+    assert torch.equal(y, got)
     u8, s1_row = piece("u8", torch.int8, dim), piece("s1_row",
                                                      torch.float32, 1)
     g8, s2_row = piece("g8", torch.int8, hid), piece("s2_row",
                                                      torch.float32, 1)
-    codes, _ = q8._rowquant(q8._ln(x, gamma, beta))
-    flipped = _code_flips(u8, codes)
-    h = q8._deq_dot(u8.float(), s1_row, w1, s1) + b1
-    g_codes, _ = q8._rowquant(nn.gelu(h))
-    flipped |= _code_flips(g8, g_codes)
-    mine = (q8._deq_dot(g8.float(), s2_row, w2, s2) + b2) + x.reshape(m, dim)
+    with nn.full_f32(torch.float32):
+        codes, s_row = q8._rowquant(q8._ln(x, gamma, beta))
+        flipped = _code_flips(u8, codes)
+        h = q8._deq_dot(u8.float(), s1_row, w1, s1) + b1
+        g_codes, _ = q8._rowquant(nn.gelu(h))
+        flipped |= _code_flips(g8, g_codes)
+        h = q8._deq_dot(codes, s_row, w1, s1) + b1
+        flipped |= (g8.float() != q8._rowquant(nn.gelu(h))[0].reshape(
+            g8.shape)).any(dim=1)
+        mine = (q8._deq_dot(g8.float(), s2_row, w2, s2) + b2) + x.reshape(
+            m, dim)
+        want = q8.int8_mlp_block_plain(*args)
     assert torch.equal(got.reshape(m, dim), mine)
-    _check_rows((got,), (q8.int8_mlp_block_plain(*args),), flipped)
+    _check_rows((got,), (want,), flipped)
 
 
 @pytest.mark.parametrize("zero_bias", [True, False])
@@ -2507,17 +2517,21 @@ INT8_F32_ATTN_CASES = (
 @pytest.mark.parametrize("b,n,n_valid,h,d", INT8_F32_ATTN_CASES)
 def test_int8_attention_f32_kernel(cuda, b, n, n_valid, h, d):
     """K13 at f32 against plain at head dims 16-128 (padded to 64 or 128),
-    n_valid on and off the 32- and 64-key tiles, the flagship at batch 8;
-    f32 o, one launch a call, the bf16 K13 not launched, two calls
-    bit-equal; keys past n_valid get p8 = 0 and stay out of V's scale."""
+    n_valid on and off the 32- and 64-key tiles, the flagship at batch 8,
+    within F32_TOL (1 + |plain|) but for a counted few query rows
+    (chip_smoke.py's hold_int8_attn_f32); f32 o, one launch a call, the
+    bf16 K13 not launched, two calls bit-equal; keys past n_valid get p8 =
+    0 and stay out of V's scale."""
     rng = np.random.default_rng(n + 7 * d + b + 11)
     q, k, v = (_f32(rng, (b, n, h, d), cuda) for _ in range(3))
     kw = {"scale": d ** -0.5, "n_valid": n_valid}
     before = (int8_serving.int8_flash_attention_f32_cuda.launches,
               int8_serving.int8_flash_attention_cuda.launches)
     got = int8_serving.int8_flash_attention(q, k, v, **kw)
-    _check(got, int8_serving.int8_flash_attention_plain(q, k, v, **kw))
-    assert got.dtype == torch.float32
+    with nn.full_f32(torch.float32):
+        want = int8_serving.int8_flash_attention_plain(q, k, v, **kw)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    _chip_smoke().hold_int8_attn_f32("K13 at f32", got, want)
     assert (int8_serving.int8_flash_attention_f32_cuda.launches,
             int8_serving.int8_flash_attention_cuda.launches) == (
                 before[0] + 1, before[1])

@@ -361,3 +361,89 @@ def test_quotient_is_the_ieee_quotient():
             assert got == want, (a, b)
             checked += 1
     assert checked > 4000
+
+
+@pytest.mark.parametrize("name", ["int8_ln_qkv", "int8_outproj_residual",
+                                  "int8_mlp_block"])
+def test_f32_wrappers_take_a_caller_scratch(monkeypatch, name):
+    """K10-K12 at f32 hand a caller's scratch to their entry point in place
+    of one of their own (so its codes and row scales can be read after the
+    call), and refuse one smaller than the plan's bytes."""
+    seen = []
+    monkeypatch.setattr(q8, "check_operand", lambda *a, **k: None)
+    monkeypatch.setattr(q8, "launch", lambda symbol, argtypes, like, *args:
+                        seen.append(args))
+    fn = getattr(q8, name + "_f32_cuda")
+    args = _operands(np.random.default_rng(2), torch.float32)[name]
+    x = args[0]
+    m, dim = x.numel() // x.shape[-1], x.shape[-1]
+    plan = (q8.qkv_plan(m, dim, args[5] * args[6])
+            if name == "int8_ln_qkv" else
+            q8.int8_outproj_plan(m, dim, args[1].shape[-1])
+            if name == "int8_outproj_residual" else
+            q8.mlp_plan(m, dim, args[3].shape[0]))
+    scratch = torch.zeros(plan.scratch_bytes, dtype=torch.uint8)
+    fn(*args, scratch=scratch)
+    (raw,) = seen
+    assert scratch.data_ptr() in [getattr(v, "value", None) for v in raw]
+    with pytest.raises(ValueError, match="scratch"):
+        fn(*args, scratch=scratch[:plan.scratch_bytes - 1])
+
+
+# ---------------------------------------------------------------------------
+# K13 f32's bound (chip_smoke.py's hold_int8_attn_f32, the card's check)
+# ---------------------------------------------------------------------------
+
+def _chip_smoke():
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _scores_in_f64(q, k, v, scale, n_valid):
+    """The plain K13 with each score summed in f64 and rounded once: the
+    scores of a correct kernel that sums along D in another order."""
+    qf, kf, vf = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+    s = torch.matmul(qf.double(), kf.double().transpose(-1, -2)).float()
+    p = torch.exp2(torch.clamp(s * (scale * LOG2E), -SCORE_CAP, SCORE_CAP))
+    p = p * (torch.arange(q.shape[1]) < n_valid).float()
+    s_p = q8._scale(p.amax(dim=-1, keepdim=True))
+    p8 = torch.clamp(torch.round(p / s_p), 0, 127)
+    s_v = q8._scale(vf[:, :, :n_valid].abs().amax(dim=2, keepdim=True))
+    v8 = torch.clamp(torch.round(vf / s_v), -127, 127)
+    acc = torch.matmul(p8.double(), v8.double()).float()
+    o = acc * (s_p / p.sum(dim=-1, keepdim=True) * s_v)
+    return o.permute(0, 2, 1, 3).contiguous()
+
+
+@pytest.mark.parametrize("n_valid", [N, 900])
+@pytest.mark.parametrize("variant", ["scores in f64", "QK^T in TF32",
+                                     "the denominator from the codes"])
+def test_attn_f32_bound_sees_the_faults(n_valid, variant):
+    """K13 f32's bound at the flagship's N and head dim over 4 heads:
+    scores summed in another order (f64, rounded once) flip a few codes
+    and stay within the allowance of rows outside F32_TOL (1 + |plain|);
+    QK^T in TF32 and the denominator from the codes, each within the bf16
+    int8 bound somewhere, put many times the allowance outside."""
+    cs = _chip_smoke()
+    rng = np.random.default_rng(67)
+    q, k, v = (torch.tensor(rng.standard_normal((1, N, 4, 64)),
+                            dtype=torch.float32) for _ in range(3))
+    kw = {"scale": 64 ** -0.5, "n_valid": n_valid}
+    want = q8.int8_flash_attention_plain(q, k, v, **kw)
+    rows = N * 4
+    allowed = int(cs.INT8_F32_ATTN_ROW_FRAC * rows)
+    if variant == "scores in f64":
+        got = _scores_in_f64(q, k, v, **kw)
+        over = cs.hold_int8_attn_f32(variant, got, want)
+        assert 0 < over <= allowed
+    else:
+        got = cs.int8_attn_faults(q, k, v, **kw)[variant]
+        over, n, _ = cs.int8_attn_f32_rows(got, want)
+        assert n == rows and over > 10 * allowed, over
+        with pytest.raises(AssertionError, match="query rows outside"):
+            cs.hold_int8_attn_f32(variant, got, want)
