@@ -256,7 +256,30 @@ Phases, each printing a line; any failure raises and exits non-zero:
                (i) config4D at f32 with the int8 encoder through
                Trainer.run(), uncached and with the feature cache, the
                f32 int8 kernels depth times per encoder forward, the
-               step and the encoder timed, the fold against the CPU
+               step and the encoder timed, the fold against the CPU;
+               (j) K6 and its backward at f32 against their plain
+               versions within 1e-4 (1 + |plain|), two calls bit-equal:
+               the flagship probe's block in [B, H, N, D] (8 x 8 x 1001 x
+               64) at dropout 0 and 0.1 and at n_valid 900, head dims 16,
+               32, 64 and 128 at batch 2 x 2 heads; the first case timed
+               beside plain, f32 SDPA or its backward and the bound, and
+               bit-equal to K1 or K5 at f32 on the same heads in
+               [B, N, H, D]; (k) the seed-42 flagship at f32 with its
+               LayerNorm affines lifted: get_attention_map, the menu's
+               gradcam and ablationcam (score_batch 16), integrated
+               gradients (4 steps) and grad x input, each call's launches
+               exact (one K6 f32 forward and backward per probe, no bf16
+               kernel), the probe's logits, activations, gradients and raw
+               CAM, the menu's raw gradcam, one AblationCAM chunk's
+               scores, the attributions against the CPU plain path within
+               1e-5 relative Frobenius error, as is the CPU one ulp off
+               against itself; Grad-CAM timed at batch 1 and 8; (l) the
+               2D CAM tutorial (vit_cam_2d): the demo ViT trained for 300
+               steps, layercam and scorecam on 8 held-out squares (at
+               least 7 classified right, at least 5 maps brighter on the
+               square for each), its logits against the CPU, the CLI's
+               main() with --steps 200 writing its PNG; every f32 kernel
+               and K6 f32 forward and backward launched
 19. widths     the verify recipe's smoke model (dim 64, 4 heads of 16)
                trained for an epoch in bf16 on cuda through the CLI's main(),
                every block kernel launched; a ViT-B-width model (768, 12 x
@@ -410,6 +433,12 @@ KERNELS = [
     ("int8_flash_attention_f32",
      "neurovit_tpu_torch/csrc/int8_attention_f32.cu",
      "neurovit_tpu/ops/int8_serving.py:286"),
+    ("flash_attention_bhnd_f32",
+     "neurovit_tpu_torch/csrc/flash_attention_f32.cu",
+     "neurovit_tpu/ops/flash_attention.py:91"),
+    ("flash_attention_bhnd_bwd_f32",
+     "neurovit_tpu_torch/csrc/flash_attention_bwd_f32.cu",
+     "neurovit_tpu/ops/flash_attention.py:152"),
 ]
 # K10-K13 (bf16) and their f32 instances: int8 serving of a bf16 ViT, and
 # of an f32 ViT (phase 18's (g)-(i)).
@@ -417,8 +446,12 @@ INT8_F32_KERNELS = [name for name, _, _ in KERNELS
                     if name.startswith("int8_") and name.endswith("_f32")]
 INT8_KERNELS = [name for name, _, _ in KERNELS if name.startswith("int8_")
                 and name not in INT8_F32_KERNELS]
-# K6: only the Grad-CAM probe's last block runs it.
+# K6: only the Grad-CAM probe's last block runs it; at f32 (phase 18's
+# (j)-(l)), an f32 ViT's probe. These are kept out of F32_KERNELS, whose
+# serving and training counts are depth times the forwards.
 GRADCAM_KERNELS = ["flash_attention_bhnd", "flash_attention_bhnd_bwd"]
+F32_GRADCAM_KERNELS = ["flash_attention_bhnd_f32",
+                       "flash_attention_bhnd_bwd_f32"]
 # K14, K15: only the ResNet's stem runs them.
 RESNET_KERNELS = ["max_pool3d_argmax", "max_pool3d_argmax_bwd"]
 # K16-K18: only the probe scripts run them.
@@ -426,13 +459,14 @@ PROBE_KERNELS = ["dropout", "gemm_bf16", "gemm_int8", "dynquant_matmul"]
 # K1-K5 and K7-K9 at f32: only an f32 ViT runs them (phase 18); serving
 # and the 4D step launch the forwards alone.
 F32_KERNELS = [name for name, _, _ in KERNELS if name.endswith("_f32")
-               and name not in INT8_F32_KERNELS]
+               and name not in INT8_F32_KERNELS + F32_GRADCAM_KERNELS]
 F32_BACKWARD_KERNELS = [name for name in F32_KERNELS if "_bwd" in name]
 F32_FORWARD_KERNELS = [name for name in F32_KERNELS
                        if name not in F32_BACKWARD_KERNELS]
 # Kernels no bf16 ViT block forward or backward launches.
 OFF_BLOCK_KERNELS = (INT8_KERNELS + GRADCAM_KERNELS + RESNET_KERNELS
-                     + PROBE_KERNELS + F32_KERNELS + INT8_F32_KERNELS)
+                     + PROBE_KERNELS + F32_KERNELS + INT8_F32_KERNELS
+                     + F32_GRADCAM_KERNELS)
 # K16's x in its probe (scripts/torch_dropout_bench.py); the GEMM probe's
 # shapes are its SHAPES, fc1 first.
 DROPOUT_SHAPE = (32 * 1001, 2048)
@@ -4344,6 +4378,506 @@ def _int8_f32_fourd(workdir: str, card: str, counters: dict) -> dict:
     return total
 
 
+def _k6_f32_kernel_checks(card: str) -> dict:
+    """(j) of the f32 phase: K6 and its backward at f32 against their plain
+    versions on the card, by ``_hold_f32_cases``: the flagship probe's
+    block in [B, H, N, D] (batch 8 x 8 heads x 1001 x 64) at dropout 0
+    and 0.1 and at n_valid 900, head dims 16 (padded to 32), 32, 64 and
+    128 at batch 2 x 2 heads, and the 2D tutorial's probe block [2, 4,
+    197, 16]; the first case of each timed beside
+    plain, f32 SDPA (forward) or its backward, and the bound. The first
+    case is also run through K1 or K5 at f32 on the same heads in
+    [B, N, H, D] and timed: one kernel in two layouts, bit-equal."""
+    import torch.nn.functional as F
+
+    from neurovit_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(SEED + 26)
+
+    def t(*shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                            device="cuda")
+
+    def fwd(q, k, v, **kw):
+        kw = dict(scale=q.shape[-1] ** -0.5, **kw)
+        return (lambda: fa.flash_attention_bhnd_f32_cuda(q, k, v, **kw),
+                lambda: fa.flash_attention_bhnd_plain(q, k, v, **kw))
+
+    def bwd(q, k, v, do, n_valid, **kw):
+        kw = dict(scale=q.shape[-1] ** -0.5, n_valid=n_valid, **kw)
+        o, lsum = fa.flash_attention_bhnd_plain(q, k, v, return_stats=True,
+                                                **kw)
+        args = (q, k, v, o, do, lsum)
+        return (lambda: fa.flash_attention_bhnd_bwd_f32_cuda(*args, **kw),
+                lambda: fa.flash_attention_bhnd_bwd_plain(*args, **kw))
+
+    scale = DIM_HEAD ** -0.5
+    q, k, v, do = (t(B, HEADS, N, DIM_HEAD) for _ in range(4))
+    drop = {"dropout_rate": DROPOUT, "seed": 2601}
+    cases = {
+        "flash_attention_bhnd_f32": [
+            (f"n_valid {N}, dropout 0", *fwd(q, k, v, n_valid=N)),
+            (f"dropout {DROPOUT} with row sums",
+             *fwd(q, k, v, n_valid=N, return_stats=True, **drop)),
+            (f"n_valid {N_VALID_MASKED}",
+             *fwd(q, k, v, n_valid=N_VALID_MASKED))],
+        "flash_attention_bhnd_bwd_f32": [
+            (f"n_valid {N}, dropout 0", *bwd(q, k, v, do, N)),
+            (f"n_valid {N}, dropout {DROPOUT}", *bwd(q, k, v, do, N, **drop)),
+            (f"n_valid {N_VALID_MASKED}, dropout 0",
+             *bwd(q, k, v, do, N_VALID_MASKED))],
+    }
+    for d in (16, 32, 64, 128):
+        qd = [t(2, 2, N, d) for _ in range(4)]
+        label = f"head dim {d}, batch 2 x 2 heads, dropout {DROPOUT}"
+        cases["flash_attention_bhnd_f32"].append(
+            (label, *fwd(*qd[:3], n_valid=N, **drop)))
+        cases["flash_attention_bhnd_bwd_f32"].append(
+            (label, *bwd(*qd, N, **drop)))
+    # The 2D tutorial's probe: 2 squares x 4 heads x 197 tokens x 16,
+    # ragged for the 64-row query and 32-key tiles, no dropout.
+    q2d = [t(2, 4, 197, 16) for _ in range(4)]
+    label = "the 2D probe's [2, 4, 197, 16], dropout 0"
+    cases["flash_attention_bhnd_f32"].append(
+        (label, *fwd(*q2d[:3], n_valid=197)))
+    cases["flash_attention_bhnd_bwd_f32"].append((label, *bwd(*q2d, 197)))
+
+    leaves = [a.detach().clone().requires_grad_() for a in (q, k, v)]
+    sdpa = F.scaled_dot_product_attention(*leaves, scale=scale)
+    library = {
+        "flash_attention_bhnd_f32": lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=scale),
+        "flash_attention_bhnd_bwd_f32": lambda: torch.autograd.grad(
+            sdpa, leaves, do, retain_graph=True),
+    }
+    o, lsum = fa.flash_attention_bhnd_plain(q, k, v, scale=scale,
+                                            return_stats=True)
+    attn_ops = 2 * B * HEADS * N * N * DIM_HEAD
+    work = {
+        "flash_attention_bhnd_f32": (nbytes(q, k, v), 2 * attn_ops),
+        "flash_attention_bhnd_bwd_f32": (nbytes(q, k, v, o, do, lsum),
+                                         5 * attn_ops),
+    }
+    stats = _hold_f32_cases(
+        cases, work, library, card,
+        design_ops={"flash_attention_bhnd_bwd_f32": 7 * attn_ops})
+
+    # One kernel in two layouts: K6 f32 against K1 / K5 f32 on the same
+    # heads laid out [B, N, H, D], bit for bit, each timed.
+    def bnhd(a):
+        return a.transpose(1, 2).contiguous()
+
+    kw = {"scale": scale, "n_valid": N}
+    pairs = {
+        "flash_attention_bhnd_f32": (
+            lambda: fa.flash_attention_bhnd_f32_cuda(q, k, v, **kw),
+            lambda: fa.flash_attention_f32_cuda(bnhd(q), bnhd(k), bnhd(v),
+                                                **kw)),
+        "flash_attention_bhnd_bwd_f32": (
+            lambda: fa.flash_attention_bhnd_bwd_f32_cuda(q, k, v, o, do,
+                                                         lsum, **kw),
+            lambda: fa.flash_attention_bwd_f32_cuda(
+                *(bnhd(a) for a in (q, k, v, o, do)), lsum, **kw)),
+    }
+    qn, kn, vn, on, don = (bnhd(a) for a in (q, k, v, o, do))
+    timed_bnhd = {
+        "flash_attention_bhnd_f32": lambda: fa.flash_attention_f32_cuda(
+            qn, kn, vn, **kw),
+        "flash_attention_bhnd_bwd_f32":
+            lambda: fa.flash_attention_bwd_f32_cuda(qn, kn, vn, on, don,
+                                                    lsum, **kw),
+    }
+    for name, (bhnd_call, bnhd_call) in pairs.items():
+        got, other = bhnd_call(), bnhd_call()
+        got = [got] if isinstance(got, torch.Tensor) else list(got)
+        other = [other] if isinstance(other, torch.Tensor) else list(other)
+        if not all(torch.equal(g, a.transpose(1, 2))
+                   for g, a in zip(got, other)):
+            raise AssertionError(f"{name} differs from its [B, N, H, D] "
+                                 "instance on the same heads")
+        log("f32", f"(j) {name}: bit-equal to its [B, N, H, D] instance on "
+            f"the same heads; {stats[name]['ms']:.4f} ms against "
+            f"{cuda_ms(timed_bnhd[name]):.4f} ms in [B, N, H, D]; {card}")
+    return stats
+
+
+# The f32 explanations of the flagship on the card against the CPU plain
+# path ((k) of the f32 phase), by relative Frobenius error: the probe's
+# logits, activations, gradients and raw CAM (batch 2), the menu's raw
+# gradcam and one chunk of AblationCAM's scores, integrated gradients and
+# grad x input (one volume each). The limit is set against the CPU's own
+# drift: the same quantities on the CPU with every voxel moved by one ulp
+# are held to it too. Read on an H100 80GB HBM3 at 700 W: the card 5.1e-7
+# to 2.04e-6 from the CPU, the CPU 2.4e-7 to 1.48e-6 from itself one ulp
+# off (the raw CAM the largest of both); the limit stands at about five
+# times the larger reading, room for another cuBLAS algorithm on another
+# card.
+F32_CAM_RTOL = 1e-5
+
+
+def _f32_explanations(fcfg, ckpt: str, card: str, counters: dict) -> dict:
+    """(k) of the f32 phase: Grad-CAM of the f32 flagship on the card
+    (get_attention_map, the menu's gradcam and ablationcam at score_batch
+    16, integrated gradients at 4 steps, grad x input), every call's
+    launches counted exactly (a probe: K1-K3 f32 depth - 1 times, K4 f32
+    depth times, K6 f32 once and, under the gradient, K6's backward and
+    K9 at f32 once; IG and grad x input: the f32 block kernels through
+    every block; no bf16 kernel), the results against the CPU plain path
+    within F32_CAM_RTOL, as is the CPU against itself one ulp off. Returns
+    the launch counts."""
+    from neurovit_tpu_torch.explainability import bcos, cam_methods
+    from neurovit_tpu_torch.explainability import gradcam_vit3d as gc
+    from neurovit_tpu_torch.explainability import integrated_gradients as ig
+    from neurovit_tpu_torch.models import NeuroEncoder
+    from neurovit_tpu_torch.training.checkpoint import load_checkpoint
+
+    phase = "f32"
+    t0 = time.perf_counter()
+    size = fcfg["TRAINING_VIT_INPUT_SIZE"]
+    threshold = float(fcfg["GRADCAM_THRESHOLD"])
+    cpu = NeuroEncoder(fcfg, device="cpu", seed=SEED)
+    load_checkpoint(cpu, ckpt, strict=True)
+    _lift_layer_norms(cpu, SEED)
+    model = NeuroEncoder(fcfg, device="cuda", seed=SEED)
+    model.load_state_dict(cpu.state_dict(), strict=True)
+    depth, dim = model.vit_cfg.depth, model.vit_cfg.dim
+    rng = np.random.default_rng(SEED + 27)
+    vols = _volumes(rng, 2, size)
+    ulp = np.nextafter(vols, np.float32(np.inf))
+    noise = rng.standard_normal(vols[0].shape).astype(np.float32)
+    total = {name: 0 for name in counters}
+
+    def probe_counts(forwards: int, backwards: int) -> dict:
+        want = {name: 0 for name in counters}
+        want.update({name: (depth - 1) * forwards for name in (
+            "flash_attention_f32", "fused_ln_qkv_f32",
+            "fused_outproj_residual_f32")})
+        want.update(fused_mlp_block_f32=depth * forwards,
+                    flash_attention_bhnd_f32=forwards,
+                    flash_attention_bhnd_bwd_f32=backwards,
+                    fused_mlp_bwd_f32=backwards)
+        return want
+
+    def model_counts(forwards: int, backwards: int) -> dict:
+        return {name: depth * forwards if name in F32_FORWARD_KERNELS
+                else depth * backwards if name in F32_BACKWARD_KERNELS else 0
+                for name in counters}
+
+    def counted(what: str, want: dict, fn):
+        _reset(counters)
+        out = fn()
+        torch.cuda.synchronize()
+        got = {name: c.launches for name, c in counters.items()}
+        _check_counts(f"(k) {what}", got, want)
+        for name, n in got.items():
+            total[name] += n
+        return out
+
+    cams, idx = counted("one get_attention_map of 2 volumes",
+                        probe_counts(1, 1),
+                        lambda: model.get_attention_map(vols))
+    if (cams.shape != (2, size, size, size) or not np.isfinite(cams).all()
+            or cams.min() < 0 or cams.max() > 1 + 1e-6):
+        raise AssertionError(f"f32 maps: shape {cams.shape}, range "
+                             f"[{cams.min()}, {cams.max()}]")
+    want_cams, want_idx = cpu.get_attention_map(vols)
+    log(phase, f"(k) get_attention_map of 2 volumes: classes "
+        f"{idx.tolist()} (cpu {want_idx.tolist()}), final maps within "
+        f"{np.abs(cams - want_cams).max():.3e} of the cpu's, "
+        f"{(np.abs(cams - want_cams) > 1e-3).mean() * 100:.4f} % of voxels "
+        f"off by more than 1e-3 (the percentile threshold moves a voxel "
+        f"across it by a rounding)")
+    if idx.tolist() != want_idx.tolist():
+        raise AssertionError("f32 Grad-CAM classes differ from the cpu's")
+
+    errs, drift = {}, {}
+
+    def hold(what: str, got, want, moved) -> None:
+        errs[what] = _rel_err(torch.as_tensor(got), torch.as_tensor(want))
+        drift[what] = _rel_err(torch.as_tensor(moved), torch.as_tensor(want))
+
+    x = torch.from_numpy(vols)
+    card_p = counted("probe_acts_grads", probe_counts(1, 1),
+                     lambda: gc.probe_acts_grads(model, x.cuda()))
+    cpu_p = gc.probe_acts_grads(cpu, x)
+    ulp_p = gc.probe_acts_grads(cpu, torch.from_numpy(ulp))
+    if not torch.equal(card_p[1].cpu(), cpu_p[1]):
+        raise AssertionError("f32 probe classes differ from the cpu's")
+    for i, what in ((0, "logits"), (2, "probe activations"),
+                    (3, "probe gradients")):
+        hold(what, card_p[i].cpu(), cpu_p[i], ulp_p[i])
+    hold("raw CAM",
+         gc.raw_attention_map(model, card_p[2], card_p[3]).cpu(),
+         gc.raw_attention_map(cpu, cpu_p[2], cpu_p[3]),
+         gc.raw_attention_map(cpu, ulp_p[2], ulp_p[3]))
+
+    # The menu: gradcam (its raw map held, its final map counted), and
+    # ablationcam at score_batch 16 on the card, one chunk of its scores
+    # held against the CPU's.
+    x1 = x[:1]
+    raw = counted("menu gradcam, raw", probe_counts(1, 1),
+                  lambda: cam_methods._grad_cam_raw(model, x1.cuda(),
+                                                    "gradcam", False))
+    hold("menu gradcam raw", raw[0].cpu(),
+         cam_methods._grad_cam_raw(cpu, x1, "gradcam", False)[0],
+         cam_methods._grad_cam_raw(cpu, torch.from_numpy(ulp[:1]), "gradcam",
+                                   False)[0])
+    cam, _ = counted("menu gradcam", probe_counts(1, 1),
+                     lambda: cam_methods.compute_cam(model, vols[0],
+                                                     method="gradcam"))
+    score_batch = 16
+    chunks = -(-dim // score_batch)
+    t_abl = time.perf_counter()
+    abl, _ = counted(f"menu ablationcam, score_batch {score_batch}",
+                     probe_counts(1 + chunks, 0),
+                     lambda: cam_methods.compute_cam(
+                         model, vols[0], method="ablationcam",
+                         score_batch=score_batch))
+    t_abl = time.perf_counter() - t_abl
+    for what, m in (("gradcam", cam), ("ablationcam", abl)):
+        if (m.shape != (size,) * 3 or not np.isfinite(m).all()
+                or m.min() < 0 or m.max() > 1 + 1e-6):
+            raise AssertionError(f"f32 {what}: shape {m.shape}, range "
+                                 f"[{m.min()}, {m.max()}]")
+
+    def chunk_scores(net, xv):
+        with torch.inference_mode():
+            _, acts = cam_methods._probe_forward(net, xv)
+            onehot = torch.eye(dim, device=xv.device)[:4]
+            shifts = -acts * onehot[:, None, :]
+            return net.probe(xv.expand((4,) + xv.shape[1:]), shifts)[0].cpu()
+
+    hold("ablationcam chunk scores",
+         counted("one ablationcam chunk", probe_counts(2, 0),
+                 lambda: chunk_scores(model, x1.cuda())),
+         chunk_scores(cpu, x1), chunk_scores(cpu, torch.from_numpy(ulp[:1])))
+
+    steps = 4
+    attr, cls = counted(f"integrated gradients, {steps} steps",
+                        model_counts(steps + 1, steps),
+                        lambda: ig.integrated_gradients(
+                            model, vols[0], baseline=noise, steps=steps))
+    want_attr, want_cls = ig.integrated_gradients(cpu, vols[0],
+                                                  baseline=noise, steps=steps)
+    ulp_attr, _ = ig.integrated_gradients(cpu, ulp[0], baseline=noise,
+                                          steps=steps)
+    contrib, bcls = counted("grad x input", model_counts(2, 1),
+                            lambda: bcos.explain(model, vols[0]))
+    want_contrib, want_bcls = bcos.explain(cpu, vols[0])
+    ulp_contrib, _ = bcos.explain(cpu, ulp[0])
+    if (cls.tolist() != want_cls.tolist()
+            or bcls.tolist() != want_bcls.tolist()):
+        raise AssertionError("f32 IG or grad x input classes differ from the "
+                             "cpu's")
+    hold("integrated gradients", attr, want_attr, ulp_attr)
+    hold("grad x input", contrib, want_contrib, ulp_contrib)
+    log(phase, "(k) relative Frobenius error, cuda against the cpu: "
+        f"{ {k: float(f'{v:.4g}') for k, v in errs.items()} }; the cpu one "
+        f"ulp off against itself: "
+        f"{ {k: float(f'{v:.4g}') for k, v in drift.items()} } (both held "
+        f"to {F32_CAM_RTOL})")
+    worst = max(max(errs.values()), max(drift.values()))
+    if worst > F32_CAM_RTOL:
+        raise AssertionError(f"f32 explanations: {errs}, drift {drift}")
+    xb = {b: torch.from_numpy(_volumes(rng, b, size)).cuda() for b in (1, 8)}
+    times = {b: cuda_ms(lambda: gc.attention_map(model, xb[b], threshold),
+                        warmup=2, runs=10) for b in (1, 8)}
+    log(phase, f"(k) f32 Grad-CAM: {times[1]:.3f} ms at batch 1, "
+        f"{times[8]:.3f} ms at batch 8 ({8 / times[8] * 1e3:.1f} vol/s); "
+        f"ablationcam of one volume ({1 + chunks} probe forwards) "
+        f"{t_abl:.2f} s host clock; (k) in {time.perf_counter() - t0:.1f} s; "
+        f"{card}")
+    del model, cpu, xb
+    return total
+
+
+def _vit_cam_2d_phase(workdir: str, card: str, counters: dict) -> dict:
+    """(l) of the f32 phase: the 2D CAM tutorial on the card. The demo ViT
+    (f32, depth 2) trained for 300 steps, K1-K4 f32 twice and K5, K7-K9
+    f32 twice a step and nothing else; then layercam and scorecam on 8
+    held-out squares, holding the JAX tutorial's own bar (at least 7 of 8
+    classified right, at least 5 of 8 maps brighter on the square for each
+    method), K6 f32 once a probe forward and its backward once a layercam;
+    the trained model's probe (logits, activations, gradients, raw
+    layercam map) and one train batch's parameter gradients against the
+    CPU plain path; the CLI's main() with --steps 200 writing its PNG. Every f32
+    block kernel and K6 f32 forward and backward launched. Returns the
+    launch counts."""
+    import torch.nn.functional as F
+
+    from neurovit_tpu_torch.explainability import vit_cam_2d as v2
+
+    phase = "f32"
+    t0 = time.perf_counter()
+    total = {name: 0 for name in counters}
+
+    def add() -> dict:
+        got = {name: c.launches for name, c in counters.items()}
+        for name, n in got.items():
+            total[name] += n
+        return got
+
+    _reset(counters)
+    model = v2.ViT2D(device="cuda")
+    depth = model.vit_cfg.depth
+    steps = 300
+    t_train = time.perf_counter()
+    losses = v2.train_demo_model(model, steps=steps, verbose=False).cpu()
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t_train
+    _check_counts("(l) train_demo_model", add(), {
+        name: depth * steps if name in F32_KERNELS else 0
+        for name in counters})
+    if not torch.isfinite(losses).all():
+        raise AssertionError("the 2D demo model's losses are not finite")
+    log(phase, f"(l) 2D demo ViT trained for {steps} steps at batch 32 on "
+        f"cuda in {t_train:.1f} s host clock: loss {float(losses[0]):.4f} "
+        f"-> {float(losses[-1]):.4f}")
+
+    images, labels = v2.make_squares(
+        8, generator=torch.Generator().manual_seed(123))
+    cpu = v2.ViT2D(device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    _reset(counters)
+    t_cam = time.perf_counter()
+    hits, correct, maps = {}, 0, {}
+    for method in ("layercam", "scorecam"):
+        hits[method] = 0
+        for i in range(8):
+            cam, idx = v2.compute_cam_2d(model, images[i], method=method,
+                                         threshold=20.0)
+            square = images[i] == 1.0
+            hits[method] += int(cam[square].mean() > cam[~square].mean())
+            if method == "layercam":
+                correct += int(idx[0]) == labels[i]
+                maps[i] = cam
+    t_cam = time.perf_counter() - t_cam
+    chunks = -(-model.vit_cfg.dim // 32)
+    want = {name: 0 for name in counters}
+    want.update({name: 8 * (depth - 1) + 8 * (depth - 1) + 8 * chunks * depth
+                 for name in ("flash_attention_f32", "fused_ln_qkv_f32",
+                              "fused_outproj_residual_f32")})
+    want.update(fused_mlp_block_f32=16 * depth + 8 * chunks * depth,
+                flash_attention_bhnd_f32=16, flash_attention_bhnd_bwd_f32=8,
+                fused_mlp_bwd_f32=8)
+    _check_counts("(l) layercam and scorecam of 8 squares", add(), want)
+    log(phase, f"(l) 8 held-out squares: {correct}/8 classified right; "
+        f"brighter on the square: layercam {hits['layercam']}/8, scorecam "
+        f"{hits['scorecam']}/8 (bar: 7 and 5); 16 CAMs in "
+        f"{t_cam:.2f} s host clock")
+    if correct < 7 or min(hits.values()) < 5:
+        raise AssertionError(f"the 2D tutorial: {correct}/8 classified, "
+                             f"localized {hits}")
+
+    # The trained model on the card against the CPU plain path, and the
+    # CPU against itself with every pixel one ulp off, by relative
+    # Frobenius error as in (k), all held to F32_CAM_RTOL: the probe of 2
+    # squares (K6 f32 forward and backward at [2, 4, 197, 16], D padded to
+    # 32) and its raw layercam map. Then one train batch of the 8 squares:
+    # the loss and every parameter gradient (K5, K7-K9 f32 at dim 64, D
+    # 16), the worst parameter held to F32_GRAD_RTOL as in (e), beside the
+    # CPU's own one-ulp drift.
+    from neurovit_tpu_torch.explainability import cam_methods
+    from neurovit_tpu_torch.explainability import gradcam_vit3d as gcam
+
+    x = torch.from_numpy(images)
+    ulp = torch.from_numpy(np.nextafter(images, np.float32(np.inf)))
+    _reset(counters)
+    card_p = gcam.probe_acts_grads(model, x[:2].cuda())
+    torch.cuda.synchronize()
+    want = {name: 0 for name in counters}
+    want.update({name: depth - 1 for name in (
+        "flash_attention_f32", "fused_ln_qkv_f32",
+        "fused_outproj_residual_f32")})
+    want.update(fused_mlp_block_f32=depth, flash_attention_bhnd_f32=1,
+                flash_attention_bhnd_bwd_f32=1, fused_mlp_bwd_f32=1)
+    _check_counts("(l) probe_acts_grads of 2 squares", add(), want)
+    cpu_p = gcam.probe_acts_grads(cpu, x[:2])
+    ulp_p = gcam.probe_acts_grads(cpu, ulp[:2])
+    if not torch.equal(card_p[1].cpu(), cpu_p[1]):
+        raise AssertionError("2D probe classes differ from the cpu's")
+
+    def layercam(p):
+        return cam_methods._token_cam("layercam", p[2][:, 1:], p[3][:, 1:])
+
+    errs, drift = {}, {}
+    for what, get in (("logits", lambda p: p[0]),
+                      ("probe activations", lambda p: p[2]),
+                      ("probe gradients", lambda p: p[3]),
+                      ("raw layercam", layercam)):
+        want_v = get(cpu_p)
+        errs[what] = _rel_err(get(card_p), want_v)
+        drift[what] = _rel_err(get(ulp_p), want_v)
+    cam_diff = 0.0
+    for i in (0, 1):
+        cam, idx = v2.compute_cam_2d(cpu, images[i], method="layercam",
+                                     threshold=20.0)
+        cam_diff = max(cam_diff, float(np.abs(cam - maps[i]).max()))
+
+    def batch_grads(net, xv):
+        net.zero_grad(set_to_none=True)
+        loss = F.cross_entropy(net(xv), torch.from_numpy(labels).to(
+            xv.device))
+        loss.backward()
+        return float(loss.detach()), {name: p.grad.float().cpu()
+                                      for name, p in net.named_parameters()}
+
+    _reset(counters)
+    loss_c, grads_c = batch_grads(model, x.cuda())
+    torch.cuda.synchronize()
+    _check_counts("(l) one train batch's gradient", add(), {
+        name: depth if name in F32_KERNELS else 0 for name in counters})
+    loss_p, grads_p = batch_grads(cpu, x)
+    loss_u, grads_u = batch_grads(cpu, ulp)
+    gerrs = grad_errs(grads_c, grads_p)
+    gdrift = grad_errs(grads_u, grads_p)
+    log(phase, "(l) the trained 2D model, relative Frobenius error, cuda "
+        f"against the cpu: { {k: float(f'{v:.4g}') for k, v in errs.items()} }"
+        f"; the cpu one ulp off against itself: "
+        f"{ {k: float(f'{v:.4g}') for k, v in drift.items()} } (both held "
+        f"to {F32_CAM_RTOL}); final layercam maps of 2 squares within "
+        f"{cam_diff:.3e} (the percentile threshold moves a pixel across it "
+        f"by a rounding)")
+    log(phase, f"(l) one train batch of 8 squares: loss cuda {loss_c:.7f} vs "
+        f"cpu {loss_p:.7f}; {err_text(gerrs)} (worst held to "
+        f"{F32_GRAD_RTOL}); the cpu one ulp off: {err_text(gdrift)}")
+    if max(max(errs.values()), max(drift.values())) > F32_CAM_RTOL:
+        raise AssertionError(f"the 2D probe: {errs}, drift {drift}")
+    if (abs(loss_c - loss_p) > F32_TOL * (1 + abs(loss_p))
+            or max(gerrs.values()) > F32_GRAD_RTOL):
+        raise AssertionError(f"the 2D gradients differ from the cpu: loss "
+                             f"{loss_c} vs {loss_p}, {err_text(gerrs)}")
+    model.zero_grad(set_to_none=True)
+
+    out_dir = os.path.join(workdir, "cam2d")
+    _reset(counters)
+    text = io.StringIO()
+    t_cli = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        png = v2.main(["--method", "layercam", "--steps", "200",
+                       "--output-dir", out_dir])
+    torch.cuda.synchronize()
+    t_cli = time.perf_counter() - t_cli
+    cli = add()
+    with open(png, "rb") as f:
+        head = f.read(8)
+    if head != b"\x89PNG\r\n\x1a\n" or "Saved" not in text.getvalue():
+        raise AssertionError(f"the 2D tutorial's CLI wrote no PNG at {png}")
+    for line in text.getvalue().splitlines()[-3:]:
+        log(phase, f"(l) vit_cam_2d CLI: {line}")
+    log(phase, f"(l) the CLI with --steps 200 in {t_cli:.1f} s host clock: "
+        f"{os.path.getsize(png)} bytes of PNG; launches "
+        f"{ {name: n for name, n in cli.items() if n} }")
+    unlaunched = [name for name in F32_KERNELS + F32_GRADCAM_KERNELS
+                  if not total[name]]
+    if unlaunched or any(total[name] for name in counters
+                         if name not in F32_KERNELS + F32_GRADCAM_KERNELS):
+        raise AssertionError(f"(l) launched {total}")
+    log(phase, f"(l) in {time.perf_counter() - t0:.1f} s; launches "
+        f"{ {name: n for name, n in total.items() if n} }; {card}")
+    return total
+
+
 def f32_phase(config, ckpt: str, workdir: str, card: str,
               counters: dict) -> tuple:
     """Phase 18 (see the module docstring): (a) the f32 forwards, (b) f32
@@ -4351,8 +4885,10 @@ def f32_phase(config, ckpt: str, workdir: str, card: str,
     the f32 backwards, (e) the flagship's f32 gradients against the CPU,
     (f) the f32 train runs of the flagship and the smoke model, (g) the
     f32 int8 kernels, (h) f32 int8 serving, (i) the f32 4D step on the int8
-    encoder. Returns (the kernels' stats, the launch counts of (b), (c),
-    (f), (h) and (i))."""
+    encoder, (j) K6 and its backward at f32, (k) the f32 flagship's
+    explanations against the CPU, (l) the 2D CAM tutorial. Returns (the
+    kernels' stats, the launch counts of (b), (c), (f), (h), (i), (k) and
+    (l))."""
     from neurovit_tpu_torch.models import NeuroEncoder
     from neurovit_tpu_torch.serving import Predictor
     from neurovit_tpu_torch.training import Trainer
@@ -4513,11 +5049,22 @@ def f32_phase(config, ckpt: str, workdir: str, card: str,
     torch.cuda.empty_cache()
     int8_serving = _int8_f32_serving(fcfg, ckpt, workdir, card, counters)
     int8_fourd = _int8_f32_fourd(workdir, card, counters)
-    log(phase, f"(g)-(i) in {time.perf_counter() - t_int8:.1f} s; done in "
+    log(phase, f"(g)-(i) in {time.perf_counter() - t_int8:.1f} s")
+    torch.cuda.empty_cache()
+
+    # (j)-(l): K6 and its backward at f32, the f32 flagship's explanations
+    # against the CPU, the 2D CAM tutorial.
+    t_cam = time.perf_counter()
+    stats.update(_k6_f32_kernel_checks(card))
+    torch.cuda.empty_cache()
+    explain = _f32_explanations(fcfg, ckpt, card, counters)
+    torch.cuda.empty_cache()
+    cam2d = _vit_cam_2d_phase(workdir, card, counters)
+    log(phase, f"(j)-(l) in {time.perf_counter() - t_cam:.1f} s; done in "
         f"{time.perf_counter() - t_phase:.1f} s")
     return stats, {name: serving[name] + fourd[name] + train[name]
                    + smoke[name] + int8_serving[name] + int8_fourd[name]
-                   for name in counters}
+                   + explain[name] + cam2d[name] for name in counters}
 
 
 TRACE_NAMES = {
@@ -4955,6 +5502,10 @@ def kernel_counters() -> dict:
         "int8_mlp_block_f32": int8_serving.int8_mlp_block_f32_cuda,
         "int8_flash_attention_f32":
             int8_serving.int8_flash_attention_f32_cuda,
+        "flash_attention_bhnd_f32":
+            flash_attention.flash_attention_bhnd_f32_cuda,
+        "flash_attention_bhnd_bwd_f32":
+            flash_attention.flash_attention_bhnd_bwd_f32_cuda,
     }
 
 
@@ -5058,7 +5609,7 @@ def main() -> int:
         launches[name] += n
     for name, n in feature_launches.items():
         launches[name] += n
-    for name in F32_KERNELS + INT8_F32_KERNELS:
+    for name in F32_KERNELS + INT8_F32_KERNELS + F32_GRADCAM_KERNELS:
         launches[name] = f32_launches[name]
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": source,

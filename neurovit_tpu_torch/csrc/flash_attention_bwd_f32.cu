@@ -1,8 +1,13 @@
-// Flash attention backward (K5) at f32, [B, N, H, D], on the CUDA cores.
-//
-// Replaces the TPU kernel neurovit_tpu/ops/flash_attention.py:269
-// (_bwd_kernel_allheads, launched at :420) on f32 operands, where nothing
-// is rounded (ds.astype(q.dtype) at :314 is the identity). Per (b, h),
+// Flash attention backward at f32 on the CUDA cores, in two layouts:
+//   bnhd [B, N, H, D] (K5): replaces the TPU kernel
+//     neurovit_tpu/ops/flash_attention.py:269 (_bwd_kernel_allheads,
+//     launched at :420);
+//   bhnd [B, H, N, D] (K6's backward): replaces :152 (_bwd_kernel, launched
+//     at :420 by the Grad-CAM probe's gradient).
+// Both are instances of the same two passes, templated on the layout
+// (common.cuh HeadRows). On f32 operands nothing is rounded
+// (ds.astype(q.dtype) at :314, and :208 for bhnd, is the identity). Per
+// (b, h),
 // with P and the dropout mask regenerated from q, k and the seed:
 //   p     = exp2(clamp(q.k^T * scale log2 e, +-96)) * (key < n_valid) / l
 //   delta = keep * sum_d(dO * O)                 per query row
@@ -44,7 +49,8 @@
 //                   += (P m)^T dO. Key blocks at or past n_valid write
 //                   zeros.
 // Head dims are instances at 32, 64 and 128 (ops/flash_attention.py pads
-// the others), as K1 f32's.
+// the others), as K1 f32's; the layout changes only where a head's rows
+// lie, so both layouts share the grids and the shared memory.
 #include "flash_f32.cuh"
 
 namespace nvt {
@@ -129,7 +135,7 @@ __device__ __forceinline__ void fma4(float4& acc, float a, const float4& b) {
 // leaves room for one block an SM, so ptxas may give a thread all the
 // registers (its default of three blocks an SM, 168 registers, spilled
 // 24 bytes there).
-template <int D>
+template <int D, bool kBhnd>
 __global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 3)
     dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ o,
@@ -149,7 +155,7 @@ __global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 3)
 
   const int qt = blockIdx.x % q_tiles;
   const int bh = blockIdx.x / q_tiles;
-  const HeadRows<false> hr(bh / H, bh % H, N, H, D);
+  const HeadRows<kBhnd> hr(bh / H, bh % H, N, H, D);
   const int q0 = qt * kBQ;
   const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
   const int n_tiles = (n_valid + kBKV - 1) / kBKV;
@@ -281,7 +287,7 @@ __device__ __forceinline__ void stage_stats(float* st, const float* lsum,
 }
 
 // Pass 2: dK and dV of 64 keys, columns c0 .. c0 + kDc - 1.
-template <int D>
+template <int D, bool kBhnd>
 __global__ void __launch_bounds__(kThreads)
     dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v,
@@ -305,7 +311,7 @@ __global__ void __launch_bounds__(kThreads)
   const int kt = blockIdx.x % k_tiles;
   const int rest = blockIdx.x / k_tiles;
   const int part = rest % kParts, bh = rest / kParts;
-  const HeadRows<false> hr(bh / H, bh % H, N, H, D);
+  const HeadRows<kBhnd> hr(bh / H, bh % H, N, H, D);
   const int k0 = kt * kBK, c0 = part * kDc<D>;
   const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
   const size_t row0 = static_cast<size_t>(bh) * N;
@@ -437,46 +443,37 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D>
+template <int D, bool kBhnd>
 cudaError_t launch(const float* q, const float* k, const float* v,
                    const float* o, const float* dout, const float* lsum,
                    float* delta, float* dq, float* dk, float* dv, int B,
                    int N, int H, int n_valid, float scale_log2,
                    float ds_scale, float keep, float inv_keep,
                    uint32_t keep_q, uint64_t seed, cudaStream_t stream) {
-  cudaError_t err = allow_smem(dq_f32_kernel<D>, DqLayout<D>::kBytes);
-  if (err == cudaSuccess)
-    err = allow_smem(dkv_f32_kernel<D>, DkvLayout<D>::kBytes);
+  const auto dq_kernel = dq_f32_kernel<D, kBhnd>;
+  const auto dkv_kernel = dkv_f32_kernel<D, kBhnd>;
+  cudaError_t err = allow_smem(dq_kernel, DqLayout<D>::kBytes);
+  if (err == cudaSuccess) err = allow_smem(dkv_kernel, DkvLayout<D>::kBytes);
   if (err != cudaSuccess) return err;
   const unsigned q_tiles = (N + kBQ - 1) / kBQ;
-  dq_f32_kernel<D><<<q_tiles * B * H, kThreads, DqLayout<D>::kBytes,
-                     stream>>>(q, k, v, o, dout, lsum, delta, dq, N, H,
-                               q_tiles, n_valid, scale_log2, ds_scale, keep,
-                               keep_q, seed);
+  dq_kernel<<<q_tiles * B * H, kThreads, DqLayout<D>::kBytes, stream>>>(
+      q, k, v, o, dout, lsum, delta, dq, N, H, q_tiles, n_valid, scale_log2,
+      ds_scale, keep, keep_q, seed);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const unsigned k_tiles = (N + kBK - 1) / kBK;
-  dkv_f32_kernel<D><<<k_tiles * (D / kDc<D>) * B * H, kThreads,
-                      DkvLayout<D>::kBytes, stream>>>(
-      q, k, v, dout, lsum, delta, dk, dv, N, H, k_tiles, n_valid, scale_log2,
-      ds_scale, inv_keep, keep_q, seed);
+  dkv_kernel<<<k_tiles * (D / kDc<D>) * B * H, kThreads, DkvLayout<D>::kBytes,
+               stream>>>(q, k, v, dout, lsum, delta, dk, dv, N, H, k_tiles,
+                         n_valid, scale_log2, ds_scale, inv_keep, keep_q,
+                         seed);
   return cudaGetLastError();
 }
 
-}  // namespace
-}  // namespace nvt
-
-// q, k, v, o, dout, dq, dk, dv [B, N, H, D] f32, D in {32, 64, 128} (the
-// wrapper zero-pads other head dims); lsum, delta [B, H, N] f32 (delta is
-// written by pass 1 and read by pass 2). scale_log2e = scale log2(e),
-// ds_scale = scale / keep, keep = q / 256 and inv_keep = 1 / keep (1
-// without dropout), keep_q the dropout threshold (0 = none).
-extern "C" int nvt_flash_attention_f32_bwd(
-    const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lsum, void* delta, void* dq, void* dk,
-    void* dv, int B, int N, int H, int D, int n_valid, float scale_log2e,
-    float ds_scale, float keep, float inv_keep, int keep_q, uint64_t seed,
-    void* stream) {
-  using namespace nvt;
+template <bool kBhnd>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const void* lsum, void* delta, void* dq,
+               void* dk, void* dv, int B, int N, int H, int D, int n_valid,
+               float scale_log2e, float ds_scale, float keep, float inv_keep,
+               int keep_q, uint64_t seed, void* stream) {
   if (B < 1 || N < 1 || H < 1 || n_valid < 1 || n_valid > N || keep_q < 0 ||
       keep_q > 255 ||
       2LL * ((N + kBK - 1) / kBK) * B * H > 0x7fffffffLL)
@@ -496,19 +493,19 @@ extern "C" int nvt_flash_attention_f32_bwd(
   cudaError_t err;
   switch (D) {
     case 32:
-      err = launch<32>(qf, kf, vf, of, df, lf, dl, dqf, dkf, dvf, B, N, H,
-                       n_valid, scale_log2e, ds_scale, keep, inv_keep, kq,
-                       seed, s);
+      err = launch<32, kBhnd>(qf, kf, vf, of, df, lf, dl, dqf, dkf, dvf, B, N,
+                              H, n_valid, scale_log2e, ds_scale, keep,
+                              inv_keep, kq, seed, s);
       break;
     case 64:
-      err = launch<64>(qf, kf, vf, of, df, lf, dl, dqf, dkf, dvf, B, N, H,
-                       n_valid, scale_log2e, ds_scale, keep, inv_keep, kq,
-                       seed, s);
+      err = launch<64, kBhnd>(qf, kf, vf, of, df, lf, dl, dqf, dkf, dvf, B, N,
+                              H, n_valid, scale_log2e, ds_scale, keep,
+                              inv_keep, kq, seed, s);
       break;
     case 128:
-      err = launch<128>(qf, kf, vf, of, df, lf, dl, dqf, dkf, dvf, B, N, H,
-                        n_valid, scale_log2e, ds_scale, keep, inv_keep, kq,
-                        seed, s);
+      err = launch<128, kBhnd>(qf, kf, vf, of, df, lf, dl, dqf, dkf, dvf, B,
+                               N, H, n_valid, scale_log2e, ds_scale, keep,
+                               inv_keep, kq, seed, s);
       break;
     default:
       err = cudaErrorInvalidValue;
@@ -516,9 +513,41 @@ extern "C" int nvt_flash_attention_f32_bwd(
   return static_cast<int>(err);
 }
 
+}  // namespace
+}  // namespace nvt
+
+// K5 at f32. q, k, v, o, dout, dq, dk, dv [B, N, H, D] f32, D in {32, 64,
+// 128} (the wrapper zero-pads other head dims); lsum, delta [B, H, N] f32
+// (delta is written by pass 1 and read by pass 2). scale_log2e = scale
+// log2(e), ds_scale = scale / keep, keep = q / 256 and inv_keep = 1 / keep
+// (1 without dropout), keep_q the dropout threshold (0 = none).
+extern "C" int nvt_flash_attention_f32_bwd(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lsum, void* delta, void* dq, void* dk,
+    void* dv, int B, int N, int H, int D, int n_valid, float scale_log2e,
+    float ds_scale, float keep, float inv_keep, int keep_q, uint64_t seed,
+    void* stream) {
+  return nvt::launch_bwd<false>(q, k, v, o, dout, lsum, delta, dq, dk, dv, B,
+                                N, H, D, n_valid, scale_log2e, ds_scale, keep,
+                                inv_keep, keep_q, seed, stream);
+}
+
+// K6's backward at f32: the same with every [.., D] operand in
+// [B, H, N, D].
+extern "C" int nvt_flash_attention_bhnd_f32_bwd(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lsum, void* delta, void* dq, void* dk,
+    void* dv, int B, int N, int H, int D, int n_valid, float scale_log2e,
+    float ds_scale, float keep, float inv_keep, int keep_q, uint64_t seed,
+    void* stream) {
+  return nvt::launch_bwd<true>(q, k, v, o, dout, lsum, delta, dq, dk, dv, B,
+                               N, H, D, n_valid, scale_log2e, ds_scale, keep,
+                               inv_keep, keep_q, seed, stream);
+}
+
 // Dynamic shared memory of a block of pass 1 (dQ) or 2 (dK, dV) of the
-// instance at head dim D (ops/flash_attention.py flash_f32_bwd_plan), or
-// -1.
+// instance at head dim D, either layout (ops/flash_attention.py
+// flash_f32_bwd_plan), or -1.
 extern "C" long long nvt_flash_attention_f32_bwd_smem_bytes(int D,
                                                             int pass) {
   using namespace nvt;

@@ -1,8 +1,12 @@
-// Flash attention forward (K1) at f32, [B, N, H, D], on the CUDA cores.
-//
-// Replaces the TPU kernel neurovit_tpu/ops/flash_attention.py:233
-// (_fwd_kernel_allheads, launched at :381 by flash_attention) on f32
-// operands, where p.astype(v.dtype) is a no-op, so P is not rounded:
+// Flash attention forward at f32 on the CUDA cores, in two layouts:
+//   bnhd [B, N, H, D] (K1): replaces the TPU kernel
+//     neurovit_tpu/ops/flash_attention.py:233 (_fwd_kernel_allheads,
+//     launched at :381 by flash_attention);
+//   bhnd [B, H, N, D] (K6): replaces :91 (_fwd_kernel, launched at :381 by
+//     flash_attention(layout="bhnd"), the Grad-CAM probe's attention).
+// Both are instances of one kernel, templated on the layout (common.cuh
+// HeadRows), as the bf16 K1 and K6 are. On f32 operands p.astype(v.dtype)
+// is a no-op, so P is not rounded:
 //   s = q . k^T * scale * log2(e)                 f32
 //   p = exp2(clip(s, -96, 96)), 0 for keys >= n_valid
 //   l = sum_k p                                   the denominator
@@ -11,7 +15,8 @@
 // so nothing is rescaled as the key tiles go by. The dropout mask of
 // element (b, h, q, k) is nn.keep_mask's bit at ((b H + h) N + q) N + k,
 // the bits the bf16 kernel (flash_attention.cu) and the plain version
-// draw. With lsum, l goes out as the [B, H, N] row sums the backward reads.
+// draw, in either layout. With lsum, l goes out as the [B, H, N] row sums
+// the backward reads.
 //
 // What bounds it on the H100: its 4 B H N n_valid D flops, exact in f32
 // only on the CUDA cores (ffma.cuh says why not TF32): 16.4 GFLOP for the
@@ -58,7 +63,7 @@ struct Layout {
       static_cast<size_t>(kQ + 4 * kKV + kP) * sizeof(float);
 };
 
-template <int D>
+template <int D, bool kBhnd>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
@@ -76,7 +81,7 @@ __global__ void __launch_bounds__(kThreads)
 
   const int qt = blockIdx.x % q_tiles;
   const int bh = blockIdx.x / q_tiles;
-  const HeadRows<false> hr(bh / H, bh % H, N, H, D);
+  const HeadRows<kBhnd> hr(bh / H, bh % H, N, H, D);
   const int q0 = qt * kBQ;
   const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
   const int n_tiles = (n_valid + kBKV - 1) / kBKV;
@@ -212,35 +217,26 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D>
+template <int D, bool kBhnd>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o,
                    float* lsum, int B, int N, int H, int n_valid,
                    float scale_log2, float keep, uint32_t keep_q,
                    uint64_t seed, cudaStream_t stream) {
   const size_t smem = Layout<D>::kBytes;
-  cudaError_t err = allow_smem(flash_fwd_f32_kernel<D>, smem);
+  const auto kernel = flash_fwd_f32_kernel<D, kBhnd>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int q_tiles = (N + kBQ - 1) / kBQ;
-  flash_fwd_f32_kernel<D><<<static_cast<unsigned>(q_tiles) * B * H, kThreads,
-                            smem, stream>>>(q, k, v, o, lsum, N, H, q_tiles,
-                                            n_valid, scale_log2, keep, keep_q,
-                                            seed);
+  kernel<<<static_cast<unsigned>(q_tiles) * B * H, kThreads, smem, stream>>>(
+      q, k, v, o, lsum, N, H, q_tiles, n_valid, scale_log2, keep, keep_q,
+      seed);
   return cudaGetLastError();
 }
 
-}  // namespace
-}  // namespace nvt
-
-// q, k, v, o [B, N, H, D] f32, D in {32, 64, 128} (the wrapper zero-pads
-// other head dims); lsum [B, H, N] f32 or null. keep = q / 256 (1 without
-// dropout), keep_q the dropout threshold (0 = none).
-extern "C" int nvt_flash_attention_f32_fwd(const void* q, const void* k,
-                                           const void* v, void* o, int B,
-                                           int N, int H, int D, int n_valid,
-                                           float scale_log2, float keep,
-                                           int keep_q, uint64_t seed,
-                                           void* lsum, void* stream) {
-  using namespace nvt;
+template <bool kBhnd>
+int launch_fwd(const void* q, const void* k, const void* v, void* o, int B,
+               int N, int H, int D, int n_valid, float scale_log2, float keep,
+               int keep_q, uint64_t seed, void* lsum, void* stream) {
   if (B < 1 || N < 1 || H < 1 || n_valid < 1 || n_valid > N || keep_q < 0 ||
       keep_q > 255 ||
       static_cast<long long>((N + kBQ - 1) / kBQ) * B * H > 0x7fffffffLL)
@@ -255,16 +251,16 @@ extern "C" int nvt_flash_attention_f32_fwd(const void* q, const void* k,
   cudaError_t err;
   switch (D) {
     case 32:
-      err = launch<32>(qf, kf, vf, of, lf, B, N, H, n_valid, scale_log2, keep,
-                       kq, seed, s);
+      err = launch<32, kBhnd>(qf, kf, vf, of, lf, B, N, H, n_valid,
+                              scale_log2, keep, kq, seed, s);
       break;
     case 64:
-      err = launch<64>(qf, kf, vf, of, lf, B, N, H, n_valid, scale_log2, keep,
-                       kq, seed, s);
+      err = launch<64, kBhnd>(qf, kf, vf, of, lf, B, N, H, n_valid,
+                              scale_log2, keep, kq, seed, s);
       break;
     case 128:
-      err = launch<128>(qf, kf, vf, of, lf, B, N, H, n_valid, scale_log2,
-                        keep, kq, seed, s);
+      err = launch<128, kBhnd>(qf, kf, vf, of, lf, B, N, H, n_valid,
+                               scale_log2, keep, kq, seed, s);
       break;
     default:
       err = cudaErrorInvalidValue;
@@ -272,8 +268,36 @@ extern "C" int nvt_flash_attention_f32_fwd(const void* q, const void* k,
   return static_cast<int>(err);
 }
 
-// Dynamic shared memory of a block of the instance at head dim D
-// (ops/flash_attention.py flash_f32_plan), or -1.
+}  // namespace
+}  // namespace nvt
+
+// K1 at f32. q, k, v, o [B, N, H, D] f32, D in {32, 64, 128} (the wrapper
+// zero-pads other head dims); lsum [B, H, N] f32 or null. keep = q / 256
+// (1 without dropout), keep_q the dropout threshold (0 = none).
+extern "C" int nvt_flash_attention_f32_fwd(const void* q, const void* k,
+                                           const void* v, void* o, int B,
+                                           int N, int H, int D, int n_valid,
+                                           float scale_log2, float keep,
+                                           int keep_q, uint64_t seed,
+                                           void* lsum, void* stream) {
+  return nvt::launch_fwd<false>(q, k, v, o, B, N, H, D, n_valid, scale_log2,
+                                keep, keep_q, seed, lsum, stream);
+}
+
+// K6 at f32: the same with q, k, v, o in [B, H, N, D].
+extern "C" int nvt_flash_attention_bhnd_f32_fwd(const void* q, const void* k,
+                                                const void* v, void* o, int B,
+                                                int N, int H, int D,
+                                                int n_valid, float scale_log2,
+                                                float keep, int keep_q,
+                                                uint64_t seed, void* lsum,
+                                                void* stream) {
+  return nvt::launch_fwd<true>(q, k, v, o, B, N, H, D, n_valid, scale_log2,
+                               keep, keep_q, seed, lsum, stream);
+}
+
+// Dynamic shared memory of a block of the instance at head dim D, either
+// layout (ops/flash_attention.py flash_f32_plan), or -1.
 extern "C" long long nvt_flash_attention_f32_smem_bytes(int D) {
   using namespace nvt;
   switch (D) {

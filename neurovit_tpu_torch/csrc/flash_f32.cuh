@@ -1,5 +1,6 @@
-// The pieces the f32 attention forward (flash_attention_f32.cu, K1 at
-// f32) and its backward (flash_attention_bwd_f32.cu, K5 at f32) share on
+// The pieces the f32 attention forward (flash_attention_f32.cu, K1 and K6
+// at f32) and its backward (flash_attention_bwd_f32.cu, K5 and K6's
+// backward at f32) share on
 // the CUDA cores: a block of 128 threads, tiles of f32 rows whose 16-byte
 // chunks are permuted by the row's quad (swz), the cp.async copy of a run
 // of a head's rows into such a tile, and the dropout bits of four
@@ -20,11 +21,11 @@ __device__ __forceinline__ int swz(int r, int c, int w) {
   return r * w + ((c ^ ((r >> 2) & 7)) << 2);
 }
 
-// Copy rows [r0, r0 + rows) of a head into a tile, zero-filling rows past
-// N; swizzled (kSwz) or as they lie.
-template <int D, int kRows, bool kSwz>
+// Copy rows [r0, r0 + rows) of a head (either layout) into a tile,
+// zero-filling rows past N; swizzled (kSwz) or as they lie.
+template <int D, int kRows, bool kSwz, bool kBhnd>
 __device__ __forceinline__ void stage_rows(float* dst, const float* src,
-                                           const HeadRows<false>& hr, int r0,
+                                           const HeadRows<kBhnd>& hr, int r0,
                                            int N) {
   constexpr int kChunks = D / 4;
   for (int c = threadIdx.x; c < kRows * kChunks; c += kThreads) {

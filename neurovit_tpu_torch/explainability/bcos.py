@@ -92,7 +92,6 @@ def explain(model, x) -> Tuple[np.ndarray, np.ndarray]:
     """Dynamic-linear contribution map (grad x input) of the stock model
     for the argmax class. x: [H, W, D] or [B, H, W, D] -> (contributions
     like x, class_idx) as numpy."""
-    model.refuse_f32_on_cuda("grad x input")
     x, squeeze = as_batch(model, x)
     with torch.no_grad():
         class_idx = model(x).argmax(dim=1)

@@ -24,7 +24,10 @@ model's channels ``c``. Methods (pytorch_grad_cam semantics):
                    -A[..., c] e_c (K6's forward, no backward)
 - ``gradcam-ref``  the reference's own variant (gradcam_vit3d)
 
-The forward methods run under ``torch.inference_mode()``, ``score_batch``
+``grid_cam`` runs the menu over any patch grid that a ``Grid`` describes
+(its fold, ScoreCAM masks and tail): ``compute_cam`` on the 3D ViT's cubic
+grid (``VOLUME``), ``vit_cam_2d.compute_cam_2d`` on the 2D one. The
+forward methods run under ``torch.inference_mode()``, ``score_batch``
 channels per forward. One deliberate difference from JAX: the orientation
 of the principal projections (``eigencam``, ``eigengradcam`` and
 ``eigen_smooth``), which JAX takes from rounding noise
@@ -35,7 +38,7 @@ localizers are ``gradcam-ref``, ``layercam`` and ``scorecam``.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -102,26 +105,19 @@ def _token_cam(method: str, acts: torch.Tensor, grads: torch.Tensor,
     return weighted.sum(dim=2)
 
 
-def _grad_cam_raw(model, x: torch.Tensor, method: str, eigen_smooth: bool):
-    """Raw patch-grid CAM [B, cs, cs, cs] (volume order) and class_idx."""
-    cs = model.vit_cfg.image_size // model.vit_cfg.image_patch_size
-    _, class_idx, acts, grads = probe_acts_grads(model, x)
-    cam = _token_cam(method, acts[:, 1:], grads[:, 1:], eigen_smooth)
-    return token_grid_to_volume(cam.reshape(x.shape[0], cs, cs, cs)), \
-        class_idx
+class Grid(NamedTuple):
+    """What the menu needs of a patch grid. ``fold(cam, cs)``: a flat token
+    CAM [B, S] onto the grid, in the input's axis order. ``scorecam_chunk(
+    model, x1, acts_chunk)``: the logits of x1 masked by each of K
+    activation channels [K, S], min-max normalized and upsampled to the
+    input. ``finalize(cam, size, threshold)``: the CAM tail."""
+    fold: Callable
+    scorecam_chunk: Callable
+    finalize: Callable
 
 
-# --------------------------------------------------------------------------
-# Forward-only methods
-# --------------------------------------------------------------------------
-
-def _probe_forward(model, x: torch.Tensor):
-    """(logits, f32 probe activations) of a zero-shift probe forward."""
-    cfg = model.vit_cfg
-    zeros = torch.zeros((x.shape[0], cfg.num_patches + 1, cfg.dim),
-                        device=x.device)
-    logits, acts = model.probe(x, zeros)
-    return logits, acts.float()
+def _grid_cells(model) -> int:
+    return model.vit_cfg.image_size // model.vit_cfg.image_patch_size
 
 
 def _channel_masks_hwd(acts_chunk: torch.Tensor, cs: int,
@@ -139,15 +135,57 @@ def _channel_masks_hwd(acts_chunk: torch.Tensor, cs: int,
     return (masks - lo) / (hi - lo + 1e-8)
 
 
-def _forward_cam_raw(model, x: torch.Tensor, method: str, score_batch: int,
-                     eigen_smooth: bool):
-    """ScoreCAM / AblationCAM: raw patch-grid CAM and class_idx, with
-    dim / score_batch forwards of ``score_batch`` volumes per sample."""
+def _scorecam_chunk_volume(model, x1: torch.Tensor,
+                           acts_chunk: torch.Tensor) -> torch.Tensor:
+    size = model.vit_cfg.image_size
+    return model(x1 * _channel_masks_hwd(acts_chunk, _grid_cells(model),
+                                         size))
+
+
+# The 3D ViT's cubic grid, folded (z, x, y) -> (x, y, z).
+VOLUME = Grid(
+    fold=lambda cam, cs: token_grid_to_volume(cam.reshape(-1, cs, cs, cs)),
+    scorecam_chunk=_scorecam_chunk_volume,
+    finalize=finalize_cam)
+
+
+def _grad_cam_raw(model, x: torch.Tensor, method: str, eigen_smooth: bool,
+                  grid: Grid = VOLUME):
+    """Raw patch-grid CAM (default: [B, cs, cs, cs], volume order) and
+    class_idx of a gradient method."""
+    _, class_idx, acts, grads = probe_acts_grads(model, x)
+    cam = _token_cam(method, acts[:, 1:], grads[:, 1:], eigen_smooth)
+    return grid.fold(cam, _grid_cells(model)), class_idx
+
+
+# --------------------------------------------------------------------------
+# Forward-only methods
+# --------------------------------------------------------------------------
+
+def _probe_forward(model, x: torch.Tensor):
+    """(logits, f32 probe activations) of a zero-shift probe forward."""
     cfg = model.vit_cfg
-    grid, dim = cfg.image_size, cfg.dim
-    cs = grid // cfg.image_patch_size
+    zeros = torch.zeros((x.shape[0], cfg.num_patches + 1, cfg.dim),
+                        device=x.device)
+    logits, acts = model.probe(x, zeros)
+    return logits, acts.float()
+
+
+def _forward_method_token_cam(model, x: torch.Tensor, method: str,
+                              score_batch: int, eigen_smooth: bool,
+                              scorecam_chunk: Callable
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ScoreCAM / AblationCAM scoring loop -> (flat token CAM [B, S],
+    class_idx), with dim / score_batch forwards of ``score_batch`` inputs
+    per sample after one zero-shift probe forward.
+
+    Grid-agnostic: grids differ only in how a chunk of activation channels
+    becomes input masks (``Grid.scorecam_chunk``); the ablation chunk (the
+    probe forward with the shift -A[..., c] e_c) works on any token
+    stream."""
     logits, acts = _probe_forward(model, x)
     class_idx = logits.argmax(dim=1)
+    dim = model.vit_cfg.dim
     # Pad the channel axis to whole chunks: one batch shape per model.
     n_chunks = -(-dim // score_batch)
     pad = n_chunks * score_batch - dim
@@ -158,9 +196,8 @@ def _forward_cam_raw(model, x: torch.Tensor, method: str, score_batch: int,
         if method == "scorecam":
             a_tok = F.pad(acts[i, 1:, :].t(), (0, 0, 0, pad))     # [C, S]
             for c0 in range(0, dim + pad, score_batch):
-                masks = _channel_masks_hwd(a_tok[c0:c0 + score_batch], cs,
-                                           grid)
-                scores.append(model(x1 * masks)[:, cls])
+                lg = scorecam_chunk(model, x1, a_tok[c0:c0 + score_batch])
+                scores.append(lg[:, cls])
             w = torch.softmax(torch.cat(scores)[:dim], dim=0)       # [C]
         else:                                                  # ablationcam
             acts1 = acts[i:i + 1]
@@ -179,9 +216,51 @@ def _forward_cam_raw(model, x: torch.Tensor, method: str, score_batch: int,
         weighted = w[None, None, :] * acts[i:i + 1, 1:, :]          # [1, S, C]
         cams.append(_principal_projection(weighted)[0] if eigen_smooth
                     else weighted[0].sum(dim=1))
-    cam = torch.stack(cams)
-    return token_grid_to_volume(cam.reshape(x.shape[0], cs, cs, cs)), \
-        class_idx
+    return torch.stack(cams), class_idx
+
+
+def _forward_cam_raw(model, x: torch.Tensor, method: str, score_batch: int,
+                     eigen_smooth: bool, grid: Grid = VOLUME):
+    """ScoreCAM / AblationCAM: raw patch-grid CAM (default: [B, cs, cs, cs],
+    volume order, ScoreCAM's masks trilinear upsamples) and class_idx."""
+    cam, class_idx = _forward_method_token_cam(
+        model, x, method, score_batch, eigen_smooth, grid.scorecam_chunk)
+    return grid.fold(cam, _grid_cells(model)), class_idx
+
+
+def grid_cam(model, x: torch.Tensor, method: str, grid: Grid,
+             threshold: Optional[float] = None, score_batch: int = 32,
+             aug_smooth: bool = False, eigen_smooth: bool = False
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Any gradient or forward method of the menu over ``grid``, on a batch
+    ``x`` on the model's device: (final CAM, class_idx) as tensors. The
+    flags are ``compute_cam``'s; aug_smooth's flip is axis 2 of the raw
+    grid CAM."""
+    if threshold is None:
+        threshold = float(model.config["GRADCAM_THRESHOLD"])
+
+    def raw_cam(xv):
+        if method in GRAD_METHODS:
+            return _grad_cam_raw(model, xv, method, eigen_smooth, grid)
+        with torch.inference_mode():
+            return _forward_cam_raw(model, xv, method, score_batch,
+                                    eigen_smooth, grid)
+
+    cam, class_idx = raw_cam(x)
+    if aug_smooth:
+        cams = [cam]
+        for flip in (False, True):
+            for scale in (0.9, 1.0, 1.1):
+                if not flip and scale == 1.0:
+                    continue            # identity: already computed
+                xi = x * scale
+                if flip:
+                    xi = xi.flip(2)
+                cam_i, _ = raw_cam(xi)
+                cams.append(cam_i.flip(2) if flip else cam_i)
+        cam = torch.stack(cams).mean(dim=0)
+    return grid.finalize(cam, model.vit_cfg.image_size,
+                         float(threshold)), class_idx
 
 
 # --------------------------------------------------------------------------
@@ -210,29 +289,7 @@ def compute_cam(model, x, method: str = "gradcam",
         from neurovit_tpu_torch.explainability.gradcam_vit3d import \
             get_attention_map
         return get_attention_map(model, x, threshold=threshold)
-    if threshold is None:
-        threshold = float(model.config["GRADCAM_THRESHOLD"])
     x, squeeze = as_batch(model, x)
-
-    def raw_cam(xv):
-        if method in GRAD_METHODS:
-            return _grad_cam_raw(model, xv, method, eigen_smooth)
-        with torch.inference_mode():
-            return _forward_cam_raw(model, xv, method, score_batch,
-                                    eigen_smooth)
-
-    cam, class_idx = raw_cam(x)
-    if aug_smooth:
-        cams = [cam]
-        for flip in (False, True):
-            for scale in (0.9, 1.0, 1.1):
-                if not flip and scale == 1.0:
-                    continue            # identity: already computed
-                xi = x * scale
-                if flip:
-                    xi = xi.flip(2)
-                cam_i, _ = raw_cam(xi)
-                cams.append(cam_i.flip(2) if flip else cam_i)
-        cam = torch.stack(cams).mean(dim=0)
-    cam = finalize_cam(cam, model.vit_cfg.image_size, float(threshold))
+    cam, class_idx = grid_cam(model, x, method, VOLUME, threshold,
+                              score_batch, aug_smooth, eigen_smooth)
     return to_numpy(cam, class_idx, squeeze)

@@ -27,7 +27,6 @@ from neurovit_tpu_torch.explainability.gradcam_vit3d import as_batch
 
 def _ig(model, x: torch.Tensor, baseline: torch.Tensor, steps: int):
     """(attributions like x, class_idx, logits of x)."""
-    model.refuse_f32_on_cuda("integrated gradients")
     with torch.no_grad():
         logits = model(x)
     class_idx = logits.argmax(dim=1)

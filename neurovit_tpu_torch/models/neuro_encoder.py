@@ -71,11 +71,6 @@ def not_ported(what: str, item: str) -> NotImplementedError:
         f"(ROADMAP.md, Queue 1: {item})")
 
 
-# The ROADMAP item of what the ViT cannot run at f32 on CUDA yet: K6 (the
-# Grad-CAM probe's attention) and its backward have no f32 instances there.
-F32_ON_CUDA = "f32 on CUDA"
-
-
 def int8_attn_mode(raw) -> str:
     """``SERVING_INT8_ATTN`` as the model's ``int8_attn``: unset gives
     "pv"; YAML parses bare on/off as booleans (True "pv", False "off");
@@ -189,16 +184,6 @@ class NeuroEncoder(tnn.Module):
         """The device of the parameters."""
         return next(self.parameters()).device
 
-    def refuse_f32_on_cuda(self, what: str) -> None:
-        """Raise ``not_ported`` for ``what`` on an f32 ViT whose parameters
-        lie on a CUDA device, before any kernel runs: there the block
-        kernels K1-K5 and K7-K9 and the int8 kernels K10-K13 take f32, K6
-        (the Grad-CAM probe's attention) and its backward bf16 only."""
-        if (self.encoder_kind == "vit"
-                and self.compute_dtype == torch.float32
-                and self.device.type == "cuda"):
-            raise not_ported(f"{what} of an f32 ViT on CUDA", F32_ON_CUDA)
-
     def encode_volume(self, volumes: torch.Tensor, *, train: bool = False,
                       seed: Optional[int] = None,
                       encoder: Optional[ViT3D] = None) -> torch.Tensor:
@@ -281,7 +266,6 @@ class NeuroEncoder(tnn.Module):
                              "CAMs are explainability.gradcam_resnet's")
         if self.is_4d:
             raise ValueError("the attention probe takes 3D volumes")
-        self.refuse_f32_on_cuda("the Grad-CAM probe")
         x = volumes.permute(0, 3, 1, 2)[:, None]      # [B, 1, D, H, W]
         return self.volume_encoder.vit3d.probe(x.to(self.compute_dtype),
                                                probe_shift)

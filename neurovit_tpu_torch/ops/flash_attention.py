@@ -41,12 +41,14 @@ takes the plain attention on every device, by shape alone, where JAX leaves
 Pallas for its dense XLA path (flash_attention.py:517-520); D > 128 is
 refused.
 
-f32 CUDA tensors in the bnhd layout run ``csrc/flash_attention_f32.cu``
-(K1 at f32, :func:`flash_f32_plan`) and ``csrc/flash_attention_bwd_f32.cu``
-(K5 at f32, :func:`flash_f32_bwd_plan`: the bf16 K5's two passes): FFMA
-products on the CUDA cores, P and dS not rounded, as the TPU kernels
-compute at f32, with instances for D in :data:`F32_HEAD_DIMS` (32, 64,
-128) and the same zero-padding of the others; not K6.
+f32 CUDA tensors run ``csrc/flash_attention_f32.cu`` (K1 and K6 at f32,
+:func:`flash_f32_plan`) and ``csrc/flash_attention_bwd_f32.cu`` (K5 and
+K6's backward at f32, :func:`flash_f32_bwd_plan`: the bf16 K5's two
+passes), each layout a template instance with its own launch symbol and
+count, as in bf16: FFMA products on the CUDA cores, P and dS not rounded,
+as the TPU kernels compute at f32, with instances for D in
+:data:`F32_HEAD_DIMS` (32, 64, 128) and the same zero-padding of the
+others.
 """
 
 from __future__ import annotations
@@ -100,13 +102,14 @@ FWD_ALIGN_SLACK = 1024
 MAX_GRID_X = 2 ** 31 - 1
 BWD_STAGES = 3
 BWD_STAT_BYTES = 64 * 4
-# K1 at f32 (csrc/flash_attention_f32.cu): head-dim instances, query rows
-# a block, keys a tile, threads a block.
+# K1 and K6 at f32 (csrc/flash_attention_f32.cu): head-dim instances, query
+# rows a block, keys a tile, threads a block.
 F32_HEAD_DIMS = (32, 64, 128)
 F32_BQ, F32_BKV, F32_THREADS = 64, 32, 128
-# K5 at f32 (csrc/flash_attention_bwd_f32.cu): rows a block of either pass
-# (query rows in pass 1, keys in pass 2), keys a tile of pass 1 and
-# queries a tile of pass 2, and pass 2's columns of dK and dV a block.
+# K5 and K6's backward at f32 (csrc/flash_attention_bwd_f32.cu): rows a
+# block of either pass (query rows in pass 1, keys in pass 2), keys a tile
+# of pass 1 and queries a tile of pass 2, and pass 2's columns of dK and dV
+# a block.
 F32_BWD_ROWS, F32_BWD_TILE, F32_BWD_COLS = 64, 32, 64
 
 
@@ -181,12 +184,13 @@ def flash_fwd_plan(b: int, n: int, h: int, d: int, layout: str) -> FwdPlan:
 
 
 class F32FwdPlan(NamedTuple):
-    """How one launch of K1 at f32 covers [B, N, H, D]: the head-dim
-    instance ``d_kernel`` (q, k and v zero-padded to it), ``bq`` query rows
-    a block of ``threads`` on a one-dimensional grid of (q tiles x B * H),
-    q tiles fastest; ``bkv`` keys a tile, two tiles of K and V in flight;
-    ``smem`` bytes of dynamic shared memory a block (the Q tile, two K and
-    two V tiles, the P tile, all f32)."""
+    """How one launch of K1 or K6 at f32 covers [B, N, H, D] or
+    [B, H, N, D] (the layout moves only where a head's rows lie): the
+    head-dim instance ``d_kernel`` (q, k and v zero-padded to it), ``bq``
+    query rows a block of ``threads`` on a one-dimensional grid of (q tiles
+    x B * H), q tiles fastest; ``bkv`` keys a tile, two tiles of K and V in
+    flight; ``smem`` bytes of dynamic shared memory a block (the Q tile,
+    two K and two V tiles, the P tile, all f32)."""
     d_kernel: int
     bq: int
     bkv: int
@@ -201,10 +205,12 @@ def f32_head_dim(d: int) -> int:
 
 
 def flash_f32_plan(b: int, n: int, h: int, d: int) -> F32FwdPlan:
-    """K1 f32's plan for q, k, v [b, n, h, d] (the kernel's own count of
-    the shared memory is ``nvt_flash_attention_f32_smem_bytes``). Raises
-    where the kernel does not take the shape: the head dims and grids K1
-    takes in bf16."""
+    """The f32 forward's plan for q, k, v of batch ``b``, ``n`` tokens,
+    ``h`` heads of ``d``, in either layout: K1 (bnhd) and K6 (bhnd) at f32
+    share the grid and the shared memory, since the layout moves only
+    where a head's rows lie (the kernel's own count of the shared memory
+    is ``nvt_flash_attention_f32_smem_bytes``). Raises where the kernel
+    does not take the shape: the head dims and grids K1 takes in bf16."""
     d_kernel = f32_head_dim(d)
     _check_grid("forward", b, n, h)
     smem = (F32_BQ * d_kernel + 4 * F32_BKV * d_kernel + F32_BQ * F32_BKV) * 4
@@ -215,11 +221,12 @@ def flash_f32_plan(b: int, n: int, h: int, d: int) -> F32FwdPlan:
 
 
 class F32BwdPlan(NamedTuple):
-    """How one launch of K5 at f32 covers [B, N, H, D]: the head-dim
-    instance ``d_kernel`` (every operand zero-padded to it); ``rows`` rows a
-    block of ``threads`` in both passes (query rows in pass 1, keys in
-    pass 2), ``tile`` keys a tile of pass 1 and queries a tile of pass 2;
-    pass 2's blocks each take ``cols`` columns of dK and dV; the
+    """How one launch of K5 or K6's backward at f32 covers [B, N, H, D] or
+    [B, H, N, D]: the head-dim instance ``d_kernel`` (every operand
+    zero-padded to it); ``rows`` rows a block of ``threads`` in both
+    passes (query rows in pass 1, keys in pass 2), ``tile`` keys a tile of
+    pass 1 and queries a tile of pass 2; pass 2's blocks each take
+    ``cols`` columns of dK and dV; the
     one-dimensional grids ``dq_grid`` (q tiles x B * H) and ``dkv_grid``
     (key tiles x column parts x B * H), tiles fastest; ``dq_smem`` (Q, dO,
     two K and two V tiles, dS) and ``dkv_smem`` (K, V, two Q and two dO
@@ -237,10 +244,12 @@ class F32BwdPlan(NamedTuple):
 
 
 def flash_f32_bwd_plan(b: int, n: int, h: int, d: int) -> F32BwdPlan:
-    """K5 f32's plan for q, k, v, o, dO [b, n, h, d] (the kernel's own
-    count of the shared memory is ``nvt_flash_attention_f32_bwd_smem_bytes``).
-    Raises where the kernel does not take the shape: the head dims and
-    grids K5 takes in bf16."""
+    """The f32 backward's plan for q, k, v, o, dO of batch ``b``, ``n``
+    tokens, ``h`` heads of ``d``, in either layout: K5 (bnhd) and K6's
+    backward (bhnd) at f32 share the grids and the shared memory (the
+    kernel's own count of the latter is
+    ``nvt_flash_attention_f32_bwd_smem_bytes``). Raises where the kernel
+    does not take the shape: the head dims and grids K5 takes in bf16."""
     d_kernel = f32_head_dim(d)
     _check_grid("backward", b, n, h)
     rows, tile = F32_BWD_ROWS, F32_BWD_TILE
@@ -595,18 +604,51 @@ def flash_attention_bhnd_bwd_cuda(q, k, v, o, do, lsum, *, scale: float,
 
 flash_attention_bhnd_bwd_cuda.launches = 0
 
+
+def flash_attention_bhnd_f32_cuda(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, *, scale: float,
+                                  n_valid: Optional[int] = None,
+                                  dropout_rate: float = 0.0, seed: int = 0,
+                                  return_stats: bool = False):
+    """Launch K6 at f32 (:func:`flash_f32_plan`): f32 [B, H, N, D],
+    contiguous, 8 <= D <= 128, read and written in place; exact f32
+    products on the CUDA cores."""
+    out = _fwd_cuda("nvt_flash_attention_bhnd_f32_fwd", "bhnd", q, k, v,
+                    scale=scale, n_valid=n_valid, dropout_rate=dropout_rate,
+                    seed=seed, return_stats=return_stats, f32=True)
+    flash_attention_bhnd_f32_cuda.launches += 1
+    return out
+
+
+flash_attention_bhnd_f32_cuda.launches = 0
+
+
+def flash_attention_bhnd_bwd_f32_cuda(q, k, v, o, do, lsum, *, scale: float,
+                                      n_valid: int, dropout_rate: float = 0.0,
+                                      seed: int = 0):
+    """Launch K6's backward at f32 (K5 f32's two passes in the bhnd
+    layout, :func:`flash_f32_bwd_plan`); returns dq, dk, dv [B, H, N, D]
+    f32."""
+    out = _bwd_cuda("nvt_flash_attention_bhnd_f32_bwd", "bhnd", q, k, v, o,
+                    do, lsum, scale=scale, n_valid=n_valid,
+                    dropout_rate=dropout_rate, seed=seed, f32=True)
+    flash_attention_bhnd_bwd_f32_cuda.launches += 1
+    return out
+
+
+flash_attention_bhnd_bwd_f32_cuda.launches = 0
+
 # Per layout: the forward's and the backward's (plain, bf16 kernel, f32
-# kernel). K6 has no f32 instance yet: its bf16 kernels stand in the f32
-# place, and raise for f32 operands.
+# kernel).
 _IMPLS = {
     "bnhd": ((flash_attention_plain, flash_attention_cuda,
               flash_attention_f32_cuda),
              (flash_attention_bwd_plain, flash_attention_bwd_cuda,
               flash_attention_bwd_f32_cuda)),
     "bhnd": ((flash_attention_bhnd_plain, flash_attention_bhnd_cuda,
-              flash_attention_bhnd_cuda),
+              flash_attention_bhnd_f32_cuda),
              (flash_attention_bhnd_bwd_plain, flash_attention_bhnd_bwd_cuda,
-              flash_attention_bhnd_bwd_cuda)),
+              flash_attention_bhnd_bwd_f32_cuda)),
 }
 
 
@@ -614,8 +656,8 @@ def _impl(layout: str, backward: bool, q: torch.Tensor,
           *tensors: torch.Tensor):
     """The forward (or backward) of a call: the plain version where
     ``uses_kernel`` says so (CPU operands, head dim < 8), else
-    ``common.pick``'s (plain, K1 or K6, K1 at f32; plain, K5 or K6's
-    backward, K5 at f32)."""
+    ``common.pick``'s (plain, K1 or K6, K1 or K6 at f32; plain, K5 or K6's
+    backward, at bf16 or f32)."""
     impls = _IMPLS[layout][backward]
     if not uses_kernel(q, *tensors):
         return impls[0]
@@ -656,8 +698,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     layout; keys at or past ``n_valid`` (default N) get zero weight;
     probabilities dropped at ``dropout_rate`` with the site key ``seed``.
     Differentiable when an input requires grad. CPU tensors take the plain
-    version, CUDA tensors the kernels (bf16, or f32 in the bnhd layout;
-    head dim < 8: the plain version on either device)."""
+    version, CUDA tensors the kernels (bf16 or f32, either layout; head
+    dim < 8: the plain version on either device)."""
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
     n_valid = _n_valid(q, n_valid, layout)

@@ -2324,6 +2324,133 @@ def test_f32_train_step_runs_the_f32_kernels(cuda):
             <= 1e-4, name
 
 
+# K6 and its backward at f32 (the bhnd instances of
+# csrc/flash_attention_f32.cu and csrc/flash_attention_bwd_f32.cu), at
+# chip_smoke.py's shapes: the flagship probe's block, n_valid 900, and head
+# dims 16 (padded to 32), 32, 64 and 128 on the 2D tutorial's 197 tokens.
+K6_F32_CASES = [(8, 1001, 1001, 8, 64), (2, 1001, 900, 2, 64),
+                (2, 197, 197, 2, 16), (2, 197, 197, 2, 32),
+                (2, 197, 197, 2, 64), (2, 197, 197, 2, 128)]
+
+
+def _bnhd(t):
+    return t.transpose(1, 2).contiguous()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,n,n_valid,h,d", K6_F32_CASES)
+def test_flash_attention_bhnd_f32_kernel(cuda, b, n, n_valid, h, d, rate):
+    """K6 at f32 with its row sums against plain, one launch a call and
+    no other attention kernel, two calls bit-equal, and bit-equal to K1 at
+    f32 on the same heads in [B, N, H, D] (one kernel, two layouts)."""
+    rng = np.random.default_rng(n + d + 3)
+    q, k, v = (_f32(rng, (b, h, n, d), cuda) for _ in range(3))
+    kw = {"scale": d ** -0.5, "n_valid": n_valid, "dropout_rate": rate,
+          "seed": 5, "return_stats": True}
+    counted = (fa.flash_attention_bhnd_f32_cuda, fa.flash_attention_bhnd_cuda,
+               fa.flash_attention_f32_cuda)
+    before = [fn.launches for fn in counted]
+    got = fa.flash_attention(q, k, v, scale=kw["scale"], n_valid=n_valid,
+                             dropout_rate=rate, seed=5, layout="bhnd")
+    _check_f32(got, fa.flash_attention_bhnd_plain(q, k, v, **dict(
+        kw, return_stats=False)))
+    assert [fn.launches - b_ for fn, b_ in zip(counted, before)] == [1, 0, 0]
+    o, lsum = fa.flash_attention_bhnd_f32_cuda(q, k, v, **kw)
+    _check_f32((o, lsum), fa.flash_attention_bhnd_plain(q, k, v, **kw))
+    again = fa.flash_attention_bhnd_f32_cuda(q, k, v, **kw)
+    assert torch.equal(o, again[0]) and torch.equal(lsum, again[1])
+    o1, lsum1 = fa.flash_attention_f32_cuda(_bnhd(q), _bnhd(k), _bnhd(v),
+                                            **kw)
+    assert torch.equal(_bnhd(o1), o) and torch.equal(lsum1, lsum)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,n,n_valid,h,d", K6_F32_CASES)
+def test_flash_attention_bhnd_bwd_f32_kernel(cuda, b, n, n_valid, h, d,
+                                             rate):
+    """K6's backward at f32 against plain on the forward's o and row sums,
+    one launch a call and no other attention backward, two calls
+    bit-equal, bit-equal to K5 at f32 in [B, N, H, D], and no gradient for
+    keys at or past n_valid."""
+    rng = np.random.default_rng(n + d + 4)
+    q, k, v, do = (_f32(rng, (b, h, n, d), cuda) for _ in range(4))
+    kw = {"scale": d ** -0.5, "n_valid": n_valid, "dropout_rate": rate,
+          "seed": 7}
+    o, lsum = fa.flash_attention_bhnd_plain(q, k, v, return_stats=True, **kw)
+    counted = (fa.flash_attention_bhnd_bwd_f32_cuda,
+               fa.flash_attention_bhnd_bwd_cuda,
+               fa.flash_attention_bwd_f32_cuda)
+    before = [fn.launches for fn in counted]
+    got = fa.flash_attention_bhnd_bwd_f32_cuda(q, k, v, o, do, lsum, **kw)
+    assert [fn.launches - b_ for fn, b_ in zip(counted, before)] == [1, 0, 0]
+    _check_f32_bwd(got, fa.flash_attention_bhnd_bwd_plain(q, k, v, o, do,
+                                                          lsum, **kw))
+    again = fa.flash_attention_bhnd_bwd_f32_cuda(q, k, v, o, do, lsum, **kw)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    bnhd = fa.flash_attention_bwd_f32_cuda(
+        *(_bnhd(t) for t in (q, k, v, o, do)), lsum, **kw)
+    assert all(torch.equal(_bnhd(a), g) for a, g in zip(bnhd, got))
+    if n_valid < n:
+        assert not got[1][:, :, n_valid:].abs().max()
+        assert not got[2][:, :, n_valid:].abs().max()
+
+
+def test_f32_probe_runs_k6_f32(cuda):
+    """An f32 ViT's probe forward and backward on the card: one K6 f32
+    forward and one backward, K1-K3 f32 once for block 0, K4 f32 once a
+    block, K9 f32 once (the last block's MLP under the gradient), no bf16
+    kernel; the logits, the probe's activations and gradients and the raw
+    CAM within 1e-4 of their largest magnitude of the CPU plain path's, and
+    the classes equal. The LayerNorm affines are moved off their init (at
+    ones and zeros the raw CAM is rounding noise, as
+    tests/test_torch_gradcam.py says)."""
+    from neurovit_tpu_torch.config import load_config
+    from neurovit_tpu_torch.explainability import gradcam_vit3d as gc
+    from neurovit_tpu_torch.models import NeuroEncoder
+
+    config = load_config(overrides={
+        "TRAINING_VIT_INPUT_SIZE": 20, "TRAINING_VIT_PATCH_SIZE": 5,
+        "DATASET_NAME": "adni", "TRAINING_PRECISION": "f32",
+        "MODEL_VIT_DIM": 256, "MODEL_VIT_DEPTH": 2, "MODEL_VIT_HEADS": 4,
+        "MODEL_VIT_DIM_HEAD": 64, "MODEL_VIT_MLP_DIM": 512})
+    f32 = (fa.flash_attention_bhnd_f32_cuda,
+           fa.flash_attention_bhnd_bwd_f32_cuda, fa.flash_attention_f32_cuda,
+           fused_qkv.fused_ln_qkv_f32_cuda,
+           fused_outproj.fused_outproj_residual_f32_cuda,
+           fused_mlp.fused_mlp_block_f32_cuda,
+           fused_mlp.fused_mlp_bwd_f32_cuda)
+    bf16 = (fa.flash_attention_bhnd_cuda, fa.flash_attention_bhnd_bwd_cuda,
+            fa.flash_attention_cuda, fused_mlp.fused_mlp_block_cuda)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 20, 20, 20)).astype(np.float32))
+    cpu = NeuroEncoder(config, device="cpu", seed=4)
+    rng = np.random.default_rng(5)
+    with torch.no_grad():
+        for module in cpu.modules():
+            if isinstance(module, torch.nn.LayerNorm):
+                module.weight.add_(torch.from_numpy(0.3 * rng.standard_normal(
+                    tuple(module.weight.shape)).astype(np.float32)))
+                module.bias.add_(torch.from_numpy(0.3 * rng.standard_normal(
+                    tuple(module.bias.shape)).astype(np.float32)))
+    out = {}
+    for device in ("cpu", cuda):
+        model = NeuroEncoder(config, device=device, seed=4)
+        model.load_state_dict(cpu.state_dict())
+        before = [fn.launches for fn in f32 + bf16]
+        logits, idx, acts, grads = gc.probe_acts_grads(model, x.to(device))
+        torch.cuda.synchronize()
+        if device == cuda:
+            assert [fn.launches - b for fn, b in zip(f32 + bf16, before)] \
+                == [1] * 5 + [2, 1] + [0] * 4
+        raw = gc.raw_attention_map(model, acts, grads)
+        out[str(device)] = [t.detach().cpu() for t in
+                            (idx, logits, acts, grads, raw)]
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    for got, want in zip(out["cuda"][1:], out["cpu"][1:]):
+        assert float((got - want).abs().max()) <= 1e-4 * float(
+            want.abs().max())
+
+
 # K10-K13 at f32 (the int8 serving of an f32 ViT): the f32 instances of
 # csrc/int8_{rowquant,qkv,outproj,mlp}.cu and csrc/int8_attention_f32.cu.
 # Their int32 products are exact on both sides; an f32 LayerNorm or GELU

@@ -1,4 +1,4 @@
-"""The f32 forwards K1-K4 and backwards K5, K7, K8 and K9 (csrc/*_f32.cu,
+"""The f32 forwards K1-K4 and K6 and backwards K5-K9 (csrc/*_f32.cu,
 csrc/ffma.cuh) as far as the CPU reaches them: their plans at the
 flagship, at 130 rows, at every width of ``models/vit3d.py`` WIDTHS and
 the smoke model's, and at head dims 32, 64 and 128; the kernels' index
@@ -6,8 +6,10 @@ maps (the GEMM's staging copies of B [N, K] and of B [K, N], the
 attention's permuted chunks) modelled in numpy; their dropout bytes
 against ``nn.keep_mask``; and the dispatch rule (CPU tensors run the
 plain versions, f32 CUDA tensors the f32 kernels, bf16 ones the bf16
-kernels), forward and backward. The kernels themselves run on the card
-only (tests/test_torch_cuda.py, chip_smoke.py's ``f32`` phase).
+kernels), forward and backward, in both attention layouts; what the
+attention wrappers hand their entry points, with the launch stubbed. The
+kernels themselves run on the card only (tests/test_torch_cuda.py,
+chip_smoke.py's ``f32`` phase).
 """
 
 import numpy as np
@@ -29,7 +31,9 @@ F32_COUNTED = (fa.flash_attention_f32_cuda, fused_qkv.fused_ln_qkv_f32_cuda,
                fa.flash_attention_bwd_f32_cuda,
                fused_qkv.fused_ln_qkv_bwd_f32_cuda,
                fused_outproj.fused_outproj_bwd_f32_cuda,
-               fused_mlp.fused_mlp_bwd_f32_cuda)
+               fused_mlp.fused_mlp_bwd_f32_cuda,
+               fa.flash_attention_bhnd_f32_cuda,
+               fa.flash_attention_bhnd_bwd_f32_cuda)
 # Rows: one volume, 130, the flagship at batch 8 and 32 (1001 tokens).
 ROWS = [1001, 130, 8008, 32032]
 # The verify recipe's smoke model: dim 64, 4 heads of 16, MLP 128.
@@ -136,7 +140,8 @@ def test_flash_f32_bwd_plan(d, d_kernel, b, n):
     """K5 at f32: K1 f32's instances, 64 rows a block of 128 threads in
     both passes, 32 keys (pass 1) or queries (pass 2) a tile, pass 2's
     blocks splitting D = 128 into two 64-column halves; shared memory under
-    227 KB."""
+    227 KB. It is K6's backward's at f32 too (the layout moves only where
+    a head's rows lie; test_bhnd_f32_wrappers_launch_as_bnhd_f32)."""
     plan = fa.flash_f32_bwd_plan(b, n, 8, d)
     assert plan.d_kernel == d_kernel == fa.f32_head_dim(d)
     assert (plan.rows, plan.tile, plan.threads) == (64, 32, 128)
@@ -187,7 +192,8 @@ def test_f32_bwd_plans_refuse_what_bf16_refuses():
 def test_flash_f32_plan(d, d_kernel, b, n):
     """K1 at f32: instances at 32, 64 and 128 (other head dims padded), a
     64-row query tile a block of 128 threads, 32 keys a tile; shared
-    memory (Q, two K and two V tiles, P) under 227 KB."""
+    memory (Q, two K and two V tiles, P) under 227 KB. It is K6's at f32
+    too (test_bhnd_f32_wrappers_launch_as_bnhd_f32)."""
     plan = fa.flash_f32_plan(b, n, 8, d)
     assert plan.d_kernel == d_kernel == fa.f32_head_dim(d)
     assert (plan.bq, plan.bkv, plan.threads) == (64, 32, 128)
@@ -372,7 +378,7 @@ def test_cpu_f32_runs_the_plain_versions_and_counts_nothing():
         if grad:
             out.sum().backward()
             assert all(p.grad is not None for p in params)
-    assert [fn.launches for fn in F32_COUNTED] == before == [0] * 8
+    assert [fn.launches for fn in F32_COUNTED] == before == [0] * 10
 
 
 @pytest.mark.parametrize("dtype,kernel", [
@@ -382,7 +388,7 @@ def test_dispatch_on_card_tensors(monkeypatch, dtype, kernel):
     """With operands taken as on the card: f32 picks each op's f32
     kernel, forward and backward, bf16 its bf16 kernel, and any other
     dtype the bf16 kernel, which raises for it (there is no fallback);
-    bhnd f32 is K6's, which takes bf16 only."""
+    in the bhnd layout the same with K6's kernels."""
     for module in (common, fa):
         monkeypatch.setattr(module, "on_cpu", lambda *_: False)
     x = torch.zeros(1, 4, 64, dtype=dtype)
@@ -419,8 +425,11 @@ def test_dispatch_on_card_tensors(monkeypatch, dtype, kernel):
                  "outproj_bwd": fused_outproj.fused_outproj_bwd_cuda,
                  "mlp_bwd": fused_mlp.fused_mlp_bwd_cuda}}[kernel]
     assert picks == want
-    assert fa._impl("bhnd", False, q) is fa.flash_attention_bhnd_cuda
-    assert fa._impl("bhnd", True, q) is fa.flash_attention_bhnd_bwd_cuda
+    bhnd = {"f32": (fa.flash_attention_bhnd_f32_cuda,
+                    fa.flash_attention_bhnd_bwd_f32_cuda),
+            "bf16": (fa.flash_attention_bhnd_cuda,
+                     fa.flash_attention_bhnd_bwd_cuda)}[kernel]
+    assert (fa._impl("bhnd", False, q), fa._impl("bhnd", True, q)) == bhnd
 
 
 def test_f32_wrappers_refuse_cpu_tensors():
@@ -446,8 +455,77 @@ def test_f32_wrappers_refuse_cpu_tensors():
         lambda: fused_outproj.fused_outproj_bwd_f32_cuda(x, t(64, 32)),
         lambda: fused_mlp.fused_mlp_bwd_f32_cuda(
             x, x, t(1, 5, 128), t(64), t(64), t(128, 64), t(64, 128)),
+        lambda: fa.flash_attention_bhnd_f32_cuda(
+            t(1, 2, 5, 32), t(1, 2, 5, 32), t(1, 2, 5, 32), scale=0.2),
+        lambda: fa.flash_attention_bhnd_bwd_f32_cuda(
+            *(t(1, 2, 5, 32) for _ in range(5)), t(1, 2, 5), scale=0.2,
+            n_valid=5),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA tensor"):
             call()
     assert [fn.launches for fn in F32_COUNTED] == before
+
+
+# ---------------------------------------------------------------------------
+# What the attention wrappers hand their entry points (launch stubbed)
+# ---------------------------------------------------------------------------
+
+ATTENTION_COUNTED = (fa.flash_attention_cuda, fa.flash_attention_f32_cuda,
+                     fa.flash_attention_bhnd_cuda,
+                     fa.flash_attention_bhnd_f32_cuda,
+                     fa.flash_attention_bwd_cuda,
+                     fa.flash_attention_bwd_f32_cuda,
+                     fa.flash_attention_bhnd_bwd_cuda,
+                     fa.flash_attention_bhnd_bwd_f32_cuda)
+
+
+def _attention_launch(monkeypatch, wrapper, layout, backward):
+    """(symbol, argtypes, the arguments that are not pointers) that an
+    attention wrapper hands ``launch`` on q, k, v (and o, dO, the row sums)
+    of batch 2, 9 tokens, 3 heads of 16 in ``layout``, with the operand
+    checks and the launch replaced by a record."""
+    seen = []
+    monkeypatch.setattr(fa, "check_operand", lambda *a, **k: None)
+    monkeypatch.setattr(fa, "launch", lambda symbol, argtypes, like, *args:
+                        seen.append((symbol, argtypes, args)))
+    b, n, h, d = 2, 9, 3, 16
+    shape = (b, n, h, d) if layout == "bnhd" else (b, h, n, d)
+    kw = dict(scale=0.25, n_valid=7, dropout_rate=0.1, seed=3)
+    if backward:
+        wrapper(*(torch.zeros(shape) for _ in range(5)),
+                torch.zeros(b, h, n), **kw)
+    else:
+        wrapper(*(torch.zeros(shape) for _ in range(3)), return_stats=True,
+                **kw)
+    (symbol, argtypes, args), = seen
+    return symbol, argtypes, [a for a in args if not hasattr(a, "value")]
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_bhnd_f32_wrappers_launch_as_bnhd_f32(monkeypatch, backward):
+    """K6 f32's wrappers call ``nvt_flash_attention_bhnd_f32_{fwd,bwd}``
+    with the argument types and scalars the bnhd f32 wrappers pass (b, n,
+    h, the head-dim instance of the plan both layouts share, n_valid, the
+    scales and the dropout's), and each launch counts on its own wrapper
+    alone. The counters are restored after the test."""
+    for fn in ATTENTION_COUNTED:
+        monkeypatch.setattr(fn, "launches", fn.launches)
+    before = [fn.launches for fn in ATTENTION_COUNTED]
+    suffix = "bwd" if backward else "fwd"
+    bnhd = _attention_launch(monkeypatch,
+                             getattr(fa, f"flash_attention{'_bwd' * backward}"
+                                         "_f32_cuda"), "bnhd", backward)
+    bhnd = _attention_launch(monkeypatch,
+                             getattr(fa, "flash_attention_bhnd"
+                                         f"{'_bwd' * backward}_f32_cuda"),
+                             "bhnd", backward)
+    assert bnhd[0] == f"nvt_flash_attention_f32_{suffix}"
+    assert bhnd[0] == f"nvt_flash_attention_bhnd_f32_{suffix}"
+    assert bhnd[1:] == bnhd[1:]
+    plan = (fa.flash_f32_bwd_plan if backward else fa.flash_f32_plan)(
+        2, 9, 3, 16)
+    assert bhnd[2][:5] == [2, 9, 3, plan.d_kernel, 7]
+    grew = [fn.launches - b for fn, b in zip(ATTENTION_COUNTED, before)]
+    assert grew == ([0, 0, 0, 0, 0, 1, 0, 1] if backward
+                    else [0, 1, 0, 1, 0, 0, 0, 0])

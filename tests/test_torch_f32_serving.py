@@ -3,10 +3,11 @@ CPU reaches them: the f32 ``Predictor`` against the JAX ``Predictor`` on
 its Pallas kernels (interpret mode) with weights carried by
 ``from_jax_params``; the f32 runs the trainer takes on CUDA (the 4D model,
 its int8 encoder, which K10-K13's f32 instances run, and the 3D ViT);
-Grad-CAM, integrated gradients and grad x input of an f32 ViT on CUDA
-refused at their entry points before any op runs, and int8 serving of it
-built there; and the model's own f32 products (patch embedding, head,
-temporal head) at full f32 whatever the caller set.
+Grad-CAM, integrated gradients, grad x input, int8 serving and the 2D CAM
+tutorial of an f32 ViT, with the ops taken as on the card, reaching the
+f32 kernels (K6 f32 among them) and no bf16 one; and the model's own f32
+products (patch embedding, head, temporal head) at full f32 whatever the
+caller set.
 
 Tolerance against JAX: rtol = atol = 1e-4 (f32 sums taken in another
 order, as tests/test_torch_ops.py).
@@ -26,7 +27,6 @@ from neurovit_tpu_torch import nn
 from neurovit_tpu_torch.config import load_config
 from neurovit_tpu_torch.explainability import bcos, integrated_gradients
 from neurovit_tpu_torch.models import NeuroEncoder
-from neurovit_tpu_torch.models import vit3d
 from neurovit_tpu_torch.serving import Predictor
 from neurovit_tpu_torch.training.state_dict import from_jax_params
 from neurovit_tpu_torch.training.trainer import check_supported
@@ -87,68 +87,102 @@ def test_check_supported_at_f32_on_cuda(extra):
         check_supported(config, torch.device(device))
 
 
-@pytest.fixture
-def f32_model_on_cuda(monkeypatch):
-    """A tiny f32 ViT that reports its parameters on CUDA, with every op
-    of its blocks replaced by one that fails the test if it runs."""
-    model = NeuroEncoder(_config(), device="cpu", seed=1)
-    monkeypatch.setattr(NeuroEncoder, "device",
-                        property(lambda self: torch.device("cuda")))
+def _as_on_card(monkeypatch):
+    """The ops taken as on the card: their dispatch sees CUDA operands, the
+    operand checks pass, and each launch is recorded (its entry point's
+    name) in place of running, the outputs left as allocated (zeros here).
+    The wrappers' launch counters are restored after the test."""
+    from neurovit_tpu_torch.ops import (common, fused_mlp, fused_outproj,
+                                        fused_qkv, int8_serving)
+    from neurovit_tpu_torch.ops import flash_attention as fa
 
-    def ran(*args, **kwargs):
-        raise AssertionError("an op of the blocks ran before the refusal")
+    seen = []
+    for mod in (common, fa, fused_qkv, fused_outproj, fused_mlp,
+                int8_serving):
+        for name, value in (
+                ("on_cpu", lambda *_: False),
+                ("check_operand", lambda *a, **k: None),
+                ("launch", lambda symbol, *a: seen.append(symbol))):
+            if hasattr(mod, name):
+                monkeypatch.setattr(mod, name, value)
+        for fn in list(vars(mod).values()):
+            if callable(fn) and hasattr(fn, "launches"):
+                monkeypatch.setattr(fn, "launches", fn.launches)
+    monkeypatch.setattr(torch, "empty", torch.zeros)
+    monkeypatch.setattr(torch, "empty_like", torch.zeros_like)
+    return seen
 
-    for name in ("fused_ln_qkv", "flash_attention", "fused_outproj_residual",
-                 "fused_mlp_block", "sdpa", "int8_ln_qkv",
-                 "int8_flash_attention", "int8_outproj_residual",
-                 "int8_mlp_block", "quantize_weight"):
-        monkeypatch.setattr(vit3d, name, ran)
-    return model
+
+K6_F32 = ["nvt_flash_attention_bhnd_f32_fwd",
+          "nvt_flash_attention_bhnd_f32_bwd"]
+F32_FORWARDS = ["nvt_fused_ln_qkv_f32_fwd", "nvt_flash_attention_f32_fwd",
+                "nvt_fused_outproj_f32_fwd", "nvt_fused_mlp_f32_fwd"]
+F32_BACKWARDS = ["nvt_fused_ln_qkv_f32_bwd", "nvt_flash_attention_f32_bwd",
+                 "nvt_fused_outproj_f32_bwd", "nvt_fused_mlp_f32_bwd"]
+INT8_F32 = ["nvt_int8_ln_qkv_f32", "nvt_int8_attention_f32",
+            "nvt_int8_outproj_f32", "nvt_int8_mlp_f32"]
 
 
 @pytest.mark.parametrize("entry", ["gradcam", "menu", "ig", "grad_x_input",
-                                   "int8"])
-def test_f32_on_cuda_refused_at_the_entry_point(f32_model_on_cuda,
-                                                monkeypatch, entry):
-    """Grad-CAM (get_attention_map and the menu), integrated gradients and
-    grad x input of an f32 ViT on CUDA raise not_ported ("f32 on CUDA")
-    before any op of the blocks runs. int8 serving of it is not refused
-    (K10-K13 have f32 instances): Predictor(quant="int8") builds,
-    quantizing the blocks and running none of their ops."""
+                                   "int8", "vit_cam_2d"])
+def test_f32_on_cuda_refused_at_the_entry_point(monkeypatch, entry):
+    """Nothing is refused for an f32 ViT on the card: Grad-CAM
+    (get_attention_map and the menu), integrated gradients, grad x input,
+    int8 serving and the 2D CAM tutorial, with the ops taken as on the
+    card, reach the f32 kernels and no bf16 one. A probe runs K6 at f32
+    once forward and once backward (the last block) beside K1-K4 f32 and
+    K9 f32 (the last block's MLP under the gradient); IG and grad x input
+    differentiate the volume through every block (K1-K5, K7-K9 f32, no K6);
+    int8 serving runs K10-K13 f32."""
+    from neurovit_tpu_torch.explainability import vit_cam_2d
     from neurovit_tpu_torch.explainability.cam_methods import compute_cam
-    from neurovit_tpu_torch.ops.int8_serving import quantize_weight
 
-    model = f32_model_on_cuda
+    seen = _as_on_card(monkeypatch)
+    model = NeuroEncoder(_config(), device="cpu", seed=1)
     x = _vols(0, 1)[0]
-    if entry == "int8":
-        monkeypatch.setattr(vit3d, "quantize_weight", quantize_weight)
-        predictor = Predictor(model, batch_size=2, quant="int8")
-        assert predictor.quant == "int8"
-        assert model.volume_encoder.vit3d.quantized
-        return
     calls = {
         "gradcam": lambda: model.get_attention_map(x),
         "menu": lambda: compute_cam(model, x, method="gradcam"),
         "ig": lambda: integrated_gradients.integrated_gradients(model, x,
                                                                 steps=2),
         "grad_x_input": lambda: bcos.explain(model, x),
+        "int8": lambda: Predictor(model, batch_size=2, quant="int8")(
+            _vols(1, 2)),
     }
-    with pytest.raises(NotImplementedError, match="Queue 1: f32 on CUDA"):
+    if entry == "vit_cam_2d":
+        model2d = vit_cam_2d.ViT2D(device="cpu")
+        vit_cam_2d.compute_cam_2d(model2d, np.zeros((56, 56), np.float32))
+    else:
         calls[entry]()
+    assert seen and all("_f32" in symbol for symbol in seen), seen
+    if entry in ("gradcam", "menu", "vit_cam_2d"):
+        assert [seen.count(s) for s in K6_F32] == [1, 1]
+        assert set(seen) == set(K6_F32 + F32_FORWARDS
+                                + ["nvt_fused_mlp_f32_bwd"])
+    elif entry == "int8":
+        assert set(seen) == set(INT8_F32)
+    else:
+        assert set(seen) == set(F32_FORWARDS + F32_BACKWARDS)
 
 
-def test_bf16_on_cuda_and_f32_on_cpu_are_not_refused(monkeypatch):
-    """The refusal is for f32 on CUDA only: a bf16 ViT reporting CUDA and
-    an f32 ViT on the CPU pass it."""
-    f32 = NeuroEncoder(_config(), device="cpu", seed=1)
-    f32.refuse_f32_on_cuda("anything")
-    bf16 = NeuroEncoder(_config(TRAINING_PRECISION="bf16"), device="cpu",
-                        seed=1)
-    monkeypatch.setattr(NeuroEncoder, "device",
-                        property(lambda self: torch.device("cuda")))
-    bf16.refuse_f32_on_cuda("anything")
-    with pytest.raises(NotImplementedError, match="anything of an f32 ViT"):
-        f32.refuse_f32_on_cuda("anything")
+@pytest.mark.parametrize("precision", ["bf16", "f32"])
+def test_bf16_on_cuda_and_f32_on_cpu_are_not_refused(monkeypatch,
+                                                     precision):
+    """A bf16 ViT's Grad-CAM taken as on the card reaches the bf16 K6 (and
+    no f32 kernel); an f32 ViT's on the CPU runs the plain versions,
+    launching nothing, and its map is finite."""
+    model = NeuroEncoder(_config(TRAINING_PRECISION=precision),
+                         device="cpu", seed=1)
+    x = _vols(2, 1)[0]
+    if precision == "f32":
+        cam, _ = model.get_attention_map(x)
+        assert cam.shape == (20, 20, 20) and np.isfinite(cam).all()
+        return
+    seen = _as_on_card(monkeypatch)
+    model.get_attention_map(x)
+    assert seen and not [s for s in seen if "_f32" in s], seen
+    assert [seen.count("nvt_flash_attention_bhnd_fwd"),
+            seen.count("nvt_flash_attention_bhnd_bwd")] == [1, 1]
 
 
 @pytest.mark.parametrize("precision", ["f32", "bf16"])

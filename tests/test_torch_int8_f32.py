@@ -117,6 +117,8 @@ def _recorded(monkeypatch, name, dtype):
     monkeypatch.setattr(torch, "empty", spy)
     fn = getattr(q8, name + ("_f32_cuda" if dtype == torch.float32
                              else "_cuda"))
+    # The stubbed launch still counts: restore the counter after the test.
+    monkeypatch.setattr(fn, "launches", fn.launches)
     args = _operands(np.random.default_rng(0), dtype)[name]
     before = fn.launches
     if name == "int8_flash_attention":
@@ -374,6 +376,7 @@ def test_f32_wrappers_take_a_caller_scratch(monkeypatch, name):
     monkeypatch.setattr(q8, "launch", lambda symbol, argtypes, like, *args:
                         seen.append(args))
     fn = getattr(q8, name + "_f32_cuda")
+    monkeypatch.setattr(fn, "launches", fn.launches)
     args = _operands(np.random.default_rng(2), torch.float32)[name]
     x = args[0]
     m, dim = x.numel() // x.shape[-1], x.shape[-1]

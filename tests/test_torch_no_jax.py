@@ -37,7 +37,9 @@ COUNTED = (fa.flash_attention_cuda, fused_qkv.fused_ln_qkv_cuda,
            int8_serving.int8_ln_qkv_f32_cuda,
            int8_serving.int8_outproj_residual_f32_cuda,
            int8_serving.int8_mlp_block_f32_cuda,
-           int8_serving.int8_flash_attention_f32_cuda)
+           int8_serving.int8_flash_attention_f32_cuda,
+           fa.flash_attention_bhnd_f32_cuda,
+           fa.flash_attention_bhnd_bwd_f32_cuda)
 
 
 def test_every_module_imports_with_jax_blocked():
@@ -47,7 +49,8 @@ def test_every_module_imports_with_jax_blocked():
     cube dataset, a small ResNet runs forward and backward, the two probe
     scripts (scripts/torch_dropout_bench.py and
     scripts/torch_int8_gemm_bench.py) run their plain paths at a tiny size,
-    and scripts/torch_gemm_device_times.py refuses to run without the card;
+    scripts/torch_gemm_device_times.py refuses to run without the card, and
+    the 2D CAM tutorial's CLI trains a step and writes its PNG on the CPU;
     no module of either was loaded."""
     script = (
         "import importlib, pkgutil, sys\n"
@@ -116,6 +119,12 @@ def test_every_module_imports_with_jax_blocked():
         "row, = gemm.run('cpu', shapes=[('t', 32, 16, 48)], iters=1)\n"
         "assert row['int_mm'] is None and 'dynquant' in gemm.line(row)\n"
         "assert script('torch_gemm_device_times').main([]) == 1\n"
+        "from neurovit_tpu_torch.explainability import vit_cam_2d\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    png = vit_cam_2d.main(['--steps', '1', '--device', 'cpu',\n"
+        "                           '--output-dir', d])\n"
+        "    assert open(png, 'rb').read(8) == b'\\x89PNG\\r\\n\\x1a\\n'\n"
+        "assert 'neurovit_tpu_torch.explainability.vit_cam_2d' in names\n"
         "print(len(names))\n")
     env = {**os.environ, "PYTHONPATH": REPO}
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
@@ -202,7 +211,19 @@ def test_cpu_path_launches_no_kernel():
     int8_gemm.blocked_matmul(a8, b8)
     int8_gemm.blocked_matmul(t(32, 16).bfloat16(), t(16, 48).bfloat16())
     int8_gemm.dynquant_matmul(a8, b8, t(32).abs(), t(48).abs())
-    assert [fn.launches for fn in COUNTED] == before == [0] * 28
+    # The 2D CAM tutorial: an f32 ViT's train step, a gradient CAM (K6 f32
+    # forward and backward) and a forward-only one.
+    from neurovit_tpu_torch.explainability import vit_cam_2d
+    model2d = vit_cam_2d.ViT2D(device="cpu")
+    squares = vit_cam_2d.make_squares(8, generator=torch.Generator()
+                                      .manual_seed(0))
+    vit_cam_2d.train_demo_model(model2d, steps=1, batch=4, verbose=False,
+                                data=squares)
+    for method in ("gradcam", "scorecam"):
+        cam, _ = vit_cam_2d.compute_cam_2d(model2d, squares[0][0],
+                                           method=method, score_batch=64)
+        assert cam.shape == (vit_cam_2d.IMAGE_SIZE,) * 2
+    assert [fn.launches for fn in COUNTED] == before == [0] * 30
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
