@@ -192,7 +192,8 @@ Phases, each printing a line; any failure raises and exits non-zero:
                encoder, the encoder's share, peak memory, profiler splits;
                (g) the ResNet-18 encoder in 4D at B 1 x T 8, one K14, its
                encodings and the logits against the CPU plain path
-18. f32        K1-K5, K7-K9 at f32 (FFMA on the CUDA cores), with
+18. f32        K1-K5, K7-K9 at f32 (FFMA on the CUDA cores; K5 and K6's
+               backward in 3xTF32 on the tensor cores), with
                torch.backends.cuda.matmul.allow_tf32 off: (a) each against
                its plain version at the flagship block (batch 8 x 1001),
                within 1e-4 (1 + |plain|), two calls bit-equal: K1 at
@@ -475,9 +476,10 @@ POOL_SHAPE = (B, 90, 45, 45, 64)
 # The card's peaks for the bound (H100 SXM data sheet, dense): device
 # memory bytes/s and operations/s by operand type. f32 products exact to
 # f32: three TF32 products each (a big and a small part of the operands)
-# at the 495 TF32 TFLOP/s, the fastest f32-accurate route on the card;
-# F32_FFMA_PER_S, the CUDA cores' f32 rate, is the floor of the f32
-# kernels' design, printed beside it.
+# at the 495 TF32 TFLOP/s, the fastest f32-accurate route on the card
+# (K5 and K6's backward at f32 take it, on mma.sync); F32_FFMA_PER_S, the
+# CUDA cores' f32 rate, is the floor of the FFMA kernels' design, printed
+# beside it.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 495e12 / 3}
 F32_FFMA_PER_S = 67e12

@@ -18,8 +18,8 @@
 // draw, in either layout. With lsum, l goes out as the [B, H, N] row sums
 // the backward reads.
 //
-// What bounds it on the H100: its 4 B H N n_valid D flops, exact in f32
-// only on the CUDA cores (ffma.cuh says why not TF32): 16.4 GFLOP for the
+// What bounds it on the H100: its 4 B H N n_valid D flops, here on the
+// CUDA cores (ffma.cuh says why not yet in 3xTF32): 16.4 GFLOP for the
 // flagship block at batch 8 (B H = 64, N = n_valid = 1001, D = 64), 0.25 ms
 // at 67 TFLOP/s, far above its 66 MB of q, k, v and o.
 //

@@ -1,10 +1,10 @@
-// The pieces the f32 attention forward (flash_attention_f32.cu, K1 and K6
-// at f32) and its backward (flash_attention_bwd_f32.cu, K5 and K6's
-// backward at f32) share on
-// the CUDA cores: a block of 128 threads, tiles of f32 rows whose 16-byte
-// chunks are permuted by the row's quad (swz), the cp.async copy of a run
-// of a head's rows into such a tile, and the dropout bits of four
-// consecutive keys of one row.
+// The pieces of the f32 attention forward (flash_attention_f32.cu, K1 and
+// K6 at f32, on the CUDA cores) and its backward (flash_attention_bwd_f32.cu,
+// K5 and K6's backward at f32, on the tensor cores by tf32x3.cuh): a block
+// of 128 threads, the forward's tiles of f32 rows whose 16-byte chunks are
+// permuted by the row's quad (swz), the cp.async copy of a run of a head's
+// rows into such a tile, the score clamp, and the dropout bits of four
+// (the forward) or sixteen (the backward) consecutive keys of one row.
 #pragma once
 
 #include "ffma.cuh"
@@ -63,6 +63,28 @@ __device__ __forceinline__ uint32_t keep_bits4(uint64_t i0, uint64_t seed,
     bits |= static_cast<uint32_t>(byte < keep_q) << j;
   }
   return bits;
+}
+
+// Bit j set where byte j of the Philox block w is below keep_q.
+__device__ __forceinline__ uint32_t keep_bits_of(const uint4& w,
+                                                 uint32_t keep_q) {
+  uint32_t bits = 0;
+#pragma unroll
+  for (uint32_t j = 0; j < 16; ++j)
+    bits |= static_cast<uint32_t>(byte_of(w, j) < keep_q) << j;
+  return bits;
+}
+
+// Bit j set where element i0 + j (j < 16) of the mask's Philox stream is
+// kept: one Philox block, or two where i0 is not a multiple of 16 (the
+// backward's 16-key windows of a row at N = 1001).
+__device__ __forceinline__ uint32_t keep_bits16(uint64_t i0, uint64_t seed,
+                                                uint32_t keep_q) {
+  const uint32_t off = static_cast<uint32_t>(i0 & 15);
+  uint32_t bits = keep_bits_of(philox4x32_10(i0 >> 4, seed), keep_q);
+  if (off)
+    bits |= keep_bits_of(philox4x32_10((i0 >> 4) + 1, seed), keep_q) << 16;
+  return (bits >> off) & 0xffffu;
 }
 
 }  // namespace flash_f32

@@ -14,8 +14,8 @@
 // dW1 = u^T dh, dW2 = a^T dz, db1 and db2 stay outside (ops/fused_mlp.py,
 // FusedMlp.backward). The masks are the forward's bits (fused_mlp_f32.cu).
 //
-// What bounds it on the H100: its 4 M dim hid flops in two GEMMs, exact in
-// f32 only on the CUDA cores (ffma.cuh says why not TF32): 67.2 GFLOP for
+// What bounds it on the H100: its 4 M dim hid flops in two GEMMs, at f32
+// on the CUDA cores (ffma.cuh says why not yet in 3xTF32): 67.2 GFLOP for
 // the flagship block at batch 8 (M = 8008, dim 1024, hid 2048), 1.0 ms at
 // 67 TFLOP/s, far above its bytes.
 //

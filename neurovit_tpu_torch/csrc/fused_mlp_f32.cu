@@ -15,8 +15,8 @@
 // backward reads; serving passes null. W1 [hid, dim] and W2 [dim, hid] are
 // the torch weights as they lie.
 //
-// What bounds it on the H100: its 4 M dim hid flops. At f32 they are exact
-// only on the CUDA cores (ffma.cuh says why not TF32): 67.2 GFLOP for the
+// What bounds it on the H100: its 4 M dim hid flops. At f32 they run on
+// the CUDA cores (ffma.cuh says why not yet in 3xTF32): 67.2 GFLOP for the
 // flagship block at batch 8 (M = 8008, dim 1024, hid 2048), 1.0 ms at 67
 // TFLOP/s; the bytes that must move (x, y, W1, W2, and h in training) are
 // 75 MB, 0.022 ms at 3.35 TB/s.

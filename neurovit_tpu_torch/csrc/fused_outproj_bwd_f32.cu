@@ -9,8 +9,8 @@
 // under seed, the forward's (fused_outproj_f32.cu). dx = dy, dWout = dz^T a
 // and db = sum_rows(dz) stay outside (ops/fused_outproj.py, FusedOutproj).
 //
-// What bounds it on the H100: its 2 M dim inner flops, exact in f32 only
-// on the CUDA cores (ffma.cuh says why not TF32): 8.4 GFLOP for the
+// What bounds it on the H100: its 2 M dim inner flops, at f32 on the
+// CUDA cores (ffma.cuh says why not yet in 3xTF32): 8.4 GFLOP for the
 // flagship block at batch 8 (M = 8008, dim 1024, inner 512), 0.125 ms at
 // 67 TFLOP/s, above its 50 MB of dy, dz, Wout and da.
 //

@@ -12,8 +12,8 @@
 // version draw. a [M, inner] is the attention output viewed as rows; Wout
 // is the torch weight [dim, inner] as it lies.
 //
-// What bounds it on the H100: its 2 M inner dim flops. At f32 they are
-// exact only on the CUDA cores (ffma.cuh says why not TF32): 8.4 GFLOP for
+// What bounds it on the H100: its 2 M inner dim flops. At f32 they run
+// on the CUDA cores (ffma.cuh says why not yet in 3xTF32): 8.4 GFLOP for
 // the flagship block at batch 8 (M = 8008, inner 512, dim 1024), 0.12 ms
 // at 67 TFLOP/s, above its 67 MB of a, x, y and Wout (0.020 ms at 3.35
 // TB/s).

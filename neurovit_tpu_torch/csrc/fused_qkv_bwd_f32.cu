@@ -12,8 +12,8 @@
 // m1 and m2 the row means of du gamma and du gamma xhat. dWqkv = dqkv^T u
 // is a plain product outside (ops/fused_qkv.py, FusedLnQkv.backward).
 //
-// What bounds it on the H100: its 6 M inner dim flops, exact in f32 only
-// on the CUDA cores (ffma.cuh says why not TF32): 25.2 GFLOP for the
+// What bounds it on the H100: its 6 M inner dim flops, at f32 on the
+// CUDA cores (ffma.cuh says why not yet in 3xTF32): 25.2 GFLOP for the
 // flagship block at batch 8 (M = 8008, dim 1024, inner 512), 0.38 ms at
 // 67 TFLOP/s, above its 115 MB (dqkv, x, Wqkv, dx, du's round trip).
 //

@@ -12,8 +12,8 @@
 // training u is the caller's output (the backward's dWqkv reads it); in
 // serving it goes into a scratch the wrapper allocates.
 //
-// What bounds it on the H100: its 6 M dim inner flops. At f32 they are
-// exact only on the CUDA cores (ffma.cuh says why not TF32): 25.2 GFLOP
+// What bounds it on the H100: its 6 M dim inner flops. At f32 they run
+// on the CUDA cores (ffma.cuh says why not yet in 3xTF32): 25.2 GFLOP
 // for the flagship block at batch 8 (M = 8008, dim 1024, inner 512), 0.38
 // ms at 67 TFLOP/s, above its 93 MB of x, u, Wqkv, q, k and v.
 //

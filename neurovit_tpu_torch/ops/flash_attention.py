@@ -42,11 +42,12 @@ Pallas for its dense XLA path (flash_attention.py:517-520); D > 128 is
 refused.
 
 f32 CUDA tensors run ``csrc/flash_attention_f32.cu`` (K1 and K6 at f32,
-:func:`flash_f32_plan`) and ``csrc/flash_attention_bwd_f32.cu`` (K5 and
-K6's backward at f32, :func:`flash_f32_bwd_plan`: the bf16 K5's two
-passes), each layout a template instance with its own launch symbol and
-count, as in bf16: FFMA products on the CUDA cores, P and dS not rounded,
-as the TPU kernels compute at f32, with instances for D in
+:func:`flash_f32_plan`: FFMA products on the CUDA cores) and
+``csrc/flash_attention_bwd_f32.cu`` (K5 and K6's backward at f32,
+:func:`flash_f32_bwd_plan`: the bf16 K5's two passes, every product in
+3xTF32 on the tensor cores, ``csrc/tf32x3.cuh``), each layout a template
+instance with its own launch symbol and count, as in bf16: P and dS not
+rounded, as the TPU kernels compute at f32, with instances for D in
 :data:`F32_HEAD_DIMS` (32, 64, 128) and the same zero-padding of the
 others.
 """
@@ -107,10 +108,11 @@ BWD_STAT_BYTES = 64 * 4
 F32_HEAD_DIMS = (32, 64, 128)
 F32_BQ, F32_BKV, F32_THREADS = 64, 32, 128
 # K5 and K6's backward at f32 (csrc/flash_attention_bwd_f32.cu): rows a
-# block of either pass (query rows in pass 1, keys in pass 2), keys a tile
-# of pass 1 and queries a tile of pass 2, and pass 2's columns of dK and dV
-# a block.
-F32_BWD_ROWS, F32_BWD_TILE, F32_BWD_COLS = 64, 32, 64
+# block of either pass (query rows in pass 1, keys in pass 2, 16 a warp),
+# keys a tile of pass 1 and queries a tile of pass 2, pass 2's columns of
+# dK and dV a block, and the floats a staged row takes beyond the head dim
+# (rows D + 4 apart: conflict-free fragment loads, csrc/tf32x3.cuh).
+F32_BWD_ROWS, F32_BWD_TILE, F32_BWD_COLS, F32_BWD_PAD = 64, 32, 64, 4
 
 
 class FwdPlan(NamedTuple):
@@ -223,19 +225,20 @@ def flash_f32_plan(b: int, n: int, h: int, d: int) -> F32FwdPlan:
 class F32BwdPlan(NamedTuple):
     """How one launch of K5 or K6's backward at f32 covers [B, N, H, D] or
     [B, H, N, D]: the head-dim instance ``d_kernel`` (every operand
-    zero-padded to it); ``rows`` rows a block of ``threads`` in both
-    passes (query rows in pass 1, keys in pass 2), ``tile`` keys a tile of
-    pass 1 and queries a tile of pass 2; pass 2's blocks each take
-    ``cols`` columns of dK and dV; the
-    one-dimensional grids ``dq_grid`` (q tiles x B * H) and ``dkv_grid``
-    (key tiles x column parts x B * H), tiles fastest; ``dq_smem`` (Q, dO,
-    two K and two V tiles, dS) and ``dkv_smem`` (K, V, two Q and two dO
-    tiles, dS^T, (P m)^T, two tiles' l and delta) bytes of dynamic shared
-    memory a block, all f32."""
+    zero-padded to it); ``rows`` rows a block of ``threads`` (four warps of
+    16 rows) in both passes (query rows in pass 1, keys in pass 2),
+    ``tile`` keys a tile of pass 1 and queries a tile of pass 2; pass 2's
+    blocks each take ``cols`` columns of dK and dV (two blocks split D =
+    128); staged rows ``ld`` floats apart; the one-dimensional grids
+    ``dq_grid`` (q tiles x B * H) and ``dkv_grid`` (key tiles x column
+    parts x B * H), tiles fastest; ``dq_smem`` (Q, dO, two K and two V
+    tiles) and ``dkv_smem`` (K, V, two Q and two dO tiles, two tiles' l and
+    delta) bytes of dynamic shared memory a block, all f32."""
     d_kernel: int
     rows: int
     tile: int
     cols: int
+    ld: int
     threads: int
     dq_grid: tuple
     dkv_grid: tuple
@@ -254,13 +257,13 @@ def flash_f32_bwd_plan(b: int, n: int, h: int, d: int) -> F32BwdPlan:
     _check_grid("backward", b, n, h)
     rows, tile = F32_BWD_ROWS, F32_BWD_TILE
     cols = min(d_kernel, F32_BWD_COLS)
-    dq_smem = (2 * rows * d_kernel + 4 * tile * d_kernel + rows * tile) * 4
-    dkv_smem = (2 * rows * d_kernel + 4 * tile * d_kernel + 2 * rows * tile
-                + 4 * tile) * 4
+    ld = d_kernel + F32_BWD_PAD
+    dq_smem = (2 * rows + 4 * tile) * ld * 4
+    dkv_smem = ((2 * rows + 4 * tile) * ld + 4 * tile) * 4
     check_smem("attention backward", max(dq_smem, dkv_smem))
     tiles = -(-n // rows)
     return F32BwdPlan(d_kernel=d_kernel, rows=rows, tile=tile, cols=cols,
-                      threads=F32_THREADS, dq_grid=(tiles * b * h,),
+                      ld=ld, threads=F32_THREADS, dq_grid=(tiles * b * h,),
                       dkv_grid=(tiles * (d_kernel // cols) * b * h,),
                       dq_smem=dq_smem, dkv_smem=dkv_smem)
 
@@ -561,7 +564,7 @@ def flash_attention_bwd_f32_cuda(q, k, v, o, do, lsum, *, scale: float,
                                  n_valid: int, dropout_rate: float = 0.0,
                                  seed: int = 0):
     """Launch K5 at f32 (:func:`flash_f32_bwd_plan`: dQ with delta, then dK
-    and dV, exact f32 products on the CUDA cores); returns dq, dk, dv
+    and dV, f32 products in 3xTF32 on the tensor cores); returns dq, dk, dv
     [B, N, H, D] f32."""
     out = _bwd_cuda("nvt_flash_attention_f32_bwd", "bnhd", q, k, v, o, do,
                     lsum, scale=scale, n_valid=n_valid,

@@ -26,8 +26,21 @@ Its rate counts 14 B H N^2 D flops a call (the two passes' seven
 products), its bound the 10 B H N^2 D of the minimum five (2.5 times the
 forward's).
 
+The f32 backward (with the backward, or ``--only bwd``): K5 f32 at batch
+8 and 32 at dropout 0 and 0.1 and K6's backward at f32 at batch 1 and 8
+at dropout 0, at 1001 tokens and 8 heads of 64, on f32 operands, o and
+the row sums from the f32 forward, timed the same way beside f32 SDPA's
+backward on the same tensors (``torch.backends.cuda.matmul.allow_tf32``
+off, PyTorch's default), whose kernels' names the first f32 line prints:
+the design the yardstick runs. Its rate counts the seven products, 14 B
+H N^2 D flops, against the 3xTF32 bound (the five products at 165 TFLOP/s)
+and the seven products' FFMA floor (67 TFLOP/s, the CUDA cores).
+``--other <checkout>`` routes every kernel call to another checkout's
+kernel library (built there), so the parent's kernels are timed with this
+script's cases.
+
     python scripts/torch_attention_device_times.py [--iters 20]
-        [--only fwd|bwd]
+        [--only fwd|bwd|f32] [--other <checkout>]
 
 Needs the card; prints nvidia-smi's name and power limit first.
 """
@@ -58,13 +71,17 @@ CASES = (("K1", "bnhd", (1, 8, 32, 128), (0.0, 0.1)),
          ("K6", "bhnd", (1, 8), (0.0,)))
 BWD_CASES = (("K5", "bnhd", (1, 8, 32, 128), (0.0, 0.1)),
              ("K6 bwd", "bhnd", (1, 8), (0.0,)))
+F32_BWD_CASES = (("K5 f32", "bnhd", (8, 32), (0.0, 0.1)),
+                 ("K6 bwd f32", "bhnd", (1, 8), (0.0,)))
+TF32X3_PER_S, FFMA_PER_S = 165e12, 67e12
 
 
-def operands(b: int, d: int, layout: str, seed: int = 0) -> list:
-    """Seeded bf16 q, k, v in ``layout``, on the card."""
+def operands(b: int, d: int, layout: str, seed: int = 0,
+             dtype=torch.bfloat16) -> list:
+    """Seeded q, k, v in ``layout``, on the card."""
     rng = np.random.default_rng(seed)
     shape = (b, N, HEADS, d) if layout == "bnhd" else (b, HEADS, N, d)
-    return [torch.tensor(rng.standard_normal(shape), dtype=torch.bfloat16,
+    return [torch.tensor(rng.standard_normal(shape), dtype=dtype,
                          device="cuda") for _ in range(3)]
 
 
@@ -122,12 +139,18 @@ def bwd_calls(qkv: list, layout: str, rate: float, seed: int = 1):
     dropout 0, its graph built once here."""
     d = qkv[0].shape[-1]
     kw = dict(scale=d ** -0.5, n_valid=N, dropout_rate=rate, seed=1234)
-    fwd = (fa.flash_attention_cuda if layout == "bnhd"
-           else fa.flash_attention_bhnd_cuda)
-    bwd = (fa.flash_attention_bwd_cuda if layout == "bnhd"
-           else fa.flash_attention_bhnd_bwd_cuda)
+    f32 = qkv[0].dtype == torch.float32
+    fwd, bwd = {
+        ("bnhd", False): (fa.flash_attention_cuda,
+                          fa.flash_attention_bwd_cuda),
+        ("bhnd", False): (fa.flash_attention_bhnd_cuda,
+                          fa.flash_attention_bhnd_bwd_cuda),
+        ("bnhd", True): (fa.flash_attention_f32_cuda,
+                         fa.flash_attention_bwd_f32_cuda),
+        ("bhnd", True): (fa.flash_attention_bhnd_f32_cuda,
+                         fa.flash_attention_bhnd_bwd_f32_cuda)}[layout, f32]
     o, lsum = fwd(*qkv, return_stats=True, **kw)
-    do = operands(qkv[0].shape[0], d, layout, seed)[0]
+    do = operands(qkv[0].shape[0], d, layout, seed, qkv[0].dtype)[0]
     heads_first = [t.transpose(1, 2) if layout == "bnhd" else t
                    for t in qkv + [do]]
     leaves = [t.detach().requires_grad_() for t in heads_first[:3]]
@@ -145,7 +168,7 @@ def measure_bwd(qkv: list, layout: str, rate: float, iters: int) -> dict:
             "library_device_ms": (sum(lib_dev.values()) / 1e3 if lib_dev
                                   else None),
             "ms": events_ms(kernel), "library_ms": events_ms(lib),
-            "passes_us": dev,
+            "passes_us": dev, "library_us": lib_dev,
             "enqueue_us": enqueue_us(kernel, 4 * iters),
             "library_enqueue_us": enqueue_us(lib, 4 * iters)}
 
@@ -168,6 +191,42 @@ def bwd_line(name: str, b: int, d: int, rate: float, m: dict) -> str:
             f"{m['library_enqueue_us']:.1f})")
 
 
+def f32_bwd_line(name: str, b: int, d: int, rate: float, m: dict) -> str:
+    flop = 14 * b * HEADS * N * N * d
+    bound_ms = 10 * b * HEADS * N * N * d / TF32X3_PER_S * 1e3
+    floor_ms = flop / FFMA_PER_S * 1e3
+
+    def ms(t):
+        return ("not measured" if t is None
+                else f"{t:.4f} ms ({flop / t / 1e9:.1f} TFLOP/s, "
+                f"{bound_ms / t:.3f} of the bound)")
+
+    passes = ", ".join(f"{k[:40]} {v:.1f} us"
+                       for k, v in sorted(m["passes_us"].items()))
+    return (f"{name} B {b} N {N} H {HEADS} D {d} dropout {rate}: device "
+            f"{ms(m['device_ms'])} [{passes}], events {m['ms']:.4f} ms; f32 "
+            f"SDPA backward device {ms(m['library_device_ms'])}, events "
+            f"{m['library_ms']:.4f} ms; 3xTF32 bound {bound_ms:.4f} ms, FFMA "
+            f"floor {floor_ms:.4f} ms; enqueue {m['enqueue_us']:.1f} us a "
+            f"call (SDPA {m['library_enqueue_us']:.1f})")
+
+
+def use_checkout(tree: str) -> None:
+    """Route the wrappers' launches to the kernel library of the checkout
+    at ``tree``, built there."""
+    import ctypes
+
+    from neurovit_tpu_torch.ops import _build
+    out = subprocess.run(
+        [sys.executable, "-c", "from neurovit_tpu_torch.ops import _build; "
+         "print(_build.build())"], cwd=tree,
+        env={**os.environ, "PYTHONPATH": tree}, capture_output=True,
+        text=True, check=True)
+    lib = ctypes.CDLL(out.stdout.strip().splitlines()[-1])
+    _build._function.cache_clear()
+    _build.library = lambda: lib
+
+
 def line(name: str, b: int, d: int, rate: float, m: dict) -> str:
     flop = 4 * b * HEADS * N * N * d
     bound_ms = flop / PEAK_BF16 * 1e3
@@ -186,8 +245,11 @@ def line(name: str, b: int, d: int, rate: float, m: dict) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--only", choices=("fwd", "bwd"), default=None,
-                    help="time only the forward or only the backward")
+    ap.add_argument("--only", choices=("fwd", "bwd", "f32"), default=None,
+                    help="time only the forward, only the backward (bf16 "
+                    "and f32) or only the f32 backward")
+    ap.add_argument("--other", default=None,
+                    help="root of another checkout whose kernels to time")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_attention_device_times: needs the card", file=sys.stderr)
@@ -195,19 +257,30 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip())
-    for cases, measure_fn, line_fn, what in (
-            (CASES, measure, line, "fwd"),
-            (BWD_CASES, measure_bwd, bwd_line, "bwd")):
-        if args.only not in (None, what):
+    if args.other:
+        use_checkout(os.path.abspath(args.other))
+        print(f"kernels of {args.other}")
+    named = False
+    for cases, measure_fn, line_fn, what, heads, dtype in (
+            (CASES, measure, line, ("fwd",), (64, 128), torch.bfloat16),
+            (BWD_CASES, measure_bwd, bwd_line, ("bwd",), (64, 128),
+             torch.bfloat16),
+            (F32_BWD_CASES, measure_bwd, f32_bwd_line, ("bwd", "f32"), (64,),
+             torch.float32)):
+        if args.only is not None and args.only not in what:
             continue
         for name, layout, batches, rates in cases:
-            for d in (64, 128):
+            for d in heads:
                 for b in batches:
-                    qkv = operands(b, d, layout)
+                    qkv = operands(b, d, layout, dtype=dtype)
                     for rate in rates:
-                        print(line_fn(name, b, d, rate,
-                                      measure_fn(qkv, layout, rate,
-                                                 args.iters)), flush=True)
+                        m = measure_fn(qkv, layout, rate, args.iters)
+                        if dtype == torch.float32 and not named:
+                            print("f32 SDPA backward's kernels: " + "; ".join(
+                                f"{k[:80]} {v:.1f} us" for k, v in
+                                sorted(m["library_us"].items())))
+                            named = True
+                        print(line_fn(name, b, d, rate, m), flush=True)
                     del qkv
                     torch.cuda.empty_cache()
     return 0

@@ -42,7 +42,8 @@ too, this one's reads dy and writes no dz then. K14 and K15 go through
 alone, this one's also ``pool_plan``'s walk. The f32 forwards K1-K4 and
 backwards K5, K7-K9 go through this checkout's wrappers on the same
 operands in f32 (K2 also with u, K4 also at dropout 0.1 with h; K5, K8
-and K9 at dropout 0.1), and so do the f32 instances of the int8 kernels
+and K9 at dropout 0.1, K5 also at 0), and so do K6's backward at f32 (at
+dropout 0, [B, H, N, D]) and the f32 instances of the int8 kernels
 K10-K13. A kernel whose entry point the other checkout lacks is timed in
 this one alone (the median of 2 x ``--rounds`` turns).
 
@@ -328,6 +329,9 @@ def cases(b: int = cs.B) -> dict:
     mlpf = (xf, *ln, w1, b1, w2, b2)
     dyf, dqkvf, dof = dy.float(), dqkv.float(), do.float()
     of, lsumf = fa.flash_attention_plain(*qkvf, return_stats=True, **att)
+    att0 = dict(att, dropout_rate=0.0)
+    of0, lsumf0 = fa.flash_attention_plain(*qkvf, return_stats=True, **att0)
+    trf0 = [a.transpose(1, 2).contiguous() for a in (*qkvf, of0, dof)]
     _, hf = fused_mlp.fused_mlp_block_plain(*mlpf, return_h=True, **mdrop)
     bwdf = (dyf, xf, hf, *ln, w1, w2)
     return {
@@ -393,6 +397,14 @@ def cases(b: int = cs.B) -> dict:
                                                **mdrop))),
         "flash_attention_bwd_f32": ("nvt_flash_attention_f32_bwd", lambda: (
             fa.flash_attention_bwd_f32_cuda(*qkvf, of, dof, lsumf, **att))),
+        "flash_attention_bwd_f32 dropout 0": (
+            "nvt_flash_attention_f32_bwd", lambda: (
+                fa.flash_attention_bwd_f32_cuda(*qkvf, of0, dof, lsumf0,
+                                                **att0))),
+        "flash_attention_bhnd_bwd_f32": (
+            "nvt_flash_attention_bhnd_f32_bwd", lambda: (
+                fa.flash_attention_bhnd_bwd_f32_cuda(*trf0, lsumf0,
+                                                     **att0))),
         "fused_ln_qkv_bwd_f32": ("nvt_fused_ln_qkv_f32_bwd", lambda: (
             fused_qkv.fused_ln_qkv_bwd_f32_cuda(dqkvf, xf, ln[0], wqkv))),
         "fused_outproj_bwd_f32": ("nvt_fused_outproj_f32_bwd", lambda: (

@@ -137,23 +137,31 @@ def test_f32_bwd_gemm_plans(dim, heads, dh, hid, m):
 @pytest.mark.parametrize("d,d_kernel", [(8, 32), (16, 32), (32, 32),
                                         (64, 64), (80, 128), (128, 128)])
 def test_flash_f32_bwd_plan(d, d_kernel, b, n):
-    """K5 at f32: K1 f32's instances, 64 rows a block of 128 threads in
-    both passes, 32 keys (pass 1) or queries (pass 2) a tile, pass 2's
-    blocks splitting D = 128 into two 64-column halves; shared memory under
-    227 KB. It is K6's backward's at f32 too (the layout moves only where
-    a head's rows lie; test_bhnd_f32_wrappers_launch_as_bnhd_f32)."""
+    """K5 at f32: K1 f32's instances, 64 rows a block of 128 threads (four
+    warps of 16 rows) in both passes, 32 keys (pass 1) or queries (pass 2)
+    a tile through two stages, pass 2's blocks splitting D = 128 into two
+    64-column halves, staged rows D + 4 floats apart (4 mod
+    32: tf32x3.cuh's conflict-free fragment loads, 16-byte aligned for
+    cp.async); shared memory under 227 KB, and at D = 64 small enough for
+    three blocks an SM. It is K6's backward's at f32 too (the layout moves
+    only where a head's rows lie;
+    test_bhnd_f32_wrappers_launch_as_bnhd_f32)."""
     plan = fa.flash_f32_bwd_plan(b, n, 8, d)
     assert plan.d_kernel == d_kernel == fa.f32_head_dim(d)
     assert (plan.rows, plan.tile, plan.threads) == (64, 32, 128)
+    assert plan.rows == 16 * plan.threads // 32
     assert plan.cols == min(d_kernel, 64)
+    assert plan.ld == d_kernel + 4 and plan.ld % 32 == 4
+    assert plan.ld * 4 % 16 == 0
     tiles = -(-n // 64)
     assert plan.dq_grid == (tiles * b * 8,)
     assert plan.dkv_grid == (tiles * (d_kernel // plan.cols) * b * 8,)
-    assert plan.dq_smem == (2 * 64 * d_kernel + 4 * 32 * d_kernel
-                            + 64 * 32) * 4
-    assert plan.dkv_smem == (2 * 64 * d_kernel + 4 * 32 * d_kernel
-                             + 2 * 64 * 32 + 4 * 32) * 4
+    assert plan.dq_smem == (2 * 64 + 4 * 32) * (d_kernel + 4) * 4
+    assert plan.dkv_smem == ((2 * 64 + 4 * 32) * (d_kernel + 4)
+                             + 4 * 32) * 4
     assert max(plan.dq_smem, plan.dkv_smem) <= SMEM_LIMIT
+    if d_kernel <= 64:
+        assert 3 * max(plan.dq_smem, plan.dkv_smem) <= SMEM_LIMIT
 
 
 def test_f32_bwd_plans_refuse_what_bf16_refuses():

@@ -125,24 +125,22 @@ def test_f32_train_step_routes_through_the_f32_kernels(tmp_path,
         assert torch.equal(got[key], want[key]), key
 
 
-def _keep_bits4(bh, n, q, key0, seed, keep_q):
-    """flash_f32.cuh keep_bits4 of the four keys key0 .. + 3 of query row
-    q (numpy arrays of the same shape): bit j set where byte i0 + j of the
-    mask's stream, i0 = (bh N + q) N + key0, is below keep_q; the bytes of
-    Philox blocks i0 / 16 and (i0 + 3) / 16."""
-    i0 = (bh * n + q.astype(np.int64)) * n + key0
-    w0 = nn.philox4x32(torch.from_numpy(i0.reshape(-1) >> 4), seed).numpy()
-    w1 = nn.philox4x32(torch.from_numpy((i0.reshape(-1) + 3) >> 4),
-                       seed).numpy()
+def _keep_bits16(bh, n, q, key0, seed, keep_q):
+    """flash_f32.cuh keep_bits16 of the sixteen keys key0 .. + 15 of query
+    row q (numpy arrays of the same shape): bit j set where byte i0 + j of
+    the mask's stream, i0 = (bh N + q) N + key0, is below keep_q; the bytes
+    of Philox block i0 / 16 and, where i0 % 16 > 0, of the next."""
+    i0 = ((bh * n + q.astype(np.int64)) * n + key0).reshape(-1)
+    w0 = nn.philox4x32(torch.from_numpy(i0 >> 4), seed).numpy()
+    w1 = nn.philox4x32(torch.from_numpy((i0 >> 4) + 1), seed).numpy()
     bits = np.zeros(i0.size, np.int64)
-    for j in range(4):
-        e = i0.reshape(-1) + j
-        words = np.where(((e >> 4) == (i0.reshape(-1) >> 4))[:, None], w0,
-                         w1)
+    for j in range(16):
+        e = i0 + j
+        words = np.where(((e >> 4) == (i0 >> 4))[:, None], w0, w1)
         byte = (words[np.arange(e.size), (e & 15) >> 2] >> (8 * (e & 3))) \
             & 0xFF
         bits |= (byte < keep_q).astype(np.int64) << j
-    return bits.reshape(i0.shape)
+    return bits.reshape(np.shape(q))
 
 
 def _k5_walks(q, k, v, o, do, lsum, scale, n_valid, rate, seed):
@@ -151,8 +149,9 @@ def _k5_walks(q, k, v, o, do, lsum, scale, n_valid, rate, seed):
     walking the key tiles of 32 below n_valid, with delta from dO and O
     and l per row; pass 2 a block of 64 keys (zeros at or past n_valid)
     walking every query tile of 32, with l and delta per column staged
-    from the [B, H, N] rows (zeros past N, where p is 0). The mask of 4
-    keys of a row from keep_bits4, as a thread draws it."""
+    from the [B, H, N] rows (zeros past N, where p is 0). The mask from
+    keep_bits16 as the lanes draw it: in pass 1 each row's two 16-key
+    halves of the key tile, in pass 2 each query's 16 keys of a warp."""
     _, n, h, d = q.shape
     keep_q, keep = nn.keep_threshold(rate) if rate else (256, 1.0)
     scale_log2 = scale * fa.LOG2E
@@ -168,13 +167,14 @@ def _k5_walks(q, k, v, o, do, lsum, scale, n_valid, rate, seed):
         return np.where(valid, e / l, 0.0)
 
     def mask(hh, qrows, keys):
-        """Keep (0/1) of [len(qrows), len(keys)], keys in aligned fours."""
+        """Keep (0/1) of [len(qrows), len(keys)], keys in windows of 16
+        (a tile's halves in pass 1, a warp's keys in pass 2)."""
         if not rate:
             return np.ones((len(qrows), len(keys)))
-        key0 = keys[::4]
+        key0 = keys[::16]
         qq, kk = np.meshgrid(qrows, key0, indexing="ij")
-        bits = _keep_bits4(hh, n, qq, kk, seed, keep_q)
-        return ((bits[..., None] >> np.arange(4)) & 1).reshape(
+        bits = _keep_bits16(hh, n, qq, kk, seed, keep_q)
+        return ((bits[..., None] >> np.arange(16)) & 1).reshape(
             len(qrows), len(keys)).astype(np.float64)
 
     for hh in range(h):
@@ -245,15 +245,17 @@ def test_k5_f32_tile_walks_match_plain(n, n_valid, rate):
 
 
 def test_k5_f32_dropout_bytes_are_keep_mask():
-    """keep_bits4 over every aligned four keys of every row of [1, 2, 1001,
-    1001] (both passes draw a row's keys in aligned fours: pass 1 at key0
-    = 32 kt + 4 tx, pass 2 at 64 kt + 4 ty), equal to nn.keep_mask."""
+    """keep_bits16 over every 16-key window of every row of [1, 2, 1001,
+    1001] that the passes draw (both at key0 = 16 w: pass 1 a lane's half
+    32 kt + 16 (lane % 2) of the key tile, pass 2 a warp's keys 64 kt + 16
+    warp), equal to nn.keep_mask; at N = 1001 most windows straddle two
+    Philox blocks."""
     n, h, rate, seed = 1001, 2, 0.1, 77
     q, _ = nn.keep_threshold(rate)
     want = nn.keep_mask(seed, (1, h, n, n), rate).numpy()[0]
-    key0 = np.arange(0, n, 4)
+    key0 = np.arange(0, n, 16)
     for hh in range(h):
         qq, kk = np.meshgrid(np.arange(n), key0, indexing="ij")
-        bits = _keep_bits4(hh, n, qq, kk, seed, q)
-        got = ((bits[..., None] >> np.arange(4)) & 1).reshape(n, -1)[:, :n]
+        bits = _keep_bits16(hh, n, qq, kk, seed, q)
+        got = ((bits[..., None] >> np.arange(16)) & 1).reshape(n, -1)[:, :n]
         np.testing.assert_array_equal(got.astype(bool), want[hh])
