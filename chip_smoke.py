@@ -226,8 +226,13 @@ Phases, each printing a line; any failure raises and exits non-zero:
                and K9 at dropout 0.1 and 0, at 130 rows and on all-zero
                rows of dqkv or dy (dx, dattn, dz and dh 0 there); each
                timed as in (a), beside f32 torch.mm at its GEMMs or f32
-               SDPA's backward; (e) the flagship's loss and every
-               parameter gradient at f32 (batch 2, dropout 0.1) on cuda
+               SDPA's backward; K8's dattn (3xTF32 on wgmma) within 1e-5
+               relative Frobenius error of plain in each case, and at
+               dropout 0 timed in turns beside f32 torch.mm(dy, Wout); its
+               weight pre-pass bit-equal to plain on Wout, 64 x 64 and
+               48 x 80, a launch at every K8 f32 call; (e) the
+               flagship's loss and every parameter gradient at f32 (batch
+               2, dropout 0.1) on cuda
                against the CPU plain path, the worst within 1e-3 relative
                Frobenius error; (f) Trainer.run() of the flagship at f32
                (two steps at batch 32 and a validation batch), K1-K4 at
@@ -422,6 +427,11 @@ KERNELS = [
      "neurovit_tpu/ops/fused_qkv.py:71"),
     ("fused_outproj_bwd_f32",
      "neurovit_tpu_torch/csrc/fused_outproj_bwd_f32.cu",
+     "neurovit_tpu/ops/fused_outproj.py:56"),
+    # K8 f32's weight pre-pass (Wout's transpose split for 3xTF32), a
+    # launch of its own wrapper at every K8 f32 call.
+    ("fused_outproj_bwd_wsplit_f32",
+     "neurovit_tpu_torch/csrc/tf32x3_wgmma.cuh",
      "neurovit_tpu/ops/fused_outproj.py:56"),
     ("fused_mlp_bwd_f32", "neurovit_tpu_torch/csrc/fused_mlp_bwd_f32.cu",
      "neurovit_tpu/ops/fused_mlp.py:141"),
@@ -3542,7 +3552,7 @@ def _f32_kernel_checks(card: str) -> dict:
 
 def _hold_f32_cases(cases: dict, work: dict, library: dict, card: str, *,
                     params: dict = None, check=None,
-                    design_ops: dict = None) -> dict:
+                    design_ops: dict = None, exact: tuple = ()) -> dict:
     """Each f32 kernel's cases (label, kernel call, plain call) held to
     their plain versions: every output f32 of plain's shape, finite,
     within F32_TOL (1 + |plain|) elementwise, or, at the indices in
@@ -3553,7 +3563,10 @@ def _hold_f32_cases(cases: dict, work: dict, library: dict, card: str, *,
     version; the first also beside its library call, with its bound from
     ``work`` ((input bytes, operations): 3xTF32 at 165 TFLOP/s) and its
     FFMA floor at 67 TFLOP/s of ``design_ops`` (the operations this
-    design takes) or of the operations. Returns each kernel's stats."""
+    design takes) or of the operations. The kernels named in ``exact``
+    must equal their plain versions bit for bit, and one whose library
+    entry is None has no library call (its ``library_ms`` null). Returns
+    each kernel's stats."""
     params, design_ops = params or {}, design_ops or {}
     stats = {}
     for name, calls in cases.items():
@@ -3583,6 +3596,12 @@ def _hold_f32_cases(cases: dict, work: dict, library: dict, card: str, *,
                             f"{name} {label}: output {j} relative Frobenius "
                             f"error {err / float(w_.norm()):.3e} > "
                             f"{F32_PARAM_RTOL}")
+                elif name in exact:
+                    if not torch.equal(g, w_):
+                        raise AssertionError(
+                            f"{name} {label}: output {j} differs from "
+                            f"plain (max abs err {float(diff.max()):.3e}); "
+                            "it must equal it bit for bit")
                 else:
                     bad = diff > F32_TOL * (1 + w_.abs())
                     if bad.any():
@@ -3606,17 +3625,24 @@ def _hold_f32_cases(cases: dict, work: dict, library: dict, card: str, *,
                     floor_ops = design_ops.get(name, ops)
                     bound_ms, bound_by = bound(in_bytes, nbytes(*got),
                                                {"f32": ops})
+                    lib = library.get(name)
                     stats[name] = {
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by,
-                        "library_ms": cuda_ms(library[name])}
-                    msg += (f", library call {stats[name]['library_ms']:.4f} "
-                            f"ms, bound {bound_ms:.4f} ms by {bound_by} "
-                            f"(3xTF32 at 165 TFLOP/s, {ops / 1e9:.2f} GFLOP), "
-                            f"FFMA floor "
-                            f"{floor_ops / F32_FFMA_PER_S * 1e3:.4f} ms "
-                            f"({floor_ops / 1e9:.2f} GFLOP at 67 TFLOP/s): "
-                            f"{floor_ops / ms / 1e9:.1f} TFLOP/s")
+                        "library_ms": None if lib is None else cuda_ms(lib)}
+                    if lib is None:
+                        msg += (f", no library call, bound {bound_ms:.4f} ms "
+                                f"by {bound_by}")
+                    else:
+                        msg += (f", library call "
+                                f"{stats[name]['library_ms']:.4f} ms, bound "
+                                f"{bound_ms:.4f} ms by {bound_by} (3xTF32 at "
+                                f"165 TFLOP/s, {ops / 1e9:.2f} GFLOP), FFMA "
+                                f"floor "
+                                f"{floor_ops / F32_FFMA_PER_S * 1e3:.4f} ms "
+                                f"({floor_ops / 1e9:.2f} GFLOP at 67 "
+                                f"TFLOP/s): {floor_ops / ms / 1e9:.1f} "
+                                f"TFLOP/s")
             log("f32", msg + "; bit-equal on a second call")
             del got, want, again
         stats[name]["max_abs_err"] = max_abs
@@ -3639,7 +3665,8 @@ def _f32_bwd_kernel_checks(card: str) -> dict:
     import torch.nn.functional as F
 
     from neurovit_tpu_torch.ops import flash_attention as fa
-    from neurovit_tpu_torch.ops import fused_mlp, fused_outproj, fused_qkv
+    from neurovit_tpu_torch.ops import (fused_mlp, fused_outproj, fused_qkv,
+                                        tf32x3)
 
     rng = np.random.default_rng(SEED + 24)
 
@@ -3719,6 +3746,12 @@ def _f32_bwd_kernel_checks(card: str) -> dict:
         cases["flash_attention_bwd_f32"].append(
             (f"head dim {d}, batch 2 x 2 heads, dropout {DROPOUT}",
              *attention(*qd, N, **drop)))
+    # K8 f32's weight pre-pass: Wout, the 2D tutorial's and a ragged one.
+    cases["fused_outproj_bwd_wsplit_f32"] = [
+        (f"Wout [{a.shape[0]}, {a.shape[1]}]",
+         lambda a=a: tf32x3.split_t_cuda(a),
+         lambda a=a: tf32x3.split_t_plain(a))
+        for a in (wout, w(64, 64), w(48, 80))]
 
     def zero_rows(name, label, got):
         if not label.startswith("zero rows"):
@@ -3757,11 +3790,48 @@ def _f32_bwd_kernel_checks(card: str) -> dict:
         "fused_outproj_bwd_f32": (nbytes(dy, wout), 2 * m * DIM * inner),
         "fused_mlp_bwd_f32": (nbytes(dy, x, h, *ln, w1, w2),
                               4 * m * DIM * MLP),
+        # A rounding and a subtraction an element; its bytes bound it.
+        "fused_outproj_bwd_wsplit_f32": (nbytes(wout), 2 * wout.numel()),
     }
-    return _hold_f32_cases(
+    stats = _hold_f32_cases(
         cases, work, library, card, check=zero_rows,
         params={"fused_ln_qkv_bwd_f32": (1, 2), "fused_mlp_bwd_f32": (5, 6)},
-        design_ops={"flash_attention_bwd_f32": 7 * attn_ops})
+        design_ops={"flash_attention_bwd_f32": 7 * attn_ops},
+        exact=("fused_outproj_bwd_wsplit_f32",))
+    _k8_f32_report(cases["fused_outproj_bwd_f32"], outproj(dy)[0],
+                   library["fused_outproj_bwd_f32"], 2 * m * DIM * inner,
+                   card)
+    return stats
+
+
+def _k8_f32_report(cases: list, kernel, mm, flop: int, card: str) -> None:
+    """(d) for K8 f32 in 3xTF32 on wgmma: dattn's relative Frobenius error
+    against plain in each of its cases, held below F32_CAM_RTOL; then the
+    dropout-0 call ``kernel`` at the flagship block and f32
+    ``torch.mm(dy, Wout)`` (``mm``) timed in turns (kernel, mm, mm,
+    kernel), with the kernel's rate, its share of the 3xTF32 bound and the
+    factor between the two."""
+    rels = []
+    for label, call, plain in cases:
+        got, want = call()[0], plain()[0]
+        rel = float((got - want).norm() / want.norm())
+        if not rel < F32_CAM_RTOL:
+            raise AssertionError(f"fused_outproj_bwd_f32 {label}: dattn's "
+                                 f"relative Frobenius error {rel:.3e} >= "
+                                 f"{F32_CAM_RTOL}")
+        rels.append(f"{label} {rel:.3e}")
+        del got, want
+    turns = [cuda_ms(f) for f in (kernel, mm, mm, kernel)]
+    ms, mm_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    bound_ms = flop / PEAK_OPS_PER_S["f32"] * 1e3
+    log("f32", f"(d) fused_outproj_bwd_f32 (3xTF32 on wgmma): dattn's "
+        f"relative Frobenius error against plain {'; '.join(rels)} (held "
+        f"below {F32_CAM_RTOL}); at dropout 0 {ms:.4f} ms (turns "
+        f"{turns[0]:.4f}, {turns[3]:.4f}), {flop / ms / 1e9:.1f} TFLOP/s, "
+        f"{bound_ms / ms:.3f} of the 3xTF32 bound ({bound_ms:.4f} ms); f32 "
+        f"torch.mm(dy, Wout) {mm_ms:.4f} ms (turns {turns[1]:.4f}, "
+        f"{turns[2]:.4f}): the kernel takes {ms / mm_ms:.3f}x its time; "
+        f"{card}")
 
 
 # K10-K12 at f32 against their plain versions, f32 phase (g). Both sides
@@ -5466,7 +5536,7 @@ def kernel_counters() -> dict:
     the kernel's name."""
     from neurovit_tpu_torch.ops import (dropout, flash_attention, fused_mlp,
                                         fused_outproj, fused_qkv, int8_gemm,
-                                        int8_serving, maxpool3d)
+                                        int8_serving, maxpool3d, tf32x3)
     return {
         "flash_attention": flash_attention.flash_attention_cuda,
         "fused_ln_qkv": fused_qkv.fused_ln_qkv_cuda,
@@ -5497,6 +5567,7 @@ def kernel_counters() -> dict:
         "flash_attention_bwd_f32": flash_attention.flash_attention_bwd_f32_cuda,
         "fused_ln_qkv_bwd_f32": fused_qkv.fused_ln_qkv_bwd_f32_cuda,
         "fused_outproj_bwd_f32": fused_outproj.fused_outproj_bwd_f32_cuda,
+        "fused_outproj_bwd_wsplit_f32": tf32x3.split_t_cuda,
         "fused_mlp_bwd_f32": fused_mlp.fused_mlp_bwd_f32_cuda,
         "int8_ln_qkv_f32": int8_serving.int8_ln_qkv_f32_cuda,
         "int8_outproj_residual_f32":

@@ -9,19 +9,21 @@
 // TF32 products (a big and a small part of each operand) reach f32
 // accuracy at up to 165 TFLOP/s: the attention backward
 // (flash_attention_bwd_f32.cu, K5 and K6's backward at f32) takes them on
-// mma.sync (tf32x3.cuh), whose fragments the threads load in any layout.
-// The kernels here do not yet: wgmma takes TF32 operands K-major only, and
-// V in P·V and the weights of the backwards' products ([K, N] as they lie)
-// are not; mma.sync takes them, but its TF32 rate on the H100 is two
-// thirds of wgmma's and the splits cost issue slots, so 3xTF32 there
-// has to beat cuBLAS's SGEMM (which these tiles trail by 1.14-1.61x) to
-// pay; that is the next speed work (ROADMAP). So these f32 kernels are
-// bounded by the card's 67 TFLOP/s of f32 FFMA.
+// mma.sync (tf32x3.cuh), whose fragments the threads load in any layout;
+// K8's GEMM (dz . Wout) takes them on wgmma (tf32x3_wgmma.cuh), which
+// takes TF32 operands K-major only, after a pre-pass writes Wout's
+// transpose split. The kernels here do not yet: V in P·V and the other
+// backwards' weights ([K, N] as they lie) are not K-major; mma.sync takes
+// them, but its TF32 rate on the H100 is two thirds of wgmma's and the
+// splits cost issue slots, so 3xTF32 there has to beat cuBLAS's SGEMM
+// (which these tiles trail by 1.14-1.61x) to pay; that is the next speed
+// work (ROADMAP). So these f32 kernels are bounded by the card's 67
+// TFLOP/s of f32 FFMA.
 //
 // gemm_kernel: C[M, N] = A[M, K] . B[N, K]^T for row-major A and B (the
 // activations and a torch Linear weight as they lie: the forwards), or,
 // with kBKn, C = A . B for B [K, N] row-major (the weight as it lies in
-// the backwards' products dz . Wout, dqkv . Wqkv, dz . W2 and dh . W1),
+// the backwards' products dqkv . Wqkv, dz . W2 and dh . W1),
 // K % 16 == 0, N % 4 == 0, any M. One block of 256 threads computes a 128 x 128 tile of C:
 // eight warps of 32 x 64 (4 x 2), a warp's lanes 4 (rows) x 8 (columns),
 // 8 x 8 outputs a thread (rows wm*32 + ly*4 + 16 i4 + i, columns wn*64 +
@@ -282,18 +284,6 @@ cudaError_t launch_gemm(const float* A, const float* B, int M, int N, int K,
                                                                  K, epi);
   return cudaGetLastError();
 }
-
-// The epilogue of a GEMM whose output is the product itself, C [M, n]
-// (K8's da = dz . Wout).
-struct StoreEpi {
-  float* c;
-  int n;
-
-  __device__ __forceinline__ void operator()(int row, int col,
-                                             float4 v) const {
-    *reinterpret_cast<float4*>(c + static_cast<size_t>(row) * n + col) = v;
-  }
-};
 
 // The epilogue of a GEMM whose output is a residual stream: y = x +
 // (C + bias) * keep factors (fc2 of K4, K3): z = C + b, dropped and scaled

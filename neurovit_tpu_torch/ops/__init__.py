@@ -10,8 +10,10 @@ ResNet stem's max-pool with its argmax codes and its backward; and the
 probes' kernels, ``dropout`` (K16, the fused dropout with its 32-bit
 threshold) and ``int8_gemm`` (K17 and K18, the GEMM probes), which
 ``scripts/torch_dropout_bench.py`` and ``scripts/torch_int8_gemm_bench.py``
-run. Every public op dispatches on its operands: CPU tensors run the plain
-versions, CUDA tensors the hand-written Hopper kernels (or raise; the
+run; and ``tf32x3``, the weight pre-pass of the f32 GEMM that K8 at f32
+runs in 3xTF32 on ``wgmma``. Every public op dispatches on its operands:
+CPU tensors run the plain versions, CUDA tensors the hand-written Hopper
+kernels (or raise; the
 attention's head dims below 8 take the plain version on either device, by
 shape). There is no switch that routes CUDA tensors elsewhere. The public
 ops are imported from

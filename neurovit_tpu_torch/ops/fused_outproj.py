@@ -22,8 +22,9 @@ dim as any multiples of 16. f32 CUDA tensors run
 ``csrc/fused_outproj_f32.cu`` (K3 at f32, :func:`outproj_f32_plan`: one
 launch of ``csrc/ffma.cuh``'s GEMM in f32 on the CUDA cores, K4 f32's
 fc2) and ``csrc/fused_outproj_bwd_f32.cu`` (K8 at f32,
-:func:`outproj_bwd_f32_plan`: K9 f32's dz rows pass without the
-LayerNorm at dropout > 0, then the GEMM with Wout as it lies).
+:func:`outproj_bwd_f32_plan`: the weight pre-pass of ``ops/tf32x3.py``,
+K9 f32's dz rows pass without the LayerNorm at dropout > 0, then the GEMM
+in 3xTF32 on ``wgmma``, ``csrc/tf32x3_wgmma.cuh``).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from typing import NamedTuple
 import torch
 
 from neurovit_tpu_torch import nn
+from neurovit_tpu_torch.ops import tf32x3
 from neurovit_tpu_torch.ops.common import (FLOAT, INT, U64, VOID,
                                            check_operand, check_widths,
                                            dropout_args, is_training, launch,
@@ -129,22 +131,35 @@ def outproj_bwd_plan(m: int, dim: int, inner: int,
         launches=(rows, dattn) if dropout_rate else (dattn,), tile_n=tile_n)
 
 
+# K8 f32's dattn GEMM (csrc/tf32x3_wgmma.cuh): a 128 x 128 tile a block of
+# two consumer warpgroups and the producer warp, a ring of four stages of
+# three 16 KiB boxes (dz, Wt_big, Wt_small), its barriers and 1 KiB to
+# align the ring.
+TF32X3_TILE, TF32X3_STAGES = 128, 4
+TF32X3_SMEM = 1024 + TF32X3_STAGES * 3 * TF32X3_TILE * 128 + \
+    2 * TF32X3_STAGES * 8
+
+
 def outproj_bwd_f32_plan(m: int, dim: int, inner: int,
                          dropout_rate: float) -> OutprojBwdPlan:
-    """K8 f32's plan for m rows: at dropout > 0 dz_rows (K9 f32's pass 1
-    without the LayerNorm), then dattn, the f32 GEMM on 128 x 128 tiles
-    over the [m, inner] output with Wout read as it lies (its shared
-    memory ``nvt_ffma_gemm_smem_bytes``). The widths K8 takes. Raises where
+    """K8 f32's plan for m rows, its launches in order: wsplit, the weight
+    pre-pass (Wout's transpose split for 3xTF32, :mod:`.tf32x3`); at
+    dropout > 0 dz_rows (K9 f32's pass 1 without the LayerNorm); then
+    dattn, the 3xTF32 ``wgmma`` GEMM on 128 x 128 tiles over the [m,
+    inner] output (its shared memory ``nvt_fused_outproj_f32_bwd_smem_bytes``;
+    the card test holds the two equal). The widths K8 takes. Raises where
     the kernel does not take them."""
     check_bwd_shapes(dim, inner)
     if m < 1:
         raise ValueError(f"the out-projection backward kernel takes at "
                          f"least one row, got {m}")
-    dattn = f32_gemm_launch("dattn", m, inner)
+    wsplit = tf32x3.split_t_launch(dim, inner)
+    dattn = ("dattn", (-(-inner // TF32X3_TILE), -(-m // TF32X3_TILE)),
+             GEMM_THREADS, TF32X3_SMEM)
     rows = ("dz_rows", (-(-m // ROW_WARPS), 1), ROW_WARPS * 32, 0)
     return OutprojBwdPlan(
-        launches=(rows, dattn) if dropout_rate else (dattn,),
-        tile_n=F32_TILE)
+        launches=(wsplit, rows, dattn) if dropout_rate else (wsplit, dattn),
+        tile_n=TF32X3_TILE)
 
 
 def fused_outproj_residual_plain(x: torch.Tensor, attn: torch.Tensor,
@@ -263,9 +278,10 @@ fused_outproj_bwd_cuda.launches = 0
 
 def fused_outproj_bwd_f32_cuda(dy: torch.Tensor, w_out: torch.Tensor, *,
                                dropout_rate: float = 0.0, seed: int = 0):
-    """Launch K8 at f32 (:func:`outproj_bwd_f32_plan`) on f32 dy: exact f32
-    products on the CUDA cores. Returns (dattn, dz) f32; at dropout 0 dz
-    is dy itself."""
+    """Launch K8 at f32 (:func:`outproj_bwd_f32_plan`) on f32 dy: Wout's
+    split transpose by the pre-pass (:func:`.tf32x3.split_t_cuda`, which
+    counts its own launch), then dz and the f32 products in 3xTF32 on the
+    tensor cores. Returns (dattn, dz) f32; at dropout 0 dz is dy itself."""
     b, n, dim = dy.shape
     inner = w_out.shape[1]
     check_operand("dy", dy, torch.float32)
@@ -275,10 +291,11 @@ def fused_outproj_bwd_f32_cuda(dy: torch.Tensor, w_out: torch.Tensor, *,
     inv_keep, keep_q = dropout_args(dropout_rate)
     dattn = dy.new_empty(b, n, inner)
     dz = torch.empty_like(dy) if keep_q else None
+    wt_big, wt_small = tf32x3.split_t_cuda(w)
     launch("nvt_fused_outproj_f32_bwd",
-           (VOID,) * 4 + (INT,) * 3 + (FLOAT, INT, U64), dy, ptr(dy),
-           ptr(w), ptr(dattn), ptr(dz), b * n, inner, dim, inv_keep, keep_q,
-           int(seed))
+           (VOID,) * 5 + (INT,) * 3 + (FLOAT, INT, U64), dy, ptr(dy),
+           ptr(wt_big), ptr(wt_small), ptr(dattn), ptr(dz), b * n, inner,
+           dim, inv_keep, keep_q, int(seed))
     fused_outproj_bwd_f32_cuda.launches += 1
     return dattn, dy if dz is None else dz
 

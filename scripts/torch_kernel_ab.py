@@ -42,13 +42,21 @@ too, this one's reads dy and writes no dz then. K14 and K15 go through
 alone, this one's also ``pool_plan``'s walk. The f32 forwards K1-K4 and
 backwards K5, K7-K9 go through this checkout's wrappers on the same
 operands in f32 (K2 also with u, K4 also at dropout 0.1 with h; K5, K8
-and K9 at dropout 0.1, K5 also at 0), and so do K6's backward at f32 (at
-dropout 0, [B, H, N, D]) and the f32 instances of the int8 kernels
-K10-K13. A kernel whose entry point the other checkout lacks is timed in
+and K9 at dropout 0.1, K5 and K8 also at 0), and so do K6's backward at
+f32 (at dropout 0, [B, H, N, D]) and the f32 instances of the int8 kernels
+K10-K13; but K8 at f32 goes through ``k8_f32_call`` of
+``scripts/torch_outproj_device_times.py``: an older
+``nvt_fused_outproj_f32_bwd`` (the FFMA design) takes Wout itself, this
+one's the weight pre-pass's split transpose. A kernel whose entry point the other checkout lacks is timed in
 this one alone (the median of 2 x ``--rounds`` turns).
 
+With ``--step``, the flagship's f32 train step at batch 32 is timed too
+(``chip_smoke.py``'s (f): its seeded volumes, dropout 0.1, one fixed
+batch), with each library behind the kernels in the same turns, each
+turn the median of 5 steps after 2 (K8 f32 through ``k8_f32_call``).
+
     python scripts/torch_kernel_ab.py --other <checkout> [--rounds 10]
-        [--only <substring of a kernel's name>] [--batch 8]
+        [--only <substring of a kernel's name>] [--batch 8] [--step]
 """
 
 from __future__ import annotations
@@ -72,6 +80,9 @@ from neurovit_tpu_torch.ops import common  # noqa: E402
 from neurovit_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from neurovit_tpu_torch.ops import (fused_mlp, fused_outproj,  # noqa: E402
                                     fused_qkv, int8_serving, maxpool3d)
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_outproj_device_times import k8_f32_call  # noqa: E402
 
 
 def other_library(tree: str) -> str:
@@ -408,8 +419,9 @@ def cases(b: int = cs.B) -> dict:
         "fused_ln_qkv_bwd_f32": ("nvt_fused_ln_qkv_f32_bwd", lambda: (
             fused_qkv.fused_ln_qkv_bwd_f32_cuda(dqkvf, xf, ln[0], wqkv))),
         "fused_outproj_bwd_f32": ("nvt_fused_outproj_f32_bwd", lambda: (
-            fused_outproj.fused_outproj_bwd_f32_cuda(
-                dyf, wout, dropout_rate=cs.DROPOUT, seed=1234))),
+            k8_f32_call(dyf, wout, cs.DROPOUT, 1234))),
+        "fused_outproj_bwd_f32 dropout 0": (
+            "nvt_fused_outproj_f32_bwd", lambda: k8_f32_call(dyf, wout)),
         "fused_mlp_bwd_f32": ("nvt_fused_mlp_f32_bwd", lambda: (
             fused_mlp.fused_mlp_bwd_f32_cuda(*bwdf, **mdrop))),
         "int8_ln_qkv_f32": ("nvt_int8_ln_qkv_f32", lambda: (
@@ -450,6 +462,53 @@ def output_diffs(libs: dict, call) -> list:
             for a, b in zip(outs["this"], outs["other"])]
 
 
+def f32_step_turns(libs: dict, rounds: int) -> None:
+    """Print the flagship's f32 train step at batch 32 with each library
+    in turns (other, this, this, other), ``rounds`` times; K8 f32 goes
+    through :func:`k8_f32_call`, this checkout's wrapper where the
+    library has the weight pre-pass."""
+    import tempfile
+
+    from neurovit_tpu_torch.config import load_config
+    from neurovit_tpu_torch.models import NeuroEncoder
+    from neurovit_tpu_torch.training import Trainer
+
+    wrapper = fused_outproj.fused_outproj_bwd_f32_cuda
+
+    def routed(dy, w, dropout_rate=0.0, seed=0):
+        if hasattr(_build.library(), "nvt_wsplit_f32"):
+            return wrapper(dy, w, dropout_rate=dropout_rate, seed=seed)
+        return k8_f32_call(dy, w, dropout_rate, seed)
+
+    routed.launches = 0          # the wrapper counts on its module's name
+    fused_outproj.fused_outproj_bwd_f32_cuda = routed
+    try:
+        with tempfile.TemporaryDirectory() as workdir:
+            cfg = cs._train_config(load_config(), workdir,
+                                   TRAINING_PRECISION="f32",
+                                   TRAINING_NUM_WORKERS=0)
+            size = cfg["TRAINING_VIT_INPUT_SIZE"]
+            model = NeuroEncoder(cfg, device="cuda", seed=cs.SEED)
+            trainer = Trainer(
+                cfg, model, cs._SeededVolumes(64, size, cs.SEED + 6, "train"),
+                cs._SeededVolumes(32, size, cs.SEED + 7, "val"))
+            batch, zyx, _ = next(trainer._device_prefetch(
+                trainer.val_dataloader))
+            turns = {"other": [], "this": []}
+            for _ in range(rounds):
+                for side in ("other", "this", "this", "other"):
+                    use(libs[side])
+                    turns[side].append(cs._timed_steps(
+                        trainer, batch, zyx, warmup=2)[0])
+    finally:
+        fused_outproj.fused_outproj_bwd_f32_cuda = wrapper
+    a, b = (float(np.median(turns[s])) for s in ("other", "this"))
+    print(f"f32 train step, batch {batch['volume'].shape[0]}: other "
+          f"{a:.3f} ms, this {b:.3f} ms, ratio {b / a:.4f}; turns other "
+          f"{[round(t, 3) for t in turns['other']]}, this "
+          f"{[round(t, 3) for t in turns['this']]}", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True,
@@ -459,6 +518,9 @@ def main(argv=None) -> int:
                     help="time only the kernels whose name contains this")
     ap.add_argument("--batch", type=int, default=cs.B,
                     help="batch of the ViT kernels' operands (x 1001 tokens)")
+    ap.add_argument("--step", action="store_true",
+                    help="also time the flagship's f32 train step at batch "
+                    "32 in turns")
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     libs = {"other": ctypes.CDLL(other_library(os.path.abspath(args.other))),
@@ -489,6 +551,8 @@ def main(argv=None) -> int:
         diffs = ", ".join(f"{d:.3e}" for d in output_diffs(libs, call))
         print(f"{name:26s} {a:9.4f} {b:9.4f} {b / a:6.3f} "
               f"{(q3 - q1) / a:9.3f}  [{diffs}]", flush=True)
+    if args.step:
+        f32_step_turns(libs, args.rounds)
     return 0
 
 

@@ -31,10 +31,25 @@ x [inner, dim]; ``torch._int_mm`` and K17 int8's at K11's; and
 function at dropout 0 (K17 and ``torch._int_mm`` at M rounded up to
 16).
 
-    python scripts/torch_outproj_device_times.py [--iters 20]
+K8 at f32 (with ``--only f32``, or after the rest): at batch 8 and 32,
+dropout 0 and 0.1, on f32 dy (scale 0.1) and Wout in nn.Linear's default
+range: each launch's device time apart (the weight pre-pass
+``split_t_kernel``, ``dz_rows`` at dropout 0.1 and the ``dattn`` GEMM;
+an older checkout's FFMA GEMM shows as ``gemm_kernel``), their sum and the
+one-call CUDA-event time, the dattn GEMM's rate in TFLOP/s (2 M dim inner
+flops) and share of the 3xTF32 bound (165 TFLOP/s) and the FFMA floor (67
+TFLOP/s), beside f32 ``torch.mm(dy, Wout)`` (device time of its kernels
+and events; ``torch.backends.cuda.matmul.allow_tf32`` off, PyTorch's
+default), whose kernels' names the first line prints, and the factor
+between the two. ``--other <checkout>`` routes every kernel call to
+another checkout's kernel library (built there): K8 f32 goes through
+:func:`k8_f32_call`, which hands an older ``nvt_fused_outproj_f32_bwd``
+(the FFMA design, no pre-pass) Wout itself.
 
-Needs the card; prints nvidia-smi's name and power limit first. Copied
-into an older checkout's ``scripts/``, it times that checkout's kernels.
+    python scripts/torch_outproj_device_times.py [--iters 20]
+        [--only bf16|f32] [--other <checkout>]
+
+Needs the card; prints nvidia-smi's name and power limit first.
 """
 
 from __future__ import annotations
@@ -49,12 +64,14 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from neurovit_tpu_torch.ops import _build, common  # noqa: E402
 from neurovit_tpu_torch.ops import fused_outproj as k3  # noqa: E402
 from neurovit_tpu_torch.ops import int8_gemm as k17  # noqa: E402
 from neurovit_tpu_torch.ops import int8_serving as q8  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from torch_attention_device_times import events_ms  # noqa: E402
+from torch_attention_device_times import (events_ms,  # noqa: E402
+                                          use_checkout)
 from torch_gemm_device_times import device_us, enqueue_us  # noqa: E402
 
 N = 1001
@@ -66,7 +83,9 @@ HBM_BYTES_PER_S = 3.35e12
 # Kernel names as the profiler shows them, most specific first.
 PASSES = ("int8_outproj_kernel", "outproj_kernel", "rowquant_kernel",
           "fc2_residual_kernel", "dz_rows_kernel", "dattn_kernel",
-          "transpose_kernel", "gemm_kernel")
+          "split_t_kernel", "transpose_kernel", "gemm_kernel")
+F32_BATCHES = (8, 32)
+TF32X3_PER_S, FFMA_PER_S = 165e12, 67e12
 
 
 def operands(b: int, dim: int = DIM, inner: int = INNER,
@@ -220,20 +239,112 @@ def run(b: int, iters: int) -> tuple:
     return lines, measured
 
 
+def k8_f32_call(dy: torch.Tensor, w: torch.Tensor, rate: float = 0.0,
+                seed: int = 1234):
+    """K8 at f32 on the library behind the wrappers: this checkout's
+    wrapper where the library has the weight pre-pass
+    (``nvt_wsplit_f32``); else an older ``nvt_fused_outproj_f32_bwd``,
+    which takes Wout [dim, inner] itself. (dattn, dz) either way."""
+    if hasattr(_build.library(), "nvt_wsplit_f32"):
+        return k3.fused_outproj_bwd_f32_cuda(dy, w, dropout_rate=rate,
+                                             seed=seed)
+    b, n, dim = dy.shape
+    inner = w.shape[1]
+    inv_keep, keep_q = common.dropout_args(rate)
+    dattn = dy.new_empty(b, n, inner)
+    dz = torch.empty_like(dy) if keep_q else None
+    common.launch("nvt_fused_outproj_f32_bwd",
+                  (common.VOID,) * 4 + (common.INT,) * 3
+                  + (common.FLOAT, common.INT, common.U64), dy,
+                  common.ptr(dy), common.ptr(w), common.ptr(dattn),
+                  common.ptr(dz), b * n, inner, dim, inv_keep, keep_q, seed)
+    return dattn, dy if dz is None else dz
+
+
+def f32_operands(b: int, seed: int = 42) -> tuple:
+    """f32 dy [b, N, DIM] at 0.1 and Wout [DIM, INNER] in nn.Linear's
+    default range, on the card."""
+    rng = np.random.default_rng(seed)
+    dy = torch.tensor(0.1 * rng.standard_normal((b, N, DIM)),
+                      dtype=torch.float32, device="cuda")
+    w = torch.tensor(rng.uniform(-1, 1, (DIM, INNER)) / INNER ** 0.5,
+                     dtype=torch.float32, device="cuda")
+    return dy, w
+
+
+def run_f32(b: int, iters: int, named: bool) -> list:
+    """Lines of K8 f32 at batch b, dropout 0 and 0.1, beside f32
+    torch.mm(dy, Wout); the first names torch.mm's kernels unless
+    ``named``."""
+    dy, w = f32_operands(b)
+    m = b * N
+    flop = 2 * m * DIM * INNER
+    bound_ms, floor_ms = flop / TF32X3_PER_S * 1e3, flop / FFMA_PER_S * 1e3
+    dy2 = dy.reshape(m, DIM)
+    mm = lambda: torch.mm(dy2, w)  # noqa: E731
+    mm_dev = device_us(mm, iters)
+    mm_ms = sum(mm_dev.values()) / 1e3 if mm_dev else None
+    mm_events = events_ms(mm)
+    lines = []
+    if not named:
+        lines.append("f32 torch.mm(dy, Wout)'s kernels: " + "; ".join(
+            f"{k[:80]} {v:.1f} us" for k, v in sorted(mm_dev.items())))
+    for rate in (0.0, 0.1):
+        m_ = measure(lambda: k8_f32_call(dy, w, rate), iters)
+        passes = m_["passes_us"]
+        gemm_us = passes.get("dattn_kernel", passes.get("gemm_kernel"))
+        head = (f"K8 f32 batch {b} (M {m}, dim {DIM}, inner {INNER}) dropout "
+                f"{rate}: ")
+        if not passes:
+            head += "device not measured (no kernels traced)"
+        else:
+            head += (f"device {m_['device_ms']:.4f} ms (" + ", ".join(
+                f"{p} {us:.1f}" for p, us in passes.items()) + " us)")
+        if gemm_us:
+            head += (f"; GEMM {flop / gemm_us / 1e6:.1f} TFLOP/s, "
+                     f"{bound_ms * 1e3 / gemm_us:.3f} of the 3xTF32 bound")
+        head += (f"; events {m_['events_ms']:.4f} ms; 3xTF32 bound "
+                 f"{bound_ms:.4f} ms, FFMA floor {floor_ms:.4f} ms; f32 "
+                 f"torch.mm(dy, Wout) device "
+                 + ("not measured" if mm_ms is None else f"{mm_ms:.4f} ms")
+                 + f", events {mm_events:.4f} ms")
+        if mm_ms and m_["device_ms"]:
+            head += (f"; K8 f32 / torch.mm: device "
+                     f"{m_['device_ms'] / mm_ms:.3f}, events "
+                     f"{m_['events_ms'] / mm_events:.3f}")
+        lines.append(head + f"; enqueue {m_['enqueue_us']:.1f} us a call")
+    return lines
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--only", choices=("bf16", "f32"), default=None,
+                    help="time only the bf16 and int8 kernels, or only K8 "
+                    "at f32")
+    ap.add_argument("--other", default=None,
+                    help="root of another checkout whose kernels to time")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_outproj_device_times: needs the card", file=sys.stderr)
         return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip())
-    for b in BATCHES:
-        for text in run(b, args.iters)[0]:
-            print(text, flush=True)
-        torch.cuda.empty_cache()
+    if args.other:
+        use_checkout(os.path.abspath(args.other))
+        print(f"kernels of {args.other}")
+    if args.only != "f32":
+        for b in BATCHES:
+            for text in run(b, args.iters)[0]:
+                print(text, flush=True)
+            torch.cuda.empty_cache()
+    if args.only != "bf16":
+        for i, b in enumerate(F32_BATCHES):
+            for text in run_f32(b, args.iters, named=i > 0):
+                print(text, flush=True)
+            torch.cuda.empty_cache()
     return 0
 
 

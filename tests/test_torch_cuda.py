@@ -48,7 +48,10 @@ f32 ViT's forward launching only the f32 kernels; and the f32 backwards
 K5, K7, K8 and K9 at the same tolerance for the data gradients (dgamma
 and dbeta by relative Frobenius error <= 1e-5: f32 sums over the rows
 taken in another order), K5 at head dims 16-128 and n_valid off the key
-tiles, K8 and K9 at dropout 0 and 0.1 (dz is dy at 0), all-zero rows,
+tiles, K8 and K9 at dropout 0 and 0.1 (dz is dy at 0), K8 (3xTF32 on
+wgmma after its weight pre-pass) also at the 2D tutorial's 64 / 64 and
+ViT-S/B/L widths, dattn within 1e-5 relative Frobenius error of plain,
+the pre-pass bit-equal to its plain version, all-zero rows,
 repeat calls bit for bit, the plans' bytes against the kernels', and an
 f32 ViT's train step launching only the f32 kernels, its gradients
 against the CPU plain path's; and K10-K13 at f32 (the int8 serving of an
@@ -2082,9 +2085,10 @@ def test_f32_plans_match_the_kernels(cuda):
 
 def test_f32_kernels_do_not_spill(cuda):
     """ptxas's report in the build log: no kernel of the f32 forwards and
-    backwards (csrc/*_f32.cu, the row passes of csrc/ffma.cu) spills, nor
-    any f32 instance in csrc/int8_*.cu (the int8 serving kernels' passes
-    on the element type float, which their templates take first: names
+    backwards (csrc/*_f32.cu, the row passes of csrc/ffma.cu) spills, K8
+    f32's weight pre-pass and 3xTF32 wgmma GEMM among them, nor any f32
+    instance in csrc/int8_*.cu (the int8 serving kernels' passes on the
+    element type float, which their templates take first: names
     "<kernel>If...")."""
     from neurovit_tpu_torch.ops import _build
     kernels, _ = _build.ptxas_report(
@@ -2094,6 +2098,9 @@ def test_f32_kernels_do_not_spill(cuda):
     f32 = [k for k in kernels
            if k[0].endswith("_f32.cu") or k[0] == "ffma.cu"] + int8_f32
     assert len(f32) >= 37 and len(int8_f32) >= 10
+    k8 = [k[1] for k in f32 if k[0] == "fused_outproj_bwd_f32.cu"]
+    assert any("dattn_kernel" in k for k in k8)
+    assert any("split_t_kernel" in k for k in k8)
     assert [k[:2] for k in f32 if k[3] or k[4]] == []
 
 
@@ -2182,10 +2189,13 @@ def test_flash_attention_bwd_f32_kernel(cuda, b, n, n_valid, h, d, rate):
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("m,dim,inner", [(1, 64, 64), (130, 1024, 512),
                                          (300, 768, 768), (8008, 1024, 512),
-                                         (65, 1280, 1280), (33, 1536, 1040)])
+                                         (65, 1280, 1280), (33, 1536, 1040),
+                                         (520, 64, 64), (130, 384, 384),
+                                         (130, 1024, 1024), (129, 48, 16)])
 def test_fused_outproj_bwd_f32_kernel(cuda, m, dim, inner, rate):
-    """K8 at f32: (dattn, dz) against plain, dz dy itself at dropout 0,
-    two calls bit-equal."""
+    """K8 at f32 (3xTF32 on wgmma): (dattn, dz) against plain at the
+    flagship block, 130 rows, the 2D tutorial's 64 / 64, ViT-S/B/L widths
+    and ragged ones, dz dy itself at dropout 0, two calls bit-equal."""
     rng = np.random.default_rng(m + inner + 2)
     dy = _f32(rng, (1, m, dim), cuda)
     w = _f32(rng, (dim, inner), cuda, inner ** -0.5)
@@ -2196,6 +2206,49 @@ def test_fused_outproj_bwd_f32_kernel(cuda, m, dim, inner, rate):
         assert got[1] is dy
     again = fused_outproj.fused_outproj_bwd_f32_cuda(dy, w, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_fused_outproj_bwd_f32_tf32x3_accuracy(cuda, rate):
+    """K8 at f32 at the flagship block (8008 rows, dim 1024, inner 512):
+    dattn's relative Frobenius error against plain below 1e-5
+    (chip_smoke.py's F32_CAM_RTOL), all-zero rows of dy give dattn = 0
+    there, and each call launches the weight pre-pass once and K8 once,
+    the pre-pass bit-equal to its plain version."""
+    from neurovit_tpu_torch.ops import tf32x3
+    rng = np.random.default_rng(28)
+    dy = _f32(rng, (8, 1001, 1024), cuda)
+    w = _f32(rng, (1024, 512), cuda, 512 ** -0.5)
+    zero = [0, 127, 128, 1000]
+    dy[0, zero] = 0
+    kw = {"dropout_rate": rate, "seed": 5}
+    before = (tf32x3.split_t_cuda.launches,
+              fused_outproj.fused_outproj_bwd_f32_cuda.launches)
+    got, _ = fused_outproj.fused_outproj_bwd_f32_cuda(dy, w, **kw)
+    assert (tf32x3.split_t_cuda.launches,
+            fused_outproj.fused_outproj_bwd_f32_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    want, _ = fused_outproj.fused_outproj_bwd_plain(dy, w, **kw)
+    torch.cuda.synchronize()
+    assert float((got - want).norm()) < 1e-5 * float(want.norm())
+    assert not got[0, zero].abs().max()
+    for g, p in zip(tf32x3.split_t_cuda(w), tf32x3.split_t_plain(w)):
+        assert torch.equal(g, p)
+
+
+def test_outproj_bwd_f32_plan_smem_is_the_kernels(cuda):
+    """K8 f32's plan asks for the dattn GEMM's shared memory as the kernel
+    counts it (``nvt_fused_outproj_f32_bwd_smem_bytes``)."""
+    import ctypes
+
+    from neurovit_tpu_torch.ops import _build
+    fn = _build.library().nvt_fused_outproj_f32_bwd_smem_bytes
+    fn.restype, fn.argtypes = ctypes.c_longlong, []
+    for m, dim, inner in ((1, 64, 64), (8008, 1024, 512), (130, 1536, 1040)):
+        for rate in (0.0, 0.1):
+            dattn = fused_outproj.outproj_bwd_f32_plan(m, dim, inner,
+                                                       rate).launches[-1]
+            assert dattn[0] == "dattn" and dattn[3] == fn()
 
 
 @pytest.mark.parametrize("m,dim,heads,dh", F32_QKV_CASES)

@@ -20,7 +20,7 @@ from neurovit_tpu_torch import nn
 from neurovit_tpu_torch.models.vit3d import WIDTHS
 from neurovit_tpu_torch.ops import common
 from neurovit_tpu_torch.ops import flash_attention as fa
-from neurovit_tpu_torch.ops import fused_mlp, fused_outproj, fused_qkv
+from neurovit_tpu_torch.ops import fused_mlp, fused_outproj, fused_qkv, tf32x3
 from neurovit_tpu_torch.ops.common import SMEM_LIMIT
 
 torch.set_num_threads(1)
@@ -84,6 +84,18 @@ def test_f32_gemm_plans(width, m):
     assert plan.scratch_bytes % 256 == 0 and plan.scratch_bytes >= g0 + gb
 
 
+def _tf32x3_gemm_covers(launch, m, n):
+    """K8 f32's dattn (csrc/tf32x3_wgmma.cuh): two consumer warpgroups and
+    the producer warp, four 48 KiB stages, one block an SM, 128 x 128
+    tiles over the [m, n] output."""
+    name, grid, threads, smem = launch
+    assert threads == fused_mlp.GEMM_THREADS == 288
+    assert smem == fused_outproj.TF32X3_SMEM == 1024 + 4 * 3 * 16384 + 64
+    assert smem <= SMEM_LIMIT < 2 * smem
+    assert grid[0] * 128 >= n > (grid[0] - 1) * 128
+    assert grid[1] * 128 >= m > (grid[1] - 1) * 128
+
+
 def _ln_bwd_f32_covers(launches, scratch, nbytes, m, dim):
     """The f32 du GEMM, LayerNorm rows and column sums of
     ffma_ln_bwd.cuh, and their scratch: du, the statistics, the row sums
@@ -109,9 +121,9 @@ def _ln_bwd_f32_covers(launches, scratch, nbytes, m, dim):
 @pytest.mark.parametrize("dim,heads,dh,hid", BWD_WIDTHS)
 def test_f32_bwd_gemm_plans(dim, heads, dh, hid, m):
     """K7, K8 and K9 at f32: row passes a warp a row, GEMMs whose 128 x 128
-    tiles cover the output (K8's dattn over [m, inner], K9's hidden over
-    [m, hid], the du GEMM over [m, dim]), and the LayerNorm backward's
-    scratch."""
+    tiles cover the output (K8's dattn over [m, inner] in 3xTF32 on
+    wgmma after its weight pre-pass, K9's hidden over [m, hid], the du
+    GEMM over [m, dim]), and the LayerNorm backward's scratch."""
     inner = heads * dh
     plan = fused_qkv.qkv_bwd_f32_plan(m, dim, inner)
     assert plan.launches[0] == ("row_stats", (-(-m // 8), 1), 256, 0)
@@ -119,11 +131,12 @@ def test_f32_bwd_gemm_plans(dim, heads, dh, hid, m):
                        m, dim)
     for rate in (0.0, 0.1):
         plan = fused_outproj.outproj_bwd_f32_plan(m, dim, inner, rate)
-        *rows, gemm = plan.launches
+        wsplit, *rows, gemm = plan.launches
+        assert wsplit == tf32x3.split_t_launch(dim, inner)
         assert rows == ([("dz_rows", (-(-m // 8), 1), 256, 0)] if rate
                         else [])
         assert gemm[0] == "dattn" and plan.tile_n == 128
-        _gemm_covers(gemm, m, inner)
+        _tf32x3_gemm_covers(gemm, m, inner)
     plan = fused_mlp.mlp_bwd_f32_plan(m, dim, hid)
     rows, hidden = plan.launches[:2]
     assert rows == ("dz_rows", (-(-m // 8), 1), 256, 0)
@@ -191,6 +204,89 @@ def test_f32_bwd_plans_refuse_what_bf16_refuses():
                  lambda: fused_mlp.mlp_bwd_f32_plan(0, 64, 64)):
         with pytest.raises(ValueError, match="at least one row"):
             plan()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_outproj_bwd_f32_plan_launch_order_and_grids(rate):
+    """K8 f32: the weight pre-pass first (the wrapper launches it before
+    the C entry point), then at dropout > 0 dz_rows, then dattn; at the
+    flagship (batch 1, 8, 32 x 1001 rows: 4 x 8, 4 x 63, 4 x 251 tiles,
+    the pre-pass 16 x 32 tiles of Wout [1024, 512]), at ragged rows, at
+    the 2D tutorial's 64 / 64 and at inner 1040 (9 column tiles, the last
+    holding 16 columns)."""
+    names = ["wsplit", "dz_rows", "dattn"] if rate else ["wsplit", "dattn"]
+    for m, dim, inner, wsplit, dattn in (
+            (1001, 1024, 512, (16, 32), (4, 8)),
+            (8008, 1024, 512, (16, 32), (4, 63)),
+            (32032, 1024, 512, (16, 32), (4, 251)),
+            (1, 1024, 512, (16, 32), (4, 1)),
+            (8009, 1024, 512, (16, 32), (4, 63)),
+            (197, 64, 64, (2, 2), (1, 2)),
+            (8008, 1024, 1040, (33, 32), (9, 63)),
+            (130, 48, 80, (3, 2), (1, 2))):
+        plan = fused_outproj.outproj_bwd_f32_plan(m, dim, inner, rate)
+        assert [launch[0] for launch in plan.launches] == names
+        assert plan.launches[0] == ("wsplit", wsplit, 256, 0)
+        assert plan.launches[-1][1] == dattn
+        _tf32x3_gemm_covers(plan.launches[-1], m, inner)
+        if rate:
+            assert plan.launches[1] == ("dz_rows", (-(-m // 8), 1), 256, 0)
+
+
+@pytest.mark.parametrize("dim,inner,match", [
+    (1000, 512, "dim as a multiple of 16"),
+    (1024, 1288, "inner as a multiple of 16"),
+    (1024, 8, "inner as a multiple of 16"),
+    (8, 64, "dim as a multiple of 16")])
+def test_outproj_bwd_f32_plan_refuses_widths_off_16(dim, inner, match):
+    """K8 f32 refuses the widths bf16 K8 refuses, by the same gate."""
+    for rate in (0.0, 0.1):
+        for plan in (fused_outproj.outproj_bwd_f32_plan,
+                     fused_outproj.outproj_bwd_plan):
+            with pytest.raises(ValueError, match=match) as err:
+                plan(130, dim, inner, rate)
+            assert "ROADMAP.md, Queue 3" in str(err.value)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_outproj_bwd_f32_wrapper_hands_its_entry_points(monkeypatch, rate):
+    """What K8 f32's wrapper hands ``launch`` on dy [2, 9, 64] and Wout
+    [64, 32] (operand checks and launches replaced by a record): the
+    pre-pass on Wout (rows 64, cols 32) into big and small [32, 64], then
+    ``nvt_fused_outproj_f32_bwd`` with those two, dattn and dz (null at
+    dropout 0), M 18, inner 32, dim 64, the dropout's arguments and the
+    seed; each wrapper counts its own launch. The counters are
+    restored after the test."""
+    seen = []
+
+    def record(symbol, argtypes, like, *args):
+        seen.append((symbol, argtypes, args))
+
+    for module in (fused_outproj, tf32x3):
+        monkeypatch.setattr(module, "check_operand", lambda *a, **k: None)
+        monkeypatch.setattr(module, "launch", record)
+    counted = (tf32x3.split_t_cuda, fused_outproj.fused_outproj_bwd_f32_cuda)
+    before = [fn.launches for fn in counted]
+    try:
+        dy, w = torch.zeros(2, 9, 64), torch.zeros(64, 32)
+        dattn, dz = fused_outproj.fused_outproj_bwd_f32_cuda(
+            dy, w, dropout_rate=rate, seed=5)
+        assert [fn.launches - b for fn, b in zip(counted, before)] == [1, 1]
+    finally:
+        for fn, b in zip(counted, before):
+            fn.launches = b
+    (split_sym, split_types, split_args), (sym, types, args) = seen
+    assert split_sym == "nvt_wsplit_f32"
+    assert len(split_types) == 5 and split_args[3:] == (64, 32)
+    assert sym == "nvt_fused_outproj_f32_bwd" and len(types) == 11
+    assert [a.value for a in args[1:3]] == [a.value for a in split_args[1:3]]
+    assert args[3].value == dattn.data_ptr() and dattn.shape == (2, 9, 32)
+    inv_keep, keep_q = common.dropout_args(rate)
+    assert args[5:] == (18, 32, 64, inv_keep, keep_q, 5)
+    if rate:
+        assert args[4].value == dz.data_ptr() and dz is not dy
+    else:
+        assert args[4].value is None and dz is dy
 
 
 @pytest.mark.parametrize("b,n", [(1, 1), (1, 130), (8, 1001), (32, 1001),

@@ -93,12 +93,12 @@ def _as_on_card(monkeypatch):
     name) in place of running, the outputs left as allocated (zeros here).
     The wrappers' launch counters are restored after the test."""
     from neurovit_tpu_torch.ops import (common, fused_mlp, fused_outproj,
-                                        fused_qkv, int8_serving)
+                                        fused_qkv, int8_serving, tf32x3)
     from neurovit_tpu_torch.ops import flash_attention as fa
 
     seen = []
     for mod in (common, fa, fused_qkv, fused_outproj, fused_mlp,
-                int8_serving):
+                int8_serving, tf32x3):
         for name, value in (
                 ("on_cpu", lambda *_: False),
                 ("check_operand", lambda *a, **k: None),
@@ -118,7 +118,8 @@ K6_F32 = ["nvt_flash_attention_bhnd_f32_fwd",
 F32_FORWARDS = ["nvt_fused_ln_qkv_f32_fwd", "nvt_flash_attention_f32_fwd",
                 "nvt_fused_outproj_f32_fwd", "nvt_fused_mlp_f32_fwd"]
 F32_BACKWARDS = ["nvt_fused_ln_qkv_f32_bwd", "nvt_flash_attention_f32_bwd",
-                 "nvt_fused_outproj_f32_bwd", "nvt_fused_mlp_f32_bwd"]
+                 "nvt_fused_outproj_f32_bwd", "nvt_fused_mlp_f32_bwd",
+                 "nvt_wsplit_f32"]
 INT8_F32 = ["nvt_int8_ln_qkv_f32", "nvt_int8_attention_f32",
             "nvt_int8_outproj_f32", "nvt_int8_mlp_f32"]
 
@@ -132,8 +133,8 @@ def test_f32_on_cuda_refused_at_the_entry_point(monkeypatch, entry):
     card, reach the f32 kernels and no bf16 one. A probe runs K6 at f32
     once forward and once backward (the last block) beside K1-K4 f32 and
     K9 f32 (the last block's MLP under the gradient); IG and grad x input
-    differentiate the volume through every block (K1-K5, K7-K9 f32, no K6);
-    int8 serving runs K10-K13 f32."""
+    differentiate the volume through every block (K1-K5, K7-K9 f32 and K8
+    f32's weight pre-pass, no K6); int8 serving runs K10-K13 f32."""
     from neurovit_tpu_torch.explainability import vit_cam_2d
     from neurovit_tpu_torch.explainability.cam_methods import compute_cam
 
