@@ -192,8 +192,8 @@ Phases, each printing a line; any failure raises and exits non-zero:
                encoder, the encoder's share, peak memory, profiler splits;
                (g) the ResNet-18 encoder in 4D at B 1 x T 8, one K14, its
                encodings and the logits against the CPU plain path
-18. f32        K1-K5, K7-K9 at f32 (FFMA on the CUDA cores; K5 and K6's
-               backward in 3xTF32 on the tensor cores), with
+18. f32        K1-K5, K7-K9 at f32 (FFMA on the CUDA cores; K1, K5, K6
+               and its backward and K8 in 3xTF32 on the tensor cores), with
                torch.backends.cuda.matmul.allow_tf32 off: (a) each against
                its plain version at the flagship block (batch 8 x 1001),
                within 1e-4 (1 + |plain|), two calls bit-equal: K1 at
@@ -207,8 +207,13 @@ Phases, each printing a line; any failure raises and exits non-zero:
                plain version, its library yardstick (f32 SDPA; torch.mm at
                f32 for each GEMM pass), its bound (bytes at 3.35 TB/s or
                operations at 165 TFLOP/s, 3xTF32) and its FFMA floor
-               (67 TFLOP/s); (b) the seed-42 flagship served at f32 by
-               Predictor (every bucket, 3 volumes) and one HTTP POST, each
+               (67 TFLOP/s); K1's o in each case within 1e-5 relative
+               Frobenius error of plain, and K1 at the flagship block
+               timed in turns with f32 SDPA, its rate, its share of the
+               bound and of mma.sync's 3xTF32 ceiling (107 TFLOP/s) and
+               the factor between the two; (b) the seed-42 flagship
+               served at f32 by Predictor (every bucket, 3 volumes) and
+               one HTTP POST, each
                f32 kernel launched depth times per forward and no other
                kernel; the logits of 3 volumes against the CPU plain path
                within 1e-3; the forward at batch 32 timed with a profiler
@@ -270,7 +275,10 @@ Phases, each printing a line; any failure raises and exits non-zero:
                32, 64 and 128 at batch 2 x 2 heads; the first case timed
                beside plain, f32 SDPA or its backward and the bound, and
                bit-equal to K1 or K5 at f32 on the same heads in
-               [B, N, H, D]; (k) the seed-42 flagship at f32 with its
+               [B, N, H, D]; K6's o in each case within 1e-5 relative
+               Frobenius error of plain and the flagship probe's block
+               timed in turns with f32 SDPA as K1's; (k) the seed-42
+               flagship at f32 with its
                LayerNorm affines lifted: get_attention_map, the menu's
                gradcam and ablationcam (score_batch 16), integrated
                gradients (4 steps) and grad x input, each call's launches
@@ -487,12 +495,15 @@ POOL_SHAPE = (B, 90, 45, 45, 64)
 # memory bytes/s and operations/s by operand type. f32 products exact to
 # f32: three TF32 products each (a big and a small part of the operands)
 # at the 495 TF32 TFLOP/s, the fastest f32-accurate route on the card
-# (K5 and K6's backward at f32 take it, on mma.sync); F32_FFMA_PER_S, the
-# CUDA cores' f32 rate, is the floor of the FFMA kernels' design, printed
-# beside it.
+# (K1, K5 and K6 at f32 take it on mma.sync, K8 on wgmma); F32_FFMA_PER_S,
+# the CUDA cores' f32 rate, is the floor of the FFMA kernels' design,
+# printed beside it; F32_MMA_SYNC_PER_S, a third of mma.sync's TF32 rate
+# on the H100 (321.8 TFLOP/s, scripts/torch_mma_tf32_peak.py), the
+# ceiling of the attention's 3xTF32 products on mma.sync.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 495e12 / 3}
 F32_FFMA_PER_S = 67e12
+F32_MMA_SYNC_PER_S = 107e12
 # The f32 kernels against their plain versions, elementwise: |kernel -
 # plain| <= F32_TOL (1 + |plain|), f32 sums taken in another order; the
 # f32 model's logits and encodings on the card against the CPU plain path
@@ -3547,7 +3558,12 @@ def _f32_kernel_checks(card: str) -> dict:
         elif got[3].reshape(m, -1)[zero].abs().max():
             raise AssertionError("K2 f32 on zero rows: u not beta")
 
-    return _hold_f32_cases(cases, work, library, card, check=zero_rows)
+    stats = _hold_f32_cases(cases, work, library, card, check=zero_rows)
+    _tf32x3_report("flash_attention_f32", "o", cases["flash_attention_f32"],
+                   attention(*qkv, scale=scale, n_valid=N)[0],
+                   library["flash_attention_f32"], "f32 SDPA",
+                   work["flash_attention_f32"][1], card, mma_sync=True)
+    return stats
 
 
 def _hold_f32_cases(cases: dict, work: dict, library: dict, card: str, *,
@@ -3798,40 +3814,49 @@ def _f32_bwd_kernel_checks(card: str) -> dict:
         params={"fused_ln_qkv_bwd_f32": (1, 2), "fused_mlp_bwd_f32": (5, 6)},
         design_ops={"flash_attention_bwd_f32": 7 * attn_ops},
         exact=("fused_outproj_bwd_wsplit_f32",))
-    _k8_f32_report(cases["fused_outproj_bwd_f32"], outproj(dy)[0],
-                   library["fused_outproj_bwd_f32"], 2 * m * DIM * inner,
-                   card)
+    _tf32x3_report("(d) fused_outproj_bwd_f32", "dattn",
+                   cases["fused_outproj_bwd_f32"], outproj(dy)[0],
+                   library["fused_outproj_bwd_f32"], "f32 torch.mm(dy, Wout)",
+                   2 * m * DIM * inner, card)
     return stats
 
 
-def _k8_f32_report(cases: list, kernel, mm, flop: int, card: str) -> None:
-    """(d) for K8 f32 in 3xTF32 on wgmma: dattn's relative Frobenius error
-    against plain in each of its cases, held below F32_CAM_RTOL; then the
-    dropout-0 call ``kernel`` at the flagship block and f32
-    ``torch.mm(dy, Wout)`` (``mm``) timed in turns (kernel, mm, mm,
-    kernel), with the kernel's rate, its share of the 3xTF32 bound and the
-    factor between the two."""
+def _tf32x3_report(name: str, output: str, cases: list, kernel, library,
+                   library_name: str, flop: int, card: str,
+                   mma_sync: bool = False) -> None:
+    """An f32 kernel in 3xTF32 (K1 and K6 on mma.sync, K8 on wgmma): its
+    first output's relative Frobenius error against plain in each of its
+    cases, held below F32_CAM_RTOL; then ``kernel`` at the flagship block
+    and the same function's (or K8's GEMM's) PyTorch call ``library``
+    timed in turns (kernel, library, library, kernel), with the kernel's
+    rate, its share of the 3xTF32 bound (and, on mma.sync, of that form's
+    3xTF32 ceiling) and the factor between the two."""
     rels = []
     for label, call, plain in cases:
-        got, want = call()[0], plain()[0]
+        got, want = call(), plain()
+        got = got[0] if isinstance(got, tuple) else got
+        want = want[0] if isinstance(want, tuple) else want
         rel = float((got - want).norm() / want.norm())
         if not rel < F32_CAM_RTOL:
-            raise AssertionError(f"fused_outproj_bwd_f32 {label}: dattn's "
-                                 f"relative Frobenius error {rel:.3e} >= "
+            raise AssertionError(f"{name} {label}: {output}'s relative "
+                                 f"Frobenius error {rel:.3e} >= "
                                  f"{F32_CAM_RTOL}")
         rels.append(f"{label} {rel:.3e}")
         del got, want
-    turns = [cuda_ms(f) for f in (kernel, mm, mm, kernel)]
-    ms, mm_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    turns = [cuda_ms(f) for f in (kernel, library, library, kernel)]
+    ms, lib_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
     bound_ms = flop / PEAK_OPS_PER_S["f32"] * 1e3
-    log("f32", f"(d) fused_outproj_bwd_f32 (3xTF32 on wgmma): dattn's "
-        f"relative Frobenius error against plain {'; '.join(rels)} (held "
-        f"below {F32_CAM_RTOL}); at dropout 0 {ms:.4f} ms (turns "
-        f"{turns[0]:.4f}, {turns[3]:.4f}), {flop / ms / 1e9:.1f} TFLOP/s, "
-        f"{bound_ms / ms:.3f} of the 3xTF32 bound ({bound_ms:.4f} ms); f32 "
-        f"torch.mm(dy, Wout) {mm_ms:.4f} ms (turns {turns[1]:.4f}, "
-        f"{turns[2]:.4f}): the kernel takes {ms / mm_ms:.3f}x its time; "
-        f"{card}")
+    ceiling = (f", {flop / F32_MMA_SYNC_PER_S * 1e3 / ms:.3f} of "
+               f"mma.sync's ceiling ({flop / F32_MMA_SYNC_PER_S * 1e3:.4f} "
+               f"ms)" if mma_sync else "")
+    log("f32", f"{name} (3xTF32 on {'mma.sync' if mma_sync else 'wgmma'}): "
+        f"{output}'s relative Frobenius error against plain "
+        f"{'; '.join(rels)} (held below {F32_CAM_RTOL}); at the flagship "
+        f"block {ms:.4f} ms (turns {turns[0]:.4f}, {turns[3]:.4f}), "
+        f"{flop / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.3f} of the 3xTF32 "
+        f"bound ({bound_ms:.4f} ms){ceiling}; {library_name} {lib_ms:.4f} "
+        f"ms (turns {turns[1]:.4f}, {turns[2]:.4f}): the kernel takes "
+        f"{ms / lib_ms:.3f}x its time; {card}")
 
 
 # K10-K12 at f32 against their plain versions, f32 phase (g). Both sides
@@ -4533,6 +4558,11 @@ def _k6_f32_kernel_checks(card: str) -> dict:
     stats = _hold_f32_cases(
         cases, work, library, card,
         design_ops={"flash_attention_bhnd_bwd_f32": 7 * attn_ops})
+    _tf32x3_report("(j) flash_attention_bhnd_f32", "o",
+                   cases["flash_attention_bhnd_f32"],
+                   fwd(q, k, v, n_valid=N)[0],
+                   library["flash_attention_bhnd_f32"], "f32 SDPA",
+                   2 * attn_ops, card, mma_sync=True)
 
     # One kernel in two layouts: K6 f32 against K1 / K5 f32 on the same
     # heads laid out [B, N, H, D], bit for bit, each timed.

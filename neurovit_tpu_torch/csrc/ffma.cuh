@@ -1,24 +1,24 @@
-// The pieces the f32 forwards of the ViT block share (K1-K4 at f32:
-// fused_qkv_f32.cu, fused_outproj_f32.cu, fused_mlp_f32.cu,
-// flash_attention_f32.cu): exact f32 products on the CUDA cores (FFMA).
+// The pieces the f32 forwards of the ViT block share (K2-K4 at f32:
+// fused_qkv_f32.cu, fused_outproj_f32.cu, fused_mlp_f32.cu): exact f32
+// products on the CUDA cores (FFMA).
 //
 // Why not the tensor cores: wgmma has no f32 form, and one TF32 product
 // keeps 10 mantissa bits (about three digits), too few for the JAX
 // package's f32 path, whose Pallas kernels sum f32 products and whose plain
 // products run at "highest" precision (neurovit_tpu/nn.py:28-32). Three
 // TF32 products (a big and a small part of each operand) reach f32
-// accuracy at up to 165 TFLOP/s: the attention backward
-// (flash_attention_bwd_f32.cu, K5 and K6's backward at f32) takes them on
-// mma.sync (tf32x3.cuh), whose fragments the threads load in any layout;
-// K8's GEMM (dz . Wout) takes them on wgmma (tf32x3_wgmma.cuh), which
-// takes TF32 operands K-major only, after a pre-pass writes Wout's
-// transpose split. The kernels here do not yet: V in P·V and the other
-// backwards' weights ([K, N] as they lie) are not K-major; mma.sync takes
-// them, but its TF32 rate on the H100 is two thirds of wgmma's and the
-// splits cost issue slots, so 3xTF32 there has to beat cuBLAS's SGEMM
-// (which these tiles trail by 1.14-1.61x) to pay; that is the next speed
-// work (ROADMAP). So these f32 kernels are bounded by the card's 67
-// TFLOP/s of f32 FFMA.
+// accuracy at up to 165 TFLOP/s: the attention forward and backward
+// (flash_attention_f32.cu, flash_attention_bwd_f32.cu: K1, K5 and K6 at
+// f32) take them on mma.sync (tf32x3.cuh), whose fragments the threads
+// load in any layout; K8's GEMM (dz . Wout) takes them on wgmma
+// (tf32x3_wgmma.cuh), which takes TF32 operands K-major only, after a
+// pre-pass writes Wout's transpose split. The kernels here do not yet:
+// the other backwards' weights ([K, N] as they lie) are not K-major;
+// mma.sync takes them, but its TF32 rate on the H100 is two thirds of
+// wgmma's and the splits cost issue slots, so 3xTF32 there has to beat
+// cuBLAS's SGEMM (which these tiles trail by 1.14-1.61x) to pay; that is
+// the next speed work (ROADMAP). So these f32 kernels are bounded by the
+// card's 67 TFLOP/s of f32 FFMA.
 //
 // gemm_kernel: C[M, N] = A[M, K] . B[N, K]^T for row-major A and B (the
 // activations and a torch Linear weight as they lie: the forwards), or,

@@ -1,10 +1,12 @@
-// The pieces of the f32 attention forward (flash_attention_f32.cu, K1 and
-// K6 at f32, on the CUDA cores) and its backward (flash_attention_bwd_f32.cu,
-// K5 and K6's backward at f32, on the tensor cores by tf32x3.cuh): a block
-// of 128 threads, the forward's tiles of f32 rows whose 16-byte chunks are
-// permuted by the row's quad (swz), the cp.async copy of a run of a head's
-// rows into such a tile, the score clamp, and the dropout bits of four
-// (the forward) or sixteen (the backward) consecutive keys of one row.
+// The pieces of the f32 attention kernels: the forward
+// (flash_attention_f32.cu, K1 and K6 at f32) and backward
+// (flash_attention_bwd_f32.cu, K5 and K6's backward at f32), both on the
+// tensor cores by tf32x3.cuh, and K13 at f32 (int8_attention_f32.cu): a
+// block of 128 threads (the backward, K13 f32), tiles of f32 rows whose
+// 16-byte chunks are permuted by the row's quad (swz) and the cp.async
+// copy of a run of a head's rows into such a tile (K13 f32), the score
+// clamp, and the dropout bits of four (K13 f32) or sixteen (the forward
+// and the backward) consecutive keys of one row.
 #pragma once
 
 #include "ffma.cuh"

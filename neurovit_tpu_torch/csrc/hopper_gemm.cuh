@@ -779,14 +779,15 @@ inline cudaError_t encode_mnmajor(CUtensorMap* map, const void* ptr, int K,
   return encode_kmajor(map, ptr, K, N, false, 64);
 }
 
-// The tensor map of a rank-4 bf16 tensor: dims innermost first, byte
-// strides of dims 1-3, a box of `box` elements per dim (box[0] * 2 <= 128),
-// 128-byte swizzle, zeros past the edges on loads; a store writes nothing
-// past them. Failures as encode_kmajor's.
-inline cudaError_t encode_bf16_4d(CUtensorMap* map, const void* ptr,
-                                  const cuuint64_t (&dims)[4],
-                                  const cuuint64_t (&strides)[3],
-                                  const cuuint32_t (&box)[4]) {
+// The tensor map of a rank-4 bf16 (or, with f32, f32) tensor: dims
+// innermost first, byte strides of dims 1-3, a box of `box` elements per
+// dim (box[0] times the element size <= 128), 128-byte swizzle, zeros past
+// the edges on loads; a store writes nothing past them. Failures as
+// encode_kmajor's.
+inline cudaError_t encode_4d(CUtensorMap* map, const void* ptr,
+                             const cuuint64_t (&dims)[4],
+                             const cuuint64_t (&strides)[3],
+                             const cuuint32_t (&box)[4], bool f32) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) {
     fprintf(stderr, "nvt: the driver has no cuTensorMapEncodeTiled\n");
@@ -794,15 +795,17 @@ inline cudaError_t encode_bf16_4d(CUtensorMap* map, const void* ptr,
   }
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map,
+      f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (res != CUDA_SUCCESS) {
     fprintf(stderr,
-            "nvt: cuTensorMapEncodeTiled failed with CUresult %d (bf16 "
+            "nvt: cuTensorMapEncodeTiled failed with CUresult %d (%s "
             "[%llu, %llu, %llu, %llu], box [%u, %u, %u, %u])\n",
-            static_cast<int>(res), static_cast<unsigned long long>(dims[3]),
+            static_cast<int>(res), f32 ? "f32" : "bf16",
+            static_cast<unsigned long long>(dims[3]),
             static_cast<unsigned long long>(dims[2]),
             static_cast<unsigned long long>(dims[1]),
             static_cast<unsigned long long>(dims[0]), box[3], box[2], box[1],
@@ -810,6 +813,13 @@ inline cudaError_t encode_bf16_4d(CUtensorMap* map, const void* ptr,
     return cudaErrorInvalidValue;
   }
   return cudaSuccess;
+}
+
+inline cudaError_t encode_bf16_4d(CUtensorMap* map, const void* ptr,
+                                  const cuuint64_t (&dims)[4],
+                                  const cuuint64_t (&strides)[3],
+                                  const cuuint32_t (&box)[4]) {
+  return encode_4d(map, ptr, dims, strides, box, false);
 }
 
 }  // namespace hopper

@@ -1,7 +1,8 @@
 // f32 products on the tensor cores by 3xTF32, on mma.sync's TF32 form
 // (mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32): the f32 attention
-// backward (flash_attention_bwd_f32.cu, K5 and K6's backward at f32) runs
-// every one of its matrix products here.
+// forward (flash_attention_f32.cu, K1 and K6 at f32) and backward
+// (flash_attention_bwd_f32.cu, K5 and K6's backward at f32) run every one
+// of their matrix products here.
 //
 // One TF32 product keeps 10 mantissa bits of each operand, too few for the
 // JAX package's f32 path (ffma.cuh). So each operand x is split into
@@ -131,6 +132,54 @@ __device__ __forceinline__ void load_b_kn(FragB& b, const float* tile,
   split(__float_as_uint(p[ld]), b.big[1], b.small[1]);
 }
 
+// The same three loaders on a tile of kRows rows that TMA's 128-byte
+// swizzle lays out (the f32 attention forward's Q, K and V boxes): column
+// c of row r in panel c / 32 (kRows rows of 32 f32, 128 bytes a row),
+// its 16-byte chunk (c % 32) / 4 at chunk ((c % 32) / 4) ^ (r % 8). The
+// eight rows of an ldmatrix matrix (r % 8 = 0 .. 7 at one chunk) fall in
+// eight distinct 16-byte bank groups, and load_b_kn_sw's lanes read the
+// chunks (n0 % 32 / 4 + g / 4) ^ (2t or 2t + 1) at word g % 4: 32
+// distinct banks. No bank conflict; the tile starts on 1024 bytes.
+template <int kRows>
+__device__ __forceinline__ int swz128(int r, int c) {
+  return (c >> 5) * (kRows * 32) + r * 32 + ((((c >> 2) & 7) ^ (r & 7)) << 2) +
+         (c & 3);
+}
+
+template <int kRows>
+__device__ __forceinline__ void load_a_sw(FragA& a, const float* tile, int m0,
+                                          int k0) {
+  const int lane = threadIdx.x & 31, i = lane >> 3;
+  uint32_t r[4];
+  ldsm_x4(r, tile + swz128<kRows>(m0 + (lane & 7) + 8 * (i & 1),
+                                  k0 + 4 * (i >> 1)));
+#pragma unroll
+  for (int j = 0; j < 4; ++j) split(r[j], a.big[j], a.small[j]);
+}
+
+template <int kRows>
+__device__ __forceinline__ void load_b_nk2_sw(FragB& b0, FragB& b1,
+                                              const float* tile, int n0,
+                                              int k0) {
+  const int lane = threadIdx.x & 31, i = lane >> 3;
+  uint32_t r[4];
+  ldsm_x4(r, tile + swz128<kRows>(n0 + (lane & 7) + 8 * (i >> 1),
+                                  k0 + 4 * (i & 1)));
+  split(r[0], b0.big[0], b0.small[0]);
+  split(r[1], b0.big[1], b0.small[1]);
+  split(r[2], b1.big[0], b1.small[0]);
+  split(r[3], b1.big[1], b1.small[1]);
+}
+
+template <int kRows>
+__device__ __forceinline__ void load_b_kn_sw(FragB& b, const float* tile,
+                                             int k0, int n0) {
+  const int r = k0 + 2 * lane_t(), c = n0 + lane_g();
+  split(__float_as_uint(tile[swz128<kRows>(r, c)]), b.big[0], b.small[0]);
+  split(__float_as_uint(tile[swz128<kRows>(r + 1, c)]), b.big[1],
+        b.small[1]);
+}
+
 // The accumulator c of a 16 x 8 product as the A of the next, its k slots
 // in the order above.
 __device__ __forceinline__ void a_from_acc(FragA& a, const float (&c)[4]) {
@@ -157,6 +206,21 @@ __device__ __forceinline__ void mma3_rz(float (&d)[4], const FragA& a,
   mma_tf32(d, a.small, b.big);
   mma_tf32(d, a.big, b.small);
   mma_tf32(d, a.big, b.big);
+}
+
+// d[j] += a . b[j] for kN accumulators at once in 3xTF32: each
+// accumulator takes mma3_rz's three MMAs in its order, issued term by term
+// across the accumulators, so that kN independent MMAs follow each other
+// (the same sums as kN calls of mma3_rz).
+template <int kN>
+__device__ __forceinline__ void mma3_rz_n(float (&d)[kN][4], const FragA& a,
+                                          const FragB (&b)[kN]) {
+#pragma unroll
+  for (int j = 0; j < kN; ++j) mma_tf32(d[j], a.small, b[j].big);
+#pragma unroll
+  for (int j = 0; j < kN; ++j) mma_tf32(d[j], a.big, b[j].small);
+#pragma unroll
+  for (int j = 0; j < kN; ++j) mma_tf32(d[j], a.big, b[j].big);
 }
 
 __device__ __forceinline__ void zero(float (&d)[4]) {

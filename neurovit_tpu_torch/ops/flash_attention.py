@@ -42,10 +42,11 @@ Pallas for its dense XLA path (flash_attention.py:517-520); D > 128 is
 refused.
 
 f32 CUDA tensors run ``csrc/flash_attention_f32.cu`` (K1 and K6 at f32,
-:func:`flash_f32_plan`: FFMA products on the CUDA cores) and
+:func:`flash_f32_plan`: the bf16 K1's TMA ring, both products in 3xTF32
+on the tensor cores, ``csrc/tf32x3.cuh``) and
 ``csrc/flash_attention_bwd_f32.cu`` (K5 and K6's backward at f32,
 :func:`flash_f32_bwd_plan`: the bf16 K5's two passes, every product in
-3xTF32 on the tensor cores, ``csrc/tf32x3.cuh``), each layout a template
+3xTF32), each layout a template
 instance with its own launch symbol and count, as in bf16: P and dS not
 rounded, as the TPU kernels compute at f32, with instances for D in
 :data:`F32_HEAD_DIMS` (32, 64, 128) and the same zero-padding of the
@@ -103,8 +104,10 @@ FWD_ALIGN_SLACK = 1024
 MAX_GRID_X = 2 ** 31 - 1
 BWD_STAGES = 3
 BWD_STAT_BYTES = 64 * 4
-# K1 and K6 at f32 (csrc/flash_attention_f32.cu): head-dim instances, query
-# rows a block, keys a tile, threads a block.
+# K1 and K6 at f32 (csrc/flash_attention_f32.cu): head-dim instances,
+# query rows a block (four warps of 16), keys a ring stage, the ring's
+# stages (two at head dim 128) and threads a block; the TMA boxes are
+# 128-byte swizzled, FWD_ALIGN_SLACK aligning them to 1024 bytes.
 F32_HEAD_DIMS = (32, 64, 128)
 F32_BQ, F32_BKV, F32_THREADS = 64, 32, 128
 # K5 and K6's backward at f32 (csrc/flash_attention_bwd_f32.cu): rows a
@@ -189,13 +192,15 @@ class F32FwdPlan(NamedTuple):
     """How one launch of K1 or K6 at f32 covers [B, N, H, D] or
     [B, H, N, D] (the layout moves only where a head's rows lie): the
     head-dim instance ``d_kernel`` (q, k and v zero-padded to it), ``bq``
-    query rows a block of ``threads`` on a one-dimensional grid of (q tiles
-    x B * H), q tiles fastest; ``bkv`` keys a tile, two tiles of K and V in
-    flight; ``smem`` bytes of dynamic shared memory a block (the Q tile,
-    two K and two V tiles, the P tile, all f32)."""
+    query rows a block of ``threads`` on a one-dimensional grid of (q
+    tiles x B * H), q tiles fastest; ``bkv`` keys a stage of the K and V
+    ring, ``stages`` of them; ``smem`` bytes of dynamic shared memory a
+    block (the alignment slack, the Q box, the ring, its full and empty
+    mbarriers and Q's, all boxes f32)."""
     d_kernel: int
     bq: int
     bkv: int
+    stages: int
     threads: int
     grid: tuple
     smem: int
@@ -215,11 +220,13 @@ def flash_f32_plan(b: int, n: int, h: int, d: int) -> F32FwdPlan:
     does not take the shape: the head dims and grids K1 takes in bf16."""
     d_kernel = f32_head_dim(d)
     _check_grid("forward", b, n, h)
-    smem = (F32_BQ * d_kernel + 4 * F32_BKV * d_kernel + F32_BQ * F32_BKV) * 4
+    stages = 2 if d_kernel == 128 else 3
+    smem = (FWD_ALIGN_SLACK + (F32_BQ + 2 * stages * F32_BKV) * d_kernel * 4
+            + (2 * stages + 1) * 8)
     check_smem("attention forward", smem)
     return F32FwdPlan(d_kernel=d_kernel, bq=F32_BQ, bkv=F32_BKV,
-                      threads=F32_THREADS, grid=(-(-n // F32_BQ) * b * h,),
-                      smem=smem)
+                      stages=stages, threads=F32_THREADS,
+                      grid=(-(-n // F32_BQ) * b * h,), smem=smem)
 
 
 class F32BwdPlan(NamedTuple):
@@ -534,7 +541,8 @@ def flash_attention_f32_cuda(q: torch.Tensor, k: torch.Tensor,
                              dropout_rate: float = 0.0, seed: int = 0,
                              return_stats: bool = False):
     """Launch K1 at f32 (:func:`flash_f32_plan`): f32 [B, N, H, D],
-    contiguous, 8 <= D <= 128; exact f32 products on the CUDA cores."""
+    contiguous, 8 <= D <= 128; both products in 3xTF32 on the tensor
+    cores."""
     out = _fwd_cuda("nvt_flash_attention_f32_fwd", "bnhd", q, k, v,
                     scale=scale, n_valid=n_valid, dropout_rate=dropout_rate,
                     seed=seed, return_stats=return_stats, f32=True)
@@ -614,8 +622,8 @@ def flash_attention_bhnd_f32_cuda(q: torch.Tensor, k: torch.Tensor,
                                   dropout_rate: float = 0.0, seed: int = 0,
                                   return_stats: bool = False):
     """Launch K6 at f32 (:func:`flash_f32_plan`): f32 [B, H, N, D],
-    contiguous, 8 <= D <= 128, read and written in place; exact f32
-    products on the CUDA cores."""
+    contiguous, 8 <= D <= 128, read and written in place; both products
+    in 3xTF32 on the tensor cores."""
     out = _fwd_cuda("nvt_flash_attention_bhnd_f32_fwd", "bhnd", q, k, v,
                     scale=scale, n_valid=n_valid, dropout_rate=dropout_rate,
                     seed=seed, return_stats=return_stats, f32=True)

@@ -26,6 +26,16 @@ Its rate counts 14 B H N^2 D flops a call (the two passes' seven
 products), its bound the 10 B H N^2 D of the minimum five (2.5 times the
 forward's).
 
+The f32 forward (``--only f32``, or with the forward): K1 f32 at batch 8
+and 32 at dropout 0 and 0.1 (with the row sums) and K6 f32 at batch 1
+and 8 at dropout 0, at 1001 tokens and 8 heads of 64, on f32 operands,
+by the profiler and by one-call CUDA events (median of 25), beside f32
+SDPA's forward on the same tensors, whose kernels' names the first f32
+forward line prints. Its rate counts 4 B H N^2 D flops, against the
+3xTF32 bound (165 TFLOP/s) and ``mma.sync``'s 3xTF32 ceiling (107
+TFLOP/s, a third of its 322 TF32 TFLOP/s measured by
+``scripts/torch_mma_tf32_peak.py``).
+
 The f32 backward (with the backward, or ``--only bwd``): K5 f32 at batch
 8 and 32 at dropout 0 and 0.1 and K6's backward at f32 at batch 1 and 8
 at dropout 0, at 1001 tokens and 8 heads of 64, on f32 operands, o and
@@ -71,9 +81,11 @@ CASES = (("K1", "bnhd", (1, 8, 32, 128), (0.0, 0.1)),
          ("K6", "bhnd", (1, 8), (0.0,)))
 BWD_CASES = (("K5", "bnhd", (1, 8, 32, 128), (0.0, 0.1)),
              ("K6 bwd", "bhnd", (1, 8), (0.0,)))
+F32_FWD_CASES = (("K1 f32", "bnhd", (8, 32), (0.0, 0.1)),
+                 ("K6 f32", "bhnd", (1, 8), (0.0,)))
 F32_BWD_CASES = (("K5 f32", "bnhd", (8, 32), (0.0, 0.1)),
                  ("K6 bwd f32", "bhnd", (1, 8), (0.0,)))
-TF32X3_PER_S, FFMA_PER_S = 165e12, 67e12
+TF32X3_PER_S, FFMA_PER_S, MMA_SYNC_3X_PER_S = 165e12, 67e12, 107e12
 
 
 def operands(b: int, d: int, layout: str, seed: int = 0,
@@ -90,8 +102,11 @@ def exp2_floor_ms(b: int, n_valid: int = N) -> float:
 
 
 def kernel_call(qkv: list, layout: str, rate: float):
-    fn = (fa.flash_attention_cuda if layout == "bnhd"
-          else fa.flash_attention_bhnd_cuda)
+    fn = {("bnhd", False): fa.flash_attention_cuda,
+          ("bhnd", False): fa.flash_attention_bhnd_cuda,
+          ("bnhd", True): fa.flash_attention_f32_cuda,
+          ("bhnd", True): fa.flash_attention_bhnd_f32_cuda}[
+              layout, qkv[0].dtype == torch.float32]
     d = qkv[0].shape[-1]
     return lambda: fn(*qkv, scale=d ** -0.5, n_valid=N, dropout_rate=rate,
                       seed=1234, return_stats=bool(rate))
@@ -113,8 +128,36 @@ def measure(qkv: list, layout: str, rate: float, iters: int) -> dict:
     return {"device_ms": sum(dev.values()) / 1e3 if dev else None,
             "library_device_ms": (sum(lib_dev.values()) / 1e3 if lib_dev
                                   else None),
+            "library_us": lib_dev,
             "enqueue_us": enqueue_us(kernel, 4 * iters),
             "library_enqueue_us": enqueue_us(lib, 4 * iters)}
+
+
+def measure_f32_fwd(qkv: list, layout: str, rate: float, iters: int) -> dict:
+    """As :func:`measure`, with one-call event times."""
+    m = measure(qkv, layout, rate, iters)
+    m.update(ms=events_ms(kernel_call(qkv, layout, rate)),
+             library_ms=events_ms(sdpa_call(qkv, layout)))
+    return m
+
+
+def f32_fwd_line(name: str, b: int, d: int, rate: float, m: dict) -> str:
+    flop = 4 * b * HEADS * N * N * d
+    bound_ms = flop / TF32X3_PER_S * 1e3
+    ceiling_ms = flop / MMA_SYNC_3X_PER_S * 1e3
+
+    def ms(t):
+        return ("not measured" if t is None
+                else f"{t:.4f} ms ({flop / t / 1e9:.1f} TFLOP/s, "
+                f"{bound_ms / t:.3f} of the bound, {ceiling_ms / t:.3f} of "
+                f"mma.sync's ceiling)")
+
+    return (f"{name} B {b} N {N} H {HEADS} D {d} dropout {rate}: device "
+            f"{ms(m['device_ms'])}, events {m['ms']:.4f} ms; f32 SDPA device "
+            f"{ms(m['library_device_ms'])}, events {m['library_ms']:.4f} ms; "
+            f"3xTF32 bound {bound_ms:.4f} ms, mma.sync ceiling "
+            f"{ceiling_ms:.4f} ms; enqueue {m['enqueue_us']:.1f} us a call "
+            f"(SDPA {m['library_enqueue_us']:.1f})")
 
 
 def events_ms(fn, warmup: int = 3, runs: int = 25) -> float:
@@ -246,8 +289,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--only", choices=("fwd", "bwd", "f32"), default=None,
-                    help="time only the forward, only the backward (bf16 "
-                    "and f32) or only the f32 backward")
+                    help="time only the forward (bf16 and f32), only the "
+                    "backward (bf16 and f32) or only the f32 forward and "
+                    "backward")
     ap.add_argument("--other", default=None,
                     help="root of another checkout whose kernels to time")
     args = ap.parse_args(argv)
@@ -260,9 +304,11 @@ def main(argv=None) -> int:
     if args.other:
         use_checkout(os.path.abspath(args.other))
         print(f"kernels of {args.other}")
-    named = False
+    named = set()
     for cases, measure_fn, line_fn, what, heads, dtype in (
             (CASES, measure, line, ("fwd",), (64, 128), torch.bfloat16),
+            (F32_FWD_CASES, measure_f32_fwd, f32_fwd_line, ("fwd", "f32"),
+             (64,), torch.float32),
             (BWD_CASES, measure_bwd, bwd_line, ("bwd",), (64, 128),
              torch.bfloat16),
             (F32_BWD_CASES, measure_bwd, f32_bwd_line, ("bwd", "f32"), (64,),
@@ -275,11 +321,12 @@ def main(argv=None) -> int:
                     qkv = operands(b, d, layout, dtype=dtype)
                     for rate in rates:
                         m = measure_fn(qkv, layout, rate, args.iters)
-                        if dtype == torch.float32 and not named:
-                            print("f32 SDPA backward's kernels: " + "; ".join(
-                                f"{k[:80]} {v:.1f} us" for k, v in
-                                sorted(m["library_us"].items())))
-                            named = True
+                        if dtype == torch.float32 and what not in named:
+                            print(f"f32 SDPA {what[0]}'s kernels: "
+                                  + "; ".join(f"{k[:80]} {v:.1f} us"
+                                              for k, v in sorted(
+                                                  m["library_us"].items())))
+                            named.add(what)
                         print(line_fn(name, b, d, rate, m), flush=True)
                     del qkv
                     torch.cuda.empty_cache()

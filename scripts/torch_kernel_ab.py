@@ -41,9 +41,10 @@ too, this one's reads dy and writes no dz then. K14 and K15 go through
 ``nvt_maxpool3d_fwd`` / ``_bwd`` (a thread a window) takes the shape
 alone, this one's also ``pool_plan``'s walk. The f32 forwards K1-K4 and
 backwards K5, K7-K9 go through this checkout's wrappers on the same
-operands in f32 (K2 also with u, K4 also at dropout 0.1 with h; K5, K8
-and K9 at dropout 0.1, K5 and K8 also at 0), and so do K6's backward at
-f32 (at dropout 0, [B, H, N, D]) and the f32 instances of the int8 kernels
+operands in f32 (K1 also at dropout 0.1 with the row sums, K2 also with
+u, K4 also at dropout 0.1 with h; K5, K8 and K9 at dropout 0.1, K5 and K8
+also at 0), and so do K6 and its backward at f32 (at dropout 0,
+[B, H, N, D]) and the f32 instances of the int8 kernels
 K10-K13; but K8 at f32 goes through ``k8_f32_call`` of
 ``scripts/torch_outproj_device_times.py``: an older
 ``nvt_fused_outproj_f32_bwd`` (the FFMA design) takes Wout itself, this
@@ -393,6 +394,14 @@ def cases(b: int = cs.B) -> dict:
         "flash_attention_f32": ("nvt_flash_attention_f32_fwd", lambda: (
             fa.flash_attention_f32_cuda(*qkvf, scale=d ** -0.5,
                                         n_valid=n))),
+        "flash_attention_f32 dropout with stats": (
+            "nvt_flash_attention_f32_fwd", lambda: (
+                fa.flash_attention_f32_cuda(*qkvf, return_stats=True,
+                                            **att))),
+        "flash_attention_bhnd_f32": (
+            "nvt_flash_attention_bhnd_f32_fwd", lambda: (
+                fa.flash_attention_bhnd_f32_cuda(*trf0[:3], scale=d ** -0.5,
+                                                 n_valid=n))),
         "fused_ln_qkv_f32": ("nvt_fused_ln_qkv_f32_fwd", lambda: (
             fused_qkv.fused_ln_qkv_f32_cuda(xf, *ln, wqkv, h, d))),
         "fused_ln_qkv_f32 with u": ("nvt_fused_ln_qkv_f32_fwd", lambda: (

@@ -2063,7 +2063,8 @@ def test_f32_kernels_zero_rows(cuda, zero_bias):
 
 def test_f32_plans_match_the_kernels(cuda):
     """The wrappers' f32 plans count the GEMM's shared memory, K4's
-    scratch and K1's shared memory as the kernels do."""
+    scratch and K1's shared memory (its Q box, TMA ring and barriers) as
+    the kernels do, at every width and head-dim instance."""
     import ctypes
 
     from neurovit_tpu_torch.ops import _build
@@ -2081,12 +2082,16 @@ def test_f32_plans_match_the_kernels(cuda):
                 m, dim, hid).scratch_bytes
         plan = fa.flash_f32_plan(2, 1001, heads, dh)
         assert attn(plan.d_kernel) == plan.smem
+    for dh in (16, 32, 64, 128):
+        plan = fa.flash_f32_plan(2, 1001, 2, dh)
+        assert attn(plan.d_kernel) == plan.smem
 
 
 def test_f32_kernels_do_not_spill(cuda):
     """ptxas's report in the build log: no kernel of the f32 forwards and
     backwards (csrc/*_f32.cu, the row passes of csrc/ffma.cu) spills, K8
-    f32's weight pre-pass and 3xTF32 wgmma GEMM among them, nor any f32
+    f32's weight pre-pass and 3xTF32 wgmma GEMM and the six 3xTF32
+    instances of K1 and K6 at f32 among them, nor any f32
     instance in csrc/int8_*.cu (the int8 serving kernels' passes on the
     element type float, which their templates take first: names
     "<kernel>If...")."""
@@ -2101,6 +2106,9 @@ def test_f32_kernels_do_not_spill(cuda):
     k8 = [k[1] for k in f32 if k[0] == "fused_outproj_bwd_f32.cu"]
     assert any("dattn_kernel" in k for k in k8)
     assert any("split_t_kernel" in k for k in k8)
+    # K1 and K6 at f32: D 32, 64 and 128 in both layouts.
+    fwd = [k[1] for k in f32 if k[0] == "flash_attention_f32.cu"]
+    assert len(fwd) == 6 and all("flash_fwd_f32_kernel" in k for k in fwd)
     assert [k[:2] for k in f32 if k[3] or k[4]] == []
 
 
@@ -2415,6 +2423,34 @@ def test_flash_attention_bhnd_f32_kernel(cuda, b, n, n_valid, h, d, rate):
     o1, lsum1 = fa.flash_attention_f32_cuda(_bnhd(q), _bnhd(k), _bnhd(v),
                                             **kw)
     assert torch.equal(_bnhd(o1), o) and torch.equal(lsum1, lsum)
+
+
+@pytest.mark.parametrize("layout", ["bnhd", "bhnd"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_attention_f32_tf32x3_accuracy(cuda, rate, layout):
+    """K1 and K6 at f32 in 3xTF32 at the flagship block (batch 8 x 1001
+    tokens, 8 heads of 64): o's relative Frobenius error against plain,
+    printed, below 1e-5 (chip_smoke.py's F32_CAM_RTOL), and the row sums
+    within F32_TOL; one launch of the layout's wrapper a call."""
+    rng = np.random.default_rng(29)
+    shape = (8, 1001, 8, 64) if layout == "bnhd" else (8, 8, 1001, 64)
+    q, k, v = (_f32(rng, shape, cuda) for _ in range(3))
+    kw = {"scale": 0.125, "n_valid": 1001, "dropout_rate": rate, "seed": 9,
+          "return_stats": True}
+    kernel, plain = ((fa.flash_attention_f32_cuda, fa.flash_attention_plain)
+                     if layout == "bnhd" else
+                     (fa.flash_attention_bhnd_f32_cuda,
+                      fa.flash_attention_bhnd_plain))
+    before = kernel.launches
+    o, lsum = kernel(q, k, v, **kw)
+    assert kernel.launches == before + 1
+    want, want_l = plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    rel = float((o - want).norm() / want.norm())
+    print(f"\nK1/K6 f32 {layout} dropout {rate}: o's relative Frobenius "
+          f"error {rel:.3e}")
+    assert rel < 1e-5
+    _check_f32(lsum, want_l)
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])

@@ -295,14 +295,19 @@ def test_outproj_bwd_f32_wrapper_hands_its_entry_points(monkeypatch, rate):
                                         (64, 64), (80, 128), (128, 128)])
 def test_flash_f32_plan(d, d_kernel, b, n):
     """K1 at f32: instances at 32, 64 and 128 (other head dims padded), a
-    64-row query tile a block of 128 threads, 32 keys a tile; shared
-    memory (Q, two K and two V tiles, P) under 227 KB. It is K6's at f32
-    too (test_bhnd_f32_wrappers_launch_as_bnhd_f32)."""
+    64-row query tile a block of 128 threads, 32 keys a stage of a ring of
+    three (two at head dim 128); shared memory (the 1 KiB alignment slack,
+    the Q box, the ring's K and V boxes, their full and empty barriers and
+    Q's) under 227 KB. It is K6's at f32 too
+    (test_bhnd_f32_wrappers_launch_as_bnhd_f32)."""
     plan = fa.flash_f32_plan(b, n, 8, d)
     assert plan.d_kernel == d_kernel == fa.f32_head_dim(d)
-    assert (plan.bq, plan.bkv, plan.threads) == (64, 32, 128)
+    stages = 2 if d_kernel == 128 else 3
+    assert (plan.bq, plan.bkv, plan.stages, plan.threads) == (
+        64, 32, stages, 128)
     assert plan.grid == (-(-n // 64) * b * 8,)
-    assert plan.smem == (64 * d_kernel + 4 * 32 * d_kernel + 64 * 32) * 4
+    assert plan.smem == 1024 + (64 + 2 * stages * 32) * d_kernel * 4 + (
+        2 * stages + 1) * 8
     assert plan.smem <= SMEM_LIMIT
 
 
@@ -374,10 +379,11 @@ def test_gemm_kn_staging_copies_are_a_conflict_free_bijection():
 
 @pytest.mark.parametrize("width", [32, 64, 128])
 def test_attention_chunk_permutation(width):
-    """flash_attention_f32.cu swz: chunk c of row r at c ^ ((r / 4) % 8), a
-    permutation of each row's chunks; the Q rows (ty*4 + i, four ty a warp)
-    and the K rows (tx*4 + j, eight tx a warp) that a warp reads at one
-    chunk fall into distinct 16-byte bank slots."""
+    """flash_f32.cuh swz (K13 f32's tiles, int8_attention_f32.cu): chunk c
+    of row r at c ^ ((r / 4) % 8), a permutation of each row's chunks; the
+    Q rows (ty*4 + i, four ty a warp) and the K rows (tx*4 + j, eight tx a
+    warp) that a warp reads at one chunk fall into distinct 16-byte bank
+    slots."""
     def swz(r, c):
         return r * width + ((c ^ ((r >> 2) & 7)) << 2)
 
@@ -421,10 +427,10 @@ def test_gemm_dropout_bytes_are_keep_mask(rate):
 
 
 def test_attention_dropout_bytes_are_keep_mask():
-    """flash_attention_f32.cu: a thread's four keys of a row, ((b H + h) N
-    + q) N + key0 .. + 3, from the Philox blocks of the first and last
-    (N = 1001 is odd, so they straddle blocks), equal to nn.keep_mask over
-    [B, H, N, N]."""
+    """flash_f32.cuh keep_bits4 (K13 f32, int8_attention_f32.cu): a
+    thread's four keys of a row, ((b H + h) N + q) N + key0 .. + 3, from
+    the Philox blocks of the first and last (N = 1001 is odd, so they
+    straddle blocks), equal to nn.keep_mask over [B, H, N, N]."""
     b, h, n, rate, seed = 2, 3, 1001, 0.1, 99
     q, _ = nn.keep_threshold(rate)
     mask = nn.keep_mask(seed, (b, h, n, n), rate).numpy()
