@@ -192,8 +192,9 @@ Phases, each printing a line; any failure raises and exits non-zero:
                encoder, the encoder's share, peak memory, profiler splits;
                (g) the ResNet-18 encoder in 4D at B 1 x T 8, one K14, its
                encodings and the logits against the CPU plain path
-18. f32        K1-K5, K7-K9 at f32 (FFMA on the CUDA cores; K1, K5, K6
-               and its backward and K8 in 3xTF32 on the tensor cores), with
+18. f32        K1-K5, K7-K9 at f32 (FFMA on the CUDA cores; K1, K2, K4,
+               K5, K6 and its backward and K8 in 3xTF32 on the tensor
+               cores), with
                torch.backends.cuda.matmul.allow_tf32 off: (a) each against
                its plain version at the flagship block (batch 8 x 1001),
                within 1e-4 (1 + |plain|), two calls bit-equal: K1 at
@@ -211,7 +212,13 @@ Phases, each printing a line; any failure raises and exits non-zero:
                Frobenius error of plain, and K1 at the flagship block
                timed in turns with f32 SDPA, its rate, its share of the
                bound and of mma.sync's 3xTF32 ceiling (107 TFLOP/s) and
-               the factor between the two; (b) the seed-42 flagship
+               the factor between the two; K4's y and K2's q (3xTF32 on
+               wgmma) within 1e-5 relative Frobenius error of plain in
+               each case, each timed in turns beside f32 torch.mm at its
+               GEMMs with its rate and share of the bound; their weight
+               pre-pass bit-equal to plain on W1, W2, Wqkv, the 2D
+               tutorial's Wqkv and a ragged weight, a launch for each
+               weight of every K2 and K4 f32 call; (b) the seed-42 flagship
                served at f32 by Predictor (every bucket, 3 volumes) and
                one HTTP POST, each
                f32 kernel launched depth times per forward and no other
@@ -427,6 +434,11 @@ KERNELS = [
      "neurovit_tpu_torch/csrc/fused_outproj_f32.cu",
      "neurovit_tpu/ops/fused_outproj.py:44"),
     ("fused_mlp_block_f32", "neurovit_tpu_torch/csrc/fused_mlp_f32.cu",
+     "neurovit_tpu/ops/fused_mlp.py:108"),
+    # The forwards' weight pre-pass (W1, W2 and Wqkv split for 3xTF32 as
+    # they lie), a launch of its own wrapper for each weight of every K4 f32
+    # and K2 f32 call.
+    ("fused_fwd_wsplit_f32", "neurovit_tpu_torch/csrc/tf32x3_wgmma.cuh",
      "neurovit_tpu/ops/fused_mlp.py:108"),
     ("flash_attention_bwd_f32",
      "neurovit_tpu_torch/csrc/flash_attention_bwd_f32.cu",
@@ -2359,6 +2371,12 @@ def _count_forwards(model) -> list:
 
 
 def _check_counts(phase: str, launches: dict, want: dict) -> None:
+    """Each kernel's launches in ``phase`` against ``want``; the forwards'
+    weight pre-pass is wanted once for each weight of every K2 f32 (Wqkv)
+    and K4 f32 (W1, W2) launch, whatever ``want`` says of it."""
+    if "fused_fwd_wsplit_f32" in want:
+        want = dict(want, fused_fwd_wsplit_f32=want.get(
+            "fused_ln_qkv_f32", 0) + 2 * want.get("fused_mlp_block_f32", 0))
     for name, count in launches.items():
         if count != want[name] or (want[name] and count == 0):
             raise AssertionError(f"{name} launched {count} times in {phase}, "
@@ -3433,13 +3451,17 @@ def fourd_serving(cfg, ckpt: str, seqs: np.ndarray, workdir: str,
 def _f32_kernel_checks(card: str) -> dict:
     """(a) of the f32 phase: K1-K4 at f32 against their plain versions on
     the card at the flagship block (batch 8 x 1001), each case also run
-    twice bit-equal; the first case of each kernel timed beside its plain
-    version, its library yardstick (f32 SDPA, torch.mm at f32 for each
-    GEMM pass) and its bound. Returns each kernel's stats."""
+    twice bit-equal, and K2's and K4's weight pre-pass bit-equal to plain;
+    the first case of each kernel timed beside its plain version, its
+    library yardstick (f32 SDPA, torch.mm at f32 for each GEMM pass) and
+    its bound; the 3xTF32 kernels (K1 on mma.sync, K2 and K4 on wgmma)
+    held to F32_CAM_RTOL and timed in turns with their yardstick. Returns
+    each kernel's stats."""
     import torch.nn.functional as F
 
     from neurovit_tpu_torch.ops import flash_attention as fa
-    from neurovit_tpu_torch.ops import fused_mlp, fused_outproj, fused_qkv
+    from neurovit_tpu_torch.ops import (fused_mlp, fused_outproj, fused_qkv,
+                                        tf32x3)
 
     rng = np.random.default_rng(SEED + 23)
 
@@ -3523,6 +3545,13 @@ def _f32_kernel_checks(card: str) -> dict:
         cases["flash_attention_f32"].append(
             (f"head dim {d}, batch 2 x 2 heads, dropout {DROPOUT}",
              *attention(*qd, scale=d ** -0.5, n_valid=N, **drop)))
+    # K4 f32's and K2 f32's weight pre-pass: W1, W2, Wqkv, the 2D
+    # tutorial's Wqkv and a ragged weight.
+    cases["fused_fwd_wsplit_f32"] = [
+        (f"W [{a.shape[0]}, {a.shape[1]}]",
+         lambda a=a: tf32x3.split_cuda(a),
+         lambda a=a: tf32x3.split_plain(a))
+        for a in (w1, w2, wqkv, w(192, 64), w(80, 48))]
 
     x2, attn2 = x.reshape(m, DIM), attn.reshape(m, inner)
     h2 = t(m, MLP)
@@ -3544,7 +3573,10 @@ def _f32_kernel_checks(card: str) -> dict:
                                        2 * m * inner * DIM),
         "fused_mlp_block_f32": (nbytes(x, *ln, w1, b1, w2, b2),
                                 4 * m * DIM * MLP),
+        # A rounding and a subtraction an element; its bytes bound it.
+        "fused_fwd_wsplit_f32": (nbytes(w1), 2 * w1.numel()),
     }
+
     def zero_rows(name, label, got):
         if not label.startswith("zero rows"):
             return
@@ -3558,11 +3590,17 @@ def _f32_kernel_checks(card: str) -> dict:
         elif got[3].reshape(m, -1)[zero].abs().max():
             raise AssertionError("K2 f32 on zero rows: u not beta")
 
-    stats = _hold_f32_cases(cases, work, library, card, check=zero_rows)
+    stats = _hold_f32_cases(cases, work, library, card, check=zero_rows,
+                            exact=("fused_fwd_wsplit_f32",))
     _tf32x3_report("flash_attention_f32", "o", cases["flash_attention_f32"],
                    attention(*qkv, scale=scale, n_valid=N)[0],
                    library["flash_attention_f32"], "f32 SDPA",
                    work["flash_attention_f32"][1], card, mma_sync=True)
+    for name, output, library_name in (
+            ("fused_mlp_block_f32", "y", "f32 torch.mm at fc1 and fc2"),
+            ("fused_ln_qkv_f32", "q", "f32 torch.mm at its GEMM")):
+        _tf32x3_report(name, output, cases[name], cases[name][0][1],
+                       library[name], library_name, work[name][1], card)
     return stats
 
 
@@ -3824,7 +3862,8 @@ def _f32_bwd_kernel_checks(card: str) -> dict:
 def _tf32x3_report(name: str, output: str, cases: list, kernel, library,
                    library_name: str, flop: int, card: str,
                    mma_sync: bool = False) -> None:
-    """An f32 kernel in 3xTF32 (K1 and K6 on mma.sync, K8 on wgmma): its
+    """An f32 kernel in 3xTF32 (K1 and K6 on mma.sync, K2, K4 and K8 on
+    wgmma): its
     first output's relative Frobenius error against plain in each of its
     cases, held below F32_CAM_RTOL; then ``kernel`` at the flagship block
     and the same function's (or K8's GEMM's) PyTorch call ``library``
@@ -5594,6 +5633,7 @@ def kernel_counters() -> dict:
         "fused_outproj_residual_f32":
             fused_outproj.fused_outproj_residual_f32_cuda,
         "fused_mlp_block_f32": fused_mlp.fused_mlp_block_f32_cuda,
+        "fused_fwd_wsplit_f32": tf32x3.split_cuda,
         "flash_attention_bwd_f32": flash_attention.flash_attention_bwd_f32_cuda,
         "fused_ln_qkv_bwd_f32": fused_qkv.fused_ln_qkv_bwd_f32_cuda,
         "fused_outproj_bwd_f32": fused_outproj.fused_outproj_bwd_f32_cuda,

@@ -1,27 +1,28 @@
-// The pieces the f32 forwards of the ViT block share (K2-K4 at f32:
-// fused_qkv_f32.cu, fused_outproj_f32.cu, fused_mlp_f32.cu): exact f32
-// products on the CUDA cores (FFMA).
+// The pieces the f32 kernels of the ViT block share on the CUDA cores
+// (FFMA): K3's forward (fused_outproj_f32.cu), the backwards' GEMMs of K7
+// and K9 (fused_qkv_bwd_f32.cu, fused_mlp_bwd_f32.cu, ffma_ln_bwd.cuh), and
+// the row passes of ffma.cu (the LayerNorm rows K2 and K4 at f32 run
+// first, the dz rows of K8 and K9).
 //
-// Why not the tensor cores: wgmma has no f32 form, and one TF32 product
-// keeps 10 mantissa bits (about three digits), too few for the JAX
+// Why not the tensor cores everywhere: wgmma has no f32 form, and one TF32
+// product keeps 10 mantissa bits (about three digits), too few for the JAX
 // package's f32 path, whose Pallas kernels sum f32 products and whose plain
 // products run at "highest" precision (neurovit_tpu/nn.py:28-32). Three
 // TF32 products (a big and a small part of each operand) reach f32
 // accuracy at up to 165 TFLOP/s: the attention forward and backward
 // (flash_attention_f32.cu, flash_attention_bwd_f32.cu: K1, K5 and K6 at
 // f32) take them on mma.sync (tf32x3.cuh), whose fragments the threads
-// load in any layout; K8's GEMM (dz . Wout) takes them on wgmma
-// (tf32x3_wgmma.cuh), which takes TF32 operands K-major only, after a
-// pre-pass writes Wout's transpose split. The kernels here do not yet:
-// the other backwards' weights ([K, N] as they lie) are not K-major;
-// mma.sync takes them, but its TF32 rate on the H100 is two thirds of
-// wgmma's and the splits cost issue slots, so 3xTF32 there has to beat
-// cuBLAS's SGEMM (which these tiles trail by 1.14-1.61x) to pay; that is
+// load in any layout; K8's GEMM (dz . Wout), K4's fc1 and fc2 and K2's QKV
+// product take them on wgmma (tf32x3_wgmma.cuh), which takes TF32 operands
+// K-major only, after a pre-pass writes each weight split (Wout turned,
+// W1, W2 and Wqkv as they lie). The GEMMs here do not yet: K3's is the
+// smallest forward GEMM, and the other backwards' weights ([K, N] as they
+// lie) are not K-major, so they need K8's transposing pre-pass; that is
 // the next speed work (ROADMAP). So these f32 kernels are bounded by the
 // card's 67 TFLOP/s of f32 FFMA.
 //
 // gemm_kernel: C[M, N] = A[M, K] . B[N, K]^T for row-major A and B (the
-// activations and a torch Linear weight as they lie: the forwards), or,
+// activations and a torch Linear weight as they lie: K3), or,
 // with kBKn, C = A . B for B [K, N] row-major (the weight as it lies in
 // the backwards' products dqkv . Wqkv, dz . W2 and dh . W1),
 // K % 16 == 0, N % 4 == 0, any M. One block of 256 threads computes a 128 x 128 tile of C:
@@ -273,7 +274,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// B [N, K] (the forwards), or B [K, N] with kBKn (the backwards).
+// B [N, K] (K3), or B [K, N] with kBKn (the backwards).
 template <bool kBKn = false, typename Epi>
 cudaError_t launch_gemm(const float* A, const float* B, int M, int N, int K,
                         const Epi& epi, cudaStream_t stream) {
@@ -286,7 +287,7 @@ cudaError_t launch_gemm(const float* A, const float* B, int M, int N, int K,
 }
 
 // The epilogue of a GEMM whose output is a residual stream: y = x +
-// (C + bias) * keep factors (fc2 of K4, K3): z = C + b, dropped and scaled
+// (C + bias) * keep factors (K3): z = C + b, dropped and scaled
 // where keep_q > 0, then x added in f32.
 struct ResidualEpi {
   const float* bias;

@@ -13,7 +13,8 @@
 // is the torch weight [dim, inner] as it lies.
 //
 // What bounds it on the H100: its 2 M inner dim flops. At f32 they run
-// on the CUDA cores (ffma.cuh says why not yet in 3xTF32): 8.4 GFLOP for
+// on the CUDA cores (ffma.cuh says why K3 is not in 3xTF32 yet, as K2's
+// and K4's forwards are): 8.4 GFLOP for
 // the flagship block at batch 8 (M = 8008, inner 512, dim 1024), 0.12 ms
 // at 67 TFLOP/s, above its 67 MB of a, x, y and Wout (0.020 ms at 3.35
 // TB/s).
@@ -21,7 +22,7 @@
 // The design: one launch of ffma.cuh's GEMM (128 x 128 tiles, 8 x 8 a
 // thread, operands staged by cp.async) over (ceil(dim / 128), ceil(M /
 // 128)) tiles, with ResidualEpi adding b, applying the mask and adding x
-// from registers. K4's fc2 (fused_mlp_f32.cu) is the same launch.
+// from registers.
 //
 // Measured (NVIDIA H100 80GB HBM3, 700.00 W; scripts/torch_kernel_ab.py at
 // batch 8, medians over 5 rounds, beside the first GEMM design):
@@ -53,7 +54,7 @@ extern "C" int nvt_fused_outproj_f32_fwd(const void* a, const void* x,
       inner, epi, static_cast<cudaStream_t>(stream)));
 }
 
-// Dynamic shared memory of a block of the f32 GEMMs (ffma.cuh), the one
+// Dynamic shared memory of a block of the FFMA GEMMs (ffma.cuh), the one
 // count ops/fused_mlp.py f32_gemm_smem_bytes holds.
 extern "C" long long nvt_ffma_gemm_smem_bytes() {
   return static_cast<long long>(nvt::ffma::kSmemBytes);

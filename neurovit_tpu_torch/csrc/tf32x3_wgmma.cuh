@@ -1,16 +1,18 @@
 // f32 GEMMs on the tensor cores by 3xTF32 on wgmma, for sm_90a: the
 // mainloop of K8's f32 backward (fused_outproj_bwd_f32.cu, dattn = dz .
-// Wout) and its weight pre-pass.
+// Wout), of K4's f32 fc1 and fc2 (fused_mlp_f32.cu) and K2's f32 QKV
+// product (fused_qkv_f32.cu), and their weight pre-passes.
 //
 // Loop<kStages, kFreshStages>::run computes the 128 x 128 tile at (m0,
 // n0) of A [M, K] . Bt^T in f32 from three K-major f32 operands in device
-// memory: A [M, K] as it is (dz), and Bt [N, K] already split into
-// Bt_big and Bt_small by the pre-pass (split_t_kernel: Bt = W^T of a
-// torch Linear weight W [K, N], big = rna_tf32(w) and small = w - big,
-// tf32x3.cuh's split, both [N, K]). wgmma takes TF32 operands K-major
-// only, so W, MN-major for this product, is turned once a call; it is
-// small (2 MB at the flagship's Wout) and changes with every optimizer
-// step, so nothing is kept across calls.
+// memory: A [M, K] as it is (dz, u or g), and Bt [N, K] already split into
+// Bt_big and Bt_small by a pre-pass (big = rna_tf32(w) and small = w -
+// big, tf32x3.cuh's split, both [N, K]). wgmma takes TF32 operands K-major
+// only. The forwards' weights W1, W2 and Wqkv are torch Linear weights
+// [N, K], K-major for their products as they lie: split_kernel splits
+// them element by element. K8's Wout [K, N] is MN-major for its product:
+// split_t_kernel turns it once a call. Weights change with every
+// optimizer step, so nothing is kept across calls.
 //
 // Each operand has an f32 tensor map (encode_kmajor_f32) whose box is 128
 // bytes of K -- 32 f32 -- by 128 rows, loaded with the 128-byte swizzle;
@@ -302,7 +304,79 @@ struct Loop {
       f(row + 8, 8 * j + col, acc[4 * j + 2], acc[4 * j + 3]);
     }
   }
+
+  // f(row, col, v) for the thread's pairs two by two, the pairs of steps j
+  // = 2 p and 2 p + 1 of for_each_pair in one row: v = (x, y) at (row,
+  // col), (row, col + 1) and (z, w) at (row, col + 8), (row, col + 9),
+  // col = 16 p + 2 (t % 4). The four lie in one 16-column group of the
+  // tile, so in one 16-byte Philox block of a dropout site whose width is
+  // a multiple of 16 (keep_quad).
+  template <typename F>
+  __device__ __forceinline__ static void for_each_quad(
+      const float (&acc)[kAccRegs], F&& f) {
+    const int t = threadIdx.x % 128;
+    const int row = (threadIdx.x / 128) * 64 + (t / 32) * 16 + (t % 32) / 4;
+    const int col = 2 * (t % 4);
+#pragma unroll
+    for (int p = 0; p < kBN / 16; ++p) {
+      f(row, 16 * p + col, make_float4(acc[8 * p], acc[8 * p + 1],
+                                       acc[8 * p + 4], acc[8 * p + 5]));
+      f(row + 8, 16 * p + col, make_float4(acc[8 * p + 2], acc[8 * p + 3],
+                                           acc[8 * p + 6], acc[8 * p + 7]));
+    }
+  }
 };
+
+// The keep factors (inv_keep or 0) of the elements i, i + 1, i + 8 and i +
+// 9 of a dropout site (i % 16 even and below 8: a for_each_quad group):
+// bytes i % 16, + 1, + 8 and + 9 of Philox(i / 16) (nn.keep_mask), one
+// Philox call for the four.
+__device__ __forceinline__ float4 keep_quad(uint64_t i, uint64_t seed,
+                                            uint32_t keep_q, float inv_keep) {
+  const uint4 w = philox4x32_10(i >> 4, seed);
+  const bool second = (i >> 2) & 1u;
+  const uint32_t lo = second ? w.y : w.x, hi = second ? w.w : w.z;
+  const int s = 8 * static_cast<int>(i & 3u);
+  return make_float4(((lo >> s) & 0xffu) < keep_q ? inv_keep : 0.f,
+                     ((lo >> (s + 8)) & 0xffu) < keep_q ? inv_keep : 0.f,
+                     ((hi >> s) & 0xffu) < keep_q ? inv_keep : 0.f,
+                     ((hi >> (s + 8)) & 0xffu) < keep_q ? inv_keep : 0.f);
+}
+
+// Columns col, col + 1, col + 8 and col + 9 of row-major p from offset
+// at = row * width + col (a for_each_quad group), as two float2 loads or
+// stores.
+__device__ __forceinline__ float4 load_quad(const float* p, size_t at) {
+  const float2 a = *reinterpret_cast<const float2*>(p + at);
+  const float2 b = *reinterpret_cast<const float2*>(p + at + 8);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ void store_quad(float* p, size_t at, float4 v) {
+  *reinterpret_cast<float2*>(p + at) = make_float2(v.x, v.y);
+  *reinterpret_cast<float2*>(p + at + 8) = make_float2(v.z, v.w);
+}
+
+// The body of a GEMM kernel with its own epilogue: the 128 x 128 tile at
+// grid (column tile, row tile) of A [M, K] . Bt^T by Loop L, then
+// epi(row, col, v) for each for_each_quad group inside [M, N] (N % 16 ==
+// 0, so a group lies wholly inside or wholly outside), in the output's
+// coordinates.
+template <typename L, typename Epi>
+__device__ __forceinline__ void gemm_tile(const CUtensorMap* ta,
+                                          const CUtensorMap* tbig,
+                                          const CUtensorMap* tsmall, int M,
+                                          int N, int K, unsigned char* smem,
+                                          const Epi& epi) {
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  float acc[kAccRegs];
+  if (!L::run(ta, tbig, tsmall, m0, n0, K, smem, acc)) return;
+  L::for_each_quad(acc, [&](int row, int col, float4 v) {
+    row += m0;
+    col += n0;
+    if (row < M && col < N) epi(row, col, v);
+  });
+}
 
 // The weight pre-pass: w [rows, cols] row-major f32 (a torch Linear weight
 // [out, in]) into big and small [cols, rows], its transpose split by
@@ -344,6 +418,49 @@ inline cudaError_t launch_split_t(const float* w, float* big, float* small,
                   (rows + kSplitTile - 1) / kSplitTile);
   split_t_kernel<kSplitTile><<<grid, kSplitTile * kSplitRows, 0, stream>>>(
       w, big, small, rows, cols);
+  return cudaGetLastError();
+}
+
+// The forwards' weight pre-pass: w [n] f32 (a torch Linear weight [out,
+// in], K-major for the forwards' products as it lies) into big and small
+// of the same layout, tf32x3::split of each element (big + small == w
+// exactly). A thread takes 16-byte vectors (n % 4 == 0, all three 16-byte
+// aligned), a grid-stride walk. Bounded by its bytes: w read once, big and
+// small written once.
+constexpr int kSplitThreads = 256, kSplitBlocks = 1056;   // 8 an SM
+
+// A template, as split_t_kernel is, so that every source including this
+// header may instantiate it.
+template <int kT = kSplitThreads>
+__global__ void __launch_bounds__(kT)
+    split_kernel(const float4* __restrict__ w, float4* __restrict__ big,
+                 float4* __restrict__ small, size_t n4) {
+  for (size_t i = blockIdx.x * size_t(kT) + threadIdx.x; i < n4;
+       i += size_t(gridDim.x) * kT) {
+    const float4 v = w[i];
+    uint32_t b[4], s[4];
+    tf32x3::split(__float_as_uint(v.x), b[0], s[0]);
+    tf32x3::split(__float_as_uint(v.y), b[1], s[1]);
+    tf32x3::split(__float_as_uint(v.z), b[2], s[2]);
+    tf32x3::split(__float_as_uint(v.w), b[3], s[3]);
+    big[i] = make_float4(__uint_as_float(b[0]), __uint_as_float(b[1]),
+                         __uint_as_float(b[2]), __uint_as_float(b[3]));
+    small[i] = make_float4(__uint_as_float(s[0]), __uint_as_float(s[1]),
+                           __uint_as_float(s[2]), __uint_as_float(s[3]));
+  }
+}
+
+// Blocks of the pre-pass over n f32 (ops/tf32x3.py split_launch).
+inline int split_blocks(size_t n) {
+  const size_t need = (n / 4 + kSplitThreads - 1) / kSplitThreads;
+  return static_cast<int>(need < kSplitBlocks ? need : kSplitBlocks);
+}
+
+inline cudaError_t launch_split(const float* w, float* big, float* small,
+                                size_t n, cudaStream_t stream) {
+  split_kernel<kSplitThreads><<<split_blocks(n), kSplitThreads, 0, stream>>>(
+      reinterpret_cast<const float4*>(w), reinterpret_cast<float4*>(big),
+      reinterpret_cast<float4*>(small), n / 4);
   return cudaGetLastError();
 }
 

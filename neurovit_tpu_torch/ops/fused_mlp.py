@@ -19,11 +19,13 @@ and sums outside, as in JAX.
 CPU tensors run the ``*_plain`` functions; bf16 CUDA tensors run
 ``csrc/fused_mlp.cu`` (K4) and ``csrc/fused_mlp_bwd.cu`` (K9), both on TMA
 + ``wgmma``; f32 CUDA tensors run ``csrc/fused_mlp_f32.cu`` (K4 at f32,
-:func:`mlp_f32_plan`) and ``csrc/fused_mlp_bwd_f32.cu`` (K9 at f32,
-:func:`mlp_bwd_f32_plan`): the same passes in f32 on the CUDA cores,
-through ``csrc/ffma.cuh``'s GEMM, the backward's last three
+:func:`mlp_f32_plan`: the weight pre-pass of :mod:`.tf32x3` on W1 and W2,
+the LayerNorm rows, then fc1 and fc2 in 3xTF32 on ``wgmma``,
+``csrc/tf32x3_wgmma.cuh``) and ``csrc/fused_mlp_bwd_f32.cu`` (K9 at f32,
+:func:`mlp_bwd_f32_plan`: the same passes in f32 on the CUDA cores,
+through ``csrc/ffma.cuh``'s GEMM, the last three
 (:func:`ln_bwd_f32_passes`, ``csrc/ffma_ln_bwd.cuh``) shared with K7 at
-f32. K4 runs in
+f32). K4 runs in
 three launches (:func:`mlp_plan`): LN rows into u, fc1 with bias, GELU
 and the hidden mask in its epilogue into g, fc2 with bias, the output
 mask and the residual; u and g go through one scratch allocation. K9 runs in five (:func:`mlp_bwd_plan`): dz, u and each row's
@@ -44,6 +46,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from neurovit_tpu_torch import nn
+from neurovit_tpu_torch.ops import tf32x3
 from neurovit_tpu_torch.ops.common import (FLOAT, INT, U64, VOID,
                                            check_operand, check_widths,
                                            dropout_args, is_training, launch,
@@ -65,8 +68,9 @@ GEMM_THREADS = 2 * 128 + 32
 SUM_COLUMNS, SUM_WARPS = 32, 8
 
 
-# The f32 forwards' GEMM (csrc/ffma.cuh): output tile rows and columns,
-# the depth of a staged k slice, the slices in flight, and its threads.
+# The f32 GEMM on the CUDA cores (csrc/ffma.cuh; K3 f32 and the backwards
+# K7 and K9 at f32): output tile rows and columns, the depth of a staged k
+# slice, the slices in flight, and its threads.
 F32_TILE, F32_BK, F32_STAGES, F32_THREADS = 128, 16, 2, 256
 
 
@@ -102,10 +106,10 @@ def gemm_smem_bytes(tile_n: int) -> int:
 
 class MlpPlan(NamedTuple):
     """How one K4 call covers x [m, dim] with mlp_dim hid. ``launches``:
-    the three kernels in launch order, each (name, grid, threads, dynamic
-    shared memory bytes), a grid (x, y). ``scratch``: the pieces of the one
-    scratch allocation, name -> (byte offset, bytes), in ``scratch_bytes``
-    bytes: u [m, dim] then g [m, hid], both bf16."""
+    the kernels in launch order (three; five at f32), each (name, grid,
+    threads, dynamic shared memory bytes), a grid (x, y). ``scratch``: the
+    pieces of the one scratch allocation, name -> (byte offset, bytes), in
+    ``scratch_bytes`` bytes: u [m, dim] then g [m, hid], in x's dtype."""
     launches: tuple
     scratch: dict
     scratch_bytes: int
@@ -141,18 +145,23 @@ def mlp_plan(m: int, dim: int, hid: int) -> MlpPlan:
 
 
 def mlp_f32_plan(m: int, dim: int, hid: int) -> MlpPlan:
-    """K4 f32's plan for m rows (the kernel's own count of the scratch is
-    ``nvt_fused_mlp_f32_scratch_bytes``, of the shared memory
-    ``nvt_ffma_gemm_smem_bytes``): LayerNorm rows, then fc1 with GELU and
-    fc2 with the residual on 128 x 128 tiles; u [m, dim] and g [m, hid]
-    f32 in the scratch. The widths K4 takes, the same as bf16's. Raises
-    where the kernel does not take them."""
+    """K4 f32's plan for m rows, its launches in order: the weight
+    pre-pass on W1 and on W2 (:func:`.tf32x3.split_launch`, each of its own
+    wrapper), LayerNorm rows, then fc1 with GELU and fc2 with the residual
+    in 3xTF32 on ``wgmma`` on 128 x 128 tiles (:func:`.tf32x3.gemm_launch`;
+    the kernel's own count of the shared memory is
+    ``nvt_fused_mlp_f32_smem_bytes``, of the scratch
+    ``nvt_fused_mlp_f32_scratch_bytes``); u [m, dim] and g [m, hid] f32 in
+    the scratch. The widths K4 takes, the same as bf16's. Raises where the
+    kernel does not take them."""
     check_fwd_shapes(dim, hid)
     if m < 1:
         raise ValueError(f"the MLP kernel takes at least one row, got {m}")
-    launches = (("ln_rows", (-(-m // ROW_WARPS), 1), ROW_WARPS * 32, 0),
-                f32_gemm_launch("fc1_gelu", m, hid),
-                f32_gemm_launch("fc2_residual", m, dim))
+    launches = (tf32x3.split_launch("split_w1", hid * dim),
+                tf32x3.split_launch("split_w2", dim * hid),
+                ("ln_rows", (-(-m // ROW_WARPS), 1), ROW_WARPS * 32, 0),
+                tf32x3.gemm_launch("fc1_gelu", m, hid),
+                tf32x3.gemm_launch("fc2_residual", m, dim))
     scratch, at = {}, 0
     for name, nbytes in (("u", m * dim * 4), ("g", m * hid * 4)):
         scratch[name] = (at, nbytes)
@@ -391,8 +400,10 @@ def fused_mlp_block_f32_cuda(x: torch.Tensor, gamma: torch.Tensor,
                              b1: torch.Tensor, w2: torch.Tensor,
                              b2: torch.Tensor, *, dropout_rate: float = 0.0,
                              seeds: Seeds = (0, 0), return_h: bool = False):
-    """Launch K4 at f32 (:func:`mlp_f32_plan`) on f32 x [B, N, dim]: exact
-    f32 products on the CUDA cores; h is the pre-GELU hidden."""
+    """Launch K4 at f32 (:func:`mlp_f32_plan`) on f32 x [B, N, dim]: W1's
+    and W2's splits by the pre-pass (:func:`.tf32x3.split_cuda`, which
+    counts its own launches), then the f32 products in 3xTF32 on the
+    tensor cores; h is the pre-GELU hidden."""
     b, n, dim = x.shape
     hid = w1.shape[0]
     w1f, w2f, vecs = _operands(x, w1, w2, torch.float32, gamma=gamma,
@@ -403,12 +414,14 @@ def fused_mlp_block_f32_cuda(x: torch.Tensor, gamma: torch.Tensor,
     h = x.new_empty(b, n, hid) if return_h else None
     scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
                           device=x.device)
+    w1_big, w1_small = tf32x3.split_cuda(w1f)
+    w2_big, w2_small = tf32x3.split_cuda(w2f)
     launch("nvt_fused_mlp_f32_fwd",
-           (VOID,) * 10 + (INT,) * 3 + (FLOAT, FLOAT, INT, U64, U64), x,
-           ptr(x), ptr(vecs["gamma"]), ptr(vecs["beta"]), ptr(w1f),
-           ptr(vecs["b1"]), ptr(w2f), ptr(vecs["b2"]), ptr(y), ptr(h),
-           ptr(scratch), b * n, dim, hid, nn.LN_EPS, inv_keep, keep_q,
-           int(seeds[0]), int(seeds[1]))
+           (VOID,) * 12 + (INT,) * 3 + (FLOAT, FLOAT, INT, U64, U64), x,
+           ptr(x), ptr(vecs["gamma"]), ptr(vecs["beta"]), ptr(w1_big),
+           ptr(w1_small), ptr(vecs["b1"]), ptr(w2_big), ptr(w2_small),
+           ptr(vecs["b2"]), ptr(y), ptr(h), ptr(scratch), b * n, dim, hid,
+           nn.LN_EPS, inv_keep, keep_q, int(seeds[0]), int(seeds[1]))
     fused_mlp_block_f32_cuda.launches += 1
     return (y, h) if return_h else y
 

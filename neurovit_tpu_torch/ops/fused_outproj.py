@@ -20,8 +20,7 @@ at dropout > 0 only, then a GEMM that reads Wout as it lies
 (:func:`outproj_bwd_plan`); at dropout 0 dz is dy. Both take inner and
 dim as any multiples of 16. f32 CUDA tensors run
 ``csrc/fused_outproj_f32.cu`` (K3 at f32, :func:`outproj_f32_plan`: one
-launch of ``csrc/ffma.cuh``'s GEMM in f32 on the CUDA cores, K4 f32's
-fc2) and ``csrc/fused_outproj_bwd_f32.cu`` (K8 at f32,
+launch of ``csrc/ffma.cuh``'s GEMM in f32 on the CUDA cores) and ``csrc/fused_outproj_bwd_f32.cu`` (K8 at f32,
 :func:`outproj_bwd_f32_plan`: the weight pre-pass of ``ops/tf32x3.py``,
 K9 f32's dz rows pass without the LayerNorm at dropout > 0, then the GEMM
 in 3xTF32 on ``wgmma``, ``csrc/tf32x3_wgmma.cuh``).
@@ -88,9 +87,9 @@ def outproj_plan(m: int, dim: int, inner: int) -> OutprojPlan:
 
 def outproj_f32_plan(m: int, dim: int, inner: int) -> OutprojPlan:
     """K3 f32's plan for m rows (the kernel's own count of the shared
-    memory is ``nvt_ffma_gemm_smem_bytes``): K4 f32's fc2_residual pass on
-    128 x 128 tiles over the [m, dim] output. The widths K3 takes. Raises
-    where the kernel does not take them."""
+    memory is ``nvt_ffma_gemm_smem_bytes``): one fc2_residual pass of the
+    FFMA GEMM on 128 x 128 tiles over the [m, dim] output. The widths K3
+    takes. Raises where the kernel does not take them."""
     check_fwd_shapes(dim, inner)
     if m < 1:
         raise ValueError(f"the out-projection kernel takes at least one row, "
@@ -131,15 +130,6 @@ def outproj_bwd_plan(m: int, dim: int, inner: int,
         launches=(rows, dattn) if dropout_rate else (dattn,), tile_n=tile_n)
 
 
-# K8 f32's dattn GEMM (csrc/tf32x3_wgmma.cuh): a 128 x 128 tile a block of
-# two consumer warpgroups and the producer warp, a ring of four stages of
-# three 16 KiB boxes (dz, Wt_big, Wt_small), its barriers and 1 KiB to
-# align the ring.
-TF32X3_TILE, TF32X3_STAGES = 128, 4
-TF32X3_SMEM = 1024 + TF32X3_STAGES * 3 * TF32X3_TILE * 128 + \
-    2 * TF32X3_STAGES * 8
-
-
 def outproj_bwd_f32_plan(m: int, dim: int, inner: int,
                          dropout_rate: float) -> OutprojBwdPlan:
     """K8 f32's plan for m rows, its launches in order: wsplit, the weight
@@ -154,12 +144,11 @@ def outproj_bwd_f32_plan(m: int, dim: int, inner: int,
         raise ValueError(f"the out-projection backward kernel takes at "
                          f"least one row, got {m}")
     wsplit = tf32x3.split_t_launch(dim, inner)
-    dattn = ("dattn", (-(-inner // TF32X3_TILE), -(-m // TF32X3_TILE)),
-             GEMM_THREADS, TF32X3_SMEM)
+    dattn = tf32x3.gemm_launch("dattn", m, inner)
     rows = ("dz_rows", (-(-m // ROW_WARPS), 1), ROW_WARPS * 32, 0)
     return OutprojBwdPlan(
         launches=(wsplit, rows, dattn) if dropout_rate else (wsplit, dattn),
-        tile_n=TF32X3_TILE)
+        tile_n=tf32x3.TILE)
 
 
 def fused_outproj_residual_plain(x: torch.Tensor, attn: torch.Tensor,

@@ -25,10 +25,12 @@ LayerNorm backward rows, the dgamma / dbeta sums over the row tiles in a
 fixed order; du, the statistics and the partial sums go through one
 scratch allocation. Both take dim and heads * dim_head as multiples of
 16, of any size. f32 CUDA tensors run ``csrc/fused_qkv_f32.cu`` (K2 at
-f32, :func:`qkv_f32_plan`) and ``csrc/fused_qkv_bwd_f32.cu`` (K7 at f32,
-:func:`qkv_bwd_f32_plan`): the same passes in f32 on the CUDA cores,
-through ``csrc/ffma.cuh``'s GEMM, the backward's last three K9 f32's
-(``csrc/ffma_ln_bwd.cuh``).
+f32, :func:`qkv_f32_plan`: the weight pre-pass of :mod:`.tf32x3` on
+Wqkv, the LayerNorm rows, then the QKV GEMM in 3xTF32 on ``wgmma``,
+``csrc/tf32x3_wgmma.cuh``) and ``csrc/fused_qkv_bwd_f32.cu`` (K7 at f32,
+:func:`qkv_bwd_f32_plan`: the same passes in f32 on the CUDA cores,
+through ``csrc/ffma.cuh``'s GEMM, the last three K9 f32's,
+``csrc/ffma_ln_bwd.cuh``).
 """
 
 from __future__ import annotations
@@ -38,12 +40,12 @@ from typing import NamedTuple, Tuple
 import torch
 
 from neurovit_tpu_torch import nn
+from neurovit_tpu_torch.ops import tf32x3
 from neurovit_tpu_torch.ops.common import (FLOAT, INT, VOID, check_operand,
                                            check_widths, is_training, launch,
                                            pick, ptr, round_up, weight_grad)
-from neurovit_tpu_torch.ops.fused_mlp import (F32_TILE, GEMM_THREADS,
-                                              MLP_TILE, ROW_WARPS,
-                                              SCRATCH_ALIGN, f32_gemm_launch,
+from neurovit_tpu_torch.ops.fused_mlp import (GEMM_THREADS, MLP_TILE,
+                                              ROW_WARPS, SCRATCH_ALIGN,
                                               gemm_smem_bytes, gemm_tile_n,
                                               ln_backward_plain,
                                               ln_bwd_f32_passes,
@@ -60,13 +62,14 @@ def check_fwd_shapes(dim: int, inner: int) -> None:
 
 class QkvPlan(NamedTuple):
     """How one K2 call covers x [m, dim] with heads * dim_head = inner.
-    ``launches``: the two kernels in launch order, each (name, grid,
-    threads, dynamic shared memory bytes), a grid (x, y): K4's LayerNorm
-    rows pass, then the GEMM over (3 column tiles of inner each rounded up,
-    row tiles of 128). ``tile_n``: the GEMM's output tile columns.
+    ``launches``: the kernels in launch order, each (name, grid, threads,
+    dynamic shared memory bytes), a grid (x, y): K4's LayerNorm rows pass,
+    then the GEMM over (3 column tiles of inner each rounded up, row tiles
+    of 128); at f32 the weight pre-pass first and the GEMM over the [m, 3
+    inner] output. ``tile_n``: the GEMM's output tile columns.
     ``scratch``: the pieces of the scratch allocation, name -> (byte
-    offset, bytes), in ``scratch_bytes`` bytes: u [m, dim] bf16 in serving,
-    nothing in training, where u is the call's own output."""
+    offset, bytes), in ``scratch_bytes`` bytes: u [m, dim] in x's dtype in
+    serving, nothing in training, where u is the call's own output."""
     launches: tuple
     tile_n: int
     scratch: dict
@@ -100,20 +103,24 @@ def qkv_plan(m: int, dim: int, inner: int, *,
 
 def qkv_f32_plan(m: int, dim: int, inner: int, *,
                  return_u: bool = False) -> QkvPlan:
-    """K2 f32's plan for m rows (the kernel's own count of the shared
-    memory is ``nvt_ffma_gemm_smem_bytes``): LayerNorm rows, then the QKV
-    GEMM on 128 x 128 tiles over the [m, 3 inner] output; u [m, dim] f32
-    in the scratch when serving. The widths K2 takes. Raises where the
-    kernel does not take them."""
+    """K2 f32's plan for m rows, its launches in order: the weight
+    pre-pass on Wqkv (:func:`.tf32x3.split_launch`, of its own wrapper),
+    LayerNorm rows, then the QKV GEMM in 3xTF32 on ``wgmma`` on 128 x 128
+    tiles over the [m, 3 inner] output (:func:`.tf32x3.gemm_launch`; the
+    kernel's own count of the shared memory is
+    ``nvt_fused_ln_qkv_f32_smem_bytes``); u [m, dim] f32 in the scratch
+    when serving. The widths K2 takes. Raises where the kernel does not
+    take them."""
     check_fwd_shapes(dim, inner)
     if m < 1:
         raise ValueError(f"the LN+QKV kernel takes at least one row, got {m}")
-    launches = (("ln_rows", (-(-m // ROW_WARPS), 1), ROW_WARPS * 32, 0),
-                f32_gemm_launch("qkv_gemm", m, 3 * inner))
+    launches = (tf32x3.split_launch("split_wqkv", 3 * inner * dim),
+                ("ln_rows", (-(-m // ROW_WARPS), 1), ROW_WARPS * 32, 0),
+                tf32x3.gemm_launch("qkv_gemm", m, 3 * inner))
     if return_u:
-        return QkvPlan(launches=launches, tile_n=F32_TILE, scratch={},
+        return QkvPlan(launches=launches, tile_n=tf32x3.TILE, scratch={},
                        scratch_bytes=0)
-    return QkvPlan(launches=launches, tile_n=F32_TILE,
+    return QkvPlan(launches=launches, tile_n=tf32x3.TILE,
                    scratch={"u": (0, m * dim * 4)},
                    scratch_bytes=round_up(m * dim * 4, SCRATCH_ALIGN))
 
@@ -241,10 +248,11 @@ def fused_ln_qkv_f32_cuda(x: torch.Tensor, gamma: torch.Tensor,
                           beta: torch.Tensor, w_qkv: torch.Tensor,
                           heads: int, dim_head: int, *,
                           return_u: bool = False):
-    """Launch K2 at f32 (:func:`qkv_f32_plan`: LayerNorm rows, the QKV
-    GEMM) on f32 x [B, N, dim]: exact f32 products on the CUDA cores. u
-    goes into the returned tensor with ``return_u``, else into a
-    scratch."""
+    """Launch K2 at f32 (:func:`qkv_f32_plan`) on f32 x [B, N, dim]: Wqkv's
+    split by the pre-pass (:func:`.tf32x3.split_cuda`, which counts its own
+    launch), the LayerNorm rows, then the f32 products in 3xTF32 on the
+    tensor cores. u goes into the returned tensor with ``return_u``, else
+    into a scratch."""
     b, n, dim = x.shape
     inner = heads * dim_head
     w, vecs = _operands(x, w_qkv, inner, torch.float32, gamma=gamma,
@@ -253,10 +261,12 @@ def fused_ln_qkv_f32_cuda(x: torch.Tensor, gamma: torch.Tensor,
     q, k, v = (x.new_empty(b, n, heads, dim_head) for _ in range(3))
     u = (torch.empty_like(x) if return_u else
          torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=x.device))
+    w_big, w_small = tf32x3.split_cuda(w)
     launch("nvt_fused_ln_qkv_f32_fwd",
-           (VOID,) * 8 + (INT, INT, INT, FLOAT), x,
-           ptr(x), ptr(vecs["gamma"]), ptr(vecs["beta"]), ptr(w), ptr(q),
-           ptr(k), ptr(v), ptr(u), b * n, dim, inner, nn.LN_EPS)
+           (VOID,) * 9 + (INT, INT, INT, FLOAT), x,
+           ptr(x), ptr(vecs["gamma"]), ptr(vecs["beta"]), ptr(w_big),
+           ptr(w_small), ptr(q), ptr(k), ptr(v), ptr(u), b * n, dim, inner,
+           nn.LN_EPS)
     fused_ln_qkv_f32_cuda.launches += 1
     return (q, k, v, u) if return_u else (q, k, v)
 

@@ -48,13 +48,19 @@ also at 0), and so do K6 and its backward at f32 (at dropout 0,
 K10-K13; but K8 at f32 goes through ``k8_f32_call`` of
 ``scripts/torch_outproj_device_times.py``: an older
 ``nvt_fused_outproj_f32_bwd`` (the FFMA design) takes Wout itself, this
-one's the weight pre-pass's split transpose. A kernel whose entry point the other checkout lacks is timed in
+one's the weight pre-pass's split transpose; and K4 and K2 at f32 through
+``k4_f32_call`` of ``scripts/torch_mlp_device_times.py`` and
+``k2_f32_call`` of ``scripts/torch_qkv_device_times.py``: an older
+``nvt_fused_mlp_f32_fwd`` / ``nvt_fused_ln_qkv_f32_fwd`` (the FFMA
+design) takes the weights themselves, this one's their split by the
+forwards' pre-pass. A kernel whose entry point the other checkout lacks is timed in
 this one alone (the median of 2 x ``--rounds`` turns).
 
 With ``--step``, the flagship's f32 train step at batch 32 is timed too
 (``chip_smoke.py``'s (f): its seeded volumes, dropout 0.1, one fixed
 batch), with each library behind the kernels in the same turns, each
-turn the median of 5 steps after 2 (K8 f32 through ``k8_f32_call``).
+turn the median of 5 steps after 2 (K8, K4 and K2 at f32 through
+``k8_f32_call``, ``k4_f32_call`` and ``k2_f32_call``).
 
     python scripts/torch_kernel_ab.py --other <checkout> [--rounds 10]
         [--only <substring of a kernel's name>] [--batch 8] [--step]
@@ -83,7 +89,9 @@ from neurovit_tpu_torch.ops import (fused_mlp, fused_outproj,  # noqa: E402
                                     fused_qkv, int8_serving, maxpool3d)
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_mlp_device_times import k4_f32_call  # noqa: E402
 from torch_outproj_device_times import k8_f32_call  # noqa: E402
+from torch_qkv_device_times import k2_f32_call  # noqa: E402
 
 
 def other_library(tree: str) -> str:
@@ -403,18 +411,16 @@ def cases(b: int = cs.B) -> dict:
                 fa.flash_attention_bhnd_f32_cuda(*trf0[:3], scale=d ** -0.5,
                                                  n_valid=n))),
         "fused_ln_qkv_f32": ("nvt_fused_ln_qkv_f32_fwd", lambda: (
-            fused_qkv.fused_ln_qkv_f32_cuda(xf, *ln, wqkv, h, d))),
+            k2_f32_call((xf, *ln, wqkv, h, d)))),
         "fused_ln_qkv_f32 with u": ("nvt_fused_ln_qkv_f32_fwd", lambda: (
-            fused_qkv.fused_ln_qkv_f32_cuda(xf, *ln, wqkv, h, d,
-                                            return_u=True))),
+            k2_f32_call((xf, *ln, wqkv, h, d), return_u=True))),
         "fused_outproj_residual_f32": ("nvt_fused_outproj_f32_fwd", lambda: (
             fused_outproj.fused_outproj_residual_f32_cuda(xf, attnf, wout,
                                                           bout))),
         "fused_mlp_block_f32": ("nvt_fused_mlp_f32_fwd", lambda: (
-            fused_mlp.fused_mlp_block_f32_cuda(*mlpf))),
+            k4_f32_call(mlpf))),
         "fused_mlp_block_f32 dropout h": ("nvt_fused_mlp_f32_fwd", lambda: (
-            fused_mlp.fused_mlp_block_f32_cuda(*mlpf, return_h=True,
-                                               **mdrop))),
+            k4_f32_call(mlpf, return_h=True, **mdrop))),
         "flash_attention_bwd_f32": ("nvt_flash_attention_f32_bwd", lambda: (
             fa.flash_attention_bwd_f32_cuda(*qkvf, of, dof, lsumf, **att))),
         "flash_attention_bwd_f32 dropout 0": (
@@ -473,9 +479,10 @@ def output_diffs(libs: dict, call) -> list:
 
 def f32_step_turns(libs: dict, rounds: int) -> None:
     """Print the flagship's f32 train step at batch 32 with each library
-    in turns (other, this, this, other), ``rounds`` times; K8 f32 goes
-    through :func:`k8_f32_call`, this checkout's wrapper where the
-    library has the weight pre-pass."""
+    in turns (other, this, this, other), ``rounds`` times; K8, K4 and K2
+    at f32 go through :func:`k8_f32_call`, :func:`k4_f32_call` and
+    :func:`k2_f32_call`, this checkout's wrappers where the library has
+    their weight pre-pass."""
     import tempfile
 
     from neurovit_tpu_torch.config import load_config
@@ -489,8 +496,26 @@ def f32_step_turns(libs: dict, rounds: int) -> None:
             return wrapper(dy, w, dropout_rate=dropout_rate, seed=seed)
         return k8_f32_call(dy, w, dropout_rate, seed)
 
-    routed.launches = 0          # the wrapper counts on its module's name
-    fused_outproj.fused_outproj_bwd_f32_cuda = routed
+    mlp_wrapper = fused_mlp.fused_mlp_block_f32_cuda
+    qkv_wrapper = fused_qkv.fused_ln_qkv_f32_cuda
+
+    def mlp(*args, **kw):
+        if hasattr(_build.library(), "nvt_split_f32"):
+            return mlp_wrapper(*args, **kw)
+        return k4_f32_call(args, **kw)
+
+    def qkv(*args, **kw):
+        if hasattr(_build.library(), "nvt_split_f32"):
+            return qkv_wrapper(*args, **kw)
+        return k2_f32_call(args, **kw)
+
+    wrappers = ((fused_outproj, "fused_outproj_bwd_f32_cuda", routed),
+                (fused_mlp, "fused_mlp_block_f32_cuda", mlp),
+                (fused_qkv, "fused_ln_qkv_f32_cuda", qkv))
+    saved = [getattr(module, name) for module, name, _ in wrappers]
+    for module, name, fn in wrappers:
+        fn.launches = 0          # a wrapper counts on its module's name
+        setattr(module, name, fn)
     try:
         with tempfile.TemporaryDirectory() as workdir:
             cfg = cs._train_config(load_config(), workdir,
@@ -510,7 +535,8 @@ def f32_step_turns(libs: dict, rounds: int) -> None:
                     turns[side].append(cs._timed_steps(
                         trainer, batch, zyx, warmup=2)[0])
     finally:
-        fused_outproj.fused_outproj_bwd_f32_cuda = wrapper
+        for (module, name, _), fn in zip(wrappers, saved):
+            setattr(module, name, fn)
     a, b = (float(np.median(turns[s])) for s in ("other", "this"))
     print(f"f32 train step, batch {batch['volume'].shape[0]}: other "
           f"{a:.3f} ms, this {b:.3f} ms, ratio {b / a:.4f}; turns other "

@@ -1,5 +1,6 @@
-"""Device-only times of K2, the bf16 LN + QKV forward, pass by pass, beside
-K17 bf16 at its GEMM's shape, the function's bound and the design's bytes.
+"""Device-only times of K2, the LN + QKV forward, pass by pass: bf16 beside
+K17 bf16 at its GEMM's shape, the function's bound and the design's bytes,
+and f32 beside f32 ``torch.mm``.
 
 ``chip_smoke.py`` times a K2 call with CUDA events around it, which also
 counts the wrapper's enqueue (two tensor maps, two launches). This script
@@ -17,7 +18,20 @@ written, Wqkv read). Then the GEMM pass's yardstick: K17 bf16's GEMM
 kernel (its transpose step apart) at [M rounded up to 16, dim] x [dim, 3
 inner].
 
+K2 at f32 (with ``--only f32``, or after the rest): at batch 8 and 32, as
+served and with u, on chip_smoke.py's f32 operands: each pass's device
+time (the weight pre-pass ``split`` on Wqkv, ``ln_rows`` and the GEMM
+``qkv_gemm``; an older checkout's FFMA GEMM shows under the same name),
+their sum and the one-call CUDA-event time, the GEMM's rate (6 M dim
+inner flops) and share of the 3xTF32 bound (165 TFLOP/s), beside f32
+``torch.mm`` at [M, dim] x [dim, 3 inner] and the factor between the two
+(``scripts/torch_mlp_device_times.py`` f32_lines). ``--other
+<checkout>`` routes every kernel call to another checkout's kernel
+library: K2 f32 goes through :func:`k2_f32_call`, which hands an older
+``nvt_fused_ln_qkv_f32_fwd`` (the FFMA design, no pre-pass) Wqkv itself.
+
     python scripts/torch_qkv_device_times.py [--iters 20]
+        [--only bf16|f32] [--other <checkout>]
 
 Needs the card; prints nvidia-smi's name and power limit first. Copied
 into an older checkout's ``scripts/``, it times that checkout's K2.
@@ -35,12 +49,15 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from neurovit_tpu_torch.ops import fused_qkv  # noqa: E402
+from neurovit_tpu_torch import nn  # noqa: E402
+from neurovit_tpu_torch.ops import _build, common, fused_qkv  # noqa: E402
 from neurovit_tpu_torch.ops import int8_gemm as k17  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from torch_attention_device_times import events_ms  # noqa: E402
+from torch_attention_device_times import (events_ms,  # noqa: E402
+                                          use_checkout)
 from torch_gemm_device_times import device_us, enqueue_us  # noqa: E402
+from torch_mlp_device_times import f32_lines  # noqa: E402
 
 N, DIM, HEADS, DIM_HEAD = 1001, 1024, 8, 64
 INNER = HEADS * DIM_HEAD
@@ -48,6 +65,7 @@ BATCHES = (1, 8, 32, 128)
 WITH_U = (8, 128)
 PASSES = ("ln_rows", "qkv_gemm", "ln_qkv_kernel")
 PEAK_BF16, HBM_BYTES_PER_S = 989e12, 3.35e12
+F32_BATCHES = (8, 32)
 
 
 def operands(b: int, dim: int = DIM, heads: int = HEADS,
@@ -130,30 +148,96 @@ def line(what: str, m: dict, f: dict) -> str:
             f"call")
 
 
+def k2_f32_call(args: tuple, return_u: bool = False):
+    """K2 at f32 on the library behind the wrappers: this checkout's
+    wrapper where the library has the forwards' weight pre-pass
+    (``nvt_split_f32``); else an older ``nvt_fused_ln_qkv_f32_fwd``, which
+    takes Wqkv itself. (q, k, v), and u with ``return_u``."""
+    if hasattr(_build.library(), "nvt_split_f32"):
+        return fused_qkv.fused_ln_qkv_f32_cuda(*args, return_u=return_u)
+    x, gamma, beta, w, heads, dh = args
+    b, n, dim = x.shape
+    inner = heads * dh
+    q, k, v = (x.new_empty(b, n, heads, dh) for _ in range(3))
+    u = torch.empty_like(x)
+    p = common.ptr
+    common.launch("nvt_fused_ln_qkv_f32_fwd",
+                  (common.VOID,) * 8 + (common.INT,) * 3 + (common.FLOAT,),
+                  x, p(x), p(gamma), p(beta), p(w), p(q), p(k), p(v), p(u),
+                  b * n, dim, inner, nn.LN_EPS)
+    return (q, k, v, u) if return_u else (q, k, v)
+
+
+def run_f32(b: int, iters: int) -> list:
+    """Lines of K2 f32 at batch b, served and with u, beside f32 torch.mm
+    at its GEMM."""
+    rng = np.random.default_rng(42)
+
+    def t(*shape, scale=1.0, offset=0.0):
+        return torch.tensor(offset + scale * rng.standard_normal(shape),
+                            dtype=torch.float32, device="cuda")
+
+    w = torch.tensor(rng.uniform(-1, 1, (3 * INNER, DIM)) / DIM ** 0.5,
+                     dtype=torch.float32, device="cuda")
+    args = (t(b, N, DIM), t(DIM, scale=0.1, offset=1.0), t(DIM, scale=0.1),
+            w, HEADS, DIM_HEAD)
+    m = b * N
+    x2 = args[0].reshape(m, DIM)
+    lines = []
+    for return_u in (False, True):
+        what = (f"K2 f32 batch {b} (M {m}, dim {DIM}, inner {INNER})"
+                + (" with u" if return_u else ""))
+        lines += f32_lines(
+            what, lambda: k2_f32_call(args, return_u),
+            {"qkv_gemm": 6 * m * DIM * INNER},
+            {} if return_u else {f"[{m}, {DIM}] x [{DIM}, {3 * INNER}]":
+                                 lambda: torch.mm(x2, w.t())}, iters)
+    return lines
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--only", choices=("bf16", "f32"), default=None,
+                    help="time only the bf16 K2, or only K2 at f32")
+    ap.add_argument("--other", default=None,
+                    help="root of another checkout whose kernels to time")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_qkv_device_times: needs the card", file=sys.stderr)
         return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip())
+    if args.other:
+        use_checkout(os.path.abspath(args.other))
+        print(f"kernels of {args.other}")
+    if args.only != "f32":
+        bf16(args.iters)
+    if args.only != "bf16":
+        for b in F32_BATCHES:
+            for text in run_f32(b, args.iters):
+                print(text, flush=True)
+            torch.cuda.empty_cache()
+    return 0
+
+
+def bf16(iters: int) -> None:
+    """The bf16 K2's lines at each batch, each with K17 bf16's."""
     for b in BATCHES:
         ops = operands(b)
         f = floors(b * N, DIM, INNER)
         what = f"K2 batch {b} (M {b * N}, dim {DIM}, inner {INNER})"
-        print(line(what, measure(ops, args.iters), f), flush=True)
+        print(line(what, measure(ops, iters), f), flush=True)
         if b in WITH_U:
-            print(line(what + " with u", measure(ops, args.iters, True), f),
+            print(line(what + " with u", measure(ops, iters, True), f),
                   flush=True)
         del ops
-        for shape, dev in yardstick(b * N, DIM, INNER, args.iters).items():
+        for shape, dev in yardstick(b * N, DIM, INNER, iters).items():
             print(f"  K17 bf16 {shape}: " + (", ".join(
                 f"{k} {us:.1f} us" for k, us in dev.items()) or
                 "device not measured (no kernels traced)"), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

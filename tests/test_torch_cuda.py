@@ -2062,12 +2062,14 @@ def test_f32_kernels_zero_rows(cuda, zero_bias):
 
 
 def test_f32_plans_match_the_kernels(cuda):
-    """The wrappers' f32 plans count the GEMM's shared memory, K4's
-    scratch and K1's shared memory (its Q box, TMA ring and barriers) as
-    the kernels do, at every width and head-dim instance."""
+    """The wrappers' f32 plans count the FFMA GEMM's shared memory, the
+    3xTF32 GEMMs' of K4 and K2 (``nvt_fused_mlp_f32_smem_bytes``,
+    ``nvt_fused_ln_qkv_f32_smem_bytes``), the weight pre-pass's blocks,
+    K4's scratch and K1's shared memory (its Q box, TMA ring and
+    barriers) as the kernels do, at every width and head-dim instance."""
     import ctypes
 
-    from neurovit_tpu_torch.ops import _build
+    from neurovit_tpu_torch.ops import _build, tf32x3
     lib = _build.library()
     gemm = lib.nvt_ffma_gemm_smem_bytes
     gemm.restype, gemm.argtypes = ctypes.c_longlong, []
@@ -2076,10 +2078,23 @@ def test_f32_plans_match_the_kernels(cuda):
     attn = lib.nvt_flash_attention_f32_smem_bytes
     attn.restype, attn.argtypes = ctypes.c_longlong, [ctypes.c_int]
     assert gemm() == fused_mlp.f32_gemm_smem_bytes()
+    for entry in (lib.nvt_fused_mlp_f32_smem_bytes,
+                  lib.nvt_fused_ln_qkv_f32_smem_bytes):
+        entry.restype, entry.argtypes = ctypes.c_longlong, []
+        assert entry() == tf32x3.SMEM
+    blocks = lib.nvt_split_f32_blocks
+    blocks.restype, blocks.argtypes = ctypes.c_int, [ctypes.c_longlong]
     for dim, heads, dh, hid in WIDTHS.values():
         for m in (1, 130, 8008, 32032):
-            assert scratch(m, dim, hid) == fused_mlp.mlp_f32_plan(
-                m, dim, hid).scratch_bytes
+            plan = fused_mlp.mlp_f32_plan(m, dim, hid)
+            assert scratch(m, dim, hid) == plan.scratch_bytes
+            assert [launch[3] for launch in plan.launches[3:]] == [
+                lib.nvt_fused_mlp_f32_smem_bytes()] * 2
+            qkv = fused_qkv.qkv_f32_plan(m, dim, heads * dh).launches
+            assert qkv[-1][3] == lib.nvt_fused_ln_qkv_f32_smem_bytes()
+        for n, launch in ((hid * dim, plan.launches[0]),
+                          (3 * heads * dh * dim, qkv[0])):
+            assert launch[1] == (blocks(n), 1)
         plan = fa.flash_f32_plan(2, 1001, heads, dh)
         assert attn(plan.d_kernel) == plan.smem
     for dh in (16, 32, 64, 128):
@@ -2090,8 +2105,9 @@ def test_f32_plans_match_the_kernels(cuda):
 def test_f32_kernels_do_not_spill(cuda):
     """ptxas's report in the build log: no kernel of the f32 forwards and
     backwards (csrc/*_f32.cu, the row passes of csrc/ffma.cu) spills, K8
-    f32's weight pre-pass and 3xTF32 wgmma GEMM and the six 3xTF32
-    instances of K1 and K6 at f32 among them, nor any f32
+    f32's weight pre-pass and 3xTF32 wgmma GEMM, K4 f32's fc1 and fc2 and
+    K2 f32's QKV GEMM on the same Loop, the forwards' weight pre-pass and
+    the six 3xTF32 instances of K1 and K6 at f32 among them, nor any f32
     instance in csrc/int8_*.cu (the int8 serving kernels' passes on the
     element type float, which their templates take first: names
     "<kernel>If...")."""
@@ -2106,6 +2122,12 @@ def test_f32_kernels_do_not_spill(cuda):
     k8 = [k[1] for k in f32 if k[0] == "fused_outproj_bwd_f32.cu"]
     assert any("dattn_kernel" in k for k in k8)
     assert any("split_t_kernel" in k for k in k8)
+    # K4 and K2 at f32: the 3xTF32 GEMMs and the forwards' pre-pass.
+    k4 = [k[1] for k in f32 if k[0] == "fused_mlp_f32.cu"]
+    for name in ("fc1_gelu_kernel", "fc2_residual_kernel", "split_kernel"):
+        assert any(name in k for k in k4), name
+    assert any("qkv_gemm_kernel" in k[1] for k in f32
+               if k[0] == "fused_qkv_f32.cu")
     # K1 and K6 at f32: D 32, 64 and 128 in both layouts.
     fwd = [k[1] for k in f32 if k[0] == "flash_attention_f32.cu"]
     assert len(fwd) == 6 and all("flash_fwd_f32_kernel" in k for k in fwd)
@@ -2242,6 +2264,79 @@ def test_fused_outproj_bwd_f32_tf32x3_accuracy(cuda, rate):
     assert not got[0, zero].abs().max()
     for g, p in zip(tf32x3.split_t_cuda(w), tf32x3.split_t_plain(w)):
         assert torch.equal(g, p)
+
+
+# The widths of K4 f32 and K2 f32 in 3xTF32: WIDTHS, ViT-H and the 2D
+# tutorial's (dim 64, 4 heads of 16, MLP 128) at its 197 tokens.
+TF32X3_FWD_WIDTHS = sorted(WIDTHS.items()) + [
+    ("vit_h", (1280, 16, 80, 5120)), ("tutorial_2d", (64, 4, 16, 128))]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("width,shape", TF32X3_FWD_WIDTHS)
+def test_mlp_qkv_f32_tf32x3_widths(cuda, width, shape, rate):
+    """K4 f32 (with h) and K2 f32 (with u) in 3xTF32 on wgmma against
+    plain within F32_TOL at every width, at 1001 rows (197 for the 2D
+    tutorial), K4 at dropout 0 and 0.1; the weight pre-pass launched once
+    a weight (W1 and W2, Wqkv), two calls bit-equal."""
+    from neurovit_tpu_torch.ops import tf32x3
+    dim, heads, dh, hid = shape
+    m = 197 if width == "tutorial_2d" else 1001
+    args = _mlp_f32_args(np.random.default_rng(dim + hid), m, dim, hid, cuda)
+    kw = {"dropout_rate": rate, "seeds": (21, 22)}
+    before = tf32x3.split_cuda.launches
+    got = fused_mlp.fused_mlp_block_f32_cuda(*args, return_h=True, **kw)
+    assert tf32x3.split_cuda.launches == before + 2
+    _check_f32(got, fused_mlp.fused_mlp_block_plain(*args, return_h=True,
+                                                    **kw))
+    again = fused_mlp.fused_mlp_block_f32_cuda(*args, return_h=True, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    rng = np.random.default_rng(dim + dh)
+    qargs = (args[0], args[1], args[2],
+             _f32(rng, (3 * heads * dh, dim), cuda, dim ** -0.5), heads, dh)
+    before = tf32x3.split_cuda.launches
+    got = fused_qkv.fused_ln_qkv_f32_cuda(*qargs, return_u=True)
+    assert tf32x3.split_cuda.launches == before + 1
+    _check_f32(got, fused_qkv.fused_ln_qkv_plain(*qargs, return_u=True))
+    again = fused_qkv.fused_ln_qkv_f32_cuda(*qargs, return_u=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_mlp_qkv_f32_tf32x3_accuracy(cuda, rate):
+    """K4 f32 and K2 f32 at the flagship block (8008 rows, dim 1024, 8
+    heads of 64, MLP 2048): y, h, q, k and v within 1e-5 relative
+    Frobenius error of plain (chip_smoke.py's F32_CAM_RTOL)."""
+    rng = np.random.default_rng(30)
+    args = _mlp_f32_args(rng, 8008, 1024, 2048, cuda)
+    kw = {"dropout_rate": rate, "seeds": (5, 6)}
+    got = fused_mlp.fused_mlp_block_f32_cuda(*args, return_h=True, **kw)
+    want = fused_mlp.fused_mlp_block_plain(*args, return_h=True, **kw)
+    w = _f32(rng, (1536, 1024), cuda, 1024 ** -0.5)
+    got += fused_qkv.fused_ln_qkv_f32_cuda(*args[:3], w, 8, 64)
+    want += fused_qkv.fused_ln_qkv_plain(*args[:3], w, 8, 64)
+    torch.cuda.synchronize()
+    for g, p in zip(got, want):
+        assert float((g - p).norm()) < 1e-5 * float(p.norm())
+
+
+@pytest.mark.parametrize("shape,scale", [((2048, 1024), 1.0),
+                                         ((1024, 2048), 1e3),
+                                         ((1536, 1024), 1e-30),
+                                         ((5120, 1280), 1.0),
+                                         ((192, 64), 1.0), ((16, 16), 1.0),
+                                         ((3, 4), 1.0)])
+def test_split_f32_is_plain_bit_for_bit(cuda, shape, scale):
+    """The forwards' weight pre-pass (a grid-stride walk of at most 1056
+    blocks: W1 and W2 of the flagship take two turns) equals split_plain
+    bit for bit, and counts one launch a call."""
+    from neurovit_tpu_torch.ops import tf32x3
+    w = _f32(np.random.default_rng(shape[0]), shape, cuda, scale)
+    before = tf32x3.split_cuda.launches
+    got = tf32x3.split_cuda(w)
+    assert tf32x3.split_cuda.launches == before + 1
+    for g, p in zip(got, tf32x3.split_plain(w)):
+        assert g.shape == w.shape and torch.equal(g, p)
 
 
 def test_outproj_bwd_f32_plan_smem_is_the_kernels(cuda):

@@ -1,5 +1,6 @@
 """The f32 forwards K1-K4 and K6 and backwards K5-K9 (csrc/*_f32.cu,
-csrc/ffma.cuh) as far as the CPU reaches them: their plans at the
+csrc/ffma.cuh, csrc/tf32x3_wgmma.cuh) as far as the CPU reaches them:
+their plans at the
 flagship, at 130 rows, at every width of ``models/vit3d.py`` WIDTHS and
 the smoke model's, and at head dims 32, 64 and 128; the kernels' index
 maps (the GEMM's staging copies of B [N, K] and of B [K, N], the
@@ -53,18 +54,21 @@ def _gemm_covers(launch, m, n):
 @pytest.mark.parametrize("m", ROWS)
 @pytest.mark.parametrize("width", sorted(WIDTHS))
 def test_f32_gemm_plans(width, m):
-    """K2, K3 and K4 at f32: LayerNorm rows a warp each, then GEMMs whose
-    128 x 128 tiles cover the output; the scratch holds u (and g) f32 on
-    256-byte boundaries."""
+    """K2, K3 and K4 at f32: K2 and K4 split their weights first (the
+    plain pre-pass, a launch a weight), then LayerNorm rows a warp each,
+    then GEMMs in 3xTF32 on wgmma whose 128 x 128 tiles cover the output;
+    K3 one FFMA GEMM; the scratch holds u (and g) f32 on 256-byte
+    boundaries."""
     dim, heads, dh, hid = WIDTHS[width]
     inner = heads * dh
     for return_u in (False, True):
         plan = fused_qkv.qkv_f32_plan(m, dim, inner, return_u=return_u)
-        (ln, grid, threads, smem), gemm = plan.launches
+        split, (ln, grid, threads, smem), gemm = plan.launches
+        assert split == tf32x3.split_launch("split_wqkv", 3 * inner * dim)
         assert (ln, grid, threads, smem) == ("ln_rows", (-(-m // 8), 1), 256,
                                              0)
-        assert gemm[0] == "qkv_gemm"
-        _gemm_covers(gemm, m, 3 * inner)
+        assert gemm[0] == "qkv_gemm" and plan.tile_n == 128
+        _tf32x3_gemm_covers(gemm, m, 3 * inner)
         assert plan.scratch == ({} if return_u else {"u": (0, m * dim * 4)})
         assert plan.scratch_bytes % 256 == 0
         assert plan.scratch_bytes >= sum(b for _, b in plan.scratch.values())
@@ -73,11 +77,13 @@ def test_f32_gemm_plans(width, m):
     assert gemm[0] == "fc2_residual"
     _gemm_covers(gemm, m, dim)
     plan = fused_mlp.mlp_f32_plan(m, dim, hid)
-    ln, fc1, fc2 = plan.launches
+    split1, split2, ln, fc1, fc2 = plan.launches
+    assert split1 == tf32x3.split_launch("split_w1", hid * dim)
+    assert split2 == tf32x3.split_launch("split_w2", dim * hid)
     assert ln[:3] == ("ln_rows", (-(-m // 8), 1), 256)
     assert (fc1[0], fc2[0]) == ("fc1_gelu", "fc2_residual")
-    _gemm_covers(fc1, m, hid)
-    _gemm_covers(fc2, m, dim)
+    _tf32x3_gemm_covers(fc1, m, hid)
+    _tf32x3_gemm_covers(fc2, m, dim)
     (u0, ub), (g0, gb) = plan.scratch["u"], plan.scratch["g"]
     assert (u0, ub, gb) == (0, m * dim * 4, m * hid * 4)
     assert g0 % 256 == 0 and g0 >= ub
@@ -85,12 +91,13 @@ def test_f32_gemm_plans(width, m):
 
 
 def _tf32x3_gemm_covers(launch, m, n):
-    """K8 f32's dattn (csrc/tf32x3_wgmma.cuh): two consumer warpgroups and
-    the producer warp, four 48 KiB stages, one block an SM, 128 x 128
-    tiles over the [m, n] output."""
+    """A 3xTF32 GEMM on wgmma (csrc/tf32x3_wgmma.cuh: K8 f32's dattn, K4
+    f32's fc1 and fc2, K2 f32's QKV): two consumer warpgroups and the
+    producer warp, four 48 KiB stages, one block an SM, 128 x 128 tiles
+    over the [m, n] output."""
     name, grid, threads, smem = launch
     assert threads == fused_mlp.GEMM_THREADS == 288
-    assert smem == fused_outproj.TF32X3_SMEM == 1024 + 4 * 3 * 16384 + 64
+    assert smem == tf32x3.SMEM == 1024 + 4 * 3 * 16384 + 64
     assert smem <= SMEM_LIMIT < 2 * smem
     assert grid[0] * 128 >= n > (grid[0] - 1) * 128
     assert grid[1] * 128 >= m > (grid[1] - 1) * 128
@@ -411,9 +418,10 @@ def _word_byte(words, i):
 def test_gemm_dropout_bytes_are_keep_mask(rate):
     """ffma.cuh keep4 at every float4 of an [m, n] site (n % 16 == 0):
     word (i >> 2) & 3 of Philox(i >> 4), its four bytes below q, equal to
-    nn.keep_mask's bits. The forwards' epilogues and the backwards' (K9
-    f32's HiddenEpi at row * hid + col, the dz rows pass of K8 and K9 at
-    f32 at row * dim + col) draw it so."""
+    nn.keep_mask's bits. K3 f32's epilogue and the backwards' (K9 f32's
+    HiddenEpi at row * hid + col, the dz rows pass of K8 and K9 at f32 at
+    row * dim + col) draw it so; K2's and K4's 3xTF32 epilogues draw
+    keep_quad (tests/test_torch_mlp_qkv_fwd_tf32x3.py)."""
     m, n, seed = 5, 48, 0x1234_5678_9ABC
     q, _ = nn.keep_threshold(rate)
     want = nn.keep_mask(seed, (m, n), rate).reshape(-1).numpy()

@@ -116,7 +116,8 @@ def _as_on_card(monkeypatch):
 K6_F32 = ["nvt_flash_attention_bhnd_f32_fwd",
           "nvt_flash_attention_bhnd_f32_bwd"]
 F32_FORWARDS = ["nvt_fused_ln_qkv_f32_fwd", "nvt_flash_attention_f32_fwd",
-                "nvt_fused_outproj_f32_fwd", "nvt_fused_mlp_f32_fwd"]
+                "nvt_fused_outproj_f32_fwd", "nvt_fused_mlp_f32_fwd",
+                "nvt_split_f32"]
 F32_BACKWARDS = ["nvt_fused_ln_qkv_f32_bwd", "nvt_flash_attention_f32_bwd",
                  "nvt_fused_outproj_f32_bwd", "nvt_fused_mlp_f32_bwd",
                  "nvt_wsplit_f32"]
@@ -131,8 +132,9 @@ def test_f32_on_cuda_refused_at_the_entry_point(monkeypatch, entry):
     (get_attention_map and the menu), integrated gradients, grad x input,
     int8 serving and the 2D CAM tutorial, with the ops taken as on the
     card, reach the f32 kernels and no bf16 one. A probe runs K6 at f32
-    once forward and once backward (the last block) beside K1-K4 f32 and
-    K9 f32 (the last block's MLP under the gradient); IG and grad x input
+    once forward and once backward (the last block) beside K1-K4 f32 (K2's
+    and K4's weight pre-pass with them) and K9 f32 (the last block's MLP
+    under the gradient); IG and grad x input
     differentiate the volume through every block (K1-K5, K7-K9 f32 and K8
     f32's weight pre-pass, no K6); int8 serving runs K10-K13 f32."""
     from neurovit_tpu_torch.explainability import vit_cam_2d
