@@ -737,7 +737,8 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
 // The tensor map of a row-major [rows, K] operand for Mainloop: boxes of
 // 128 bytes of K by box_rows rows, 128-byte swizzle, zeros past the edges
 // (row_bytes 64: boxes of 64 bytes of K, 64-byte swizzle, for
-// smem_desc_sw64). K * element size must be a multiple of 16 and ptr
+// smem_desc_sw64; row_bytes 32: boxes of 32 bytes, 32-byte swizzle, K13
+// f32's v8 boxes). K * element size must be a multiple of 16 and ptr
 // 16-byte aligned. A failed encode prints its CUresult and returns
 // cudaErrorInvalidValue.
 inline cudaError_t encode_kmajor(CUtensorMap* map, const void* ptr, int rows,
@@ -759,7 +760,9 @@ inline cudaError_t encode_kmajor(CUtensorMap* map, const void* ptr, int rows,
       int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
       2, const_cast<void*>(ptr), dims, strides, box, elem_strides,
       CU_TENSOR_MAP_INTERLEAVE_NONE,
-      row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+      row_bytes == 32   ? CU_TENSOR_MAP_SWIZZLE_32B
+      : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                        : CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (res != CUDA_SUCCESS) {
     fprintf(stderr,

@@ -97,6 +97,23 @@ __device__ __forceinline__ uint32_t pack4(const int (&c)[4]) {
   return word;
 }
 
+// Four values of p / s_p as s8 codes in one register, x0 in the lowest
+// byte: each rounded half-even to an int and saturated to 127 (the values
+// are >= 0) by cvt.pack.sat, which packs b into the low byte, a above it,
+// and c's low 16 bits above those. K13's sweep 1 packs its codes so, both
+// instances.
+__device__ __forceinline__ uint32_t pack_s8x4(float x0, float x1, float x2,
+                                              float x3) {
+  uint32_t hi, w;
+  asm("cvt.pack.sat.s8.s32.b32 %0, %1, %2, 0;"
+      : "=r"(hi)
+      : "r"(__float2int_rn(x3)), "r"(__float2int_rn(x2)));
+  asm("cvt.pack.sat.s8.s32.b32 %0, %1, %2, %3;"
+      : "=r"(w)
+      : "r"(__float2int_rn(x1)), "r"(__float2int_rn(x0)), "r"(hi));
+  return w;
+}
+
 // Rows (one warp each) a block of the LayerNorm row-quantize pass.
 constexpr int kLnRowWarps = 8;
 

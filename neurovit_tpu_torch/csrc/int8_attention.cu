@@ -246,22 +246,6 @@ __device__ __forceinline__ void probs_tile(float (&acc)[32],
     }
 }
 
-// Four values of p / s_p as s8 codes in one register, x0 in the lowest
-// byte: each rounded half-even to an int and saturated to 127 (the values
-// are >= 0) by cvt.pack.sat, which packs b into the low byte, a above it,
-// and c's low 16 bits above those.
-__device__ __forceinline__ uint32_t pack_s8x4(float x0, float x1, float x2,
-                                              float x3) {
-  uint32_t hi, w;
-  asm("cvt.pack.sat.s8.s32.b32 %0, %1, %2, 0;"
-      : "=r"(hi)
-      : "r"(__float2int_rn(x3)), "r"(__float2int_rn(x2)));
-  asm("cvt.pack.sat.s8.s32.b32 %0, %1, %2, %3;"
-      : "=r"(w)
-      : "r"(__float2int_rn(x1)), "r"(__float2int_rn(x0)), "r"(hi));
-  return w;
-}
-
 // The codes of acc as the s8 A operands of the tile's two k32 chunks:
 // pa[4 c .. 4 c + 3] from acc[16 c .. 16 c + 15] as (0, 1, 4, 5), (2, 3,
 // 6, 7), (8, 9, 12, 13), (10, 11, 14, 15), the first in the lowest byte.

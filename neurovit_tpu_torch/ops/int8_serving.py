@@ -33,8 +33,9 @@ run the plain versions; bf16 CUDA tensors run ``csrc/int8_qkv.cu``,
 f32 ViT, where the JAX kernels write ``x.dtype``) their f32 instances:
 K10-K12's ``nvt_int8_*_f32`` entry points in the same sources (the same
 passes on f32 loads and stores, the same plans), and K13 at f32 in
-``csrc/int8_attention_f32.cu`` (QK^T by FFMA on the CUDA cores in two
-sweeps, P V by ``__dp4a``, :func:`int8_attn_f32_plan`). The kernels take widths that are multiples of
+``csrc/int8_attention_f32.cu`` (QK^T in 3xTF32 on ``mma.sync`` in two
+sweeps, P8 . V8 on s8 ``mma.sync`` from registers,
+:func:`int8_attn_f32_plan`). The kernels take widths that are multiples of
 16, of any size: K10 in two launches (the LN row quantizer it shares with
 K12, then its GEMM on the TMA + ``wgmma`` mainloop, :func:`qkv_plan`), K11
 in two (that row quantizer without the LayerNorm, then K12's last pass,
@@ -617,9 +618,11 @@ def int8_attn_plan(b: int, n: int, h: int, d: int) -> Int8AttnPlan:
                         stats_bytes=stats_bytes)
 
 
-# K13 at f32 (csrc/int8_attention_f32.cu): query rows a block, keys a tile
-# (two tiles in flight), threads a block.
-ATTN_F32_BQ, ATTN_F32_BKV, ATTN_F32_THREADS = 64, 32, 128
+# K13 at f32 (csrc/int8_attention_f32.cu): query rows a block (four warps of
+# 16), keys a ring step, the ring's stages and threads a block; the Q and K
+# boxes are 128-byte swizzled and the v8 boxes 32-byte swizzled,
+# FWD_ALIGN_SLACK aligning them to 1024 bytes.
+ATTN_F32_BQ, ATTN_F32_BKV, ATTN_F32_STAGES, ATTN_F32_THREADS = 64, 32, 3, 128
 
 
 class Int8AttnF32Plan(NamedTuple):
@@ -628,14 +631,19 @@ class Int8AttnF32Plan(NamedTuple):
     the bf16 K13's); ``launches``, the three kernels in launch order, each
     (name, grid, threads, dynamic shared memory bytes): the bf16 K13's
     prologue on f32 V, then the attention on a one-dimensional grid of
-    (query tiles of ``bq`` rows x B * H), query tiles fastest, its shared
-    memory the Q tile and two K tiles (f32), two v8 tiles ([d_kernel, bkv]
-    int8) and the P8 tile ([bq, bkv] int8); the scratch as the bf16 K13's
-    (``n_pad``, ``v8_bytes``, ``stats_bytes``)."""
+    (query tiles of ``bq`` rows x B * H), query tiles fastest, in blocks
+    of four warps of 16 rows; ``offsets`` of its Q box (f32 [bq,
+    d_kernel]), its ring of ``stages`` K boxes (f32 [bkv, d_kernel]) and
+    v8 boxes (int8 [d_kernel, bkv]), and its barriers, from its
+    1024-byte aligned base: QK^T in 3xTF32 and P8 . V8 on ``mma.sync``,
+    the codes in registers; the scratch as the bf16 K13's (``n_pad``,
+    ``v8_bytes``, ``stats_bytes``)."""
     d_kernel: int
     bq: int
     bkv: int
+    stages: int
     launches: tuple
+    offsets: tuple
     n_pad: int
     v8_bytes: int
     stats_bytes: int
@@ -648,14 +656,16 @@ def int8_attn_f32_plan(b: int, n: int, h: int, d: int) -> Int8AttnF32Plan:
     K13 takes."""
     d_kernel, prologue, n_pad, v8_bytes, stats_bytes = _attn_prologue(
         b, n, h, d)
-    bq, bkv = ATTN_F32_BQ, ATTN_F32_BKV
-    smem = (bq + 2 * bkv) * d_kernel * 4 + 2 * d_kernel * bkv + bq * bkv
+    bq, bkv, stages = ATTN_F32_BQ, ATTN_F32_BKV, ATTN_F32_STAGES
+    offsets, at = _offsets(bq * d_kernel * 4, stages * bkv * d_kernel * 4,
+                           stages * d_kernel * bkv, (2 * stages + 1) * 8)
+    smem = FWD_ALIGN_SLACK + at
     check_smem("int8 attention", smem)
     launches = prologue + (
         ("attention", (-(-n // bq) * b * h,), ATTN_F32_THREADS, smem),)
-    return Int8AttnF32Plan(d_kernel=d_kernel, bq=bq, bkv=bkv,
-                           launches=launches, n_pad=n_pad, v8_bytes=v8_bytes,
-                           stats_bytes=stats_bytes)
+    return Int8AttnF32Plan(d_kernel=d_kernel, bq=bq, bkv=bkv, stages=stages,
+                           launches=launches, offsets=offsets, n_pad=n_pad,
+                           v8_bytes=v8_bytes, stats_bytes=stats_bytes)
 
 
 def _attn_cuda(symbol: str, plan, q, k, v, scale: float,
@@ -698,7 +708,8 @@ def int8_flash_attention_f32_cuda(q: torch.Tensor, k: torch.Tensor,
                                   n_valid: Optional[int] = None
                                   ) -> torch.Tensor:
     """Launch K13 at f32 (V's prologue on f32 V, then the two-sweep
-    attention with QK^T by FFMA and P V by ``__dp4a``): f32 [B, N, H, D],
+    attention with QK^T in 3xTF32 and P8 . V8 in s8 on ``mma.sync``, the
+    codes packed in registers): f32 [B, N, H, D],
     contiguous, 8 <= D <= 128, zero-padded to 64 or 128 as the bf16 K13's.
     The scratch is v8 and the f32 stats of :func:`int8_attn_f32_plan`."""
     _check_qkv(q, k, v, torch.float32)

@@ -13,7 +13,8 @@ u (the train step's call), and K8 and K9 at dropout 0.1 (the train
 step's) and 0 (Grad-CAM's). ``--batch`` sets the batch of the ViT
 kernels' operands. Printed per kernel: the median over each checkout's turns,
 their ratio, the spread of the other checkout's own turns (the distance
-between its quartiles, as a share of its median), and the largest
+between its quartiles, as a share of its median), the rounds in which
+this checkout's two turns took less than the other's two, and the largest
 |this - other| of each output of one call on the same operands (0 where
 the bits are equal), with the card's name and power limit. K2 is called
 through :func:`fused_ln_qkv_call`: an older ``nvt_fused_ln_qkv_fwd`` (one
@@ -564,7 +565,8 @@ def main(argv=None) -> int:
           f"rounds of other, this, this, other; each turn the median of 10 "
           f"launches")
     print(f"{'kernel':26s} {'other ms':>9s} {'this ms':>9s} {'ratio':>6s} "
-          f"{'other IQR':>9s}  max |this - other| per output")
+          f"{'other IQR':>9s} {'faster':>7s}  max |this - other| per "
+          f"output")
     for name, (symbol, call) in cases(args.batch).items():
         if args.only not in name:
             continue
@@ -583,9 +585,15 @@ def main(argv=None) -> int:
                 turns[side].append(cs.cuda_ms(call, warmup=2, runs=10))
         a, b = (float(np.median(turns[s])) for s in ("other", "this"))
         q1, q3 = np.percentile(turns["other"], [25, 75])
+        # Rounds in which this checkout's two turns took less in all than
+        # the other's two.
+        faster = sum(sum(turns["this"][2 * r:2 * r + 2])
+                     < sum(turns["other"][2 * r:2 * r + 2])
+                     for r in range(args.rounds))
         diffs = ", ".join(f"{d:.3e}" for d in output_diffs(libs, call))
         print(f"{name:26s} {a:9.4f} {b:9.4f} {b / a:6.3f} "
-              f"{(q3 - q1) / a:9.3f}  [{diffs}]", flush=True)
+              f"{(q3 - q1) / a:9.3f} {faster:3d}/{args.rounds:<3d}  "
+              f"[{diffs}]", flush=True)
     if args.step:
         f32_step_turns(libs, args.rounds)
     return 0

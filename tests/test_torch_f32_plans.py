@@ -3,9 +3,8 @@ csrc/ffma.cuh, csrc/tf32x3_wgmma.cuh) as far as the CPU reaches them:
 their plans at the
 flagship, at 130 rows, at every width of ``models/vit3d.py`` WIDTHS and
 the smoke model's, and at head dims 32, 64 and 128; the kernels' index
-maps (the GEMM's staging copies of B [N, K] and of B [K, N], the
-attention's permuted chunks) modelled in numpy; their dropout bytes
-against ``nn.keep_mask``; and the dispatch rule (CPU tensors run the
+maps (the GEMM's staging copies of B [N, K] and of B [K, N]) modelled in
+numpy; their dropout bytes against ``nn.keep_mask``; and the dispatch rule (CPU tensors run the
 plain versions, f32 CUDA tensors the f32 kernels, bf16 ones the bf16
 kernels), forward and backward, in both attention layouts; what the
 attention wrappers hand their entry points, with the launch stubbed. The
@@ -384,36 +383,6 @@ def test_gemm_kn_staging_copies_are_a_conflict_free_bijection():
             assert len(banks) == 32
 
 
-@pytest.mark.parametrize("width", [32, 64, 128])
-def test_attention_chunk_permutation(width):
-    """flash_f32.cuh swz (K13 f32's tiles, int8_attention_f32.cu): chunk c
-    of row r at c ^ ((r / 4) % 8), a permutation of each row's chunks; the
-    Q rows (ty*4 + i, four ty a warp) and the K rows (tx*4 + j, eight tx a
-    warp) that a warp reads at one chunk fall into distinct 16-byte bank
-    slots."""
-    def swz(r, c):
-        return r * width + ((c ^ ((r >> 2) & 7)) << 2)
-
-    rows = 64
-    for r in range(rows):
-        offs = sorted(swz(r, c) - r * width for c in range(width // 4))
-        assert offs == list(range(0, width, 4))
-    for c in range(width // 4):
-        for i in range(4):
-            for warp in range(4):
-                q_slots = {swz(ty * 4 + i, c) % 32 // 4
-                           for ty in range(4 * warp, 4 * warp + 4)}
-                assert len(q_slots) == 4
-            k_slots = {swz(tx * 4 + i, c) % 32 // 4 for tx in range(8)}
-            assert len(k_slots) == 8
-
-
-def _word_byte(words, i):
-    """Byte i % 16 of the Philox block words (x, y, z, w)."""
-    j = i & 15
-    return (int(words[j >> 2]) >> (8 * (j & 3))) & 0xFF
-
-
 @pytest.mark.parametrize("rate", [0.1, 0.5])
 def test_gemm_dropout_bytes_are_keep_mask(rate):
     """ffma.cuh keep4 at every float4 of an [m, n] site (n % 16 == 0):
@@ -432,29 +401,6 @@ def test_gemm_dropout_bytes_are_keep_mask(rate):
         for j in range(4):
             got[i + j] = ((word >> (8 * j)) & 0xFF) < q
     np.testing.assert_array_equal(got, want)
-
-
-def test_attention_dropout_bytes_are_keep_mask():
-    """flash_f32.cuh keep_bits4 (K13 f32, int8_attention_f32.cu): a
-    thread's four keys of a row, ((b H + h) N + q) N + key0 .. + 3, from
-    the Philox blocks of the first and last (N = 1001 is odd, so they
-    straddle blocks), equal to nn.keep_mask over [B, H, N, N]."""
-    b, h, n, rate, seed = 2, 3, 1001, 0.1, 99
-    q, _ = nn.keep_threshold(rate)
-    mask = nn.keep_mask(seed, (b, h, n, n), rate).numpy()
-    rng = np.random.default_rng(0)
-    for _ in range(40):
-        bh = int(rng.integers(b * h))
-        row = int(rng.integers(n))
-        key0 = 4 * int(rng.integers(n // 4))
-        i0 = (bh * n + row) * n + key0
-        w0 = nn.philox4x32(torch.tensor([i0 >> 4]), seed)[0].tolist()
-        w1 = nn.philox4x32(torch.tensor([(i0 + 3) >> 4]), seed)[0].tolist()
-        for j in range(4):
-            e = i0 + j
-            byte = _word_byte(w0 if e >> 4 == i0 >> 4 else w1, e)
-            if key0 + j < n:
-                assert (byte < q) == mask[bh // h, bh % h, row, key0 + j]
 
 
 def _block_args(rng, dtype=torch.float32):

@@ -4,13 +4,24 @@ reaches them: K13 f32's launch plan (``ops/int8_serving.py``
 bf16 K13's plan; what each f32 wrapper hands its C entry point (symbol,
 scratch, scalars) against its bf16 twin, with the launch recorded instead
 of run; the dispatch of f32, bf16 and other card tensors
-(``common.pick``); and a model in plain torch index arithmetic of K13
-f32's walk (``csrc/int8_attention_f32.cu``): the two sweeps over 32-key
-tiles, each row's max from sweep 0, p's codes written into the P8 tile at
-the positions the prologue's v8 keeps its keys' codes, the v8 tile's
-swapped halves, and the four-key dot products of ``__dp4a`` over stored
-positions. Its codes and int32 sums must equal ``attn_codes``' and
-p8 . v8 bit for bit, at N = 1001 with n_valid = N and n_valid < N.
+(``common.pick``); and models of K13 f32 (``csrc/int8_attention_f32.cu``):
+
+- its walk on ``mma.sync``'s fragments in torch index arithmetic: the two
+  sweeps over 32-key ring steps, each row's max from sweep 0 by the quad,
+  the S accumulator's codes packed by ``P8_PACK`` into the A registers of
+  ``m16n8k32.s8`` and the B registers read from the 32-byte-swizzled v8
+  box. Its codes and int32 sums must equal ``attn_codes``' p8 and p8 . v8
+  bit for bit, at N = 1001 with n_valid on and off the steps; the B loads
+  fall in 32 distinct banks;
+- its 3xTF32 scores (``tf32x3.cuh``'s split, each MMA's sum rounded
+  toward zero, a fresh accumulator every k8 step added in f32), held to
+  ``chip_smoke.py``'s ``hold_int8_attn_f32`` at half its allowance, and
+  one accumulator over D = 128, which that bound must refuse; with the
+  row max's score and the scores near a code's rounding boundary taken
+  again in the plain version's order, its codes and s_p are plain's bit
+  for bit;
+- the call-free quotient of its codes, and the bound's two faulty plain
+  versions.
 """
 
 import numpy as np
@@ -32,18 +43,23 @@ N = 1001
 
 @pytest.mark.parametrize("b", [1, 8, 32])
 def test_f32_attn_plan_at_the_flagship(b):
-    """64 query rows a block of 128 threads, 32-key tiles; shared memory the
-    Q tile and two K tiles of f32, two v8 tiles and the P8 tile; the
-    prologue and the scratch the bf16 K13's."""
+    """64 query rows a block of 128 threads (four warps of 16), 32-key ring
+    steps, three stages; shared memory the f32 Q box, three f32 K boxes,
+    three v8 boxes and seven barriers after 1 KiB of alignment slack, each
+    box on 1024 bytes; the prologue and the scratch the bf16 K13's."""
     plan = q8.int8_attn_f32_plan(b, N, 8, 64)
     bf16 = q8.int8_attn_plan(b, N, 8, 64)
-    assert (plan.d_kernel, plan.bq, plan.bkv) == (64, 64, 32)
+    assert (plan.d_kernel, plan.bq, plan.bkv, plan.stages) == (64, 64, 32, 3)
     assert plan.launches[:2] == bf16.launches[:2]
     assert (plan.n_pad, plan.v8_bytes, plan.stats_bytes) == (
         bf16.n_pad, bf16.v8_bytes, bf16.stats_bytes)
     name, grid, threads, smem = plan.launches[2]
     assert (name, grid, threads) == ("attention", (16 * b * 8,), 128)
-    assert smem == 64 * 64 * 4 + 2 * 32 * 64 * 4 + 2 * 64 * 32 + 64 * 32
+    assert plan.offsets == (0, 64 * 64 * 4, 64 * 64 * 4 + 3 * 32 * 64 * 4,
+                            64 * 64 * 4 + 3 * 32 * 64 * 5)
+    assert all(at % 1024 == 0 for at in plan.offsets[:3])
+    assert smem == 1024 + plan.offsets[3] + 7 * 8
+    assert 2 * (smem + 1024) <= 228 * 1024      # two blocks an SM
 
 
 @pytest.mark.parametrize("width", list(WIDTHS))
@@ -53,8 +69,9 @@ def test_f32_attn_plan_at_every_width(width, b):
     plan = q8.int8_attn_f32_plan(b, N, heads, dh)
     assert plan.d_kernel == (64 if dh <= 64 else 128)
     d = plan.d_kernel
-    assert plan.launches[2][3] == (64 + 64) * d * 4 + 64 * d + 2048
+    assert plan.launches[2][3] == 1024 + 64 * d * 4 + 3 * 32 * d * 5 + 56
     assert plan.launches[2][3] <= SMEM_LIMIT
+    assert 2 * (plan.launches[2][3] + 1024) <= 228 * 1024   # two an SM
     assert plan.v8_bytes == b * heads * d * plan.n_pad
 
 
@@ -193,117 +210,175 @@ def test_dispatch_on_card_tensors(monkeypatch, dtype, kernel):
 
 
 # ---------------------------------------------------------------------------
-# K13 f32's walk
+# K13 f32's walk on mma.sync's fragments
 # ---------------------------------------------------------------------------
 
-BQ, BKV, THREADS = q8.ATTN_F32_BQ, q8.ATTN_F32_BKV, q8.ATTN_F32_THREADS
+BQ, BKV = q8.ATTN_F32_BQ, q8.ATTN_F32_BKV
+LANE = torch.arange(32)
+G, T = LANE // 4, LANE % 4          # lane = 4 g + t
+E, J = torch.arange(4), torch.arange(4)
+# mma.sync.m16n8k32.s8 (PTX ISA): byte b of A register r of lane (g, t) is
+# A[g + 8 (r % 2), 4 t + b + 16 (r // 2)]; byte b of B register r is
+# B[4 t + b + 16 r, g]; [32 lanes, 4 registers, 4 bytes] each.
+_R, _B = torch.arange(4)[:, None], torch.arange(4)[None, :]
+A_ROW = (G[:, None, None] + 8 * (_R % 2)[None]).expand(32, 4, 4)
+A_COL = 4 * T[:, None, None] + _B[None] + 16 * (_R // 2)[None]
+B_K = 4 * T[:, None, None] + _B[None] + 16 * _R[None, :2]
+B_N = G[:, None, None].expand(32, 2, 4)
 
 
-def _p8_position(tx: torch.Tensor) -> torch.Tensor:
-    """The kernel's p8_position: the byte of a P8 row holding key tx * 4."""
-    return 16 * (tx // 4) + 8 * (tx % 2) + 2 * ((tx // 2) % 2)
+def _v8_box(tile: torch.Tensor) -> torch.Tensor:
+    """A v8 box as TMA writes it with the 32-byte swizzle: [..., D, 32]
+    (channel rows of 32 stored key bytes) -> [..., D * 32] bytes, byte c of
+    row d at 32 d + (c ^ 16 ((d / 4) % 2))."""
+    *lead, d, _ = tile.shape
+    rows, c = torch.arange(d)[:, None], torch.arange(32)[None, :]
+    at = (32 * rows + (c ^ (16 * ((rows // 4) % 2)))).reshape(-1)
+    box = torch.zeros(*lead, d * 32, dtype=tile.dtype)
+    box[..., at] = tile.reshape(*lead, -1)
+    return box
 
 
-def test_p8_positions_are_v8s():
-    """A thread's keys tx * 4 + j land at p8_position(tx) + (0, 1, 4, 5)[j],
-    the stored position v8_key_order gives each key: a bijection of each
-    row's 32 positions."""
-    tx = torch.arange(8)[:, None]
-    pos = _p8_position(tx) + torch.tensor([0, 1, 4, 5])
-    order = q8.v8_key_order(32)                 # position -> key
-    assert torch.equal(order[pos], tx * 4 + torch.arange(4))
-    assert torch.equal(pos.flatten().sort().values, torch.arange(32))
+def _b_words(d: int) -> tuple:
+    """The 32-bit words of the v8 box that lane (g, t) loads as the B of
+    channel tile n, the kernel's 64 n + v0 and 64 n + v1: [D / 8, 32]
+    each."""
+    sw = G & 4
+    n = torch.arange(d // 8)[:, None]
+    return 64 * n + 8 * G + (T ^ sw), 64 * n + 8 * G + ((4 + T) ^ sw)
 
 
-def test_v8_tile_halves_are_conflict_free():
-    """The v8 tile's row d keeps its half h at 16 (h ^ ((d / 4) % 2)): a
-    bijection, and the 8 lanes of a quarter-warp (channels tx + 8 c) read
-    16-byte pieces of 32 distinct banks."""
-    d = torch.arange(128)[:, None]
-    h = torch.arange(2)
-    at = 32 * d + 16 * (h ^ ((d // 4) % 2))
-    assert torch.equal(at.flatten().sort().values,
-                       torch.arange(0, 128 * 32, 16))
-    for c in range(16):
-        for half in range(2):
-            lanes = torch.arange(8) + 8 * c
-            start = 32 * lanes + 16 * (half ^ ((lanes // 4) % 2))
-            banks = (start[:, None] // 4 + torch.arange(4)) % 32
-            assert banks.flatten().unique().numel() == 32
+def test_fragment_layouts_are_bijections():
+    """The A map covers the 16 x 32 A tile once and the B map the 32 x 8 B
+    tile once; P8_PACK takes each of a thread's 16 accumulator values of a
+    step once, and the A map then puts row g's keys 2 t, 2 t + 1, 8 + 2 t,
+    9 + 2 t (then 16 + ..) at the stored positions v8_key_order gives
+    them."""
+    assert sorted((A_ROW * 32 + A_COL).reshape(-1).tolist()) == list(
+        range(512))
+    assert sorted((B_K * 8 + B_N).reshape(-1).tolist()) == list(range(256))
+    pack = torch.tensor(q8.P8_PACK)
+    assert sorted(pack.reshape(-1).tolist()) == list(range(16))
+    # acc[4 j + e]: row g + 8 (e // 2), key 8 j + 2 t + e % 2.
+    key = (8 * (pack // 4) + 2 * T[:, None, None] + pack % 2)
+    row = G[:, None, None] + 8 * (pack % 4 // 2)
+    assert torch.equal(row, A_ROW)
+    assert torch.equal(q8.v8_key_order(32)[A_COL], key)
 
 
-def _walk(q, k, v, scale, n_valid):
-    """K13 f32's walk over [1, N, H, D] f32 operands in index arithmetic:
-    (p8 [H, N, N] in key order, the int32 sums [H, N, D]), with the
-    scores taken from the plain version (the kernel's own sums are another
-    order of the same products; both sweeps use one function)."""
-    b, n, h, d = q.shape
+def _mma_walk(q, k, v, scale, n_valid):
+    """K13 f32's walk over [1, N, H, D] f32 operands on mma.sync's
+    fragments: (the codes p8 [H, N, N] in key order as the A fragments
+    carry them, the int32 sums [H, N, D] of the s8 MMAs). Every warp's 16
+    rows of every query tile, both sweeps over the 32-key steps below
+    n_valid; the scores are plain's (the kernel's are another order of
+    the same products; both sweeps use one function), zero on rows past N
+    as TMA fills Q."""
+    _, n, h, d = q.shape
     qf, kf, vf = (x.permute(0, 2, 1, 3).float()[0] for x in (q, k, v))
-    t = torch.matmul(qf, kf.transpose(-1, -2)) * (scale * LOG2E)
-    n_tiles = -(-n_valid // BKV)
-    tx = torch.arange(THREADS) % 8
-    ty = torch.arange(THREADS) // 8
-    rows = ty[:, None] * 4 + torch.arange(4)                 # [T, 4]
-    # Sweep 0: each row's max of t over the thread's keys of every tile.
-    m = torch.full((h, n), -torch.finfo(torch.float32).max)
-    covered = torch.zeros(n, dtype=torch.long)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * (scale * LOG2E)
+    n_tiles, q_tiles = -(-n_valid // BKV), -(-n // BQ)
+    rows_n, keys_n = q_tiles * BQ, n_tiles * BKV
+    t_all = torch.zeros(h, rows_n, keys_n)
+    t_all[:, :n, :min(n, keys_n)] = s[:, :, :keys_n]
+    r0 = (BQ * torch.arange(q_tiles)[:, None]
+          + 16 * torch.arange(4)).reshape(-1)                 # warps' rows
+    w = r0.numel()
+    rows = r0[:, None, None] + G[None, :, None] + 8 * (E // 2)  # [W, 32, 4]
+
+    def frag(kt):
+        """S of step kt: [H, W, 32 lanes, 4 j, 4 e], and the keys."""
+        keys = (BKV * kt + 8 * J[None, :, None] + 2 * T[:, None, None]
+                + (E % 2)[None, None, :])                      # [32, 4, 4]
+        return t_all[:, rows[:, :, None, :], keys[None]], keys
+
+    # Sweep 0: each lane's max of its masked t, then over the quad.
+    m = torch.full((h, w, 32, 2), -np.inf)
     for kt in range(n_tiles):
-        keys = kt * BKV + tx[:, None] * 4 + torch.arange(4)  # [T, 4]
-        for tq in range(-(-n // BQ)):
-            r = (tq * BQ + rows).clamp(max=n - 1)            # [T, 4]
-            vals = t[:, r[:, :, None], keys[:, None, :].clamp(max=n - 1)]
-            valid = (keys < n_valid)[:, None, :].expand_as(vals[0])
-            vals = torch.where(valid, vals, torch.tensor(-np.inf))
-            m.scatter_reduce_(1, r.flatten().expand(h, -1),
-                              vals.amax(-1).reshape(h, -1), "amax")
-        row_keys = keys[:8]              # one row's keys: the lanes tx
-        live = row_keys[row_keys < n_valid]
-        covered.index_add_(0, live, torch.ones_like(live))
-    assert torch.equal(covered, (torch.arange(n) < n_valid).long())
-    s_p = q8._scale(torch.exp2(torch.clamp(m, -SCORE_CAP, SCORE_CAP)))
-    # Sweep 1: p, its codes into the P8 tile at v8's positions, and the
-    # four-key products of the tile's stored positions.
-    p = torch.exp2(torch.clamp(t, -SCORE_CAP, SCORE_CAP))
-    p = p * (torch.arange(n) < n_valid).float()
-    p8 = torch.clamp(torch.round(p / s_p[..., None]), 0, 127)
+        vals, keys = frag(kt)
+        vals = torch.where(keys < n_valid, vals, torch.tensor(-np.inf))
+        m = torch.maximum(m, vals.reshape(h, w, 32, 4, 2, 2).amax(dim=(3, 5)))
+    m = m.reshape(h, w, 8, 4, 2).amax(dim=3)                  # [H, W, g, i]
+    row_of = (r0[:, None, None] + torch.arange(8)[:, None]
+              + 8 * torch.arange(2)).reshape(-1)
+    m_rows = torch.empty(h, rows_n)
+    m_rows[:, row_of] = m.reshape(h, -1)
+    valid = torch.arange(n) < n_valid
+    assert torch.equal(m_rows[:, :n], torch.where(
+        valid, s, torch.tensor(-np.inf)).amax(-1))
+    s_p = q8._scale(torch.exp2(torch.clamp(m_rows, -SCORE_CAP, SCORE_CAP)))
+
+    # Sweep 1: the codes packed into A, B from the v8 box, C += A B.
     n_pad = -(-n // 64) * 64
-    order = q8.v8_key_order(n_pad)
     s_v = q8._scale(vf[:, :n_valid].abs().amax(dim=1, keepdim=True))
-    codes = torch.clamp(torch.round(vf / s_v), -127, 127)
-    stored = torch.zeros(h, n_pad, d)
-    stored[:, :n_valid] = codes[:, :n_valid]
-    v8 = stored[:, order].transpose(1, 2).long()             # [H, D, n_pad]
-    pos = (_p8_position(tx)[:, None] + torch.tensor([0, 1, 4, 5]))
-    acc = torch.zeros(h, n, d, dtype=torch.long)
-    rows_n = -(-n // BQ) * BQ
-    p8_pad = torch.zeros(h, rows_n, n_pad, dtype=torch.long)
-    p8_pad[:, :n, :n] = p8.long()
+    stored = torch.zeros(h, n_pad, d, dtype=torch.long)
+    stored[:, :n_valid] = torch.clamp(torch.round(vf / s_v), -127,
+                                      127)[:, :n_valid].long()
+    v8 = stored[:, q8.v8_key_order(n_pad)].transpose(1, 2)   # [H, D, n_pad]
+    order = q8.v8_key_order(BKV)
+    w0, w1 = _b_words(d)
+    p8 = torch.zeros(h, rows_n, keys_n, dtype=torch.long)
+    c = torch.zeros(h, w, d // 8, 16, 8, dtype=torch.long)
     for kt in range(n_tiles):
-        tile = torch.full((h, rows_n, BKV), -1, dtype=torch.long)
-        keys = kt * BKV + tx[:, None] * 4 + torch.arange(4)
-        for tq in range(rows_n // BQ):
-            r = tq * BQ + rows                                # [T, 4]
-            tile[:, r[:, :, None], pos[:, None, :]] = \
-                p8_pad[:, r[:, :, None], keys[:, None, :]]
-        assert (tile >= 0).all()                  # every position written
-        vt = v8[:, :, kt * BKV:(kt + 1) * BKV]
-        for w in range(BKV // 4):                 # one __dp4a a word
-            acc += torch.einsum("hrk,hdk->hrd", tile[:, :n, 4 * w:4 * w + 4],
-                                vt[:, :, 4 * w:4 * w + 4])
-    return p8, acc
+        vals, keys = frag(kt)
+        p = torch.where(keys < n_valid,
+                        torch.exp2(torch.clamp(vals, -SCORE_CAP, SCORE_CAP)),
+                        torch.tensor(0.0))
+        sp = s_p[:, rows][:, :, :, None, :]                   # over j
+        code = torch.clamp(torch.round(p / sp), 0, 127).long()
+        regs = code.reshape(h, w, 32, 16)[..., torch.tensor(q8.P8_PACK)]
+        a = torch.zeros(h, w, 16, 32, dtype=torch.long)
+        a[:, :, A_ROW, A_COL] = regs
+        p8[:, r0[:, None, None] + torch.arange(16)[:, None],
+           BKV * kt + order] = a
+        box = _v8_box(v8[:, :, BKV * kt:BKV * (kt + 1)])     # [H, D * 32]
+        b = torch.zeros(h, d // 8, 32, 8, dtype=torch.long)
+        for r, words in enumerate((w0, w1)):
+            b[:, :, B_K[:, r], B_N[:, r]] = box[:, 4 * words[..., None]
+                                                + torch.arange(4)]
+        c += torch.einsum("hwmk,hnkc->hwnmc", a, b)
+    # C's fragment: c[2 i + x] of lane (g, t) is row g + 8 i, channel 8 n
+    # + 2 t + x, written there.
+    acc = torch.zeros(h, rows_n, d, dtype=torch.long)
+    acc[:, r0[:, None] + torch.arange(16)] = c.permute(0, 1, 3, 2, 4).reshape(
+        h, w, 16, d)
+    return p8[:, :n], acc[:, :n]
 
 
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("n_valid", [1, 31, 33, 97, 900, N])
-def test_walk_gives_attn_codes_and_p8_v8(n_valid, d):
+def test_mma_walk_gives_attn_codes_and_p8_v8(n_valid, d):
+    """The walk's codes are attn_codes' p8 bit for bit (0 past the last
+    step), and its s8 MMAs' int32 sums are p8 . v8, at N = 1001 with n_valid
+    on and off the 32-key steps."""
     rng = np.random.default_rng(100 * d + n_valid)
     q, k, v = (torch.tensor(rng.standard_normal((1, N, 2, d)),
                             dtype=torch.float32) for _ in range(3))
-    p8, acc = _walk(q, k, v, d ** -0.5, n_valid)
+    p8, acc = _mma_walk(q, k, v, d ** -0.5, n_valid)
     want_p8, want_v8, *_ = q8.attn_codes(q, k, v, d ** -0.5, n_valid)
-    assert torch.equal(p8, want_p8[0])
+    keys = min(p8.shape[-1], N)
+    assert torch.equal(p8[..., :keys].float(), want_p8[0, :, :, :keys])
+    assert not p8[..., keys:].any() and not want_p8[0, :, :, keys:].any()
     want = (want_p8[0].double() @ want_v8[0].double()).long()
     assert torch.equal(acc, want)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_v8_box_b_loads_are_conflict_free(d):
+    """TMA's 32-byte swizzle places each byte of the v8 box once; lane (g,
+    t)'s two words of channel tile n hold channel 8 n + g's stored
+    positions 4 t .. 4 t + 3 and 16 + 4 t .. (the s8 B fragment), and the
+    32 lanes of each load fall in 32 distinct banks."""
+    tile = torch.arange(d * 32).reshape(d, 32)
+    box = _v8_box(tile)
+    assert torch.equal(box.sort().values, torch.arange(d * 32))
+    for r, words in enumerate(_b_words(d)):
+        got = box[4 * words[..., None] + torch.arange(4)]    # [D/8, 32, 4]
+        channel = 8 * torch.arange(d // 8)[:, None, None] + G[:, None]
+        assert torch.equal(got, tile[channel, (4 * T + 16 * r)[:, None]
+                                     + torch.arange(4)])
+        for n in range(d // 8):
+            assert (words[n] % 32).unique().numel() == 32
 
 
 # ---------------------------------------------------------------------------
@@ -407,11 +482,10 @@ def _chip_smoke():
     return module
 
 
-def _scores_in_f64(q, k, v, scale, n_valid):
-    """The plain K13 with each score summed in f64 and rounded once: the
-    scores of a correct kernel that sums along D in another order."""
-    qf, kf, vf = (t.permute(0, 2, 1, 3) for t in (q, k, v))
-    s = torch.matmul(qf.double(), kf.double().transpose(-1, -2)).float()
+def _from_scores(q, k, v, scale, n_valid, s):
+    """The plain K13 on the scores s [B, H, N, N] (f32) in place of its
+    f32 matmul's, [B, N, H, D] out."""
+    vf = v.permute(0, 2, 1, 3)
     p = torch.exp2(torch.clamp(s * (scale * LOG2E), -SCORE_CAP, SCORE_CAP))
     p = p * (torch.arange(q.shape[1]) < n_valid).float()
     s_p = q8._scale(p.amax(dim=-1, keepdim=True))
@@ -421,6 +495,145 @@ def _scores_in_f64(q, k, v, scale, n_valid):
     acc = torch.matmul(p8.double(), v8.double()).float()
     o = acc * (s_p / p.sum(dim=-1, keepdim=True) * s_v)
     return o.permute(0, 2, 1, 3).contiguous()
+
+
+def _scores_in_f64(q, k, v, scale, n_valid):
+    """The plain K13 with each score summed in f64 and rounded once: the
+    scores of a correct kernel that sums along D in another order."""
+    qf, kf = (t.permute(0, 2, 1, 3) for t in (q, k))
+    s = torch.matmul(qf.double(), kf.double().transpose(-1, -2)).float()
+    return _from_scores(q, k, v, scale, n_valid, s)
+
+
+def _split_tf32(x: torch.Tensor) -> tuple:
+    """big = x rounded to TF32 as cvt.rna.tf32.f32 rounds (to nearest, ties
+    away), small = x - big as the tensor cores read it (its top 19 bits):
+    tf32x3.cuh's split."""
+    bits = x.contiguous().view(torch.int32)
+    big = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    small = ((x - big).contiguous().view(torch.int32)
+             & -0x2000).view(torch.float32)
+    return big, small
+
+
+def _to_f32_rz(x: torch.Tensor) -> torch.Tensor:
+    """float64 x rounded toward zero to f32 (an MMA's sum)."""
+    f = x.float()
+    return torch.where(f.double().abs() > x.abs(),
+                       torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _scores_3xtf32(q, k, fresh: bool) -> torch.Tensor:
+    """Q K^T [B, H, N, N] as K13 f32's scores() takes it on mma.sync: per
+    k8 step small . big, big . small, big . big, each MMA's eight exact
+    products added to its accumulator rounded toward zero; with ``fresh``
+    each step into a fresh accumulator, added to the score in f32 to
+    nearest, else one accumulator over all of D."""
+    qf, kf = (t.permute(0, 2, 1, 3) for t in (q, k))
+    (ab, as_), (bb, bs) = _split_tf32(qf), _split_tf32(kf.transpose(-1, -2))
+    s = torch.zeros(qf.shape[:-1] + (kf.shape[2],))
+    for k0 in range(0, qf.shape[-1], 8):
+        sl = slice(k0, k0 + 8)
+        part = torch.zeros_like(s) if fresh else s
+        for x, y in ((as_, bb), (ab, bs), (ab, bb)):
+            part = _to_f32_rz(part.double()
+                              + x[..., sl].double() @ y[..., sl, :].double())
+        s = s + part if fresh else part
+    return s
+
+
+def _qkv(d: int, seed: int = 67) -> list:
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.standard_normal((1, N, 4, d)),
+                         dtype=torch.float32) for _ in range(3)]
+
+
+@pytest.mark.parametrize("n_valid", [N, 900])
+@pytest.mark.parametrize("d", [64, 128])
+def test_3xtf32_scores_hold_the_row_bound(d, n_valid):
+    """K13 f32's scores modelled in 3xTF32 with a fresh accumulator every
+    k8 step, the rest plain, at N 1001 over 4 heads: the query rows
+    outside F32_TOL (1 + |plain|) within half of hold_int8_attn_f32's
+    allowance, every element within ATOL + RTOL |plain|. Printed beside
+    the rows that scores summed in f64 put outside."""
+    cs = _chip_smoke()
+    q, k, v = _qkv(d)
+    kw = {"scale": d ** -0.5, "n_valid": n_valid}
+    want = q8.int8_flash_attention_plain(q, k, v, **kw)
+    got = _from_scores(q, k, v, s=_scores_3xtf32(q, k, fresh=True), **kw)
+    over = cs.hold_int8_attn_f32("3xTF32, fresh every k8 step", got, want)
+    f64, rows, _ = cs.int8_attn_f32_rows(_scores_in_f64(q, k, v, **kw), want)
+    print(f"\nD {d}, n_valid {n_valid}: 3xTF32 fresh every k8 step {over}, "
+          f"f64 scores {f64} of {rows} rows outside F32_TOL")
+    assert over <= int(cs.INT8_F32_ATTN_ROW_FRAC * rows) // 2
+
+
+# The kernel's window around a code's rounding boundary, as p / s_p = x
+# times it (int8_attention_f32.cu near_boundary).
+RECOMPUTE_WINDOW = 2.0 ** -17
+
+
+@pytest.mark.parametrize("n_valid", [N, 900])
+@pytest.mark.parametrize("d", [64, 128])
+def test_recompute_gives_plain_codes(d, n_valid):
+    """K13 f32's codes from its 3xTF32 scores, with the row max's score and
+    every score whose x = p / s_p lies within x 2^-17 of a half-integer
+    taken again in the plain version's order (modelled by plain's own
+    scores), are attn_codes' p8 and s_p bit for bit, and o holds F32_TOL
+    (1 + |plain|) on every query row. The 3xTF32 x lies within x 2^-18 of
+    plain's, half the window; printed with the share of scores taken
+    again."""
+    cs = _chip_smoke()
+    q, k, v = _qkv(d)
+    scale = d ** -0.5
+    kw = {"scale": scale, "n_valid": n_valid}
+    qf, kf = (t.permute(0, 2, 1, 3) for t in (q, k))
+    valid = torch.arange(N) < n_valid
+
+    def probs(t):
+        p = torch.exp2(torch.clamp(t, -SCORE_CAP, SCORE_CAP))
+        return p * valid.float()
+    t3 = _scores_3xtf32(q, k, fresh=True) * (scale * LOG2E)
+    tp = torch.matmul(qf, kf.transpose(-1, -2)) * (scale * LOG2E)
+    first = torch.where(valid, t3, torch.tensor(-np.inf)).argmax(-1,
+                                                                 keepdim=True)
+    s_p = q8._scale(probs(tp).gather(-1, first))
+    x3 = probs(t3) / s_p
+    near = (x3 - torch.round(x3)).abs() >= 0.5 - x3 * RECOMPUTE_WINDOW
+    p = torch.where(near, probs(tp), probs(t3))
+    x = torch.where(near, probs(tp) / s_p, x3)
+    p8 = torch.clamp(torch.round(x), 0, 127)
+    want_p8, want_v8, want_sp, _, s_v = q8.attn_codes(q, k, v, **kw)
+    assert torch.equal(s_p, want_sp) and torch.equal(p8, want_p8)
+    xp = probs(tp) / s_p
+    live = xp > 0
+    drift = float(((x3 - xp).abs()[live] / xp[live]).max())
+    print(f"\nD {d}, n_valid {n_valid}: |x3 - x| / x at most {drift:.3e}; "
+          f"{float(near.float().mean()):.2e} of the scores taken again")
+    assert drift <= RECOMPUTE_WINDOW / 2
+    acc = torch.matmul(p8.double(), want_v8.double()).float()
+    o = (acc * (s_p / p.sum(dim=-1, keepdim=True) * s_v)).permute(
+        0, 2, 1, 3)
+    want = q8.int8_flash_attention_plain(q, k, v, **kw)
+    assert cs.hold_int8_attn_f32("3xTF32 with the recompute", o, want) == 0
+
+
+@pytest.mark.parametrize("n_valid", [N, 900])
+def test_one_accumulator_fails_the_row_bound(n_valid):
+    """The same scores in one accumulator over D = 128 (an MMA rounds
+    toward zero, so the score drifts one way) put more query rows outside
+    F32_TOL than hold_int8_attn_f32 allows: the bound sees that fault."""
+    cs = _chip_smoke()
+    q, k, v = _qkv(128)
+    kw = {"scale": 128 ** -0.5, "n_valid": n_valid}
+    want = q8.int8_flash_attention_plain(q, k, v, **kw)
+    got = _from_scores(q, k, v, s=_scores_3xtf32(q, k, fresh=False), **kw)
+    over, rows, _ = cs.int8_attn_f32_rows(got, want)
+    print(f"\nD 128, n_valid {n_valid}: one accumulator {over} of {rows} "
+          f"rows outside F32_TOL")
+    assert over > int(cs.INT8_F32_ATTN_ROW_FRAC * rows)
+    with pytest.raises(AssertionError, match="query rows outside"):
+        cs.hold_int8_attn_f32("one accumulator", got, want)
 
 
 @pytest.mark.parametrize("n_valid", [N, 900])
@@ -450,3 +663,20 @@ def test_attn_f32_bound_sees_the_faults(n_valid, variant):
         assert n == rows and over > 10 * allowed, over
         with pytest.raises(AssertionError, match="query rows outside"):
             cs.hold_int8_attn_f32(variant, got, want)
+
+
+def test_variants_script_replaces_text_of_the_source():
+    """Every replacement of scripts/torch_int8_attention_f32_variants.py
+    finds its text in the kernel's source (or tf32x3.cuh), so each variant
+    differs from the design where its name says."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(__file__), "..", "scripts",
+                        "torch_int8_attention_f32_variants.py")
+    spec = importlib.util.spec_from_file_location("k13_variants", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    base = module.sources_of("this")
+    for name in module.VARIANTS:
+        texts = module.sources_of(name)
+        assert (texts != base) == (name != "this"), name
