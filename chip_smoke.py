@@ -448,8 +448,9 @@ KERNELS = [
     ("fused_outproj_bwd_f32",
      "neurovit_tpu_torch/csrc/fused_outproj_bwd_f32.cu",
      "neurovit_tpu/ops/fused_outproj.py:56"),
-    # K8 f32's weight pre-pass (Wout's transpose split for 3xTF32), a
-    # launch of its own wrapper at every K8 f32 call.
+    # The f32 backwards' weight pre-pass (the weight's transpose split for
+    # 3xTF32), a launch of its own wrapper for each weight of every K8 f32
+    # (Wout), K9 f32 (W2, W1) and K7 f32 (Wqkv) call.
     ("fused_outproj_bwd_wsplit_f32",
      "neurovit_tpu_torch/csrc/tf32x3_wgmma.cuh",
      "neurovit_tpu/ops/fused_outproj.py:56"),
@@ -2373,10 +2374,16 @@ def _count_forwards(model) -> list:
 def _check_counts(phase: str, launches: dict, want: dict) -> None:
     """Each kernel's launches in ``phase`` against ``want``; the forwards'
     weight pre-pass is wanted once for each weight of every K2 f32 (Wqkv)
-    and K4 f32 (W1, W2) launch, whatever ``want`` says of it."""
+    and K4 f32 (W1, W2) launch, and the backwards' once for each weight of
+    every K8 f32 (Wout), K7 f32 (Wqkv) and K9 f32 (W2, W1) launch, whatever
+    ``want`` says of them."""
     if "fused_fwd_wsplit_f32" in want:
         want = dict(want, fused_fwd_wsplit_f32=want.get(
             "fused_ln_qkv_f32", 0) + 2 * want.get("fused_mlp_block_f32", 0))
+    if "fused_outproj_bwd_wsplit_f32" in want:
+        want = dict(want, fused_outproj_bwd_wsplit_f32=want.get(
+            "fused_outproj_bwd_f32", 0) + want.get("fused_ln_qkv_bwd_f32", 0)
+            + 2 * want.get("fused_mlp_bwd_f32", 0))
     for name, count in launches.items():
         if count != want[name] or (want[name] and count == 0):
             raise AssertionError(f"{name} launched {count} times in {phase}, "
@@ -3715,7 +3722,10 @@ def _f32_bwd_kernel_checks(card: str) -> dict:
     none), at 130 rows, and on all-zero rows of dy or dqkv, which give
     dattn = 0, dx = 0 and dz = dh = dx = 0 there. Held and timed by
     ``_hold_f32_cases``: each beside f32 torch.mm at its GEMMs or f32
-    SDPA's backward."""
+    SDPA's backward. The backwards' weight pre-pass bit-equal to plain on
+    Wout, W2, W1, Wqkv and two narrow weights. K7, K8 and K9 (3xTF32 on
+    wgmma) by ``_tf32x3_report``: their first output's relative Frobenius
+    error in every case, and their time in turns beside f32 torch.mm."""
     import torch.nn.functional as F
 
     from neurovit_tpu_torch.ops import flash_attention as fa
@@ -3800,12 +3810,14 @@ def _f32_bwd_kernel_checks(card: str) -> dict:
         cases["flash_attention_bwd_f32"].append(
             (f"head dim {d}, batch 2 x 2 heads, dropout {DROPOUT}",
              *attention(*qd, N, **drop)))
-    # K8 f32's weight pre-pass: Wout, the 2D tutorial's and a ragged one.
+    # The backwards' weight pre-pass: Wout, W2, W1, Wqkv, the 2D
+    # tutorial's Wout and a ragged weight.
     cases["fused_outproj_bwd_wsplit_f32"] = [
-        (f"Wout [{a.shape[0]}, {a.shape[1]}]",
+        (f"{name} [{a.shape[0]}, {a.shape[1]}]",
          lambda a=a: tf32x3.split_t_cuda(a),
          lambda a=a: tf32x3.split_t_plain(a))
-        for a in (wout, w(64, 64), w(48, 80))]
+        for name, a in (("Wout", wout), ("W2", w2), ("W1", w1),
+                        ("Wqkv", wqkv), ("W", w(64, 64)), ("W", w(48, 80)))]
 
     def zero_rows(name, label, got):
         if not label.startswith("zero rows"):
@@ -3856,14 +3868,19 @@ def _f32_bwd_kernel_checks(card: str) -> dict:
                    cases["fused_outproj_bwd_f32"], outproj(dy)[0],
                    library["fused_outproj_bwd_f32"], "f32 torch.mm(dy, Wout)",
                    2 * m * DIM * inner, card)
+    for name, library_name in (
+            ("fused_mlp_bwd_f32", "f32 torch.mm at its two GEMMs"),
+            ("fused_ln_qkv_bwd_f32", "f32 torch.mm at its GEMM")):
+        _tf32x3_report(f"(d) {name}", "dx", cases[name], cases[name][0][1],
+                       library[name], library_name, work[name][1], card)
     return stats
 
 
 def _tf32x3_report(name: str, output: str, cases: list, kernel, library,
                    library_name: str, flop: int, card: str,
                    mma_sync: bool = False) -> None:
-    """An f32 kernel in 3xTF32 (K1 and K6 on mma.sync, K2, K4 and K8 on
-    wgmma): its
+    """An f32 kernel in 3xTF32 (K1 and K6 on mma.sync, K2, K4, K7, K8 and
+    K9 on wgmma): its
     first output's relative Frobenius error against plain in each of its
     cases, held below F32_CAM_RTOL; then ``kernel`` at the flagship block
     and the same function's (or K8's GEMM's) PyTorch call ``library``
@@ -5185,8 +5202,12 @@ def f32_phase(config, ckpt: str, workdir: str, card: str,
     torch.cuda.empty_cache()
     smoke = smoke_cli(config, workdir, counters, "f32", phase)
     f32_counts = [smoke[name] for name in F32_KERNELS]
-    backward = {smoke[name] for name in F32_BACKWARD_KERNELS}
-    if (0 in f32_counts or len(backward) != 1 or backward.pop() % 2
+    # Each block's backward launches K5, K7, K8 and K9 at f32 once and the
+    # backwards' weight pre-pass four times (Wout, Wqkv, W2, W1).
+    backward = {smoke[name] for name in F32_BACKWARD_KERNELS
+                if name != "fused_outproj_bwd_wsplit_f32"}
+    if (0 in f32_counts or len(backward) != 1 or min(backward) % 2
+            or smoke["fused_outproj_bwd_wsplit_f32"] != 4 * min(backward)
             or any(n for name, n in smoke.items() if name not in F32_KERNELS)):
         raise AssertionError(f"the f32 smoke CLI run launched {smoke}")
     torch.cuda.empty_cache()

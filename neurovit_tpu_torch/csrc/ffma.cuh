@@ -1,8 +1,7 @@
 // The pieces the f32 kernels of the ViT block share on the CUDA cores
-// (FFMA): K3's forward (fused_outproj_f32.cu), the backwards' GEMMs of K7
-// and K9 (fused_qkv_bwd_f32.cu, fused_mlp_bwd_f32.cu, ffma_ln_bwd.cuh), and
-// the row passes of ffma.cu (the LayerNorm rows K2 and K4 at f32 run
-// first, the dz rows of K8 and K9).
+// (FFMA): K3's forward GEMM (fused_outproj_f32.cu), and the row passes of
+// ffma.cu (the LayerNorm rows K2 and K4 at f32 run first, the row
+// statistics of K7 at f32, the dz rows of K8 and K9 at f32).
 //
 // Why not the tensor cores everywhere: wgmma has no f32 form, and one TF32
 // product keeps 10 mantissa bits (about three digits), too few for the JAX
@@ -12,20 +11,18 @@
 // accuracy at up to 165 TFLOP/s: the attention forward and backward
 // (flash_attention_f32.cu, flash_attention_bwd_f32.cu: K1, K5 and K6 at
 // f32) take them on mma.sync (tf32x3.cuh), whose fragments the threads
-// load in any layout; K8's GEMM (dz . Wout), K4's fc1 and fc2 and K2's QKV
-// product take them on wgmma (tf32x3_wgmma.cuh), which takes TF32 operands
-// K-major only, after a pre-pass writes each weight split (Wout turned,
-// W1, W2 and Wqkv as they lie). The GEMMs here do not yet: K3's is the
-// smallest forward GEMM, and the other backwards' weights ([K, N] as they
-// lie) are not K-major, so they need K8's transposing pre-pass; that is
-// the next speed work (ROADMAP). So these f32 kernels are bounded by the
-// card's 67 TFLOP/s of f32 FFMA.
+// load in any layout; the other GEMMs of the forwards (K4's fc1 and fc2,
+// K2's QKV product) and of the backwards (K8's dattn, K9's hidden GEMM,
+// the du GEMM of K7 and K9) take them on wgmma (tf32x3_wgmma.cuh,
+// tf32x3_ln_bwd.cuh), which takes TF32 operands K-major only, after a
+// pre-pass writes each weight split (W1, W2 and Wqkv as they lie for the
+// forwards, turned for the backwards). K3's GEMM, the smallest forward
+// one, does not yet (ROADMAP): it is bounded by the card's 67 TFLOP/s of
+// f32 FFMA.
 //
 // gemm_kernel: C[M, N] = A[M, K] . B[N, K]^T for row-major A and B (the
-// activations and a torch Linear weight as they lie: K3), or,
-// with kBKn, C = A . B for B [K, N] row-major (the weight as it lies in
-// the backwards' products dqkv . Wqkv, dz . W2 and dh . W1),
-// K % 16 == 0, N % 4 == 0, any M. One block of 256 threads computes a 128 x 128 tile of C:
+// activations and a torch Linear weight as they lie: K3), K % 16 == 0,
+// N % 4 == 0, any M. One block of 256 threads computes a 128 x 128 tile of C:
 // eight warps of 32 x 64 (4 x 2), a warp's lanes 4 (rows) x 8 (columns),
 // 8 x 8 outputs a thread (rows wm*32 + ly*4 + 16 i4 + i, columns wn*64 +
 // lx*4 + 32 j4 + j). A k step reads two 16-byte vectors of A (the four
@@ -36,12 +33,9 @@
 // 32 contiguous bytes each, into 32 different banks; a thread's eight
 // copies are one pointer plus constant steps. Two slices: the copy of
 // slice s + 1 runs under the products of slice s, one __syncthreads a
-// slice. A 16-deep slice of B [K, N] is k-major as it lies: a thread
-// copies two 16-byte vectors of it (stage_slice_kn), a warp one k row's
-// 512 contiguous bytes. Rows past M and past N are zero-filled by the copy
-// (src-size 0); the epilogue gets float4s of C at (row < M, col < N, col %
-// 4 == 0) and does the rest (tile_products is the mainloop alone, for a
-// kernel with an epilogue of its own: ffma_ln_bwd.cuh).
+// slice. Rows past M and past N are zero-filled by the copy (src-size 0);
+// the epilogue gets float4s of C at (row < M, col < N, col % 4 == 0) and
+// does the rest.
 //
 // Registers bound the design. Two blocks an SM (__launch_bounds__(256,
 // 2)) leave a thread 128 registers for 64 accumulators, 16 operands, the
@@ -52,7 +46,8 @@
 // each copy's address computed apart, ptxas spilled 84-156 bytes at 128,
 // and took 168-195 registers and one block an SM when allowed more.
 // Threads of 16 x 8 outputs (128 a block) ran the plain store epilogue up
-// to 5 % faster but took 228 registers and lost with K4's epilogues;
+// to 5 % faster but took 228 registers and lost with the epilogues of
+// K4's first design;
 // 8-deep slices, three or four in flight, 128 x 256 tiles and loads
 // staged through registers were no faster
 // (scripts/torch_ffma_tile_sweep.py, PERF.md).
@@ -145,27 +140,8 @@ __device__ __forceinline__ void stage_slice(float* xs, const float* x, int r0,
   }
 }
 
-// Copy the 16-deep slice k0 of the 128-column tile at column c0 of X [K,
-// N] (row-major, N % 4 == 0) into Xs[k][c], as it lies. Copy c of thread t
-// takes the 16-byte vector idx = t + 256 c: k = idx / 32 = t / 32 + 8 c,
-// columns 4 (idx % 32) = 4 (t % 32) .. + 3; a warp writes one k row's 512
-// contiguous bytes, each quarter warp 128 of them in 32 banks. Vectors
-// past N are zero-filled.
-__device__ __forceinline__ void stage_slice_kn(float* xs, const float* x,
-                                               int c0, int N, int k0) {
-  static_assert(kBK == 2 * kThreads / 32 && kTile == 4 * 32,
-                "two 16-byte copies a thread");
-  const int k = threadIdx.x >> 5, c = 4 * (threadIdx.x & 31);
-  const bool valid = c0 + c < N;
-  const float* src = x + static_cast<size_t>(k0 + k) * N + c0 + c;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    cp_async16(xs + (k + 8 * i) * kLd + c,
-               valid ? src + static_cast<size_t>(8 * i) * N : x, valid);
-}
-
-// The products of the 128 x 128 tile of C = A . B^T (A . B with kBKn) at
-// (m0, n0), into acc, which they zero first. acc[i][j] is C at row rb +
+// The products of the 128 x 128 tile of C = A . B^T at (m0, n0), into
+// acc, which they zero first. acc[i][j] is C at row rb +
 // (i & 3) + 16 (i >> 2), column cb + (j & 3) + 32 (j >> 2), where rb =
 // wm*32 + ly*4 and cb = wn*64 + lx*4 for warp (wm, wn) = (w & 3, w >> 2)
 // and lane (ly, lx) = (l >> 3, l & 7) (warp_tile_origin). smem: kSmemBytes.
@@ -177,7 +153,6 @@ __device__ __forceinline__ int2 warp_tile_origin() {
                    (w / kWarpsM) * 8 * kTN + (l & 7) * 4);
 }
 
-template <bool kBKn>
 __device__ __forceinline__ void tile_products(
     const float* __restrict__ A, const float* __restrict__ B, int M, int N,
     int K, int m0, int n0, int rb, int cb, float* smem,
@@ -189,12 +164,6 @@ __device__ __forceinline__ void tile_products(
   for (int i = 0; i < kTM; ++i)
 #pragma unroll
     for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-  auto stage_b = [&](float* to, int k0) {
-    if constexpr (kBKn)
-      stage_slice_kn(to, B, n0, N, k0);
-    else
-      stage_slice(to, B, n0, N, K, k0);
-  };
   // The products of one staged slice, a float4 of A's rows and of B's
   // columns at a time.
   auto slice_products = [&](const float* a, const float* b) {
@@ -230,7 +199,7 @@ __device__ __forceinline__ void tile_products(
   // test written out.
   if (slices > 0) {
     stage_slice(as, A, m0, M, K, 0);
-    stage_b(bs, 0);
+    stage_slice(bs, B, n0, N, K, 0);
   }
   cp_async_commit();
   for (int s = 0; s < slices; ++s) {
@@ -240,17 +209,16 @@ __device__ __forceinline__ void tile_products(
     __syncthreads();
     if (s + 1 < slices) {
       stage_slice(as + ((s + 1) & 1) * kSlice, A, m0, M, K, (s + 1) * kBK);
-      stage_b(bs + ((s + 1) & 1) * kSlice, (s + 1) * kBK);
+      stage_slice(bs + ((s + 1) & 1) * kSlice, B, n0, N, K, (s + 1) * kBK);
     }
     cp_async_commit();
     slice_products(as + (s & 1) * kSlice, bs + (s & 1) * kSlice);
   }
 }
 
-// One block a 128 x 128 tile of C = A . B^T (A . B with kBKn) at grid
-// (column tile, row tile); epi(row, col, float4) for every float4 of C
-// inside [M, N].
-template <typename Epi, bool kBKn>
+// One block a 128 x 128 tile of C = A . B^T at grid (column tile, row
+// tile); epi(row, col, float4) for every float4 of C inside [M, N].
+template <typename Epi>
 __global__ void __launch_bounds__(kThreads, 2)
     gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
                 int M, int N, int K, Epi epi) {
@@ -259,7 +227,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int2 o = warp_tile_origin();
   const int rb = o.x, cb = o.y;
   float acc[kTM][kTN];
-  tile_products<kBKn>(A, B, M, N, K, m0, n0, rb, cb, smem, acc);
+  tile_products(A, B, M, N, K, m0, n0, rb, cb, smem, acc);
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
     const int row = m0 + rb + (i & 3) + 16 * (i >> 2);
@@ -274,15 +242,15 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// B [N, K] (K3), or B [K, N] with kBKn (the backwards).
-template <bool kBKn = false, typename Epi>
+// B [N, K], a torch Linear weight as it lies (K3).
+template <typename Epi>
 cudaError_t launch_gemm(const float* A, const float* B, int M, int N, int K,
                         const Epi& epi, cudaStream_t stream) {
-  cudaError_t err = allow_smem(gemm_kernel<Epi, kBKn>, kSmemBytes);
+  cudaError_t err = allow_smem(gemm_kernel<Epi>, kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
-  gemm_kernel<Epi, kBKn><<<grid, kThreads, kSmemBytes, stream>>>(A, B, M, N,
-                                                                 K, epi);
+  gemm_kernel<Epi><<<grid, kThreads, kSmemBytes, stream>>>(A, B, M, N, K,
+                                                           epi);
   return cudaGetLastError();
 }
 

@@ -1,9 +1,9 @@
 // The row passes of the LayerNorm data-grad backward that follow its du
 // GEMM, instanced on the element type of x, dy and dx: bf16 behind the
-// wgmma du pass of K7 and K9 (ln_bwd.cuh), f32 behind the FFMA du pass of
-// K7 and K9 at f32 (ffma_ln_bwd.cuh). Both read du [M, dim] f32, each
-// row's (mean, rstd) and the du pass's partial sums from the caller's
-// scratch:
+// wgmma du pass of K7 and K9 (ln_bwd.cuh), f32 behind the 3xTF32 wgmma du
+// pass of K7 and K9 at f32 (tf32x3_ln_bwd.cuh). Both read du [M, dim] f32,
+// each row's (mean, rstd) and the du pass's partial sums from the
+// caller's scratch:
 //   ln_bwd: one warp a row, its two sums from the du pass's column parts
 //           in part order, then one sweep over the row.
 //   colsum: dgamma and dbeta from the du pass's row parts, each warp a

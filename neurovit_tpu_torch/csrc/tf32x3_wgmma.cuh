@@ -1,18 +1,21 @@
 // f32 GEMMs on the tensor cores by 3xTF32 on wgmma, for sm_90a: the
-// mainloop of K8's f32 backward (fused_outproj_bwd_f32.cu, dattn = dz .
-// Wout), of K4's f32 fc1 and fc2 (fused_mlp_f32.cu) and K2's f32 QKV
-// product (fused_qkv_f32.cu), and their weight pre-passes.
+// mainloop of K4's f32 fc1 and fc2 (fused_mlp_f32.cu) and K2's f32 QKV
+// product (fused_qkv_f32.cu), of the f32 backwards' products K8's dattn =
+// dz . Wout (fused_outproj_bwd_f32.cu), K9's da = dz . W2
+// (fused_mlp_bwd_f32.cu) and the du GEMM dh . W1 or dqkv . Wqkv of K9 and
+// K7 (tf32x3_ln_bwd.cuh), and their weight pre-passes.
 //
 // Loop<kStages, kFreshStages>::run computes the 128 x 128 tile at (m0,
 // n0) of A [M, K] . Bt^T in f32 from three K-major f32 operands in device
-// memory: A [M, K] as it is (dz, u or g), and Bt [N, K] already split into
-// Bt_big and Bt_small by a pre-pass (big = rna_tf32(w) and small = w -
-// big, tf32x3.cuh's split, both [N, K]). wgmma takes TF32 operands K-major
-// only. The forwards' weights W1, W2 and Wqkv are torch Linear weights
-// [N, K], K-major for their products as they lie: split_kernel splits
-// them element by element. K8's Wout [K, N] is MN-major for its product:
-// split_t_kernel turns it once a call. Weights change with every
-// optimizer step, so nothing is kept across calls.
+// memory: A [M, K] as it is (u, g, dz, dh or dqkv), and Bt [N, K] already
+// split into Bt_big and Bt_small by a pre-pass (big = rna_tf32(w) and
+// small = w - big, tf32x3.cuh's split, both [N, K]). wgmma takes TF32
+// operands K-major only. The forwards' weights W1, W2 and Wqkv are torch
+// Linear weights [N, K], K-major for their products as they lie:
+// split_kernel splits them element by element. The backwards contract a
+// weight's out dimension (Wout, W2, W1, Wqkv [K, N]), MN-major for their
+// products: split_t_kernel turns each once a call. Weights change with
+// every optimizer step, so nothing is kept across calls.
 //
 // Each operand has an f32 tensor map (encode_kmajor_f32) whose box is 128
 // bytes of K -- 32 f32 -- by 128 rows, loaded with the 128-byte swizzle;

@@ -22,10 +22,10 @@ CPU tensors run the ``*_plain`` functions; bf16 CUDA tensors run
 :func:`mlp_f32_plan`: the weight pre-pass of :mod:`.tf32x3` on W1 and W2,
 the LayerNorm rows, then fc1 and fc2 in 3xTF32 on ``wgmma``,
 ``csrc/tf32x3_wgmma.cuh``) and ``csrc/fused_mlp_bwd_f32.cu`` (K9 at f32,
-:func:`mlp_bwd_f32_plan`: the same passes in f32 on the CUDA cores,
-through ``csrc/ffma.cuh``'s GEMM, the last three
-(:func:`ln_bwd_f32_passes`, ``csrc/ffma_ln_bwd.cuh``) shared with K7 at
-f32). K4 runs in
+:func:`mlp_bwd_f32_plan`: the transposing weight pre-pass of
+:mod:`.tf32x3` on W2 and W1, then the same passes with both GEMMs in
+3xTF32 on ``wgmma``, the last three (:func:`ln_bwd_f32_passes`,
+``csrc/tf32x3_ln_bwd.cuh``) shared with K7 at f32). K4 runs in
 three launches (:func:`mlp_plan`): LN rows into u, fc1 with bias, GELU
 and the hidden mask in its epilogue into g, fc2 with bias, the output
 mask and the residual; u and g go through one scratch allocation. K9 runs in five (:func:`mlp_bwd_plan`): dz, u and each row's
@@ -68,9 +68,9 @@ GEMM_THREADS = 2 * 128 + 32
 SUM_COLUMNS, SUM_WARPS = 32, 8
 
 
-# The f32 GEMM on the CUDA cores (csrc/ffma.cuh; K3 f32 and the backwards
-# K7 and K9 at f32): output tile rows and columns, the depth of a staged k
-# slice, the slices in flight, and its threads.
+# The f32 GEMM on the CUDA cores (csrc/ffma.cuh; K3 f32): output tile
+# rows and columns, the depth of a staged k slice, the slices in flight,
+# and its threads.
 F32_TILE, F32_BK, F32_STAGES, F32_THREADS = 128, 16, 2, 256
 
 
@@ -178,13 +178,13 @@ def check_bwd_shapes(dim: int, hid: int) -> None:
 
 class MlpBwdPlan(NamedTuple):
     """How one K9 call covers m rows of width dim with mlp_dim hid.
-    ``launches``: the five kernels in launch order, each (name, grid,
-    threads, dynamic shared memory bytes), a grid (x, y). ``scratch``: the
-    pieces of the one scratch allocation, name -> (byte offset, bytes), in
-    ``scratch_bytes`` bytes: du [m, dim] f32, each row's (mean, rstd) as
-    two f32, the du pass's row partials of sum(du gamma) and sum(du gamma
-    xhat), [2, m, column tiles] f32, and its column partials of dgamma and
-    dbeta, [2, row tiles, dim] f32."""
+    ``launches``: the kernels in launch order (five; seven at f32), each
+    (name, grid, threads, dynamic shared memory bytes), a grid (x, y).
+    ``scratch``: the pieces of the one scratch allocation, name -> (byte
+    offset, bytes), in ``scratch_bytes`` bytes: du [m, dim] f32, each
+    row's (mean, rstd) as two f32, the du pass's row partials of sum(du
+    gamma) and sum(du gamma xhat), [2, m, column tiles] f32, and its
+    column partials of dgamma and dbeta, [2, row tiles, dim] f32."""
     launches: tuple
     scratch: dict
     scratch_bytes: int
@@ -226,18 +226,18 @@ def _ln_bwd_tail(du: tuple, m: int, dim: int, col_parts: int,
 
 
 def ln_bwd_f32_passes(m: int, dim: int) -> tuple:
-    """The passes K9 and K7 at f32 share (csrc/ffma_ln_bwd.cuh) for m rows
-    of width dim: (launches, scratch, scratch_bytes), as
-    :func:`ln_bwd_passes`. ``launches``: the du GEMM on the f32 GEMM's 128
-    x 128 tiles with the LayerNorm backward's partial sums in its epilogue,
-    the LayerNorm backward rows and the column sums. ``scratch``: du [m,
-    dim] f32, each row's (mean, rstd), the du pass's row partials [2, m,
-    column parts] f32 (two parts a column tile, a warp's 64 columns each)
-    and its column partials [2, row parts, dim] f32 (four parts a row
-    tile, a warp's 32 rows each), each on a 256-byte boundary. The
-    kernels' own count is ``nvt_ln_bwd_f32_scratch_bytes``."""
-    return _ln_bwd_tail(f32_gemm_launch("du", m, dim), m, dim,
-                        2 * -(-dim // F32_TILE), 4 * -(-m // F32_TILE))
+    """The passes K9 and K7 at f32 share (csrc/tf32x3_ln_bwd.cuh) for m
+    rows of width dim: (launches, scratch, scratch_bytes), as
+    :func:`ln_bwd_passes`. ``launches``: the du GEMM in 3xTF32 on
+    ``wgmma`` on 128 x 128 tiles (:func:`.tf32x3.gemm_launch`) with the
+    LayerNorm backward's partial sums in its epilogue, the LayerNorm
+    backward rows and the column sums. ``scratch``: du [m, dim] f32, each
+    row's (mean, rstd), the du pass's row partials [2, m, column tiles]
+    f32 and its column partials [2, row tiles, dim] f32, each on a
+    256-byte boundary. The kernels' own count is
+    ``nvt_ln_bwd_f32_scratch_bytes``."""
+    return _ln_bwd_tail(tf32x3.gemm_launch("du", m, dim), m, dim,
+                        -(-dim // tf32x3.TILE), -(-m // tf32x3.TILE))
 
 
 def mlp_bwd_plan(m: int, dim: int, hid: int) -> MlpBwdPlan:
@@ -260,18 +260,25 @@ def mlp_bwd_plan(m: int, dim: int, hid: int) -> MlpBwdPlan:
 
 
 def mlp_bwd_f32_plan(m: int, dim: int, hid: int) -> MlpBwdPlan:
-    """K9 f32's plan for m rows: dz rows (u, the statistics and, at
-    dropout > 0, dz), the hidden GEMM on the f32 GEMM's tiles over the
-    [m, hid] output with a and dh in its epilogue, then
-    :func:`ln_bwd_f32_passes`. The widths K9 takes, the same as bf16's.
-    Raises where the kernel does not take them."""
+    """K9 f32's plan for m rows, its launches in order: the weight
+    pre-pass on W2 [dim, hid] and on W1 [hid, dim]
+    (:func:`.tf32x3.split_t_launch`, each of its own wrapper: both
+    products contract the weight's out dimension, so each is turned), dz
+    rows (u, the statistics and, at dropout > 0, dz), the hidden GEMM in
+    3xTF32 on ``wgmma`` on 128 x 128 tiles over the [m, hid] output with a
+    and dh in its epilogue (:func:`.tf32x3.gemm_launch`; the kernel's own
+    count of the shared memory is ``nvt_fused_mlp_f32_bwd_smem_bytes``),
+    then :func:`ln_bwd_f32_passes`. The widths K9 takes, the same as
+    bf16's. Raises where the kernel does not take them."""
     check_bwd_shapes(dim, hid)
     if m < 1:
         raise ValueError(f"the MLP backward kernel takes at least one row, "
                          f"got {m}")
     tail, scratch, nbytes = ln_bwd_f32_passes(m, dim)
-    launches = (("dz_rows", (-(-m // ROW_WARPS), 1), ROW_WARPS * 32, 0),
-                f32_gemm_launch("hidden", m, hid)) + tail
+    launches = (tf32x3.split_t_launch(dim, hid, "wsplit_w2"),
+                tf32x3.split_t_launch(hid, dim, "wsplit_w1"),
+                ("dz_rows", (-(-m // ROW_WARPS), 1), ROW_WARPS * 32, 0),
+                tf32x3.gemm_launch("hidden", m, hid)) + tail
     return MlpBwdPlan(launches=launches, scratch=scratch,
                       scratch_bytes=nbytes)
 
@@ -469,10 +476,11 @@ fused_mlp_bwd_cuda.launches = 0
 
 def fused_mlp_bwd_f32_cuda(dy, x, h, gamma, beta, w1, w2, *,
                            dropout_rate: float = 0.0, seeds: Seeds = (0, 0)):
-    """Launch K9 at f32 (:func:`mlp_bwd_f32_plan`) on f32 operands: exact
-    f32 products on the CUDA cores; returns (dx, u, a, dz, dh, dgamma,
-    dbeta) in f32. At dropout 0 dz is dy itself, the plain version's
-    values."""
+    """Launch K9 at f32 (:func:`mlp_bwd_f32_plan`) on f32 operands: W2's
+    and W1's split transposes by the pre-pass (:func:`.tf32x3.split_t_cuda`,
+    which counts its own launches), then the f32 products in 3xTF32 on the
+    tensor cores; returns (dx, u, a, dz, dh, dgamma, dbeta) in f32. At
+    dropout 0 dz is dy itself, the plain version's values."""
     b, n, dim = x.shape
     hid = w1.shape[0]
     m = b * n
@@ -488,12 +496,15 @@ def fused_mlp_bwd_f32_cuda(dy, x, h, gamma, beta, w1, w2, *,
     dgb = torch.empty((2, dim), dtype=torch.float32, device=x.device)
     scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
                           device=x.device)
+    w2t_big, w2t_small = tf32x3.split_t_cuda(w2f)
+    w1t_big, w1t_small = tf32x3.split_t_cuda(w1f)
     launch("nvt_fused_mlp_f32_bwd",
-           (VOID,) * 15 + (INT, INT, INT, FLOAT, FLOAT, INT, U64, U64), x,
+           (VOID,) * 17 + (INT, INT, INT, FLOAT, FLOAT, INT, U64, U64), x,
            ptr(dy), ptr(x), ptr(h), ptr(vecs["gamma"]), ptr(vecs["beta"]),
-           ptr(w1f), ptr(w2f), ptr(dx), ptr(u), ptr(a), ptr(dz), ptr(dh),
-           ptr(dgb[0]), ptr(dgb[1]), ptr(scratch), m, dim, hid, nn.LN_EPS,
-           inv_keep, keep_q, int(seeds[0]), int(seeds[1]))
+           ptr(w2t_big), ptr(w2t_small), ptr(w1t_big), ptr(w1t_small),
+           ptr(dx), ptr(u), ptr(a), ptr(dz), ptr(dh), ptr(dgb[0]),
+           ptr(dgb[1]), ptr(scratch), m, dim, hid, nn.LN_EPS, inv_keep,
+           keep_q, int(seeds[0]), int(seeds[1]))
     fused_mlp_bwd_f32_cuda.launches += 1
     dz = dy if dz is None else dz
     return (dx, u.reshape(m, dim), a, dz.reshape(m, dim), dh, dgb[0],

@@ -28,9 +28,9 @@ scratch allocation. Both take dim and heads * dim_head as multiples of
 f32, :func:`qkv_f32_plan`: the weight pre-pass of :mod:`.tf32x3` on
 Wqkv, the LayerNorm rows, then the QKV GEMM in 3xTF32 on ``wgmma``,
 ``csrc/tf32x3_wgmma.cuh``) and ``csrc/fused_qkv_bwd_f32.cu`` (K7 at f32,
-:func:`qkv_bwd_f32_plan`: the same passes in f32 on the CUDA cores,
-through ``csrc/ffma.cuh``'s GEMM, the last three K9 f32's,
-``csrc/ffma_ln_bwd.cuh``).
+:func:`qkv_bwd_f32_plan`: the transposing weight pre-pass of
+:mod:`.tf32x3` on Wqkv, then the same passes with the du GEMM in 3xTF32
+on ``wgmma``, the last three K9 f32's, ``csrc/tf32x3_ln_bwd.cuh``).
 """
 
 from __future__ import annotations
@@ -134,9 +134,10 @@ def check_bwd_shapes(dim: int, inner: int) -> None:
 
 class QkvBwdPlan(NamedTuple):
     """How one K7 call covers m rows of width dim with heads * dim_head =
-    inner. ``launches``: the four kernels in launch order, each (name,
-    grid, threads, dynamic shared memory bytes), a grid (x, y): the row
-    statistics, then :func:`~neurovit_tpu_torch.ops.fused_mlp.ln_bwd_passes`
+    inner. ``launches``: the kernels in launch order (four; five at f32,
+    the weight pre-pass first), each (name, grid, threads, dynamic shared
+    memory bytes), a grid (x, y): the row statistics, then
+    :func:`~neurovit_tpu_torch.ops.fused_mlp.ln_bwd_passes`
     (the du GEMM over K = 3 inner, the LayerNorm backward rows, the column
     sums). ``scratch``: the pieces of the one scratch allocation, name ->
     (byte offset, bytes), in ``scratch_bytes`` bytes: du [m, dim] f32, each
@@ -164,17 +165,22 @@ def qkv_bwd_plan(m: int, dim: int, inner: int) -> QkvBwdPlan:
 
 
 def qkv_bwd_f32_plan(m: int, dim: int, inner: int) -> QkvBwdPlan:
-    """K7 f32's plan for m rows: the row statistics (K2 f32's), then
+    """K7 f32's plan for m rows: the weight pre-pass on Wqkv [3 inner,
+    dim] (:func:`.tf32x3.split_t_launch`, of its own wrapper: du
+    contracts Wqkv's out dimension, so it is turned), the row statistics
+    (K2 f32's), then
     :func:`~neurovit_tpu_torch.ops.fused_mlp.ln_bwd_f32_passes` (the du
-    GEMM over K = 3 inner on the f32 GEMM's tiles, the LayerNorm backward
-    rows, the column sums). The widths K7 takes, the same as bf16's.
-    Raises where the kernel does not take them."""
+    GEMM over K = 3 inner in 3xTF32 on ``wgmma``, its shared memory
+    ``nvt_fused_ln_qkv_f32_bwd_smem_bytes``, the LayerNorm backward rows,
+    the column sums). The widths K7 takes, the same as bf16's. Raises
+    where the kernel does not take them."""
     check_bwd_shapes(dim, inner)
     if m < 1:
         raise ValueError(f"the LN+QKV backward kernel takes at least one "
                          f"row, got {m}")
     tail, scratch, nbytes = ln_bwd_f32_passes(m, dim)
-    launches = (("row_stats", (-(-m // ROW_WARPS), 1), ROW_WARPS * 32, 0),
+    launches = (tf32x3.split_t_launch(3 * inner, dim, "wsplit_wqkv"),
+                ("row_stats", (-(-m // ROW_WARPS), 1), ROW_WARPS * 32, 0),
                 ) + tail
     return QkvBwdPlan(launches=launches, scratch=scratch,
                       scratch_bytes=nbytes)
@@ -307,8 +313,10 @@ fused_ln_qkv_bwd_cuda.launches = 0
 
 def fused_ln_qkv_bwd_f32_cuda(dqkv, x, gamma, w_qkv):
     """Launch K7 at f32 (:func:`qkv_bwd_f32_plan`) on f32 dqkv = [dq | dk |
-    dv] [B, N, 3 * inner] and x: exact f32 products on the CUDA cores;
-    returns dx, dgamma and dbeta, f32."""
+    dv] [B, N, 3 * inner] and x: Wqkv's split transpose by the pre-pass
+    (:func:`.tf32x3.split_t_cuda`, which counts its own launch), then the
+    f32 products in 3xTF32 on the tensor cores; returns dx, dgamma and
+    dbeta, f32."""
     b, n, dim = x.shape
     inner = dqkv.shape[-1] // 3
     w, vecs = _operands(x, w_qkv, inner, torch.float32, gamma=gamma)
@@ -319,9 +327,11 @@ def fused_ln_qkv_bwd_f32_cuda(dqkv, x, gamma, w_qkv):
     dgb = torch.empty((2, dim), dtype=torch.float32, device=x.device)
     scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
                           device=x.device)
-    launch("nvt_fused_ln_qkv_f32_bwd", (VOID,) * 8 + (INT, INT, INT, FLOAT),
-           x, ptr(dqkv), ptr(x), ptr(vecs["gamma"]), ptr(w), ptr(dx),
-           ptr(dgb[0]), ptr(dgb[1]), ptr(scratch), m, dim, inner, nn.LN_EPS)
+    wt_big, wt_small = tf32x3.split_t_cuda(w)
+    launch("nvt_fused_ln_qkv_f32_bwd", (VOID,) * 9 + (INT, INT, INT, FLOAT),
+           x, ptr(dqkv), ptr(x), ptr(vecs["gamma"]), ptr(wt_big),
+           ptr(wt_small), ptr(dx), ptr(dgb[0]), ptr(dgb[1]), ptr(scratch), m,
+           dim, inner, nn.LN_EPS)
     fused_ln_qkv_bwd_f32_cuda.launches += 1
     return dx, dgb[0], dgb[1]
 

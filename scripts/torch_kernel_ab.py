@@ -54,14 +54,21 @@ one's the weight pre-pass's split transpose; and K4 and K2 at f32 through
 ``k2_f32_call`` of ``scripts/torch_qkv_device_times.py``: an older
 ``nvt_fused_mlp_f32_fwd`` / ``nvt_fused_ln_qkv_f32_fwd`` (the FFMA
 design) takes the weights themselves, this one's their split by the
-forwards' pre-pass. A kernel whose entry point the other checkout lacks is timed in
-this one alone (the median of 2 x ``--rounds`` turns).
+forwards' pre-pass; and K9 and K7 at f32 through ``k9_f32_call`` of
+``scripts/torch_mlp_bwd_device_times.py`` and ``k7_f32_call`` of
+``scripts/torch_qkv_bwd_device_times.py`` (K9 also at dropout 0): an
+older ``nvt_fused_mlp_f32_bwd`` / ``nvt_fused_ln_qkv_f32_bwd`` (the FFMA
+design) takes the weights themselves, this one's their split transposes
+by the backwards' pre-pass. A kernel whose entry point the other
+checkout lacks is timed in this one alone (the median of 2 x
+``--rounds`` turns).
 
 With ``--step``, the flagship's f32 train step at batch 32 is timed too
 (``chip_smoke.py``'s (f): its seeded volumes, dropout 0.1, one fixed
 batch), with each library behind the kernels in the same turns, each
-turn the median of 5 steps after 2 (K8, K4 and K2 at f32 through
-``k8_f32_call``, ``k4_f32_call`` and ``k2_f32_call``).
+turn the median of 5 steps after 2 (K8, K4, K2, K9 and K7 at f32 through
+``k8_f32_call``, ``k4_f32_call``, ``k2_f32_call``, ``k9_f32_call`` and
+``k7_f32_call``).
 
     python scripts/torch_kernel_ab.py --other <checkout> [--rounds 10]
         [--only <substring of a kernel's name>] [--batch 8] [--step]
@@ -90,8 +97,10 @@ from neurovit_tpu_torch.ops import (fused_mlp, fused_outproj,  # noqa: E402
                                     fused_qkv, int8_serving, maxpool3d)
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_mlp_bwd_device_times import k9_f32_call  # noqa: E402
 from torch_mlp_device_times import k4_f32_call  # noqa: E402
 from torch_outproj_device_times import k8_f32_call  # noqa: E402
+from torch_qkv_bwd_device_times import k7_f32_call  # noqa: E402
 from torch_qkv_device_times import k2_f32_call  # noqa: E402
 
 
@@ -433,13 +442,15 @@ def cases(b: int = cs.B) -> dict:
                 fa.flash_attention_bhnd_bwd_f32_cuda(*trf0, lsumf0,
                                                      **att0))),
         "fused_ln_qkv_bwd_f32": ("nvt_fused_ln_qkv_f32_bwd", lambda: (
-            fused_qkv.fused_ln_qkv_bwd_f32_cuda(dqkvf, xf, ln[0], wqkv))),
+            k7_f32_call(dqkvf, xf, ln[0], wqkv))),
         "fused_outproj_bwd_f32": ("nvt_fused_outproj_f32_bwd", lambda: (
             k8_f32_call(dyf, wout, cs.DROPOUT, 1234))),
         "fused_outproj_bwd_f32 dropout 0": (
             "nvt_fused_outproj_f32_bwd", lambda: k8_f32_call(dyf, wout)),
         "fused_mlp_bwd_f32": ("nvt_fused_mlp_f32_bwd", lambda: (
-            fused_mlp.fused_mlp_bwd_f32_cuda(*bwdf, **mdrop))),
+            k9_f32_call(bwdf, **mdrop))),
+        "fused_mlp_bwd_f32 dropout 0": ("nvt_fused_mlp_f32_bwd", lambda: (
+            k9_f32_call(bwdf))),
         "int8_ln_qkv_f32": ("nvt_int8_ln_qkv_f32", lambda: (
             q8.int8_ln_qkv_f32_cuda(xf, *ln, *qkv8, h, d))),
         "int8_outproj_residual_f32": ("nvt_int8_outproj_f32", lambda: (
@@ -480,10 +491,11 @@ def output_diffs(libs: dict, call) -> list:
 
 def f32_step_turns(libs: dict, rounds: int) -> None:
     """Print the flagship's f32 train step at batch 32 with each library
-    in turns (other, this, this, other), ``rounds`` times; K8, K4 and K2
-    at f32 go through :func:`k8_f32_call`, :func:`k4_f32_call` and
-    :func:`k2_f32_call`, this checkout's wrappers where the library has
-    their weight pre-pass."""
+    in turns (other, this, this, other), ``rounds`` times; K8, K4, K2, K9
+    and K7 at f32 go through :func:`k8_f32_call`, :func:`k4_f32_call`,
+    :func:`k2_f32_call`, :func:`k9_f32_call` and :func:`k7_f32_call`,
+    this checkout's wrappers where the library has their weight
+    pre-pass."""
     import tempfile
 
     from neurovit_tpu_torch.config import load_config
@@ -510,9 +522,24 @@ def f32_step_turns(libs: dict, rounds: int) -> None:
             return qkv_wrapper(*args, **kw)
         return k2_f32_call(args, **kw)
 
+    mlp_bwd_wrapper = fused_mlp.fused_mlp_bwd_f32_cuda
+    qkv_bwd_wrapper = fused_qkv.fused_ln_qkv_bwd_f32_cuda
+
+    def mlp_bwd(*args, **kw):
+        if hasattr(_build.library(), "nvt_fused_mlp_f32_bwd_smem_bytes"):
+            return mlp_bwd_wrapper(*args, **kw)
+        return k9_f32_call(args, **kw)
+
+    def qkv_bwd(*args):
+        if hasattr(_build.library(), "nvt_fused_ln_qkv_f32_bwd_smem_bytes"):
+            return qkv_bwd_wrapper(*args)
+        return k7_f32_call(*args)
+
     wrappers = ((fused_outproj, "fused_outproj_bwd_f32_cuda", routed),
                 (fused_mlp, "fused_mlp_block_f32_cuda", mlp),
-                (fused_qkv, "fused_ln_qkv_f32_cuda", qkv))
+                (fused_qkv, "fused_ln_qkv_f32_cuda", qkv),
+                (fused_mlp, "fused_mlp_bwd_f32_cuda", mlp_bwd),
+                (fused_qkv, "fused_ln_qkv_bwd_f32_cuda", qkv_bwd))
     saved = [getattr(module, name) for module, name, _ in wrappers]
     for module, name, fn in wrappers:
         fn.launches = 0          # a wrapper counts on its module's name

@@ -169,16 +169,17 @@ def k4_f32_call(args: tuple, dropout_rate: float = 0.0, seeds=(0, 0),
     return (y, h) if return_h else y
 
 
-def f32_lines(what: str, call, gemm_flop: dict, mm: dict, iters: int
-              ) -> list:
-    """Lines of an f32 forward ``call`` (K4 or K2): each pass's device
-    time, their sum and the one-call events; each GEMM pass named in
-    ``gemm_flop`` (its flops) with its rate and share of the 3xTF32
-    bound; then each f32 torch.mm of ``mm`` (name -> call) at the same
-    shape, device time and events, and the factor between the two."""
+def f32_lines(what: str, call, gemm_flop: dict, mm: dict, iters: int,
+              short=f32_short) -> list:
+    """Lines of an f32 ``call`` (K4 or K2; K9 or K7 with their ``short``):
+    each pass's device time (kernels named by ``short``), their sum and
+    the one-call events; each GEMM pass named in ``gemm_flop`` (its flops)
+    with its rate and share of the 3xTF32 bound; then each f32 torch.mm of
+    ``mm`` (name -> call) at the same shape, device time and events, and
+    the factor between the two."""
     passes = {}
     for key, us in gemm_times.device_us(call, iters).items():
-        passes[f32_short(key)] = passes.get(f32_short(key), 0.0) + us
+        passes[short(key)] = passes.get(short(key), 0.0) + us
     device_ms = sum(passes.values()) / 1e3 if passes else None
     events = events_ms(call)
     flop = sum(gemm_flop.values())

@@ -18,7 +18,20 @@ An older checkout's K7 (on ``wmma``: ``du_gemm_kernel``, ``ln_bwd_kernel``
 and two ``colsum_kernel`` launches) takes dq, dk and dv apart; copy this
 script into that checkout's ``scripts/`` to time it there.
 
+K7 at f32 (with ``--only f32``, or after the rest): at batch 8 and 32, on
+chip_smoke.py's f32 operands: each pass's device time (``wsplit``, the
+weight pre-pass on Wqkv; ``row_stats``; the GEMM ``du``; ``ln_bwd``;
+``colsum``; an older checkout's FFMA du pass under the same name), their
+sum and the one-call CUDA-event time, the GEMM's rate in TFLOP/s (2 M 3
+inner dim flops) and share of the 3xTF32 bound (165 TFLOP/s), beside f32
+``torch.mm`` at du's [M, 3 inner] x [3 inner, dim] (``allow_tf32`` off)
+and the factor between the two. ``--other <checkout>`` routes every
+kernel call to another checkout's kernel library (built there): K7 f32
+goes through :func:`k7_f32_call`, which hands an older
+``nvt_fused_ln_qkv_f32_bwd`` (the FFMA design, no pre-pass) Wqkv itself.
+
     python scripts/torch_qkv_bwd_device_times.py [--iters 20]
+        [--only bf16|f32] [--other <checkout>]
 
 Needs the card; prints nvidia-smi's name and power limit first.
 """
@@ -35,11 +48,15 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from neurovit_tpu_torch.ops import fused_qkv  # noqa: E402
+from neurovit_tpu_torch import nn  # noqa: E402
+from neurovit_tpu_torch.ops import _build, common, fused_qkv  # noqa: E402
 from neurovit_tpu_torch.ops import int8_gemm as k17  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch_gemm_device_times as gemm_times  # noqa: E402
+import torch_mlp_device_times as k4_times  # noqa: E402
+from torch_attention_device_times import use_checkout  # noqa: E402
+from torch_mlp_bwd_device_times import f32_short, scratch_bytes  # noqa: E402
 
 N, DIM, HEADS, DIM_HEAD = 1001, 1024, 8, 64
 INNER = HEADS * DIM_HEAD
@@ -137,25 +154,91 @@ def line(what: str, m: dict, rows: int) -> str:
             f"{m['enqueue_us']:.1f} us a call")
 
 
+def k7_f32_call(dqkv, x, gamma, w):
+    """K7 at f32 on the library behind the wrappers: this checkout's
+    wrapper where the library's K7 f32 runs on the 3xTF32 Loop
+    (``nvt_fused_ln_qkv_f32_bwd_smem_bytes``); else an older
+    ``nvt_fused_ln_qkv_f32_bwd``, which takes Wqkv itself. (dx, dgamma,
+    dbeta)."""
+    if hasattr(_build.library(), "nvt_fused_ln_qkv_f32_bwd_smem_bytes"):
+        return fused_qkv.fused_ln_qkv_bwd_f32_cuda(dqkv, x, gamma, w)
+    b, n, dim = x.shape
+    inner = dqkv.shape[-1] // 3
+    dx = torch.empty_like(x)
+    dgb = torch.empty((2, dim), dtype=torch.float32, device=x.device)
+    scratch = torch.empty(scratch_bytes(b * n, dim), dtype=torch.uint8,
+                          device=x.device)
+    p = common.ptr
+    common.launch("nvt_fused_ln_qkv_f32_bwd",
+                  (common.VOID,) * 8 + (common.INT,) * 3 + (common.FLOAT,),
+                  x, p(dqkv), p(x), p(gamma), p(w), p(dx), p(dgb[0]),
+                  p(dgb[1]), p(scratch), b * n, dim, inner, nn.LN_EPS)
+    return dx, dgb[0], dgb[1]
+
+
+def f32_operands(b: int, dim: int = DIM, inner: int = INNER, seed: int = 42
+                 ) -> tuple:
+    """K7's operands at f32, as chip_smoke.py's (d) makes them: (dqkv, x,
+    gamma, w), standard normal dqkv and x, gamma near 1, Wqkv in
+    nn.Linear's default range."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0, offset=0.0):
+        return torch.tensor(offset + scale * rng.standard_normal(shape),
+                            dtype=torch.float32, device="cuda")
+
+    w = rng.uniform(-1, 1, (3 * inner, dim)) / dim ** 0.5
+    return (t(b, N, 3 * inner), t(b, N, dim), t(dim, scale=0.1, offset=1.0),
+            torch.tensor(w, dtype=torch.float32, device="cuda"))
+
+
+def run_f32(b: int, iters: int) -> list:
+    """Lines of K7 f32 at batch b beside f32 torch.mm at its GEMM."""
+    args = f32_operands(b)
+    m = b * N
+    dqkv2, w = args[0].reshape(m, 3 * INNER), args[3]
+    mm = {f"du [{m}, {3 * INNER}] x [{3 * INNER}, {DIM}]":
+          lambda: torch.mm(dqkv2, w)}
+    what = f"K7 f32 batch {b} (M {m}, dim {DIM}, inner {INNER})"
+    return k4_times.f32_lines(what, lambda: k7_f32_call(*args),
+                              {"du": 2 * m * 3 * INNER * DIM}, mm, iters,
+                              short=f32_short)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--only", choices=("bf16", "f32"), default=None,
+                    help="time only the bf16 K7, or only K7 at f32")
+    ap.add_argument("--other", default=None,
+                    help="root of another checkout whose kernels to time")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_qkv_bwd_device_times: needs the card", file=sys.stderr)
         return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip())
-    for b in (1, 8, 32, 128):
-        ops = operands(b)
-        what = (f"K7 batch {b} (M {b * N}, dim {DIM}, inner {INNER})")
-        print(line(what, measure(ops, args.iters), b * N), flush=True)
-        for shape, dev in yardstick(b * N, DIM, INNER, args.iters).items():
-            print(f"  K17 bf16 {shape}: " + (", ".join(
-                f"{k} {us:.1f} us" for k, us in dev.items()) or
-                "device not measured (no kernels traced)"), flush=True)
-        del ops
+    if args.other:
+        use_checkout(os.path.abspath(args.other))
+        print(f"kernels of {args.other}")
+    if args.only != "f32":
+        for b in (1, 8, 32, 128):
+            ops = operands(b)
+            what = (f"K7 batch {b} (M {b * N}, dim {DIM}, inner {INNER})")
+            print(line(what, measure(ops, args.iters), b * N), flush=True)
+            for shape, dev in yardstick(b * N, DIM, INNER,
+                                        args.iters).items():
+                print(f"  K17 bf16 {shape}: " + (", ".join(
+                    f"{k} {us:.1f} us" for k, us in dev.items()) or
+                    "device not measured (no kernels traced)"), flush=True)
+            del ops
+    if args.only != "bf16":
+        for b in k4_times.F32_BATCHES:
+            for text in run_f32(b, args.iters):
+                print(text, flush=True)
+            torch.cuda.empty_cache()
     return 0
 
 

@@ -2106,7 +2106,9 @@ def test_f32_kernels_do_not_spill(cuda):
     """ptxas's report in the build log: no kernel of the f32 forwards and
     backwards (csrc/*_f32.cu, the row passes of csrc/ffma.cu) spills, K8
     f32's weight pre-pass and 3xTF32 wgmma GEMM, K4 f32's fc1 and fc2 and
-    K2 f32's QKV GEMM on the same Loop, the forwards' weight pre-pass and
+    K2 f32's QKV GEMM on the same Loop, K9 f32's hidden GEMM and the du
+    GEMM of K9 and K7 at f32 (tf32x3_ln_bwd.cuh, an instance in each
+    source), the forwards' weight pre-pass and
     the six 3xTF32 instances of K1 and K6 at f32 among them, nor any f32
     instance in csrc/int8_*.cu (the int8 serving kernels' passes on the
     element type float, which their templates take first: names
@@ -2128,6 +2130,12 @@ def test_f32_kernels_do_not_spill(cuda):
         assert any(name in k for k in k4), name
     assert any("qkv_gemm_kernel" in k[1] for k in f32
                if k[0] == "fused_qkv_f32.cu")
+    # K9 and K7 at f32: the 3xTF32 hidden and du GEMMs.
+    k9 = [k[1] for k in f32 if k[0] == "fused_mlp_bwd_f32.cu"]
+    for name in ("hidden_kernel", "ln_du_kernel"):
+        assert any(name in k for k in k9), name
+    assert any("ln_du_kernel" in k[1] for k in f32
+               if k[0] == "fused_qkv_bwd_f32.cu")
     # K1 and K6 at f32: D 32, 64 and 128 in both layouts.
     fwd = [k[1] for k in f32 if k[0] == "flash_attention_f32.cu"]
     assert len(fwd) == 6 and all("flash_fwd_f32_kernel" in k for k in fwd)
@@ -2357,7 +2365,9 @@ def test_outproj_bwd_f32_plan_smem_is_the_kernels(cuda):
 @pytest.mark.parametrize("m,dim,heads,dh", F32_QKV_CASES)
 def test_fused_ln_qkv_bwd_f32_kernel(cuda, m, dim, heads, dh):
     """K7 at f32: dx against plain, dgamma and dbeta by relative Frobenius
-    error, two calls bit-equal; all-zero rows of dqkv give dx 0 there."""
+    error, two calls bit-equal; all-zero rows of dqkv give dx 0 there;
+    each call launches the weight pre-pass once."""
+    from neurovit_tpu_torch.ops import tf32x3
     rng = np.random.default_rng(m + dim + 3)
     inner = heads * dh
     dqkv = _f32(rng, (1, m, 3 * inner), cuda)
@@ -2365,7 +2375,9 @@ def test_fused_ln_qkv_bwd_f32_kernel(cuda, m, dim, heads, dh):
     args = (dqkv, _f32(rng, (1, m, dim), cuda),
             _f32(rng, (dim,), cuda, 0.1, 1.0),
             _f32(rng, (3 * inner, dim), cuda, dim ** -0.5))
+    before = tf32x3.split_t_cuda.launches
     got = fused_qkv.fused_ln_qkv_bwd_f32_cuda(*args)
+    assert tf32x3.split_t_cuda.launches == before + 1
     _check_f32_bwd(got, fused_qkv.fused_ln_qkv_bwd_plain(*args), (1, 2))
     assert not got[0][0, [0, m - 1]].abs().max()
     again = fused_qkv.fused_ln_qkv_bwd_f32_cuda(*args)
@@ -2380,7 +2392,9 @@ def test_fused_mlp_bwd_f32_kernel(cuda, m, dim, hid, rate):
     """K9 at f32 on K4 f32's own h: (dx, u, a, dz, dh) against plain,
     dgamma and dbeta by relative Frobenius error; an all-zero row of dy
     gives dz = dh = dx = 0 there; u bit-equal to the u that K4 f32's
-    LayerNorm pass computes (K2 f32 returns it); two calls bit-equal."""
+    LayerNorm pass computes (K2 f32 returns it); two calls bit-equal; each
+    call launches the weight pre-pass twice (W2, W1)."""
+    from neurovit_tpu_torch.ops import tf32x3
     args = _mlp_f32_args(np.random.default_rng(m + hid + 4), m, dim, hid,
                          cuda)
     x, gamma, beta, w1, b1, w2, b2 = args
@@ -2389,7 +2403,9 @@ def test_fused_mlp_bwd_f32_kernel(cuda, m, dim, hid, rate):
     dy = _f32(np.random.default_rng(m), (1, m, dim), cuda)
     dy[0, 0] = 0
     bargs = (dy, x, h, gamma, beta, w1, w2)
+    before = tf32x3.split_t_cuda.launches
     got = fused_mlp.fused_mlp_bwd_f32_cuda(*bargs, **kw)
+    assert tf32x3.split_t_cuda.launches == before + 2
     _check_f32_bwd(got, fused_mlp.fused_mlp_bwd_plain(*bargs, **kw), (5, 6))
     for j in (0, 3, 4):
         assert not got[j].reshape(m, -1)[0].abs().max()
@@ -2403,24 +2419,69 @@ def test_fused_mlp_bwd_f32_kernel(cuda, m, dim, hid, rate):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_mlp_qkv_bwd_f32_tf32x3_accuracy(cuda, rate):
+    """K9 f32 and K7 f32 at the flagship block (8008 rows, dim 1024, 8
+    heads of 64, MLP 2048): dx, a and dh (K9), dx (K7) within 1e-5
+    relative Frobenius error of plain (chip_smoke.py's F32_CAM_RTOL); the
+    backwards' weight pre-pass bit-equal to its plain version on W2, W1
+    and Wqkv."""
+    from neurovit_tpu_torch.ops import tf32x3
+    rng = np.random.default_rng(32)
+    args = _mlp_f32_args(rng, 8008, 1024, 2048, cuda)
+    x, gamma, beta, w1, b1, w2, b2 = args
+    kw = {"dropout_rate": rate, "seeds": (7, 8)}
+    _, h = fused_mlp.fused_mlp_block_f32_cuda(*args, return_h=True, **kw)
+    dy = _f32(rng, (1, 8008, 1024), cuda)
+    bargs = (dy, x, h, gamma, beta, w1, w2)
+    got = fused_mlp.fused_mlp_bwd_f32_cuda(*bargs, **kw)
+    want = fused_mlp.fused_mlp_bwd_plain(*bargs, **kw)
+    pairs = [(got[j], want[j]) for j in (0, 2, 4)]
+    wqkv = _f32(rng, (1536, 1024), cuda, 1024 ** -0.5)
+    qargs = (_f32(rng, (1, 8008, 1536), cuda), x, gamma, wqkv)
+    pairs.append((fused_qkv.fused_ln_qkv_bwd_f32_cuda(*qargs)[0],
+                  fused_qkv.fused_ln_qkv_bwd_plain(*qargs)[0]))
+    torch.cuda.synchronize()
+    for g, p in pairs:
+        assert float((g.reshape(p.shape) - p).norm()) < 1e-5 * float(
+            p.norm())
+    for w in (w2, w1, wqkv):
+        for g, p in zip(tf32x3.split_t_cuda(w), tf32x3.split_t_plain(w)):
+            assert torch.equal(g, p)
+
+
 def test_f32_bwd_plans_match_the_kernels(cuda):
-    """The wrappers' f32 backward plans count the scratch of K7 and K9 and
-    K5's shared memory as the kernels do."""
+    """The wrappers' f32 backward plans count the scratch of K7 and K9,
+    the shared memory of their 3xTF32 GEMMs
+    (``nvt_fused_mlp_f32_bwd_smem_bytes``,
+    ``nvt_fused_ln_qkv_f32_bwd_smem_bytes``) and K5's as the kernels do."""
     import ctypes
 
-    from neurovit_tpu_torch.ops import _build
+    from neurovit_tpu_torch.ops import _build, tf32x3
     lib = _build.library()
     scratch = lib.nvt_ln_bwd_f32_scratch_bytes
     scratch.restype, scratch.argtypes = ctypes.c_longlong, [ctypes.c_int] * 2
     attn = lib.nvt_flash_attention_f32_bwd_smem_bytes
     attn.restype, attn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 2
+    smem = {}
+    for name in ("nvt_fused_mlp_f32_bwd_smem_bytes",
+                 "nvt_fused_ln_qkv_f32_bwd_smem_bytes"):
+        entry = getattr(lib, name)
+        entry.restype, entry.argtypes = ctypes.c_longlong, []
+        smem[name] = entry()
+        assert smem[name] == tf32x3.SMEM
     for dim, heads, dh, hid in WIDTHS.values():
         for m in (1, 130, 8008, 32032):
             want = scratch(m, dim)
-            assert want == fused_mlp.mlp_bwd_f32_plan(m, dim,
-                                                      hid).scratch_bytes
-            assert want == fused_qkv.qkv_bwd_f32_plan(
-                m, dim, heads * dh).scratch_bytes
+            mlp = fused_mlp.mlp_bwd_f32_plan(m, dim, hid)
+            qkv = fused_qkv.qkv_bwd_f32_plan(m, dim, heads * dh)
+            assert want == mlp.scratch_bytes == qkv.scratch_bytes
+            assert [launch[3] for launch in mlp.launches
+                    if launch[0] in ("hidden", "du")] == [
+                smem["nvt_fused_mlp_f32_bwd_smem_bytes"]] * 2
+            assert [launch[3] for launch in qkv.launches
+                    if launch[0] == "du"] == [
+                smem["nvt_fused_ln_qkv_f32_bwd_smem_bytes"]]
         plan = fa.flash_f32_bwd_plan(2, 1001, heads, dh)
         assert attn(plan.d_kernel, 1) == plan.dq_smem
         assert attn(plan.d_kernel, 2) == plan.dkv_smem

@@ -3,8 +3,8 @@ csrc/ffma.cuh, csrc/tf32x3_wgmma.cuh) as far as the CPU reaches them:
 their plans at the
 flagship, at 130 rows, at every width of ``models/vit3d.py`` WIDTHS and
 the smoke model's, and at head dims 32, 64 and 128; the kernels' index
-maps (the GEMM's staging copies of B [N, K] and of B [K, N]) modelled in
-numpy; their dropout bytes against ``nn.keep_mask``; and the dispatch rule (CPU tensors run the
+maps (the FFMA GEMM's staging copies of B [N, K]) modelled in numpy;
+their dropout bytes against ``nn.keep_mask``; and the dispatch rule (CPU tensors run the
 plain versions, f32 CUDA tensors the f32 kernels, bf16 ones the bf16
 kernels), forward and backward, in both attention layouts; what the
 attention wrappers hand their entry points, with the launch stubbed. The
@@ -103,16 +103,16 @@ def _tf32x3_gemm_covers(launch, m, n):
 
 
 def _ln_bwd_f32_covers(launches, scratch, nbytes, m, dim):
-    """The f32 du GEMM, LayerNorm rows and column sums of
-    ffma_ln_bwd.cuh, and their scratch: du, the statistics, the row sums
-    over two column parts a 128-column tile, the column sums over four row
-    parts a 128-row tile, each on a 256-byte boundary."""
+    """The f32 du GEMM in 3xTF32 on wgmma, LayerNorm rows and column sums
+    of tf32x3_ln_bwd.cuh, and their scratch: du, the statistics, the row
+    sums over one part a 128-column tile, the column sums over one part a
+    128-row tile, each on a 256-byte boundary."""
     du, rows, cols = launches
     assert du[0] == "du"
-    _gemm_covers(du, m, dim)
+    _tf32x3_gemm_covers(du, m, dim)
     assert rows == ("ln_bwd", (-(-m // 8), 1), 256, 0)
     assert cols == ("colsum", (2 * dim // 32, 1), 256, 0)
-    col_parts, row_parts = 2 * -(-dim // 128), 4 * -(-m // 128)
+    col_parts, row_parts = -(-dim // 128), -(-m // 128)
     sizes = {"du": m * dim * 4, "stats": m * 8,
              "rowpart": 2 * m * col_parts * 4,
              "colpart": 2 * row_parts * dim * 4}
@@ -126,14 +126,16 @@ def _ln_bwd_f32_covers(launches, scratch, nbytes, m, dim):
 @pytest.mark.parametrize("m", ROWS)
 @pytest.mark.parametrize("dim,heads,dh,hid", BWD_WIDTHS)
 def test_f32_bwd_gemm_plans(dim, heads, dh, hid, m):
-    """K7, K8 and K9 at f32: row passes a warp a row, GEMMs whose 128 x 128
-    tiles cover the output (K8's dattn over [m, inner] in 3xTF32 on
-    wgmma after its weight pre-pass, K9's hidden over [m, hid], the du
-    GEMM over [m, dim]), and the LayerNorm backward's scratch."""
+    """K7, K8 and K9 at f32: each weight's transposing pre-pass first, row
+    passes a warp a row, 3xTF32 GEMMs on wgmma whose 128 x 128 tiles cover
+    the output (K8's dattn over [m, inner], K9's hidden over [m, hid], the
+    du GEMM over [m, dim]), and the LayerNorm backward's scratch."""
     inner = heads * dh
     plan = fused_qkv.qkv_bwd_f32_plan(m, dim, inner)
-    assert plan.launches[0] == ("row_stats", (-(-m // 8), 1), 256, 0)
-    _ln_bwd_f32_covers(plan.launches[1:], plan.scratch, plan.scratch_bytes,
+    wsplit, stats = plan.launches[:2]
+    assert wsplit == tf32x3.split_t_launch(3 * inner, dim, "wsplit_wqkv")
+    assert stats == ("row_stats", (-(-m // 8), 1), 256, 0)
+    _ln_bwd_f32_covers(plan.launches[2:], plan.scratch, plan.scratch_bytes,
                        m, dim)
     for rate in (0.0, 0.1):
         plan = fused_outproj.outproj_bwd_f32_plan(m, dim, inner, rate)
@@ -144,11 +146,13 @@ def test_f32_bwd_gemm_plans(dim, heads, dh, hid, m):
         assert gemm[0] == "dattn" and plan.tile_n == 128
         _tf32x3_gemm_covers(gemm, m, inner)
     plan = fused_mlp.mlp_bwd_f32_plan(m, dim, hid)
-    rows, hidden = plan.launches[:2]
+    split2, split1, rows, hidden = plan.launches[:4]
+    assert split2 == tf32x3.split_t_launch(dim, hid, "wsplit_w2")
+    assert split1 == tf32x3.split_t_launch(hid, dim, "wsplit_w1")
     assert rows == ("dz_rows", (-(-m // 8), 1), 256, 0)
     assert hidden[0] == "hidden"
-    _gemm_covers(hidden, m, hid)
-    _ln_bwd_f32_covers(plan.launches[2:], plan.scratch, plan.scratch_bytes,
+    _tf32x3_gemm_covers(hidden, m, hid)
+    _ln_bwd_f32_covers(plan.launches[4:], plan.scratch, plan.scratch_bytes,
                        m, dim)
 
 
@@ -360,37 +364,15 @@ def test_gemm_staging_copies_are_a_conflict_free_bijection():
                 list(range(k[lanes][0] // 8 * 8, k[lanes][0] // 8 * 8 + 8))
 
 
-def test_gemm_kn_staging_copies_are_a_conflict_free_bijection():
-    """ffma.cuh stage_slice_kn: copy c of thread t takes the 16-byte vector
-    idx = t + 256 c of a 16 x 128 slice of B [K, N], k = idx / 32 = t / 32
-    + 8 c, columns 4 (t % 32) .. + 3, into Bs[k][4 (t % 32)] (rows of 132
-    floats). Every vector once; a warp writes one k row's 512 contiguous
-    bytes, and each quarter warp's eight vectors fill the 32 banks."""
-    idx = np.arange(16 * 32)
-    t, c = idx % 256, idx // 256
-    k, col = idx // 32, 4 * (idx % 32)
-    np.testing.assert_array_equal(k, t // 32 + 8 * c)
-    np.testing.assert_array_equal(col, 4 * (t % 32))
-    assert len(set(zip(k.tolist(), col.tolist()))) == idx.size
-    for warp in range(idx.size // 32):
-        lanes = slice(32 * warp, 32 * warp + 32)
-        assert len(set(k[lanes].tolist())) == 1
-        assert sorted(col[lanes].tolist()) == list(range(0, 128, 4))
-        for quarter in range(4):
-            q = slice(32 * warp + 8 * quarter, 32 * warp + 8 * quarter + 8)
-            start = (k[q] * 132 + col[q]) % 32
-            banks = {(s + e) % 32 for s in start.tolist() for e in range(4)}
-            assert len(banks) == 32
-
-
 @pytest.mark.parametrize("rate", [0.1, 0.5])
 def test_gemm_dropout_bytes_are_keep_mask(rate):
     """ffma.cuh keep4 at every float4 of an [m, n] site (n % 16 == 0):
     word (i >> 2) & 3 of Philox(i >> 4), its four bytes below q, equal to
-    nn.keep_mask's bits. K3 f32's epilogue and the backwards' (K9 f32's
-    HiddenEpi at row * hid + col, the dz rows pass of K8 and K9 at f32 at
-    row * dim + col) draw it so; K2's and K4's 3xTF32 epilogues draw
-    keep_quad (tests/test_torch_mlp_qkv_fwd_tf32x3.py)."""
+    nn.keep_mask's bits. K3 f32's epilogue and the dz rows pass of K8 and
+    K9 at f32 (at row * dim + col) draw it so; the 3xTF32 epilogues of K2,
+    K4 and K9's hidden GEMM draw keep_quad
+    (tests/test_torch_mlp_qkv_fwd_tf32x3.py,
+    tests/test_torch_mlp_qkv_bwd_tf32x3.py)."""
     m, n, seed = 5, 48, 0x1234_5678_9ABC
     q, _ = nn.keep_threshold(rate)
     want = nn.keep_mask(seed, (m, n), rate).reshape(-1).numpy()

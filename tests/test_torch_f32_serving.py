@@ -134,9 +134,10 @@ def test_f32_on_cuda_refused_at_the_entry_point(monkeypatch, entry):
     card, reach the f32 kernels and no bf16 one. A probe runs K6 at f32
     once forward and once backward (the last block) beside K1-K4 f32 (K2's
     and K4's weight pre-pass with them) and K9 f32 (the last block's MLP
-    under the gradient); IG and grad x input
-    differentiate the volume through every block (K1-K5, K7-K9 f32 and K8
-    f32's weight pre-pass, no K6); int8 serving runs K10-K13 f32."""
+    under the gradient, with its transposing weight pre-pass); IG and grad
+    x input differentiate the volume through every block (K1-K5, K7-K9 f32
+    and the backwards' weight pre-pass, no K6); int8 serving runs K10-K13
+    f32."""
     from neurovit_tpu_torch.explainability import vit_cam_2d
     from neurovit_tpu_torch.explainability.cam_methods import compute_cam
 
@@ -161,7 +162,7 @@ def test_f32_on_cuda_refused_at_the_entry_point(monkeypatch, entry):
     if entry in ("gradcam", "menu", "vit_cam_2d"):
         assert [seen.count(s) for s in K6_F32] == [1, 1]
         assert set(seen) == set(K6_F32 + F32_FORWARDS
-                                + ["nvt_fused_mlp_f32_bwd"])
+                                + ["nvt_fused_mlp_f32_bwd", "nvt_wsplit_f32"])
     elif entry == "int8":
         assert set(seen) == set(INT8_F32)
     else:
