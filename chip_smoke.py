@@ -192,17 +192,19 @@ Phases, each printing a line; any failure raises and exits non-zero:
                encoder, the encoder's share, peak memory, profiler splits;
                (g) the ResNet-18 encoder in 4D at B 1 x T 8, one K14, its
                encodings and the logits against the CPU plain path
-18. f32        K1-K5, K7-K9 at f32 (FFMA on the CUDA cores; K1, K2, K4,
-               K5, K6 and its backward and K8 in 3xTF32 on the tensor
-               cores), with
+18. f32        K1-K5, K7-K9 at f32 (every product in 3xTF32 on the
+               tensor cores: K1, K5, K6 and its backward on mma.sync, the
+               other GEMMs on wgmma; the row passes on the CUDA cores),
+               with
                torch.backends.cuda.matmul.allow_tf32 off: (a) each against
                its plain version at the flagship block (batch 8 x 1001),
                within 1e-4 (1 + |plain|), two calls bit-equal: K1 at
                n_valid 1001 and 900, at dropout 0.1 with its row sums, and
                at head dims 32, 64 and 128 at batch 2 x 2 heads; K2
                serving and with u, at 130 rows and on all-zero rows with
-               beta = 0 (u = 0 there); K3 at dropout 0 and 0.1 and at 130
-               rows; K4 serving, at dropout 0.1 with h, at 130 rows and
+               beta = 0 (u = 0 there); K3 at dropout 0 and 0.1, at 130
+               rows, on all-zero rows of a (y = x + b there) and at the
+               2D tutorial's widths (dim 64, inner 64); K4 serving, at dropout 0.1 with h, at 130 rows and
                on all-zero rows with beta = b1 = 0 (h = 0, y = b2 there);
                the first case of each timed by CUDA events beside the
                plain version, its library yardstick (f32 SDPA; torch.mm at
@@ -212,13 +214,13 @@ Phases, each printing a line; any failure raises and exits non-zero:
                Frobenius error of plain, and K1 at the flagship block
                timed in turns with f32 SDPA, its rate, its share of the
                bound and of mma.sync's 3xTF32 ceiling (107 TFLOP/s) and
-               the factor between the two; K4's y and K2's q (3xTF32 on
-               wgmma) within 1e-5 relative Frobenius error of plain in
-               each case, each timed in turns beside f32 torch.mm at its
-               GEMMs with its rate and share of the bound; their weight
-               pre-pass bit-equal to plain on W1, W2, Wqkv, the 2D
-               tutorial's Wqkv and a ragged weight, a launch for each
-               weight of every K2 and K4 f32 call; (b) the seed-42 flagship
+               the factor between the two; K4's y, K2's q and K3's y - x
+               (3xTF32 on wgmma) within 1e-5 relative Frobenius error of
+               plain in each case, each timed in turns beside f32
+               torch.mm at its GEMMs with its rate and share of the
+               bound; their weight pre-pass bit-equal to plain on W1, W2,
+               Wqkv, Wout, the 2D tutorial's Wqkv and a ragged weight, a
+               launch for each weight of every K2, K3 and K4 f32 call; (b) the seed-42 flagship
                served at f32 by Predictor (every bucket, 3 volumes) and
                one HTTP POST, each
                f32 kernel launched depth times per forward and no other
@@ -435,9 +437,9 @@ KERNELS = [
      "neurovit_tpu/ops/fused_outproj.py:44"),
     ("fused_mlp_block_f32", "neurovit_tpu_torch/csrc/fused_mlp_f32.cu",
      "neurovit_tpu/ops/fused_mlp.py:108"),
-    # The forwards' weight pre-pass (W1, W2 and Wqkv split for 3xTF32 as
-    # they lie), a launch of its own wrapper for each weight of every K4 f32
-    # and K2 f32 call.
+    # The forwards' weight pre-pass (W1, W2, Wqkv and Wout split for 3xTF32
+    # as they lie), a launch of its own wrapper for each weight of every K4
+    # f32, K2 f32 and K3 f32 call.
     ("fused_fwd_wsplit_f32", "neurovit_tpu_torch/csrc/tf32x3_wgmma.cuh",
      "neurovit_tpu/ops/fused_mlp.py:108"),
     ("flash_attention_bwd_f32",
@@ -508,9 +510,9 @@ POOL_SHAPE = (B, 90, 45, 45, 64)
 # memory bytes/s and operations/s by operand type. f32 products exact to
 # f32: three TF32 products each (a big and a small part of the operands)
 # at the 495 TF32 TFLOP/s, the fastest f32-accurate route on the card
-# (K1, K5 and K6 at f32 take it on mma.sync, K8 on wgmma); F32_FFMA_PER_S,
-# the CUDA cores' f32 rate, is the floor of the FFMA kernels' design,
-# printed beside it; F32_MMA_SYNC_PER_S, a third of mma.sync's TF32 rate
+# (K1, K5 and K6 at f32 take it on mma.sync, the other f32 GEMMs on
+# wgmma); F32_FFMA_PER_S, the CUDA cores' f32 rate, is the floor of the
+# f32 kernels' first designs on FFMA, printed beside it; F32_MMA_SYNC_PER_S, a third of mma.sync's TF32 rate
 # on the H100 (321.8 TFLOP/s, scripts/torch_mma_tf32_peak.py), the
 # ceiling of the attention's 3xTF32 products on mma.sync.
 HBM_BYTES_PER_S = 3.35e12
@@ -2373,13 +2375,14 @@ def _count_forwards(model) -> list:
 
 def _check_counts(phase: str, launches: dict, want: dict) -> None:
     """Each kernel's launches in ``phase`` against ``want``; the forwards'
-    weight pre-pass is wanted once for each weight of every K2 f32 (Wqkv)
-    and K4 f32 (W1, W2) launch, and the backwards' once for each weight of
-    every K8 f32 (Wout), K7 f32 (Wqkv) and K9 f32 (W2, W1) launch, whatever
-    ``want`` says of them."""
+    weight pre-pass is wanted once for each weight of every K2 f32 (Wqkv),
+    K4 f32 (W1, W2) and K3 f32 (Wout) launch, and the backwards' once for
+    each weight of every K8 f32 (Wout), K7 f32 (Wqkv) and K9 f32 (W2, W1)
+    launch, whatever ``want`` says of them."""
     if "fused_fwd_wsplit_f32" in want:
         want = dict(want, fused_fwd_wsplit_f32=want.get(
-            "fused_ln_qkv_f32", 0) + 2 * want.get("fused_mlp_block_f32", 0))
+            "fused_ln_qkv_f32", 0) + 2 * want.get("fused_mlp_block_f32", 0)
+            + want.get("fused_outproj_residual_f32", 0))
     if "fused_outproj_bwd_wsplit_f32" in want:
         want = dict(want, fused_outproj_bwd_wsplit_f32=want.get(
             "fused_outproj_bwd_f32", 0) + want.get("fused_ln_qkv_bwd_f32", 0)
@@ -3458,12 +3461,14 @@ def fourd_serving(cfg, ckpt: str, seqs: np.ndarray, workdir: str,
 def _f32_kernel_checks(card: str) -> dict:
     """(a) of the f32 phase: K1-K4 at f32 against their plain versions on
     the card at the flagship block (batch 8 x 1001), each case also run
-    twice bit-equal, and K2's and K4's weight pre-pass bit-equal to plain;
-    the first case of each kernel timed beside its plain version, its
-    library yardstick (f32 SDPA, torch.mm at f32 for each GEMM pass) and
-    its bound; the 3xTF32 kernels (K1 on mma.sync, K2 and K4 on wgmma)
-    held to F32_CAM_RTOL and timed in turns with their yardstick. Returns
-    each kernel's stats."""
+    twice bit-equal, and K2's, K3's and K4's weight pre-pass bit-equal to
+    plain; K3 also on all-zero rows of a (y = x + b there, bit for bit)
+    and at the 2D tutorial's widths (dim 64, inner 64); the first case of
+    each kernel timed beside its plain version, its library yardstick (f32
+    SDPA, torch.mm at f32 for each GEMM pass) and its bound; the 3xTF32
+    kernels (K1 on mma.sync, K2, K3 and K4 on wgmma) held to F32_CAM_RTOL
+    (K3 by y - x, its own part of y) and timed in turns with their
+    yardstick. Returns each kernel's stats."""
     import torch.nn.functional as F
 
     from neurovit_tpu_torch.ops import flash_attention as fa
@@ -3494,6 +3499,11 @@ def _f32_kernel_checks(card: str) -> dict:
     # All-zero rows at a tile's first and last row and in the last tile.
     x0 = x.clone()
     x0[0, [0, 127, 128, 1000]] = 0
+    attn0 = attn.clone()
+    attn0[0, [0, 127, 128, 1000]] = 0
+    # K3 at the 2D tutorial's widths: dim 64, 4 heads of 16, its 197 tokens.
+    x_2d, attn_2d = t(B, 197, 64), t(B, 197, 64)
+    wout_2d, bout_2d = w(64, 64), t(64, scale=0.03)
 
     def rows(a, n=130):
         return a[:1, :n].contiguous()
@@ -3507,8 +3517,8 @@ def _f32_kernel_checks(card: str) -> dict:
         return (lambda: fused_qkv.fused_ln_qkv_f32_cuda(*args, **kw),
                 lambda: fused_qkv.fused_ln_qkv_plain(*args, **kw))
 
-    def outproj(x_, a, **kw):
-        args = (x_, a, wout, bout)
+    def outproj(x_, a, w_=wout, b_=bout, **kw):
+        args = (x_, a, w_, b_)
         return (lambda: fused_outproj.fused_outproj_residual_f32_cuda(
             *args, **kw),
             lambda: fused_outproj.fused_outproj_residual_plain(*args, **kw))
@@ -3536,7 +3546,11 @@ def _f32_kernel_checks(card: str) -> dict:
             ("dropout 0", *outproj(x, attn)),
             (f"dropout {DROPOUT}", *outproj(x, attn, **drop)),
             (f"130 rows, dropout {DROPOUT}",
-             *outproj(rows(x), rows(attn), **drop))],
+             *outproj(rows(x), rows(attn), **drop)),
+            ("zero rows of a", *outproj(x, attn0)),
+            (f"the 2D tutorial's widths (dim 64, inner 64), dropout "
+             f"{DROPOUT}", *outproj(x_2d, attn_2d, wout_2d, bout_2d,
+                                    **drop))],
         "fused_mlp_block_f32": [
             ("serving", *mlp(x, *ln, b1)),
             (f"dropout {DROPOUT} with h", *mlp(x, *ln, b1, return_h=True,
@@ -3552,13 +3566,13 @@ def _f32_kernel_checks(card: str) -> dict:
         cases["flash_attention_f32"].append(
             (f"head dim {d}, batch 2 x 2 heads, dropout {DROPOUT}",
              *attention(*qd, scale=d ** -0.5, n_valid=N, **drop)))
-    # K4 f32's and K2 f32's weight pre-pass: W1, W2, Wqkv, the 2D
-    # tutorial's Wqkv and a ragged weight.
+    # K4 f32's, K2 f32's and K3 f32's weight pre-pass: W1, W2, Wqkv, Wout,
+    # the 2D tutorial's Wqkv and a ragged weight.
     cases["fused_fwd_wsplit_f32"] = [
         (f"W [{a.shape[0]}, {a.shape[1]}]",
          lambda a=a: tf32x3.split_cuda(a),
          lambda a=a: tf32x3.split_plain(a))
-        for a in (w1, w2, wqkv, w(192, 64), w(80, 48))]
+        for a in (w1, w2, wqkv, wout, w(192, 64), w(80, 48))]
 
     x2, attn2 = x.reshape(m, DIM), attn.reshape(m, inner)
     h2 = t(m, MLP)
@@ -3588,7 +3602,11 @@ def _f32_kernel_checks(card: str) -> dict:
         if not label.startswith("zero rows"):
             return
         zero = [0, 127, 128, 1000]
-        if name == "fused_mlp_block_f32":
+        if name == "fused_outproj_residual_f32":
+            if not torch.equal(got[0].reshape(m, -1)[zero],
+                               x2[zero] + bout):
+                raise AssertionError("K3 f32 on zero rows of a: y not x + b")
+        elif name == "fused_mlp_block_f32":
             y0, h0 = (a_.reshape(m, -1)[zero] for a_ in got)
             if h0.abs().max() or not torch.equal(
                     y0, b2.expand(len(zero), -1)):
@@ -3608,6 +3626,15 @@ def _f32_kernel_checks(card: str) -> dict:
             ("fused_ln_qkv_f32", "q", "f32 torch.mm at its GEMM")):
         _tf32x3_report(name, output, cases[name], cases[name][0][1],
                        library[name], library_name, work[name][1], card)
+    # K3 f32 by y - x, its own part of y: x's magnitude would hide its
+    # error in y's norm.
+    name = "fused_outproj_residual_f32"
+    residual = [x, x, rows(x), x, x_2d]
+    _tf32x3_report(name, "y - x", [
+        (label, lambda c=call, r=r: c() - r, lambda p=plain, r=r: p() - r)
+        for (label, call, plain), r in zip(cases[name], residual)],
+        cases[name][0][1], library[name], "f32 torch.mm at its GEMM",
+        work[name][1], card)
     return stats
 
 

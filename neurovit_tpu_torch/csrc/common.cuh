@@ -2,9 +2,10 @@
 //
 // The kernels compute bf16 (or int8) products with f32 (int32)
 // accumulation on the tensor cores, on TMA and wgmma (hopper_gemm.cuh);
-// the f32 kernels compute f32 products on the CUDA cores (ffma.cuh), but
-// the f32 attention forward and backward in 3xTF32 on the tensor cores
-// (tf32x3.cuh), and K8's GEMM in 3xTF32 on wgmma (tf32x3_wgmma.cuh).
+// the f32 kernels take every f32 product in 3xTF32 on the tensor cores:
+// the attention forward and backward on mma.sync (tf32x3.cuh), the other
+// GEMMs on wgmma (tf32x3_wgmma.cuh), their row passes on the CUDA cores
+// (ffma.cuh).
 //
 // Host entry points have a plain C interface: each returns the
 // cudaError_t of its launch (0 on success) and allocates nothing; the

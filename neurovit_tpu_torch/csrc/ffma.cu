@@ -2,7 +2,7 @@
 // row: the LN rows pass that K2 and K4 at f32 share (fused_qkv_f32.cu,
 // fused_mlp_f32.cu), the LN of the TPU kernels neurovit_tpu/ops/
 // fused_qkv.py:57 and fused_mlp.py:108 on f32 operands, before their GEMMs
-// (ffma.cuh); the row statistics of K7 at f32 (fused_qkv_bwd_f32.cu); and
+// (tf32x3_wgmma.cuh); the row statistics of K7 at f32 (fused_qkv_bwd_f32.cu); and
 // the dz rows of K9 at f32 (fused_mlp_bwd_f32.cu, with the LN) and K8 at
 // f32 (fused_outproj_bwd_f32.cu, without). Defined here once and declared
 // in ffma.cuh, so the forwards and the backwards take one LayerNorm.

@@ -34,6 +34,8 @@
 //      (training), applies GELU and mask1 and stores g;
 //   5. fc2_residual: the Loop over (ceil(dim / 128), ceil(M / 128)) tiles,
 //      K = hid, A = g; the epilogue adds b2, applies mask2 and adds x.
+//      K3 f32 (fused_outproj_f32.cu) is one launch of this pass with A = a
+//      and K = inner (launch_fc2_residual, declared in tf32x3_wgmma.cuh).
 // A GEMM block takes 193 KiB of shared memory (four stages of 48 KiB), one
 // block an SM; fc2's K = 2048 is 768 TF32 products deep, so each stage
 // sums into a fresh accumulator (kFreshStages 1), added in f32. The
@@ -87,8 +89,9 @@ struct GeluEpi {
   }
 };
 
-// y = x + (C + b2) * keep factors, x added in f32 (ffma::ResidualEpi's
-// arithmetic on a for_each_quad group).
+// y = x + (C + b) * keep factors on a for_each_quad group: b added, the
+// mask of element (row, col) at row * n + col applied where keep_q > 0,
+// then x added in f32 (fc2's b2 and mask2; K3 f32's b and mask).
 struct Fc2Epi {
   const float* bias;
   const float* x;
@@ -126,6 +129,24 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 }  // namespace
+
+cudaError_t tf32x3_wgmma::allow_fc2_residual_smem() {
+  return allow_smem(fc2_residual_kernel, MlpLoop::kSmemBytes);
+}
+
+cudaError_t tf32x3_wgmma::launch_fc2_residual(
+    const CUtensorMap& ta, const CUtensorMap& tbig, const CUtensorMap& tsmall,
+    const float* bias, const float* x, float* y, int M, int N, int K,
+    float inv_keep, uint32_t keep_q, uint64_t seed, cudaStream_t stream) {
+  const Fc2Epi epi{bias, x, y, N, inv_keep, keep_q, seed};
+  fc2_residual_kernel<<<dim3((N + kBN - 1) / kBN, (M + kBM - 1) / kBM),
+                        kThreads, MlpLoop::kSmemBytes, stream>>>(
+      ta, tbig, tsmall, M, K, epi);
+  return cudaGetLastError();
+}
+
+size_t tf32x3_wgmma::fc2_residual_smem_bytes() { return MlpLoop::kSmemBytes; }
+
 }  // namespace nvt
 
 // The forwards' weight pre-pass (K2's Wqkv, K4's W1 and W2): w [n] f32
@@ -188,8 +209,7 @@ extern "C" int nvt_fused_mlp_f32_fwd(
                             dim, hid, kBN);
   if (err == cudaSuccess)
     err = allow_smem(fc1_gelu_kernel, MlpLoop::kSmemBytes);
-  if (err == cudaSuccess)
-    err = allow_smem(fc2_residual_kernel, MlpLoop::kSmemBytes);
+  if (err == cudaSuccess) err = allow_fc2_residual_smem();
   if (err != cudaSuccess) return static_cast<int>(err);
   err = ffma::launch_ln_rows(xf, static_cast<const float*>(gamma),
                              static_cast<const float*>(beta), u, M, dim, eps,
@@ -202,14 +222,10 @@ extern "C" int nvt_fused_mlp_f32_fwd(
                                                         dim, fc1);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Fc2Epi fc2{static_cast<const float*>(b2), xf,
-                        static_cast<float*>(y), dim, inv_keep,
-                        static_cast<uint32_t>(keep_q), seed2};
-  fc2_residual_kernel<<<dim3((dim + kBN - 1) / kBN, (M + kBM - 1) / kBM),
-                        kThreads, MlpLoop::kSmemBytes, s>>>(tg, t2big,
-                                                            t2small, M, hid,
-                                                            fc2);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_fc2_residual(
+      tg, t2big, t2small, static_cast<const float*>(b2), xf,
+      static_cast<float*>(y), M, dim, hid, inv_keep,
+      static_cast<uint32_t>(keep_q), seed2, s));
 }
 
 // Bytes of the scratch of one call (ops/fused_mlp.py mlp_f32_plan).

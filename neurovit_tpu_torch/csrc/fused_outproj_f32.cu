@@ -1,5 +1,5 @@
 // Fused attention out-projection + bias + dropout + residual (K3) at f32,
-// deterministic, on the CUDA cores.
+// deterministic, on the tensor cores by 3xTF32 on wgmma.
 //
 // Replaces the TPU kernel neurovit_tpu/ops/fused_outproj.py:44 (_fwd_kernel,
 // launched at :79 by fused_outproj_residual) on f32 operands, where it sums
@@ -10,52 +10,73 @@
 // The mask of element (row, col) is nn.keep_mask's bit at row * dim + col
 // under seed, the bits the bf16 kernel (fused_outproj.cu) and the plain
 // version draw. a [M, inner] is the attention output viewed as rows; Wout
-// is the torch weight [dim, inner] as it lies.
+// the torch weight [dim, inner], K-major for a . Wout^T as it lies.
 //
-// What bounds it on the H100: its 2 M inner dim flops. At f32 they run
-// on the CUDA cores (ffma.cuh says why K3 is not in 3xTF32 yet, as K2's
-// and K4's forwards are): 8.4 GFLOP for
-// the flagship block at batch 8 (M = 8008, inner 512, dim 1024), 0.12 ms
-// at 67 TFLOP/s, above its 67 MB of a, x, y and Wout (0.020 ms at 3.35
-// TB/s).
+// What bounds it on the H100: its 2 M inner dim flops, 8.4 GFLOP for the
+// flagship block at batch 8 (M = 8008, inner 512, dim 1024). In 3xTF32
+// (tf32x3_wgmma.cuh: three TF32 products a product, about f32's accuracy)
+// at the data sheet's 495 TF32 TFLOP/s that is 165 TFLOP/s of f32
+// products, 0.0509 ms, above its 84 MB of a, x, Wout and y (0.025 ms at
+// 3.35 TB/s).
 //
-// The design: one launch of ffma.cuh's GEMM (128 x 128 tiles, 8 x 8 a
-// thread, operands staged by cp.async) over (ceil(dim / 128), ceil(M /
-// 128)) tiles, with ResidualEpi adding b, applying the mask and adding x
-// from registers.
+// The design is one launch of K4 f32's last pass (fused_mlp_f32.cu,
+// fc2_residual, launch_fc2_residual), as the bf16 K3 is one launch of
+// K4's, after the forwards' weight pre-pass (nvt_split_f32, its own
+// wrapper) has split Wout as it lies into big and small: Loop<4, 1> over
+// (ceil(dim / 128), ceil(M / 128)) tiles with A = a and K = inner, a
+// fresh accumulator a stage (K = 512 is 192 TF32 products deep); the
+// epilogue adds b, applies the mask and adds x in f32, y rounded once.
+// TMA zero-fills the boxes past M, dim and inner, and the epilogue's walk
+// masks rows >= M and columns >= dim, so inner and dim are any multiples
+// of 16 and M any count. An all-zero row of a gives y = x + b exactly at
+// dropout 0: its fresh sums are +0.
 //
-// Measured (NVIDIA H100 80GB HBM3, 700.00 W; scripts/torch_kernel_ab.py at
-// batch 8, medians over 5 rounds, beside the first GEMM design):
-// 0.2678 ms (first design 0.2819), 31.4 TFLOP/s; torch.mm at f32 0.2084
-// ms (scripts/torch_ffma_tile_sweep.py).
-#include "ffma.cuh"
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; profiler device times from
+// scripts/torch_outproj_device_times.py at batch 8): 0.1224 ms, the split
+// 2.8 us and fc2_residual 119.7 (0.425 of the bound; the FFMA design took
+// 0.2297 in one launch), 0.672x f32 torch.mm at the GEMM alone. At K = 512
+// a tile runs 16 stages, and its ring fill and epilogue (x read, y
+// written), about 15 us of a tile's 30, go unhidden: fc2 at K = 2048
+// reaches 0.667.
+#include "tf32x3_wgmma.cuh"
 
-// a [M, inner], x [M, dim], w [dim, inner], bias [dim], y [M, dim], all
-// f32. inner % 16 == 0, dim % 16 == 0. keep_q: dropout threshold (0 =
-// none), inv_keep = 1 / keep.
+// a [M, inner], x [M, dim], w_big, w_small [dim, inner] (Wout split by
+// nvt_split_f32), bias [dim], y [M, dim], all f32 and 16-byte aligned.
+// inner % 16 == 0, dim % 16 == 0. keep_q: dropout threshold (0 = none),
+// inv_keep = 1 / keep.
 extern "C" int nvt_fused_outproj_f32_fwd(const void* a, const void* x,
-                                         const void* w, const void* bias,
-                                         void* y, int M, int inner, int dim,
-                                         float inv_keep, int keep_q,
-                                         uint64_t seed, void* stream) {
-  using namespace nvt;
+                                         const void* w_big,
+                                         const void* w_small,
+                                         const void* bias, void* y, int M,
+                                         int inner, int dim, float inv_keep,
+                                         int keep_q, uint64_t seed,
+                                         void* stream) {
+  using namespace nvt::tf32x3_wgmma;
   if (M < 1 || inner < 16 || inner % 16 != 0 || dim < 16 || dim % 16 != 0 ||
       keep_q < 0 || keep_q > 255)
     return static_cast<int>(cudaErrorInvalidValue);
-  const ffma::ResidualEpi epi{static_cast<const float*>(bias),
-                              static_cast<const float*>(x),
-                              static_cast<float*>(y),
-                              dim,
-                              inv_keep,
-                              static_cast<uint32_t>(keep_q),
-                              seed};
-  return static_cast<int>(ffma::launch_gemm(
-      static_cast<const float*>(a), static_cast<const float*>(w), M, dim,
-      inner, epi, static_cast<cudaStream_t>(stream)));
+  // The three maps are encoded, and the kernel allowed its shared memory,
+  // before the launch.
+  CUtensorMap ta, tbig, tsmall;
+  cudaError_t err =
+      encode_kmajor_f32(&ta, static_cast<const float*>(a), M, inner, kBM);
+  if (err == cudaSuccess)
+    err = encode_kmajor_f32(&tbig, static_cast<const float*>(w_big), dim,
+                            inner, kBN);
+  if (err == cudaSuccess)
+    err = encode_kmajor_f32(&tsmall, static_cast<const float*>(w_small), dim,
+                            inner, kBN);
+  if (err == cudaSuccess) err = allow_fc2_residual_smem();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_fc2_residual(
+      ta, tbig, tsmall, static_cast<const float*>(bias),
+      static_cast<const float*>(x), static_cast<float*>(y), M, dim, inner,
+      inv_keep, static_cast<uint32_t>(keep_q), seed,
+      static_cast<cudaStream_t>(stream)));
 }
 
-// Dynamic shared memory of a block of the FFMA GEMMs (ffma.cuh), the one
-// count ops/fused_mlp.py f32_gemm_smem_bytes holds.
-extern "C" long long nvt_ffma_gemm_smem_bytes() {
-  return static_cast<long long>(nvt::ffma::kSmemBytes);
+// Dynamic shared memory of a block of K3 f32's one launch, K4 f32's
+// fc2_residual (ops/fused_outproj.py outproj_f32_plan, ops/tf32x3.py SMEM).
+extern "C" long long nvt_fused_outproj_f32_smem_bytes() {
+  return static_cast<long long>(nvt::tf32x3_wgmma::fc2_residual_smem_bytes());
 }

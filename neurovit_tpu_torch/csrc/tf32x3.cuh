@@ -4,23 +4,23 @@
 // (flash_attention_bwd_f32.cu, K5 and K6's backward at f32) run every one
 // of their matrix products here.
 //
-// One TF32 product keeps 10 mantissa bits of each operand, too few for the
-// JAX package's f32 path (ffma.cuh). So each operand x is split into
-// big = rna_tf32(x) and small = x - big (exact in f32), and a product a.b
-// is taken as three TF32 products, small(a).big(b) and big(a).small(b)
-// first, then big(a).big(b) (the small terms are added while the sum is
-// still small). rna_tf32 rounds as cvt.rna.tf32.f32 does (to nearest, ties
-// away from zero), by an integer add and a mask, which the H100 runs
-// faster than the cvt. The tensor cores read a TF32 operand's top 19
+// One TF32 product keeps 10 mantissa bits of each operand, too few for the JAX
+// package's f32 path (neurovit_tpu/nn.py:28-32, ffma.cuh). So each operand x
+// is split into big = rna_tf32(x) and small = x - big (exact in f32), and a
+// product a.b is taken as three TF32 products, small(a).big(b) and
+// big(a).small(b) first, then big(a).big(b) (the small terms are added while
+// the sum is still small). rna_tf32 rounds as cvt.rna.tf32.f32 does (to
+// nearest, ties away from zero), by an integer add and a mask, which the H100
+// runs faster than the cvt. The tensor cores read a TF32 operand's top 19
 // bits, so small enters truncated to 10 mantissa bits; rounding it with
 // cvt.rna first would gain half a bit of small, 2^-23 of x, for one more
-// instruction an operand (scripts/torch_attention_bwd_f32_variants.py
-// times both). Dropped: small(a).small(b), about 2^-22 of |a b|, and
-// small's last bits, about as much; so a product's error is a few times
-// FFMA's. Each step of 8 along k costs three MMAs of 16 x 8 x 8;
-// at the card's 495 TF32 TFLOP/s that is 165 TFLOP/s of f32 products at
-// most, against the CUDA cores' 67, but mma.sync's TF32 form reaches 322
-// TFLOP/s on the H100 (scripts/torch_mma_tf32_peak.py), so 107 in 3xTF32.
+// instruction an operand (scripts/torch_attention_bwd_f32_variants.py times
+// both). Dropped: small(a).small(b), about 2^-22 of |a b|, and small's last
+// bits, about as much; so a product's error is a few times FFMA's. Each step
+// of 8 along k costs three MMAs of 16 x 8 x 8; at the card's 495 TF32 TFLOP/s
+// that is 165 TFLOP/s of f32 products at most, against the CUDA cores' 67, but
+// mma.sync's TF32 form reaches 322 TFLOP/s on the H100
+// (scripts/torch_mma_tf32_peak.py), so 107 in 3xTF32.
 //
 // The sums: an MMA rounds its f32 sum toward zero, so a product that ran a
 // long k in one accumulator would drift by up to an ulp of the sum every

@@ -1,6 +1,8 @@
 // f32 GEMMs on the tensor cores by 3xTF32 on wgmma, for sm_90a: the
-// mainloop of K4's f32 fc1 and fc2 (fused_mlp_f32.cu) and K2's f32 QKV
-// product (fused_qkv_f32.cu), of the f32 backwards' products K8's dattn =
+// mainloop of K4's f32 fc1 and fc2 (fused_mlp_f32.cu; K3 at f32,
+// fused_outproj_f32.cu, is one launch of fc2, launch_fc2_residual below)
+// and K2's f32 QKV product (fused_qkv_f32.cu), of the f32 backwards'
+// products K8's dattn =
 // dz . Wout (fused_outproj_bwd_f32.cu), K9's da = dz . W2
 // (fused_mlp_bwd_f32.cu) and the du GEMM dh . W1 or dqkv . Wqkv of K9 and
 // K7 (tf32x3_ln_bwd.cuh), and their weight pre-passes.
@@ -497,6 +499,24 @@ inline cudaError_t encode_kmajor_f32(CUtensorMap* map, const float* ptr,
   }
   return cudaSuccess;
 }
+
+// K4 f32's last pass, fc2_residual (fused_mlp_f32.cu), which K3 f32
+// (fused_outproj_f32.cu) launches as its one GEMM: y [M, N] = x + (A .
+// Bt^T + bias) * keep factors, x added in f32, on Loop<4, 1> over
+// (ceil(N / 128), ceil(M / 128)) tiles, A [M, K] and Bt [N, K] (big and
+// small) by their maps (encode_kmajor_f32, boxes of kBM and kBN rows);
+// the mask of element (row, col) nn.keep_mask's bit at row * N + col under
+// seed, applied where keep_q > 0. allow_fc2_residual_smem() opts the
+// kernel into its fc2_residual_smem_bytes() of shared memory; call it
+// before the first launch.
+cudaError_t allow_fc2_residual_smem();
+cudaError_t launch_fc2_residual(const CUtensorMap& ta,
+                                const CUtensorMap& tbig,
+                                const CUtensorMap& tsmall, const float* bias,
+                                const float* x, float* y, int M, int N, int K,
+                                float inv_keep, uint32_t keep_q, uint64_t seed,
+                                cudaStream_t stream);
+size_t fc2_residual_smem_bytes();
 
 }  // namespace tf32x3_wgmma
 }  // namespace nvt

@@ -68,27 +68,6 @@ GEMM_THREADS = 2 * 128 + 32
 SUM_COLUMNS, SUM_WARPS = 32, 8
 
 
-# The f32 GEMM on the CUDA cores (csrc/ffma.cuh; K3 f32): output tile
-# rows and columns, the depth of a staged k slice, the slices in flight,
-# and its threads.
-F32_TILE, F32_BK, F32_STAGES, F32_THREADS = 128, 16, 2, 256
-
-
-def f32_gemm_smem_bytes() -> int:
-    """Dynamic shared memory of an f32 GEMM block (ffma.cuh kSmemBytes,
-    ``nvt_ffma_gemm_smem_bytes``): the slices in flight of A and B, each
-    16 k rows of 128 + 4 floats."""
-    return F32_STAGES * 2 * F32_BK * (F32_TILE + 4) * 4
-
-
-def f32_gemm_launch(name: str, m: int, n: int) -> tuple:
-    """(name, grid, threads, dynamic shared memory bytes) of an f32 GEMM
-    pass with an [m, n] output: one block a 128 x 128 tile, a grid of
-    (column tiles, row tiles)."""
-    return (name, (-(-n // F32_TILE), -(-m // F32_TILE)), F32_THREADS,
-            f32_gemm_smem_bytes())
-
-
 def gemm_tile_n(m: int, n: int) -> int:
     """Output columns of a K4 GEMM block with an [m, n] output: 128, or 64
     where 128-wide tiles would make fewer blocks than the card has SMs."""

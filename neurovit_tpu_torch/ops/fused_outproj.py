@@ -19,11 +19,13 @@ on TMA + ``wgmma``. K3 is one launch of K4's last pass
 at dropout > 0 only, then a GEMM that reads Wout as it lies
 (:func:`outproj_bwd_plan`); at dropout 0 dz is dy. Both take inner and
 dim as any multiples of 16. f32 CUDA tensors run
-``csrc/fused_outproj_f32.cu`` (K3 at f32, :func:`outproj_f32_plan`: one
-launch of ``csrc/ffma.cuh``'s GEMM in f32 on the CUDA cores) and ``csrc/fused_outproj_bwd_f32.cu`` (K8 at f32,
-:func:`outproj_bwd_f32_plan`: the weight pre-pass of ``ops/tf32x3.py``,
-K9 f32's dz rows pass without the LayerNorm at dropout > 0, then the GEMM
-in 3xTF32 on ``wgmma``, ``csrc/tf32x3_wgmma.cuh``).
+``csrc/fused_outproj_f32.cu`` (K3 at f32, :func:`outproj_f32_plan`: the
+forwards' weight pre-pass of ``ops/tf32x3.py`` on Wout as it lies, then
+one launch of K4 f32's fc2_residual pass in 3xTF32 on ``wgmma``,
+``csrc/tf32x3_wgmma.cuh``) and ``csrc/fused_outproj_bwd_f32.cu`` (K8 at
+f32, :func:`outproj_bwd_f32_plan`: the transposing weight pre-pass of
+``ops/tf32x3.py``, K9 f32's dz rows pass without the LayerNorm at dropout
+> 0, then the GEMM in 3xTF32 on ``wgmma``).
 """
 
 from __future__ import annotations
@@ -38,10 +40,9 @@ from neurovit_tpu_torch.ops.common import (FLOAT, INT, U64, VOID,
                                            check_operand, check_widths,
                                            dropout_args, is_training, launch,
                                            pick, ptr, weight_grad)
-from neurovit_tpu_torch.ops.fused_mlp import (F32_TILE, GEMM_THREADS,
-                                              MLP_TILE, ROW_WARPS,
-                                              f32_gemm_launch,
-                                              gemm_smem_bytes, gemm_tile_n)
+from neurovit_tpu_torch.ops.fused_mlp import (GEMM_THREADS, MLP_TILE,
+                                              ROW_WARPS, gemm_smem_bytes,
+                                              gemm_tile_n)
 
 
 def check_fwd_shapes(dim: int, inner: int) -> None:
@@ -86,16 +87,23 @@ def outproj_plan(m: int, dim: int, inner: int) -> OutprojPlan:
 
 
 def outproj_f32_plan(m: int, dim: int, inner: int) -> OutprojPlan:
-    """K3 f32's plan for m rows (the kernel's own count of the shared
-    memory is ``nvt_ffma_gemm_smem_bytes``): one fc2_residual pass of the
-    FFMA GEMM on 128 x 128 tiles over the [m, dim] output. The widths K3
-    takes. Raises where the kernel does not take them."""
+    """K3 f32's plan for m rows, its launches in order: split_wout, the
+    forwards' weight pre-pass on Wout [dim, inner] as it lies
+    (:func:`.tf32x3.split_launch`, its own wrapper), then K4 f32's
+    fc2_residual pass in 3xTF32 on ``wgmma`` on 128 x 128 tiles over the
+    [m, dim] output with K = inner (:func:`.tf32x3.gemm_launch`; the
+    kernel's own count of the shared memory is
+    ``nvt_fused_outproj_f32_smem_bytes``, the card test holds the two
+    equal). The widths K3 takes. Raises where the kernel does not take
+    them."""
     check_fwd_shapes(dim, inner)
     if m < 1:
         raise ValueError(f"the out-projection kernel takes at least one row, "
                          f"got {m}")
-    return OutprojPlan(launches=(f32_gemm_launch("fc2_residual", m, dim),),
-                       tile_n=F32_TILE)
+    return OutprojPlan(launches=(tf32x3.split_launch("split_wout",
+                                                     dim * inner),
+                                 tf32x3.gemm_launch("fc2_residual", m, dim)),
+                       tile_n=tf32x3.TILE)
 
 
 class OutprojBwdPlan(NamedTuple):
@@ -210,7 +218,9 @@ def fused_outproj_residual_f32_cuda(x: torch.Tensor, attn: torch.Tensor,
                                     *, dropout_rate: float = 0.0,
                                     seed: int = 0) -> torch.Tensor:
     """Launch K3 at f32 (:func:`outproj_f32_plan`) on f32 activations:
-    exact f32 products on the CUDA cores."""
+    Wout's split by the pre-pass (:func:`.tf32x3.split_cuda`, which counts
+    its own launch), then the f32 products in 3xTF32 on the tensor cores,
+    K4 f32's fc2_residual pass with A = attn."""
     b, n, dim = x.shape
     inner = attn.shape[-1]
     check_operand("x", x, torch.float32)
@@ -222,10 +232,11 @@ def fused_outproj_residual_f32_cuda(x: torch.Tensor, attn: torch.Tensor,
     outproj_f32_plan(b * n, dim, inner)
     inv_keep, keep_q = dropout_args(dropout_rate)
     y = torch.empty_like(x)
+    w_big, w_small = tf32x3.split_cuda(w)
     launch("nvt_fused_outproj_f32_fwd",
-           (VOID,) * 5 + (INT,) * 3 + (FLOAT, INT, U64), x, ptr(attn),
-           ptr(x), ptr(w), ptr(bias), ptr(y), b * n, inner, dim, inv_keep,
-           keep_q, int(seed))
+           (VOID,) * 6 + (INT,) * 3 + (FLOAT, INT, U64), x, ptr(attn),
+           ptr(x), ptr(w_big), ptr(w_small), ptr(bias), ptr(y), b * n,
+           inner, dim, inv_keep, keep_q, int(seed))
     fused_outproj_residual_f32_cuda.launches += 1
     return y
 

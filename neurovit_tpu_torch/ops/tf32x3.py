@@ -1,23 +1,23 @@
 """The weight pre-passes of the f32 GEMMs that run in 3xTF32 on ``wgmma``
 (``csrc/tf32x3_wgmma.cuh``: K4 and K9 at f32, ``ops/fused_mlp.py``; K2 and
-K7 at f32, ``ops/fused_qkv.py``; K8 at f32, ``ops/fused_outproj.py``), and
-the plan of those GEMMs' launches.
+K7 at f32, ``ops/fused_qkv.py``; K3 and K8 at f32,
+``ops/fused_outproj.py``), and the plan of those GEMMs' launches.
 
 ``wgmma`` takes TF32 operands K-major only. Each call first writes its
 weight split for 3xTF32: big = W rounded to TF32 (10 mantissa bits, to
 nearest, ties away from zero: ``cvt.rna.tf32.f32``) and small = W - big,
 which is exact, so big + small == W bit for bit. A torch Linear weight W
 [out, in] is K-major for the forwards' products (u . W1^T, g . W2^T, u .
-Wqkv^T), so :func:`split_cuda` splits it as it lies; it is MN-major for
-the backwards' products, which contract its out dimension (K8's dattn =
-dz . Wout, K9's da = dz . W2 and du = dh . W1, K7's du = dqkv . Wqkv), so
-:func:`split_t_cuda` writes W^T split. Nothing is kept across calls: the
-weights change with every optimizer step.
+Wqkv^T, a . Wout^T), so :func:`split_cuda` splits it as it lies; it is
+MN-major for the backwards' products, which contract its out dimension
+(K8's dattn = dz . Wout, K9's da = dz . W2 and du = dh . W1, K7's du =
+dqkv . Wqkv), so :func:`split_t_cuda` writes W^T split. Nothing is kept
+across calls: the weights change with every optimizer step.
 
 They replace no TPU kernel: the JAX package's kernels read their weights
-as they lie (neurovit_tpu/ops/fused_outproj.py:56, fused_mlp.py:108 and
-:141, fused_qkv.py:57 and :71). Bounded by their bytes: W read once, big
-and small written once.
+as they lie (neurovit_tpu/ops/fused_outproj.py:44 and :56, fused_mlp.py:108
+and :141, fused_qkv.py:57 and :71). Bounded by their bytes: W read once,
+big and small written once.
 """
 
 from __future__ import annotations

@@ -49,7 +49,10 @@ also at 0), and so do K6 and its backward at f32 (at dropout 0,
 K10-K13; but K8 at f32 goes through ``k8_f32_call`` of
 ``scripts/torch_outproj_device_times.py``: an older
 ``nvt_fused_outproj_f32_bwd`` (the FFMA design) takes Wout itself, this
-one's the weight pre-pass's split transpose; and K4 and K2 at f32 through
+one's the weight pre-pass's split transpose; K3 at f32 (also at dropout
+0.1) through ``k3_f32_call`` of the same script: an older
+``nvt_fused_outproj_f32_fwd`` (the FFMA design) takes Wout itself, this
+one's its split by the forwards' pre-pass; and K4 and K2 at f32 through
 ``k4_f32_call`` of ``scripts/torch_mlp_device_times.py`` and
 ``k2_f32_call`` of ``scripts/torch_qkv_device_times.py``: an older
 ``nvt_fused_mlp_f32_fwd`` / ``nvt_fused_ln_qkv_f32_fwd`` (the FFMA
@@ -66,9 +69,9 @@ checkout lacks is timed in this one alone (the median of 2 x
 With ``--step``, the flagship's f32 train step at batch 32 is timed too
 (``chip_smoke.py``'s (f): its seeded volumes, dropout 0.1, one fixed
 batch), with each library behind the kernels in the same turns, each
-turn the median of 5 steps after 2 (K8, K4, K2, K9 and K7 at f32 through
-``k8_f32_call``, ``k4_f32_call``, ``k2_f32_call``, ``k9_f32_call`` and
-``k7_f32_call``).
+turn the median of 5 steps after 2 (K3, K8, K4, K2, K9 and K7 at f32
+through ``k3_f32_call``, ``k8_f32_call``, ``k4_f32_call``,
+``k2_f32_call``, ``k9_f32_call`` and ``k7_f32_call``).
 
     python scripts/torch_kernel_ab.py --other <checkout> [--rounds 10]
         [--only <substring of a kernel's name>] [--batch 8] [--step]
@@ -99,7 +102,8 @@ from neurovit_tpu_torch.ops import (fused_mlp, fused_outproj,  # noqa: E402
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from torch_mlp_bwd_device_times import k9_f32_call  # noqa: E402
 from torch_mlp_device_times import k4_f32_call  # noqa: E402
-from torch_outproj_device_times import k8_f32_call  # noqa: E402
+from torch_outproj_device_times import (k3_f32_call,  # noqa: E402
+                                        k8_f32_call)
 from torch_qkv_bwd_device_times import k7_f32_call  # noqa: E402
 from torch_qkv_device_times import k2_f32_call  # noqa: E402
 
@@ -425,8 +429,10 @@ def cases(b: int = cs.B) -> dict:
         "fused_ln_qkv_f32 with u": ("nvt_fused_ln_qkv_f32_fwd", lambda: (
             k2_f32_call((xf, *ln, wqkv, h, d), return_u=True))),
         "fused_outproj_residual_f32": ("nvt_fused_outproj_f32_fwd", lambda: (
-            fused_outproj.fused_outproj_residual_f32_cuda(xf, attnf, wout,
-                                                          bout))),
+            k3_f32_call(xf, attnf, wout, bout))),
+        "fused_outproj_residual_f32 dropout": (
+            "nvt_fused_outproj_f32_fwd", lambda: (
+                k3_f32_call(xf, attnf, wout, bout, cs.DROPOUT, 1234))),
         "fused_mlp_block_f32": ("nvt_fused_mlp_f32_fwd", lambda: (
             k4_f32_call(mlpf))),
         "fused_mlp_block_f32 dropout h": ("nvt_fused_mlp_f32_fwd", lambda: (
@@ -491,11 +497,11 @@ def output_diffs(libs: dict, call) -> list:
 
 def f32_step_turns(libs: dict, rounds: int) -> None:
     """Print the flagship's f32 train step at batch 32 with each library
-    in turns (other, this, this, other), ``rounds`` times; K8, K4, K2, K9
-    and K7 at f32 go through :func:`k8_f32_call`, :func:`k4_f32_call`,
-    :func:`k2_f32_call`, :func:`k9_f32_call` and :func:`k7_f32_call`,
-    this checkout's wrappers where the library has their weight
-    pre-pass."""
+    in turns (other, this, this, other), ``rounds`` times; K3, K8, K4, K2,
+    K9 and K7 at f32 go through :func:`k3_f32_call`, :func:`k8_f32_call`,
+    :func:`k4_f32_call`, :func:`k2_f32_call`, :func:`k9_f32_call` and
+    :func:`k7_f32_call`, this checkout's wrappers where the library has
+    their weight pre-pass."""
     import tempfile
 
     from neurovit_tpu_torch.config import load_config
@@ -508,6 +514,14 @@ def f32_step_turns(libs: dict, rounds: int) -> None:
         if hasattr(_build.library(), "nvt_wsplit_f32"):
             return wrapper(dy, w, dropout_rate=dropout_rate, seed=seed)
         return k8_f32_call(dy, w, dropout_rate, seed)
+
+    outproj_wrapper = fused_outproj.fused_outproj_residual_f32_cuda
+
+    def outproj(x, a, w, b, dropout_rate=0.0, seed=0):
+        if not hasattr(_build.library(), "nvt_ffma_gemm_smem_bytes"):
+            return outproj_wrapper(x, a, w, b, dropout_rate=dropout_rate,
+                                   seed=seed)
+        return k3_f32_call(x, a, w, b, dropout_rate, seed)
 
     mlp_wrapper = fused_mlp.fused_mlp_block_f32_cuda
     qkv_wrapper = fused_qkv.fused_ln_qkv_f32_cuda
@@ -536,6 +550,7 @@ def f32_step_turns(libs: dict, rounds: int) -> None:
         return k7_f32_call(*args)
 
     wrappers = ((fused_outproj, "fused_outproj_bwd_f32_cuda", routed),
+                (fused_outproj, "fused_outproj_residual_f32_cuda", outproj),
                 (fused_mlp, "fused_mlp_block_f32_cuda", mlp),
                 (fused_qkv, "fused_ln_qkv_f32_cuda", qkv),
                 (fused_mlp, "fused_mlp_bwd_f32_cuda", mlp_bwd),

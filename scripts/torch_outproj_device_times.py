@@ -1,6 +1,6 @@
 """Device-only times of the out-projections: K3 (bf16, forward), K11 (int8,
 serving) pass by pass, and K8 (bf16, backward), beside the GEMM
-yardsticks at their shapes.
+yardsticks at their shapes; K3 and K8 at f32 pass by pass.
 
 ``chip_smoke.py`` times a call with CUDA events around it, which also
 counts the wrapper's enqueue (tensor maps and launches). This script reads
@@ -30,6 +30,17 @@ x [inner, dim]; ``torch._int_mm`` and K17 int8's at K11's; and
 ``torch.mm(dy, Wout)`` and K17 bf16's at [M, dim] x [dim, inner], K8's
 function at dropout 0 (K17 and ``torch._int_mm`` at M rounded up to
 16).
+
+K3 at f32 (with ``--only f32``, or after the rest): at batch 8 and 32,
+dropout 0 and 0.1, on f32 x and a (standard normal), Wout in nn.Linear's
+default range and a small b: each launch's device time apart (the
+forwards' weight pre-pass ``split_kernel`` on Wout and K4 f32's
+``fc2_residual`` pass; an older checkout's FFMA GEMM shows as
+``gemm_kernel``), their sum and the one-call CUDA-event time, the GEMM's
+rate (2 M dim inner flops) and share of the 3xTF32 bound, beside f32
+``torch.mm(a, Wout^T)``, K3's GEMM alone. ``--other`` routes K3 f32
+through :func:`k3_f32_call`, which hands an older
+``nvt_fused_outproj_f32_fwd`` (the FFMA design, no pre-pass) Wout itself.
 
 K8 at f32 (with ``--only f32``, or after the rest): at batch 8 and 32,
 dropout 0 and 0.1, on f32 dy (scale 0.1) and Wout in nn.Linear's default
@@ -83,7 +94,8 @@ HBM_BYTES_PER_S = 3.35e12
 # Kernel names as the profiler shows them, most specific first.
 PASSES = ("int8_outproj_kernel", "outproj_kernel", "rowquant_kernel",
           "fc2_residual_kernel", "dz_rows_kernel", "dattn_kernel",
-          "split_t_kernel", "transpose_kernel", "gemm_kernel")
+          "split_t_kernel", "split_kernel", "transpose_kernel",
+          "gemm_kernel")
 F32_BATCHES = (8, 32)
 TF32X3_PER_S, FFMA_PER_S = 165e12, 67e12
 
@@ -261,6 +273,89 @@ def k8_f32_call(dy: torch.Tensor, w: torch.Tensor, rate: float = 0.0,
     return dattn, dy if dz is None else dz
 
 
+def k3_f32_call(x: torch.Tensor, a: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor, rate: float = 0.0,
+                seed: int = 1234) -> torch.Tensor:
+    """K3 at f32 on the library behind the wrappers: this checkout's
+    wrapper where the library has no FFMA GEMM
+    (``nvt_ffma_gemm_smem_bytes``); else an older
+    ``nvt_fused_outproj_f32_fwd``, which takes Wout [dim, inner] itself.
+    y either way."""
+    if not hasattr(_build.library(), "nvt_ffma_gemm_smem_bytes"):
+        return k3.fused_outproj_residual_f32_cuda(x, a, w, b,
+                                                  dropout_rate=rate,
+                                                  seed=seed)
+    bsz, n, dim = x.shape
+    inner = a.shape[-1]
+    inv_keep, keep_q = common.dropout_args(rate)
+    y = torch.empty_like(x)
+    common.launch("nvt_fused_outproj_f32_fwd",
+                  (common.VOID,) * 5 + (common.INT,) * 3
+                  + (common.FLOAT, common.INT, common.U64), x,
+                  common.ptr(a), common.ptr(x), common.ptr(w),
+                  common.ptr(b), common.ptr(y), bsz * n, inner, dim,
+                  inv_keep, keep_q, seed)
+    return y
+
+
+def k3_f32_operands(b: int, seed: int = 43) -> tuple:
+    """f32 x [b, N, DIM] and a [b, N, INNER] standard normal, Wout [DIM,
+    INNER] in nn.Linear's default range and b [DIM] at 0.03, on the
+    card."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.tensor(scale * rng.standard_normal(shape),
+                            dtype=torch.float32, device="cuda")
+
+    w = torch.tensor(rng.uniform(-1, 1, (DIM, INNER)) / INNER ** 0.5,
+                     dtype=torch.float32, device="cuda")
+    return t(b, N, DIM), t(b, N, INNER), w, t(DIM, scale=0.03)
+
+
+def run_k3_f32(b: int, iters: int, named: bool) -> list:
+    """Lines of K3 f32 at batch b, dropout 0 and 0.1, beside f32
+    torch.mm(a, Wout^T), its GEMM alone; the first names torch.mm's
+    kernels unless ``named``."""
+    x, a, w, bias = k3_f32_operands(b)
+    m = b * N
+    flop = 2 * m * DIM * INNER
+    bound_ms = flop / TF32X3_PER_S * 1e3
+    a2, wt = a.reshape(m, INNER), w.t()
+    mm = lambda: torch.mm(a2, wt)  # noqa: E731
+    mm_dev = device_us(mm, iters)
+    mm_ms = sum(mm_dev.values()) / 1e3 if mm_dev else None
+    mm_events = events_ms(mm)
+    lines = []
+    if not named:
+        lines.append("f32 torch.mm(a, Wout^T)'s kernels: " + "; ".join(
+            f"{k[:80]} {v:.1f} us" for k, v in sorted(mm_dev.items())))
+    for rate in (0.0, 0.1):
+        m_ = measure(lambda: k3_f32_call(x, a, w, bias, rate), iters)
+        passes = m_["passes_us"]
+        gemm_us = passes.get("fc2_residual_kernel", passes.get("gemm_kernel"))
+        head = (f"K3 f32 batch {b} (M {m}, dim {DIM}, inner {INNER}) dropout "
+                f"{rate}: ")
+        if not passes:
+            head += "device not measured (no kernels traced)"
+        else:
+            head += (f"device {m_['device_ms']:.4f} ms (" + ", ".join(
+                f"{p} {us:.1f}" for p, us in passes.items()) + " us)")
+        if gemm_us:
+            head += (f"; GEMM {flop / gemm_us / 1e6:.1f} TFLOP/s, "
+                     f"{bound_ms * 1e3 / gemm_us:.3f} of the 3xTF32 bound")
+        head += (f"; events {m_['events_ms']:.4f} ms; 3xTF32 bound "
+                 f"{bound_ms:.4f} ms; f32 torch.mm(a, Wout^T) device "
+                 + ("not measured" if mm_ms is None else f"{mm_ms:.4f} ms")
+                 + f", events {mm_events:.4f} ms")
+        if mm_ms and m_["device_ms"]:
+            head += (f"; K3 f32 / torch.mm: device "
+                     f"{m_['device_ms'] / mm_ms:.3f}, events "
+                     f"{m_['events_ms'] / mm_events:.3f}")
+        lines.append(head + f"; enqueue {m_['enqueue_us']:.1f} us a call")
+    return lines
+
+
 def f32_operands(b: int, seed: int = 42) -> tuple:
     """f32 dy [b, N, DIM] at 0.1 and Wout [DIM, INNER] in nn.Linear's
     default range, on the card."""
@@ -320,8 +415,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--only", choices=("bf16", "f32"), default=None,
-                    help="time only the bf16 and int8 kernels, or only K8 "
-                    "at f32")
+                    help="time only the bf16 and int8 kernels, or only K3 "
+                    "and K8 at f32")
     ap.add_argument("--other", default=None,
                     help="root of another checkout whose kernels to time")
     args = ap.parse_args(argv)
@@ -341,6 +436,10 @@ def main(argv=None) -> int:
                 print(text, flush=True)
             torch.cuda.empty_cache()
     if args.only != "bf16":
+        for i, b in enumerate(F32_BATCHES):
+            for text in run_k3_f32(b, args.iters, named=i > 0):
+                print(text, flush=True)
+            torch.cuda.empty_cache()
         for i, b in enumerate(F32_BATCHES):
             for text in run_f32(b, args.iters, named=i > 0):
                 print(text, flush=True)

@@ -1920,7 +1920,7 @@ def test_fourd_resnet_encoder_launches_k14(cuda):
     assert (got.detach().cpu() - want).abs().max() <= 2e-2
 
 
-# K1-K4 at f32 (csrc/*_f32.cu, csrc/ffma.cuh): f32 products on the CUDA
+# K1-K4 at f32 (csrc/*_f32.cu): f32 products in 3xTF32 on the tensor
 # cores, held to the plain versions at rtol = atol = 1e-4 (f32 sums taken
 # in another order; the dropout masks are the same bits on both sides).
 F32_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -1995,16 +1995,20 @@ def test_fused_ln_qkv_f32_kernel(cuda, m, dim, heads, dh, return_u):
                                          (300, 768, 768), (8008, 1024, 512),
                                          (65, 1280, 1280)])
 def test_fused_outproj_f32_kernel(cuda, m, dim, inner, rate):
+    """K3 at f32 against plain, one launch a call after one launch of the
+    forwards' weight pre-pass on Wout, two calls bit-equal."""
+    from neurovit_tpu_torch.ops import tf32x3
     rng = np.random.default_rng(m + inner)
     args = (_f32(rng, (1, m, dim), cuda), _f32(rng, (1, m, inner), cuda),
             _f32(rng, (dim, inner), cuda, inner ** -0.5),
             _f32(rng, (dim,), cuda, 0.05))
     kw = {"dropout_rate": rate, "seed": 11}
-    before = fused_outproj.fused_outproj_residual_f32_cuda.launches
+    before = (fused_outproj.fused_outproj_residual_f32_cuda.launches,
+              tf32x3.split_cuda.launches)
     got = fused_outproj.fused_outproj_residual(*args, **kw)
     _check_f32(got, fused_outproj.fused_outproj_residual_plain(*args, **kw))
-    assert fused_outproj.fused_outproj_residual_f32_cuda.launches == \
-        before + 1
+    assert (fused_outproj.fused_outproj_residual_f32_cuda.launches,
+            tf32x3.split_cuda.launches) == (before[0] + 1, before[1] + 1)
     assert torch.equal(got, fused_outproj.fused_outproj_residual(*args, **kw))
 
 
@@ -2062,23 +2066,22 @@ def test_f32_kernels_zero_rows(cuda, zero_bias):
 
 
 def test_f32_plans_match_the_kernels(cuda):
-    """The wrappers' f32 plans count the FFMA GEMM's shared memory, the
-    3xTF32 GEMMs' of K4 and K2 (``nvt_fused_mlp_f32_smem_bytes``,
-    ``nvt_fused_ln_qkv_f32_smem_bytes``), the weight pre-pass's blocks,
-    K4's scratch and K1's shared memory (its Q box, TMA ring and
-    barriers) as the kernels do, at every width and head-dim instance."""
+    """The wrappers' f32 plans count the 3xTF32 GEMMs' shared memory of
+    K3, K4 and K2 (``nvt_fused_outproj_f32_smem_bytes``,
+    ``nvt_fused_mlp_f32_smem_bytes``, ``nvt_fused_ln_qkv_f32_smem_bytes``),
+    the weight pre-pass's blocks, K4's scratch and K1's shared memory (its
+    Q box, TMA ring and barriers) as the kernels do, at every width and
+    head-dim instance."""
     import ctypes
 
     from neurovit_tpu_torch.ops import _build, tf32x3
     lib = _build.library()
-    gemm = lib.nvt_ffma_gemm_smem_bytes
-    gemm.restype, gemm.argtypes = ctypes.c_longlong, []
     scratch = lib.nvt_fused_mlp_f32_scratch_bytes
     scratch.restype, scratch.argtypes = ctypes.c_longlong, [ctypes.c_int] * 3
     attn = lib.nvt_flash_attention_f32_smem_bytes
     attn.restype, attn.argtypes = ctypes.c_longlong, [ctypes.c_int]
-    assert gemm() == fused_mlp.f32_gemm_smem_bytes()
-    for entry in (lib.nvt_fused_mlp_f32_smem_bytes,
+    for entry in (lib.nvt_fused_outproj_f32_smem_bytes,
+                  lib.nvt_fused_mlp_f32_smem_bytes,
                   lib.nvt_fused_ln_qkv_f32_smem_bytes):
         entry.restype, entry.argtypes = ctypes.c_longlong, []
         assert entry() == tf32x3.SMEM
@@ -2092,8 +2095,11 @@ def test_f32_plans_match_the_kernels(cuda):
                 lib.nvt_fused_mlp_f32_smem_bytes()] * 2
             qkv = fused_qkv.qkv_f32_plan(m, dim, heads * dh).launches
             assert qkv[-1][3] == lib.nvt_fused_ln_qkv_f32_smem_bytes()
+            out = fused_outproj.outproj_f32_plan(m, dim, heads * dh).launches
+            assert out[-1][3] == lib.nvt_fused_outproj_f32_smem_bytes()
         for n, launch in ((hid * dim, plan.launches[0]),
-                          (3 * heads * dh * dim, qkv[0])):
+                          (3 * heads * dh * dim, qkv[0]),
+                          (dim * heads * dh, out[0])):
             assert launch[1] == (blocks(n), 1)
         plan = fa.flash_f32_plan(2, 1001, heads, dh)
         assert attn(plan.d_kernel) == plan.smem
@@ -2105,8 +2111,9 @@ def test_f32_plans_match_the_kernels(cuda):
 def test_f32_kernels_do_not_spill(cuda):
     """ptxas's report in the build log: no kernel of the f32 forwards and
     backwards (csrc/*_f32.cu, the row passes of csrc/ffma.cu) spills, K8
-    f32's weight pre-pass and 3xTF32 wgmma GEMM, K4 f32's fc1 and fc2 and
-    K2 f32's QKV GEMM on the same Loop, K9 f32's hidden GEMM and the du
+    f32's weight pre-pass and 3xTF32 wgmma GEMM, K4 f32's fc1 and fc2 (fc2
+    also K3 f32's one GEMM: fused_outproj_f32.cu compiles no GEMM of its
+    own) and K2 f32's QKV GEMM on the same Loop, K9 f32's hidden GEMM and the du
     GEMM of K9 and K7 at f32 (tf32x3_ln_bwd.cuh, an instance in each
     source), the forwards' weight pre-pass and
     the six 3xTF32 instances of K1 and K6 at f32 among them, nor any f32
@@ -2128,6 +2135,11 @@ def test_f32_kernels_do_not_spill(cuda):
     k4 = [k[1] for k in f32 if k[0] == "fused_mlp_f32.cu"]
     for name in ("fc1_gelu_kernel", "fc2_residual_kernel", "split_kernel"):
         assert any(name in k for k in k4), name
+    # K3 at f32: its source holds only the instances of the header's
+    # pre-passes that every source including tf32x3_wgmma.cuh compiles.
+    k3 = [k[1] for k in f32 if k[0] == "fused_outproj_f32.cu"]
+    assert k3 and all("split_kernel" in k or "split_t_kernel" in k
+                      for k in k3), k3
     assert any("qkv_gemm_kernel" in k[1] for k in f32
                if k[0] == "fused_qkv_f32.cu")
     # K9 and K7 at f32: the 3xTF32 hidden and du GEMMs.

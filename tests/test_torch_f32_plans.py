@@ -3,8 +3,8 @@ csrc/ffma.cuh, csrc/tf32x3_wgmma.cuh) as far as the CPU reaches them:
 their plans at the
 flagship, at 130 rows, at every width of ``models/vit3d.py`` WIDTHS and
 the smoke model's, and at head dims 32, 64 and 128; the kernels' index
-maps (the FFMA GEMM's staging copies of B [N, K]) modelled in numpy;
-their dropout bytes against ``nn.keep_mask``; and the dispatch rule (CPU tensors run the
+maps (the f32 attention backward's cp.async staging copies) modelled in
+numpy; their dropout bytes against ``nn.keep_mask``; and the dispatch rule (CPU tensors run the
 plain versions, f32 CUDA tensors the f32 kernels, bf16 ones the bf16
 kernels), forward and backward, in both attention layouts; what the
 attention wrappers hand their entry points, with the launch stubbed. The
@@ -41,23 +41,14 @@ SMOKE = (64, 4, 16, 128)
 BWD_WIDTHS = sorted(WIDTHS.values()) + [SMOKE]
 
 
-def _gemm_covers(launch, m, n):
-    name, grid, threads, smem = launch
-    assert threads == fused_mlp.F32_THREADS == 256
-    assert smem == fused_mlp.f32_gemm_smem_bytes() == 2 * 2 * 16 * 132 * 4
-    assert smem <= SMEM_LIMIT
-    assert grid[0] * 128 >= n > (grid[0] - 1) * 128
-    assert grid[1] * 128 >= m > (grid[1] - 1) * 128
-
-
 @pytest.mark.parametrize("m", ROWS)
 @pytest.mark.parametrize("width", sorted(WIDTHS))
 def test_f32_gemm_plans(width, m):
-    """K2, K3 and K4 at f32: K2 and K4 split their weights first (the
-    plain pre-pass, a launch a weight), then LayerNorm rows a warp each,
-    then GEMMs in 3xTF32 on wgmma whose 128 x 128 tiles cover the output;
-    K3 one FFMA GEMM; the scratch holds u (and g) f32 on 256-byte
-    boundaries."""
+    """K2, K3 and K4 at f32: each splits its weights first (the plain
+    pre-pass, a launch a weight), K2 and K4 then run LayerNorm rows a warp
+    each, then GEMMs in 3xTF32 on wgmma whose 128 x 128 tiles cover the
+    output (K3's one GEMM is K4's fc2_residual with K = inner); the
+    scratch holds u (and g) f32 on 256-byte boundaries."""
     dim, heads, dh, hid = WIDTHS[width]
     inner = heads * dh
     for return_u in (False, True):
@@ -72,9 +63,10 @@ def test_f32_gemm_plans(width, m):
         assert plan.scratch_bytes % 256 == 0
         assert plan.scratch_bytes >= sum(b for _, b in plan.scratch.values())
     plan = fused_outproj.outproj_f32_plan(m, dim, inner)
-    (gemm,) = plan.launches
-    assert gemm[0] == "fc2_residual"
-    _gemm_covers(gemm, m, dim)
+    split, gemm = plan.launches
+    assert split == tf32x3.split_launch("split_wout", dim * inner)
+    assert gemm[0] == "fc2_residual" and plan.tile_n == 128
+    _tf32x3_gemm_covers(gemm, m, dim)
     plan = fused_mlp.mlp_f32_plan(m, dim, hid)
     split1, split2, ln, fc1, fc2 = plan.launches
     assert split1 == tf32x3.split_launch("split_w1", hid * dim)
@@ -91,9 +83,9 @@ def test_f32_gemm_plans(width, m):
 
 def _tf32x3_gemm_covers(launch, m, n):
     """A 3xTF32 GEMM on wgmma (csrc/tf32x3_wgmma.cuh: K8 f32's dattn, K4
-    f32's fc1 and fc2, K2 f32's QKV): two consumer warpgroups and the
-    producer warp, four 48 KiB stages, one block an SM, 128 x 128 tiles
-    over the [m, n] output."""
+    f32's fc1 and fc2, K3 f32's fc2 launch, K2 f32's QKV): two consumer
+    warpgroups and the producer warp, four 48 KiB stages, one block an SM,
+    128 x 128 tiles over the [m, n] output."""
     name, grid, threads, smem = launch
     assert threads == fused_mlp.GEMM_THREADS == 288
     assert smem == tf32x3.SMEM == 1024 + 4 * 3 * 16384 + 64
@@ -341,37 +333,46 @@ def test_f32_plans_refuse_what_bf16_refuses():
 
 
 def test_gemm_staging_copies_are_a_conflict_free_bijection():
-    """ffma.cuh stage_slice: copy c of thread t takes element idx = t +
-    256 c of a 16 x 128 slice, k = (idx & 7) + 8 (idx >> 10), r = (idx >>
-    3) & 127, into As[k][r] (rows of 132 floats), which the kernel computes
-    as t % 8 + 8 (c / 4) and t / 8 + 32 (c % 4). Every element once; a
-    warp's copy lands in 32 banks and reads 4 rows' 32 contiguous bytes."""
-    idx = np.arange(16 * 128)
-    k = (idx & 7) + 8 * (idx >> 10)
-    r = (idx >> 3) & 127
-    t, c = idx % 256, idx // 256
-    np.testing.assert_array_equal(k, t % 8 + 8 * (c // 4))
-    np.testing.assert_array_equal(r, t // 8 + 32 * (c % 4))
-    assert len(set(zip(k.tolist(), r.tolist()))) == idx.size
-    for warp in range(idx.size // 32):
-        lanes = slice(32 * warp, 32 * warp + 32)
-        banks = (k[lanes] * 132 + r[lanes]) % 32
-        assert len(set(banks.tolist())) == 32
-        rows = set(r[lanes].tolist())
-        assert len(rows) == 4
-        for row in rows:
-            assert sorted(k[lanes][r[lanes] == row].tolist()) == \
-                list(range(k[lanes][0] // 8 * 8, k[lanes][0] // 8 * 8 + 8))
+    """The cp.async staging of the f32 attention backward's products
+    (flash_attention_bwd_f32.cu ``stage``, on ffma.cuh's cp_async16; the
+    f32 GEMMs of the block load by TMA): a block of 128 threads copies
+    rows r0 .. r0 + kN of a head, D / 4 16-byte chunks a row, copy c =
+    threadIdx.x + 128 i to row c / (D / 4), chunk c % (D / 4), at float r
+    (D + 4) + 4 ch of the tile. At the kernel's head dims (32, 64, 128)
+    and tile heights (64-row K / V tiles, 32-row Q / dO stages): every
+    chunk once, 16-byte aligned; each quarter-warp's eight 16-byte stores
+    fall in eight distinct four-bank groups and read 128 contiguous bytes
+    of one row; rows past N (ragged) are the zero-filled copies."""
+    threads = 128
+    for d in (32, 64, 128):
+        chunks, ld = d // 4, d + 4
+        assert ld * 4 % 16 == 0
+        for rows, n_left in ((64, 64), (64, 37), (32, 32), (32, 5)):
+            c = np.arange(rows * chunks)
+            r, ch = c // chunks, c % chunks
+            at = r * ld + 4 * ch
+            assert len(set(at.tolist())) == c.size
+            assert (at % 4 == 0).all() and (4 * ch + 4 <= d).all()
+            thread, it = c % threads, c // threads
+            np.testing.assert_array_equal(thread + threads * it, c)
+            for start in range(0, c.size, 8):
+                quarter = slice(start, start + 8)
+                groups = (at[quarter] % 32) // 4
+                assert len(set(groups.tolist())) == 8
+                assert len(set(r[quarter].tolist())) == 1
+                assert (np.diff(ch[quarter]) == 1).all()
+            valid = r < n_left
+            assert valid.sum() == min(rows, n_left) * chunks
 
 
 @pytest.mark.parametrize("rate", [0.1, 0.5])
 def test_gemm_dropout_bytes_are_keep_mask(rate):
     """ffma.cuh keep4 at every float4 of an [m, n] site (n % 16 == 0):
     word (i >> 2) & 3 of Philox(i >> 4), its four bytes below q, equal to
-    nn.keep_mask's bits. K3 f32's epilogue and the dz rows pass of K8 and
-    K9 at f32 (at row * dim + col) draw it so; the 3xTF32 epilogues of K2,
-    K4 and K9's hidden GEMM draw keep_quad
-    (tests/test_torch_mlp_qkv_fwd_tf32x3.py,
+    nn.keep_mask's bits. The dz rows pass of K8 and K9 at f32 (at row *
+    dim + col) draws it so; the 3xTF32 epilogues of K2, K3, K4 and K9's
+    hidden GEMM draw keep_quad (tests/test_torch_mlp_qkv_fwd_tf32x3.py,
+    tests/test_torch_outproj_fwd_tf32x3.py,
     tests/test_torch_mlp_qkv_bwd_tf32x3.py)."""
     m, n, seed = 5, 48, 0x1234_5678_9ABC
     q, _ = nn.keep_threshold(rate)
