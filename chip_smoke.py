@@ -308,6 +308,24 @@ Phases, each printing a line; any failure raises and exits non-zero:
                every block kernel launched; a ViT-B-width model (768, 12 x
                64, 3072, depth 4) served by Predictor against the CPU plain
                path
+20. dp         data parallelism (neurovit_tpu_torch/parallel): (a) the CLI
+               under torchrun at world 1, NCCL, 3 steps of the flagship in
+               bf16 on seeded synthetic cubes, its train and validation
+               lines and its train state bit-equal to the CLI's run with
+               no process group; the step at batch 128 through the NCCL
+               path beside the plain step
+               (scripts/torch_dp_step_times.py, in turns); (b) two ranks on
+               the one card over gloo (a file:// rendezvous the port
+               adopts) against one process on the same global batch: the
+               flagship bf16 at 16, f32 at 8, the ResNet-18 at 4 (f32)
+               through the global BatchNorm, config4D's B 2 x T 140 on the
+               int8 encoder with the stream split 140 / 140, at dropout 0:
+               losses within DP_LOSS_RTOL, reduced gradients within the
+               bf16 or f32 gradient bound, parameters, gradients and
+               running statistics bit-equal on the ranks, each rank's
+               launches the one-process step's; (c) the flagship served at
+               batch 32 on two replicas on cuda:0, bf16 and int8, against
+               one replica; the phase's seconds
 
 The kernel phase also checks K14 (the stem's max-pool with its argmax
 codes) and K15 (its backward) at [8, 90, 45, 45, 64] bf16 on a continuous,
@@ -5656,6 +5674,486 @@ def train_features_phase(config, workdir: str, card: str,
     return total
 
 
+# ---------------------------------------------------------------------------
+# 20. dp: data parallelism
+# ---------------------------------------------------------------------------
+
+# A data-parallel step against one process on the same global batch: the
+# losses (f32 sums of the same per-row values taken in another order). The
+# ResNet's at the JAX test's bound (tests/test_sharding.py:84): its global
+# BatchNorm sums each channel over the ranks' halves in another order, and
+# twenty BatchNorms move the loss by tens of f32 ulps (1.7e-6 relative on
+# the CPU rehearsal at depth 10).
+DP_LOSS_RTOL = 1e-6
+DP_BN_LOSS_RTOL = 1e-5
+# Gradients, relative Frobenius error per parameter, a parameter's norm
+# floored at this share of the model's largest gradient norm (the rule of
+# tests/test_torch_parallel_ranks.py: the 4D temporal layer's gradients are
+# 1e-10 to 1e-4 of the projection's, f32 noise of the same sums).
+DP_GRAD_FLOOR = 1e-3
+# (b)'s cases: the flagship bf16 at global batch 16, f32 at 8, the
+# ResNet-18 at 4 (f32: its bf16 gradients move by tens of percent with one
+# rounding, phase 16), config4D's B 2 x T 140 on the int8 encoder.
+DP_CASES = {"vit_bf16": 16, "vit_f32": 8, "resnet_f32": 4, "fourd_int8": 2}
+DP_WORLD = 2
+# (a)'s CLI runs: 24 train volumes at batch 8.
+DP_STEPS = 3
+# torchrun's and the launcher's variables, kept out of the runs' children.
+_LAUNCH_ENVS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                "GROUP_RANK", "ROLE_RANK", "MASTER_ADDR", "MASTER_PORT",
+                "TORCHELASTIC_RUN_ID")
+
+
+def _repo_env() -> dict:
+    """This environment for a child run from the repository: its root on
+    PYTHONPATH, no launcher's variables."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k not in _LAUNCH_ENVS}
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (here, env.get("PYTHONPATH")) if p)
+    return env
+
+
+def _dp_cli_run(config, workdir: str, name: str, launcher: list):
+    """Start ``python -m neurovit_tpu_torch.main`` (after ``launcher``) on
+    the flagship, bf16, over 30 seeded synthetic cube volumes (24 train at
+    batch 8: DP_STEPS steps, 6 validation), in a directory of its own.
+    Returns (the process, its directory, its output file)."""
+    import yaml
+    root = os.path.join(workdir, "dp", name)
+    os.makedirs(root)
+    cfg = {**config, "DATASET_NAME": "gradcam", "DATASET_GENERATE": True,
+           "GRADCAM_NUM_SAMPLES": 30,
+           "GRADCAM_TRAIN_PATH": os.path.join(root, "gradcam_train.pkl"),
+           "GRADCAM_VAL_PATH": os.path.join(root, "gradcam_val.pkl"),
+           "TRAINING_BATCH_SIZE": 8, "TRAINING_EPOCHS": 1,
+           "TRAINING_NUM_WORKERS": 4, "TRAINING_PRECISION": "bf16",
+           "WANDB_ENABLED": False,
+           "GLOBAL_OUTPUT_DIR": os.path.join(root, "runs")}
+    path = os.path.join(root, "config.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    out = open(os.path.join(root, "out.txt"), "w")
+    cmd = [sys.executable, *launcher, "-m", "neurovit_tpu_torch.main",
+           f"dp_{name}", "--wandb", "false", "--config", path]
+    proc = subprocess.Popen(cmd, cwd=root, env=_repo_env(), stdout=out,
+                            stderr=subprocess.STDOUT, start_new_session=True)
+    return proc, root, out
+
+
+def _stop(proc) -> None:
+    """Kill ``proc`` and every process of its session (torchrun's worker
+    among them), if it still runs."""
+    import signal
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def _finish(proc, out, what: str, timeout: float = 600) -> str:
+    """Wait for ``proc``; its output, which must end in exit code 0."""
+    try:
+        rc = proc.wait(timeout=timeout)
+    finally:
+        _stop(proc)
+        out.close()
+    text = open(out.name).read()
+    if rc != 0:
+        raise AssertionError(f"{what} exited {rc}: {text[-4000:]}")
+    return text
+
+
+def _dp_train_lines(text: str) -> list:
+    """The run's train and validation lines without their durations."""
+    import re
+    return [re.sub(r"duration: [0-9.]+s", "", line) for line in
+            text.splitlines()
+            if line.startswith(("epoch ", "[VALIDATION]"))]
+
+
+TORCHRUN = ["-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node=1"]
+
+
+def _dp_entry_point(config, workdir: str, runs: dict, card: str) -> None:
+    """(a): the CLI under torchrun at world 1 (NCCL) against the CLI with
+    no process group, both started at the phase's start: their train and
+    validation lines and their train states after DP_STEPS steps bit for
+    bit; then the step at batch 128 through the NCCL path beside the
+    plain step (scripts/torch_dp_step_times.py, in turns)."""
+    import glob
+    phase = "dp"
+    texts, states = {}, {}
+    for name, (proc, root, out) in runs.items():
+        texts[name] = _finish(proc, out, f"the {name} CLI run")
+        files = glob.glob(os.path.join(root, "runs", "*", "model-e0"))
+        if len(files) != 1:
+            raise AssertionError(f"{name}: train state not written: {files}")
+        states[name] = torch.load(files[0], map_location="cpu",
+                                  weights_only=True)
+    for want in ("Distributed runtime: rank 0/1 on cuda:0",
+                 "Running on mesh: {'data': 1, 'model': 1, 'pipe': 1} "
+                 "(nccl)"):
+        if want not in texts["nccl"]:
+            raise AssertionError(f"torchrun's run did not print {want!r}")
+    if "(one process)" not in texts["plain"]:
+        raise AssertionError("the plain run did not run in one process")
+    lines = {name: _dp_train_lines(text) for name, text in texts.items()}
+    if not lines["plain"] or lines["plain"] != lines["nccl"]:
+        raise AssertionError(f"train lines differ: {lines}")
+    _equal_states(states["nccl"], states["plain"], "model-e0")
+    steps = states["plain"]["optimizer"]["steps"]
+    if steps != DP_STEPS:
+        raise AssertionError(f"{steps} optimizer steps, expected {DP_STEPS}")
+    for line in lines["nccl"]:
+        log(phase, f"(a) torchrun, NCCL, world 1: {line.expandtabs(1)}")
+    log(phase, f"(a) torchrun -m neurovit_tpu_torch.main at world 1 (NCCL): "
+        f"{steps} steps of the flagship, bf16, dropout "
+        f"{config['TRAINING_DROPOUT']}: train and validation lines and the "
+        "train state (weights, AdamW moments, seed stream) bit-equal to the "
+        "run with no process group")
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, *TORCHRUN,
+         os.path.join(here, "scripts", "torch_dp_step_times.py"),
+         "--batch", "128"], cwd=workdir, env=_repo_env(),
+        capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"torch_dp_step_times exited {proc.returncode}:"
+                             f" {proc.stdout[-2000:]} {proc.stderr[-4000:]}")
+    for line in proc.stdout.strip().splitlines()[:-2]:
+        log(phase, f"(a) {line}")
+    times = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(phase, f"(a) train step at batch 128, flagship bf16: plain "
+        f"{times['plain_ms']} ms, through the NCCL path {times['dp_ms']} ms "
+        f"(medians of 5, turns plain, dp, dp, plain), peak "
+        f"{times['peak_gib']} GiB; {times['card']}")
+
+
+def _dp_case(name: str, workdir: str, precision=None):
+    """(config, train dataset, global host batch) of a case of (b), its
+    TRAINING_PRECISION ``precision`` when given."""
+    from neurovit_tpu_torch.config import load_config
+    config = load_config()
+    out = os.path.join(workdir, "dp", "cases")
+    b = DP_CASES[name]
+    common = {"TRAINING_DROPOUT": 0.0, "TRAINING_LEARNING_RATE": 1e-4,
+              "TRAINING_BATCH_SIZE": b, "TRAINING_NUM_WORKERS": 1,
+              "WANDB_ENABLED": False, "GLOBAL_OUTPUT_DIR": out}
+    rng = np.random.default_rng(SEED + 20)
+    if name == "fourd_int8":
+        cfg = _fourd_config(workdir, **common, MODEL_TEMPORAL_DROPOUT=0.0,
+                            TRAINING_ACCUMULATION_STEP=1,
+                            TRAINING_4D_ENCODER_QUANT="int8")
+        size = cfg["TRAINING_VIT_INPUT_SIZE"]
+        data = _SeededSequences(b, size, SEQ_T, SEED + 21, "dp")
+        vols = np.stack([data.sample(i)["volume"] for i in range(b)])
+    else:
+        extra = ({"MODEL_VOLUME_ENCODER": "resnet", "MODEL_RESNET_DEPTH": 18}
+                 if name.startswith("resnet") else {})
+        cfg = {**config, **common, **extra,
+               "TRAINING_PRECISION": name.rsplit("_", 1)[1]}
+        size = cfg["TRAINING_VIT_INPUT_SIZE"]
+        data = _SeededVolumes(b, size, SEED + 21, "dp")
+        vols = rng.standard_normal((b,) + (size,) * 3, dtype=np.float32)
+    batch = {"volume": vols, "label": np.arange(b) % 2,
+             "valid": np.ones(b, np.bool_)}
+    if precision is not None:
+        cfg = dict(cfg, TRAINING_PRECISION=precision)
+    return cfg, data, batch
+
+
+def _digest(tensors: dict) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for name, value in tensors.items():
+        h.update(name.encode())
+        h.update(value.detach().cpu().contiguous().view(-1).view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_run_case(name: str, workdir: str, counters: dict, mesh=None,
+                 keep: bool = True, precision=None) -> dict:
+    """One train step of case ``name`` on this process's rows, the launch
+    counts set to 0 just before it and read just after: the loss and count
+    it reports, the reduced gradients (``keep``) and their digest, the
+    state's digest (its BatchNorm running stats kept), the launches."""
+    from neurovit_tpu_torch.models import NeuroEncoder
+    from neurovit_tpu_torch.parallel import sharding
+    from neurovit_tpu_torch.training import Trainer
+
+    cfg, data, batch = _dp_case(name, workdir, precision)
+    model = NeuroEncoder(cfg, device="cuda", seed=SEED)
+    trainer = Trainer(cfg, model, data, data, mesh=mesh)
+    if trainer._shard_rows:
+        batch = sharding.local_rows(batch, trainer.mesh)
+    dbatch = {"volume": torch.from_numpy(batch["volume"]).cuda(),
+              "label": torch.from_numpy(batch["label"]).long().cuda(),
+              "valid": torch.from_numpy(batch["valid"]).cuda()}
+    grads, encoded = {}, []
+    if trainer._q8_encoder is not None:
+        trainer._q8_encoder.register_forward_hook(
+            lambda _m, args, _out: encoded.append(int(args[0].shape[0])))
+    names = {id(p): n for n, p in model.named_parameters()}
+    reduce = trainer.optimizer.before_update
+
+    def capture(params):
+        if reduce is not None:
+            reduce(params)
+        grads.update({names[id(p)]: p.grad.detach().float().clone()
+                      for p in params})
+
+    trainer.optimizer.before_update = capture
+    _reset(counters)
+    m = trainer.train_step(dbatch)
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in counters.items()}
+    state = model.state_dict()
+    out = {"loss": float(m["loss"]), "count": int(m["count"]),
+           "rows": int(dbatch["valid"].shape[0]), "encoded": encoded,
+           "grad_digest": _digest(grads), "state_digest": _digest(state),
+           "stats": {k: v.cpu() for k, v in state.items()
+                     if "running_" in k},
+           "launches": launches}
+    if keep:
+        out["grads"] = {k: v.cpu() for k, v in grads.items()}
+    del trainer, model
+    return out
+
+
+def _dp_rank(rank: int, world: int, workdir: str) -> None:
+    """(b)'s rank: a gloo group by a file:// rendezvous, adopted by the
+    port, every case run on this rank's rows on cuda:0, the results saved
+    for the parent (rank 0's gradients only: the reduced gradients are the
+    same on every rank, which their digests show)."""
+    import torch.distributed as dist
+    from neurovit_tpu_torch.parallel import create_mesh, distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/rdv",
+                            rank=rank, world_size=world)
+    try:
+        if not distributed.maybe_initialize({}, torch.device("cuda", 0)):
+            raise AssertionError("the port did not adopt the group")
+        if create_mesh({}).data != world:
+            raise AssertionError("the mesh is not the group")
+        counters = kernel_counters()
+        results = {name: _dp_run_case(name, workdir, counters,
+                                      keep=rank == 0)
+                   for name in DP_CASES}
+        torch.save(results, os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_grad_errs(got: dict, want: dict) -> dict:
+    floor = DP_GRAD_FLOOR * max(float(w.norm()) for w in want.values())
+    return {k: float((got[k] - w).norm()) / max(float(w.norm()), floor)
+            for k, w in want.items()}
+
+
+def _dp_hold_bf16(name: str, got: dict, want: dict, truth: dict) -> str:
+    """The bf16 flagship's reduced gradients against the one-process f32
+    gradients of the same weights and batch: no farther than
+    BF16_GRAD_RATIO times the one-process bf16 gradients' error plus
+    GRAD_RTOL, in the worst and the median parameter (the ResNet's rule,
+    phase 16: a gradient summed over the batch is rounded to bf16 once a
+    rank here and once in one process)."""
+    errs = {"data-parallel": _dp_grad_errs(got, truth),
+            "one process": _dp_grad_errs(want, truth)}
+    for stat in (max, lambda v: float(np.median(v))):
+        dp, one = (stat(list(e.values())) for e in errs.values())
+        if dp > BF16_GRAD_RATIO * one + GRAD_RTOL:
+            raise AssertionError(
+                f"{name}: bf16 gradients {dp:.3e} from the f32 gradients, "
+                f"one process's {one:.3e} (held to {BF16_GRAD_RATIO} x + "
+                f"{GRAD_RTOL})")
+    return "; against the f32 gradients: " + ", ".join(
+        f"{k} {err_text(e)}" for k, e in errs.items()) + (
+        f" (held to {BF16_GRAD_RATIO} x one process's + {GRAD_RTOL}, worst "
+        "and median)")
+
+
+def _dp_hold_ranks(ranks: list, single: dict, truth: dict,
+                   card: str) -> dict:
+    """(b): every rank against one process, and the ranks against each
+    other; ``truth`` holds one-process f32 gradients of the bf16 cases.
+    Returns rank 0's launches, summed over the cases."""
+    phase = "dp"
+    total = {}
+    for name, b in DP_CASES.items():
+        want = single[name]
+        # The ViT's f32 bound (phase 18); the ResNet's f32 gradients are
+        # held to GRAD_RTOL, as in phase 16: cuDNN picks its convolutions'
+        # algorithms by the batch, and a BatchNorm bias's gradient, a sum
+        # that nearly cancels, moves by 4e-3 of its norm with them.
+        bound = F32_GRAD_RTOL if name == "vit_f32" else GRAD_RTOL
+        loss_rtol = DP_BN_LOSS_RTOL if want["stats"] else DP_LOSS_RTOL
+        for r, res in enumerate(ranks):
+            got = res[name]
+            rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+            if rel > loss_rtol or got["count"] != want["count"]:
+                raise AssertionError(
+                    f"{name} rank {r}: loss {got['loss']!r} count "
+                    f"{got['count']} against one process's {want['loss']!r}"
+                    f" {want['count']} (relative {rel:.3e}, held to "
+                    f"{loss_rtol})")
+            if got["launches"] != want["launches"]:
+                raise AssertionError(f"{name} rank {r} launched "
+                                     f"{got['launches']}, one process "
+                                     f"{want['launches']}")
+            for key in ("state_digest", "grad_digest"):
+                if got[key] != ranks[0][name][key]:
+                    raise AssertionError(f"{name}: rank {r}'s {key} differs "
+                                         "from rank 0's")
+        path = [n for n, c in want["launches"].items() if c]
+        if not path:
+            raise AssertionError(f"{name}: the step launched no kernel")
+        errs = _dp_grad_errs(ranks[0][name]["grads"], want["grads"])
+        held = ""
+        if name in truth:
+            held = _dp_hold_bf16(name, ranks[0][name]["grads"],
+                                 want["grads"], truth[name])
+        elif max(errs.values()) > bound:
+            raise AssertionError(f"{name}: {err_text(errs)} above {bound}")
+        stream = ""
+        if want["encoded"]:
+            stream = (f", the B·T stream of {want['encoded'][0]} volumes "
+                      f"split {[res[name]['encoded'][0] for res in ranks]} "
+                      "over the ranks")
+            if [res[name]["encoded"][0] for res in ranks] != [
+                    want["encoded"][0] // len(ranks)] * len(ranks):
+                raise AssertionError(f"{name}: the stream was not split")
+        log(phase, f"(b) {name}: global batch {b}, {ranks[0][name]['rows']} "
+            f"rows a rank{stream}; loss {ranks[0][name]['loss']!r} against "
+            f"one process's {want['loss']!r} (held to {loss_rtol} rel); "
+            f"against one process: {err_text(errs)} (floor {DP_GRAD_FLOOR} "
+            f"of the largest{'' if held else f'; held to {bound}'}){held}; "
+            f"parameters after the update and reduced "
+            f"gradients bit-equal on the {len(ranks)} ranks; each rank "
+            f"launched {path} as one process does")
+        for key, value in want["stats"].items():
+            gap = float(((ranks[0][name]["stats"][key].float() - value.float())
+                         .abs() / (1 + value.float().abs())).max())
+            if gap > F32_TOL:
+                raise AssertionError(f"{name}: {key} {gap:.3e} from one "
+                                     "process's")
+        if want["stats"]:
+            log(phase, f"(b) {name}: {len(want['stats'])} BatchNorm running "
+                "statistics from the global batch, bit-equal on the ranks, "
+                f"within {F32_TOL} (1 + |x|) of one process's")
+        for n, c in ranks[0][name]["launches"].items():
+            total[n] = total.get(n, 0) + c
+    return total
+
+
+def _dp_serving(ckpt: str, counters: dict) -> dict:
+    """(c): the flagship served at batch 32 on two replicas on cuda:0 (the
+    Predictor that --mesh builds, one replica a card), bf16 and int8,
+    against the one-replica Predictor, 37 volumes (a chunk of 32, split
+    16 / 16, and the 5 in the bucket of 8, split 4 / 4). Returns the
+    two-replica runs' launches."""
+    from neurovit_tpu_torch.config import load_config
+    from neurovit_tpu_torch.serving import Predictor
+    phase = "dp"
+    config = load_config()
+    vols = _volumes(np.random.default_rng(SEED + 22), 37,
+                    config["TRAINING_VIT_INPUT_SIZE"])
+    depth = config["MODEL_VIT_DEPTH"]
+    total = {name: 0 for name in counters}
+    for quant in (None, "int8"):
+        one = Predictor.from_checkpoint(config, ckpt, batch_size=32,
+                                        device="cuda", quant=quant)
+        two = Predictor.from_checkpoint(config, ckpt, batch_size=32,
+                                        quant=quant,
+                                        devices=["cuda:0", "cuda:0"])
+        _, want = one(vols)
+        forwards = [_count_forwards(r) for r in two.replicas]
+        _reset(counters)
+        labels, probs = two(vols)
+        torch.cuda.synchronize()
+        launches = {n: fn.launches for n, fn in counters.items()}
+        n_fwd = [f[0] for f in forwards]
+        kernels = (["int8_ln_qkv", "int8_outproj_residual", "int8_mlp_block",
+                    "int8_flash_attention"] if quant else BF16_BLOCK_KERNELS)
+        _check_counts(f"two-replica {quant or 'bf16'} serving", launches,
+                      _want(kernels, depth * sum(n_fwd), counters))
+        for n, c in launches.items():
+            total[n] += c
+        gap = float(np.abs(probs - want).max())
+        if not np.isfinite(probs).all() or gap > PROB_ATOL:
+            raise AssertionError(f"two replicas {quant or 'bf16'}: {gap} "
+                                 f"from one replica's probabilities")
+        if not (labels == probs.argmax(axis=1)).all():
+            raise AssertionError("labels are not the probabilities' argmax")
+        log(phase, f"(c) {quant or 'bf16'}: two replicas on cuda:0, buckets "
+            f"{two.bucket_sizes}, {n_fwd} forwards of the replicas: "
+            f"{'bit-equal to' if gap == 0 else f'{gap:.3e} from'} the "
+            f"one-replica Predictor's probabilities on all 37 rows (held to "
+            f"{PROB_ATOL}); launches {kernels} {depth} x {sum(n_fwd)}")
+        del one, two
+        torch.cuda.empty_cache()
+    return total
+
+
+def dp_phase(config, ckpt: str, workdir: str, card: str,
+             counters: dict) -> dict:
+    """Data parallelism: (a) the CLI under torchrun at world 1 over NCCL
+    against the CLI without a group, and the step's time at batch 128;
+    (b) two ranks on the one card over gloo against one process; (c)
+    two-replica serving. The two CLI runs and the two ranks run while this
+    process computes (b)'s one-process steps and (c); the timing runs
+    alone after. Returns the launch counts of (b)'s rank 0 and of (c)."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    runs = {name: _dp_cli_run(config, workdir, name, launcher)
+            for name, launcher in (("plain", []), ("nccl", TORCHRUN))}
+    rdv = os.path.join(workdir, "dp", "ranks")
+    os.makedirs(rdv)
+    ctx = mp.start_processes(_dp_rank, args=(DP_WORLD, rdv),
+                             nprocs=DP_WORLD, join=False,
+                             start_method="spawn")
+    try:
+        return _dp_phase_body(config, ckpt, workdir, card, counters, runs,
+                              ctx, rdv, t0)
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+        for proc, _, out in runs.values():
+            _stop(proc)
+            out.close()
+
+
+def _dp_phase_body(config, ckpt: str, workdir: str, card: str,
+                   counters: dict, runs: dict, ctx, rdv: str,
+                   t0: float) -> dict:
+    """dp_phase's work once its children are started (see there)."""
+    phase = "dp"
+    single = {name: _dp_run_case(name, rdv, counters) for name in DP_CASES}
+    truth = {"vit_bf16": _dp_run_case("vit_bf16", rdv, counters,
+                                      precision="f32")["grads"]}
+    torch.cuda.empty_cache()
+    total = _dp_serving(ckpt, counters)
+    deadline = time.monotonic() + 600
+    while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+        if time.monotonic() > deadline:
+            raise AssertionError("(b)'s ranks did not finish in 600 s")
+    ranks = [torch.load(os.path.join(rdv, f"rank{r}.pt"), weights_only=True)
+             for r in range(DP_WORLD)]
+    for name, n in _dp_hold_ranks(ranks, single, truth, card).items():
+        total[name] += n
+    del ranks, single, truth
+    _dp_entry_point(config, workdir, runs, card)
+    log(phase, f"done in {time.perf_counter() - t0:.1f} s; launches "
+        f"{ {n: c for n, c in total.items() if c} }; {card}")
+    return total
+
+
 def kernel_counters() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches, by
     the kernel's name."""
@@ -5798,6 +6296,8 @@ def main() -> int:
                                         workdir, card, counters)
         kernel_stats.update(f32_stats)
         timed("widths_model", widths_model_phase, config, workdir, counters)
+        dp_launches = timed("dp", dp_phase, config, ckpt, workdir, card,
+                            counters)
 
     launches.update({name: int8_launches[name] for name in INT8_KERNELS})
     launches.update(probe_launches)
@@ -5810,6 +6310,8 @@ def main() -> int:
         launches[name] += n
     for name in F32_KERNELS + INT8_F32_KERNELS + F32_GRADCAM_KERNELS:
         launches[name] = f32_launches[name]
+    for name, n in dp_launches.items():
+        launches[name] += n
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[name],

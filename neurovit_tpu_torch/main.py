@@ -13,6 +13,17 @@ JAX CLI's order (main.py:69-124): training unless ``--inference`` or
 --sweep`` sweeps. ``--sweep`` runs ``SWEEP_COUNT`` (default 50) trials of
 ``GLOBAL_BASE_PATH/configs/sweep.yaml`` (``training.sweep.run_sweep``),
 each a fresh model and ``Trainer.run``.
+
+Data parallelism over N GPUs, one process each (main.py:54-60;
+``parallel``):
+
+    torchrun --standalone --nproc_per_node=N -m neurovit_tpu_torch.main ...
+
+Rank r runs on ``cuda:LOCAL_RANK`` (``--cuda`` is not read then), the
+ranks' collectives run on NCCL (gloo with ``--device cpu``), and the
+process group starts before anything else touches the card.
+``TRAINING_BATCH_SIZE`` is the global batch. ``--inference`` gathers the
+ranks' predictions for rank 0's accuracy line.
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ import torch
 from neurovit_tpu_torch.config import get_config
 from neurovit_tpu_torch.data import get_datasets
 from neurovit_tpu_torch.models.neuro_encoder import NeuroEncoder
+from neurovit_tpu_torch.parallel import distributed
 from neurovit_tpu_torch.training import MetricLogger, Trainer
 from neurovit_tpu_torch.training.checkpoint import (
     load_checkpoint, load_pretrained_volume_encoder)
@@ -65,6 +77,8 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def resolve_device(args: argparse.Namespace) -> torch.device:
+    """``--device cpu``, else ``cuda:LOCAL_RANK`` under torchrun and
+    ``cuda:--cuda`` without it; a card that is not there raises."""
     if args.device == "cpu":
         return torch.device("cpu")
     if not torch.cuda.is_available():
@@ -72,7 +86,15 @@ def resolve_device(args: argparse.Namespace) -> torch.device:
             "CUDA is not available: neurovit_tpu_torch trains on the card "
             "and does not drop to the CPU (pass --device cpu to run the "
             "plain PyTorch path on purpose)")
-    return torch.device(f"cuda:{args.cuda}")
+    local = os.environ.get("LOCAL_RANK")
+    if local is None:
+        return torch.device(f"cuda:{args.cuda}")
+    if int(local) >= torch.cuda.device_count():
+        raise RuntimeError(
+            f"LOCAL_RANK {local} has no card behind it: "
+            f"{torch.cuda.device_count()} visible (run at most that many "
+            "processes a node)")
+    return torch.device(f"cuda:{int(local)}")
 
 
 def build(config, device: torch.device):
@@ -116,7 +138,18 @@ def main(argv=None) -> None:
     config = get_config(args)
     device = resolve_device(args)
     config["DEVICE"] = str(device)
+    adopted = distributed.group() is not None
+    if distributed.maybe_initialize(config, device):
+        print(f"Distributed runtime: rank {distributed.rank()}/"
+              f"{distributed.world_size()} on {device}")
+    try:
+        _run(config, device)
+    finally:
+        if not adopted:
+            distributed.shutdown()
 
+
+def _run(config, device: torch.device) -> None:
     if not config["INFERENCE"] and not config["SWEEP"]:
         print("Training mode enabled.")
         folds = config.get("FOLDS", 0)

@@ -63,6 +63,8 @@ from neurovit_tpu_torch.models.temporal import (ProjectionHead,
                                                 TemporalConfig,
                                                 TemporalTransformer)
 from neurovit_tpu_torch.models.vit3d import ViT3D, ViTConfig
+from neurovit_tpu_torch.parallel import sharding
+from neurovit_tpu_torch.parallel.mesh import current_mesh
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -217,13 +219,25 @@ class NeuroEncoder(tnn.Module):
         timepoint through the frozen volume encoder in eval, all B·T
         volumes in one call, recording no autograd graph
         (neuro_encoder.py:188-218). Deterministic, so a static 4D dataset's
-        encodings are the same every epoch (the feature cache's premise)."""
+        encodings are the same every epoch (the feature cache's premise).
+
+        Inside a data-parallel ``parallel.use_mesh`` whose world divides
+        B·T, rank r encodes its contiguous 1/world of the folded stream and
+        the ranks' encodings are gathered in order (neuro_encoder.py:
+        200-206); otherwise the stream stays whole."""
         b, h, w, d, t = x.shape
         vols = x.to(self.compute_dtype).permute(0, 4, 1, 2, 3).reshape(
             b * t, h, w, d)
+        mesh = current_mesh()
+        split = mesh is not None and (b * t) % mesh.data == 0
+        if split:                # this rank's contiguous part of the stream
+            part = b * t // mesh.data
+            vols = vols[mesh.rank * part:(mesh.rank + 1) * part]
         with torch.no_grad():
-            enc = self.encode_volume(vols, encoder=encoder)
-        return enc.float().reshape(b, t, self.num_classes)
+            enc = self.encode_volume(vols, encoder=encoder).float()
+            if split:
+                enc = sharding.gather_stream(enc, mesh)
+        return enc.reshape(b, t, self.num_classes)
 
     def apply_features(self, enc: torch.Tensor, *, train: bool = False,
                        seed: Optional[int] = None) -> torch.Tensor:

@@ -50,6 +50,8 @@ from torch import nn as tnn
 
 from neurovit_tpu_torch import nn
 from neurovit_tpu_torch.ops.maxpool3d import max_pool3d
+from neurovit_tpu_torch.parallel.mesh import current_mesh
+from neurovit_tpu_torch.parallel.sharding import global_sum
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
@@ -166,14 +168,30 @@ def batch_norm(bn: tnn.BatchNorm3d, x: torch.Tensor, *,
     """BatchNorm3d over (N, D, H, W) per channel, computed in f32 and
     returned in x's dtype (resnet3d.py:121-161). ``train`` normalizes by the
     batch statistics and moves ``bn``'s running stats in place; otherwise
-    the running stats normalize."""
+    the running stats normalize.
+
+    Inside a data-parallel ``parallel.use_mesh``, the statistics are those
+    of the global batch (resnet3d.py:121-150 over the data axis): the
+    per-channel sums are summed over the ranks in the forward, and their
+    gradients in the backward, so every rank normalizes alike, gets the
+    global statistics' gradient and moves the same running stats."""
     xf = x.float()
     c = x.shape[1]
     if train:
         n = x.numel() // c
         dims = (0, 2, 3, 4)
-        mean = xf.sum(dim=dims) / n
-        var = torch.clamp((xf * xf).sum(dim=dims) / n - mean * mean, min=0.0)
+        mesh = current_mesh()
+        if mesh is None:
+            mean = xf.sum(dim=dims) / n
+            sq = (xf * xf).sum(dim=dims) / n
+        else:
+            # The global batch's statistics: the ranks' s1 and s2 summed
+            # (their gradients too); every rank's batch has the same shape.
+            s = global_sum(torch.cat([xf.sum(dim=dims),
+                                      (xf * xf).sum(dim=dims)]), mesh)
+            n = n * mesh.data
+            mean, sq = s[:c] / n, s[c:] / n
+        var = torch.clamp(sq - mean * mean, min=0.0)
         with torch.no_grad():
             unbiased = var * (n / max(n - 1, 1))
             bn.running_mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mean)

@@ -218,16 +218,22 @@ def softmax_cross_entropy(logits: torch.Tensor,
     return (logz - gold).mean()
 
 
-def masked_mean_ce(logits: torch.Tensor, labels: torch.Tensor,
+def masked_ce_sums(logits: torch.Tensor, labels: torch.Tensor,
                    valid: torch.Tensor):
-    """(loss, correct, count) over the valid rows of a padded batch
-    (trainer.py:52-62): the loss is the mean CE of the valid rows."""
+    """(the sum of the valid rows' CE, correct, count) of a padded batch:
+    the parts a data-parallel step sums over the ranks before it divides."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[:, None])[:, 0]
     per_sample = logz - gold
-    valid_f = valid.float()
-    count = torch.clamp(valid_f.sum(), min=1.0)
-    loss = (per_sample * valid_f).sum() / count
+    total = (per_sample * valid.float()).sum()
     correct = ((logits.argmax(dim=-1) == labels.long()) & valid.bool()).sum()
-    return loss, correct, valid.long().sum()
+    return total, correct, valid.long().sum()
+
+
+def masked_mean_ce(logits: torch.Tensor, labels: torch.Tensor,
+                   valid: torch.Tensor):
+    """(loss, correct, count) over the valid rows of a padded batch
+    (trainer.py:52-62): the loss is the mean CE of the valid rows."""
+    total, correct, count = masked_ce_sums(logits, labels, valid)
+    return total / torch.clamp(valid.float().sum(), min=1.0), correct, count

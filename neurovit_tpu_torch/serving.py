@@ -15,11 +15,20 @@ to the CPU. ``device="cpu"`` asks for the plain PyTorch path explicitly.
 ``quant="int8"`` serves the int8 blocks (``models.vit3d.quantize_blocks``,
 kernels K10-K13, at bf16 or, for an f32 model, their f32 instances),
 quantized once when the predictor is built.
+
+``devices=[...]`` serves data-parallel over several devices of this
+process (neurovit_tpu/serving.py:40-160): one replica of the model on
+each, every bucketed chunk split into equal slices, one a replica. The CLIs'
+``--mesh`` builds that list from ``parallel.create_mesh`` over the visible
+cards; serving stays one process, as the JAX server is single-host.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import os
+import warnings
 from collections import deque
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -28,6 +37,7 @@ import torch
 
 from neurovit_tpu_torch.models.neuro_encoder import NeuroEncoder
 from neurovit_tpu_torch.models.vit3d import quantize_blocks
+from neurovit_tpu_torch.parallel import create_mesh
 from neurovit_tpu_torch.training.checkpoint import load_checkpoint
 
 # Latency buckets below batch_size (neurovit_tpu/serving.py:24-36): powers
@@ -56,19 +66,44 @@ class Predictor:
 
     ``quant="int8"``: post-training int8 serving (neurovit_tpu/serving.py:
     102-124). The model's blocks are quantized in place, once, here; the
-    patch embedding, the softmax path and the head stay as they are."""
+    patch embedding, the softmax path and the head stay as they are.
+
+    ``devices``: one replica on each (the model itself on the first,
+    copies of it on the others, each quantized once for int8). Each chunk
+    is split into equal slices in order, all launched before any is read
+    back. Buckets that the replica count does not divide are dropped (with
+    a warning when the caller named them), and a ``batch_size`` it does
+    not divide raises, as JAX's mesh Predictor does (serving.py:66-83,
+    129-132)."""
 
     def __init__(self, model: NeuroEncoder, batch_size: int = 32,
                  host_transfer_dtype: Optional[str] = None,
                  bucket_sizes: Optional[Sequence[int]] = None,
-                 quant: Optional[str] = None):
+                 quant: Optional[str] = None,
+                 devices: Optional[Sequence[Any]] = None):
         self.model = model.eval()
         self.device = next(model.parameters()).device
+        self.devices = (tuple(torch.device(d) for d in devices) if devices
+                        else (self.device,))
+        n_rep = len(self.devices)
         self.batch_size = batch_size
+        explicit_buckets = bucket_sizes is not None
         if bucket_sizes is None:
             bucket_sizes = DEFAULT_BUCKETS
         buckets = {int(b) for b in bucket_sizes if 0 < int(b) < batch_size}
         buckets.add(batch_size)
+        if n_rep > 1:
+            dropped = sorted(b for b in buckets if b % n_rep != 0)
+            buckets = {b for b in buckets if b % n_rep == 0} | {batch_size}
+            if explicit_buckets and dropped:
+                warnings.warn(
+                    f"bucket_sizes {dropped} dropped: not multiples of the "
+                    f"mesh data axis ({n_rep}); serving with "
+                    f"{tuple(sorted(buckets))}", stacklevel=2)
+            if batch_size % n_rep != 0:
+                raise ValueError(
+                    f"batch_size {batch_size} must divide over the mesh "
+                    f"data axis ({n_rep})")
         self.bucket_sizes = tuple(sorted(buckets))
         # host_transfer_dtype="bf16": volumes cross to the device as bf16 --
         # bit-exact under bf16 compute (the model's first op is the same RNE
@@ -91,26 +126,35 @@ class Predictor:
             raise ValueError(f"unknown quant mode {quant!r} "
                              "(supported: 'int8')")
         self.quant = quant
+        if quant == "int8" and model.encoder_kind != "vit":
+            raise ValueError("quant='int8' supports the ViT volume "
+                             "encoder only")
+        if self.device != self.devices[0]:
+            self.model = model.to(self.devices[0])
+            self.device = self.devices[0]
+        self.replicas = [self.model] + [copy.deepcopy(self.model).to(d)
+                                        for d in self.devices[1:]]
         if quant == "int8":
-            if model.encoder_kind != "vit":
-                raise ValueError("quant='int8' supports the ViT volume "
-                                 "encoder only")
-            quantize_blocks(model.volume_encoder.vit3d)
+            for replica in self.replicas:
+                quantize_blocks(replica.volume_encoder.vit3d)
 
     @classmethod
     def from_checkpoint(cls, config: Dict[str, Any], checkpoint_path: str,
                         batch_size: int = 32, seed: Optional[int] = None,
                         host_transfer_dtype: Optional[str] = None,
                         bucket_sizes: Optional[Sequence[int]] = None,
-                        device="cuda", quant: Optional[str] = None
+                        device="cuda", quant: Optional[str] = None,
+                        devices: Optional[Sequence[Any]] = None
                         ) -> "Predictor":
-        """Build the model on ``device`` and load a torch-format state dict
-        (the JAX trainer's ``.state_dict.pkl`` saves, or ``torch.save``);
-        ``quant="int8"`` then quantizes the loaded weights."""
-        model = NeuroEncoder(config, device=resolve_device(device), seed=seed)
+        """Build the model on ``device`` (or on the first of ``devices``)
+        and load a torch-format state dict (the JAX trainer's
+        ``.state_dict.pkl`` saves, or ``torch.save``); ``quant="int8"`` then
+        quantizes the loaded weights."""
+        first = devices[0] if devices else device
+        model = NeuroEncoder(config, device=resolve_device(first), seed=seed)
         load_checkpoint(model, checkpoint_path, strict=False)
         return cls(model, batch_size, host_transfer_dtype=host_transfer_dtype,
-                   bucket_sizes=bucket_sizes, quant=quant)
+                   bucket_sizes=bucket_sizes, quant=quant, devices=devices)
 
     def _bucket_for(self, remaining: int) -> int:
         """Smallest bucket that fits ``remaining`` (full chunks stream
@@ -129,11 +173,34 @@ class Predictor:
         chunk i's probabilities are read back, so the host's work overlaps
         the device's. Each chunk's probabilities come back through pinned
         memory behind an event, so reading chunk i does not wait for chunk
-        i+1. Softmax is taken in f32."""
+        i+1. Softmax is taken in f32. With several replicas the chunk's
+        equal slices go to them in order, each launched before any is read
+        back."""
         volumes = np.asarray(volumes, np.float32)
         n = volumes.shape[0]
         probs_out = np.empty((n, self.model.num_classes), np.float32)
-        pin = self.device.type == "cuda"
+
+        def forward(replica, device: torch.device, part: np.ndarray):
+            pin = device.type == "cuda"
+            host = torch.from_numpy(part)
+            if self._host_bf16:
+                host = host.to(torch.bfloat16)
+            if pin:
+                host = host.pin_memory()
+            guard = (torch.cuda.device(device) if pin
+                     else contextlib.nullcontext())
+            with guard, torch.inference_mode():
+                logits = replica(host.to(device, non_blocking=True))
+                probs = torch.softmax(logits.float(), dim=-1)
+                out = torch.empty(probs.shape, dtype=torch.float32,
+                                  pin_memory=pin)
+                out.copy_(probs, non_blocking=True)
+            done = None
+            if pin:
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(device))
+            # ``host`` stays referenced until its copy has been waited on.
+            return out, done, host
 
         def dispatch(start: int):
             bucket = self._bucket_for(n - start)
@@ -142,23 +209,9 @@ class Predictor:
             if real < bucket:
                 chunk = np.concatenate(
                     [chunk, np.repeat(chunk[-1:], bucket - real, axis=0)])
-            host = torch.from_numpy(chunk)
-            if self._host_bf16:
-                host = host.to(torch.bfloat16)
-            if pin:
-                host = host.pin_memory()
-            with torch.inference_mode():
-                logits = self.model(host.to(self.device, non_blocking=True))
-                probs = torch.softmax(logits.float(), dim=-1)
-                out = torch.empty(probs.shape, dtype=torch.float32,
-                                  pin_memory=pin)
-                out.copy_(probs, non_blocking=True)
-            done = None
-            if pin:
-                done = torch.cuda.Event()
-                done.record()
-            # ``host`` stays referenced until its copy has been waited on.
-            return start, real, out, done, host
+            parts = np.split(chunk, len(self.replicas))
+            return start, real, [forward(r, d, p) for r, d, p in zip(
+                self.replicas, self.devices, parts)]
 
         in_flight: deque = deque()
         start = 0
@@ -168,9 +221,11 @@ class Predictor:
                 start += job[1]
                 in_flight.append(job)
                 continue
-            s, real, out, done, _ = in_flight.popleft()
-            if done is not None:
-                done.synchronize()
+            s, real, slices = in_flight.popleft()
+            for _, done, _ in slices:
+                if done is not None:
+                    done.synchronize()
+            out = torch.cat([o for o, _, _ in slices])
             probs_out[s:s + real] = out[:real].numpy()
         return probs_out.argmax(axis=1), probs_out
 
@@ -262,22 +317,32 @@ def _prefetch_jobs(jobs, depth: int):
         yield item
 
 
-def _default_batch_size(is_4d: bool) -> int:
+def _default_batch_size(is_4d: bool, replicas: int = 1) -> int:
     """Batch when --batch-size is omitted, the JAX CLI's defaults
     (neurovit_tpu/serving.py:336-352): 128 volumes in 3D, 2 sequences in
-    4D (each [H, W, D, T] series is 200-400 MB on the host)."""
-    return 2 if is_4d else 128
+    4D (each [H, W, D, T] series is 200-400 MB on the host), rounded up to
+    a multiple of the mesh's replicas."""
+    base = 2 if is_4d else 128
+    return -(-base // replicas) * replicas
 
 
 def predictor_from_cli_args(parser, args, config) -> "Predictor":
     """Shared flag -> Predictor plumbing for the two serving entry points:
     checkpoint resolution (``--checkpoint`` else ``BEST_MODEL_PATH``),
     ``--buckets`` ('' disables, None keeps the default), ``--device``,
-    ``--quant`` and the default batch size. ``--mesh`` is refused with the
-    roadmap item that will port it."""
+    ``--quant``, ``--mesh`` (a replica on each visible card of
+    ``--device cuda``, on the one CPU of ``--device cpu``) and the default
+    batch size."""
+    devices = None
     if args.mesh:
-        parser.error("--mesh is not ported to neurovit_tpu_torch yet "
-                     "(ROADMAP.md, Queue 1: multi-GPU)")
+        device = resolve_device(args.device)
+        visible = ([torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+                   if device.type == "cuda" else [device])
+        mesh = create_mesh(config, visible)
+        devices = mesh.devices
+        print(f"Serving over mesh {mesh.shape} on "
+              f"{[str(d) for d in devices]}")
     ckpt_path = args.checkpoint or os.path.join(
         config.get("GLOBAL_BASE_PATH", "."), config["BEST_MODEL_PATH"])
     buckets = (() if args.buckets == "" else
@@ -285,11 +350,12 @@ def predictor_from_cli_args(parser, args, config) -> "Predictor":
                tuple(int(b) for b in args.buckets.split(",")))
     is_4d = int(config.get("TRAINING_DIM", 3)) == 4
     batch_size = (args.batch_size if args.batch_size is not None
-                  else _default_batch_size(is_4d))
+                  else _default_batch_size(is_4d, len(devices or [None])))
     return Predictor.from_checkpoint(
         config, ckpt_path, batch_size=batch_size,
         host_transfer_dtype="bf16" if args.host_bf16 else None,
-        bucket_sizes=buckets, device=args.device, quant=args.quant)
+        bucket_sizes=buckets, device=args.device, quant=args.quant,
+        devices=devices)
 
 
 def add_serving_args(parser) -> None:
@@ -311,7 +377,9 @@ def add_serving_args(parser) -> None:
                              "(bit-exact under bf16 compute; halves "
                              "host->device bytes)")
     parser.add_argument("--mesh", action="store_true",
-                        help="multi-GPU serving (not ported yet)")
+                        help="data-parallel serving: one model replica on "
+                             "each visible card, each chunk split over "
+                             "them")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; 'cpu' runs the "
                              "plain PyTorch path)")

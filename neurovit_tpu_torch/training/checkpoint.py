@@ -16,6 +16,9 @@ Counterpart of ``neurovit_tpu/training/checkpoint.py``:
   default;
 - :func:`load_pretrained_volume_encoder`: the 4D bootstrap
   (checkpoint.py:97-105), a 3D run's ViT weights into the frozen encoder.
+
+In a multi-process run the trainer calls the writers on rank 0 alone and
+the ranks meet at a barrier after each write; every rank reads.
 """
 
 from __future__ import annotations

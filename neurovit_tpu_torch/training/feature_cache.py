@@ -154,13 +154,18 @@ class _IndexedView:
 
 
 def precompute(model, dataset, *, batch_size: int = 1, num_workers: int = 8,
-               host_bf16: bool = False, encoder=None) -> FeatureView:
+               host_bf16: bool = False, encoder=None,
+               quiet: bool = False) -> FeatureView:
     """One pass of ``model.encode_sequence`` over ``dataset`` on the
     model's device -> a FeatureView of [T, C] f32 encodings. Sequences come
     through the DataLoader (threaded reads, bounded prefetch) in batches of
     ``batch_size``, B·T volumes an encoder call; ``host_bf16`` casts each
     batch to bf16 on the host (the trainer's TRAINING_HOST_TRANSFER_DTYPE);
-    ``encoder`` is the trainer's int8 copy, if any."""
+    ``encoder`` is the trainer's int8 copy, if any. Inside a
+    data-parallel ``parallel.use_mesh`` every rank runs the whole pass and
+    ``encode_sequence`` splits each batch's stream over the ranks (each JAX
+    host encodes the full dataset too, trainer.py:460-467); ``quiet``
+    leaves out the summary line (the ranks after 0)."""
     device = next(model.parameters()).device
     t0 = time.time()
     n = len(dataset)
@@ -187,7 +192,9 @@ def precompute(model, dataset, *, batch_size: int = 1, num_workers: int = 8,
             labels[idx] = int(batch["label"][row])
             subjects[idx] = batch["subject"][row]
             n_ok += 1
-    print(f"[4D FEATURE CACHE] encoded {n_ok} sequences once "
-          f"({n - n_ok} failed reads masked) in {time.time() - t0:.1f}s; "
-          f"epochs now train the temporal head on cached features")
+    if not quiet:
+        print(f"[4D FEATURE CACHE] encoded {n_ok} sequences once "
+              f"({n - n_ok} failed reads masked) in "
+              f"{time.time() - t0:.1f}s; epochs now train the temporal "
+              "head on cached features")
     return FeatureView(feats, labels, subjects)

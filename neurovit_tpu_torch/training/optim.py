@@ -13,13 +13,15 @@ every trainable parameter (the whole model in 3D), and
 
 ``TRAINING_ACCUMULATION_STEP`` = k has optax ``MultiSteps``'s semantics:
 the gradients of k micro-batches are averaged and one optimizer step is
-taken; parameters do not move in between.
+taken; parameters do not move in between. In data parallelism the
+gradients are reduced over the ranks once a window, before the update
+(``before_update``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Iterable
+from typing import Any, Callable, Dict, Iterable, Optional
 
 import torch
 
@@ -44,6 +46,9 @@ class Optimizer:
         self.opt = torch.optim.AdamW(
             self.params, lr=self.base_lr, betas=(0.9, 0.999), eps=1e-8,
             weight_decay=float(config.get("TRAINING_WEIGHT_DECAY", 0.01)))
+        # Called with the parameters once a window is full, before the
+        # update: the data-parallel gradient reduction.
+        self.before_update: Optional[Callable[[list], None]] = None
         self.steps = 0          # optimizer steps taken
         self.micro = 0          # micro-batches accumulated since the last
         self.lr = self._scheduled(0)
@@ -68,6 +73,8 @@ class Optimizer:
         self.micro += 1
         if self.micro < self.accum:
             return False
+        if self.before_update is not None:
+            self.before_update(self.params)
         if self.accum > 1:
             for p in self.params:
                 if p.grad is not None:

@@ -34,6 +34,7 @@ import numpy as np
 import yaml
 
 from neurovit_tpu_torch.config import apply_sweep_overrides
+from neurovit_tpu_torch.parallel import distributed
 
 
 def sample_params(space: Dict[str, Any], rng: np.random.RandomState
@@ -172,6 +173,8 @@ def run_sweep(base_config: Dict[str, Any],
     out_dir = base_config.get("GLOBAL_OUTPUT_DIR", "./results/runs")
     os.makedirs(out_dir, exist_ok=True)
     log_path = os.path.join(out_dir, "sweep_results.jsonl")
+    if not distributed.is_writer():       # rank 0 alone keeps the log
+        log_path = os.devnull
 
     wandb = _wandb_if_enabled(base_config)
     if wandb is not None:

@@ -1,5 +1,5 @@
 """Trainer: the ViT's and the ResNet's train and eval loops, 3D and 4D, on
-one device.
+one device or data-parallel over the ranks of a process group.
 
 Counterpart of ``neurovit_tpu/training/trainer.py`` (the reference's
 ``src/Trainer.py``), on the fused kernels:
@@ -49,8 +49,31 @@ The model's device is the trainer's. The ViT's block kernels K1-K5 and
 K7-K9 have f32 instances, so ``TRAINING_PRECISION: f32`` trains a 3D ViT
 and a 4D model on either device (a 4D model's int8 encoder too: K10-K13
 have f32 instances); the ResNet's pool kernels
-take f32 and its convs are cuDNN's, so it trains in f32 on either. A mesh of more than one device is
-not ported yet and raises, naming its ROADMAP item.
+take f32 and its convs are cuDNN's, so it trains in f32 on either.
+
+Data parallelism (trainer.py:69-173, 576-634, 680-721 over the JAX mesh's
+data axis; ``parallel``): under a process group (``torchrun``, one process
+per GPU) the mesh's data axis is the group. ``TRAINING_BATCH_SIZE`` is the
+global batch; each rank loads ``TRAINING_BATCH_SIZE / world`` rows through
+the loader's strided ``shard=(rank, world)``, so the ranks' rows at step k
+are the one-process batch k, and a batch size the world does not divide is
+refused. The loss is the global masked CE: each rank's sum over its valid
+rows divided by the all-reduced valid count, and the gradients are summed
+over the ranks once per accumulation window, before the update, so a step
+is the one-process step. Rank r > 0 folds r into its dropout seed
+(``sharding.rank_seed``); rank 0 keeps the one-process stream. The logged
+loss, ``correct`` and ``count`` are all-reduced sums, validation's too, so
+the plateau schedule reads the same loss on every rank. The parameters are
+broadcast from rank 0 at the start and after a restore. Rank 0 alone
+writes checkpoints, the rolling weights, the trace and the log lines, and
+the ranks meet at a barrier after each write; a preemption signal on any
+rank stops every rank at the same batch boundary. A 4D batch is
+replicated (every rank loads the same sequences and draws the same
+dropout), the model splits the folded B·T stream over the ranks
+(``NeuroEncoder.encode_sequence``) and rank 0's gradients are broadcast;
+the ResNet's BatchNorm takes the global batch's statistics. The steps run
+inside ``parallel.use_mesh``. Without a process group nothing of this
+runs, and the steps are the one-device steps bit for bit.
 """
 
 from __future__ import annotations
@@ -66,57 +89,80 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from neurovit_tpu_torch import nn
 from neurovit_tpu_torch.data.loader import DataLoader
-from neurovit_tpu_torch.models.neuro_encoder import (NeuroEncoder,
-                                                     not_ported)
+from neurovit_tpu_torch.models.neuro_encoder import NeuroEncoder
+from neurovit_tpu_torch.parallel import create_mesh, sharding, use_mesh
+from neurovit_tpu_torch.parallel.mesh import Mesh
+from neurovit_tpu_torch.parallel.sharding import SEED_HIGH
 from neurovit_tpu_torch.training import checkpoint as ckpt
 from neurovit_tpu_torch.training.metrics import MetricLogger
 from neurovit_tpu_torch.training.optim import Optimizer
 from neurovit_tpu_torch.utils import profiling
 
-SEED_HIGH = 2 ** 63 - 1
-
-
 def check_supported(config: Dict[str, Any], device: torch.device) -> None:
-    """Raise for the training options the port does not run yet, and for
-    values the JAX trainer rejects."""
+    """Raise for values the JAX trainer rejects."""
     # As neurovit_tpu/training/trainer.py:109-112, in 3D too; "int8" acts
     # only on a 4D model.
     quant4d = config.get("TRAINING_4D_ENCODER_QUANT")
     if quant4d not in (None, "", "none", "int8"):
         raise ValueError(f"unknown TRAINING_4D_ENCODER_QUANT {quant4d!r} "
                          "(supported: 'int8')")
-    if (int(config.get("MESH_MODEL_AXIS", 1)) > 1
-            or int(config.get("MESH_DATA_AXIS", -1)) not in (-1, 1)):
-        raise not_ported("a mesh of more than one device", "multi-GPU")
 
 
 class Trainer:
     def __init__(self, config: Dict[str, Any], model: NeuroEncoder,
                  dataset_train, dataset_val, *,
-                 logger: Optional[MetricLogger] = None):
+                 logger: Optional[MetricLogger] = None,
+                 mesh: Optional[Mesh] = None):
+        """``mesh``: default ``create_mesh(config)`` over the default
+        process group (one device without one)."""
         self.config = config
         self.model = model
         self.device = next(model.parameters()).device
         check_supported(config, self.device)
+        self.mesh = mesh if mesh is not None else create_mesh(config)
+        self._dp = self.mesh.distributed
+        self.rank, world = self.mesh.rank, self.mesh.data
+        # 3D batches are split over the ranks; a 4D batch is replicated
+        # (trainer.py:576, shard_batch(..., replicate=True)).
+        self._shard_rows = self._dp and not model.is_4d
+        self._writer = self.rank == 0
         self.output_dir = config["GLOBAL_OUTPUT_DIR"]
         self.epochs = config["TRAINING_EPOCHS"]
         self.batch_size = config["TRAINING_BATCH_SIZE"]
         self.num_workers = config.get("TRAINING_NUM_WORKERS", 8)
+        if self._shard_rows and self.batch_size % world:
+            raise ValueError(
+                f"TRAINING_BATCH_SIZE {self.batch_size} does not divide over "
+                f"the {world} data-parallel ranks: it is the global batch, "
+                "and each rank loads TRAINING_BATCH_SIZE / world rows")
+        self._local_batch = (self.batch_size // world if self._shard_rows
+                             else self.batch_size)
+        self._shard = (self.rank, world) if self._shard_rows else None
         self.logger = logger if logger is not None else MetricLogger(config)
         self.data = dataset_train
         self.val_data = dataset_val
         self._preempt_requested = False
         seed = config.get("TRAINING_SEED", 42)
-        self.dataloader = DataLoader(dataset_train, self.batch_size,
+        self.dataloader = DataLoader(dataset_train, self._local_batch,
                                      shuffle=True,
-                                     num_workers=self.num_workers, seed=seed)
-        self.val_dataloader = DataLoader(dataset_val, self.batch_size,
+                                     num_workers=self.num_workers, seed=seed,
+                                     shard=self._shard)
+        self.val_dataloader = DataLoader(dataset_val, self._local_batch,
                                          shuffle=False,
                                          num_workers=self.num_workers,
-                                         seed=seed)
+                                         seed=seed, shard=self._shard)
+        # The preemption flag is summed on the host, over gloo: no device
+        # sync at the batch boundary.
+        self._host_group = None
+        if self._dp:
+            self._host_group = (self.mesh.group
+                                if dist.get_backend(self.mesh.group) == "gloo"
+                                else dist.new_group(backend="gloo"))
+            sharding.broadcast_module(model, self.mesh)
 
         host_dtype = str(config.get("TRAINING_HOST_TRANSFER_DTYPE",
                                     "f32")).lower()
@@ -147,6 +193,10 @@ class Trainer:
 
         self.optimizer = Optimizer(config, model.parameters(),
                                    steps_per_epoch=max(1, len(self.dataloader)))
+        if self._dp:
+            self.optimizer.before_update = (
+                lambda params: sharding.reduce_grads(
+                    params, self.mesh, replicated=not self._shard_rows))
         self._plateau = config.get("TRAINING_LR_SCHEDULE") == "plateau"
         self._plateau_patience = config.get("TRAINING_PLATEAU_PATIENCE", 1)
         self._plateau_factor = config.get("TRAINING_PLATEAU_FACTOR", 0.5)
@@ -158,14 +208,19 @@ class Trainer:
 
         self.log_interval = max(1, len(self.dataloader) // 10)  # Trainer.py:34
         total, trainable = model.param_count()
-        print(f"Model total parameters: {total/1e6:.2f}M "
-              f"(trainable {trainable/1e6:.2f}M and frozen "
-              f"{(total-trainable)/1e6:.2f}M)")
-        print(f"Number of batches training: {len(self.dataloader)} "
-              f"of size {self.batch_size}")
-        print(f"Number of batches validation: {len(self.val_dataloader)} "
-              f"of size {self.batch_size}")
-        print("=" * 50)
+        self._print(f"Model total parameters: {total/1e6:.2f}M "
+                    f"(trainable {trainable/1e6:.2f}M and frozen "
+                    f"{(total-trainable)/1e6:.2f}M)")
+        self._print(f"Number of batches training: {len(self.dataloader)} "
+                    f"of size {self.batch_size}")
+        self._print(f"Number of batches validation: "
+                    f"{len(self.val_dataloader)} of size {self.batch_size}")
+        self._print("=" * 50)
+
+    def _print(self, *args, **kwargs) -> None:
+        """print on rank 0; the other ranks stay quiet."""
+        if self._writer:
+            print(*args, **kwargs)
 
     def _quantized_encoder(self):
         """The int8 copy of the ViT the 4D encoder runs on, or None."""
@@ -193,13 +248,37 @@ class Trainer:
         self.model.train()
         seed = int(torch.randint(0, SEED_HIGH, (1,),
                                  generator=self.generator))
-        with nn.full_f32(self.model.compute_dtype):
+        if self._shard_rows:
+            seed = sharding.rank_seed(seed, self.rank)
+        with nn.full_f32(self.model.compute_dtype), use_mesh(self.mesh):
             logits = self._logits(batch, zyx, train=True, seed=seed)
-            loss, correct, count = nn.masked_mean_ce(logits, batch["label"],
-                                                     batch["valid"])
+            loss, correct, count = self._loss(logits, batch)
             loss.backward()
             self.optimizer.step()
-        return {"loss": loss.detach(), "correct": correct, "count": count}
+        return self._global_metrics(loss.detach(), correct, count)
+
+    def _loss(self, logits: torch.Tensor, batch: Dict[str, torch.Tensor]):
+        """(loss, correct, count) of this rank's rows: the masked mean CE,
+        or, with the rows split over the ranks, this rank's share of the
+        global masked mean (its sum over the global valid count)."""
+        if not self._shard_rows:
+            return nn.masked_mean_ce(logits, batch["label"], batch["valid"])
+        total, correct, count = nn.masked_ce_sums(logits, batch["label"],
+                                                  batch["valid"])
+        n = sharding.all_reduce_sum(batch["valid"].float().sum(), self.mesh)
+        return total / torch.clamp(n, min=1.0), correct, count
+
+    def _global_metrics(self, loss, correct, count
+                        ) -> Dict[str, torch.Tensor]:
+        """The step's metrics over the global batch: the ranks' shares of
+        the loss and their counts summed, in one all-reduce."""
+        if not self._shard_rows:
+            return {"loss": loss, "correct": correct, "count": count}
+        sums = sharding.all_reduce_sum(
+            torch.stack([loss.float(), correct.float(), count.float()]),
+            self.mesh)
+        return {"loss": sums[0], "correct": sums[1].long(),
+                "count": sums[2].long()}
 
     def _logits(self, batch: Dict[str, torch.Tensor], zyx: bool,
                 train: bool = False, seed: Optional[int] = None):
@@ -214,11 +293,13 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, torch.Tensor], zyx: bool = False
                   ) -> Dict[str, torch.Tensor]:
+        """The global batch's loss, ``correct`` and ``count``, and this
+        rank's rows' predictions."""
         self.model.eval()
-        logits = self._logits(batch, zyx)
-        loss, correct, count = nn.masked_mean_ce(logits, batch["label"],
-                                                 batch["valid"])
-        return {"loss": loss, "correct": correct, "count": count,
+        with use_mesh(self.mesh):
+            logits = self._logits(batch, zyx)
+            loss, correct, count = self._loss(logits, batch)
+        return {**self._global_metrics(loss, correct, count),
                 "preds": logits.argmax(dim=-1)}
 
     # ------------------------------------------------------------------
@@ -278,8 +359,11 @@ class Trainer:
         """Resume: weights, optimizer, epoch, the dropout seed stream and the
         plateau counters."""
         ckpt.wait_for_async_saves()   # never read a still-writing checkpoint
+        self._barrier()               # nor one rank 0 is still writing
         state = ckpt.load_train_state(path)
         self.model.load_state_dict(state["model"])
+        if self._dp:
+            sharding.broadcast_module(self.model, self.mesh)
         self._q8_encoder = self._quantized_encoder()
         self._feature_cache = None       # encoded again from these weights
         self.optimizer.load_state_dict(state["optimizer"])
@@ -321,14 +405,35 @@ class Trainer:
                     signal.signal(sig, old)
         return restore
 
+    def _agree_preempt(self) -> bool:
+        """Whether any rank has been asked to stop; every rank then stops
+        at this boundary."""
+        if self._dp:
+            flag = torch.tensor([float(self._preempt_requested)])
+            dist.all_reduce(flag, group=self._host_group)
+            self._preempt_requested = bool(flag.item() > 0)
+        return self._preempt_requested
+
+    def _barrier(self) -> None:
+        if self._dp:
+            dist.barrier(group=self._host_group)
+
+    def _save(self, path: str, asynchronous: bool = False) -> None:
+        """The train state at ``path``, written by rank 0; every rank
+        leaves once it is written (or, asynchronously, handed over)."""
+        if self._writer:
+            ckpt.save_train_state(path, self._checkpoint_state(), self.model,
+                                  asynchronous=asynchronous)
+        self._barrier()
+
     def _maybe_preempt_save(self, path: str) -> bool:
-        if not self._preempt_requested:
+        if not self._agree_preempt():
             return False
         save_path = os.path.join(path, "model-preempt")
         ckpt.wait_for_async_saves()
-        ckpt.save_train_state(save_path, self._checkpoint_state(), self.model)
-        print(f"PREEMPTED: train state saved to .{save_path}  "
-              f"(resume with --resume {save_path})")
+        self._save(save_path)
+        self._print(f"PREEMPTED: train state saved to .{save_path}  "
+                    f"(resume with --resume {save_path})")
         return True
 
     # ------------------------------------------------------------------
@@ -338,10 +443,14 @@ class Trainer:
     def run(self) -> None:
         timestamp = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
         path = f"{self.output_dir}/{timestamp}"
-        os.makedirs(path, exist_ok=True)
+        if self._writer:
+            os.makedirs(path, exist_ok=True)
         name = (torch.cuda.get_device_name(self.device)
                 if self.device.type == "cuda" else "plain PyTorch")
-        print(f"Running on device: {self.device} ({name})")
+        self._print(f"Running on device: {self.device} ({name})")
+        backend = (dist.get_backend(self.mesh.group) if self._dp
+                   else "one process")
+        self._print(f"Running on mesh: {self.mesh.shape} ({backend})")
         restore_handlers = self._install_preempt_handlers()
         try:
             for epoch in range(self.epoch, self.epochs):
@@ -350,15 +459,15 @@ class Trainer:
                     return
                 self.validate(epoch)
                 self.epoch = epoch + 1
-                ckpt.save_train_state(
-                    os.path.join(path, f"model-e{epoch}"),
-                    self._checkpoint_state(), self.model,
-                    asynchronous=bool(
-                        self.config.get("TRAINING_ASYNC_CHECKPOINT", False)))
-                ckpt.save_last_model(self.model)
-                print(f"MODEL SAVED to .{path}/model-e{epoch}")
-                if self._preempt_requested:
-                    print(f"PREEMPTED: exiting after epoch {epoch} save")
+                self._save(os.path.join(path, f"model-e{epoch}"),
+                           asynchronous=bool(self.config.get(
+                               "TRAINING_ASYNC_CHECKPOINT", False)))
+                if self._writer:
+                    ckpt.save_last_model(self.model)
+                self._print(f"MODEL SAVED to .{path}/model-e{epoch}")
+                if self._agree_preempt():
+                    self._print(f"PREEMPTED: exiting after epoch {epoch} "
+                                "save")
                     return
         finally:
             ckpt.wait_for_async_saves()
@@ -368,7 +477,10 @@ class Trainer:
         """Build the 4D feature cache and its loaders on first use
         (trainer.py:460-515). With ``TRAINING_4D_FEATURE_CACHE_DIR`` each
         split's view is persisted under its fingerprint and reloaded when
-        the fingerprint matches; otherwise it is encoded again."""
+        the fingerprint matches; otherwise it is encoded again. In data
+        parallelism every rank encodes the whole corpus (the model splits
+        each batch's stream over them), rank 0 alone writes the files, and
+        the other ranks read them after a barrier."""
         if not self._use_feature_cache or self._feature_cache is not None:
             return
         from neurovit_tpu_torch.training import feature_cache
@@ -377,29 +489,37 @@ class Trainer:
         for split, ds in (("train", self.data), ("val", self.val_data)):
             path = fp = None
             if cache_dir:
-                os.makedirs(cache_dir, exist_ok=True)
+                if self._writer:
+                    os.makedirs(cache_dir, exist_ok=True)
                 path = os.path.join(cache_dir, f"feats_{split}.npz")
                 fp = feature_cache.fingerprint(self.model.frozen_encoder,
                                                self._quant4d, ds)
+                self._barrier()   # every rank looks before rank 0 writes
                 views[split] = feature_cache.load_view(path, fp)
+                self._barrier()
                 if views[split] is not None:
-                    print(f"[4D FEATURE CACHE] loaded persisted {split} "
-                          f"cache ({len(views[split])} sequences, "
-                          f"fingerprint {fp})")
+                    self._print(f"[4D FEATURE CACHE] loaded persisted "
+                                f"{split} cache ({len(views[split])} "
+                                f"sequences, fingerprint {fp})")
                     continue
-            views[split] = feature_cache.precompute(
-                self.model, ds, batch_size=self.batch_size,
-                num_workers=self.num_workers, host_bf16=self._host_bf16,
-                encoder=self._q8_encoder)
+            with use_mesh(self.mesh):
+                views[split] = feature_cache.precompute(
+                    self.model, ds, batch_size=self.batch_size,
+                    num_workers=self.num_workers, host_bf16=self._host_bf16,
+                    encoder=self._q8_encoder, quiet=not self._writer)
             if path:
-                feature_cache.save_view(path, views[split], fp)
+                if self._writer:
+                    feature_cache.save_view(path, views[split], fp)
+                self._barrier()
+                if not self._writer:
+                    views[split] = feature_cache.load_view(path, fp)
         self._feature_cache = views
         self._feat_dataloader = DataLoader(
-            views["train"], self.batch_size, shuffle=True,
-            num_workers=self.num_workers, seed=self._seed)
+            views["train"], self._local_batch, shuffle=True,
+            num_workers=self.num_workers, seed=self._seed, shard=self._shard)
         self._feat_val_dataloader = DataLoader(
-            views["val"], self.batch_size, shuffle=False,
-            num_workers=self.num_workers, seed=self._seed)
+            views["val"], self._local_batch, shuffle=False,
+            num_workers=self.num_workers, seed=self._seed, shard=self._shard)
 
     def _loader(self, train: bool):
         """The cached features' loader once the cache is built, else the
@@ -420,9 +540,9 @@ class Trainer:
         with contextlib.ExitStack() as window:
             for i, (batch, zyx, _) in enumerate(
                     self._device_prefetch(loader)):
-                if self._preempt_requested:
+                if self._agree_preempt():
                     break                # run() saves the preempt state
-                if profile_steps and i == 2:
+                if profile_steps and i == 2 and self._writer:
                     window.enter_context(profiling.trace(
                         os.path.join(self.output_dir, "profile"),
                         cuda=self.device.type == "cuda"))
@@ -446,10 +566,10 @@ class Trainer:
         accuracy = round(correct / max(total, 1), 5)
         lr = round(self.optimizer.current_lr(), 5)
         duration = time.time() - start_time
-        print(f"epoch {epoch}\t| batch {i}/{len(self.dataloader)}\t| "
-              f"train_loss: {avg_loss:.5f}\t| train_accuracy: "
-              f"{accuracy:.5f}\t| learning_rate: {lr:.5f}\t| "
-              f"duration: {duration:.2f}s")
+        self._print(f"epoch {epoch}\t| batch {i}/{len(self.dataloader)}\t| "
+                    f"train_loss: {avg_loss:.5f}\t| train_accuracy: "
+                    f"{accuracy:.5f}\t| learning_rate: {lr:.5f}\t| "
+                    f"duration: {duration:.2f}s")
         self.logger.log({"epoch": epoch, "batch": i, "train_loss": avg_loss,
                          "train_accuracy": accuracy, "learning_rate": lr,
                          "duration": duration})
@@ -467,8 +587,9 @@ class Trainer:
         avg_val_loss = round(float(np.mean(losses)), 5)
         self.val_loss = avg_val_loss
         accuracy = round(correct / max(total, 1), 5)
-        print(f"[VALIDATION] epoch {epoch}\t| total_batch {i}\t| "
-              f"val_loss {avg_val_loss:.5f}\t| val_accuracy {accuracy:.5f}")
+        self._print(f"[VALIDATION] epoch {epoch}\t| total_batch {i}\t| "
+                    f"val_loss {avg_val_loss:.5f}\t| val_accuracy "
+                    f"{accuracy:.5f}")
         self.logger.log({"epoch": epoch, "val_loss": avg_val_loss,
                          "val_accuracy": accuracy})
         if self._plateau:
@@ -485,20 +606,29 @@ class Trainer:
             new_lr = self.optimizer.current_lr() * self._plateau_factor
             self.optimizer.set_lr(new_lr)
             self._plateau_bad_epochs = 0
-            print(f"[LR PLATEAU] reducing learning rate to {new_lr:.6f}")
+            self._print(f"[LR PLATEAU] reducing learning rate to "
+                        f"{new_lr:.6f}")
 
     def evaluate_samples(self) -> float:
-        """Inference sweep over the validation set (Trainer.py:120-166)."""
-        print("=" * 50)
-        print(f"Training set has {len(self.data)} samples and validation set "
-              f"has {len(self.val_data)} samples.")
-        print(f"Training loader has {len(self.dataloader)} batches and "
-              f"validation loader has {len(self.val_dataloader)} batches.")
+        """Inference sweep over the validation set (Trainer.py:120-166).
+        With the rows split over the ranks, the predictions, labels and
+        subjects are gathered in the global batch's order; rank 0 prints."""
+        self._print("=" * 50)
+        self._print(f"Training set has {len(self.data)} samples and "
+                    f"validation set has {len(self.val_data)} samples.")
+        self._print(f"Training loader has {len(self.dataloader)} batches and "
+                    f"validation loader has {len(self.val_dataloader)} "
+                    "batches.")
         n_correct, n_total = 0, 0
         wrong_predictions = []
         for batch, zyx, host in self._device_prefetch(self.val_dataloader):
-            preds = self.eval_step(batch, zyx)["preds"].cpu().numpy()
-            labels, valid = host["label"], host["valid"]
+            preds = self.eval_step(batch, zyx)["preds"]
+            labels, valid, subjects = host["label"], host["valid"], \
+                host["subject"]
+            if self._shard_rows:
+                preds, labels, valid, subjects = self._gather_rows(
+                    preds, batch, subjects)
+            preds = preds.cpu().numpy()
             for j in range(len(preds)):
                 if not valid[j]:
                     continue
@@ -507,8 +637,21 @@ class Trainer:
                     n_correct += 1
                 else:
                     wrong_predictions.append(
-                        (host["subject"][j], int(preds[j]), int(labels[j])))
+                        (subjects[j], int(preds[j]), int(labels[j])))
         accuracy = n_correct / max(n_total, 1)
-        print(f"Accuracy: {accuracy*100:.2f}%")
-        print(f"Wrong predictions: {wrong_predictions}")
+        self._print(f"Accuracy: {accuracy*100:.2f}%")
+        self._print(f"Wrong predictions: {wrong_predictions}")
         return accuracy
+
+    def _gather_rows(self, preds: torch.Tensor,
+                     batch: Dict[str, torch.Tensor], subjects: list):
+        """Every rank's predictions, labels, valid flags and subjects, in
+        the global batch's order (``parallel.sharding.gather_rows``)."""
+        rows = sharding.gather_rows(torch.stack(
+            [preds.long(), batch["label"].long(), batch["valid"].long()],
+            dim=1), self.mesh).cpu().numpy()
+        parts = [None] * self.mesh.data
+        dist.all_gather_object(parts, list(subjects), group=self._host_group)
+        ordered = [s for row in zip(*parts) for s in row]
+        return (torch.from_numpy(rows[:, 0]), rows[:, 1],
+                rows[:, 2].astype(bool), ordered)

@@ -93,6 +93,8 @@ def test_every_module_imports_with_jax_blocked():
         "assert 'neurovit_tpu_torch.training.feature_cache' in names\n"
         "assert 'neurovit_tpu_torch.training.sweep' in names\n"
         "assert 'neurovit_tpu_torch.utils.profiling' in names\n"
+        "for mod in ('mesh', 'distributed', 'sharding'):\n"
+        "    assert f'neurovit_tpu_torch.parallel.{mod}' in names, mod\n"
         "import numpy as np\n"
         "from neurovit_tpu_torch.training.sweep import tpe_sample\n"
         "params = tpe_sample({'learning_rate': {'min': 1e-5, 'max': 1e-2}},\n"
@@ -131,6 +133,61 @@ def test_every_module_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 40
+
+
+def test_parallel_runs_with_jax_blocked(tmp_path):
+    """With ``jax`` and ``neurovit_tpu`` blocked: a one-rank gloo group
+    from the DISTRIBUTED_* keys, a data-parallel ResNet train step through
+    the global BatchNorm and the gradient reduction, and a two-replica
+    Predictor; no module of either was loaded."""
+    script = (
+        "import socket, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['neurovit_tpu'] = None\n"
+        "import numpy as np, torch\n"
+        "from neurovit_tpu_torch.config import load_config\n"
+        "from neurovit_tpu_torch.models import NeuroEncoder\n"
+        "from neurovit_tpu_torch.parallel import create_mesh, distributed\n"
+        "from neurovit_tpu_torch.serving import Predictor\n"
+        "from neurovit_tpu_torch.training import Trainer\n"
+        "s = socket.socket(); s.bind(('localhost', 0))\n"
+        "port = s.getsockname()[1]; s.close()\n"
+        f"config = load_config(overrides={{'TRAINING_VIT_INPUT_SIZE': 16,\n"
+        "    'TRAINING_VIT_PATCH_SIZE': 4, 'DATASET_NAME': 'adni',\n"
+        "    'MODEL_VOLUME_ENCODER': 'resnet', 'MODEL_RESNET_DEPTH': 10,\n"
+        "    'TRAINING_PRECISION': 'f32', 'TRAINING_BATCH_SIZE': 2,\n"
+        f"    'GLOBAL_OUTPUT_DIR': {str(tmp_path)!r},\n"
+        "    'DISTRIBUTED_MULTIHOST': True,\n"
+        "    'DISTRIBUTED_COORDINATOR': f'localhost:{port}',\n"
+        "    'DISTRIBUTED_NUM_PROCESSES': 1, 'DISTRIBUTED_PROCESS_ID': 0})\n"
+        "assert distributed.maybe_initialize(config, torch.device('cpu'))\n"
+        "class Vols:\n"
+        "    def __len__(self): return 4\n"
+        "    def sample(self, i):\n"
+        "        return {'volume': np.zeros((16, 16, 16), np.float32),\n"
+        "                'label': i % 2}\n"
+        "model = NeuroEncoder(config, device='cpu')\n"
+        "trainer = Trainer(config, model, Vols(), Vols())\n"
+        "assert trainer.mesh.distributed\n"
+        "x = torch.randn(2, 16, 16, 16)\n"
+        "m = trainer.train_step({'volume': x, 'label': torch.tensor([0, 1]),\n"
+        "                        'valid': torch.tensor([True, True])})\n"
+        "assert int(m['count']) == 2 and torch.isfinite(m['loss'])\n"
+        "p = Predictor(model, batch_size=2, devices=['cpu', 'cpu'])\n"
+        "assert p(x.numpy())[1].shape == (2, 2)\n"
+        "distributed.shutdown()\n"
+        "loaded = [m for m in sys.modules if m == 'jax' or m == "
+        "'neurovit_tpu' or m.startswith(('jax.', 'neurovit_tpu.'))]\n"
+        "assert not [m for m in loaded if sys.modules[m] is not None], "
+        "loaded\n"
+        "print('ok')\n")
+    env = {**os.environ, "PYTHONPATH": REPO}
+    for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(key, None)
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "ok"
 
 
 def test_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):

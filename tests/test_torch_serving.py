@@ -120,11 +120,23 @@ def test_cli_writes_csv(setup, tmp_path):
 
 @pytest.mark.parametrize("flag,item", [("--mesh", "multi-GPU")])
 def test_cli_refuses_unported_flags(setup, tmp_path, capsys, flag, item):
+    """``--mesh`` is ported (ROADMAP.md, Queue 1: multi-GPU): on the one
+    visible device of ``--device cpu`` it serves with one replica, the rows
+    of the CLI without it."""
     config, ckpt, tmp = setup
-    with pytest.raises(SystemExit):
-        serving.main([str(tmp_path), "--config", _write_config(config, tmp),
-                      "--checkpoint", ckpt, "--device", "cpu", flag])
-    assert item in capsys.readouterr().err
+    scan = str(tmp_path / "scan.nii")
+    nifti.save(scan, np.random.default_rng(3).standard_normal(
+        (21, 39, 21, 2)).astype(np.float32))
+    rows = {}
+    for flags in ([], [flag]):
+        out = tmp_path / f"pred{len(flags)}.csv"
+        serving.main([scan, "--config", _write_config(config, tmp),
+                      "--checkpoint", ckpt, "--output", str(out),
+                      "--batch-size", "4", "--device", "cpu", *flags])
+        rows[len(flags)] = out.read_text()
+    assert "Serving over mesh {'data': 1, 'model': 1, 'pipe': 1} on ['cpu']" \
+        in capsys.readouterr().out
+    assert rows[1] == rows[0]
 
 
 def test_cli_serves_int8(setup, tmp_path):
