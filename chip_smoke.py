@@ -326,6 +326,23 @@ Phases, each printing a line; any failure raises and exits non-zero:
                launches the one-process step's; (c) the flagship served at
                batch 32 on two replicas on cuda:0, bf16 and int8, against
                one replica; the phase's seconds
+21. tp         tensor parallelism (parallel/tensor_parallel.py): (a) the
+               flagship served by one replica tensor-parallel over
+               [cuda:0, cuda:0] (MESH_MODEL_AXIS 2) at bf16, f32 and int8
+               of both against the one-replica Predictor: labels equal,
+               the bounds of _tp_serving, every block's forms launched on
+               both shards and no whole-width pass; (b) two ranks at tp 2
+               on the one card over gloo against one process: the
+               flagship bf16 and f32 at batch 8, config4D's B 2 x T 140 on
+               the int8 encoder: losses, gathered gradients, the f32
+               update at JAX's bounds, bit-equal ranks, each case's forms
+               launched and no whole-width pass; (c) each
+               tensor-parallel form (ops/tp_forms.py) against its plain
+               version at the tp 2 shard widths, the shards' f32 partials
+               summed against the whole-width kernel, the split int8
+               row-quantize's codes bit-equal to K11's and K12's, timed by
+               events and device time beside the whole-width pass; two
+               ranks share one card, so no speed-up is claimed
 
 The kernel phase also checks K14 (the stem's max-pool with its argmax
 codes) and K15 (its backward) at [8, 90, 45, 45, 64] bf16 on a continuous,
@@ -491,13 +508,55 @@ KERNELS = [
     ("flash_attention_bhnd_bwd_f32",
      "neurovit_tpu_torch/csrc/flash_attention_bwd_f32.cu",
      "neurovit_tpu/ops/flash_attention.py:152"),
+    # The tensor-parallel forms (ops/tp_forms.py): a shard's f32 partial of
+    # a row-parallel product (K3's and K4's fc2 pass), of a LayerNorm
+    # backward behind a column-parallel one (K7, K9), and the int8 row
+    # quantize split around the model group's max with the int32
+    # accumulator and the epilogue on the group's sum (K11, K12).
+    ("fused_outproj_partial", "neurovit_tpu_torch/csrc/fused_outproj.cu",
+     "neurovit_tpu/ops/fused_outproj.py:44"),
+    ("fused_outproj_partial_f32",
+     "neurovit_tpu_torch/csrc/fused_outproj_f32.cu",
+     "neurovit_tpu/ops/fused_outproj.py:44"),
+    ("fused_mlp_partial", "neurovit_tpu_torch/csrc/fused_mlp.cu",
+     "neurovit_tpu/ops/fused_mlp.py:108"),
+    ("fused_mlp_partial_f32", "neurovit_tpu_torch/csrc/fused_mlp_f32.cu",
+     "neurovit_tpu/ops/fused_mlp.py:108"),
+    ("fused_ln_qkv_bwd_partial", "neurovit_tpu_torch/csrc/fused_qkv_bwd.cu",
+     "neurovit_tpu/ops/fused_qkv.py:71"),
+    ("fused_mlp_bwd_partial", "neurovit_tpu_torch/csrc/fused_mlp_bwd.cu",
+     "neurovit_tpu/ops/fused_mlp.py:141"),
+    ("fused_mlp_bwd_partial_f32",
+     "neurovit_tpu_torch/csrc/fused_mlp_bwd_f32.cu",
+     "neurovit_tpu/ops/fused_mlp.py:141"),
+    ("int8_row_amax", "neurovit_tpu_torch/csrc/int8_rowquant.cu",
+     "neurovit_tpu/ops/int8_serving.py:167"),
+    ("int8_row_amax_f32", "neurovit_tpu_torch/csrc/int8_rowquant.cu",
+     "neurovit_tpu/ops/int8_serving.py:167"),
+    ("int8_outproj_partial", "neurovit_tpu_torch/csrc/int8_outproj.cu",
+     "neurovit_tpu/ops/int8_serving.py:167"),
+    ("int8_outproj_partial_f32", "neurovit_tpu_torch/csrc/int8_outproj.cu",
+     "neurovit_tpu/ops/int8_serving.py:167"),
+    ("int8_mlp_hidden", "neurovit_tpu_torch/csrc/int8_mlp.cu",
+     "neurovit_tpu/ops/int8_serving.py:173"),
+    ("int8_mlp_hidden_f32", "neurovit_tpu_torch/csrc/int8_mlp.cu",
+     "neurovit_tpu/ops/int8_serving.py:173"),
+    ("int8_mlp_partial", "neurovit_tpu_torch/csrc/int8_mlp.cu",
+     "neurovit_tpu/ops/int8_serving.py:173"),
+    ("int8_dequant_residual", "neurovit_tpu_torch/csrc/int8_mlp.cu",
+     "neurovit_tpu/ops/int8_serving.py:167"),
+    ("int8_dequant_residual_f32", "neurovit_tpu_torch/csrc/int8_mlp.cu",
+     "neurovit_tpu/ops/int8_serving.py:167"),
 ]
+# The tensor-parallel forms: only the tp phase's shards launch them.
+TP_KERNELS = [name for name, _, _ in KERNELS[-16:]]
 # K10-K13 (bf16) and their f32 instances: int8 serving of a bf16 ViT, and
 # of an f32 ViT (phase 18's (g)-(i)).
 INT8_F32_KERNELS = [name for name, _, _ in KERNELS
-                    if name.startswith("int8_") and name.endswith("_f32")]
+                    if name.startswith("int8_") and name.endswith("_f32")
+                    and name not in TP_KERNELS]
 INT8_KERNELS = [name for name, _, _ in KERNELS if name.startswith("int8_")
-                and name not in INT8_F32_KERNELS]
+                and name not in INT8_F32_KERNELS + TP_KERNELS]
 # K6: only the Grad-CAM probe's last block runs it; at f32 (phase 18's
 # (j)-(l)), an f32 ViT's probe. These are kept out of F32_KERNELS, whose
 # serving and training counts are depth times the forwards.
@@ -511,14 +570,15 @@ PROBE_KERNELS = ["dropout", "gemm_bf16", "gemm_int8", "dynquant_matmul"]
 # K1-K5 and K7-K9 at f32: only an f32 ViT runs them (phase 18); serving
 # and the 4D step launch the forwards alone.
 F32_KERNELS = [name for name, _, _ in KERNELS if name.endswith("_f32")
-               and name not in INT8_F32_KERNELS + F32_GRADCAM_KERNELS]
+               and name not in INT8_F32_KERNELS + F32_GRADCAM_KERNELS
+               + TP_KERNELS]
 F32_BACKWARD_KERNELS = [name for name in F32_KERNELS if "_bwd" in name]
 F32_FORWARD_KERNELS = [name for name in F32_KERNELS
                        if name not in F32_BACKWARD_KERNELS]
 # Kernels no bf16 ViT block forward or backward launches.
 OFF_BLOCK_KERNELS = (INT8_KERNELS + GRADCAM_KERNELS + RESNET_KERNELS
                      + PROBE_KERNELS + F32_KERNELS + INT8_F32_KERNELS
-                     + F32_GRADCAM_KERNELS)
+                     + F32_GRADCAM_KERNELS + TP_KERNELS)
 # K16's x in its probe (scripts/torch_dropout_bench.py); the GEMM probe's
 # shapes are its SHAPES, fc1 first.
 DROPOUT_SHAPE = (32 * 1001, 2048)
@@ -2355,6 +2415,21 @@ def train_rate_phase(config, workdir: str, card: str, batch: int = 128
                   lambda: trainer.train_step(dbatch, zyx), ms)
 
 
+def device_rows(prof) -> list:
+    """(name, device ms, count) of each kernel a torch.profiler trace
+    recorded on the card (the attribute's name differs between PyTorch
+    versions)."""
+    def device_ms(e):
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(e, attr):
+                return getattr(e, attr) / 1e3
+        return 0.0
+
+    return [(e.key, device_ms(e), e.count) for e in prof.key_averages()
+            if "CUDA" in str(getattr(e, "device_type", ""))
+            and device_ms(e) > 0]
+
+
 def profile_split(phase: str, what: str, fn, ms: float) -> None:
     """Kernel time of one ``fn()`` by kernel, from torch.profiler, against
     its timed ``ms``."""
@@ -2363,16 +2438,7 @@ def profile_split(phase: str, what: str, fn, ms: float) -> None:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-
-    def device_ms(e):
-        for attr in ("self_device_time_total", "self_cuda_time_total"):
-            if hasattr(e, attr):
-                return getattr(e, attr) / 1e3
-        return 0.0
-
-    rows = [(e.key, device_ms(e), e.count) for e in prof.key_averages()
-            if "CUDA" in str(getattr(e, "device_type", ""))
-            and device_ms(e) > 0]
+    rows = device_rows(prof)
     rows.sort(key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
     log(phase, f"profiled {what}: {total:.2f} ms of kernel time in "
@@ -2400,11 +2466,14 @@ def _check_counts(phase: str, launches: dict, want: dict) -> None:
     if "fused_fwd_wsplit_f32" in want:
         want = dict(want, fused_fwd_wsplit_f32=want.get(
             "fused_ln_qkv_f32", 0) + 2 * want.get("fused_mlp_block_f32", 0)
-            + want.get("fused_outproj_residual_f32", 0))
+            + want.get("fused_outproj_residual_f32", 0)
+            + want.get("fused_outproj_partial_f32", 0)
+            + 2 * want.get("fused_mlp_partial_f32", 0))
     if "fused_outproj_bwd_wsplit_f32" in want:
         want = dict(want, fused_outproj_bwd_wsplit_f32=want.get(
             "fused_outproj_bwd_f32", 0) + want.get("fused_ln_qkv_bwd_f32", 0)
-            + 2 * want.get("fused_mlp_bwd_f32", 0))
+            + 2 * want.get("fused_mlp_bwd_f32", 0)
+            + 2 * want.get("fused_mlp_bwd_partial_f32", 0))
     for name, count in launches.items():
         if count != want[name] or (want[name] and count == 0):
             raise AssertionError(f"{name} launched {count} times in {phase}, "
@@ -5831,16 +5900,18 @@ def _dp_entry_point(config, workdir: str, runs: dict, card: str) -> None:
         f"{times['peak_gib']} GiB; {times['card']}")
 
 
-def _dp_case(name: str, workdir: str, precision=None):
-    """(config, train dataset, global host batch) of a case of (b), its
+def _dp_case(name: str, workdir: str, precision=None, cases=None,
+             **extra):
+    """(config, train dataset, global host batch) of a case of (b) (of
+    ``cases``, default DP_CASES, with the config keys ``extra``), its
     TRAINING_PRECISION ``precision`` when given."""
     from neurovit_tpu_torch.config import load_config
     config = load_config()
     out = os.path.join(workdir, "dp", "cases")
-    b = DP_CASES[name]
+    b = (cases or DP_CASES)[name]
     common = {"TRAINING_DROPOUT": 0.0, "TRAINING_LEARNING_RATE": 1e-4,
               "TRAINING_BATCH_SIZE": b, "TRAINING_NUM_WORKERS": 1,
-              "WANDB_ENABLED": False, "GLOBAL_OUTPUT_DIR": out}
+              "WANDB_ENABLED": False, "GLOBAL_OUTPUT_DIR": out, **extra}
     rng = np.random.default_rng(SEED + 20)
     if name == "fourd_int8":
         cfg = _fourd_config(workdir, **common, MODEL_TEMPORAL_DROPOUT=0.0,
@@ -5875,16 +5946,18 @@ def _digest(tensors: dict) -> str:
 
 
 def _dp_run_case(name: str, workdir: str, counters: dict, mesh=None,
-                 keep: bool = True, precision=None) -> dict:
+                 keep: bool = True, precision=None, cases=None,
+                 keep_state: bool = False, **extra) -> dict:
     """One train step of case ``name`` on this process's rows, the launch
     counts set to 0 just before it and read just after: the loss and count
     it reports, the reduced gradients (``keep``) and their digest, the
-    state's digest (its BatchNorm running stats kept), the launches."""
+    state's digest (its BatchNorm running stats kept), the launches. A
+    tensor-parallel rank's gradients and state are gathered whole."""
     from neurovit_tpu_torch.models import NeuroEncoder
-    from neurovit_tpu_torch.parallel import sharding
+    from neurovit_tpu_torch.parallel import sharding, tensor_parallel
     from neurovit_tpu_torch.training import Trainer
 
-    cfg, data, batch = _dp_case(name, workdir, precision)
+    cfg, data, batch = _dp_case(name, workdir, precision, cases, **extra)
     model = NeuroEncoder(cfg, device="cuda", seed=SEED)
     trainer = Trainer(cfg, model, data, data, mesh=mesh)
     if trainer._shard_rows:
@@ -5910,7 +5983,10 @@ def _dp_run_case(name: str, workdir: str, counters: dict, mesh=None,
     m = trainer.train_step(dbatch)
     torch.cuda.synchronize()
     launches = {n: fn.launches for n, fn in counters.items()}
-    state = model.state_dict()
+    state = trainer._whole_state()
+    if trainer._tp:
+        grads = {k: tensor_parallel.gather(v, k, trainer.mesh)
+                 for k, v in grads.items()}
     out = {"loss": float(m["loss"]), "count": int(m["count"]),
            "rows": int(dbatch["valid"].shape[0]), "encoded": encoded,
            "grad_digest": _digest(grads), "state_digest": _digest(state),
@@ -5919,6 +5995,8 @@ def _dp_run_case(name: str, workdir: str, counters: dict, mesh=None,
            "launches": launches}
     if keep:
         out["grads"] = {k: v.cpu() for k, v in grads.items()}
+    if keep_state:
+        out["state"] = {k: v.cpu() for k, v in state.items()}
     del trainer, model
     return out
 
@@ -5955,14 +6033,15 @@ def _dp_grad_errs(got: dict, want: dict) -> dict:
             for k, w in want.items()}
 
 
-def _dp_hold_bf16(name: str, got: dict, want: dict, truth: dict) -> str:
+def _dp_hold_bf16(name: str, got: dict, want: dict, truth: dict,
+                  label: str = "data-parallel") -> str:
     """The bf16 flagship's reduced gradients against the one-process f32
     gradients of the same weights and batch: no farther than
     BF16_GRAD_RATIO times the one-process bf16 gradients' error plus
     GRAD_RTOL, in the worst and the median parameter (the ResNet's rule,
     phase 16: a gradient summed over the batch is rounded to bf16 once a
     rank here and once in one process)."""
-    errs = {"data-parallel": _dp_grad_errs(got, truth),
+    errs = {label: _dp_grad_errs(got, truth),
             "one process": _dp_grad_errs(want, truth)}
     for stat in (max, lambda v: float(np.median(v))):
         dp, one = (stat(list(e.values())) for e in errs.values())
@@ -6154,12 +6233,722 @@ def _dp_phase_body(config, ckpt: str, workdir: str, card: str,
     return total
 
 
+# ---------------------------------------------------------------------------
+# Tensor parallelism (the tp phase)
+# ---------------------------------------------------------------------------
+
+# (b)'s cases: the flagship bf16 and f32 at global batch 8, config4D's B 2
+# x T 140 on the int8 encoder; two ranks at tp 2, dp 1.
+TP_CASES = {"vit_bf16": 8, "vit_f32": 8, "fourd_int8": 2}
+TP_WORLD = 2
+# JAX's bounds of a dp x tp step against one device (tests/test_sharding.py
+# :83-89): the loss within 1e-5 relative, each updated parameter within
+# 2e-4 relative + 1e-5 absolute; the int8 predictor's probabilities on a
+# model axis within 1e-4 of one device's (tests/test_int8_serving.py:253).
+TP_LOSS_RTOL = 1e-5
+TP_PARAM_RTOL, TP_PARAM_ATOL = 2e-4, 1e-5
+TP_INT8_PROB_ATOL = 1e-4
+# The tensor-parallel forms each case of (b) launches (K7 f32's form is K7
+# f32 itself: its dx is f32 already).
+TP_CASE_FORMS = {
+    "vit_bf16": ["fused_outproj_partial", "fused_mlp_partial",
+                 "fused_ln_qkv_bwd_partial", "fused_mlp_bwd_partial"],
+    "vit_f32": ["fused_outproj_partial_f32", "fused_mlp_partial_f32",
+                "fused_ln_qkv_bwd_f32", "fused_mlp_bwd_partial_f32"],
+    "fourd_int8": ["int8_row_amax", "int8_outproj_partial",
+                   "int8_mlp_hidden", "int8_mlp_partial",
+                   "int8_dequant_residual"],
+}
+# The whole-width passes whose forms a shard launches instead.
+TP_WHOLE_PASSES = ["fused_outproj_residual", "fused_mlp_block",
+                   "fused_ln_qkv_bwd", "fused_mlp_bwd",
+                   "fused_outproj_residual_f32", "fused_mlp_block_f32",
+                   "fused_mlp_bwd_f32", "int8_outproj_residual",
+                   "int8_mlp_block", "int8_outproj_residual_f32",
+                   "int8_mlp_block_f32"]
+# The learning rate of (b)'s cases (_dp_case): after AdamW's first step an
+# element whose gradient is below 1e-5 of its tensor's largest moves by up
+# to lr on the sign of f32 rounding noise (tests/test_torch_parallel_ranks
+# .py), so such elements may differ by 2 lr.
+TP_LR = 1e-4
+
+
+def _tp_shard_counts(depth: int, forwards: int, quant, f32: bool,
+                     counters: dict) -> dict:
+    """The launches of one tensor-parallel serving run over two shards:
+    each block of each forward on each shard, the int8 epilogue twice a
+    block (the out-projection's and the MLP's), the whole-width passes
+    none."""
+    n = depth * forwards * TP_WORLD
+    sfx = "_f32" if f32 else ""
+    if quant:
+        names = [f"int8_ln_qkv{sfx}", f"int8_flash_attention{sfx}",
+                 f"int8_row_amax{sfx}", f"int8_outproj_partial{sfx}",
+                 f"int8_mlp_hidden{sfx}", "int8_mlp_partial"]
+    else:
+        names = [f"fused_ln_qkv{sfx}", f"flash_attention{sfx}",
+                 f"fused_outproj_partial{sfx}", f"fused_mlp_partial{sfx}"]
+    want = _want(names, n, counters)
+    if quant:
+        want[f"int8_dequant_residual{sfx}"] = 2 * n
+    return want
+
+
+def _tp_serving(ckpt: str, counters: dict) -> dict:
+    """(a): the flagship served by a Predictor on a model axis of 2 over
+    [cuda:0, cuda:0] at bf16, f32, and int8 of both, against the
+    one-replica Predictor on the same weights, 8 volumes in one bucket:
+    labels equal; f32 logits within F32_LOGIT_ATOL; int8 of either dtype
+    within JAX's TP_INT8_PROB_ATOL and its logits one replica's bit for bit
+    (the shards sum their int32 accumulators, exactly, and run the
+    epilogue once); bf16 within PROB_ATOL (the shards' f32 sum is rounded
+    to bf16 once, and where it lands on the other side of a rounding
+    boundary than one card's the residual stream moves by an ulp, and with
+    it the next block's codes). Launches of each run checked exactly.
+    Returns the runs' launches."""
+    from neurovit_tpu_torch.config import load_config
+    from neurovit_tpu_torch.serving import Predictor
+    phase = "tp"
+    config = load_config()
+    vols = _volumes(np.random.default_rng(SEED + 30), 8,
+                    config["TRAINING_VIT_INPUT_SIZE"])
+    x = torch.from_numpy(vols).cuda()
+    depth = config["MODEL_VIT_DEPTH"]
+    total = {name: 0 for name in counters}
+    for precision, quant in (("bf16", None), ("f32", None), ("bf16", "int8"),
+                             ("f32", "int8")):
+        cfg = dict(config, TRAINING_PRECISION=precision)
+        one = Predictor.from_checkpoint(cfg, ckpt, batch_size=8,
+                                        device="cuda", quant=quant,
+                                        bucket_sizes=())
+        two = Predictor.from_checkpoint(cfg, ckpt, batch_size=8, quant=quant,
+                                        bucket_sizes=(),
+                                        devices=["cuda:0", "cuda:0"],
+                                        model_axis=2)
+        want_labels, want = one(vols)
+        forwards = _count_forwards(two.replicas[0])
+        _reset(counters)
+        labels, probs = two(vols)
+        torch.cuda.synchronize()
+        launches = _read(counters, total)
+        _check_counts(f"tensor-parallel {precision} {quant or ''} serving",
+                      launches, _tp_shard_counts(depth, forwards[0], quant,
+                                                 precision == "f32",
+                                                 counters))
+        what = f"{precision}{' int8' if quant else ''}"
+        if (labels != want_labels).any():
+            raise AssertionError(f"{what}: labels differ from one replica's")
+        gap = float(np.abs(probs - want).max())
+        with torch.inference_mode():
+            lgap = float((two.model(x).float() - one.model(x).float()).abs()
+                         .max())
+        if quant:
+            bound_text = (f"held to JAX's {TP_INT8_PROB_ATOL}; logits "
+                          f"{lgap:.3e} apart, held to 0")
+            if gap > TP_INT8_PROB_ATOL or lgap != 0.0:
+                raise AssertionError(f"{what}: probabilities {gap:.3e} and "
+                                     f"logits {lgap:.3e} from one replica's")
+        elif precision == "bf16":
+            bound_text = f"held to {PROB_ATOL}; logits {lgap:.3e} apart"
+            if gap > PROB_ATOL:
+                raise AssertionError(f"{what}: probabilities {gap:.3e} from "
+                                     "one replica's")
+        else:
+            bound_text = (f"logits {lgap:.3e} apart, held to "
+                          f"{F32_LOGIT_ATOL}")
+            if lgap > F32_LOGIT_ATOL:
+                raise AssertionError(f"{what}: logits {lgap:.3e} from one "
+                                     "replica's")
+        log(phase, f"(a) {what}: one replica tensor-parallel over [cuda:0, "
+            f"cuda:0] against the one-replica Predictor, 8 volumes: labels "
+            f"equal, probabilities {gap:.3e} apart ({bound_text}); launches "
+            f"{ {k: v for k, v in launches.items() if v} } ({depth} blocks x "
+            f"{TP_WORLD} shards), the whole-width passes none")
+        del one, two
+        torch.cuda.empty_cache()
+    return total
+
+
+def _tp_rank(rank: int, world: int, workdir: str) -> None:
+    """(b)'s rank: a gloo group by a file:// rendezvous on cuda:0, a mesh
+    with MESH_MODEL_AXIS 2 (tp 2, dp 1), every case on this rank's shard;
+    rank 0's results saved for the parent (its gathered gradients)."""
+    import torch.distributed as dist
+    from neurovit_tpu_torch.parallel import create_mesh, distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/rdv",
+                            rank=rank, world_size=world)
+    try:
+        if not distributed.maybe_initialize({}, torch.device("cuda", 0)):
+            raise AssertionError("the port did not adopt the group")
+        mesh = create_mesh({"MESH_MODEL_AXIS": world})
+        if (mesh.model, mesh.data, mesh.model_index) != (world, 1, rank):
+            raise AssertionError(f"the mesh is not tp {world}: {mesh}")
+        counters = kernel_counters()
+        results = {name: _dp_run_case(name, workdir, counters,
+                                      keep=rank == 0, cases=TP_CASES,
+                                      keep_state=(rank == 0
+                                                  and name == "vit_f32"),
+                                      MESH_MODEL_AXIS=world)
+                   for name in TP_CASES}
+        torch.save(results, os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_hold_params(name: str, got: dict, want: dict, grads: dict) -> float:
+    """The updated parameters against one process's at JAX's bounds, the
+    elements AdamW moved on a noise-signed gradient aside (TP_LR)."""
+    worst = 0.0
+    for key, w in want.items():
+        if not w.is_floating_point():
+            continue
+        g = got[key].float().cpu()
+        w = w.float().cpu()
+        diff = (g - w).abs()
+        bad = diff > TP_PARAM_ATOL + TP_PARAM_RTOL * w.abs()
+        if key in grads and bad.any():
+            gr = grads[key].float().cpu()
+            noise = gr.abs() <= 1e-5 * gr.abs().max()
+            if not (noise[bad].all() and (diff[bad] <= 2 * TP_LR).all()):
+                raise AssertionError(f"{name}: {key} {float(diff.max()):.3e} "
+                                     "from one process's")
+        elif bad.any():
+            raise AssertionError(f"{name}: {key} {float(diff.max()):.3e} from "
+                                 "one process's")
+        worst = max(worst, float(diff.max()))
+    return worst
+
+
+def _tp_hold_ranks(ranks: list, single: dict, states: dict,
+                   truth: dict) -> dict:
+    """(b): each rank against one process: the loss and count; the
+    gathered gradients and updated parameters (f32 at JAX's bounds, bf16
+    against the f32 gradients, the int8 4D step at GRAD_RTOL); both ranks'
+    digests equal; each TP form of the step launched. Returns rank 0's
+    launches summed over the cases."""
+    phase = "tp"
+    total = {}
+    for name in TP_CASES:
+        want = single[name]
+        for r, res in enumerate(ranks):
+            got = res[name]
+            rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+            bound = TP_LOSS_RTOL if name == "vit_f32" else GRAD_RTOL
+            if rel > bound or got["count"] != want["count"]:
+                raise AssertionError(
+                    f"{name} rank {r}: loss {got['loss']!r} count "
+                    f"{got['count']} against one process's {want['loss']!r}"
+                    f" {want['count']} (relative {rel:.3e}, held to {bound})")
+            for key in ("state_digest", "grad_digest"):
+                if got[key] != ranks[0][name][key]:
+                    raise AssertionError(f"{name}: rank {r}'s {key} differs "
+                                         "from rank 0's")
+        launches = ranks[0][name]["launches"]
+        forms = TP_CASE_FORMS[name]
+        missing = [n for n in forms if not launches.get(n)]
+        if missing:
+            raise AssertionError(f"{name}: the step launched no {missing}")
+        whole = [n for n in TP_WHOLE_PASSES if launches.get(n)]
+        if whole:
+            raise AssertionError(f"{name}: a shard launched the whole-width "
+                                 f"{whole}")
+        errs = _dp_grad_errs(ranks[0][name]["grads"], want["grads"])
+        held = ""
+        if name in truth:
+            held = _dp_hold_bf16(name, ranks[0][name]["grads"],
+                                 want["grads"], truth[name],
+                                 label="tensor-parallel")
+        else:
+            gbound = F32_GRAD_RTOL if name == "vit_f32" else GRAD_RTOL
+            if max(errs.values()) > gbound:
+                raise AssertionError(f"{name}: {err_text(errs)} above "
+                                     f"{gbound}")
+            held = f"; held to {gbound}"
+        params = ""
+        if name == "vit_f32":
+            worst = _tp_hold_params(name, ranks[0][name]["state"],
+                                    states[name], want["grads"])
+            params = (f"; updated parameters at most {worst:.3e} apart (held "
+                      f"to {TP_PARAM_RTOL} rel + {TP_PARAM_ATOL}, AdamW's "
+                      "noise-signed elements aside)")
+        log(phase, f"(b) {name}: global batch {TP_CASES[name]}, tp "
+            f"{TP_WORLD} on cuda:0; loss {ranks[0][name]['loss']!r} against "
+            f"one process's {want['loss']!r}; gathered gradients against "
+            f"one process: {err_text(errs)}{held}{params}; gradients and "
+            f"parameters bit-equal on the {len(ranks)} ranks; forms "
+            f"launched { {n: launches[n] for n in forms} }")
+        for n, c in launches.items():
+            total[n] = total.get(n, 0) + c
+    return total
+
+
+def _tp_operands(rng, dtype) -> dict:
+    """The flagship block's operands at batch 8 in ``dtype`` (weights f32,
+    their int8 forms quantized whole), which _tp_cut cuts."""
+    from neurovit_tpu_torch.ops import int8_serving as q8
+
+    def t(*shape, scale=1.0, dt=dtype, offset=0.0):
+        a = offset + scale * rng.standard_normal(shape)
+        return torch.tensor(a, dtype=dt, device="cuda")
+
+    def w(out_f, in_f):
+        a = rng.uniform(-1, 1, (out_f, in_f)) / in_f ** 0.5
+        return torch.tensor(a, dtype=torch.float32, device="cuda")
+
+    inner = HEADS * DIM_HEAD
+    ops = {"x": t(B, N, DIM), "attn": t(B, N, inner),
+           "ln": (t(DIM, scale=0.1, dt=torch.float32, offset=1.0),
+                  t(DIM, scale=0.1, dt=torch.float32)),
+           "wout": w(DIM, inner),
+           "bout": t(DIM, scale=0.03, dt=torch.float32),
+           "w1": w(MLP, DIM), "b1": t(MLP, scale=0.03, dt=torch.float32),
+           "w2": w(DIM, MLP), "b2": t(DIM, scale=0.02, dt=torch.float32),
+           "wqkv": w(3 * inner, DIM), "dy": t(B, N, DIM, scale=0.1),
+           "dqkv": t(B, N, 3 * inner, scale=0.1)}
+    for name, key in (("out8", "wout"), ("w18", "w1"), ("w28", "w2")):
+        ops[name] = q8.quantize_weight(ops[key])
+    return ops
+
+
+def _tp_cut(whole: dict, m: int, tp: int) -> dict:
+    """Model index m's shard of the block of _tp_operands: the attention
+    output's heads, the weights by the rules of parallel.tensor_parallel
+    (the int8 weights cut from the whole's codes), dqkv's heads of q, k
+    and v, and h's hidden columns once set."""
+    from neurovit_tpu_torch.parallel.tensor_parallel import cut
+    inner = whole["attn"].shape[-1]
+    part = inner // tp
+    dq = whole["dqkv"].reshape(B, N, 3, inner)[..., m * part:(m + 1) * part]
+    return {"attn": whole["attn"][..., m * part:(m + 1) * part].contiguous(),
+            "wout": cut(whole["wout"], "row", m, tp),
+            "w1": cut(whole["w1"], "col", m, tp),
+            "b1": cut(whole["b1"], "col", m, tp),
+            "w2": cut(whole["w2"], "row", m, tp),
+            "wqkv": cut(whole["wqkv"], "heads", m, tp),
+            "dqkv": dq.reshape(B, N, 3 * part).contiguous(),
+            "out8": (cut(whole["out8"][0], "row", m, tp), whole["out8"][1]),
+            "w18": (cut(whole["w18"][0], "col", m, tp),
+                    cut(whole["w18"][1], "col", m, tp)),
+            "w28": (cut(whole["w28"][0], "row", m, tp), whole["w28"][1])}
+
+
+def _device_ms(fn, kernels: int, runs: int = 10, tries: int = 3):
+    """The profiler's device time of one ``fn()``, which launches
+    ``kernels`` kernels: the median over ``tries`` traces of ``runs`` calls
+    each of the mean a call, counting only the traces that recorded every
+    launch (the profiler loses records on this machine, PERF.md §7).
+    Returns (ms or None where no trace was whole, each trace's count of
+    kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    readings, counts = [], []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        rows = device_rows(prof)
+        counts.append(sum(r[2] for r in rows))
+        if counts[-1] == kernels * runs:
+            readings.append(sum(r[1] for r in rows) / runs)
+    return (float(np.median(readings)) if readings else None), counts
+
+
+def _piece(scratch: torch.Tensor, plan, piece: str, rows: int,
+           dtype=torch.int8) -> torch.Tensor:
+    """A piece of a K11 / K12 call's scratch: its codes, or K12's f32 g."""
+    off, n = plan.scratch[piece]
+    return scratch[off:off + n].view(dtype).reshape(rows, -1)
+
+
+def _tp_form_checks(dtype, rng, tp: int) -> dict:
+    """(c) at one dtype: every form against plain on both shards; the
+    shards' partials summed against the whole-width pass; the split
+    row-quantize's codes against the one-card codes; the int8 shards'
+    int32 sums through the epilogue against the one-card passes bit for
+    bit. Returns each form's (kernel call, plain call, max abs err, input
+    bytes, output bytes, operations, library call or None, whole-width
+    call, the kernels a call of the form launches, those of the
+    whole-width call), on model index 1's shard, whose f32 partial has no
+    bias and no residual."""
+    from neurovit_tpu_torch.ops import fused_mlp, fused_outproj, fused_qkv
+    from neurovit_tpu_torch.ops import int8_serving as q8
+    from neurovit_tpu_torch.ops import tp_forms as F
+
+    sfx = "_f32" if dtype == torch.float32 else ""
+    mode = "f32" if sfx else ""
+    kind = "f32" if sfx else "bf16"
+    # The f32 GEMMs' weight pre-pass: one launch a weight and call.
+    split = 1 if sfx else 0
+    whole = _tp_operands(rng, dtype)
+    sh = [_tp_cut(whole, m, tp) for m in range(tp)]
+    x, ln, dy = whole["x"], whole["ln"], whole["dy"]
+    rows, inner_m = B * N, sh[0]["attn"].shape[-1]
+    hid_m, esz = MLP // tp, x.element_size()
+    _, h_all = fused_mlp.fused_mlp_block_plain(
+        x, *ln, whole["w1"], whole["b1"], whole["w2"], whole["b2"],
+        return_h=True)
+    for m, s in enumerate(sh):
+        s["h"] = h_all[..., m * hid_m:(m + 1) * hid_m].contiguous()
+    out = {}
+
+    def held(name, kernel, plain, summed, full, sum_kw=None, **kw):
+        """Each shard's form against plain (``kw``: compare's); the f32
+        sum of the shards' outputs, rounded once, against ``full``
+        (``sum_kw``, default ``kw``)."""
+        worst, parts = 0.0, []
+        for m, s in enumerate(sh):
+            got, want = kernel(m, s), plain(m, s)
+            torch.cuda.synchronize()
+            a, _ = compare(f"{name} m={m}", got, want, **kw)
+            worst = max(worst, a)
+            parts.append(got)
+        if full is not None:
+            compare(f"{name}: the shards summed", summed(parts), full(),
+                    **(kw if sum_kw is None else sum_kw))
+        return worst
+
+    def summed_y(parts):
+        return (parts[0] + parts[1]).to(dtype)
+
+    err = err_m = 0.0
+    for rate in (0.0, DROPOUT):
+        drop = {"dropout_rate": rate, "seed": 1234}
+        err = max(err, held(
+            f"fused_outproj_partial{sfx} dropout {rate}",
+            lambda m, s: F.outproj_partial(x, s["attn"], s["wout"],
+                                           whole["bout"], first=m == 0,
+                                           **drop),
+            lambda m, s: F.outproj_partial_plain(x, s["attn"], s["wout"],
+                                                 whole["bout"], first=m == 0,
+                                                 **drop),
+            summed_y, lambda: fused_outproj.fused_outproj_residual(
+                x, whole["attn"], whole["wout"], whole["bout"], **drop),
+            mode=mode))
+        mdrop = {"dropout_rate": rate, "seeds": (1235, 1236)}
+        # The shards' hidden masks are their own (a column-parallel site),
+        # so their sum is the whole pass's at dropout 0 only.
+        err_m = max(err_m, held(
+            f"fused_mlp_partial{sfx} dropout {rate}",
+            lambda m, s: F.mlp_partial(x, *ln, s["w1"], s["b1"], s["w2"],
+                                       whole["b2"], first=m == 0, **mdrop),
+            lambda m, s: F.mlp_partial_plain(x, *ln, s["w1"], s["b1"],
+                                             s["w2"], whole["b2"],
+                                             first=m == 0, **mdrop),
+            summed_y, None if rate else lambda: fused_mlp.fused_mlp_block(
+                x, *ln, whole["w1"], whole["b1"], whole["w2"], whole["b2"]),
+            mode=mode))
+    s1 = sh[1]
+    out[f"fused_outproj_partial{sfx}"] = (
+        lambda: F.outproj_partial(x, s1["attn"], s1["wout"], whole["bout"],
+                                  first=False),
+        lambda: F.outproj_partial_plain(x, s1["attn"], s1["wout"],
+                                        whole["bout"], first=False),
+        err, nbytes(s1["attn"]) + s1["wout"].numel() * esz,
+        rows * DIM * 4, {kind: 2 * rows * inner_m * DIM},
+        (lambda: torch.mm(s1["attn"].reshape(rows, -1),
+                          s1["wout"].to(dtype).t(), out_dtype=torch.float32))
+        if not sfx else (lambda: torch.mm(s1["attn"].reshape(rows, -1),
+                                          s1["wout"].t())),
+        lambda: fused_outproj.fused_outproj_residual(
+            x, whole["attn"], whole["wout"], whole["bout"]), split + 1,
+        split + 1)
+    out[f"fused_mlp_partial{sfx}"] = (
+        lambda: F.mlp_partial(x, *ln, s1["w1"], s1["b1"], s1["w2"],
+                              whole["b2"], first=False),
+        lambda: F.mlp_partial_plain(x, *ln, s1["w1"], s1["b1"], s1["w2"],
+                                    whole["b2"], first=False),
+        err_m, nbytes(x) + 2 * s1["w1"].numel() * esz + 2 * DIM * 4
+        + hid_m * 4, rows * DIM * 4, {kind: 4 * rows * DIM * hid_m}, None,
+        lambda: fused_mlp.fused_mlp_block(x, *ln, whole["w1"], whole["b1"],
+                                          whole["w2"], whole["b2"]),
+        2 * split + 3, 2 * split + 3)
+
+    def grads3(r):
+        return [r[0], r[-2], r[-1]]
+
+    def summed_grads(parts):
+        return [(parts[0][0] + parts[1][0]).to(dtype),
+                parts[0][1] + parts[1][1], parts[0][2] + parts[1][2]]
+
+    bwd_kw = {"grads": True, "params": (1, 2)}
+    err = held(
+        f"fused_mlp_bwd_partial{sfx}",
+        lambda m, s: grads3(F.mlp_bwd_partial(dy, x, s["h"], *ln, s["w1"],
+                                              s["w2"], first=m == 0)),
+        lambda m, s: grads3(F.mlp_bwd_partial_plain(
+            dy, x, s["h"], *ln, s["w1"], s["w2"], first=m == 0)),
+        summed_grads, lambda: [
+            g.reshape(x.shape) if i == 0 else g for i, g in enumerate(
+                grads3(fused_mlp.fused_mlp_bwd_plain(
+                    dy, x, h_all, *ln, whole["w1"], whole["w2"])))],
+        **bwd_kw)
+    whole_k9 = (fused_mlp.fused_mlp_bwd_f32_cuda if sfx
+                else fused_mlp.fused_mlp_bwd_cuda)
+    out[f"fused_mlp_bwd_partial{sfx}"] = (
+        lambda: F.mlp_bwd_partial(dy, x, s1["h"], *ln, s1["w1"], s1["w2"],
+                                  first=False),
+        lambda: F.mlp_bwd_partial_plain(dy, x, s1["h"], *ln, s1["w1"],
+                                        s1["w2"], first=False),
+        err, nbytes(dy, x, s1["h"]) + 2 * s1["w1"].numel() * esz,
+        rows * DIM * 4 + 2 * rows * hid_m * esz + 2 * rows * DIM * esz,
+        {kind: 4 * rows * DIM * hid_m}, None,
+        lambda: whole_k9(dy, x, h_all, *ln, whole["w1"], whole["w2"]),
+        2 * split + 5, 2 * split + 5)
+    if not sfx:
+        err = held(
+            "fused_ln_qkv_bwd_partial",
+            lambda m, s: F.ln_qkv_bwd_partial(s["dqkv"], x, ln[0],
+                                              s["wqkv"]),
+            lambda m, s: F.ln_qkv_bwd_partial_plain(s["dqkv"], x, ln[0],
+                                                    s["wqkv"]),
+            summed_grads, lambda: [
+                g.reshape(x.shape) if i == 0 else g for i, g in enumerate(
+                    fused_qkv.fused_ln_qkv_bwd_plain(
+                        whole["dqkv"], x, ln[0], whole["wqkv"]))],
+            **bwd_kw)
+        out["fused_ln_qkv_bwd_partial"] = (
+            lambda: F.ln_qkv_bwd_partial(s1["dqkv"], x, ln[0], s1["wqkv"]),
+            lambda: F.ln_qkv_bwd_partial_plain(s1["dqkv"], x, ln[0],
+                                               s1["wqkv"]),
+            err, nbytes(s1["dqkv"], x) + s1["wqkv"].numel() * esz,
+            rows * DIM * 4 + 2 * DIM * 4,
+            {kind: 2 * rows * 3 * inner_m * DIM}, None,
+            lambda: fused_qkv.fused_ln_qkv_bwd_cuda(whole["dqkv"], x, ln[0],
+                                                    whole["wqkv"]), 4, 4)
+
+    # int8: the row amax maxed over the shards, the codes against K11's,
+    # the shards' int32 accumulators summed and ended by the epilogue
+    # against K11's output bit for bit.
+    inner = whole["attn"].shape[-1]
+    plan11 = q8.int8_outproj_plan(rows, DIM, inner)
+    scr11 = q8._scratch(plan11, x, None)
+    one_k11 = q8._outproj_cuda(f"nvt_int8_outproj{sfx}", dtype, x,
+                               whole["attn"], *whole["out8"], whole["bout"],
+                               scr11)
+    amaxes, err_a = [], 0.0
+    for s in sh:
+        amaxes.append(F.int8_row_amax(s["attn"]))
+        torch.cuda.synchronize()
+        err_a = max(err_a, compare(f"int8_row_amax{sfx}", amaxes[-1],
+                                   F.int8_row_amax_plain(s["attn"]),
+                                   mode="exact")[0])
+    amax = torch.maximum(*amaxes)
+    wrap11 = (F.int8_outproj_partial_f32_cuda if sfx
+              else F.int8_outproj_partial_cuda)
+    plan11m = q8.int8_outproj_plan(rows, DIM, inner_m)
+    scrs = [q8._scratch(plan11m, x, None) for _ in sh]
+    accs = []
+    for m, s in enumerate(sh):
+        accs.append(wrap11(s["attn"], amax, s["out8"][0], scratch=scrs[m]))
+        torch.cuda.synchronize()
+        compare(f"int8_outproj_partial{sfx} m={m}", accs[-1],
+                F.int8_outproj_partial_plain(s["attn"], amax, s["out8"][0]),
+                mode="exact")
+    codes = torch.cat([_piece(c, plan11m, "a8", rows) for c in scrs], dim=1)
+    if not torch.equal(codes, _piece(scr11, plan11, "a8", rows)):
+        raise AssertionError(f"int8_outproj_partial{sfx}: the split "
+                             "row-quantize's codes differ from K11's")
+    dequant = (F.int8_dequant_residual_f32_cuda if sfx
+               else F.int8_dequant_residual_cuda)
+    acc11 = accs[0] + accs[1]
+    y11 = dequant(x, acc11, amax, whole["out8"][1], whole["bout"])
+    torch.cuda.synchronize()
+    compare(f"int8_dequant_residual{sfx}", y11,
+            F.int8_dequant_residual_plain(x, acc11, amax, whole["out8"][1],
+                                          whole["bout"]), mode="exact")
+    compare(f"int8_dequant_residual{sfx}: K11 from the shards' int32 sum",
+            y11, one_k11, mode="exact")
+    one = lambda: q8.int8_outproj_residual(x, whole["attn"],  # noqa: E731
+                                           *whole["out8"], whole["bout"])
+    out[f"int8_row_amax{sfx}"] = (
+        lambda: F.int8_row_amax(s1["attn"]),
+        lambda: F.int8_row_amax_plain(s1["attn"]), err_a, nbytes(s1["attn"]),
+        rows * 4, {}, lambda: torch.linalg.vector_norm(
+            s1["attn"], ord=float("inf"), dim=-1), one, 1, 2)
+    out[f"int8_outproj_partial{sfx}"] = (
+        lambda: F.int8_outproj_partial(s1["attn"], amax, s1["out8"][0]),
+        lambda: F.int8_outproj_partial_plain(s1["attn"], amax,
+                                             s1["out8"][0]),
+        0.0, nbytes(s1["attn"], amax, s1["out8"][0]), rows * DIM * 4,
+        {"int8": 2 * rows * inner_m * DIM}, None, one, 2, 2)
+    out[f"int8_dequant_residual{sfx}"] = (
+        lambda: F.int8_dequant_residual(x, acc11, amax, whole["out8"][1],
+                                        whole["bout"]),
+        lambda: F.int8_dequant_residual_plain(x, acc11, amax,
+                                              whole["out8"][1],
+                                              whole["bout"]),
+        0.0, nbytes(acc11, amax, x) + 2 * DIM * 4, nbytes(x), {}, None, one,
+        1, 2)
+    # K12: g's amax over the shards' tiles, maxed, the codes against K12's;
+    # the accumulators against plain on the kernel's own g (a code of
+    # plain's LayerNorm may sit one step off, which int8_mlp_hidden's check
+    # bounds), their sum through the epilogue against K12 bit for bit.
+    plan12 = q8.mlp_plan(rows, DIM, MLP)
+    scr12 = q8._scratch(plan12, x, None)
+    one_k12 = q8._mlp_cuda(f"nvt_int8_mlp{sfx}", dtype, x, *ln,
+                           *whole["w18"], whole["b1"], *whole["w28"],
+                           whole["b2"], scr12)
+    hidden = [F.int8_mlp_hidden(x, *ln, *s["w18"], s["b1"]) for s in sh]
+    torch.cuda.synchronize()
+    err_h = 0.0
+    for m, s in enumerate(sh):
+        a, _ = compare(f"int8_mlp_hidden{sfx} m={m}", hidden[m][1],
+                       F.int8_mlp_hidden_plain(x, *ln, *s["w18"],
+                                               s["b1"])[1])
+        err_h = max(err_h, a)
+    gmax = torch.maximum(hidden[0][1], hidden[1][1])
+    plan12m = q8.mlp_plan(rows, DIM, hid_m)
+    gk = [_piece(st, plan12m, "g", rows, torch.float32).reshape(B, N, -1)
+          for st, _ in hidden]
+    accs = []
+    for m, s in enumerate(sh):
+        accs.append(F.int8_mlp_partial(hidden[m][0], gmax, s["w28"][0]))
+        torch.cuda.synchronize()
+        compare(f"int8_mlp_partial ({kind} x) m={m}", accs[-1],
+                F.int8_mlp_partial_plain(gk[m], gmax, s["w28"][0]),
+                mode="exact")
+    codes = torch.cat([_piece(st, plan12m, "g8", rows) for st, _ in hidden],
+                      dim=1)
+    if not torch.equal(codes, _piece(scr12, plan12, "g8", rows)):
+        raise AssertionError(f"int8_mlp_partial ({kind} x): the split "
+                             "row-quantize's codes of g differ from K12's")
+    y12 = dequant(x, accs[0] + accs[1], gmax, whole["w28"][1], whole["b2"])
+    torch.cuda.synchronize()
+    compare(f"int8_dequant_residual{sfx}: K12 from the shards' int32 sum",
+            y12, one_k12, mode="exact")
+    one = lambda: q8.int8_mlp_block(x, *ln, *whole["w18"],  # noqa: E731
+                                    whole["b1"], *whole["w28"], whole["b2"])
+    out[f"int8_mlp_hidden{sfx}"] = (
+        lambda: F.int8_mlp_hidden(x, *ln, *s1["w18"], s1["b1"]),
+        lambda: F.int8_mlp_hidden_plain(x, *ln, *s1["w18"], s1["b1"]),
+        err_h, nbytes(x, s1["w18"][0]) + 8 * DIM + 8 * hid_m,
+        rows * 4 + rows * hid_m * 4, {"int8": 2 * rows * DIM * hid_m},
+        None, one, 3, 4)
+    if not sfx:     # one kernel for both dtypes: g is f32 in the scratch
+        out["int8_mlp_partial"] = (
+            lambda: F.int8_mlp_partial(hidden[1][0], gmax, s1["w28"][0]),
+            lambda: F.int8_mlp_partial_plain(gk[1], gmax, s1["w28"][0]),
+            0.0, nbytes(gmax, s1["w28"][0]) + rows * hid_m * 4,
+            rows * DIM * 4, {"int8": 2 * rows * hid_m * DIM}, None, one, 2,
+            4)
+    return out
+
+
+def _tp_kernel_checks(card: str) -> dict:
+    """(c): each tensor-parallel form against its plain version at the
+    flagship's tp 2 shard widths (batch 8: 8008 rows, 4 heads of 64, 1024
+    hidden columns), at bf16 and f32, on model index 0 (its bias and
+    residual) and 1; the shards' partials summed in f32 and rounded once
+    against the whole-width kernel; the split row-quantize's codes, and
+    the int8 passes from the shards' int32 sums, against the one-card K11's
+    and K12's, bit for bit. Each form timed by CUDA events and by the
+    profiler's device time (traces that lost a launch's record left out)
+    on model index 1's shard, beside its plain version, its bound, a
+    library call where one computes the same function, and the
+    whole-width pass's times. Runs alone on the card. Returns the stats of
+    the kernels JSON line."""
+    phase = "tp"
+    tp = 2
+    rng = np.random.default_rng(SEED + 31)
+    stats = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        forms = _tp_form_checks(dtype, rng, tp)
+        for name, (run, plain, err, in_b, out_b, ops, library, whole,
+                   k_run, k_whole) in forms.items():
+            ms, plain_ms = cuda_ms(run), cuda_ms(plain, warmup=1, runs=3)
+            dev_ms, counts = _device_ms(run, k_run)
+            whole_dev, whole_counts = _device_ms(whole, k_whole)
+            whole_ms = cuda_ms(whole)
+            bound_ms, bound_by = bound(in_b, out_b, ops)
+            lib_ms = cuda_ms(library) if library is not None else None
+            stats[name] = {"max_abs_err": err, "ms": ms,
+                           "plain_ms": plain_ms, "bound_ms": bound_ms,
+                           "bound_by": bound_by, "library_ms": lib_ms,
+                           "device_ms": dev_ms}
+            log(phase, f"(c) {name} at tp {tp} (model index 1's shard, "
+                f"batch {B}): kernel {ms:.4f} ms by events, {dev_ms} ms "
+                f"device ({k_run} launches a call; the traces of 10 calls "
+                f"recorded {counts}); plain {plain_ms:.4f} ms; bound "
+                f"{bound_ms:.4f} ms by {bound_by}; library {lib_ms} ms; the "
+                f"whole-width pass {whole_ms:.4f} ms by events, {whole_dev} "
+                f"ms device ({k_whole} launches a call; {whole_counts}); max "
+                f"abs err {err:.3e}; {card}")
+        torch.cuda.empty_cache()
+    return stats
+
+
+def _tp_dryrun(card: str) -> None:
+    """The dry run's entry point on the card: dryrun_multichip(TP_WORLD),
+    its ranks on cuda:0 over gloo, each part held to one process by its own
+    bounds (it raises where one is not met)."""
+    from neurovit_tpu_torch.dryrun import dryrun_multichip
+    t0 = time.perf_counter()
+    sys.stdout.flush()
+    dryrun_multichip(TP_WORLD)
+    log("tp", f"(d) dryrun_multichip({TP_WORLD}) on the card (its ranks on "
+        f"cuda:0 over gloo): every part held to one process, in "
+        f"{time.perf_counter() - t0:.1f} s; {card}")
+
+
+def tp_phase(config, ckpt: str, workdir: str, card: str,
+             counters: dict) -> tuple:
+    """Tensor parallelism: (c) the tensor-parallel forms against their
+    plain versions, timed alone on the card; then (b) two ranks at tp 2 on
+    the one card over gloo against one process, which run while this
+    process runs their one-process cases and (a) serving on a model axis of
+    2 over [cuda:0, cuda:0]; then (d) the dry run's entry point on the
+    card. Two ranks share one card, so nothing here is a speed-up. Returns
+    ((c)'s stats, the launches of (a) and of (b)'s rank 0)."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    stats = _tp_kernel_checks(card)
+    rdv = os.path.join(workdir, "tp", "ranks")
+    os.makedirs(rdv)
+    ctx = mp.start_processes(_tp_rank, args=(TP_WORLD, rdv),
+                             nprocs=TP_WORLD, join=False,
+                             start_method="spawn")
+    try:
+        single, states = {}, {}
+        for name in TP_CASES:
+            single[name] = _dp_run_case(name, rdv, counters, cases=TP_CASES,
+                                        keep_state=name == "vit_f32")
+        truth = {"vit_bf16": single["vit_f32"]["grads"]}
+        states["vit_f32"] = single["vit_f32"].pop("state")
+        torch.cuda.empty_cache()
+        total = _tp_serving(ckpt, counters)
+        deadline = time.monotonic() + 600
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                raise AssertionError("(b)'s ranks did not finish in 600 s")
+        ranks = [torch.load(os.path.join(rdv, f"rank{r}.pt"),
+                            weights_only=True) for r in range(TP_WORLD)]
+        for name, n in _tp_hold_ranks(ranks, single, states, truth).items():
+            total[name] += n
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+    del ranks, single, states, truth
+    torch.cuda.empty_cache()
+    _tp_dryrun(card)
+    log("tp", f"done in {time.perf_counter() - t0:.1f} s; launches "
+        f"{ {n: c for n, c in total.items() if c} }; {card}")
+    return stats, total
+
+
 def kernel_counters() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches, by
     the kernel's name."""
     from neurovit_tpu_torch.ops import (dropout, flash_attention, fused_mlp,
                                         fused_outproj, fused_qkv, int8_gemm,
-                                        int8_serving, maxpool3d, tf32x3)
+                                        int8_serving, maxpool3d, tf32x3,
+                                        tp_forms)
     return {
         "flash_attention": flash_attention.flash_attention_cuda,
         "fused_ln_qkv": fused_qkv.fused_ln_qkv_cuda,
@@ -6203,6 +6992,7 @@ def kernel_counters() -> dict:
             flash_attention.flash_attention_bhnd_f32_cuda,
         "flash_attention_bhnd_bwd_f32":
             flash_attention.flash_attention_bhnd_bwd_f32_cuda,
+        **tp_forms.CUDA_WRAPPERS,
     }
 
 
@@ -6298,6 +7088,9 @@ def main() -> int:
         timed("widths_model", widths_model_phase, config, workdir, counters)
         dp_launches = timed("dp", dp_phase, config, ckpt, workdir, card,
                             counters)
+        tp_stats, tp_launches = timed("tp", tp_phase, config, ckpt, workdir,
+                                      card, counters)
+        kernel_stats.update(tp_stats)
 
     launches.update({name: int8_launches[name] for name in INT8_KERNELS})
     launches.update(probe_launches)
@@ -6311,6 +7104,8 @@ def main() -> int:
     for name in F32_KERNELS + INT8_F32_KERNELS + F32_GRADCAM_KERNELS:
         launches[name] = f32_launches[name]
     for name, n in dp_launches.items():
+        launches[name] += n
+    for name, n in tp_launches.items():
         launches[name] += n
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": source,

@@ -191,13 +191,15 @@ __global__ void __launch_bounds__(kThreads, kGemmBlocksPerSm)
   store_staged<BN>(&tg, gs, store_h ? &th : nullptr, hs, n0, m0, hid);
 }
 
-// Pass 3: y = bf16(x + (g . W2^T + b2) * mask2 / keep).
-template <int BN>
+// Pass 3: y = bf16(x + (g . W2^T + b2) * mask2 / keep). The
+// tensor-parallel form (kPartial) writes y in f32 without rounding, and
+// adds b2 and x only where they are given (the model group's first shard).
+template <int BN, bool kPartial>
 __global__ void __launch_bounds__(kThreads, kGemmBlocksPerSm)
     fc2_residual_kernel(const __grid_constant__ CUtensorMap tg,
                         const __grid_constant__ CUtensorMap tw2,
                         const float* __restrict__ b2,
-                        const bf16* __restrict__ x, bf16* __restrict__ y,
+                        const bf16* __restrict__ x, void* __restrict__ y,
                         int M, int dim, int hid, float inv_keep,
                         uint32_t keep_q, uint64_t seed2) {
   extern __shared__ unsigned char smem[];
@@ -219,17 +221,32 @@ __global__ void __launch_bounds__(kThreads, kGemmBlocksPerSm)
     for (int j = 0; j < BN / 8; ++j) {
       const int col = n0 + 8 * j + 2 * at.quad;
       if (col >= dim) continue;   // dim is even: col + 1 < dim too
-      const float2 bc = *reinterpret_cast<const float2*>(b2 + col);
-      const float2 xf = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(x + off + col));
-      float z0 = __fadd_rn(acc[4 * j + 2 * half], bc.x);
-      float z1 = __fadd_rn(acc[4 * j + 2 * half + 1], bc.y);
+      float z0 = acc[4 * j + 2 * half], z1 = acc[4 * j + 2 * half + 1];
+      if (!kPartial || b2 != nullptr) {
+        const float2 bc = *reinterpret_cast<const float2*>(b2 + col);
+        z0 = __fadd_rn(z0, bc.x);
+        z1 = __fadd_rn(z1, bc.y);
+      }
       if (keep_q) {
         z0 *= bits.keep(j, 0) ? inv_keep : 0.f;
         z1 *= bits.keep(j, 1) ? inv_keep : 0.f;
       }
-      *reinterpret_cast<__nv_bfloat162*>(y + off + col) =
-          __floats2bfloat162_rn(__fadd_rn(z0, xf.x), __fadd_rn(z1, xf.y));
+      if constexpr (kPartial) {
+        if (x != nullptr) {
+          const float2 xf = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(x + off + col));
+          z0 = __fadd_rn(z0, xf.x);
+          z1 = __fadd_rn(z1, xf.y);
+        }
+        *reinterpret_cast<float2*>(static_cast<float*>(y) + off + col) =
+            make_float2(z0, z1);
+      } else {
+        const float2 xf = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(x + off + col));
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(y) + off +
+                                           col) =
+            __floats2bfloat162_rn(__fadd_rn(z0, xf.x), __fadd_rn(z1, xf.y));
+      }
     }
   }
 }
@@ -249,27 +266,31 @@ void launch_fc1(const CUtensorMap& tu, const CUtensorMap& tw1,
       tu, tw1, tg, th, b1, store_h, M, dim, hid, inv_keep, keep_q, seed1);
 }
 
-template <int BN>
+template <int BN, bool kPartial>
 void launch_fc2(const CUtensorMap& tg, const CUtensorMap& tw2,
-                const float* b2, const bf16* x, bf16* y, int M, int dim,
+                const float* b2, const bf16* x, void* y, int M, int dim,
                 int hid, float inv_keep, uint32_t keep_q, uint64_t seed2,
                 cudaStream_t stream) {
-  fc2_residual_kernel<BN><<<dim3((dim + BN - 1) / BN, (M + kBM - 1) / kBM),
-                            kThreads, Loop<BN>::kSmemBytes, stream>>>(
-      tg, tw2, b2, x, y, M, dim, hid, inv_keep, keep_q, seed2);
+  fc2_residual_kernel<BN, kPartial>
+      <<<dim3((dim + BN - 1) / BN, (M + kBM - 1) / kBM), kThreads,
+          Loop<BN>::kSmemBytes, stream>>>(tg, tw2, b2, x, y, M, dim, hid,
+                                          inv_keep, keep_q, seed2);
 }
 
-template <int BN>
+template <int BN, bool kPartial>
 cudaError_t allow_fc2_smem() {
-  return allow_smem(fc2_residual_kernel<BN>, Loop<BN>::kSmemBytes);
+  return allow_smem(fc2_residual_kernel<BN, kPartial>, Loop<BN>::kSmemBytes);
 }
 
+// The three passes; with yf non-null the last is fc2's tensor-parallel
+// form into yf, its residual x_res and bias b2 each null or given.
 cudaError_t launch_all(const bf16* x, const float* gamma, const float* beta,
                        const bf16* w1, const float* b1, const bf16* w2,
                        const float* b2, bf16* y, bf16* h,
                        unsigned char* scratch, int M, int dim, int hid,
                        float eps, float inv_keep, uint32_t keep_q,
-                       uint64_t seed1, uint64_t seed2, cudaStream_t stream) {
+                       uint64_t seed1, uint64_t seed2, cudaStream_t stream,
+                       const bf16* x_res = nullptr, float* yf = nullptr) {
   const Scratch at(M, dim, hid);
   bf16* u = reinterpret_cast<bf16*>(scratch + at.u);
   bf16* g = reinterpret_cast<bf16*>(scratch + at.g);
@@ -289,7 +310,8 @@ cudaError_t launch_all(const bf16* x, const float* gamma, const float* beta,
     err = hopper::encode_kmajor(&th, h, M, hid, false, kBM);
   if (err == cudaSuccess) err = allow_fc1_smem<64>();
   if (err == cudaSuccess) err = allow_fc1_smem<128>();
-  if (err == cudaSuccess) err = allow_fc2_residual_smem();
+  if (err == cudaSuccess)
+    err = yf != nullptr ? allow_fc2_partial_smem() : allow_fc2_residual_smem();
   if (err != cudaSuccess) return err;
 
   if ((err = launch_ln_rows(x, gamma, beta, u, M, dim, eps, stream)) !=
@@ -299,6 +321,9 @@ cudaError_t launch_all(const bf16* x, const float* gamma, const float* beta,
       tu, tw1, tg, th, b1, h != nullptr, M, dim, hid, inv_keep, keep_q, seed1,
       stream);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (yf != nullptr)
+    return launch_fc2_partial(tg, tw2, b2, x_res, yf, M, dim, hid, inv_keep,
+                              keep_q, seed2, bn2, stream);
   return launch_fc2_residual(tg, tw2, b2, x, y, M, dim, hid, inv_keep, keep_q,
                              seed2, bn2, stream);
 }
@@ -306,8 +331,8 @@ cudaError_t launch_all(const bf16* x, const float* gamma, const float* beta,
 }  // namespace
 
 cudaError_t mlp::allow_fc2_residual_smem() {
-  const cudaError_t err = allow_fc2_smem<64>();
-  return err == cudaSuccess ? allow_fc2_smem<128>() : err;
+  const cudaError_t err = allow_fc2_smem<64, false>();
+  return err == cudaSuccess ? allow_fc2_smem<128, false>() : err;
 }
 
 cudaError_t mlp::launch_fc2_residual(const CUtensorMap& tg,
@@ -316,9 +341,24 @@ cudaError_t mlp::launch_fc2_residual(const CUtensorMap& tg,
                                      int K, float inv_keep, uint32_t keep_q,
                                      uint64_t seed, int bn,
                                      cudaStream_t stream) {
-  (bn == 64 ? launch_fc2<64> : launch_fc2<128>)(tg, tb, b, x, y, M, N, K,
-                                                inv_keep, keep_q, seed,
-                                                stream);
+  (bn == 64 ? launch_fc2<64, false> : launch_fc2<128, false>)(
+      tg, tb, b, x, y, M, N, K, inv_keep, keep_q, seed, stream);
+  return cudaGetLastError();
+}
+
+cudaError_t mlp::allow_fc2_partial_smem() {
+  const cudaError_t err = allow_fc2_smem<64, true>();
+  return err == cudaSuccess ? allow_fc2_smem<128, true>() : err;
+}
+
+cudaError_t mlp::launch_fc2_partial(const CUtensorMap& tg,
+                                    const CUtensorMap& tb, const float* b,
+                                    const bf16* x, float* y, int M, int N,
+                                    int K, float inv_keep, uint32_t keep_q,
+                                    uint64_t seed, int bn,
+                                    cudaStream_t stream) {
+  (bn == 64 ? launch_fc2<64, true> : launch_fc2<128, true>)(
+      tg, tb, b, x, y, M, N, K, inv_keep, keep_q, seed, stream);
   return cudaGetLastError();
 }
 
@@ -375,6 +415,31 @@ extern "C" int nvt_fused_mlp_fwd(const void* x, const void* gamma,
       static_cast<bf16*>(h), static_cast<unsigned char*>(scratch), M, dim,
       hid, eps, inv_keep, static_cast<uint32_t>(keep_q), seed1, seed2,
       static_cast<cudaStream_t>(stream)));
+}
+
+// K4's tensor-parallel form on a shard (w1 [hid, dim], b1 [hid], w2 [dim,
+// hid] the shard's hidden columns), every operand as nvt_fused_mlp_fwd's
+// but y [M, dim] f32: y = (g . W2^T [+ b2]) * mask2 / keep [+ x_res], not
+// rounded, b2 and x_res null on all but the model group's first shard.
+extern "C" int nvt_fused_mlp_partial_fwd(
+    const void* x, const void* gamma, const void* beta, const void* w1,
+    const void* b1, const void* w2, const void* b2, const void* x_res,
+    void* y, void* h, void* scratch, int M, int dim, int hid, float eps,
+    float inv_keep, int keep_q, uint64_t seed1, uint64_t seed2,
+    void* stream) {
+  using namespace nvt;
+  if (M < 1 || dim < 16 || dim % 16 != 0 || hid < 16 || hid % 16 != 0 ||
+      keep_q < 0 || keep_q > 255 || y == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_all(
+      static_cast<const bf16*>(x), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<const bf16*>(w1),
+      static_cast<const float*>(b1), static_cast<const bf16*>(w2),
+      static_cast<const float*>(b2), nullptr, static_cast<bf16*>(h),
+      static_cast<unsigned char*>(scratch), M, dim, hid, eps, inv_keep,
+      static_cast<uint32_t>(keep_q), seed1, seed2,
+      static_cast<cudaStream_t>(stream), static_cast<const bf16*>(x_res),
+      static_cast<float*>(y)));
 }
 
 // Bytes of the scratch one call takes (ops/fused_mlp.py, mlp_plan).

@@ -140,6 +140,19 @@ cudaError_t launch_fc2_residual(const CUtensorMap& tg, const CUtensorMap& tb,
                                 int N, int K, float inv_keep, uint32_t keep_q,
                                 uint64_t seed, int bn, cudaStream_t stream);
 
+// The same pass's tensor-parallel form, for a row-parallel shard of the
+// product (K = the shard's share of the contraction):
+//   y = (g . Bt^T [+ b]) * mask / keep [+ x]      f32, not rounded
+// with b and x null on every shard but the model group's first, so that
+// the f32 sum of the shards' y is the whole pass before its rounding. The
+// mask is the whole pass's, at the same (row, col): one key across the
+// model group. allow_fc2_partial_smem() opts both instances in.
+cudaError_t allow_fc2_partial_smem();
+cudaError_t launch_fc2_partial(const CUtensorMap& tg, const CUtensorMap& tb,
+                               const float* b, const bf16* x, float* y, int M,
+                               int N, int K, float inv_keep, uint32_t keep_q,
+                               uint64_t seed, int bn, cudaStream_t stream);
+
 // The keep bits of one row of a 128-column tile, shared within the quad.
 // Thread o (= t % 4) draws Philox blocks blk0 + 2 o + k, k = 0, 1, and packs
 // the keep decision of byte p of word w of block k at bit 8 p + 4 k + w.

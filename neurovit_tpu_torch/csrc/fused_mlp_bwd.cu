@@ -152,12 +152,16 @@ void launch_hidden(const CUtensorMap& tdz, const CUtensorMap& tw2,
       tdz, tw2, th, ta, tdh, dim, hid, inv_keep, keep_q, seed1);
 }
 
+// The five passes; res is the residual the LayerNorm rows add (dy, or
+// null on a tensor-parallel shard other than the model group's first), dx
+// bf16 or a shard's f32 partial.
+template <typename TO>
 cudaError_t launch_all(const bf16* dy, const bf16* x, const bf16* h,
                        const float* gamma, const float* beta, const bf16* w1,
-                       const bf16* w2, bf16* dx, bf16* u, bf16* a, bf16* dz,
-                       bf16* dh, float* dgamma, float* dbeta,
-                       unsigned char* scratch, int M, int dim, int hid,
-                       float eps, float inv_keep, uint32_t keep_q,
+                       const bf16* w2, const bf16* res, TO* dx, bf16* u,
+                       bf16* a, bf16* dz, bf16* dh, float* dgamma,
+                       float* dbeta, unsigned char* scratch, int M, int dim,
+                       int hid, float eps, float inv_keep, uint32_t keep_q,
                        uint64_t seed1, uint64_t seed2, cudaStream_t stream) {
   float2* stats =
       reinterpret_cast<float2*>(scratch + Scratch(M, dim).stats);
@@ -188,8 +192,8 @@ cudaError_t launch_all(const bf16* dy, const bf16* x, const bf16* h,
   (tile_n(M, hid) == 64 ? launch_hidden<64> : launch_hidden<128>)(
       tdz, tw2, th, ta, tdh, M, dim, hid, inv_keep, keep_q, seed1, stream);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return launch_ln_bwd(tdh, tw1, x, gamma, dy, dx, dgamma, dbeta, scratch, M,
-                       dim, hid, stream);
+  return launch_ln_bwd(tdh, tw1, x, gamma, res, dx, dgamma, dbeta, scratch,
+                       M, dim, hid, stream);
 }
 
 }  // namespace
@@ -215,11 +219,41 @@ extern "C" int nvt_fused_mlp_bwd(
       static_cast<const bf16*>(dy), static_cast<const bf16*>(x),
       static_cast<const bf16*>(h), static_cast<const float*>(gamma),
       static_cast<const float*>(beta), static_cast<const bf16*>(w1),
-      static_cast<const bf16*>(w2), static_cast<bf16*>(dx),
-      static_cast<bf16*>(u), static_cast<bf16*>(a), static_cast<bf16*>(dz),
-      static_cast<bf16*>(dh), static_cast<float*>(dgamma),
-      static_cast<float*>(dbeta), static_cast<unsigned char*>(scratch), M,
-      dim, hid, eps, inv_keep, static_cast<uint32_t>(keep_q), seed1, seed2,
+      static_cast<const bf16*>(w2), static_cast<const bf16*>(dy),
+      static_cast<bf16*>(dx), static_cast<bf16*>(u), static_cast<bf16*>(a),
+      static_cast<bf16*>(dz), static_cast<bf16*>(dh),
+      static_cast<float*>(dgamma), static_cast<float*>(dbeta),
+      static_cast<unsigned char*>(scratch), M, dim, hid, eps, inv_keep,
+      static_cast<uint32_t>(keep_q), seed1, seed2,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// K9's tensor-parallel form on a shard (h [M, hid], w1 [hid, dim], w2 [dim,
+// hid] the shard's hidden columns), every operand as nvt_fused_mlp_bwd's
+// but dx [M, dim] f32, the shard's partial: LN backward of its partial du
+// [+ res], not rounded; res is dy on the model group's first shard and
+// null on the others. dgamma and dbeta are the shard's partials.
+extern "C" int nvt_fused_mlp_bwd_partial(
+    const void* dy, const void* x, const void* h, const void* gamma,
+    const void* beta, const void* w1, const void* w2, const void* res,
+    void* dx, void* u, void* a, void* dz, void* dh, void* dgamma,
+    void* dbeta, void* scratch, int M, int dim, int hid, float eps,
+    float inv_keep, int keep_q, uint64_t seed1, uint64_t seed2,
+    void* stream) {
+  using namespace nvt;
+  if (M < 1 || dim < 16 || dim % 16 != 0 || hid < 16 || hid % 16 != 0 ||
+      keep_q < 0 || keep_q > 255)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_all(
+      static_cast<const bf16*>(dy), static_cast<const bf16*>(x),
+      static_cast<const bf16*>(h), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<const bf16*>(w1),
+      static_cast<const bf16*>(w2), static_cast<const bf16*>(res),
+      static_cast<float*>(dx), static_cast<bf16*>(u), static_cast<bf16*>(a),
+      static_cast<bf16*>(dz), static_cast<bf16*>(dh),
+      static_cast<float*>(dgamma), static_cast<float*>(dbeta),
+      static_cast<unsigned char*>(scratch), M, dim, hid, eps, inv_keep,
+      static_cast<uint32_t>(keep_q), seed1, seed2,
       static_cast<cudaStream_t>(stream)));
 }
 

@@ -108,14 +108,16 @@ __global__ void __launch_bounds__(tf32x3_wgmma::kThreads, 1)
 // [M, dim] (null at dropout 0), a, dh [M, hid], dgamma, dbeta [dim], f32.
 // scratch: nvt_ln_bwd_f32_scratch_bytes(M, dim) bytes, 256-byte aligned.
 // dim and hid are multiples of 16. keep_q: dropout threshold (0 = none);
-// seed1 the hidden site, seed2 the output site.
-extern "C" int nvt_fused_mlp_f32_bwd(
-    const void* dy, const void* x, const void* h, const void* gamma,
-    const void* beta, const void* w2t_big, const void* w2t_small,
-    const void* w1t_big, const void* w1t_small, void* dx, void* u, void* a,
-    void* dz, void* dh, void* dgamma, void* dbeta, void* scratch, int M,
-    int dim, int hid, float eps, float inv_keep, int keep_q, uint64_t seed1,
-    uint64_t seed2, void* stream) {
+// seed1 the hidden site, seed2 the output site; res the residual the
+// LayerNorm rows add (dy, or null for none).
+static int mlp_f32_bwd(
+    const void* dy, const void* res, const void* x, const void* h,
+    const void* gamma, const void* beta, const void* w2t_big,
+    const void* w2t_small, const void* w1t_big, const void* w1t_small,
+    void* dx, void* u, void* a, void* dz, void* dh, void* dgamma,
+    void* dbeta, void* scratch, int M, int dim, int hid, float eps,
+    float inv_keep, int keep_q, uint64_t seed1, uint64_t seed2,
+    void* stream) {
   using namespace nvt;
   using namespace nvt::tf32x3_wgmma;
   if (M < 1 || dim < 16 || dim % 16 != 0 || hid < 16 || hid % 16 != 0 ||
@@ -160,9 +162,38 @@ extern "C" int nvt_fused_mlp_f32_bwd(
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_ln_bwd_f32(
-      th, t1big, t1small, xf, gm, dyf, static_cast<float*>(dx),
+      th, t1big, t1small, xf, gm, static_cast<const float*>(res),
+      static_cast<float*>(dx),
       static_cast<float*>(dgamma), static_cast<float*>(dbeta), base, M, dim,
       hid, s));
+}
+
+extern "C" int nvt_fused_mlp_f32_bwd(
+    const void* dy, const void* x, const void* h, const void* gamma,
+    const void* beta, const void* w2t_big, const void* w2t_small,
+    const void* w1t_big, const void* w1t_small, void* dx, void* u, void* a,
+    void* dz, void* dh, void* dgamma, void* dbeta, void* scratch, int M,
+    int dim, int hid, float eps, float inv_keep, int keep_q, uint64_t seed1,
+    uint64_t seed2, void* stream) {
+  return mlp_f32_bwd(dy, dy, x, h, gamma, beta, w2t_big, w2t_small, w1t_big,
+                     w1t_small, dx, u, a, dz, dh, dgamma, dbeta, scratch, M,
+                     dim, hid, eps, inv_keep, keep_q, seed1, seed2, stream);
+}
+
+// K9 f32's tensor-parallel form on a shard (h, W2 and W1 the shard's
+// hidden columns), every operand as nvt_fused_mlp_f32_bwd's, and res the
+// residual the LayerNorm rows add: dy on the model group's first shard,
+// null on the others. dx, dgamma and dbeta are the shard's partials.
+extern "C" int nvt_fused_mlp_f32_bwd_partial(
+    const void* dy, const void* x, const void* h, const void* gamma,
+    const void* beta, const void* w2t_big, const void* w2t_small,
+    const void* w1t_big, const void* w1t_small, const void* res, void* dx,
+    void* u, void* a, void* dz, void* dh, void* dgamma, void* dbeta,
+    void* scratch, int M, int dim, int hid, float eps, float inv_keep,
+    int keep_q, uint64_t seed1, uint64_t seed2, void* stream) {
+  return mlp_f32_bwd(dy, res, x, h, gamma, beta, w2t_big, w2t_small, w1t_big,
+                     w1t_small, dx, u, a, dz, dh, dgamma, dbeta, scratch, M,
+                     dim, hid, eps, inv_keep, keep_q, seed1, seed2, stream);
 }
 
 // Dynamic shared memory of a block of the hidden and du GEMMs

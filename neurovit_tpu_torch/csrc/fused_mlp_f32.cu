@@ -110,6 +110,25 @@ struct Fc2Epi {
   }
 };
 
+// Fc2Epi's tensor-parallel form: bias and x each added only where given.
+struct Fc2PartialEpi {
+  const float* bias;
+  const float* x;
+  float* y;
+  int n;
+  float inv_keep;
+  uint32_t keep_q;
+  uint64_t seed;
+
+  __device__ __forceinline__ void operator()(int row, int col,
+                                             float4 c) const {
+    const size_t at = static_cast<size_t>(row) * n + col;
+    float4 z = bias != nullptr ? ffma::add4(c, load_quad(bias, col)) : c;
+    if (keep_q) z = ffma::mul4(z, keep_quad(at, seed, keep_q, inv_keep));
+    store_quad(y, at, x != nullptr ? ffma::add4(z, load_quad(x, at)) : z);
+  }
+};
+
 __global__ void __launch_bounds__(kThreads, 1)
     fc1_gelu_kernel(const __grid_constant__ CUtensorMap ta,
                     const __grid_constant__ CUtensorMap tbig,
@@ -128,7 +147,77 @@ __global__ void __launch_bounds__(kThreads, 1)
   gemm_tile<MlpLoop>(&ta, &tbig, &tsmall, M, epi.n, hid, smem, epi);
 }
 
+__global__ void __launch_bounds__(kThreads, 1)
+    fc2_partial_kernel(const __grid_constant__ CUtensorMap ta,
+                       const __grid_constant__ CUtensorMap tbig,
+                       const __grid_constant__ CUtensorMap tsmall, int M,
+                       int hid, Fc2PartialEpi epi) {
+  extern __shared__ unsigned char smem[];
+  gemm_tile<MlpLoop>(&ta, &tbig, &tsmall, M, epi.n, hid, smem, epi);
+}
+
+// K4 f32's passes on one call's operands; with partial, fc2 is its
+// tensor-parallel form, its residual x_res and bias b2 each null or given.
+cudaError_t mlp_f32_all(const float* x, const float* gamma, const float* beta,
+                        const float* w1_big, const float* w1_small,
+                        const float* b1, const float* w2_big,
+                        const float* w2_small, const float* b2,
+                        const float* x_res, bool partial, float* y, float* h,
+                        void* scratch, int M, int dim, int hid, float eps,
+                        float inv_keep, uint32_t keep_q, uint64_t seed1,
+                        uint64_t seed2, cudaStream_t s) {
+  using namespace tf32x3_wgmma;
+  const Scratch lay(M, dim, hid);
+  char* base = static_cast<char*>(scratch);
+  float* u = reinterpret_cast<float*>(base + lay.u);
+  float* g = reinterpret_cast<float*>(base + lay.g);
+  // Every map is encoded, and the kernels allowed their shared memory,
+  // before the first launch: a failure leaves nothing half done.
+  CUtensorMap tu, t1big, t1small, tg, t2big, t2small;
+  cudaError_t err = encode_kmajor_f32(&tu, u, M, dim, kBM);
+  if (err == cudaSuccess)
+    err = encode_kmajor_f32(&t1big, w1_big, hid, dim, kBN);
+  if (err == cudaSuccess)
+    err = encode_kmajor_f32(&t1small, w1_small, hid, dim, kBN);
+  if (err == cudaSuccess) err = encode_kmajor_f32(&tg, g, M, hid, kBM);
+  if (err == cudaSuccess)
+    err = encode_kmajor_f32(&t2big, w2_big, dim, hid, kBN);
+  if (err == cudaSuccess)
+    err = encode_kmajor_f32(&t2small, w2_small, dim, hid, kBN);
+  if (err == cudaSuccess)
+    err = allow_smem(fc1_gelu_kernel, MlpLoop::kSmemBytes);
+  if (err == cudaSuccess)
+    err = partial ? allow_fc2_partial_smem() : allow_fc2_residual_smem();
+  if (err != cudaSuccess) return err;
+  err = ffma::launch_ln_rows(x, gamma, beta, u, M, dim, eps, s);
+  if (err != cudaSuccess) return err;
+  const GeluEpi fc1{b1, g, h, hid, inv_keep, keep_q, seed1};
+  fc1_gelu_kernel<<<dim3((hid + kBN - 1) / kBN, (M + kBM - 1) / kBM),
+                    kThreads, MlpLoop::kSmemBytes, s>>>(tu, t1big, t1small, M,
+                                                        dim, fc1);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return (partial ? launch_fc2_partial : launch_fc2_residual)(
+      tg, t2big, t2small, b2, partial ? x_res : x, y, M, dim, hid, inv_keep,
+      keep_q, seed2, s);
+}
+
 }  // namespace
+
+cudaError_t tf32x3_wgmma::allow_fc2_partial_smem() {
+  return allow_smem(fc2_partial_kernel, MlpLoop::kSmemBytes);
+}
+
+cudaError_t tf32x3_wgmma::launch_fc2_partial(
+    const CUtensorMap& ta, const CUtensorMap& tbig, const CUtensorMap& tsmall,
+    const float* bias, const float* x, float* y, int M, int N, int K,
+    float inv_keep, uint32_t keep_q, uint64_t seed, cudaStream_t stream) {
+  const Fc2PartialEpi epi{bias, x, y, N, inv_keep, keep_q, seed};
+  fc2_partial_kernel<<<dim3((N + kBN - 1) / kBN, (M + kBM - 1) / kBM),
+                       kThreads, MlpLoop::kSmemBytes, stream>>>(
+      ta, tbig, tsmall, M, K, epi);
+  return cudaGetLastError();
+}
 
 cudaError_t tf32x3_wgmma::allow_fc2_residual_smem() {
   return allow_smem(fc2_residual_kernel, MlpLoop::kSmemBytes);
@@ -179,53 +268,43 @@ extern "C" int nvt_fused_mlp_f32_fwd(
     const void* w2_small, const void* b2, void* y, void* h, void* scratch,
     int M, int dim, int hid, float eps, float inv_keep, int keep_q,
     uint64_t seed1, uint64_t seed2, void* stream) {
-  using namespace nvt;
-  using namespace nvt::tf32x3_wgmma;
   if (M < 1 || dim < 16 || dim % 16 != 0 || hid < 16 || hid % 16 != 0 ||
       keep_q < 0 || keep_q > 255 || scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Scratch lay(M, dim, hid);
-  char* base = static_cast<char*>(scratch);
-  float* u = reinterpret_cast<float*>(base + lay.u);
-  float* g = reinterpret_cast<float*>(base + lay.g);
-  const float* xf = static_cast<const float*>(x);
-  // Every map is encoded, and the kernels allowed their shared memory,
-  // before the first launch: a failure leaves nothing half done.
-  CUtensorMap tu, t1big, t1small, tg, t2big, t2small;
-  cudaError_t err = encode_kmajor_f32(&tu, u, M, dim, kBM);
-  if (err == cudaSuccess)
-    err = encode_kmajor_f32(&t1big, static_cast<const float*>(w1_big), hid,
-                            dim, kBN);
-  if (err == cudaSuccess)
-    err = encode_kmajor_f32(&t1small, static_cast<const float*>(w1_small),
-                            hid, dim, kBN);
-  if (err == cudaSuccess) err = encode_kmajor_f32(&tg, g, M, hid, kBM);
-  if (err == cudaSuccess)
-    err = encode_kmajor_f32(&t2big, static_cast<const float*>(w2_big), dim,
-                            hid, kBN);
-  if (err == cudaSuccess)
-    err = encode_kmajor_f32(&t2small, static_cast<const float*>(w2_small),
-                            dim, hid, kBN);
-  if (err == cudaSuccess)
-    err = allow_smem(fc1_gelu_kernel, MlpLoop::kSmemBytes);
-  if (err == cudaSuccess) err = allow_fc2_residual_smem();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = ffma::launch_ln_rows(xf, static_cast<const float*>(gamma),
-                             static_cast<const float*>(beta), u, M, dim, eps,
-                             s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const GeluEpi fc1{static_cast<const float*>(b1), g, static_cast<float*>(h),
-                    hid, inv_keep, static_cast<uint32_t>(keep_q), seed1};
-  fc1_gelu_kernel<<<dim3((hid + kBN - 1) / kBN, (M + kBM - 1) / kBM),
-                    kThreads, MlpLoop::kSmemBytes, s>>>(tu, t1big, t1small, M,
-                                                        dim, fc1);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_fc2_residual(
-      tg, t2big, t2small, static_cast<const float*>(b2), xf,
-      static_cast<float*>(y), M, dim, hid, inv_keep,
-      static_cast<uint32_t>(keep_q), seed2, s));
+  return static_cast<int>(nvt::mlp_f32_all(
+      static_cast<const float*>(x), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<const float*>(w1_big),
+      static_cast<const float*>(w1_small), static_cast<const float*>(b1),
+      static_cast<const float*>(w2_big), static_cast<const float*>(w2_small),
+      static_cast<const float*>(b2), nullptr, false, static_cast<float*>(y),
+      static_cast<float*>(h), scratch, M, dim, hid, eps, inv_keep,
+      static_cast<uint32_t>(keep_q), seed1, seed2,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// K4 f32's tensor-parallel form on a shard (W1, b1 and W2 the shard's
+// hidden columns), every operand as nvt_fused_mlp_f32_fwd's: y [M, dim] =
+// (g . W2^T [+ b2]) * mask2 / keep [+ x_res], b2 and x_res null on all but
+// the model group's first shard.
+extern "C" int nvt_fused_mlp_f32_partial_fwd(
+    const void* x, const void* gamma, const void* beta, const void* w1_big,
+    const void* w1_small, const void* b1, const void* w2_big,
+    const void* w2_small, const void* b2, const void* x_res, void* y,
+    void* h, void* scratch, int M, int dim, int hid, float eps,
+    float inv_keep, int keep_q, uint64_t seed1, uint64_t seed2,
+    void* stream) {
+  if (M < 1 || dim < 16 || dim % 16 != 0 || hid < 16 || hid % 16 != 0 ||
+      keep_q < 0 || keep_q > 255 || scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(nvt::mlp_f32_all(
+      static_cast<const float*>(x), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<const float*>(w1_big),
+      static_cast<const float*>(w1_small), static_cast<const float*>(b1),
+      static_cast<const float*>(w2_big), static_cast<const float*>(w2_small),
+      static_cast<const float*>(b2), static_cast<const float*>(x_res), true,
+      static_cast<float*>(y), static_cast<float*>(h), scratch, M, dim, hid,
+      eps, inv_keep, static_cast<uint32_t>(keep_q), seed1, seed2,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // Bytes of the scratch of one call (ops/fused_mlp.py mlp_f32_plan).

@@ -65,6 +65,35 @@ extern "C" int nvt_fused_outproj_fwd(const void* a, const void* x,
       static_cast<cudaStream_t>(stream)));
 }
 
+// K3's tensor-parallel form on a row-parallel shard (a [M, inner] the
+// shard's heads, w [dim, inner] its columns of Wout), one launch of K4's
+// fc2_residual in its tensor-parallel form: y [M, dim] f32 = (a . w^T [+
+// bias]) * mask / keep [+ x], not rounded; x and bias null on all but the
+// model group's first shard, the mask the whole projection's.
+extern "C" int nvt_fused_outproj_partial_fwd(const void* a, const void* x,
+                                             const void* w, const void* bias,
+                                             void* y, int M, int inner,
+                                             int dim, float inv_keep,
+                                             int keep_q, uint64_t seed,
+                                             void* stream) {
+  using namespace nvt;
+  if (M < 1 || inner < 16 || inner % 16 != 0 || dim < 16 || dim % 16 != 0 ||
+      keep_q < 0 || keep_q > 255 || y == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int bn = mlp::tile_n(M, dim);
+  CUtensorMap ta, tw;
+  cudaError_t err = hopper::encode_kmajor(&ta, a, M, inner, false, mlp::kBM);
+  if (err == cudaSuccess)
+    err = hopper::encode_kmajor(&tw, w, dim, inner, false, bn);
+  if (err == cudaSuccess) err = mlp::allow_fc2_partial_smem();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(mlp::launch_fc2_partial(
+      ta, tw, static_cast<const float*>(bias), static_cast<const bf16*>(x),
+      static_cast<float*>(y), M, dim, inner, inv_keep,
+      static_cast<uint32_t>(keep_q), seed, bn,
+      static_cast<cudaStream_t>(stream)));
+}
+
 // Dynamic shared memory of a block of K3's one launch for M rows at dim,
 // which follows its tile's width (ops/fused_outproj.py, outproj_plan).
 extern "C" long long nvt_fused_outproj_smem_bytes(int M, int dim) {

@@ -75,6 +75,37 @@ extern "C" int nvt_fused_outproj_f32_fwd(const void* a, const void* x,
       static_cast<cudaStream_t>(stream)));
 }
 
+// K3 f32's tensor-parallel form on a row-parallel shard (a [M, inner] the
+// shard's heads, w_big, w_small [dim, inner] its columns of Wout split),
+// one launch of K4 f32's fc2 in its tensor-parallel form: y [M, dim] = (a .
+// w^T [+ bias]) * mask / keep [+ x]; x and bias null on all but the model
+// group's first shard.
+extern "C" int nvt_fused_outproj_f32_partial_fwd(
+    const void* a, const void* x, const void* w_big, const void* w_small,
+    const void* bias, void* y, int M, int inner, int dim, float inv_keep,
+    int keep_q, uint64_t seed, void* stream) {
+  using namespace nvt::tf32x3_wgmma;
+  if (M < 1 || inner < 16 || inner % 16 != 0 || dim < 16 || dim % 16 != 0 ||
+      keep_q < 0 || keep_q > 255 || y == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap ta, tbig, tsmall;
+  cudaError_t err =
+      encode_kmajor_f32(&ta, static_cast<const float*>(a), M, inner, kBM);
+  if (err == cudaSuccess)
+    err = encode_kmajor_f32(&tbig, static_cast<const float*>(w_big), dim,
+                            inner, kBN);
+  if (err == cudaSuccess)
+    err = encode_kmajor_f32(&tsmall, static_cast<const float*>(w_small), dim,
+                            inner, kBN);
+  if (err == cudaSuccess) err = allow_fc2_partial_smem();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_fc2_partial(
+      ta, tbig, tsmall, static_cast<const float*>(bias),
+      static_cast<const float*>(x), static_cast<float*>(y), M, dim, inner,
+      inv_keep, static_cast<uint32_t>(keep_q), seed,
+      static_cast<cudaStream_t>(stream)));
+}
+
 // Dynamic shared memory of a block of K3 f32's one launch, K4 f32's
 // fc2_residual (ops/fused_outproj.py outproj_f32_plan, ops/tf32x3.py SMEM).
 extern "C" long long nvt_fused_outproj_f32_smem_bytes() {

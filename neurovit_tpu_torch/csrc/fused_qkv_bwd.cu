@@ -56,8 +56,9 @@ __global__ void __launch_bounds__(kRowWarps * 32)
   if (threadIdx.x % 32 == 0) stats[row] = st;
 }
 
+template <typename TO>
 cudaError_t launch_all(const bf16* dqkv, const bf16* x, const float* gamma,
-                       const bf16* w, bf16* dx, float* dgamma, float* dbeta,
+                       const bf16* w, TO* dx, float* dgamma, float* dbeta,
                        unsigned char* scratch, int M, int dim, int inner,
                        float eps, cudaStream_t stream) {
   const int K = 3 * inner;
@@ -97,6 +98,27 @@ extern "C" int nvt_fused_ln_qkv_bwd(const void* dqkv, const void* x,
       static_cast<const bf16*>(dqkv), static_cast<const bf16*>(x),
       static_cast<const float*>(gamma), static_cast<const bf16*>(w),
       static_cast<bf16*>(dx), static_cast<float*>(dgamma),
+      static_cast<float*>(dbeta), static_cast<unsigned char*>(scratch), M,
+      dim, inner, eps, static_cast<cudaStream_t>(stream)));
+}
+
+// K7's tensor-parallel form on a shard (dqkv [M, 3 inner] and w [3 inner,
+// dim] the shard's heads of q, k and v), every operand as
+// nvt_fused_ln_qkv_bwd's but dx [M, dim] f32: the shard's partial, summed
+// over the model group before its one rounding.
+extern "C" int nvt_fused_ln_qkv_bwd_partial(const void* dqkv, const void* x,
+                                            const void* gamma, const void* w,
+                                            void* dx, void* dgamma,
+                                            void* dbeta, void* scratch, int M,
+                                            int dim, int inner, float eps,
+                                            void* stream) {
+  using namespace nvt;
+  if (M < 1 || dim < 16 || dim % 16 != 0 || inner < 16 || inner % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_all(
+      static_cast<const bf16*>(dqkv), static_cast<const bf16*>(x),
+      static_cast<const float*>(gamma), static_cast<const bf16*>(w),
+      static_cast<float*>(dx), static_cast<float*>(dgamma),
       static_cast<float*>(dbeta), static_cast<unsigned char*>(scratch), M,
       dim, inner, eps, static_cast<cudaStream_t>(stream)));
 }

@@ -134,6 +134,20 @@ template <typename T>
 cudaError_t launch_rowquant(const T* x, int8_t* x8, float* s_row, int M,
                             int dim, cudaStream_t stream);
 
+// The same pass split in two for a tensor-parallel shard of a row, whose
+// scale is the amax over the whole row: launch_row_amax writes each row's
+// amax of |float(x)| over the shard's columns (amax [M] f32, one warp a
+// row); once the caller has maxed it over the model group,
+// launch_rowquant_given takes the codes with that amax, which are the
+// whole row's codes of these columns bit for bit.
+template <typename T>
+cudaError_t launch_row_amax(const T* x, float* amax, int M, int dim,
+                            cudaStream_t stream);
+template <typename T>
+cudaError_t launch_rowquant_given(const T* x, const float* amax, int8_t* x8,
+                                  float* s_row, int M, int dim,
+                                  cudaStream_t stream);
+
 // The GEMM passes' output tile rows and ring stages: three, so two GEMM
 // blocks share an SM and one block's epilogue runs under the other's
 // mainloop.
@@ -170,6 +184,15 @@ cudaError_t launch_fc2_residual(const CUtensorMap& ta, const CUtensorMap& tb,
                                 const float* s_row, const float* s_col,
                                 const float* b, const T* x, T* y, int M,
                                 int N, int K, int bn, cudaStream_t stream);
+// Its tensor-parallel form for a row-parallel shard (K the shard's share):
+// the int32 accumulator acc [M, N] = a8 . Bt^T, written as it is, which the
+// model group sums exactly; launch_dequant_residual then runs the pass's
+// epilogue once on the sum, y = T((dequant(acc) + b) + x) with the row
+// scale of the whole row's amax, one card's y bit for bit.
+cudaError_t allow_fc2_acc_smem();
+cudaError_t launch_fc2_acc(const CUtensorMap& ta, const CUtensorMap& tb,
+                           int* acc, int M, int N, int K, int bn,
+                           cudaStream_t stream);
 
 // K13's prologue (int8_attention.cu) for V [B, N, H, D] of T (bf16 or
 // float), D 64 or 128: s_v [B * H, D] at the head of the f32 stats (the

@@ -180,6 +180,46 @@ __global__ void __launch_bounds__(kRowWarps * 32)
   if (lane == 0) s2_row[row] = scale;
 }
 
+// The tensor-parallel split of pass 3 for a shard of the hidden columns:
+// each row's amax over the shard's fc1 tiles (gmax_rows), then, once the
+// caller has maxed it over the model group, the codes with that amax, the
+// whole hid row's (g_rowquant_given).
+__global__ void __launch_bounds__(kRowWarps * 32)
+    gmax_rows_kernel(const float* __restrict__ gmax, float* __restrict__ amax,
+                     int M, int tiles) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kRowWarps + threadIdx.x / 32;
+  if (row >= M) return;
+  float m = 0.f;
+  for (int i = lane; i < tiles; i += 32)
+    m = fmaxf(m, gmax[static_cast<size_t>(row) * tiles + i]);
+  m = warp_max(m);
+  if (lane == 0) amax[row] = m;
+}
+
+__global__ void __launch_bounds__(kRowWarps * 32)
+    g_rowquant_given_kernel(const float* __restrict__ g,
+                            const float* __restrict__ amax,
+                            int8_t* __restrict__ g8,
+                            float* __restrict__ s2_row, int M, int hid) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kRowWarps + threadIdx.x / 32;
+  if (row >= M) return;
+  const float scale = quant_scale(amax[row]);
+  const float* grow = g + static_cast<size_t>(row) * hid;
+  int8_t* out = g8 + static_cast<size_t>(row) * hid;
+#pragma unroll 4
+  for (int c = lane * 4; c < hid; c += 128) {
+    const float4 v = *reinterpret_cast<const float4*>(grow + c);
+    const int codes[4] = {quant_code(v.x, scale, -127.f),
+                          quant_code(v.y, scale, -127.f),
+                          quant_code(v.z, scale, -127.f),
+                          quant_code(v.w, scale, -127.f)};
+    *reinterpret_cast<uint32_t*>(out + c) = pack4(codes);
+  }
+  if (lane == 0) s2_row[row] = scale;
+}
+
 // Pass 4: y = T((dequant(g8 . W2^T) + b2) + x), BN columns a tile; K11
 // launches it too, with A = its codes of a and Bt = its W8.
 template <typename T, int BN>
@@ -208,6 +248,69 @@ __global__ void __launch_bounds__(GemmLoop<BN>::kThreads)
     store2(y + at, __fadd_rn(z0, xf.x), __fadd_rn(z1, xf.y));
   });
 }
+
+// Pass 4's tensor-parallel form: the int32 accumulator a8 . Bt^T of the
+// shard's K, written as it is. The model group sums it exactly in int32,
+// and dequant_residual_kernel runs pass 4's epilogue once on the sum.
+template <int BN>
+__global__ void __launch_bounds__(GemmLoop<BN>::kThreads)
+    fc2_acc_kernel(const __grid_constant__ CUtensorMap tg8,
+                   const __grid_constant__ CUtensorMap tw2,
+                   int* __restrict__ acc_out, int M, int dim, int hid) {
+  extern __shared__ unsigned char smem[];
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * BN;
+  int acc[GemmLoop<BN>::kAccRegs];
+  if (!GemmLoop<BN>::run(&tg8, &tw2, m0, n0, hid, smem, acc)) return;
+  GemmLoop<BN>::for_each_pair(acc, [&](int r, int c, int v0, int v1) {
+    const int row = m0 + r, col = n0 + c;
+    if (row >= M || col >= dim) return;   // dim is even: col + 1 < dim too
+    *reinterpret_cast<int2*>(acc_out + static_cast<size_t>(row) * dim +
+                             col) = make_int2(v0, v1);
+  });
+}
+
+// Pass 4's epilogue on the model group's int32 sum, fc2_residual_kernel's
+// arithmetic: y = T((dequant(acc, s_row, s_col) + b) + x), s_row the
+// scale of the whole row's amax. One thread a pair of columns.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    dequant_residual_kernel(const int* __restrict__ acc,
+                            const float* __restrict__ amax,
+                            const float* __restrict__ s_col,
+                            const float* __restrict__ b,
+                            const T* __restrict__ x, T* __restrict__ y,
+                            int M, int dim) {
+  const size_t pair = static_cast<size_t>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  const int half = dim / 2;
+  if (pair >= static_cast<size_t>(M) * half) return;
+  const int row = static_cast<int>(pair / half);
+  const int col = static_cast<int>(pair % half) * 2;
+  const size_t at = static_cast<size_t>(row) * dim + col;
+  const float s = quant_scale(amax[row]);
+  const int2 v = *reinterpret_cast<const int2*>(acc + at);
+  const float2 xf = load2(x + at);
+  const float2 sc = *reinterpret_cast<const float2*>(s_col + col);
+  const float2 bc = *reinterpret_cast<const float2*>(b + col);
+  const float z0 = __fadd_rn(dequant(v.x, s, sc.x), bc.x);
+  const float z1 = __fadd_rn(dequant(v.y, s, sc.y), bc.y);
+  store2(y + at, __fadd_rn(z0, xf.x), __fadd_rn(z1, xf.y));
+}
+
+// The scratch's pieces of one call (Scratch's layout).
+struct Pieces {
+  float *g, *gmax, *s1_row, *s2_row;
+  int8_t *u8, *g8;
+  Pieces(unsigned char* scratch, int M, int dim, int hid) {
+    const Scratch at(M, dim, hid);
+    g = reinterpret_cast<float*>(scratch + at.g);
+    u8 = reinterpret_cast<int8_t*>(scratch + at.u8);
+    g8 = reinterpret_cast<int8_t*>(scratch + at.g8);
+    gmax = reinterpret_cast<float*>(scratch + at.gmax);
+    s1_row = reinterpret_cast<float*>(scratch + at.s1_row);
+    s2_row = reinterpret_cast<float*>(scratch + at.s2_row);
+  }
+};
 
 template <typename T>
 cudaError_t launch_all(const T* x, const float* gamma, const float* beta,
@@ -280,6 +383,29 @@ cudaError_t launch_fc2_residual(const CUtensorMap& ta, const CUtensorMap& tb,
   return cudaGetLastError();
 }
 
+cudaError_t allow_fc2_acc_smem() {
+  const cudaError_t err =
+      allow_smem(fc2_acc_kernel<64>, GemmLoop<64>::kSmemBytes);
+  return err == cudaSuccess
+             ? allow_smem(fc2_acc_kernel<128>, GemmLoop<128>::kSmemBytes)
+             : err;
+}
+
+cudaError_t launch_fc2_acc(const CUtensorMap& ta, const CUtensorMap& tb,
+                           int* acc, int M, int N, int K, int bn,
+                           cudaStream_t stream) {
+  const dim3 grid((N + bn - 1) / bn, (M + kBM - 1) / kBM);
+  if (bn == 64)
+    fc2_acc_kernel<64><<<grid, GemmLoop<64>::kThreads,
+                         GemmLoop<64>::kSmemBytes, stream>>>(ta, tb, acc, M,
+                                                             N, K);
+  else
+    fc2_acc_kernel<128><<<grid, GemmLoop<128>::kThreads,
+                          GemmLoop<128>::kSmemBytes, stream>>>(ta, tb, acc,
+                                                               M, N, K);
+  return cudaGetLastError();
+}
+
 template cudaError_t allow_fc2_residual_smem<bf16>();
 template cudaError_t allow_fc2_residual_smem<float>();
 template cudaError_t launch_fc2_residual<bf16>(
@@ -308,8 +434,137 @@ int entry(const void* x, const void* gamma, const void* beta, const void* w1,
       static_cast<cudaStream_t>(stream)));
 }
 
+// The tensor-parallel split of a call on a shard of the hidden columns:
+// passes 1 and 2 and each row's amax of g over the shard (hidden_entry),
+// then, with the amax maxed over the model group, pass 3 with that amax and
+// pass 4's tensor-parallel form (partial_entry), both on one scratch;
+// pass 4's epilogue on the model group's sum (dequant_entry).
+template <typename T>
+int hidden_entry(const void* x, const void* gamma, const void* beta,
+                 const void* w1, const void* s1, const void* b1, void* amax,
+                 void* scratch, int M, int dim, int hid, float eps,
+                 void* stream) {
+  if (M < 1 || dim < 16 || dim % 16 != 0 || hid < 16 || hid % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Pieces p(static_cast<unsigned char*>(scratch), M, dim, hid);
+  CUtensorMap tu8, tw1;
+  cudaError_t err = hopper::encode_kmajor(&tu8, p.u8, M, dim, true, kBM);
+  if (err == cudaSuccess)
+    err = hopper::encode_kmajor(&tw1, w1, hid, dim, true, kBN);
+  if (err == cudaSuccess) err = allow_smem(fc1_gelu_kernel, Loop::kSmemBytes);
+  if (err == cudaSuccess)
+    err = launch_ln_rowquant(static_cast<const T*>(x),
+                             static_cast<const float*>(gamma),
+                             static_cast<const float*>(beta), p.u8, p.s1_row,
+                             M, dim, eps, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int hid_tiles = (hid + kBN - 1) / kBN;
+  fc1_gelu_kernel<<<dim3(hid_tiles, (M + kBM - 1) / kBM), Loop::kThreads,
+                    Loop::kSmemBytes, s>>>(
+      tu8, tw1, p.s1_row, static_cast<const float*>(s1),
+      static_cast<const float*>(b1), p.g, p.gmax, M, dim, hid);
+  if ((err = cudaGetLastError()) != cudaSuccess)
+    return static_cast<int>(err);
+  gmax_rows_kernel<<<(M + kRowWarps - 1) / kRowWarps, kRowWarps * 32, 0, s>>>(
+      p.gmax, static_cast<float*>(amax), M, hid_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int partial_entry(const void* amax, const void* w2, void* acc, void* scratch,
+                  int M, int dim, int hid, void* stream) {
+  if (M < 1 || dim < 16 || dim % 16 != 0 || hid < 16 || hid % 16 != 0 ||
+      acc == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Pieces p(static_cast<unsigned char*>(scratch), M, dim, hid);
+  CUtensorMap tg8, tw2;
+  cudaError_t err = hopper::encode_kmajor(&tg8, p.g8, M, hid, true, kBM);
+  if (err == cudaSuccess)
+    err = hopper::encode_kmajor(&tw2, w2, dim, hid, true, kBN);
+  if (err == cudaSuccess) err = allow_fc2_acc_smem();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  g_rowquant_given_kernel<<<(M + kRowWarps - 1) / kRowWarps, kRowWarps * 32,
+                            0, s>>>(p.g, static_cast<const float*>(amax),
+                                    p.g8, p.s2_row, M, hid);
+  if ((err = cudaGetLastError()) != cudaSuccess)
+    return static_cast<int>(err);
+  return static_cast<int>(launch_fc2_acc(tg8, tw2, static_cast<int*>(acc), M,
+                                         dim, hid, kBN, s));
+}
+
+template <typename T>
+int dequant_entry(const void* acc, const void* amax, const void* s_col,
+                  const void* b, const void* x, void* y, int M, int dim,
+                  void* stream) {
+  if (M < 1 || dim < 2 || dim % 2 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t pairs = static_cast<size_t>(M) * (dim / 2);
+  dequant_residual_kernel<T><<<static_cast<unsigned>((pairs + 255) / 256),
+                               256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(acc), static_cast<const float*>(amax),
+      static_cast<const float*>(s_col), static_cast<const float*>(b),
+      static_cast<const T*>(x), static_cast<T*>(y), M, dim);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 }  // namespace nvt
+
+// K12's tensor-parallel form on a shard of the hidden columns (w1 [hid,
+// dim] int8, s1 and b1 [hid] the shard's), first half: passes 1 and 2 into
+// the scratch (nvt_int8_mlp_scratch_bytes(M, dim, hid)) and amax [M] f32,
+// each row's amax of g over the shard's columns. x [M, dim] bf16.
+extern "C" int nvt_int8_mlp_hidden(const void* x, const void* gamma,
+                                   const void* beta, const void* w1,
+                                   const void* s1, const void* b1, void* amax,
+                                   void* scratch, int M, int dim, int hid,
+                                   float eps, void* stream) {
+  return nvt::hidden_entry<nvt::bf16>(x, gamma, beta, w1, s1, b1, amax,
+                                      scratch, M, dim, hid, eps, stream);
+}
+
+// The f32 instance: x f32, every other operand as nvt_int8_mlp_hidden's.
+extern "C" int nvt_int8_mlp_hidden_f32(const void* x, const void* gamma,
+                                       const void* beta, const void* w1,
+                                       const void* s1, const void* b1,
+                                       void* amax, void* scratch, int M,
+                                       int dim, int hid, float eps,
+                                       void* stream) {
+  return nvt::hidden_entry<float>(x, gamma, beta, w1, s1, b1, amax, scratch,
+                                  M, dim, hid, eps, stream);
+}
+
+// Second half, on the first half's scratch (either dtype's): g's codes
+// with amax [M], the model group's max (the whole hid row's), then acc [M,
+// dim] int32 = g8 . W2^T with w2 [dim, hid] int8 the shard's columns. The
+// model group sums acc in int32; nvt_int8_dequant_residual ends the pass.
+extern "C" int nvt_int8_mlp_partial(const void* amax, const void* w2,
+                                    void* acc, void* scratch, int M, int dim,
+                                    int hid, void* stream) {
+  return nvt::partial_entry(amax, w2, acc, scratch, M, dim, hid, stream);
+}
+
+// The epilogue of K11's and K12's last pass on the model group's int32 sum
+// acc [M, dim]: y [M, dim] bf16 = (dequant(acc, scale(amax), s_col) + b) +
+// x, amax [M] the whole row's, s_col and b [dim] f32, x [M, dim] bf16; the
+// arithmetic of the one-card pass, so y is its y bit for bit.
+extern "C" int nvt_int8_dequant_residual(const void* acc, const void* amax,
+                                         const void* s_col, const void* b,
+                                         const void* x, void* y, int M,
+                                         int dim, void* stream) {
+  return nvt::dequant_entry<nvt::bf16>(acc, amax, s_col, b, x, y, M, dim,
+                                       stream);
+}
+
+// The f32 instance: x and y f32.
+extern "C" int nvt_int8_dequant_residual_f32(const void* acc,
+                                             const void* amax,
+                                             const void* s_col, const void* b,
+                                             const void* x, void* y, int M,
+                                             int dim, void* stream) {
+  return nvt::dequant_entry<float>(acc, amax, s_col, b, x, y, M, dim, stream);
+}
 
 // x [M, dim] bf16; gamma, beta [dim] f32; w1 [hid, dim] int8; s1, b1 [hid]
 // f32; w2 [dim, hid] int8; s2, b2 [dim] f32; y [M, dim] bf16; scratch

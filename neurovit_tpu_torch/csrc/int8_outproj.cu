@@ -111,8 +111,83 @@ int entry(const void* a, const void* x, const void* w8, const void* s_col,
       static_cast<cudaStream_t>(stream)));
 }
 
+// The tensor-parallel split on a row-parallel shard (a [M, inner] the
+// shard's heads, w8 [dim, inner] its columns): each row's amax over the
+// shard's columns (launch_row_amax, the first call); then, with the amax
+// maxed over the model group, the codes (launch_rowquant_given) and K12's
+// pass 4 in its tensor-parallel form, the int32 accumulator.
+template <typename T>
+int partial_entry(const void* a, const void* amax, const void* w8, void* acc,
+                  void* scratch, int M, int inner, int dim, void* stream) {
+  if (M < 1 || inner < 16 || inner % 16 != 0 || dim < 16 || dim % 16 != 0 ||
+      acc == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Scratch at(M, inner);
+  unsigned char* base = static_cast<unsigned char*>(scratch);
+  int8_t* a8 = reinterpret_cast<int8_t*>(base + at.a8);
+  float* s_row = reinterpret_cast<float*>(base + at.s_row);
+  const int bn = gemm_tile_n(M, dim);
+  CUtensorMap ta8, tw8;
+  cudaError_t err =
+      hopper::encode_kmajor(&ta8, a8, M, inner, true, kGemmRows);
+  if (err == cudaSuccess)
+    err = hopper::encode_kmajor(&tw8, w8, dim, inner, true, bn);
+  if (err == cudaSuccess) err = allow_fc2_acc_smem();
+  if (err == cudaSuccess)
+    err = launch_rowquant_given(static_cast<const T*>(a),
+                                static_cast<const float*>(amax), a8, s_row, M,
+                                inner, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_fc2_acc(ta8, tw8, static_cast<int*>(acc), M,
+                                         dim, inner, bn, s));
+}
+
+template <typename T>
+int amax_entry(const void* a, void* amax, int M, int inner, void* stream) {
+  if (M < 1 || inner < 16 || inner % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_row_amax(
+      static_cast<const T*>(a), static_cast<float*>(amax), M, inner,
+      static_cast<cudaStream_t>(stream)));
+}
+
 }  // namespace
 }  // namespace nvt
+
+// K11's tensor-parallel form on a shard of the heads, first call: amax [M]
+// f32, each row's amax of |a| over the shard's columns, a [M, inner] bf16.
+extern "C" int nvt_int8_row_amax(const void* a, void* amax, int M, int inner,
+                                 void* stream) {
+  return nvt::amax_entry<nvt::bf16>(a, amax, M, inner, stream);
+}
+
+// The f32 instance: a f32.
+extern "C" int nvt_int8_row_amax_f32(const void* a, void* amax, int M,
+                                     int inner, void* stream) {
+  return nvt::amax_entry<float>(a, amax, M, inner, stream);
+}
+
+// Second call, with amax [M] the model group's max (the whole row's): a
+// [M, inner] bf16, w8 [dim, inner] int8 (the shard's columns), acc [M,
+// dim] int32 = a8 . w8^T; scratch as nvt_int8_outproj's. The model group
+// sums acc in int32; nvt_int8_dequant_residual (int8_mlp.cu) ends the pass.
+extern "C" int nvt_int8_outproj_partial(const void* a, const void* amax,
+                                        const void* w8, void* acc,
+                                        void* scratch, int M, int inner,
+                                        int dim, void* stream) {
+  return nvt::partial_entry<nvt::bf16>(a, amax, w8, acc, scratch, M, inner,
+                                       dim, stream);
+}
+
+// The f32 instance: a f32.
+extern "C" int nvt_int8_outproj_partial_f32(const void* a, const void* amax,
+                                            const void* w8, void* acc,
+                                            void* scratch, int M, int inner,
+                                            int dim, void* stream) {
+  return nvt::partial_entry<float>(a, amax, w8, acc, scratch, M, inner, dim,
+                                   stream);
+}
 
 // a [M, inner], x [M, dim] bf16; w8 [dim, inner] int8; s_col, bias [dim]
 // f32; y [M, dim] bf16; scratch nvt_int8_outproj_scratch_bytes(M, dim,

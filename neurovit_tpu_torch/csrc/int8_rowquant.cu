@@ -102,7 +102,73 @@ __global__ void __launch_bounds__(kLnRowWarps * 32)
   if (lane == 0) s_row[row] = scale;
 }
 
+// The pass split for a tensor-parallel shard of a row (launch_row_amax,
+// launch_rowquant_given): each row's amax of |float(x)| over the shard's
+// columns, with rowquant_kernel's sweep; then the codes with the amax the
+// caller maxed over the model group, the whole row's.
+template <typename T>
+__global__ void __launch_bounds__(kLnRowWarps * 32)
+    row_amax_kernel(const T* __restrict__ x, float* __restrict__ amax, int M,
+                    int dim) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kLnRowWarps + threadIdx.x / 32;
+  if (row >= M) return;
+  const T* xr = x + static_cast<size_t>(row) * dim;
+  float m = 0.f;
+#pragma unroll 8
+  for (int c = lane * 4; c < dim; c += 128) {
+    float v[4];
+    load4(xr + c, v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) m = fmaxf(m, fabsf(v[i]));
+  }
+  m = warp_max(m);
+  if (lane == 0) amax[row] = m;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kLnRowWarps * 32)
+    rowquant_given_kernel(const T* __restrict__ x,
+                          const float* __restrict__ amax,
+                          int8_t* __restrict__ x8, float* __restrict__ s_row,
+                          int M, int dim) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kLnRowWarps + threadIdx.x / 32;
+  if (row >= M) return;
+  const T* xr = x + static_cast<size_t>(row) * dim;
+  const float scale = quant_scale(amax[row]);
+  int8_t* out = x8 + static_cast<size_t>(row) * dim;
+#pragma unroll 8
+  for (int c = lane * 4; c < dim; c += 128) {
+    float u[4];
+    load4(xr + c, u);
+    int codes[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) codes[i] = quant_code(u[i], scale, -127.f);
+    *reinterpret_cast<uint32_t*>(out + c) = pack4(codes);
+  }
+  if (lane == 0) s_row[row] = scale;
+}
+
 }  // namespace
+
+template <typename T>
+cudaError_t launch_row_amax(const T* x, float* amax, int M, int dim,
+                            cudaStream_t stream) {
+  row_amax_kernel<T><<<(M + kLnRowWarps - 1) / kLnRowWarps, kLnRowWarps * 32,
+                       0, stream>>>(x, amax, M, dim);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_rowquant_given(const T* x, const float* amax, int8_t* x8,
+                                  float* s_row, int M, int dim,
+                                  cudaStream_t stream) {
+  rowquant_given_kernel<T><<<(M + kLnRowWarps - 1) / kLnRowWarps,
+                             kLnRowWarps * 32, 0, stream>>>(x, amax, x8,
+                                                            s_row, M, dim);
+  return cudaGetLastError();
+}
 
 template <typename T>
 cudaError_t launch_ln_rowquant(const T* x, const float* gamma,
@@ -134,5 +200,15 @@ template cudaError_t launch_rowquant<bf16>(const bf16*, int8_t*, float*, int,
                                            int, cudaStream_t);
 template cudaError_t launch_rowquant<float>(const float*, int8_t*, float*,
                                             int, int, cudaStream_t);
+template cudaError_t launch_row_amax<bf16>(const bf16*, float*, int, int,
+                                           cudaStream_t);
+template cudaError_t launch_row_amax<float>(const float*, float*, int, int,
+                                            cudaStream_t);
+template cudaError_t launch_rowquant_given<bf16>(const bf16*, const float*,
+                                                 int8_t*, float*, int, int,
+                                                 cudaStream_t);
+template cudaError_t launch_rowquant_given<float>(const float*, const float*,
+                                                  int8_t*, float*, int, int,
+                                                  cudaStream_t);
 
 }  // namespace nvt

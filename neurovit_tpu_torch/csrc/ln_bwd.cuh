@@ -177,10 +177,12 @@ void launch_du(const CUtensorMap& ta, const CUtensorMap& tb, float* du,
 // The three passes on `stream`, after the caller's pass has written the
 // rows' statistics into the scratch: ta the map of A [M, K]
 // (hopper::encode_kmajor, kBM-row boxes), tb that of B [K, dim]
-// (hopper::encode_mnmajor); dy null for no residual.
+// (hopper::encode_mnmajor); dy null for no residual; dx bf16, or f32 for a
+// tensor-parallel shard's partial.
+template <typename TO>
 cudaError_t launch_ln_bwd(const CUtensorMap& ta, const CUtensorMap& tb,
                           const bf16* x, const float* gamma, const bf16* dy,
-                          bf16* dx, float* dgamma, float* dbeta,
+                          TO* dx, float* dgamma, float* dbeta,
                           unsigned char* scratch, int M, int dim, int K,
                           cudaStream_t stream) {
   const Scratch at(M, dim);

@@ -25,16 +25,18 @@ constexpr int kSumWarps = 8;             // warps a block of colsum
 // The LayerNorm backward of a row (neurovit_tpu/ops/fused_mlp.py:188-196,
 // fused_qkv.py:80-96), one warp a row, with the residual dy added where
 // kResidual:
-//   dx = T(rstd (du gamma - m1 - xhat m2) [+ dy]),
+//   dx = TO(rstd (du gamma - m1 - xhat m2) [+ dy]),
 // m1 and m2 the row means of du gamma and du gamma xhat from the du
-// pass's col_parts partials, added in part order. dim % 8 == 0.
-template <typename T, bool kResidual>
+// pass's col_parts partials, added in part order. dim % 8 == 0. dx is of
+// x's type T, or f32 (TO) where a tensor-parallel shard's partial dx is
+// summed over the model group before its one rounding.
+template <typename T, bool kResidual, typename TO>
 __global__ void __launch_bounds__(kBwdRowWarps * 32)
     ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ du,
                   const float* __restrict__ gamma,
                   const float2* __restrict__ stats,
                   const float* __restrict__ rowpart,
-                  const T* __restrict__ dy, T* __restrict__ dx, int M,
+                  const T* __restrict__ dy, TO* __restrict__ dx, int M,
                   int dim, int col_parts) {
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * kBwdRowWarps + threadIdx.x / 32;
@@ -95,21 +97,23 @@ __global__ void __launch_bounds__(kSumWarps * 32)
   (which == 0 ? dgamma : dbeta)[col] = sum;
 }
 
-// ln_bwd (residual dy unless it is null) then colsum, on the stream.
-template <typename T>
+// ln_bwd (residual dy unless it is null) then colsum, on the stream; dx of
+// x's type or f32.
+template <typename T, typename TO>
 cudaError_t launch_ln_bwd_rows(const T* x, const float* du,
                                const float* gamma, const float2* stats,
                                const float* rowpart, const float* colpart,
-                               const T* dy, T* dx, float* dgamma,
+                               const T* dy, TO* dx, float* dgamma,
                                float* dbeta, int M, int dim, int col_parts,
                                int row_parts, cudaStream_t stream) {
   const int row_blocks = (M + kBwdRowWarps - 1) / kBwdRowWarps;
   if (dy != nullptr)
-    ln_bwd_kernel<T, true><<<row_blocks, kBwdRowWarps * 32, 0, stream>>>(
+    ln_bwd_kernel<T, true, TO><<<row_blocks, kBwdRowWarps * 32, 0, stream>>>(
         x, du, gamma, stats, rowpart, dy, dx, M, dim, col_parts);
   else
-    ln_bwd_kernel<T, false><<<row_blocks, kBwdRowWarps * 32, 0, stream>>>(
-        x, du, gamma, stats, rowpart, nullptr, dx, M, dim, col_parts);
+    ln_bwd_kernel<T, false, TO><<<row_blocks, kBwdRowWarps * 32, 0,
+                                  stream>>>(x, du, gamma, stats, rowpart,
+                                            nullptr, dx, M, dim, col_parts);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   colsum_kernel<<<2 * dim / 32, kSumWarps * 32, 0, stream>>>(

@@ -517,6 +517,17 @@ cudaError_t launch_fc2_residual(const CUtensorMap& ta,
                                 float inv_keep, uint32_t keep_q, uint64_t seed,
                                 cudaStream_t stream);
 size_t fc2_residual_smem_bytes();
+// The same pass's tensor-parallel form for a row-parallel shard (K the
+// shard's share): y = (A . Bt^T [+ bias]) * keep factors [+ x], bias and x
+// null on all but the model group's first shard, the mask the whole
+// pass's; the f32 sum of the shards' y is the whole pass. Its own kernel,
+// of the same shared memory, allowed by allow_fc2_partial_smem().
+cudaError_t allow_fc2_partial_smem();
+cudaError_t launch_fc2_partial(const CUtensorMap& ta, const CUtensorMap& tbig,
+                               const CUtensorMap& tsmall, const float* bias,
+                               const float* x, float* y, int M, int N, int K,
+                               float inv_keep, uint32_t keep_q, uint64_t seed,
+                               cudaStream_t stream);
 
 }  // namespace tf32x3_wgmma
 }  // namespace nvt

@@ -70,13 +70,20 @@ class DataLoader:
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = False,
                  num_workers: int = 8, seed: int = 0, drop_last: bool = False,
                  prefetch: int = 2, retries: int = 1,
-                 shard: "tuple[int, int] | None" = None):
-        """``shard=(rank, world)`` gives this loader a disjoint 1/world slice
-        of the (per-epoch shuffled) index space — the multi-HOST data
-        parallelism contract: each process feeds its OWN rows and
-        ``parallel.shard_batch`` assembles the global batch from them. All
-        ranks see the same shuffle (same seed+epoch) and the same number of
-        batches (short shards wrap), so SPMD processes stay in lockstep."""
+                 shard: "tuple[int, int] | None" = None,
+                 global_batch: "int | None" = None):
+        """``shard=(rank, world)`` gives this loader its rows of every
+        global batch of ``global_batch`` samples (default ``batch_size *
+        world``) — the multi-process data parallelism contract: each
+        process feeds its OWN rows. Global batch k is the unsharded
+        loader's batch k padded to a multiple of ``world`` as the JAX
+        trainer pads (trainer.py:711-721): its short tail repeats its last
+        sample with ``valid`` False, and the rows past ``global_batch``
+        repeat it too with label 0. Rank r takes rows r, r + world, ... of
+        it (``parallel.sharding.local_rows``'s layout), ``batch_size`` =
+        ceil(global_batch / world) rows. All ranks see the same shuffle
+        (same seed+epoch) and the same number of batches, so SPMD processes
+        stay in lockstep."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -90,7 +97,11 @@ class DataLoader:
             assert len(dataset) >= world, (
                 f"dataset of {len(dataset)} samples cannot feed {world} "
                 f"processes")
+            global_batch = global_batch or batch_size * world
+            assert batch_size == -(-global_batch // world), (
+                batch_size, global_batch, world)
         self.shard = shard
+        self.global_batch = global_batch
         # Transient-I/O resilience (the reference has none, SURVEY §5.3):
         # a failed/None sample read is retried before being skipped+masked.
         self.retries = retries
@@ -109,42 +120,40 @@ class DataLoader:
                 return sample
         return None
 
-    def _shard_len(self) -> int:
-        n = len(self.dataset)
-        if self.shard is None:
-            return n
-        return -(-n // self.shard[1])         # ceil: every rank equal-length
-
     def __len__(self) -> int:
-        n = self._shard_len()
+        n = len(self.dataset)
+        per = self.batch_size if self.shard is None else self.global_batch
         if self.drop_last:
-            return n // self.batch_size
-        return (n + self.batch_size - 1) // self.batch_size
+            return n // per
+        return (n + per - 1) // per
 
     def set_epoch(self, epoch: int) -> None:
         """Reshuffle deterministically per epoch."""
         self.epoch = epoch
 
     def _index_order(self):
-        """(indices, wrap_mask): wrap rows are the duplicates appended so
-        every rank yields the same number of batches in lockstep; they are
-        marked valid=False downstream so multi-host metrics don't
-        double-count up to world-1 samples per epoch (the same masking
-        mechanism _collate uses for padding)."""
-        n = len(self.dataset)
-        order = np.arange(n)
+        """The (per-epoch shuffled) order of the dataset's indices."""
+        order = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.RandomState(self.seed + self.epoch).shuffle(order)
-        if self.shard is not None:
-            rank, world = self.shard
-            mine = order[rank::world]
-            target = self._shard_len()
-            wrap = np.zeros(target, np.bool_)
-            if len(mine) < target:            # wrap so all ranks yield the
-                wrap[len(mine):] = True       # same number of batches
-                mine = np.concatenate([mine, mine[: target - len(mine)]])
-            return mine, wrap
-        return order, np.zeros(n, np.bool_)
+        return order
+
+    def _batch_rows(self, order, b: int):
+        """Batch b's rows: (indices, valid, label zeroed). Unsharded, the
+        batch's real samples (_collate pads it). Sharded, this rank's rows
+        of global batch b padded to a multiple of the world: a row past
+        the batch's real samples repeats its last one, invalid, its label
+        zeroed past ``global_batch`` (the JAX trainer's pad rows)."""
+        if self.shard is None:
+            idxs = order[b * self.batch_size:(b + 1) * self.batch_size]
+            return idxs, np.ones(len(idxs), np.bool_), None
+        rank, world = self.shard
+        g = self.global_batch
+        start = b * g
+        real = min(g, len(order) - start)
+        rows = np.arange(rank, self.batch_size * world, world)
+        idxs = order[start + np.minimum(rows, real - 1)]
+        return idxs, rows < real, rows >= g
 
     def _collate(self, samples: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
         n_real = len(samples)
@@ -164,7 +173,7 @@ class DataLoader:
         return batch
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
-        order, wrap = self._index_order()
+        order = self._index_order()
         n_batches = len(self)
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -175,17 +184,19 @@ class DataLoader:
                     for b in range(n_batches):
                         if stop.is_set():
                             return
-                        sl = slice(b * self.batch_size,
-                                   (b + 1) * self.batch_size)
-                        idxs, wraps = order[sl], wrap[sl]
-                        pairs = [(s, w) for s, w in
-                                 zip(pool.map(self._fetch, idxs), wraps)
+                        idxs, valid, zero = self._batch_rows(order, b)
+                        pairs = [(s, v) for s, v in
+                                 zip(pool.map(self._fetch, idxs), valid)
                                  if s is not None]
                         if not pairs:
                             continue
                         batch = self._collate([s for s, _ in pairs])
-                        wraps = np.array([w for _, w in pairs])
-                        batch["valid"][:len(wraps)] &= ~wraps
+                        valid = np.array([v for _, v in pairs])
+                        batch["valid"][:len(valid)] &= valid
+                        if (zero is not None and "label" in batch
+                                and len(pairs) == len(zero)):
+                            batch["label"] = np.where(zero, 0,
+                                                      batch["label"])
                         out_q.put(batch)
                 out_q.put(None)
             except BaseException as e:  # surface worker errors to the consumer

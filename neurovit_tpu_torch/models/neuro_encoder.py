@@ -221,10 +221,12 @@ class NeuroEncoder(tnn.Module):
         (neuro_encoder.py:188-218). Deterministic, so a static 4D dataset's
         encodings are the same every epoch (the feature cache's premise).
 
-        Inside a data-parallel ``parallel.use_mesh`` whose world divides
-        B·T, rank r encodes its contiguous 1/world of the folded stream and
-        the ranks' encodings are gathered in order (neuro_encoder.py:
-        200-206); otherwise the stream stays whole."""
+        Inside a data-parallel ``parallel.use_mesh`` whose data axis
+        divides B·T, data index d encodes its contiguous 1/data of the
+        folded stream and the data group's encodings are gathered in order
+        (neuro_encoder.py:200-206); otherwise the stream stays whole. On a
+        model axis above 1 the encoder is this process's shard and runs
+        tensor-parallel over the model group (``models.vit3d``)."""
         b, h, w, d, t = x.shape
         vols = x.to(self.compute_dtype).permute(0, 4, 1, 2, 3).reshape(
             b * t, h, w, d)

@@ -73,6 +73,13 @@ keep only numbers on ``ctx`` besides ``save_for_backward``, so every tensor
 they save is dropped and recomputed. Serving, the probe, eval and int8 run
 unchanged.
 
+**Tensor parallelism** (``parallel.tensor_parallel``): inside a
+``parallel.use_mesh`` whose model axis is above 1 the model is a shard (H /
+tp heads, mlp_dim / tp hidden columns) and ``Transformer`` runs each block
+through ``tensor_parallel.tp_block``, the one-process blocks' kernels with
+the row-parallel passes in their f32 partial forms and the model group's
+collectives; outside one, the blocks run as above, bit for bit.
+
 Not ported here: the pipeline path and the conv patch embed (see
 ``NeuroEncoder``).
 """
@@ -96,6 +103,7 @@ from neurovit_tpu_torch.ops.int8_serving import (int8_flash_attention,
                                                  int8_ln_qkv, int8_mlp_block,
                                                  int8_outproj_residual,
                                                  quantize_weight)
+from neurovit_tpu_torch.parallel.mesh import current_mesh
 
 # The block widths the kernels are held to against their plain versions on
 # the card (chip_smoke.py, tests/test_torch_cuda.py): name -> (dim, heads,
@@ -364,16 +372,26 @@ class Transformer(tnn.Module):
         """``rate`` > 0: dropout with the site keys of step ``seed``.
         ``depth`` runs only the first ``depth`` blocks. ``remat``: every
         block but the stack's last runs under non-reentrant
-        ``checkpoint``."""
+        ``checkpoint``. Inside a ``parallel.use_mesh`` whose model axis is
+        above 1 the blocks are this process's shard and run tensor-parallel
+        over the mesh's model group (``parallel.tensor_parallel``)."""
+        block = _block
+        mesh = current_mesh()
+        if mesh is not None and mesh.model > 1:
+            from neurovit_tpu_torch.parallel import tensor_parallel as tp
+            comm = tp.ProcessComm(mesh)
+
+            def block(attn, ff, x, rate, s):
+                return tp.tp_block([(attn, ff)], [x], comm, rate, s)[0]
         last = len(self.layers) - 1
         for i, (attn, ff) in enumerate(self.layers[:depth]):
             s = [nn.site_seed(seed, 1 + 4 * i + j) if rate else 0
                  for j in range(4)]
             if remat and i < last:
-                x = checkpoint(_block, attn, ff, x, rate, s,
+                x = checkpoint(block, attn, ff, x, rate, s,
                                use_reentrant=False, preserve_rng_state=False)
             else:
-                x = _block(attn, ff, x, rate, s)
+                x = block(attn, ff, x, rate, s)
         return x
 
 

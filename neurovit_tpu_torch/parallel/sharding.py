@@ -5,11 +5,11 @@ Counterpart of the data-parallel half of
 from the shardings; here they are written out:
 
 - a global batch's rows: ``TRAINING_BATCH_SIZE`` is the global batch, and
-  rank r holds rows r, r + world, r + 2 world, ... of it, which is what the
-  loader's strided ``shard=(rank, world)`` gives at every step
-  (:func:`local_rows`); a batch is first padded to a multiple of the world
-  size, its pad rows repeating the last volume with ``valid`` False
-  (:func:`pad_batch`, trainer.py:711-721);
+  data index d holds rows d, d + data, d + 2 data, ... of it, which is what
+  the loader's strided ``shard=(d, data)`` gives at every step
+  (:func:`local_rows`); a batch is first padded to a multiple of the data
+  axis, its pad rows repeating the last volume with label 0 and ``valid``
+  False (:func:`pad_batch`, trainer.py:711-721);
 - per-sample outputs back in the global batch's order
   (:func:`gather_rows`), or a contiguous split stream back in order
   (:func:`gather_stream`, the 4D B·T stream);
@@ -21,10 +21,11 @@ from the shardings; here they are written out:
   (the ResNet's global BatchNorm statistics).
 
 JAX's ``param_shardings`` and ``place_opt_state`` are replication on a
-mesh whose model and pipe axes are 1, the only mesh the port runs: every
-rank holds the whole model and its AdamW state, kept equal by the
-broadcast and the reduced gradients. The tensor-parallel rules
-(sharding.py:69-91) are not ported.
+mesh whose model axis is 1: every rank holds the whole model and its AdamW
+state, kept equal by the broadcast and the reduced gradients. On a model
+axis above 1 the ranks of one data group hold one shard
+(``tensor_parallel``, the tensor-parallel rules of sharding.py:69-173),
+and these collectives run over the data group.
 
 A gather is written as a sum of zero-filled buffers, one row block filled
 by each rank: exact, and every backend (NCCL, and gloo on CPU and CUDA
@@ -153,27 +154,31 @@ def _flat_collective(tensors: List[torch.Tensor], op) -> None:
 
 
 @torch.no_grad()
-def broadcast_module(module: torch.nn.Module, mesh: Mesh) -> None:
+def broadcast_module(module: torch.nn.Module, mesh: Mesh,
+                     group: Any = None) -> None:
     """Rank 0's parameters and buffers (the BatchNorm running statistics
-    among them) into every rank's ``module``."""
+    among them) into every rank's ``module``, over the data group or
+    ``group``."""
+    group = mesh.group if group is None else group
     tensors = list(module.parameters()) + list(module.buffers())
-    src = dist.get_global_rank(mesh.group, 0)
+    src = dist.get_global_rank(group, 0)
     _flat_collective([t.data for t in tensors],
-                     lambda flat: dist.broadcast(flat, src, group=mesh.group))
+                     lambda flat: dist.broadcast(flat, src, group=group))
 
 
 @torch.no_grad()
 def reduce_grads(params: Iterable[torch.nn.Parameter], mesh: Mesh, *,
-                 replicated: bool = False) -> None:
+                 replicated: bool = False, group: Any = None) -> None:
     """One coalesced collective on the gradients of ``params``: their sum
-    over the ranks (each rank's loss is its share of the global loss), or,
-    for a ``replicated`` batch that every rank computed whole, rank 0's
-    gradients on every rank."""
+    over the data group (each rank's loss is its share of the global
+    loss), or, for a ``replicated`` batch that every rank computed whole,
+    rank 0's gradients on every rank of the data group or ``group``."""
     grads = [p.grad for p in params if p.grad is not None]
     if replicated:
-        src = dist.get_global_rank(mesh.group, 0)
+        group = mesh.group if group is None else group
+        src = dist.get_global_rank(group, 0)
         op = lambda flat: dist.broadcast(flat, src,  # noqa: E731
-                                         group=mesh.group)
+                                         group=group)
     else:
         op = lambda flat: dist.all_reduce(flat,  # noqa: E731
                                           group=mesh.group)

@@ -18,9 +18,13 @@ quantized once when the predictor is built.
 
 ``devices=[...]`` serves data-parallel over several devices of this
 process (neurovit_tpu/serving.py:40-160): one replica of the model on
-each, every bucketed chunk split into equal slices, one a replica. The CLIs'
-``--mesh`` builds that list from ``parallel.create_mesh`` over the visible
-cards; serving stays one process, as the JAX server is single-host.
+each, every bucketed chunk split into equal slices, one a replica. With
+``model_axis`` m > 1 (``MESH_MODEL_AXIS``, serving.py:127-143) each
+replica is tensor-parallel over m consecutive devices of the list
+(``parallel.tensor_parallel.TensorParallelViT``; a device may repeat), at
+bf16, f32 and int8. The CLIs' ``--mesh`` builds the list from
+``parallel.create_mesh`` over the visible cards; serving stays one
+process, as the JAX server is single-host.
 """
 
 from __future__ import annotations
@@ -69,22 +73,36 @@ class Predictor:
     patch embedding, the softmax path and the head stay as they are.
 
     ``devices``: one replica on each (the model itself on the first,
-    copies of it on the others, each quantized once for int8). Each chunk
-    is split into equal slices in order, all launched before any is read
-    back. Buckets that the replica count does not divide are dropped (with
-    a warning when the caller named them), and a ``batch_size`` it does
-    not divide raises, as JAX's mesh Predictor does (serving.py:66-83,
-    129-132)."""
+    copies of it on the others, each quantized once for int8), or, with
+    ``model_axis`` m > 1, one tensor-parallel replica on each m of them
+    (the ViT quantized whole once for int8, then cut). Each chunk is split
+    into equal slices in order, all launched before any is read back.
+    Buckets that the replica count (the mesh's data axis) does not divide
+    are dropped (with a warning when the caller named them), and a
+    ``batch_size`` it does not divide raises, as JAX's mesh Predictor does
+    (serving.py:66-83, 129-132)."""
 
     def __init__(self, model: NeuroEncoder, batch_size: int = 32,
                  host_transfer_dtype: Optional[str] = None,
                  bucket_sizes: Optional[Sequence[int]] = None,
                  quant: Optional[str] = None,
-                 devices: Optional[Sequence[Any]] = None):
+                 devices: Optional[Sequence[Any]] = None,
+                 model_axis: int = 1):
         self.model = model.eval()
         self.device = next(model.parameters()).device
-        self.devices = (tuple(torch.device(d) for d in devices) if devices
-                        else (self.device,))
+        cards = (tuple(torch.device(d) for d in devices) if devices
+                 else (self.device,))
+        if model_axis < 1 or len(cards) % model_axis:
+            raise ValueError(f"MESH_MODEL_AXIS={model_axis} does not divide "
+                             f"{len(cards)} devices")
+        if model_axis > 1 and model.encoder_kind != "vit":
+            raise ValueError("a model axis above 1 serves the ViT volume "
+                             "encoder only (the ResNet has no "
+                             "tensor-parallel rule)")
+        # Each replica's cards; self.devices holds each one's first.
+        groups = [cards[i:i + model_axis]
+                  for i in range(0, len(cards), model_axis)]
+        self.devices = tuple(g[0] for g in groups)
         n_rep = len(self.devices)
         self.batch_size = batch_size
         explicit_buckets = bucket_sizes is not None
@@ -132,6 +150,13 @@ class Predictor:
         if self.device != self.devices[0]:
             self.model = model.to(self.devices[0])
             self.device = self.devices[0]
+        if model_axis > 1:
+            if quant == "int8":
+                quantize_blocks(self.model.volume_encoder.vit3d)
+            self.replicas = [_tensor_parallel_replica(self.model, g)
+                             for g in groups]
+            self.model = self.replicas[0]
+            return
         self.replicas = [self.model] + [copy.deepcopy(self.model).to(d)
                                         for d in self.devices[1:]]
         if quant == "int8":
@@ -144,8 +169,8 @@ class Predictor:
                         host_transfer_dtype: Optional[str] = None,
                         bucket_sizes: Optional[Sequence[int]] = None,
                         device="cuda", quant: Optional[str] = None,
-                        devices: Optional[Sequence[Any]] = None
-                        ) -> "Predictor":
+                        devices: Optional[Sequence[Any]] = None,
+                        model_axis: int = 1) -> "Predictor":
         """Build the model on ``device`` (or on the first of ``devices``)
         and load a torch-format state dict (the JAX trainer's
         ``.state_dict.pkl`` saves, or ``torch.save``); ``quant="int8"`` then
@@ -154,7 +179,8 @@ class Predictor:
         model = NeuroEncoder(config, device=resolve_device(first), seed=seed)
         load_checkpoint(model, checkpoint_path, strict=False)
         return cls(model, batch_size, host_transfer_dtype=host_transfer_dtype,
-                   bucket_sizes=bucket_sizes, quant=quant, devices=devices)
+                   bucket_sizes=bucket_sizes, quant=quant, devices=devices,
+                   model_axis=model_axis)
 
     def _bucket_for(self, remaining: int) -> int:
         """Smallest bucket that fits ``remaining`` (full chunks stream
@@ -239,6 +265,18 @@ class Predictor:
             base = base + (seq_len if seq_len is not None else 1,)
         for bucket in self.bucket_sizes:
             self(np.zeros((bucket,) + base, np.float32))
+
+
+def _tensor_parallel_replica(model: NeuroEncoder,
+                             cards: Sequence[torch.device]) -> NeuroEncoder:
+    """A copy of ``model`` on ``cards[0]`` whose ViT is a tensor-parallel
+    replica over ``cards``, cut from the model's (whole) ViT."""
+    from torch import nn as tnn
+    from neurovit_tpu_torch.parallel.tensor_parallel import TensorParallelViT
+    vit = model.volume_encoder.vit3d
+    replica = copy.deepcopy(model, {id(vit): tnn.Identity()}).to(cards[0])
+    replica.volume_encoder.vit3d = TensorParallelViT(vit, cards)
+    return replica.eval()
 
 
 # --------------------------------------------------------------------------
@@ -330,17 +368,19 @@ def predictor_from_cli_args(parser, args, config) -> "Predictor":
     """Shared flag -> Predictor plumbing for the two serving entry points:
     checkpoint resolution (``--checkpoint`` else ``BEST_MODEL_PATH``),
     ``--buckets`` ('' disables, None keeps the default), ``--device``,
-    ``--quant``, ``--mesh`` (a replica on each visible card of
-    ``--device cuda``, on the one CPU of ``--device cpu``) and the default
-    batch size."""
-    devices = None
+    ``--quant``, ``--mesh`` (the mesh of ``create_mesh`` over the visible
+    cards of ``--device cuda``: a replica on each, or on each
+    ``MESH_MODEL_AXIS`` of them; with ``--device cpu`` one replica on
+    ``MESH_MODEL_AXIS`` copies of the CPU) and the default batch size."""
+    devices, model_axis = None, 1
     if args.mesh:
         device = resolve_device(args.device)
         visible = ([torch.device("cuda", i)
                     for i in range(torch.cuda.device_count())]
-                   if device.type == "cuda" else [device])
+                   if device.type == "cuda" else
+                   [device] * int(config.get("MESH_MODEL_AXIS", 1)))
         mesh = create_mesh(config, visible)
-        devices = mesh.devices
+        devices, model_axis = mesh.devices, mesh.model
         print(f"Serving over mesh {mesh.shape} on "
               f"{[str(d) for d in devices]}")
     ckpt_path = args.checkpoint or os.path.join(
@@ -350,12 +390,13 @@ def predictor_from_cli_args(parser, args, config) -> "Predictor":
                tuple(int(b) for b in args.buckets.split(",")))
     is_4d = int(config.get("TRAINING_DIM", 3)) == 4
     batch_size = (args.batch_size if args.batch_size is not None
-                  else _default_batch_size(is_4d, len(devices or [None])))
+                  else _default_batch_size(
+                      is_4d, len(devices or [None]) // model_axis))
     return Predictor.from_checkpoint(
         config, ckpt_path, batch_size=batch_size,
         host_transfer_dtype="bf16" if args.host_bf16 else None,
         bucket_sizes=buckets, device=args.device, quant=args.quant,
-        devices=devices)
+        devices=devices, model_axis=model_axis)
 
 
 def add_serving_args(parser) -> None:
@@ -378,8 +419,9 @@ def add_serving_args(parser) -> None:
                              "host->device bytes)")
     parser.add_argument("--mesh", action="store_true",
                         help="data-parallel serving: one model replica on "
-                             "each visible card, each chunk split over "
-                             "them")
+                             "each visible card (tensor-parallel over "
+                             "MESH_MODEL_AXIS cards each when it is above "
+                             "1), each chunk split over them")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; 'cpu' runs the "
                              "plain PyTorch path)")

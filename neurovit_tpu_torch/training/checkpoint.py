@@ -60,12 +60,19 @@ def _write(state: Dict[str, Any], path: str) -> None:
     os.replace(partial, path)
 
 
-def save_train_state(path: str, state: Dict[str, Any], model: tnn.Module,
+def _weights(model) -> Dict[str, torch.Tensor]:
+    """A module's state dict, or the state dict given (a sharded model's
+    whole one)."""
+    return model if isinstance(model, dict) else model.state_dict()
+
+
+def save_train_state(path: str, state: Dict[str, Any], model,
                      *, asynchronous: bool = False) -> None:
     """Write the train state ``state`` (a dict of state dicts, tensors and
-    numbers) at ``path`` and the model's weights at
-    ``<path>.state_dict.pkl``. The train state goes to a temporary name
-    first, so an interrupted save leaves no partial file under ``path``.
+    numbers) at ``path`` and the model's weights (``model``: the module or
+    its state dict) at ``<path>.state_dict.pkl``. The train state goes to a
+    temporary name first, so an interrupted save leaves no partial file
+    under ``path``.
 
     The state is first copied to host memory, so the steps after this call
     may update the live tensors. ``asynchronous=True`` leaves the write of
@@ -83,7 +90,7 @@ def save_train_state(path: str, state: Dict[str, Any], model: tnn.Module,
         _in_flight = _writer.submit(_write, snapshot, path)
     else:
         _write(snapshot, path)
-    sd.save(path + ".state_dict.pkl", model.state_dict())
+    sd.save(path + ".state_dict.pkl", _weights(model))
 
 
 def wait_for_async_saves() -> None:
@@ -102,10 +109,11 @@ def load_train_state(path: str) -> Dict[str, Any]:
                       weights_only=True)
 
 
-def save_last_model(model: tnn.Module, path: str = LAST_MODEL_PATH) -> None:
-    """Rolling weights-only save (reference Trainer.py:54)."""
+def save_last_model(model, path: str = LAST_MODEL_PATH) -> None:
+    """Rolling weights-only save (reference Trainer.py:54) of the module or
+    its state dict."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    sd.save(path, model.state_dict())
+    sd.save(path, _weights(model))
 
 
 def load_checkpoint(model: tnn.Module, path: str, strict: bool = False):

@@ -78,12 +78,14 @@ def dataset_identity(dataset) -> str:
 
 
 @torch.no_grad()
-def fingerprint(encoder: torch.nn.Module, quant4d: bool, dataset) -> str:
+def fingerprint(encoder, quant4d: bool, dataset) -> str:
     """The persisted view's key: a hash of the frozen encoder's state (the
     f32 sum of every parameter and buffer, taken on its device and fetched
     once, with each entry's name, shape and dtype), the quant mode (the int8
-    copy derives from these weights) and :func:`dataset_identity`."""
-    state = encoder.state_dict()
+    copy derives from these weights) and :func:`dataset_identity`.
+    ``encoder``: the module, or its whole state dict (a tensor-parallel
+    rank's, gathered)."""
+    state = encoder if isinstance(encoder, dict) else encoder.state_dict()
     sums = torch.stack([v.float().sum() for v in state.values()])
     h = hashlib.sha256()
     h.update(sums.cpu().numpy().astype(np.float32).tobytes())

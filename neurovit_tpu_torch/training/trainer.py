@@ -53,27 +53,41 @@ take f32 and its convs are cuDNN's, so it trains in f32 on either.
 
 Data parallelism (trainer.py:69-173, 576-634, 680-721 over the JAX mesh's
 data axis; ``parallel``): under a process group (``torchrun``, one process
-per GPU) the mesh's data axis is the group. ``TRAINING_BATCH_SIZE`` is the
-global batch; each rank loads ``TRAINING_BATCH_SIZE / world`` rows through
-the loader's strided ``shard=(rank, world)``, so the ranks' rows at step k
-are the one-process batch k, and a batch size the world does not divide is
-refused. The loss is the global masked CE: each rank's sum over its valid
-rows divided by the all-reduced valid count, and the gradients are summed
-over the ranks once per accumulation window, before the update, so a step
-is the one-process step. Rank r > 0 folds r into its dropout seed
-(``sharding.rank_seed``); rank 0 keeps the one-process stream. The logged
-loss, ``correct`` and ``count`` are all-reduced sums, validation's too, so
-the plateau schedule reads the same loss on every rank. The parameters are
-broadcast from rank 0 at the start and after a restore. Rank 0 alone
-writes checkpoints, the rolling weights, the trace and the log lines, and
-the ranks meet at a barrier after each write; a preemption signal on any
-rank stops every rank at the same batch boundary. A 4D batch is
-replicated (every rank loads the same sequences and draws the same
-dropout), the model splits the folded B·T stream over the ranks
-(``NeuroEncoder.encode_sequence``) and rank 0's gradients are broadcast;
-the ResNet's BatchNorm takes the global batch's statistics. The steps run
-inside ``parallel.use_mesh``. Without a process group nothing of this
-runs, and the steps are the one-device steps bit for bit.
+per GPU) the mesh's data axis spans the group, or, on a model axis above
+1, each data group of it. ``TRAINING_BATCH_SIZE`` is the global batch;
+each data index loads ceil(TRAINING_BATCH_SIZE / data) rows of it through
+the loader's strided ``shard=(data index, data)``, the global batch
+padded to a multiple of the data axis as JAX pads it (its pad rows repeat
+its last volume, label 0, ``valid`` False; the ResNet's BatchNorm counts
+them, as JAX's does). The loss is the global masked CE: each rank's sum
+over its valid rows divided by the all-reduced valid count, and the
+gradients are summed over the data group once per accumulation window,
+before the update, so a step is the one-process step. Data index d > 0
+folds d into its dropout seed (``sharding.rank_seed``); index 0 keeps the
+one-process stream. The logged loss, ``correct`` and ``count`` are sums
+over the data group, validation's too, so the plateau schedule reads the
+same loss on every rank. The parameters are broadcast from rank 0 at the
+start and after a restore. Rank 0 alone writes checkpoints, the rolling
+weights, the trace and the log lines, and the ranks meet at a barrier
+after each write; a preemption signal on any rank stops every rank at the
+same batch boundary. A 4D batch is replicated (every rank loads the same
+sequences and draws the same dropout), the model splits the folded B·T
+stream over the data group (``NeuroEncoder.encode_sequence``) and rank 0's
+gradients are broadcast; the ResNet's BatchNorm takes the global batch's
+statistics. The steps run inside ``parallel.use_mesh``.
+
+Tensor parallelism (``MESH_MODEL_AXIS > 1``, ``parallel.tensor_parallel``,
+trainer.py:163): the ranks of one data index form a model group, and each
+holds its shard of the ViT, cut from rank 0's whole model at the start and
+from the whole weights at a restore (the 4D model's frozen encoder and
+its int8 copy, quantized whole, too); AdamW's moments are the shard's. The
+gradients each model rank holds in part (the blocks' LayerNorm affines and
+row-parallel biases) are summed over the model group before the data
+group's sum. Checkpoints, the rolling weights and the weight files are
+whole, gathered over the model group: a one-process run restores them. The
+ResNet has no tensor-parallel rule and is replicated over the model axis.
+Without a process group nothing of this runs, and the steps are the
+one-device steps bit for bit.
 """
 
 from __future__ import annotations
@@ -94,7 +108,8 @@ import torch.distributed as dist
 from neurovit_tpu_torch import nn
 from neurovit_tpu_torch.data.loader import DataLoader
 from neurovit_tpu_torch.models.neuro_encoder import NeuroEncoder
-from neurovit_tpu_torch.parallel import create_mesh, sharding, use_mesh
+from neurovit_tpu_torch.parallel import (create_mesh, sharding,
+                                        tensor_parallel, use_mesh)
 from neurovit_tpu_torch.parallel.mesh import Mesh
 from neurovit_tpu_torch.parallel.sharding import SEED_HIGH
 from neurovit_tpu_torch.training import checkpoint as ckpt
@@ -125,44 +140,40 @@ class Trainer:
         check_supported(config, self.device)
         self.mesh = mesh if mesh is not None else create_mesh(config)
         self._dp = self.mesh.distributed
+        self._tp = self._dp and self.mesh.model > 1
         self.rank, world = self.mesh.rank, self.mesh.data
-        # 3D batches are split over the ranks; a 4D batch is replicated
+        # 3D batches are split over the data axis; a 4D batch is replicated
         # (trainer.py:576, shard_batch(..., replicate=True)).
         self._shard_rows = self._dp and not model.is_4d
-        self._writer = self.rank == 0
+        self._writer = self.rank == 0 and self.mesh.model_index == 0
         self.output_dir = config["GLOBAL_OUTPUT_DIR"]
         self.epochs = config["TRAINING_EPOCHS"]
         self.batch_size = config["TRAINING_BATCH_SIZE"]
         self.num_workers = config.get("TRAINING_NUM_WORKERS", 8)
-        if self._shard_rows and self.batch_size % world:
-            raise ValueError(
-                f"TRAINING_BATCH_SIZE {self.batch_size} does not divide over "
-                f"the {world} data-parallel ranks: it is the global batch, "
-                "and each rank loads TRAINING_BATCH_SIZE / world rows")
-        self._local_batch = (self.batch_size // world if self._shard_rows
+        # A global batch the data axis does not divide is padded to a
+        # multiple of it (trainer.py:711-721): each data index loads its
+        # rows of the padded batch.
+        self._local_batch = (-(-self.batch_size // world) if self._shard_rows
                              else self.batch_size)
         self._shard = (self.rank, world) if self._shard_rows else None
         self.logger = logger if logger is not None else MetricLogger(config)
         self.data = dataset_train
         self.val_data = dataset_val
         self._preempt_requested = False
-        seed = config.get("TRAINING_SEED", 42)
-        self.dataloader = DataLoader(dataset_train, self._local_batch,
-                                     shuffle=True,
-                                     num_workers=self.num_workers, seed=seed,
-                                     shard=self._shard)
-        self.val_dataloader = DataLoader(dataset_val, self._local_batch,
-                                         shuffle=False,
-                                         num_workers=self.num_workers,
-                                         seed=seed, shard=self._shard)
-        # The preemption flag is summed on the host, over gloo: no device
-        # sync at the batch boundary.
+        self._seed = seed = config.get("TRAINING_SEED", 42)
+        self.dataloader = self._loader_of(dataset_train, shuffle=True)
+        self.val_dataloader = self._loader_of(dataset_val, shuffle=False)
+        # The preemption flag is summed on the host, over gloo across the
+        # world: no device sync at the batch boundary.
         self._host_group = None
+        self._params_banner = model.param_count()
         if self._dp:
-            self._host_group = (self.mesh.group
-                                if dist.get_backend(self.mesh.group) == "gloo"
+            world_group = dist.group.WORLD
+            self._host_group = (world_group
+                                if dist.get_backend(world_group) == "gloo"
                                 else dist.new_group(backend="gloo"))
-            sharding.broadcast_module(model, self.mesh)
+            sharding.broadcast_module(
+                model, self.mesh, group=world_group if self._tp else None)
 
         host_dtype = str(config.get("TRAINING_HOST_TRANSFER_DTYPE",
                                     "f32")).lower()
@@ -186,7 +197,11 @@ class Trainer:
             raise ValueError("TRAINING_4D_ENCODER_QUANT supports the ViT "
                              "volume encoder only")
         self._q8_encoder = self._quantized_encoder()
-        self._seed = seed
+        if self._tp:
+            # Megatron-style tensor parallelism: this process's shard of
+            # the ViT, cut from rank 0's whole model (and its int8 copy,
+            # quantized whole, above).
+            tensor_parallel.shard_model_(model, self.mesh)
         self._use_feature_cache = (bool(config.get(
             "TRAINING_4D_FEATURE_CACHE", False)) and model.is_4d)
         self._feature_cache = None
@@ -194,9 +209,7 @@ class Trainer:
         self.optimizer = Optimizer(config, model.parameters(),
                                    steps_per_epoch=max(1, len(self.dataloader)))
         if self._dp:
-            self.optimizer.before_update = (
-                lambda params: sharding.reduce_grads(
-                    params, self.mesh, replicated=not self._shard_rows))
+            self.optimizer.before_update = self._reduce_grads
         self._plateau = config.get("TRAINING_LR_SCHEDULE") == "plateau"
         self._plateau_patience = config.get("TRAINING_PLATEAU_PATIENCE", 1)
         self._plateau_factor = config.get("TRAINING_PLATEAU_FACTOR", 0.5)
@@ -207,7 +220,7 @@ class Trainer:
         self.epoch = 0
 
         self.log_interval = max(1, len(self.dataloader) // 10)  # Trainer.py:34
-        total, trainable = model.param_count()
+        total, trainable = self._params_banner
         self._print(f"Model total parameters: {total/1e6:.2f}M "
                     f"(trainable {trainable/1e6:.2f}M and frozen "
                     f"{(total-trainable)/1e6:.2f}M)")
@@ -222,12 +235,46 @@ class Trainer:
         if self._writer:
             print(*args, **kwargs)
 
-    def _quantized_encoder(self):
-        """The int8 copy of the ViT the 4D encoder runs on, or None."""
+    def _loader_of(self, dataset, shuffle: bool) -> DataLoader:
+        """The loader of this rank's rows (the padded global batch's, when
+        the rows are split over the data axis)."""
+        return DataLoader(dataset, self._local_batch, shuffle=shuffle,
+                          num_workers=self.num_workers, seed=self._seed,
+                          shard=self._shard,
+                          global_batch=(self.batch_size if self._shard
+                                        else None))
+
+    def _quantized_encoder(self, whole=None):
+        """The int8 copy of the ViT the 4D encoder runs on, or None: the
+        whole ViT (``whole``, default the model's) quantized, then, on a
+        model axis above 1, cut to this process's shard."""
         if not self._quant4d:
             return None
         from neurovit_tpu_torch.models.vit3d import quantize_blocks
-        return quantize_blocks(copy.deepcopy(self.model.volume_encoder.vit3d))
+        vit = quantize_blocks(copy.deepcopy(
+            whole if whole is not None else self.model.volume_encoder.vit3d))
+        if self._tp:
+            vit = tensor_parallel.cut_vit(vit, self.mesh.model_index,
+                                          self.mesh.model)
+        return vit
+
+    def _reduce_grads(self, params) -> None:
+        """Before the update: on a model axis above 1, the gradients each
+        model rank holds in part summed over the model group; then every
+        gradient summed over the data group (a replicated 4D batch: rank
+        0's over the world)."""
+        if self._tp:
+            tensor_parallel.reduce_partial_grads(self.model, self.mesh)
+        sharding.reduce_grads(
+            params, self.mesh, replicated=not self._shard_rows,
+            group=dist.group.WORLD if self._tp else None)
+
+    def _whole_state(self) -> Dict[str, torch.Tensor]:
+        """The model's whole state dict: a sharded model's is gathered over
+        the model group (every rank calls this)."""
+        if self._tp:
+            return tensor_parallel.whole_state_dict(self.model, self.mesh)
+        return self.model.state_dict()
 
     # ------------------------------------------------------------------
     # steps
@@ -348,8 +395,15 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def _checkpoint_state(self) -> Dict[str, Any]:
-        return {"model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict(),
+        """The train state, whole (one process's keys and shapes) on a
+        model axis above 1 too; every rank calls this there."""
+        optimizer = self.optimizer.state_dict()
+        if self._tp:
+            optimizer = {**optimizer,
+                         "adamw": tensor_parallel.whole_optimizer_state(
+                             optimizer["adamw"], self.model, self.mesh)}
+        return {"model": self._whole_state(),
+                "optimizer": optimizer,
                 "epoch": self.epoch,
                 "generator": self.generator.get_state(),
                 "plateau": {"best": self._plateau_best,
@@ -361,10 +415,19 @@ class Trainer:
         ckpt.wait_for_async_saves()   # never read a still-writing checkpoint
         self._barrier()               # nor one rank 0 is still writing
         state = ckpt.load_train_state(path)
-        self.model.load_state_dict(state["model"])
+        whole = None
+        if self._tp:
+            tensor_parallel.load_whole_state_dict(self.model, state["model"],
+                                                  self.mesh)
+            state["optimizer"]["adamw"] = tensor_parallel.cut_optimizer_state(
+                state["optimizer"]["adamw"], self.model, self.mesh)
+            if self._quant4d:
+                whole = self._whole_vit(state["model"])
+        else:
+            self.model.load_state_dict(state["model"])
         if self._dp:
             sharding.broadcast_module(self.model, self.mesh)
-        self._q8_encoder = self._quantized_encoder()
+        self._q8_encoder = self._quantized_encoder(whole)
         self._feature_cache = None       # encoded again from these weights
         self.optimizer.load_state_dict(state["optimizer"])
         self.epoch = int(state["epoch"])
@@ -372,6 +435,17 @@ class Trainer:
         if self._plateau:
             self._plateau_best = float(state["plateau"]["best"])
             self._plateau_bad_epochs = int(state["plateau"]["bad"])
+
+    def _whole_vit(self, state: Dict[str, torch.Tensor]):
+        """A whole ViT of the model's config holding the ViT weights of a
+        whole state dict."""
+        from neurovit_tpu_torch.models.vit3d import ViT3D
+        from neurovit_tpu_torch.training.state_dict import PREFIX
+        vit = ViT3D(self.model.vit_cfg, device="meta").to_empty(
+            device=self.device)
+        vit.load_state_dict({k[len(PREFIX):]: v for k, v in state.items()
+                             if k.startswith(PREFIX)})
+        return vit
 
     def request_preempt(self, *_args) -> None:
         """Checkpoint and stop at the next batch boundary (signal-safe)."""
@@ -421,8 +495,10 @@ class Trainer:
     def _save(self, path: str, asynchronous: bool = False) -> None:
         """The train state at ``path``, written by rank 0; every rank
         leaves once it is written (or, asynchronously, handed over)."""
+        if self._writer or self._tp:
+            state = self._checkpoint_state()
         if self._writer:
-            ckpt.save_train_state(path, self._checkpoint_state(), self.model,
+            ckpt.save_train_state(path, state, state["model"],
                                   asynchronous=asynchronous)
         self._barrier()
 
@@ -462,8 +538,9 @@ class Trainer:
                 self._save(os.path.join(path, f"model-e{epoch}"),
                            asynchronous=bool(self.config.get(
                                "TRAINING_ASYNC_CHECKPOINT", False)))
+                weights = self._whole_state()
                 if self._writer:
-                    ckpt.save_last_model(self.model)
+                    ckpt.save_last_model(weights)
                 self._print(f"MODEL SAVED to .{path}/model-e{epoch}")
                 if self._agree_preempt():
                     self._print(f"PREEMPTED: exiting after epoch {epoch} "
@@ -492,8 +569,10 @@ class Trainer:
                 if self._writer:
                     os.makedirs(cache_dir, exist_ok=True)
                 path = os.path.join(cache_dir, f"feats_{split}.npz")
-                fp = feature_cache.fingerprint(self.model.frozen_encoder,
-                                               self._quant4d, ds)
+                encoder = self.model.frozen_encoder
+                fp = feature_cache.fingerprint(
+                    tensor_parallel.whole_state_dict(encoder, self.mesh)
+                    if self._tp else encoder, self._quant4d, ds)
                 self._barrier()   # every rank looks before rank 0 writes
                 views[split] = feature_cache.load_view(path, fp)
                 self._barrier()
@@ -514,12 +593,9 @@ class Trainer:
                 if not self._writer:
                     views[split] = feature_cache.load_view(path, fp)
         self._feature_cache = views
-        self._feat_dataloader = DataLoader(
-            views["train"], self._local_batch, shuffle=True,
-            num_workers=self.num_workers, seed=self._seed, shard=self._shard)
-        self._feat_val_dataloader = DataLoader(
-            views["val"], self._local_batch, shuffle=False,
-            num_workers=self.num_workers, seed=self._seed, shard=self._shard)
+        self._feat_dataloader = self._loader_of(views["train"], shuffle=True)
+        self._feat_val_dataloader = self._loader_of(views["val"],
+                                                    shuffle=False)
 
     def _loader(self, train: bool):
         """The cached features' loader once the cache is built, else the
@@ -650,8 +726,10 @@ class Trainer:
         rows = sharding.gather_rows(torch.stack(
             [preds.long(), batch["label"].long(), batch["valid"].long()],
             dim=1), self.mesh).cpu().numpy()
-        parts = [None] * self.mesh.data
-        dist.all_gather_object(parts, list(subjects), group=self._host_group)
+        everyone = [None] * dist.get_world_size(self._host_group)
+        dist.all_gather_object(everyone, list(subjects),
+                               group=self._host_group)
+        parts = everyone[::self.mesh.model]      # model index 0's, in order
         ordered = [s for row in zip(*parts) for s in row]
         return (torch.from_numpy(rows[:, 0]), rows[:, 1],
                 rows[:, 2].astype(bool), ordered)

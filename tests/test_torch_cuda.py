@@ -3019,3 +3019,258 @@ def test_int8_f32_forward_runs_the_f32_int8_kernels(cuda):
                         zip(f32 + others, before)] == want + [0] * 8, attn
         torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=1e-3,
                                    atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the forms of ops/tp_forms.py at the flagship's shard
+# widths (dim 1024, 8 heads of 64, MLP 2048 cut by tp 2 and 4), one volume
+# ---------------------------------------------------------------------------
+
+TP_DIM, TP_INNER, TP_MLP, TP_N = 1024, 512, 2048, 1001
+
+
+def _tp_block(cuda, tp, dtype, seed=0):
+    from neurovit_tpu_torch.parallel.tensor_parallel import cut
+    rng = np.random.default_rng(seed)
+
+    def w(o, i):
+        return torch.tensor(rng.uniform(-1, 1, (o, i)) / i ** 0.5,
+                            dtype=torch.float32, device=cuda)
+
+    x = _rand(rng, (1, TP_N, TP_DIM), cuda, dtype)
+    attn = _rand(rng, (1, TP_N, TP_INNER), cuda, dtype)
+    ln = (_rand(rng, (TP_DIM,), cuda, torch.float32, 0.1, 1.0),
+          _rand(rng, (TP_DIM,), cuda, torch.float32, 0.1))
+    wout, w1, w2, wqkv = (w(TP_DIM, TP_INNER), w(TP_MLP, TP_DIM),
+                          w(TP_DIM, TP_MLP), w(3 * TP_INNER, TP_DIM))
+    bout, b1, b2 = (_rand(rng, (n,), cuda, torch.float32, 0.03)
+                    for n in (TP_DIM, TP_MLP, TP_DIM))
+    dy = _rand(rng, (1, TP_N, TP_DIM), cuda, dtype, 0.1)
+    dqkv = _rand(rng, (1, TP_N, 3 * TP_INNER), cuda, dtype, 0.1)
+    part, hid = TP_INNER // tp, TP_MLP // tp
+    shards = []
+    for m in range(tp):
+        dq = dqkv.reshape(1, TP_N, 3, TP_INNER)[..., m * part:(m + 1) * part]
+        shards.append({"attn": attn[..., m * part:(m + 1) * part]
+                       .contiguous(), "wout": cut(wout, "row", m, tp),
+                       "w1": cut(w1, "col", m, tp),
+                       "b1": cut(b1, "col", m, tp),
+                       "w2": cut(w2, "row", m, tp),
+                       "wqkv": cut(wqkv, "heads", m, tp),
+                       "dqkv": dq.reshape(1, TP_N, 3 * part).contiguous(),
+                       "cols": slice(m * hid, (m + 1) * hid)})
+    whole = dict(x=x, attn=attn, ln=ln, wout=wout, bout=bout, w1=w1, b1=b1,
+                 w2=w2, b2=b2, wqkv=wqkv, dy=dy, dqkv=dqkv)
+    return whole, shards
+
+
+def _close_f32(got, want, tol=1e-4):
+    torch.cuda.synchronize()
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() <= tol * (1 + want.abs())).all(), \
+        float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_outproj_partial_kernel(cuda, tp, dtype, rate):
+    """K3's tensor-parallel form on every shard against its plain version
+    (f32 partials, bias and residual on the first shard alone), and the
+    shards' f32 sum, rounded once, against the whole-width K3."""
+    from neurovit_tpu_torch.ops import tp_forms as F
+    wh, sh = _tp_block(cuda, tp, dtype)
+    parts = []
+    for m, s in enumerate(sh):
+        kw = dict(first=m == 0, dropout_rate=rate, seed=9)
+        got = F.outproj_partial(wh["x"], s["attn"], s["wout"], wh["bout"],
+                                **kw)
+        assert got.dtype == torch.float32
+        _close_f32(got, F.outproj_partial_plain(wh["x"], s["attn"],
+                                                s["wout"], wh["bout"], **kw))
+        parts.append(got)
+    whole = fused_outproj.fused_outproj_residual(
+        wh["x"], wh["attn"], wh["wout"], wh["bout"], dropout_rate=rate,
+        seed=9)
+    summed = torch.stack(parts).sum(0).to(dtype)
+    if dtype == torch.float32:
+        _close_f32(summed, whole)
+    else:
+        _check(summed, whole)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_mlp_partial_kernel(cuda, tp, dtype):
+    """K4's form on every shard against plain (its h too), and the shards'
+    sum against the whole-width K4 at dropout 0."""
+    from neurovit_tpu_torch.ops import tp_forms as F
+    wh, sh = _tp_block(cuda, tp, dtype)
+    parts = []
+    for m, s in enumerate(sh):
+        args = (wh["x"], *wh["ln"], s["w1"], s["b1"], s["w2"], wh["b2"])
+        y, h = F.mlp_partial(*args, first=m == 0, return_h=True)
+        want_y, want_h = F.mlp_partial_plain(*args, first=m == 0,
+                                             return_h=True)
+        _check(h, want_h)
+        torch.cuda.synchronize()
+        assert ((y - want_y).abs() <= ATOL + RTOL * want_y.abs()).all()
+        parts.append(y)
+    whole = fused_mlp.fused_mlp_block(wh["x"], *wh["ln"], wh["w1"], wh["b1"],
+                                      wh["w2"], wh["b2"])
+    summed = torch.stack(parts).sum(0).to(dtype)
+    if dtype == torch.float32:
+        _close_f32(summed, whole)
+    else:
+        _check(summed, whole)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_ln_backward_partial_kernels(cuda, tp, dtype):
+    """K9's form (dy added on the first shard) and K7's (its f32 instance
+    is K7 f32 itself) against plain: f32 dx partials, dgamma and dbeta
+    partials; the shards' dx summed and rounded once against the
+    whole-width K9 and K7."""
+    from neurovit_tpu_torch.ops import tp_forms as F
+    wh, sh = _tp_block(cuda, tp, dtype)
+    x, ln, dy = wh["x"], wh["ln"], wh["dy"]
+    _, h = fused_mlp.fused_mlp_block_plain(x, *ln, wh["w1"], wh["b1"],
+                                           wh["w2"], wh["b2"], return_h=True)
+    dxs, dqs = [], []
+    for m, s in enumerate(sh):
+        hm = h[..., s["cols"]].contiguous()
+        got = F.mlp_bwd_partial(dy, x, hm, *ln, s["w1"], s["w2"],
+                                first=m == 0)
+        want = F.mlp_bwd_partial_plain(dy, x, hm, *ln, s["w1"], s["w2"],
+                                       first=m == 0)
+        assert got[0].dtype == torch.float32
+        torch.cuda.synchronize()
+        tol = 1e-4 + 2e-2 * want[0].abs().max() + RTOL * want[0].abs()
+        assert ((got[0] - want[0]).abs() <= tol).all()
+        for g, w_ in zip(got[5:], want[5:]):
+            assert float((g - w_).norm() / w_.norm()) <= 1e-2
+        dxs.append(got[0])
+        got = F.ln_qkv_bwd_partial(s["dqkv"], x, ln[0], s["wqkv"])
+        want = F.ln_qkv_bwd_partial_plain(s["dqkv"], x, ln[0], s["wqkv"])
+        torch.cuda.synchronize()
+        tol = 1e-4 + 2e-2 * want[0].abs().max() + RTOL * want[0].abs()
+        assert got[0].dtype == torch.float32
+        assert ((got[0] - want[0]).abs() <= tol).all()
+        dqs.append(got[0])
+    bwd = (fused_mlp.fused_mlp_bwd_f32_cuda if dtype == torch.float32
+           else fused_mlp.fused_mlp_bwd_cuda)
+    whole = bwd(dy, x, h, *ln, wh["w1"], wh["w2"])[0]
+    summed = torch.stack(dxs).sum(0).to(dtype)
+    torch.cuda.synchronize()
+    tol = 1e-4 + 2e-2 * whole.abs().max() + RTOL * whole.float().abs()
+    assert ((summed.float() - whole.float()).abs() <= tol).all()
+    k7 = (fused_qkv.fused_ln_qkv_bwd_f32_cuda if dtype == torch.float32
+          else fused_qkv.fused_ln_qkv_bwd_cuda)
+    whole = k7(wh["dqkv"], x, ln[0], wh["wqkv"])[0]
+    summed = torch.stack(dqs).sum(0).to(dtype)
+    torch.cuda.synchronize()
+    tol = 1e-4 + 2e-2 * whole.abs().max() + RTOL * whole.float().abs()
+    assert ((summed.float() - whole.float()).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_int8_split_row_quantize_kernels(cuda, tp, dtype):
+    """K11's and K12's split row-quantize: the shards' row amax maxed over
+    the model group gives the one-card K11's and K12's codes bit for bit;
+    the forms' int32 accumulators are plain's; their sum through the
+    epilogue is the one-card K11's and K12's output bit for bit."""
+    from neurovit_tpu_torch.ops import tp_forms as F
+    from neurovit_tpu_torch.parallel.tensor_parallel import cut
+    q8 = int8_serving
+    wh, sh = _tp_block(cuda, tp, dtype)
+    x, ln = wh["x"], wh["ln"]
+    rows = TP_N
+    sfx = "_f32" if dtype == torch.float32 else ""
+    w8, s8 = q8.quantize_weight(wh["wout"])
+    plan = q8.int8_outproj_plan(rows, TP_DIM, TP_INNER)
+    scr = q8._scratch(plan, x, None)
+    one = q8._outproj_cuda(f"nvt_int8_outproj{sfx}", dtype, x, wh["attn"],
+                           w8, s8, wh["bout"], scr)
+    amax = torch.stack([F.int8_row_amax(s["attn"]) for s in sh]).amax(0)
+    wrap = (F.int8_outproj_partial_f32_cuda if sfx
+            else F.int8_outproj_partial_cuda)
+    plan_m = q8.int8_outproj_plan(rows, TP_DIM, TP_INNER // tp)
+    parts, codes = [], []
+    for m, s in enumerate(sh):
+        scr_m = q8._scratch(plan_m, x, None)
+        got = wrap(s["attn"], amax, cut(w8, "row", m, tp), scratch=scr_m)
+        want = F.int8_outproj_partial_plain(s["attn"], amax,
+                                            cut(w8, "row", m, tp))
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+        off, n = plan_m.scratch["a8"]
+        codes.append(scr_m[off:off + n].view(torch.int8).reshape(rows, -1))
+        parts.append(got)
+    off, n = plan.scratch["a8"]
+    assert torch.equal(torch.cat(codes, 1),
+                       scr[off:off + n].view(torch.int8).reshape(rows, -1))
+    acc = torch.stack(parts).sum(0, dtype=torch.int32)
+    got = F.int8_dequant_residual(x, acc, amax, s8, wh["bout"])
+    want = F.int8_dequant_residual_plain(x, acc, amax, s8, wh["bout"])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, one)
+    (w18, s18), (w28, s28) = (q8.quantize_weight(wh["w1"]),
+                              q8.quantize_weight(wh["w2"]))
+    plan = q8.mlp_plan(rows, TP_DIM, TP_MLP)
+    scr = q8._scratch(plan, x, None)
+    one = q8._mlp_cuda(f"nvt_int8_mlp{sfx}", dtype, x, *ln, w18, s18,
+                       wh["b1"], w28, s28, wh["b2"], scr)
+    hidden = [F.int8_mlp_hidden(x, *ln, cut(w18, "col", m, tp),
+                                cut(s18, "col", m, tp), s["b1"])
+              for m, s in enumerate(sh)]
+    gmax = torch.stack([a for _, a in hidden]).amax(0)
+    plan_m = q8.mlp_plan(rows, TP_DIM, TP_MLP // tp)
+    parts = []
+    for m, (st, _) in enumerate(hidden):
+        got = F.int8_mlp_partial(st, gmax, cut(w28, "row", m, tp))
+        off, n = plan_m.scratch["g"]
+        g = st[off:off + n].view(torch.float32).reshape(rows, -1)
+        want = F.int8_mlp_partial_plain(g, gmax.reshape(rows),
+                                        cut(w28, "row", m, tp))
+        torch.cuda.synchronize()
+        assert torch.equal(got.reshape(rows, -1), want)
+        parts.append(got)
+    off, n = plan_m.scratch["g8"]
+    codes = torch.cat([st[off:off + n].view(torch.int8).reshape(rows, -1)
+                       for st, _ in hidden], 1)
+    off, n = plan.scratch["g8"]
+    torch.cuda.synchronize()
+    assert torch.equal(codes,
+                       scr[off:off + n].view(torch.int8).reshape(rows, -1))
+    got = F.int8_dequant_residual(x, torch.stack(parts).sum(0,
+                                                            dtype=torch.int32),
+                                  gmax, s28, wh["b2"])
+    torch.cuda.synchronize()
+    assert torch.equal(got, one)
+
+
+def test_tp_forms_launch_their_kernels(cuda):
+    """Each form's wrapper counts one launch a call on CUDA tensors."""
+    from neurovit_tpu_torch.ops import tp_forms as F
+    wh, sh = _tp_block(cuda, 2, torch.bfloat16)
+    before = F.outproj_partial_cuda.launches
+    F.outproj_partial(wh["x"], sh[1]["attn"], sh[1]["wout"], wh["bout"],
+                      first=False)
+    assert F.outproj_partial_cuda.launches == before + 1
+    before = F.int8_row_amax_cuda.launches
+    amax = F.int8_row_amax(sh[0]["attn"])
+    assert F.int8_row_amax_cuda.launches == before + 1
+    w8 = torch.zeros(TP_DIM, TP_INNER // 2, dtype=torch.int8, device=cuda)
+    before = F.int8_outproj_partial_cuda.launches
+    acc = F.int8_outproj_partial(sh[0]["attn"], amax, w8)
+    assert F.int8_outproj_partial_cuda.launches == before + 1
+    before = F.int8_dequant_residual_cuda.launches
+    F.int8_dequant_residual(wh["x"], acc, amax, wh["bout"], wh["bout"])
+    assert F.int8_dequant_residual_cuda.launches == before + 1

@@ -13,7 +13,8 @@ import torch
 from neurovit_tpu_torch.ops import _build, dropout
 from neurovit_tpu_torch.ops import flash_attention as fa
 from neurovit_tpu_torch.ops import (fused_mlp, fused_outproj, fused_qkv,
-                                    int8_gemm, int8_serving, maxpool3d)
+                                    int8_gemm, int8_serving, maxpool3d,
+                                    tp_forms)
 
 torch.set_num_threads(1)
 
@@ -39,7 +40,8 @@ COUNTED = (fa.flash_attention_cuda, fused_qkv.fused_ln_qkv_cuda,
            int8_serving.int8_mlp_block_f32_cuda,
            int8_serving.int8_flash_attention_f32_cuda,
            fa.flash_attention_bhnd_f32_cuda,
-           fa.flash_attention_bhnd_bwd_f32_cuda)
+           fa.flash_attention_bhnd_bwd_f32_cuda,
+           *tp_forms.CUDA_WRAPPERS.values())
 
 
 def test_every_module_imports_with_jax_blocked():
@@ -93,8 +95,11 @@ def test_every_module_imports_with_jax_blocked():
         "assert 'neurovit_tpu_torch.training.feature_cache' in names\n"
         "assert 'neurovit_tpu_torch.training.sweep' in names\n"
         "assert 'neurovit_tpu_torch.utils.profiling' in names\n"
-        "for mod in ('mesh', 'distributed', 'sharding'):\n"
+        "for mod in ('mesh', 'distributed', 'sharding', "
+        "'tensor_parallel'):\n"
         "    assert f'neurovit_tpu_torch.parallel.{mod}' in names, mod\n"
+        "assert 'neurovit_tpu_torch.ops.tp_forms' in names\n"
+        "assert 'neurovit_tpu_torch.dryrun' in names\n"
         "import numpy as np\n"
         "from neurovit_tpu_torch.training.sweep import tpe_sample\n"
         "params = tpe_sample({'learning_rate': {'min': 1e-5, 'max': 1e-2}},\n"
@@ -190,6 +195,50 @@ def test_parallel_runs_with_jax_blocked(tmp_path):
     assert out.stdout.split()[-1] == "ok"
 
 
+def test_tensor_parallel_runs_with_jax_blocked():
+    """With ``jax`` and ``neurovit_tpu`` blocked: a tensor-parallel
+    replica over two CPU copies serves a small ViT (bf16, f32 and int8) as
+    one replica does, and ``dryrun_multichip(2)`` (two gloo ranks, tp 2)
+    passes its parts; no module of either was loaded."""
+    script = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['neurovit_tpu'] = None\n"
+        "import copy, torch\n"
+        "from neurovit_tpu_torch.models.vit3d import (ViT3D, ViTConfig,\n"
+        "                                             quantize_blocks)\n"
+        "from neurovit_tpu_torch.parallel.tensor_parallel import (\n"
+        "    TensorParallelViT)\n"
+        "cfg = ViTConfig(image_size=10, image_patch_size=5, frames=10,\n"
+        "    frame_patch_size=5, num_classes=2, dim=32, depth=2, heads=2,\n"
+        "    dim_head=16, mlp_dim=64)\n"
+        "vit = ViT3D(cfg)\n"
+        "vit.reset_parameters(torch.Generator().manual_seed(0))\n"
+        "x = torch.randn(2, 1, 10, 10, 10)\n"
+        "with torch.no_grad():\n"
+        "    for v, dt in ((vit, torch.float32), (vit, torch.bfloat16),\n"
+        "                  (quantize_blocks(copy.deepcopy(vit)),\n"
+        "                   torch.float32)):\n"
+        "        want = v(x.to(dt))\n"
+        "        got = TensorParallelViT(v, ['cpu', 'cpu'])(x.to(dt))\n"
+        "        assert (got - want).abs().max() < 1e-3, (got, want)\n"
+        "from neurovit_tpu_torch.dryrun import dryrun_multichip\n"
+        "dryrun_multichip(2, device='cpu')\n"
+        "loaded = [m for m in sys.modules if m == 'jax' or m == "
+        "'neurovit_tpu' or m.startswith(('jax.', 'neurovit_tpu.'))]\n"
+        "assert not [m for m in loaded if sys.modules[m] is not None], "
+        "loaded\n"
+        "print('ok')\n")
+    env = {**os.environ, "PYTHONPATH": REPO}
+    for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(key, None)
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    assert "dryrun_multichip(2): 3D mesh={'data': 1, 'model': 2" in out.stdout
+    assert out.stdout.split()[-1] == "ok"
+
+
 def test_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.delenv("CUDA_HOME", raising=False)
@@ -280,7 +329,18 @@ def test_cpu_path_launches_no_kernel():
         cam, _ = vit_cam_2d.compute_cam_2d(model2d, squares[0][0],
                                            method=method, score_batch=64)
         assert cam.shape == (vit_cam_2d.IMAGE_SIZE,) * 2
-    assert [fn.launches for fn in COUNTED] == before == [0] * 30
+    # The tensor-parallel forms' plain versions.
+    y = tp_forms.outproj_partial(x, t(1, 5, 8), t(16, 8), t(16), first=True)
+    y, h = tp_forms.mlp_partial(x, t(16), t(16), t(16, 16), t(16),
+                                t(16, 16), t(16), first=False, return_h=True)
+    tp_forms.mlp_bwd_partial(t(1, 5, 16), x, h, t(16), t(16), t(16, 16),
+                             t(16, 16), first=True)
+    tp_forms.ln_qkv_bwd_partial(t(1, 5, 24), x, t(16), t(24, 16))
+    amax = tp_forms.int8_row_amax(t(1, 5, 8))
+    w8, s = int8_serving.quantize_weight(t(16, 8))
+    acc = tp_forms.int8_outproj_partial(t(1, 5, 8), amax, w8)
+    tp_forms.int8_dequant_residual(x, acc, amax, s, t(16))
+    assert [fn.launches for fn in COUNTED] == before == [0] * 46
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

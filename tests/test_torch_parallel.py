@@ -40,8 +40,9 @@ CPU = torch.device("cpu")
 
 
 def test_mesh_shapes_and_errors():
-    """JAX's rule over 8 devices; its errors; a model or pipe axis above 1
-    raises not_ported naming multi-GPU and what it is."""
+    """JAX's rule over 8 devices; its errors; a pipe axis above 1 raises
+    not_ported naming multi-GPU and what it is, with a model axis too (the
+    model axis alone builds: tests/test_torch_tensor_parallel.py)."""
     mesh = create_mesh({"MESH_DATA_AXIS": -1, "MESH_MODEL_AXIS": 1},
                        [CPU] * 8)
     assert mesh.shape == {DATA_AXIS: 8, MODEL_AXIS: 1, PIPE_AXIS: 1}
@@ -55,8 +56,9 @@ def test_mesh_shapes_and_errors():
     with pytest.raises(ValueError, match="runs 4 processes"):
         create_mesh({}, 4)                       # no group of 4 here
     with pytest.raises(NotImplementedError,
-                       match="tensor parallelism.*Queue 1: multi-GPU"):
-        create_mesh({"MESH_DATA_AXIS": -1, "MESH_MODEL_AXIS": 2}, [CPU] * 8)
+                       match="pipeline parallelism.*Queue 1: multi-GPU"):
+        create_mesh({"MESH_DATA_AXIS": -1, "MESH_MODEL_AXIS": 2,
+                     "MESH_PIPE_AXIS": 2}, [CPU] * 8)
     with pytest.raises(NotImplementedError,
                        match="pipeline parallelism.*Queue 1: multi-GPU"):
         create_mesh({"MESH_PIPE_AXIS": 2}, [CPU] * 8)

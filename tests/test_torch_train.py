@@ -214,13 +214,13 @@ def test_plateau_halves_the_lr_after_patience(tiny_config):
 
 @pytest.mark.parametrize("extra,item", [
     ({"MESH_DATA_AXIS": 2}, "multi-GPU"),
-    ({"MESH_MODEL_AXIS": 2}, "multi-GPU"),
+    ({"MESH_PIPE_AXIS": 2}, "multi-GPU"),
 ])
 def test_unported_training_options_name_their_roadmap_item(tiny_config,
                                                             extra, item):
-    """Data parallelism is ported: a data axis of 2 in one process is
-    create_mesh's error (JAX's, mesh.py:36-37); tensor parallelism still
-    raises not_ported with its ROADMAP item."""
+    """Data and tensor parallelism are ported: a data axis of 2 in one
+    process is create_mesh's error (JAX's, mesh.py:36-37); pipeline
+    parallelism still raises not_ported with its ROADMAP item."""
     config = _config(tiny_config, "f32", **extra)
     if "MESH_DATA_AXIS" in extra:
         with pytest.raises(ValueError, match="mesh 2x1x1 != 1 devices"):
@@ -228,6 +228,6 @@ def test_unported_training_options_name_their_roadmap_item(tiny_config,
                     _Volumes())
         return
     with pytest.raises(NotImplementedError,
-                       match=f"tensor parallelism.*Queue 1: {item}"):
+                       match=f"pipeline parallelism.*Queue 1: {item}"):
         Trainer(config, NeuroEncoder(config, device="cpu"), _Volumes(),
                 _Volumes())

@@ -302,14 +302,197 @@ def case_preempt(workdir: str) -> Dict[str, Any]:
 
 
 def case_batch_refusal(workdir: str) -> Dict[str, Any]:
-    """A global batch of 15 over the ranks: the refusal's message, None
-    when it is accepted."""
+    """A global batch of 15 over the ranks, which JAX pads to a multiple of
+    the data axis: the refusal's message (None now that it is accepted),
+    and a step on this rank's rows of the padded batch."""
     config = tiny_config(workdir, TRAINING_BATCH_SIZE=15)
     try:
-        _trainer(config, Volumes(64))
+        trainer = _trainer(config, Volumes(64), seed=12)
     except ValueError as e:
         return {"error": str(e)}
-    return {"error": None}
+    out = _steps(trainer, global_batches(1, b=15))
+    return {"error": None, "metrics": out["metrics"], "state": out["state"],
+            "rows": len(sharding.local_rows(global_batches(1, b=15)[0],
+                                            trainer.mesh)["valid"])}
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: dp 2 x tp 2 over four ranks (MESH_MODEL_AXIS 2)
+# ---------------------------------------------------------------------------
+
+TP = {"MESH_MODEL_AXIS": 2}
+
+
+def _tp_steps(trainer: Trainer, batches: list) -> Dict[str, Any]:
+    """_steps on a tensor-parallel trainer, its gradients and state
+    gathered whole (a one-process model's keys and shapes)."""
+    from neurovit_tpu_torch.parallel import tensor_parallel
+    out = _steps(trainer, batches)
+    out["grads"] = [{k: tensor_parallel.gather(v, k, trainer.mesh)
+                     for k, v in window.items()} for window in out["grads"]]
+    out["state"] = {k: v.clone() for k, v in trainer._whole_state().items()}
+    return out
+
+
+def case_tp_vit(workdir: str, precision: str = "f32",
+                batch: int = GLOBAL_BATCH) -> Dict[str, Any]:
+    """One step of the 3D ViT on dp 2 x tp 2 from the JAX trainer's init:
+    the whole gradients and parameters, each rank's shard shapes."""
+    config = tiny_config(workdir, TRAINING_PRECISION=precision,
+                         TRAINING_BATCH_SIZE=batch, **TP)
+    trainer = _trainer(config, Volumes(64),
+                       weights=os.path.join(workdir, "vit_weights.pt"))
+    out = _tp_steps(trainer, global_batches(1, b=batch))
+    out["mesh"] = (trainer.mesh.rank, trainer.mesh.model_index,
+                   trainer.mesh.data, trainer.mesh.model)
+    out["shard"] = {k: tuple(v.shape) for k, v in
+                    trainer.model.state_dict().items()}
+    return out
+
+
+def case_tp_vit_bf16(workdir: str) -> Dict[str, Any]:
+    return case_tp_vit(workdir, precision="bf16")
+
+
+def case_tp_vit_pad(workdir: str) -> Dict[str, Any]:
+    """A global batch of 5 over the data axis of 2: padded to 6."""
+    return case_tp_vit(workdir, batch=5)
+
+
+def case_tp_resnet_pad(workdir: str) -> Dict[str, Any]:
+    """A ResNet-10 step at global batch 5 on dp 2 x tp 2: replicated over
+    the model axis, the batch padded to 6, whose pad row the global
+    BatchNorm counts as JAX's does."""
+    config = tiny_config(workdir, MODEL_VOLUME_ENCODER="resnet",
+                         MODEL_RESNET_DEPTH=10, TRAINING_BATCH_SIZE=5,
+                         DATASET_NAME="adni", **TP)
+    trainer = _trainer(config, Volumes(16, classes=2), seed=2)
+    return _steps(trainer, global_batches(1, b=5, classes=2))
+
+
+def case_tp_fourd(workdir: str, quant: bool = False) -> Dict[str, Any]:
+    """case_fourd on dp 2 x tp 2: the frozen encoder tensor-parallel, the
+    B·T stream of 8 split over the data axis."""
+    extra = {"TRAINING_4D_ENCODER_QUANT": "int8"} if quant else {}
+    config = tiny_config(workdir, TRAINING_DIM=4, DATASET_NAME="adni",
+                         TRAINING_BATCH_SIZE=2, MODEL_TEMPORAL_DROPOUT=0.0,
+                         **TP, **extra)
+    trainer = _trainer(config, Sequences(4, 4), seed=4)
+    rng = np.random.RandomState(11)
+    batches = [{"volume": rng.randn(2, GRID, GRID, GRID, 4).astype(
+                    np.float32),
+                "label": rng.randint(0, 2, 2).astype(np.int64),
+                "valid": np.array([True, i == 0])} for i in range(2)]
+    return _tp_steps(trainer, batches)
+
+
+def case_tp_fourd_int8(workdir: str) -> Dict[str, Any]:
+    return case_tp_fourd(workdir, quant=True)
+
+
+def case_tp_dropout(workdir: str) -> Dict[str, Any]:
+    """A step at dropout 0.1 on dp 2 x tp 2: the key of every dropout site
+    of the blocks (the column-parallel probabilities and hidden, the
+    row-parallel out-projection and MLP output) and the embedding's."""
+    from neurovit_tpu_torch.ops import tp_forms
+    from neurovit_tpu_torch.parallel import tensor_parallel
+    config = tiny_config(workdir, TRAINING_DROPOUT=0.1, **TP)
+    trainer = _trainer(config, Volumes(64), seed=8)
+    keys = {"probs": [], "hidden": [], "outproj": [], "mlp_out": [],
+            "step": []}
+    attend, outproj, mlp = (tensor_parallel.flash_attention,
+                            tp_forms.outproj_partial, tp_forms.mlp_partial)
+
+    def spy_attend(*args, **kw):
+        keys["probs"].append(kw["seed"])
+        return attend(*args, **kw)
+
+    def spy_outproj(*args, **kw):
+        keys["outproj"].append(kw["seed"])
+        return outproj(*args, **kw)
+
+    def spy_mlp(*args, **kw):
+        keys["hidden"].append(kw["seeds"][0])
+        keys["mlp_out"].append(kw["seeds"][1])
+        return mlp(*args, **kw)
+
+    logits = trainer._logits
+
+    def spy_logits(batch, zyx, train=False, seed=None):
+        keys["step"].append(seed)
+        return logits(batch, zyx, train=train, seed=seed)
+
+    trainer._logits = spy_logits
+    tensor_parallel.flash_attention = spy_attend
+    tp_forms.outproj_partial = spy_outproj
+    tp_forms.mlp_partial = spy_mlp
+    try:
+        out = _tp_steps(trainer, global_batches(1))
+    finally:
+        tensor_parallel.flash_attention = attend
+        tp_forms.outproj_partial, tp_forms.mlp_partial = outproj, mlp
+    return {"keys": keys, "mesh": (trainer.mesh.rank,
+                                   trainer.mesh.model_index),
+            "loss": out["metrics"][0][0]}
+
+
+def case_tp_restore(workdir: str) -> Dict[str, Any]:
+    """A step on dp 2 x tp 2, the train state written whole by rank 0,
+    restored by every rank into a trainer of other weights; then a step of
+    each."""
+    config = tiny_config(workdir, **TP)
+    path = os.path.join(workdir, "tp_restore", "state")
+    first = _trainer(config, Volumes(64), seed=6)
+    b1, b2 = global_batches(2)
+    _tp_steps(first, [b1])
+    first._save(path)
+    files = sorted(os.listdir(os.path.dirname(path)))
+    other = _trainer(config, Volumes(64), seed=9)
+    other.restore(path)
+    restored = {k: v.clone() for k, v in other._whole_state().items()}
+    moments = other.optimizer.opt.state_dict()["state"]
+    want = _tp_steps(first, [b2])
+    got = _tp_steps(other, [b2])
+    return {"restored": restored, "files": files, "path": path,
+            "after": got["state"], "want": want["state"],
+            "metrics": got["metrics"],
+            "moment_shapes": sorted(tuple(st["exp_avg"].shape)
+                                    for st in moments.values())}
+
+
+def case_tp_dryrun(workdir: str) -> Dict[str, Any]:
+    """dryrun_multichip(4) on this group: rank 0's printed lines."""
+    import contextlib
+    import io
+    from neurovit_tpu_torch.dryrun import dryrun_multichip
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        dryrun_multichip(dist.get_world_size(), device="cpu")
+    return {"lines": [line for line in text.getvalue().splitlines()
+                      if line.startswith("dryrun_multichip")]}
+
+
+TP_CASES = {"tp_vit": case_tp_vit, "tp_vit_bf16": case_tp_vit_bf16,
+            "tp_vit_pad": case_tp_vit_pad,
+            "tp_resnet_pad": case_tp_resnet_pad, "tp_fourd": case_tp_fourd,
+            "tp_fourd_int8": case_tp_fourd_int8,
+            "tp_dropout": case_tp_dropout, "tp_restore": case_tp_restore,
+            "tp_dryrun": case_tp_dryrun}
+
+
+def tp_rank_main(rank: int, world: int, workdir: str) -> None:
+    """A rank of the dp 2 x tp 2 group: every tensor-parallel case."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/rdv",
+                            rank=rank, world_size=world)
+    try:
+        assert distributed.maybe_initialize({}, torch.device("cpu"))
+        torch.manual_seed(0)
+        root = os.path.join(workdir, "ranks")
+        results = {name: case(root) for name, case in TP_CASES.items()}
+        torch.save(results, os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
 
 
 CASES = {"vit": case_vit, "ragged": case_ragged, "accum": case_accum,
